@@ -1,0 +1,148 @@
+"""Text-to-image inference CLI (JAX counterpart: sd3_tpu/inference/infer.py).
+
+Example:
+  python -m sd3_torch.inference.infer --loadDir ckpts/run \
+      --torch_ckpt model_1000s.pkl --loadDefFile model_params_1000s.json \
+      --text_input "a red fox" --num_steps 20 --guidance 5 --width 512 \
+      --height 512 --sampler euler --seed 7 --stub_encoders --out_imgname fig
+
+Loads a reference torch checkpoint (`--torch_ckpt` state_dict with the
+`--loadDefFile` params JSON) and samples on `--device` (default cuda; it
+raises when no GPU is there rather than run on the CPU). `--stub_encoders`
+runs with the deterministic stub conditioning stack. Native msgpack
+checkpoints, `--quant int8` and `--gif` come with later slices of the port
+and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+
+import numpy as np
+
+
+def build_argparser():
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--loadDir", required=True)
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step suffix (native checkpoints)")
+    p.add_argument("--torch_ckpt", default=None,
+                   help="reference .pkl state_dict filename inside loadDir")
+    p.add_argument("--loadDefFile", default=None,
+                   help="model_params JSON filename inside loadDir")
+    p.add_argument("--text_input", required=True)
+    p.add_argument("--num_steps", type=int, default=10)
+    p.add_argument("--guidance", type=float, default=4.0)
+    p.add_argument("--width", type=int, default=256)
+    p.add_argument("--height", type=int, default=256)
+    p.add_argument("--sampler", default="euler",
+                   choices=["euler", "euler_stochastic", "heun"])
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--out_imgname", default="fig")
+    p.add_argument("--gif", action="store_true",
+                   help="also save the per-step diffusion gif (not ported)")
+    p.add_argument("--gif_fps", type=int, default=10)
+    p.add_argument("--stub_encoders", action="store_true")
+    p.add_argument("--ema", action="store_true",
+                   help="load the EMA weights (native checkpoints)")
+    p.add_argument("--dtype", default="checkpoint",
+                   choices=["checkpoint", "float32", "bfloat16"],
+                   help="compute-dtype override")
+    p.add_argument("--save_latents", default=None, metavar="PATH.npy",
+                   help="also dump the raw pre-VAE latents (fp32 npy)")
+    p.add_argument("--quant", default="none", choices=["none", "int8"],
+                   help="int8 serving (not ported)")
+    p.add_argument("--allow_unsafe_pickle", action="store_true",
+                   help="permit torch.load(weights_only=False) for legacy "
+                        "reference .pkl files that the safe loader rejects — "
+                        "executes pickle code, only for trusted checkpoints")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda or cpu)")
+    return p
+
+
+def load_model(args, device):
+    """(model, cfg) from a reference checkpoint, on `device`, parameters in
+    the compute dtype."""
+    import torch
+    from sd3_torch import torch_dtype
+    from sd3_torch.config import MMDiTConfig
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.weights import load_reference_state_dict
+
+    if not args.torch_ckpt:
+        raise NotImplementedError(
+            "native msgpack checkpoints are not ported yet: ROADMAP.md, port "
+            "queue, 'checkpoints'; pass --torch_ckpt and --loadDefFile")
+    if not args.loadDefFile:
+        raise ValueError("--loadDefFile is required with --torch_ckpt")
+    with open(os.path.join(args.loadDir, args.loadDefFile)) as f:
+        cfg = MMDiTConfig.from_json_dict(json.load(f))
+    if args.dtype != "checkpoint":
+        cfg = cfg.replace(dtype=args.dtype)
+    path = os.path.join(args.loadDir, args.torch_ckpt)
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:  # the safe loader refused it
+        if not args.allow_unsafe_pickle:
+            raise RuntimeError(
+                f"{args.torch_ckpt} is not a plain tensor state_dict "
+                f"(weights_only load failed: {e}); re-run with "
+                "--allow_unsafe_pickle only if you trust its origin") from e
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    model = MMDiT(cfg, device="cpu")  # load on the host, then move
+    load_reference_state_dict(model, sd)
+    model.cast_params(torch_dtype(cfg.dtype)).to(device).eval()
+    return model, cfg
+
+
+def save_png(arr_chw: np.ndarray, path: str):
+    from PIL import Image
+    img = np.clip((arr_chw.transpose(1, 2, 0) + 1) / 2 * 255, 0, 255)
+    Image.fromarray(img.astype(np.uint8)).save(path)
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.quant == "int8":
+        raise NotImplementedError(
+            "--quant int8 is the int8 serving slice, not ported yet: "
+            "ROADMAP.md, kernel queue")
+    if args.gif:
+        raise NotImplementedError(
+            "--gif (per-step decodes) is not ported yet: ROADMAP.md, port "
+            "queue, 'GIF path'")
+    import torch
+    from sd3_torch import resolve_device
+    from sd3_torch.inference.sampler import sample_imgs
+    from sd3_torch.models.text_encoders import load_text_encoders
+
+    device = resolve_device(args.device)
+    model, cfg = load_model(args, device)
+    encoders = load_text_encoders(
+        device=device, stub=args.stub_encoders,
+        weights_dir=None if args.stub_encoders
+        else os.environ.get("SD3_ENCODER_WEIGHTS"),
+        model_cfg=cfg)
+    # seed -1 means "random" (reference infer.py default)
+    seed = args.seed if args.seed != -1 else int.from_bytes(os.urandom(4), "little")
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    lat = sample_imgs(model, encoders, args.batch_size, args.num_steps,
+                      args.text_input, args.guidance, args.width, args.height,
+                      args.sampler, generator=gen, decode=False)
+    if args.save_latents:
+        np.save(args.save_latents, lat.float().cpu().numpy())
+        print(f"wrote {args.save_latents}")
+    out = encoders.vae_decode(lat).float().cpu().numpy()
+    for i, img in enumerate(out):
+        save_png(img, f"{args.out_imgname}_{i}.png")
+        print(f"wrote {args.out_imgname}_{i}.png")
+
+
+if __name__ == "__main__":
+    main()

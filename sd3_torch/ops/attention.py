@@ -1,0 +1,117 @@
+"""Joint dual-stream attention (JAX counterpart: sd3_tpu/ops/attention.py).
+
+Semantics of reference src/blocks/Attention.py: separate bias-free q/k/v/out
+projections per stream (image "x", text "c"), per-head q/k RMSNorm per
+stream, RoPE on the IMAGE tokens only, the two streams concatenated along the
+sequence and attended jointly, then split back; the `last` block has no text
+out-projection. The softmax scale is head_dim(v) ** -0.5, taken from the
+*value* head dim (reference Attention.py:57).
+
+This slice ports the fused path, the one the published config takes
+(`JointAttention._fused_path_ok` in the JAX package): raw projections go to
+kernel K1 (ops/fused_attention.py), which applies the norms and the rotation
+itself. Configurations that path rejects raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sd3_torch.ops.fused_attention import (fold_row_tables, fused_attention,
+                                           rope_row_tables)
+from sd3_torch.ops.norms import RMSNorm, linear
+from sd3_torch.ops.rope import rope2d_axial_angles
+
+_GENERAL_PATH = ("the unfused attention path is not ported yet: ROADMAP.md, "
+                 "port queue, 'attention general path'")
+
+
+class JointAttention(nn.Module):
+    """Dual-stream joint attention through the fused K1 path."""
+
+    def __init__(self, dim: int, num_heads: int = 8,
+                 attn_type: str = "softmax_flash", causal: bool = False,
+                 positional_encoding: str = "RoPE2d", rope_scale: float = 1.0,
+                 kv_merge_attn: bool = False, qk_half_dim: bool = False,
+                 layer_idx: int | None = None, dual: bool = True,
+                 last: bool = False, rope2d_interpolate: bool = False,
+                 device=None, dtype=None):
+        super().__init__()
+        if attn_type == "both":
+            attn_type = "softmax" if (layer_idx or 0) % 2 == 0 else "cosine"
+        hd = dim // num_heads
+        if attn_type != "softmax_flash":
+            raise NotImplementedError(f"attn_type={attn_type!r}: {_GENERAL_PATH}")
+        for flag, name in ((causal, "causal"), (kv_merge_attn, "kv_merge_attn"),
+                           (qk_half_dim, "qk_half_dim"), (not dual, "dual=False")):
+            if flag:
+                raise NotImplementedError(f"{name}: {_GENERAL_PATH}")
+        if positional_encoding in ("RoPE", "RoPE2dV2"):
+            raise NotImplementedError(
+                f"positional_encoding={positional_encoding!r} is not ported "
+                "yet: ROADMAP.md, port queue, 'RoPE1d / RoPE2dV2'")
+        if hd % 2 or 128 % hd:
+            raise NotImplementedError(f"head dim {hd}: {_GENERAL_PATH}")
+        self.dim = dim
+        self.num_heads = num_heads
+        self.positional_encoding = positional_encoding
+        self.rope_scale = rope_scale
+        self.rope2d_interpolate = rope2d_interpolate
+        self.last = last
+        self.scale = hd ** -0.5  # value head dim (reference Attention.py:57)
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.query_proj_x = nn.Linear(dim, dim, **kw)
+        self.key_proj_x = nn.Linear(dim, dim, **kw)
+        self.value_proj_x = nn.Linear(dim, dim, **kw)
+        self.out_proj_x = nn.Linear(dim, dim, **kw)
+        self.query_proj_c = nn.Linear(dim, dim, **kw)
+        self.key_proj_c = nn.Linear(dim, dim, **kw)
+        self.value_proj_c = nn.Linear(dim, dim, **kw)
+        if not last:
+            self.out_proj_c = nn.Linear(dim, dim, **kw)
+        self.q_norm_x = RMSNorm(hd, device=device, dtype=dtype)
+        self.k_norm_x = RMSNorm(hd, device=device, dtype=dtype)
+        self.q_norm_c = RMSNorm(hd, device=device, dtype=dtype)
+        self.k_norm_c = RMSNorm(hd, device=device, dtype=dtype)
+        # (n_img, n, hw, device) -> rotation tables on the device, built once
+        # so the sampling loop copies nothing from the host per call.
+        self._tables: dict = {}
+
+    def _rope_tables(self, n_img: int, n: int, hw, device):
+        key = (n_img, n, hw, device)
+        if key not in self._tables:
+            hd = self.dim // self.num_heads
+            angles = None
+            if self.positional_encoding == "RoPE2d":
+                h, w = hw
+                factor = (1.0 / self.rope_scale if self.rope2d_interpolate
+                          else 1.0)
+                angles = rope2d_axial_angles(h, w, hd, factor).reshape(n_img, hd)
+            self._tables[key] = tuple(torch.as_tensor(t, device=device)
+                                      for t in rope_row_tables(angles, n, hd))
+        return self._tables[key]
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor, hw):
+        """x: (B, N, dim) image tokens, c: (B, M, dim) text tokens, both in
+        the compute dtype; hw: the image token grid (h, w), h*w == N.
+        Returns (x_out, c_out); c_out is not projected when `last`."""
+        n, m = x.shape[1], c.shape[1]
+        q = torch.cat([linear(x, self.query_proj_x),
+                       linear(c, self.query_proj_c)], dim=1)
+        k = torch.cat([linear(x, self.key_proj_x),
+                       linear(c, self.key_proj_c)], dim=1)
+        v = torch.cat([linear(x, self.value_proj_x),
+                       linear(c, self.value_proj_c)], dim=1)
+        cos, sin = self._rope_tables(n, n + m, tuple(hw), x.device)
+        cosq, sinq = fold_row_tables(cos, sin, self.q_norm_x.weight,
+                                     self.q_norm_c.weight, n)
+        cosk, sink = fold_row_tables(cos, sin, self.k_norm_x.weight,
+                                     self.k_norm_c.weight, n)
+        out = fused_attention(q, k, v, self.num_heads, cosq, sinq, cosk, sink,
+                              self.scale)
+        out_x = linear(out[:, :n], self.out_proj_x)
+        out_c = out[:, n:]
+        if not self.last:
+            out_c = linear(out_c, self.out_proj_c)
+        return out_x, out_c

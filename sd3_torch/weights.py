@@ -1,0 +1,77 @@
+"""Weights across the two packages and from reference checkpoints.
+
+- `state_dict_from_jax(params)`: the JAX package's MMDiT parameter tree
+  (nested dicts of arrays) -> this port's state_dict. The port's own copy of
+  the name mapping of `sd3_tpu/training/checkpoint.py::export_to_torch_state_dict`
+  (reference state-dict names), except that the patch-embedding kernel
+  (C*p*p, O) becomes the reference's Conv2d weight `pos_enc.proj.weight`
+  (O, C, p, p) instead of staying 2-D.
+- `load_reference_state_dict(model, sd)`: drops the recomputed buffers a
+  reference checkpoint carries (rotary tables, the absolute sin-cos table)
+  and loads the rest strictly.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+# Buffers of reference checkpoints that the port recomputes (the JAX
+# importer skips the same ones: sd3_tpu/training/checkpoint.py:39-43).
+_SKIP_PATTERNS = (
+    re.compile(r"rotary_emb\.(freqs|inv_freq)$"),
+    re.compile(r"rotary_emb\.(cached_freqs|cached_scales|dummy)$"),
+    re.compile(r"pos_enc\.pos_embed$"),
+)
+
+
+def _flatten(tree: Mapping, prefix=()) -> dict[tuple[str, ...], object]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (str(k),)))
+        else:
+            out[prefix + (str(k),)] = v
+    return out
+
+
+def state_dict_from_jax(params: Mapping, patch_size: int = 2
+                        ) -> dict[str, torch.Tensor]:
+    """JAX MMDiT params (nested dicts of numpy-convertible arrays) -> the
+    port's state_dict (fp32 tensors, reference names)."""
+    out: dict[str, torch.Tensor] = {}
+    for path, val in _flatten(params).items():
+        arr = np.asarray(val, dtype=np.float32)
+        parts = list(path)
+        if parts[0] == "t_emb":
+            if parts[1] == "time_scale":
+                out["time_scale"] = torch.tensor(arr)
+                continue
+            parts = parts[1:]  # t_emb2/...
+        m = re.fullmatch(r"blocks_(\d+)", parts[0])
+        if m:
+            parts = ["blocks", m.group(1)] + parts[1:]
+        if parts[-1] == "kernel":
+            if parts[:-1] == ["pos_enc"]:
+                rows, o = arr.shape  # (C*p*p, O) in (C, ph, pw) order
+                arr = arr.T.reshape(o, rows // patch_size ** 2, patch_size,
+                                    patch_size)
+                parts = ["pos_enc", "proj", "weight"]
+            else:
+                arr = arr.T
+                parts[-1] = "weight"
+        if len(parts) >= 2 and parts[-2] == "y_proj":
+            parts = parts[:-1] + ["0", parts[-1]]
+        out[".".join(parts)] = torch.tensor(arr)  # a contiguous copy
+    return out
+
+
+def load_reference_state_dict(model: torch.nn.Module, sd: Mapping):
+    """Load a reference-format state_dict into `model` strictly, after
+    dropping the recomputed buffers `_SKIP_PATTERNS` lists."""
+    kept = {k: torch.as_tensor(v) for k, v in sd.items()
+            if not any(p.search(k) for p in _SKIP_PATTERNS)}
+    return model.load_state_dict(kept, strict=True)

@@ -1,0 +1,171 @@
+"""sd3_torch's block and model held to the JAX MMDiT, on the CPU, in fp32.
+
+The same JAX parameters cross into the port through
+`sd3_torch.weights.state_dict_from_jax` and a strict load. The JAX fused
+attention runs as its own CPU tests run it (Pallas interpret mode); the port
+takes K1's plain version on CPU tensors. Tolerance atol 1e-4, rtol 1e-3:
+fp32 on both sides, but summation order differs in every matmul, norm and
+softmax of a few stacked layers (the JAX package's torch-oracle parity
+tests use 5e-4 / 5e-3 for the same reason).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sd3_tpu.config import published_config as j_published_config
+from sd3_tpu.config import tiny_config as j_tiny_config
+from sd3_tpu.models.mmdit import DualStreamBlock as JBlock
+from sd3_tpu.models.mmdit import MMDiT as JMMDiT
+from sd3_tpu.models.mmdit import init_mmdit
+from sd3_tpu.training.checkpoint import import_torch_state_dict
+
+from sd3_torch.config import MMDiTConfig, published_config, tiny_config
+from sd3_torch.models.mmdit import DualStreamBlock, MMDiT
+from sd3_torch.ops.fused_attention import K1
+from sd3_torch.weights import load_reference_state_dict, state_dict_from_jax
+
+ATOL, RTOL = 1e-4, 1e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def _inputs(cfg, b=2, h=8, w=8, seed=0):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((b, cfg.inCh, h, w)).astype(np.float32)
+    t = r.uniform(0, 1, (b,)).astype(np.float32)
+    c = r.standard_normal((b, cfg.text_tokens, cfg.text_hidden_dim)
+                          ).astype(np.float32)
+    cp = r.standard_normal((b, cfg.class_dim)).astype(np.float32)
+    return x, t, c, cp
+
+
+def _port_model(jcfg, params):
+    cfg = MMDiTConfig.from_json(jcfg.to_json())
+    model = MMDiT(cfg, device="cpu").eval()
+    model.load_state_dict(state_dict_from_jax(params, jcfg.patch_size),
+                          strict=True)
+    return model
+
+
+def test_config_json_round_trips_between_packages():
+    for jcfg in (j_tiny_config(attn_type="softmax_flash"),
+                 j_published_config(512)):
+        cfg = MMDiTConfig.from_json(jcfg.to_json())
+        assert cfg.to_json_dict() == jcfg.to_json_dict()
+        assert type(jcfg).from_json(cfg.to_json()) == jcfg
+    assert published_config(512).to_json() == j_published_config(512).to_json()
+    assert tiny_config().to_json() == j_tiny_config().to_json()
+
+
+@pytest.mark.parametrize("last", [False, True])
+def test_dual_stream_block_matches_jax(last):
+    jcfg = j_tiny_config(attn_type="softmax_flash")
+    r = np.random.default_rng(3)
+    x = r.standard_normal((2, 16, jcfg.dim)).astype(np.float32)
+    c = r.standard_normal((2, 14, jcfg.dim)).astype(np.float32)
+    y = r.standard_normal((2, jcfg.dim)).astype(np.float32)
+    jb = JBlock(jcfg, layer_idx=1, last=last)
+    params = jb.init(jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(c),
+                     jnp.asarray(y), (4, 4))["params"]
+    wx, wc = jb.apply({"params": params}, jnp.asarray(x), jnp.asarray(c),
+                      jnp.asarray(y), (4, 4))
+    sd = state_dict_from_jax({"blocks_0": params})
+    sd = {k[len("blocks.0."):]: v for k, v in sd.items()}
+    tb = DualStreamBlock(tiny_config(attn_type="softmax_flash"), 1, last=last)
+    tb.load_state_dict(sd, strict=True)
+    assert ("attn.out_proj_c.weight" in sd) == (not last)
+    with torch.no_grad():
+        gx, gc = tb(_t(x), _t(c), _t(y), (4, 4))
+    np.testing.assert_allclose(gx.numpy(), wx, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(gc.numpy(), wc, atol=ATOL, rtol=RTOL)
+
+
+def test_mmdit_matches_jax_with_null_masks():
+    jcfg = j_tiny_config(attn_type="softmax_flash", num_blocks=3)
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(5), remat_blocks=False)
+    x, t, c, cp = _inputs(jcfg, seed=6)
+    nulls = [np.array(m) for m in ([True, False], [False, True],
+                                   [True, True])]
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)),
+                    *map(jnp.asarray, nulls))
+    model = _port_model(jcfg, params)
+    before = K1.launches
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)), *map(torch.from_numpy, nulls))
+    assert got.dtype == torch.float32 and K1.launches == before
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+    # no masks: the plain forward matches too
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)))
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_one_block_at_published_widths_matches_jax():
+    # dim 1216, 19 heads of 64, SwiGLU x4, text width 2304 and 154 text
+    # tokens; a 4x4 token grid keeps it small
+    jcfg = j_published_config(256).replace(num_blocks=1, dtype="float32")
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(7), height=8, width=8,
+                            remat_blocks=False)
+    x, t, c, cp = _inputs(jcfg, b=1, seed=8)
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)))
+    model = _port_model(jcfg, params)
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_weight_carrier_round_trip_and_reference_buffers():
+    jcfg = j_tiny_config(attn_type="softmax_flash")
+    _, params = init_mmdit(jcfg, jax.random.PRNGKey(9), remat_blocks=False)
+    model = _port_model(jcfg, params)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    assert tuple(sd["pos_enc.proj.weight"].shape) == (jcfg.dim, jcfg.inCh, 2, 2)
+    # the JAX importer reads the port's state_dict back to the same tree
+    back = import_torch_state_dict(sd)
+    flat_a = jax.tree_util.tree_leaves_with_path(params)
+    flat_b = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(flat_a) == len(flat_b)
+    for path, leaf in flat_a:
+        np.testing.assert_array_equal(np.asarray(flat_b[path]),
+                                      np.asarray(leaf))
+    # reference checkpoints carry recomputed buffers: dropped, then strict
+    sd["blocks.0.attn.rotary_emb.freqs"] = torch.zeros(3)
+    sd["pos_enc.pos_embed"] = torch.zeros(1, 4, jcfg.dim)
+    fresh = MMDiT(tiny_config(attn_type="softmax_flash"), device="cpu")
+    load_reference_state_dict(fresh, sd)
+    for k, v in model.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+    sd["blocks.0.attn.unexpected"] = torch.zeros(1)
+    with pytest.raises(RuntimeError, match="Unexpected"):
+        load_reference_state_dict(fresh, sd)
+
+
+def test_init_weights_is_seeded_and_cast_keeps_time_scale_fp32():
+    cfg = tiny_config(attn_type="softmax_flash")
+    a, b = (MMDiT(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0)) for _ in range(2))
+    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(va, vb), k
+    assert a.time_scale.item() == 1000.0
+    assert torch.all(a.blocks[0].attn.q_norm_x.weight == 1)
+    a.cast_params(torch.bfloat16)
+    assert a.time_scale.dtype == torch.float32
+    assert a.blocks[0].attn.query_proj_x.weight.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kw", [dict(text_loss=True), dict(quant="int8"),
+                                dict(attn_type="softmax"),
+                                dict(positional_encoding="RoPE2dV2"),
+                                dict(MLP_type="gelu"),
+                                dict(attn_type="softmax_flash",
+                                     positional_encoding="absolute")])
+def test_unported_configurations_raise(kw):
+    kw = {"attn_type": "softmax_flash", **kw}
+    with pytest.raises(NotImplementedError):
+        MMDiT(tiny_config(**kw), device="cpu")

@@ -1,0 +1,167 @@
+"""sd3_torch ops held to their JAX counterparts in sd3_tpu, on the CPU.
+
+Inputs come from numpy seeds and go through both packages; everything is
+compared in fp32. Unless a test says otherwise the tolerance is the one the
+JAX package's own fp32 tests use (atol 2e-5, rtol 2e-4): the two frameworks
+sum in different orders, nothing else differs.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sd3_tpu.ops import norms as jnorms
+from sd3_tpu.ops import patch as jpatch
+from sd3_tpu.ops import rope as jrope
+from sd3_tpu.ops import time_embed as jtime
+from sd3_tpu.ops.fused_attention import (
+    fused_dual_flash_attention as j_fused_attention)
+
+from sd3_torch.ops import fused_attention as tfa
+from sd3_torch.ops import norms as tnorms
+from sd3_torch.ops import patch as tpatch
+from sd3_torch.ops import rope as trope
+from sd3_torch.ops import time_embed as ttime
+from sd3_torch.weights import state_dict_from_jax
+
+ATOL, RTOL = 2e-5, 2e-4
+
+
+def _rng(seed=0):
+    return np.random.default_rng(seed)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got.detach(), np.float32),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("eps", [None, 1e-6])
+def test_rms_norm_matches_jax(eps):
+    r = _rng(1)
+    x = r.standard_normal((2, 5, 24)).astype(np.float32) * 3
+    w = (1 + 0.1 * r.standard_normal(24)).astype(np.float32)
+    want = jnorms.rms_norm(jnp.asarray(x), jnp.asarray(w), eps)
+    _close(tnorms.rms_norm(_t(x), _t(w), eps), want)
+
+
+def test_rms_norm_default_eps_is_the_input_dtype_eps():
+    # bf16 eps is 2^-7: a tiny row makes the difference to fp32 eps visible
+    x = torch.full((1, 4), 1e-2, dtype=torch.bfloat16)
+    got = tnorms.rms_norm(x).float()
+    want = 1e-2 / np.sqrt(1e-4 + 2.0 ** -7)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-2)
+
+
+def test_layer_norm_and_adaln_match_jax():
+    r = _rng(2)
+    x = r.standard_normal((2, 6, 16)).astype(np.float32) * 2 + 1
+    y = r.standard_normal((2, 16)).astype(np.float32)
+    _close(tnorms.layer_norm(_t(x)), jnorms.layer_norm(jnp.asarray(x)))
+
+    jm = jnorms.AdaLNorm(16, 16)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(y))
+    want = jm.apply(params, jnp.asarray(x), jnp.asarray(y))
+    tm = tnorms.AdaLNorm(16, 16)
+    p = params["params"]
+    tm.load_state_dict({"c_shift.weight": _t(p["c_shift"]["kernel"]).T,
+                        "c_scale.weight": _t(p["c_scale"]["kernel"]).T})
+    _close(tm(_t(x), _t(y)), want)
+
+
+def test_time_embedding_matches_jax():
+    t = np.array([0.0, 0.25, 0.999], np.float32)
+    _close(ttime.timestep_embedding(_t(t) * 1000, 32),
+           jtime.timestep_embedding(jnp.asarray(t) * 1000, 32))
+    jm = jtime.TimestepEmbedding(32)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(t))["params"]
+    want = jm.apply({"params": params}, jnp.asarray(t))
+    t_emb2 = torch.nn.Linear(32, 32, bias=False)
+    t_emb2.weight.data = _t(params["t_emb2"]["kernel"]).T.contiguous()
+    got = ttime.embed_time(_t(t), _t(params["time_scale"]), t_emb2,
+                           torch.float32)
+    # sin/cos of arguments up to 1000: float32 argument rounding dominates
+    _close(got, want, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 9)])
+def test_patchify_unpatchify_match_jax(hw):
+    x = _rng(3).standard_normal((2, 4, *hw)).astype(np.float32)
+    want = jpatch.patchify(jnp.asarray(x), (2, 2))
+    got = tpatch.patchify(_t(x), (2, 2))
+    _close(got, want, atol=0, rtol=0)
+    _close(tpatch.unpatchify(got, (2, 2), hw),
+           jpatch.unpatchify(want, (2, 2), hw), atol=0, rtol=0)
+    _close(tpatch.unpatchify(got, (2, 2), hw), x, atol=0, rtol=0)
+
+
+def test_patch_embed_matches_jax_through_the_weight_carrier():
+    x = _rng(4).standard_normal((2, 4, 8, 8)).astype(np.float32)
+    jm = jpatch.PatchEmbed(patch_size=2, in_channels=4, embed_dim=12)
+    params = jm.init(jax.random.PRNGKey(2), jnp.asarray(x))["params"]
+    want = jm.apply({"params": params}, jnp.asarray(x))
+    sd = state_dict_from_jax({"pos_enc": params})
+    assert tuple(sd["pos_enc.proj.weight"].shape) == (12, 4, 2, 2)
+    tm = tpatch.PatchEmbed(2, 4, 12)
+    tm.load_state_dict({"proj.weight": sd["pos_enc.proj.weight"]})
+    _close(tm(_t(x)), want)
+    # the (O, C, p, p) weight is the reference's Conv2d weight
+    conv = torch.nn.functional.conv2d(_t(x), sd["pos_enc.proj.weight"],
+                                      stride=2).flatten(2).transpose(1, 2)
+    _close(conv, want)
+
+
+def test_patch_embed_absolute_is_not_ported():
+    with pytest.raises(NotImplementedError):
+        tpatch.PatchEmbed(2, 4, 12, pos_embed_type="absolute")
+
+
+@pytest.mark.parametrize("h,w,d,interp", [(4, 4, 64, 1.0), (3, 5, 16, 2.0)])
+def test_rope2d_angles_and_apply_match_jax(h, w, d, interp):
+    want = jrope.rope2d_axial_angles(h, w, d, interp)
+    got = trope.rope2d_axial_angles(h, w, d, interp)
+    np.testing.assert_array_equal(got, want)
+    x = _rng(5).standard_normal((2, 3, h * w, d)).astype(np.float32)
+    a = got.reshape(h * w, d)
+    _close(trope.apply_rope(_t(x), a), jrope.apply_rope(jnp.asarray(x), a))
+
+
+def _attn_case(nh, d, h, w, n_txt, rope2d, seed=0):
+    """The inputs of tests/test_fused_attention.py::_case, as numpy (the
+    JAX-free twin in test_torch_kernels.py draws the same)."""
+    n_img = h * w
+    n = n_img + n_txt
+    r = _rng(seed)
+    f = nh * d
+    q, k, v = (r.standard_normal((2, n, f)).astype(np.float32)
+               for _ in range(3))
+    ws = [(1 + 0.1 * r.standard_normal(d)).astype(np.float32) for _ in range(4)]
+    angles = (jrope.rope2d_axial_angles(h, w, d).reshape(n_img, d)
+              if rope2d else None)
+    return q, k, v, ws, angles, n_img, d ** -0.5
+
+
+ATTN_SHAPES = [
+    (3, 16, 3, 4, 5, True),     # odd heads
+    (2, 64, 4, 4, 6, True),     # published head_dim
+    (2, 16, 2, 4, 4, False),    # NoPE: fused norm only
+]
+
+
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", ATTN_SHAPES)
+def test_fused_attention_plain_matches_jax_kernel(nh, d, h, w, n_txt, rope2d):
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             nh, *map(jnp.asarray, ws), angles, n_img, scale)
+    before = tfa.K1.launches
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), nh,
+                                         *map(_t, ws), angles, n_img, scale)
+    _close(got, want)
+    assert tfa.K1.launches == before  # CPU tensors take the plain version
