@@ -40,9 +40,33 @@
 // wgmma, a two-stage cp.async ring rather than TMA and warp specialisation,
 // so it runs well below that bound; the later work is a wgmma + TMA
 // pipeline.
+//
+// K4, the int8-QK^T variant (sd3_fused_attention_int8qk), replaces the
+// int8_qk branch of the same TPU kernel (the serving path for 1024 to 2048
+// padded tokens). Its scores are s8 x s8 -> s32 products:
+//   q^ quantized per row (per head) from its fp32 value, scale
+//      max(|q^|, 1e-12) / 127 (the tables fold scale*log2e, as for K1);
+//   k^ rounded to bf16, then ONE scale per (b, h) over all of K,
+//      max(|bf16(k^)|, 1e-12) / 127;
+//   s  = s32 * (s_q * s_k), masked, and the TRUE row max as the shift (a
+//      dequantized score can exceed the Cauchy-Schwarz bound by its
+//      quantization error, so K1's bounded shift does not carry over);
+//   p  = exp2(s - max) rounded to bf16, P.V in bf16 with fp32 sums, as K1.
+// Three launches: k_prep_kernel<D, true> writes bf16 k^ and max |bf16(k^)|
+// per (b, h) (atomicMax on the float bits); k_quant_kernel writes int8 k^
+// with that scale, once, rather than in every query block; attn_int8_kernel
+// quantizes its q tile into shared memory and makes TWO passes over the
+// int8 K tiles, the first for the exact row max (as the TPU kernel's max
+// pass), the second for exp2 and P.V. Scores are computed twice, at the
+// int8 rate (twice bf16's), so the QK^T work costs what K1's one bf16 pass
+// costs. At the 512px shape one call is 2*B*H*N^2*D int8 operations for
+// QK^T plus as many bf16 FLOP for P.V: 27.0 G + 27.0 G, bound by the
+// tensor-core rate (~41 us). int8 m16n8k32 contracts 32 at a time, so a
+// head dim of 16 is zero-padded to 32 in shared memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -123,7 +147,7 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 
 // 16-byte global -> shared copy that bypasses registers; zero-fills the
 // destination when !valid (gmem must still be a mapped address).
-__device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -178,8 +202,31 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads.
-template <int D>
+// D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col)
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int TPR>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// round half to even, as jnp.round; a true division, as JAX divides
+__device__ __forceinline__ int quant8(float v, float s) {
+  return (int)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
+}
+
+// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads. k_max2 receives
+// max ||k^||^2 per (b, h) (K1), or with AMAX max |bf16(k^)| (K4).
+template <int D, bool AMAX>
 __global__ void __launch_bounds__(PREP_THREADS)
 k_prep_kernel(const bf16* __restrict__ k, const float* __restrict__ ck,
               const float* __restrict__ sk, bf16* __restrict__ k_out,
@@ -204,9 +251,15 @@ k_prep_kernel(const bf16* __restrict__ k, const float* __restrict__ ck,
     if (valid) {
       __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(k_out + base + nn * rs);
 #pragma unroll
-      for (int i = 0; i < G::PPT; ++i)
-        dst[sub + i * G::TPR] = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
-      mx = fmaxf(mx, ss);
+      for (int i = 0; i < G::PPT; ++i) {
+        const __nv_bfloat162 kb = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
+        dst[sub + i * G::TPR] = kb;
+        if constexpr (AMAX) {
+          const float2 r = __bfloat1622float2(kb);
+          mx = fmaxf(mx, fmaxf(fabsf(r.x), fabsf(r.y)));
+        }
+      }
+      if constexpr (!AMAX) mx = fmaxf(mx, ss);
     }
   }
 #pragma unroll
@@ -412,13 +465,303 @@ attn_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
   }
 }
 
+// ---- K4 ---------------------------------------------------------------
+
+constexpr int QUANT_THREADS = 256;
+
+// int8 k^ from the bf16 k^, 8 values per thread (D is a multiple of 8, so
+// they share a head). grid ceil(B*N*H*D / (8 * QUANT_THREADS)).
+__global__ void __launch_bounds__(QUANT_THREADS)
+k_quant_kernel(const bf16* __restrict__ kp, const float* __restrict__ k_amax,
+               int8_t* __restrict__ kq, size_t total, int N, int H, int D) {
+  const size_t e0 = ((size_t)blockIdx.x * QUANT_THREADS + threadIdx.x) * 8;
+  if (e0 >= total) return;
+  const size_t hd = (size_t)H * D;
+  const size_t b = e0 / (hd * N);
+  const int h = (int)((e0 % hd) / D);
+  const float s = fmaxf(k_amax[b * H + h], 1e-12f) / 127.f;
+  const uint4 raw = *reinterpret_cast<const uint4*>(kp + e0);
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  uint32_t packed[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(v2[w * 2 + i]);
+      word |= (uint32_t)(quant8(f.x, s) & 0xff) << (16 * i);
+      word |= (uint32_t)(quant8(f.y, s) & 0xff) << (16 * i + 8);
+    }
+    packed[w] = word;
+  }
+  *reinterpret_cast<uint2*>(kq + e0) = make_uint2(packed[0], packed[1]);
+}
+
+template <int D>
+struct Smem8 {
+  static constexpr int DQ = D < 32 ? 32 : D;  // int8 depth, zero-padded
+  static constexpr int SQ = DQ + 16;          // int8 row stride (bytes):
+                                              // conflict-free ldmatrix
+  static constexpr int DP = D + 8;            // bf16 V rows, as K1
+  static constexpr int Q = 0;                           // [BQ][SQ] int8
+  static constexpr int K = Q + BQ * SQ;                 // [2][BK][SQ] int8
+  static constexpr int V = K + 2 * BK * SQ;             // [2][BK][DP] bf16
+  static constexpr int QS = V + 2 * BK * DP * 2;        // [BQ] fp32 s_q
+  static constexpr int BYTES = QS + BQ * 4;
+};
+
+// grid (ceil(N / BQ), H, B), THREADS threads, Smem8<D>::BYTES dynamic smem.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+attn_int8_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
+                 const float* __restrict__ sq, const int8_t* __restrict__ kq,
+                 const float* __restrict__ k_amax, const bf16* __restrict__ v,
+                 bf16* __restrict__ o, int N, int H, float eps_q) {
+  using G = Geom<D>;
+  using S = Smem8<D>;
+  constexpr int SQ = S::SQ, DP = S::DP, DQ = S::DQ;
+  constexpr int KCH = DQ / 16;   // 16-byte chunks of an int8 row
+  constexpr int VCH = D / 8;     // 16-byte chunks of a bf16 row
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* sQ = reinterpret_cast<int8_t*>(smem + S::Q);
+  int8_t* sK = reinterpret_cast<int8_t*>(smem + S::K);
+  bf16* sV = reinterpret_cast<bf16*>(smem + S::V);
+  float* sQs = reinterpret_cast<float*>(smem + S::QS);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * N * rs + (size_t)h * D;
+  const int ntiles = (N + BK - 1) / BK;
+
+  auto load_tile = [&](int t, bool with_v) {
+    int8_t* dk = sK + (t & 1) * BK * SQ;
+    for (int c = tid; c < BK * KCH; c += THREADS) {
+      const int r = c / KCH, cc = c % KCH;
+      const int n = t * BK + r;
+      const bool valid = n < N && cc * 16 < D;
+      cp_async16(dk + r * SQ + cc * 16,
+                 kq + (valid ? base + (size_t)n * rs + cc * 16 : 0), valid);
+    }
+    if (with_v) {
+      bf16* dv = sV + (t & 1) * BK * DP;
+      for (int c = tid; c < BK * VCH; c += THREADS) {
+        const int r = c / VCH, cc = c % VCH;
+        const int n = t * BK + r;
+        cp_async16(dv + r * DP + cc * 8,
+                   v + base + (size_t)(n < N ? n : 0) * rs + cc * 8, n < N);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile(0, false);  // in flight during the q prep
+
+  // ---- q tile: RMSNorm + rotation in fp32, then per-row int8
+  {
+    constexpr int ROWS_PER_ITER = WARPS * G::RPW;
+    const int sub = lane % G::TPR;
+#pragma unroll
+    for (int r0 = 0; r0 < BQ; r0 += ROWS_PER_ITER) {
+      const int r = r0 + warp * G::RPW + lane / G::TPR;
+      const int n = q0 + r;
+      const bool valid = n < N;
+      const size_t nn = valid ? (size_t)n : 0;
+      float out[2 * G::PPT];
+      prep_row<D>(q + base + nn * rs, cq + nn * D, sq + nn * D, eps_q, sub,
+                  valid, out);
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2 * G::PPT; ++i) amax = fmaxf(amax, fabsf(out[i]));
+      const float s = fmaxf(group_max<G::TPR>(amax), 1e-12f) / 127.f;
+      char2* dst = reinterpret_cast<char2*>(sQ + r * SQ);
+#pragma unroll
+      for (int i = 0; i < G::PPT; ++i) {
+        char2 c;
+        c.x = (signed char)quant8(out[2 * i], s);
+        c.y = (signed char)quant8(out[2 * i + 1], s);
+        dst[sub + i * G::TPR] = c;
+      }
+      if constexpr (DQ > D) {
+        for (int j = D / 2 + sub; j < DQ / 2; j += G::TPR) dst[j] = make_char2(0, 0);
+      }
+      if (sub == 0) sQs[r] = s;
+    }
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wr = warp * 16;
+  uint32_t qa[DQ / 32][4];
+#pragma unroll
+  for (int kk = 0; kk < DQ / 32; ++kk)
+    ldsm_x4(qa[kk], reinterpret_cast<const bf16*>(
+                        sQ + (wr + (lane & 7) + ((lane >> 3) & 1) * 8) * SQ +
+                        kk * 32 + (lane >> 4) * 16));
+  const float ks = fmaxf(k_amax[b * H + h], 1e-12f) / 127.f;
+  const float comb0 = sQs[wr + g] * ks, comb1 = sQs[wr + g + 8] * ks;
+
+  // dequantized scores of this warp's 16 rows against key tile cK
+  auto scores = [&](float (&s)[BK / 8][4], const int8_t* cK) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; j += 2) {
+      int a0[4] = {0, 0, 0, 0}, a1[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int kk = 0; kk < DQ / 32; ++kk) {
+        uint32_t bk[4];
+        ldsm_x4(bk, reinterpret_cast<const bf16*>(
+                        cK + (j * 8 + (lane >> 4) * 8 + (lane & 7)) * SQ +
+                        kk * 32 + ((lane >> 3) & 1) * 16));
+        mma_s8(a0, qa[kk], bk[0], bk[1]);
+        mma_s8(a1, qa[kk], bk[2], bk[3]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (float)a0[e] * (e < 2 ? comb0 : comb1);
+        s[j + 1][e] = (float)a1[e] * (e < 2 ? comb0 : comb1);
+      }
+    }
+  };
+
+  // pass 1: the true row max
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, false);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[BK / 8][4];
+    scores(s, sK + (t & 1) * BK * SQ);
+    const int k0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int col = k0 + j * 8 + t4 * 2;
+      if (col < N) {
+        m0 = fmaxf(m0, s[j][0]);
+        m1 = fmaxf(m1, s[j][2]);
+      }
+      if (col + 1 < N) {
+        m0 = fmaxf(m0, s[j][1]);
+        m1 = fmaxf(m1, s[j][3]);
+      }
+    }
+    __syncthreads();
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+
+  // pass 2: p = exp2(s - max), row sums, bf16(p) V
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  const int v_row = (lane >> 3 & 1) * 8 + (lane & 7);
+  const int v_col = (lane >> 4) * 8;
+  load_tile(0, true);
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, true);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float s[BK / 8][4];
+    scores(s, sK + (t & 1) * BK * SQ);
+    const bf16* cV = sV + (t & 1) * BK * DP;
+    const int k0 = t * BK;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const int col = k0 + j * 8 + t4 * 2;
+      s[j][0] = col < N ? fast_exp2(s[j][0] - m0) : 0.f;
+      s[j][1] = col + 1 < N ? fast_exp2(s[j][1] - m0) : 0.f;
+      s[j][2] = col < N ? fast_exp2(s[j][2] - m1) : 0.f;
+      s[j][3] = col + 1 < N ? fast_exp2(s[j][3] - m1) : 0.f;
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int jd2 = 0; jd2 < D / 16; ++jd2) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, cV + (kk * 16 + v_row) * DP + jd2 * 16 + v_col);
+        mma_bf16(acc[2 * jd2], a, bv[0], bv[1]);
+        mma_bf16(acc[2 * jd2 + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int n0 = q0 + wr + g, n1 = n0 + 8;
+#pragma unroll
+  for (int jd = 0; jd < D / 8; ++jd) {
+    const int col = jd * 8 + t4 * 2;
+    if (n0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)n0 * rs + col) =
+          __floats2bfloat162_rn(acc[jd][0] * inv0, acc[jd][1] * inv0);
+    if (n1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)n1 * rs + col) =
+          __floats2bfloat162_rn(acc[jd][2] * inv1, acc[jd][3] * inv1);
+  }
+}
+
+template <int D>
+int launch_int8(const void* q, const void* k, const void* v, const void* cq,
+                const void* sq, const void* ck, const void* sk, void* k_prep,
+                void* k_q, void* k_amax, void* out, int B, int N, int H,
+                float eps_q, float eps_k, cudaStream_t st) {
+  dim3 g1((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
+  k_prep_kernel<D, true><<<g1, PREP_THREADS, 0, st>>>(
+      static_cast<const bf16*>(k), static_cast<const float*>(ck),
+      static_cast<const float*>(sk), static_cast<bf16*>(k_prep),
+      static_cast<float*>(k_amax), N, H, eps_k);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t total = (size_t)B * N * H * D;
+  const size_t blocks = (total / 8 + QUANT_THREADS - 1) / QUANT_THREADS;
+  k_quant_kernel<<<(unsigned)blocks, QUANT_THREADS, 0, st>>>(
+      static_cast<const bf16*>(k_prep), static_cast<const float*>(k_amax),
+      static_cast<int8_t*>(k_q), total, N, H, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int smem = Smem8<D>::BYTES;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(attn_int8_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 g2((N + BQ - 1) / BQ, H, B);
+  attn_int8_kernel<D><<<g2, THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const float*>(cq),
+      static_cast<const float*>(sq), static_cast<const int8_t*>(k_q),
+      static_cast<const float*>(k_amax), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), N, H, eps_q);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* cq,
            const void* sq, const void* ck, const void* sk, void* k_prep,
            void* k_max2, void* out, int B, int N, int H, float eps_q,
            float eps_k, cudaStream_t st) {
   dim3 g1((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
-  k_prep_kernel<D><<<g1, PREP_THREADS, 0, st>>>(
+  k_prep_kernel<D, false><<<g1, PREP_THREADS, 0, st>>>(
       static_cast<const bf16*>(k), static_cast<const float*>(ck),
       static_cast<const float*>(sk), static_cast<bf16*>(k_prep),
       static_cast<float*>(k_max2), N, H, eps_k);
@@ -458,6 +801,26 @@ extern "C" int sd3_fused_attention_bf16(const void* q, const void* k,
     case 32: return launch<32>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
     case 64: return launch<64>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
     case 128: return launch<128>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4: as sd3_fused_attention_bf16, with int8 QK^T. k_prep: (B, N, H*D) bf16
+// scratch; k_q: (B, N, H*D) int8 scratch; k_amax: (B*H) fp32, zero on entry.
+extern "C" int sd3_fused_attention_int8qk(const void* q, const void* k,
+                                          const void* v, const void* cq,
+                                          const void* sq, const void* ck,
+                                          const void* sk, void* k_prep,
+                                          void* k_q, void* k_amax, void* out,
+                                          int B, int N, int H, int D,
+                                          float eps_q, float eps_k,
+                                          void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_int8<16>(q, k, v, cq, sq, ck, sk, k_prep, k_q, k_amax, out, B, N, H, eps_q, eps_k, st);
+    case 32: return launch_int8<32>(q, k, v, cq, sq, ck, sk, k_prep, k_q, k_amax, out, B, N, H, eps_q, eps_k, st);
+    case 64: return launch_int8<64>(q, k, v, cq, sq, ck, sk, k_prep, k_q, k_amax, out, B, N, H, eps_q, eps_k, st);
+    case 128: return launch_int8<128>(q, k, v, cq, sq, ck, sk, k_prep, k_q, k_amax, out, B, N, H, eps_q, eps_k, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,9 +9,11 @@ Example:
 Loads a reference torch checkpoint (`--torch_ckpt` state_dict with the
 `--loadDefFile` params JSON) and samples on `--device` (default cuda; it
 raises when no GPU is there rather than run on the CPU). `--stub_encoders`
-runs with the deterministic stub conditioning stack. Native msgpack
-checkpoints, `--quant int8` and `--gif` come with later slices of the port
-and raise NotImplementedError.
+runs with the deterministic stub conditioning stack. `--quant int8` serves
+with w8a8 projections and the int8 kernels: the float checkpoint is loaded,
+quantized (`--quant_skip` names stay float), cast, then moved to the
+device. Native msgpack checkpoints and `--gif` come with later slices of the
+port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,7 +57,11 @@ def build_argparser():
     p.add_argument("--save_latents", default=None, metavar="PATH.npy",
                    help="also dump the raw pre-VAE latents (fp32 npy)")
     p.add_argument("--quant", default="none", choices=["none", "int8"],
-                   help="int8 serving (not ported)")
+                   help="int8 (w8a8) serving: quantize the checkpoint's "
+                        "projections at load")
+    p.add_argument("--quant_skip", default="",
+                   help="comma-separated layer names kept float under "
+                        "--quant int8 (e.g. w12,w3 or attn_qk)")
     p.add_argument("--allow_unsafe_pickle", action="store_true",
                    help="permit torch.load(weights_only=False) for legacy "
                         "reference .pkl files that the safe loader rejects — "
@@ -67,11 +73,12 @@ def build_argparser():
 
 def load_model(args, device):
     """(model, cfg) from a reference checkpoint, on `device`, parameters in
-    the compute dtype."""
+    the compute dtype; quantized first under --quant int8."""
     import torch
     from sd3_torch import torch_dtype
     from sd3_torch.config import MMDiTConfig
     from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.ops.quant import quantize_model
     from sd3_torch.weights import load_reference_state_dict
 
     if not args.torch_ckpt:
@@ -96,6 +103,10 @@ def load_model(args, device):
         sd = torch.load(path, map_location="cpu", weights_only=False)
     model = MMDiT(cfg, device="cpu")  # load on the host, then move
     load_reference_state_dict(model, sd)
+    if args.quant == "int8":
+        skip = tuple(n for n in args.quant_skip.split(",") if n)
+        quantize_model(model, skip)
+        cfg = model.cfg
     model.cast_params(torch_dtype(cfg.dtype)).to(device).eval()
     return model, cfg
 
@@ -108,10 +119,6 @@ def save_png(arr_chw: np.ndarray, path: str):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.quant == "int8":
-        raise NotImplementedError(
-            "--quant int8 is the int8 serving slice, not ported yet: "
-            "ROADMAP.md, kernel queue")
     if args.gif:
         raise NotImplementedError(
             "--gif (per-step decodes) is not ported yet: ROADMAP.md, port "

@@ -16,6 +16,10 @@ Kept from the reference: null conditioning zeroes the pooled / Gemma-half /
 BERT-half embeddings with independent per-sample masks; the final AdaLN takes
 the *unprojected* y; the last block has no text-stream output path.
 
+Under quant="int8" the MLP and attention projections are `Int8Linear`s
+(ops/quant.py): build the model so to load a quantized state_dict, or
+quantize a float model in place with `ops.quant.quantize_model`.
+
 Parameter names are the reference state-dict names (`blocks.3.y_proj.0.weight`,
 `blocks.3.attn.query_proj_x.weight`, `pos_enc.proj.weight`, `time_scale`), so
 `load_state_dict(strict=True)` takes a reference checkpoint. Parameters may
@@ -37,6 +41,7 @@ from sd3_torch.ops.attention import JointAttention
 from sd3_torch.ops.mlp import MLP
 from sd3_torch.ops.norms import AdaLNorm, RMSNorm, linear
 from sd3_torch.ops.patch import PatchEmbed, unpatchify
+from sd3_torch.ops.quant import Int8Linear
 from sd3_torch.ops.time_embed import embed_time
 
 
@@ -56,18 +61,21 @@ class DualStreamBlock(nn.Module):
             positional_encoding=cfg.positional_encoding,
             rope_scale=cfg.rope_scale, kv_merge_attn=cfg.kv_merge_attn,
             qk_half_dim=cfg.qk_half_dim, layer_idx=layer_idx, dual=True,
-            last=last, rope2d_interpolate=cfg.rope2d_interpolate, **kw)
+            last=last, rope2d_interpolate=cfg.rope2d_interpolate,
+            quant=cfg.quant, quant_skip=cfg.quant_skip, **kw)
         self.norm1_x = AdaLNorm(dim, dim, **kw)
         self.norm1_c = AdaLNorm(dim, dim, **kw)
         self.norm2_x = AdaLNorm(dim, dim, **kw)
         self.scale1_x = nn.Linear(dim, dim, bias=False, **kw)
         self.scale2_x = nn.Linear(dim, dim, bias=False, **kw)
-        self.MLP_x = MLP(dim, cfg.hidden_scale, act=cfg.MLP_type, **kw)
+        mlp = dict(act=cfg.MLP_type, quant=cfg.quant,
+                   quant_skip=cfg.quant_skip, **kw)
+        self.MLP_x = MLP(dim, cfg.hidden_scale, **mlp)
         if not last:
             self.norm2_c = AdaLNorm(dim, dim, **kw)
             self.scale1_c = nn.Linear(dim, dim, bias=False, **kw)
             self.scale2_c = nn.Linear(dim, dim, bias=False, **kw)
-            self.MLP_c = MLP(dim, cfg.hidden_scale, act=cfg.MLP_type, **kw)
+            self.MLP_c = MLP(dim, cfg.hidden_scale, **mlp)
 
     def forward(self, x, c, y, hw):
         y = F.silu(linear(y, self.y_proj[0]))
@@ -75,12 +83,27 @@ class DualStreamBlock(nn.Module):
         x = x_a * linear(y, self.scale1_x)[:, None, :] + x
         if not self.last:
             c = c_a * linear(y, self.scale1_c)[:, None, :] + c
+        if self.MLP_x.fused_ok:
+            # the whole MLP half (AdaLN, SwiGLU, gate, residual) through the
+            # int8 SwiGLU kernels, as the JAX block does
+            # (sd3_tpu/models/mmdit.py:111-135)
+            x = self._mlp_tail(self.MLP_x, self.norm2_x, self.scale2_x, x, y)
+            if not self.last:
+                c = self._mlp_tail(self.MLP_c, self.norm2_c, self.scale2_c,
+                                   c, y)
+            return x, c
         x = (self.MLP_x(self.norm2_x(x, y)) * linear(y, self.scale2_x)[:, None, :]
              + x)
         if not self.last:
             c = (self.MLP_c(self.norm2_c(c, y))
                  * linear(y, self.scale2_c)[:, None, :] + c)
         return x, c
+
+    @staticmethod
+    def _mlp_tail(mlp, norm, gate, t, y):
+        shift, scale = norm.modulation(y)
+        return mlp(t, shift=shift, scale=scale, gate=linear(y, gate),
+                   residual=True)
 
 
 class MMDiT(nn.Module):
@@ -96,10 +119,6 @@ class MMDiT(nn.Module):
             raise NotImplementedError(
                 "text_loss=True (the text-reconstruction head) is not ported "
                 "yet: ROADMAP.md, port queue, 'text_loss'")
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                "quant='int8' is the int8 serving slice, not ported yet: "
-                "ROADMAP.md, kernel queue")
         self.cfg = cfg
         self.compute_dtype = torch_dtype(cfg.dtype)
         kw = dict(device=device, dtype=dtype)
@@ -128,7 +147,12 @@ class MMDiT(nn.Module):
         """Seeded random weights with the JAX package's initializers: every
         projection N(0, 1/fan_in) (lecun normal, untruncated), biases zero,
         RMSNorm weights one, time_scale 1000, learnable scalars 0.01.
-        The generator must lie on the parameters' device."""
+        The generator must lie on the parameters' device. A model built
+        with quant="int8" has no float weights to draw: initialize the
+        float model, then quantize it (`ops.quant.quantize_model`)."""
+        if any(isinstance(m, Int8Linear) for m in self.modules()):
+            raise ValueError("init_weights draws float weights: call it "
+                             "before quantize_model, on a float model")
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if name == "time_scale":
@@ -146,7 +170,9 @@ class MMDiT(nn.Module):
 
     def cast_params(self, dtype: torch.dtype) -> "MMDiT":
         """Store every parameter but `time_scale` (used in fp32) in `dtype`:
-        for inference in the compute dtype, halving the weight bytes."""
+        for inference in the compute dtype, halving the weight bytes. The
+        int8 weights and their fp32 scales are buffers and stay as they are
+        (the JAX package's serving cast, bench.py:103-111)."""
         for name, p in self.named_parameters():
             if name != "time_scale":
                 p.data = p.data.to(dtype)

@@ -11,6 +11,12 @@ This slice ports the fused path, the one the published config takes
 (`JointAttention._fused_path_ok` in the JAX package): raw projections go to
 kernel K1 (ops/fused_attention.py), which applies the norms and the rotation
 itself. Configurations that path rejects raise NotImplementedError.
+
+Under quant="int8" the eight projections are w8a8 `Int8Linear`s (names in
+quant_skip stay float), and the joint attention takes the int8-QK^T kernel
+K4 where the JAX package does (`int8_qk_on`: "attn_qk" not skipped and a
+padded joint length in [1024, 2048], sd3_tpu/ops/attention.py:316-318); K1
+elsewhere.
 """
 
 from __future__ import annotations
@@ -21,14 +27,23 @@ from torch import nn
 from sd3_torch.ops.fused_attention import (fold_row_tables, fused_attention,
                                            rope_row_tables)
 from sd3_torch.ops.norms import RMSNorm, linear
+from sd3_torch.ops.quant import make_linear
 from sd3_torch.ops.rope import rope2d_axial_angles
 
 _GENERAL_PATH = ("the unfused attention path is not ported yet: ROADMAP.md, "
                  "port queue, 'attention general path'")
+INT8_QK_TOKENS = (1024, 2048)  # padded joint lengths that take K4
+
+
+def int8_qk_on(quant: str, quant_skip, n_tokens: int) -> bool:
+    """The JAX package's int8-QK^T gate (sd3_tpu/ops/attention.py:316-318)."""
+    padded = -(-n_tokens // 128) * 128
+    return (quant == "int8" and "attn_qk" not in quant_skip
+            and INT8_QK_TOKENS[0] <= padded <= INT8_QK_TOKENS[1])
 
 
 class JointAttention(nn.Module):
-    """Dual-stream joint attention through the fused K1 path."""
+    """Dual-stream joint attention through the fused K1 / K4 path."""
 
     def __init__(self, dim: int, num_heads: int = 8,
                  attn_type: str = "softmax_flash", causal: bool = False,
@@ -36,7 +51,8 @@ class JointAttention(nn.Module):
                  kv_merge_attn: bool = False, qk_half_dim: bool = False,
                  layer_idx: int | None = None, dual: bool = True,
                  last: bool = False, rope2d_interpolate: bool = False,
-                 device=None, dtype=None):
+                 quant: str = "none", quant_skip: tuple = (), device=None,
+                 dtype=None):
         super().__init__()
         if attn_type == "both":
             attn_type = "softmax" if (layer_idx or 0) % 2 == 0 else "cosine"
@@ -60,16 +76,15 @@ class JointAttention(nn.Module):
         self.rope2d_interpolate = rope2d_interpolate
         self.last = last
         self.scale = hd ** -0.5  # value head dim (reference Attention.py:57)
-        kw = dict(bias=False, device=device, dtype=dtype)
-        self.query_proj_x = nn.Linear(dim, dim, **kw)
-        self.key_proj_x = nn.Linear(dim, dim, **kw)
-        self.value_proj_x = nn.Linear(dim, dim, **kw)
-        self.out_proj_x = nn.Linear(dim, dim, **kw)
-        self.query_proj_c = nn.Linear(dim, dim, **kw)
-        self.key_proj_c = nn.Linear(dim, dim, **kw)
-        self.value_proj_c = nn.Linear(dim, dim, **kw)
+        self.quant, self.quant_skip = quant, tuple(quant_skip)
+        names = ["query_proj_x", "key_proj_x", "value_proj_x", "out_proj_x",
+                 "query_proj_c", "key_proj_c", "value_proj_c"]
         if not last:
-            self.out_proj_c = nn.Linear(dim, dim, **kw)
+            names.append("out_proj_c")
+        for name in names:
+            setattr(self, name, make_linear(
+                dim, dim, False, name, quant, self.quant_skip, device=device,
+                dtype=dtype))
         self.q_norm_x = RMSNorm(hd, device=device, dtype=dtype)
         self.k_norm_x = RMSNorm(hd, device=device, dtype=dtype)
         self.q_norm_c = RMSNorm(hd, device=device, dtype=dtype)
@@ -109,7 +124,8 @@ class JointAttention(nn.Module):
         cosk, sink = fold_row_tables(cos, sin, self.k_norm_x.weight,
                                      self.k_norm_c.weight, n)
         out = fused_attention(q, k, v, self.num_heads, cosq, sinq, cosk, sink,
-                              self.scale)
+                              self.scale, int8_qk=int8_qk_on(
+                                  self.quant, self.quant_skip, n + m))
         out_x = linear(out[:, :n], self.out_proj_x)
         out_c = out[:, n:]
         if not self.last:

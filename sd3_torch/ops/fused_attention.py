@@ -11,12 +11,20 @@ and runs the softmax in exp2 against the bound ||q^|| * max||k^||. The
 design note (what bounds it on an H100, what the two launches do) heads the
 CUDA source.
 
-Beside it: `composition`, the plain PyTorch version of the same function
-(the JAX `_composition` with a plain softmax), which the wrapper takes for
-tensors on the CPU, and the table helpers `rope_row_tables`, `_swap_pairs`
-and `fold_row_tables`. On a CUDA tensor the wrapper launches the kernel or
-raises: there is no fallback. Inference only: the backward recomputes
-through the training kernels K5/K6, which are not ported yet.
+Kernel K4, the same source's `sd3_fused_attention_int8qk`, replaces the
+`int8_qk` branch of that TPU kernel: QK^T as s8 x s8 -> s32 with q^
+quantized per row from fp32, k^ rounded to the input dtype and quantized
+with one scale per (batch, head), and the true row max as the softmax
+shift; P.V stays in bf16. The int8 P.V branch (TPU kernel K8) is not
+ported yet and raises.
+
+Beside them: `composition` and `composition_int8_qk`, the plain PyTorch
+versions of the two functions (the JAX kernel's arithmetic), which the
+wrapper takes for tensors on the CPU, and the table helpers
+`rope_row_tables`, `_swap_pairs` and `fold_row_tables`. On a CUDA tensor
+the wrapper launches a kernel or raises: there is no fallback. Inference
+only: the backward recomputes through the training kernels K5/K6, which are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import numpy as np
 import torch
 
 from sd3_torch.kernels import Kernel, check
+from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
 LOG2E = 1.4426950408889634  # the kernel's softmax runs in exp2
@@ -37,6 +46,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 K1 = Kernel("fused_attention_bf16", "fused_attention.cu",
             "sd3_fused_attention_bf16",
             argtypes=[_P] * 10 + [_I] * 4 + [_F] * 2 + [_P])
+K4 = Kernel("fused_attention_int8qk", "fused_attention.cu",
+            "sd3_fused_attention_int8qk",
+            argtypes=[_P] * 11 + [_I] * 4 + [_F] * 2 + [_P])
+Q8_EPS = 1e-12  # K4's q / k scale floor (JAX fused_attention.py:122,256)
 
 
 def rope_row_tables(angles_img, n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
@@ -72,23 +85,57 @@ def composition(q, k, v, cosq, sinq, cosk, sink, scale: float, eps_q: float,
     (cast back to the input dtype), then softmax(q^ k^T * scale) v with fp32
     logits. Tables here are un-scaled (no scale*log2e fold)."""
     b, n, f = q.shape
-    d = f // num_heads
-
-    def heads(x):
-        return x.reshape(b, n, num_heads, d).transpose(1, 2)
-
-    def prep(x, cos, sin, eps):
-        xf = x.float()
-        xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-        out = xn * cos.float() + _rotate_half_interleaved(xn) * sin.float()
-        return out.to(x.dtype)
-
-    qh = prep(heads(q), cosq, sinq, eps_q)
-    kh = prep(heads(k), cosk, sink, eps_k)
+    qh = _prep(_heads(q, num_heads), cosq, sinq, eps_q).to(q.dtype)
+    kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype)
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    o = torch.matmul(probs, heads(v))
+    o = torch.matmul(probs, _heads(v, num_heads))
     return o.transpose(1, 2).reshape(b, n, f)
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, H*D) -> (B, H, N, D)."""
+    b, n, f = x.shape
+    return x.reshape(b, n, num_heads, f // num_heads).transpose(1, 2)
+
+
+def _prep(x, cos, sin, eps) -> torch.Tensor:
+    """Per-head RMSNorm + table rotation, in fp32."""
+    xf = x.float()
+    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return xn * cos.float() + _rotate_half_interleaved(xn) * sin.float()
+
+
+def _q8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Integer-valued fp32 round(x / scale) clipped to +-127 (half to even,
+    a true division, as the JAX kernel)."""
+    return torch.clamp(torch.round(x / scale), -127, 127)
+
+
+def composition_int8_qk(q, k, v, cosq, sinq, cosk, sink, scale: float,
+                        eps_q: float, eps_k: float, num_heads: int
+                        ) -> torch.Tensor:
+    """Plain PyTorch version of K4, the JAX kernel's int8_qk arithmetic
+    (sd3_tpu/ops/fused_attention.py:193-205, 246-281): q^ with the tables
+    scaled by scale*log2(e), quantized per row from fp32; k^ rounded to the
+    input dtype, one scale per (batch, head); s = s32 * s_q * s_k; the true
+    row max; p = exp2(s - max) rounded to v's dtype for P.V, fp32 sums.
+    Tables un-scaled, as for `composition`. The s32 product runs as an fp32
+    matmul of integer values, exact (|sum| <= 127^2 * D < 2^24) where fp32
+    matmuls are not TF32."""
+    b, n, f = q.shape
+    fold = float(scale) * LOG2E
+    qf = _prep(_heads(q, num_heads), cosq.float() * fold, sinq.float() * fold,
+               eps_q)
+    kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype).float()
+    s_q = scale_of(qf.abs().amax(-1, keepdim=True), Q8_EPS)
+    s_k = scale_of(kh.abs().amax((-2, -1), keepdim=True), Q8_EPS)
+    s32 = torch.matmul(_q8(qf, s_q), _q8(kh, s_k).transpose(-1, -2))
+    s = s32 * (s_q * s_k)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), _heads(v, num_heads).float()) / l
+    return o.to(v.dtype).transpose(1, 2).reshape(b, n, f)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -97,19 +144,21 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch_k1(q, k, v, cq, sq, ck, sk, eps_q, eps_k, num_heads):
+def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
+            num_heads):
+    """Launch K1 or K4 (`kern`); tables already carry scale*log2(e)."""
     b, n, f = q.shape
     d = f // num_heads
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"K1 takes bfloat16 q/k/v, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
+        raise TypeError(f"{kern.name} takes bfloat16 q/k/v, got {q.dtype}/"
+                        f"{k.dtype}/{v.dtype}")
     if not (k.shape == v.shape == q.shape):
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if not (k.device == v.device == q.device):
         raise ValueError("q/k/v must lie on one device")
     if d not in HEAD_DIMS or d * num_heads != f:
         raise NotImplementedError(
-            f"K1 takes head dims {HEAD_DIMS}; got {f} features / "
+            f"{kern.name} takes head dims {HEAD_DIMS}; got {f} features / "
             f"{num_heads} heads")
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     cq, sq, ck, sk = (t.to(q.device, torch.float32).contiguous()
@@ -119,16 +168,20 @@ def _launch_k1(q, k, v, cq, sq, ck, sk, eps_q, eps_k, num_heads):
             raise ValueError(f"tables must be ({n}, {d}), got {tuple(t.shape)}")
     out = torch.empty_like(q)
     k_prep = torch.empty_like(k)
-    k_max2 = torch.zeros(b * num_heads, dtype=torch.float32, device=q.device)
+    k_max = torch.zeros(b * num_heads, dtype=torch.float32, device=q.device)
+    scratch = [k_prep.data_ptr()]
+    if kern is K4:
+        k_q = torch.empty(k.shape, dtype=torch.int8, device=k.device)
+        scratch.append(k_q.data_ptr())
     with torch.cuda.device(q.device):
-        fn = K1.function()
+        fn = kern.function()
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cq.data_ptr(),
-                 sq.data_ptr(), ck.data_ptr(), sk.data_ptr(),
-                 k_prep.data_ptr(), k_max2.data_ptr(), out.data_ptr(),
-                 b, n, num_heads, d, eps_q, eps_k, stream)
-    check(K1, err)
-    K1.launches += 1
+                 sq.data_ptr(), ck.data_ptr(), sk.data_ptr(), *scratch,
+                 k_max.data_ptr(), out.data_ptr(), b, n, num_heads, d, eps_q,
+                 eps_k, stream)
+    check(kern, err)
+    kern.launches += 1
     return out
 
 
@@ -139,11 +192,12 @@ def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
 
     q, k, v: (B, N, H*D) raw projections; tables (N, D) with the norm
     weights folded in but not the softmax scale. CPU tensors take the plain
-    version; CUDA tensors launch K1 (bf16) or raise."""
-    if int8_qk or int8_pv:
+    versions; CUDA tensors launch K1 (bf16 QK^T) or K4 (int8_qk), or
+    raise."""
+    if int8_pv:
         raise NotImplementedError(
-            "int8 QK^T / P.V attention (TPU kernels K4 / K8) is not ported "
-            "yet: ROADMAP.md, kernel queue (int8 serving slice)")
+            "int8 P.V attention (TPU kernel K8) is not ported yet: "
+            "ROADMAP.md, kernel queue")
     b, n, f = q.shape
     if -(-n // 128) * 128 > SINGLE_KV_MAX:
         raise NotImplementedError(
@@ -152,13 +206,15 @@ def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
     eps_q = float(torch.finfo(q.dtype).eps)
     eps_k = float(torch.finfo(k.dtype).eps)
     if q.device.type == "cpu":
-        return composition(q, k, v, cosq, sinq, cosk, sink, scale, eps_q,
-                           eps_k, num_heads)
+        plain = composition_int8_qk if int8_qk else composition
+        return plain(q, k, v, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
+                     num_heads)
+    kern = K4 if int8_qk else K1
     if q.device.type != "cuda":
-        raise ValueError(f"no K1 path for device {q.device}")
+        raise ValueError(f"no {kern.name} path for device {q.device}")
     fold = float(scale) * LOG2E
-    return _launch_k1(q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
-                      eps_k, num_heads)
+    return _launch(kern, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
+                   eps_k, num_heads)
 
 
 def fused_dual_flash_attention(q, k, v, num_heads: int, w_q_img, w_q_txt,

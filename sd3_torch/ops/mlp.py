@@ -6,8 +6,13 @@ Packed SwiGLU as in reference MLP.py and xformers' SwiGLU: w12 (in ->
 package leaves them to XLA. The parameters sit under the scope `MLP`
 (`MLP_x.MLP.w12.weight`), the reference state-dict layout.
 
-`swiglu_old` (flat scope), `gelu` and the int8 fused-MLP kernels are not
-ported yet.
+Under quant="int8" w12 and w3 are `Int8Linear`s. When both are quantized
+and hidden is a multiple of 128 (`fused_mlp_ok`, the JAX `_fused_mlp_ok`)
+the chain runs through the int8 SwiGLU kernels (ops/fused_mlp.py), which
+also take the block's AdaLN prologue and gate + residual epilogue; otherwise
+it is two int8 projections with silu * mul between them.
+
+`swiglu_old` (flat scope) and `gelu` are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,19 +21,45 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from sd3_torch.ops.fused_mlp import fused_swiglu_int8
 from sd3_torch.ops.norms import linear
+from sd3_torch.ops.quant import make_linear
+
+
+def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = ()) -> bool:
+    """The int8 SwiGLU kernels serve this MLP (sd3_tpu/ops/mlp.py:44-47)."""
+    return (quant == "int8" and hidden % 128 == 0
+            and not ({"w12", "w3"} & set(quant_skip)))
 
 
 class SwiGLU(nn.Module):
     """y = w3(silu(w12(x)[..., :h]) * w12(x)[..., h:])."""
 
-    def __init__(self, dim: int, hidden: int, device=None, dtype=None):
+    def __init__(self, dim: int, hidden: int, quant: str = "none",
+                 quant_skip: tuple = (), device=None, dtype=None):
         super().__init__()
-        self.w12 = nn.Linear(dim, 2 * hidden, bias=True, device=device,
-                             dtype=dtype)
-        self.w3 = nn.Linear(hidden, dim, bias=True, device=device, dtype=dtype)
+        self.hidden = hidden
+        self.quant, self.quant_skip = quant, tuple(quant_skip)
+        kw = dict(quant=quant, quant_skip=self.quant_skip, device=device,
+                  dtype=dtype)
+        self.w12 = make_linear(dim, 2 * hidden, True, "w12", **kw)
+        self.w3 = make_linear(hidden, dim, True, "w3", **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def fused_ok(self) -> bool:
+        return fused_mlp_ok(self.quant, self.hidden, self.quant_skip)
+
+    def forward(self, x: torch.Tensor, shift=None, scale=None, gate=None,
+                residual: bool = False) -> torch.Tensor:
+        if self.fused_ok:
+            w12, w3 = self.w12, self.w3
+            return fused_swiglu_int8(
+                x, w12.weight_q, w12.weight_scale, w12.bias, w3.weight_q,
+                w3.weight_scale, w3.bias, shift=shift, scale=scale,
+                gate=gate, residual=residual)
+        if shift is not None or gate is not None or residual:
+            raise ValueError("the block-tail arguments need the int8 SwiGLU "
+                             "kernels (fused_ok)")
         x1, x2 = linear(x, self.w12).chunk(2, dim=-1)
         return linear(F.silu(x1) * x2, self.w3)
 
@@ -37,14 +68,20 @@ class MLP(nn.Module):
     """MLP dispatcher: act='swiglu' wraps SwiGLU under the scope `MLP`."""
 
     def __init__(self, dim: int, hidden_scale: float = 4.0,
-                 act: str = "swiglu", device=None, dtype=None):
+                 act: str = "swiglu", quant: str = "none",
+                 quant_skip: tuple = (), device=None, dtype=None):
         super().__init__()
         if act != "swiglu":
             raise NotImplementedError(
                 f"MLP act={act!r} is not ported yet: ROADMAP.md, port queue, "
                 "'gelu / swiglu_old'")
-        self.MLP = SwiGLU(dim, int(dim * hidden_scale), device=device,
-                          dtype=dtype)
+        self.MLP = SwiGLU(dim, int(dim * hidden_scale), quant=quant,
+                          quant_skip=quant_skip, device=device, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.MLP(x)
+    @property
+    def fused_ok(self) -> bool:
+        return self.MLP.fused_ok
+
+    def forward(self, x: torch.Tensor, shift=None, scale=None, gate=None,
+                residual: bool = False) -> torch.Tensor:
+        return self.MLP(x, shift, scale, gate, residual)

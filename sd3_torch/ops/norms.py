@@ -38,9 +38,12 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+def linear(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
     """`layer(x)` in x's dtype: parameters are cast to the compute dtype at
-    use, as flax's Dense(dtype=...) does (a no-op when they already are)."""
+    use, as flax's Dense(dtype=...) does (a no-op when they already are).
+    A quantized layer (ops.quant.Int8Linear) applies itself."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     dt = x.dtype
     b = None if layer.bias is None else layer.bias.to(dt)
     return F.linear(x, layer.weight.to(dt), b)
@@ -70,8 +73,12 @@ class AdaLNorm(nn.Module):
         self.c_scale = nn.Linear(c_dim, dim, bias=False, device=device,
                                  dtype=dtype)
 
+    def modulation(self, y: torch.Tensor):
+        """The (shift, scale) vectors (B, dim), for consumers that apply the
+        LayerNorm and modulation themselves (the int8 MLP kernels)."""
+        return linear(y, self.c_shift), linear(y, self.c_scale)
+
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        shift = linear(y, self.c_shift)
-        scale = linear(y, self.c_scale)
+        shift, scale = self.modulation(y)
         x = layer_norm(x)
         return x * (1.0 + scale[:, None, :]) + shift[:, None, :]

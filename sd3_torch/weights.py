@@ -5,7 +5,10 @@
   the name mapping of `sd3_tpu/training/checkpoint.py::export_to_torch_state_dict`
   (reference state-dict names), except that the patch-embedding kernel
   (C*p*p, O) becomes the reference's Conv2d weight `pos_enc.proj.weight`
-  (O, C, p, p) instead of staying 2-D.
+  (O, C, p, p) instead of staying 2-D. A quantized tree (JAX
+  `quantize_params`) crosses too: `kernel_q` (in, out) int8 becomes
+  `weight_q` (out, in) int8 and `kernel_scale` becomes `weight_scale` fp32,
+  the buffers of `ops.quant.Int8Linear`.
 - `load_reference_state_dict(model, sd)`: drops the recomputed buffers a
   reference checkpoint carries (rotary tables, the absolute sin-cos table)
   and loads the rest strictly.
@@ -41,10 +44,12 @@ def _flatten(tree: Mapping, prefix=()) -> dict[tuple[str, ...], object]:
 def state_dict_from_jax(params: Mapping, patch_size: int = 2
                         ) -> dict[str, torch.Tensor]:
     """JAX MMDiT params (nested dicts of numpy-convertible arrays) -> the
-    port's state_dict (fp32 tensors, reference names)."""
+    port's state_dict (reference names; int8 leaves stay int8, every other
+    leaf becomes fp32)."""
     out: dict[str, torch.Tensor] = {}
     for path, val in _flatten(params).items():
-        arr = np.asarray(val, dtype=np.float32)
+        arr = np.asarray(val)
+        arr = arr if arr.dtype == np.int8 else arr.astype(np.float32)
         parts = list(path)
         if parts[0] == "t_emb":
             if parts[1] == "time_scale":
@@ -63,6 +68,11 @@ def state_dict_from_jax(params: Mapping, patch_size: int = 2
             else:
                 arr = arr.T
                 parts[-1] = "weight"
+        elif parts[-1] == "kernel_q":
+            arr = arr.T
+            parts[-1] = "weight_q"
+        elif parts[-1] == "kernel_scale":
+            parts[-1] = "weight_scale"
         if len(parts) >= 2 and parts[-2] == "y_proj":
             parts = parts[:-1] + ["0", parts[-1]]
         out[".".join(parts)] = torch.tensor(arr)  # a contiguous copy

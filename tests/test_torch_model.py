@@ -20,10 +20,13 @@ from sd3_tpu.config import tiny_config as j_tiny_config
 from sd3_tpu.models.mmdit import DualStreamBlock as JBlock
 from sd3_tpu.models.mmdit import MMDiT as JMMDiT
 from sd3_tpu.models.mmdit import init_mmdit
+from sd3_tpu.ops.quant import quantize_params
 from sd3_tpu.training.checkpoint import import_torch_state_dict
 
 from sd3_torch.config import MMDiTConfig, published_config, tiny_config
 from sd3_torch.models.mmdit import DualStreamBlock, MMDiT
+from sd3_torch.ops import fused_attention as tfa
+from sd3_torch.ops import fused_mlp as tfm
 from sd3_torch.ops.fused_attention import K1
 from sd3_torch.weights import load_reference_state_dict, state_dict_from_jax
 
@@ -159,7 +162,98 @@ def test_init_weights_is_seeded_and_cast_keeps_time_scale_fp32():
     assert a.blocks[0].attn.query_proj_x.weight.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("kw", [dict(text_loss=True), dict(quant="int8"),
+# ---- int8 (w8a8) serving --------------------------------------------------
+# A width at which the int8 kernels' routes are all on: hidden = 64 * 2 is a
+# multiple of 128 (the fused SwiGLU), head dim 32 divides 128 (the fused
+# attention); 2 samples of 14 text tokens are not sample-alignable (K3).
+INT8_CFG = dict(attn_type="softmax_flash", dim=64, hidden_scale=2.0,
+                num_heads=2, num_blocks=2)
+
+
+def _int8_pair(hw, seed, **kw):
+    """(JAX int8 model, its quantized params, JAX float model, float params,
+    the port's int8 model with the same int8 weights)."""
+    jcfg = j_tiny_config(**{**INT8_CFG, **kw})
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(seed), height=hw,
+                            width=hw, remat_blocks=False)
+    qparams = quantize_params(params, quant_skip=jcfg.quant_skip)
+    jq = JMMDiT(jcfg.replace(quant="int8"), remat_blocks=False)
+    cfg = MMDiTConfig.from_json(jcfg.to_json(), quant="int8",
+                                quant_skip=jcfg.quant_skip)
+    model = MMDiT(cfg, device="cpu").eval()
+    model.load_state_dict(state_dict_from_jax(qparams), strict=True)
+    return jq, qparams, jm, params, model
+
+
+def _count_routes(monkeypatch):
+    """Count the plain versions the CPU forward takes, by kernel."""
+    counts = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
+    for mod, name, key in ((tfa, "composition", "K1"),
+                           (tfa, "composition_int8_qk", "K4"),
+                           (tfm, "swiglu_int8_tail", "K2"),
+                           (tfm, "swiglu_int8", "K3")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _key=key, **k):
+            counts[_key] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    return counts
+
+
+def _int8_run_and_check(monkeypatch, hw, seed, **kw):
+    """One forward of the JAX int8 model and the port's on the same inputs;
+    returns the port's route counts. Tolerance: w8a8 quantization is
+    discontinuous. The two frameworks sum RMSNorm, LayerNorm and the
+    dequantization in different orders, a last-bit difference moves the odd
+    element across an int8 rounding boundary (one level, 1/127 of its row's
+    scale), and attention spreads each such step over every token of the
+    next layer, where it moves more. So the port is held by rel L2 <= 1e-2,
+    and to at most half of what separates JAX's own float model from its
+    int8 one: a port that skipped or misplaced a quantization fails."""
+    jq, qparams, jm, params, model = _int8_pair(hw, seed, **kw)
+    assert (isinstance(model.blocks[0].MLP_x.MLP.w3, torch.nn.Linear)
+            == ("w3" in jq.cfg.quant_skip))
+    x, t, c, cp = _inputs(jq.cfg, h=hw, w=hw, seed=seed + 1)
+    args = [jnp.asarray(a) for a in (x, t, c, cp)]
+    want = np.asarray(jq.apply({"params": qparams}, *args))
+    flt = np.asarray(jm.apply({"params": params}, *args))
+    counts = _count_routes(monkeypatch)
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp))).numpy()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    int8_effect = np.linalg.norm(flt - want) / np.linalg.norm(want)
+    assert rel <= 1e-2 and rel <= 0.5 * int8_effect, (rel, int8_effect)
+    return counts
+
+
+def test_int8_mmdit_with_every_kernel_route_on_matches_jax(monkeypatch):
+    # 64x64 latents at patch 2: 1024 image + 14 text tokens pad to 1152, in
+    # K4's [1024, 2048]; the image stream tiles sample-aligned (K2), the text
+    # stream does not (K3, then only in the first block: the last block has
+    # no text MLP). Measured: rel L2 3.3e-3, against 1.4e-2 between JAX's
+    # float and int8 models.
+    counts = _int8_run_and_check(monkeypatch, hw=64, seed=21)
+    assert counts == dict(K1=0, K2=2, K3=1, K4=2)
+
+
+def test_int8_mmdit_below_1024_tokens_takes_k1_and_matches_jax(monkeypatch):
+    # 16x16 latents: 64 + 14 tokens pad to 128, below K4's gate, so the
+    # attention is K1's (plain) route while the image-stream MLP is still
+    # K2's (2 samples of 64 tokens fill one 128-row tile)
+    counts = _int8_run_and_check(monkeypatch, hw=16, seed=23)
+    assert counts == dict(K1=2, K2=2, K3=1, K4=0)
+
+
+def test_int8_quant_skip_turns_routes_off(monkeypatch):
+    # quant_skip names stay float: w3 float turns the fused SwiGLU off (two
+    # projections with silu * mul between them), attn_qk turns K4 off
+    counts = _int8_run_and_check(monkeypatch, hw=16, seed=25,
+                                 quant_skip=("w3", "attn_qk"))
+    assert counts == dict(K1=2, K2=0, K3=0, K4=0)
+
+
+@pytest.mark.parametrize("kw", [dict(text_loss=True), dict(MLP_type="swiglu_old"),
                                 dict(attn_type="softmax"),
                                 dict(positional_encoding="RoPE2dV2"),
                                 dict(MLP_type="gelu"),

@@ -165,3 +165,50 @@ def test_fused_attention_plain_matches_jax_kernel(nh, d, h, w, n_txt, rope2d):
                                          *map(_t, ws), angles, n_img, scale)
     _close(got, want)
     assert tfa.K1.launches == before  # CPU tensors take the plain version
+
+
+INT8_QK_SHAPES = [
+    (3, 16, 3, 4, 5, True),     # odd heads, head dim 16 (zero-padded to 32)
+    (3, 64, 5, 7, 12, True),    # odd heads, ragged N = 47, head dim 64
+    (2, 64, 2, 4, 4, False),    # NoPE
+]
+
+
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", INT8_QK_SHAPES)
+def test_int8_qk_plain_matches_jax_kernel(nh, d, h, w, n_txt, rope2d):
+    # K4's plain version against the JAX kernel's int8_qk branch (Pallas
+    # interpret mode). The s32 scores are exact on both sides and q^, k^ are
+    # quantized with the same scales, but q^ / k^ come out of RMSNorm and
+    # the rotation summed in another order: a last-bit difference can move
+    # one element across an int8 rounding boundary, which shifts a score by
+    # one level, s_q * s_k * |k_int| <~ 1e-2 in the exp2 domain here, and an
+    # output by a fraction of that. atol 2e-4 covers such a flip; a wrong
+    # scale (per tensor instead of per row or per head) or a bounded rather
+    # than true max is off by orders more.
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d,
+                                                   seed=d + h)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             nh, *map(jnp.asarray, ws), angles, n_img, scale,
+                             int8_qk=True)
+    before = tfa.K4.launches
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), nh,
+                                         *map(_t, ws), angles, n_img, scale,
+                                         int8_qk=True)
+    assert tfa.K4.launches == before
+    _close(got, want, atol=2e-4, rtol=0)
+    # the int8 scores are not the float ones: the plain K1 result differs
+    flt = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), nh,
+                                         *map(_t, ws), angles, n_img, scale)
+    assert (flt - got).abs().max().item() > 1e-3
+
+
+def test_int8_qk_gate_follows_the_padded_length():
+    from sd3_torch.ops.attention import int8_qk_on
+    assert not int8_qk_on("int8", (), 1024 - 128)       # pads to 896
+    assert int8_qk_on("int8", (), 897)                  # pads to 1024
+    assert int8_qk_on("int8", (), 1178)                 # the 512px slice
+    assert int8_qk_on("int8", (), 2048)
+    assert not int8_qk_on("int8", (), 2049)             # pads to 2176 (K7)
+    assert not int8_qk_on("none", (), 1178)
+    assert not int8_qk_on("int8", ("attn_qk",), 1178)
+    assert int8_qk_on("int8", ("w12",), 1178)

@@ -16,7 +16,9 @@ import torch
 from sd3_tpu.config import tiny_config as j_tiny_config
 from sd3_tpu.inference.sampler import make_sample_fn
 from sd3_tpu.models import text_encoders as jtext
+from sd3_tpu.models.mmdit import MMDiT as JMMDiT
 from sd3_tpu.models.mmdit import init_mmdit
+from sd3_tpu.ops.quant import quantize_params
 
 from sd3_torch.config import MMDiTConfig, tiny_config
 from sd3_torch.inference import infer as tinfer
@@ -154,9 +156,57 @@ def test_infer_cli_on_cpu_writes_pngs_and_latents(tmp_path):
     np.testing.assert_array_equal(np.load(tmp_path / "lat2.npy"), z)
 
 
+def test_int8_sampler_matches_jax():
+    # int8 serving, a few Euler steps with CFG: the JAX int8 model and its
+    # quantized tree against the port's int8 model with the same weights.
+    # 16x16 latents: the CFG batch of 4 x 64 image tokens takes K2's route,
+    # the text stream K3's, attention K1's (78 tokens, below K4's gate).
+    # Each step feeds the next, so the int8 model parity of
+    # test_torch_model.py (rel L2 <= 1e-2, for discontinuous rounding)
+    # holds the final latents too.
+    jcfg = j_tiny_config(attn_type="softmax_flash", dim=64, hidden_scale=2.0,
+                         num_heads=2)
+    _, params = init_mmdit(jcfg, jax.random.PRNGKey(15), height=16,
+                           width=16, remat_blocks=False)
+    qparams = quantize_params(params)
+    jq = JMMDiT(jcfg.replace(quant="int8"), remat_blocks=False)
+    model = MMDiT(MMDiTConfig.from_json(jcfg.to_json(), quant="int8"),
+                  device="cpu").eval()
+    model.load_state_dict(state_dict_from_jax(qparams), strict=True)
+    r = np.random.default_rng(16)
+    x = r.standard_normal((2, jcfg.inCh, 16, 16)).astype(np.float32)
+    th = r.standard_normal((2, jcfg.text_tokens, jcfg.text_hidden_dim)
+                           ).astype(np.float32)
+    tp = r.standard_normal((2, jcfg.class_dim)).astype(np.float32)
+    want = np.asarray(make_sample_fn(jq, STEPS, "euler")(
+        qparams, jnp.asarray(x), jnp.asarray(th), jnp.asarray(tp),
+        jax.random.PRNGKey(0), jnp.float32(3.0)))
+    vel = make_velocity_fn(model, torch.from_numpy(th), torch.from_numpy(tp))
+    got = sample_latents(vel, torch.from_numpy(x), STEPS, 3.0, "euler").numpy()
+    assert np.isfinite(got).all()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-2, rel
+
+
+def test_infer_cli_int8_on_cpu(tmp_path):
+    # --quant int8 loads the float checkpoint, quantizes, casts and samples
+    # through the plain versions of the int8 kernels; the result is close
+    # to, and not the same as, the float run's
+    args = _write_reference_checkpoint(tmp_path) + ["--device", "cpu"]
+    tinfer.main(args + ["--out_imgname", str(tmp_path / "f"),
+                        "--save_latents", str(tmp_path / "f.npy")])
+    tinfer.main(args + ["--quant", "int8", "--quant_skip", "attn_qk",
+                        "--out_imgname", str(tmp_path / "q"),
+                        "--save_latents", str(tmp_path / "q.npy")])
+    flt, q8 = np.load(tmp_path / "f.npy"), np.load(tmp_path / "q.npy")
+    assert (tmp_path / "q_1.png").is_file() and np.isfinite(q8).all()
+    assert not np.array_equal(flt, q8)
+    assert np.linalg.norm(q8 - flt) / np.linalg.norm(flt) < 0.1
+
+
 @pytest.mark.parametrize("extra,err", [
     (["--device", "cuda"], RuntimeError),
-    (["--device", "cpu", "--quant", "int8"], NotImplementedError),
+    (["--device", "cpu", "--quant", "int8", "--gif"], NotImplementedError),
     (["--device", "cpu", "--gif"], NotImplementedError),
 ])
 def test_infer_cli_refuses_what_it_cannot_do(tmp_path, monkeypatch, extra,
