@@ -13,13 +13,17 @@ Phases (any failure exits non-zero without the final ok line):
      shape with odd H and a NoPE shape; K4 (its int8-QK^T variant) at the
      slice and a ragged shape; K3 (int8 SwiGLU) at the text stream and a
      ragged shape; K2 (int8 SwiGLU block tail) at the image stream and a
-     shape whose tiles straddle samples. Kernel (CUDA graph), eager,
-     plain-version and, for attention, library (scaled_dot_product_attention
-     on pre-prepped q/k/v, a yardstick only) times, and the bound;
+     shape whose tiles straddle samples; K5, K6a and K6b (flash attention
+     forward, dq, dk / dv) at the 512px training shape and a ragged one.
+     Kernel (CUDA graph), eager, plain-version and, for attention, library
+     (scaled_dot_product_attention, forward or backward, a yardstick only)
+     times, and the bound. Then K1's backward (K5, K6a, K6b under its
+     autograd Function) against the fp32 composition's autograd;
   4. the published widths at a depth of 2 blocks, 512px, batch 2, on the
      card against the same weights in fp32 on the CPU (the plain path):
      the bf16 model (through K1), then the int8 (w8a8) model (through K2,
-     K3 and K4);
+     K3 and K4); then one training step at 256px, batch 2 (loss, gradients
+     and the update against fp32 on the CPU);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then the median of 3 timed runs; each
@@ -28,7 +32,14 @@ Phases (any failure exits non-zero without the final ok line):
   6. the same with the model quantized to int8 (quantize_model): each sample
      call must launch K2 19 * 20, K3 18 * 20 (the last block has no text
      MLP), K4 19 * 20 and K1 0 times;
-  7. one JSON line {"kernels": [...]} per ported kernel, then the last line
+  7. training through Trainer.train_step with the slice's configuration
+     (bench.py --train defaults: the 19-block model, 512px, batch 4, fused
+     low-mem AdamW, bf16 gradients, precast weights, remat): one warmup,
+     then the median of 5 timed steps, each launching K5 38, K6a 19, K6b 19
+     and K1-K4 0 times; one more step under torch.profiler. Then two steps
+     of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
+     accumulation 2, device EMA) at a depth of 2 blocks;
+  8. one JSON line {"kernels": [...]} per ported kernel, then the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
@@ -37,10 +48,12 @@ sd3_torch package beside this file.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Tolerances, each with its reason.
@@ -77,6 +90,39 @@ MODEL_REL_L2 = 3e-2
 # int8 level) moves a large share of int8 levels by one (1/127 of a row's
 # scale each) in ~14 quantizers per block.
 INT8_MODEL_REL_L2 = 5e-2
+# K5 / K6a / K6b against their fp32 plain versions on the same bf16 inputs:
+# p and ds are rounded to bf16 (relative 2^-9) before their products, K5
+# rounds p against a running row max (an online softmax) where the plain
+# version takes the true one, and every output is written in bf16. Outputs
+# of magnitude <= ~2: out within 1e-2; lse from fp32 statistics within 1e-3
+# (a padded key let into the sum moves it by > 1e-1); dq, dk, dv within 2e-2
+# of their largest element and 1e-2 relative L2 (measured at the training
+# shape: 3.8e-3 and 2.4e-3).
+FLASH_OUT_ATOL = 1e-2
+FLASH_LSE_ATOL = 1e-3
+FLASH_GRAD_MAX_REL = 2e-2
+FLASH_GRAD_REL_L2 = 1e-2
+# K1's backward (the prep recomputed, then K5, K6a, K6b) against the fp32
+# composition's autograd: on top of the flash kernels' roundings, the prep's
+# output is rounded to bf16 before K5 / K6 (the fp32 composition keeps it),
+# and K5's bf16 output enters delta, whose difference with dO.v^T cancels.
+# The reference uses the kernel's RMSNorm eps (bf16's). Measured at the
+# training shape: 8.4e-3 of the largest element, 5.5e-3 relative L2.
+K1_GRAD_MAX_REL = 3e-2
+K1_GRAD_REL_L2 = 1.5e-2
+# One training step of the 2-block published-width model, bf16 on the card
+# (K5 / K6, bf16 gradients against bf16 weight copies) against fp32 on the
+# CPU: ~20 bf16 roundings on the residual path move the velocity ~1%
+# (MODEL_REL_L2 above), the loss, a mean of squares dominated by the target,
+# much less; gradients carry the forward's error and the backward's own
+# roundings. Adam's first step moves each weight by ~lr * sign(g), so the
+# update differs by 2 lr wherever bf16 noise flips the sign of a small
+# gradient; a wrong path (gradients of other weights, or none) is ~1.4.
+# Measured: loss 3.1e-4 relative, gradients 1.5e-2 and the update 0.13
+# relative L2.
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
+TRAIN_UPDATE_REL_L2 = 0.4
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
 # and HBM3.
 PEAK_BF16_FLOPS = 989e12
@@ -86,6 +132,13 @@ PEAK_BYTES = 3.35e12
 SLICE = dict(b=8, h=32, w=32, n_txt=154, heads=19, d=64, rope=True)
 RAGGED = dict(b=2, h=5, w=7, n_txt=12, heads=3, d=32, rope=True)
 NOPE = dict(b=2, h=10, w=15, n_txt=50, heads=4, d=64, rope=False)
+# flash attention (B, H, N, D): the 512px training step (batch 4, 1024 image
+# + 154 text tokens, 19 heads of 64), and odd heads with a ragged length at
+# head dim 32
+FLASH_SLICE = (4, 19, 1178, 64)
+FLASH_RAGGED = (2, 3, 47, 32)
+# the slice's training configuration (bench.py --train defaults)
+TRAIN_RES, TRAIN_BATCH = 512, 4
 # int8 SwiGLU: rows, tokens per sample, width, hidden, h_group (the JAX
 # pickers' chunk at these shapes: ops/fused_mlp.py)
 K3_SLICE = dict(m=8 * 154, n_tok=8 * 154, k=1216, hidden=4864, h_group=256)
@@ -290,6 +343,357 @@ def phase_mlp(shape, gen, tail):
     return res
 
 
+def _errs(got, want) -> dict:
+    """Max abs error, max abs error / max |want| and relative L2 of got
+    against want."""
+    d = got.float() - want.float()
+    err = d.abs().max().item()
+    return dict(max_abs_err=err, max_rel_err=err / want.abs().max().item(),
+                rel_l2=(d.norm() / want.norm()).item())
+
+
+def phase_flash(shape, gen):
+    """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
+    shape; returns {"K5" | "K6a" | "K6b": measurements}."""
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import flash_attention as fl
+
+    b, h, n, d = shape
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fl.flash_fwd(q, k, v, scale)
+    dq, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    for t in (out, lse, dq, delta, dk, dv):
+        require(bool(torch.isfinite(t).all()), f"flash non-finite at {shape}")
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    w_out, w_lse = fl.flash_fwd_plain(qf, kf, vf, scale)
+    w_dq, w_delta = fl.flash_dq_plain(qf, kf, vf, w_out, dof, w_lse, scale)
+    w_dk, w_dv = fl.flash_dkv_plain(qf, kf, vf, dof, w_lse, w_delta, scale)
+    errs = dict(K5=dict(out=_errs(out, w_out), lse=_errs(lse, w_lse)),
+                K6a=dict(dq=_errs(dq, w_dq), delta=_errs(delta, w_delta)),
+                K6b=dict(dk=_errs(dk, w_dk), dv=_errs(dv, w_dv)))
+
+    # library yardsticks, never called by the port: SDPA's forward, and its
+    # backward (dq, dk, dv together) as forward + backward less forward
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+        torch.autograd.grad(o, (qr, kr, vr), do)
+    lib_bwd = cuda_ms(sdpa_fwd_bwd, graph=False) - cuda_ms(sdpa, graph=False)
+    one, stat = b * h * n * d * 2, b * h * n * 4  # bytes: a bf16 tensor, lse
+    bh_nnd = b * h * n * n * d
+    runs = dict(  # kernel, plain version, products of 2*B*H*N^2*D, bytes, lib
+        K5=(lambda: fl.flash_fwd(q, k, v, scale),
+            lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
+            cuda_ms(sdpa)),
+        K6a=(lambda: fl.flash_dq(q, k, v, out, do, lse, scale),
+             lambda: fl.flash_dq_plain(q, k, v, out, do, lse, scale), 3,
+             6 * one + 2 * stat, lib_bwd),
+        K6b=(lambda: fl.flash_dkv(q, k, v, do, lse, delta, scale),
+             lambda: fl.flash_dkv_plain(q, k, v, do, lse, delta, scale), 4,
+             6 * one + 2 * stat, lib_bwd))
+    results = {}
+    for name, (run, plain, products, nbytes, lib) in runs.items():
+        t_ops = products * 2 * bh_nnd / PEAK_BF16_FLOPS
+        t_bytes = nbytes / PEAK_BYTES
+        res = dict(shape=f"B={b} H={h} N={n} D={d}", errors=errs[name],
+                   max_abs_err=max(e["max_abs_err"] for k, e in
+                                   errs[name].items() if k not in ("lse",
+                                                                   "delta")),
+                   ms=cuda_ms(run), eager_ms=cuda_ms(run, graph=False),
+                   plain_ms=cuda_ms(plain, iters=3, groups=3), library_ms=lib,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        print(f"  {name}", json.dumps(res), flush=True)
+        results[name] = res
+    out_err = errs["K5"]["out"]["max_abs_err"]
+    require(out_err <= FLASH_OUT_ATOL,
+            f"K5 out max abs err {out_err} > {FLASH_OUT_ATOL} at {shape}")
+    lse_err = errs["K5"]["lse"]["max_abs_err"]
+    require(lse_err <= FLASH_LSE_ATOL,
+            f"K5 lse max abs err {lse_err} > {FLASH_LSE_ATOL} at {shape}")
+    for name, key in (("K6a", "dq"), ("K6b", "dk"), ("K6b", "dv")):
+        e = errs[name][key]
+        require(e["max_rel_err"] <= FLASH_GRAD_MAX_REL
+                and e["rel_l2"] <= FLASH_GRAD_REL_L2,
+                f"{name} {key}: max err {e['max_rel_err']} of max|plain| "
+                f"(limit {FLASH_GRAD_MAX_REL}), rel L2 {e['rel_l2']} (limit "
+                f"{FLASH_GRAD_REL_L2}) at {shape}")
+    return results
+
+
+def phase_k1_backward(gen):
+    """K1's autograd Function at the training shape: K1 forward, then the
+    prep recomputed and K5, K6a, K6b; gradients of q, k, v and the four norm
+    weights against the fp32 plain composition's autograd."""
+    import torch
+    from sd3_torch.ops import flash_attention as fl
+    from sd3_torch.ops import fused_attention as fa
+    from sd3_torch.ops.rope import rope2d_axial_angles
+
+    b, nh, d, hw, n_txt = TRAIN_BATCH, 19, 64, (32, 32), 154
+    n_img = hw[0] * hw[1]
+    n, f = n_img + n_txt, nh * d
+    q, k, v, g = (torch.randn((b, n, f), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    ws = [1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+          for _ in range(4)]
+    angles = rope2d_axial_angles(*hw, d).reshape(n_img, d)
+    ins = [t.clone().requires_grad_() for t in (q, k, v, *ws)]
+    before = launch_counts()
+    out = fa.fused_dual_flash_attention(*ins[:3], nh, *ins[3:], angles, n_img,
+                                        d ** -0.5)
+    got = torch.autograd.grad(out, ins, g)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    ran = {kern.name: after[kern.name] - before[kern.name]
+           for kern in (fa.K1, fl.K5, fl.K6A, fl.K6B)}
+    require(all(c == 1 for c in ran.values()),
+            f"K1 forward + backward launched {ran}, expected one each")
+    # the plain composition in fp32 on the same values, with the kernel's
+    # RMSNorm eps (that of bf16)
+    ref = [t.detach().float().requires_grad_() for t in (q, k, v, *ws)]
+    cos, sin = (torch.as_tensor(t, device="cuda")
+                for t in fa.rope_row_tables(angles, n, d))
+    cq, sq = fa.fold_row_tables(cos, sin, ref[3], ref[4], n_img)
+    ck, sk = fa.fold_row_tables(cos, sin, ref[5], ref[6], n_img)
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    want = torch.autograd.grad(fa.composition(
+        *ref[:3], cq, sq, ck, sk, d ** -0.5, eps, eps, nh), ref, g.float())
+    names = ("dq", "dk", "dv", "dw_q_img", "dw_q_txt", "dw_k_img", "dw_k_txt")
+    errs = {nm: _errs(a, w) for nm, a, w in zip(names, got, want)}
+    print("  K1 backward", json.dumps(dict(
+        shape=f"B={b} N={n} H={nh} D={d}", launches=ran, errors=errs)),
+        flush=True)
+    for nm, e in errs.items():
+        require(e["max_rel_err"] <= K1_GRAD_MAX_REL
+                and e["rel_l2"] <= K1_GRAD_REL_L2,
+                f"K1 backward {nm}: max err {e['max_rel_err']} of max|plain| "
+                f"(limit {K1_GRAD_MAX_REL}), rel L2 {e['rel_l2']} (limit "
+                f"{K1_GRAD_REL_L2})")
+    return errs
+
+
+def _flat_rel_l2(got: dict, want: dict) -> float:
+    """Relative L2 of two {name: tensor} dicts as one vector each."""
+    num = sum(float((got[k].float().cpu() - want[k].float()).square().sum())
+              for k in want)
+    den = sum(float(want[k].float().square().sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def phase_train_step_2block(log_dir):
+    """One training step of the published widths at a depth of 2 blocks,
+    256px, batch 2: the slice's flags in bf16 on the card (K5, K6a, K6b)
+    against the same weights and noise in fp32 on the CPU (plain path)."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.training.trainer import Noise, TrainConfig, Trainer, draw_noise
+
+    cfg = published_config(stage_res=256).replace(num_blocks=2)
+    kw = dict(batch_size=2, accumulation_steps=1, lr=1e-4, warmup_steps=0,
+              low_mem_optimizer=True, fused_optimizer=True, track_ema=False,
+              remat_blocks=True)
+    ref = Trainer(cfg.replace(dtype="float32"), TrainConfig(**kw),
+                  device="cpu", log_dir=log_dir, use_wandb=False)
+    p0 = {k: v.detach().clone() for k, v in ref.params.items()}
+    dut = Trainer(cfg, TrainConfig(**kw, bf16_grads=True, precast_params=True),
+                  params=p0, device="cuda", log_dir=log_dir, use_wandb=False)
+    g = torch.Generator().manual_seed(2)
+    lat = 256 // 8
+    batch = {"x0": torch.randn((1, 2, cfg.inCh, lat, lat), generator=g),
+             "text": torch.randn((1, 2, cfg.text_tokens, cfg.text_hidden_dim),
+                                 generator=g),
+             "pooled": torch.randn((1, 2, cfg.class_dim), generator=g)}
+    noise = draw_noise(g, batch["x0"][0], ref.tcfg)
+    noise = Noise(noise.t, noise.eps, torch.tensor([False, True]),
+                  torch.tensor([True, False]), torch.tensor([False, False]))
+    on_card = lambda tree: type(tree)(*(t.cuda() for t in tree))
+    card_batch = dut.shard_batch(batch)
+    t0 = time.time()
+    want_g, want_m = ref.gradients(batch, [noise])
+    cpu_s = time.time() - t0
+    reset_launches()
+    got_g, got_m = dut.gradients(card_batch, [on_card(noise)])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(all(bool(torch.isfinite(t).all()) for t in got_g.values()),
+            "2-block training gradients non-finite on the card")
+    ref.train_step(batch, [noise])
+    dut.train_step(card_batch, [on_card(noise)])
+    torch.cuda.synchronize()
+    delta = lambda tr: {k: v.detach().float().cpu() - p0[k]
+                        for k, v in tr.params.items()}
+    res = dict(loss_card=got_m["loss"].item(), loss_cpu_fp32=want_m["loss"].item(),
+               grad_rel_l2=_flat_rel_l2(got_g, want_g),
+               update_rel_l2=_flat_rel_l2(delta(dut), delta(ref)),
+               launches=launches, cpu_fp32_gradient_s=cpu_s)
+    res["loss_rel"] = abs(res["loss_card"] / res["loss_cpu_fp32"] - 1)
+    print("  train step", json.dumps(res), flush=True)
+    nb = cfg.num_blocks
+    for name, n in dict(flash_attention_fwd=2 * nb, flash_attention_dq=nb,
+                        flash_attention_dkv=nb, fused_attention_bf16=0).items():
+        require(launches[name] == n, f"{name} launched {launches[name]} times "
+                f"in a {nb}-block training step with remat, expected {n}")
+    require(res["loss_rel"] <= TRAIN_LOSS_REL,
+            f"2-block training loss {res['loss_card']} vs fp32 "
+            f"{res['loss_cpu_fp32']} (limit {TRAIN_LOSS_REL} relative)")
+    require(res["grad_rel_l2"] <= TRAIN_GRAD_REL_L2,
+            f"2-block gradients rel L2 {res['grad_rel_l2']} > "
+            f"{TRAIN_GRAD_REL_L2}")
+    require(res["update_rel_l2"] <= TRAIN_UPDATE_REL_L2,
+            f"2-block update rel L2 {res['update_rel_l2']} > "
+            f"{TRAIN_UPDATE_REL_L2}")
+    return res
+
+
+def model_flops_per_forward(cfg, img_tokens: int) -> float:
+    """Matmul FLOPs of one MMDiT forward, batch 1 (bench.py's model)."""
+    s = img_tokens + cfg.text_tokens
+    d, hd = cfg.dim, cfg.hidden_dim
+    per_block = (2 * s * d * d * 4 + 2 * s * s * d * 2
+                 + 2 * s * (d * 2 * hd + hd * d) + 2 * d * d * 7)
+    embed = (2 * img_tokens * (cfg.inCh * cfg.patch_size ** 2) * d
+             + 2 * img_tokens * d * d * 2)
+    return cfg.num_blocks * per_block + embed
+
+
+TRAIN_STEPS_TIMED = 5
+
+
+def phase_train(card, log_dir):
+    """The slice's training configuration through Trainer.train_step: the
+    published 19-block model, 512px, batch 4, accumulation 1, fused low-mem
+    AdamW, bf16 gradients, precast weights, remat of every block, no EMA.
+    One warmup step, then the median of TRAIN_STEPS_TIMED timed steps, each
+    launching K5 38, K6a 19, K6b 19 and K1-K4 0 times; then one more step
+    under torch.profiler for the card time by kernel family."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.training.optim import global_norm_f32
+    from sd3_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = published_config(stage_res=TRAIN_RES)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, accumulation_steps=1,
+                     total_steps=10 ** 9, ema_update_freq=10 ** 9,
+                     num_save_steps=10 ** 9, log_steps=10 ** 9,
+                     low_mem_optimizer=True, track_ema=False,
+                     remat_policy="nothing", bf16_grads=True,
+                     bf16_grad_accum=True, precast_params=True,
+                     fused_optimizer=True, remat_blocks=True)
+    t0 = time.time()
+    trainer = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
+    n_params = sum(p.numel() for p in trainer.params.values())
+    batch = trainer.shard_batch(next(synthetic_batch_iter(
+        cfg, TRAIN_BATCH, 1, TRAIN_RES, TRAIN_RES)))
+    torch.cuda.synchronize()
+    print(f"  trainer: {n_params / 1e6:.1f}M parameters, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    nb = cfg.num_blocks
+    expect = dict(flash_attention_fwd=2 * nb, flash_attention_dq=nb,
+                  flash_attention_dkv=nb, fused_attention_bf16=0,
+                  fused_attention_int8qk=0, swiglu_int8=0, swiglu_int8_tail=0)
+    watch = trainer.params["blocks.0.attn.query_proj_x.weight"]
+    w0 = watch.clone()
+
+    def step():
+        reset_launches()
+        t0 = time.time()
+        m = trainer.train_step(batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()  # synchronises
+        dt = time.time() - t0
+        launches = launch_counts()
+        for name, n in expect.items():
+            require(launches[name] == n, f"{name} launched {launches[name]} "
+                    f"times in one training step, expected {n}")
+        require(all(map(math.isfinite, (loss, gnorm))),
+                f"training loss {loss} / grad norm {gnorm} non-finite")
+        return dt, loss, gnorm, launches
+
+    warm_s = step()[0]
+    torch.cuda.reset_peak_memory_stats()
+    runs = [step() for _ in range(TRAIN_STEPS_TIMED)]
+    times = [r[0] for r in runs]
+    med = statistics.median(times)
+    require(not torch.equal(watch, w0), "training steps left the weights as "
+            "they were")
+    require(math.isfinite(global_norm_f32(trainer.params).item()),
+            "weights non-finite after training")
+    img_tokens = cfg.img_tokens(TRAIN_RES // 8, TRAIN_RES // 8)
+    flops = model_flops_per_forward(cfg, img_tokens) * 3 * TRAIN_BATCH
+    res = dict(batch=TRAIN_BATCH, res=TRAIN_RES, blocks=nb, warmup_s=warm_s,
+               step_s=times, median_s_per_step=med,
+               images_per_s=TRAIN_BATCH / med,
+               bf16_peak_share=flops / med / PEAK_BF16_FLOPS,
+               model_flops_per_step=flops, loss=[r[1] for r in runs],
+               grad_norm=[r[2] for r in runs], launches_per_step=runs[-1][3],
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, card=card,
+               clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,"
+                                       "temperature.gpu"))
+    print("  train", json.dumps(res), flush=True)
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_s = step()[0]
+    tr = device_breakdown(prof, traced_s)
+    tr["idle_share_untraced"] = 1 - tr["device_busy_ms"] / (med * 1e3)
+    print("  trace", json.dumps(tr), flush=True)
+    res["trace"] = tr
+    return res
+
+
+def phase_train_default_path(log_dir):
+    """One step of TrainConfig's default path, the optax-shaped AdamW with
+    an outer clip, fp32 gradients summed over 2 micro-batches and the
+    device EMA, at the published widths and a depth of 2 blocks; two steps,
+    since under warmup the first update is zero."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.training.trainer import TrainConfig, Trainer
+
+    cfg = published_config(stage_res=TRAIN_RES).replace(num_blocks=2)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, accumulation_steps=2,
+                     ema_update_freq=1)
+    trainer = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
+    require(trainer.optimizer is not None and trainer.ema is not None,
+            "the default TrainConfig should take the optax path with an EMA")
+    batches = synthetic_batch_iter(cfg, TRAIN_BATCH, 2, TRAIN_RES, TRAIN_RES)
+    p0 = {k: v.detach().clone() for k, v in trainer.params.items()}
+    out = []
+    for _ in range(2):
+        batch = trainer.shard_batch(next(batches))
+        reset_launches()
+        m = trainer.train_step(batch)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        launches = launch_counts()
+        nb = cfg.num_blocks
+        for name, n in dict(flash_attention_fwd=2 * nb * 2,
+                            flash_attention_dq=nb * 2,
+                            flash_attention_dkv=nb * 2).items():
+            require(launches[name] == n, f"{name} launched {launches[name]} "
+                    f"times in one accumulation-2 step, expected {n}")
+        require(all(map(math.isfinite, (loss, gnorm))),
+                f"default-path loss {loss} / grad norm {gnorm} non-finite")
+        out.append(dict(loss=loss, grad_norm=gnorm))
+    moved = sum(int(not torch.equal(v, p0[k])) for k, v in trainer.params.items())
+    ema_moved = sum(int(not torch.equal(v, p0[k])) for k, v in trainer.ema.items())
+    require(moved > 0 and ema_moved > 0, "the default path's second step "
+            "moved no weight or no EMA entry")
+    res = dict(steps=out, launches_per_step=launches, leaves_moved=moved,
+               ema_leaves_moved=ema_moved, leaves=len(p0))
+    print("  default path", json.dumps(res), flush=True)
+    return res
+
+
 def launch_counts():
     """{kernel name: launches so far} of every registered kernel."""
     from sd3_torch import kernels
@@ -449,8 +853,13 @@ def kernel_family(name: str) -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2 / K3 are the TAIL=true / false instantiations of one
     source; K4 is k_prep_kernel<D, true> with its quantize and attention
-    kernels), int8 and other GEMMs, and the rest."""
+    kernels; K5, K6a, K6b are fwd_kernel, dq_kernel, dkv_kernel of
+    flash_attention.cu), int8 and other GEMMs, and the rest."""
     low = name.lower()
+    for fam, fn in (("K6b", "dkv_kernel"), ("K6a", "dq_kernel"),
+                    ("K5", "fwd_kernel")):
+        if f"::{fn}<" in name or f"{fn}ILi" in name:
+            return fam
     if "attn_int8_kernel" in name or "k_quant_kernel" in name or (
             "k_prep_kernel" in name and "true>" in name):
         return "K4"
@@ -468,8 +877,8 @@ def kernel_family(name: str) -> str:
 def device_breakdown(prof, wall_s):
     """Self device time (ms) by kernel family (see kernel_family); the top
     kernels; and the idle share of the traced wall time."""
-    fams = dict.fromkeys(("K1", "K2", "K3", "K4", "gemm_int8", "gemm",
-                          "other"), 0.0)
+    fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b",
+                          "gemm_int8", "gemm", "other"), 0.0)
     rows = []
     for e in prof.key_averages():
         # device-side rows (kernels, copies, fills) only: they take no host
@@ -502,6 +911,7 @@ def main() -> int:
         print(f"FAIL: no sd3_torch package beside {__file__}", flush=True)
         return 1
     sys.path.insert(0, here)
+    logs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     try:
         print("phase 1: header", flush=True)
         card = nvidia_smi("name,power.limit")
@@ -515,7 +925,8 @@ def main() -> int:
 
         print("phase 2: build", flush=True)
         from sd3_torch import kernels
-        from sd3_torch.ops import fused_attention, fused_mlp  # register K1-K4
+        from sd3_torch.ops import (  # register K1-K6b
+            flash_attention, fused_attention, fused_mlp)
         t0 = time.time()
         reports = kernels.build_all()
         print(f"  built {sorted(reports) or 'nothing (cached)'} in "
@@ -532,11 +943,16 @@ def main() -> int:
         k4 = [phase_attention(s, gen, int8_qk=True) for s in (SLICE, RAGGED)]
         k3 = [phase_mlp(s, gen, tail=False) for s in (K3_SLICE, K3_RAGGED)]
         k2 = [phase_mlp(s, gen, tail=True) for s in (K2_SLICE, K2_RAGGED)]
+        k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
+        phase_k1_backward(gen)
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU",
               flush=True)
         phase_model(gen_seed=0)
         phase_model(gen_seed=0, int8=True)
+        # the trainers' metric logs, removed at exit
+        log_dir = logs.name
+        phase_train_step_2block(log_dir)
 
         print("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -545,29 +961,46 @@ def main() -> int:
         print("phase 6: 19-block int8 sampling, the same", flush=True)
         sample8 = phase_sample(card, int8=True)
 
-        print("phase 7: kernels", flush=True)
+        print("phase 7: 19-block training, 512px, batch 4, fused low-mem "
+              "AdamW, bf16 grads, remat; then the default TrainConfig path "
+              "at 2 blocks", flush=True)
+        train = phase_train(card, log_dir)
+        phase_train_default_path(log_dir)
+
+        print("phase 8: kernels", flush=True)
+        per_call = lambda run: run["launches_per_call"]
+        per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,
-                  #  TPU kernel it replaces, sampling run it launched in)
+                  #  TPU kernel it replaces, the run it launched in and how
+                  #  that run counts launches)
             (fused_attention.K1, k1[0], "fused_attention.cu",
-             "sd3_tpu/ops/fused_attention.py:135", sample),
+             "sd3_tpu/ops/fused_attention.py:135", sample, per_call),
             (fused_mlp.K2, k2[0], "fused_mlp.cu",
-             "sd3_tpu/ops/fused_mlp.py:212", sample8),
+             "sd3_tpu/ops/fused_mlp.py:212", sample8, per_call),
             (fused_mlp.K3, k3[0], "fused_mlp.cu",
-             "sd3_tpu/ops/fused_mlp.py:93", sample8),
+             "sd3_tpu/ops/fused_mlp.py:93", sample8, per_call),
             (fused_attention.K4, k4[0], "fused_attention.cu",
-             "sd3_tpu/ops/fused_attention.py:193", sample8),
+             "sd3_tpu/ops/fused_attention.py:193", sample8, per_call),
+            (flash_attention.K5, k56[0]["K5"], "flash_attention.cu",
+             "sd3_tpu/ops/flash_attention.py:103", train, per_step),
+            (flash_attention.K6A, k56[0]["K6a"], "flash_attention.cu",
+             "sd3_tpu/ops/flash_attention.py:191", train, per_step),
+            (flash_attention.K6B, k56[0]["K6b"], "flash_attention.cu",
+             "sd3_tpu/ops/flash_attention.py:222", train, per_step),
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",
             "source": f"sd3_torch/csrc/{src}", "replaces": tpu,
-            "launches": run["launches_per_call"][kern.name],
+            "launches": count(run)[kern.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-            for kern, r, src, tpu, run in rows]}
+            for kern, r, src, tpu, run, count in rows]}
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
+    finally:
+        logs.cleanup()
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

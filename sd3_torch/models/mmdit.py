@@ -20,6 +20,12 @@ Under quant="int8" the MLP and attention projections are `Int8Linear`s
 (ops/quant.py): build the model so to load a quantized state_dict, or
 quantize a float model in place with `ops.quant.quantize_model`.
 
+For training, `MMDiT(..., fused_attn=False)` takes the general attention
+path (flash attention with its two-kernel backward) as the JAX trainer does,
+and `remat_blocks=True` recomputes each block's forward in the backward
+(`torch.utils.checkpoint`, the JAX `nn.remat` with policy "nothing"), so the
+attention forward runs twice per block and step.
+
 Parameter names are the reference state-dict names (`blocks.3.y_proj.0.weight`,
 `blocks.3.attn.query_proj_x.weight`, `pos_enc.proj.weight`, `time_scale`), so
 `load_state_dict(strict=True)` takes a reference checkpoint. Parameters may
@@ -34,6 +40,7 @@ import math
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sd3_torch import resolve_device, torch_dtype
 from sd3_torch.config import MMDiTConfig
@@ -49,7 +56,7 @@ class DualStreamBlock(nn.Module):
     """One MMDiT block (reference Transformer_Block_Dual.py)."""
 
     def __init__(self, cfg: MMDiTConfig, layer_idx: int, last: bool = False,
-                 device=None, dtype=None):
+                 fused_attn: bool = True, device=None, dtype=None):
         super().__init__()
         dim = cfg.dim
         kw = dict(device=device, dtype=dtype)
@@ -62,7 +69,8 @@ class DualStreamBlock(nn.Module):
             rope_scale=cfg.rope_scale, kv_merge_attn=cfg.kv_merge_attn,
             qk_half_dim=cfg.qk_half_dim, layer_idx=layer_idx, dual=True,
             last=last, rope2d_interpolate=cfg.rope2d_interpolate,
-            quant=cfg.quant, quant_skip=cfg.quant_skip, **kw)
+            quant=cfg.quant, quant_skip=cfg.quant_skip, use_fused=fused_attn,
+            **kw)
         self.norm1_x = AdaLNorm(dim, dim, **kw)
         self.norm1_c = AdaLNorm(dim, dim, **kw)
         self.norm2_x = AdaLNorm(dim, dim, **kw)
@@ -106,25 +114,45 @@ class DualStreamBlock(nn.Module):
                    residual=True)
 
 
+REMAT_POLICIES = ("nothing", "dots", "attn", "dots_attn")
+
+
 class MMDiT(nn.Module):
     """The full diffusion transformer. Latents are NCHW like the reference;
     inside everything is (B, N, D) tokens. Built on `device`, "cuda" unless
     the caller asks for the CPU; raises when asked for a GPU that is not
-    there."""
+    there. `fused_attn`, `remat_blocks` and `remat_policy` as in
+    sd3_tpu/models/mmdit.py:229-253 (see the module docstring); only the
+    policy "nothing" and the unrolled blocks are ported."""
 
-    def __init__(self, cfg: MMDiTConfig, device="cuda", dtype=None):
+    def __init__(self, cfg: MMDiTConfig, device="cuda", dtype=None,
+                 fused_attn: bool = True, remat_blocks: bool = False,
+                 remat_policy: str = "nothing", scan_blocks: bool = False):
         super().__init__()
         device = resolve_device(device)
         if cfg.text_loss:
             raise NotImplementedError(
                 "text_loss=True (the text-reconstruction head) is not ported "
                 "yet: ROADMAP.md, port queue, 'text_loss'")
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                             f"{REMAT_POLICIES}")
+        if remat_blocks and remat_policy != "nothing":
+            raise NotImplementedError(
+                f"remat_policy={remat_policy!r} is not ported yet: ROADMAP.md,"
+                " port queue, 'trainer' (remat policies)")
+        if scan_blocks:
+            raise NotImplementedError(
+                "scan_blocks is not ported yet: ROADMAP.md, port queue, "
+                "'trainer' (scan over blocks)")
         self.cfg = cfg
+        self.remat_blocks = remat_blocks
         self.compute_dtype = torch_dtype(cfg.dtype)
         kw = dict(device=device, dtype=dtype)
         dim, thd = cfg.dim, cfg.text_hidden_dim
         self.blocks = nn.ModuleList([
-            DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1), **kw)
+            DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
+                            fused_attn=fused_attn, **kw)
             for i in range(cfg.num_blocks)])
         self.time_scale = nn.Parameter(torch.full((1,), 1000.0, **kw))
         self.t_emb2 = nn.Linear(dim, dim, bias=False, **kw)
@@ -210,8 +238,13 @@ class MMDiT(nn.Module):
 
         x = linear(self.pos_enc(x_t.to(dt)), self.patch_emb)
         hw = (h // p, w // p)
+        remat = self.remat_blocks and torch.is_grad_enabled()
         for blk in self.blocks:
-            x, c_tok = blk(x, c_tok, y, hw)
+            if remat:
+                x, c_tok = checkpoint(blk, x, c_tok, y, hw,
+                                      use_reentrant=False)
+            else:
+                x, c_tok = blk(x, c_tok, y, hw)
 
         x = linear(self.out_norm(x, y), self.out_proj)
         return unpatchify(x, (p, p), (h, w)).float()

@@ -7,10 +7,18 @@ sequence and attended jointly, then split back; the `last` block has no text
 out-projection. The softmax scale is head_dim(v) ** -0.5, taken from the
 *value* head dim (reference Attention.py:57).
 
-This slice ports the fused path, the one the published config takes
-(`JointAttention._fused_path_ok` in the JAX package): raw projections go to
-kernel K1 (ops/fused_attention.py), which applies the norms and the rotation
-itself. Configurations that path rejects raise NotImplementedError.
+Two paths, chosen as the JAX package chooses (`_fused_path_ok`):
+- the fused path, the one the published config takes for sampling: raw
+  projections go to kernel K1 (ops/fused_attention.py), which applies the
+  norms and the rotation itself;
+- the general path (`use_fused=False`, as the trainer builds it, or
+  attn_type "softmax"): per-stream projections, per-head RMSNorm in the
+  compute dtype, RoPE in fp32 on the image tokens, the streams concatenated,
+  then `attention_core` on (B, H, N, D): flash attention (kernels K5, K6a,
+  K6b, ops/flash_attention.py) for "softmax_flash", plain softmax attention
+  for "softmax" (XLA in the JAX package).
+The other attention types, causal, `kv_merge_attn`, `qk_half_dim` and the
+single stream raise NotImplementedError.
 
 Under quant="int8" the eight projections are w8a8 `Int8Linear`s (names in
 quant_skip stay float), and the joint attention takes the int8-QK^T kernel
@@ -24,15 +32,31 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sd3_torch.ops.flash_attention import flash_attention
 from sd3_torch.ops.fused_attention import (fold_row_tables, fused_attention,
                                            rope_row_tables)
 from sd3_torch.ops.norms import RMSNorm, linear
 from sd3_torch.ops.quant import make_linear
-from sd3_torch.ops.rope import rope2d_axial_angles
+from sd3_torch.ops.rope import _rotate_half_interleaved, rope2d_axial_angles
 
-_GENERAL_PATH = ("the unfused attention path is not ported yet: ROADMAP.md, "
-                 "port queue, 'attention general path'")
+_GENERAL_PATH = ("is not ported yet: ROADMAP.md, port queue, 'attention "
+                 "general path'")
 INT8_QK_TOKENS = (1024, 2048)  # padded joint lengths that take K4
+SOFTMAX_TYPES = ("softmax", "softmax_flash")
+
+
+def attention_core(q, k, v, attn_type: str, scale: float) -> torch.Tensor:
+    """Softmax attention on (B, H, N, D) tensors, non-causal
+    (sd3_tpu/ops/attention.py:67-97): flash attention for "softmax_flash",
+    else fp32 logits, an fp32 softmax rounded to v's dtype, and P.V with
+    fp32 sums."""
+    if attn_type == "softmax_flash":
+        return flash_attention(q, k, v, scale)
+    if attn_type != "softmax":
+        raise NotImplementedError(f"attn_type={attn_type!r} {_GENERAL_PATH}")
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs.float(), v.float()).to(v.dtype)
 
 
 def int8_qk_on(quant: str, quant_skip, n_tokens: int) -> bool:
@@ -43,7 +67,10 @@ def int8_qk_on(quant: str, quant_skip, n_tokens: int) -> bool:
 
 
 class JointAttention(nn.Module):
-    """Dual-stream joint attention through the fused K1 / K4 path."""
+    """Dual-stream joint attention: the fused K1 / K4 path, or the general
+    path (see the module docstring). `use_fused=False` keeps the general
+    path even where the fused one applies (sd3_tpu/ops/attention.py:177-181:
+    trainers pass it, for the real two-kernel flash VJP)."""
 
     def __init__(self, dim: int, num_heads: int = 8,
                  attn_type: str = "softmax_flash", causal: bool = False,
@@ -51,24 +78,26 @@ class JointAttention(nn.Module):
                  kv_merge_attn: bool = False, qk_half_dim: bool = False,
                  layer_idx: int | None = None, dual: bool = True,
                  last: bool = False, rope2d_interpolate: bool = False,
-                 quant: str = "none", quant_skip: tuple = (), device=None,
-                 dtype=None):
+                 quant: str = "none", quant_skip: tuple = (),
+                 use_fused: bool = True, device=None, dtype=None):
         super().__init__()
         if attn_type == "both":
             attn_type = "softmax" if (layer_idx or 0) % 2 == 0 else "cosine"
         hd = dim // num_heads
-        if attn_type != "softmax_flash":
-            raise NotImplementedError(f"attn_type={attn_type!r}: {_GENERAL_PATH}")
+        if attn_type not in SOFTMAX_TYPES:
+            raise NotImplementedError(f"attn_type={attn_type!r} {_GENERAL_PATH}")
         for flag, name in ((causal, "causal"), (kv_merge_attn, "kv_merge_attn"),
                            (qk_half_dim, "qk_half_dim"), (not dual, "dual=False")):
             if flag:
-                raise NotImplementedError(f"{name}: {_GENERAL_PATH}")
+                raise NotImplementedError(f"{name} {_GENERAL_PATH}")
         if positional_encoding in ("RoPE", "RoPE2dV2"):
             raise NotImplementedError(
                 f"positional_encoding={positional_encoding!r} is not ported "
                 "yet: ROADMAP.md, port queue, 'RoPE1d / RoPE2dV2'")
-        if hd % 2 or 128 % hd:
-            raise NotImplementedError(f"head dim {hd}: {_GENERAL_PATH}")
+        # sd3_tpu/ops/attention.py:207-217, with the options above ruled out
+        self.fused = (use_fused and attn_type == "softmax_flash"
+                      and hd % 2 == 0 and 128 % hd == 0)
+        self.attn_type = attn_type
         self.dim = dim
         self.num_heads = num_heads
         self.positional_encoding = positional_encoding
@@ -111,6 +140,8 @@ class JointAttention(nn.Module):
         """x: (B, N, dim) image tokens, c: (B, M, dim) text tokens, both in
         the compute dtype; hw: the image token grid (h, w), h*w == N.
         Returns (x_out, c_out); c_out is not projected when `last`."""
+        if not self.fused:
+            return self._general(x, c, tuple(hw))
         n, m = x.shape[1], c.shape[1]
         q = torch.cat([linear(x, self.query_proj_x),
                        linear(c, self.query_proj_c)], dim=1)
@@ -128,6 +159,45 @@ class JointAttention(nn.Module):
                                   self.quant, self.quant_skip, n + m))
         out_x = linear(out[:, :n], self.out_proj_x)
         out_c = out[:, n:]
+        if not self.last:
+            out_c = linear(out_c, self.out_proj_c)
+        return out_x, out_c
+
+    def _rope(self, t: torch.Tensor, hw) -> torch.Tensor:
+        """RoPE on (B, H, N_img, D) image-token q or k, in fp32, cast back
+        (sd3_tpu/ops/rope.py::apply_rope with the RoPE2d angles). The cos /
+        sin rows are those of the fused path's tables, already on the
+        device."""
+        if self.positional_encoding != "RoPE2d":
+            return t  # NoPE / absolute: nothing at the attention level
+        n_img = t.shape[2]
+        cos, sin = self._rope_tables(n_img, n_img, hw, t.device)
+        tf = t.float()
+        return (tf * cos + _rotate_half_interleaved(tf) * sin).to(t.dtype)
+
+    def _general(self, x, c, hw):
+        """sd3_tpu/ops/attention.py:401-476, dual-stream and non-causal."""
+        b, n, _ = x.shape
+        nh, hd = self.num_heads, self.dim // self.num_heads
+
+        def heads(t):
+            return t.reshape(b, t.shape[1], nh, hd).transpose(1, 2)
+
+        def unheads(t):
+            return t.transpose(1, 2).reshape(b, t.shape[2], -1)
+
+        q_x = self._rope(self.q_norm_x(heads(linear(x, self.query_proj_x))), hw)
+        k_x = self._rope(self.k_norm_x(heads(linear(x, self.key_proj_x))), hw)
+        v_x = heads(linear(x, self.value_proj_x))
+        q_c = self.q_norm_c(heads(linear(c, self.query_proj_c)))
+        k_c = self.k_norm_c(heads(linear(c, self.key_proj_c)))
+        v_c = heads(linear(c, self.value_proj_c))
+        attn = attention_core(torch.cat([q_x, q_c], dim=2),
+                              torch.cat([k_x, k_c], dim=2),
+                              torch.cat([v_x, v_c], dim=2),
+                              self.attn_type, self.scale)
+        out_x = linear(unheads(attn[:, :, :n]), self.out_proj_x)
+        out_c = unheads(attn[:, :, n:])
         if not self.last:
             out_c = linear(out_c, self.out_proj_c)
         return out_x, out_c

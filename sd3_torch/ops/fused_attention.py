@@ -22,9 +22,15 @@ Beside them: `composition` and `composition_int8_qk`, the plain PyTorch
 versions of the two functions (the JAX kernel's arithmetic), which the
 wrapper takes for tensors on the CPU, and the table helpers
 `rope_row_tables`, `_swap_pairs` and `fold_row_tables`. On a CUDA tensor
-the wrapper launches a kernel or raises: there is no fallback. Inference
-only: the backward recomputes through the training kernels K5/K6, which are
-not ported yet.
+the wrapper launches a kernel or raises: there is no fallback.
+
+K1 is differentiable: `_FusedAttention`, an autograd Function, runs K1 (or
+its plain version) forward and, as the JAX package's `_fused_core_bwd`
+does, differentiates the plain prep followed by `flash_attention` (K5, K6a,
+K6b on the card) in its backward, with gradients for q, k, v and the four
+tables (`fold_row_tables` carries those on to the norm weights). K4 is for
+inference only, as in the JAX package: it raises when an input requires
+grad.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from sd3_torch.kernels import Kernel, check
+from sd3_torch.ops.flash_attention import flash_attention
 from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
@@ -90,6 +97,18 @@ def composition(q, k, v, cosq, sinq, cosk, sink, scale: float, eps_q: float,
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.matmul(probs, _heads(v, num_heads))
+    return o.transpose(1, 2).reshape(b, n, f)
+
+
+def composition_flash(q, k, v, cosq, sinq, cosk, sink, scale: float,
+                      eps_q: float, eps_k: float, num_heads: int
+                      ) -> torch.Tensor:
+    """What K1's backward differentiates, the JAX `_composition`: the plain
+    prep cast to the input dtype, then `flash_attention` (K5 / K6)."""
+    b, n, f = q.shape
+    qh = _prep(_heads(q, num_heads), cosq, sinq, eps_q).to(q.dtype)
+    kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype)
+    o = flash_attention(qh, kh, _heads(v, num_heads), scale)
     return o.transpose(1, 2).reshape(b, n, f)
 
 
@@ -185,6 +204,37 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
     return out
 
 
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward (its plain version on the CPU); the backward recomputes
+    through `composition_flash` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
+                num_heads):
+        ctx.save_for_backward(q, k, v, cosq, sinq, cosk, sink)
+        ctx.consts = (scale, eps_q, eps_k, num_heads)
+        if q.device.type == "cpu":
+            return composition(q, k, v, cosq, sinq, cosk, sink, scale, eps_q,
+                               eps_k, num_heads)
+        if q.device.type != "cuda":
+            raise ValueError(f"no {K1.name} path for device {q.device}")
+        fold = float(scale) * LOG2E
+        return _launch(K1, q, k, v, cosq * fold, sinq * fold, cosk, sink,
+                       eps_q, eps_k, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:7]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip(ctx.saved_tensors, need)]
+            out = composition_flash(*ins, *ctx.consts)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], g))
+        return (*(next(grads) if r else None for r in need),
+                None, None, None, None)
+
+
 def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
                     scale: float, int8_qk: bool = False,
                     int8_pv: bool = False) -> torch.Tensor:
@@ -193,7 +243,8 @@ def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
     q, k, v: (B, N, H*D) raw projections; tables (N, D) with the norm
     weights folded in but not the softmax scale. CPU tensors take the plain
     versions; CUDA tensors launch K1 (bf16 QK^T) or K4 (int8_qk), or
-    raise."""
+    raise. Differentiable through K1 only: K4 raises when an input requires
+    grad."""
     if int8_pv:
         raise NotImplementedError(
             "int8 P.V attention (TPU kernel K8) is not ported yet: "
@@ -205,15 +256,22 @@ def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
             "_stream_fwd_kernel), not ported yet: ROADMAP.md, kernel queue")
     eps_q = float(torch.finfo(q.dtype).eps)
     eps_k = float(torch.finfo(k.dtype).eps)
+    if not int8_qk:
+        return _FusedAttention.apply(q, k, v, cosq, sinq, cosk, sink,
+                                     float(scale), eps_q, eps_k, num_heads)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, cosq, sinq, cosk, sink)):
+        raise NotImplementedError(
+            "int8 QK^T attention (K4) is inference-only: its gradient would "
+            "be the float composition's (sd3_tpu/ops/fused_attention.py:"
+            "716-723); train with quant='none'")
     if q.device.type == "cpu":
-        plain = composition_int8_qk if int8_qk else composition
-        return plain(q, k, v, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
-                     num_heads)
-    kern = K4 if int8_qk else K1
+        return composition_int8_qk(q, k, v, cosq, sinq, cosk, sink, scale,
+                                   eps_q, eps_k, num_heads)
     if q.device.type != "cuda":
-        raise ValueError(f"no {kern.name} path for device {q.device}")
+        raise ValueError(f"no {K4.name} path for device {q.device}")
     fold = float(scale) * LOG2E
-    return _launch(kern, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
+    return _launch(K4, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
                    eps_k, num_heads)
 
 

@@ -24,7 +24,10 @@ routes are kept because they round differently (bf16 AdaLN output before
 quantization, bf16 gate product), and each stream is held to JAX.
 
 Wrappers take the plain version for tensors on the CPU; on a CUDA tensor
-they launch the kernel or raise. Inference only.
+they launch the kernel or raise. Inference only, as `quant` is a serving
+flag in the JAX package: no VJP is ported, and both wrappers raise when an
+input requires grad, on every device, rather than return a result cut off
+from autograd.
 """
 
 from __future__ import annotations
@@ -186,6 +189,12 @@ def _launch(kern: Kernel, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
 
 
 def _dispatch(kern, x, *args, **kw):
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (x, *args, *kw.values())):
+        raise NotImplementedError(
+            f"{kern.name} is inference-only (int8 serving): no gradient is "
+            "ported; run it under torch.no_grad() or train with quant='none'")
     if x.device.type == "cpu":
         return swiglu_int8_plain(x, *args, **kw)
     if x.device.type != "cuda":

@@ -1,0 +1,426 @@
+"""The rectified-flow trainer (JAX counterpart: sd3_tpu/training/trainer.py;
+reference src/model_trainer.py).
+
+One optimizer step: for each of the batch's `accumulation_steps`
+micro-batches, the flow noise (t, ε and the null-conditioning masks,
+`draw_noise`) is drawn, then the velocity loss and its gradient are taken
+through an `MMDiT(..., fused_attn=False)`: the general attention path, whose
+flash attention runs kernels K5, K6a and K6b on the card, and with
+`remat_blocks` each block recomputed in the backward. The gradients are
+summed over the micro-batches, averaged, and one AdamW update follows
+(`training/optim.py`); every `ema_update_freq` steps the fp32 EMA on the
+device follows. The noise draw is separate from the loss: `train_step`
+takes the noise as an argument, so a run can be driven with given draws.
+
+As in the JAX package:
+- AdamW lr=1e-4 eps=1e-8 wd=0.01 betas=(0.9, 0.999), global-norm clip 1.0,
+  warmup-constant or warmup-cosine schedule (reference
+  model_trainer.py:25-41, 260-267);
+- `low_mem_optimizer`: bf16 moments with the clip folded in; without it the
+  optax chain (outer clip, fp32 moments);
+- `bf16_grads` (accumulation 1): the gradient tree in bf16;
+- `precast_params` (with `bf16_grads`, `low_mem_optimizer` and a bf16
+  model): the model holds a bf16 copy of every parameter, refreshed from the
+  fp32 masters once per step, and the gradient is taken with respect to it;
+  otherwise the model holds the fp32 masters and casts each weight at use;
+- accumulation > 1: gradients summed in fp32, or bf16 with
+  `bf16_grad_accum`. `split_accumulation` is the JAX package's way of
+  keeping each compiled graph small; eager PyTorch has no graph to split,
+  and its math (no precast, a bf16 sum) is this loop's, which takes it.
+
+Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
+8-bit moments, the host EMA, scan over blocks, the text loss, meshes, and
+checkpoints (`save`, `restore_optimizer`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from sd3_torch import resolve_device, torch_dtype
+from sd3_torch.config import MMDiTConfig
+from sd3_torch.models.mmdit import MMDiT
+from sd3_torch.training import flow
+from sd3_torch.training.optim import (GradientTransformation, adamw,
+                                      adamw_low_mem, apply_updates,
+                                      fused_adamw_low_mem, global_norm_f32,
+                                      leaf_groups)
+from sd3_torch.utils.logging import MetricsLogger
+
+_QUEUE = "is not ported yet: ROADMAP.md, port queue"
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's TrainConfig: the same fields and defaults (see
+    sd3_tpu/training/trainer.py:43-130 for what each does)."""
+    batch_size: int = 16                 # per micro-step, global
+    accumulation_steps: int = 2
+    total_steps: int = 1_000
+    lr: float = 1e-4
+    warmup_steps: int = 1000
+    use_lr_scheduler: bool = False       # False: constant-after-warmup
+    grad_clip: float = 1.0
+    ema_update_freq: int = 100
+    ema_decay: float = 0.99
+    track_ema: bool = True
+    ema_on_host: bool = False
+    null_prob_pooled: float = 0.1
+    null_prob_gemma: float = 0.316
+    null_prob_bert: float = 0.316
+    text_loss_weight: float = 0.0
+    weigh_loss: bool = False
+    log_steps: int = 10
+    num_save_steps: int = 1000
+    low_mem_optimizer: bool = False
+    bf16_grad_accum: bool = False
+    bf16_grads: bool = False
+    precast_params: bool = True
+    remat_policy: str = "nothing"
+    remat_blocks: bool = True
+    fused_optimizer: bool = False
+    moments_8bit: bool = False
+    split_accumulation: bool = False
+    scan_blocks: bool = False
+    save_dir: str = "checkpoints/run"
+    seed: int = 0
+    # the JAX MeshConfig; one device only here (ROADMAP.md, 'parallel/')
+    mesh: object = None
+
+
+# ---- learning-rate schedules: optax's, in fp32 as optax computes them ----
+
+def _linear_schedule(init: float, end: float, steps: int) -> Callable:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: float(np.float32(init))
+
+    def schedule(count):
+        c = np.float32(min(max(count, 0), steps))
+        frac = np.float32(1.0) - c / np.float32(steps)
+        return float(np.float32(init - end) * frac + np.float32(end))
+    return schedule
+
+
+def _cosine_decay_schedule(init: float, decay_steps: int,
+                           alpha: float) -> Callable:
+    """optax.cosine_decay_schedule, exponent 1."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs decay_steps > 0, got "
+                         f"{decay_steps}")
+
+    def schedule(count):
+        c = np.float32(min(count, decay_steps))
+        cos = np.float32(0.5) * (np.float32(1.0) + np.cos(
+            np.float32(np.pi) * c / np.float32(decay_steps)))
+        return float(np.float32(init)
+                     * (np.float32(1 - alpha) * cos + np.float32(alpha)))
+    return schedule
+
+
+def _join_schedules(schedules, boundaries) -> Callable:
+    """optax.join_schedules."""
+    def schedule(step):
+        out = schedules[0](step)
+        for boundary, s in zip(boundaries, schedules[1:]):
+            if step >= boundary:
+                out = s(step - boundary)
+        return out
+    return schedule
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """count -> learning rate: linear warmup from 0 to cfg.lr, then constant,
+    or (use_lr_scheduler) cosine decay to 0 at total_steps, as
+    optax.warmup_cosine_decay_schedule."""
+    warm = _linear_schedule(0.0, cfg.lr, cfg.warmup_steps)
+    if cfg.use_lr_scheduler:
+        decay_steps = max(cfg.total_steps, cfg.warmup_steps + 1)
+        alpha = 0.0  # end value 0 over the peak
+        return _join_schedules(
+            [warm, _cosine_decay_schedule(cfg.lr, decay_steps - cfg.warmup_steps,
+                                          alpha)], [cfg.warmup_steps])
+    lr = float(np.float32(cfg.lr))
+    return _join_schedules([warm, lambda count: lr], [cfg.warmup_steps])
+
+
+def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
+    """adamw_low_mem with the clip folded in, or the optax chain."""
+    if cfg.low_mem_optimizer:
+        return adamw_low_mem(make_lr_schedule(cfg), b1=0.9, b2=0.999,
+                             eps=1e-8, weight_decay=0.01,
+                             clip_norm=cfg.grad_clip)
+    return adamw(make_lr_schedule(cfg), b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.01, clip_norm=cfg.grad_clip)
+
+
+class Noise(NamedTuple):
+    """One micro-batch's flow draws: t (B,), ε like x0, three (B,) masks."""
+    t: torch.Tensor
+    eps: torch.Tensor
+    null_pooled: torch.Tensor
+    null_gemma: torch.Tensor
+    null_bert: torch.Tensor
+
+
+def draw_noise(generator: torch.Generator, x0: torch.Tensor,
+               tcfg: TrainConfig) -> Noise:
+    """t, ε and the null masks of one micro-batch, in the JAX draw order."""
+    b = x0.shape[0]
+    t = flow.sample_t(generator, b)
+    _, eps = flow.noise_batch(generator, x0, t)
+    return Noise(t, eps, *flow.null_masks(generator, b, tcfg.null_prob_pooled,
+                                          tcfg.null_prob_gemma,
+                                          tcfg.null_prob_bert))
+
+
+def make_micro_loss(model: MMDiT, tcfg: TrainConfig) -> Callable:
+    """micro_loss(x0, text, pooled, noise) -> (loss, {"loss": detached})."""
+    if tcfg.text_loss_weight > 0.0:
+        raise NotImplementedError(f"text_loss_weight > 0 {_QUEUE}, "
+                                  "'text_loss'")
+
+    def micro_loss(x0, text, pooled, noise: Noise):
+        x_t = flow.noised(x0, noise.t, noise.eps)
+        v_pred = model(x_t, noise.t, text, pooled, noise.null_pooled,
+                       noise.null_gemma, noise.null_bert)
+        loss = flow.velocity_loss(v_pred, x0, noise.eps, noise.t,
+                                  tcfg.weigh_loss)
+        return loss, {"loss": loss.detach()}
+
+    return micro_loss
+
+
+@torch.no_grad()
+def ema_update(ema: dict, params: dict, decay: float) -> dict:
+    """ema = decay * ema + (1 - decay) * params, in place."""
+    for names in leaf_groups(list(ema), ema):
+        e = [ema[n] for n in names]
+        torch._foreach_mul_(e, decay)
+        torch._foreach_add_(e, torch._foreach_mul(
+            [params[n].to(ema[n].dtype) for n in names], 1.0 - decay))
+    return ema
+
+
+def _cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> dict:
+    """Give `model` a copy of every parameter in `dtype`; returns the
+    original tensors, {name: fp32 master}, detached."""
+    owners = {}
+    for mod_name, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            owners[f"{mod_name}.{leaf}" if mod_name else leaf] = (mod, leaf)
+    masters = {}
+    for name, p in list(model.named_parameters()):
+        mod, leaf = owners[name]
+        masters[name] = p.detach()
+        setattr(mod, leaf, torch.nn.Parameter(p.detach().to(dtype)))
+    return masters
+
+
+class Trainer:
+    """The step loop, the optimizer, the EMA and logging, on one device.
+
+    `params`: a state_dict of the model (fp32 masters), or None for seeded
+    random weights (`MMDiT.init_weights` from `tcfg.seed`); `opt_state` and
+    `ema`: states to start from (dicts keyed like `params`). The model
+    lives on `device`, "cuda" unless the caller asks for the CPU."""
+
+    def __init__(self, cfg: MMDiTConfig, tcfg: TrainConfig, params=None,
+                 device="cuda", log_dir: str | None = None,
+                 wandb_name: str | None = None, use_wandb: bool = True,
+                 opt_state=None, ema=None):
+        for on, what in ((tcfg.moments_8bit, "moments_8bit (8-bit Adam "
+                          "moments), 'training/optim.py'"),
+                         (tcfg.ema_on_host, "ema_on_host, 'training/"
+                          "trainer.py'"),
+                         (tcfg.mesh is not None, "a mesh, 'parallel/'")):
+            if on:
+                raise NotImplementedError(f"{what} {_QUEUE}")
+        fused = tcfg.fused_optimizer
+        if fused and not tcfg.low_mem_optimizer:
+            raise ValueError("fused_optimizer implies bf16-moment AdamW "
+                             "(low_mem_optimizer)")
+        if tcfg.split_accumulation and not fused:
+            raise ValueError("split_accumulation needs the fused optimizer "
+                             "path (fused_optimizer)")
+        self.cfg, self.tcfg = cfg, tcfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the index tensors carry, so shard_batch can compare devices
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.model = MMDiT(cfg, device=self.device, fused_attn=False,
+                           remat_blocks=tcfg.remat_blocks,
+                           remat_policy=tcfg.remat_policy,
+                           scan_blocks=tcfg.scan_blocks)
+        self._micro_loss = make_micro_loss(self.model, tcfg)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(tcfg.seed)
+        if params is None:
+            self.model.init_weights(self.generator)
+        else:
+            self.model.load_state_dict(params, strict=True)
+
+        self._split = tcfg.split_accumulation and tcfg.accumulation_steps > 1
+        self._precast = (tcfg.precast_params and tcfg.bf16_grads
+                         and tcfg.low_mem_optimizer and not self._split
+                         and torch_dtype(cfg.dtype) == torch.bfloat16)
+        if self._precast:
+            self._params = _cast_parameters(self.model, torch.bfloat16)
+        else:
+            self._params = dict(self.model.named_parameters())
+        self._compute = dict(self.model.named_parameters())
+
+        self.ema = None
+        if tcfg.track_ema:
+            init = ema if ema is not None else self._params
+            self.ema = {k: torch.as_tensor(v).detach().to(
+                self.device, torch.float32, copy=True) for k, v in init.items()}
+
+        schedule = make_lr_schedule(tcfg)
+        if fused:
+            init_fn, self._fused_update = fused_adamw_low_mem(
+                schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                clip_norm=tcfg.grad_clip)
+            self.optimizer = None
+        else:
+            self.optimizer = make_optimizer(tcfg)
+            init_fn = self.optimizer.init
+        self.opt_state = init_fn(self._params)
+        if opt_state is not None:
+            on_dev = lambda d: {k: torch.as_tensor(v).to(
+                self.device, self.opt_state.mu[k].dtype) for k, v in d.items()}
+            self.opt_state = type(self.opt_state)(
+                int(opt_state.count), on_dev(opt_state.mu), on_dev(opt_state.nu))
+
+        self.step = cfg.start_step
+        self.logger = MetricsLogger(log_dir or tcfg.save_dir,
+                                    run_name=wandb_name, run_id=cfg.wandb_id,
+                                    use_wandb=use_wandb)
+
+    @property
+    def params(self) -> dict:
+        """The fp32 master parameters, {state-dict name: tensor}."""
+        return self._params
+
+    def shard_batch(self, batch: dict) -> dict:
+        """Place a host batch (numpy arrays or tensors) on the trainer's
+        device: through pinned memory, without waiting, onto a card.
+        Tensors already there pass through."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if t.device != self.device:
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                else:
+                    t = t.to(self.device)
+            out[k] = t
+        return out
+
+    def _micro_grads(self, batch, noise, i):
+        for p in self._compute.values():
+            p.grad = None
+        loss, metrics = self._micro_loss(batch["x0"][i], batch["text"][i],
+                                         batch["pooled"][i], noise[i])
+        loss.backward()
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in self._compute.items()}
+        return grads, metrics
+
+    def gradients(self, batch: dict, noise: list[Noise]):
+        """(gradient dict, metrics) of one optimizer step on `batch` with
+        the given draws, averaged over the micro-batches as the JAX train
+        steps average them; no update is made."""
+        tcfg = self.tcfg
+        if self._precast:
+            with torch.no_grad():
+                torch._foreach_copy_(list(self._compute.values()),
+                                     list(self._params.values()))
+        acc = len(noise)
+        if acc == 1:
+            g, metrics = self._micro_grads(batch, noise, 0)
+            if tcfg.bf16_grads and not self._precast:
+                if not tcfg.low_mem_optimizer:
+                    raise ValueError("bf16_grads requires low_mem_optimizer "
+                                     "(per-leaf upcast)")
+                g = {k: v.to(torch.bfloat16) for k, v in g.items()}
+            return g, metrics
+        acc_dtype = (torch.bfloat16 if tcfg.bf16_grad_accum or self._split
+                     else torch.float32)
+        g_sum, m_sum = None, None
+        for i in range(acc):
+            g, metrics = self._micro_grads(batch, noise, i)
+            # the JAX carry starts at zeros: 0 + g rounds as the cast does
+            gi = [v.to(acc_dtype) for v in g.values()]
+            if g_sum is None:
+                g_sum, m_sum = gi, metrics
+            else:
+                torch._foreach_add_(g_sum, gi)
+                m_sum = {k: m_sum[k] + metrics[k] for k in m_sum}
+        keep = (self.optimizer is None
+                or (tcfg.bf16_grad_accum and tcfg.low_mem_optimizer))
+        g = {n: (x if keep else x.float()) / acc for n, x in zip(g, g_sum)}
+        return g, {k: v / acc for k, v in m_sum.items()}
+
+    def train_step(self, batch: dict, noise: list[Noise] | None = None
+                   ) -> dict:
+        """One optimizer step on `batch` (x0 (acc, B, C, H, W), text
+        (acc, B, S, D), pooled (acc, B, P), on the device); `noise`: one
+        Noise per micro-batch, drawn from the trainer's generator when None.
+        Returns {"loss", "grad_norm"} as 0-d tensors on the device."""
+        if noise is None:
+            noise = [draw_noise(self.generator, x0, self.tcfg)
+                     for x0 in batch["x0"]]
+        g, metrics = self.gradients(batch, noise)
+        if self.optimizer is None:
+            _, self.opt_state, gnorm = self._fused_update(g, self.opt_state,
+                                                          self._params)
+        else:
+            updates, self.opt_state = self.optimizer.update(
+                g, self.opt_state, self._params)
+            apply_updates(self._params, updates)
+            gnorm = global_norm_f32(g)
+        for p in self._compute.values():
+            p.grad = None
+        metrics["grad_norm"] = gnorm
+        self.step += 1
+        if self.ema is not None and self.step % self.tcfg.ema_update_freq == 0:
+            ema_update(self.ema, self._params, self.tcfg.ema_decay)
+        return metrics
+
+    def train(self, batch_iter, total_steps: int | None = None) -> int:
+        """Steps until `total_steps` (default tcfg.total_steps), logging
+        every log_steps and saving every num_save_steps."""
+        total = total_steps or self.tcfg.total_steps
+        t0 = time.time()
+        acc_metrics = None
+        while self.step < total:
+            metrics = self.train_step(self.shard_batch(next(batch_iter)))
+            acc_metrics = metrics if acc_metrics is None else {
+                k: acc_metrics[k] + v for k, v in metrics.items()}
+            if self.step % self.tcfg.log_steps == 0:
+                logged = {k: float(v) / self.tcfg.log_steps
+                          for k, v in acc_metrics.items()}
+                logged["lr"] = make_lr_schedule(self.tcfg)(self.step)
+                logged["steps_per_sec"] = (self.tcfg.log_steps
+                                           / (time.time() - t0))
+                self.logger.log(logged, self.step)
+                acc_metrics, t0 = None, time.time()
+            if self.step % self.tcfg.num_save_steps == 0:
+                self.save()
+        return self.step
+
+    def save(self):
+        raise NotImplementedError(
+            f"checkpoints {_QUEUE}, 'checkpoints' (the JAX artifacts are flax "
+            "msgpack)")
+
+    def restore_optimizer(self, load_dir: str, step: int):
+        raise NotImplementedError(
+            f"checkpoints {_QUEUE}, 'checkpoints' (the optim_<step>s.msgpack "
+            "artifact)")

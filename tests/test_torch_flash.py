@@ -1,0 +1,144 @@
+"""The plain versions of kernels K5, K6a and K6b and the flash-attention
+autograd Function of sd3_torch, held to the JAX flash attention on the CPU.
+
+The JAX side runs as its own CPU tests run it: its Pallas kernels in
+interpret mode, forward and custom VJP. Inputs come from numpy seeds and go
+to both packages in fp32. Tolerance atol 2e-5, rtol 2e-4: fp32 on both
+sides, and only the summation order differs (JAX pads to 128-row blocks,
+sums P.V in its own order and, above 2048 keys, runs an online softmax over
+512-key blocks where the plain version takes the true row max in one pass).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sd3_tpu.ops import flash_attention as jfa
+
+from sd3_torch.ops import flash_attention as tfl
+
+ATOL, RTOL = 2e-5, 2e-4
+
+# (B, H, N, D): ragged lengths, odd head counts, the two head dims the
+# kernels take, and one length above 2048 keys (JAX's multi-block path) at a
+# tiny width
+SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
+
+
+def _case(shape, seed=0):
+    r = np.random.default_rng(seed)
+    q, k, v, do = (r.standard_normal(shape).astype(np.float32)
+                   for _ in range(4))
+    return q, k, v, do, shape[-1] ** -0.5
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a, np.float32)).requires_grad_(grad)
+
+
+def _jax_lse(q, k, v, scale):
+    """The fp32 logsumexp JAX's forward kernel saves, through the padding
+    and block choice of `flash_attention` (at these sizes its VMEM budget
+    shrinks nothing, which the assert checks)."""
+    b, h, n, d = q.shape
+    n_pad = jfa._round_up(n, 128)
+    bq = max(c for c in range(128, min(jfa.DEFAULT_BLOCK_Q, n_pad) + 1, 128)
+             if n_pad % c == 0)
+    bk = n_pad if n_pad <= 2048 else jfa.DEFAULT_BLOCK_K
+    d_pad = jfa._round_up(d, 128)
+    assert jfa._dkv_vmem(bq, bk, n_pad, d_pad, 4) <= jfa._VMEM_BUDGET
+    m_pad = jfa._round_up(n, bk)
+
+    def pad(x, rows):
+        return jnp.pad(jnp.asarray(x).reshape(b * h, n, d),
+                       ((0, 0), (0, rows - n), (0, d_pad - d)))
+
+    _, lse = jfa._fwd(pad(q, n_pad), pad(k, m_pad), pad(v, m_pad), scale, bq,
+                      bk, n)
+    return np.asarray(lse)[:, :n, 0].reshape(b, h, n)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_forward_and_lse_match_jax(shape):
+    q, k, v, _, scale = _case(shape)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), scale)
+    out, lse = tfl.flash_fwd_plain(_t(q), _t(k), _t(v), scale)
+    _close(out, want)
+    _close(lse, _jax_lse(q, k, v, scale))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_backward_matches_jax_vjp(shape):
+    q, k, v, do, scale = _case(shape, seed=1)
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
+                       *map(jnp.asarray, (q, k, v)))
+    dq, dk, dv = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    _, lse = tfl.flash_fwd_plain(tq, tk, tv, scale)
+    got_dq, delta = tfl.flash_dq_plain(tq, tk, tv, _t(out), _t(do), lse, scale)
+    got_dk, got_dv = tfl.flash_dkv_plain(tq, tk, tv, _t(do), lse, delta, scale)
+    _close(delta, np.sum(np.asarray(out) * do, -1))
+    for got, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("shape", SHAPES[:2])
+def test_autograd_function_matches_jax_and_saves_its_residuals(shape,
+                                                               monkeypatch):
+    q, k, v, do, scale = _case(shape, seed=2)
+    want, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
+                        *map(jnp.asarray, (q, k, v)))
+    calls = dict.fromkeys(("flash_fwd_plain", "flash_dq_plain",
+                           "flash_dkv_plain"), 0)
+    for name in calls:
+        fn = getattr(tfl, name)
+
+        def counted(*a, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+        monkeypatch.setattr(tfl, name, counted)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    out = tfl.flash_attention(tq, tk, tv, scale)
+    _close(out, want)
+    out.backward(_t(do))
+    # the backward reads the saved out and lse: no forward is recomputed
+    assert calls == dict(flash_fwd_plain=1, flash_dq_plain=1,
+                         flash_dkv_plain=1)
+    for got, w in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do))):
+        _close(got, w)
+
+
+def test_plain_rounds_p_and_ds_to_the_input_dtype():
+    # bf16 inputs: p is rounded before P.V and p^T dO, ds before its
+    # products, results come back in bf16; the fp32 statistics stay fp32
+    q, k, v, do, scale = _case((1, 2, 40, 32), seed=3)
+    qb, kb, vb, dob = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+    out, lse = tfl.flash_fwd_plain(qb, kb, vb, scale)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    s = (qb.float() @ kb.float().transpose(-1, -2)) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    want = ((e.to(torch.bfloat16).float() @ vb.float())
+            / e.sum(-1, keepdim=True)).to(torch.bfloat16)
+    assert torch.equal(out, want)
+    p = torch.exp(s - lse[..., None])
+    dq, delta = tfl.flash_dq_plain(qb, kb, vb, out, dob, lse, scale)
+    dk, dv = tfl.flash_dkv_plain(qb, kb, vb, dob, lse, delta, scale)
+    assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
+    assert torch.equal(dv, (p.to(torch.bfloat16).float().transpose(-1, -2)
+                            @ dob.float()).to(torch.bfloat16))
+
+
+def test_wrapper_refuses_other_devices_and_shapes():
+    q = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="one shape"):
+        tfl.flash_attention(q, q[:, :, :4], q, 0.2)
+    m = q.to("meta")
+    with pytest.raises(ValueError, match="device"):
+        tfl.flash_attention(m, m, m, 0.2)

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 and the port's dispatch rules, with no JAX import, so the
+"""Kernels K1-K6b and the port's dispatch rules, with no JAX import, so the
 file also runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -7,7 +7,8 @@ file also runs on the card's machine:
 `cuda`-marked tests skip; the rest check tables, dispatch and refusals.
 K1 against its plain version: tolerance atol 1e-2, chip_smoke.py's
 ATTN_ATOL (bf16 q^, k^, p and output against fp32); K4, K2 and K3:
-chip_smoke.py's K4_ATOL and MLP limits (reasons there).
+chip_smoke.py's K4_ATOL and MLP limits (reasons there); K5, K6a and K6b:
+chip_smoke.py's FLASH_* limits (reasons there).
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from sd3_torch import kernels
 from sd3_torch.config import tiny_config
 from sd3_torch.models.mmdit import MMDiT
 from sd3_torch.models.text_encoders import StubTextEncoders
+from sd3_torch.ops import flash_attention as tfl
 from sd3_torch.ops import fused_attention as tfa
 from sd3_torch.ops import fused_mlp as tfm
 from sd3_torch.ops.quant import quantize_weight
@@ -116,7 +118,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_every_kernel_symbol_is_in_its_source():
     # no nvcc here: at least the C entry point each wrapper binds exists
-    for k in (tfa.K1, tfa.K4, tfm.K2, tfm.K3):
+    for k in (tfa.K1, tfa.K4, tfm.K2, tfm.K3, tfl.K5, tfl.K6A, tfl.K6B):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -247,3 +249,168 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
     tab = torch.zeros(8, 24, device=cuda_device)
     with pytest.raises(NotImplementedError, match="head dims"):
         tfa.fused_attention(qb, qb, qb, 2, tab, tab, tab, tab, 0.25)
+
+
+# ---- training: K5, K6a, K6b and the gradient rules ----------------------
+
+# (B, H, N, D): one partial tile with odd heads at D 32, a ragged length
+# whose last tile holds 44 rows, a last tile of one row, the 512px training
+# shape (4 samples x 19 heads, 1024 + 154 tokens)
+FLASH_SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 2, 129, 64),
+                (4, 19, 1178, 64)]
+# chip_smoke.py's limits: bf16 p, ds and outputs against the fp32 plain
+# versions run on the same bf16 values
+FLASH_OUT_ATOL, FLASH_LSE_ATOL = 1e-2, 1e-3
+FLASH_GRAD_MAX_REL, FLASH_GRAD_REL_L2 = 2e-2, 1e-2
+# chip_smoke.py's K1 backward limits: the prep's output is rounded to bf16
+# before K5 / K6 (the fp32 composition keeps it), and the bf16 output of K5
+# enters delta, whose difference with dO.v^T cancels, on top of the flash
+# kernels' roundings
+K1_GRAD_MAX_REL, K1_GRAD_REL_L2 = 3e-2, 1.5e-2
+
+
+def _flash_case(shape, dev, seed=0):
+    r = np.random.default_rng(seed)
+    return [_t(r.standard_normal(shape)).to(dev, torch.bfloat16)
+            for _ in range(4)]
+
+
+def _flash_plain_fp32(q, k, v, do, scale):
+    """The plain versions in fp32 on the kernels' bf16 inputs."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    out, lse = tfl.flash_fwd_plain(qf, kf, vf, scale)
+    dq, delta = tfl.flash_dq_plain(qf, kf, vf, out, dof, lse, scale)
+    dk, dv = tfl.flash_dkv_plain(qf, kf, vf, dof, lse, delta, scale)
+    return out, lse, dq, dk, dv
+
+
+def _assert_grad_close(got, want, name, max_rel_limit=FLASH_GRAD_MAX_REL,
+                       rel_l2_limit=FLASH_GRAD_REL_L2):
+    d = got.float() - want
+    max_rel = (d.abs().max() / want.abs().max()).item()
+    rel_l2 = (d.norm() / want.norm()).item()
+    assert max_rel <= max_rel_limit and rel_l2 <= rel_l2_limit, (
+        name, max_rel, rel_l2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_k5_k6_kernels_match_plain_on_the_card(cuda_device, shape):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = _flash_case(shape, cuda_device)
+    scale = shape[-1] ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    counts = lambda: (tfl.K5.launches, tfl.K6A.launches, tfl.K6B.launches)
+    before = counts()
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert counts() == tuple(c + 1 for c in before)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert lse.dtype == delta.dtype == torch.float32
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    assert (lse - want[1]).abs().max().item() <= FLASH_LSE_ATOL
+    want_delta = (do.float() * out.float()).sum(-1)
+    assert (delta - want_delta).abs().max().item() <= 1e-3
+    for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
+                       ("dv", dv, want[4])):
+        _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES[:2])
+def test_flash_autograd_function_on_the_card(cuda_device, shape):
+    # the Function launches K5 once forward and K6a, K6b once backward, and
+    # reads q, k, v as (B, H, N, D) views of (B, N, H, D) buffers in place
+    q, k, v, do = _flash_case(shape, cuda_device, seed=1)
+    scale = shape[-1] ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
+             for t in (q, k, v)]
+    before = (tfl.K5.launches, tfl.K6A.launches, tfl.K6B.launches)
+    out = tfl.flash_attention(*views, scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (tfl.K5.launches, tfl.K6A.launches, tfl.K6B.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    for name, t, w in zip(("dq", "dk", "dv"), views, want[2:]):
+        _assert_grad_close(t.grad, w, name)
+
+
+@pytest.mark.cuda
+def test_k1_backward_runs_k5_k6_on_the_card(cuda_device):
+    # K1's autograd Function: the forward launches K1, the backward
+    # recomputes the prep and runs K5, K6a and K6b; its gradients match the
+    # plain composition's autograd in fp32
+    q, k, v, ws, angles, n_img, scale = _attn_case(3, 64, 5, 7, 12, True)
+    dev = cuda_device
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16).requires_grad_()
+                  for a in (q, k, v))
+    wt = [_t(a).to(dev).requires_grad_() for a in ws]
+    before = (tfa.K1.launches, tfl.K5.launches, tfl.K6A.launches,
+              tfl.K6B.launches)
+    out = tfa.fused_dual_flash_attention(qb, kb, vb, 3, *wt, angles, n_img,
+                                         scale)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        out.shape).astype(np.float32)).to(dev, torch.bfloat16)
+    got = torch.autograd.grad(out, [qb, kb, vb, *wt], g)
+    torch.cuda.synchronize()
+    assert (tfa.K1.launches, tfl.K5.launches, tfl.K6A.launches,
+            tfl.K6B.launches) == tuple(c + 1 for c in before)
+    # the plain composition in fp32 on the same values, with the kernel's
+    # RMSNorm eps (that of bf16)
+    ref = [t.detach().float().cpu().requires_grad_() for t in (qb, kb, vb)]
+    wr = [_t(a).requires_grad_() for a in ws]
+    cos, sin = (torch.as_tensor(t)
+                for t in tfa.rope_row_tables(angles, q.shape[1], 64))
+    cq, sq = tfa.fold_row_tables(cos, sin, wr[0], wr[1], n_img)
+    ck, sk = tfa.fold_row_tables(cos, sin, wr[2], wr[3], n_img)
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    want = torch.autograd.grad(
+        tfa.composition(*ref, cq, sq, ck, sk, scale, eps, eps, 3),
+        ref + wr, g.float().cpu())
+    for i, (a, b) in enumerate(zip(got, want)):
+        _assert_grad_close(a.cpu(), b, f"input {i}", K1_GRAD_MAX_REL,
+                           K1_GRAD_REL_L2)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros(1, 2, 8, 32, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfl.flash_attention(q, q, q, 0.2)
+    qb = torch.zeros(1, 2, 8, 48, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="D in"):
+        tfl.flash_attention(qb, qb, qb, 0.2)
+
+
+def test_k1_carries_gradients_and_inference_kernels_refuse_them():
+    # K1 is an autograd Function (its plain version here); K4, K2 and K3
+    # are serving kernels and raise when an input requires grad, on every
+    # device, rather than return a result cut off from autograd
+    q, k, v, ws, angles, n_img, scale = _attn_case(2, 16, 2, 4, 4, True)
+    qt = _t(q).requires_grad_()
+    wt = [_t(a) for a in ws]
+    out = tfa.fused_dual_flash_attention(qt, _t(k), _t(v), 2, *wt, angles,
+                                         n_img, scale)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert qt.grad is not None and torch.isfinite(qt.grad).all()
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfa.fused_dual_flash_attention(qt, _t(k), _t(v), 2, *wt, angles,
+                                       n_img, scale, int8_qk=True)
+    with torch.no_grad():
+        tfa.fused_dual_flash_attention(qt, _t(k), _t(v), 2, *wt, angles,
+                                       n_img, scale, int8_qk=True)
+    t = mlp_case(32, 32, 64, 128, 64, "cpu")
+    w = [t[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale", "b3")]
+    x = t["x"].float().requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfm.swiglu_int8(x, *w, h_group=128)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfm.swiglu_int8_tail(x, t["shift"], t["scale"], t["gate"], *w,
+                             n_tok=32, h_group=128)
+    with torch.no_grad():
+        assert tfm.swiglu_int8(x, *w, h_group=128).shape == (32, 64)

@@ -254,7 +254,7 @@ def test_int8_quant_skip_turns_routes_off(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(text_loss=True), dict(MLP_type="swiglu_old"),
-                                dict(attn_type="softmax"),
+                                dict(attn_type="cosine"),
                                 dict(positional_encoding="RoPE2dV2"),
                                 dict(MLP_type="gelu"),
                                 dict(attn_type="softmax_flash",
@@ -263,3 +263,57 @@ def test_unported_configurations_raise(kw):
     kw = {"attn_type": "softmax_flash", **kw}
     with pytest.raises(NotImplementedError):
         MMDiT(tiny_config(**kw), device="cpu")
+
+
+# ---- training: the general attention path and K1's gradient ---------------
+
+@pytest.mark.parametrize("attn_type,use_fused,last", [
+    ("softmax", False, False), ("softmax", False, True),
+    ("softmax_flash", False, False), ("softmax_flash", False, True),
+    ("softmax_flash", True, False)])
+def test_joint_attention_forward_and_gradients_match_jax(attn_type, use_fused,
+                                                         last):
+    # the general path (per-stream projections and norms, RoPE in fp32 on
+    # the image tokens, then plain softmax or flash attention) and, with
+    # use_fused, K1's autograd Function: outputs and the gradients of every
+    # parameter and both inputs, held to jax.grad of the same loss
+    from sd3_tpu.ops.attention import JointAttention as JAttn
+    from sd3_torch.ops.attention import JointAttention
+    r = np.random.default_rng(31)
+    dim, nh, hw = 48, 3, (3, 4)
+    x = r.standard_normal((2, 12, dim)).astype(np.float32)
+    c = r.standard_normal((2, 5, dim)).astype(np.float32)
+    gx = r.standard_normal((2, 12, dim)).astype(np.float32)
+    gc = r.standard_normal((2, 5, dim)).astype(np.float32)
+    kw = dict(attn_type=attn_type, positional_encoding="RoPE2d", layer_idx=1,
+              dual=True, last=last, use_fused=use_fused)
+    ja = JAttn(dim, nh, **kw)
+    params = ja.init(jax.random.PRNGKey(32), jnp.asarray(x), jnp.asarray(c),
+                     hw)["params"]
+    # norm weights away from their init of ones, so their gradients matter
+    params = {k: ({"weight": jnp.asarray(1 + 0.1 * r.standard_normal(
+        v["weight"].shape).astype(np.float32))} if "norm" in k else v)
+        for k, v in params.items()}
+
+    def loss(p, a, b):
+        ox, oc = ja.apply({"params": p}, a, b, hw)
+        return jnp.sum(ox * gx) + jnp.sum(oc * gc), (ox, oc)
+
+    (_, (wx, wc)), grads = jax.value_and_grad(loss, (0, 1, 2), has_aux=True)(
+        params, jnp.asarray(x), jnp.asarray(c))
+    ta = JointAttention(dim, nh, **kw)
+    ta.load_state_dict(state_dict_from_jax(params), strict=True)
+    assert ta.fused == use_fused
+    tx, tc = _t(x).requires_grad_(), _t(c).requires_grad_()
+    ox, oc = ta(tx, tc, hw)
+    np.testing.assert_allclose(ox.detach().numpy(), wx, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(oc.detach().numpy(), wc, atol=ATOL, rtol=RTOL)
+    ((ox * _t(gx)).sum() + (oc * _t(gc)).sum()).backward()
+    want = state_dict_from_jax(grads[0])
+    got = dict(ta.named_parameters())
+    assert set(got) == set(want)
+    for name, p in got.items():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=ATOL, rtol=RTOL, err_msg=name)
+    np.testing.assert_allclose(tx.grad.numpy(), grads[1], atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(tc.grad.numpy(), grads[2], atol=ATOL, rtol=RTOL)

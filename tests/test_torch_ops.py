@@ -212,3 +212,24 @@ def test_int8_qk_gate_follows_the_padded_length():
     assert not int8_qk_on("none", (), 1178)
     assert not int8_qk_on("int8", ("attn_qk",), 1178)
     assert int8_qk_on("int8", ("w12",), 1178)
+
+
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", ATTN_SHAPES[:2])
+def test_fused_attention_gradients_match_jax_vjp(nh, d, h, w, n_txt, rope2d):
+    # K1's autograd Function (its plain version here) against the JAX
+    # fused core's custom VJP: both differentiate the plain prep followed by
+    # flash attention (Pallas interpret mode in JAX, the K5 / K6 plain
+    # versions here), for q, k, v and the four norm weights, which reach the
+    # tables through fold_row_tables
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d,
+                                                   seed=3)
+    g = _rng(4).standard_normal(q.shape).astype(np.float32)
+    fn = lambda *a: j_fused_attention(*a[:3], nh, *a[3:], angles, n_img, scale)
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v, *ws)))
+    want = vjp(jnp.asarray(g))
+    ins = [_t(a).requires_grad_() for a in (q, k, v, *ws)]
+    out = tfa.fused_dual_flash_attention(*ins[:3], nh, *ins[3:], angles,
+                                         n_img, scale)
+    got = torch.autograd.grad(out, ins, _t(g))
+    for a, b in zip(got, want):
+        _close(a, b, atol=1e-4, rtol=1e-3)
