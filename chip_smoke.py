@@ -10,20 +10,26 @@ Phases (any failure exits non-zero without the final ok line):
      parallel) and print the compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention) at the 512px slice shape, a ragged
-     shape with odd H and a NoPE shape; K4 (its int8-QK^T variant) at the
-     slice and a ragged shape; K3 (int8 SwiGLU) at the text stream and a
-     ragged shape; K2 (int8 SwiGLU block tail) at the image stream and a
-     shape whose tiles straddle samples; K5, K6a and K6b (flash attention
-     forward, dq, dk / dv) at the 512px training shape and a ragged one.
-     Kernel (CUDA graph), eager, plain-version and, for attention, library
-     (scaled_dot_product_attention, forward or backward, a yardstick only)
-     times, and the bound. Then K1's backward (K5, K6a, K6b under its
-     autograd Function) against the fp32 composition's autograd;
-  4. the published widths at a depth of 2 blocks, 512px, batch 2, on the
-     card against the same weights in fp32 on the CPU (the plain path):
-     the bf16 model (through K1), then the int8 (w8a8) model (through K2,
-     K3 and K4); then one training step at 256px, batch 2 (loss, gradients
-     and the update against fp32 on the CPU);
+     shape with odd H and a NoPE shape; K4 (its int8-QK^T variant) and K8a
+     (int8 P.V over bf16 and over K4's scores) at the slice and a ragged
+     shape; K7 (streaming attention), K7q (its int8-QK^T branch) and K8b
+     (int8 P.V over K7's and over K7q's scores) at the 1024px shape and a
+     ragged shape just past 2048 tokens; the public attention entry point
+     once per kernel (K7q and K8a are reached only there); K3 (int8
+     SwiGLU) at the text stream and a ragged shape; K2 (int8 SwiGLU block
+     tail) at the image stream and a shape whose tiles straddle samples; K5,
+     K6a and K6b (flash attention forward, dq, dk / dv) at the 512px
+     training shape and a ragged one. Kernel (CUDA graph), eager,
+     plain-version and, for attention, library (scaled_dot_product_attention
+     on bf16, forward or backward, a yardstick only) times, and the bound.
+     Then K1's backward (K5, K6a, K6b under its autograd Function) against
+     the fp32 composition's autograd;
+  4. the published widths at a depth of 2 blocks on the card against the
+     same weights in fp32 on the CPU (the plain path): 512px, batch 2, the
+     bf16 model (through K1) and the int8 (w8a8) model (through K2, K3 and
+     K4); 1024px, batch 1, bf16 (K7), int8 (K7, K2, K3) and int8 with int8
+     P.V (K8b, K2, K3); then one training step at 256px, batch 2 (loss,
+     gradients and the update against fp32 on the CPU);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then the median of 3 timed runs; each
@@ -32,14 +38,17 @@ Phases (any failure exits non-zero without the final ok line):
   6. the same with the model quantized to int8 (quantize_model): each sample
      call must launch K2 19 * 20, K3 18 * 20 (the last block has no text
      MLP), K4 19 * 20 and K1 0 times;
-  7. training through Trainer.train_step with the slice's configuration
+  7.-9. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
+     (K7 380, K2 380, K3 360, K4 0, K1 0), and int8 with int8 P.V (K8b 380,
+     K7 0, K2 380, K3 360; one timed call);
+  10. training through Trainer.train_step with the slice's configuration
      (bench.py --train defaults: the 19-block model, 512px, batch 4, fused
      low-mem AdamW, bf16 gradients, precast weights, remat): one warmup,
      then the median of 5 timed steps, each launching K5 38, K6a 19, K6b 19
      and K1-K4 0 times; one more step under torch.profiler. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
-  8. one JSON line {"kernels": [...]} per ported kernel, then the last line
+  11. one JSON line {"kernels": [...]} per ported kernel, then the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
@@ -69,7 +78,24 @@ ATTN_ATOL = 1e-2
 # fp32 sum order and exp2's approximation differ: within one bf16 ulp of
 # an output of magnitude <= 2, 1e-2.
 K4_ATOL = 3e-2
-K4_SAME_ROUNDING_ATOL = 1e-2
+INT8_SAME_ROUNDING_ATOL = 1e-2
+# K7 and K7q against the fp32 plain version over the kernel's 64-key tiles:
+# K1's roundings (bf16 q^, k^ and p, a bf16 output), ATTN_ATOL. K7q
+# quantizes q^ and k^ from fp32 in both, so only the odd element whose
+# fp32 prep sums land on the other side of an int8 rounding boundary moves
+# (one level: a score change of ~1e-2 on one key). The online softmax runs
+# over the same tiles in both, so p is rounded against the same running max.
+# K8a / K8b (int8 P.V) against the fp32 plain version: the kernel rounds q^
+# and k^ to bf16 before the scores (2^-9 relative), which moves a share of
+# the int8 levels of p by one (1/127 of a row's largest p); each such level
+# moves its row's output by |v| / l, l the row's sum of p (>= 127), so the
+# effect is K4's: K8_ATOL = K4_ATOL. Against the plain version on the same
+# bf16 inputs (its roundings) only the sum order and exp2's approximation
+# differ: INT8_SAME_ROUNDING_ATOL, as for K4. The card's K8b quantizes p
+# against the running max of 64-key tiles, the plain version over the same
+# tiles; JAX's ~2176-key blocks give other levels on the rows whose max
+# moves (the CPU tests hold the plain version to JAX at JAX's blocks).
+K8_ATOL = K4_ATOL
 # K2 / K3 against the fp32 plain version: the kernel writes bf16 (half an
 # ulp is 2^-9 of an element, RMS ~1.6e-3 of the output), and sums the
 # LayerNorm statistics and the dequantization in another order, so the odd
@@ -88,7 +114,10 @@ MODEL_REL_L2 = 3e-2
 # The int8 model, on the same int8 weights: the bf16 residual path as
 # above, and bf16 rounding of every quantizer's input (0.4%, up to half an
 # int8 level) moves a large share of int8 levels by one (1/127 of a row's
-# scale each) in ~14 quantizers per block.
+# scale each) in ~14 quantizers per block. The same limit with int8 P.V
+# (K8b): p's int8 levels move with the scores' bf16 roundings, and the
+# card's 64-key tiles quantize p against other running maxima than the
+# CPU's ~2176-key blocks, each noise of one p level (1/127) on a key.
 INT8_MODEL_REL_L2 = 5e-2
 # K5 / K6a / K6b against their fp32 plain versions on the same bf16 inputs:
 # p and ds are rounded to bf16 (relative 2^-9) before their products, K5
@@ -131,6 +160,11 @@ PEAK_BYTES = 3.35e12
 
 SLICE = dict(b=8, h=32, w=32, n_txt=154, heads=19, d=64, rope=True)
 RAGGED = dict(b=2, h=5, w=7, n_txt=12, heads=3, d=32, rope=True)
+# the 1024px stage: 64x64 image + 154 text tokens = 4250, batch 4 doubled by
+# CFG; and odd heads at head dim 32 with a length just past the single-KV
+# kernels' 2048 (2100 tokens, a ragged last tile)
+SLICE_1024 = dict(b=8, h=64, w=64, n_txt=154, heads=19, d=64, rope=True)
+RAGGED_STREAM = dict(b=2, h=45, w=46, n_txt=30, heads=3, d=32, rope=True)
 NOPE = dict(b=2, h=10, w=15, n_txt=50, heads=4, d=64, rope=False)
 # flash attention (B, H, N, D): the 512px training step (batch 4, 1024 image
 # + 154 text tokens, 19 heads of 64), and odd heads with a ragged length at
@@ -201,48 +235,77 @@ def cuda_ms(fn, iters=10, groups=5, graph=True):
     return statistics.median(times)
 
 
-def phase_attention(shape, gen, int8_qk=False):
-    """K1 (or with int8_qk K4) vs its plain version at one shape; returns
-    the measurements."""
+# (int8_qk, int8_pv, streaming) -> the kernel's row name in the output
+ATTN_NAMES = {(False, False, False): "K1", (True, False, False): "K4",
+              (False, True, False): "K8a", (True, True, False): "K8a over K4",
+              (False, False, True): "K7", (True, False, True): "K7q",
+              (False, True, True): "K8b", (True, True, True): "K8b over K7q"}
+
+
+def attn_inputs(shape, gen):
+    """bf16 q, k, v (B, N, H*D), the norm weights and the folded tables of
+    one attention shape, on the card."""
     import torch
-    import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
-    from sd3_torch.ops.rope import _rotate_half_interleaved, rope2d_axial_angles
+    from sd3_torch.ops.rope import rope2d_axial_angles
 
     b, nh, d = shape["b"], shape["heads"], shape["d"]
     n_img = shape["h"] * shape["w"]
     n = n_img + shape["n_txt"]
-    f = nh * d
-    dev = "cuda"
-    q, k, v = (torch.randn((b, n, f), generator=gen, device=dev)
+    q, k, v = (torch.randn((b, n, nh * d), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    ws = [1 + 0.1 * torch.randn(d, generator=gen, device=dev) for _ in range(4)]
+    ws = [1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+          for _ in range(4)]
     angles = (rope2d_axial_angles(shape["h"], shape["w"], d).reshape(n_img, d)
               if shape["rope"] else None)
-    cos, sin = (torch.as_tensor(t, device=dev)
+    cos, sin = (torch.as_tensor(t, device="cuda")
                 for t in fa.rope_row_tables(angles, n, d))
-    cosq, sinq = fa.fold_row_tables(cos, sin, ws[0], ws[1], n_img)
-    cosk, sink = fa.fold_row_tables(cos, sin, ws[2], ws[3], n_img)
+    tables = (*fa.fold_row_tables(cos, sin, ws[0], ws[1], n_img),
+              *fa.fold_row_tables(cos, sin, ws[2], ws[3], n_img))
+    return q, k, v, ws, angles, n_img, tables
+
+
+def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
+    """One fused-attention kernel (K1; K4 with int8_qk; K8a with int8_pv; K7,
+    K7q, K8b above 2048 padded tokens) vs its plain version at one shape;
+    returns the measurements."""
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import fused_attention as fa
+    from sd3_torch.ops.rope import _rotate_half_interleaved
+
+    b, nh, d = shape["b"], shape["heads"], shape["d"]
+    q, k, v, _, _, n_img, tables = attn_inputs(shape, gen)
+    n = q.shape[1]
+    cosq, sinq, cosk, sink = tables
     scale = d ** -0.5
     eps = float(torch.finfo(torch.bfloat16).eps)
-
-    name = "K4" if int8_qk else "K1"
-    plain = fa.composition_int8_qk if int8_qk else fa.composition
-    run_k = lambda: fa.fused_attention(q, k, v, nh, cosq, sinq, cosk, sink,
-                                       scale, int8_qk=int8_qk)
-    run_plain = lambda: plain(q, k, v, cosq, sinq, cosk, sink, scale, eps,
-                              eps, nh)
+    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    name = ATTN_NAMES[(int8_qk, int8_pv, streaming)]
+    if streaming:
+        plain = (fa.composition_stream_int8_qk if int8_qk
+                 else fa.composition_stream)
+    else:
+        plain = fa.composition_int8_qk if int8_qk else fa.composition
+    # the plain versions take int8_pv where they have it; the streaming ones
+    # are compared over the kernel's 64-key tiles, timed with JAX's blocks
+    kw = dict(int8_pv=True) if int8_pv else {}
+    cmp_kw = dict(kw, block_k=64) if streaming else kw
+    run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
+                                       int8_qk=int8_qk, int8_pv=int8_pv)
+    run_plain = lambda: plain(q, k, v, *tables, scale, eps, eps, nh, **kw)
     got = run_k()
     torch.cuda.synchronize()
-    want = plain(q.float(), k.float(), v.float(), cosq, sinq, cosk, sink,
-                 scale, eps, eps, nh)
-    plain_bf16 = run_plain()
+    want = plain(q.float(), k.float(), v.float(), *tables, scale, eps, eps, nh,
+                 **cmp_kw)
+    same_rounding = plain(q, k, v, *tables, scale, eps, eps, nh, **cmp_kw)
     err = (got.float() - want).abs().max().item()
     rel = err / want.abs().max().item()
-    plain_err = (plain_bf16.float() - want).abs().max().item()
+    plain_err = (same_rounding.float() - want).abs().max().item()
     require(bool(torch.isfinite(got).all()), f"{name} non-finite at {shape}")
 
-    # library yardstick: SDPA on q/k/v prepped by the plain version
+    # library yardstick: SDPA on q/k/v prepped by the plain version (bf16;
+    # no library attention takes int8 operands)
     def heads(x):
         return x.reshape(b, n, nh, d).transpose(1, 2).contiguous()
 
@@ -258,29 +321,70 @@ def phase_attention(shape, gen, int8_qk=False):
     eager_ms = cuda_ms(run_k, graph=False)
     plain_ms = cuda_ms(run_plain, iters=3, groups=3)
     library_ms = cuda_ms(run_lib)
-    # QK^T and P.V, 2*B*H*N^2*D each: both bf16 in K1; QK^T int8 in K4
+    # QK^T and P.V, 2*B*H*N^2*D operations each, at the int8 rate where the
+    # kernel's product is int8 (K8a's second score pass is its own choice)
     prod = 2.0 * b * nh * n * n * d
-    t_ops = prod / (PEAK_INT8_OPS if int8_qk else PEAK_BF16_FLOPS) \
-        + prod / PEAK_BF16_FLOPS
-    nbytes = 4.0 * b * n * f * 2 + 4.0 * n * d * 4  # q, k, v, out + 4 tables
+    rate = lambda int8: PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
+    t_ops = prod / rate(int8_qk) + prod / rate(int8_pv)
+    nbytes = 4.0 * b * n * nh * d * 2 + 4.0 * n * d * 4  # q, k, v, out + tables
     t_bytes = nbytes / PEAK_BYTES
     res = dict(shape=f"B={b} N={n} n_img={n_img} H={nh} D={d} "
                f"{'RoPE2d' if shape['rope'] else 'NoPE'}",
                max_abs_err=err, max_rel_err=rel, plain_bf16_max_abs_err=plain_err,
                kernel_vs_plain_bf16_max_abs_err=(
-                   got.float() - plain_bf16.float()).abs().max().item(),
+                   got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                library_ms=library_ms,
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     print(f"  {name}", json.dumps(res), flush=True)
-    atol = K4_ATOL if int8_qk else ATTN_ATOL
+    atol = (K8_ATOL if int8_pv else K4_ATOL if int8_qk and not streaming
+            else ATTN_ATOL)
     require(err <= atol, f"{name} max abs err {err} > {atol} at {res['shape']}")
     same = res["kernel_vs_plain_bf16_max_abs_err"]
-    require(not int8_qk or same <= K4_SAME_ROUNDING_ATOL,
-            f"K4 max abs err {same} against the plain version's own roundings "
-            f"> {K4_SAME_ROUNDING_ATOL} at {res['shape']}")
+    require(not (int8_qk or int8_pv) or same <= INT8_SAME_ROUNDING_ATOL,
+            f"{name} max abs err {same} against the plain version's own "
+            f"roundings > {INT8_SAME_ROUNDING_ATOL} at {res['shape']}")
     return res
+
+
+def phase_attention_api(gen):
+    """The public entry point `fused_dual_flash_attention` once per kernel,
+    at the 512px and 1024px slice shapes: the int8 QK^T branch above 2048
+    tokens (K7q) and int8 P.V at or below it (K8a) are reached only this
+    way (the model gates them off, as the JAX package does). Launch counts
+    reset before, read after; returns them."""
+    import torch
+    from sd3_torch.ops import fused_attention as fa
+
+    calls = []
+    for shape in (SLICE, SLICE_1024):
+        q, k, v, ws, angles, n_img, _ = attn_inputs(shape, gen)
+        for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
+                                 (True, True)):
+            calls.append((q, k, v, ws, angles, n_img, shape, int8_qk,
+                          int8_pv))
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.inference_mode():
+        for q, k, v, ws, angles, n_img, shape, int8_qk, int8_pv in calls:
+            out = fa.fused_dual_flash_attention(
+                q, k, v, shape["heads"], *ws, angles, n_img,
+                shape["d"] ** -0.5, int8_qk=int8_qk, int8_pv=int8_pv)
+            require(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+                    f"fused_dual_flash_attention int8_qk={int8_qk} "
+                    f"int8_pv={int8_pv} at {shape}: bad output")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print("  attention API", json.dumps(launches), flush=True)
+    want = dict(fused_attention_bf16=1, fused_attention_int8qk=1,
+                fused_attention_int8pv=2, fused_attention_stream=1,
+                fused_attention_stream_int8qk=1,
+                fused_attention_stream_int8pv=2)
+    for nm, c in want.items():
+        require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
+                f"through the attention API, expected {c}")
+    return launches
 
 
 def phase_mlp(shape, gen, tail):
@@ -706,15 +810,17 @@ def reset_launches():
         k.launches = 0
 
 
-def phase_model(gen_seed, int8=False):
-    """2-block published-width model, bf16 or int8 (w8a8) on the card vs
-    the same weights in fp32 on the CPU."""
+def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False):
+    """2-block published-width model at `res`, bf16 or int8 (w8a8, with
+    int8_pv int8 P.V too) on the card vs the same weights in fp32 on the
+    CPU."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.models.mmdit import MMDiT
     from sd3_torch.ops.quant import quantize_model
 
-    cfg = published_config(stage_res=512).replace(num_blocks=2)
+    cfg = published_config(stage_res=res).replace(num_blocks=2,
+                                                  int8_pv=int8_pv)
     ref = MMDiT(cfg.replace(dtype="float32"), device="cpu").init_weights(
         torch.Generator().manual_seed(gen_seed)).eval()
     if int8:
@@ -724,13 +830,13 @@ def phase_model(gen_seed, int8=False):
     dut.load_state_dict(ref.state_dict(), strict=True)
     dut.cast_params(torch.bfloat16).eval()
     g = torch.Generator().manual_seed(gen_seed + 1)
-    b = 2
-    x = torch.randn((b, cfg.inCh, 64, 64), generator=g)
-    t = torch.rand((b,), generator=g)
-    c = torch.randn((b, cfg.text_tokens, cfg.text_hidden_dim), generator=g)
-    cp = torch.randn((b, cfg.class_dim), generator=g)
-    nulls = (torch.tensor([False, True]), torch.tensor([True, False]),
-             torch.tensor([False, True]))
+    lat = res // 8
+    x = torch.randn((batch, cfg.inCh, lat, lat), generator=g)
+    t = torch.rand((batch,), generator=g)
+    c = torch.randn((batch, cfg.text_tokens, cfg.text_hidden_dim), generator=g)
+    cp = torch.randn((batch, cfg.class_dim), generator=g)
+    nulls = tuple(torch.tensor(m[:batch]) for m in (
+        [False, True], [True, False], [False, True]))
     with torch.inference_mode():
         t0 = time.time()
         want = ref(x, t, c, cp, *nulls)
@@ -741,28 +847,43 @@ def phase_model(gen_seed, int8=False):
     launches = launch_counts()
     require(bool(torch.isfinite(got).all()), "2-block model output non-finite")
     rel = ((got - want).norm() / want.norm()).item()
-    res = dict(quant=cfg.quant, rel_l2=rel,
-               max_abs_err=(got - want).abs().max().item(),
-               ref_max_abs=want.abs().max().item(), launches=launches,
-               cpu_fp32_s=cpu_s)
-    print("  model", json.dumps(res), flush=True)
+    res_d = dict(quant=cfg.quant, int8_pv=int8_pv, res=res, batch=batch,
+                 rel_l2=rel, max_abs_err=(got - want).abs().max().item(),
+                 ref_max_abs=want.abs().max().item(), launches=launches,
+                 cpu_fp32_s=cpu_s)
+    print("  model", json.dumps(res_d), flush=True)
     nb = cfg.num_blocks
-    # int8: attention K4 (1178 tokens pad to 1280), the image-stream MLP K2,
-    # the text-stream MLP K3 in every block but the last
-    want_launches = (dict(swiglu_int8_tail=nb, swiglu_int8=nb - 1,
-                          fused_attention_int8qk=nb, fused_attention_bf16=0)
-                     if int8 else dict(fused_attention_bf16=nb))
+    # attention: K1 / K4 up to 2048 padded tokens (512px: 1178 tokens pad
+    # to 1280, K4 under int8), K7 / K8b above (1024px: 4250); int8: the
+    # image-stream MLP K2, the text-stream MLP K3 in every block but the last
+    streaming = res > 512
+    attn = ("fused_attention_stream_int8pv" if int8_pv else
+            "fused_attention_stream" if streaming else
+            "fused_attention_int8qk" if int8 else "fused_attention_bf16")
+    want_launches = {k: 0 for k in ATTENTION_KERNELS}
+    want_launches[attn] = nb
+    if int8:
+        want_launches.update(swiglu_int8_tail=nb, swiglu_int8=nb - 1)
     for name, n in want_launches.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
-                f"in a {nb}-block {cfg.quant} forward, expected {n}")
+                f"in a {nb}-block {cfg.quant} {res}px forward, expected {n}")
     limit = INT8_MODEL_REL_L2 if int8 else MODEL_REL_L2
-    require(rel <= limit, f"2-block {cfg.quant} model rel L2 {rel} > {limit}")
-    return res
+    require(rel <= limit, f"2-block {cfg.quant} {res}px model rel L2 {rel} > "
+            f"{limit}")
+    return res_d
 
 
-def phase_sample(card, int8=False):
+ATTENTION_KERNELS = ("fused_attention_bf16", "fused_attention_int8qk",
+                     "fused_attention_int8pv", "fused_attention_stream",
+                     "fused_attention_stream_int8qk",
+                     "fused_attention_stream_int8pv")
+
+
+def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
     """Full-width sampling through the port's entry points: the bf16 model,
-    or (int8) the same seeded weights quantized by quantize_model."""
+    or (int8) the same seeded weights quantized by quantize_model, with
+    int8_pv int8 P.V in the streaming attention. One warmup call, `timed`
+    timed calls, then one more under torch.profiler."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.inference.sampler import sample_imgs
@@ -770,8 +891,8 @@ def phase_sample(card, int8=False):
     from sd3_torch.models.text_encoders import StubTextEncoders
     from sd3_torch.ops.quant import quantize_model
 
-    cfg = published_config(stage_res=512)
-    batch, steps, res = 4, 20, 512
+    cfg = published_config(stage_res=res).replace(int8_pv=int8_pv)
+    batch, steps = 4, 20
     t0 = time.time()
     model = MMDiT(cfg, device="cuda", dtype=torch.bfloat16).init_weights(
         torch.Generator(device="cuda").manual_seed(0)).eval()
@@ -780,14 +901,24 @@ def phase_sample(card, int8=False):
     n_params = sum(t.numel() for t in model.state_dict().values())
     enc = StubTextEncoders(device="cuda")
     torch.cuda.synchronize()
-    print(f"  {model.cfg.quant} model: {n_params / 1e6:.1f}M weights, built "
-          f"in {time.time() - t0:.1f} s", flush=True)
+    label = f"{model.cfg.quant}{' int8_pv' if int8_pv else ''} {res}px"
+    print(f"  {label} model: {n_params / 1e6:.1f}M weights, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
     nb = cfg.num_blocks
-    # per sample call: one launch per block and step, the text-stream MLP
-    # in every block but the last
-    expect = (dict(swiglu_int8_tail=nb * steps, swiglu_int8=(nb - 1) * steps,
-                   fused_attention_int8qk=nb * steps, fused_attention_bf16=0)
-              if int8 else dict(fused_attention_bf16=nb * steps))
+    # per sample call: one attention launch per block and step (K1 / K4 up
+    # to 2048 padded tokens, K7 / K8b above), and under int8 one K2 per
+    # block and step and one K3 in every block but the last
+    streaming = res > 512
+    attn = ("fused_attention_stream_int8pv" if int8_pv else
+            "fused_attention_stream" if streaming else
+            "fused_attention_int8qk" if int8 else "fused_attention_bf16")
+    expect = {k: 0 for k in ATTENTION_KERNELS}
+    expect[attn] = nb * steps
+    if int8:
+        expect.update(swiglu_int8_tail=nb * steps,
+                      swiglu_int8=(nb - 1) * steps)
+    bf16_prep = {"fused_attention_stream_int8pv": "K8b",
+                 "fused_attention_stream": "K7"}.get(attn, "K1")
 
     def run(decode):
         gen = torch.Generator().manual_seed(1)
@@ -799,7 +930,7 @@ def phase_sample(card, int8=False):
         launches = launch_counts()
         for name, n in expect.items():
             require(launches[name] == n, f"{name} launched {launches[name]} "
-                    f"times in one {model.cfg.quant} sample call, expected {n}")
+                    f"times in one {label} sample call, expected {n}")
         return out, launches
 
     torch.cuda.reset_peak_memory_stats()
@@ -813,15 +944,16 @@ def phase_sample(card, int8=False):
     require(tuple(imgs.shape) == (batch, 3, res, res),
             f"decode shape {tuple(imgs.shape)}")
     times, launches = [], {}
-    for _ in range(3):
+    for _ in range(timed):
         t0 = time.time()
         imgs, launches = run(decode=True)
         times.append(time.time() - t0)
         require(bool(torch.isfinite(imgs).all()), "decoded images non-finite")
     med = statistics.median(times)
-    res_d = dict(quant=model.cfg.quant, batch=batch, steps=steps, res=res,
-                 warmup_s=warm_s, run_s=times, median_s_per_batch=med,
-                 images_per_s=batch / med, launches_per_call=launches,
+    res_d = dict(quant=model.cfg.quant, int8_pv=int8_pv, batch=batch,
+                 steps=steps, res=res, warmup_s=warm_s, run_s=times,
+                 median_s_per_batch=med, images_per_s=batch / med,
+                 launches_per_call=launches,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  card=card,
                  clocks_power=nvidia_smi("clocks.sm,power.draw,power.limit,"
@@ -837,7 +969,7 @@ def phase_sample(card, int8=False):
         t0 = time.time()
         run(decode=True)
         traced_s = time.time() - t0
-    tr = device_breakdown(prof, traced_s)
+    tr = device_breakdown(prof, traced_s, bf16_prep)
     # kernels are not slowed by the trace: their sum against the untraced
     # median gives the untraced run's idle share
     tr["idle_share_untraced"] = 1 - tr["device_busy_ms"] / (med * 1e3)
@@ -847,23 +979,39 @@ def phase_sample(card, int8=False):
 
 
 MLP_KERNELS = ("xquant_kernel", "swiglu_h_kernel", "w3_gemm_kernel")
+# attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
+STREAM_FAMILIES = {"false, false, false>": "K7", "true, false, false>": "K7q",
+                   "false, true, false>": "K8b", "true, true, false>": "K8b",
+                   "false, true, true>": "K8a", "true, true, true>": "K8a"}
 
 
-def kernel_family(name: str) -> str:
+def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2 / K3 are the TAIL=true / false instantiations of one
     source; K4 is k_prep_kernel<D, true> with its quantize and attention
-    kernels; K5, K6a, K6b are fwd_kernel, dq_kernel, dkv_kernel of
+    kernels; K7, K7q, K8a, K8b the instantiations of attn_stream_kernel,
+    with the V prep of int8 P.V in K8b and the per-row K prep in K7q; the
+    bf16 K prep k_prep_kernel<D, false>, which K1, K7 and K8b share, goes to
+    `bf16_prep`; K5, K6a, K6b are fwd_kernel, dq_kernel, dkv_kernel of
     flash_attention.cu), int8 and other GEMMs, and the rest."""
     low = name.lower()
     for fam, fn in (("K6b", "dkv_kernel"), ("K6a", "dq_kernel"),
                     ("K5", "fwd_kernel")):
         if f"::{fn}<" in name or f"{fn}ILi" in name:
             return fam
+    if "attn_stream_kernel" in name:
+        return next((f for args, f in STREAM_FAMILIES.items() if args in name),
+                    "K7")
+    if "v_amax_kernel" in name or "v_quant_kernel" in name:
+        return "K8b"
+    if "k_prep_q8rows_kernel" in name:
+        return "K7q"
     if "attn_int8_kernel" in name or "k_quant_kernel" in name or (
             "k_prep_kernel" in name and "true>" in name):
         return "K4"
-    if "attn_kernel" in name or "k_prep_kernel" in name:
+    if "k_prep_kernel" in name:
+        return bf16_prep
+    if "attn_kernel" in name:
         return "K1"
     if any(k in name for k in MLP_KERNELS):
         return "K2" if "true>" in name else "K3"
@@ -874,11 +1022,12 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def device_breakdown(prof, wall_s):
+def device_breakdown(prof, wall_s, bf16_prep="K1"):
     """Self device time (ms) by kernel family (see kernel_family); the top
     kernels; and the idle share of the traced wall time."""
-    fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b",
-                          "gemm_int8", "gemm", "other"), 0.0)
+    fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7",
+                          "K7q", "K8a", "K8b", "gemm_int8", "gemm", "other"),
+                         0.0)
     rows = []
     for e in prof.key_averages():
         # device-side rows (kernels, copies, fills) only: they take no host
@@ -886,7 +1035,7 @@ def device_breakdown(prof, wall_s):
         us = e.self_device_time_total
         if e.self_cpu_time_total > 0 or us <= 0:
             continue
-        fams[kernel_family(e.key)] += us
+        fams[kernel_family(e.key, bf16_prep)] += us
         rows.append((us, e.count, e.key[:100]))
     busy_ms = sum(fams.values()) / 1e3
     rows.sort(reverse=True)
@@ -925,7 +1074,7 @@ def main() -> int:
 
         print("phase 2: build", flush=True)
         from sd3_torch import kernels
-        from sd3_torch.ops import (  # register K1-K6b
+        from sd3_torch.ops import (  # register K1-K8b
             flash_attention, fused_attention, fused_mlp)
         t0 = time.time()
         reports = kernels.build_all()
@@ -941,15 +1090,26 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         k1 = [phase_attention(s, gen) for s in (SLICE, RAGGED, NOPE)]
         k4 = [phase_attention(s, gen, int8_qk=True) for s in (SLICE, RAGGED)]
+        k8a = [phase_attention(s, gen, int8_qk=qk, int8_pv=True)
+               for qk in (False, True) for s in (SLICE, RAGGED)]
+        k7 = [phase_attention(s, gen) for s in (SLICE_1024, RAGGED_STREAM)]
+        k7q = [phase_attention(s, gen, int8_qk=True)
+               for s in (SLICE_1024, RAGGED_STREAM)]
+        k8b = [phase_attention(s, gen, int8_qk=qk, int8_pv=True)
+               for qk in (False, True) for s in (SLICE_1024, RAGGED_STREAM)]
+        api = phase_attention_api(gen)
         k3 = [phase_mlp(s, gen, tail=False) for s in (K3_SLICE, K3_RAGGED)]
         k2 = [phase_mlp(s, gen, tail=True) for s in (K2_SLICE, K2_RAGGED)]
         k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
         phase_k1_backward(gen)
 
-        print("phase 4: 2-block models on the card vs fp32 on the CPU",
-              flush=True)
+        print("phase 4: 2-block models on the card vs fp32 on the CPU: "
+              "512px batch 2, 1024px batch 1", flush=True)
         phase_model(gen_seed=0)
         phase_model(gen_seed=0, int8=True)
+        phase_model(gen_seed=0, res=1024, batch=1)
+        phase_model(gen_seed=0, int8=True, res=1024, batch=1)
+        phase_model(gen_seed=0, int8=True, res=1024, batch=1, int8_pv=True)
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
@@ -961,13 +1121,25 @@ def main() -> int:
         print("phase 6: 19-block int8 sampling, the same", flush=True)
         sample8 = phase_sample(card, int8=True)
 
-        print("phase 7: 19-block training, 512px, batch 4, fused low-mem "
+        print("phase 7: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
+              "steps, CFG 5", flush=True)
+        sample_1024 = phase_sample(card, res=1024)
+
+        print("phase 8: 19-block int8 sampling, 1024px, the same", flush=True)
+        phase_sample(card, int8=True, res=1024)
+
+        print("phase 9: 19-block int8 sampling with int8 P.V, 1024px, the "
+              "same, one timed call", flush=True)
+        sample8pv_1024 = phase_sample(card, int8=True, res=1024, int8_pv=True,
+                                      timed=1)
+
+        print("phase 10: 19-block training, 512px, batch 4, fused low-mem "
               "AdamW, bf16 grads, remat; then the default TrainConfig path "
               "at 2 blocks", flush=True)
         train = phase_train(card, log_dir)
         phase_train_default_path(log_dir)
 
-        print("phase 8: kernels", flush=True)
+        print("phase 11: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,
@@ -987,6 +1159,16 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", train, per_step),
             (flash_attention.K6B, k56[0]["K6b"], "flash_attention.cu",
              "sd3_tpu/ops/flash_attention.py:222", train, per_step),
+            (fused_attention.K7, k7[0], "stream_attention.cu",
+             "sd3_tpu/ops/fused_attention.py:312", sample_1024, per_call),
+            # K7q and K8a: the model never takes them (as in JAX); their
+            # launches are those of the attention API phase
+            (fused_attention.K7Q, k7q[0], "stream_attention.cu",
+             "sd3_tpu/ops/fused_attention.py:352", api, lambda run: run),
+            (fused_attention.K8A, k8a[0], "stream_attention.cu",
+             "sd3_tpu/ops/fused_attention.py:190", api, lambda run: run),
+            (fused_attention.K8B, k8b[0], "stream_attention.cu",
+             "sd3_tpu/ops/fused_attention.py:406", sample8pv_1024, per_call),
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",

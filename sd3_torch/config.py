@@ -78,6 +78,11 @@ class MMDiTConfig:
     # persisted in checkpoint JSON.
     quant: str = "none"
     quant_skip: tuple = ()
+    # int8 P.V in the streaming attention (K8b) under quant="int8", above
+    # 2048 padded tokens: the JAX package's opt-in SD3_INT8_PV=1 made a
+    # field (sd3_tpu/ops/attention.py:334-336). Runtime choice, not
+    # persisted.
+    int8_pv: bool = False
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):

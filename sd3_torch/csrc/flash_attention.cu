@@ -52,14 +52,9 @@
 // cp.async ring rather than wgmma with TMA and warp specialisation, so it
 // runs well below those bounds; that pipeline is the later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "mma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int TR = 64;              // rows of every tile (query and key)
 constexpr int WARPS = 4;            // 16 rows of a tile per warp
@@ -79,76 +74,6 @@ struct Tile {
   static constexpr int ELEMS = TR * DP;    // one tile, bf16 elements
   static constexpr int BYTES = ELEMS * 2;
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills the
-// destination when !valid (gmem must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
-}
-
-// Four 8x8 b16 matrices from shared memory (.trans: transposed); lane l gives
-// the address of row (l & 7) of matrix (l >> 3).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 2^x on the special-function unit; exp2(-inf) = +0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
 
 // Start the cp.async copy of rows [row0, row0 + TR) of one (N, D) head
 // (row stride sn elements) into a shared tile; rows >= N are zero-filled.
@@ -576,20 +501,12 @@ View view_at(const long long* strides, int i) {
   return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-template <typename Kern>
-int prepare(Kern kern, int smem) {
-  if (smem > 48 * 1024)
-    return (int)cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return 0;
-}
-
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                const long long* st, int B, int H, int N, float scale,
                cudaStream_t stream) {
   const int smem = 5 * Tile<D>::BYTES;
-  int e = prepare(fwd_kernel<D>, smem);
+  int e = allow_smem(fwd_kernel<D>, smem);
   if (e) return e;
   dim3 grid((N + TR - 1) / TR, H, B);
   fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -606,7 +523,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const long long* st, int B, int H, int N, float scale,
               cudaStream_t stream) {
   const int smem = 6 * Tile<D>::BYTES + TR * 4;
-  int e = prepare(dq_kernel<D>, smem);
+  int e = allow_smem(dq_kernel<D>, smem);
   if (e) return e;
   dim3 grid((N + TR - 1) / TR, H, B);
   dq_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -625,7 +542,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const long long* st, int B, int H, int N, float scale,
                cudaStream_t stream) {
   const int smem = 6 * Tile<D>::BYTES + 4 * TR * 4;
-  int e = prepare(dkv_kernel<D>, smem);
+  int e = allow_smem(dkv_kernel<D>, smem);
   if (e) return e;
   dim3 grid((N + TR - 1) / TR, H, B);
   dkv_kernel<D><<<grid, THREADS, smem, stream>>>(

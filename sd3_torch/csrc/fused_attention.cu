@@ -64,215 +64,9 @@
 // tensor-core rate (~41 us). int8 m16n8k32 contracts 32 at a time, so a
 // head dim of 16 is zero-padded to 32 in shared memory.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int BQ = 64;          // query rows per attention block
-constexpr int BK = 64;          // key rows per shared-memory tile
-constexpr int WARPS = 4;        // 16 query rows per warp
-constexpr int THREADS = WARPS * 32;
-constexpr int PREP_THREADS = 256;
-constexpr int PREP_ROWS = 64;   // K rows per k_prep block
-
-// Row geometry of the prep: TPR threads share one row of D values, each
-// owning PPT adjacent (even, odd) pairs; a warp covers RPW rows at a time.
-template <int D>
-struct Geom {
-  static constexpr int PAIRS = D / 2;
-  static constexpr int TPR = PAIRS < 32 ? PAIRS : 32;
-  static constexpr int PPT = PAIRS / TPR;
-  static constexpr int RPW = 32 / TPR;
-};
-
-template <int TPR>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// RMSNorm + folded rotation of one row. All 32 lanes of the warp must call
-// it (it shuffles); lanes of an invalid row load nothing and return zeros.
-// out[2i], out[2i+1] is pair (sub + i*TPR); returns ||out||^2 of the row.
-template <int D>
-__device__ __forceinline__ float prep_row(const bf16* __restrict__ x,
-                                          const float* __restrict__ c,
-                                          const float* __restrict__ s,
-                                          float eps, int sub, bool valid,
-                                          float (&out)[2 * Geom<D>::PPT]) {
-  using G = Geom<D>;
-  float ss = 0.f;
-#pragma unroll
-  for (int i = 0; i < G::PPT; ++i) {
-    float2 f = make_float2(0.f, 0.f);
-    if (valid)
-      f = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(x)[sub + i * G::TPR]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-    ss += f.x * f.x + f.y * f.y;
-  }
-  ss = group_sum<G::TPR>(ss);
-  const float r = rsqrtf(ss / D + eps);
-  float nn = 0.f;
-#pragma unroll
-  for (int i = 0; i < G::PPT; ++i) {
-    const int j = 2 * (sub + i * G::TPR);
-    float c0 = 0.f, c1 = 0.f, s0 = 0.f, s1 = 0.f;
-    if (valid) {
-      c0 = c[j]; c1 = c[j + 1]; s0 = s[j]; s1 = s[j + 1];
-    }
-    const float a = out[2 * i] * r, b = out[2 * i + 1] * r;
-    out[2 * i] = a * c0 - b * s0;
-    out[2 * i + 1] = b * c1 + a * s1;
-    nn += out[2 * i] * out[2 * i] + out[2 * i + 1] * out[2 * i + 1];
-  }
-  return group_sum<G::TPR>(nn);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 16-byte global -> shared copy that bypasses registers; zero-fills the
-// destination when !valid (gmem must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
-}
-
-// Two / four 8x8 b16 matrices from shared memory (.trans: transposed); lane l
-// gives the address of row (l & 7) of matrix (l >> 3).
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 2^x on the special-function unit (denormal results flush to zero).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// D(16x8, fp32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int TPR>
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// round half to even, as jnp.round; a true division, as JAX divides
-__device__ __forceinline__ int quant8(float v, float s) {
-  return (int)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-}
-
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads. k_max2 receives
-// max ||k^||^2 per (b, h) (K1), or with AMAX max |bf16(k^)| (K4).
-template <int D, bool AMAX>
-__global__ void __launch_bounds__(PREP_THREADS)
-k_prep_kernel(const bf16* __restrict__ k, const float* __restrict__ ck,
-              const float* __restrict__ sk, bf16* __restrict__ k_out,
-              float* __restrict__ k_max2, int N, int H, float eps) {
-  using G = Geom<D>;
-  constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
-  static_assert(PREP_ROWS % ROWS_PER_ITER == 0, "prep rows");
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane % G::TPR;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * N * rs + (size_t)h * D;
-  float mx = 0.f;
-#pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
-    const bool valid = n < N;
-    const size_t nn = valid ? (size_t)n : 0;
-    float out[2 * G::PPT];
-    const float ss = prep_row<D>(k + base + nn * rs, ck + nn * D, sk + nn * D,
-                                 eps, sub, valid, out);
-    if (valid) {
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(k_out + base + nn * rs);
-#pragma unroll
-      for (int i = 0; i < G::PPT; ++i) {
-        const __nv_bfloat162 kb = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
-        dst[sub + i * G::TPR] = kb;
-        if constexpr (AMAX) {
-          const float2 r = __bfloat1622float2(kb);
-          mx = fmaxf(mx, fmaxf(fabsf(r.x), fabsf(r.y)));
-        }
-      }
-      if constexpr (!AMAX) mx = fmaxf(mx, ss);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  __shared__ float wmax[PREP_THREADS / 32];
-  if (lane == 0) wmax[warp] = mx;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = 0.f;
-    for (int w = 0; w < PREP_THREADS / 32; ++w) m = fmaxf(m, wmax[w]);
-    atomicMax(reinterpret_cast<int*>(k_max2 + bh), __float_as_int(m));
-  }
-}
 
 template <int D>
 struct Smem {
@@ -466,36 +260,6 @@ attn_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
 }
 
 // ---- K4 ---------------------------------------------------------------
-
-constexpr int QUANT_THREADS = 256;
-
-// int8 k^ from the bf16 k^, 8 values per thread (D is a multiple of 8, so
-// they share a head). grid ceil(B*N*H*D / (8 * QUANT_THREADS)).
-__global__ void __launch_bounds__(QUANT_THREADS)
-k_quant_kernel(const bf16* __restrict__ kp, const float* __restrict__ k_amax,
-               int8_t* __restrict__ kq, size_t total, int N, int H, int D) {
-  const size_t e0 = ((size_t)blockIdx.x * QUANT_THREADS + threadIdx.x) * 8;
-  if (e0 >= total) return;
-  const size_t hd = (size_t)H * D;
-  const size_t b = e0 / (hd * N);
-  const int h = (int)((e0 % hd) / D);
-  const float s = fmaxf(k_amax[b * H + h], 1e-12f) / 127.f;
-  const uint4 raw = *reinterpret_cast<const uint4*>(kp + e0);
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  uint32_t packed[2];
-#pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(v2[w * 2 + i]);
-      word |= (uint32_t)(quant8(f.x, s) & 0xff) << (16 * i);
-      word |= (uint32_t)(quant8(f.y, s) & 0xff) << (16 * i + 8);
-    }
-    packed[w] = word;
-  }
-  *reinterpret_cast<uint2*>(kq + e0) = make_uint2(packed[0], packed[1]);
-}
 
 template <int D>
 struct Smem8 {
@@ -726,26 +490,12 @@ int launch_int8(const void* q, const void* k, const void* v, const void* cq,
                 const void* sq, const void* ck, const void* sk, void* k_prep,
                 void* k_q, void* k_amax, void* out, int B, int N, int H,
                 float eps_q, float eps_k, cudaStream_t st) {
-  dim3 g1((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
-  k_prep_kernel<D, true><<<g1, PREP_THREADS, 0, st>>>(
-      static_cast<const bf16*>(k), static_cast<const float*>(ck),
-      static_cast<const float*>(sk), static_cast<bf16*>(k_prep),
-      static_cast<float*>(k_amax), N, H, eps_k);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t total = (size_t)B * N * H * D;
-  const size_t blocks = (total / 8 + QUANT_THREADS - 1) / QUANT_THREADS;
-  k_quant_kernel<<<(unsigned)blocks, QUANT_THREADS, 0, st>>>(
-      static_cast<const bf16*>(k_prep), static_cast<const float*>(k_amax),
-      static_cast<int8_t*>(k_q), total, N, H, D);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int e = launch_k_prep_q8bh<D>(k, ck, sk, k_prep, k_q, k_amax, B, N, H,
+                                eps_k, st);
+  if (e != 0) return e;
   const int smem = Smem8<D>::BYTES;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(attn_int8_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  e = allow_smem(attn_int8_kernel<D>, smem);
+  if (e != 0) return e;
   dim3 g2((N + BQ - 1) / BQ, H, B);
   attn_int8_kernel<D><<<g2, THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const float*>(cq),
@@ -760,19 +510,12 @@ int launch(const void* q, const void* k, const void* v, const void* cq,
            const void* sq, const void* ck, const void* sk, void* k_prep,
            void* k_max2, void* out, int B, int N, int H, float eps_q,
            float eps_k, cudaStream_t st) {
-  dim3 g1((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
-  k_prep_kernel<D, false><<<g1, PREP_THREADS, 0, st>>>(
-      static_cast<const bf16*>(k), static_cast<const float*>(ck),
-      static_cast<const float*>(sk), static_cast<bf16*>(k_prep),
-      static_cast<float*>(k_max2), N, H, eps_k);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  int e = launch_k_prep<D, false>(k, ck, sk, k_prep, k_max2, B, N, H, eps_k,
+                                  st);
+  if (e != 0) return e;
   const int smem = Smem<D>::BYTES;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(attn_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  e = allow_smem(attn_kernel<D>, smem);
+  if (e != 0) return e;
   dim3 g2((N + BQ - 1) / BQ, H, B);
   attn_kernel<D><<<g2, THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const float*>(cq),

@@ -12,7 +12,9 @@ raises when no GPU is there rather than run on the CPU). `--stub_encoders`
 runs with the deterministic stub conditioning stack. `--quant int8` serves
 with w8a8 projections and the int8 kernels: the float checkpoint is loaded,
 quantized (`--quant_skip` names stay float), cast, then moved to the
-device. Native msgpack checkpoints and `--gif` come with later slices of the
+device; `--int8_pv` adds int8 P.V in the streaming attention above 2048
+joint tokens (1024px: `--width 1024 --height 1024`), the JAX package's
+SD3_INT8_PV=1. Native msgpack checkpoints and `--gif` come with later slices of the
 port and raise NotImplementedError.
 """
 
@@ -62,6 +64,9 @@ def build_argparser():
     p.add_argument("--quant_skip", default="",
                    help="comma-separated layer names kept float under "
                         "--quant int8 (e.g. w12,w3 or attn_qk)")
+    p.add_argument("--int8_pv", action="store_true",
+                   help="with --quant int8: int8 P.V in the streaming "
+                        "attention above 2048 joint tokens (1024px)")
     p.add_argument("--allow_unsafe_pickle", action="store_true",
                    help="permit torch.load(weights_only=False) for legacy "
                         "reference .pkl files that the safe loader rejects — "
@@ -91,6 +96,8 @@ def load_model(args, device):
         cfg = MMDiTConfig.from_json_dict(json.load(f))
     if args.dtype != "checkpoint":
         cfg = cfg.replace(dtype=args.dtype)
+    if args.int8_pv:
+        cfg = cfg.replace(int8_pv=True)
     path = os.path.join(args.loadDir, args.torch_ckpt)
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -118,7 +125,10 @@ def save_png(arr_chw: np.ndarray, path: str):
 
 
 def main(argv=None):
-    args = build_argparser().parse_args(argv)
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if args.int8_pv and args.quant != "int8":
+        parser.error("--int8_pv needs --quant int8")
     if args.gif:
         raise NotImplementedError(
             "--gif (per-step decodes) is not ported yet: ROADMAP.md, port "

@@ -1,8 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Every source `csrc/<name>.cu` exposes a plain C interface. It compiles with
-nvcc for `sm_90a` into its own shared library, `_build/<name>-<hash>.so`,
-keyed by the content of the source and the flags, and is loaded with ctypes.
+Every source `csrc/<name>.cu` exposes a plain C interface; the headers
+`csrc/*.cuh` hold what sources share. Each source compiles with nvcc for
+`sm_90a` into its own shared library, `_build/<name>-<hash>.so`, keyed by
+the content of the source, the headers and the flags, and is loaded with
+ctypes.
 A build happens at first use of a kernel, or for all of them at once through
 `build_all()`, which starts one nvcc per source and waits for all of them.
 Importing this module builds, loads and starts nothing.
@@ -44,8 +46,11 @@ def find_nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
+    """The library of `source`, keyed by the flags, the source and every
+    header under csrc/ (which any source may include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC_DIR / source).read_bytes())
+    for path in [CSRC_DIR / source, *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -69,8 +69,8 @@ class DualStreamBlock(nn.Module):
             rope_scale=cfg.rope_scale, kv_merge_attn=cfg.kv_merge_attn,
             qk_half_dim=cfg.qk_half_dim, layer_idx=layer_idx, dual=True,
             last=last, rope2d_interpolate=cfg.rope2d_interpolate,
-            quant=cfg.quant, quant_skip=cfg.quant_skip, use_fused=fused_attn,
-            **kw)
+            quant=cfg.quant, quant_skip=cfg.quant_skip, int8_pv=cfg.int8_pv,
+            use_fused=fused_attn, **kw)
         self.norm1_x = AdaLNorm(dim, dim, **kw)
         self.norm1_c = AdaLNorm(dim, dim, **kw)
         self.norm2_x = AdaLNorm(dim, dim, **kw)

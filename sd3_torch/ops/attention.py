@@ -20,11 +20,15 @@ Two paths, chosen as the JAX package chooses (`_fused_path_ok`):
 The other attention types, causal, `kv_merge_attn`, `qk_half_dim` and the
 single stream raise NotImplementedError.
 
+Above 2048 padded joint tokens (the 1024px stage) the fused path's
+attention is the streaming kernel K7 instead of K1, as in the JAX package.
 Under quant="int8" the eight projections are w8a8 `Int8Linear`s (names in
 quant_skip stay float), and the joint attention takes the int8-QK^T kernel
 K4 where the JAX package does (`int8_qk_on`: "attn_qk" not skipped and a
-padded joint length in [1024, 2048], sd3_tpu/ops/attention.py:316-318); K1
-elsewhere.
+padded joint length in [1024, 2048], sd3_tpu/ops/attention.py:316-318), and
+with `int8_pv` the int8-P.V streaming kernel K8b (`int8_pv_on`: "attn_pv"
+not skipped and more than 2048 padded tokens, :334-336, where the JAX
+package reads the flag from SD3_INT8_PV=1).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from sd3_torch.ops.rope import _rotate_half_interleaved, rope2d_axial_angles
 _GENERAL_PATH = ("is not ported yet: ROADMAP.md, port queue, 'attention "
                  "general path'")
 INT8_QK_TOKENS = (1024, 2048)  # padded joint lengths that take K4
+INT8_PV_TOKENS = 2048          # int8 P.V only above this padded length
 SOFTMAX_TYPES = ("softmax", "softmax_flash")
 
 
@@ -66,11 +71,21 @@ def int8_qk_on(quant: str, quant_skip, n_tokens: int) -> bool:
             and INT8_QK_TOKENS[0] <= padded <= INT8_QK_TOKENS[1])
 
 
+def int8_pv_on(quant: str, quant_skip, n_tokens: int, enabled: bool) -> bool:
+    """The JAX package's int8-P.V gate (sd3_tpu/ops/attention.py:334-336),
+    with the config's `int8_pv` in place of SD3_INT8_PV=1."""
+    padded = -(-n_tokens // 128) * 128
+    return (enabled and quant == "int8" and "attn_pv" not in quant_skip
+            and padded > INT8_PV_TOKENS)
+
+
 class JointAttention(nn.Module):
-    """Dual-stream joint attention: the fused K1 / K4 path, or the general
-    path (see the module docstring). `use_fused=False` keeps the general
-    path even where the fused one applies (sd3_tpu/ops/attention.py:177-181:
-    trainers pass it, for the real two-kernel flash VJP)."""
+    """Dual-stream joint attention: the fused path (K1 / K4 / K7 / K8b), or
+    the general path (see the module docstring). `use_fused=False` keeps
+    the general path even where the fused one applies
+    (sd3_tpu/ops/attention.py:177-181: trainers pass it, for the real
+    two-kernel flash VJP). `int8_pv` opts in to int8 P.V where
+    `int8_pv_on` allows it."""
 
     def __init__(self, dim: int, num_heads: int = 8,
                  attn_type: str = "softmax_flash", causal: bool = False,
@@ -79,7 +94,8 @@ class JointAttention(nn.Module):
                  layer_idx: int | None = None, dual: bool = True,
                  last: bool = False, rope2d_interpolate: bool = False,
                  quant: str = "none", quant_skip: tuple = (),
-                 use_fused: bool = True, device=None, dtype=None):
+                 int8_pv: bool = False, use_fused: bool = True, device=None,
+                 dtype=None):
         super().__init__()
         if attn_type == "both":
             attn_type = "softmax" if (layer_idx or 0) % 2 == 0 else "cosine"
@@ -106,6 +122,7 @@ class JointAttention(nn.Module):
         self.last = last
         self.scale = hd ** -0.5  # value head dim (reference Attention.py:57)
         self.quant, self.quant_skip = quant, tuple(quant_skip)
+        self.int8_pv = int8_pv
         names = ["query_proj_x", "key_proj_x", "value_proj_x", "out_proj_x",
                  "query_proj_c", "key_proj_c", "value_proj_c"]
         if not last:
@@ -154,9 +171,11 @@ class JointAttention(nn.Module):
                                      self.q_norm_c.weight, n)
         cosk, sink = fold_row_tables(cos, sin, self.k_norm_x.weight,
                                      self.k_norm_c.weight, n)
-        out = fused_attention(q, k, v, self.num_heads, cosq, sinq, cosk, sink,
-                              self.scale, int8_qk=int8_qk_on(
-                                  self.quant, self.quant_skip, n + m))
+        out = fused_attention(
+            q, k, v, self.num_heads, cosq, sinq, cosk, sink, self.scale,
+            int8_qk=int8_qk_on(self.quant, self.quant_skip, n + m),
+            int8_pv=int8_pv_on(self.quant, self.quant_skip, n + m,
+                               self.int8_pv))
         out_x = linear(out[:, :n], self.out_proj_x)
         out_c = out[:, n:]
         if not self.last:

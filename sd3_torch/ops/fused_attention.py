@@ -1,36 +1,50 @@
 """Fused q/k-RMSNorm + RoPE joint attention (JAX counterpart:
 sd3_tpu/ops/fused_attention.py).
 
-Kernel K1, `csrc/fused_attention.cu`, replaces the TPU kernel
-`sd3_tpu/ops/fused_attention.py::_fused_fwd_kernel` (bf16 branch, <= 2048
-padded tokens). Raw q/k/v projections (B, N, H*D) go in; the kernel applies
-the per-head RMSNorm and the interleaved-pair rotation itself, with the
-per-stream norm weights folded into per-row cos/sin tables (text rows get
-cos = W, sin = 0) and the softmax scale * log2(e) folded into the q tables,
-and runs the softmax in exp2 against the bound ||q^|| * max||k^||. The
-design note (what bounds it on an H100, what the two launches do) heads the
-CUDA source.
+Raw q/k/v projections (B, N, H*D) go in; the kernels apply the per-head
+RMSNorm and the interleaved-pair rotation themselves, with the per-stream
+norm weights folded into per-row cos/sin tables (text rows get cos = W,
+sin = 0) and the softmax scale * log2(e) folded into the q tables, so the
+softmax runs in exp2. As `_pallas_fused` does, `fused_attention` picks the
+kernel by the 128-padded length: up to `single_kv_max` (2048) padded tokens
+the single-KV kernels, above it the streaming ones.
 
-Kernel K4, the same source's `sd3_fused_attention_int8qk`, replaces the
-`int8_qk` branch of that TPU kernel: QK^T as s8 x s8 -> s32 with q^
-quantized per row from fp32, k^ rounded to the input dtype and quantized
-with one scale per (batch, head), and the true row max as the softmax
-shift; P.V stays in bf16. The int8 P.V branch (TPU kernel K8) is not
-ported yet and raises.
+Single-KV, `csrc/fused_attention.cu` (K1, K4) and `csrc/stream_attention.cu`
+(K8a), replacing the branches of `_fused_fwd_kernel`:
+- K1, bf16: softmax against the bound ||q^|| * max||k^||;
+- K4, `int8_qk`: QK^T as s8 x s8 -> s32, q^ quantized per row from fp32,
+  k^ rounded to the input dtype with one scale per (batch, head), the true
+  row max;
+- K8a, `int8_pv` (over K1-style bf16 scores or over K4's): the true row
+  max, p = exp2(s - (max - log2 127)) in [0, 127] rounded to int8, V
+  quantized per (batch, head, column) over all rows, s8 x s8 -> s32 P.V,
+  o = acc / l * v_scale with l the sum of the unrounded p.
+Streaming, `csrc/stream_attention.cu`, replacing `_stream_fwd_kernel`:
+- K7, bf16: an online softmax (true running max) over 64-row K tiles;
+- K7q, `int8_qk`: k^ prepped in fp32 and quantized per row (per head), q^
+  per row, s = s32 * s_q * s_k[key];
+- K8b, `int8_pv` over K7's or K7q's scores: P quantized against the
+  running max with log2(127) folded into the shift, V as for K8a.
+The CUDA sources' heads say what bounds each kernel on an H100.
 
-Beside them: `composition` and `composition_int8_qk`, the plain PyTorch
-versions of the two functions (the JAX kernel's arithmetic), which the
-wrapper takes for tensors on the CPU, and the table helpers
-`rope_row_tables`, `_swap_pairs` and `fold_row_tables`. On a CUDA tensor
-the wrapper launches a kernel or raises: there is no fallback.
+Beside them, the plain PyTorch versions (the JAX kernels' arithmetic):
+`composition` (K1; K8a with `int8_pv`), `composition_int8_qk` (K4; K8a),
+`composition_stream` (K7; K8b) and `composition_stream_int8_qk` (K7q; K8b),
+the streaming ones over blocks of `block_k` keys (default: JAX's block
+rule, `default_block_k`), and the table helpers `rope_row_tables`,
+`_swap_pairs` and `fold_row_tables`. The wrapper takes the plain versions
+for tensors on the CPU; on a CUDA tensor it launches a kernel or raises:
+there is no fallback. The JAX package's streaming tunables (`SD3_FLASH_BK`,
+`SD3_FLASH_BQPAD`, `SD3_FUSED_UNROLL`, `SD3_FLASH_LOOKAHEAD`) shape its TPU
+blocking only and are not ported; the card's tiles are fixed in the source.
 
-K1 is differentiable: `_FusedAttention`, an autograd Function, runs K1 (or
-its plain version) forward and, as the JAX package's `_fused_core_bwd`
-does, differentiates the plain prep followed by `flash_attention` (K5, K6a,
-K6b on the card) in its backward, with gradients for q, k, v and the four
-tables (`fold_row_tables` carries those on to the norm weights). K4 is for
-inference only, as in the JAX package: it raises when an input requires
-grad.
+K1 and K7 are differentiable: `_FusedAttention`, an autograd Function, runs
+K1 or K7 (or its plain version) forward and, as the JAX package's
+`_fused_core_bwd` does at every length, differentiates the plain prep
+followed by `flash_attention` (K5, K6a, K6b on the card) in its backward,
+with gradients for q, k, v and the four tables (`fold_row_tables` carries
+those on to the norm weights). K4, K7q, K8a and K8b are for inference only,
+as in the JAX package: they raise when an input requires grad.
 """
 
 from __future__ import annotations
@@ -46,7 +60,10 @@ from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
 LOG2E = 1.4426950408889634  # the kernel's softmax runs in exp2
-SINGLE_KV_MAX = 2048        # padded tokens one K1 call takes (beyond: K7)
+LOG2_127 = 6.988684686772166  # int8 P.V: folds P's 1/127 scale into the shift
+SINGLE_KV_MAX = 2048        # padded tokens of the single-KV kernels (beyond:
+                            # the streaming ones, K7 / K7q / K8b)
+STREAM_BLOCK = 2176         # JAX's streaming K block target (rows)
 HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -56,7 +73,19 @@ K1 = Kernel("fused_attention_bf16", "fused_attention.cu",
 K4 = Kernel("fused_attention_int8qk", "fused_attention.cu",
             "sd3_fused_attention_int8qk",
             argtypes=[_P] * 11 + [_I] * 4 + [_F] * 2 + [_P])
-Q8_EPS = 1e-12  # K4's q / k scale floor (JAX fused_attention.py:122,256)
+# the stream_attention.cu entry points share one signature: q, k, v, the
+# four tables, scratch k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D,
+# int8_qk; eps_q, eps_k; the stream
+_STREAM_ARGS = [_P] * 13 + [_I] * 5 + [_F] * 2 + [_P]
+K7 = Kernel("fused_attention_stream", "stream_attention.cu",
+            "sd3_fused_attention_stream", argtypes=_STREAM_ARGS)
+K7Q = Kernel("fused_attention_stream_int8qk", "stream_attention.cu",
+             "sd3_fused_attention_stream_int8qk", argtypes=_STREAM_ARGS)
+K8A = Kernel("fused_attention_int8pv", "stream_attention.cu",
+             "sd3_fused_attention_int8pv", argtypes=_STREAM_ARGS)
+K8B = Kernel("fused_attention_stream_int8pv", "stream_attention.cu",
+             "sd3_fused_attention_stream_int8pv", argtypes=_STREAM_ARGS)
+Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
 
 def rope_row_tables(angles_img, n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
@@ -87,17 +116,67 @@ def fold_row_tables(cos: torch.Tensor, sin: torch.Tensor, w_img: torch.Tensor,
 
 
 def composition(q, k, v, cosq, sinq, cosk, sink, scale: float, eps_q: float,
-                eps_k: float, num_heads: int) -> torch.Tensor:
+                eps_k: float, num_heads: int, int8_pv: bool = False
+                ) -> torch.Tensor:
     """Plain PyTorch version of K1: per-head RMSNorm + table rotation in fp32
     (cast back to the input dtype), then softmax(q^ k^T * scale) v with fp32
-    logits. Tables here are un-scaled (no scale*log2e fold)."""
+    logits. Tables here are un-scaled (no scale*log2e fold). With int8_pv,
+    K8a's: the same scores (q tables folded, exp2 domain) and int8 P.V
+    against the true row max (`_online` over one block)."""
     b, n, f = q.shape
+    if int8_pv:
+        o = _online(_float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
+                                  eps_k, num_heads), v, num_heads, n, n, True)
+        return _unheads(o)
     qh = _prep(_heads(q, num_heads), cosq, sinq, eps_q).to(q.dtype)
     kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype)
     logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     o = torch.matmul(probs, _heads(v, num_heads))
     return o.transpose(1, 2).reshape(b, n, f)
+
+
+def default_block_k(n: int) -> int:
+    """JAX's streaming K block for n tokens: the 128-padded length cut into
+    the fewest equal chunks of at most ~2176 rows, rounded up to 128
+    (sd3_tpu/ops/fused_attention.py:563)."""
+    n128 = _round_up(n, 128)
+    return min(_round_up(-(-n128 // -(-n128 // STREAM_BLOCK)), 128), n128)
+
+
+def composition_stream(q, k, v, cosq, sinq, cosk, sink, scale: float,
+                       eps_q: float, eps_k: float, num_heads: int,
+                       block_k: int | None = None, int8_pv: bool = False
+                       ) -> torch.Tensor:
+    """Plain PyTorch version of K7 (and with int8_pv of K8b over K7's
+    scores): the JAX streaming kernel's arithmetic
+    (sd3_tpu/ops/fused_attention.py:364-427). q^ from the q tables times
+    scale*log2(e), q^ and k^ rounded to the input dtype, fp32 scores, an
+    online softmax in exp2 over blocks of `block_k` keys (default: JAX's
+    rule, `default_block_k`; K7 on the card takes 64-row tiles). Tables
+    un-scaled, as for `composition`."""
+    n = q.shape[1]
+    o = _online(_float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
+                              eps_k, num_heads), v, num_heads, n,
+                block_k or default_block_k(n), int8_pv)
+    return _unheads(o)
+
+
+def composition_stream_int8_qk(q, k, v, cosq, sinq, cosk, sink, scale: float,
+                               eps_q: float, eps_k: float, num_heads: int,
+                               block_k: int | None = None,
+                               int8_pv: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K7q (and with int8_pv of K8b over K7q's
+    scores): the JAX streaming int8_qk branch (`_prep_xla`, `_q8_rows_xla`,
+    sd3_tpu/ops/fused_attention.py:483-508, 383-396). k^ prepped in fp32
+    and quantized per row per head from fp32 (not rounded to the input
+    dtype first, unlike K4); q^ per row from fp32 with the fold;
+    s = s32 * s_q * s_k[key]; the online softmax of `composition_stream`."""
+    n = q.shape[1]
+    o = _online(_int8_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
+                             eps_k, num_heads, per_row_k=True), v, num_heads,
+                n, block_k or default_block_k(n), int8_pv)
+    return _unheads(o)
 
 
 def composition_flash(q, k, v, cosq, sinq, cosk, sink, scale: float,
@@ -112,10 +191,20 @@ def composition_flash(q, k, v, cosq, sinq, cosk, sink, scale: float,
     return o.transpose(1, 2).reshape(b, n, f)
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, N, H*D) -> (B, H, N, D)."""
     b, n, f = x.shape
     return x.reshape(b, n, num_heads, f // num_heads).transpose(1, 2)
+
+
+def _unheads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, D) -> (B, N, H*D)."""
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
 
 
 def _prep(x, cos, sin, eps) -> torch.Tensor:
@@ -132,29 +221,107 @@ def _q8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def composition_int8_qk(q, k, v, cosq, sinq, cosk, sink, scale: float,
-                        eps_q: float, eps_k: float, num_heads: int
-                        ) -> torch.Tensor:
-    """Plain PyTorch version of K4, the JAX kernel's int8_qk arithmetic
+                        eps_q: float, eps_k: float, num_heads: int,
+                        int8_pv: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K4 (and with int8_pv of K8a over K4's
+    scores), the JAX kernel's int8_qk arithmetic
     (sd3_tpu/ops/fused_attention.py:193-205, 246-281): q^ with the tables
     scaled by scale*log2(e), quantized per row from fp32; k^ rounded to the
-    input dtype, one scale per (batch, head); s = s32 * s_q * s_k; the true
-    row max; p = exp2(s - max) rounded to v's dtype for P.V, fp32 sums.
-    Tables un-scaled, as for `composition`. The s32 product runs as an fp32
-    matmul of integer values, exact (|sum| <= 127^2 * D < 2^24) where fp32
-    matmuls are not TF32."""
-    b, n, f = q.shape
+    input dtype, one scale per (batch, head); s = s32 * (s_q * s_k); the
+    true row max; p = exp2(s - max) rounded to v's dtype for P.V, fp32 sums
+    (`_online` over one block). Tables un-scaled, as for `composition`."""
+    n = q.shape[1]
+    o = _online(_int8_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
+                             eps_k, num_heads, per_row_k=False), v, num_heads,
+                n, n, int8_pv)
+    return _unheads(o)
+
+
+def _float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
+                  num_heads):
+    """scores(j0, j1): fp32 q^ k^T of keys [j0, j1) in the exp2 domain, q^
+    (tables times scale*log2e) and k^ rounded to the input dtype, as the
+    TPU kernels' bf16 branches take them."""
+    fold = float(scale) * LOG2E
+    qh = _prep(_heads(q, num_heads), cosq.float() * fold, sinq.float() * fold,
+               eps_q).to(q.dtype).float()
+    kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype).float()
+    return lambda j0, j1: torch.matmul(qh, kh[:, :, j0:j1].transpose(-1, -2))
+
+
+def _int8_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
+                 num_heads, per_row_k: bool):
+    """scores(j0, j1) of the int8_qk branches: q^ per row from fp32 (with
+    the fold); k^ per row per head from fp32 with s = s32 * s_q * s_k[key]
+    (`per_row_k`, the streaming kernel, K7q), or rounded to the input dtype
+    with one scale per (batch, head) and s = s32 * (s_q * s_k) (the
+    single-KV kernel, K4). The s32 product runs as an fp32 matmul of integer
+    values, exact (|sum| <= 127^2 * D < 2^24) where fp32 matmuls are not
+    TF32."""
     fold = float(scale) * LOG2E
     qf = _prep(_heads(q, num_heads), cosq.float() * fold, sinq.float() * fold,
                eps_q)
-    kh = _prep(_heads(k, num_heads), cosk, sink, eps_k).to(k.dtype).float()
+    kf = _prep(_heads(k, num_heads), cosk, sink, eps_k)
     s_q = scale_of(qf.abs().amax(-1, keepdim=True), Q8_EPS)
+    qi = _q8(qf, s_q)
+    if per_row_k:
+        s_k = scale_of(kf.abs().amax(-1, keepdim=True), Q8_EPS)
+        ki, s_kt = _q8(kf, s_k), s_k.transpose(-1, -2)
+        return lambda j0, j1: (torch.matmul(qi, ki[:, :, j0:j1].transpose(
+            -1, -2)) * s_q * s_kt[..., j0:j1])
+    kh = kf.to(k.dtype).float()
     s_k = scale_of(kh.abs().amax((-2, -1), keepdim=True), Q8_EPS)
-    s32 = torch.matmul(_q8(qf, s_q), _q8(kh, s_k).transpose(-1, -2))
-    s = s32 * (s_q * s_k)
-    p = torch.exp2(s - s.amax(-1, keepdim=True))
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), _heads(v, num_heads).float()) / l
-    return o.to(v.dtype).transpose(1, 2).reshape(b, n, f)
+    ki, comb = _q8(kh, s_k), s_q * s_k
+    return lambda j0, j1: torch.matmul(
+        qi, ki[:, :, j0:j1].transpose(-1, -2)) * comb
+
+
+def _v8(vh: torch.Tensor):
+    """K8's V: int8 levels per (batch, head, column) over all rows, as
+    integer-valued fp64 (for exact products), and the fp32 (B, H, 1, D)
+    scales (sd3_tpu/ops/fused_attention.py:229-245, 511-518)."""
+    vf = vh.float()
+    sc = scale_of(vf.abs().amax(-2, keepdim=True), Q8_EPS)
+    return _q8(vf, sc).double(), sc
+
+
+def _online(scores, v, num_heads: int, n: int, block_k: int,
+            int8_pv: bool) -> torch.Tensor:
+    """o (B, H, N, D) in v's dtype: the TPU kernels' softmax over blocks of
+    `block_k` keys (sd3_tpu/ops/fused_attention.py:398-427; one block is
+    the single-KV kernels' true-max softmax). scores(j0, j1) gives fp32
+    scores in the exp2 domain. Per block: the running max, p = exp2(s - m),
+    alpha = exp2(m_old - m) rescaling l and the accumulator; l sums the
+    unrounded p. P.V takes p rounded to v's dtype, or with int8_pv
+    pb = exp2(s - (m - log2 127)) in [0, 127] rounded to int8 times V's int8
+    levels, an exact integer product (fp64 here, s32 in the kernels), and
+    the result times V's column scales."""
+    vh = _heads(v, num_heads)
+    vq, vsc = _v8(vh) if int8_pv else (vh.float(), None)
+    m = l = acc = None
+    for j0 in range(0, n, block_k):
+        j1 = min(j0 + block_k, n)
+        s = scores(j0, j1)
+        bmax = s.amax(-1, keepdim=True)
+        m_new = bmax if m is None else torch.maximum(m, bmax)
+        if int8_pv:
+            pb = torch.exp2(s - (m_new - LOG2_127))
+            pq = torch.clamp(torch.round(pb), 0, 127).double()
+            pv = torch.matmul(pq, vq[:, :, j0:j1]).float()
+        else:
+            pb = torch.exp2(s - m_new)
+            pv = torch.matmul(pb.to(v.dtype).float(), vq[:, :, j0:j1])
+        psum = pb.sum(-1, keepdim=True)
+        if m is None:
+            l, acc = psum, pv
+        else:
+            alpha = torch.exp2(m - m_new)
+            l, acc = l * alpha + psum, acc * alpha + pv
+        m = m_new
+    o = acc / l
+    if int8_pv:
+        o = o * vsc
+    return o.to(v.dtype)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -164,8 +331,10 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
-            num_heads):
-    """Launch K1 or K4 (`kern`); tables already carry scale*log2(e)."""
+            num_heads, int8_qk=False):
+    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; for K8a / K8b `int8_qk`
+    picks the scores under the int8 P.V); tables already carry
+    scale*log2(e). Allocates the outputs and the kernels' scratch."""
     b, n, f = q.shape
     d = f // num_heads
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -186,40 +355,64 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
         if t.shape != (n, d):
             raise ValueError(f"tables must be ({n}, {d}), got {tuple(t.shape)}")
     out = torch.empty_like(q)
-    k_prep = torch.empty_like(k)
-    k_max = torch.zeros(b * num_heads, dtype=torch.float32, device=q.device)
-    scratch = [k_prep.data_ptr()]
-    if kern is K4:
-        k_q = torch.empty(k.shape, dtype=torch.int8, device=k.device)
-        scratch.append(k_q.data_ptr())
-    with torch.cuda.device(q.device):
+    bh, dev = b * num_heads, q.device
+    if kern in (K1, K4):
+        k_prep = torch.empty_like(k)
+        k_max = torch.zeros(bh, dtype=torch.float32, device=dev)
+        scratch = [k_prep]
+        if kern is K4:
+            scratch.append(torch.empty(k.shape, dtype=torch.int8, device=dev))
+        args = [*scratch, k_max, out]
+    else:
+        # k^ in bf16 (K7, and under K8a / K8b's bf16 scores; K4's prep
+        # writes it before quantizing), int8 k^ (int8_qk), k_stat: per
+        # (b, h) statistics of the bf16 prep or K4's amax, or K7q's per-row
+        # scales; V's column amax and its int8 levels (int8 P.V)
+        int8_qk = kern is K7Q or (int8_qk and kern in (K8A, K8B))
+        per_row = int8_qk and kern is not K8A
+        pv8 = kern in (K8A, K8B)
+        none = torch.empty(0, device=dev)
+        k_prep = (torch.empty_like(k) if not per_row else none)
+        k_q = (torch.empty(k.shape, dtype=torch.int8, device=dev)
+               if int8_qk else none)
+        k_stat = torch.zeros(bh * n if per_row else bh, dtype=torch.float32,
+                             device=dev)
+        v_amax = torch.zeros(bh * d if pv8 else 0, dtype=torch.float32,
+                             device=dev)
+        # V^T, keys padded to 64-row tiles (csrc/stream_attention.cu)
+        v_q = torch.empty(bh * d * _round_up(n, 64) if pv8 else 0,
+                          dtype=torch.int8, device=dev)
+        args = [k_prep, k_q, k_stat, v_amax, v_q, out]
+    ints = [b, n, num_heads, d] + ([] if kern in (K1, K4) else [int(int8_qk)])
+    with torch.cuda.device(dev):
         fn = kern.function()
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), cq.data_ptr(),
-                 sq.data_ptr(), ck.data_ptr(), sk.data_ptr(), *scratch,
-                 k_max.data_ptr(), out.data_ptr(), b, n, num_heads, d, eps_q,
-                 eps_k, stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(t.data_ptr() for t in (q, k, v, cq, sq, ck, sk, *args)),
+                 *ints, eps_q, eps_k, stream)
     check(kern, err)
     kern.launches += 1
     return out
 
 
 class _FusedAttention(torch.autograd.Function):
-    """K1 forward (its plain version on the CPU); the backward recomputes
-    through `composition_flash` on the saved inputs."""
+    """K1 or, above the single-KV length, K7 forward (their plain versions
+    on the CPU); the backward recomputes through `composition_flash` on the
+    saved inputs, at every length (sd3_tpu/ops/fused_attention.py:716-729)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
-                num_heads):
+                num_heads, streaming):
         ctx.save_for_backward(q, k, v, cosq, sinq, cosk, sink)
         ctx.consts = (scale, eps_q, eps_k, num_heads)
+        args = (q, k, v, cosq, sinq, cosk, sink, scale, eps_q, eps_k,
+                num_heads)
         if q.device.type == "cpu":
-            return composition(q, k, v, cosq, sinq, cosk, sink, scale, eps_q,
-                               eps_k, num_heads)
+            return (composition_stream if streaming else composition)(*args)
+        kern = K7 if streaming else K1
         if q.device.type != "cuda":
-            raise ValueError(f"no {K1.name} path for device {q.device}")
+            raise ValueError(f"no {kern.name} path for device {q.device}")
         fold = float(scale) * LOG2E
-        return _launch(K1, q, k, v, cosq * fold, sinq * fold, cosk, sink,
+        return _launch(kern, q, k, v, cosq * fold, sinq * fold, cosk, sink,
                        eps_q, eps_k, num_heads)
 
     @staticmethod
@@ -232,47 +425,59 @@ class _FusedAttention(torch.autograd.Function):
             grads = iter(torch.autograd.grad(
                 out, [t for t in ins if t.requires_grad], g))
         return (*(next(grads) if r else None for r in need),
-                None, None, None, None)
+                None, None, None, None, None)
+
+
+# (int8_qk, int8_pv, streaming) -> the inference kernel and the name of its
+# plain version in this module
+_INFERENCE = {
+    (True, False, False): (K4, "composition_int8_qk"),
+    (False, True, False): (K8A, "composition"),
+    (True, True, False): (K8A, "composition_int8_qk"),
+    (True, False, True): (K7Q, "composition_stream_int8_qk"),
+    (False, True, True): (K8B, "composition_stream"),
+    (True, True, True): (K8B, "composition_stream_int8_qk"),
+}
 
 
 def fused_attention(q, k, v, num_heads: int, cosq, sinq, cosk, sink,
                     scale: float, int8_qk: bool = False,
-                    int8_pv: bool = False) -> torch.Tensor:
+                    int8_pv: bool = False,
+                    single_kv_max: int = SINGLE_KV_MAX) -> torch.Tensor:
     """Joint attention from folded row tables (see `fold_row_tables`).
 
     q, k, v: (B, N, H*D) raw projections; tables (N, D) with the norm
-    weights folded in but not the softmax scale. CPU tensors take the plain
-    versions; CUDA tensors launch K1 (bf16 QK^T) or K4 (int8_qk), or
-    raise. Differentiable through K1 only: K4 raises when an input requires
-    grad."""
-    if int8_pv:
-        raise NotImplementedError(
-            "int8 P.V attention (TPU kernel K8) is not ported yet: "
-            "ROADMAP.md, kernel queue")
-    b, n, f = q.shape
-    if -(-n // 128) * 128 > SINGLE_KV_MAX:
-        raise NotImplementedError(
-            f"{n} tokens need the streaming kernel (TPU kernel K7, "
-            "_stream_fwd_kernel), not ported yet: ROADMAP.md, kernel queue")
+    weights folded in but not the softmax scale. Up to `single_kv_max`
+    128-padded tokens the single-KV kernels (K1; K4 with int8_qk; K8a with
+    int8_pv), above it the streaming ones (K7; K7q; K8b), as
+    `_pallas_fused` chooses. CPU tensors take the plain versions; CUDA
+    tensors launch a kernel or raise. Differentiable through K1 and K7:
+    the int8 kernels raise when an input requires grad."""
+    n = q.shape[1]
+    streaming = _round_up(n, 128) > single_kv_max
     eps_q = float(torch.finfo(q.dtype).eps)
     eps_k = float(torch.finfo(k.dtype).eps)
-    if not int8_qk:
+    if not (int8_qk or int8_pv):
         return _FusedAttention.apply(q, k, v, cosq, sinq, cosk, sink,
-                                     float(scale), eps_q, eps_k, num_heads)
+                                     float(scale), eps_q, eps_k, num_heads,
+                                     streaming)
+    kern, plain = _INFERENCE[(bool(int8_qk), bool(int8_pv), streaming)]
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, cosq, sinq, cosk, sink)):
         raise NotImplementedError(
-            "int8 QK^T attention (K4) is inference-only: its gradient would "
-            "be the float composition's (sd3_tpu/ops/fused_attention.py:"
-            "716-723); train with quant='none'")
+            f"fused attention int8_qk / int8_pv ({kern.name}) is "
+            "inference-only: its gradient would be the float composition's "
+            "(sd3_tpu/ops/fused_attention.py:716-723); train with "
+            "quant='none'")
     if q.device.type == "cpu":
-        return composition_int8_qk(q, k, v, cosq, sinq, cosk, sink, scale,
-                                   eps_q, eps_k, num_heads)
+        kw = dict(int8_pv=True) if int8_pv else {}
+        return globals()[plain](q, k, v, cosq, sinq, cosk, sink, scale, eps_q,
+                                eps_k, num_heads, **kw)
     if q.device.type != "cuda":
-        raise ValueError(f"no {K4.name} path for device {q.device}")
+        raise ValueError(f"no {kern.name} path for device {q.device}")
     fold = float(scale) * LOG2E
-    return _launch(K4, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
-                   eps_k, num_heads)
+    return _launch(kern, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps_q,
+                   eps_k, num_heads, int8_qk)
 
 
 def fused_dual_flash_attention(q, k, v, num_heads: int, w_q_img, w_q_txt,

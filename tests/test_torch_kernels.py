@@ -1,4 +1,4 @@
-"""Kernels K1-K6b and the port's dispatch rules, with no JAX import, so the
+"""Kernels K1-K8b and the port's dispatch rules, with no JAX import, so the
 file also runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -8,7 +8,8 @@ file also runs on the card's machine:
 K1 against its plain version: tolerance atol 1e-2, chip_smoke.py's
 ATTN_ATOL (bf16 q^, k^, p and output against fp32); K4, K2 and K3:
 chip_smoke.py's K4_ATOL and MLP limits (reasons there); K5, K6a and K6b:
-chip_smoke.py's FLASH_* limits (reasons there).
+chip_smoke.py's FLASH_* limits (reasons there); K7, K7q, K8a and K8b:
+chip_smoke.py's ATTN_ATOL and K8_ATOL (reasons there).
 """
 
 import numpy as np
@@ -82,18 +83,18 @@ def test_row_tables_fold_norm_weights():
 
 
 def test_fused_attention_rejects_unported_variants():
-    q = torch.zeros(1, 8, 32)
-    tab = torch.zeros(8, 16)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tfa.fused_attention(q, q, q, 2, tab, tab, tab, tab, 0.25, int8_pv=True)
-    big = torch.zeros(1, 2049, 32)
-    btab = torch.zeros(2049, 16)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tfa.fused_attention(big, big, big, 2, btab, btab, btab, btab, 0.25)
-    with pytest.raises(ValueError, match="device"):
-        m = q.to("meta")
-        tfa.fused_attention(m, m, m, 2, tab.to("meta"), tab.to("meta"),
-                            tab.to("meta"), tab.to("meta"), 0.25)
+    # every variant (K1, K4, K8a single-KV; K7, K7q, K8b streaming) runs on
+    # the CPU through its plain version and on CUDA through its kernel; a
+    # device with neither has no path and raises
+    m = torch.zeros(1, 8, 32, device="meta")
+    tab = torch.zeros(8, 16, device="meta")
+    for int8_qk in (False, True):
+        for int8_pv in (False, True):
+            for single_kv_max in (2048, 0):  # 0: the streaming kernels
+                with pytest.raises(ValueError, match="device"):
+                    tfa.fused_attention(m, m, m, 2, tab, tab, tab, tab, 0.25,
+                                        int8_qk=int8_qk, int8_pv=int8_pv,
+                                        single_kv_max=single_kv_max)
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -118,7 +119,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 
 def test_every_kernel_symbol_is_in_its_source():
     # no nvcc here: at least the C entry point each wrapper binds exists
-    for k in (tfa.K1, tfa.K4, tfm.K2, tfm.K3, tfl.K5, tfl.K6A, tfl.K6B):
+    for k in (tfa.K1, tfa.K4, tfa.K7, tfa.K7Q, tfa.K8A, tfa.K8B, tfm.K2,
+              tfm.K3, tfl.K5, tfl.K6A, tfl.K6B):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -175,6 +177,54 @@ def test_k4_kernel_matches_plain_on_the_card(cuda_device, nh, d, h, w, n_txt,
     # its bf16 rounding moves
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=3e-2, rtol=0)
+
+
+# the streaming (K7, K7q, K8b) and int8-P.V (K8a, K8b) kernels: (int8_qk,
+# int8_pv, streaming); streaming is forced at every length by
+# single_kv_max=0
+STREAM_VARIANTS = [(False, False, True), (True, False, True),
+                   (False, True, True), (True, True, True),
+                   (False, True, False), (True, True, False)]
+STREAM_SHAPES = ATTN_SHAPES[:4] + [ATTN_SHAPES[5]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", STREAM_VARIANTS)
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", STREAM_SHAPES)
+def test_stream_and_int8_pv_kernels_match_plain_on_the_card(
+        cuda_device, nh, d, h, w, n_txt, rope2d, int8_qk, int8_pv, streaming):
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d)
+    n = q.shape[1]
+    dev = cuda_device
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    cos, sin = (torch.as_tensor(t)
+                for t in tfa.rope_row_tables(angles, n, d))
+    cq, sq = tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img)
+    ck, sk = tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img)
+    kern = tfa._INFERENCE.get((int8_qk, int8_pv, streaming), (tfa.K7,))[0]
+    counts = lambda: {kk.name: kk.launches for kk in kernels.REGISTRY}
+    before = counts()
+    got = tfa.fused_attention(qb, kb, vb, nh, *(t.to(dev) for t in (
+        cq, sq, ck, sk)), scale, int8_qk=int8_qk, int8_pv=int8_pv,
+        single_kv_max=0 if streaming else 2048)
+    torch.cuda.synchronize()
+    after = counts()
+    assert {nm: after[nm] - before[nm] for nm in after
+            if after[nm] != before[nm]} == {kern.name: 1}
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    ins = [t.float().cpu() for t in (qb, kb, vb)] + [cq, sq, ck, sk, scale,
+                                                    eps, eps, nh]
+    if streaming:  # the kernel's 64-key tiles
+        plain = (tfa.composition_stream_int8_qk if int8_qk
+                 else tfa.composition_stream)
+        want = plain(*ins, block_k=64, int8_pv=int8_pv)
+    else:
+        plain = tfa.composition_int8_qk if int8_qk else tfa.composition
+        want = plain(*ins, int8_pv=int8_pv)
+    # chip_smoke.py's limits: ATTN_ATOL for bf16 P.V, K8_ATOL for int8 P.V
+    atol = 3e-2 if int8_pv else 1e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=atol, rtol=0)
 
 
 # (rows, tokens per sample, k, hidden, d_out, h_group, K2?)

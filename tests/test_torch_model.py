@@ -170,16 +170,17 @@ INT8_CFG = dict(attn_type="softmax_flash", dim=64, hidden_scale=2.0,
                 num_heads=2, num_blocks=2)
 
 
-def _int8_pair(hw, seed, **kw):
+def _int8_pair(hw, seed, int8_pv=False, **kw):
     """(JAX int8 model, its quantized params, JAX float model, float params,
-    the port's int8 model with the same int8 weights)."""
+    the port's int8 model with the same int8 weights; with int8_pv the
+    port's config opts in to int8 P.V)."""
     jcfg = j_tiny_config(**{**INT8_CFG, **kw})
     jm, params = init_mmdit(jcfg, jax.random.PRNGKey(seed), height=hw,
                             width=hw, remat_blocks=False)
     qparams = quantize_params(params, quant_skip=jcfg.quant_skip)
     jq = JMMDiT(jcfg.replace(quant="int8"), remat_blocks=False)
     cfg = MMDiTConfig.from_json(jcfg.to_json(), quant="int8",
-                                quant_skip=jcfg.quant_skip)
+                                quant_skip=jcfg.quant_skip, int8_pv=int8_pv)
     model = MMDiT(cfg, device="cpu").eval()
     model.load_state_dict(state_dict_from_jax(qparams), strict=True)
     return jq, qparams, jm, params, model
@@ -201,7 +202,8 @@ def _count_routes(monkeypatch):
     return counts
 
 
-def _int8_run_and_check(monkeypatch, hw, seed, **kw):
+def _int8_run_and_check(monkeypatch, hw, seed, int8_pv=False,
+                        count=None, **kw):
     """One forward of the JAX int8 model and the port's on the same inputs;
     returns the port's route counts. Tolerance: w8a8 quantization is
     discontinuous. The two frameworks sum RMSNorm, LayerNorm and the
@@ -211,14 +213,14 @@ def _int8_run_and_check(monkeypatch, hw, seed, **kw):
     next layer, where it moves more. So the port is held by rel L2 <= 1e-2,
     and to at most half of what separates JAX's own float model from its
     int8 one: a port that skipped or misplaced a quantization fails."""
-    jq, qparams, jm, params, model = _int8_pair(hw, seed, **kw)
+    jq, qparams, jm, params, model = _int8_pair(hw, seed, int8_pv, **kw)
     assert (isinstance(model.blocks[0].MLP_x.MLP.w3, torch.nn.Linear)
             == ("w3" in jq.cfg.quant_skip))
     x, t, c, cp = _inputs(jq.cfg, h=hw, w=hw, seed=seed + 1)
     args = [jnp.asarray(a) for a in (x, t, c, cp)]
     want = np.asarray(jq.apply({"params": qparams}, *args))
     flt = np.asarray(jm.apply({"params": params}, *args))
-    counts = _count_routes(monkeypatch)
+    counts = (count or _count_routes)(monkeypatch)
     with torch.no_grad():
         got = model(*map(_t, (x, t, c, cp))).numpy()
     rel = np.linalg.norm(got - want) / np.linalg.norm(want)
@@ -317,3 +319,76 @@ def test_joint_attention_forward_and_gradients_match_jax(attn_type, use_fused,
                                    atol=ATOL, rtol=RTOL, err_msg=name)
     np.testing.assert_allclose(tx.grad.numpy(), grads[1], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(tc.grad.numpy(), grads[2], atol=ATOL, rtol=RTOL)
+
+
+# ---- past 2048 joint tokens: the streaming attention (K7, K8b) -------------
+# 96x96 latents at patch 2: 2304 image + 14 text = 2318 joint tokens, padded
+# to 2432 > 2048, so the fused attention takes the streaming kernels'
+# (plain) routes in both packages, at JAX's default blocking; 2304 image
+# rows per sample tile sample-aligned, so the int8 image-stream MLP is K2's
+BIG_HW = 96
+
+
+def test_int8_pv_gate_follows_the_padded_length():
+    from sd3_torch.ops.attention import int8_pv_on
+    assert not int8_pv_on("int8", (), 2048, True)       # single-KV: never
+    assert int8_pv_on("int8", (), 2049, True)           # pads to 2176 (K8b)
+    assert int8_pv_on("int8", (), 4250, True)           # the 1024px stage
+    assert not int8_pv_on("int8", (), 1178, True)       # 512px
+    assert not int8_pv_on("int8", (), 4250, False)      # opt-in only
+    assert not int8_pv_on("none", (), 4250, True)
+    assert not int8_pv_on("int8", ("attn_pv",), 4250, True)
+    assert int8_pv_on("int8", ("attn_qk", "w12"), 4250, True)
+
+
+def _count_stream_routes(monkeypatch):
+    """Count the attention and MLP plain versions the CPU forward takes, by
+    kernel: the int8_pv keyword tells K8a / K8b from the float routes."""
+    counts = dict.fromkeys(("K1", "K2", "K3", "K4", "K7", "K7q", "K8a",
+                            "K8b"), 0)
+    for mod, name, keys in (
+            (tfa, "composition", ("K1", "K8a")),
+            (tfa, "composition_int8_qk", ("K4", "K8a")),
+            (tfa, "composition_stream", ("K7", "K8b")),
+            (tfa, "composition_stream_int8_qk", ("K7q", "K8b")),
+            (tfm, "swiglu_int8_tail", ("K2", "K2")),
+            (tfm, "swiglu_int8", ("K3", "K3"))):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _keys=keys, **k):
+            counts[_keys[bool(k.get("int8_pv"))]] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    return counts
+
+
+def test_mmdit_past_2048_tokens_matches_jax(monkeypatch):
+    # the float model: K7's route in both blocks, within the fp32 model
+    # tolerance of the JAX model (fused streaming kernel, interpret mode)
+    jcfg = j_tiny_config(**INT8_CFG)
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(41), height=BIG_HW,
+                            width=BIG_HW, remat_blocks=False)
+    x, t, c, cp = _inputs(jcfg, h=BIG_HW, w=BIG_HW, seed=42)
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)))
+    model = _port_model(jcfg, params)
+    counts = _count_stream_routes(monkeypatch)
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)))
+    assert counts == dict(K1=0, K2=0, K3=0, K4=0, K7=2, K7q=0, K8a=0, K8b=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("int8_pv", [False, True])
+def test_int8_mmdit_past_2048_tokens_matches_jax(monkeypatch, int8_pv):
+    # int8 serving at the streaming length: int8 QK^T is gated off above
+    # 2048 tokens (K7's route), the MLPs take K2 / K3; with int8_pv the
+    # attention takes K8b's route. The JAX side reads SD3_INT8_PV=1 where
+    # the port reads its config's int8_pv. Tolerance as for the int8 models
+    # above (_int8_run_and_check): rel L2 <= 1e-2 and at most half of the
+    # JAX float-to-int8 difference.
+    if int8_pv:
+        monkeypatch.setenv("SD3_INT8_PV", "1")
+    counts = _int8_run_and_check(monkeypatch, hw=BIG_HW, seed=43,
+                                 int8_pv=int8_pv, count=_count_stream_routes)
+    attn = dict(K7=0, K8b=2) if int8_pv else dict(K7=2, K8b=0)
+    assert counts == dict(K1=0, K2=2, K3=1, K4=0, K7q=0, K8a=0, **attn)

@@ -219,3 +219,49 @@ def test_infer_cli_refuses_what_it_cannot_do(tmp_path, monkeypatch, extra,
               "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="msgpack"):
         tinfer.main(native)
+
+
+def test_sampler_past_2048_tokens_matches_jax():
+    # two Euler / CFG steps at a 1024px-stage length (96x96 latents at
+    # patch 2: 2304 image + 14 text = 2318 joint tokens, past the single-KV
+    # 2048), so both packages take the streaming attention (JAX's fused
+    # streaming kernel in interpret mode; K7's plain version here); the
+    # sampler tolerance of this file
+    jcfg = j_tiny_config(attn_type="softmax_flash")
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(17), height=96,
+                            width=96, remat_blocks=False)
+    model = MMDiT(MMDiTConfig.from_json(jcfg.to_json()), device="cpu").eval()
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    r = np.random.default_rng(18)
+    x = r.standard_normal((1, jcfg.inCh, 96, 96)).astype(np.float32)
+    th = r.standard_normal((1, jcfg.text_tokens, jcfg.text_hidden_dim)
+                           ).astype(np.float32)
+    tp = r.standard_normal((1, jcfg.class_dim)).astype(np.float32)
+    want = make_sample_fn(jm, 2, "euler")(
+        params, jnp.asarray(x), jnp.asarray(th), jnp.asarray(tp),
+        jax.random.PRNGKey(0), jnp.float32(3.0))
+    vel = make_velocity_fn(model, torch.from_numpy(th), torch.from_numpy(tp))
+    got = sample_latents(vel, torch.from_numpy(x), 2, 3.0, "euler")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_infer_cli_int8_pv_past_2048_tokens(tmp_path):
+    # --int8_pv rides --quant int8 only; at 768px (96x96 latents, 2318 joint
+    # tokens) it switches the streaming attention to int8 P.V: close to, and
+    # not the same as, the int8 run without it
+    args = _write_reference_checkpoint(tmp_path) + [
+        "--device", "cpu", "--width", "768", "--height", "768",
+        "--batch_size", "1", "--quant", "int8"]
+    with pytest.raises(SystemExit):
+        tinfer.main(_write_reference_checkpoint(tmp_path) + [
+            "--device", "cpu", "--int8_pv"])
+    tinfer.main(args + ["--out_imgname", str(tmp_path / "a"),
+                        "--save_latents", str(tmp_path / "a.npy")])
+    tinfer.main(args + ["--int8_pv", "--out_imgname", str(tmp_path / "p"),
+                        "--save_latents", str(tmp_path / "p.npy")])
+    q8, pv = np.load(tmp_path / "a.npy"), np.load(tmp_path / "p.npy")
+    assert pv.shape == (1, 4, 96, 96) and np.isfinite(pv).all()
+    assert (tmp_path / "p_0.png").is_file()
+    assert not np.array_equal(q8, pv)
+    assert np.linalg.norm(pv - q8) / np.linalg.norm(q8) < 0.05

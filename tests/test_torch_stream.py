@@ -1,0 +1,210 @@
+"""The streaming fused attention (K7, K7q) and the int8-P.V attention (K8a,
+K8b) held to the JAX package's Pallas kernels, on the CPU.
+
+The JAX side runs as its own tests run it (Pallas interpret mode); the port
+takes the kernels' plain versions on CPU tensors. Inputs come from numpy
+seeds, everything is fp32. Tolerances:
+- float scores (K7): the JAX package's fp32 attention tolerance, atol
+  2e-5 / rtol 2e-4 (only summation order differs);
+- int8 QK^T (K7q, and K8a over K4's scores): atol 1e-3. A last-bit
+  difference of the fp32 prep moves the odd element of q^ or k^ by one
+  int8 level, which moves one score by s_q * s_k * |other int| <= ~2e-2 in
+  the exp2 domain at head dim 16 (K7q's per-row k scales are as large as
+  K4's per-head one), and its row's outputs by that times ln 2 * p_key *
+  |v - o|: measured up to 3.2e-4 (K4's single-KV case: within 2e-4,
+  test_torch_ops.py::test_int8_qk_plain_matches_jax_kernel);
+- int8 P.V (K8a, K8b): atol 3e-3. p's int8 level is round(pb) with pb =
+  127 * 2^(s - m) in [0, 127]; a last-bit difference in a score moves the
+  odd pb across a half-integer, one level on one key, which moves each
+  output of its row by |v_int * v_scale| / l, l the row's sum of pb
+  (>= 127, here over >= 186 keys: >~ 1e3). Measured: up to 1.2e-3, one or
+  two such flips on a row. Each int8 result also differs from the float
+  one by more than its atol (7.7e-3 or more here).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sd3_tpu.ops import rope as jrope
+from sd3_tpu.ops.fused_attention import _fused_core, _pallas_fused
+from sd3_tpu.ops.fused_attention import (
+    fused_dual_flash_attention as j_fused_attention)
+
+from sd3_torch import kernels
+from sd3_torch.ops import fused_attention as tfa
+
+ATOL, RTOL = 2e-5, 2e-4
+INT8_QK_ATOL = 1e-3
+INT8_PV_ATOL = 3e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def _case(nh, d, h, w, n_txt, rope2d, seed=0, b=2):
+    """Seeded raw q, k, v (b, N, nh*d), the four norm weights, the image
+    RoPE angles (None: NoPE), n_img and the scale."""
+    n_img = h * w
+    r = np.random.default_rng(seed)
+    q, k, v = (r.standard_normal((b, n_img + n_txt, nh * d)).astype(np.float32)
+               for _ in range(3))
+    ws = [(1 + 0.1 * r.standard_normal(d)).astype(np.float32)
+          for _ in range(4)]
+    angles = (jrope.rope2d_axial_angles(h, w, d).reshape(n_img, d)
+              if rope2d else None)
+    return q, k, v, ws, angles, n_img, d ** -0.5
+
+
+def _tables(ws, angles, n, d, n_img):
+    """The port's folded (N, D) tables: cosq, sinq, cosk, sink."""
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    return (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img))
+
+
+def _both(case, nh, int8_qk=False, int8_pv=False, streaming=True,
+          block_k=128, monkeypatch=None):
+    """(port plain version, JAX `_pallas_fused`) on one case; streaming at
+    JAX's single_kv_max=128 and SD3_FLASH_BK=block_k (JAX side only), so
+    both take blocks of block_k keys."""
+    q, k, v, ws, angles, n_img, scale = case
+    n, d = q.shape[1], q.shape[2] // nh
+    tabs = _tables(ws, angles, n, d, n_img)
+    eps = float(np.finfo(np.float32).eps)
+    if streaming:
+        monkeypatch.setenv("SD3_FLASH_BK", str(block_k))
+    want = np.asarray(_pallas_fused(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        *(jnp.asarray(t.numpy()) for t in tabs), scale, eps, eps, nh,
+        block_q_cap=128, single_kv_max=128 if streaming else 2048,
+        int8_qk=int8_qk, int8_pv=int8_pv))
+    args = (_t(q), _t(k), _t(v), *tabs, scale, eps, eps, nh)
+    if streaming:
+        plain = (tfa.composition_stream_int8_qk if int8_qk
+                 else tfa.composition_stream)
+        got = plain(*args, block_k=block_k, int8_pv=int8_pv)
+        flt = tfa.composition_stream(*args, block_k=block_k)
+    else:
+        plain = tfa.composition_int8_qk if int8_qk else tfa.composition
+        got = plain(*args, int8_pv=int8_pv)
+        flt = tfa.composition(*args)
+    return got.numpy(), want, flt.numpy()
+
+
+# odd heads at head dim 16 (3 blocks of 128 keys), the published head dim
+# (2 blocks, the last ragged), NoPE (3 blocks)
+STREAM_SHAPES = [
+    (3, 16, 10, 16, 40, True),
+    (2, 64, 12, 13, 30, True),
+    (2, 16, 11, 20, 50, False),
+]
+
+
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", STREAM_SHAPES)
+def test_stream_plain_matches_jax_kernel(monkeypatch, nh, d, h, w, n_txt,
+                                         rope2d):
+    # K7's plain version: the online softmax over blocks of 128 keys
+    case = _case(nh, d, h, w, n_txt, rope2d, seed=d + h)
+    got, want, _ = _both(case, nh, monkeypatch=monkeypatch)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_default_block_follows_jax():
+    # sd3_tpu/ops/fused_attention.py:563: the fewest equal <= ~2176-row
+    # chunks of the 128-padded length
+    assert tfa.default_block_k(4250) == 2176    # 4352 = 2 x 2176
+    assert tfa.default_block_k(2065) == 2176    # one block
+    assert tfa.default_block_k(5000) == 1792    # 5120 = 3 x 1707 -> 1792
+    assert tfa.default_block_k(200) == 256
+
+
+# (int8_qk, int8_pv, streaming): K7q, K8b over K7, K8b over K7q, K8a over
+# bf16 scores, K8a over K4's
+INT8_VARIANTS = [(True, False, True), (False, True, True), (True, True, True),
+                 (False, True, False), (True, True, False)]
+
+
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", INT8_VARIANTS)
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", STREAM_SHAPES[:2])
+def test_int8_branches_plain_match_jax_kernel(monkeypatch, nh, d, h, w, n_txt,
+                                              rope2d, int8_qk, int8_pv,
+                                              streaming):
+    case = _case(nh, d, h, w, n_txt, rope2d, seed=3 * d + w)
+    got, want, flt = _both(case, nh, int8_qk, int8_pv, streaming,
+                           monkeypatch=monkeypatch)
+    atol = INT8_PV_ATOL if int8_pv else INT8_QK_ATOL
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+    # the int8 products are not the float ones
+    assert np.abs(flt - got).max() > atol
+
+
+def _launches():
+    return {k.name: k.launches for k in kernels.REGISTRY}
+
+
+@pytest.mark.parametrize("int8_qk,int8_pv", [(False, False), (True, False),
+                                             (False, True)])
+def test_public_attention_past_2048_tokens_matches_jax(int8_qk, int8_pv):
+    # a true 1024px-stage length at a narrow width: a 45x45 image grid and
+    # 40 text tokens, 2065 tokens padded to 2176 > 2048, so both packages
+    # take the streaming path with their default (one-block) blocking; on
+    # CPU tensors no kernel launches
+    q, k, v, ws, angles, n_img, scale = _case(1, 16, 45, 45, 40, True,
+                                              seed=11, b=1)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             1, *map(jnp.asarray, ws), angles, n_img, scale,
+                             int8_qk=int8_qk, int8_pv=int8_pv)
+    before = _launches()
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), 1,
+                                         *map(_t, ws), angles, n_img, scale,
+                                         int8_qk=int8_qk, int8_pv=int8_pv)
+    assert _launches() == before
+    atol = (INT8_PV_ATOL if int8_pv else INT8_QK_ATOL if int8_qk else ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol,
+                               rtol=0 if (int8_qk or int8_pv) else RTOL)
+
+
+def test_stream_gradients_match_jax_vjp():
+    # K7's autograd Function past 2048 tokens (its plain version here, the
+    # backward through the plain prep and flash attention) against the JAX
+    # fused core's custom VJP, which recomputes through the same composition
+    # at every length: q, k, v and the four tables
+    q, k, v, ws, angles, n_img, scale = _case(1, 16, 45, 45, 40, True,
+                                              seed=12, b=1)
+    n, d = q.shape[1], 16
+    tabs = [t.detach() for t in _tables(ws, angles, n, d, n_img)]
+    g = np.random.default_rng(13).standard_normal(q.shape).astype(np.float32)
+    eps = float(np.finfo(np.float32).eps)
+    fn = lambda *a: _fused_core(*a, scale, eps, eps, 1)
+    want_out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)),
+                            *(jnp.asarray(t.numpy()) for t in tabs))
+    want = vjp(jnp.asarray(g))
+    ins = [_t(a).requires_grad_() for a in (q, k, v)] + [
+        t.clone().requires_grad_() for t in tabs]
+    out = tfa.fused_attention(ins[0], ins[1], ins[2], 1, *ins[3:], scale)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
+                               atol=ATOL, rtol=RTOL)
+    got = torch.autograd.grad(out, ins, _t(g))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=1e-3)
+
+
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", INT8_VARIANTS)
+def test_int8_kernels_refuse_gradients(int8_qk, int8_pv, streaming):
+    # K7q, K8a and K8b are serving kernels, as in JAX: an input that
+    # requires grad raises; under no_grad they run
+    q, k, v, ws, angles, n_img, scale = _case(2, 16, 3, 4, 5, True, seed=14)
+    tabs = _tables(ws, angles, q.shape[1], 16, n_img)
+    qt = _t(q).requires_grad_()
+    kw = dict(int8_qk=int8_qk, int8_pv=int8_pv,
+              single_kv_max=0 if streaming else 2048)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfa.fused_attention(qt, _t(k), _t(v), 2, *tabs, scale, **kw)
+    with torch.no_grad():
+        out = tfa.fused_attention(qt, _t(k), _t(v), 2, *tabs, scale, **kw)
+    assert out.shape == qt.shape and torch.isfinite(out).all()
