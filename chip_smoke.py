@@ -17,19 +17,26 @@ Phases (any failure exits non-zero without the final ok line):
      ragged shape just past 2048 tokens; the public attention entry point
      once per kernel (K7q and K8a are reached only there); K3 (int8
      SwiGLU) at the text stream and a ragged shape; K2 (int8 SwiGLU block
-     tail) at the image stream and a shape whose tiles straddle samples; K5,
-     K6a and K6b (flash attention forward, dq, dk / dv) at the 512px
-     training shape and a ragged one. Kernel (CUDA graph), eager,
-     plain-version and, for attention, library (scaled_dot_product_attention
-     on bf16, forward or backward, a yardstick only) times, and the bound.
-     Then K1's backward (K5, K6a, K6b under its autograd Function) against
-     the fp32 composition's autograd;
+     tail) at the image stream and a shape whose tiles straddle samples; K9
+     (K2's function on any stream) at the image and the 154-token text
+     stream; K10a (AdaLN + int8 q/k/v) and K10b (int8 out-projection + gate
+     + residual, reading the image half of the joint sequence in place, also
+     without gate and residual) at the 512px image stream and a ragged
+     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv) at the
+     512px training shape and a ragged one. Kernel (CUDA graph), eager,
+     plain-version and library times (attention: scaled_dot_product_attention
+     on bf16, forward or backward; K10a / K10b: torch._int_mm of the
+     pre-quantized activations, the GEMM alone; yardsticks only), and the
+     bound. Then K1's backward (K5, K6a, K6b under its autograd Function)
+     against the fp32 composition's autograd;
   4. the published widths at a depth of 2 blocks on the card against the
      same weights in fp32 on the CPU (the plain path): 512px, batch 2, the
-     bf16 model (through K1) and the int8 (w8a8) model (through K2, K3 and
-     K4); 1024px, batch 1, bf16 (K7), int8 (K7, K2, K3) and int8 with int8
-     P.V (K8b, K2, K3); then one training step at 256px, batch 2 (loss,
-     gradients and the update against fp32 on the CPU);
+     bf16 model (through K1), the int8 (w8a8) model (through K2, K3 and
+     K4) and the int8 model with the opt-in block tails, attn_tail="all"
+     and mlp_tail_fusion="3d" (K4, K9, K10a, K10b); 1024px, batch 1, bf16
+     (K7), int8 (K7, K2, K3) and int8 with int8 P.V (K8b, K2, K3); then one
+     training step at 256px, batch 2 (loss, gradients and the update against
+     fp32 on the CPU);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then the median of 3 timed runs; each
@@ -38,17 +45,22 @@ Phases (any failure exits non-zero without the final ok line):
   6. the same with the model quantized to int8 (quantize_model): each sample
      call must launch K2 19 * 20, K3 18 * 20 (the last block has no text
      MLP), K4 19 * 20 and K1 0 times;
-  7.-9. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
+  7. the int8 model with the opt-in block tails (attn_tail="all",
+     mlp_tail_fusion="3d"): each sample call must launch K10a 380 (the
+     image stream's q/k/v), K10b 380 (the image out-projection; the text
+     stream's declines, and the last block has none), K9 740 (380 image +
+     360 text), K4 380 and K2, K3, K1 0 times;
+  8.-10. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
      (K7 380, K2 380, K3 360, K4 0, K1 0), and int8 with int8 P.V (K8b 380,
      K7 0, K2 380, K3 360; one timed call);
-  10. training through Trainer.train_step with the slice's configuration
+  11. training through Trainer.train_step with the slice's configuration
      (bench.py --train defaults: the 19-block model, 512px, batch 4, fused
      low-mem AdamW, bf16 gradients, precast weights, remat): one warmup,
      then the median of 5 timed steps, each launching K5 38, K6a 19, K6b 19
      and K1-K4 0 times; one more step under torch.profiler. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
-  11. one JSON line {"kernels": [...]} per ported kernel, then the last line
+  12. one JSON line {"kernels": [...]} per ported kernel, then the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
@@ -59,6 +71,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +121,19 @@ K8_ATOL = K4_ATOL
 MLP_MAX_REL = 1e-2
 MLP_REL_L2 = 5e-3
 MLP_SAME_ROUNDING_REL_L2 = 1e-3
+# K9 runs K2's device code: the same limits. K10a / K10b against the fp32
+# plain version: a bf16 output (RMS ~1.6e-3 of it), and for K10a the
+# LayerNorm statistics summed in another order, which moves the odd int8
+# level of the quantized row (one level: 1/127 of its row scale times a
+# weight, ~1e-3 of the output scale). Limits: max abs error 1e-2 x max
+# |plain|, rel L2 5e-3, as for K2. Against the plain version on the same
+# bf16 inputs with a bf16 output only those level moves remain (K10b: none,
+# it repeats the plain arithmetic in its order): rel L2 1e-3, which a
+# dropped modulation, gate or residual term, or a row given another
+# sample's conditioning, exceeds by far.
+K10_MAX_REL = MLP_MAX_REL
+K10_REL_L2 = MLP_REL_L2
+K10_SAME_ROUNDING_REL_L2 = MLP_SAME_ROUNDING_REL_L2
 # bf16 model on the card against fp32 on the CPU through 2 blocks of the
 # published widths: ~20 bf16 roundings on the residual path at ~0.4% each.
 MODEL_REL_L2 = 3e-2
@@ -179,6 +205,14 @@ K3_SLICE = dict(m=8 * 154, n_tok=8 * 154, k=1216, hidden=4864, h_group=256)
 K3_RAGGED = dict(m=300, n_tok=300, k=96, hidden=512, h_group=512)
 K2_SLICE = dict(m=8 * 1024, n_tok=1024, k=1216, hidden=4864, h_group=256)
 K2_RAGGED = dict(m=300, n_tok=100, k=64, hidden=384, h_group=128)
+# K9 at the 512px image and text streams; its h_group is pick_blocks'
+K9_SLICE = dict(m=8 * 1024, n_tok=1024, k=1216, hidden=4864)
+K9_TEXT = dict(m=8 * 154, n_tok=154, k=1216, hidden=4864)
+# K10a / K10b: samples, image tokens, width, output width, and the text
+# tokens behind the image ones in the joint sequence K10b reads from; the
+# 512px image stream and a ragged shape (300 rows: a partial 64-row tile)
+K10_SLICE = dict(b=8, n=1024, k=1216, d_out=1216, n_txt=154)
+K10_RAGGED = dict(b=3, n=100, k=96, d_out=64, n_txt=7)
 
 
 class SmokeFailure(Exception):
@@ -387,30 +421,34 @@ def phase_attention_api(gen):
     return launches
 
 
-def phase_mlp(shape, gen, tail):
-    """K2 (tail) or K3 vs the plain version at one shape."""
+def phase_mlp(shape, gen, kind):
+    """K2, K3 or K9 (`kind`) vs the plain version at one shape."""
     import torch
     from sd3_torch.ops import fused_mlp as fm
     from sd3_torch.ops.quant import quantize_weight
 
-    name = "K2" if tail else "K3"
+    name, tail = kind, kind != "K3"
     m, n_tok, k, hidden = shape["m"], shape["n_tok"], shape["k"], shape["hidden"]
-    h_group, b = shape["h_group"], m // n_tok
+    h_group = (fm.pick_blocks(n_tok, hidden)[1] if kind == "K9"
+               else shape["h_group"])
+    b = m // n_tok
     dev = "cuda"
     rnd = lambda *sz, sd=1.0: torch.randn(sz, generator=gen, device=dev) * sd
     x = rnd(m, k).to(torch.bfloat16)
     w12_q, s12 = quantize_weight(rnd(2 * hidden, k, sd=k ** -0.5))
     w3_q, s3 = quantize_weight(rnd(k, hidden, sd=hidden ** -0.5))
-    # biases and conditioning in bf16, as the model's cast leaves them
+    # biases and conditioning in bf16, as the model's cast leaves them (so
+    # K9's rounding of the conditioning to x's dtype changes nothing here)
     b12, b3 = (rnd(n, sd=0.1).to(torch.bfloat16) for n in (2 * hidden, k))
     shift, scale = (rnd(b, k, sd=0.3).to(torch.bfloat16) for _ in range(2))
     gate = rnd(b, k, sd=0.5).to(torch.bfloat16)
     w = (w12_q, s12, b12, w3_q, s3, b3)
     cond = dict(shift=shift, scale=scale, gate=gate, n_tok=n_tok, adaln=tail,
                 residual=tail)
+    tail_fn = {"K2": fm.swiglu_int8_tail, "K9": fm.swiglu_int8_tail3d}
     if tail:
-        run_k = lambda: fm.swiglu_int8_tail(x, shift, scale, gate, *w,
-                                            n_tok=n_tok, h_group=h_group)
+        run_k = lambda: tail_fn[kind](x, shift, scale, gate, *w,
+                                      n_tok=n_tok, h_group=h_group)
     else:
         run_k = lambda: fm.swiglu_int8(x, *w, h_group=h_group)
     run_plain = lambda: fm.swiglu_int8_plain(x, *w, h_group=h_group, **cond)
@@ -445,6 +483,81 @@ def phase_mlp(shape, gen, tail):
             f"{name} rel L2 {same_l2} against the plain version's own "
             f"roundings (limit {MLP_SAME_ROUNDING_REL_L2}) at {res['shape']}")
     return res
+
+
+def phase_dense(shape, gen, name, gated=True, residual=True):
+    """K10a (AdaLN + int8 q/k/v) or K10b (int8 out-projection [* gate]
+    [+ residual], `name`) vs its plain version at one shape; K10b reads the
+    image half of a joint sequence in place, as the model hands it over.
+    The library yardstick is torch._int_mm of the activations quantized
+    beforehand against the three weights (K10a) or the one (K10b): the
+    GEMMs alone, which the port never calls in these kernels' place."""
+    import torch
+    from sd3_torch.ops import fused_dense as fd
+    from sd3_torch.ops.quant import int_mm, quantize_rows, quantize_weight
+
+    b, n, k, d = shape["b"], shape["n"], shape["k"], shape["d_out"]
+    bf = torch.bfloat16
+    dev = "cuda"
+    rnd = lambda *sz, sd=1.0: torch.randn(sz, generator=gen, device=dev) * sd
+    n_w = 3 if name == "K10a" else 1
+    ws = [t for _ in range(n_w)
+          for t in quantize_weight(rnd(d, k, sd=k ** -0.5))]
+    # conditioning in bf16, as the model's cast leaves it, far apart per
+    # sample: a row given another sample's vector is a large error
+    step = torch.arange(b, device=dev, dtype=torch.float32)[:, None]
+    if name == "K10a":
+        x = rnd(b, n, k).to(bf)
+        shift = (step + rnd(b, k, sd=0.1)).to(bf)
+        scale = rnd(b, k, sd=0.3).to(bf)
+        run_k = lambda: fd.qkv_adaln_int8(x, shift, scale, *ws)
+        plain = lambda t: fd.qkv_adaln_int8_plain(t, shift, scale, *ws)
+        act, ins, out_bytes = x, (x, shift, scale, *ws), 3 * b * n * d * 2
+        label = f"B={b} N={n} K={k} N_out={d} x3"
+    else:
+        joint = rnd(b, n + shape["n_txt"], k).to(bf)
+        x = joint[:, :n]                      # a strided view, not a copy
+        gate = (step - 1 + rnd(b, d, sd=0.5)).to(bf) if gated else None
+        res = rnd(b, n, d).to(bf) if residual else None
+        run_k = lambda: fd.out_gate_residual_int8(x, gate, res, *ws)
+        plain = lambda t: fd.out_gate_residual_int8_plain(
+            t, gate, None if res is None else res.to(t.dtype), *ws)
+        act, ins, out_bytes = x, (x, gate, res, *ws), b * n * d * 2
+        label = (f"B={b} N={n} (of {n + shape['n_txt']}) K={k} N_out={d}"
+                 f"{' gate' if gated else ''}{' residual' if residual else ''}")
+    cat = lambda outs: (torch.cat([o.float().reshape(-1) for o in outs])
+                        if isinstance(outs, tuple) else outs.float())
+    got = run_k()
+    torch.cuda.synchronize()
+    got = cat(got)
+    require(bool(torch.isfinite(got).all()), f"{name} non-finite at {label}")
+    want = cat(plain(act.float()))
+    same = cat(plain(act))
+    e = _errs(got, want)
+    same_l2 = ((got - same).norm() / same.norm()).item()
+    xq, _ = quantize_rows(act.reshape(-1, k).float())
+    run_lib = lambda: [int_mm(xq, w) for w in ws[0::2]]
+    ms = cuda_ms(run_k)
+    eager_ms = cuda_ms(run_k, graph=False)
+    plain_ms = cuda_ms(lambda: plain(act), iters=3, groups=3)
+    library_ms = cuda_ms(run_lib)
+    ops = 2.0 * b * n * k * d * n_w
+    nbytes = sum(t.numel() * t.element_size() for t in ins
+                 if t is not None) + out_bytes
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    res_d = dict(shape=label, **e, kernel_vs_plain_bf16_rel_l2=same_l2,
+                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print(f"  {name}", json.dumps(res_d), flush=True)
+    require(e["max_rel_err"] <= K10_MAX_REL and e["rel_l2"] <= K10_REL_L2,
+            f"{name} max err {e['max_rel_err']} x max|plain| (limit "
+            f"{K10_MAX_REL}), rel L2 {e['rel_l2']} (limit {K10_REL_L2}) at "
+            f"{label}")
+    require(same_l2 <= K10_SAME_ROUNDING_REL_L2,
+            f"{name} rel L2 {same_l2} against the plain version's own "
+            f"roundings (limit {K10_SAME_ROUNDING_REL_L2}) at {label}")
+    return res_d
 
 
 def _errs(got, want) -> dict:
@@ -703,7 +816,8 @@ def phase_train(card, log_dir):
     nb = cfg.num_blocks
     expect = dict(flash_attention_fwd=2 * nb, flash_attention_dq=nb,
                   flash_attention_dkv=nb, fused_attention_bf16=0,
-                  fused_attention_int8qk=0, swiglu_int8=0, swiglu_int8_tail=0)
+                  fused_attention_int8qk=0,
+                  **block_tail_launches(nb, 1, False, False))
     watch = trainer.params["blocks.0.attn.query_proj_x.weight"]
     w0 = watch.clone()
 
@@ -810,17 +924,36 @@ def reset_launches():
         k.launches = 0
 
 
-def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False):
+def block_tail_launches(nb: int, calls: int, int8: bool, tails: bool) -> dict:
+    """Launches of the int8 block-tail kernels in `calls` forwards of an
+    nb-block model: under int8, K2 in every block and K3 in every block but
+    the last (whose text stream has no MLP), or with the tails (attn_tail
+    "all", mlp_tail_fusion "3d") K9 for both streams and K10a, K10b once a
+    block (the image stream: the text stream's 154 tokens decline them, and
+    the last block has no text out-projection); none in bf16."""
+    k2 = nb * calls if int8 and not tails else 0
+    k3 = (nb - 1) * calls if int8 and not tails else 0
+    k10 = nb * calls if tails else 0
+    return dict(swiglu_int8_tail=k2, swiglu_int8=k3,
+                swiglu_int8_tail3d=(2 * nb - 1) * calls if tails else 0,
+                qkv_adaln_int8=k10, out_gate_residual_int8=k10)
+
+
+TAILS = dict(attn_tail="all", mlp_tail_fusion="3d")
+
+
+def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
+                tails=False):
     """2-block published-width model at `res`, bf16 or int8 (w8a8, with
-    int8_pv int8 P.V too) on the card vs the same weights in fp32 on the
-    CPU."""
+    int8_pv int8 P.V too, with `tails` the opt-in block tails) on the card
+    vs the same weights in fp32 on the CPU."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.models.mmdit import MMDiT
     from sd3_torch.ops.quant import quantize_model
 
-    cfg = published_config(stage_res=res).replace(num_blocks=2,
-                                                  int8_pv=int8_pv)
+    cfg = published_config(stage_res=res).replace(
+        num_blocks=2, int8_pv=int8_pv, **(TAILS if tails else {}))
     ref = MMDiT(cfg.replace(dtype="float32"), device="cpu").init_weights(
         torch.Generator().manual_seed(gen_seed)).eval()
     if int8:
@@ -847,8 +980,9 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False):
     launches = launch_counts()
     require(bool(torch.isfinite(got).all()), "2-block model output non-finite")
     rel = ((got - want).norm() / want.norm()).item()
-    res_d = dict(quant=cfg.quant, int8_pv=int8_pv, res=res, batch=batch,
-                 rel_l2=rel, max_abs_err=(got - want).abs().max().item(),
+    res_d = dict(quant=cfg.quant, int8_pv=int8_pv, tails=tails, res=res,
+                 batch=batch, rel_l2=rel,
+                 max_abs_err=(got - want).abs().max().item(),
                  ref_max_abs=want.abs().max().item(), launches=launches,
                  cpu_fp32_s=cpu_s)
     print("  model", json.dumps(res_d), flush=True)
@@ -862,8 +996,7 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False):
             "fused_attention_int8qk" if int8 else "fused_attention_bf16")
     want_launches = {k: 0 for k in ATTENTION_KERNELS}
     want_launches[attn] = nb
-    if int8:
-        want_launches.update(swiglu_int8_tail=nb, swiglu_int8=nb - 1)
+    want_launches.update(block_tail_launches(nb, 1, int8, tails))
     for name, n in want_launches.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
                 f"in a {nb}-block {cfg.quant} {res}px forward, expected {n}")
@@ -879,11 +1012,13 @@ ATTENTION_KERNELS = ("fused_attention_bf16", "fused_attention_int8qk",
                      "fused_attention_stream_int8pv")
 
 
-def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
+def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
+                 tails=False):
     """Full-width sampling through the port's entry points: the bf16 model,
     or (int8) the same seeded weights quantized by quantize_model, with
-    int8_pv int8 P.V in the streaming attention. One warmup call, `timed`
-    timed calls, then one more under torch.profiler."""
+    int8_pv int8 P.V in the streaming attention, with `tails` the opt-in
+    block tails. One warmup call, `timed` timed calls, then one more under
+    torch.profiler."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.inference.sampler import sample_imgs
@@ -891,7 +1026,8 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
     from sd3_torch.models.text_encoders import StubTextEncoders
     from sd3_torch.ops.quant import quantize_model
 
-    cfg = published_config(stage_res=res).replace(int8_pv=int8_pv)
+    cfg = published_config(stage_res=res).replace(
+        int8_pv=int8_pv, **(TAILS if tails else {}))
     batch, steps = 4, 20
     t0 = time.time()
     model = MMDiT(cfg, device="cuda", dtype=torch.bfloat16).init_weights(
@@ -901,22 +1037,21 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
     n_params = sum(t.numel() for t in model.state_dict().values())
     enc = StubTextEncoders(device="cuda")
     torch.cuda.synchronize()
-    label = f"{model.cfg.quant}{' int8_pv' if int8_pv else ''} {res}px"
+    label = (f"{model.cfg.quant}{' int8_pv' if int8_pv else ''}"
+             f"{' tails' if tails else ''} {res}px")
     print(f"  {label} model: {n_params / 1e6:.1f}M weights, built in "
           f"{time.time() - t0:.1f} s", flush=True)
     nb = cfg.num_blocks
     # per sample call: one attention launch per block and step (K1 / K4 up
-    # to 2048 padded tokens, K7 / K8b above), and under int8 one K2 per
-    # block and step and one K3 in every block but the last
+    # to 2048 padded tokens, K7 / K8b above), and the block-tail kernels of
+    # block_tail_launches per step
     streaming = res > 512
     attn = ("fused_attention_stream_int8pv" if int8_pv else
             "fused_attention_stream" if streaming else
             "fused_attention_int8qk" if int8 else "fused_attention_bf16")
     expect = {k: 0 for k in ATTENTION_KERNELS}
     expect[attn] = nb * steps
-    if int8:
-        expect.update(swiglu_int8_tail=nb * steps,
-                      swiglu_int8=(nb - 1) * steps)
+    expect.update(block_tail_launches(nb, steps, int8, tails))
     bf16_prep = {"fused_attention_stream_int8pv": "K8b",
                  "fused_attention_stream": "K7"}.get(attn, "K1")
 
@@ -950,7 +1085,8 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
         times.append(time.time() - t0)
         require(bool(torch.isfinite(imgs).all()), "decoded images non-finite")
     med = statistics.median(times)
-    res_d = dict(quant=model.cfg.quant, int8_pv=int8_pv, batch=batch,
+    res_d = dict(quant=model.cfg.quant, int8_pv=int8_pv, tails=tails,
+                 batch=batch,
                  steps=steps, res=res, warmup_s=warm_s, run_s=times,
                  median_s_per_batch=med, images_per_s=batch / med,
                  launches_per_call=launches,
@@ -978,7 +1114,12 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3):
     return res_d
 
 
-MLP_KERNELS = ("xquant_kernel", "swiglu_h_kernel", "w3_gemm_kernel")
+# the int8 kernels' launches carry the number of their TPU kernel as their
+# last template argument (csrc/int8_common.cuh): xquant_kernel<10>,
+# swiglu_h_kernel<256, 9>, ...
+INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_kernel|w3_gemm_kernel|"
+                         r"dense_int8_kernel)<(?:\d+, )?(\d+)>")
+INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
 STREAM_FAMILIES = {"false, false, false>": "K7", "true, false, false>": "K7q",
                    "false, true, false>": "K8b", "true, true, false>": "K8b",
@@ -987,8 +1128,8 @@ STREAM_FAMILIES = {"false, false, false>": "K7", "true, false, false>": "K7q",
 
 def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
-    function names (K2 / K3 are the TAIL=true / false instantiations of one
-    source; K4 is k_prep_kernel<D, true> with its quantize and attention
+    function names (K2, K3, K9, K10a and K10b by the template tag of their
+    launches, INT8_LAUNCH; K4 is k_prep_kernel<D, true> with its quantize and attention
     kernels; K7, K7q, K8a, K8b the instantiations of attn_stream_kernel,
     with the V prep of int8 P.V in K8b and the per-row K prep in K7q; the
     bf16 K prep k_prep_kernel<D, false>, which K1, K7 and K8b share, goes to
@@ -1013,8 +1154,9 @@ def kernel_family(name: str, bf16_prep: str = "K1") -> str:
         return bf16_prep
     if "attn_kernel" in name:
         return "K1"
-    if any(k in name for k in MLP_KERNELS):
-        return "K2" if "true>" in name else "K3"
+    m = INT8_LAUNCH.search(name)
+    if m:
+        return INT8_FAMILIES[m.group(1)]
     if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
         if any(s in low for s in ("s8", "i8", "int8", "imma")):
             return "gemm_int8"
@@ -1026,8 +1168,8 @@ def device_breakdown(prof, wall_s, bf16_prep="K1"):
     """Self device time (ms) by kernel family (see kernel_family); the top
     kernels; and the idle share of the traced wall time."""
     fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7",
-                          "K7q", "K8a", "K8b", "gemm_int8", "gemm", "other"),
-                         0.0)
+                          "K7q", "K8a", "K8b", "K9", "K10a", "K10b",
+                          "gemm_int8", "gemm", "other"), 0.0)
     rows = []
     for e in prof.key_averages():
         # device-side rows (kernels, copies, fills) only: they take no host
@@ -1074,8 +1216,8 @@ def main() -> int:
 
         print("phase 2: build", flush=True)
         from sd3_torch import kernels
-        from sd3_torch.ops import (  # register K1-K8b
-            flash_attention, fused_attention, fused_mlp)
+        from sd3_torch.ops import (  # register K1-K10b
+            flash_attention, fused_attention, fused_dense, fused_mlp)
         t0 = time.time()
         reports = kernels.build_all()
         print(f"  built {sorted(reports) or 'nothing (cached)'} in "
@@ -1098,8 +1240,12 @@ def main() -> int:
         k8b = [phase_attention(s, gen, int8_qk=qk, int8_pv=True)
                for qk in (False, True) for s in (SLICE_1024, RAGGED_STREAM)]
         api = phase_attention_api(gen)
-        k3 = [phase_mlp(s, gen, tail=False) for s in (K3_SLICE, K3_RAGGED)]
-        k2 = [phase_mlp(s, gen, tail=True) for s in (K2_SLICE, K2_RAGGED)]
+        k3 = [phase_mlp(s, gen, "K3") for s in (K3_SLICE, K3_RAGGED)]
+        k2 = [phase_mlp(s, gen, "K2") for s in (K2_SLICE, K2_RAGGED)]
+        k9 = [phase_mlp(s, gen, "K9") for s in (K9_SLICE, K9_TEXT)]
+        k10a = [phase_dense(s, gen, "K10a") for s in (K10_SLICE, K10_RAGGED)]
+        k10b = [phase_dense(s, gen, "K10b") for s in (K10_SLICE, K10_RAGGED)]
+        phase_dense(K10_SLICE, gen, "K10b", gated=False, residual=False)
         k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
         phase_k1_backward(gen)
 
@@ -1107,6 +1253,7 @@ def main() -> int:
               "512px batch 2, 1024px batch 1", flush=True)
         phase_model(gen_seed=0)
         phase_model(gen_seed=0, int8=True)
+        phase_model(gen_seed=0, int8=True, tails=True)
         phase_model(gen_seed=0, res=1024, batch=1)
         phase_model(gen_seed=0, int8=True, res=1024, batch=1)
         phase_model(gen_seed=0, int8=True, res=1024, batch=1, int8_pv=True)
@@ -1121,25 +1268,29 @@ def main() -> int:
         print("phase 6: 19-block int8 sampling, the same", flush=True)
         sample8 = phase_sample(card, int8=True)
 
-        print("phase 7: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
+        print("phase 7: 19-block int8 sampling with the block tails "
+              "(attn_tail all, mlp_tail_fusion 3d), the same", flush=True)
+        sample8_tails = phase_sample(card, int8=True, tails=True)
+
+        print("phase 8: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
         sample_1024 = phase_sample(card, res=1024)
 
-        print("phase 8: 19-block int8 sampling, 1024px, the same", flush=True)
+        print("phase 9: 19-block int8 sampling, 1024px, the same", flush=True)
         phase_sample(card, int8=True, res=1024)
 
-        print("phase 9: 19-block int8 sampling with int8 P.V, 1024px, the "
+        print("phase 10: 19-block int8 sampling with int8 P.V, 1024px, the "
               "same, one timed call", flush=True)
         sample8pv_1024 = phase_sample(card, int8=True, res=1024, int8_pv=True,
                                       timed=1)
 
-        print("phase 10: 19-block training, 512px, batch 4, fused low-mem "
+        print("phase 11: 19-block training, 512px, batch 4, fused low-mem "
               "AdamW, bf16 grads, remat; then the default TrainConfig path "
               "at 2 blocks", flush=True)
         train = phase_train(card, log_dir)
         phase_train_default_path(log_dir)
 
-        print("phase 11: kernels", flush=True)
+        print("phase 12: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,
@@ -1169,6 +1320,12 @@ def main() -> int:
              "sd3_tpu/ops/fused_attention.py:190", api, lambda run: run),
             (fused_attention.K8B, k8b[0], "stream_attention.cu",
              "sd3_tpu/ops/fused_attention.py:406", sample8pv_1024, per_call),
+            (fused_mlp.K9, k9[0], "fused_mlp.cu",
+             "sd3_tpu/ops/fused_mlp.py:365", sample8_tails, per_call),
+            (fused_dense.K10A, k10a[0], "fused_dense.cu",
+             "sd3_tpu/ops/fused_dense.py:92", sample8_tails, per_call),
+            (fused_dense.K10B, k10b[0], "fused_dense.cu",
+             "sd3_tpu/ops/fused_dense.py:166", sample8_tails, per_call),
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",

@@ -27,6 +27,8 @@ ATTN_TYPES = (
 )
 POS_ENCODINGS = ("absolute", "RoPE", "NoPE", "RoPE2d", "RoPE2dV2")
 MLP_TYPES = ("gelu", "swiglu", "swiglu_old")
+ATTN_TAILS = ("none", "all", "qkv", "out")
+MLP_TAIL_FUSIONS = ("2d", "3d")
 
 # Tokens per text encoder stream (Gemma / ModernBERT), and the width both
 # streams are padded/projected from (reference diff_model.py:164).
@@ -83,10 +85,33 @@ class MMDiTConfig:
     # field (sd3_tpu/ops/attention.py:334-336). Runtime choice, not
     # persisted.
     int8_pv: bool = False
+    # The JAX package's other opt-in serving flags, made fields; runtime
+    # choices, not persisted. Under quant="int8", `attn_tail` folds the
+    # attention half's AdaLN prologue into the image-stream q/k/v projections
+    # (K10a; "all" or "qkv") and the gate + residual epilogue into the out
+    # projections (K10b; "all" or "out"): SD3_ATTN_TAIL
+    # (sd3_tpu/models/mmdit.py:80-100, ops/attention.py:262).
+    attn_tail: str = "none"
+    # The int8 MLP block tail's kernel: "2d", K2 for sample-alignable
+    # streams and K3 between PyTorch prologue and epilogue otherwise, or
+    # "3d", K9 for every stream: SD3_MLP_TAIL_FUSION (ops/fused_mlp.py:515).
+    mlp_tail_fusion: str = "2d"
+    # False runs the MLP half unfused around the int8 SwiGLU (K3):
+    # SD3_NO_MLP_TAIL=1 (models/mmdit.py:112-115).
+    mlp_tail: bool = True
+    # False takes no int8 SwiGLU kernel at all (two int8 projections):
+    # SD3_NO_FUSED_MLP=1 (ops/mlp.py:44-47).
+    fused_mlp: bool = True
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):
             raise ValueError(f"quant must be 'none' or 'int8', got {self.quant!r}")
+        if self.attn_tail not in ATTN_TAILS:
+            raise ValueError(f"attn_tail must be one of {ATTN_TAILS}, got "
+                             f"{self.attn_tail!r}")
+        if self.mlp_tail_fusion not in MLP_TAIL_FUSIONS:
+            raise ValueError(f"mlp_tail_fusion must be one of "
+                             f"{MLP_TAIL_FUSIONS}, got {self.mlp_tail_fusion!r}")
         if not isinstance(self.quant_skip, tuple):
             object.__setattr__(self, "quant_skip", tuple(self.quant_skip))
         if self.attn_type not in ATTN_TYPES:

@@ -1,13 +1,15 @@
 // Int8 (w8a8) SwiGLU MLP for NVIDIA Hopper (sm_90a), with an optional
 // AdaLN prologue and gate + residual epilogue.
 //
-// Replaces two TPU kernels of sd3_tpu/ops/fused_mlp.py:
+// Replaces three TPU kernels of sd3_tpu/ops/fused_mlp.py:
 //   K3 `_kernel` (through _fused_swiglu_2d): the SwiGLU chain alone, over
 //      flattened (M, k) tokens;
 //   K2 `_kernel_tail2d` (through _fused_swiglu_tail2d): the whole MLP half
-//      of a block, out = x + gate * y, with y the chain on AdaLN(x).
-// Both compute, per row r of x (M, K) and with h_group columns per group:
-//   xf  = AdaLN(x_r) = LN(x_r) * (1 + scale[b]) + shift[b]   (K2; b = r / n_tok;
+//      of a block, out = x + gate * y, with y the chain on AdaLN(x);
+//   K9 `_kernel_tail` (through _fused_swiglu_3d): K2's function on a
+//      per-sample grid (b, n_pad / bm, chunks).
+// All compute, per row r of x (M, K) and with h_group columns per group:
+//   xf  = AdaLN(x_r) = LN(x_r) * (1 + scale[b]) + shift[b]   (K2, K9; b = r / n_tok;
 //         LN two-pass, eps 1e-5) or x_r (K3), in fp32
 //   xq  = round(xf / s_x), s_x = max(|xf|, 1e-8) / 127        (per row)
 //   x1  = (xq . w12q[j]) * s_x * s12[j] + b12[j]               (s32 -> fp32;
@@ -15,10 +17,23 @@
 //   h   = silu(x1) * x2
 //   hq  = round(h / s_h), s_h = max(|h|, 1e-8) / 127  per (row, h_group chunk)
 //   y   = sum over chunks g of (hq_g . w3q_g[c]) * s_h[g] * s3[c], + b3[c]
-//   out = x + gate[b] * y (K2 with residual) or y, in bf16.
+//   out = x + gate[b] * y (K2, K9 with residual) or y, in bf16.
 // h_group is part of the numerics: it is the TPU kernel's hidden-chunk width
-// (ops/fused_mlp.py: pick_tail_blocks / pick_block_chunk choose it as the JAX
-// package does), because every chunk of h gets its own scale.
+// (ops/fused_mlp.py: pick_tail_blocks, pick_block_chunk and pick_blocks
+// choose it as the JAX package does), because every chunk of h gets its own
+// scale.
+//
+// K9 has no body of its own. The TPU's per-sample grid kept a token tile
+// from straddling two samples' conditioning; here every row finds its sample
+// as r / n_tok, in the prologue and in the epilogue, so K2's launches already
+// compute K9's function on any stream, the unaligned 154-token text stream
+// included, and JAX's padding of n to a multiple of bm (TPU blocking; it
+// leaves real rows alone, each row being quantized on its own) has nothing
+// to do. What differs is outside the device code: K9's h_group comes from
+// `pick_blocks`, and its wrapper rounds shift / scale / gate to x's dtype
+// first (sd3_tpu/ops/fused_mlp.py:443-448). It is its own entry point and
+// template instance (V = 9) so that its launches and its profile rows are
+// its own.
 //
 // Weights are (out, in) int8, K-contiguous: the B operand of the int8 mma
 // (m16n8k32 .row.col) must be K-major, and ldmatrix cannot transpose 8-bit
@@ -32,8 +47,8 @@
 // an fp32 (bm, 1216) accumulator in VMEM over all hidden chunks; on Hopper
 // that does not fit a block's shared memory, so this simple, right version
 // runs three launches and lets h make one round trip through device memory:
-//   1. xquant_kernel: one warp per row: (AdaLN,) per-row quantization ->
-//      xq (M, K) int8, s_x (M) fp32;
+//   1. xquant_kernel (int8_common.cuh): one warp per row: (AdaLN,) per-row
+//      quantization -> xq (M, K) int8, s_x (M) fp32;
 //   2. swiglu_h_kernel: one block per (BM rows, h_group chunk): the int8
 //      product with both halves of w12 for the chunk, dequant, bias,
 //      silu * mul, the per-(row, chunk) requantization -> hq (M, hidden)
@@ -45,133 +60,9 @@
 // Products run on mma.sync (s8 x s8 -> s32) from a two-stage cp.async ring;
 // wgmma, TMA and keeping h on chip are the later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-#include <cuda_bf16.h>
+#include "int8_common.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr float LN_EPS = 1e-5f;
-constexpr float Q_EPS = 1e-8f;
-constexpr int ROW_THREADS = 256;   // xquant: 8 warps, one row each
-constexpr int BK = 64;             // K bytes per shared-memory tile
-constexpr int SK = BK + 16;        // padded row stride: conflict-free ldmatrix
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// round half to even, as jnp.round; a true division, as JAX divides
-__device__ __forceinline__ int quant8(float v, float s) {
-  return (int)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING));
-}
-
-// Four 8x16-byte matrices; lane l gives the address of row (l & 7) of
-// matrix (l >> 3); each lane receives 4 consecutive bytes of one row per
-// matrix: exactly the s8 fragment layout of m16n8k32.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// D(16x8, s32) += A(16x32, s8, row) * B(32x8, s8, col)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A fragment (16 rows x 32 bytes at k offset kb) of a row-major tile with
-// stride SK: matrices (rows 0-7, k 0-15), (8-15, 0-15), (0-7, 16-31),
-// (8-15, 16-31) are registers a0..a3.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const int8_t* tile,
-                                       int row0, int kb, int lane) {
-  ldsm_x4(a, tile + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * SK + kb +
-                 (lane >> 4) * 16);
-}
-
-// B fragments of two n8 tiles (rows n0..n0+15 of a K-contiguous tile):
-// b[0], b[1] for rows n0..n0+7, b[2], b[3] for rows n0+8..n0+15.
-__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const int8_t* tile,
-                                        int n0, int kb, int lane) {
-  ldsm_x4(b, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * SK + kb +
-                 ((lane >> 3) & 1) * 16);
-}
-
-// ---- launch 1 ---------------------------------------------------------
-// TAIL: K2's instantiation (AdaLN when adaln), else K3's; the three kernels
-// of each carry the flag, so a profile tells K2's time from K3's.
-// grid ceil(M / 8), ROW_THREADS threads.
-template <bool TAIL>
-__global__ void __launch_bounds__(ROW_THREADS)
-xquant_kernel(const bf16* __restrict__ x, const float* __restrict__ shift,
-              const float* __restrict__ scale, int8_t* __restrict__ xq,
-              float* __restrict__ sx, int M, int K, int n_tok, int adaln_arg) {
-  const bool adaln = TAIL && adaln_arg;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
-  if (row >= M) return;  // the whole warp leaves together
-  const bf16* xr = x + (size_t)row * K;
-  float mean = 0.f, rstd = 1.f;
-  const float* sh = shift;
-  const float* sc = scale;
-  if (adaln) {
-    float s = 0.f;
-    for (int j = lane; j < K; j += 32) s += __bfloat162float(xr[j]);
-    mean = warp_sum(s) / K;
-    float v = 0.f;
-    for (int j = lane; j < K; j += 32) {
-      const float d = __bfloat162float(xr[j]) - mean;
-      v += d * d;
-    }
-    rstd = rsqrtf(warp_sum(v) / K + LN_EPS);
-    const size_t b = row / n_tok;
-    sh += b * K;
-    sc += b * K;
-  }
-  auto val = [&](int j) {
-    float f = __bfloat162float(xr[j]);
-    if (adaln) f = (f - mean) * rstd * (1.f + sc[j]) + sh[j];
-    return f;
-  };
-  float amax = 0.f;
-  for (int j = lane; j < K; j += 32) amax = fmaxf(amax, fabsf(val(j)));
-  const float s = fmaxf(warp_max(amax), Q_EPS) / 127.f;
-  int8_t* qr = xq + (size_t)row * K;
-  for (int j = lane; j < K; j += 32) qr[j] = (int8_t)quant8(val(j), s);
-  if (lane == 0) sx[row] = s;
-}
 
 // ---- launch 2 ---------------------------------------------------------
 // One block: BM rows x one h_group chunk of both w12 halves. Warps: WM
@@ -193,7 +84,7 @@ struct HCfg {
 };
 
 // grid (ceil(M / BM), hidden / HG), HCfg<HG>::THREADS threads.
-template <int HG, bool TAIL>
+template <int HG, int V>
 __global__ void __launch_bounds__(HCfg<HG>::THREADS)
 swiglu_h_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
                 const int8_t* __restrict__ w12, const float* __restrict__ s12,
@@ -337,14 +228,14 @@ constexpr int W3_STAGE = W3_A + W3_BN * SK;
 constexpr int W3_SMEM = 2 * W3_STAGE;
 
 // grid (ceil(d_out / W3_BN), ceil(M / W3_BM)), W3_THREADS threads.
-template <int HG, bool TAIL>
+template <int HG, int V>
 __global__ void __launch_bounds__(W3_THREADS)
 w3_gemm_kernel(const int8_t* __restrict__ hq, const float* __restrict__ s_h,
                const int8_t* __restrict__ w3, const float* __restrict__ s3,
                const float* __restrict__ b3, const bf16* __restrict__ x,
                const float* __restrict__ gate, bf16* __restrict__ out, int M,
                int hidden, int d_out, int n_tok, int residual_arg) {
-  const bool residual = TAIL && residual_arg;
+  const bool residual = residual_arg;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / 4, wn = warp % 4;
@@ -437,7 +328,7 @@ w3_gemm_kernel(const int8_t* __restrict__ hq, const float* __restrict__ s_h,
     }
   }
 
-  // epilogue: + b3; K2: x + gate * y; bf16 out
+  // epilogue: + b3; with the residual x + gate * y; bf16 out
 #pragma unroll
   for (int i = 0; i < W3_MT; ++i)
 #pragma unroll
@@ -463,29 +354,26 @@ w3_gemm_kernel(const int8_t* __restrict__ hq, const float* __restrict__ s_h,
     }
 }
 
-template <int HG, bool TAIL>
+template <int HG, int V>
 int launch(const void* x, const void* shift, const void* scale,
            const void* gate, const void* w12, const void* s12, const void* b12,
            const void* w3, const void* s3, const void* b3, void* xq, void* sx,
            void* hq, void* s_h, void* out, int M, int K, int hidden,
            int d_out, int n_tok, int adaln, int residual, cudaStream_t st) {
-  xquant_kernel<TAIL><<<(M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32), ROW_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(shift),
-      static_cast<const float*>(scale), static_cast<int8_t*>(xq),
-      static_cast<float*>(sx), M, K, n_tok, adaln);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = (cudaError_t)launch_xquant<V>(
+      x, (long long)n_tok * K, shift, scale, xq, sx, M, K, n_tok, adaln, st);
   if (e != cudaSuccess) return (int)e;
 
   using C = HCfg<HG>;
   static bool smem_set = false;  // once, before any graph capture
   if (!smem_set) {
-    e = cudaFuncSetAttribute(swiglu_h_kernel<HG, TAIL>,
+    e = cudaFuncSetAttribute(swiglu_h_kernel<HG, V>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   dim3 g2((M + C::BM - 1) / C::BM, hidden / HG);
-  swiglu_h_kernel<HG, TAIL><<<g2, C::THREADS, C::SMEM, st>>>(
+  swiglu_h_kernel<HG, V><<<g2, C::THREADS, C::SMEM, st>>>(
       static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
       static_cast<const int8_t*>(w12), static_cast<const float*>(s12),
       static_cast<const float*>(b12), static_cast<int8_t*>(hq),
@@ -494,7 +382,7 @@ int launch(const void* x, const void* shift, const void* scale,
   if (e != cudaSuccess) return (int)e;
 
   dim3 g3((d_out + W3_BN - 1) / W3_BN, (M + W3_BM - 1) / W3_BM);
-  w3_gemm_kernel<HG, TAIL><<<g3, W3_THREADS, W3_SMEM, st>>>(
+  w3_gemm_kernel<HG, V><<<g3, W3_THREADS, W3_SMEM, st>>>(
       static_cast<const int8_t*>(hq), static_cast<const float*>(s_h),
       static_cast<const int8_t*>(w3), static_cast<const float*>(s3),
       static_cast<const float*>(b3), static_cast<const bf16*>(x),
@@ -511,9 +399,9 @@ int launch(const void* x, const void* shift, const void* scale,
 // out: (M, d_out) bf16. K and d_out multiples of 16, hidden a multiple of
 // h_group, h_group one of 128, 256, 512; all pointers 16-byte aligned.
 // Returns the CUDA error code of the launches (0 = success).
-// sd3_swiglu_int8_tail is K2 (AdaLN and gate + residual as flagged);
-// sd3_swiglu_int8 is K3 (both flags ignored).
-template <bool TAIL>
+// sd3_swiglu_int8_tail is K2 and sd3_swiglu_int8_tail3d K9 (AdaLN and
+// gate + residual as flagged); sd3_swiglu_int8 is K3 (both flags ignored).
+template <int V>
 int dispatch(const void* x, const void* shift, const void* scale,
              const void* gate, const void* w12, const void* s12,
              const void* b12, const void* w3, const void* s3, const void* b3,
@@ -522,9 +410,9 @@ int dispatch(const void* x, const void* shift, const void* scale,
              int residual, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (h_group) {
-    case 128: return launch<128, TAIL>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
-    case 256: return launch<256, TAIL>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
-    case 512: return launch<512, TAIL>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 128: return launch<128, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 256: return launch<256, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 512: return launch<512, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -542,9 +430,14 @@ int dispatch(const void* x, const void* shift, const void* scale,
       K, hidden, d_out, n_tok, h_group, adaln, residual, stream
 
 extern "C" int sd3_swiglu_int8_tail(SD3_SWIGLU_ARGS) {
-  return dispatch<true>(SD3_SWIGLU_PASS);
+  return dispatch<V_K2>(SD3_SWIGLU_PASS);
+}
+
+extern "C" int sd3_swiglu_int8_tail3d(SD3_SWIGLU_ARGS) {
+  return dispatch<V_K9>(SD3_SWIGLU_PASS);
 }
 
 extern "C" int sd3_swiglu_int8(SD3_SWIGLU_ARGS) {
-  return dispatch<false>(SD3_SWIGLU_PASS);
+  adaln = residual = 0;
+  return dispatch<V_K3>(SD3_SWIGLU_PASS);
 }

@@ -14,8 +14,13 @@ with w8a8 projections and the int8 kernels: the float checkpoint is loaded,
 quantized (`--quant_skip` names stay float), cast, then moved to the
 device; `--int8_pv` adds int8 P.V in the streaming attention above 2048
 joint tokens (1024px: `--width 1024 --height 1024`), the JAX package's
-SD3_INT8_PV=1. Native msgpack checkpoints and `--gif` come with later slices of the
-port and raise NotImplementedError.
+SD3_INT8_PV=1. The int8 block tails follow the JAX package's other opt-in
+flags, as the config fields of the same names: `--attn_tail
+{none,all,qkv,out}` (SD3_ATTN_TAIL: K10a / K10b), `--mlp_tail_fusion
+{2d,3d}` (SD3_MLP_TAIL_FUSION: K9 under 3d), `--no_mlp_tail`
+(SD3_NO_MLP_TAIL=1) and `--no_fused_mlp` (SD3_NO_FUSED_MLP=1). Native
+msgpack checkpoints and `--gif` come with later slices of the port and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,6 +72,20 @@ def build_argparser():
     p.add_argument("--int8_pv", action="store_true",
                    help="with --quant int8: int8 P.V in the streaming "
                         "attention above 2048 joint tokens (1024px)")
+    p.add_argument("--attn_tail", default="none",
+                   choices=["none", "all", "qkv", "out"],
+                   help="with --quant int8: fold the attention half's AdaLN "
+                        "into the image q/k/v projections (all, qkv) and its "
+                        "gate + residual into the out-projections (all, out)")
+    p.add_argument("--mlp_tail_fusion", default="2d", choices=["2d", "3d"],
+                   help="with --quant int8: the MLP block tail's kernel, K2 "
+                        "/ K3 (2d) or K9 for every stream (3d)")
+    p.add_argument("--no_mlp_tail", action="store_true",
+                   help="with --quant int8: run the MLP half unfused around "
+                        "the int8 SwiGLU kernel")
+    p.add_argument("--no_fused_mlp", action="store_true",
+                   help="with --quant int8: no int8 SwiGLU kernel, two int8 "
+                        "projections")
     p.add_argument("--allow_unsafe_pickle", action="store_true",
                    help="permit torch.load(weights_only=False) for legacy "
                         "reference .pkl files that the safe loader rejects — "
@@ -96,8 +115,10 @@ def load_model(args, device):
         cfg = MMDiTConfig.from_json_dict(json.load(f))
     if args.dtype != "checkpoint":
         cfg = cfg.replace(dtype=args.dtype)
-    if args.int8_pv:
-        cfg = cfg.replace(int8_pv=True)
+    cfg = cfg.replace(int8_pv=args.int8_pv, attn_tail=args.attn_tail,
+                      mlp_tail_fusion=args.mlp_tail_fusion,
+                      mlp_tail=not args.no_mlp_tail,
+                      fused_mlp=not args.no_fused_mlp)
     path = os.path.join(args.loadDir, args.torch_ckpt)
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -127,8 +148,14 @@ def save_png(arr_chw: np.ndarray, path: str):
 def main(argv=None):
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.int8_pv and args.quant != "int8":
-        parser.error("--int8_pv needs --quant int8")
+    int8_only = dict(int8_pv=args.int8_pv,
+                     attn_tail=args.attn_tail != "none",
+                     mlp_tail_fusion=args.mlp_tail_fusion != "2d",
+                     no_mlp_tail=args.no_mlp_tail,
+                     no_fused_mlp=args.no_fused_mlp)
+    for flag, given in int8_only.items():
+        if given and args.quant != "int8":
+            parser.error(f"--{flag} needs --quant int8")
     if args.gif:
         raise NotImplementedError(
             "--gif (per-step decodes) is not ported yet: ROADMAP.md, port "

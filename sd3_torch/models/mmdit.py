@@ -18,7 +18,12 @@ the *unprojected* y; the last block has no text-stream output path.
 
 Under quant="int8" the MLP and attention projections are `Int8Linear`s
 (ops/quant.py): build the model so to load a quantized state_dict, or
-quantize a float model in place with `ops.quant.quantize_model`.
+quantize a float model in place with `ops.quant.quantize_model`. The
+config's opt-in serving fields, the JAX package's env flags, choose the
+block tails' kernels there: `attn_tail` hands the attention half's AdaLN and
+gate + residual to JointAttention (K10a / K10b), `mlp_tail_fusion` picks K2
+/ K3 ("2d") or K9 ("3d") for the MLP half, `mlp_tail=False` runs the MLP
+half unfused around K3, `fused_mlp=False` takes no SwiGLU kernel.
 
 For training, `MMDiT(..., fused_attn=False)` takes the general attention
 path (flash attention with its two-kernel backward) as the JAX trainer does,
@@ -61,6 +66,7 @@ class DualStreamBlock(nn.Module):
         dim = cfg.dim
         kw = dict(device=device, dtype=dtype)
         self.last = last
+        self.attn_tail, self.mlp_tail = cfg.attn_tail, cfg.mlp_tail
         self.y_proj = nn.Sequential(nn.Linear(dim, dim, bias=True, **kw),
                                     nn.SiLU())
         self.attn = JointAttention(
@@ -77,7 +83,8 @@ class DualStreamBlock(nn.Module):
         self.scale1_x = nn.Linear(dim, dim, bias=False, **kw)
         self.scale2_x = nn.Linear(dim, dim, bias=False, **kw)
         mlp = dict(act=cfg.MLP_type, quant=cfg.quant,
-                   quant_skip=cfg.quant_skip, **kw)
+                   quant_skip=cfg.quant_skip, fused_mlp=cfg.fused_mlp,
+                   tail_fusion=cfg.mlp_tail_fusion, **kw)
         self.MLP_x = MLP(dim, cfg.hidden_scale, **mlp)
         if not last:
             self.norm2_c = AdaLNorm(dim, dim, **kw)
@@ -87,11 +94,22 @@ class DualStreamBlock(nn.Module):
 
     def forward(self, x, c, y, hw):
         y = F.silu(linear(y, self.y_proj[0]))
-        x_a, c_a = self.attn(self.norm1_x(x, y), self.norm1_c(c, y), hw)
-        x = x_a * linear(y, self.scale1_x)[:, None, :] + x
-        if not self.last:
-            c = c_a * linear(y, self.scale1_c)[:, None, :] + c
-        if self.MLP_x.fused_ok:
+        if self.attn_tail != "none" and self.attn.quant == "int8":
+            # the attention half's AdaLN and gate + residual owned by the
+            # attention, for K10a / K10b (sd3_tpu/models/mmdit.py:80-100)
+            sh_x, sc_x = self.norm1_x.modulation(y)
+            sh_c, sc_c = self.norm1_c.modulation(y)
+            tail = dict(shift_x=sh_x, scale_x=sc_x, shift_c=sh_c, scale_c=sc_c,
+                        gate_x=linear(y, self.scale1_x),
+                        gate_c=None if self.last else linear(y, self.scale1_c),
+                        res_x=x, res_c=c)
+            x, c = self.attn(x, c, hw, tail=tail, tail_mode=self.attn_tail)
+        else:
+            x_a, c_a = self.attn(self.norm1_x(x, y), self.norm1_c(c, y), hw)
+            x = x_a * linear(y, self.scale1_x)[:, None, :] + x
+            if not self.last:
+                c = c_a * linear(y, self.scale1_c)[:, None, :] + c
+        if self.mlp_tail and self.MLP_x.fused_ok:
             # the whole MLP half (AdaLN, SwiGLU, gate, residual) through the
             # int8 SwiGLU kernels, as the JAX block does
             # (sd3_tpu/models/mmdit.py:111-135)

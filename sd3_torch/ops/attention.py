@@ -29,6 +29,16 @@ padded joint length in [1024, 2048], sd3_tpu/ops/attention.py:316-318), and
 with `int8_pv` the int8-P.V streaming kernel K8b (`int8_pv_on`: "attn_pv"
 not skipped and more than 2048 padded tokens, :334-336, where the JAX
 package reads the flag from SD3_INT8_PV=1).
+
+With a `tail` (the block's opt-in `attn_tail`, the JAX SD3_ATTN_TAIL) this
+module also owns the block's AdaLN prologue and gate + residual epilogue
+(sd3_tpu/ops/attention.py:243-365, :401-471): x and c arrive raw and leave
+updated. On the fused path under int8 the image stream's q/k/v projections
+take K10a and the out-projections K10b (ops/fused_dense.py) as `tail_mode`
+allows and quant_skip does not turn them off; where a kernel declines (the
+154-token text stream) or is not allowed, `_adaln` and `_gate_res` compute
+the same math in PyTorch with the JAX fallback's roundings. The general path
+takes the tail with no kernel.
 """
 
 from __future__ import annotations
@@ -36,10 +46,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sd3_torch.config import ATTN_TAILS
 from sd3_torch.ops.flash_attention import flash_attention
 from sd3_torch.ops.fused_attention import (fold_row_tables, fused_attention,
                                            rope_row_tables)
-from sd3_torch.ops.norms import RMSNorm, linear
+from sd3_torch.ops.fused_dense import (fused_out_gate_residual_int8,
+                                       fused_qkv_adaln_int8)
+from sd3_torch.ops.norms import RMSNorm, layer_norm, linear
 from sd3_torch.ops.quant import make_linear
 from sd3_torch.ops.rope import _rotate_half_interleaved, rope2d_axial_angles
 
@@ -48,6 +61,27 @@ _GENERAL_PATH = ("is not ported yet: ROADMAP.md, port queue, 'attention "
 INT8_QK_TOKENS = (1024, 2048)  # padded joint lengths that take K4
 INT8_PV_TOKENS = 2048          # int8 P.V only above this padded length
 SOFTMAX_TYPES = ("softmax", "softmax_flash")
+QKV_X = ("query_proj_x", "key_proj_x", "value_proj_x")
+
+
+def _adaln(t, shift, scale):
+    """AdaLN from per-sample (B, dim) vectors, as the JAX tail path computes
+    it (sd3_tpu/ops/attention.py:40-46): LayerNorm(t) rounded to t's dtype,
+    then * (1 + scale) + shift in fp32, rounded again."""
+    y = layer_norm(t).float()
+    return (y * (1.0 + scale[:, None, :].float())
+            + shift[:, None, :].float()).to(t.dtype)
+
+
+def _gate_res(o, gate, res):
+    """The per-sample gate and the residual (sd3_tpu/ops/attention.py:49-56),
+    each skipped when None: o * gate in fp32 rounded to o's dtype, then
+    res + o in res's dtype."""
+    if gate is not None:
+        o = (o.float() * gate[:, None, :].float()).to(o.dtype)
+    if res is not None:
+        o = res + o.to(res.dtype)
+    return o
 
 
 def attention_core(q, k, v, attn_type: str, scale: float) -> torch.Tensor:
@@ -153,19 +187,44 @@ class JointAttention(nn.Module):
                                       for t in rope_row_tables(angles, n, hd))
         return self._tables[key]
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor, hw):
+    def forward(self, x: torch.Tensor, c: torch.Tensor, hw, tail=None,
+                tail_mode: str = "all"):
         """x: (B, N, dim) image tokens, c: (B, M, dim) text tokens, both in
         the compute dtype; hw: the image token grid (h, w), h*w == N.
-        Returns (x_out, c_out); c_out is not projected when `last`."""
+        Returns (x_out, c_out); c_out is not projected when `last`.
+
+        tail: optional dict {shift_x, scale_x, shift_c, scale_c (B, dim),
+        gate_x, gate_c (B, dim) or None, res_x (B, N, dim), res_c (B, M,
+        dim)}: the block's AdaLN prologue and gate + residual epilogue
+        (sd3_tpu/ops/attention.py:367-382). With it x and c arrive raw
+        (before AdaLN) and return updated (after the residual); when `last`,
+        c returns as res_c. tail_mode, the JAX SD3_ATTN_TAIL ("all" where
+        the JAX package's caller sets none): K10a may take the image q/k/v
+        under "all" and "qkv", K10b the out-projections under "all" and
+        "out"; "none" leaves both kernels out."""
+        if tail is not None and tail_mode not in ATTN_TAILS:
+            raise ValueError(f"tail_mode must be one of {ATTN_TAILS}, got "
+                             f"{tail_mode!r}")
         if not self.fused:
-            return self._general(x, c, tuple(hw))
+            return self._general(x, c, tuple(hw), tail)
         n, m = x.shape[1], c.shape[1]
-        q = torch.cat([linear(x, self.query_proj_x),
-                       linear(c, self.query_proj_c)], dim=1)
-        k = torch.cat([linear(x, self.key_proj_x),
-                       linear(c, self.key_proj_c)], dim=1)
-        v = torch.cat([linear(x, self.value_proj_x),
-                       linear(c, self.value_proj_c)], dim=1)
+        qkv_x = None
+        if tail is None:
+            xn, cn = x, c
+        else:
+            cn = _adaln(c, tail["shift_c"], tail["scale_c"])
+            if tail_mode in ("all", "qkv") and self._int8_ok(QKV_X):
+                raw = [t for nm in QKV_X for t in self._raw_int8(nm)]
+                qkv_x = fused_qkv_adaln_int8(x, tail["shift_x"],
+                                             tail["scale_x"], *raw)
+            if qkv_x is None:
+                xn = _adaln(x, tail["shift_x"], tail["scale_x"])
+        if qkv_x is None:
+            qkv_x = tuple(linear(xn, getattr(self, nm)) for nm in QKV_X)
+        q_x, k_x, v_x = qkv_x
+        q = torch.cat([q_x, linear(cn, self.query_proj_c)], dim=1)
+        k = torch.cat([k_x, linear(cn, self.key_proj_c)], dim=1)
+        v = torch.cat([v_x, linear(cn, self.value_proj_c)], dim=1)
         cos, sin = self._rope_tables(n, n + m, tuple(hw), x.device)
         cosq, sinq = fold_row_tables(cos, sin, self.q_norm_x.weight,
                                      self.q_norm_c.weight, n)
@@ -176,11 +235,42 @@ class JointAttention(nn.Module):
             int8_qk=int8_qk_on(self.quant, self.quant_skip, n + m),
             int8_pv=int8_pv_on(self.quant, self.quant_skip, n + m,
                                self.int8_pv))
-        out_x = linear(out[:, :n], self.out_proj_x)
-        out_c = out[:, n:]
-        if not self.last:
-            out_c = linear(out_c, self.out_proj_c)
-        return out_x, out_c
+        if tail is None:
+            out_x = linear(out[:, :n], self.out_proj_x)
+            out_c = out[:, n:]
+            if not self.last:
+                out_c = linear(out_c, self.out_proj_c)
+            return out_x, out_c
+        out_x = self._out_tail(out[:, :n], "out_proj_x", tail["gate_x"],
+                               tail["res_x"], tail_mode)
+        if self.last:
+            return out_x, tail["res_c"]
+        return out_x, self._out_tail(out[:, n:], "out_proj_c",
+                                     tail["gate_c"], tail["res_c"], tail_mode)
+
+    def _int8_ok(self, names) -> bool:
+        """The JAX `_int8_ok` (sd3_tpu/ops/attention.py:231-233): every
+        projection in `names` is int8."""
+        return (self.quant == "int8"
+                and not any(nm in self.quant_skip for nm in names))
+
+    def _raw_int8(self, name):
+        """(weight_q, weight_scale) of the Int8Linear `name`."""
+        proj = getattr(self, name)
+        return proj.weight_q, proj.weight_scale
+
+    def _out_tail(self, a, name, gate, res, tail_mode):
+        """res + gate * out-projection `name` of a: K10b where tail_mode
+        allows it, the projection is int8 and the kernel takes the shape;
+        else the projection and `_gate_res` (sd3_tpu/ops/attention.py:
+        350-358)."""
+        o = None
+        if tail_mode in ("all", "out") and self._int8_ok((name,)):
+            o = fused_out_gate_residual_int8(a, gate, res,
+                                             *self._raw_int8(name))
+        if o is None:
+            o = _gate_res(linear(a, getattr(self, name)), gate, res)
+        return o
 
     def _rope(self, t: torch.Tensor, hw) -> torch.Tensor:
         """RoPE on (B, H, N_img, D) image-token q or k, in fp32, cast back
@@ -194,8 +284,12 @@ class JointAttention(nn.Module):
         tf = t.float()
         return (tf * cos + _rotate_half_interleaved(tf) * sin).to(t.dtype)
 
-    def _general(self, x, c, hw):
-        """sd3_tpu/ops/attention.py:401-476, dual-stream and non-causal."""
+    def _general(self, x, c, hw, tail=None):
+        """sd3_tpu/ops/attention.py:401-476, dual-stream and non-causal; a
+        tail's prologue and epilogue in PyTorch, with no kernel."""
+        if tail is not None:
+            x = _adaln(x, tail["shift_x"], tail["scale_x"])
+            c = _adaln(c, tail["shift_c"], tail["scale_c"])
         b, n, _ = x.shape
         nh, hd = self.num_heads, self.dim // self.num_heads
 
@@ -217,6 +311,12 @@ class JointAttention(nn.Module):
                               self.attn_type, self.scale)
         out_x = linear(unheads(attn[:, :, :n]), self.out_proj_x)
         out_c = unheads(attn[:, :, n:])
+        if tail is not None:
+            out_x = _gate_res(out_x, tail["gate_x"], tail["res_x"])
+            if self.last:
+                return out_x, tail["res_c"]
+            return out_x, _gate_res(linear(out_c, self.out_proj_c),
+                                    tail["gate_c"], tail["res_c"])
         if not self.last:
             out_c = linear(out_c, self.out_proj_c)
         return out_x, out_c

@@ -1,6 +1,6 @@
 """Int8 SwiGLU MLP kernels (JAX counterpart: sd3_tpu/ops/fused_mlp.py).
 
-Two kernels of one CUDA source, `csrc/fused_mlp.cu`:
+Three kernels of one CUDA source, `csrc/fused_mlp.cu`:
 
 - K3 (`swiglu_int8`) replaces the TPU kernel `_kernel`: the chain
   quant(x) -> w12 -> dequant + b12 -> silu * mul -> quant(h) per (row,
@@ -8,24 +8,33 @@ Two kernels of one CUDA source, `csrc/fused_mlp.cu`:
   flattened (M, k) tokens;
 - K2 (`swiglu_int8_tail`) replaces `_kernel_tail2d`: the same chain on
   AdaLN(x) with per-sample shift / scale, then x + gate * y: the whole MLP
-  half of a block.
+  half of a block;
+- K9 (`swiglu_int8_tail3d`) replaces `_kernel_tail`, K2's function on the
+  TPU's per-sample grid (the JAX package's SD3_MLP_TAIL_FUSION=3d, here
+  `tail_fusion="3d"`, `MMDiTConfig.mlp_tail_fusion`). The grid kept a TPU
+  tile inside one sample; the Hopper launches find each row's sample as
+  r // n_tok, so K9 runs K2's device code (its own entry point and launch
+  count) on every stream, the unaligned 154-token text stream included. It
+  differs from K2 in its h_group (`pick_blocks`) and in rounding shift /
+  scale / gate to x's dtype first, as the JAX wrapper does.
 
 `h_group` is numerics, not tiling: each chunk of h is requantized with its
 own scale, and the chunk width is the TPU picker's (`pick_tail_blocks` for
-K2, `pick_block_chunk` for K3, copies of the JAX package's pickers). Both
-kernels and `swiglu_int8_plain`, the plain PyTorch version that repeats the
-arithmetic, take it as an argument.
+K2, `pick_block_chunk` for K3, `pick_blocks` for K9, copies of the JAX
+package's pickers). The kernels and `swiglu_int8_plain`, the plain PyTorch
+version that repeats the arithmetic, take it as an argument.
 
-`fused_swiglu_int8` keeps the JAX dispatch: K2 when the stream's rows can
-be tiled sample-aligned (the image stream), otherwise the PyTorch AdaLN
-prologue, K3, and the PyTorch gate and residual epilogue (the 154-token
-text stream). The Hopper kernel could index the sample of any row; the two
-routes are kept because they round differently (bf16 AdaLN output before
-quantization, bf16 gate product), and each stream is held to JAX.
+`fused_swiglu_int8` keeps the JAX dispatch: under `tail_fusion="2d"` (the
+default) K2 when the stream's rows can be tiled sample-aligned (the image
+stream), otherwise the PyTorch AdaLN prologue, K3, and the PyTorch gate and
+residual epilogue (the 154-token text stream). The Hopper kernel could index
+the sample of any row; the two routes are kept because they round
+differently (bf16 AdaLN output before quantization, bf16 gate product), and
+each stream is held to JAX. Under "3d" every block tail is K9's.
 
 Wrappers take the plain version for tensors on the CPU; on a CUDA tensor
 they launch the kernel or raise. Inference only, as `quant` is a serving
-flag in the JAX package: no VJP is ported, and both wrappers raise when an
+flag in the JAX package: no VJP is ported, and the wrappers raise when an
 input requires grad, on every device, rather than return a result cut off
 from autograd.
 """
@@ -37,6 +46,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from sd3_torch.config import MLP_TAIL_FUSIONS
 from sd3_torch.kernels import Kernel, check
 from sd3_torch.ops.quant import int_mm, quantize_rows
 
@@ -49,6 +59,8 @@ _ARGS = [_P] * 15 + [_I] * 8 + [_P]
 K2 = Kernel("swiglu_int8_tail", "fused_mlp.cu", "sd3_swiglu_int8_tail",
             _ARGS)
 K3 = Kernel("swiglu_int8", "fused_mlp.cu", "sd3_swiglu_int8", _ARGS)
+K9 = Kernel("swiglu_int8_tail3d", "fused_mlp.cu", "sd3_swiglu_int8_tail3d",
+            _ARGS)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -92,10 +104,33 @@ def pick_block_chunk(m: int, hidden: int, k: int, d_out: int
     return 256, chunks[-1]
 
 
-def _per_row(v: torch.Tensor, m: int, n_tok: int) -> torch.Tensor:
+def pick_blocks(n: int, hidden: int) -> tuple[int, int]:
+    """JAX's (bm, bc) for K9 (sd3_tpu/ops/fused_mlp.py:405-422, its default
+    SD3_FUSED_MLP_BM of 640): bc, the first of 512, 256, 128 dividing hidden,
+    is K9's h_group; bm, the per-sample token tile n is padded to, is TPU
+    blocking, which the Hopper launches do not need."""
+    bc = next((c for c in (512, 256, 128) if hidden % c == 0), 128)
+    parts = 1
+    while _round_up(-(-n // parts), 16) > 640:
+        parts += 1
+    return _round_up(-(-n // parts), 16), bc
+
+
+def per_row(v: torch.Tensor, m: int, n_tok: int) -> torch.Tensor:
     """(B, d) per-sample vectors -> (m, d) fp32, row r taking sample
     r // n_tok."""
     return v.float()[torch.arange(m, device=v.device) // n_tok]
+
+
+def adaln_rows(xf, shift, scale, n_tok: int) -> torch.Tensor:
+    """The kernels' AdaLN prologue on fp32 (M, k) rows, in fp32: LayerNorm
+    (mean, then the mean of squared deviations, eps 1e-5) * (1 + scale) +
+    shift of the row's sample."""
+    m = xf.shape[0]
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    xn = (xf - mean) * torch.rsqrt(var + LN_EPS)
+    return xn * (1.0 + per_row(scale, m, n_tok)) + per_row(shift, m, n_tok)
 
 
 def swiglu_int8_plain(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
@@ -111,10 +146,7 @@ def swiglu_int8_plain(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
     n_tok = m if n_tok is None else n_tok
     xf = x.float()
     if adaln:
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf - mean).square().mean(-1, keepdim=True)
-        xn = (xf - mean) * torch.rsqrt(var + LN_EPS)
-        xf = xn * (1.0 + _per_row(scale, m, n_tok)) + _per_row(shift, m, n_tok)
+        xf = adaln_rows(xf, shift, scale, n_tok)
     xq, sx = quantize_rows(xf)
     x12 = int_mm(xq, w12_q).float() * sx * w12_scale.float() + b12.float()
     h = F.silu(x12[:, :hidden]) * x12[:, hidden:]
@@ -126,7 +158,7 @@ def swiglu_int8_plain(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
                            ).float() * sh * s3
     y = acc + b3.float()
     if residual:
-        y = x.float() + _per_row(gate, m, n_tok) * y
+        y = x.float() + per_row(gate, m, n_tok) * y
     return y.to(x.dtype)
 
 
@@ -188,13 +220,17 @@ def _launch(kern: Kernel, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
     return out
 
 
-def _dispatch(kern, x, *args, **kw):
+def refuse_grad(kern: Kernel, *tensors) -> None:
+    """Raise when an input requires grad: the int8 kernels have no VJP."""
     if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad
-            for t in (x, *args, *kw.values())):
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{kern.name} is inference-only (int8 serving): no gradient is "
             "ported; run it under torch.no_grad() or train with quant='none'")
+
+
+def _dispatch(kern, x, *args, **kw):
+    refuse_grad(kern, x, *args, *kw.values())
     if x.device.type == "cpu":
         return swiglu_int8_plain(x, *args, **kw)
     if x.device.type != "cuda":
@@ -220,16 +256,32 @@ def swiglu_int8_tail(x, shift, scale, gate, w12_q, w12_scale, b12, w3_q,
                      n_tok=n_tok, adaln=adaln, residual=residual)
 
 
+def swiglu_int8_tail3d(x, shift, scale, gate, w12_q, w12_scale, b12, w3_q,
+                       w3_scale, b3, n_tok: int, h_group: int,
+                       adaln: bool = True, residual: bool = True
+                       ) -> torch.Tensor:
+    """K9: K2's function, [x + gate *] chain(AdaLN(x)) on (B * n_tok, k)
+    rows, on any n_tok."""
+    return _dispatch(K9, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
+                     h_group=h_group, shift=shift, scale=scale, gate=gate,
+                     n_tok=n_tok, adaln=adaln, residual=residual)
+
+
 def fused_swiglu_int8(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
                       shift=None, scale=None, gate=None,
-                      residual: bool = False) -> torch.Tensor:
+                      residual: bool = False,
+                      tail_fusion: str = "2d") -> torch.Tensor:
     """y = [x +] [gate *] (w3(silu(x1) * x2) + b3), (x1, x2) = w12(xn) + b12,
     xn = AdaLN(x, shift, scale) when given, else x; the dispatch of the JAX
-    function (sd3_tpu/ops/fused_mlp.py:486-554).
+    function (sd3_tpu/ops/fused_mlp.py:486-554), with `tail_fusion` in place
+    of its SD3_MLP_TAIL_FUSION read: "3d" sends every block tail to K9.
 
     x: (B, N, k) or (M, k); shift / scale: (B, k); gate: (B, d_out);
     w12_q: (2 * hidden, k) int8, w3_q: (d_out, hidden) int8, (out,) scales.
     Returns x.dtype."""
+    if tail_fusion not in MLP_TAIL_FUSIONS:
+        raise ValueError(f"tail_fusion must be one of {MLP_TAIL_FUSIONS}, got "
+                         f"{tail_fusion!r}")
     hidden = w12_q.shape[0] // 2
     d_out = w3_q.shape[0]
     w = (w12_q, w12_scale, b12, w3_q, w3_scale, b3)
@@ -241,6 +293,18 @@ def fused_swiglu_int8(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
     if squeeze:
         x = x[None]
     b, n, k = x.shape
+    if tail_fusion == "3d":
+        # the conditioning in x's dtype, as _fused_swiglu_3d casts it
+        cast = lambda t: None if t is None else t.to(x.dtype)
+        g = cast(gate)
+        if residual and g is None:
+            g = torch.ones((b, d_out), dtype=x.dtype, device=x.device)
+        out = swiglu_int8_tail3d(x.reshape(b * n, k), cast(shift),
+                                 cast(scale), g, *w, n_tok=n,
+                                 h_group=pick_blocks(n, hidden)[1],
+                                 adaln=shift is not None, residual=residual)
+        out = out.reshape(b, n, d_out)
+        return out[0] if squeeze else out
     blocks = pick_tail_blocks(b * n, n, hidden, k, d_out)
     if blocks is not None:
         g = gate
@@ -261,7 +325,7 @@ def fused_swiglu_int8(x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
         ln = (xf - mean) * torch.rsqrt(var + LN_EPS)
         xn = (ln * (1.0 + scale[:, None, :].float())
               + shift[:, None, :].float()).to(x.dtype)
-    y = fused_swiglu_int8(xn, *w)
+    y = fused_swiglu_int8(xn, *w)   # K3
     if gate is not None:
         y = (y.float() * gate[:, None, :].float()).to(x.dtype)
     if residual:

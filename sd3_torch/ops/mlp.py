@@ -6,11 +6,13 @@ Packed SwiGLU as in reference MLP.py and xformers' SwiGLU: w12 (in ->
 package leaves them to XLA. The parameters sit under the scope `MLP`
 (`MLP_x.MLP.w12.weight`), the reference state-dict layout.
 
-Under quant="int8" w12 and w3 are `Int8Linear`s. When both are quantized
-and hidden is a multiple of 128 (`fused_mlp_ok`, the JAX `_fused_mlp_ok`)
-the chain runs through the int8 SwiGLU kernels (ops/fused_mlp.py), which
-also take the block's AdaLN prologue and gate + residual epilogue; otherwise
-it is two int8 projections with silu * mul between them.
+Under quant="int8" w12 and w3 are `Int8Linear`s. When both are quantized,
+hidden is a multiple of 128 and `fused_mlp` is on (`fused_mlp_ok`, the JAX
+`_fused_mlp_ok`, whose SD3_NO_FUSED_MLP=1 is `fused_mlp=False`) the chain
+runs through the int8 SwiGLU kernels (ops/fused_mlp.py), which also take the
+block's AdaLN prologue and gate + residual epilogue, on the route that
+`tail_fusion` names (the JAX SD3_MLP_TAIL_FUSION); otherwise it is two int8
+projections with silu * mul between them.
 
 `swiglu_old` (flat scope) and `gelu` are not ported yet.
 """
@@ -26,9 +28,11 @@ from sd3_torch.ops.norms import linear
 from sd3_torch.ops.quant import make_linear
 
 
-def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = ()) -> bool:
-    """The int8 SwiGLU kernels serve this MLP (sd3_tpu/ops/mlp.py:44-47)."""
-    return (quant == "int8" and hidden % 128 == 0
+def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = (),
+                 fused_mlp: bool = True) -> bool:
+    """The int8 SwiGLU kernels serve this MLP (sd3_tpu/ops/mlp.py:44-47,
+    with `fused_mlp` in place of its SD3_NO_FUSED_MLP read)."""
+    return (fused_mlp and quant == "int8" and hidden % 128 == 0
             and not ({"w12", "w3"} & set(quant_skip)))
 
 
@@ -36,10 +40,12 @@ class SwiGLU(nn.Module):
     """y = w3(silu(w12(x)[..., :h]) * w12(x)[..., h:])."""
 
     def __init__(self, dim: int, hidden: int, quant: str = "none",
-                 quant_skip: tuple = (), device=None, dtype=None):
+                 quant_skip: tuple = (), fused_mlp: bool = True,
+                 tail_fusion: str = "2d", device=None, dtype=None):
         super().__init__()
         self.hidden = hidden
         self.quant, self.quant_skip = quant, tuple(quant_skip)
+        self.fused_mlp, self.tail_fusion = fused_mlp, tail_fusion
         kw = dict(quant=quant, quant_skip=self.quant_skip, device=device,
                   dtype=dtype)
         self.w12 = make_linear(dim, 2 * hidden, True, "w12", **kw)
@@ -47,7 +53,8 @@ class SwiGLU(nn.Module):
 
     @property
     def fused_ok(self) -> bool:
-        return fused_mlp_ok(self.quant, self.hidden, self.quant_skip)
+        return fused_mlp_ok(self.quant, self.hidden, self.quant_skip,
+                            self.fused_mlp)
 
     def forward(self, x: torch.Tensor, shift=None, scale=None, gate=None,
                 residual: bool = False) -> torch.Tensor:
@@ -56,7 +63,7 @@ class SwiGLU(nn.Module):
             return fused_swiglu_int8(
                 x, w12.weight_q, w12.weight_scale, w12.bias, w3.weight_q,
                 w3.weight_scale, w3.bias, shift=shift, scale=scale,
-                gate=gate, residual=residual)
+                gate=gate, residual=residual, tail_fusion=self.tail_fusion)
         if shift is not None or gate is not None or residual:
             raise ValueError("the block-tail arguments need the int8 SwiGLU "
                              "kernels (fused_ok)")
@@ -69,14 +76,17 @@ class MLP(nn.Module):
 
     def __init__(self, dim: int, hidden_scale: float = 4.0,
                  act: str = "swiglu", quant: str = "none",
-                 quant_skip: tuple = (), device=None, dtype=None):
+                 quant_skip: tuple = (), fused_mlp: bool = True,
+                 tail_fusion: str = "2d", device=None, dtype=None):
         super().__init__()
         if act != "swiglu":
             raise NotImplementedError(
                 f"MLP act={act!r} is not ported yet: ROADMAP.md, port queue, "
                 "'gelu / swiglu_old'")
         self.MLP = SwiGLU(dim, int(dim * hidden_scale), quant=quant,
-                          quant_skip=quant_skip, device=device, dtype=dtype)
+                          quant_skip=quant_skip, fused_mlp=fused_mlp,
+                          tail_fusion=tail_fusion, device=device,
+                          dtype=dtype)
 
     @property
     def fused_ok(self) -> bool:

@@ -1,4 +1,4 @@
-"""The int8 SwiGLU kernels' plain versions (K2, K3) and their dispatch held
+"""The int8 SwiGLU kernels' plain versions (K2, K3, K9) and their dispatch held
 to sd3_tpu/ops/fused_mlp.py, whose Pallas kernels run here in interpret
 mode, on the CPU, in fp32.
 
@@ -138,6 +138,76 @@ def test_unaligned_stream_fallback_matches_jax(b, n):
     _check(got, want)
 
 
+# ---- K9: the per-sample-grid block tail (SD3_MLP_TAIL_FUSION=3d) ---------
+
+@pytest.mark.parametrize("n,hidden", [(154, 4864), (1024, 4864), (14, 384),
+                                      (100, 640), (700, 256), (1, 128)])
+def test_k9_picker_matches_jax(n, hidden):
+    assert tfm.pick_blocks(n, hidden) == jfm._pick_blocks(n, hidden)
+
+
+@pytest.mark.parametrize("b,n,d,hidden", [
+    (2, 128, 64, 384),   # sample-alignable: K2's stream under "2d"
+    (3, 14, 64, 256),    # not alignable (K3 between PyTorch prologue and
+                         # epilogue under "2d"), one tile per sample here
+    (2, 100, 96, 512),   # n padded to 112 by JAX's blocking
+])
+def test_k9_plain_matches_jax(monkeypatch, b, n, d, hidden):
+    jw, tw, r = _case(d, hidden, seed=b * n + 1)
+    x = r.standard_normal((b, n, d)).astype(np.float32)
+    sh, sc, g = _cond(r, b, d, d)
+    monkeypatch.setenv("SD3_MLP_TAIL_FUSION", "3d")
+    want = jfm.fused_swiglu_int8(jnp.asarray(x), *jw, shift=jnp.asarray(sh),
+                                 scale=jnp.asarray(sc), gate=jnp.asarray(g),
+                                 residual=True)
+    before = tfm.K9.launches
+    counted = []
+    monkeypatch.setattr(tfm, "swiglu_int8_tail3d",
+                        lambda *a, _f=tfm.swiglu_int8_tail3d, **k:
+                        counted.append(k["h_group"]) or _f(*a, **k))
+    got = tfm.fused_swiglu_int8(torch.from_numpy(x), *tw,
+                                shift=torch.from_numpy(sh),
+                                scale=torch.from_numpy(sc),
+                                gate=torch.from_numpy(g), residual=True,
+                                tail_fusion="3d")
+    _check(got, want)
+    assert counted == [jfm._pick_blocks(n, hidden)[1]]
+    assert tfm.K9.launches == before   # the plain version, on the CPU
+
+
+def test_k9_rounds_the_conditioning_to_x_dtype(monkeypatch):
+    # x in bf16 with fp32 shift / scale / gate: the JAX wrapper casts them
+    # to bf16 first (sd3_tpu/ops/fused_mlp.py:443-448), so the result is
+    # not the one of the fp32 conditioning. Tolerance: both sides write a
+    # bf16 output from the same fp32 chain, summed in other orders, so an
+    # element whose int8 level moves is off by up to an ulp of the largest
+    # output, 4e-2 (measured: 0, bit-equal); rel L2 1e-3, a third of what
+    # leaving the conditioning in fp32 moves it (measured 2.9e-3).
+    b, n, d, hidden = 2, 14, 64, 256
+    jw, tw, r = _case(d, hidden, seed=31)
+    x = r.standard_normal((b, n, d)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    sh, sc, g = _cond(r, b, d, d)
+    monkeypatch.setenv("SD3_MLP_TAIL_FUSION", "3d")
+    want = jfm.fused_swiglu_int8(jnp.asarray(xb.float().numpy(), jnp.bfloat16),
+                                 *jw, shift=jnp.asarray(sh),
+                                 scale=jnp.asarray(sc), gate=jnp.asarray(g),
+                                 residual=True)
+    cond = dict(shift=torch.from_numpy(sh), scale=torch.from_numpy(sc),
+                gate=torch.from_numpy(g), residual=True)
+    got = tfm.fused_swiglu_int8(xb, *tw, **cond, tail_fusion="3d")
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, atol=4e-2, rtol=0)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-3
+    # the fp32 conditioning itself (K2's and K3's routes keep it) is further
+    unrounded = tfm.swiglu_int8_tail3d(
+        xb.reshape(b * n, d), cond["shift"], cond["scale"], cond["gate"],
+        *tw, n_tok=n, h_group=256).float().numpy().reshape(b, n, d)
+    assert np.linalg.norm(unrounded - want) / np.linalg.norm(want) > 2e-3
+
+
 def test_plain_h_group_changes_the_result():
     # h_group is numerics: a different chunk width changes every h scale
     jw, tw, r = _case(64, 512, seed=5)
@@ -151,11 +221,17 @@ def test_plain_h_group_changes_the_result():
 def test_wrappers_take_the_plain_version_on_the_cpu():
     _, tw, r = _case(64, 128, seed=6)
     x = torch.from_numpy(r.standard_normal((4, 16, 64)).astype(np.float32))
-    before = (tfm.K2.launches, tfm.K3.launches)
+    before = (tfm.K2.launches, tfm.K3.launches, tfm.K9.launches)
     tfm.fused_swiglu_int8(x, *tw)
-    tfm.fused_swiglu_int8(x, *tw, shift=torch.zeros(4, 64),
-                          scale=torch.zeros(4, 64), gate=torch.ones(4, 64),
-                          residual=True)
-    assert (tfm.K2.launches, tfm.K3.launches) == before
+    cond = dict(shift=torch.zeros(4, 64), scale=torch.zeros(4, 64),
+                gate=torch.ones(4, 64), residual=True)
+    tfm.fused_swiglu_int8(x, *tw, **cond)
+    tfm.fused_swiglu_int8(x, *tw, **cond, tail_fusion="3d")
+    assert (tfm.K2.launches, tfm.K3.launches, tfm.K9.launches) == before
     with pytest.raises(ValueError, match="device"):
         tfm.swiglu_int8(x.reshape(64, 64).to("meta"), *tw, h_group=128)
+    with pytest.raises(ValueError, match="tail_fusion"):
+        tfm.fused_swiglu_int8(x, *tw, **cond, tail_fusion="1d")
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfm.fused_swiglu_int8(x.clone().requires_grad_(), *tw, **cond,
+                              tail_fusion="3d")

@@ -1,4 +1,4 @@
-"""Kernels K1-K8b and the port's dispatch rules, with no JAX import, so the
+"""Kernels K1-K10b and the port's dispatch rules, with no JAX import, so the
 file also runs on the card's machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
@@ -9,7 +9,8 @@ K1 against its plain version: tolerance atol 1e-2, chip_smoke.py's
 ATTN_ATOL (bf16 q^, k^, p and output against fp32); K4, K2 and K3:
 chip_smoke.py's K4_ATOL and MLP limits (reasons there); K5, K6a and K6b:
 chip_smoke.py's FLASH_* limits (reasons there); K7, K7q, K8a and K8b:
-chip_smoke.py's ATTN_ATOL and K8_ATOL (reasons there).
+chip_smoke.py's ATTN_ATOL and K8_ATOL (reasons there); K9, K10a and K10b:
+chip_smoke.py's MLP and K10 limits (reasons there).
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ from sd3_torch.models.mmdit import MMDiT
 from sd3_torch.models.text_encoders import StubTextEncoders
 from sd3_torch.ops import flash_attention as tfl
 from sd3_torch.ops import fused_attention as tfa
+from sd3_torch.ops import fused_dense as tfd
 from sd3_torch.ops import fused_mlp as tfm
 from sd3_torch.ops.quant import quantize_weight
 from sd3_torch.ops.rope import rope2d_axial_angles
@@ -120,7 +122,7 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 def test_every_kernel_symbol_is_in_its_source():
     # no nvcc here: at least the C entry point each wrapper binds exists
     for k in (tfa.K1, tfa.K4, tfa.K7, tfa.K7Q, tfa.K8A, tfa.K8B, tfm.K2,
-              tfm.K3, tfl.K5, tfl.K6A, tfl.K6B):
+              tfm.K3, tfl.K5, tfl.K6A, tfl.K6B, tfm.K9, tfd.K10A, tfd.K10B):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -289,6 +291,134 @@ def test_k2_k3_refuse_what_they_do_not_take(cuda_device):
         tfm.swiglu_int8(t["x"], *w, h_group=64)
 
 
+# K9: (rows, tokens per sample, k, hidden): the 512px text stream at CFG
+# batch 2 (not sample-alignable), the image stream, and a ragged one whose
+# 64-row tiles straddle samples; h_group as K9's picker gives it
+K9_SHAPES = [(2 * 154, 154, 1216, 4864), (2 * 1024, 1024, 1216, 4864),
+             (300, 100, 64, 384)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_tok,k,hidden", K9_SHAPES)
+def test_k9_kernel_matches_plain_on_the_card(cuda_device, m, n_tok, k,
+                                             hidden):
+    t = mlp_case(m, n_tok, k, hidden, k, cuda_device, seed=3)
+    w = [t[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale", "b3")]
+    b = m // n_tok
+    counts = lambda: (tfm.K2.launches, tfm.K3.launches, tfm.K9.launches)
+    before = counts()
+    got = tfm.fused_swiglu_int8(t["x"].reshape(b, n_tok, k), *w,
+                                shift=t["shift"], scale=t["scale"],
+                                gate=t["gate"], residual=True,
+                                tail_fusion="3d").reshape(m, k)
+    torch.cuda.synchronize()
+    assert counts() == (before[0], before[1], before[2] + 1)
+    # the plain version in fp32 on the kernel's inputs: the conditioning
+    # rounded to bf16 first, as the dispatch does
+    bf = lambda n: t[n].to(torch.bfloat16).float()
+    want = tfm.swiglu_int8_plain(
+        t["x"].float(), *w, h_group=tfm.pick_blocks(n_tok, hidden)[1],
+        shift=bf("shift"), scale=bf("scale"), gate=bf("gate"), n_tok=n_tok,
+        adaln=True, residual=True)
+    err = (got.float() - want).abs().max().item()
+    rel = ((got.float() - want).norm() / want.norm()).item()
+    assert err <= 1e-2 * want.abs().max().item() and rel <= 5e-3, (err, rel)
+
+
+def dense_case(b, n, k, d_out, dev, seed=0):
+    """Seeded bf16 activations and residual, three int8 (d_out, k) weights
+    with fp32 scales, and per-sample shift / scale / gate far apart."""
+    r = np.random.default_rng(seed)
+    f = lambda *s, sd=1.0: torch.from_numpy(
+        (r.standard_normal(s) * sd).astype(np.float32))
+    ws = [quantize_weight(f(d_out, k, sd=k ** -0.5)) for _ in range(3)]
+    step = torch.arange(b, dtype=torch.float32)[:, None]
+    t = dict(x=f(b, n, k).to(torch.bfloat16),
+             res=f(b, n, d_out).to(torch.bfloat16),
+             shift=step + f(b, k, sd=0.1), scale=f(b, k, sd=0.3),
+             gate=step - 1 + f(b, d_out, sd=0.5))
+    t = {key: v.to(dev) for key, v in t.items()}
+    return t, [x.to(dev) for wq_s in ws for x in wq_s]
+
+
+# (B, N, k, d_out): the 512px image stream at CFG batch 2, a ragged one
+# (300 rows: a partial 64-row tile), k a multiple of 16 but not of 64
+DENSE_SHAPES = [(2, 1024, 1216, 1216), (3, 100, 64, 64), (2, 40, 80, 48)]
+# chip_smoke.py's K10 limits: against fp32, a bf16 output and the odd int8
+# level moved by the LayerNorm's sum order
+K10_MAX_REL, K10_REL_L2 = 1e-2, 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d_out", DENSE_SHAPES)
+def test_k10a_kernel_matches_plain_on_the_card(cuda_device, b, n, k, d_out):
+    t, ws = dense_case(b, n, k, d_out, cuda_device)
+    before = (tfd.K10A.launches, tfd.K10B.launches)
+    got = tfd.qkv_adaln_int8(t["x"], t["shift"], t["scale"], *ws)
+    torch.cuda.synchronize()
+    assert (tfd.K10A.launches, tfd.K10B.launches) == (before[0] + 1,
+                                                      before[1])
+    want = tfd.qkv_adaln_int8_plain(t["x"].float(), t["shift"], t["scale"],
+                                    *ws)
+    for g, w in zip(got, want):
+        assert g.shape == (b, n, d_out) and g.dtype == torch.bfloat16
+        err = (g.float() - w).abs().max().item()
+        rel = ((g.float() - w).norm() / w.norm()).item()
+        assert (err <= K10_MAX_REL * w.abs().max().item()
+                and rel <= K10_REL_L2), (err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated,residual", [(True, True), (False, False)])
+@pytest.mark.parametrize("b,n,k,d_out", DENSE_SHAPES)
+def test_k10b_kernel_matches_plain_on_the_card(cuda_device, b, n, k, d_out,
+                                               gated, residual):
+    # a is the image half of a longer joint sequence, read in place
+    t, ws = dense_case(b, n, k, d_out, cuda_device, seed=1)
+    joint = torch.cat([t["x"], t["x"][:, :7]], dim=1)
+    a = joint[:, :n]
+    gate = t["gate"] if gated else None
+    res = t["res"] if residual else None
+    before = (tfd.K10A.launches, tfd.K10B.launches)
+    got = tfd.out_gate_residual_int8(a, gate, res, *ws[:2])
+    torch.cuda.synchronize()
+    assert (tfd.K10A.launches, tfd.K10B.launches) == (before[0],
+                                                      before[1] + 1)
+    want = tfd.out_gate_residual_int8_plain(
+        a.float(), gate, None if res is None else res.float(), *ws[:2])
+    err = (got.float() - want).abs().max().item()
+    rel = ((got.float() - want).norm() / want.norm()).item()
+    assert err <= K10_MAX_REL * want.abs().max().item() and rel <= K10_REL_L2
+    # on the same bf16 values with a bf16 output it repeats the plain
+    # version's arithmetic: only the int8 products' sums are the kernel's
+    same = tfd.out_gate_residual_int8_plain(a, gate, res, *ws[:2])
+    assert ((got.float() - same.float()).norm() / same.float().norm()
+            ).item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
+    t, ws = dense_case(2, 8, 64, 64, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfd.qkv_adaln_int8(t["x"].float(), t["shift"], t["scale"], *ws)
+    with pytest.raises(TypeError, match="int8"):
+        tfd.out_gate_residual_int8(t["x"], None, None, ws[0].float(), ws[1])
+    with pytest.raises(TypeError, match="int8"):   # k of another width
+        tfd.out_gate_residual_int8(t["x"], None, None, ws[0][:, :32], ws[1])
+    x = torch.zeros(2, 8, 40, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(64, 40, device=cuda_device, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        tfd.out_gate_residual_int8(x, None, None, w, ws[1])
+    with pytest.raises(ValueError, match="shift"):
+        tfd.qkv_adaln_int8(t["x"], t["shift"][:1], t["scale"], *ws)
+    m = mlp_case(32, 16, 64, 128, 64, cuda_device)
+    mw = [m[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale",
+                         "b3")]
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfm.swiglu_int8_tail3d(m["x"].float(), m["shift"], m["scale"],
+                               m["gate"], *mw, n_tok=16, h_group=128)
+
+
 @pytest.mark.cuda
 def test_k1_refuses_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 8, 32, device=cuda_device)
@@ -437,9 +567,10 @@ def test_flash_refuses_what_it_does_not_take(cuda_device):
 
 
 def test_k1_carries_gradients_and_inference_kernels_refuse_them():
-    # K1 is an autograd Function (its plain version here); K4, K2 and K3
-    # are serving kernels and raise when an input requires grad, on every
-    # device, rather than return a result cut off from autograd
+    # K1 is an autograd Function (its plain version here); K4, K2, K3, K9,
+    # K10a and K10b are serving kernels and raise when an input requires
+    # grad, on every device, rather than return a result cut off from
+    # autograd
     q, k, v, ws, angles, n_img, scale = _attn_case(2, 16, 2, 4, 4, True)
     qt = _t(q).requires_grad_()
     wt = [_t(a) for a in ws]
@@ -462,5 +593,14 @@ def test_k1_carries_gradients_and_inference_kernels_refuse_them():
     with pytest.raises(NotImplementedError, match="inference-only"):
         tfm.swiglu_int8_tail(x, t["shift"], t["scale"], t["gate"], *w,
                              n_tok=32, h_group=128)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfm.swiglu_int8_tail3d(x, t["shift"], t["scale"], t["gate"], *w,
+                               n_tok=32, h_group=128)
     with torch.no_grad():
         assert tfm.swiglu_int8(x, *w, h_group=128).shape == (32, 64)
+    d, ws = dense_case(2, 8, 64, 64, "cpu")
+    xg = d["x"].float().requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfd.qkv_adaln_int8(xg, d["shift"], d["scale"], *ws)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        tfd.out_gate_residual_int8(xg, d["gate"], None, *ws[:2])

@@ -26,6 +26,7 @@ from sd3_tpu.training.checkpoint import import_torch_state_dict
 from sd3_torch.config import MMDiTConfig, published_config, tiny_config
 from sd3_torch.models.mmdit import DualStreamBlock, MMDiT
 from sd3_torch.ops import fused_attention as tfa
+from sd3_torch.ops import fused_dense as tfd
 from sd3_torch.ops import fused_mlp as tfm
 from sd3_torch.ops.fused_attention import K1
 from sd3_torch.weights import load_reference_state_dict, state_dict_from_jax
@@ -170,29 +171,37 @@ INT8_CFG = dict(attn_type="softmax_flash", dim=64, hidden_scale=2.0,
                 num_heads=2, num_blocks=2)
 
 
-def _int8_pair(hw, seed, int8_pv=False, **kw):
+def _int8_pair(hw, seed, int8_pv=False, port=None, **kw):
     """(JAX int8 model, its quantized params, JAX float model, float params,
     the port's int8 model with the same int8 weights; with int8_pv the
-    port's config opts in to int8 P.V)."""
+    port's config opts in to int8 P.V; `port` holds further fields of the
+    port's config only)."""
     jcfg = j_tiny_config(**{**INT8_CFG, **kw})
     jm, params = init_mmdit(jcfg, jax.random.PRNGKey(seed), height=hw,
                             width=hw, remat_blocks=False)
     qparams = quantize_params(params, quant_skip=jcfg.quant_skip)
     jq = JMMDiT(jcfg.replace(quant="int8"), remat_blocks=False)
     cfg = MMDiTConfig.from_json(jcfg.to_json(), quant="int8",
-                                quant_skip=jcfg.quant_skip, int8_pv=int8_pv)
+                                quant_skip=jcfg.quant_skip, int8_pv=int8_pv,
+                                **(port or {}))
     model = MMDiT(cfg, device="cpu").eval()
     model.load_state_dict(state_dict_from_jax(qparams), strict=True)
     return jq, qparams, jm, params, model
 
 
-def _count_routes(monkeypatch):
-    """Count the plain versions the CPU forward takes, by kernel."""
-    counts = dict.fromkeys(("K1", "K2", "K3", "K4"), 0)
-    for mod, name, key in ((tfa, "composition", "K1"),
-                           (tfa, "composition_int8_qk", "K4"),
-                           (tfm, "swiglu_int8_tail", "K2"),
-                           (tfm, "swiglu_int8", "K3")):
+ROUTES = {"K1": (tfa, "composition"), "K4": (tfa, "composition_int8_qk"),
+          "K2": (tfm, "swiglu_int8_tail"), "K3": (tfm, "swiglu_int8"),
+          "K9": (tfm, "swiglu_int8_tail3d"),
+          "K10a": (tfd, "qkv_adaln_int8"),
+          "K10b": (tfd, "out_gate_residual_int8")}
+
+
+def _count_routes(monkeypatch, keys=("K1", "K2", "K3", "K4")):
+    """Count the kernel wrappers (on the CPU: their plain versions) the
+    forward takes, by kernel."""
+    counts = dict.fromkeys(keys, 0)
+    for key in keys:
+        mod, name = ROUTES[key]
         fn = getattr(mod, name)
 
         def counted(*a, _fn=fn, _key=key, **k):
@@ -203,7 +212,7 @@ def _count_routes(monkeypatch):
 
 
 def _int8_run_and_check(monkeypatch, hw, seed, int8_pv=False,
-                        count=None, **kw):
+                        count=None, port=None, **kw):
     """One forward of the JAX int8 model and the port's on the same inputs;
     returns the port's route counts. Tolerance: w8a8 quantization is
     discontinuous. The two frameworks sum RMSNorm, LayerNorm and the
@@ -213,7 +222,8 @@ def _int8_run_and_check(monkeypatch, hw, seed, int8_pv=False,
     next layer, where it moves more. So the port is held by rel L2 <= 1e-2,
     and to at most half of what separates JAX's own float model from its
     int8 one: a port that skipped or misplaced a quantization fails."""
-    jq, qparams, jm, params, model = _int8_pair(hw, seed, int8_pv, **kw)
+    jq, qparams, jm, params, model = _int8_pair(hw, seed, int8_pv, port,
+                                                **kw)
     assert (isinstance(model.blocks[0].MLP_x.MLP.w3, torch.nn.Linear)
             == ("w3" in jq.cfg.quant_skip))
     x, t, c, cp = _inputs(jq.cfg, h=hw, w=hw, seed=seed + 1)
@@ -253,6 +263,73 @@ def test_int8_quant_skip_turns_routes_off(monkeypatch):
     counts = _int8_run_and_check(monkeypatch, hw=16, seed=25,
                                  quant_skip=("w3", "attn_qk"))
     assert counts == dict(K1=2, K2=0, K3=0, K4=0)
+
+
+# The opt-in int8 block tails: the JAX package's env flags against the
+# port's config fields, on the int8 model above at 16x16 latents, where the
+# image stream (2 samples of 64 tokens, 128 rows) tiles sample-aligned for
+# K10a and K10b and the 14-token text stream does not (their fallbacks, and
+# K9 under "3d"); the last block has no text MLP and no text
+# out-projection. Tolerance: `_int8_run_and_check`'s.
+TAIL_ROUTES = ("K1", "K2", "K3", "K4", "K9", "K10a", "K10b")
+TAIL_CASES = [
+    # (attn_type, port config fields, JAX env, routes other than zero)
+    ("softmax_flash", dict(attn_tail="all", mlp_tail_fusion="3d"),
+     dict(SD3_ATTN_TAIL="all", SD3_MLP_TAIL_FUSION="3d"),
+     dict(K1=2, K9=3, K10a=2, K10b=2)),
+    ("softmax_flash", dict(attn_tail="qkv"), dict(SD3_ATTN_TAIL="qkv"),
+     dict(K1=2, K2=2, K3=1, K10a=2)),
+    ("softmax_flash", dict(attn_tail="out"), dict(SD3_ATTN_TAIL="out"),
+     dict(K1=2, K2=2, K3=1, K10b=2)),
+    ("softmax_flash", dict(mlp_tail_fusion="3d"),
+     dict(SD3_MLP_TAIL_FUSION="3d"), dict(K1=2, K9=3)),
+    ("softmax_flash", dict(attn_tail="all", mlp_tail=False),
+     dict(SD3_ATTN_TAIL="all", SD3_NO_MLP_TAIL="1"),
+     dict(K1=2, K3=3, K10a=2, K10b=2)),
+    ("softmax_flash", dict(attn_tail="all", fused_mlp=False),
+     dict(SD3_ATTN_TAIL="all", SD3_NO_FUSED_MLP="1"),
+     dict(K1=2, K10a=2, K10b=2)),
+    ("softmax", dict(attn_tail="all", mlp_tail_fusion="3d"),
+     dict(SD3_ATTN_TAIL="all", SD3_MLP_TAIL_FUSION="3d"), dict(K9=3)),
+]
+
+
+@pytest.mark.parametrize("attn_type,port,env,routes", TAIL_CASES, ids=[
+    "all-3d", "qkv", "out", "3d", "all-no_mlp_tail", "all-no_fused_mlp",
+    "softmax-all-3d"])
+def test_int8_block_tails_match_jax(monkeypatch, attn_type, port, env,
+                                    routes):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    counts = _int8_run_and_check(
+        monkeypatch, hw=16, seed=27, port=port, attn_type=attn_type,
+        count=lambda mp: _count_routes(mp, TAIL_ROUTES))
+    assert counts == {**dict.fromkeys(TAIL_ROUTES, 0), **routes}
+
+
+def test_int8_attn_tail_quant_skip_turns_k10_off(monkeypatch):
+    # a skipped image projection keeps its kernel out: "key_proj_x" K10a
+    # (the three take one kernel), "out_proj_x" K10b; the text out-projection
+    # declines the 14-token stream, so neither kernel runs
+    monkeypatch.setenv("SD3_ATTN_TAIL", "all")
+    counts = _int8_run_and_check(
+        monkeypatch, hw=16, seed=29, port=dict(attn_tail="all"),
+        quant_skip=("key_proj_x", "out_proj_x"),
+        count=lambda mp: _count_routes(mp, TAIL_ROUTES))
+    assert counts == dict(K1=2, K2=2, K3=1, K4=0, K9=0, K10a=0, K10b=0)
+
+
+def test_block_tail_fields_are_runtime_choices():
+    # validated, and, as quant and int8_pv, not written to the params JSON
+    for bad in (dict(attn_tail="qv"), dict(mlp_tail_fusion="1d")):
+        with pytest.raises(ValueError):
+            tiny_config(**bad)
+    cfg = tiny_config(attn_tail="all", mlp_tail_fusion="3d", mlp_tail=False,
+                      fused_mlp=False)
+    back = MMDiTConfig.from_json(cfg.to_json())
+    assert (back.attn_tail, back.mlp_tail_fusion, back.mlp_tail,
+            back.fused_mlp) == ("none", "2d", True, True)
+    assert cfg.to_json() == tiny_config().to_json()
 
 
 @pytest.mark.parametrize("kw", [dict(text_loss=True), dict(MLP_type="swiglu_old"),

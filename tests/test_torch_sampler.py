@@ -26,6 +26,7 @@ from sd3_torch.inference.sampler import (make_velocity_fn, sample_imgs,
                                          sample_latents)
 from sd3_torch.models import text_encoders as ttext
 from sd3_torch.models.mmdit import MMDiT
+from sd3_torch.ops import fused_dense as tfd
 from sd3_torch.weights import state_dict_from_jax
 
 ATOL, RTOL = 2e-4, 2e-3
@@ -265,3 +266,32 @@ def test_infer_cli_int8_pv_past_2048_tokens(tmp_path):
     assert (tmp_path / "p_0.png").is_file()
     assert not np.array_equal(q8, pv)
     assert np.linalg.norm(pv - q8) / np.linalg.norm(q8) < 0.05
+
+
+def test_infer_cli_int8_block_tails(tmp_path, monkeypatch):
+    # the block-tail flags ride --quant int8 only; at 128px (64 image tokens
+    # a sample, CFG batch 4) the image stream takes K10a / K10b's routes.
+    # In fp32 the tails' roundings are no-ops, so the latents stay within
+    # 1e-4 relative of the int8 run without them (the int8 levels alone
+    # could move one of them: their sums are taken in another order)
+    args = _write_reference_checkpoint(tmp_path) + [
+        "--device", "cpu", "--width", "128", "--height", "128",
+        "--quant", "int8"]
+    for flag in (["--attn_tail", "all"], ["--mlp_tail_fusion", "3d"],
+                 ["--no_mlp_tail"], ["--no_fused_mlp"]):
+        with pytest.raises(SystemExit):
+            tinfer.main(_write_reference_checkpoint(tmp_path) + [
+                "--device", "cpu"] + flag)
+    tinfer.main(args + ["--out_imgname", str(tmp_path / "a"),
+                        "--save_latents", str(tmp_path / "a.npy")])
+    calls = []
+    monkeypatch.setattr(tfd, "qkv_adaln_int8",
+                        lambda *a, _f=tfd.qkv_adaln_int8: calls.append(1)
+                        or _f(*a))
+    tinfer.main(args + ["--attn_tail", "all", "--mlp_tail_fusion", "3d",
+                        "--no_mlp_tail", "--out_imgname", str(tmp_path / "t"),
+                        "--save_latents", str(tmp_path / "t.npy")])
+    assert len(calls) == 2 * 2   # 2 blocks x 2 steps
+    q8, tl = np.load(tmp_path / "a.npy"), np.load(tmp_path / "t.npy")
+    assert (tmp_path / "t_1.png").is_file() and np.isfinite(tl).all()
+    assert np.linalg.norm(tl - q8) / np.linalg.norm(q8) < 1e-4
