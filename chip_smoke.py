@@ -7,14 +7,19 @@ Phases (any failure exits non-zero without the final ok line):
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 off for fp32 matmuls and convolutions;
   2. build every kernel from sd3_torch/csrc (one nvcc per source, in
-     parallel) and print the compiler's register / shared-memory report;
+     parallel; attention_sm90.cu encodes its TMA descriptors through the
+     runtime's driver entry point, so nothing links libcuda) and print the
+     compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
-     inputs: K1 (fused joint attention) at the 512px slice shape, a ragged
-     shape with odd H and a NoPE shape; K4 (its int8-QK^T variant) and K8a
+     inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
+     the 512px slice shape, a ragged shape with odd H and a NoPE shape; K4
+     (its int8-QK^T variant) and K8a
      (int8 P.V over bf16 and over K4's scores) at the slice and a ragged
-     shape; K7 (streaming attention), K7q (its int8-QK^T branch) and K8b
-     (int8 P.V over K7's and over K7q's scores) at the 1024px shape and a
-     ragged shape just past 2048 tokens; the public attention entry point
+     shape; K7 (streaming attention, K1's kernel with an online softmax,
+     compared over its 128-key tiles), K7q (its int8-QK^T branch) and K8b
+     (int8 P.V over K7's and over K7q's scores; 64-key tiles) at the 1024px
+     shape and a ragged shape just past 2048 tokens; the public attention
+     entry point
      once per kernel (K7q and K8a are reached only there); K3 (int8
      SwiGLU) at the text stream and a ragged shape; K2 (int8 SwiGLU block
      tail) at the image stream and a shape whose tiles straddle samples; K9
@@ -27,7 +32,9 @@ Phases (any failure exits non-zero without the final ok line):
      plain-version and library times (attention: scaled_dot_product_attention
      on bf16, forward or backward; K10a / K10b: torch._int_mm of the
      pre-quantized activations, the GEMM alone; yardsticks only), and the
-     bound. Then K1's backward (K5, K6a, K6b under its autograd Function)
+     bound: the largest of the operations at the tensor-core rate, the
+     bytes, and for attention the exp2s at the SFU's rate. Then K1's
+     backward (K5, K6a, K6b under its autograd Function)
      against the fp32 composition's autograd;
   4. the published widths at a depth of 2 blocks on the card against the
      same weights in fp32 on the CPU (the plain path): 512px, batch 2, the
@@ -60,8 +67,9 @@ Phases (any failure exits non-zero without the final ok line):
      and K1-K4 0 times; one more step under torch.profiler. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
-  12. one JSON line {"kernels": [...]} per ported kernel, then the last line
-     {"ok": true, "device": {...}}.
+  12. one JSON line {"kernels": [...]} per ported kernel (with its design:
+     wgmma + TMA warp-specialised, or mma.sync over a two-stage cp.async
+     ring), then the last line {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
 """
@@ -92,8 +100,9 @@ ATTN_ATOL = 1e-2
 # an output of magnitude <= 2, 1e-2.
 K4_ATOL = 3e-2
 INT8_SAME_ROUNDING_ATOL = 1e-2
-# K7 and K7q against the fp32 plain version over the kernel's 64-key tiles:
-# K1's roundings (bf16 q^, k^ and p, a bf16 output), ATTN_ATOL. K7q
+# K7 and K7q against the fp32 plain version over the kernel's key tiles
+# (K7: fa.K7_KEY_TILE, K7q: fa.INT8_KEY_TILE): K1's roundings (bf16 q^, k^
+# and p, a bf16 output), ATTN_ATOL. K7q
 # quantizes q^ and k^ from fp32 in both, so only the odd element whose
 # fp32 prep sums land on the other side of an int8 rounding boundary moves
 # (one level: a score change of ~1e-2 on one key). The online softmax runs
@@ -183,6 +192,11 @@ TRAIN_UPDATE_REL_L2 = 0.4
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# The softmax's exp2s run on the SFU: 16 ex2 per SM per clock against the
+# tensor cores' 4096 bf16 FLOP, so their peak rate is 1/256 of the FLOP
+# rate. At D = 64 one score costs 4D = 256 FLOP in the two products, so the
+# exp2s bound the attention kernels as tightly as their products.
+PEAK_EXP2 = PEAK_BF16_FLOPS / 256
 
 SLICE = dict(b=8, h=32, w=32, n_txt=154, heads=19, d=64, rope=True)
 RAGGED = dict(b=2, h=5, w=7, n_txt=12, heads=3, d=32, rope=True)
@@ -276,6 +290,18 @@ ATTN_NAMES = {(False, False, False): "K1", (True, False, False): "K4",
               (False, True, True): "K8b", (True, True, True): "K8b over K7q"}
 
 
+def bound(t_ops, t_bytes, t_exp=0.0) -> dict:
+    """The least time of a kernel's work (seconds in, ms out): the largest
+    of its products at the tensor-core rate, its exp2s at the SFU's and its
+    bytes. bound_by is "bytes" or "operations" (both rates are operations
+    over their peak); bound_term names the term: tensor, exp2 or bytes."""
+    terms = {"tensor": t_ops, "exp2": t_exp, "bytes": t_bytes}
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term] * 1e3,
+                bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term)
+
+
 def attn_inputs(shape, gen):
     """bf16 q, k, v (B, N, H*D), the norm weights and the folded tables of
     one attention shape, on the card."""
@@ -322,9 +348,11 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     else:
         plain = fa.composition_int8_qk if int8_qk else fa.composition
     # the plain versions take int8_pv where they have it; the streaming ones
-    # are compared over the kernel's 64-key tiles, timed with JAX's blocks
+    # are compared over the kernel's key tiles (K7's, or the 64 of K7q and
+    # K8b), timed with JAX's blocks
     kw = dict(int8_pv=True) if int8_pv else {}
-    cmp_kw = dict(kw, block_k=64) if streaming else kw
+    tile = fa.INT8_KEY_TILE if int8_qk or int8_pv else fa.K7_KEY_TILE
+    cmp_kw = dict(kw, block_k=tile) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
                                        int8_qk=int8_qk, int8_pv=int8_pv)
     run_plain = lambda: plain(q, k, v, *tables, scale, eps, eps, nh, **kw)
@@ -356,10 +384,12 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     plain_ms = cuda_ms(run_plain, iters=3, groups=3)
     library_ms = cuda_ms(run_lib)
     # QK^T and P.V, 2*B*H*N^2*D operations each, at the int8 rate where the
-    # kernel's product is int8 (K8a's second score pass is its own choice)
+    # kernel's product is int8 (K8a's second score pass is its own choice);
+    # one exp2 per score
     prod = 2.0 * b * nh * n * n * d
     rate = lambda int8: PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS
     t_ops = prod / rate(int8_qk) + prod / rate(int8_pv)
+    t_exp = 1.0 * b * nh * n * n / PEAK_EXP2
     nbytes = 4.0 * b * n * nh * d * 2 + 4.0 * n * d * 4  # q, k, v, out + tables
     t_bytes = nbytes / PEAK_BYTES
     res = dict(shape=f"B={b} N={n} n_img={n_img} H={nh} D={d} "
@@ -368,9 +398,7 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
                kernel_vs_plain_bf16_max_abs_err=(
                    got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-               library_ms=library_ms,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               library_ms=library_ms, **bound(t_ops, t_bytes, t_exp))
     print(f"  {name}", json.dumps(res), flush=True)
     atol = (K8_ATOL if int8_pv else K4_ATOL if int8_qk and not streaming
             else ATTN_ATOL)
@@ -473,8 +501,7 @@ def phase_mlp(shape, gen, kind):
                f"h_group={h_group}", max_abs_err=err, max_rel_err=rel,
                rel_l2=rel_l2, kernel_vs_plain_bf16_rel_l2=same_l2, ms=ms,
                eager_ms=eager_ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=max(t_ops, t_bytes) * 1e3,
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
+               **bound(t_ops, t_bytes))
     print(f"  {name}", json.dumps(res), flush=True)
     require(rel <= MLP_MAX_REL and rel_l2 <= MLP_REL_L2,
             f"{name} max err {rel} x max|plain| (limit {MLP_MAX_REL}), rel L2 "
@@ -547,8 +574,7 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
     res_d = dict(shape=label, **e, kernel_vs_plain_bf16_rel_l2=same_l2,
                  ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                 library_ms=library_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+                 library_ms=library_ms, **bound(t_ops, t_bytes))
     print(f"  {name}", json.dumps(res_d), flush=True)
     require(e["max_rel_err"] <= K10_MAX_REL and e["rel_l2"] <= K10_REL_L2,
             f"{name} max err {e['max_rel_err']} x max|plain| (limit "
@@ -605,6 +631,8 @@ def phase_flash(shape, gen):
     lib_bwd = cuda_ms(sdpa_fwd_bwd, graph=False) - cuda_ms(sdpa, graph=False)
     one, stat = b * h * n * d * 2, b * h * n * 4  # bytes: a bf16 tensor, lse
     bh_nnd = b * h * n * n * d
+    # each kernel takes exp2 of every score once (K6a, K6b recompute p)
+    t_exp = 1.0 * b * h * n * n / PEAK_EXP2
     runs = dict(  # kernel, plain version, products of 2*B*H*N^2*D, bytes, lib
         K5=(lambda: fl.flash_fwd(q, k, v, scale),
             lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
@@ -625,8 +653,7 @@ def phase_flash(shape, gen):
                                                                    "delta")),
                    ms=cuda_ms(run), eager_ms=cuda_ms(run, graph=False),
                    plain_ms=cuda_ms(plain, iters=3, groups=3), library_ms=lib,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   **bound(t_ops, t_bytes, t_exp))
         print(f"  {name}", json.dumps(res), flush=True)
         results[name] = res
     out_err = errs["K5"]["out"]["max_abs_err"]
@@ -1121,7 +1148,7 @@ INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_kernel|w3_gemm_kernel|"
                          r"dense_int8_kernel)<(?:\d+, )?(\d+)>")
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
-STREAM_FAMILIES = {"false, false, false>": "K7", "true, false, false>": "K7q",
+STREAM_FAMILIES = {"true, false, false>": "K7q",
                    "false, true, false>": "K8b", "true, true, false>": "K8b",
                    "false, true, true>": "K8a", "true, true, true>": "K8a"}
 
@@ -1129,20 +1156,24 @@ STREAM_FAMILIES = {"false, false, false>": "K7", "true, false, false>": "K7q",
 def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2, K3, K9, K10a and K10b by the template tag of their
-    launches, INT8_LAUNCH; K4 is k_prep_kernel<D, true> with its quantize and attention
-    kernels; K7, K7q, K8a, K8b the instantiations of attn_stream_kernel,
-    with the V prep of int8 P.V in K8b and the per-row K prep in K7q; the
-    bf16 K prep k_prep_kernel<D, false>, which K1, K7 and K8b share, goes to
-    `bf16_prep`; K5, K6a, K6b are fwd_kernel, dq_kernel, dkv_kernel of
+    launches, INT8_LAUNCH; K1 and K7 are attn_sm90_kernel<D, Softmax::
+    Bounded> and <D, Softmax::Online>; K4 is k_prep_kernel<D, true> with its
+    quantize and attention kernels; K7q, K8a, K8b the instantiations of
+    attn_stream_kernel, with the V prep of int8 P.V in K8b and the per-row K
+    prep in K7q; the bf16 K prep k_prep_kernel<D, false>, which K1, K7 and
+    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K5, K6a, K6b
+    are fwd_kernel, dq_kernel, dkv_kernel of
     flash_attention.cu), int8 and other GEMMs, and the rest."""
     low = name.lower()
     for fam, fn in (("K6b", "dkv_kernel"), ("K6a", "dq_kernel"),
                     ("K5", "fwd_kernel")):
         if f"::{fn}<" in name or f"{fn}ILi" in name:
             return fam
+    if "attn_sm90_kernel" in name:
+        return "K7" if "Online" in name else "K1"
     if "attn_stream_kernel" in name:
         return next((f for args, f in STREAM_FAMILIES.items() if args in name),
-                    "K7")
+                    "other")
     if "v_amax_kernel" in name or "v_quant_kernel" in name:
         return "K8b"
     if "k_prep_q8rows_kernel" in name:
@@ -1150,10 +1181,8 @@ def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     if "attn_int8_kernel" in name or "k_quant_kernel" in name or (
             "k_prep_kernel" in name and "true>" in name):
         return "K4"
-    if "k_prep_kernel" in name:
+    if "k_prep_kernel" in name or "q_prep_kernel" in name:
         return bf16_prep
-    if "attn_kernel" in name:
-        return "K1"
     m = INT8_LAUNCH.search(name)
     if m:
         return INT8_FAMILIES[m.group(1)]
@@ -1296,7 +1325,7 @@ def main() -> int:
         rows = [  # (kernel, phase-3 result at the slice shape, source,
                   #  TPU kernel it replaces, the run it launched in and how
                   #  that run counts launches)
-            (fused_attention.K1, k1[0], "fused_attention.cu",
+            (fused_attention.K1, k1[0], "attention_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:135", sample, per_call),
             (fused_mlp.K2, k2[0], "fused_mlp.cu",
              "sd3_tpu/ops/fused_mlp.py:212", sample8, per_call),
@@ -1310,7 +1339,7 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", train, per_step),
             (flash_attention.K6B, k56[0]["K6b"], "flash_attention.cu",
              "sd3_tpu/ops/flash_attention.py:222", train, per_step),
-            (fused_attention.K7, k7[0], "stream_attention.cu",
+            (fused_attention.K7, k7[0], "attention_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:312", sample_1024, per_call),
             # K7q and K8a: the model never takes them (as in JAX); their
             # launches are those of the attention API phase
@@ -1333,7 +1362,11 @@ def main() -> int:
             "launches": count(run)[kern.name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+            "bound_by": r["bound_by"], "bound_term": r["bound_term"],
+            "library_ms": r["library_ms"],
+            "design": ("wgmma+TMA, warp-specialised"
+                       if src == "attention_sm90.cu"
+                       else "mma.sync, 2-stage cp.async")}
             for kern, r, src, tpu, run, count in rows]}
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)

@@ -1,14 +1,15 @@
-// What the fused-attention kernels share (fused_attention.cu: K1, K4;
-// stream_attention.cu: K7, K7q, K8a, K8b): their tiling, the q / k prep
-// (per-head RMSNorm and the folded-weight interleaved-pair rotation), int8
-// rounding, the K prep launches.
+// What the fused-attention kernels share (attention_sm90.cu: K1, K7;
+// fused_attention.cu: K4; stream_attention.cu: K7q, K8a, K8b): the q / k
+// prep (per-head RMSNorm and the folded-weight interleaved-pair rotation),
+// int8 rounding, the K prep launches, and the tiling of the mma.sync ones
+// (K4, K7q, K8a, K8b; INT8_KEY_TILE in ops/fused_attention.py is BK).
 #pragma once
 
 #include "mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per attention block
+constexpr int BQ = 64;          // query rows per mma.sync attention block
 constexpr int BK = 64;          // key rows per shared-memory tile
 constexpr int WARPS = 4;        // 16 query rows per warp
 constexpr int THREADS = WARPS * 32;

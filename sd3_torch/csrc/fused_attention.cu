@@ -1,272 +1,52 @@
-// Fused joint [image || text] attention with per-head q/k RMSNorm and
-// image-only RoPE, bf16, for NVIDIA Hopper (sm_90a).
+// K4: fused joint [image || text] attention with per-head q/k RMSNorm,
+// image-only RoPE and int8 QK^T, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel sd3_tpu/ops/fused_attention.py::_fused_fwd_kernel
-// (bf16 branch), reached through _pallas_fused / fused_dual_flash_attention.
+// Replaces the int8_qk branch of the TPU kernel
+// sd3_tpu/ops/fused_attention.py::_fused_fwd_kernel (:193; the serving path
+// for 1024 to 2048 padded tokens), reached through _pallas_fused /
+// fused_dual_flash_attention. Its bf16 branch, K1, is attention_sm90.cu.
 //
 // What it computes, per (batch b, head h), on raw projections q, k, v laid
-// out (B, N, H*D):
-//   q^ = rms(q) (x) (cq, sq)    k^ = rms(k) (x) (ck, sk)
-//   o  = softmax_2(q^ k^T) v
-// where rms is RMSNorm over the head dim (eps given, the input dtype's eps)
-// and x (x) (c, s) = x*c + rot(x)*s with the interleaved-pair rotation
-// rot(x0, x1) = (-x1, x0). The per-stream norm weights are folded into the
-// (N, D) tables by the caller (text rows: c = W, s = 0), and so are the
-// softmax scale and log2(e) on the q side, so the softmax runs in exp2.
-//
-// Softmax: the BOUNDED shift of the TPU kernel, not an online max. RMSNorm
-// bounds every score: |q^.k^| <= ||q^_row|| * max_rows ||k^|| (Cauchy-
-// Schwarz), so p = exp2(s - ||q^|| * max||k^||) never overflows, the shift is
-// known before the first key tile and no running rescale of the output is
-// needed: o = (sum_j p_j v_j) / (sum_j p_j). Both norms come from the fp32
-// prepped values; q^, k^ and p are rounded to bf16 before each product, as
-// the TPU kernel does. Padded keys are masked (p = 0).
-//
-// Two launches:
-//   1. k_prep_kernel: RMSNorm + rotation of every K row, written back in bf16
-//      in the input layout, and max ||k^||^2 per (b, h) by atomicMax on the
-//      float bits (non-negative floats order like their int bits).
-//   2. attn_kernel: one block of 4 warps per (64 query rows, h, b). It preps
-//      its own q tile into shared memory, then loops over 64-row K / V tiles
-//      double-buffered in shared memory by cp.async; QK^T and PV run on the
-//      tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate), each
-//      warp owning 16 query rows as in FlashAttention-2, V's fragments read
-//      with ldmatrix.trans from the row-major tile.
-//
-// What bounds it on this card: at the 512px shape (B=8, N=1178, H=19, D=64)
-// one call is 4*B*H*N^2*D = 54 GFLOP against ~92 MB of q/k/v/o traffic, so
-// the tensor-core rate bounds it (~55 us at 989 TFLOP/s, against ~27 us for
-// the bytes). This version is the simple, right one: mma.sync rather than
-// wgmma, a two-stage cp.async ring rather than TMA and warp specialisation,
-// so it runs well below that bound; the later work is a wgmma + TMA
-// pipeline.
-//
-// K4, the int8-QK^T variant (sd3_fused_attention_int8qk), replaces the
-// int8_qk branch of the same TPU kernel (the serving path for 1024 to 2048
-// padded tokens). Its scores are s8 x s8 -> s32 products:
+// out (B, N, H*D): K1's prep (attention_common.cuh: q^ = rms(q) (x) (cq,
+// sq), k^ = rms(k) (x) (ck, sk), RMSNorm over the head dim with the input
+// dtype's eps and the interleaved-pair rotation, the per-stream norm
+// weights folded into the (N, D) tables, and the softmax scale and log2(e)
+// into the q tables, so the softmax runs in exp2), then scores as
+// s8 x s8 -> s32 products:
 //   q^ quantized per row (per head) from its fp32 value, scale
-//      max(|q^|, 1e-12) / 127 (the tables fold scale*log2e, as for K1);
+//      max(|q^|, 1e-12) / 127;
 //   k^ rounded to bf16, then ONE scale per (b, h) over all of K,
 //      max(|bf16(k^)|, 1e-12) / 127;
 //   s  = s32 * (s_q * s_k), masked, and the TRUE row max as the shift (a
 //      dequantized score can exceed the Cauchy-Schwarz bound by its
 //      quantization error, so K1's bounded shift does not carry over);
-//   p  = exp2(s - max) rounded to bf16, P.V in bf16 with fp32 sums, as K1.
+//   p  = exp2(s - max) rounded to bf16, P.V in bf16 with fp32 sums, l the
+//      sum of the unrounded p; padded keys masked (p = 0).
 // Three launches: k_prep_kernel<D, true> writes bf16 k^ and max |bf16(k^)|
 // per (b, h) (atomicMax on the float bits); k_quant_kernel writes int8 k^
 // with that scale, once, rather than in every query block; attn_int8_kernel
-// quantizes its q tile into shared memory and makes TWO passes over the
-// int8 K tiles, the first for the exact row max (as the TPU kernel's max
-// pass), the second for exp2 and P.V. Scores are computed twice, at the
-// int8 rate (twice bf16's), so the QK^T work costs what K1's one bf16 pass
-// costs. At the 512px shape one call is 2*B*H*N^2*D int8 operations for
-// QK^T plus as many bf16 FLOP for P.V: 27.0 G + 27.0 G, bound by the
-// tensor-core rate (~41 us). int8 m16n8k32 contracts 32 at a time, so a
-// head dim of 16 is zero-padded to 32 in shared memory.
+// (one block of 4 warps per 64 query rows, 16 rows a warp) quantizes its q
+// tile into shared memory and makes TWO passes over the int8 K tiles, 64-row
+// tiles double-buffered by cp.async, the first for the exact row max (as
+// the TPU kernel's max pass), the second for exp2 and P.V on mma.sync
+// (m16n8k32 s8, m16n8k16 bf16, V's fragments by ldmatrix.trans). Scores are
+// computed twice, at the int8 rate (twice bf16's), so the QK^T work costs
+// what one bf16 pass costs. At the 512px shape one call is 2*B*H*N^2*D int8
+// operations for QK^T plus as many bf16 FLOP for P.V: 27.0 G + 27.0 G,
+// bound by the tensor-core rate (~41 us). int8 m16n8k32 contracts 32 at a
+// time, so a head dim of 16 is zero-padded to 32 in shared memory.
 
 #include "attention_common.cuh"
 
 namespace {
 
 template <int D>
-struct Smem {
-  static constexpr int DP = D + 8;   // padded rows: conflict-free fragment
-                                     // loads (row stride = 4 banks mod 32)
-  static constexpr int TILE = BK * DP * 2;             // one K or V tile
-  static constexpr int Q = 0;                          // [BQ][DP] bf16
-  static constexpr int K = Q + BQ * DP * 2;            // [2][BK][DP] bf16
-  static constexpr int V = K + 2 * TILE;               // [2][BK][DP] bf16
-  static constexpr int QN = V + 2 * TILE;              // [BQ] fp32 ||q^||
-  static constexpr int BYTES = QN + BQ * 4;
-};
-
-// grid (ceil(N / BQ), H, B), THREADS threads, Smem<D>::BYTES dynamic smem.
-// K / V tiles are double-buffered: cp.async brings tile t+1 into one stage
-// while the warps compute on tile t in the other.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
-            const float* __restrict__ sq, const bf16* __restrict__ kp,
-            const float* __restrict__ k_max2, const bf16* __restrict__ v,
-            bf16* __restrict__ o, int N, int H, float eps_q) {
-  using G = Geom<D>;
-  using S = Smem<D>;
-  constexpr int DP = S::DP;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + S::Q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + S::K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + S::V);
-  float* sQn = reinterpret_cast<float*>(smem + S::QN);
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * N * rs + (size_t)h * D;
-  const int ntiles = (N + BK - 1) / BK;
-
-  auto load_tile = [&](int t) {
-    bf16* dk = sK + (t & 1) * BK * DP;
-    bf16* dv = sV + (t & 1) * BK * DP;
-    for (int c = tid; c < BK * CPR; c += THREADS) {
-      const int r = c / CPR, cc = c % CPR;
-      const int n = t * BK + r;
-      const size_t off = base + (size_t)(n < N ? n : 0) * rs + cc * 8;
-      cp_async16(dk + r * DP + cc * 8, kp + off, n < N);
-      cp_async16(dv + r * DP + cc * 8, v + off, n < N);
-    }
-    cp_async_commit();
-  };
-  load_tile(0);  // in flight during the q prep
-
-  // ---- q tile prep: RMSNorm + rotation (scale*log2e folded in the tables)
-  {
-    constexpr int ROWS_PER_ITER = WARPS * G::RPW;
-    const int sub = lane % G::TPR;
-#pragma unroll
-    for (int r0 = 0; r0 < BQ; r0 += ROWS_PER_ITER) {
-      const int r = r0 + warp * G::RPW + lane / G::TPR;
-      const int n = q0 + r;
-      const bool valid = n < N;
-      const size_t nn = valid ? (size_t)n : 0;
-      float out[2 * G::PPT];
-      const float ss = prep_row<D>(q + base + nn * rs, cq + nn * D, sq + nn * D,
-                                   eps_q, sub, valid, out);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(sQ + r * DP);
-#pragma unroll
-      for (int i = 0; i < G::PPT; ++i)
-        dst[sub + i * G::TPR] = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
-      if (sub == 0) sQn[r] = sqrtf(ss);
-    }
-  }
-  __syncthreads();
-
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment coordinates
-  const int wr = warp * 16;                 // this warp's first query row
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* r0 = sQ + (wr + g) * DP + kk * 16 + t4 * 2;
-    const bf16* r1 = r0 + 8 * DP;
-    qf[kk][0] = ld32(r0);
-    qf[kk][1] = ld32(r1);
-    qf[kk][2] = ld32(r0 + 8);
-    qf[kk][3] = ld32(r1 + 8);
-  }
-  const float kmax = sqrtf(k_max2[b * H + h]);
-  const float shift0 = sQn[wr + g] * kmax;       // bound of row g
-  const float shift1 = sQn[wr + g + 8] * kmax;   // bound of row g + 8
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;
-  // ldmatrix row address of this lane within a V tile, for d-pair jd2 = 0
-  const int v_row = (lane >> 3 & 1) * 8 + (lane & 7);
-  const int v_col = (lane >> 4) * 8;
-
-  for (int t = 0; t < ntiles; ++t) {
-    if (t + 1 < ntiles) {
-      load_tile(t + 1);      // into the stage tile t-1 used
-      cp_async_wait<1>();    // tile t has landed (this thread's copies)
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();         // ... and every thread's copies
-    const bf16* cK = sK + (t & 1) * BK * DP;
-    const bf16* cV = sV + (t & 1) * BK * DP;
-    const int k0 = t * BK;
-
-    // S = q^ k^T for this warp's 16 rows x BK keys; K's B fragments by
-    // ldmatrix (row = key, two 8-wide d halves per k-step)
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* kr = cK + (j * 8 + (lane & 7)) * DP + (lane >> 3) * 8;
-      if constexpr (D % 32 == 0) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; kk += 2) {
-          uint32_t bk[4];
-          ldsm_x4(bk, kr + kk * 16);
-          mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-          mma_bf16(s[j], qf[kk + 1], bk[2], bk[3]);
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t bk[2];
-          ldsm_x2(bk, kr + kk * 16);
-          mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-        }
-      }
-    }
-    // p = exp2(s - bound); row sums from fp32 p; padded keys (last tile
-    // only) masked to 0
-    const bool ragged = k0 + BK > N;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = fast_exp2(s[j][0] - shift0);
-      s[j][1] = fast_exp2(s[j][1] - shift0);
-      s[j][2] = fast_exp2(s[j][2] - shift1);
-      s[j][3] = fast_exp2(s[j][3] - shift1);
-      if (ragged) {
-        const int col = k0 + j * 8 + t4 * 2;
-        if (col >= N) s[j][0] = s[j][2] = 0.f;
-        if (col + 1 >= N) s[j][1] = s[j][3] = 0.f;
-      }
-      l0 += s[j][0] + s[j][1];
-      l1 += s[j][2] + s[j][3];
-    }
-    // acc += bf16(p) v: the S accumulators of key tiles 2kk, 2kk+1 are the
-    // A fragment of keys [16kk, 16kk+16); V's B fragments come transposed
-    // out of the row-major tile, two d-tiles per ldmatrix.x4
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd2 = 0; jd2 < D / 16; ++jd2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, cV + (kk * 16 + v_row) * DP + jd2 * 16 + v_col);
-        mma_bf16(acc[2 * jd2], a, bv[0], bv[1]);
-        mma_bf16(acc[2 * jd2 + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();  // tile t consumed: its stage may be refilled
-  }
-
-  // the four lanes of a quad hold partial sums of the same two rows
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int n0 = q0 + wr + g, n1 = n0 + 8;
-#pragma unroll
-  for (int jd = 0; jd < D / 8; ++jd) {
-    const int col = jd * 8 + t4 * 2;
-    if (n0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)n0 * rs + col) =
-          __floats2bfloat162_rn(acc[jd][0] * inv0, acc[jd][1] * inv0);
-    if (n1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(o + base + (size_t)n1 * rs + col) =
-          __floats2bfloat162_rn(acc[jd][2] * inv1, acc[jd][3] * inv1);
-  }
-}
-
-// ---- K4 ---------------------------------------------------------------
-
-template <int D>
 struct Smem8 {
   static constexpr int DQ = D < 32 ? 32 : D;  // int8 depth, zero-padded
   static constexpr int SQ = DQ + 16;          // int8 row stride (bytes):
                                               // conflict-free ldmatrix
-  static constexpr int DP = D + 8;            // bf16 V rows, as K1
+  static constexpr int DP = D + 8;            // bf16 V rows (elements):
+                                              // conflict-free ldmatrix
   static constexpr int Q = 0;                           // [BQ][SQ] int8
   static constexpr int K = Q + BQ * SQ;                 // [2][BK][SQ] int8
   static constexpr int V = K + 2 * BK * SQ;             // [2][BK][DP] bf16
@@ -505,51 +285,13 @@ int launch_int8(const void* q, const void* k, const void* v, const void* cq,
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* cq,
-           const void* sq, const void* ck, const void* sk, void* k_prep,
-           void* k_max2, void* out, int B, int N, int H, float eps_q,
-           float eps_k, cudaStream_t st) {
-  int e = launch_k_prep<D, false>(k, ck, sk, k_prep, k_max2, B, N, H, eps_k,
-                                  st);
-  if (e != 0) return e;
-  const int smem = Smem<D>::BYTES;
-  e = allow_smem(attn_kernel<D>, smem);
-  if (e != 0) return e;
-  dim3 g2((N + BQ - 1) / BQ, H, B);
-  attn_kernel<D><<<g2, THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const float*>(cq),
-      static_cast<const float*>(sq), static_cast<const bf16*>(k_prep),
-      static_cast<const float*>(k_max2), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), N, H, eps_q);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// q, k, v, out: (B, N, H*D) bf16, contiguous, 16-byte aligned.
-// cq, sq, ck, sk: (N, D) fp32 tables (norm weights folded in; cq, sq also
-// carry scale*log2(e)). k_prep: (B, N, H*D) bf16 scratch. k_max2: (B*H) fp32,
-// zero on entry. Returns the CUDA error code of the launches (0 = success).
-extern "C" int sd3_fused_attention_bf16(const void* q, const void* k,
-                                        const void* v, const void* cq,
-                                        const void* sq, const void* ck,
-                                        const void* sk, void* k_prep,
-                                        void* k_max2, void* out, int B, int N,
-                                        int H, int D, float eps_q, float eps_k,
-                                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
-    case 32: return launch<32>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
-    case 64: return launch<64>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
-    case 128: return launch<128>(q, k, v, cq, sq, ck, sk, k_prep, k_max2, out, B, N, H, eps_q, eps_k, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// K4: as sd3_fused_attention_bf16, with int8 QK^T. k_prep: (B, N, H*D) bf16
-// scratch; k_q: (B, N, H*D) int8 scratch; k_amax: (B*H) fp32, zero on entry.
+// K4. q, k, v, out: (B, N, H*D) bf16, contiguous, 16-byte aligned. cq, sq,
+// ck, sk: (N, D) fp32 tables (norm weights folded in; cq, sq also carry
+// scale*log2(e)). k_prep: (B, N, H*D) bf16 scratch; k_q: (B, N, H*D) int8
+// scratch; k_amax: (B*H) fp32, zero on entry. Returns the CUDA error code
+// of the launches (0 = success).
 extern "C" int sd3_fused_attention_int8qk(const void* q, const void* k,
                                           const void* v, const void* cq,
                                           const void* sq, const void* ck,

@@ -1,34 +1,35 @@
-// Streaming fused joint attention (K7, its int8-QK^T branch K7q) and the
+// The int8 branches of the streaming fused joint attention (K7q) and the
 // int8-P.V attention (K8a single-KV, K8b streaming), for NVIDIA Hopper
-// (sm_90a).
+// (sm_90a). K7 itself, the bf16 branch, is attention_sm90.cu.
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py:
-//   K7   `_stream_fwd_kernel`, bf16 branch (the 1024px stage, > 2048 padded
-//        tokens): q prep in the kernel, K prepped once into bf16, an ONLINE
-//        softmax (true running max) over K blocks in exp2;
-//   K7q  its `int8_qk` branch: K prepped in fp32 and quantized per row (per
-//        head) outside the attention loop (`_prep_xla`, `_q8_rows_xla`),
-//        q^ quantized per row from fp32, s = s32 * s_q * s_k[key];
+//   K7q  the `int8_qk` branch of `_stream_fwd_kernel` (the 1024px stage,
+//        > 2048 padded tokens): K prepped in fp32 and quantized per row
+//        (per head) outside the attention loop (`_prep_xla`,
+//        `_q8_rows_xla`), q^ quantized per row from fp32, s = s32 * s_q *
+//        s_k[key], an ONLINE softmax (true running max) over K blocks in
+//        exp2;
 //   K8a  the `int8_pv` branch of `_fused_fwd_kernel` (single KV block, at
 //        most 2048 padded tokens), alone or over K4's int8 scores;
-//   K8b  the `int8_pv` branch of `_stream_fwd_kernel`, over K7's or K7q's
-//        scores.
-// The inputs are K1's (fused_attention.cu): raw projections q, k, v of
+//   K8b  the `int8_pv` branch of `_stream_fwd_kernel`, over K7's bf16 or
+//        K7q's int8 scores.
+// The inputs are K1's (attention_sm90.cu): raw projections q, k, v of
 // (B, N, H*D) bf16 and (N, D) fp32 tables with the norm weights folded in
 // (q tables also carry scale*log2(e)); RMSNorm eps is the input dtype's.
 //
 // The numerics kept from the TPU kernels:
-//   - k^ is rounded to bf16 once (K7, K8 over bf16 scores); q^ is rounded to
-//     bf16 for QK^T; with int8 QK^T both are quantized from fp32 (K7q: K per
-//     row, scale max(|k^|, 1e-12) / 127, round half to even, a true
-//     division; K8a over K4: k^ rounded to bf16 and one scale per (b, h), as
-//     K4);
-//   - K7 / K7q / K8b run an online softmax: m the running row max, p =
+//   - k^ is rounded to bf16 once (K8 over bf16 scores); q^ is rounded to
+//     bf16 for a bf16 QK^T; with int8 QK^T both are quantized from fp32
+//     (K7q: K per row, scale max(|k^|, 1e-12) / 127, round half to even, a
+//     true division; K8a over K4: k^ rounded to bf16 and one scale per
+//     (b, h), as K4);
+//   - K7q / K8b run an online softmax: m the running row max, p =
 //     exp2(s - m), alpha = exp2(m_old - m) rescaling l and the accumulator,
 //     l the sum of the unrounded fp32 p; p rounded to bf16 for P.V. The TPU
-//     kernel's K block is ~2176 rows, the card's tile 64 (as K5), so p is
-//     rounded against another running max: a different rounding of the same
-//     relative size (2^-9 for bf16), which the tolerances state;
+//     kernel's K block is ~2176 rows, these kernels' tile 64 (INT8_KEY_TILE
+//     in ops/fused_attention.py), so p is rounded against another running
+//     max: a different rounding of the same relative size (2^-9 for bf16),
+//     which the tolerances state;
 //   - int8 P.V (K8a / K8b): V quantized per (b, h, column) over all rows,
 //     pb = exp2(s - (m - log2 127)) in [0, 127], pq = clip(round(pb), 0,
 //     127), P.V as s8 x s8 -> s32 on mma.sync m16n8k32, o = acc / l * v_scale
@@ -40,7 +41,7 @@
 //   - padded keys get p = 0.
 //
 // Launches (all on the caller's stream, in order):
-//   K prep: k_prep_kernel (bf16 k^; K7, K8 over bf16 scores), or
+//   K prep: k_prep_kernel (bf16 k^; K8 over bf16 scores), or
 //     k_prep_q8rows_kernel (fp32 prep, per-row int8 and scales; K7q, K8b
 //     over K7q), or K4's k_prep_kernel<D, true> + k_quant_kernel (K8a over
 //     K4 scores);
@@ -51,20 +52,22 @@
 //     B fragments of m16n8k32 while the A fragment (pq) comes straight out
 //     of the score accumulators;
 //   attn_stream_kernel<D, QK8, PV8, TWO_PASS>: one block of 4 warps per (64
-//     query rows, h, b), each warp owning 16 rows, as K1; q tile prepped in
-//     the kernel (bf16, or int8 with per-row scales), K / V tiles of 64 keys
+//     query rows, h, b), each warp owning 16 rows; q tile prepped in the
+//     kernel (bf16, or int8 with per-row scales), K / V tiles of 64 keys
 //     double-buffered by cp.async; QK^T on mma.sync m16n8k16 (bf16) or
 //     m16n8k32 (int8, head dim zero-padded to 32), P.V likewise. TWO_PASS
 //     (K8a) runs the scores once for the true row max, then again for P.V.
+//     Its instances: K7q <D, true, false, false>, K8b <D, *, true, false>,
+//     K8a <D, *, true, true>.
 //
 // What bounds them on this card: at the 1024px shape (B 8 with CFG, H 19,
 // N 4250, D 64) QK^T and P.V are 2*B*H*N^2*D = 351.4 G operations each, so
-// the tensor-core rate bounds every variant: 0.711 ms for K7 (bf16, 989
-// TFLOP/s), 0.533 ms for K7q and for K8b over bf16 scores (one product at
-// the int8 rate, 1979 TOPS), 0.355 ms for K8b over K7q; q, k, v and o are
-// 4 x 83 MB (~0.1 ms at 3.35 TB/s). This version is the simple, right one
-// (mma.sync, a two-stage cp.async ring, as K1 and K5), so it runs well
-// below those bounds; the later work is wgmma + TMA.
+// the tensor-core rate bounds every variant: 0.533 ms for K7q and for K8b
+// over bf16 scores (one product at the int8 rate, 1979 TOPS, one at bf16's
+// 989 TFLOP/s), 0.355 ms for K8b over K7q; q, k, v and o are 4 x 83 MB
+// (~0.1 ms at 3.35 TB/s). These are the simple, right versions (mma.sync,
+// a two-stage cp.async ring, as K5), so they run well below those bounds;
+// the later work is wgmma + TMA, as attention_sm90.cu did for K1 and K7.
 
 #include <type_traits>
 
@@ -706,12 +709,6 @@ int dispatch(const Args& a, int D) {
   Args{q,     k,   v,      cq,     sq,  ck, sk, k_prep, k_q, k_stat, v_amax, \
        v_q,   out, B,      N,      H,   eps_q, eps_k,                        \
        static_cast<cudaStream_t>(stream)}
-
-// K7: bf16 scores, online softmax, bf16 P.V. k_prep, k_stat (B*H).
-extern "C" int sd3_fused_attention_stream(SD3_STREAM_PARAMS) {
-  (void)int8_qk;
-  return dispatch<false, false, false>(SD3_STREAM_ARGS, D);
-}
 
 // K7q: int8 scores with per-row k scales, online softmax, bf16 P.V. k_q,
 // k_stat (B*H, N).

@@ -9,19 +9,22 @@ softmax runs in exp2. As `_pallas_fused` does, `fused_attention` picks the
 kernel by the 128-padded length: up to `single_kv_max` (2048) padded tokens
 the single-KV kernels, above it the streaming ones.
 
-Single-KV, `csrc/fused_attention.cu` (K1, K4) and `csrc/stream_attention.cu`
-(K8a), replacing the branches of `_fused_fwd_kernel`:
-- K1, bf16: softmax against the bound ||q^|| * max||k^||;
-- K4, `int8_qk`: QK^T as s8 x s8 -> s32, q^ quantized per row from fp32,
-  k^ rounded to the input dtype with one scale per (batch, head), the true
-  row max;
-- K8a, `int8_pv` (over K1-style bf16 scores or over K4's): the true row
-  max, p = exp2(s - (max - log2 127)) in [0, 127] rounded to int8, V
-  quantized per (batch, head, column) over all rows, s8 x s8 -> s32 P.V,
-  o = acc / l * v_scale with l the sum of the unrounded p.
-Streaming, `csrc/stream_attention.cu`, replacing `_stream_fwd_kernel`:
-- K7, bf16: an online softmax (true running max) over 64-row K tiles;
-- K7q, `int8_qk`: k^ prepped in fp32 and quantized per row (per head), q^
+Single-KV, replacing the branches of `_fused_fwd_kernel`:
+- K1, bf16 (`csrc/attention_sm90.cu`: wgmma, TMA, a warp-specialised ring
+  of 128-key tiles): softmax against the bound ||q^|| * max||k^||;
+- K4, `int8_qk` (`csrc/fused_attention.cu`): QK^T as s8 x s8 -> s32, q^
+  quantized per row from fp32, k^ rounded to the input dtype with one
+  scale per (batch, head), the true row max;
+- K8a, `int8_pv` (`csrc/stream_attention.cu`, over K1-style bf16 scores or
+  over K4's): the true row max, p = exp2(s - (max - log2 127)) in [0, 127]
+  rounded to int8, V quantized per (batch, head, column) over all rows,
+  s8 x s8 -> s32 P.V, o = acc / l * v_scale with l the sum of the
+  unrounded p.
+Streaming, replacing `_stream_fwd_kernel`:
+- K7, bf16 (`csrc/attention_sm90.cu`, K1's kernel): an online softmax
+  (true running max) over `K7_KEY_TILE` keys at a time;
+- K7q, `int8_qk` (`csrc/stream_attention.cu`, over `INT8_KEY_TILE` keys at
+  a time, as K8b): k^ prepped in fp32 and quantized per row (per head), q^
   per row, s = s32 * s_q * s_k[key];
 - K8b, `int8_pv` over K7's or K7q's scores: P quantized against the
   running max with log2(127) folded into the shift, V as for K8a.
@@ -66,19 +69,29 @@ SINGLE_KV_MAX = 2048        # padded tokens of the single-KV kernels (beyond:
 STREAM_BLOCK = 2176         # JAX's streaming K block target (rows)
 HEAD_DIMS = (16, 32, 64, 128)
 
+# the key tiles of the card's kernels, which the plain versions' `block_k`
+# must take to round p against the same running max: K1 and K7's
+# (csrc/attention_sm90.cu KEY_TILE), and that of the mma.sync kernels K4,
+# K7q, K8a and K8b (csrc/attention_common.cuh BK), over which K8's int8 V^T
+# is padded
+K7_KEY_TILE = 128
+INT8_KEY_TILE = 64
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-K1 = Kernel("fused_attention_bf16", "fused_attention.cu",
-            "sd3_fused_attention_bf16",
-            argtypes=[_P] * 10 + [_I] * 4 + [_F] * 2 + [_P])
+# K1 and K7 share one signature: q, k, v, the four tables, scratch q_prep,
+# q_norm, k_prep, k_max2, out; B, N, H, D; eps_q, eps_k; the stream
+_SM90_ARGS = [_P] * 12 + [_I] * 4 + [_F] * 2 + [_P]
+K1 = Kernel("fused_attention_bf16", "attention_sm90.cu",
+            "sd3_fused_attention_bf16", argtypes=_SM90_ARGS)
 K4 = Kernel("fused_attention_int8qk", "fused_attention.cu",
             "sd3_fused_attention_int8qk",
             argtypes=[_P] * 11 + [_I] * 4 + [_F] * 2 + [_P])
+K7 = Kernel("fused_attention_stream", "attention_sm90.cu",
+            "sd3_fused_attention_stream", argtypes=_SM90_ARGS)
 # the stream_attention.cu entry points share one signature: q, k, v, the
 # four tables, scratch k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D,
 # int8_qk; eps_q, eps_k; the stream
 _STREAM_ARGS = [_P] * 13 + [_I] * 5 + [_F] * 2 + [_P]
-K7 = Kernel("fused_attention_stream", "stream_attention.cu",
-            "sd3_fused_attention_stream", argtypes=_STREAM_ARGS)
 K7Q = Kernel("fused_attention_stream_int8qk", "stream_attention.cu",
              "sd3_fused_attention_stream_int8qk", argtypes=_STREAM_ARGS)
 K8A = Kernel("fused_attention_int8pv", "stream_attention.cu",
@@ -153,7 +166,7 @@ def composition_stream(q, k, v, cosq, sinq, cosk, sink, scale: float,
     (sd3_tpu/ops/fused_attention.py:364-427). q^ from the q tables times
     scale*log2(e), q^ and k^ rounded to the input dtype, fp32 scores, an
     online softmax in exp2 over blocks of `block_k` keys (default: JAX's
-    rule, `default_block_k`; K7 on the card takes 64-row tiles). Tables
+    rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`). Tables
     un-scaled, as for `composition`."""
     n = q.shape[1]
     o = _online(_float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
@@ -356,16 +369,19 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
             raise ValueError(f"tables must be ({n}, {d}), got {tuple(t.shape)}")
     out = torch.empty_like(q)
     bh, dev = b * num_heads, q.device
-    if kern in (K1, K4):
-        k_prep = torch.empty_like(k)
-        k_max = torch.zeros(bh, dtype=torch.float32, device=dev)
-        scratch = [k_prep]
-        if kern is K4:
-            scratch.append(torch.empty(k.shape, dtype=torch.int8, device=dev))
-        args = [*scratch, k_max, out]
+    if kern in (K1, K7):
+        # q^ and k^ in bf16, K1's ||q^|| per row, max ||k^||^2 per (b, h)
+        q_norm = torch.empty(bh * n if kern is K1 else 0,
+                             dtype=torch.float32, device=dev)
+        args = [torch.empty_like(q), q_norm, torch.empty_like(k),
+                torch.zeros(bh, dtype=torch.float32, device=dev), out]
+    elif kern is K4:
+        args = [torch.empty_like(k),
+                torch.empty(k.shape, dtype=torch.int8, device=dev),
+                torch.zeros(bh, dtype=torch.float32, device=dev), out]
     else:
-        # k^ in bf16 (K7, and under K8a / K8b's bf16 scores; K4's prep
-        # writes it before quantizing), int8 k^ (int8_qk), k_stat: per
+        # k^ in bf16 (under K8a / K8b's bf16 scores; K4's prep writes it
+        # before quantizing), int8 k^ (int8_qk), k_stat: per
         # (b, h) statistics of the bf16 prep or K4's amax, or K7q's per-row
         # scales; V's column amax and its int8 levels (int8 P.V)
         int8_qk = kern is K7Q or (int8_qk and kern in (K8A, K8B))
@@ -379,11 +395,12 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
                              device=dev)
         v_amax = torch.zeros(bh * d if pv8 else 0, dtype=torch.float32,
                              device=dev)
-        # V^T, keys padded to 64-row tiles (csrc/stream_attention.cu)
-        v_q = torch.empty(bh * d * _round_up(n, 64) if pv8 else 0,
+        # V^T, keys padded to whole tiles (csrc/stream_attention.cu)
+        v_q = torch.empty(bh * d * _round_up(n, INT8_KEY_TILE) if pv8 else 0,
                           dtype=torch.int8, device=dev)
         args = [k_prep, k_q, k_stat, v_amax, v_q, out]
-    ints = [b, n, num_heads, d] + ([] if kern in (K1, K4) else [int(int8_qk)])
+    ints = [b, n, num_heads, d] + ([] if kern in (K1, K4, K7)
+                                   else [int(int8_qk)])
     with torch.cuda.device(dev):
         fn = kern.function()
         stream = torch.cuda.current_stream(dev).cuda_stream

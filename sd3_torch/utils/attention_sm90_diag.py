@@ -1,0 +1,310 @@
+"""Where the time of the wgmma attention kernels goes (K1, K7:
+sd3_torch/csrc/attention_sm90.cu), on one NVIDIA Hopper GPU. From the root
+of the repository (it takes its shapes, inputs and timing from
+chip_smoke.py there):
+
+    python3 -m sd3_torch.utils.attention_sm90_diag
+
+1. "launches": device time of each launch of one K1 and one K7 call at the
+   slice shapes (torch.profiler), beside scaled_dot_product_attention on
+   q / k / v prepared beforehand (a yardstick; the port never calls it);
+2. "phases": cycles per key tile of each consumer warpgroup in each phase
+   of its loop (waiting for its turn, issuing S, issuing P.V, waiting for
+   S, the softmax, waiting for P.V, release / rescale / pack), from a copy
+   of the kernel with clock64() around each phase, built beside the
+   library (its times are the copy's, a little slower than the kernel's);
+3. "sass": in the built library, the exp2s (MUFU.EX2) of each D = 64
+   kernel placed between the loop's two wgmma waits, where they overlap
+   the products, and the spill stores ptxas reports;
+4. "overlap": a microbenchmark of one block per SM, one warpgroup issuing
+   wgmma m64n128k16 back to back and the other a stream of ex2 or FFMA,
+   alone and together: cycles per iteration of each.
+One JSON line per part on stdout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+import chip_smoke as cs  # shapes, inputs, timing
+
+# The instrumented copy: (text of the source, its replacement). Each must
+# match once; the loop's anchors are those of the kernel as committed.
+PHASE_EDITS = [
+    ("namespace {\n\nconstexpr int KEY_TILE",
+     "__device__ unsigned long long g_phase[2 * 8 * 8192];\n"
+     "namespace {\n\nconstexpr int KEY_TILE"),
+    ('extern "C" int sd3_fused_attention_bf16(',
+     'extern "C" int sd3_phase_dump(void* dst, int n) {\n'
+     "  return (int)cudaMemcpyFromSymbol(dst, g_phase, (size_t)n * 8);\n}\n"
+     'extern "C" int sd3_fused_attention_bf16('),
+    ("    for (int t = 1; t < ntiles; ++t) {\n      take_turn();\n"
+     "      issue_scores(t);   // S of tile t ...\n"
+     "      issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores\n"
+     "      hand_over();\n      wgmma_wait<1>();   // S of tile t done\n"
+     "      reg_fence(s);\n      release(empty_k, t);\n"
+     "      softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run\n",
+     "    long long tw[7] = {0, 0, 0, 0, 0, 0, 0};\n"
+     "    for (int t = 1; t < ntiles; ++t) {\n"
+     "      const long long c0 = clock64();\n      take_turn();\n"
+     "      const long long c1 = clock64();\n      issue_scores(t);\n"
+     "      const long long c2 = clock64();\n      issue_pv(t - 1);\n"
+     "      hand_over();\n      const long long c3 = clock64();\n"
+     "      wgmma_wait<1>();\n      reg_fence(s);\n"
+     "      const long long c4 = clock64();\n      release(empty_k, t);\n"
+     "      softmax(t, a0, a1);\n      reg_fence(s);\n"
+     "      const long long c5 = clock64();\n"),
+    ("      reg_fence(acc);\n      reg_fence(p);\n      release(empty_v, t - 1);\n",
+     "      reg_fence(acc);\n      reg_fence(p);\n"
+     "      const long long c6 = clock64();\n      release(empty_v, t - 1);\n"),
+    ("      pack_p();\n    }\n    take_turn();",
+     "      pack_p();\n      reg_fence(p);\n"
+     "      const long long c7 = clock64();\n"
+     "      tw[0] += c1 - c0; tw[1] += c2 - c1; tw[2] += c3 - c2;\n"
+     "      tw[3] += c4 - c3; tw[4] += c5 - c4; tw[5] += c6 - c5;\n"
+     "      tw[6] += c7 - c6;\n    }\n"
+     "    if (tid == 0) {\n      const int blk = blockIdx.x + gridDim.x *"
+     " (blockIdx.y + gridDim.y * blockIdx.z);\n"
+     "      unsigned long long* out = g_phase + (size_t)(blk * 2 + c) * 8;\n"
+     "      for (int i = 0; i < 7; ++i) out[i] = tw[i];\n"
+     "      out[7] = ntiles;\n    }\n    take_turn();"),
+]
+PHASES = ["wait turn", "issue S", "issue P.V", "wait S", "softmax",
+          "wait P.V", "release, rescale, pack"]
+
+OVERLAP_CU = r'''
+#include "sm90.cuh"
+// mode bit 0: warpgroup 0 issues wgmma; bit 1: warpgroup 1 runs ex2, bit 2:
+// FFMA instead
+__global__ void __launch_bounds__(256, 1) overlap(float* out, long long* cyc,
+                                                  int mode, int iters) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  for (int i = threadIdx.x; i < 24576 / 4; i += 256)
+    reinterpret_cast<uint32_t*>(smem)[i] = 0;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  const long long t0 = clock64();
+  float r = 0.f;
+  if (wg == 0 && (mode & 1)) {
+    float acc[64];
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const uint32_t a = smem_u32(smem), b = a + 8192;
+    for (int it = 0; it < iters; ++it) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<128>(acc, gmma_desc(a + kk * 32, 16, 1024, kSwizzle128B),
+                      gmma_desc(b + kk * 32, 16, 1024, kSwizzle128B), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc);
+    }
+    for (int i = 0; i < 64; ++i) r += acc[i];
+  }
+  if (wg == 1 && (mode & 6)) {
+    float x[8];
+    for (int i = 0; i < 8; ++i) x[i] = (threadIdx.x + i) * 1e-3f;
+    for (int it = 0; it < iters * 16; ++it) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (mode & 2) {
+          float y;
+          asm volatile("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x[i]));
+          x[i] = y * -0.5f;
+        } else {
+          x[i] = fmaf(x[i], 0.999f, 1e-3f);
+        }
+      }
+    }
+    for (int i = 0; i < 8; ++i) r += x[i];
+  }
+  const long long t1 = clock64();
+  out[blockIdx.x * 256 + threadIdx.x] = r;
+  if (threadIdx.x % 128 == 0) cyc[blockIdx.x * 2 + wg] = t1 - t0;
+}
+extern "C" int run_overlap(float* out, long long* cyc, int blocks, int mode,
+                           int iters) {
+  cudaFuncSetAttribute(overlap, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       100000);
+  overlap<<<blocks, 256, 100000>>>(out, cyc, mode, iters);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def nvcc_build(src_text: str, name: str) -> str:
+    from sd3_torch import kernels
+    out_dir = kernels.BUILD_DIR / "diag"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{name}.cu"
+    src.write_text(src_text)
+    lib = out_dir / f"{name}.so"
+    r = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-I",
+                        str(kernels.CSRC_DIR), "-o", str(lib), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc {name}:\n{r.stdout}{r.stderr}")
+    return str(lib)
+
+
+def part_launches(gen) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sd3_torch.ops import fused_attention as fa
+    res = {}
+    for name, shape in (("K1", cs.SLICE), ("K7", cs.SLICE_1024)):
+        q, k, v, _, _, _, tabs = cs.attn_inputs(shape, gen)
+        nh, d, n = shape["heads"], shape["d"], q.shape[1]
+        run = lambda: fa.fused_attention(q, k, v, nh, *tabs, d ** -0.5)
+        heads = [x.reshape(shape["b"], n, nh, d).transpose(1, 2).contiguous()
+                 for x in (q, k, v)]
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            *heads, scale=d ** -0.5)
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+        name_of = lambda key: key.replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0][:60]
+        per = {name_of(e.key): e.self_device_time_total / e.count
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+        res[name] = dict(call_ms=cs.cuda_ms(run), sdpa_ms=cs.cuda_ms(sdpa),
+                         us_per_launch=per)
+    return res
+
+
+def part_phases(gen) -> dict:
+    import torch
+    from sd3_torch import kernels
+    from sd3_torch.ops import fused_attention as fa
+    src = (kernels.CSRC_DIR / "attention_sm90.cu").read_text()
+    for a, b in PHASE_EDITS:
+        if src.count(a) != 1:
+            raise RuntimeError(f"anchor not found once: {a[:60]!r}")
+        src = src.replace(a, b)
+    lib = ctypes.CDLL(nvcc_build(src, "attention_sm90_phases"))
+    res = {}
+    for name, shape, kern in (("K1", cs.SLICE, fa.K1),
+                              ("K7", cs.SLICE_1024, fa.K7)):
+        q, k, v, _, _, _, tabs = cs.attn_inputs(shape, gen)
+        nh, d = shape["heads"], shape["d"]
+        fn = getattr(lib, kern.symbol)
+        fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+        kept = kern.function()
+        kern._fn = fn
+        try:
+            run = lambda: fa.fused_attention(q, k, v, nh, *tabs, d ** -0.5)
+            ms = cs.cuda_ms(run)
+            run()
+            torch.cuda.synchronize()
+        finally:
+            kern._fn = kept
+        blocks = -(-q.shape[1] // 128) * nh * shape["b"]
+        buf = np.zeros(blocks * 16, np.uint64)
+        lib.sd3_phase_dump(ctypes.c_void_p(buf.ctypes.data),
+                           ctypes.c_int(buf.size))
+        tr = buf.reshape(blocks, 2, 8).astype(np.float64)
+        tiles = tr[0, 0, 7] - 1
+        res[name] = dict(copy_ms=ms, cycles_per_tile=[
+            {p: round(float(np.median(tr[:, c, i])) / tiles, 1)
+             for i, p in enumerate(PHASES)} for c in (0, 1)])
+    return res
+
+
+# The wait for P.V as a plain wgmma_wait<0>(), without the branch that holds
+# it below the softmax: the copy part_sass compares with the kernel.
+UNBRANCHED_WAIT = ("      if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=\n"
+                   "          0xffffffffu) {\n        wgmma_wait<0>();\n"
+                   "      } else {\n        wgmma_wait<0>();\n        __trap();\n"
+                   "      }\n", "      wgmma_wait<0>();\n")
+
+
+def exp2_between_waits(lib: str) -> dict:
+    """MUFU.EX2 of each D = 64 kernel between the loop's wait for S
+    (DEPBAR.LE gsb0, 0x1) and its wait for P.V (0x0), and in all."""
+    from sd3_torch import kernels
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
+                             "cuobjdump")
+    txt = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    res = {}
+    for fn in txt.split("Function : ")[1:]:
+        head = fn.split("\n")[0]
+        if "attn_sm90_kernelILi64" not in head:
+            continue
+        i = fn.find("DEPBAR.LE gsb0, 0x1")
+        j = fn.find("DEPBAR.LE gsb0, 0x0", i)
+        res["Online" if "Online" in head else "Bounded"] = dict(
+            between_waits=fn[i:j].count("MUFU.EX2"),
+            total=fn.count("MUFU.EX2"))
+    return res
+
+
+def part_sass() -> dict:
+    from sd3_torch import kernels
+    reports = kernels.build(["attention_sm90.cu"])
+    src = (kernels.CSRC_DIR / "attention_sm90.cu").read_text()
+    if src.count(UNBRANCHED_WAIT[0]) != 1:
+        raise RuntimeError("the branch-held wait is not in the source")
+    copy = nvcc_build(src.replace(*UNBRANCHED_WAIT), "attention_sm90_unbranched")
+    spills, fn = [], None
+    for rep in reports.values():
+        for ln in rep.splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("for", 1)[1].strip()
+            elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
+                spills.append(f"{fn}: {ln.strip()}")
+    return dict(
+        kernel=exp2_between_waits(str(kernels._library_path("attention_sm90.cu"))),
+        unbranched_wait_copy=exp2_between_waits(copy),
+        spills=spills if reports else "library cached: not reported")
+
+
+def part_overlap() -> dict:
+    import torch
+    lib = ctypes.CDLL(nvcc_build(OVERLAP_CU, "overlap"))
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 256, device="cuda")
+    cyc = torch.zeros(blocks * 2, dtype=torch.int64, device="cuda")
+    iters, res = 2000, {}
+    for mode, name in ((1, "wgmma"), (2, "ex2"), (4, "ffma"),
+                       (3, "wgmma + ex2"), (5, "wgmma + ffma")):
+        for _ in range(2):
+            err = lib.run_overlap(ctypes.c_void_p(out.data_ptr()),
+                                  ctypes.c_void_p(cyc.data_ptr()), blocks,
+                                  mode, iters)
+            torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"overlap launch failed: {err}")
+        c = cyc.view(blocks, 2).double().median(0).values / iters
+        res[name] = dict(wgmma_clk_per_iter=round(c[0].item(), 1),
+                         stream_clk_per_iter=round(c[1].item(), 1))
+    return res
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA GPU", flush=True)
+        return 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    print(cs.nvidia_smi("name,power.limit"), flush=True)
+    for part, fn in (("sass", part_sass), ("launches", lambda: part_launches(gen)),
+                     ("phases", lambda: part_phases(gen)),
+                     ("overlap", part_overlap)):
+        print(json.dumps({part: fn()}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

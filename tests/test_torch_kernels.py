@@ -13,6 +13,8 @@ chip_smoke.py's ATTN_ATOL and K8_ATOL (reasons there); K9, K10a and K10b:
 chip_smoke.py's MLP and K10 limits (reasons there).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -128,6 +130,20 @@ def test_every_kernel_symbol_is_in_its_source():
         assert f'extern "C" int {k.symbol}(' in src, k.name
 
 
+@pytest.mark.parametrize("const,source,name", [
+    ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
+    ("INT8_KEY_TILE", "attention_common.cuh", "BK")])
+def test_key_tiles_match_their_sources(const, source, name):
+    # the plain versions' block_k that the card comparisons take is the
+    # kernel's own key tile: K1 / K7's, and that of the mma.sync kernels
+    # (K4, K7q, K8a, K8b; K8's int8 V^T is padded to it)
+    src = (kernels.CSRC_DIR / source).read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m is not None, (source, name)
+    assert getattr(tfa, const) == int(m.group(1))
+    assert tfa.K1.source == tfa.K7.source == "attention_sm90.cu"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", ATTN_SHAPES)
 def test_k1_kernel_matches_plain_on_the_card(cuda_device, nh, d, h, w, n_txt,
@@ -216,10 +232,12 @@ def test_stream_and_int8_pv_kernels_match_plain_on_the_card(
     eps = float(torch.finfo(torch.bfloat16).eps)
     ins = [t.float().cpu() for t in (qb, kb, vb)] + [cq, sq, ck, sk, scale,
                                                     eps, eps, nh]
-    if streaming:  # the kernel's 64-key tiles
+    if streaming:  # the kernel's key tiles
         plain = (tfa.composition_stream_int8_qk if int8_qk
                  else tfa.composition_stream)
-        want = plain(*ins, block_k=64, int8_pv=int8_pv)
+        tile = (tfa.INT8_KEY_TILE if int8_qk or int8_pv
+                else tfa.K7_KEY_TILE)
+        want = plain(*ins, block_k=tile, int8_pv=int8_pv)
     else:
         plain = tfa.composition_int8_qk if int8_qk else tfa.composition
         want = plain(*ins, int8_pv=int8_pv)
@@ -417,6 +435,45 @@ def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="bfloat16"):
         tfm.swiglu_int8_tail3d(m["x"].float(), m["shift"], m["scale"],
                                m["gate"], *mw, n_tok=16, h_group=128)
+
+
+# K1 and K7 at lengths ragged against their 128-key tile: 2100 tokens (16
+# tiles and 52 keys; K1 forced past its 2048 by single_kv_max) at odd
+# heads, head dims 32 and 128; and a grid of more than one wave of blocks
+# (one block per SM: 3 query blocks x 24 heads x 2 samples = 144 > 132)
+K1_K7_SHAPES = [(3, 32, 45, 46, 30, True), (2, 128, 45, 46, 30, True),
+                (24, 64, 12, 20, 60, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", K1_K7_SHAPES)
+def test_k1_k7_at_ragged_tiles_and_many_waves_on_the_card(
+        cuda_device, nh, d, h, w, n_txt, rope2d, streaming):
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d)
+    n = q.shape[1]
+    dev = cuda_device
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img))
+    kern = tfa.K7 if streaming else tfa.K1
+    counts = lambda: {kk.name: kk.launches for kk in kernels.REGISTRY}
+    before = counts()
+    got = tfa.fused_attention(qb, kb, vb, nh, *(t.to(dev) for t in tabs),
+                              scale, single_kv_max=0 if streaming else 1 << 20)
+    torch.cuda.synchronize()
+    after = counts()
+    assert {nm: after[nm] - before[nm] for nm in after
+            if after[nm] != before[nm]} == {kern.name: 1}
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    ins = [t.float().cpu() for t in (qb, kb, vb)] + [*tabs, scale, eps, eps,
+                                                    nh]
+    want = (tfa.composition_stream(*ins, block_k=tfa.K7_KEY_TILE)
+            if streaming else tfa.composition(*ins))
+    # chip_smoke.py's ATTN_ATOL
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
+                               atol=1e-2, rtol=0)
 
 
 @pytest.mark.cuda

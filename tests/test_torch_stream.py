@@ -104,12 +104,28 @@ STREAM_SHAPES = [
 ]
 
 
+# blocks of 128 keys, and the card's K7 key tile (the same 128 today: one
+# case then)
+@pytest.mark.parametrize("block_k", sorted({128, tfa.K7_KEY_TILE}))
 @pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", STREAM_SHAPES)
 def test_stream_plain_matches_jax_kernel(monkeypatch, nh, d, h, w, n_txt,
-                                         rope2d):
-    # K7's plain version: the online softmax over blocks of 128 keys
+                                         rope2d, block_k):
+    # K7's plain version: the online softmax over blocks of block_k keys
     case = _case(nh, d, h, w, n_txt, rope2d, seed=d + h)
-    got, want, _ = _both(case, nh, monkeypatch=monkeypatch)
+    got, want, _ = _both(case, nh, block_k=block_k, monkeypatch=monkeypatch)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("nh,d", [(1, 16), (3, 32)])
+def test_stream_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
+                                                          d):
+    # the rounding the card's K7 takes: p against the running max of its
+    # K7_KEY_TILE-key tiles, at 2100 tokens (45x46 image + 30 text, a
+    # ragged last tile), JAX at the same blocks (SD3_FLASH_BK)
+    case = _case(nh, d, 45, 46, 30, True, seed=7, b=1)
+    got, want, _ = _both(case, nh, block_k=tfa.K7_KEY_TILE,
+                         monkeypatch=monkeypatch)
+    assert case[0].shape[1] % tfa.K7_KEY_TILE != 0
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
