@@ -7,9 +7,9 @@ Phases (any failure exits non-zero without the final ok line):
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 off for fp32 matmuls and convolutions;
   2. build every kernel from sd3_torch/csrc (one nvcc per source, in
-     parallel; attention_sm90.cu encodes its TMA descriptors through the
-     runtime's driver entry point, so nothing links libcuda) and print the
-     compiler's register / shared-memory report;
+     parallel; attention_sm90.cu and flash_bwd_sm90.cu encode their TMA
+     descriptors through the runtime's driver entry point, so nothing links
+     libcuda) and print the compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
      the 512px slice shape, a ragged shape with odd H and a NoPE shape; K4
@@ -27,10 +27,14 @@ Phases (any failure exits non-zero without the final ok line):
      stream; K10a (AdaLN + int8 q/k/v) and K10b (int8 out-projection + gate
      + residual, reading the image half of the joint sequence in place, also
      without gate and residual) at the 512px image stream and a ragged
-     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv) at the
-     512px training shape and a ragged one. Kernel (CUDA graph), eager,
-     plain-version and library times (attention: scaled_dot_product_attention
-     on bf16, forward or backward; K10a / K10b: torch._int_mm of the
+     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv; K6a and
+     K6b wgmma + TMA, flash_bwd_sm90.cu) at the 512px training shape, a
+     ragged one and the 1024px training shape (checked on two heads).
+     Kernel (CUDA graph), eager, plain-version and library times
+     (attention: scaled_dot_product_attention on bf16, forward, or backward
+     on the card alone: each backend pinned, the CUDA graph of forward +
+     backward less that of the forward, the fastest kept, and the eager
+     figure of earlier runs beside it; K10a / K10b: torch._int_mm of the
      pre-quantized activations, the GEMM alone; yardsticks only), and the
      bound: the largest of the operations at the tensor-core rate, the
      bytes, and for attention the exp2s at the SFU's rate. Then K1's
@@ -211,6 +215,10 @@ NOPE = dict(b=2, h=10, w=15, n_txt=50, heads=4, d=64, rope=False)
 # head dim 32
 FLASH_SLICE = (4, 19, 1178, 64)
 FLASH_RAGGED = (2, 3, 47, 32)
+# the 1024px training step (4096 image + 154 text tokens), checked against
+# the plain versions on the first sample's first two heads
+FLASH_SLICE_1024 = (4, 19, 4250, 64)
+FLASH_CHECK_1024 = (1, 2)
 # the slice's training configuration (bench.py --train defaults)
 TRAIN_RES, TRAIN_BATCH = 512, 4
 # int8 SwiGLU: rows, tokens per sample, width, hidden, h_group (the JAX
@@ -595,9 +603,55 @@ def _errs(got, want) -> dict:
                 rel_l2=(d.norm() / want.norm()).item())
 
 
-def phase_flash(shape, gen):
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def sdpa_backward_ms(q, k, v, do, scale) -> dict:
+    """SDPA's backward (dq, dk, dv together), a yardstick the port never
+    calls, on the card alone: for each backend of the installed PyTorch,
+    pinned with sdpa_kernel, the CUDA graph of its forward +
+    torch.autograd.grad less that of its forward (by_backend: ms, or why it
+    did not run); the fastest as ms, with its backend; and eager_ms, the
+    figure of earlier runs: forward + backward less forward under the
+    default dispatch, both eager, so that autograd's host work is in it
+    wherever the host falls behind the card."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qr, kr, vr = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fwd = lambda: F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qr, kr, vr), do)
+    by = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            by[name] = "not in this PyTorch"
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fwd_bwd()  # a backend that refuses the shape raises here,
+                torch.cuda.synchronize()  # outside a graph capture
+                by[name] = cuda_ms(fwd_bwd) - cuda_ms(fwd)
+        except RuntimeError as e:
+            by[name] = f"did not run: {str(e).strip().splitlines()[0][:160]}"
+    timed = {n: t for n, t in by.items() if isinstance(t, float)}
+    require(timed, f"no SDPA backend ran the backward: {by}")
+    best = min(timed, key=timed.get)
+    plain_fwd = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    eager = cuda_ms(fwd_bwd, graph=False) - cuda_ms(plain_fwd, graph=False)
+    return dict(ms=timed[best], backend=best, by_backend=by, eager_ms=eager)
+
+
+def phase_flash(shape, gen, check=None):
     """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
-    shape; returns {"K5" | "K6a" | "K6b": measurements}."""
+    shape, on the samples and heads [:check[0], :check[1]] where `check` is
+    given (the plain versions' fp32 score matrices at the 1024px training
+    shape take 5.5 GB each); the kernels, the plain versions and SDPA timed
+    at the full shape (SDPA's backward by sdpa_backward_ms); returns
+    {"K5" | "K6a" | "K6b": measurements}."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import flash_attention as fl
@@ -612,47 +666,53 @@ def phase_flash(shape, gen):
     torch.cuda.synchronize()
     for t in (out, lse, dq, delta, dk, dv):
         require(bool(torch.isfinite(t).all()), f"flash non-finite at {shape}")
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    cut = (lambda t: t[:check[0], :check[1]]) if check else (lambda t: t)
+    qf, kf, vf, dof = (cut(t).float() for t in (q, k, v, do))
     w_out, w_lse = fl.flash_fwd_plain(qf, kf, vf, scale)
     w_dq, w_delta = fl.flash_dq_plain(qf, kf, vf, w_out, dof, w_lse, scale)
     w_dk, w_dv = fl.flash_dkv_plain(qf, kf, vf, dof, w_lse, w_delta, scale)
-    errs = dict(K5=dict(out=_errs(out, w_out), lse=_errs(lse, w_lse)),
-                K6a=dict(dq=_errs(dq, w_dq), delta=_errs(delta, w_delta)),
-                K6b=dict(dk=_errs(dk, w_dk), dv=_errs(dv, w_dv)))
+    errs = dict(
+        K5=dict(out=_errs(cut(out), w_out), lse=_errs(cut(lse), w_lse)),
+        K6a=dict(dq=_errs(cut(dq), w_dq), delta=_errs(cut(delta), w_delta)),
+        K6b=dict(dk=_errs(cut(dk), w_dk), dv=_errs(cut(dv), w_dv)))
+    label = f"B={b} H={h} N={n} D={d}"
 
     # library yardsticks, never called by the port: SDPA's forward, and its
-    # backward (dq, dk, dv together) as forward + backward less forward
-    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    # backward (dq, dk, dv together) on the card alone
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qr, kr, vr, scale=scale)
-        torch.autograd.grad(o, (qr, kr, vr), do)
-    lib_bwd = cuda_ms(sdpa_fwd_bwd, graph=False) - cuda_ms(sdpa, graph=False)
+    lib_bwd = sdpa_backward_ms(q, k, v, do, scale)
+    print("  SDPA backward", json.dumps(dict(shape=label, **lib_bwd)),
+          flush=True)
+    bwd_lib = dict(library_ms=lib_bwd["ms"],
+                   library_backend=lib_bwd["backend"],
+                   library_eager_ms=lib_bwd["eager_ms"])
     one, stat = b * h * n * d * 2, b * h * n * 4  # bytes: a bf16 tensor, lse
     bh_nnd = b * h * n * n * d
     # each kernel takes exp2 of every score once (K6a, K6b recompute p)
     t_exp = 1.0 * b * h * n * n / PEAK_EXP2
-    runs = dict(  # kernel, plain version, products of 2*B*H*N^2*D, bytes, lib
+    runs = dict(  # kernel, plain version, products of 2*B*H*N^2*D, bytes,
+                  # library figures
         K5=(lambda: fl.flash_fwd(q, k, v, scale),
             lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
-            cuda_ms(sdpa)),
+            dict(library_ms=cuda_ms(sdpa))),
         K6a=(lambda: fl.flash_dq(q, k, v, out, do, lse, scale),
              lambda: fl.flash_dq_plain(q, k, v, out, do, lse, scale), 3,
-             6 * one + 2 * stat, lib_bwd),
+             6 * one + 2 * stat, bwd_lib),
         K6b=(lambda: fl.flash_dkv(q, k, v, do, lse, delta, scale),
              lambda: fl.flash_dkv_plain(q, k, v, do, lse, delta, scale), 4,
-             6 * one + 2 * stat, lib_bwd))
+             6 * one + 2 * stat, bwd_lib))
     results = {}
     for name, (run, plain, products, nbytes, lib) in runs.items():
         t_ops = products * 2 * bh_nnd / PEAK_BF16_FLOPS
         t_bytes = nbytes / PEAK_BYTES
-        res = dict(shape=f"B={b} H={h} N={n} D={d}", errors=errs[name],
+        res = dict(shape=label, checked=(f"[:{check[0]}, :{check[1]}]"
+                                         if check else "all"),
+                   errors=errs[name],
                    max_abs_err=max(e["max_abs_err"] for k, e in
                                    errs[name].items() if k not in ("lse",
                                                                    "delta")),
                    ms=cuda_ms(run), eager_ms=cuda_ms(run, graph=False),
-                   plain_ms=cuda_ms(plain, iters=3, groups=3), library_ms=lib,
+                   plain_ms=cuda_ms(plain, iters=3, groups=3), **lib,
                    **bound(t_ops, t_bytes, t_exp))
         print(f"  {name}", json.dumps(res), flush=True)
         results[name] = res
@@ -1153,6 +1213,19 @@ STREAM_FAMILIES = {"true, false, false>": "K7q",
                    "false, true, true>": "K8a", "true, true, true>": "K8a"}
 
 
+# the flash backward's kernels (csrc/flash_bwd_sm90.cu) by family
+FLASH_BWD_FAMILIES = {"flash_dq_sm90_kernel": "K6a",
+                      "flash_dkv_sm90_kernel": "K6b"}
+# the design of each kernel source, for the {"kernels"} line
+SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
+                  "flash_bwd_sm90.cu": "wgmma+TMA, warp-specialised",
+                  "flash_attention.cu": "mma.sync, 2-stage cp.async",
+                  "fused_attention.cu": "mma.sync, 2-stage cp.async",
+                  "stream_attention.cu": "mma.sync, 2-stage cp.async",
+                  "fused_mlp.cu": "mma.sync, 2-stage cp.async",
+                  "fused_dense.cu": "mma.sync, 2-stage cp.async"}
+
+
 def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2, K3, K9, K10a and K10b by the template tag of their
@@ -1161,14 +1234,15 @@ def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     quantize and attention kernels; K7q, K8a, K8b the instantiations of
     attn_stream_kernel, with the V prep of int8 P.V in K8b and the per-row K
     prep in K7q; the bf16 K prep k_prep_kernel<D, false>, which K1, K7 and
-    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K5, K6a, K6b
-    are fwd_kernel, dq_kernel, dkv_kernel of
-    flash_attention.cu), int8 and other GEMMs, and the rest."""
+    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K5 is
+    fwd_kernel of flash_attention.cu, K6a and K6b FLASH_BWD_FAMILIES), int8
+    and other GEMMs, and the rest."""
     low = name.lower()
-    for fam, fn in (("K6b", "dkv_kernel"), ("K6a", "dq_kernel"),
-                    ("K5", "fwd_kernel")):
-        if f"::{fn}<" in name or f"{fn}ILi" in name:
+    for fn, fam in FLASH_BWD_FAMILIES.items():
+        if fn in name:
             return fam
+    if "::fwd_kernel<" in name or "fwd_kernelILi" in name:
+        return "K5"
     if "attn_sm90_kernel" in name:
         return "K7" if "Online" in name else "K1"
     if "attn_stream_kernel" in name:
@@ -1276,6 +1350,7 @@ def main() -> int:
         k10b = [phase_dense(s, gen, "K10b") for s in (K10_SLICE, K10_RAGGED)]
         phase_dense(K10_SLICE, gen, "K10b", gated=False, residual=False)
         k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
+        phase_flash(FLASH_SLICE_1024, gen, check=FLASH_CHECK_1024)
         phase_k1_backward(gen)
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU: "
@@ -1335,9 +1410,9 @@ def main() -> int:
              "sd3_tpu/ops/fused_attention.py:193", sample8, per_call),
             (flash_attention.K5, k56[0]["K5"], "flash_attention.cu",
              "sd3_tpu/ops/flash_attention.py:103", train, per_step),
-            (flash_attention.K6A, k56[0]["K6a"], "flash_attention.cu",
+            (flash_attention.K6A, k56[0]["K6a"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:191", train, per_step),
-            (flash_attention.K6B, k56[0]["K6b"], "flash_attention.cu",
+            (flash_attention.K6B, k56[0]["K6b"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:222", train, per_step),
             (fused_attention.K7, k7[0], "attention_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:312", sample_1024, per_call),
@@ -1364,9 +1439,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "bound_term": r["bound_term"],
             "library_ms": r["library_ms"],
-            "design": ("wgmma+TMA, warp-specialised"
-                       if src == "attention_sm90.cu"
-                       else "mma.sync, 2-stage cp.async")}
+            **{k: r[k] for k in ("library_backend", "library_eager_ms")
+               if k in r},
+            "design": SOURCE_DESIGNS[src]}
             for kern, r, src, tpu, run, count in rows]}
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)

@@ -109,17 +109,10 @@ struct Bounded {};  // K1: shift ||q^|| * max ||k^||, no rescale
 struct Online {};   // K7: the running row max
 }  // namespace Softmax
 
-// Shared memory of attn_sm90_kernel<D, *>, from a 1024-byte aligned base.
-// A tile of R rows of D bf16 values is stored in the swizzled layout of TMA
-// and wgmma: atom columns W = min(2D, 128) bytes wide (two at D = 128), each
-// R rows of W bytes, with the 16-byte chunks of a row permuted by the
-// swizzle of gmma_desc's mode (sm90.cuh).
+// Shared memory of attn_sm90_kernel<D, *>, from a 1024-byte aligned base;
+// every tile in the swizzled layout of SwizzledRows<D> (sm90.cuh).
 template <int D>
-struct Sm90 {
-  static constexpr int W = D * 2 < 128 ? D * 2 : 128;
-  static constexpr int COLS = D * 2 / W;
-  static constexpr uint64_t SWIZZLE =
-      W == 128 ? kSwizzle128B : W == 64 ? kSwizzle64B : kSwizzle32B;
+struct Sm90 : SwizzledRows<D> {
   static constexpr int STAGES = D == 128 ? 3 : 4;
   static constexpr int Q_TILE = QROWS * D * 2;      // one consumer's q^
   static constexpr int KV_TILE = KEY_TILE * D * 2;  // one K or V tile
@@ -130,26 +123,6 @@ struct Sm90 {
   static constexpr int BAR = V + STAGES * KV_TILE;
   static constexpr int BYTES = BAR + (4 * STAGES + CONSUMERS) * 8 + 1024;
 };
-
-// Descriptor of k-step kk (16 values of the contracted dimension) of a
-// K-major tile of `rows` rows at `base`: q^ (A) or a K tile (B) of S.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int rows,
-                                                 int kk) {
-  using S = Sm90<D>;
-  const int c = kk * 32;
-  return gmma_desc(base + (c / S::W) * rows * S::W + c % S::W, 16, 8 * S::W,
-                   S::SWIZZLE);
-}
-
-// Descriptor of k-step kk (16 keys) of a V tile at `base`, MN-major: the B
-// of P.V, its D columns along each key row.
-template <int D>
-__device__ __forceinline__ uint64_t desc_v(uint32_t base, int kk) {
-  using S = Sm90<D>;
-  return gmma_desc(base + kk * 16 * S::W, KEY_TILE * S::W, 8 * S::W,
-                   S::SWIZZLE);
-}
 
 // TMA of ROWS rows (n0.., head h, sample b) of a (B, N, H*D) tensor into a
 // tile at `dst`, one box per atom column.
@@ -307,7 +280,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
         const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                p[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, desc_v<D>(vb, kk), 1);
+        wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KEY_TILE, kk), 1);
       }
       wgmma_commit();
     };
@@ -463,59 +436,18 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ----------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
-// library links no libcuda; null if the driver has none.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) != cudaSuccess)
-      p = nullptr;
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a (B, N, H*D) bf16 tensor as the 4-D view (D, H, N, B),
 // with boxes of one atom column of a head (W / 2 values), one head, ROWS
 // rows and one sample, in the swizzle of Sm90<D>; rows past N read as
 // zeros. Returns the CUresult of the encode (0 = success).
 template <int D, int ROWS>
 int encode(CUtensorMap* m, const void* x, int B, int N, int H) {
-  using S = Sm90<D>;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)N * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(S::W / 2), 1, ROWS, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      S::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : S::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
-  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-                 dims, strides, box, elem_strides,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t box[4] = {(cuuint32_t)(Sm90<D>::W / 2), 1, ROWS, 1};
+  return encode_bf16_4d<D>(m, x, dims, strides, box);
 }
 
 struct Args {

@@ -1,14 +1,16 @@
-// PTX wrappers of what Hopper (sm_90a) adds, for the wgmma attention kernels
-// (attention_sm90.cu): mbarriers, TMA tensor loads (cp.async.bulk.tensor),
-// the wgmma shared-memory matrix descriptor,
+// PTX wrappers of what Hopper (sm_90a) adds, for the wgmma kernels
+// (attention_sm90.cu: K1, K7; flash_bwd_sm90.cu: K6a, K6b): mbarriers, TMA
+// tensor loads (cp.async.bulk.tensor), the wgmma shared-memory matrix
+// descriptor and the swizzled tile layout it reads,
 // wgmma.mma_async bf16 m64nNk16 with A from shared memory (wgmma_ss) or
 // from registers (wgmma_rs), wgmma fence / commit / wait, setmaxnreg and
-// named barriers. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
-// included for the CUtensorMap type only: nothing of the driver library is
-// linked.
+// named barriers; on the host, the encode of a 4-D bf16 tensor map. Raw PTX
+// in the idiom of mma.cuh, no CuTe. <cuda.h> is included for the
+// CUtensorMap type only: nothing of the driver library is linked.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -122,6 +124,40 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | swizzle << 62;
 }
 
+// A tile of R rows of D bf16 values in the swizzled layout of TMA and
+// wgmma: atom columns W = min(2D, 128) bytes wide (two at D = 128), each R
+// rows of W bytes, with the 16-byte chunks of a row permuted by the
+// swizzle of W bytes.
+template <int D>
+struct SwizzledRows {
+  static constexpr int W = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int COLS = D * 2 / W;
+  static constexpr uint64_t SWIZZLE =
+      W == 128 ? kSwizzle128B : W == 64 ? kSwizzle64B : kSwizzle32B;
+};
+
+// Descriptor of k-step kk (16 values of the contracted dimension) of a
+// K-major tile of `rows` rows at `base`: the D values of a row are what the
+// product contracts.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t base, int rows,
+                                                 int kk) {
+  using S = SwizzledRows<D>;
+  const int c = kk * 32;
+  return gmma_desc(base + (c / S::W) * rows * S::W + c % S::W, 16, 8 * S::W,
+                   S::SWIZZLE);
+}
+
+// Descriptor of k-step kk (16 rows) of an MN-major tile of `rows` rows at
+// `base`: the rows are what the product contracts, the D values of a row
+// its N columns (the B of a wgmma_rs).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t base, int rows,
+                                                  int kk) {
+  using S = SwizzledRows<D>;
+  return gmma_desc(base + kk * 16 * S::W, rows * S::W, 8 * S::W, S::SWIZZLE);
+}
+
 // before the first wgmma, and after registers it reads were written
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -195,6 +231,53 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// wgmma_rs with B K-major (no transpose bit): the B of a product whose N
+// rows are stored with the contracted values contiguous, as in wgmma_ss.
+template <int N>
+__device__ void wgmma_rs_kmajor(float (&d)[N / 2], const uint32_t (&a)[4],
+                                uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_rs_kmajor<64>(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>
@@ -277,6 +360,61 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
+// ---- host: tensor maps ---------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library links no libcuda; null if the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault) != cudaSuccess)
+      p = nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a 4-D bf16 view of `x` whose innermost dimension, dims[0]
+// = D, is contiguous: byte strides of dims 1-3, boxes of `box` values, in
+// the swizzle of SwizzledRows<D> (box[0] = W / 2); elements out of bounds
+// read as zeros. Returns the CUresult of the encode (0 = success).
+template <int D>
+int encode_bf16_4d(CUtensorMap* m, const void* x, const cuuint64_t (&dims)[4],
+                   const cuuint64_t (&strides)[3],
+                   const cuuint32_t (&box)[4]) {
+  using S = SwizzledRows<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      S::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : S::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                 dims, strides, box, elem_strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace

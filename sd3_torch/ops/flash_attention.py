@@ -4,15 +4,16 @@ sd3_tpu/ops/flash_attention.py).
 `flash_attention(q, k, v, scale)` is softmax(q k^T * scale) v on (B, H, N, D)
 tensors, non-causal, as a `torch.autograd.Function` whose forward saves q,
 k, v, the output and the fp32 logsumexp, and whose backward recomputes p
-from them, as the JAX custom VJP does. Three kernels of one CUDA source,
-`csrc/flash_attention.cu` (its head says what bounds them and how they are
-built):
+from them, as the JAX custom VJP does. Three kernels, each source's head
+saying what bounds them and how they are built:
 
-- K5 `flash_attention_fwd` replaces the TPU kernel `_fwd_kernel`: out, lse;
+- K5 `flash_attention_fwd` replaces the TPU kernel `_fwd_kernel`: out, lse
+  (`csrc/flash_attention.cu`, mma.sync);
 - K6a `flash_attention_dq` replaces `_dq_kernel`: dq, and on the way
   delta = rowsum(dO * out) in fp32, which the JAX package computes in XLA
   between the kernels and K6b reads;
-- K6b `flash_attention_dkv` replaces `_dkv_kernel`: dk, dv.
+- K6b `flash_attention_dkv` replaces `_dkv_kernel`: dk, dv
+  (K6a and K6b: `csrc/flash_bwd_sm90.cu`, wgmma and TMA).
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -26,9 +27,10 @@ tensors on the CPU; on a CUDA tensor they launch the kernel or raise. K5
 runs an online softmax where the plain version takes the true row max
 (csrc/flash_attention.cu says what that changes).
 
-The kernels read each tensor in place through its (b, h, n) strides when
-the head dim is contiguous and rows are 16-byte aligned, else the wrapper
-makes one contiguous copy. The port's attention hands over q, k, v (and
+The kernels read each tensor in place through its (b, h, n) strides (K6a
+and K6b through TMA tensor maps built from them) when the head dim is
+contiguous and the start and the strides are positive multiples of 16
+bytes, else the wrapper makes one contiguous copy. The port's attention hands over q, k, v (and
 autograd dO) that way, so the training path makes no copy. Outputs are
 (B, H, N, D) views of (B, N, H, D) buffers, so the caller's (B, N, H*D)
 reshape copies nothing.
@@ -51,10 +53,10 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 K5 = Kernel("flash_attention_fwd", "flash_attention.cu",
             "sd3_flash_attention_fwd",
             argtypes=[_P] * 5 + [_STRIDES] + [_I] * 4 + [_F, _P])
-K6A = Kernel("flash_attention_dq", "flash_attention.cu",
+K6A = Kernel("flash_attention_dq", "flash_bwd_sm90.cu",
              "sd3_flash_attention_dq",
              argtypes=[_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P])
-K6B = Kernel("flash_attention_dkv", "flash_attention.cu",
+K6B = Kernel("flash_attention_dkv", "flash_bwd_sm90.cu",
              "sd3_flash_attention_dkv",
              argtypes=[_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P])
 
@@ -98,9 +100,11 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale: float):
 # ---- kernels -------------------------------------------------------------
 
 def _readable(x: torch.Tensor) -> torch.Tensor:
-    """x if the kernels can read it in place (head dim contiguous, 16-byte
-    aligned rows and start), else a contiguous copy."""
-    if (x.stride(-1) == 1 and all(s % 8 == 0 for s in x.stride()[:3])
+    """x if the kernels can read it in place (head dim contiguous, start and
+    (b, h, n) strides positive multiples of 16 bytes, as TMA requires), else
+    a contiguous copy."""
+    if (x.stride(-1) == 1 and all(s > 0 and s % 8 == 0
+                                  for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0):
         return x
     return x.contiguous()

@@ -25,6 +25,9 @@ ATOL, RTOL = 2e-5, 2e-4
 # kernels take, and one length above 2048 keys (JAX's multi-block path) at a
 # tiny width
 SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
+# lengths on either side of the backward kernels' 128-row blocks and 64-row
+# query tiles (csrc/flash_bwd_sm90.cu), at both head dims
+TILE_EDGE_SHAPES = [(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
 
 
 def _case(shape, seed=0):
@@ -74,7 +77,7 @@ def test_plain_forward_and_lse_match_jax(shape):
     _close(lse, _jax_lse(q, k, v, scale))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + TILE_EDGE_SHAPES)
 def test_plain_backward_matches_jax_vjp(shape):
     q, k, v, do, scale = _case(shape, seed=1)
     out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
@@ -142,3 +145,37 @@ def test_wrapper_refuses_other_devices_and_shapes():
     m = q.to("meta")
     with pytest.raises(ValueError, match="device"):
         tfl.flash_attention(m, m, m, 0.2)
+
+
+def test_wrapper_reads_the_general_paths_tensors_in_place(monkeypatch):
+    # the general attention path (the trainers': use_fused=False) hands q, k,
+    # v to flash_attention as cat((image, text)) results, and the Function's
+    # backward gets its saved output and autograd's dO; the kernels'
+    # in-place rule (head dim contiguous, start and strides multiples of 16
+    # bytes, which TMA needs) takes every one of them, so training copies
+    # nothing. A view with a misaligned row stride or start is copied.
+    from sd3_torch.ops import attention as tat
+
+    seen = []
+
+    def flash_dq(q, k, v, out, dout, lse, scale):
+        seen.extend((q, k, v, out, dout))
+        return tfl.flash_dq_plain(q, k, v, out, dout, lse, scale)
+    monkeypatch.setattr(tfl, "flash_dq", flash_dq)
+    ja = tat.JointAttention(64, 2, attn_type="softmax_flash", use_fused=False)
+    r = np.random.default_rng(4)
+    x, c = _t(r.standard_normal((2, 16, 64)), True), _t(
+        r.standard_normal((2, 5, 64)))
+    ox, oc = ja(x, c, (4, 4))
+    (ox.sum() + oc.sum()).backward()
+    assert len(seen) == 5
+    for t in seen:
+        assert t.shape == (2, 2, 21, 32)
+        assert tfl._readable(t) is t
+    bf16 = torch.bfloat16
+    rows = torch.zeros(1, 2, 8, 36, dtype=bf16)[..., :32]   # 72-byte rows
+    start = torch.zeros(1, 2, 8, 40, dtype=bf16)[..., 4:36]  # 8 bytes in
+    for view in (rows, start):
+        copy = tfl._readable(view)
+        assert copy is not view and copy.is_contiguous()
+        assert torch.equal(copy, view)

@@ -130,6 +130,20 @@ def test_every_kernel_symbol_is_in_its_source():
         assert f'extern "C" int {k.symbol}(' in src, k.name
 
 
+def test_flash_backward_is_the_wgmma_source():
+    # K6a and K6b are the wgmma + TMA kernels of flash_bwd_sm90.cu; the
+    # mma.sync dq / dk-dv kernels are gone, and K5 keeps its source
+    assert tfl.K6A.source == tfl.K6B.source == "flash_bwd_sm90.cu"
+    assert tfl.K5.source == "flash_attention.cu"
+    bwd = (kernels.CSRC_DIR / tfl.K6A.source).read_text()
+    fwd = (kernels.CSRC_DIR / tfl.K5.source).read_text()
+    assert "wgmma_rs" in bwd and "tma_load_4d" in bwd
+    assert "mma_bf16(" not in bwd and "mma.sync" not in bwd
+    for gone in ("dq_kernel", "dkv_kernel", "sd3_flash_attention_dq",
+                 "sd3_flash_attention_dkv"):
+        assert gone not in fwd, gone
+
+
 @pytest.mark.parametrize("const,source,name", [
     ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
     ("INT8_KEY_TILE", "attention_common.cuh", "BK")])
@@ -495,6 +509,12 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
 # shape (4 samples x 19 heads, 1024 + 154 tokens)
 FLASH_SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 2, 129, 64),
                 (4, 19, 1178, 64)]
+# lengths around the backward kernels' 128-row blocks and 64-row query tiles
+# (csrc/flash_bwd_sm90.cu) at both head dims: one row, a partial tile, whole
+# tiles, a tile and one row
+FLASH_TILE_SHAPES = [(1, 2, n, d) for d in (32, 64)
+                     for n in (1, 63, 64, 65, 127, 128, 129, 255, 257)
+                     if (1, 2, n, d) not in FLASH_SHAPES]
 # chip_smoke.py's limits: bf16 p, ds and outputs against the fp32 plain
 # versions run on the same bf16 values
 FLASH_OUT_ATOL, FLASH_LSE_ATOL = 1e-2, 1e-3
@@ -504,6 +524,11 @@ FLASH_GRAD_MAX_REL, FLASH_GRAD_REL_L2 = 2e-2, 1e-2
 # enters delta, whose difference with dO.v^T cancels, on top of the flash
 # kernels' roundings
 K1_GRAD_MAX_REL, K1_GRAD_REL_L2 = 3e-2, 1.5e-2
+# one key: the softmax over it has no gradient, and the plain versions give
+# dq = dk = 0 exactly, where a relative error has no meaning; the kernels'
+# ds is then p (dp - delta), two fp32 sums of the same D products in two
+# orders (~1e-6 here), rounded to bf16 and times k and the scale
+FLASH_GRAD_ZERO_ATOL = 1e-4
 
 
 def _flash_case(shape, dev, seed=0):
@@ -524,6 +549,9 @@ def _flash_plain_fp32(q, k, v, do, scale):
 def _assert_grad_close(got, want, name, max_rel_limit=FLASH_GRAD_MAX_REL,
                        rel_l2_limit=FLASH_GRAD_REL_L2):
     d = got.float() - want
+    if not want.any():
+        assert d.abs().max().item() <= FLASH_GRAD_ZERO_ATOL, name
+        return
     max_rel = (d.abs().max() / want.abs().max()).item()
     rel_l2 = (d.norm() / want.norm()).item()
     assert max_rel <= max_rel_limit and rel_l2 <= rel_l2_limit, (
@@ -531,7 +559,7 @@ def _assert_grad_close(got, want, name, max_rel_limit=FLASH_GRAD_MAX_REL,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_TILE_SHAPES)
 def test_k5_k6_kernels_match_plain_on_the_card(cuda_device, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _flash_case(shape, cuda_device)
@@ -553,6 +581,53 @@ def test_k5_k6_kernels_match_plain_on_the_card(cuda_device, shape):
     for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
                        ("dv", dv, want[4])):
         _assert_grad_close(g, w, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 257, 32), (4, 19, 1178, 64)])
+def test_k6_kernels_give_the_same_bits_twice_on_the_card(cuda_device,
+                                                         shape):
+    # no atomics: every output element is summed by one thread in one order
+    q, k, v, do = _flash_case(shape, cuda_device, seed=3)
+    scale = shape[-1] ** -0.5
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    runs = []
+    for _ in range(2):
+        dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+        runs.append((dq, delta, *tfl.flash_dkv(q, k, v, do, lse, delta,
+                                                scale)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 47, 32), (1, 5, 300, 64)])
+def test_k6_kernels_read_bnhd_views_in_place_on_the_card(cuda_device, shape,
+                                                         monkeypatch):
+    # (B, H, N, D) views of (B, N, H, D) buffers, the attention path's
+    # layout, go to the tensor maps as they are (no copy) and give the bits
+    # of contiguous inputs
+    q, k, v, do = _flash_case(shape, cuda_device, seed=4)
+    scale = shape[-1] ** -0.5
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v, out, do)]
+    readable, in_place = tfl._readable, []
+
+    def spy(t):
+        r = readable(t)
+        in_place.append(r is t)
+        return r
+    monkeypatch.setattr(tfl, "_readable", spy)
+    vdq, vdelta = tfl.flash_dq(*views, lse, scale)
+    vdk, vdv = tfl.flash_dkv(*views[:3], views[4], lse, vdelta, scale)
+    torch.cuda.synchronize()
+    assert in_place == [True] * 9
+    for a, b in ((dq, vdq), (delta, vdelta), (dk, vdk), (dv, vdv)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
