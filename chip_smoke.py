@@ -7,9 +7,10 @@ Phases (any failure exits non-zero without the final ok line):
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 off for fp32 matmuls and convolutions;
   2. build every kernel from sd3_torch/csrc (one nvcc per source, in
-     parallel; attention_sm90.cu and flash_bwd_sm90.cu encode their TMA
-     descriptors through the runtime's driver entry point, so nothing links
-     libcuda) and print the compiler's register / shared-memory report;
+     parallel; attention_sm90.cu, flash_bwd_sm90.cu and fused_mlp.cu encode
+     their TMA descriptors through the runtime's driver entry point, so
+     nothing links libcuda) and print the compiler's register /
+     shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
      the 512px slice shape, a ragged shape with odd H and a NoPE shape; K4
@@ -21,21 +22,26 @@ Phases (any failure exits non-zero without the final ok line):
      shape and a ragged shape just past 2048 tokens; the public attention
      entry point
      once per kernel (K7q and K8a are reached only there); K3 (int8
-     SwiGLU) at the text stream and a ragged shape; K2 (int8 SwiGLU block
-     tail) at the image stream and a shape whose tiles straddle samples; K9
-     (K2's function on any stream) at the image and the 154-token text
-     stream; K10a (AdaLN + int8 q/k/v) and K10b (int8 out-projection + gate
+     SwiGLU; wgmma + TMA, fused_mlp.cu) at the text stream and a ragged
+     shape; K2 (int8 SwiGLU block tail, the same device code) at the image
+     stream and a shape whose tiles straddle samples; K9 (K2's function on
+     any stream) at the image and the 154-token text stream, each with the
+     device time of its three launches (prologue, h, w3); K10a (AdaLN +
+     int8 q/k/v) and K10b (int8 out-projection + gate
      + residual, reading the image half of the joint sequence in place, also
      without gate and residual) at the 512px image stream and a ragged
-     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv; K6a and
-     K6b wgmma + TMA, flash_bwd_sm90.cu) at the 512px training shape, a
-     ragged one and the 1024px training shape (checked on two heads).
+     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv; wgmma +
+     TMA: K5 attention_sm90.cu, K6a and K6b flash_bwd_sm90.cu) at the 512px
+     training shape, a ragged one and the 1024px training shape (checked on
+     two heads).
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
      backward less that of the forward, the fastest kept, and the eager
      figure of earlier runs beside it; K10a / K10b: torch._int_mm of the
-     pre-quantized activations, the GEMM alone; yardsticks only), and the
+     pre-quantized activations, the GEMM alone; K2, K3, K9: torch._int_mm of
+     the two products on pre-quantized operands, the GEMMs alone;
+     yardsticks only), and the
      bound: the largest of the operations at the tensor-core rate, the
      bytes, and for attention the exp2s at the SFU's rate. Then K1's
      backward (K5, K6a, K6b under its autograd Function)
@@ -73,7 +79,8 @@ Phases (any failure exits non-zero without the final ok line):
      accumulation 2, device EMA) at a depth of 2 blocks;
   12. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or mma.sync over a two-stage cp.async
-     ring), then the last line {"ok": true, "device": {...}}.
+     ring), then the card's name and power limit, then the last line
+     {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
 """
@@ -160,8 +167,9 @@ MODEL_REL_L2 = 3e-2
 INT8_MODEL_REL_L2 = 5e-2
 # K5 / K6a / K6b against their fp32 plain versions on the same bf16 inputs:
 # p and ds are rounded to bf16 (relative 2^-9) before their products, K5
-# rounds p against a running row max (an online softmax) where the plain
-# version takes the true one, and every output is written in bf16. Outputs
+# rounds p against a running row max (an online softmax over 128-key tiles)
+# where the plain version takes the true one, and every output is written
+# in bf16. Outputs
 # of magnitude <= ~2: out within 1e-2; lse from fp32 statistics within 1e-3
 # (a padded key let into the sum moves it by > 1e-1); dq, dk, dv within 2e-2
 # of their largest element and 1e-2 relative L2 (measured at the training
@@ -289,6 +297,23 @@ def cuda_ms(fn, iters=10, groups=5, graph=True):
         b.synchronize()
         times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
+
+
+def per_launch_us(run, iters=10) -> dict:
+    """Device time (us) of each launch of one run() call, by kernel name
+    (torch.profiler over `iters` calls after one more)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    name_of = lambda key: key.replace("void ", "").replace(
+        "(anonymous namespace)::", "").split("(")[0][:80]
+    return {name_of(e.key): round(e.self_device_time_total / e.count, 2)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 # (int8_qk, int8_pv, streaming) -> the kernel's row name in the output
@@ -461,7 +486,7 @@ def phase_mlp(shape, gen, kind):
     """K2, K3 or K9 (`kind`) vs the plain version at one shape."""
     import torch
     from sd3_torch.ops import fused_mlp as fm
-    from sd3_torch.ops.quant import quantize_weight
+    from sd3_torch.ops.quant import int_mm, quantize_weight
 
     name, tail = kind, kind != "K3"
     m, n_tok, k, hidden = shape["m"], shape["n_tok"], shape["k"], shape["hidden"]
@@ -498,9 +523,18 @@ def phase_mlp(shape, gen, kind):
     rel = err / want.abs().max().item()
     rel_l2 = (d.norm() / want.norm()).item()
     same_l2 = ((got.float() - same.float()).norm() / same.float().norm()).item()
+    # library yardstick: torch._int_mm of the two products on operands
+    # quantized beforehand, the GEMMs alone (no quantization, silu * mul,
+    # requantization or epilogue), which the port never calls
+    xq = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                       dtype=torch.int8)
+    hq = torch.randint(-127, 128, (m, hidden), generator=gen, device=dev,
+                       dtype=torch.int8)
+    run_lib = lambda: (int_mm(xq, w12_q), int_mm(hq, w3_q))
     ms = cuda_ms(run_k)
     eager_ms = cuda_ms(run_k, graph=False)
     plain_ms = cuda_ms(run_plain, iters=3, groups=3)
+    library_ms = cuda_ms(run_lib)
     ops = 2.0 * m * k * 2 * hidden + 2.0 * m * hidden * k
     ins = (x, *w) + ((shift, scale, gate) if tail else ())
     nbytes = sum(t.numel() * t.element_size() for t in ins) + m * k * 2
@@ -508,7 +542,9 @@ def phase_mlp(shape, gen, kind):
     res = dict(shape=f"M={m} n_tok={n_tok} K={k} hidden={hidden} "
                f"h_group={h_group}", max_abs_err=err, max_rel_err=rel,
                rel_l2=rel_l2, kernel_vs_plain_bf16_rel_l2=same_l2, ms=ms,
-               eager_ms=eager_ms, plain_ms=plain_ms, library_ms=None,
+               eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_is="torch._int_mm x2 on pre-quantized operands: the "
+               "GEMMs alone", us_per_launch=per_launch_us(run_k),
                **bound(t_ops, t_bytes))
     print(f"  {name}", json.dumps(res), flush=True)
     require(rel <= MLP_MAX_REL and rel_l2 <= MLP_REL_L2,
@@ -1203,9 +1239,9 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
 
 # the int8 kernels' launches carry the number of their TPU kernel as their
 # last template argument (csrc/int8_common.cuh): xquant_kernel<10>,
-# swiglu_h_kernel<256, 9>, ...
-INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_kernel|w3_gemm_kernel|"
-                         r"dense_int8_kernel)<(?:\d+, )?(\d+)>")
+# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, ...
+INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_sm90_kernel|"
+                         r"w3_sm90_kernel|dense_int8_kernel)<(?:\d+, )*(\d+)>")
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
 STREAM_FAMILIES = {"true, false, false>": "K7q",
@@ -1219,32 +1255,30 @@ FLASH_BWD_FAMILIES = {"flash_dq_sm90_kernel": "K6a",
 # the design of each kernel source, for the {"kernels"} line
 SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "flash_bwd_sm90.cu": "wgmma+TMA, warp-specialised",
-                  "flash_attention.cu": "mma.sync, 2-stage cp.async",
+                  "fused_mlp.cu": "wgmma+TMA, warp-specialised",
                   "fused_attention.cu": "mma.sync, 2-stage cp.async",
                   "stream_attention.cu": "mma.sync, 2-stage cp.async",
-                  "fused_mlp.cu": "mma.sync, 2-stage cp.async",
                   "fused_dense.cu": "mma.sync, 2-stage cp.async"}
 
 
 def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2, K3, K9, K10a and K10b by the template tag of their
-    launches, INT8_LAUNCH; K1 and K7 are attn_sm90_kernel<D, Softmax::
-    Bounded> and <D, Softmax::Online>; K4 is k_prep_kernel<D, true> with its
+    launches, INT8_LAUNCH; K1, K7 and K5 are attn_sm90_kernel<D, Softmax::
+    Bounded>, <D, Softmax::Online> and <D, Softmax::Flash>; K4 is
+    k_prep_kernel<D, true> with its
     quantize and attention kernels; K7q, K8a, K8b the instantiations of
     attn_stream_kernel, with the V prep of int8 P.V in K8b and the per-row K
     prep in K7q; the bf16 K prep k_prep_kernel<D, false>, which K1, K7 and
-    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K5 is
-    fwd_kernel of flash_attention.cu, K6a and K6b FLASH_BWD_FAMILIES), int8
-    and other GEMMs, and the rest."""
+    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K6a and K6b
+    FLASH_BWD_FAMILIES), int8 and other GEMMs, and the rest."""
     low = name.lower()
     for fn, fam in FLASH_BWD_FAMILIES.items():
         if fn in name:
             return fam
-    if "::fwd_kernel<" in name or "fwd_kernelILi" in name:
-        return "K5"
     if "attn_sm90_kernel" in name:
-        return "K7" if "Online" in name else "K1"
+        return ("K5" if "Flash" in name else "K7" if "Online" in name
+                else "K1")
     if "attn_stream_kernel" in name:
         return next((f for args, f in STREAM_FAMILIES.items() if args in name),
                     "other")
@@ -1408,7 +1442,7 @@ def main() -> int:
              "sd3_tpu/ops/fused_mlp.py:93", sample8, per_call),
             (fused_attention.K4, k4[0], "fused_attention.cu",
              "sd3_tpu/ops/fused_attention.py:193", sample8, per_call),
-            (flash_attention.K5, k56[0]["K5"], "flash_attention.cu",
+            (flash_attention.K5, k56[0]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", train, per_step),
             (flash_attention.K6A, k56[0]["K6a"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:191", train, per_step),

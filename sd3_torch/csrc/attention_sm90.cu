@@ -1,6 +1,7 @@
-// K1 and K7, the bf16 joint-attention forwards, for NVIDIA Hopper (sm_90a):
-// one kernel, attn_sm90_kernel<D, Softmax>, on wgmma and TMA with a
-// warp-specialised ring of K / V tiles.
+// K1 and K7, the bf16 joint-attention forwards, and K5, the flash-attention
+// forward of training, for NVIDIA Hopper (sm_90a): one kernel,
+// attn_sm90_kernel<D, Softmax>, on wgmma and TMA with a warp-specialised
+// ring of K / V tiles.
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py (both reached through
 // _pallas_fused, at :642 and :660):
@@ -9,7 +10,11 @@
 //       ||q^|| * max ||k^|| (Softmax::Bounded);
 //   K7  `_stream_fwd_kernel` (:312), bf16 branch: the streaming kernel
 //       (more than 2048 padded tokens), an ONLINE softmax with the true
-//       running max (Softmax::Online).
+//       running max (Softmax::Online);
+// and in sd3_tpu/ops/flash_attention.py (pallas_call at :166):
+//   K5  `_fwd_kernel` (:103): o = softmax(q k^T * scale) v and the fp32
+//       lse = m + log(l) that K6a and K6b read (Softmax::Flash), on raw q, k,
+//       v: no prep (see "K5" below).
 // What both compute, per (batch b, head h), from raw projections q, k, v of
 // (B, N, H*D) bf16 and (N, D) fp32 tables with the per-stream norm weights
 // folded in (the q tables also carry scale*log2(e), so the softmax runs in
@@ -70,6 +75,30 @@
 //        of its basic block; and the ragged tile's mask is one branch ahead
 //        of the softmax, not one per column group inside it.
 //
+// K5 (Softmax::Flash) is the same block on what training hands over: one
+// launch, no prep. q, k and v are read raw through 4-D tensor maps (D, N, H,
+// B) built from the (b, h, n) strides of the caller's (B, H, N, D) views
+// (encode_view, sm90.cuh), so the (B, N, H, D) buffers of the training path
+// are read in place; o is written through its view's strides. The scale is
+// not folded into q: the running max m is of the raw scores, and each p is
+// exp2(s * scale*log2(e) - m * scale*log2(e)), one FFMA ahead of the exp2;
+// alpha = exp2((m_old - m) * scale*log2(e)). lse is written in natural-log
+// units, (m * scale*log2(e) + log2(l)) * ln(2), fp32 (B, H, N), as the plain
+// version (ops/flash_attention.py) returns it; rows past N write neither o
+// nor lse. Numerics against the TPU kernel and the plain version: p is
+// rounded to bf16 against the running max of a 128-key tile, where the
+// plain version (and JAX below 2048 keys) takes the true row max; the p of
+// a tile whose running max later grows is rescaled by alpha in fp32 after
+// its rounding, which moves o by bf16's relative rounding (2^-9) at most,
+// the size of p's rounding itself (FLASH_OUT_ATOL in chip_smoke.py). l and
+// lse come from the unrounded fp32 p. No atomics: two runs give the same
+// bits. K5 runs persistent CTAs (see the kernel): with a CTA per 128 rows,
+// as K1 and K7 run, a CTA's start and end (the q load, the ring's fill, the
+// epilogue) and the last partial wave of 760 CTAs held it at 1.10x / 1.05x
+// SDPA's forward at the training shapes (PERF.md). At the 512px training
+// shape (B 4, H 19, N 1178, D 64) the products are 27.0 G FLOP, 0.0273 ms
+// at 989 TFLOP/s, and the exp2s 0.105 G, 0.0273 ms on the SFU.
+//
 // What bounds them on this card, at the slice shapes (K1: B 8, N 1178, H
 // 19, D 64; K7: B 8, N 4250, H 19, D 64): the two products are 4*B*H*N^2*D
 // = 54.0 / 702.9 G FLOP, 0.0546 / 0.7107 ms at 989 TFLOP/s; the softmax is
@@ -104,9 +133,13 @@ constexpr int TURN = 1;
 constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
 namespace Softmax {
 struct Bounded {};  // K1: shift ||q^|| * max ||k^||, no rescale
 struct Online {};   // K7: the running row max
+struct Flash {};    // K5: the running row max of raw scores, lse out
 }  // namespace Softmax
 
 // Shared memory of attn_sm90_kernel<D, *>, from a 1024-byte aligned base;
@@ -119,20 +152,26 @@ struct Sm90 : SwizzledRows<D> {
   static constexpr int Q = 0;                       // [CONSUMERS] q^ tiles
   static constexpr int K = Q + CONSUMERS * Q_TILE;  // [STAGES] K tiles
   static constexpr int V = K + STAGES * KV_TILE;    // [STAGES] V tiles
-  // mbarriers: full / empty of each K and V stage, full of each q^ tile
+  // mbarriers: full / empty of each K and V stage, full / empty of each q^
+  // tile
   static constexpr int BAR = V + STAGES * KV_TILE;
-  static constexpr int BYTES = BAR + (4 * STAGES + CONSUMERS) * 8 + 1024;
+  static constexpr int BYTES = BAR + (4 * STAGES + 2 * CONSUMERS) * 8 + 1024;
 };
 
-// TMA of ROWS rows (n0.., head h, sample b) of a (B, N, H*D) tensor into a
-// tile at `dst`, one box per atom column.
-template <int D, int ROWS>
+// TMA of ROWS rows (n0.., head h, sample b) into a tile at `dst`, one box
+// per atom column: of a (B, N, H*D) tensor mapped (D, H, N, B) (K1, K7), or
+// of a (B, H, N, D) view mapped (D, N, H, B) (FLASH: K5).
+template <int D, int ROWS, bool FLASH>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
                                           uint32_t bar, int h, int n0, int b) {
   using S = Sm90<D>;
 #pragma unroll
-  for (int c = 0; c < S::COLS; ++c)
-    tma_load_4d(dst + c * ROWS * S::W, m, bar, c * S::W / 2, h, n0, b);
+  for (int c = 0; c < S::COLS; ++c) {
+    if constexpr (FLASH)
+      tma_load_4d(dst + c * ROWS * S::W, m, bar, c * S::W / 2, n0, h, b);
+    else
+      tma_load_4d(dst + c * ROWS * S::W, m, bar, c * S::W / 2, h, n0, b);
+  }
 }
 
 // grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: q^ in bf16 in the
@@ -169,10 +208,16 @@ q_prep_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
   }
 }
 
-// grid (ceil(N / BLOCK_Q), H, B), SM90_THREADS threads, Sm90<D>::BYTES of
-// dynamic shared memory. tm_q, tm_k, tm_v: tensor maps of bf16 q^, k^ and v
-// (see encode); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
-// (Bounded only); o (B, N, H*D) bf16.
+// grid (ceil(N / BLOCK_Q), H, B), a CTA per item (128 query rows, head,
+// sample); for Flash min(SMs, items) persistent CTAs, CTA i on items i,
+// i + grid, ... (q tiles fastest), its ring, barriers and turns running on
+// across items, so that its producer loads the next item's q and first K /
+// V tiles under the last one's final P.V and epilogue. SM90_THREADS
+// threads, Sm90<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v:
+// tensor maps of bf16 q^, k^ and v (see encode), or for Flash of raw q, k,
+// v (encode_view); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
+// (Bounded only); o bf16 with element strides vo; lse (B*H, N) fp32 and
+// scale_log2 = scale * log2(e) (Flash only).
 template <int D, class SM>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -180,9 +225,11 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_v,
                  const float* __restrict__ q_norm,
                  const float* __restrict__ k_max2, bf16* __restrict__ o,
-                 int N, int H) {
+                 View vo, float* __restrict__ lse, float scale_log2, int N,
+                 int H, int B) {
   using S = Sm90<D>;
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
+  constexpr bool FLASH = std::is_same<SM, Softmax::Flash>::value;
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -190,8 +237,28 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * STAGES;
   const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
   const uint32_t full_q = empty_v + 8 * STAGES;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
+  const int nqt = (N + BLOCK_Q - 1) / BLOCK_Q;
+  const int n_items = nqt * H * B;
+  const int n_local =
+      !FLASH ? 1
+      : (int)blockIdx.x < n_items
+          ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+          : 0;
+  // (q tile, head, sample) of this CTA's local item j
+  auto item_of = [&](int j, int& qt, int& h, int& b) {
+    if constexpr (FLASH) {
+      const int it = blockIdx.x + j * gridDim.x;
+      qt = it % nqt;
+      h = it / nqt % H;
+      b = it / (nqt * H);
+    } else {
+      qt = blockIdx.x;
+      h = blockIdx.y;
+      b = blockIdx.z;
+    }
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -200,7 +267,10 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(empty_k + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
       mbar_init(empty_v + 8 * s, CONSUMERS * 4);
     }
-    for (int c = 0; c < CONSUMERS; ++c) mbar_init(full_q + 8 * c, 1);
+    for (int c = 0; c < CONSUMERS; ++c) {
+      mbar_init(full_q + 8 * c, 1);
+      mbar_init(empty_q + 8 * c, 4);  // lane 0 of each warp of consumer c
+    }
     fence_barrier_init();
   }
   __syncthreads();
@@ -213,22 +283,28 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch(&tm_q);
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
-      for (int c = 0; c < CONSUMERS; ++c) {
-        mbar_arrive_expect_tx(full_q + 8 * c, S::Q_TILE);
-        load_tile<D, QROWS>(sb + S::Q + c * S::Q_TILE, &tm_q, full_q + 8 * c,
-                            h, blockIdx.x * BLOCK_Q + c * QROWS, b);
-      }
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % STAGES;
-        const uint32_t free_parity = ((t / STAGES) & 1) ^ 1;
-        mbar_wait(empty_k + 8 * s, free_parity);
-        mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
-        load_tile<D, KEY_TILE>(sb + S::K + s * S::KV_TILE, &tm_k,
-                               full_k + 8 * s, h, t * KEY_TILE, b);
-        mbar_wait(empty_v + 8 * s, free_parity);
-        mbar_arrive_expect_tx(full_v + 8 * s, S::KV_TILE);
-        load_tile<D, KEY_TILE>(sb + S::V + s * S::KV_TILE, &tm_v,
-                               full_v + 8 * s, h, t * KEY_TILE, b);
+      for (int ji = 0; ji < n_local; ++ji) {
+        int qt, h, b;
+        item_of(ji, qt, h, b);
+        for (int c = 0; c < CONSUMERS; ++c) {  // once the last item's is done
+          mbar_wait(empty_q + 8 * c, (ji & 1) ^ 1);
+          mbar_arrive_expect_tx(full_q + 8 * c, S::Q_TILE);
+          load_tile<D, QROWS, FLASH>(sb + S::Q + c * S::Q_TILE, &tm_q,
+                                     full_q + 8 * c, h,
+                                     qt * BLOCK_Q + c * QROWS, b);
+        }
+        for (int t = 0; t < ntiles; ++t) {
+          const int tt = ji * ntiles + t, s = tt % STAGES;  // the ring's tile
+          const uint32_t free_parity = ((tt / STAGES) & 1) ^ 1;
+          mbar_wait(empty_k + 8 * s, free_parity);
+          mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
+          load_tile<D, KEY_TILE, FLASH>(sb + S::K + s * S::KV_TILE, &tm_k,
+                                        full_k + 8 * s, h, t * KEY_TILE, b);
+          mbar_wait(empty_v + 8 * s, free_parity);
+          mbar_arrive_expect_tx(full_v + 8 * s, S::KV_TILE);
+          load_tile<D, KEY_TILE, FLASH>(sb + S::V + s * S::KV_TILE, &tm_v,
+                                        full_v + 8 * s, h, t * KEY_TILE, b);
+        }
       }
     }
   } else {
@@ -237,199 +313,235 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int c = wg - 1;
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
-    const int n0 = blockIdx.x * BLOCK_Q + c * QROWS + warp * 16 + g;
-    const int n1 = n0 + 8;                   // this thread's two rows
-
-    // Bounded: the shift of rows n0, n1 (rows past N: q^ = 0, any shift)
-    float shift0 = 0.f, shift1 = 0.f;
-    if constexpr (BOUNDED) {
-      const float kmax = sqrtf(k_max2[b * H + h]);
-      const float* qn = q_norm + (size_t)(b * H + h) * N;
-      if (n0 < N) shift0 = qn[n0] * kmax;
-      if (n1 < N) shift1 = qn[n1] * kmax;
-    }
     const uint32_t q_base = sb + S::Q + c * S::Q_TILE;
     float s[KEY_TILE / 2];     // scores, then p, of one tile
     uint32_t p[KEY_TILE / 4];  // bf16 p: the A fragments of the 8 P.V steps
     float acc[D / 2];
 #pragma unroll
     for (int i = 0; i < KEY_TILE / 2; ++i) s[i] = 0.f;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    mbar_wait(full_q + 8 * c, 0);  // this consumer's q^ tile has landed
-    // issue S = q^ k^T of key tile t
-    auto issue_scores = [&](int t) {
-      const int st = t % STAGES;
-      mbar_wait(full_k + 8 * st, (t / STAGES) & 1);
-      const uint32_t kb = sb + S::K + st * S::KV_TILE;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<KEY_TILE>(s, desc_k_major<D>(q_base, QROWS, kk),
-                           desc_k_major<D>(kb, KEY_TILE, kk), kk > 0);
-      wgmma_commit();
-    };
-    // issue acc += bf16(p) v of key tile t
-    auto issue_pv = [&](int t) {
-      const int st = t % STAGES;
-      mbar_wait(full_v + 8 * st, (t / STAGES) & 1);
-      const uint32_t vb = sb + S::V + st * S::KV_TILE;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
-        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                               p[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KEY_TILE, kk), 1);
-      }
-      wgmma_commit();
-    };
-    // this warp is done with stage t % STAGES of K or V
-    auto release = [&](uint32_t empty, int t) {
-      if (lane == 0) mbar_arrive(empty + 8 * (t % STAGES));
-    };
-    // s -> p = exp2(s - shift) in place, l updated; Online: the running
-    // max too, and alpha of rows g, g + 8 returned in a0, a1. Padded keys
-    // of the ragged last tile (zero rows of the TMA box, which score 0) go
-    // to -inf first, so exp2 gives them p = 0: one branch a tile, ahead of
-    // the unrolled arithmetic, which it would otherwise cut into blocks.
-    auto softmax = [&](int t, float& a0, float& a1) {
-      const int k0 = t * KEY_TILE;
-      if (k0 + KEY_TILE > N) {
-#pragma unroll
-        for (int j = 0; j < KEY_TILE / 8; ++j) {
-          const int col = k0 + j * 8 + t4 * 2;
-          if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
-          if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
-        }
-      }
-      float sh0 = shift0, sh1 = shift1;
-      if constexpr (!BOUNDED) {
-        // the row max over PARTS partial maxima: shorter chains for the
-        // exp2s to wait on, where the registers allow
-        constexpr int PARTS = D <= 64 ? 4 : 1;
-        float x0[PARTS], x1[PARTS];
-#pragma unroll
-        for (int i = 0; i < PARTS; ++i) {
-          x0[i] = fmaxf(s[4 * i], s[4 * i + 1]);
-          x1[i] = fmaxf(s[4 * i + 2], s[4 * i + 3]);
-        }
-#pragma unroll
-        for (int j = PARTS; j < KEY_TILE / 8; ++j) {
-          x0[j % PARTS] = fmaxf(x0[j % PARTS], fmaxf(s[4 * j], s[4 * j + 1]));
-          x1[j % PARTS] =
-              fmaxf(x1[j % PARTS], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-        }
-        float mx0 = x0[0], mx1 = x1[0];
-#pragma unroll
-        for (int i = 1; i < PARTS; ++i) {
-          mx0 = fmaxf(mx0, x0[i]);
-          mx1 = fmaxf(mx1, x1[i]);
-        }
-        // every row sees key 0 in tile 0, so the running max is finite
-        // from there on and exp2(-inf - finite) = 0 clears the empty start
-        sh0 = fmaxf(m0, quad_max(mx0));
-        sh1 = fmaxf(m1, quad_max(mx1));
-        a0 = fast_exp2(m0 - sh0);
-        a1 = fast_exp2(m1 - sh1);
-        m0 = sh0;
-        m1 = sh1;
-        l0 *= a0;
-        l1 *= a1;
-      }
-#pragma unroll
-      for (int j = 0; j < KEY_TILE / 8; ++j) {
-        s[4 * j] = fast_exp2(s[4 * j] - sh0);
-        s[4 * j + 1] = fast_exp2(s[4 * j + 1] - sh0);
-        s[4 * j + 2] = fast_exp2(s[4 * j + 2] - sh1);
-        s[4 * j + 3] = fast_exp2(s[4 * j + 3] - sh1);
-        l0 += s[4 * j] + s[4 * j + 1];  // sums of the unrounded p
-        l1 += s[4 * j + 2] + s[4 * j + 3];
-      }
-    };
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int i = 0; i < KEY_TILE / 4; ++i)
-        p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-    };
 
     // Ping-pong: the consumers take turns to issue their products (named
     // barriers TURN + c, each met by this consumer's sync and the other's
     // arrive), so that one's softmax runs while the other's products do.
     // Consumer 0 goes first; consumer 1 does not hand over after its last
-    // turn, which balances every barrier's arrivals (ntiles + 1 turns each).
+    // turn of its last item, which balances every barrier's arrivals
+    // (ntiles + 1 turns an item each).
     const int my_turn = TURN + c, other_turn = TURN + 1 - c;
     if (c == 1) named_bar_arrive(other_turn, 2 * WG);
     auto take_turn = [&]() { named_bar_sync(my_turn, 2 * WG); };
     auto hand_over = [&]() { named_bar_arrive(other_turn, 2 * WG); };
 
-    float a0 = 1.f, a1 = 1.f;
-    take_turn();
-    issue_scores(0);
-    hand_over();
-    wgmma_wait<0>();
-    reg_fence(s);
-    release(empty_k, 0);
-    softmax(0, a0, a1);
-    pack_p();
-    for (int t = 1; t < ntiles; ++t) {
-      take_turn();
-      issue_scores(t);   // S of tile t ...
-      issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
-      hand_over();
-      wgmma_wait<1>();   // S of tile t done
-      reg_fence(s);
-      release(empty_k, t);
-      softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
-      // The wait for that P.V, behind a branch on the softmax's sums that
-      // always takes the first arm: ptxas hoists a wait to the top of its
-      // basic block, which put this one, and the whole softmax after it,
-      // behind the P.V it should overlap (seen in the SASS). The branch
-      // ends the block after the softmax.
-      if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
-          0xffffffffu) {
-        wgmma_wait<0>();
-      } else {
-        wgmma_wait<0>();
-        __trap();
+    for (int ji = 0; ji < n_local; ++ji) {
+      int qt, h, b;
+      item_of(ji, qt, h, b);
+      const int t0 = ji * ntiles;  // the ring's tile of this item's key tile 0
+      const int n0 = qt * BLOCK_Q + c * QROWS + warp * 16 + g;
+      const int n1 = n0 + 8;                   // this thread's two rows
+
+      // Bounded: the shift of rows n0, n1 (rows past N: q^ = 0, any shift)
+      float shift0 = 0.f, shift1 = 0.f;
+      if constexpr (BOUNDED) {
+        const float kmax = sqrtf(k_max2[b * H + h]);
+        const float* qn = q_norm + (size_t)(b * H + h) * N;
+        if (n0 < N) shift0 = qn[n0] * kmax;
+        if (n1 < N) shift1 = qn[n1] * kmax;
       }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      mbar_wait(full_q + 8 * c, ji & 1);  // this consumer's q^ tile has landed
+      // issue S = q^ k^T of key tile t
+      auto issue_scores = [&](int t) {
+        const int st = (t0 + t) % STAGES;
+        mbar_wait(full_k + 8 * st, ((t0 + t) / STAGES) & 1);
+        const uint32_t kb = sb + S::K + st * S::KV_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<KEY_TILE>(s, desc_k_major<D>(q_base, QROWS, kk),
+                             desc_k_major<D>(kb, KEY_TILE, kk), kk > 0);
+        wgmma_commit();
+      };
+      // issue acc += bf16(p) v of key tile t
+      auto issue_pv = [&](int t) {
+        const int st = (t0 + t) % STAGES;
+        mbar_wait(full_v + 8 * st, ((t0 + t) / STAGES) & 1);
+        const uint32_t vb = sb + S::V + st * S::KV_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
+          const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                                 p[4 * kk + 3]};
+          wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KEY_TILE, kk), 1);
+        }
+        wgmma_commit();
+      };
+      // this warp is done with key tile t's stage of K or V, or (empty_q)
+      // with its q^ tile
+      auto release = [&](uint32_t empty, int t) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((t0 + t) % STAGES));
+      };
+      auto release_q = [&]() {
+        if (lane == 0) mbar_arrive(empty_q + 8 * c);
+      };
+      // s -> p = exp2(s - shift) in place, l updated; Online: the running
+      // max too, and alpha of rows g, g + 8 returned in a0, a1; Flash: as
+      // Online on raw scores, scaled in the exp2's argument (the max and the
+      // shift of raw scores, p = exp2(s * scale_log2 - m * scale_log2)). Padded keys
+      // of the ragged last tile (zero rows of the TMA box, which score 0) go
+      // to -inf first, so exp2 gives them p = 0: one branch a tile, ahead of
+      // the unrolled arithmetic, which it would otherwise cut into blocks.
+      auto softmax = [&](int t, float& a0, float& a1) {
+        const int k0 = t * KEY_TILE;
+        if (k0 + KEY_TILE > N) {
+#pragma unroll
+          for (int j = 0; j < KEY_TILE / 8; ++j) {
+            const int col = k0 + j * 8 + t4 * 2;
+            if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
+            if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+          }
+        }
+        float sh0 = shift0, sh1 = shift1;
+        if constexpr (!BOUNDED) {
+          // the row max over PARTS partial maxima: shorter chains for the
+          // exp2s to wait on, where the registers allow
+          constexpr int PARTS = D <= 64 ? 4 : 1;
+          float x0[PARTS], x1[PARTS];
+#pragma unroll
+          for (int i = 0; i < PARTS; ++i) {
+            x0[i] = fmaxf(s[4 * i], s[4 * i + 1]);
+            x1[i] = fmaxf(s[4 * i + 2], s[4 * i + 3]);
+          }
+#pragma unroll
+          for (int j = PARTS; j < KEY_TILE / 8; ++j) {
+            x0[j % PARTS] = fmaxf(x0[j % PARTS], fmaxf(s[4 * j], s[4 * j + 1]));
+            x1[j % PARTS] =
+                fmaxf(x1[j % PARTS], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+          }
+          float mx0 = x0[0], mx1 = x1[0];
+#pragma unroll
+          for (int i = 1; i < PARTS; ++i) {
+            mx0 = fmaxf(mx0, x0[i]);
+            mx1 = fmaxf(mx1, x1[i]);
+          }
+          // every row sees key 0 in tile 0, so the running max is finite
+          // from there on and exp2(-inf - finite) = 0 clears the empty start
+          sh0 = fmaxf(m0, quad_max(mx0));
+          sh1 = fmaxf(m1, quad_max(mx1));
+          if constexpr (FLASH) {
+            a0 = fast_exp2((m0 - sh0) * scale_log2);
+            a1 = fast_exp2((m1 - sh1) * scale_log2);
+          } else {
+            a0 = fast_exp2(m0 - sh0);
+            a1 = fast_exp2(m1 - sh1);
+          }
+          m0 = sh0;
+          m1 = sh1;
+          l0 *= a0;
+          l1 *= a1;
+          if constexpr (FLASH) {  // the shift in the exp2's units
+            sh0 *= scale_log2;
+            sh1 *= scale_log2;
+          }
+        }
+        // p = exp2(s - shift), or for Flash exp2(s * scale_log2 - shift): one
+        // FFMA ahead of each exp2 either way
+        auto p_of = [&](float x, float sh) {
+          if constexpr (FLASH) return fast_exp2(fmaf(x, scale_log2, -sh));
+          else return fast_exp2(x - sh);
+        };
+#pragma unroll
+        for (int j = 0; j < KEY_TILE / 8; ++j) {
+          s[4 * j] = p_of(s[4 * j], sh0);
+          s[4 * j + 1] = p_of(s[4 * j + 1], sh0);
+          s[4 * j + 2] = p_of(s[4 * j + 2], sh1);
+          s[4 * j + 3] = p_of(s[4 * j + 3], sh1);
+          l0 += s[4 * j] + s[4 * j + 1];  // sums of the unrounded p
+          l1 += s[4 * j + 2] + s[4 * j + 3];
+        }
+      };
+      auto pack_p = [&]() {
+#pragma unroll
+        for (int i = 0; i < KEY_TILE / 4; ++i)
+          p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      };
+
+      float a0 = 1.f, a1 = 1.f;
+      take_turn();
+      issue_scores(0);
+      hand_over();
+      wgmma_wait<0>();
+      reg_fence(s);
+      release(empty_k, 0);
+      if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
+      softmax(0, a0, a1);
+      pack_p();
+      for (int t = 1; t < ntiles; ++t) {
+        take_turn();
+        issue_scores(t);   // S of tile t ...
+        issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
+        hand_over();
+        wgmma_wait<1>();   // S of tile t done
+        reg_fence(s);
+        release(empty_k, t);
+        if (t == ntiles - 1) release_q();
+        softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
+        // The wait for that P.V, behind a branch on the softmax's sums that
+        // always takes the first arm: ptxas hoists a wait to the top of its
+        // basic block, which put this one, and the whole softmax after it,
+        // behind the P.V it should overlap (seen in the SASS). The branch
+        // ends the block after the softmax.
+        if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
+            0xffffffffu) {
+          wgmma_wait<0>();
+        } else {
+          wgmma_wait<0>();
+          __trap();
+        }
+        reg_fence(acc);
+        reg_fence(p);
+        release(empty_v, t - 1);
+        if constexpr (!BOUNDED) {
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            acc[4 * j] *= a0;
+            acc[4 * j + 1] *= a0;
+            acc[4 * j + 2] *= a1;
+            acc[4 * j + 3] *= a1;
+          }
+        }
+        pack_p();
+      }
+      take_turn();
+      issue_pv(ntiles - 1);
+      if (c == 0 || ji + 1 < n_local) hand_over();
+      wgmma_wait<0>();
       reg_fence(acc);
       reg_fence(p);
-      release(empty_v, t - 1);
-      if constexpr (!BOUNDED) {
+      release(empty_v, ntiles - 1);
+
+      // o = acc / l, bf16, rows past N not stored; Flash: lse too
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      bf16* oh = o + b * vo.b + h * vo.h;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          acc[4 * j] *= a0;
-          acc[4 * j + 1] *= a0;
-          acc[4 * j + 2] *= a1;
-          acc[4 * j + 3] *= a1;
+      for (int j = 0; j < D / 8; ++j) {
+        const int col = j * 8 + t4 * 2;
+        if (n0 < N)
+          *reinterpret_cast<uint32_t*>(oh + n0 * vo.n + col) =
+              pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        if (n1 < N)
+          *reinterpret_cast<uint32_t*>(oh + n1 * vo.n + col) =
+              pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+      if constexpr (FLASH) {
+        if (t4 == 0) {
+          float* lh = lse + ((size_t)b * H + h) * N;
+          if (n0 < N) lh[n0] = (m0 * scale_log2 + log2f(l0)) * LN2;
+          if (n1 < N) lh[n1] = (m1 * scale_log2 + log2f(l1)) * LN2;
         }
       }
-      pack_p();
-    }
-    take_turn();
-    issue_pv(ntiles - 1);
-    if (c == 0) hand_over();
-    wgmma_wait<0>();
-    reg_fence(acc);
-    reg_fence(p);
-    release(empty_v, ntiles - 1);
-
-    // o = acc / l, bf16, rows past N not stored
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    const size_t rs = (size_t)H * D;
-    const size_t base = (size_t)b * N * rs + (size_t)h * D;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = j * 8 + t4 * 2;
-      if (n0 < N)
-        *reinterpret_cast<uint32_t*>(o + base + (size_t)n0 * rs + col) =
-            pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
-      if (n1 < N)
-        *reinterpret_cast<uint32_t*>(o + base + (size_t)n1 * rs + col) =
-            pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
   }
 }
@@ -483,10 +595,39 @@ int launch_sm90(const Args& a) {
   e = allow_smem(kernel, Sm90<D>::BYTES);
   if (e != 0) return e;
   dim3 grid((a.N + BLOCK_Q - 1) / BLOCK_Q, a.H, a.B);
+  const View vo{(long long)a.N * a.H * D, D, (long long)a.H * D};
   kernel<<<grid, SM90_THREADS, Sm90<D>::BYTES, a.st>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(a.q_norm),
-      static_cast<const float*>(a.k_max2), static_cast<bf16*>(a.out), a.N,
-      a.H);
+      static_cast<const float*>(a.k_max2), static_cast<bf16*>(a.out), vo,
+      nullptr, 0.f, a.N, a.H, a.B);
+  return (int)cudaGetLastError();
+}
+
+// K5: the three tensor maps of the raw q, k, v views, the attention; the
+// first error. The shared-memory opt-in comes first: a runtime call, it
+// makes the device's primary context current on this thread, which the
+// maps' encode (a driver call) needs; K1's backward runs K5 on autograd's
+// thread, where this may be the first CUDA call (see flash_bwd_sm90.cu).
+template <int D>
+int launch_flash(const void* q, const void* k, const void* v, void* o,
+                 void* lse, const long long* st, int B, int H, int N,
+                 float scale, cudaStream_t stream) {
+  auto kernel = attn_sm90_kernel<D, Softmax::Flash>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int e = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm90<D>::BYTES);
+  if (e == 0) e = encode_view<D, QROWS>(&tm_q, q, view_at(st, 0), B, H, N);
+  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_k, k, view_at(st, 1), B, H, N);
+  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_v, v, view_at(st, 2), B, H, N);
+  int dev = 0, sms = 0;
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0)
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != 0) return e;
+  const int items = (N + BLOCK_Q - 1) / BLOCK_Q * H * B;
+  kernel<<<items < sms ? items : sms, SM90_THREADS, Sm90<D>::BYTES, stream>>>(
+      tm_q, tm_k, tm_v, nullptr, nullptr, static_cast<bf16*>(o),
+      view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, H, B);
   return (int)cudaGetLastError();
 }
 
@@ -527,4 +668,23 @@ extern "C" int sd3_fused_attention_bf16(SD3_SM90_PARAMS) {
 // K7: the online softmax over 128-key tiles.
 extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
   return dispatch<Softmax::Online>(SD3_SM90_ARGS, D);
+}
+
+// K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v. Every
+// tensor argument but lse is a (B, H, N, D) bf16 view with the head dim
+// contiguous, 16-byte aligned start and (b, h, n) strides, the element
+// strides in `strides`, three per tensor (q, k, v, o). Returns 0, or the
+// first error: a cudaError_t of the launch or the CUresult of a tensor-map
+// encode.
+extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       const long long* strides, int B, int H,
+                                       int N, int D, float scale,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_flash<32>(q, k, v, o, lse, strides, B, H, N, scale, st);
+    case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

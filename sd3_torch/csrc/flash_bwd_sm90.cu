@@ -112,11 +112,6 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// element strides of a (B, H, N, D) view; the head dim is contiguous
-struct View {
-  long long b, h, n;
-};
-
 // Shared memory of flash_dq_sm90_kernel<D>, from a 1024-byte aligned base.
 template <int D>
 struct DqSmem {
@@ -260,7 +255,7 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
 
 // grid (ceil(N / BLOCK), H, B), THREADS threads, DqSmem<D>::BYTES of dynamic
 // shared memory. tm_q, tm_k, tm_v, tm_do: tensor maps of q, k, v, dO (see
-// encode_view); o and dout with their views for delta; lse (B*H, N) fp32;
+// encode_view, sm90.cuh); o and dout with their views for delta; lse (B*H, N) fp32;
 // delta (B*H, N) fp32, written; dq (B, H, N, D) bf16 view.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -719,24 +714,6 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---- host side ----------------------------------------------------------
-
-View view_at(const long long* strides, int i) {
-  return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-}
-
-// The tensor map of a (B, H, N, D) bf16 view with element strides v as the
-// 4-D view (D, N, H, B), boxes of one atom column (W / 2 values) of R rows
-// of one head of one sample; rows past N read as zeros. The CUresult of the
-// encode (0 = success).
-template <int D, int R>
-int encode_view(CUtensorMap* m, const void* x, View v, int B, int H, int N) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)v.n * 2, (cuuint64_t)v.h * 2,
-                                 (cuuint64_t)v.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(SwizzledRows<D>::W / 2), R, 1, 1};
-  return encode_bf16_4d<D>(m, x, dims, strides, box);
-}
 
 // The kernel's dynamic shared memory, opted into before anything else: a
 // runtime call, it makes the device's primary context current on this

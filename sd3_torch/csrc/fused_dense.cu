@@ -21,7 +21,7 @@
 //
 // Weights are (out, in) int8, K-contiguous, the B operand of m16n8k32
 // (.row.col): both operands' fragments come from plain ldmatrix of
-// K-contiguous shared-memory rows, as in fused_mlp.cu.
+// K-contiguous shared-memory rows (int8_common.cuh).
 //
 // What bounds them on this card, at the 512px image stream (M = 8 * 1024,
 // K = N = 1216): K10a does 2 * M * K * 3N = 72.7 G int8 operations (0.0367

@@ -35,313 +35,498 @@
 // template instance (V = 9) so that its launches and its profile rows are
 // its own.
 //
-// Weights are (out, in) int8, K-contiguous: the B operand of the int8 mma
-// (m16n8k32 .row.col) must be K-major, and ldmatrix cannot transpose 8-bit
-// elements, so the fragments of both operands are read with plain
-// (non-transposed) ldmatrix from K-contiguous shared-memory rows.
+// Weights are (out, in) int8, K-contiguous, and xq (M, K) and hq (M,
+// hidden) are row-major: every operand of both products is K-major, which is
+// what wgmma requires of 8-bit types (it has no transpose for them). No
+// transposed copy of anything is made.
 //
 // What bounds it on this card: at the image stream (M = 8*1024, K = 1216,
 // hidden = 4864) one call is 2*M*K*2*hidden + 2*M*hidden*K = 290.7 G int8
-// operations against ~58 MB of input, weight and output bytes, so the int8
-// tensor-core rate bounds it (0.147 ms at 1,979 TOP/s). The TPU kernel keeps
-// an fp32 (bm, 1216) accumulator in VMEM over all hidden chunks; on Hopper
-// that does not fit a block's shared memory, so this simple, right version
-// runs three launches and lets h make one round trip through device memory:
-//   1. xquant_kernel (int8_common.cuh): one warp per row: (AdaLN,) per-row
-//      quantization -> xq (M, K) int8, s_x (M) fp32;
-//   2. swiglu_h_kernel: one block per (BM rows, h_group chunk): the int8
-//      product with both halves of w12 for the chunk, dequant, bias,
-//      silu * mul, the per-(row, chunk) requantization -> hq (M, hidden)
-//      int8, s_h (M, hidden / h_group) fp32 (40 MB at the image stream);
-//   3. w3_gemm_kernel: one block per (64 rows, 128 columns): hq . w3^T in
-//      s32 per h_group chunk, each chunk dequantized into an fp32
-//      accumulator in chunk order (the TPU kernel's order), then the
-//      epilogue.
-// Products run on mma.sync (s8 x s8 -> s32) from a two-stage cp.async ring;
-// wgmma, TMA and keeping h on chip are the later work.
+// operations (the w12 product 193.8 G, 0.098 ms; the w3 product 96.9 G,
+// 0.049 ms) against ~58 MB of input, weight and output bytes, so the int8
+// tensor-core rate bounds it: 0.147 ms at 1,979 TOP/s.
+//
+// Design: both products on wgmma m64nNk32 s8 (sm90.cuh), fed by TMA (2-D
+// tensor maps of 128-byte rows in the 128-byte swizzle; rows and K columns
+// past the end read as zeros, exact in s32, so K and d_out need only be
+// multiples of 16, TMA's stride rule) into a ring of stages, with a
+// producer warpgroup (one thread issues the loads; setmaxnreg gives its
+// registers to the consumers) and two consumer warpgroups, the shape of
+// attention_sm90.cu and flash_bwd_sm90.cu. Three launches:
+//   1. xquant_kernel (int8_common.cuh, shared with K10a / K10b): one warp
+//      per row: (AdaLN,) per-row quantization -> xq (M, K) int8, s_x (M).
+//   2. swiglu_h_sm90_kernel<HG, V>: persistent CTAs over items of (128
+//      rows, h_group chunk): the product with both halves of w12 for the
+//      chunk, dequant, bias, silu * mul, and the per-(row, chunk)
+//      requantization -> hq (M, hidden) int8, s_h (M, hidden / h_group).
+//   3. w3_sm90_kernel<HG, V>: a CTA per (128 rows, 128 columns): hq w3^T in
+//      s32 per h_group chunk (HG / 32 k-steps), each chunk added as
+//      float(s32) * s_h[row, g] * s3[c] into an fp32 accumulator in chunk
+//      order, as the TPU kernel and the plain version do (s3 is not
+//      factored out of the sum: that would move the rounding), then + b3
+//      and the gate and residual. The chunk loop is unrolled over its tiles
+//      so that no wgmma wait sits on a divergent path (ptxas serialized the
+//      wgmmas of a first version that branched on the chunk's end).
+// What bounds both products here is the L2's bandwidth to an SM (~40
+// bytes a clock measured, PERF.md), not the tensor cores: a 64 x 256
+// int8 wgmma tile over 128 bytes of K needs 40 KB of operands for 512
+// clocks of products. So the two consumers of a CTA share every weight tile:
+// they take the 128 rows of an item in two halves of 64, in step, on the
+// same stages (48 KB a stage for 1024 clocks of products).
+// The requantization of h needs the max of |h| over a row's whole chunk
+// before any of it is rounded: with h_group 256, 64 rows of both w12
+// halves over a chunk are 2 x 256 s32 columns, 256 registers a thread,
+// above the 240 a consumer has. So a consumer covers its rows in passes of
+// 128 chunk columns (wgmma m64n256k32: 128 of x1, then the matching 128 of
+// x2, two TMA boxes side by side, 128 registers), keeps |h|'s row max over
+// its passes, and stages the fp32 h of every pass but the last in shared
+// memory (32 KB a pass). After the last pass it rounds that pass at once;
+// the staged passes it rounds under the next item's first pass, a few
+// values after each tile's products are issued, so that that part of the
+// epilogue runs under the products. At h_group 512 three staged passes would not fit
+// beside the ring, so an item is swept twice: the first sweep's passes
+// keep only the row max, the second's round each pass as it ends (twice
+// the w12 products; no model path takes 512). Each consumer keeps its
+// chunk's s12 and b12 in shared memory, loaded under the first pass: read
+// from the L2 in the epilogue, their latency was most of its time.
+// h stays in device memory: the TPU kernel keeps an fp32 (bm, 1216)
+// accumulator of the w3 product in VMEM over all chunks; at 64 rows that is
+// 311 KB, more than a CTA's 227 KB of shared memory and more than its
+// registers. hq's round trip is 40 MB written and read at the image stream,
+// ~0.024 ms at 3.35 TB/s.
 
 #include "int8_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-// ---- launch 2 ---------------------------------------------------------
-// One block: BM rows x one h_group chunk of both w12 halves. Warps: WM
-// along the rows (MT m16 tiles each) x WN along the chunk (NT n8 tiles of
-// x1 and the same NT of x2 each).
+constexpr int KT = 128;          // K bytes per tile: one 128-byte swizzled row
+constexpr int WG = 128;          // threads per warpgroup
+constexpr int CONSUMERS = 2;     // consumer warpgroups per CTA
+constexpr int MLP_THREADS = WG * (1 + CONSUMERS);
+// 384 threads x 168 registers at launch; the producer keeps 24, so each
+// consumer thread can have 240
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one CTA
+constexpr int ROWS = 64;          // rows of a consumer (one wgmma's M)
+constexpr int PASS_COLS = 128;    // chunk columns of one h pass (of x1 and x2)
+// named barrier (0 is __syncthreads): OWN + c, consumer c's four warps
+constexpr int OWN = 1;
+
+// Shared memory of swiglu_h_sm90_kernel<HG, *>, from a 1024-byte aligned
+// base: the ring (each stage the 128 rows of xq of an item, then 128 rows
+// of x1 and 128 of x2 of w12), the staged fp32 h of each consumer
+// (thread-major: [pass][value][thread]), each consumer's s12 and b12 of
+// its item's chunk ([s12 x1, s12 x2, b12 x1, b12 x2][HG] fp32), the
+// barriers.
 template <int HG>
 struct HCfg {
-  static constexpr int WN = 8;
-  static constexpr int WM = 2;
-  static constexpr int NT = HG / (8 * WN);
-  static constexpr int MT = HG >= 512 ? 1 : 2;
-  static constexpr int BM = WM * MT * 16;
-  static constexpr int THREADS = WM * WN * 32;
-  static constexpr int A_BYTES = BM * SK;
-  static constexpr int STAGE = A_BYTES + 2 * HG * SK;
-  static constexpr int RED = 2 * STAGE;               // [BM][WN] fp32
-  static constexpr int SMEM = RED + BM * WN * 4;
-  static_assert(NT % 2 == 0, "pairs of n8 tiles per ldmatrix");
+  static constexpr int PASSES = HG / PASS_COLS;
+  static constexpr int RB = ROWS * CONSUMERS;  // rows of an item
+  static constexpr int A_TILE = RB * KT;
+  static constexpr int B_TILE = 2 * PASS_COLS * KT;
+  static constexpr int STAGE = A_TILE + B_TILE;
+  static constexpr int ONE_PASS = ROWS * PASS_COLS * 4;
+  static constexpr int SCALES = 4 * HG * 4;
+  // stage the h of all passes but the last where that leaves 3 stages
+  static constexpr bool STAGE_H =
+      (SMEM_MAX - 2048 - CONSUMERS * ((PASSES - 1) * ONE_PASS + SCALES)) /
+          STAGE >= 3;
+  static constexpr int STAGED = STAGE_H ? (PASSES - 1) * ONE_PASS : 0;
+  static constexpr int UNITS = (STAGE_H ? 1 : 2) * PASSES;  // per item
+  static constexpr int FIT =
+      (SMEM_MAX - 2048 - CONSUMERS * (STAGED + SCALES)) / STAGE;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static_assert(STAGES >= 3, "a ring of at least three stages");
+  static constexpr int H = STAGES * STAGE;
+  static constexpr int SB = H + CONSUMERS * STAGED;
+  static constexpr int BAR = SB + CONSUMERS * SCALES;
+  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;
 };
 
-// grid (ceil(M / BM), hidden / HG), HCfg<HG>::THREADS threads.
-template <int HG, int V>
-__global__ void __launch_bounds__(HCfg<HG>::THREADS)
-swiglu_h_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
-                const int8_t* __restrict__ w12, const float* __restrict__ s12,
-                const float* __restrict__ b12, int8_t* __restrict__ hq,
-                float* __restrict__ s_h, int M, int K, int hidden) {
-  using C = HCfg<HG>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem + C::RED);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / C::WN, wn = warp % C::WN;
-  const int m0 = blockIdx.x * C::BM, chunk = blockIdx.y;
-  const int nk = (K + BK - 1) / BK;
+// The int8 bytes of round(v[e] / s[e]) clamped to [-127, 127], as quant8
+// (int8_common.cuh) gives them, packed as byte e of the result; from v * inv,
+// inv = 1 / s: the product is within 2 ulp of the quotient, so the two round
+// alike unless a half-integer lies that close, and there (rarely: the warp
+// branches once for the four) the true division decides. The byte is the
+// low one of r + 1.5 * 2^23, exact for |r| <= 127. All 32 lanes of the warp
+// call it.
+__device__ __forceinline__ uint32_t quant4_by(const float (&v)[4],
+                                              const float (&s)[4],
+                                              const float (&inv)[4]) {
+  float r[4];
+  bool tie[4], any = false;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float t = v[e] * inv[e];
+    r[e] = rintf(t);
+    tie[e] = fabsf(fabsf(t - r[e]) - 0.5f) <= 2.5e-7f * fabsf(t);
+    any |= tie[e];
+  }
+  if (__any_sync(0xffffffffu, any)) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (tie[e]) r[e] = rintf(v[e] / s[e]);
+  }
+  uint32_t q = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    q |= (__float_as_uint(fminf(fmaxf(r[e], -127.f), 127.f) + 12582912.f) &
+          0xffu) << (8 * e);
+  return q;
+}
 
-  auto load_tile = [&](int kt) {
-    unsigned char* st = smem + (kt & 1) * C::STAGE;
-    const int k0 = kt * BK;
-    for (int c = tid; c < (C::BM + 2 * HG) * (BK / 16); c += C::THREADS) {
-      const int r = c / (BK / 16), kc = k0 + (c % (BK / 16)) * 16;
-      const int8_t* src;
-      bool valid;
-      if (r < C::BM) {
-        valid = m0 + r < M && kc < K;
-        src = xq + (valid ? (size_t)(m0 + r) * K + kc : 0);
-      } else {
-        const int j = r - C::BM;  // chunk row: x1 half, then x2 half
-        const size_t wrow = (j < HG ? 0 : hidden - HG) + (size_t)chunk * HG + j;
-        valid = kc < K;
-        src = w12 + (valid ? wrow * K + kc : 0);
-      }
-      cp_async16(st + r * SK + (c % (BK / 16)) * 16, src, valid);
-    }
-    cp_async_commit();
+// ---- launch 2 ---------------------------------------------------------
+
+// grid min(SMs, items) persistent CTAs, MLP_THREADS threads, HCfg::BYTES
+// of dynamic shared memory. Items (128 rows, chunk), rows fastest, so the
+// CTAs in flight share the w12 tiles of one or two chunks in the L2; CTA b
+// takes items b, b + grid, b + 2 grid, ... tm_x: xq (M, K), boxes of 128
+// rows; tm_w12: w12 (2 * hidden, K), boxes of 128 rows.
+template <int HG, int V>
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+swiglu_h_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w12,
+                     const float* __restrict__ sx,
+                     const float* __restrict__ s12,
+                     const float* __restrict__ b12, int8_t* __restrict__ hq,
+                     float* __restrict__ s_h, int M, int K, int hidden) {
+  using C = HCfg<HG>;
+  constexpr int P = C::PASSES, UNITS = C::UNITS, STAGES = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full = sb + C::BAR, empty = full + 8 * STAGES;
+  const int nk = (K + KT - 1) / KT;
+  const int n_rb = (M + C::RB - 1) / C::RB;
+  const int n_items = n_rb * (hidden / HG);
+  const int n_local = (int)blockIdx.x < n_items
+                          ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                          : 0;
+  // the item (row block, chunk) of this CTA's local item j
+  auto item_of = [&](int j, int& rb, int& chunk) {
+    const int item = blockIdx.x + j * gridDim.x;
+    rb = item % n_rb;
+    chunk = item / n_rb;
   };
 
-  int acc[C::MT][2 * C::NT][4];
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 2 * C::NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
-
-  load_tile(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_tile(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
     }
-    __syncthreads();
-    const int8_t* sA = reinterpret_cast<const int8_t*>(smem + (kt & 1) * C::STAGE);
-    const int8_t* sB = sA + C::A_BYTES;
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 32) {
-      uint32_t a[C::MT][4];
-#pragma unroll
-      for (int i = 0; i < C::MT; ++i)
-        load_a(a[i], sA, (wm * C::MT + i) * 16, kb, lane);
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int p = 0; p < C::NT; p += 2) {
-          uint32_t b[4];
-          load_b2(b, sB, half * HG + (wn * C::NT + p) * 8, kb, lane);
-#pragma unroll
-          for (int i = 0; i < C::MT; ++i) {
-            mma_s8(acc[i][half * C::NT + p], a[i], b[0], b[1]);
-            mma_s8(acc[i][half * C::NT + p + 1], a[i], b[2], b[3]);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    // ---- producer: one thread loads the passes of the CTA's items
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tm_x);
+      tma_prefetch(&tm_w12);
+      int it = 0;
+      for (int q = 0; q < n_local; ++q) {
+        int rb, chunk;
+        item_of(q, rb, chunk);
+        for (int u = 0; u < UNITS; ++u) {
+          const int col = chunk * HG + (u % P) * PASS_COLS;
+          for (int kt = 0; kt < nk; ++kt, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+            const uint32_t st = sb + s * C::STAGE, bar = full + 8 * s;
+            mbar_arrive_expect_tx(bar, C::STAGE);
+            tma_load_2d(st, &tm_x, bar, kt * KT, rb * C::RB);
+            tma_load_2d(st + C::A_TILE, &tm_w12, bar, kt * KT, col);
+            tma_load_2d(st + C::A_TILE + PASS_COLS * KT, &tm_w12, bar,
+                        kt * KT, hidden + col);
           }
         }
-    }
-    __syncthreads();  // tile kt consumed: its stage may be refilled
-  }
-
-  // epilogue: dequant + bias, silu * mul, requantize per (row, chunk)
-  const int g = lane >> 2, t4 = lane & 3;
-  float hv[C::MT][C::NT][4];
-  float rmax[C::MT][2];
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i) {
-    const int r0 = m0 + (wm * C::MT + i) * 16 + g;
-    const float sx0 = r0 < M ? sx[r0] : 0.f;
-    const float sx1 = r0 + 8 < M ? sx[r0 + 8] : 0.f;
-    rmax[i][0] = rmax[i][1] = 0.f;
-#pragma unroll
-    for (int n = 0; n < C::NT; ++n) {
-      const int j = chunk * HG + (wn * C::NT + n) * 8 + t4 * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j + (e & 1);
-        const float s_row = e < 2 ? sx0 : sx1;
-        const float x1 = (float)acc[i][n][e] * s_row * s12[col] + b12[col];
-        const float x2 = (float)acc[i][C::NT + n][e] * s_row * s12[hidden + col] +
-                         b12[hidden + col];
-        const float h = x1 * (1.f / (1.f + expf(-x1))) * x2;
-        hv[i][n][e] = h;
-        rmax[i][e >> 1] = fmaxf(rmax[i][e >> 1], fabsf(h));
       }
     }
-  }
-  // row amax over the chunk: the quad's lanes, then the WN warps of a row
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float v = rmax[i][hr];
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      if (t4 == 0) red[((wm * C::MT + i) * 16 + g + hr * 8) * C::WN + wn] = v;
-    }
-  __syncthreads();
-  const int n_groups = hidden / HG;
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int lr = (wm * C::MT + i) * 16 + g + hr * 8;
-      float amax = 0.f;
-#pragma unroll
-      for (int w = 0; w < C::WN; ++w) amax = fmaxf(amax, red[lr * C::WN + w]);
-      const float s = fmaxf(amax, Q_EPS) / 127.f;
-      const int row = m0 + lr;
-      if (row >= M) continue;
-      int8_t* dst = hq + (size_t)row * hidden + chunk * HG;
-#pragma unroll
-      for (int n = 0; n < C::NT; ++n) {
-        const int cc = (wn * C::NT + n) * 8 + t4 * 2;
-        char2 q;
-        q.x = (signed char)quant8(hv[i][n][hr * 2], s);
-        q.y = (signed char)quant8(hv[i][n][hr * 2 + 1], s);
-        *reinterpret_cast<char2*>(dst + cc) = q;
+  } else {
+    // ---- consumer c: rows [64 c, 64 c + 64) of every item
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
+    float* staged = reinterpret_cast<float*>(smem + C::H + c * C::STAGED);
+    float* sbuf = reinterpret_cast<float*>(smem + C::SB + c * C::SCALES);
+    const int n_groups = hidden / HG;
+    int acc[PASS_COLS];         // m64n256: x1 in [0, 64), x2 in [64, 128)
+    float hv[PASS_COLS / 2];    // h of the current pass
+    auto release = [&](int it) {
+      if (lane == 0) mbar_arrive(empty + 8 * (it % STAGES));
+    };
+    // quantize 4 values get(4 j .. 4 j + 3) of h (rows r0, r1; column
+    // group j of 128 columns at cb) against scales s, inverses v, into hq
+    auto store4 = [&](auto get, int j, int cb, int r0, int r1,
+                      const float (&s)[2], const float (&v)[2]) {
+      const int col = cb + j * 8 + t4 * 2;
+      const float x[4] = {get(4 * j), get(4 * j + 1), get(4 * j + 2),
+                          get(4 * j + 3)};
+      const uint32_t q = quant4_by(x, {s[0], s[0], s[1], s[1]},
+                                   {v[0], v[0], v[1], v[1]});
+      if (r0 < M)
+        *reinterpret_cast<uint16_t*>(hq + (size_t)r0 * hidden + col) =
+            (uint16_t)(q & 0xffffu);
+      if (r1 < M)
+        *reinterpret_cast<uint16_t*>(hq + (size_t)r1 * hidden + col) =
+            (uint16_t)(q >> 16);
+    };
+    auto from_regs = [&](int i) { return hv[i]; };
+    // the staged passes of the last item, rounded in steps of one column
+    // group under the next item's first pass
+    int pend_cb = 0, pend_r0 = 0, pend_r1 = 0, pend_done = 0, pend_all = 0;
+    float pend_s[2] = {0.f, 0.f}, pend_v[2] = {0.f, 0.f};
+    auto pend_step = [&]() {
+      const int pp = pend_done / (PASS_COLS / 8), j = pend_done % (PASS_COLS / 8);
+      store4([&](int i) {
+        return staged[(pp * PASS_COLS / 2 + i) * WG + tid];
+      }, j, pend_cb + pp * PASS_COLS, pend_r0, pend_r1, pend_s, pend_v);
+      ++pend_done;
+    };
+    for (int q = 0; q < n_local; ++q) {
+      int rb, chunk;
+      item_of(q, rb, chunk);
+      const int r0 = rb * C::RB + c * ROWS + warp * 16 + g, r1 = r0 + 8;
+      const float sx0 = r0 < M ? sx[r0] : 0.f, sx1 = r1 < M ? sx[r1] : 0.f;
+      float mx0 = 0.f, mx1 = 0.f;  // max |h| of rows r0, r1 over the chunk
+      float sc[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};  // their scales
+      // the chunk's s12 and b12 into sbuf under the first pass, once the
+      // four warps are done with the last item's
+      named_bar_sync(OWN + c, WG);
+      for (int i = tid; i < HG; i += WG) {
+        const int a = i / (HG / 4), v = i % (HG / 4) * 4;  // 4 floats of array a
+        const float* src = (a < 2 ? s12 : b12) + (a & 1) * hidden + chunk * HG;
+        cp_async16(sbuf + a * HG + v, src + v, true);
       }
-      if (wn == 0 && t4 == 0) s_h[(size_t)row * n_groups + chunk] = s;
+      cp_async_commit();
+      bool have_sbuf = false;
+      auto scales = [&]() {
+        sc[0] = fmaxf(quad_max(mx0), Q_EPS) / 127.f;
+        sc[1] = fmaxf(quad_max(mx1), Q_EPS) / 127.f;
+        inv[0] = 1.f / sc[0];
+        inv[1] = 1.f / sc[1];
+      };
+      for (int u = 0; u < UNITS; ++u) {
+        const int p = u % P;
+        const int base = (q * UNITS + u) * nk;
+        for (int kt = 0; kt < nk; ++kt) {
+          const int it = base + kt, s = it % STAGES;
+          mbar_wait(full + 8 * s, (it / STAGES) & 1);
+          const uint32_t st = sb + s * C::STAGE;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KT / 32; ++kk)
+            wgmma_s8<2 * PASS_COLS>(acc, desc_s8(st + c * ROWS * KT, kk),
+                                    desc_s8(st + C::A_TILE, kk),
+                                    kt > 0 || kk > 0);
+          wgmma_commit();
+          if (kt > 0) {  // the products of tile kt - 1 are done
+            wgmma_wait<1>();
+            release(it - 1);
+          }
+          // a share of the last item's staged rounding, under the products
+          for (const int to = pend_all * (kt + 1) / nk; pend_done < to;)
+            pend_step();
+        }
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release(base + nk - 1);
+        if (!have_sbuf) {  // the chunk's s12 and b12 have landed
+          cp_async_wait<0>();
+          named_bar_sync(OWN + c, WG);
+          have_sbuf = true;
+        }
+        // dequant + bias, silu * mul (silu on the SFU's exp2 and
+        // reciprocal: ~1e-7 relative, far below h's int8 levels)
+#pragma unroll
+        for (int j = 0; j < PASS_COLS / 8; ++j) {
+          const int col = p * PASS_COLS + j * 8 + t4 * 2;
+          const float2 sa = *reinterpret_cast<const float2*>(sbuf + col);
+          const float2 sg = *reinterpret_cast<const float2*>(sbuf + HG + col);
+          const float2 ba = *reinterpret_cast<const float2*>(sbuf + 2 * HG + col);
+          const float2 bg = *reinterpret_cast<const float2*>(sbuf + 3 * HG + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float s_row = e < 2 ? sx0 : sx1;
+            const float x1 =
+                (float)acc[4 * j + e] * s_row * (e & 1 ? sa.y : sa.x) +
+                (e & 1 ? ba.y : ba.x);
+            const float x2 =
+                (float)acc[PASS_COLS / 2 + 4 * j + e] * s_row *
+                    (e & 1 ? sg.y : sg.x) +
+                (e & 1 ? bg.y : bg.x);
+            const float h = __fdividef(x1, 1.f + __expf(-x1)) * x2;
+            hv[4 * j + e] = h;
+            if (e < 2) mx0 = fmaxf(mx0, fabsf(h));
+            else mx1 = fmaxf(mx1, fabsf(h));
+          }
+        }
+        const int cb = chunk * HG + p * PASS_COLS;
+        if constexpr (C::STAGE_H) {
+          if (p + 1 < P) {  // staged until the chunk's max is known
+#pragma unroll
+            for (int i = 0; i < PASS_COLS / 2; ++i)
+              staged[(p * PASS_COLS / 2 + i) * WG + tid] = hv[i];
+            continue;
+          }
+          scales();
+#pragma unroll
+          for (int j = 0; j < PASS_COLS / 8; ++j)
+            store4(from_regs, j, cb, r0, r1, sc, inv);
+          // the staged passes, under the next item's first pass
+          pend_cb = chunk * HG;
+          pend_r0 = r0;
+          pend_r1 = r1;
+          pend_s[0] = sc[0];
+          pend_s[1] = sc[1];
+          pend_v[0] = inv[0];
+          pend_v[1] = inv[1];
+          pend_done = 0;
+          pend_all = (P - 1) * PASS_COLS / 8;
+        } else {
+          if (u < P) {  // the first sweep: the max alone
+            if (p + 1 == P) scales();
+            continue;
+          }
+#pragma unroll
+          for (int j = 0; j < PASS_COLS / 8; ++j)
+            store4(from_regs, j, cb, r0, r1, sc, inv);
+        }
+        if (p + 1 == P && t4 == 0) {
+          if (r0 < M) s_h[(size_t)r0 * n_groups + chunk] = sc[0];
+          if (r1 < M) s_h[(size_t)r1 * n_groups + chunk] = sc[1];
+        }
+      }
     }
+    while (pend_done < pend_all) pend_step();  // the last item's
+  }
 }
 
 // ---- launch 3 ---------------------------------------------------------
-constexpr int W3_BM = 64, W3_BN = 128, W3_THREADS = 256;  // 2 x 4 warps
-constexpr int W3_MT = 2, W3_NT = 4;                       // 32 x 32 per warp
-constexpr int W3_A = W3_BM * SK;
-constexpr int W3_STAGE = W3_A + W3_BN * SK;
-constexpr int W3_SMEM = 2 * W3_STAGE;
+constexpr int W3_BM = 128, W3_BN = 128;  // rows (2 x 64) and columns
+constexpr int W3_STAGE = (W3_BM + W3_BN) * KT;
+constexpr int W3_STAGES = 6;
+constexpr int W3_BAR = W3_STAGES * W3_STAGE;
+constexpr int W3_BYTES = W3_BAR + 2 * W3_STAGES * 8 + 1024;
 
-// grid (ceil(d_out / W3_BN), ceil(M / W3_BM)), W3_THREADS threads.
+// grid (ceil(d_out / W3_BN), ceil(M / W3_BM)), MLP_THREADS threads,
+// W3_BYTES of dynamic shared memory. tm_h: hq (M, hidden), tm_w3: w3
+// (d_out, hidden), boxes of 128 rows. (Persistent CTAs, the producer
+// loading the next tile under an epilogue, ran no faster: the products
+// wait on the L2's bandwidth, not on a CTA's start.)
 template <int HG, int V>
-__global__ void __launch_bounds__(W3_THREADS)
-w3_gemm_kernel(const int8_t* __restrict__ hq, const float* __restrict__ s_h,
-               const int8_t* __restrict__ w3, const float* __restrict__ s3,
+__global__ void __launch_bounds__(MLP_THREADS, 1)
+w3_sm90_kernel(const __grid_constant__ CUtensorMap tm_h,
+               const __grid_constant__ CUtensorMap tm_w3,
+               const float* __restrict__ s_h, const float* __restrict__ s3,
                const float* __restrict__ b3, const bf16* __restrict__ x,
                const float* __restrict__ gate, bf16* __restrict__ out, int M,
                int hidden, int d_out, int n_tok, int residual_arg) {
-  const bool residual = residual_arg;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp / 4, wn = warp % 4;
+  constexpr int TPG = HG / KT;  // tiles per h_group chunk
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t full = sb + W3_BAR, empty = full + 8 * W3_STAGES;
   const int n0 = blockIdx.x * W3_BN, m0 = blockIdx.y * W3_BM;
-  const int nk = hidden / BK;
-  constexpr int KT_PER_GROUP = HG / BK;
-  const int n_groups = hidden / HG;
+  const int nk = hidden / KT;
 
-  auto load_tile = [&](int kt) {
-    unsigned char* st = smem + (kt & 1) * W3_STAGE;
-    const int k0 = kt * BK;
-    for (int c = tid; c < (W3_BM + W3_BN) * (BK / 16); c += W3_THREADS) {
-      const int r = c / (BK / 16), kc = k0 + (c % (BK / 16)) * 16;
-      const int8_t* src;
-      bool valid;
-      if (r < W3_BM) {
-        valid = m0 + r < M;
-        src = hq + (valid ? (size_t)(m0 + r) * hidden + kc : 0);
-      } else {
-        valid = n0 + r - W3_BM < d_out;
-        src = w3 + (valid ? (size_t)(n0 + r - W3_BM) * hidden + kc : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W3_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG;
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&tm_h);
+      tma_prefetch(&tm_w3);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % W3_STAGES;
+        mbar_wait(empty + 8 * s, ((kt / W3_STAGES) & 1) ^ 1);
+        const uint32_t st = sb + s * W3_STAGE, bar = full + 8 * s;
+        mbar_arrive_expect_tx(bar, W3_STAGE);
+        tma_load_2d(st, &tm_h, bar, kt * KT, m0);
+        tma_load_2d(st + W3_BM * KT, &tm_w3, bar, kt * KT, n0);
       }
-      cp_async16(st + r * SK + (c % (BK / 16)) * 16, src, valid);
     }
-    cp_async_commit();
-  };
-
-  const int g = lane >> 2, t4 = lane & 3;
-  int acc[W3_MT][W3_NT][4];
-  float accf[W3_MT][W3_NT][4];
-  float s3c[W3_NT][2];
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const bool residual = residual_arg;
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = m0 + c * 64 + warp * 16 + g, r1 = r0 + 8;
+    const int n_groups = hidden / HG;
+    int acc[W3_BN / 2];
+    float accf[W3_BN / 2];
+    float s3c[W3_BN / 4];  // s3 of this thread's 32 columns
 #pragma unroll
-  for (int n = 0; n < W3_NT; ++n)
+    for (int j = 0; j < W3_BN / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = n0 + wn * 32 + n * 8 + t4 * 2 + e;
-      s3c[n][e] = col < d_out ? s3[col] : 0.f;
-    }
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + j * 8 + t4 * 2 + e;
+        s3c[2 * j + e] = col < d_out ? s3[col] : 0.f;
+      }
 #pragma unroll
-  for (int i = 0; i < W3_MT; ++i)
+    for (int i = 0; i < W3_BN / 2; ++i) accf[i] = 0.f;
+    auto release = [&](int kt) {
+      if (lane == 0) mbar_arrive(empty + 8 * (kt % W3_STAGES));
+    };
+    for (int grp = 0; grp < n_groups; ++grp) {
+      // the chunk's row scales, loaded ahead of its products
+      const float sh0 = r0 < M ? s_h[(size_t)r0 * n_groups + grp] : 0.f;
+      const float sh1 = r1 < M ? s_h[(size_t)r1 * n_groups + grp] : 0.f;
 #pragma unroll
-    for (int n = 0; n < W3_NT; ++n)
+      for (int t = 0; t < TPG; ++t) {
+        const int kt = grp * TPG + t, s = kt % W3_STAGES;
+        mbar_wait(full + 8 * s, (kt / W3_STAGES) & 1);
+        const uint32_t a = sb + s * W3_STAGE + c * 64 * KT;
+        const uint32_t bt = sb + s * W3_STAGE + W3_BM * KT;
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0, accf[i][n][e] = 0.f;
-
-  load_tile(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_tile(kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* sA = reinterpret_cast<const int8_t*>(smem + (kt & 1) * W3_STAGE);
-    const int8_t* sB = sA + W3_A;
-#pragma unroll
-    for (int kb = 0; kb < BK; kb += 32) {
-      uint32_t a[W3_MT][4];
-#pragma unroll
-      for (int i = 0; i < W3_MT; ++i) load_a(a[i], sA, (wm * W3_MT + i) * 16, kb, lane);
-#pragma unroll
-      for (int p = 0; p < W3_NT; p += 2) {
-        uint32_t b[4];
-        load_b2(b, sB, (wn * W3_NT + p) * 8, kb, lane);
-#pragma unroll
-        for (int i = 0; i < W3_MT; ++i) {
-          mma_s8(acc[i][p], a[i], b[0], b[1]);
-          mma_s8(acc[i][p + 1], a[i], b[2], b[3]);
+        for (int kk = 0; kk < KT / 32; ++kk)
+          wgmma_s8<W3_BN>(acc, desc_s8(a, kk), desc_s8(bt, kk),
+                          t > 0 || kk > 0);
+        wgmma_commit();
+        if (t > 0) {
+          wgmma_wait<1>();
+          release(kt - 1);
         }
       }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release(grp * TPG + TPG - 1);
+      // accf += (s32 * s_h[row, chunk]) * s3[col], in chunk order
+#pragma unroll
+      for (int j = 0; j < W3_BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          accf[4 * j + e] += (float)acc[4 * j + e] * (e < 2 ? sh0 : sh1) *
+                             s3c[2 * j + (e & 1)];
     }
-    __syncthreads();
-    if ((kt + 1) % KT_PER_GROUP == 0) {
-      // chunk done: acc += (s32 * s_h[row, chunk]) * s3[col], in chunk order
-      const int grp = kt / KT_PER_GROUP;
-#pragma unroll
-      for (int i = 0; i < W3_MT; ++i) {
-        const int r0 = m0 + (wm * W3_MT + i) * 16 + g;
-        const float sh0 = r0 < M ? s_h[(size_t)r0 * n_groups + grp] : 0.f;
-        const float sh1 = r0 + 8 < M ? s_h[(size_t)(r0 + 8) * n_groups + grp] : 0.f;
-#pragma unroll
-        for (int n = 0; n < W3_NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            accf[i][n][e] += (float)acc[i][n][e] * (e < 2 ? sh0 : sh1) * s3c[n][e & 1];
-            acc[i][n][e] = 0;
-          }
-      }
-    }
-  }
 
-  // epilogue: + b3; with the residual x + gate * y; bf16 out
-#pragma unroll
-  for (int i = 0; i < W3_MT; ++i)
+    // epilogue: + b3; with the residual x + gate * y; bf16 out
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int row = m0 + (wm * W3_MT + i) * 16 + g + hr * 8;
+      const int row = hr ? r1 : r0;
       if (row >= M) continue;
       const size_t samp = row / n_tok;
 #pragma unroll
-      for (int n = 0; n < W3_NT; ++n) {
-        const int col = n0 + wn * 32 + n * 8 + t4 * 2;
+      for (int j = 0; j < W3_BN / 8; ++j) {
+        const int col = n0 + j * 8 + t4 * 2;
         if (col >= d_out) continue;  // d_out is even: col + 1 < d_out too
-        float y0 = accf[i][n][hr * 2] + b3[col];
-        float y1 = accf[i][n][hr * 2 + 1] + b3[col + 1];
+        float y0 = accf[4 * j + 2 * hr] + b3[col];
+        float y1 = accf[4 * j + 2 * hr + 1] + b3[col + 1];
         if (residual) {
           const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
               x + (size_t)row * d_out + col));
@@ -352,42 +537,54 @@ w3_gemm_kernel(const int8_t* __restrict__ hq, const float* __restrict__ s_h,
             __floats2bfloat162_rn(y0, y1);
       }
     }
+  }
 }
 
+// The four tensor maps, then the three launches; the first error. The
+// shared-memory opt-ins come first (a runtime call makes the device's
+// context current on this thread before the maps' encode, a driver call).
 template <int HG, int V>
 int launch(const void* x, const void* shift, const void* scale,
            const void* gate, const void* w12, const void* s12, const void* b12,
            const void* w3, const void* s3, const void* b3, void* xq, void* sx,
            void* hq, void* s_h, void* out, int M, int K, int hidden,
            int d_out, int n_tok, int adaln, int residual, cudaStream_t st) {
-  cudaError_t e = (cudaError_t)launch_xquant<V>(
-      x, (long long)n_tok * K, shift, scale, xq, sx, M, K, n_tok, adaln, st);
-  if (e != cudaSuccess) return (int)e;
-
   using C = HCfg<HG>;
-  static bool smem_set = false;  // once, before any graph capture
-  if (!smem_set) {
-    e = cudaFuncSetAttribute(swiglu_h_kernel<HG, V>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = true;
-  }
-  dim3 g2((M + C::BM - 1) / C::BM, hidden / HG);
-  swiglu_h_kernel<HG, V><<<g2, C::THREADS, C::SMEM, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int8_t*>(w12), static_cast<const float*>(s12),
-      static_cast<const float*>(b12), static_cast<int8_t*>(hq),
-      static_cast<float*>(s_h), M, K, hidden);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  auto hk = swiglu_h_sm90_kernel<HG, V>;
+  auto wk = w3_sm90_kernel<HG, V>;
+  CUtensorMap tm_x, tm_w12, tm_h, tm_w3;
+  int dev = 0, sms = 0;
+  int e = (int)cudaFuncSetAttribute(
+      hk, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  if (e == 0)
+    e = (int)cudaFuncSetAttribute(
+        wk, cudaFuncAttributeMaxDynamicSharedMemorySize, W3_BYTES);
+  if (e == 0) e = (int)cudaGetDevice(&dev);
+  if (e == 0)
+    e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == 0) e = encode_s8_2d(&tm_x, xq, M, K, C::RB);
+  if (e == 0) e = encode_s8_2d(&tm_w12, w12, 2 * hidden, K, PASS_COLS);
+  if (e == 0) e = encode_s8_2d(&tm_h, hq, M, hidden, W3_BM);
+  if (e == 0) e = encode_s8_2d(&tm_w3, w3, d_out, hidden, W3_BN);
+  if (e == 0)
+    e = launch_xquant<V>(x, (long long)n_tok * K, shift, scale, xq, sx, M, K,
+                         n_tok, adaln, st);
+  if (e != 0) return e;
 
-  dim3 g3((d_out + W3_BN - 1) / W3_BN, (M + W3_BM - 1) / W3_BM);
-  w3_gemm_kernel<HG, V><<<g3, W3_THREADS, W3_SMEM, st>>>(
-      static_cast<const int8_t*>(hq), static_cast<const float*>(s_h),
-      static_cast<const int8_t*>(w3), static_cast<const float*>(s3),
-      static_cast<const float*>(b3), static_cast<const bf16*>(x),
-      static_cast<const float*>(gate), static_cast<bf16*>(out), M, hidden,
-      d_out, n_tok, residual);
+  const int items = (M + C::RB - 1) / C::RB * (hidden / HG);
+  hk<<<items < sms ? items : sms, MLP_THREADS, C::BYTES, st>>>(
+      tm_x, tm_w12, static_cast<const float*>(sx),
+      static_cast<const float*>(s12), static_cast<const float*>(b12),
+      static_cast<int8_t*>(hq), static_cast<float*>(s_h), M, K, hidden);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+
+  wk<<<dim3((d_out + W3_BN - 1) / W3_BN, (M + W3_BM - 1) / W3_BM),
+       MLP_THREADS, W3_BYTES, st>>>(
+      tm_h, tm_w3, static_cast<const float*>(s_h),
+      static_cast<const float*>(s3), static_cast<const float*>(b3),
+      static_cast<const bf16*>(x), static_cast<const float*>(gate),
+      static_cast<bf16*>(out), M, hidden, d_out, n_tok, residual);
   return (int)cudaGetLastError();
 }
 
@@ -398,7 +595,8 @@ int launch(const void* x, const void* shift, const void* scale,
 // int8, sx (M) fp32, hq (M, hidden) int8, s_h (M, hidden / h_group) fp32.
 // out: (M, d_out) bf16. K and d_out multiples of 16, hidden a multiple of
 // h_group, h_group one of 128, 256, 512; all pointers 16-byte aligned.
-// Returns the CUDA error code of the launches (0 = success).
+// Returns 0, or the first error: a cudaError_t of a launch or the CUresult
+// of a tensor-map encode.
 // sd3_swiglu_int8_tail is K2 and sd3_swiglu_int8_tail3d K9 (AdaLN and
 // gate + residual as flagged); sd3_swiglu_int8 is K3 (both flags ignored).
 template <int V>

@@ -1,7 +1,8 @@
 // Device code of the int8 (w8a8) kernels (fused_mlp.cu: K2, K3, K9;
 // fused_dense.cu: K10a, K10b): reductions, the rounding of JAX's
-// `_quantize_rows`, int8 ldmatrix fragments of K-contiguous shared-memory
-// tiles, and the per-row activation prologue every one of them starts with.
+// `_quantize_rows`, the per-row activation prologue every one of them
+// starts with, and the int8 ldmatrix fragments of K-contiguous
+// shared-memory tiles of the mma.sync ones (K10a, K10b).
 //
 // Each kernel is a template on V, the number of the TPU kernel whose launch
 // it is part of (V_K2 ... V_K10B), so that a profile tells K2's, K3's and

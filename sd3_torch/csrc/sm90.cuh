@@ -1,12 +1,15 @@
 // PTX wrappers of what Hopper (sm_90a) adds, for the wgmma kernels
-// (attention_sm90.cu: K1, K7; flash_bwd_sm90.cu: K6a, K6b): mbarriers, TMA
-// tensor loads (cp.async.bulk.tensor), the wgmma shared-memory matrix
-// descriptor and the swizzled tile layout it reads,
-// wgmma.mma_async bf16 m64nNk16 with A from shared memory (wgmma_ss) or
-// from registers (wgmma_rs), wgmma fence / commit / wait, setmaxnreg and
-// named barriers; on the host, the encode of a 4-D bf16 tensor map. Raw PTX
-// in the idiom of mma.cuh, no CuTe. <cuda.h> is included for the
-// CUtensorMap type only: nothing of the driver library is linked.
+// (attention_sm90.cu: K1, K7, K5; flash_bwd_sm90.cu: K6a, K6b; fused_mlp.cu:
+// K2, K3, K9): mbarriers, TMA tensor loads (cp.async.bulk.tensor, 2-D and
+// 4-D), the wgmma shared-memory matrix descriptor and the swizzled tile
+// layout it reads, wgmma.mma_async bf16 m64nNk16 with A from shared memory
+// (wgmma_ss) or from registers (wgmma_rs), s8 m64nNk32 (wgmma_s8, both
+// operands K-major in shared memory: 8-bit types have no transpose), wgmma
+// fence / commit / wait, setmaxnreg and named barriers; on the host, the
+// encode of a 4-D bf16 tensor map (of a strided (B, H, N, D) view too) and
+// of a 2-D int8 one. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
+// included for the CUtensorMap type only: nothing of the driver library is
+// linked.
 #pragma once
 
 #include <cuda.h>
@@ -74,6 +77,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
          "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// one box of a 2-D tensor map at coordinates (c0, c1), innermost first
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0),
+         "r"(c1)
       : "memory");
 }
 
@@ -181,6 +195,10 @@ __device__ __forceinline__ void reg_fence(float& r) {
 }
 
 __device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+__device__ __forceinline__ void reg_fence(int& r) {
   asm volatile("" : "+r"(r) :: "memory");
 }
 
@@ -363,6 +381,100 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 }
 
 
+// ---- wgmma, s8 -----------------------------------------------------------
+
+// Descriptor of k-step kk (32 int8 values) of a K-major int8 tile whose rows
+// are 128 bytes (128 values of the contracted dimension) in the 128-byte
+// swizzle, 8-row groups 1024 bytes apart: the layout a TMA box of
+// (128, rows) bytes writes (encode_s8_2d). A tile of 256 rows may be two
+// boxes of 128 rows side by side.
+__device__ __forceinline__ uint64_t desc_s8(uint32_t base, int kk) {
+  return gmma_desc(base + kk * 32, 16, 1024, kSwizzle128B);
+}
+
+// D(64 x N, s32) (+)= A(64 x 32, s8) B(32 x N, s8), one warpgroup, A and B
+// from shared memory, both K-major (desc_s8). D's layout is that of the
+// fp32 wgmma above. scale_d = 0 overwrites D.
+template <int N>
+__device__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+
 // ---- host: tensor maps ---------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -413,6 +525,48 @@ int encode_bf16_4d(CUtensorMap* m, const void* x, const cuuint64_t (&dims)[4],
   return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
                  dims, strides, box, elem_strides,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// element strides of a (B, H, N, D) view; the head dim is contiguous
+struct View {
+  long long b, h, n;
+};
+
+inline View view_at(const long long* strides, int i) {
+  return View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// The tensor map of a (B, H, N, D) bf16 view with element strides v as the
+// 4-D view (D, N, H, B), boxes of one atom column (W / 2 values) of R rows
+// of one head of one sample; rows past N read as zeros. The CUresult of the
+// encode (0 = success).
+template <int D, int R>
+int encode_view(CUtensorMap* m, const void* x, View v, int B, int H, int N) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)v.n * 2, (cuuint64_t)v.h * 2,
+                                 (cuuint64_t)v.b * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)(SwizzledRows<D>::W / 2), R, 1, 1};
+  return encode_bf16_4d<D>(m, x, dims, strides, box);
+}
+
+// The tensor map of a row-major (rows, cols) int8 matrix, cols a multiple of
+// 16 (TMA's stride rule): boxes of 128 columns (one 128-byte swizzled row,
+// desc_s8) by box_rows rows; columns and rows past the end read as zeros,
+// which the s32 products take exactly. The CUresult of the encode.
+inline int encode_s8_2d(CUtensorMap* m, const void* x, int rows, int cols,
+                        int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols};
+  const cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(x),
+                 dims, strides, box, elem_strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

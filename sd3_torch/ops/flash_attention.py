@@ -8,12 +8,14 @@ from them, as the JAX custom VJP does. Three kernels, each source's head
 saying what bounds them and how they are built:
 
 - K5 `flash_attention_fwd` replaces the TPU kernel `_fwd_kernel`: out, lse
-  (`csrc/flash_attention.cu`, mma.sync);
+  (`csrc/attention_sm90.cu`, the Hopper attention kernel of K1 and K7 with
+  an online softmax on raw q, k, v, one launch);
 - K6a `flash_attention_dq` replaces `_dq_kernel`: dq, and on the way
   delta = rowsum(dO * out) in fp32, which the JAX package computes in XLA
   between the kernels and K6b reads;
 - K6b `flash_attention_dkv` replaces `_dkv_kernel`: dk, dv
-  (K6a and K6b: `csrc/flash_bwd_sm90.cu`, wgmma and TMA).
+  (K6a and K6b: `csrc/flash_bwd_sm90.cu`).
+All three are wgmma + TMA kernels with a warp-specialised ring.
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -24,14 +26,14 @@ ds = p (dp - delta) rounded to the input dtype, dq = ds k scale,
 dv = p^T dO, dk = ds^T q scale; results in the input dtype. They need no
 padding, so there are no padded keys to mask. The wrappers take them for
 tensors on the CPU; on a CUDA tensor they launch the kernel or raise. K5
-runs an online softmax where the plain version takes the true row max
-(csrc/flash_attention.cu says what that changes).
+runs an online softmax over 128-key tiles where the plain version takes the
+true row max (csrc/attention_sm90.cu says what that changes).
 
-The kernels read each tensor in place through its (b, h, n) strides (K6a
-and K6b through TMA tensor maps built from them) when the head dim is
-contiguous and the start and the strides are positive multiples of 16
-bytes, else the wrapper makes one contiguous copy. The port's attention hands over q, k, v (and
-autograd dO) that way, so the training path makes no copy. Outputs are
+The kernels read each tensor in place through TMA tensor maps built from
+its (b, h, n) strides when the head dim is contiguous and the start and the
+strides are positive multiples of 16 bytes, else the wrapper makes one
+contiguous copy. The port's attention hands over q, k, v (and autograd dO)
+that way, so the training path makes no copy. Outputs are
 (B, H, N, D) views of (B, N, H, D) buffers, so the caller's (B, N, H*D)
 reshape copies nothing.
 The TPU layout choices (the 128-lane head-dim pad, the 8-lane lse, the VMEM
@@ -50,7 +52,7 @@ HEAD_DIMS = (32, 64)   # head dims the kernels take
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-K5 = Kernel("flash_attention_fwd", "flash_attention.cu",
+K5 = Kernel("flash_attention_fwd", "attention_sm90.cu",
             "sd3_flash_attention_fwd",
             argtypes=[_P] * 5 + [_STRIDES] + [_I] * 4 + [_F, _P])
 K6A = Kernel("flash_attention_dq", "flash_bwd_sm90.cu",

@@ -24,6 +24,11 @@ K2, `pick_block_chunk` for K3, `pick_blocks` for K9, copies of the JAX
 package's pickers). The kernels and `swiglu_int8_plain`, the plain PyTorch
 version that repeats the arithmetic, take it as an argument.
 
+Each launches three kernels: the per-row quantization prologue, the w12
+product with silu * mul and h's requantization, and the group-scaled w3
+product with its epilogue; both products on wgmma with TMA (the source's
+head says how, and why h makes one round trip through device memory).
+
 `fused_swiglu_int8` keeps the JAX dispatch: under `tail_fusion="2d"` (the
 default) K2 when the stream's rows can be tiled sample-aligned (the image
 stream), otherwise the PyTorch AdaLN prologue, K3, and the PyTorch gate and
@@ -190,7 +195,10 @@ def _launch(kern: Kernel, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
             raise ValueError(f"{kern.name}: operands on {t.device} and {dev}")
     f32 = lambda t: t.to(dev, torch.float32).contiguous()
     x = x.contiguous()
-    w12_q, w3_q = w12_q.contiguous(), w3_q.contiguous()
+    # the weights go to TMA, which reads from 16-byte aligned starts
+    w12_q, w3_q = (w if w.is_contiguous() and w.data_ptr() % 16 == 0
+                   else w.clone(memory_format=torch.contiguous_format)
+                   for w in (w12_q, w3_q))
     s12, bias12, s3, bias3 = f32(w12_scale), f32(b12), f32(w3_scale), f32(b3)
     nb = m // n_tok
     sh = f32(shift) if adaln else None

@@ -132,9 +132,10 @@ def test_every_kernel_symbol_is_in_its_source():
 
 def test_flash_backward_is_the_wgmma_source():
     # K6a and K6b are the wgmma + TMA kernels of flash_bwd_sm90.cu; the
-    # mma.sync dq / dk-dv kernels are gone, and K5 keeps its source
+    # mma.sync dq / dk-dv kernels are gone, and K5's source holds none of
+    # the backward
     assert tfl.K6A.source == tfl.K6B.source == "flash_bwd_sm90.cu"
-    assert tfl.K5.source == "flash_attention.cu"
+    assert tfl.K5.source == "attention_sm90.cu"
     bwd = (kernels.CSRC_DIR / tfl.K6A.source).read_text()
     fwd = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     assert "wgmma_rs" in bwd and "tma_load_4d" in bwd
@@ -142,6 +143,39 @@ def test_flash_backward_is_the_wgmma_source():
     for gone in ("dq_kernel", "dkv_kernel", "sd3_flash_attention_dq",
                  "sd3_flash_attention_dkv"):
         assert gone not in fwd, gone
+
+
+def test_flash_forward_is_the_hopper_attention_source():
+    # K5 is the Softmax::Flash instance of K1 / K7's wgmma + TMA kernel, one
+    # launch on raw q, k, v through tensor maps of their strided views; the
+    # mma.sync source it had is gone
+    assert tfl.K5.source == tfa.K1.source == tfa.K7.source
+    src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
+    entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
+    assert "launch_flash<32>" in entry and "launch_flash<64>" in entry
+    launch = src[src.index("int launch_flash("):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "attn_sm90_kernel<D, Softmax::Flash>" in launch
+    assert launch.count("encode_view<D,") == 3 and "<<<" in launch
+    assert "prep" not in launch
+    assert "mma_bf16(" not in src and "cp_async16(" not in src
+    assert not (kernels.CSRC_DIR / "flash_attention.cu").exists()
+
+
+def test_int8_swiglu_is_the_wgmma_source():
+    # K2, K3 and K9 run both products on s8 wgmma fed by TMA: no mma.sync
+    # or ldmatrix fragment is left in their source
+    assert tfm.K2.source == tfm.K3.source == tfm.K9.source == "fused_mlp.cu"
+    src = (kernels.CSRC_DIR / tfm.K2.source).read_text()
+    hdr = (kernels.CSRC_DIR / "sm90.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in hdr
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in hdr
+    for used in ("wgmma_s8<2 * PASS_COLS>", "wgmma_s8<W3_BN>", "tma_load_2d",
+                 "encode_s8_2d", "setmaxnreg_inc", "launch_xquant<V>"):
+        assert used in src, used
+    for gone in ("mma_s8(", "load_b2(", "ldsm_x4(", "swiglu_h_kernel<",
+                 "w3_gemm_kernel<"):
+        assert gone not in src, gone
 
 
 @pytest.mark.parametrize("const,source,name", [
@@ -155,7 +189,8 @@ def test_key_tiles_match_their_sources(const, source, name):
     m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m is not None, (source, name)
     assert getattr(tfa, const) == int(m.group(1))
-    assert tfa.K1.source == tfa.K7.source == "attention_sm90.cu"
+    assert (tfa.K1.source == tfa.K7.source == tfl.K5.source
+            == "attention_sm90.cu")
 
 
 @pytest.mark.cuda
@@ -310,6 +345,47 @@ def test_k2_k3_kernels_match_plain_on_the_card(cuda_device, m, n_tok, k,
         gate=cpu["gate"], n_tok=n_tok, adaln=tail, residual=tail)
     err = (got.float().cpu() - want).abs().max().item()
     rel = ((got.float().cpu() - want).norm() / want.norm()).item()
+    assert err <= 1e-2 * want.abs().max().item() and rel <= 5e-3, (err, rel)
+
+
+# (rows, tokens per sample): fewer rows than a wgmma's 64, one tile, one
+# row past it, a ragged tile whose samples straddle tiles, the 512px text
+# stream at CFG batch 8 and the image stream; at k = d_out = 80 (a K tail of
+# 16 past a 32-deep wgmma step and 48 past a 128-byte TMA box, and a partial
+# column tile) and hidden 1024 (whole chunks of every h_group)
+MLP_EDGE_ROWS = [(1, 1), (63, 63), (64, 64), (65, 65), (300, 100),
+                 (1232, 154), (8192, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h_group", tfm.H_GROUPS)
+@pytest.mark.parametrize("m,n_tok", MLP_EDGE_ROWS)
+@pytest.mark.parametrize("kind", ["K2", "K3", "K9"])
+def test_int8_swiglu_at_ragged_rows_and_chunks_on_the_card(cuda_device, kind,
+                                                           m, n_tok, h_group):
+    k, hidden = 80, 1024
+    t = mlp_case(m, n_tok, k, hidden, k, cuda_device, seed=m + h_group)
+    w = [t[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale", "b3")]
+    tail = kind != "K3"
+    kern = {"K2": tfm.K2, "K3": tfm.K3, "K9": tfm.K9}[kind]
+    fn = {"K2": tfm.swiglu_int8_tail, "K9": tfm.swiglu_int8_tail3d}.get(kind)
+    if tail:
+        run = lambda: fn(t["x"], t["shift"], t["scale"], t["gate"], *w,
+                         n_tok=n_tok, h_group=h_group)
+    else:
+        run = lambda: tfm.swiglu_int8(t["x"], *w, h_group=h_group)
+    before = kern.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert torch.equal(got, again)
+    # the plain version in fp32 on the kernel's inputs, on the card
+    want = tfm.swiglu_int8_plain(
+        t["x"].float(), *w, h_group=h_group, shift=t["shift"],
+        scale=t["scale"], gate=t["gate"], n_tok=n_tok, adaln=tail,
+        residual=tail)
+    err = (got.float() - want).abs().max().item()
+    rel = ((got.float() - want).norm() / want.norm()).item()
     assert err <= 1e-2 * want.abs().max().item() and rel <= 5e-3, (err, rel)
 
 
@@ -513,7 +589,7 @@ FLASH_SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 2, 129, 64),
 # (csrc/flash_bwd_sm90.cu) at both head dims: one row, a partial tile, whole
 # tiles, a tile and one row
 FLASH_TILE_SHAPES = [(1, 2, n, d) for d in (32, 64)
-                     for n in (1, 63, 64, 65, 127, 128, 129, 255, 257)
+                     for n in (1, 63, 64, 65, 127, 128, 129, 255, 257, 4250)
                      if (1, 2, n, d) not in FLASH_SHAPES]
 # chip_smoke.py's limits: bf16 p, ds and outputs against the fp32 plain
 # versions run on the same bf16 values
@@ -599,6 +675,35 @@ def test_k6_kernels_give_the_same_bits_twice_on_the_card(cuda_device,
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 47, 32), (1, 2, 257, 64),
+                                   (4, 19, 1178, 64)])
+def test_k5_gives_the_same_bits_twice_and_reads_views_on_the_card(
+        cuda_device, shape, monkeypatch):
+    # no atomics: two runs give the same bits; (B, H, N, D) views of
+    # (B, N, H, D) buffers, the training path's layout, go to the tensor
+    # maps as they are (no copy) and give the bits of contiguous inputs
+    q, k, v, _ = _flash_case(shape, cuda_device, seed=5)
+    scale = shape[-1] ** -0.5
+    runs = [tfl.flash_fwd(q, k, v, scale) for _ in range(2)]
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    readable, in_place = tfl._readable, []
+
+    def spy(t):
+        r = readable(t)
+        in_place.append(r is t)
+        return r
+    monkeypatch.setattr(tfl, "_readable", spy)
+    out_v, lse_v = tfl.flash_fwd(*views, scale)
+    torch.cuda.synchronize()
+    assert in_place == [True] * 3
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert torch.equal(runs[0][0], out_v) and torch.equal(runs[0][1], lse_v)
+    assert out_v.transpose(1, 2).is_contiguous()  # a (B, N, H, D) buffer
 
 
 @pytest.mark.cuda
