@@ -7,20 +7,22 @@ Phases (any failure exits non-zero without the final ok line):
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA
      versions; TF32 off for fp32 matmuls and convolutions;
   2. build every kernel from sd3_torch/csrc (one nvcc per source, in
-     parallel; attention_sm90.cu, flash_bwd_sm90.cu and fused_mlp.cu encode
-     their TMA descriptors through the runtime's driver entry point, so
-     nothing links libcuda) and print the compiler's register /
-     shared-memory report;
+     parallel; attention_sm90.cu, attention_int8_sm90.cu,
+     flash_bwd_sm90.cu and fused_mlp.cu encode their TMA descriptors
+     through the runtime's driver entry point, so nothing links libcuda)
+     and print the compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
      the 512px slice shape, a ragged shape with odd H and a NoPE shape; K4
-     (its int8-QK^T variant) and K8a
-     (int8 P.V over bf16 and over K4's scores) at the slice and a ragged
-     shape; K7 (streaming attention, K1's kernel with an online softmax,
-     compared over its 128-key tiles), K7q (its int8-QK^T branch) and K8b
-     (int8 P.V over K7's and over K7q's scores; 64-key tiles) at the 1024px
-     shape and a ragged shape just past 2048 tokens; the public attention
-     entry point
+     (its int8-QK^T variant; s8 / bf16 wgmma + TMA, attention_int8_sm90.cu)
+     and K8a (int8 P.V over bf16 and over K4's scores) at the slice and a
+     ragged shape; K7 (streaming attention, K1's kernel with an online
+     softmax, compared over its 128-key tiles), K7q (its int8-QK^T branch,
+     64-key tiles) and K8b (int8 P.V over K7's and over K7q's scores; K4's
+     kernel, 128-key tiles) at the 1024px shape and a ragged shape just
+     past 2048 tokens, K4 and K8b each with the device time of its launches
+     (q prep, K prep / quantize, V amax / quantize, attention); the public
+     attention entry point
      once per kernel (K7q and K8a are reached only there); K3 (int8
      SwiGLU; wgmma + TMA, fused_mlp.cu) at the text stream and a ragged
      shape; K2 (int8 SwiGLU block tail, the same device code) at the image
@@ -125,9 +127,10 @@ INT8_SAME_ROUNDING_ATOL = 1e-2
 # effect is K4's: K8_ATOL = K4_ATOL. Against the plain version on the same
 # bf16 inputs (its roundings) only the sum order and exp2's approximation
 # differ: INT8_SAME_ROUNDING_ATOL, as for K4. The card's K8b quantizes p
-# against the running max of 64-key tiles, the plain version over the same
-# tiles; JAX's ~2176-key blocks give other levels on the rows whose max
-# moves (the CPU tests hold the plain version to JAX at JAX's blocks).
+# against the running max of 128-key tiles (fa.K8B_KEY_TILE), the plain
+# version over the same tiles; JAX's ~2176-key blocks give other levels on
+# the rows whose max moves (the CPU tests hold the plain version to JAX at
+# JAX's blocks and at the card's tile).
 K8_ATOL = K4_ATOL
 # K2 / K3 against the fp32 plain version: the kernel writes bf16 (half an
 # ulp is 2^-9 of an element, RMS ~1.6e-3 of the output), and sums the
@@ -162,7 +165,7 @@ MODEL_REL_L2 = 3e-2
 # int8 level) moves a large share of int8 levels by one (1/127 of a row's
 # scale each) in ~14 quantizers per block. The same limit with int8 P.V
 # (K8b): p's int8 levels move with the scores' bf16 roundings, and the
-# card's 64-key tiles quantize p against other running maxima than the
+# card's 128-key tiles quantize p against other running maxima than the
 # CPU's ~2176-key blocks, each noise of one p level (1/127) on a key.
 INT8_MODEL_REL_L2 = 5e-2
 # K5 / K6a / K6b against their fp32 plain versions on the same bf16 inputs:
@@ -381,10 +384,11 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     else:
         plain = fa.composition_int8_qk if int8_qk else fa.composition
     # the plain versions take int8_pv where they have it; the streaming ones
-    # are compared over the kernel's key tiles (K7's, or the 64 of K7q and
-    # K8b), timed with JAX's blocks
+    # are compared over the kernel's key tiles (K7's and K8b's 128, K7q's
+    # 64), timed with JAX's blocks
     kw = dict(int8_pv=True) if int8_pv else {}
-    tile = fa.INT8_KEY_TILE if int8_qk or int8_pv else fa.K7_KEY_TILE
+    tile = (fa.K8B_KEY_TILE if int8_pv else fa.INT8_KEY_TILE if int8_qk
+            else fa.K7_KEY_TILE)
     cmp_kw = dict(kw, block_k=tile) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
                                        int8_qk=int8_qk, int8_pv=int8_pv)
@@ -432,6 +436,10 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
                    got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                library_ms=library_ms, **bound(t_ops, t_bytes, t_exp))
+    if name in ("K4", "K8b", "K8b over K7q"):
+        # the device time of each launch: q prep, K prep / quantize, V amax
+        # / quantize, attention
+        res["us_per_launch"] = per_launch_us(run_k)
     print(f"  {name}", json.dumps(res), flush=True)
     atol = (K8_ATOL if int8_pv else K4_ATOL if int8_qk and not streaming
             else ATTN_ATOL)
@@ -1245,8 +1253,11 @@ INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_sm90_kernel|"
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
 STREAM_FAMILIES = {"true, false, false>": "K7q",
-                   "false, true, false>": "K8b", "true, true, false>": "K8b",
                    "false, true, true>": "K8a", "true, true, true>": "K8a"}
+# the per-row int8 prep carries the number of its TPU kernel as its last
+# template argument (csrc/attention_common.cuh): prep_q8rows_kernel<64, 4>
+Q8ROWS_LAUNCH = re.compile(r"prep_q8rows_kernel<\d+, (\d+)>")
+Q8ROWS_FAMILIES = {"4": "K4", "7": "K7q", "8": "K8b"}
 
 
 # the flash backward's kernels (csrc/flash_bwd_sm90.cu) by family
@@ -1256,7 +1267,7 @@ FLASH_BWD_FAMILIES = {"flash_dq_sm90_kernel": "K6a",
 SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "flash_bwd_sm90.cu": "wgmma+TMA, warp-specialised",
                   "fused_mlp.cu": "wgmma+TMA, warp-specialised",
-                  "fused_attention.cu": "mma.sync, 2-stage cp.async",
+                  "attention_int8_sm90.cu": "wgmma+TMA, warp-specialised",
                   "stream_attention.cu": "mma.sync, 2-stage cp.async",
                   "fused_dense.cu": "mma.sync, 2-stage cp.async"}
 
@@ -1265,13 +1276,14 @@ def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2, K3, K9, K10a and K10b by the template tag of their
     launches, INT8_LAUNCH; K1, K7 and K5 are attn_sm90_kernel<D, Softmax::
-    Bounded>, <D, Softmax::Online> and <D, Softmax::Flash>; K4 is
-    k_prep_kernel<D, true> with its
-    quantize and attention kernels; K7q, K8a, K8b the instantiations of
-    attn_stream_kernel, with the V prep of int8 P.V in K8b and the per-row K
-    prep in K7q; the bf16 K prep k_prep_kernel<D, false>, which K1, K7 and
-    K8b share, and K1 / K7's q_prep_kernel go to `bf16_prep`; K6a and K6b
-    FLASH_BWD_FAMILIES), int8 and other GEMMs, and the rest."""
+    Bounded>, <D, Softmax::Online> and <D, Softmax::Flash>; K4 and K8b
+    attn_int8_sm90_kernel<D, true, false> and <D, *, true>, K4 with
+    k_prep_kernel<D, true> and k_quant_kernel, K8b with the V prep of int8
+    P.V; the per-row int8 preps by their tag, Q8ROWS_LAUNCH; K7q and K8a
+    the instantiations of attn_stream_kernel; the bf16 K prep
+    k_prep_kernel<D, false>, which K1, K7 and K8b share, and their bf16
+    q_prep_kernel go to `bf16_prep`; K6a and K6b FLASH_BWD_FAMILIES), int8
+    and other GEMMs, and the rest."""
     low = name.lower()
     for fn, fam in FLASH_BWD_FAMILIES.items():
         if fn in name:
@@ -1282,11 +1294,14 @@ def kernel_family(name: str, bf16_prep: str = "K1") -> str:
     if "attn_stream_kernel" in name:
         return next((f for args, f in STREAM_FAMILIES.items() if args in name),
                     "other")
+    if "attn_int8_sm90_kernel" in name:
+        return "K4" if "true, false>" in name else "K8b"
     if "v_amax_kernel" in name or "v_quant_kernel" in name:
         return "K8b"
-    if "k_prep_q8rows_kernel" in name:
-        return "K7q"
-    if "attn_int8_kernel" in name or "k_quant_kernel" in name or (
+    m = Q8ROWS_LAUNCH.search(name)
+    if m:
+        return Q8ROWS_FAMILIES[m.group(1)]
+    if "k_quant_kernel" in name or (
             "k_prep_kernel" in name and "true>" in name):
         return "K4"
     if "k_prep_kernel" in name or "q_prep_kernel" in name:
@@ -1440,7 +1455,7 @@ def main() -> int:
              "sd3_tpu/ops/fused_mlp.py:212", sample8, per_call),
             (fused_mlp.K3, k3[0], "fused_mlp.cu",
              "sd3_tpu/ops/fused_mlp.py:93", sample8, per_call),
-            (fused_attention.K4, k4[0], "fused_attention.cu",
+            (fused_attention.K4, k4[0], "attention_int8_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:193", sample8, per_call),
             (flash_attention.K5, k56[0]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", train, per_step),
@@ -1456,7 +1471,7 @@ def main() -> int:
              "sd3_tpu/ops/fused_attention.py:352", api, lambda run: run),
             (fused_attention.K8A, k8a[0], "stream_attention.cu",
              "sd3_tpu/ops/fused_attention.py:190", api, lambda run: run),
-            (fused_attention.K8B, k8b[0], "stream_attention.cu",
+            (fused_attention.K8B, k8b[0], "attention_int8_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:406", sample8pv_1024, per_call),
             (fused_mlp.K9, k9[0], "fused_mlp.cu",
              "sd3_tpu/ops/fused_mlp.py:365", sample8_tails, per_call),

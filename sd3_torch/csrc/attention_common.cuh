@@ -1,8 +1,11 @@
 // What the fused-attention kernels share (attention_sm90.cu: K1, K7;
-// fused_attention.cu: K4; stream_attention.cu: K7q, K8a, K8b): the q / k
-// prep (per-head RMSNorm and the folded-weight interleaved-pair rotation),
-// int8 rounding, the K prep launches, and the tiling of the mma.sync ones
-// (K4, K7q, K8a, K8b; INT8_KEY_TILE in ops/fused_attention.py is BK).
+// attention_int8_sm90.cu: K4, K8b; stream_attention.cu: K7q, K8a): the q /
+// k prep (per-head RMSNorm and the folded-weight interleaved-pair rotation),
+// int8 rounding, the prep launches of q (bf16, or int8 per row), of K (bf16
+// with its statistics, int8 per (b, h) or per row) and of V (int8 per
+// column, V^T in the key order of an s8 A fragment), and the tiling of the
+// mma.sync kernels (K7q, K8a; INT8_KEY_TILE in ops/fused_attention.py is
+// BK).
 #pragma once
 
 #include "mma.cuh"
@@ -164,6 +167,182 @@ k_quant_kernel(const bf16* __restrict__ kp, const float* __restrict__ k_amax,
     packed[w] = word;
   }
   *reinterpret_cast<uint2*>(kq + e0) = make_uint2(packed[0], packed[1]);
+}
+
+// ---- the q prep of K1, K7 and K8b over K7's scores ----------------------
+
+// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: q^ in bf16 in the
+// input layout (k_prep_kernel's work on q) and, with NORMS, ||q^|| of every
+// row from the fp32 prep, (B*H, N).
+template <int D, bool NORMS>
+__global__ void __launch_bounds__(PREP_THREADS)
+q_prep_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
+              const float* __restrict__ sq, bf16* __restrict__ q_out,
+              float* __restrict__ q_norm, int N, int H, float eps) {
+  using G = Geom<D>;
+  constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane % G::TPR;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * N * rs + (size_t)h * D;
+#pragma unroll
+  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
+    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
+    const bool valid = n < N;
+    const size_t nn = valid ? (size_t)n : 0;
+    float out[2 * G::PPT];
+    const float ss = prep_row<D>(q + base + nn * rs, cq + nn * D, sq + nn * D,
+                                 eps, sub, valid, out);
+    if (valid) {
+      __nv_bfloat162* dst =
+          reinterpret_cast<__nv_bfloat162*>(q_out + base + nn * rs);
+#pragma unroll
+      for (int i = 0; i < G::PPT; ++i)
+        dst[sub + i * G::TPR] = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
+      if (NORMS && sub == 0) q_norm[(size_t)bh * N + n] = sqrtf(ss);
+    }
+  }
+}
+
+// ---- per-row int8 prep: K4's q^, K7q's k^, K8b's q^ and k^ over K7q -----
+
+// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: the fp32 prep of
+// every row of x (q or k, with its tables), quantized per row (per head):
+// x_q (B, N, H*D) int8 and x_scale (B*H, ss) fp32 (ss >= N: a row stride
+// that a tensor map of the scales may need), max(|x^_row|, 1e-12) / 127.
+// TAG is the number of the TPU kernel the launch serves (4: K4, 7:
+// K7q, 8: K8b), so that a profile tells its launches apart.
+template <int D, int TAG>
+__global__ void __launch_bounds__(PREP_THREADS)
+prep_q8rows_kernel(const bf16* __restrict__ x, const float* __restrict__ c,
+                   const float* __restrict__ s, int8_t* __restrict__ x_q,
+                   float* __restrict__ x_scale, int N, int H, int ss,
+                   float eps) {
+  using G = Geom<D>;
+  constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane % G::TPR;
+  const size_t rs = (size_t)H * D;
+  const size_t base = (size_t)b * N * rs + (size_t)h * D;
+#pragma unroll
+  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
+    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
+    const bool valid = n < N;
+    const size_t nn = valid ? (size_t)n : 0;
+    float out[2 * G::PPT];
+    prep_row<D>(x + base + nn * rs, c + nn * D, s + nn * D, eps, sub, valid,
+                out);
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2 * G::PPT; ++i) amax = fmaxf(amax, fabsf(out[i]));
+    const float sc = fmaxf(group_max<G::TPR>(amax), 1e-12f) / 127.f;
+    if (valid) {
+      char2* dst = reinterpret_cast<char2*>(x_q + base + nn * rs);
+#pragma unroll
+      for (int i = 0; i < G::PPT; ++i)
+        dst[sub + i * G::TPR] = make_char2((signed char)quant8(out[2 * i], sc),
+                                           (signed char)quant8(out[2 * i + 1], sc));
+      if (sub == 0) x_scale[(size_t)bh * ss + n] = sc;
+    }
+  }
+}
+
+// ---- V prep of int8 P.V (K8a, K8b) ------------------------------------
+
+constexpr float LOG2_127 = 6.988684686772166f;
+constexpr int V_ROWS = 64;  // rows per v_amax block, keys per v_quant block
+
+// Key order of V^T within a 32-key chunk: position kappa holds key
+// v_perm(kappa). The A fragment of an s8 product over 32 keys, per warp of
+// 16 rows (mma.sync m16n8k32, and wgmma m64nNk32 with A from registers,
+// whose per-warp fragment is the same), gives thread (g, t) bytes kappa =
+// 4t..4t+3 (and 16 + 4t..) of rows g, g + 8; the score accumulators (of
+// either instruction) hold keys 8j + 2t, 8j + 2t + 1 of 8-key groups j.
+// With kappa = 16 h + 4 t + i  <->  key 16 h + 8 (i >> 1) + 2 t + (i & 1),
+// the A register of rows g (g + 8) for half h packs groups 2h and 2h + 1 of
+// the chunk as they are, and the V^T rows of a tile stay contiguous (for
+// ldmatrix, or as the K-major B of a wgmma).
+__host__ __device__ __forceinline__ int v_perm(int kappa) {
+  const int h = kappa >> 4, t = (kappa >> 2) & 3, i = kappa & 3;
+  return 16 * h + 8 * (i >> 1) + 2 * t + (i & 1);
+}
+
+// max |v| per (b, column) of (B, N, H*D) v over all rows into v_amax
+// (B, H*D), zero on entry. grid (ceil(N / V_ROWS), B), 256 threads, each a
+// bf16 pair of columns at a time.
+__global__ void __launch_bounds__(256)
+v_amax_kernel(const bf16* __restrict__ v, float* __restrict__ v_amax, int N,
+              int HD) {
+  const int b = blockIdx.y, n0 = blockIdx.x * V_ROWS;
+  const int n1 = min(n0 + V_ROWS, N);
+  for (int p = threadIdx.x; p < HD / 2; p += blockDim.x) {
+    float m0 = 0.f, m1 = 0.f;
+    for (int n = n0; n < n1; ++n) {
+      const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
+          v + ((size_t)b * N + n) * HD)[p]);
+      m0 = fmaxf(m0, fabsf(f.x));
+      m1 = fmaxf(m1, fabsf(f.y));
+    }
+    int* dst = reinterpret_cast<int*>(v_amax + (size_t)b * HD + 2 * p);
+    atomicMax(dst, __float_as_int(m0));
+    atomicMax(dst + 1, __float_as_int(m1));
+  }
+}
+
+// V^T in int8: v_q[bh][d][np keys], kappa-ordered within each 32-key chunk,
+// keys past N zero; np (a multiple of V_ROWS) is the attention's padded
+// length. grid (np / V_ROWS, B*H), 256 threads; each writes 4 bytes.
+template <int D>
+__global__ void __launch_bounds__(256)
+v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ v_amax,
+               int8_t* __restrict__ v_q, int N, int H, int np) {
+  __shared__ float sv[V_ROWS][D + 1];
+  __shared__ float sc[D];
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, t = blockIdx.x;
+  const size_t rs = (size_t)H * D;
+  for (int i = threadIdx.x; i < V_ROWS * D / 2; i += blockDim.x) {
+    const int r = i / (D / 2), p = i % (D / 2), n = t * V_ROWS + r;
+    float2 f = make_float2(0.f, 0.f);
+    if (n < N)
+      f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
+          v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D)[p]);
+    sv[r][2 * p] = f.x;
+    sv[r][2 * p + 1] = f.y;
+  }
+  if (threadIdx.x < D)
+    sc[threadIdx.x] = fmaxf(v_amax[(size_t)bh * D + threadIdx.x], 1e-12f) / 127.f;
+  __syncthreads();
+  for (int w = threadIdx.x; w < D * V_ROWS / 4; w += blockDim.x) {
+    const int d = w / (V_ROWS / 4), kap = (w % (V_ROWS / 4)) * 4;  // 4 bytes
+    const int chunk = kap & ~31;
+    uint32_t word = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = chunk + v_perm((kap & 31) + i);
+      word |= (uint32_t)(quant8(sv[r][d], sc[d]) & 0xff) << (8 * i);
+    }
+    *reinterpret_cast<uint32_t*>(v_q + ((size_t)bh * D + d) * np +
+                                 t * V_ROWS + kap) = word;
+  }
+}
+
+// The V prep of int8 P.V: v_amax (B*H, D) fp32, zero on entry; v_q (B*H,
+// D, np) int8. The CUDA error code.
+template <int D>
+int launch_v_prep(const void* v, void* v_amax, void* v_q, int B, int N,
+                  int H, int np, cudaStream_t st) {
+  dim3 g1((N + V_ROWS - 1) / V_ROWS, B);
+  v_amax_kernel<<<g1, 256, 0, st>>>(static_cast<const bf16*>(v),
+                                    static_cast<float*>(v_amax), N, H * D);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  dim3 g2(np / V_ROWS, B * H);
+  v_quant_kernel<D><<<g2, 256, 0, st>>>(static_cast<const bf16*>(v),
+                                        static_cast<const float*>(v_amax),
+                                        static_cast<int8_t*>(v_q), N, H, np);
+  return (int)cudaGetLastError();
 }
 
 // ---- host side ----------------------------------------------------------

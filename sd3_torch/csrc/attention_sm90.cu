@@ -174,47 +174,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
   }
 }
 
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: q^ in bf16 in the
-// input layout (k_prep_kernel's work on q) and, with NORMS, ||q^|| of every
-// row from the fp32 prep, (B*H, N).
-template <int D, bool NORMS>
-__global__ void __launch_bounds__(PREP_THREADS)
-q_prep_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
-              const float* __restrict__ sq, bf16* __restrict__ q_out,
-              float* __restrict__ q_norm, int N, int H, float eps) {
-  using G = Geom<D>;
-  constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane % G::TPR;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * N * rs + (size_t)h * D;
-#pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
-    const bool valid = n < N;
-    const size_t nn = valid ? (size_t)n : 0;
-    float out[2 * G::PPT];
-    const float ss = prep_row<D>(q + base + nn * rs, cq + nn * D, sq + nn * D,
-                                 eps, sub, valid, out);
-    if (valid) {
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(q_out + base + nn * rs);
-#pragma unroll
-      for (int i = 0; i < G::PPT; ++i)
-        dst[sub + i * G::TPR] = __floats2bfloat162_rn(out[2 * i], out[2 * i + 1]);
-      if (NORMS && sub == 0) q_norm[(size_t)bh * N + n] = sqrtf(ss);
-    }
-  }
-}
-
 // grid (ceil(N / BLOCK_Q), H, B), a CTA per item (128 query rows, head,
 // sample); for Flash min(SMs, items) persistent CTAs, CTA i on items i,
 // i + grid, ... (q tiles fastest), its ring, barriers and turns running on
 // across items, so that its producer loads the next item's q and first K /
 // V tiles under the last one's final P.V and epilogue. SM90_THREADS
 // threads, Sm90<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v:
-// tensor maps of bf16 q^, k^ and v (see encode), or for Flash of raw q, k,
+// tensor maps of bf16 q^, k^ and v (encode_heads), or for Flash of raw q, k,
 // v (encode_view); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
 // (Bounded only); o bf16 with element strides vo; lse (B*H, N) fp32 and
 // scale_log2 = scale * log2(e) (Flash only).
@@ -548,20 +514,6 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ----------------------------------------------------------
 
-// The tensor map of a (B, N, H*D) bf16 tensor as the 4-D view (D, H, N, B),
-// with boxes of one atom column of a head (W / 2 values), one head, ROWS
-// rows and one sample, in the swizzle of Sm90<D>; rows past N read as
-// zeros. Returns the CUresult of the encode (0 = success).
-template <int D, int ROWS>
-int encode(CUtensorMap* m, const void* x, int B, int N, int H) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)N * H * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)(Sm90<D>::W / 2), 1, ROWS, 1};
-  return encode_bf16_4d<D>(m, x, dims, strides, box);
-}
-
 struct Args {
   const void *q, *k, *v, *cq, *sq, *ck, *sk;
   void *q_prep, *q_norm, *k_prep, *k_max2, *out;
@@ -585,11 +537,12 @@ int launch_sm90(const Args& a) {
                               a.H, a.eps_k, a.st);
   if (e != 0) return e;
   CUtensorMap tm_q, tm_k, tm_v;
-  e = encode<D, QROWS>(&tm_q, a.q_prep, a.B, a.N, a.H);
+  e = encode_heads(&tm_q, a.q_prep, 2, Sm90<D>::W, a.B, a.N, a.H, D, QROWS);
   if (e != 0) return e;
-  e = encode<D, KEY_TILE>(&tm_k, a.k_prep, a.B, a.N, a.H);
+  e = encode_heads(&tm_k, a.k_prep, 2, Sm90<D>::W, a.B, a.N, a.H, D,
+                   KEY_TILE);
   if (e != 0) return e;
-  e = encode<D, KEY_TILE>(&tm_v, a.v, a.B, a.N, a.H);
+  e = encode_heads(&tm_v, a.v, 2, Sm90<D>::W, a.B, a.N, a.H, D, KEY_TILE);
   if (e != 0) return e;
   auto kernel = attn_sm90_kernel<D, SM>;
   e = allow_smem(kernel, Sm90<D>::BYTES);

@@ -1,13 +1,15 @@
 // PTX wrappers of what Hopper (sm_90a) adds, for the wgmma kernels
 // (attention_sm90.cu: K1, K7, K5; flash_bwd_sm90.cu: K6a, K6b; fused_mlp.cu:
-// K2, K3, K9): mbarriers, TMA tensor loads (cp.async.bulk.tensor, 2-D and
-// 4-D), the wgmma shared-memory matrix descriptor and the swizzled tile
-// layout it reads, wgmma.mma_async bf16 m64nNk16 with A from shared memory
-// (wgmma_ss) or from registers (wgmma_rs), s8 m64nNk32 (wgmma_s8, both
-// operands K-major in shared memory: 8-bit types have no transpose), wgmma
-// fence / commit / wait, setmaxnreg and named barriers; on the host, the
-// encode of a 4-D bf16 tensor map (of a strided (B, H, N, D) view too) and
-// of a 2-D int8 one. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
+// K2, K3, K9; attention_int8_sm90.cu: K4, K8b): mbarriers, TMA tensor loads
+// (cp.async.bulk.tensor, 2-D and 4-D), the wgmma shared-memory matrix
+// descriptor and the swizzled tile layout it reads, wgmma.mma_async bf16
+// m64nNk16 with A from shared memory (wgmma_ss) or from registers
+// (wgmma_rs), s8 m64nNk32 with A from shared memory (wgmma_s8) or from
+// registers (wgmma_s8_rs), B K-major either way (8-bit types have no
+// transpose), wgmma fence / commit / wait, setmaxnreg and named barriers;
+// on the host, the encode of a 4-D bf16 tensor map (of a strided (B, H, N,
+// D) view too), of the heads of a (B, N, H*D) bf16 or int8 tensor, of a 2-D
+// int8 matrix and of a 2-D fp32 one. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
 // included for the CUtensorMap type only: nothing of the driver library is
 // linked.
 #pragma once
@@ -475,6 +477,98 @@ __device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t a,
 }
 
 
+// D(64 x N, s32) (+)= A(64 x 32, s8) B(32 x N, s8), A from registers: per
+// warp the m16n8k32 A fragment of its 16 rows (a[0]: row g, k 4t..4t+3;
+// a[1]: row g + 8, the same k; a[2], a[3]: the same rows at k 16 + 4t..),
+// g = lane / 4, t = lane % 4; B K-major in shared memory (desc_s8). D's
+// layout is that of the fp32 wgmma above. scale_d = 0 overwrites D.
+template <int N>
+__device__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4],
+                            uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<16>(int (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<32>(int (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<64>(int (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8_rs<128>(int (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
 // ---- host: tensor maps ---------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -507,6 +601,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The swizzle mode of rows W = 32, 64 or 128 bytes wide (SwizzledRows::W).
+inline CUtensorMapSwizzle swizzle_of(int w) {
+  return w == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : w == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
 // The tensor map of a 4-D bf16 view of `x` whose innermost dimension, dims[0]
 // = D, is contiguous: byte strides of dims 1-3, boxes of `box` values, in
 // the swizzle of SwizzledRows<D> (box[0] = W / 2); elements out of bounds
@@ -515,16 +615,13 @@ template <int D>
 int encode_bf16_4d(CUtensorMap* m, const void* x, const cuuint64_t (&dims)[4],
                    const cuuint64_t (&strides)[3],
                    const cuuint32_t (&box)[4]) {
-  using S = SwizzledRows<D>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      S::W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : S::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B;
   return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
                  dims, strides, box, elem_strides,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 swizzle_of(SwizzledRows<D>::W),
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -567,6 +664,50 @@ inline int encode_s8_2d(CUtensorMap* m, const void* x, int rows, int cols,
   return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(x),
                  dims, strides, box, elem_strides,
                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+
+// The tensor map of a (B, N, H*D) tensor of `elem`-byte values (bf16: 2,
+// int8: 1), contiguous, as the 4-D view (D, H, N, B): boxes of one atom
+// column of a head (w bytes: 32, 64 or 128), `rows` rows and one sample, in
+// the swizzle of w bytes. Values past D (a box wider than the head, as an
+// int8 head of 16 values padded to one 32-byte k-step) and rows past N read
+// as zeros. The CUresult of the encode.
+inline int encode_heads(CUtensorMap* m, const void* x, int elem, int w,
+                        int B, int N, int H, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * elem,
+                                 (cuuint64_t)H * D * elem,
+                                 (cuuint64_t)N * H * D * elem};
+  const cuuint32_t box[4] = {(cuuint32_t)(w / elem), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return (int)fn(m, elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                 4, const_cast<void*>(x), dims, strides, box, elem_strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(w),
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The tensor map of a row-major (rows, cols) fp32 matrix, cols a multiple
+// of 4 (TMA's 16-byte stride rule): boxes of `box` columns of one row, no
+// swizzle; columns past the end read as zeros. The CUresult of the encode.
+inline int encode_f32_2d(CUtensorMap* m, const void* x, int rows, int cols,
+                         int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t boxes[2] = {(cuuint32_t)box, 1};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(x),
+                 dims, strides, boxes, elem_strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -1,6 +1,9 @@
-// The int8 branches of the streaming fused joint attention (K7q) and the
-// int8-P.V attention (K8a single-KV, K8b streaming), for NVIDIA Hopper
-// (sm_90a). K7 itself, the bf16 branch, is attention_sm90.cu.
+// K7q, the int8-QK^T branch of the streaming fused joint attention, and
+// K8a, the single-KV int8-P.V attention, for NVIDIA Hopper (sm_90a): the
+// mma.sync kernels of the port that no path of the model takes (the JAX
+// package gates them off as well; the attention API reaches them). K7 (the
+// bf16 streaming branch) is attention_sm90.cu, K4 and K8b
+// attention_int8_sm90.cu.
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py:
 //   K7q  the `int8_qk` branch of `_stream_fwd_kernel` (the 1024px stage,
@@ -10,73 +13,64 @@
 //        s_k[key], an ONLINE softmax (true running max) over K blocks in
 //        exp2;
 //   K8a  the `int8_pv` branch of `_fused_fwd_kernel` (single KV block, at
-//        most 2048 padded tokens), alone or over K4's int8 scores;
-//   K8b  the `int8_pv` branch of `_stream_fwd_kernel`, over K7's bf16 or
-//        K7q's int8 scores.
+//        most 2048 padded tokens), alone or over K4's int8 scores.
 // The inputs are K1's (attention_sm90.cu): raw projections q, k, v of
 // (B, N, H*D) bf16 and (N, D) fp32 tables with the norm weights folded in
 // (q tables also carry scale*log2(e)); RMSNorm eps is the input dtype's.
 //
 // The numerics kept from the TPU kernels:
-//   - k^ is rounded to bf16 once (K8 over bf16 scores); q^ is rounded to
+//   - k^ is rounded to bf16 once (K8a over bf16 scores); q^ is rounded to
 //     bf16 for a bf16 QK^T; with int8 QK^T both are quantized from fp32
 //     (K7q: K per row, scale max(|k^|, 1e-12) / 127, round half to even, a
 //     true division; K8a over K4: k^ rounded to bf16 and one scale per
 //     (b, h), as K4);
-//   - K7q / K8b run an online softmax: m the running row max, p =
-//     exp2(s - m), alpha = exp2(m_old - m) rescaling l and the accumulator,
-//     l the sum of the unrounded fp32 p; p rounded to bf16 for P.V. The TPU
-//     kernel's K block is ~2176 rows, these kernels' tile 64 (INT8_KEY_TILE
-//     in ops/fused_attention.py), so p is rounded against another running
+//   - K7q runs an online softmax: m the running row max, p = exp2(s - m),
+//     alpha = exp2(m_old - m) rescaling l and the accumulator, l the sum of
+//     the unrounded fp32 p; p rounded to bf16 for P.V. The TPU kernel's K
+//     block is ~2176 rows, this kernel's tile 64 (INT8_KEY_TILE in
+//     ops/fused_attention.py), so p is rounded against another running
 //     max: a different rounding of the same relative size (2^-9 for bf16),
 //     which the tolerances state;
-//   - int8 P.V (K8a / K8b): V quantized per (b, h, column) over all rows,
-//     pb = exp2(s - (m - log2 127)) in [0, 127], pq = clip(round(pb), 0,
-//     127), P.V as s8 x s8 -> s32 on mma.sync m16n8k32, o = acc / l * v_scale
-//     with l the sum of the unrounded pb. K8a takes the TRUE row max (two
-//     score passes, as K4, never K1's bound); K8b quantizes P against the
-//     running max of the 64-key tile (the TPU kernel's block: ~2176 keys),
-//     so its int8 levels differ from the TPU kernel's by up to one level on
-//     the rows whose max moves, also stated in the tolerances;
+//   - int8 P.V (K8a): V quantized per (b, h, column) over all rows, pb =
+//     exp2(s - (m - log2 127)) in [0, 127] against the TRUE row max (two
+//     score passes, as K4, never K1's bound), pq = clip(round(pb), 0, 127),
+//     P.V as s8 x s8 -> s32 on mma.sync m16n8k32 summed over every key in
+//     s32, o = acc / l * v_scale with l the sum of the unrounded pb;
 //   - padded keys get p = 0.
 //
 // Launches (all on the caller's stream, in order):
-//   K prep: k_prep_kernel (bf16 k^; K8 over bf16 scores), or
-//     k_prep_q8rows_kernel (fp32 prep, per-row int8 and scales; K7q, K8b
-//     over K7q), or K4's k_prep_kernel<D, true> + k_quant_kernel (K8a over
-//     K4 scores);
-//   V prep (int8 P.V only): v_amax_kernel (max |v| per (b, h, column), by
-//     atomicMax on the float bits) and v_quant_kernel, which writes V^T as
-//     int8, (B*H, D, NP) with NP = N rounded up to 64, its keys permuted
-//     within each 32-key chunk (see v_perm) so that one ldmatrix gives the
-//     B fragments of m16n8k32 while the A fragment (pq) comes straight out
-//     of the score accumulators;
+//   K prep: k_prep_kernel (bf16 k^; K8a over bf16 scores), or
+//     prep_q8rows_kernel<D, 7> (fp32 prep, per-row int8 and scales; K7q),
+//     or K4's k_prep_kernel<D, true> + k_quant_kernel (K8a over K4 scores);
+//   V prep (K8a): v_amax_kernel and v_quant_kernel (attention_common.cuh),
+//     V^T as int8, (B*H, D, NP) with NP = N rounded up to 64, its keys in
+//     the order of v_perm so that one ldmatrix gives the B fragments of
+//     m16n8k32 while the A fragment (pq) comes straight out of the score
+//     accumulators;
 //   attn_stream_kernel<D, QK8, PV8, TWO_PASS>: one block of 4 warps per (64
 //     query rows, h, b), each warp owning 16 rows; q tile prepped in the
 //     kernel (bf16, or int8 with per-row scales), K / V tiles of 64 keys
 //     double-buffered by cp.async; QK^T on mma.sync m16n8k16 (bf16) or
 //     m16n8k32 (int8, head dim zero-padded to 32), P.V likewise. TWO_PASS
 //     (K8a) runs the scores once for the true row max, then again for P.V.
-//     Its instances: K7q <D, true, false, false>, K8b <D, *, true, false>,
-//     K8a <D, *, true, true>.
+//     Its instances: K7q <D, true, false, false>, K8a <D, *, true, true>.
 //
 // What bounds them on this card: at the 1024px shape (B 8 with CFG, H 19,
-// N 4250, D 64) QK^T and P.V are 2*B*H*N^2*D = 351.4 G operations each, so
-// the tensor-core rate bounds every variant: 0.533 ms for K7q and for K8b
-// over bf16 scores (one product at the int8 rate, 1979 TOPS, one at bf16's
-// 989 TFLOP/s), 0.355 ms for K8b over K7q; q, k, v and o are 4 x 83 MB
-// (~0.1 ms at 3.35 TB/s). These are the simple, right versions (mma.sync,
-// a two-stage cp.async ring, as K5), so they run well below those bounds;
-// the later work is wgmma + TMA, as attention_sm90.cu did for K1 and K7.
+// N 4250, D 64; K7q) QK^T and P.V are 2*B*H*N^2*D = 351.4 G operations
+// each, 0.533 ms at the tensor-core rates (the int8 product at 1979 TOPS,
+// bf16's at 989 TFLOP/s), but the softmax's B*H*N^2 = 2.75 G exp2s take
+// 0.7107 ms on the SFU (16 a clock an SM, 1/256 of the bf16 FLOP rate), the
+// larger term; at the 512px shape (K8a) the exp2s bound it too, 0.0546 ms.
+// q, k, v and o are 4 x 83 MB at 1024px (~0.1 ms at 3.35 TB/s). These are
+// the simple, right versions (mma.sync, a two-stage cp.async ring), so they
+// run well below those bounds; K4 and K8b moved to wgmma + TMA
+// (attention_int8_sm90.cu).
 
 #include <type_traits>
 
 #include "attention_common.cuh"
 
 namespace {
-
-constexpr float LOG2_127 = 6.988684686772166f;
-constexpr int V_ROWS = 64;          // rows per v_amax block
 
 // Geometry of the attention block's shared memory.
 template <int D, bool QK8, bool PV8>
@@ -97,123 +91,11 @@ struct SmemS {
   static constexpr int BYTES = KS + 2 * BK * 4;
 };
 
-// Key order of V^T within a 32-key chunk: position kappa holds key
-// v_perm(kappa). Thread (g, t) of an m16n8k32 product gives A bytes
-// kappa = 4t..4t+3 (and 16 + 4t..) of rows g, g + 8; the score
-// accumulators hold keys 8j + 2t, 8j + 2t + 1 of 8-key tiles j. With
-// kappa = 16 h + 4 t + i  <->  key 16 h + 8 (i >> 1) + 2 t + (i & 1), the
-// A register of rows g (g + 8) for half h packs tiles 2h and 2h + 1 of the
-// chunk as they are, and V^T rows stay contiguous for ldmatrix.
-__host__ __device__ __forceinline__ int v_perm(int kappa) {
-  const int h = kappa >> 4, t = (kappa >> 2) & 3, i = kappa & 3;
-  return 16 * h + 8 * (i >> 1) + 2 * t + (i & 1);
-}
-
 // clip(round(x), 0, 127) of four non-negative values, packed low byte first
 __device__ __forceinline__ uint32_t pack_p8(float a, float b, float c,
                                             float d) {
   auto q = [](float x) { return (uint32_t)fminf(rintf(x), 127.f); };
   return q(a) | q(b) << 8 | q(c) << 16 | q(d) << 24;
-}
-
-// ---- K prep of K7q / K8b over K7q: fp32 k^, int8 per row --------------
-
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads. k_q: (B, N, H*D)
-// int8; k_scale: (B*H, N) fp32, max(|k^_row|, 1e-12) / 127.
-template <int D>
-__global__ void __launch_bounds__(PREP_THREADS)
-k_prep_q8rows_kernel(const bf16* __restrict__ k, const float* __restrict__ ck,
-                     const float* __restrict__ sk, int8_t* __restrict__ k_q,
-                     float* __restrict__ k_scale, int N, int H, float eps) {
-  using G = Geom<D>;
-  constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sub = lane % G::TPR;
-  const size_t rs = (size_t)H * D;
-  const size_t base = (size_t)b * N * rs + (size_t)h * D;
-#pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
-    const bool valid = n < N;
-    const size_t nn = valid ? (size_t)n : 0;
-    float out[2 * G::PPT];
-    prep_row<D>(k + base + nn * rs, ck + nn * D, sk + nn * D, eps, sub, valid,
-                out);
-    float amax = 0.f;
-#pragma unroll
-    for (int i = 0; i < 2 * G::PPT; ++i) amax = fmaxf(amax, fabsf(out[i]));
-    const float s = fmaxf(group_max<G::TPR>(amax), 1e-12f) / 127.f;
-    if (valid) {
-      char2* dst = reinterpret_cast<char2*>(k_q + base + nn * rs);
-#pragma unroll
-      for (int i = 0; i < G::PPT; ++i)
-        dst[sub + i * G::TPR] = make_char2((signed char)quant8(out[2 * i], s),
-                                           (signed char)quant8(out[2 * i + 1], s));
-      if (sub == 0) k_scale[(size_t)bh * N + n] = s;
-    }
-  }
-}
-
-// ---- V prep of K8a / K8b ----------------------------------------------
-
-// max |v| per (b, column) of (B, N, H*D) v over all rows into v_amax
-// (B, H*D), zero on entry. grid (ceil(N / V_ROWS), B), 256 threads, each a
-// bf16 pair of columns at a time.
-__global__ void __launch_bounds__(256)
-v_amax_kernel(const bf16* __restrict__ v, float* __restrict__ v_amax, int N,
-              int HD) {
-  const int b = blockIdx.y, n0 = blockIdx.x * V_ROWS;
-  const int n1 = min(n0 + V_ROWS, N);
-  for (int p = threadIdx.x; p < HD / 2; p += blockDim.x) {
-    float m0 = 0.f, m1 = 0.f;
-    for (int n = n0; n < n1; ++n) {
-      const float2 f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-          v + ((size_t)b * N + n) * HD)[p]);
-      m0 = fmaxf(m0, fabsf(f.x));
-      m1 = fmaxf(m1, fabsf(f.y));
-    }
-    int* dst = reinterpret_cast<int*>(v_amax + (size_t)b * HD + 2 * p);
-    atomicMax(dst, __float_as_int(m0));
-    atomicMax(dst + 1, __float_as_int(m1));
-  }
-}
-
-// V^T in int8: v_q[bh][d][kappa-ordered keys of each 64-key tile], keys past
-// N zero. grid (ceil(N / BK), B*H), 256 threads; each writes 4 bytes.
-template <int D>
-__global__ void __launch_bounds__(256)
-v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ v_amax,
-               int8_t* __restrict__ v_q, int N, int H) {
-  __shared__ float sv[BK][D + 1];
-  __shared__ float sc[D];
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, t = blockIdx.x;
-  const int NP = gridDim.x * BK;
-  const size_t rs = (size_t)H * D;
-  for (int i = threadIdx.x; i < BK * D / 2; i += blockDim.x) {
-    const int r = i / (D / 2), p = i % (D / 2), n = t * BK + r;
-    float2 f = make_float2(0.f, 0.f);
-    if (n < N)
-      f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-          v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D)[p]);
-    sv[r][2 * p] = f.x;
-    sv[r][2 * p + 1] = f.y;
-  }
-  if (threadIdx.x < D)
-    sc[threadIdx.x] = fmaxf(v_amax[(size_t)bh * D + threadIdx.x], 1e-12f) / 127.f;
-  __syncthreads();
-  for (int w = threadIdx.x; w < D * BK / 4; w += blockDim.x) {
-    const int d = w / (BK / 4), kap = (w % (BK / 4)) * 4;  // first of 4 bytes
-    const int chunk = kap & ~31;
-    uint32_t word = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = chunk + v_perm((kap & 31) + i);
-      word |= (uint32_t)(quant8(sv[r][d], sc[d]) & 0xff) << (8 * i);
-    }
-    *reinterpret_cast<uint32_t*>(v_q + ((size_t)bh * D + d) * NP + t * BK + kap) =
-        word;
-  }
 }
 
 // ---- the attention ----------------------------------------------------
@@ -233,7 +115,7 @@ attn_stream_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
                    const void* __restrict__ vp,
                    const float* __restrict__ v_amax, bf16* __restrict__ o,
                    int N, int H, float eps_q) {
-  static_assert(!TWO_PASS || PV8, "two score passes only for int8 P.V (K8a)");
+  static_assert(TWO_PASS == PV8, "int8 P.V runs two score passes (K8a)");
   using G = Geom<D>;
   using S = SmemS<D, QK8, PV8>;
   constexpr int DQ = S::DQ, SQ8 = S::SQ8, DP = S::DP, SVT = S::SVT;
@@ -473,19 +355,8 @@ attn_stream_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
           ldsm_x4(bv, reinterpret_cast<const bf16*>(
                           cV + (jd2 * 16 + (lane >> 4) * 8 + (lane & 7)) * SVT +
                           kc * 32 + ((lane >> 3) & 1) * 16));
-          if constexpr (TWO_PASS) {
-            mma_s8(acc[2 * jd2], a, bv[0], bv[1]);
-            mma_s8(acc[2 * jd2 + 1], a, bv[2], bv[3]);
-          } else {
-            int c0[4] = {0, 0, 0, 0}, c1[4] = {0, 0, 0, 0};
-            mma_s8(c0, a, bv[0], bv[1]);
-            mma_s8(c1, a, bv[2], bv[3]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[2 * jd2][e] += (float)c0[e];
-              acc[2 * jd2 + 1][e] += (float)c1[e];
-            }
-          }
+          mma_s8(acc[2 * jd2], a, bv[0], bv[1]);
+          mma_s8(acc[2 * jd2 + 1], a, bv[2], bv[3]);
         }
       }
     } else {
@@ -615,7 +486,7 @@ attn_stream_kernel(const bf16* __restrict__ q, const float* __restrict__ cq,
 // The scratch of every entry point (unused ones may be null):
 //   k_prep: (B, N, H*D) bf16 k^;  k_q: (B, N, H*D) int8 k^;
 //   k_stat: (B*H) fp32, zero on entry (the bf16 prep's ||k^||^2 maxima,
-//     unused, or K4's max |k^|), or (B*H, N) fp32 per-row k scales;
+//     unused, or K4's max |k^|), or (B*H, N) fp32 per-row k scales (K7q);
 //   v_amax: (B*H, D) fp32, zero on entry;  v_q: (B*H, D, NP) int8.
 struct Args {
   const void *q, *k, *v, *cq, *sq, *ck, *sk;
@@ -624,21 +495,6 @@ struct Args {
   float eps_q, eps_k;
   cudaStream_t st;
 };
-
-template <int D>
-int launch_v_prep(const Args& a) {
-  dim3 g1((a.N + V_ROWS - 1) / V_ROWS, a.B);
-  v_amax_kernel<<<g1, 256, 0, a.st>>>(static_cast<const bf16*>(a.v),
-                                      static_cast<float*>(a.v_amax), a.N,
-                                      a.H * D);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  dim3 g2((a.N + BK - 1) / BK, a.B * a.H);
-  v_quant_kernel<D><<<g2, 256, 0, a.st>>>(
-      static_cast<const bf16*>(a.v), static_cast<const float*>(a.v_amax),
-      static_cast<int8_t*>(a.v_q), a.N, a.H);
-  return (int)cudaGetLastError();
-}
 
 // The K prep of the scores under the attention (QK8: int8 k^ per row, or
 // with TWO_PASS K4's per-head scale; else bf16 k^).
@@ -649,10 +505,10 @@ int launch_k(const Args& a) {
                                  a.B, a.N, a.H, a.eps_k, a.st);
   if constexpr (QK8 && !TWO_PASS) {
     dim3 g((a.N + PREP_ROWS - 1) / PREP_ROWS, a.B * a.H);
-    k_prep_q8rows_kernel<D><<<g, PREP_THREADS, 0, a.st>>>(
+    prep_q8rows_kernel<D, 7><<<g, PREP_THREADS, 0, a.st>>>(
         static_cast<const bf16*>(a.k), static_cast<const float*>(a.ck),
         static_cast<const float*>(a.sk), static_cast<int8_t*>(a.k_q),
-        static_cast<float*>(a.k_stat), a.N, a.H, a.eps_k);
+        static_cast<float*>(a.k_stat), a.N, a.H, a.N, a.eps_k);
     return (int)cudaGetLastError();
   }
   return launch_k_prep<D, false>(a.k, a.ck, a.sk, a.k_prep, a.k_stat, a.B,
@@ -664,7 +520,8 @@ int launch_attn(const Args& a) {
   int e = launch_k<D, QK8, TWO_PASS>(a);
   if (e != 0) return e;
   if constexpr (PV8) {
-    e = launch_v_prep<D>(a);
+    e = launch_v_prep<D>(a.v, a.v_amax, a.v_q, a.B, a.N, a.H,
+                         (a.N + BK - 1) / BK * BK, a.st);
     if (e != 0) return e;
   }
   using S = SmemS<D, QK8, PV8>;
@@ -697,8 +554,8 @@ int dispatch(const Args& a, int D) {
 // Every entry point: q, k, v, out (B, N, H*D) bf16, contiguous, 16-byte
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); the scratch of `Args`; int8_qk selects the
-// scores under int8 P.V (K8a: K4's; K8b: K7q's). Each returns the CUDA error
-// code of its launches (0 = success).
+// scores under K8a's int8 P.V (K4's). Each returns the CUDA error code of
+// its launches (0 = success).
 #define SD3_STREAM_PARAMS                                                    \
   const void *q, const void *k, const void *v, const void *cq,               \
       const void *sq, const void *ck, const void *sk, void *k_prep,          \
@@ -723,11 +580,4 @@ extern "C" int sd3_fused_attention_stream_int8qk(SD3_STREAM_PARAMS) {
 extern "C" int sd3_fused_attention_int8pv(SD3_STREAM_PARAMS) {
   return int8_qk ? dispatch<true, true, true>(SD3_STREAM_ARGS, D)
                  : dispatch<false, true, true>(SD3_STREAM_ARGS, D);
-}
-
-// K8b: online softmax, int8 P.V; K7's scores (k_prep, k_stat (B*H)) or with
-// int8_qk K7q's (k_q, k_stat (B*H, N)); v_amax, v_q.
-extern "C" int sd3_fused_attention_stream_int8pv(SD3_STREAM_PARAMS) {
-  return int8_qk ? dispatch<true, true, false>(SD3_STREAM_ARGS, D)
-                 : dispatch<false, true, false>(SD3_STREAM_ARGS, D);
 }

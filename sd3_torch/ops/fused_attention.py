@@ -12,9 +12,11 @@ the single-KV kernels, above it the streaming ones.
 Single-KV, replacing the branches of `_fused_fwd_kernel`:
 - K1, bf16 (`csrc/attention_sm90.cu`: wgmma, TMA, a warp-specialised ring
   of 128-key tiles): softmax against the bound ||q^|| * max||k^||;
-- K4, `int8_qk` (`csrc/fused_attention.cu`): QK^T as s8 x s8 -> s32, q^
+- K4, `int8_qk` (`csrc/attention_int8_sm90.cu`: s8 / bf16 wgmma, TMA, a
+  warp-specialised ring of 128-key tiles): QK^T as s8 x s8 -> s32, q^
   quantized per row from fp32, k^ rounded to the input dtype with one
-  scale per (batch, head), the true row max;
+  scale per (batch, head), the true row max (an integer max of s32 in a
+  first pass over K);
 - K8a, `int8_pv` (`csrc/stream_attention.cu`, over K1-style bf16 scores or
   over K4's): the true row max, p = exp2(s - (max - log2 127)) in [0, 127]
   rounded to int8, V quantized per (batch, head, column) over all rows,
@@ -24,10 +26,12 @@ Streaming, replacing `_stream_fwd_kernel`:
 - K7, bf16 (`csrc/attention_sm90.cu`, K1's kernel): an online softmax
   (true running max) over `K7_KEY_TILE` keys at a time;
 - K7q, `int8_qk` (`csrc/stream_attention.cu`, over `INT8_KEY_TILE` keys at
-  a time, as K8b): k^ prepped in fp32 and quantized per row (per head), q^
-  per row, s = s32 * s_q * s_k[key];
-- K8b, `int8_pv` over K7's or K7q's scores: P quantized against the
-  running max with log2(127) folded into the shift, V as for K8a.
+  a time): k^ prepped in fp32 and quantized per row (per head), q^ per
+  row, s = s32 * s_q * s_k[key];
+- K8b, `int8_pv` over K7's or K7q's scores (`csrc/attention_int8_sm90.cu`,
+  K4's kernel, over `K8B_KEY_TILE` keys at a time): P quantized against the
+  running max with log2(127) folded into the shift, V as for K8a, s8 P.V
+  per tile.
 The CUDA sources' heads say what bounds each kernel on an H100.
 
 Beside them, the plain PyTorch versions (the JAX kernels' arithmetic):
@@ -71,10 +75,12 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 # the key tiles of the card's kernels, which the plain versions' `block_k`
 # must take to round p against the same running max: K1 and K7's
-# (csrc/attention_sm90.cu KEY_TILE), and that of the mma.sync kernels K4,
-# K7q, K8a and K8b (csrc/attention_common.cuh BK), over which K8's int8 V^T
-# is padded
+# (csrc/attention_sm90.cu KEY_TILE), K4 and K8b's
+# (csrc/attention_int8_sm90.cu KEY_TILE; K8b's int8 V^T is padded to it),
+# and that of the mma.sync kernels K7q and K8a (csrc/attention_common.cuh
+# BK; K8a's V^T is padded to it)
 K7_KEY_TILE = 128
+K8B_KEY_TILE = 128
 INT8_KEY_TILE = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -83,9 +89,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SM90_ARGS = [_P] * 12 + [_I] * 4 + [_F] * 2 + [_P]
 K1 = Kernel("fused_attention_bf16", "attention_sm90.cu",
             "sd3_fused_attention_bf16", argtypes=_SM90_ARGS)
-K4 = Kernel("fused_attention_int8qk", "fused_attention.cu",
-            "sd3_fused_attention_int8qk",
-            argtypes=[_P] * 11 + [_I] * 4 + [_F] * 2 + [_P])
+# K4 and K8b share one signature: q, k, v, the four tables, scratch q_prep,
+# q_scale, k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D, int8_qk;
+# eps_q, eps_k; the stream
+_INT8_SM90_ARGS = [_P] * 15 + [_I] * 5 + [_F] * 2 + [_P]
+K4 = Kernel("fused_attention_int8qk", "attention_int8_sm90.cu",
+            "sd3_fused_attention_int8qk", argtypes=_INT8_SM90_ARGS)
 K7 = Kernel("fused_attention_stream", "attention_sm90.cu",
             "sd3_fused_attention_stream", argtypes=_SM90_ARGS)
 # the stream_attention.cu entry points share one signature: q, k, v, the
@@ -96,8 +105,8 @@ K7Q = Kernel("fused_attention_stream_int8qk", "stream_attention.cu",
              "sd3_fused_attention_stream_int8qk", argtypes=_STREAM_ARGS)
 K8A = Kernel("fused_attention_int8pv", "stream_attention.cu",
              "sd3_fused_attention_int8pv", argtypes=_STREAM_ARGS)
-K8B = Kernel("fused_attention_stream_int8pv", "stream_attention.cu",
-             "sd3_fused_attention_stream_int8pv", argtypes=_STREAM_ARGS)
+K8B = Kernel("fused_attention_stream_int8pv", "attention_int8_sm90.cu",
+             "sd3_fused_attention_stream_int8pv", argtypes=_INT8_SM90_ARGS)
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
 
@@ -166,7 +175,8 @@ def composition_stream(q, k, v, cosq, sinq, cosk, sink, scale: float,
     (sd3_tpu/ops/fused_attention.py:364-427). q^ from the q tables times
     scale*log2(e), q^ and k^ rounded to the input dtype, fp32 scores, an
     online softmax in exp2 over blocks of `block_k` keys (default: JAX's
-    rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`). Tables
+    rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`, K8b
+    `K8B_KEY_TILE`). Tables
     un-scaled, as for `composition`."""
     n = q.shape[1]
     o = _online(_float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
@@ -375,31 +385,38 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
                              dtype=torch.float32, device=dev)
         args = [torch.empty_like(q), q_norm, torch.empty_like(k),
                 torch.zeros(bh, dtype=torch.float32, device=dev), out]
-    elif kern is K4:
-        args = [torch.empty_like(k),
-                torch.empty(k.shape, dtype=torch.int8, device=dev),
-                torch.zeros(bh, dtype=torch.float32, device=dev), out]
     else:
-        # k^ in bf16 (under K8a / K8b's bf16 scores; K4's prep writes it
-        # before quantizing), int8 k^ (int8_qk), k_stat: per
-        # (b, h) statistics of the bf16 prep or K4's amax, or K7q's per-row
-        # scales; V's column amax and its int8 levels (int8 P.V)
-        int8_qk = kern is K7Q or (int8_qk and kern in (K8A, K8B))
-        per_row = int8_qk and kern is not K8A
+        # q^ (int8 under int8 scores, else bf16) and its per-row scales;
+        # k^ in bf16 (bf16 scores; K4's prep writes it before quantizing),
+        # int8 k^ (int8 scores), k_stat: per (b, h) statistics of the bf16
+        # prep or K4's amax, or per-row k scales; V's column amax and its
+        # int8 levels (int8 P.V), V^T's keys padded to whole tiles of the
+        # kernel (K8a: csrc/stream_attention.cu, K8b:
+        # csrc/attention_int8_sm90.cu)
+        int8_qk = kern in (K4, K7Q) or (int8_qk and kern in (K8A, K8B))
+        per_row = int8_qk and kern in (K7Q, K8B)
         pv8 = kern in (K8A, K8B)
         none = torch.empty(0, device=dev)
-        k_prep = (torch.empty_like(k) if not per_row else none)
+        k_prep = torch.empty_like(k) if not per_row else none
         k_q = (torch.empty(k.shape, dtype=torch.int8, device=dev)
                if int8_qk else none)
-        k_stat = torch.zeros(bh * n if per_row else bh, dtype=torch.float32,
-                             device=dev)
+        # K8b's per-key scales in rows padded to whole tiles (its tensor map)
+        k_stat = torch.zeros(
+            bh * (_round_up(n, K8B_KEY_TILE) if kern is K8B else n)
+            if per_row else bh, dtype=torch.float32, device=dev)
         v_amax = torch.zeros(bh * d if pv8 else 0, dtype=torch.float32,
                              device=dev)
-        # V^T, keys padded to whole tiles (csrc/stream_attention.cu)
-        v_q = torch.empty(bh * d * _round_up(n, INT8_KEY_TILE) if pv8 else 0,
+        tile = K8B_KEY_TILE if kern is K8B else INT8_KEY_TILE
+        v_q = torch.empty(bh * d * _round_up(n, tile) if pv8 else 0,
                           dtype=torch.int8, device=dev)
         args = [k_prep, k_q, k_stat, v_amax, v_q, out]
-    ints = [b, n, num_heads, d] + ([] if kern in (K1, K4, K7)
+        if kern in (K4, K8B):
+            q_prep = (torch.empty(q.shape, dtype=torch.int8, device=dev)
+                      if int8_qk else torch.empty_like(q))
+            q_scale = torch.empty(bh * n if int8_qk else 0,
+                                  dtype=torch.float32, device=dev)
+            args = [q_prep, q_scale] + args
+    ints = [b, n, num_heads, d] + ([] if kern in (K1, K7)
                                    else [int(int8_qk)])
     with torch.cuda.device(dev):
         fn = kern.function()

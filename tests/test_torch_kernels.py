@@ -7,7 +7,8 @@ file also runs on the card's machine:
 `cuda`-marked tests skip; the rest check tables, dispatch and refusals.
 K1 against its plain version: tolerance atol 1e-2, chip_smoke.py's
 ATTN_ATOL (bf16 q^, k^, p and output against fp32); K4, K2 and K3:
-chip_smoke.py's K4_ATOL and MLP limits (reasons there); K5, K6a and K6b:
+chip_smoke.py's K4_ATOL and MLP limits (reasons there); the int8 row
+max's premise bit for bit; K5, K6a and K6b:
 chip_smoke.py's FLASH_* limits (reasons there); K7, K7q, K8a and K8b:
 chip_smoke.py's ATTN_ATOL and K8_ATOL (reasons there); K9, K10a and K10b:
 chip_smoke.py's MLP and K10 limits (reasons there).
@@ -101,6 +102,37 @@ def test_fused_attention_rejects_unported_variants():
                                         single_kv_max=single_kv_max)
 
 
+@pytest.mark.parametrize("name,family", [
+    ("void (anonymous namespace)::attn_int8_sm90_kernel<64, true, false>"
+     "(CUtensorMap_st, CUtensorMap_st)", "K4"),
+    ("attn_int8_sm90_kernel<64, false, true>(CUtensorMap_st)", "K8b"),
+    ("attn_int8_sm90_kernel<32, true, true>(CUtensorMap_st)", "K8b"),
+    ("void (anonymous namespace)::prep_q8rows_kernel<64, 4>(bf16 const*)",
+     "K4"),
+    ("prep_q8rows_kernel<64, 7>(bf16 const*)", "K7q"),
+    ("prep_q8rows_kernel<64, 8>(bf16 const*)", "K8b"),
+    ("k_prep_kernel<64, true>(bf16 const*)", "K4"),
+    ("k_quant_kernel(bf16 const*)", "K4"),
+    ("v_quant_kernel<64>(bf16 const*)", "K8b"),
+    ("v_amax_kernel(bf16 const*)", "K8b"),
+    ("attn_stream_kernel<64, true, false, false>(bf16 const*)", "K7q"),
+    ("attn_stream_kernel<64, false, true, true>(bf16 const*)", "K8a"),
+    ("attn_stream_kernel<64, true, true, true>(bf16 const*)", "K8a"),
+    ("attn_sm90_kernel<64, (anonymous namespace)::Softmax::Online>", "K7"),
+])
+def test_chip_smoke_names_the_kernel_families(name, family):
+    # chip_smoke.py's profile breakdown by TPU kernel (it imports only the
+    # standard library at module level); the bf16 preps K1, K7 and K8b
+    # share go to the caller's family
+    import chip_smoke
+    assert chip_smoke.kernel_family(name) == family
+    for fam in ("K1", "K7", "K8b"):
+        assert chip_smoke.kernel_family("q_prep_kernel<64, false>(x)",
+                                        fam) == fam
+        assert chip_smoke.kernel_family("k_prep_kernel<64, false>(x)",
+                                        fam) == fam
+
+
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -178,19 +210,76 @@ def test_int8_swiglu_is_the_wgmma_source():
         assert gone not in src, gone
 
 
+def test_int8_attention_is_the_wgmma_source():
+    # K4 and K8b run on s8 / bf16 wgmma fed by TMA in attention_int8_sm90.cu:
+    # no mma.sync or ldmatrix fragment is left in their source, and K4's
+    # mma.sync source is gone; K7q and K8a keep theirs
+    assert tfa.K4.source == tfa.K8B.source == "attention_int8_sm90.cu"
+    assert tfa.K7Q.source == tfa.K8A.source == "stream_attention.cu"
+    src = (kernels.CSRC_DIR / tfa.K4.source).read_text()
+    hdr = (kernels.CSRC_DIR / "sm90.cuh").read_text()
+    for n in (16, 32, 64, 128):
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in hdr
+    for used in ("wgmma_s8<KEY_TILE>", "wgmma_s8_rs<D>", "wgmma_rs<D>",
+                 "wgmma_ss<KEY_TILE>", "tma_load_4d", "tma_load_2d",
+                 "encode_heads", "encode_s8_2d", "setmaxnreg_inc"):
+        assert used in src, used
+    for gone in ("mma_s8(", "mma_bf16(", "ldsm_x4(", "cp_async16(",
+                 "mma.sync"):
+        assert gone not in src, gone
+    assert not (kernels.CSRC_DIR / "fused_attention.cu").exists()
+    stream = (kernels.CSRC_DIR / tfa.K7Q.source).read_text()
+    assert "sd3_fused_attention_stream_int8pv" not in stream
+
+
 @pytest.mark.parametrize("const,source,name", [
     ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
+    ("K8B_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
     ("INT8_KEY_TILE", "attention_common.cuh", "BK")])
 def test_key_tiles_match_their_sources(const, source, name):
     # the plain versions' block_k that the card comparisons take is the
-    # kernel's own key tile: K1 / K7's, and that of the mma.sync kernels
-    # (K4, K7q, K8a, K8b; K8's int8 V^T is padded to it)
+    # kernel's own key tile: K1 / K7's, K4 / K8b's (K8b's int8 V^T is padded
+    # to it), and that of the mma.sync kernels K7q and K8a
     src = (kernels.CSRC_DIR / source).read_text()
     m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m is not None, (source, name)
     assert getattr(tfa, const) == int(m.group(1))
     assert (tfa.K1.source == tfa.K7.source == tfl.K5.source
             == "attention_sm90.cu")
+
+
+@pytest.mark.parametrize("d,n", [(16, 47), (64, 1178), (128, 129)])
+def test_int8_row_max_of_s32_is_the_max_of_dequantized_scores(d, n):
+    # K4's first pass takes the row max as fp32(max s32) * (s_q * s_k): with
+    # s_q * s_k > 0 and s32 exact in fp32, rounding the product is monotone,
+    # so this is max(fp32(s32) * (s_q * s_k)) bit for bit, as the plain
+    # version takes it. q^ and k^ as composition_int8_qk makes them
+    # (_int8_scores: q^ per row from fp32, k^ rounded to bf16, one k scale
+    # per head), K padded with zero rows to whole 128-key tiles, the padded
+    # keys left out of the max
+    nh = 3
+    q, k, _, ws, angles, n_img, scale = _attn_case(nh, d, 4, 4, n - 16, True,
+                                                   seed=d + n)
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    cq, sq = tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img)
+    ck, sk = tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img)
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    fold = scale * tfa.LOG2E
+    qb, kb = (_t(a).to(torch.bfloat16) for a in (q, k))
+    qf = tfa._prep(tfa._heads(qb, nh), cq * fold, sq * fold, eps)
+    kh = tfa._prep(tfa._heads(kb, nh), ck, sk, eps).to(torch.bfloat16).float()
+    s_q = tfa.scale_of(qf.abs().amax(-1, keepdim=True), tfa.Q8_EPS)
+    s_k = tfa.scale_of(kh.abs().amax((-2, -1), keepdim=True), tfa.Q8_EPS)
+    qi, ki, comb = tfa._q8(qf, s_q), tfa._q8(kh, s_k), s_q * s_k
+    pad = -(-n // tfa.K8B_KEY_TILE) * tfa.K8B_KEY_TILE - n
+    ki = torch.cat([ki, ki.new_zeros(*ki.shape[:2], pad, d)], -2)
+    s32 = torch.matmul(qi.double(), ki.double().transpose(-1, -2))[..., :n]
+    assert s32.abs().max() < 2 ** 24
+    s32 = s32.float()
+    want = (s32 * comb).amax(-1, keepdim=True)
+    got = s32.amax(-1, keepdim=True) * comb
+    assert torch.equal(got, want)
+    assert (comb > 0).all()
 
 
 @pytest.mark.cuda
@@ -284,8 +373,8 @@ def test_stream_and_int8_pv_kernels_match_plain_on_the_card(
     if streaming:  # the kernel's key tiles
         plain = (tfa.composition_stream_int8_qk if int8_qk
                  else tfa.composition_stream)
-        tile = (tfa.INT8_KEY_TILE if int8_qk or int8_pv
-                else tfa.K7_KEY_TILE)
+        tile = (tfa.K8B_KEY_TILE if int8_pv else tfa.INT8_KEY_TILE
+                if int8_qk else tfa.K7_KEY_TILE)
         want = plain(*ins, block_k=tile, int8_pv=int8_pv)
     else:
         plain = tfa.composition_int8_qk if int8_qk else tfa.composition
@@ -564,6 +653,101 @@ def test_k1_k7_at_ragged_tiles_and_many_waves_on_the_card(
     # chip_smoke.py's ATTN_ATOL
     np.testing.assert_allclose(got.float().cpu().numpy(), want.numpy(),
                                atol=1e-2, rtol=0)
+
+
+# K4 and K8b (over K7's and over K7q's scores) at lengths ragged against
+# their 128-key tile: a last tile of one key (129 and 1025 tokens, head dims
+# 32, 128 and 64), 2100 tokens (52 keys, head dim 16), and a grid of more
+# than one wave of blocks (3 query blocks x 24 heads x 2 samples = 144 >
+# 132 SMs); K4 forced past its 2048 by single_kv_max, K8b forced below by 0
+INT8_TILE_SHAPES = [(3, 32, 8, 15, 9, True), (2, 128, 8, 16, 1, True),
+                    (2, 64, 32, 32, 1, True), (3, 16, 45, 46, 30, True),
+                    (24, 64, 12, 20, 60, True)]
+# (int8_qk, int8_pv): K4, K8b over K7, K8b over K7q
+INT8_SM90_VARIANTS = [(True, False), (False, True), (True, True)]
+
+
+def _int8_sm90_run(dev, nh, d, q, k, v, tabs, scale, int8_qk, int8_pv):
+    """One K4 or K8b launch on the card (launch count checked); its output
+    on the CPU."""
+    kern = tfa.K8B if int8_pv else tfa.K4
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    counts = lambda: {kk.name: kk.launches for kk in kernels.REGISTRY}
+    before = counts()
+    got = tfa.fused_attention(qb, kb, vb, nh, *(t.to(dev) for t in tabs),
+                              scale, int8_qk=int8_qk, int8_pv=int8_pv,
+                              single_kv_max=0 if int8_pv else 1 << 20)
+    torch.cuda.synchronize()
+    after = counts()
+    assert {nm: after[nm] - before[nm] for nm in after
+            if after[nm] != before[nm]} == {kern.name: 1}
+    return got.cpu()
+
+
+def _int8_sm90_plain(nh, q, k, v, tabs, scale, int8_qk, int8_pv):
+    """The plain version of K4 or K8b in fp32 on the kernels' bf16 inputs,
+    over the kernel's key tiles."""
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    ins = [_t(a).to(torch.bfloat16).float() for a in (q, k, v)] + [
+        *tabs, scale, eps, eps, nh]
+    if not int8_pv:
+        return tfa.composition_int8_qk(*ins)
+    plain = (tfa.composition_stream_int8_qk if int8_qk
+             else tfa.composition_stream)
+    return plain(*ins, block_k=tfa.K8B_KEY_TILE, int8_pv=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk,int8_pv", INT8_SM90_VARIANTS)
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d", INT8_TILE_SHAPES)
+def test_k4_k8b_at_ragged_tiles_and_many_waves_on_the_card(
+        cuda_device, nh, d, h, w, n_txt, rope2d, int8_qk, int8_pv):
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d)
+    n = q.shape[1]
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img))
+    run = lambda: _int8_sm90_run(cuda_device, nh, d, q, k, v, tabs, scale,
+                                 int8_qk, int8_pv)
+    got = run()
+    assert torch.equal(run(), got)  # no atomics: the same bits twice
+    want = _int8_sm90_plain(nh, q, k, v, tabs, scale, int8_qk, int8_pv)
+    # chip_smoke.py's K4_ATOL and K8_ATOL
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=3e-2,
+                               rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk,int8_pv", INT8_SM90_VARIANTS)
+@pytest.mark.parametrize("d", [16, 64])
+def test_k4_k8b_rows_of_negative_scores_on_the_card(cuda_device, d, int8_qk,
+                                                    int8_pv):
+    # Every score of the even rows is far below 0 (q = -u against keys close
+    # to u, norm weights of 4: scores ~ -16 sqrt(D) log2 e): a padded key of
+    # the ragged last tile (300 keys: 44 in it), which scores 0, let into
+    # the row max would underflow every p of the row (l = 0, no finite
+    # output). The keys are close to one another, so the softmax of every
+    # row is spread over many keys and one int8 level moves no output much.
+    nh, n = 2, 300
+    r = np.random.default_rng(d)
+    u = r.standard_normal(d).astype(np.float32)
+    k = (np.tile(u, (2, n, nh)) + 0.01 * r.standard_normal((2, n, nh * d))
+         ).astype(np.float32)
+    q = r.standard_normal((2, n, nh * d)).astype(np.float32)
+    q[:, ::2] = -np.tile(u, nh) + 0.01 * r.standard_normal((n // 2, nh * d))
+    v = r.standard_normal((2, n, nh * d)).astype(np.float32)
+    ws = [4 * (1 + 0.01 * r.standard_normal(d)).astype(np.float32)
+          for _ in range(4)]
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(None, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n))
+    scale = d ** -0.5
+    got = _int8_sm90_run(cuda_device, nh, d, q, k, v, tabs, scale, int8_qk,
+                         int8_pv)
+    assert torch.isfinite(got).all()
+    want = _int8_sm90_plain(nh, q, k, v, tabs, scale, int8_qk, int8_pv)
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(), atol=3e-2,
+                               rtol=0)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The streaming fused attention (K7, K7q) and the int8-P.V attention (K8a,
-K8b) held to the JAX package's Pallas kernels, on the CPU.
+K8b) held to the JAX package's Pallas kernels, on the CPU, at JAX's blocks
+and at the card kernels' key tiles.
 
 The JAX side runs as its own tests run it (Pallas interpret mode); the port
 takes the kernels' plain versions on CPU tensors. Inputs come from numpy
@@ -127,6 +128,22 @@ def test_stream_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
                          monkeypatch=monkeypatch)
     assert case[0].shape[1] % tfa.K7_KEY_TILE != 0
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+@pytest.mark.parametrize("nh,d", [(1, 16), (3, 32)])
+def test_int8_pv_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
+                                                           d, int8_qk):
+    # the rounding the card's K8b takes, over K7's and over K7q's scores:
+    # p's int8 levels against the running max of its K8B_KEY_TILE-key
+    # tiles, at 2100 tokens (a ragged last tile), JAX at the same blocks
+    # (SD3_FLASH_BK)
+    case = _case(nh, d, 45, 46, 30, True, seed=8 + d, b=1)
+    got, want, flt = _both(case, nh, int8_qk=int8_qk, int8_pv=True,
+                           block_k=tfa.K8B_KEY_TILE, monkeypatch=monkeypatch)
+    assert case[0].shape[1] % tfa.K8B_KEY_TILE != 0
+    np.testing.assert_allclose(got, want, atol=INT8_PV_ATOL, rtol=0)
+    assert np.abs(flt - got).max() > INT8_PV_ATOL
 
 
 def test_default_block_follows_jax():
