@@ -8,8 +8,9 @@ Phases (any failure exits non-zero without the final ok line):
      versions; TF32 off for fp32 matmuls and convolutions;
   2. build every kernel from sd3_torch/csrc (one nvcc per source, in
      parallel; attention_sm90.cu, attention_int8_sm90.cu,
-     flash_bwd_sm90.cu and fused_mlp.cu encode their TMA descriptors
-     through the runtime's driver entry point, so nothing links libcuda)
+     flash_bwd_sm90.cu, fused_mlp.cu and fused_dense.cu encode their TMA
+     descriptors through the runtime's driver entry point, so nothing
+     links libcuda)
      and print the compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
@@ -29,10 +30,11 @@ Phases (any failure exits non-zero without the final ok line):
      stream and a shape whose tiles straddle samples; K9 (K2's function on
      any stream) at the image and the 154-token text stream, each with the
      device time of its three launches (prologue, h, w3); K10a (AdaLN +
-     int8 q/k/v) and K10b (int8 out-projection + gate
-     + residual, reading the image half of the joint sequence in place, also
-     without gate and residual) at the 512px image stream and a ragged
-     shape; K5, K6a and K6b (flash attention forward, dq, dk / dv; wgmma +
+     int8 q/k/v) and K10b (int8 out-projection + gate + residual, reading
+     the image half of the joint sequence in place, also without gate and
+     residual; both s8 wgmma + TMA, fused_dense.cu, one launch with the
+     row prologue in it) at the 512px image stream and a ragged shape,
+     each with the device time of its launch; K5, K6a and K6b (flash attention forward, dq, dk / dv; wgmma +
      TMA: K5 attention_sm90.cu, K6a and K6b flash_bwd_sm90.cu) at the 512px
      training shape, a ragged one and the 1024px training shape (checked on
      two heads).
@@ -81,7 +83,8 @@ Phases (any failure exits non-zero without the final ok line):
      accumulation 2, device EMA) at a depth of 2 blocks;
   12. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or mma.sync over a two-stage cp.async
-     ring), then the card's name and power limit, then the last line
+     ring: K7q and K8a), then the card's name and power limit, then the last
+     line
      {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
@@ -626,7 +629,8 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
     res_d = dict(shape=label, **e, kernel_vs_plain_bf16_rel_l2=same_l2,
                  ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                 library_ms=library_ms, **bound(t_ops, t_bytes))
+                 library_ms=library_ms, us_per_launch=per_launch_us(run_k),
+                 **bound(t_ops, t_bytes))
     print(f"  {name}", json.dumps(res_d), flush=True)
     require(e["max_rel_err"] <= K10_MAX_REL and e["rel_l2"] <= K10_REL_L2,
             f"{name} max err {e['max_rel_err']} x max|plain| (limit "
@@ -1246,10 +1250,11 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
 
 
 # the int8 kernels' launches carry the number of their TPU kernel as their
-# last template argument (csrc/int8_common.cuh): xquant_kernel<10>,
-# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, ...
+# last template argument (csrc/int8_common.cuh): xquant_kernel<2>,
+# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, dense_sm90_kernel<10>,
+# ...
 INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_sm90_kernel|"
-                         r"w3_sm90_kernel|dense_int8_kernel)<(?:\d+, )*(\d+)>")
+                         r"w3_sm90_kernel|dense_sm90_kernel)<(?:\d+, )*(\d+)>")
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
 STREAM_FAMILIES = {"true, false, false>": "K7q",
@@ -1269,7 +1274,7 @@ SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "fused_mlp.cu": "wgmma+TMA, warp-specialised",
                   "attention_int8_sm90.cu": "wgmma+TMA, warp-specialised",
                   "stream_attention.cu": "mma.sync, 2-stage cp.async",
-                  "fused_dense.cu": "mma.sync, 2-stage cp.async"}
+                  "fused_dense.cu": "wgmma+TMA, warp-specialised"}
 
 
 def kernel_family(name: str, bf16_prep: str = "K1") -> str:

@@ -1,6 +1,5 @@
-// Device helpers of the mma.sync kernels (stream_attention.cu,
-// fused_dense.cu) and of the wgmma ones beside
-// sm90.cuh: bf16 packing, cp.async,
+// Device helpers of the mma.sync kernels (stream_attention.cu) and of the
+// wgmma ones beside sm90.cuh: bf16 packing, cp.async,
 // ldmatrix and mma.sync wrappers, exp2 and reductions over an mma quad; on
 // the host, the dynamic shared-memory opt-in.
 #pragma once

@@ -1,15 +1,17 @@
 // PTX wrappers of what Hopper (sm_90a) adds, for the wgmma kernels
 // (attention_sm90.cu: K1, K7, K5; flash_bwd_sm90.cu: K6a, K6b; fused_mlp.cu:
-// K2, K3, K9; attention_int8_sm90.cu: K4, K8b): mbarriers, TMA tensor loads
-// (cp.async.bulk.tensor, 2-D and 4-D), the wgmma shared-memory matrix
-// descriptor and the swizzled tile layout it reads, wgmma.mma_async bf16
-// m64nNk16 with A from shared memory (wgmma_ss) or from registers
-// (wgmma_rs), s8 m64nNk32 with A from shared memory (wgmma_s8) or from
-// registers (wgmma_s8_rs), B K-major either way (8-bit types have no
-// transpose), wgmma fence / commit / wait, setmaxnreg and named barriers;
-// on the host, the encode of a 4-D bf16 tensor map (of a strided (B, H, N,
-// D) view too), of the heads of a (B, N, H*D) bf16 or int8 tensor, of a 2-D
-// int8 matrix and of a 2-D fp32 one. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
+// K2, K3, K9; attention_int8_sm90.cu: K4, K8b; fused_dense.cu: K10a, K10b):
+// mbarriers, TMA tensor loads (cp.async.bulk.tensor, 2-D and 4-D) and 2-D
+// stores with their bulk groups, the wgmma shared-memory matrix descriptor
+// and the swizzled tile layout it reads, wgmma.mma_async bf16 m64nNk16 with
+// A from shared memory (wgmma_ss) or from registers (wgmma_rs), s8 m64nNk32
+// with A from shared memory (wgmma_s8) or from registers (wgmma_s8_rs), B
+// K-major either way (8-bit types have no transpose), wgmma fence / commit /
+// wait, the proxy fence between threads' shared-memory stores and the async
+// proxy that reads them, setmaxnreg and named barriers; on the host, the
+// encode of a 4-D bf16 tensor map (of a strided (B, H, N, D) view too), of
+// the heads of a (B, N, H*D) bf16 or int8 tensor, of a 2-D int8, bf16 or
+// fp32 matrix. Raw PTX in the idiom of mma.cuh, no CuTe. <cuda.h> is
 // included for the CUtensorMap type only: nothing of the driver library is
 // linked.
 #pragma once
@@ -93,6 +95,29 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* m,
       : "memory");
 }
 
+// a box of a 2-D tensor map at (c0, c1) written from shared memory at
+// `src`, in the tensor map's swizzle; elements out of bounds are not
+// written. The store joins this thread's open bulk group (bulk_commit).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* m, uint32_t src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(m)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed bulk groups still read
+// their shared-memory source (which may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
 // ---- warpgroups ---------------------------------------------------------
 
 // named barrier `id` of `threads` threads: arrive and wait, or arrive only
@@ -102,6 +127,14 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
 
 __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Threads' (generic-proxy) stores to shared memory made visible to the async
+// proxy (wgmma's shared-memory operands, TMA) of this CTA: each storing
+// thread runs it after its stores and before the barrier that hands the
+// tile over to the wgmmas that read it.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the per-thread register budget of this warpgroup, raised or lowered
@@ -401,6 +434,26 @@ template <int N>
 __device__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
 
 template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
                                            uint64_t b, int scale_d) {
   asm volatile(
@@ -668,6 +721,25 @@ inline int encode_s8_2d(CUtensorMap* m, const void* x, int rows, int cols,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+
+// The tensor map of a row-major (rows, cols) bf16 matrix, cols a multiple of
+// 8 (TMA's stride rule): boxes of 64 columns (one 128-byte row in the
+// 128-byte swizzle) by box_rows rows, for loads and stores; out of bounds,
+// loads read zeros and stores write nothing. The CUresult of the encode.
+inline int encode_bf16_2d(CUtensorMap* m, const void* x, int rows, int cols,
+                          int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return (int)fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
+                 dims, strides, box, elem_strides,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
 
 // The tensor map of a (B, N, H*D) tensor of `elem`-byte values (bf16: 2,
 // int8: 1), contiguous, as the 4-D view (D, H, N, B): boxes of one atom

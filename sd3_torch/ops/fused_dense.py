@@ -3,7 +3,9 @@ AdaLN prologue or gate + residual epilogue folded in (JAX counterpart:
 sd3_tpu/ops/fused_dense.py, the JAX package's opt-in SD3_ATTN_TAIL, here
 `MMDiTConfig.attn_tail`).
 
-Two kernels of one CUDA source, `csrc/fused_dense.cu`:
+Two kernels of one CUDA source, `csrc/fused_dense.cu`, each one launch
+(the row prologue inside it, the products on s8 wgmma fed by TMA; the
+quantized activations never leave shared memory):
 
 - K10a (`qkv_adaln_int8`) replaces the TPU kernel `_kernel_qkv`: per row,
   LayerNorm (eps 1e-5) -> * (1 + scale) + shift of the row's sample ->
@@ -24,9 +26,12 @@ None (the caller's fallback) wherever it finds no tile. At the published
 (bm 512), and both decline the 154-token text stream. The tile itself is
 TPU blocking: the Hopper kernels take any row count.
 
-Weights are the port's (out, in) int8 with (out,) fp32 scales. Wrappers take
-the plain version for tensors on the CPU; on a CUDA tensor they launch the
-kernel or raise. Inference only, as in the JAX package: they raise when an
+The kernels take k a multiple of 16 up to `K_MAX` (the widest row their
+shared-memory A tile holds; the published width is 1216) and d_out a
+multiple of 8 (the row stride of the outputs' tensor maps). Weights are
+the port's (out, in) int8 with (out,) fp32 scales. Wrappers take the plain
+version for tensors on the CPU; on a CUDA tensor they launch the kernel or
+raise. Inference only, as in the JAX package: they raise when an
 input requires grad, on every device.
 """
 
@@ -42,13 +47,14 @@ from sd3_torch.ops.quant import int_mm, quantize_rows
 
 VMEM_CAP = 13 * 2 ** 20   # JAX's default (sd3_tpu/ops/fused_dense.py:79)
 TILES = (1024, 512, 256, 128)
+K_MAX = 1536              # csrc/fused_dense.cu's K_MAX
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K10A = Kernel("qkv_adaln_int8", "fused_dense.cu", "sd3_qkv_adaln_int8",
-              [_P] * 14 + [_I] * 4 + [_P])
+              [_P] * 12 + [_I] * 4 + [_P])
 K10B = Kernel("out_gate_residual_int8", "fused_dense.cu",
               "sd3_out_gate_residual_int8",
-              [_P, ctypes.c_longlong] + [_P] * 7 + [_I] * 6 + [_P])
+              [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P])
 
 
 def pick_bm(m: int, n_tok: int, vmem_per_row: int, resident: int
@@ -120,16 +126,16 @@ def _check_device(kern: Kernel, x: torch.Tensor, *operands) -> None:
 
 def _check_weights(kern: Kernel, k: int, ws) -> int:
     """The common (d_out, k) shape of int8 weights `ws`, which the kernel
-    takes for k a multiple of 16 and an even d_out."""
+    takes for k a multiple of 16 up to K_MAX and d_out a multiple of 8."""
     d_out = ws[0].shape[0]
     for w in ws:
         if w.dtype != torch.int8 or tuple(w.shape) != (d_out, k):
             raise TypeError(f"{kern.name} takes ({d_out}, {k}) int8 weights, "
                             f"got {w.dtype} {tuple(w.shape)}")
-    if k % 16 or d_out % 2:
+    if k % 16 or k > K_MAX or d_out % 8:
         raise NotImplementedError(
-            f"{kern.name} takes k a multiple of 16 and an even d_out; got k "
-            f"{k}, d_out {d_out}")
+            f"{kern.name} takes k a multiple of 16 up to {K_MAX} and d_out a "
+            f"multiple of 8; got k {k}, d_out {d_out}")
     return d_out
 
 
@@ -149,8 +155,6 @@ def qkv_adaln_int8(x, shift, scale, wq, sq, wk, sk, wv, sv):
     ws = [w.contiguous() for w in (wq, wk, wv)]
     ss = [f32(s) for s in (sq, sk, sv)]
     m, dev = b * n, x.device
-    xq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sx = torch.empty(m, dtype=torch.float32, device=dev)
     outs = [torch.empty((b, n, d_out), dtype=torch.bfloat16, device=dev)
             for _ in range(3)]
     with torch.cuda.device(dev):
@@ -158,7 +162,7 @@ def qkv_adaln_int8(x, shift, scale, wq, sq, wk, sk, wv, sv):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), sh.data_ptr(), sc.data_ptr(),
                  *(w.data_ptr() for w in ws), *(s.data_ptr() for s in ss),
-                 xq.data_ptr(), sx.data_ptr(), *(o.data_ptr() for o in outs),
+                 *(o.data_ptr() for o in outs),
                  m, k, d_out, n, stream)
     check(K10A, err)
     K10A.launches += 1
@@ -175,8 +179,10 @@ def out_gate_residual_int8(a, gate, res, w, s):
     _check_device(K10B, a, gate, res, w, s)
     b, n, k = a.shape
     d_out = _check_weights(K10B, k, (w,))
-    if a.stride(2) != 1 or (n > 1 and a.stride(1) != k):
+    if (a.stride(2) != 1 or (n > 1 and a.stride(1) != k) or a.stride(0) % 8
+            or a.data_ptr() % 16):
         a = a.contiguous()   # the kernel reads rows of k contiguous values
+        #                      in 16-byte loads
     g = None if gate is None else gate.to(torch.float32).contiguous()
     if g is not None and g.shape != (b, d_out):
         raise ValueError(f"gate must be ({b}, {d_out})")
@@ -185,15 +191,13 @@ def out_gate_residual_int8(a, gate, res, w, s):
         raise ValueError(f"res must be ({b}, {n}, {d_out})")
     w, s = w.contiguous(), s.to(torch.float32).contiguous()
     m, dev = b * n, a.device
-    aq = torch.empty((m, k), dtype=torch.int8, device=dev)
-    sa = torch.empty(m, dtype=torch.float32, device=dev)
     out = torch.empty((b, n, d_out), dtype=torch.bfloat16, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         fn = K10B.function()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), a.stride(0), ptr(g), ptr(r), w.data_ptr(),
-                 s.data_ptr(), aq.data_ptr(), sa.data_ptr(), out.data_ptr(),
+                 s.data_ptr(), out.data_ptr(),
                  m, k, d_out, n, int(g is not None), int(r is not None),
                  stream)
     check(K10B, err)

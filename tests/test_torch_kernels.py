@@ -119,6 +119,10 @@ def test_fused_attention_rejects_unported_variants():
     ("attn_stream_kernel<64, false, true, true>(bf16 const*)", "K8a"),
     ("attn_stream_kernel<64, true, true, true>(bf16 const*)", "K8a"),
     ("attn_sm90_kernel<64, (anonymous namespace)::Softmax::Online>", "K7"),
+    ("void (anonymous namespace)::dense_sm90_kernel<10>(CUtensorMap_st, "
+     "CUtensorMap_st)", "K10a"),
+    ("dense_sm90_kernel<11>(CUtensorMap_st)", "K10b"),
+    ("xquant_kernel<9>(bf16 const*)", "K9"),
 ])
 def test_chip_smoke_names_the_kernel_families(name, family):
     # chip_smoke.py's profile breakdown by TPU kernel (it imports only the
@@ -230,6 +234,39 @@ def test_int8_attention_is_the_wgmma_source():
     assert not (kernels.CSRC_DIR / "fused_attention.cu").exists()
     stream = (kernels.CSRC_DIR / tfa.K7Q.source).read_text()
     assert "sd3_fused_attention_stream_int8pv" not in stream
+
+
+def test_int8_dense_is_the_wgmma_source():
+    # K10a and K10b are one launch each on s8 wgmma fed by TMA, the row
+    # prologue inside it (its int8 rows written into the A tile and handed
+    # to the async proxy by a fence): no mma.sync or ldmatrix fragment, no
+    # cp.async and no separate prologue launch is left in their source, and
+    # the int8 ldmatrix helpers are gone from the shared header
+    assert tfd.K10A.source == tfd.K10B.source == "fused_dense.cu"
+    src = (kernels.CSRC_DIR / tfd.K10A.source).read_text()
+    hdr = (kernels.CSRC_DIR / "sm90.cuh").read_text()
+    common = (kernels.CSRC_DIR / "int8_common.cuh").read_text()
+    assert "fence.proxy.async.shared::cta" in hdr
+    assert "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {" in hdr
+    for used in ("wgmma_s8<", "tma_load_2d", "encode_s8_2d", "setmaxnreg_inc",
+                 "fence_proxy_async_shared()", "tma_store_2d"):
+        assert used in src, used
+    for gone in ("mma_s8(", "ldsm_x4(", "load_a(", "load_b2(", "cp_async16(",
+                 "launch_xquant<", "mma.sync", "dense_int8_kernel"):
+        assert gone not in src, gone
+    for gone in ("ldsm_x4(", "load_a(", "load_b2(", "constexpr int BK ",
+                 "constexpr int SK "):
+        assert gone not in common, gone
+
+
+def test_k10_k_max_matches_its_source():
+    # the wrappers refuse a row wider than the kernels' shared-memory A tile
+    # holds, which must take the published width 1216
+    src = (kernels.CSRC_DIR / tfd.K10A.source).read_text()
+    m = re.search(r"constexpr int K_MAX = (\d+);", src)
+    assert m is not None
+    assert tfd.K_MAX == int(m.group(1)) >= 1216
+    assert tfd.K_MAX % 128 == 0
 
 
 @pytest.mark.parametrize("const,source,name", [
@@ -538,9 +575,15 @@ def dense_case(b, n, k, d_out, dev, seed=0):
     return t, [x.to(dev) for wq_s in ws for x in wq_s]
 
 
-# (B, N, k, d_out): the 512px image stream at CFG batch 2, a ragged one
-# (300 rows: a partial 64-row tile), k a multiple of 16 but not of 64
-DENSE_SHAPES = [(2, 1024, 1216, 1216), (3, 100, 64, 64), (2, 40, 80, 48)]
+# (B, N, k, d_out): the 512px image stream at CFG batch 2 (32 row blocks:
+# the columns split into spans), a ragged one (300 rows: a partial 64-row
+# tile), k a multiple of 16 but not of 64; the full image stream (B 8: one
+# wave of 128 row blocks), the published widths at ragged rows (900 rows,
+# 64-row blocks straddling samples; K and d_out not multiples of 128), K at
+# K_MAX with blocks spanning three samples and d_out a multiple of 8 only
+DENSE_SHAPES = [(2, 1024, 1216, 1216), (3, 100, 64, 64), (2, 40, 80, 48),
+                (8, 1024, 1216, 1216), (3, 300, 1216, 1216),
+                (5, 30, 1536, 200)]
 # chip_smoke.py's K10 limits: against fp32, a bf16 output and the odd int8
 # level moved by the LayerNorm's sum order
 K10_MAX_REL, K10_REL_L2 = 1e-2, 5e-3
@@ -594,6 +637,39 @@ def test_k10b_kernel_matches_plain_on_the_card(cuda_device, b, n, k, d_out,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gated,residual", [(True, True), (False, False),
+                                            (True, False), (False, True)])
+@pytest.mark.parametrize("b,n,k,d_out", DENSE_SHAPES)
+def test_k10b_equals_its_plain_version_bit_for_bit_on_the_card(
+        cuda_device, b, n, k, d_out, gated, residual):
+    # on the same bf16 values K10b repeats the plain version's arithmetic in
+    # its order, the rounding of a / s_a to int8 levels included
+    t, ws = dense_case(b, n, k, d_out, cuda_device, seed=2)
+    a = torch.cat([t["x"], t["x"][:, :5]], dim=1)[:, :n]
+    gate = t["gate"] if gated else None
+    res = t["res"] if residual else None
+    got = tfd.out_gate_residual_int8(a, gate, res, *ws[:2])
+    torch.cuda.synchronize()
+    same = tfd.out_gate_residual_int8_plain(a, gate, res, *ws[:2])
+    assert torch.equal(got, same)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d_out", [(8, 1024, 1216, 1216),
+                                         (3, 300, 1216, 1216)])
+def test_k10_kernels_give_the_same_bits_twice_on_the_card(cuda_device, b, n,
+                                                          k, d_out):
+    t, ws = dense_case(b, n, k, d_out, cuda_device, seed=3)
+    first = tfd.qkv_adaln_int8(t["x"], t["shift"], t["scale"], *ws)
+    again = tfd.qkv_adaln_int8(t["x"], t["shift"], t["scale"], *ws)
+    out = [tfd.out_gate_residual_int8(t["x"], t["gate"], t["res"], *ws[:2])
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+    assert torch.equal(*out)
+
+
+@pytest.mark.cuda
 def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     t, ws = dense_case(2, 8, 64, 64, cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -606,6 +682,16 @@ def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     w = torch.zeros(64, 40, device=cuda_device, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="multiple of 16"):
         tfd.out_gate_residual_int8(x, None, None, w, ws[1])
+    # wider than the A tile holds; an output width the outputs' tensor maps
+    # do not take
+    wide = tfd.K_MAX + 16
+    x = torch.zeros(2, 8, wide, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(64, wide, device=cuda_device, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match=f"up to {tfd.K_MAX}"):
+        tfd.out_gate_residual_int8(x, None, None, w, ws[1])
+    w = torch.zeros(36, 64, device=cuda_device, dtype=torch.int8)
+    with pytest.raises(NotImplementedError, match="multiple of 8"):
+        tfd.out_gate_residual_int8(t["x"], None, None, w, ws[1][:36])
     with pytest.raises(ValueError, match="shift"):
         tfd.qkv_adaln_int8(t["x"], t["shift"][:1], t["scale"], *ws)
     m = mlp_case(32, 16, 64, 128, 64, cuda_device)
