@@ -10,21 +10,22 @@ Phases (any failure exits non-zero without the final ok line):
      parallel; attention_sm90.cu, attention_int8_sm90.cu,
      flash_bwd_sm90.cu, fused_mlp.cu and fused_dense.cu encode their TMA
      descriptors through the runtime's driver entry point, so nothing
-     links libcuda)
+     links libcuda; attention_fp32.cu holds the fp32 instances)
      and print the compiler's register / shared-memory report;
   3. each kernel against its plain PyTorch version in fp32 on the same
      inputs: K1 (fused joint attention; wgmma + TMA, attention_sm90.cu) at
      the 512px slice shape, a ragged shape with odd H and a NoPE shape; K4
-     (its int8-QK^T variant; s8 / bf16 wgmma + TMA, attention_int8_sm90.cu)
-     and K8a (int8 P.V over bf16 and over K4's scores) at the slice and a
-     ragged shape; K7 (streaming attention, K1's kernel with an online
-     softmax, compared over its 128-key tiles), K7q (its int8-QK^T branch,
-     64-key tiles) and K8b (int8 P.V over K7's and over K7q's scores; K4's
-     kernel, 128-key tiles) at the 1024px shape and a ragged shape just
-     past 2048 tokens, K4 and K8b each with the device time of its launches
-     (q prep, K prep / quantize, V amax / quantize, attention); the public
-     attention entry point
-     once per kernel (K7q and K8a are reached only there); K3 (int8
+     (its int8-QK^T variant) and K8a (int8 P.V over bf16 and over K4's
+     scores; both s8 / bf16 wgmma + TMA, attention_int8_sm90.cu, the true
+     row max from a first pass) at the slice and a ragged shape; K7
+     (streaming attention, K1's kernel with an online softmax, compared
+     over its 128-key tiles), K7q (its int8-QK^T branch) and K8b (int8 P.V
+     over K7's and over K7q's scores; K4's kernel, 128-key tiles) at the
+     1024px shape and a ragged shape just past 2048 tokens, the int8 ones
+     each with the device time of its launches (q prep, K prep / quantize,
+     V amax / quantize, attention); the public attention entry point
+     once per kernel, and in fp32 (K7q, K8a and K7F are reached only
+     there); K3 (int8
      SwiGLU; wgmma + TMA, fused_mlp.cu) at the text stream and a ragged
      shape; K2 (int8 SwiGLU block tail, the same device code) at the image
      stream and a shape whose tiles straddle samples; K9 (K2's function on
@@ -34,10 +35,16 @@ Phases (any failure exits non-zero without the final ok line):
      the image half of the joint sequence in place, also without gate and
      residual; both s8 wgmma + TMA, fused_dense.cu, one launch with the
      row prologue in it) at the 512px image stream and a ragged shape,
-     each with the device time of its launch; K5, K6a and K6b (flash attention forward, dq, dk / dv; wgmma +
-     TMA: K5 attention_sm90.cu, K6a and K6b flash_bwd_sm90.cu) at the 512px
-     training shape, a ragged one and the 1024px training shape (checked on
-     two heads).
+     each with the device time of its launch, and at rows wider than one A
+     tile (k 1600, 1728, 2944, 4096: in chunks; K10b bit for bit); K5, K6a
+     and K6b (flash attention forward, dq, dk / dv; wgmma + TMA: K5
+     attention_sm90.cu, K6a and K6b flash_bwd_sm90.cu) at the 512px
+     training shape, a ragged one, the 1024px training shape (checked on
+     two heads) and at head dims 16, 128 and 48 (padded to 64); the fp32
+     instances (attention_fp32.cu, 3xTF32 mma.sync): K5F, K6AF, K6BF at
+     the 512px training shape and a ragged one, K1F at the 512px slice
+     shape, K7F past 2048 tokens, each against its fp32 plain version with
+     TF32 off (rel L2 <= 1e-5) and 50x below the bf16 instance's error.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -55,9 +62,11 @@ Phases (any failure exits non-zero without the final ok line):
      bf16 model (through K1), the int8 (w8a8) model (through K2, K3 and
      K4) and the int8 model with the opt-in block tails, attn_tail="all"
      and mlp_tail_fusion="3d" (K4, K9, K10a, K10b); 1024px, batch 1, bf16
-     (K7), int8 (K7, K2, K3) and int8 with int8 P.V (K8b, K2, K3); then one
-     training step at 256px, batch 2 (loss, gradients and the update against
-     fp32 on the CPU);
+     (K7), int8 (K7, K2, K3) and int8 with int8 P.V (K8b, K2, K3); the fp32
+     model at 512px (K1F); then one training step at 256px, batch 2 (loss,
+     gradients and the update against fp32 on the CPU), and one of
+     tiny_config (head dim 16: K5, K6a, K6b at D = 16) in bf16 and in fp32
+     (K5F, K6AF, K6BF);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then the median of 3 timed runs; each
@@ -70,7 +79,9 @@ Phases (any failure exits non-zero without the final ok line):
      mlp_tail_fusion="3d"): each sample call must launch K10a 380 (the
      image stream's q/k/v), K10b 380 (the image out-projection; the text
      stream's declines, and the last block has none), K9 740 (380 image +
-     360 text), K4 380 and K2, K3, K1 0 times;
+     360 text), K4 380 and K2, K3, K1 0 times; then the int8 model with
+     int8 P.V, one timed call: the model's gate (the JAX package's) keeps
+     int8 P.V to more than 2048 tokens, so K4 380 and K8a 0;
   8.-10. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
      (K7 380, K2 380, K3 360, K4 0, K1 0), and int8 with int8 P.V (K8b 380,
      K7 0, K2 380, K3 360; one timed call);
@@ -82,9 +93,9 @@ Phases (any failure exits non-zero without the final ok line):
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
   12. one JSON line {"kernels": [...]} per ported kernel (with its design:
-     wgmma + TMA warp-specialised, or mma.sync over a two-stage cp.async
-     ring: K7q and K8a), then the card's name and power limit, then the last
-     line
+     wgmma + TMA warp-specialised, or for the fp32 instances 3xTF32
+     mma.sync over shared-memory tiles), then the card's name and power
+     limit, then the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA card, nvcc (CUDA_HOME, PATH or /usr/local/cuda) and the
 sd3_torch package beside this file.
@@ -117,12 +128,13 @@ ATTN_ATOL = 1e-2
 K4_ATOL = 3e-2
 INT8_SAME_ROUNDING_ATOL = 1e-2
 # K7 and K7q against the fp32 plain version over the kernel's key tiles
-# (K7: fa.K7_KEY_TILE, K7q: fa.INT8_KEY_TILE): K1's roundings (bf16 q^, k^
+# (K7: fa.K7_KEY_TILE, K7q: fa.K7Q_KEY_TILE): K1's roundings (bf16 q^, k^
 # and p, a bf16 output), ATTN_ATOL. K7q
 # quantizes q^ and k^ from fp32 in both, so only the odd element whose
 # fp32 prep sums land on the other side of an int8 rounding boundary moves
 # (one level: a score change of ~1e-2 on one key). The online softmax runs
-# over the same tiles in both, so p is rounded against the same running max.
+# over the same tiles in both, so p is rounded against the same running max
+# (K7q's s_q enters its exp2's argument by an FFMA: ~1e-7 of p).
 # K8a / K8b (int8 P.V) against the fp32 plain version: the kernel rounds q^
 # and k^ to bf16 before the scores (2^-9 relative), which moves a share of
 # the int8 levels of p by one (1/127 of a row's largest p); each such level
@@ -205,11 +217,36 @@ K1_GRAD_REL_L2 = 1.5e-2
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL_L2 = 5e-2
 TRAIN_UPDATE_REL_L2 = 0.4
+# The fp32 instances (K1F, K7F: the fp32 prep and 3xTF32 attention; K5F,
+# K6AF, K6BF: 3xTF32 flash attention) against their plain versions in fp32
+# on the card, TF32 off for matmuls and convolutions (phase 1 sets both):
+# the 3xTF32 products keep ~21 bits, exp2f is within 2 ulp, and the sums
+# run in another order, so rel L2 within 1e-5; and the bf16 instance's
+# error at the same shape (bf16 inputs, p and outputs, against the same
+# fp32 plain version) at least FP32_OVER_BF16 times larger. A single TF32
+# pass (~1e-3 relative) fails both.
+FP32_REL_L2 = 1e-5
+FP32_OVER_BF16 = 50
+# The fp32 model and training step on the card against fp32 on the CPU:
+# every operation in fp32 on both sides (cuBLAS without TF32, the fp32
+# attention instances), only the order of the sums differs, ~1e-6 relative
+# per operation. 2-block forward and gradients: rel L2 within 1e-4; the
+# loss within 1e-5 relative. Adam's first step moves a weight by ~lr *
+# sign(g), so an update differs by 2 lr only where fp32 noise flips the
+# sign of a gradient ~1e-6 of the largest: the update within 1e-2.
+FP32_MODEL_REL_L2 = 1e-4
+FP32_TRAIN_LOSS_REL = 1e-5
+FP32_TRAIN_GRAD_REL_L2 = 1e-4
+FP32_TRAIN_UPDATE_REL_L2 = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
 # and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# fp32-accurate products on the tensor cores: 3xTF32, three TF32 passes at
+# the data sheet's 495 TFLOP/s each (beyond the 67 TFLOP/s of fp32 outside
+# the tensor cores)
+PEAK_FP32_FLOPS = 495e12 / 3
 # The softmax's exp2s run on the SFU: 16 ex2 per SM per clock against the
 # tensor cores' 4096 bf16 FLOP, so their peak rate is 1/256 of the FLOP
 # rate. At D = 64 one score costs 4D = 256 FLOP in the two products, so the
@@ -249,6 +286,17 @@ K9_TEXT = dict(m=8 * 154, n_tok=154, k=1216, hidden=4864)
 # 512px image stream and a ragged shape (300 rows: a partial 64-row tile)
 K10_SLICE = dict(b=8, n=1024, k=1216, d_out=1216, n_txt=154)
 K10_RAGGED = dict(b=3, n=100, k=96, d_out=64, n_txt=7)
+# rows wider than the kernels' A tile (fd.K_CHUNK, 1536), which run in
+# chunks: 1600 and 1728 (the widest the JAX K10a takes), 2944 (K10b's) and
+# 4096 (the dim of 64 blocks), the 1024 image tokens at CFG batch 2
+K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
+            for k in (1600, 1728, 2944, 4096)]
+# flash attention at the instances' other head dims: 16 (tiny_config's),
+# 128, and 48, which runs padded to the 64 instance; the 512px token count
+FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
+# the fp32 instances: flash at the 512px training shape and a ragged one;
+# K1F at the 512px slice shape and K7F past 2048 tokens (RAGGED_STREAM)
+FLASH_FP32 = [FLASH_SLICE, FLASH_RAGGED]
 
 
 class SmokeFailure(Exception):
@@ -341,6 +389,21 @@ def bound(t_ops, t_bytes, t_exp=0.0) -> dict:
                 bound_term=term)
 
 
+def _rel_l2(got, want) -> float:
+    """Relative L2 error of got against want, in fp64."""
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def prep_for_sdpa(x, c, s, eps):
+    """The plain q / k prep (per-head RMSNorm + table rotation) of (B, H, N,
+    D) heads in x's dtype: SDPA's inputs for the library yardstick."""
+    import torch
+    from sd3_torch.ops.rope import _rotate_half_interleaved
+    xf = x.float()
+    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xn * c + _rotate_half_interleaved(xn) * s).to(x.dtype)
+
+
 def attn_inputs(shape, gen):
     """bf16 q, k, v (B, N, H*D), the norm weights and the folded tables of
     one attention shape, on the card."""
@@ -371,7 +434,6 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
-    from sd3_torch.ops.rope import _rotate_half_interleaved
 
     b, nh, d = shape["b"], shape["heads"], shape["d"]
     q, k, v, _, _, n_img, tables = attn_inputs(shape, gen)
@@ -390,7 +452,7 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     # are compared over the kernel's key tiles (K7's and K8b's 128, K7q's
     # 64), timed with JAX's blocks
     kw = dict(int8_pv=True) if int8_pv else {}
-    tile = (fa.K8B_KEY_TILE if int8_pv else fa.INT8_KEY_TILE if int8_qk
+    tile = (fa.K8B_KEY_TILE if int8_pv else fa.K7Q_KEY_TILE if int8_qk
             else fa.K7_KEY_TILE)
     cmp_kw = dict(kw, block_k=tile) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
@@ -411,12 +473,8 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     def heads(x):
         return x.reshape(b, n, nh, d).transpose(1, 2).contiguous()
 
-    def prep(x, c, s):
-        xf = x.float()
-        xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-        return (xn * c + _rotate_half_interleaved(xn) * s).to(x.dtype)
-
-    qh, kh, vh = prep(heads(q), cosq, sinq), prep(heads(k), cosk, sink), heads(v)
+    qh, kh, vh = (prep_for_sdpa(heads(q), cosq, sinq, eps),
+                  prep_for_sdpa(heads(k), cosk, sink, eps), heads(v))
     run_lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
 
     ms = cuda_ms(run_k)
@@ -439,7 +497,7 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
                    got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                library_ms=library_ms, **bound(t_ops, t_bytes, t_exp))
-    if name in ("K4", "K8b", "K8b over K7q"):
+    if name in ("K4", "K8a", "K8a over K4", "K7q", "K8b", "K8b over K7q"):
         # the device time of each launch: q prep, K prep / quantize, V amax
         # / quantize, attention
         res["us_per_launch"] = per_launch_us(run_k)
@@ -456,10 +514,10 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
 
 def phase_attention_api(gen):
     """The public entry point `fused_dual_flash_attention` once per kernel,
-    at the 512px and 1024px slice shapes: the int8 QK^T branch above 2048
-    tokens (K7q) and int8 P.V at or below it (K8a) are reached only this
-    way (the model gates them off, as the JAX package does). Launch counts
-    reset before, read after; returns them."""
+    at the 512px and 1024px slice shapes, in bf16 (and in fp32, K1F / K7F):
+    the int8 QK^T branch above 2048 tokens (K7q) and int8 P.V at or below it
+    (K8a) are reached only this way (the model gates them off, as the JAX
+    package does). Launch counts reset before, read after; returns them."""
     import torch
     from sd3_torch.ops import fused_attention as fa
 
@@ -470,6 +528,8 @@ def phase_attention_api(gen):
                                  (True, True)):
             calls.append((q, k, v, ws, angles, n_img, shape, int8_qk,
                           int8_pv))
+        calls.append((q.float(), k.float(), v.float(), ws, angles, n_img,
+                      shape, False, False))
     torch.cuda.synchronize()
     reset_launches()
     with torch.inference_mode():
@@ -486,7 +546,8 @@ def phase_attention_api(gen):
     want = dict(fused_attention_bf16=1, fused_attention_int8qk=1,
                 fused_attention_int8pv=2, fused_attention_stream=1,
                 fused_attention_stream_int8qk=1,
-                fused_attention_stream_int8pv=2)
+                fused_attention_stream_int8pv=2, fused_attention_fp32=1,
+                fused_attention_stream_fp32=1)
     for nm, c in want.items():
         require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
                 f"through the attention API, expected {c}")
@@ -639,6 +700,10 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
     require(same_l2 <= K10_SAME_ROUNDING_REL_L2,
             f"{name} rel L2 {same_l2} against the plain version's own "
             f"roundings (limit {K10_SAME_ROUNDING_REL_L2}) at {label}")
+    # K10b repeats its plain version's arithmetic on the same bf16 values:
+    # the same bits
+    require(name != "K10b" or torch.equal(got, same),
+            f"K10b differs from its plain version's bits at {label}")
     return res_d
 
 
@@ -780,6 +845,138 @@ def phase_flash(shape, gen, check=None):
     return results
 
 
+def phase_flash_fp32(shape, gen):
+    """K5F, K6AF and K6BF (the fp32 instances) vs their plain versions in
+    fp32 on the card (TF32 off) at one (B, H, N, D) shape: rel L2 within
+    FP32_REL_L2, and FP32_OVER_BF16 times below the bf16 instances' error
+    at the same shape; kernel, plain-version and SDPA (fp32) times."""
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import flash_attention as fl
+
+    b, h, n, d = shape
+    scale = d ** -0.5
+    # fp32 values that bf16 does not hold, so the bf16 instance's error
+    # includes its inputs' rounding
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(4))
+    w_out, w_lse = fl.flash_fwd_plain(q, k, v, scale)
+    w_dq, w_delta = fl.flash_dq_plain(q, k, v, w_out, do, w_lse, scale)
+    w_dk, w_dv = fl.flash_dkv_plain(q, k, v, do, w_lse, w_delta, scale)
+    out, lse = fl.flash_fwd(q, k, v, scale)
+    dq, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, scale)
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    bo, bl = fl.flash_fwd(qb, kb, vb, scale)
+    bdq, bdelta = fl.flash_dq(qb, kb, vb, bo, dob, bl, scale)
+    bdk, bdv = fl.flash_dkv(qb, kb, vb, dob, bl, bdelta, scale)
+    torch.cuda.synchronize()
+    rel = _rel_l2
+    errs = dict(K5F=dict(out=rel(out, w_out)), K6AF=dict(dq=rel(dq, w_dq)),
+                K6BF=dict(dk=rel(dk, w_dk), dv=rel(dv, w_dv)))
+    bf16 = dict(K5F=dict(out=rel(bo, w_out)), K6AF=dict(dq=rel(bdq, w_dq)),
+                K6BF=dict(dk=rel(bdk, w_dk), dv=rel(bdv, w_dv)))
+    lse_err = (lse - w_lse).abs().max().item()
+    label = f"B={b} H={h} N={n} D={d} fp32"
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    lib_bwd = sdpa_backward_ms(q, k, v, do, scale)
+    bwd_lib = dict(library_ms=lib_bwd["ms"], library_backend=lib_bwd["backend"],
+                   library_eager_ms=lib_bwd["eager_ms"])
+    one, stat = b * h * n * d * 4, b * h * n * 4
+    bh_nnd = b * h * n * n * d
+    t_exp = 1.0 * b * h * n * n / PEAK_EXP2
+    runs = dict(
+        K5F=(lambda: fl.flash_fwd(q, k, v, scale),
+             lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
+             dict(library_ms=cuda_ms(sdpa))),
+        K6AF=(lambda: fl.flash_dq(q, k, v, out, do, lse, scale),
+              lambda: fl.flash_dq_plain(q, k, v, out, do, lse, scale), 3,
+              6 * one + 2 * stat, bwd_lib),
+        K6BF=(lambda: fl.flash_dkv(q, k, v, do, lse, delta, scale),
+              lambda: fl.flash_dkv_plain(q, k, v, do, lse, delta, scale), 4,
+              6 * one + 2 * stat, bwd_lib))
+    results = {}
+    for name, (run, plain, products, nbytes, lib) in runs.items():
+        e = max(errs[name].values())
+        res = dict(shape=label, rel_l2=errs[name], bf16_rel_l2=bf16[name],
+                   max_abs_err=max((g - w).abs().max().item() for g, w in {
+                       "K5F": [(out, w_out)], "K6AF": [(dq, w_dq)],
+                       "K6BF": [(dk, w_dk), (dv, w_dv)]}[name]),
+                   ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=3, groups=3),
+                   **lib, **bound(products * 2 * bh_nnd / PEAK_FP32_FLOPS,
+                                  nbytes / PEAK_BYTES, t_exp))
+        if name == "K5F":
+            res["lse_max_abs_err"] = lse_err
+        print(f"  {name}", json.dumps(res), flush=True)
+        results[name] = res
+        require(e <= FP32_REL_L2, f"{name} rel L2 {errs[name]} > "
+                f"{FP32_REL_L2} at {label}")
+        for key, err in errs[name].items():
+            require(err * FP32_OVER_BF16 <= bf16[name][key],
+                    f"{name} {key}: rel L2 {err} is not {FP32_OVER_BF16}x "
+                    f"below the bf16 instance's {bf16[name][key]} at {label}")
+    require(lse_err <= FP32_REL_L2 * 10,
+            f"K5F lse max abs err {lse_err} at {label}")
+    return results
+
+
+def phase_attention_fp32(shape, gen):
+    """K1F (at most 2048 padded tokens) or K7F (above) on fp32 q, k, v
+    against the fp32 plain composition on the card (TF32 off): rel L2
+    within FP32_REL_L2, and FP32_OVER_BF16 times below the bf16 kernel's
+    error at the same shape; kernel, plain-version and SDPA (fp32) times."""
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import fused_attention as fa
+
+    b, nh, d = shape["b"], shape["heads"], shape["d"]
+    qb, kb, vb, _, _, n_img, tables = attn_inputs(shape, gen)
+    q, k, v = (t.float() + 1e-3 * torch.randn(t.shape, generator=gen,
+                                              device="cuda")
+               for t in (qb, kb, vb))
+    n = q.shape[1]
+    scale = d ** -0.5
+    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    name = "K7F" if streaming else "K1F"
+    eps32 = float(torch.finfo(torch.float32).eps)
+    eps16 = float(torch.finfo(torch.bfloat16).eps)
+    run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale)
+    plain = fa.composition_stream if streaming else fa.composition
+    run_plain = lambda: plain(q, k, v, *tables, scale, eps32, eps32, nh)
+    got = run_k()
+    bf = fa.fused_attention(*(t.bfloat16() for t in (q, k, v)), nh, *tables,
+                            scale)
+    torch.cuda.synchronize()
+    want = run_plain()
+    want16 = fa.composition(q, k, v, *tables, scale, eps16, eps16, nh)
+    err, bf_err = _rel_l2(got, want), _rel_l2(bf, want16)
+    require(bool(torch.isfinite(got).all()), f"{name} non-finite at {shape}")
+
+    def heads(x):
+        return x.reshape(b, n, nh, d).transpose(1, 2).contiguous()
+
+    cq, sq, ck, sk = tables
+    qh, kh, vh = (prep_for_sdpa(heads(q), cq, sq, eps32),
+                  prep_for_sdpa(heads(k), ck, sk, eps32), heads(v))
+    run_lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    prod = 2.0 * b * nh * n * n * d
+    nbytes = 4.0 * b * n * nh * d * 4 + 4.0 * n * d * 4
+    res = dict(shape=f"B={b} N={n} H={nh} D={d} fp32", rel_l2=err,
+               bf16_rel_l2=bf_err,
+               max_abs_err=(got - want).abs().max().item(), ms=cuda_ms(run_k),
+               plain_ms=cuda_ms(run_plain, iters=3, groups=3),
+               library_ms=cuda_ms(run_lib),
+               **bound(2 * prod / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES,
+                       1.0 * b * nh * n * n / PEAK_EXP2))
+    print(f"  {name}", json.dumps(res), flush=True)
+    require(err <= FP32_REL_L2, f"{name} rel L2 {err} > {FP32_REL_L2} at "
+            f"{res['shape']}")
+    require(err * FP32_OVER_BF16 <= bf_err,
+            f"{name} rel L2 {err} is not {FP32_OVER_BF16}x below the bf16 "
+            f"kernel's {bf_err} at {res['shape']}")
+    return res
+
+
 def phase_k1_backward(gen):
     """K1's autograd Function at the training shape: K1 forward, then the
     prep recomputed and K5, K6a, K6b; gradients of q, k, v and the four norm
@@ -844,21 +1041,36 @@ def phase_train_step_2block(log_dir):
     """One training step of the published widths at a depth of 2 blocks,
     256px, batch 2: the slice's flags in bf16 on the card (K5, K6a, K6b)
     against the same weights and noise in fp32 on the CPU (plain path)."""
-    import torch
     from sd3_torch.config import published_config
+    return phase_train_step(
+        log_dir, published_config(stage_res=256).replace(num_blocks=2),
+        "2-block", lat=256 // 8)
+
+
+def phase_train_step(log_dir, cfg, label, lat, fp32=False):
+    """One training step of `cfg` (latents lat x lat, batch 2) on the card
+    against the same weights and noise in fp32 on the CPU (plain path):
+    in bf16 with the slice's flags (bf16 gradients against bf16 weight
+    copies; K5, K6a, K6b) or, with `fp32`, all in fp32 (K5F, K6AF, K6BF)."""
+    import torch
     from sd3_torch.training.trainer import Noise, TrainConfig, Trainer, draw_noise
 
-    cfg = published_config(stage_res=256).replace(num_blocks=2)
     kw = dict(batch_size=2, accumulation_steps=1, lr=1e-4, warmup_steps=0,
               low_mem_optimizer=True, fused_optimizer=True, track_ema=False,
               remat_blocks=True)
     ref = Trainer(cfg.replace(dtype="float32"), TrainConfig(**kw),
                   device="cpu", log_dir=log_dir, use_wandb=False)
     p0 = {k: v.detach().clone() for k, v in ref.params.items()}
-    dut = Trainer(cfg, TrainConfig(**kw, bf16_grads=True, precast_params=True),
-                  params=p0, device="cuda", log_dir=log_dir, use_wandb=False)
+    if fp32:
+        dut = Trainer(cfg.replace(dtype="float32"), TrainConfig(**kw),
+                      params=p0, device="cuda", log_dir=log_dir,
+                      use_wandb=False)
+    else:
+        dut = Trainer(cfg, TrainConfig(**kw, bf16_grads=True,
+                                       precast_params=True),
+                      params=p0, device="cuda", log_dir=log_dir,
+                      use_wandb=False)
     g = torch.Generator().manual_seed(2)
-    lat = 256 // 8
     batch = {"x0": torch.randn((1, 2, cfg.inCh, lat, lat), generator=g),
              "text": torch.randn((1, 2, cfg.text_tokens, cfg.text_hidden_dim),
                                  generator=g),
@@ -876,32 +1088,41 @@ def phase_train_step_2block(log_dir):
     torch.cuda.synchronize()
     launches = launch_counts()
     require(all(bool(torch.isfinite(t).all()) for t in got_g.values()),
-            "2-block training gradients non-finite on the card")
+            f"{label} training gradients non-finite on the card")
     ref.train_step(batch, [noise])
     dut.train_step(card_batch, [on_card(noise)])
     torch.cuda.synchronize()
     delta = lambda tr: {k: v.detach().float().cpu() - p0[k]
                         for k, v in tr.params.items()}
-    res = dict(loss_card=got_m["loss"].item(), loss_cpu_fp32=want_m["loss"].item(),
+    res = dict(model=label, dtype="float32" if fp32 else cfg.dtype,
+               head_dim=cfg.dim // cfg.num_heads,
+               loss_card=got_m["loss"].item(),
+               loss_cpu_fp32=want_m["loss"].item(),
                grad_rel_l2=_flat_rel_l2(got_g, want_g),
                update_rel_l2=_flat_rel_l2(delta(dut), delta(ref)),
                launches=launches, cpu_fp32_gradient_s=cpu_s)
     res["loss_rel"] = abs(res["loss_card"] / res["loss_cpu_fp32"] - 1)
     print("  train step", json.dumps(res), flush=True)
     nb = cfg.num_blocks
-    for name, n in dict(flash_attention_fwd=2 * nb, flash_attention_dq=nb,
-                        flash_attention_dkv=nb, fused_attention_bf16=0).items():
+    sfx = "_fp32" if fp32 else ""
+    other = "" if fp32 else "_fp32"
+    for name, n in {f"flash_attention_fwd{sfx}": 2 * nb,
+                    f"flash_attention_dq{sfx}": nb,
+                    f"flash_attention_dkv{sfx}": nb,
+                    f"flash_attention_fwd{other}": 0,
+                    "fused_attention_bf16": 0}.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
-                f"in a {nb}-block training step with remat, expected {n}")
-    require(res["loss_rel"] <= TRAIN_LOSS_REL,
-            f"2-block training loss {res['loss_card']} vs fp32 "
-            f"{res['loss_cpu_fp32']} (limit {TRAIN_LOSS_REL} relative)")
-    require(res["grad_rel_l2"] <= TRAIN_GRAD_REL_L2,
-            f"2-block gradients rel L2 {res['grad_rel_l2']} > "
-            f"{TRAIN_GRAD_REL_L2}")
-    require(res["update_rel_l2"] <= TRAIN_UPDATE_REL_L2,
-            f"2-block update rel L2 {res['update_rel_l2']} > "
-            f"{TRAIN_UPDATE_REL_L2}")
+                f"in a {label} training step with remat, expected {n}")
+    limits = ((FP32_TRAIN_LOSS_REL, FP32_TRAIN_GRAD_REL_L2,
+               FP32_TRAIN_UPDATE_REL_L2) if fp32 else
+              (TRAIN_LOSS_REL, TRAIN_GRAD_REL_L2, TRAIN_UPDATE_REL_L2))
+    require(res["loss_rel"] <= limits[0],
+            f"{label} training loss {res['loss_card']} vs fp32 "
+            f"{res['loss_cpu_fp32']} (limit {limits[0]} relative)")
+    require(res["grad_rel_l2"] <= limits[1],
+            f"{label} gradients rel L2 {res['grad_rel_l2']} > {limits[1]}")
+    require(res["update_rel_l2"] <= limits[2],
+            f"{label} update rel L2 {res['update_rel_l2']} > {limits[2]}")
     return res
 
 
@@ -1078,10 +1299,11 @@ TAILS = dict(attn_tail="all", mlp_tail_fusion="3d")
 
 
 def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
-                tails=False):
+                tails=False, fp32=False):
     """2-block published-width model at `res`, bf16 or int8 (w8a8, with
-    int8_pv int8 P.V too, with `tails` the opt-in block tails) on the card
-    vs the same weights in fp32 on the CPU."""
+    int8_pv int8 P.V too, with `tails` the opt-in block tails), or with
+    `fp32` the fp32 model (the fp32 attention instances), on the card vs the
+    same weights in fp32 on the CPU."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.models.mmdit import MMDiT
@@ -1094,9 +1316,13 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     if int8:
         quantize_model(ref)
         cfg = ref.cfg.replace(dtype=cfg.dtype)
+    if fp32:
+        cfg = cfg.replace(dtype="float32")
     dut = MMDiT(cfg, device="cuda")
     dut.load_state_dict(ref.state_dict(), strict=True)
-    dut.cast_params(torch.bfloat16).eval()
+    if not fp32:
+        dut.cast_params(torch.bfloat16)
+    dut.eval()
     g = torch.Generator().manual_seed(gen_seed + 1)
     lat = res // 8
     x = torch.randn((batch, cfg.inCh, lat, lat), generator=g)
@@ -1115,8 +1341,8 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     launches = launch_counts()
     require(bool(torch.isfinite(got).all()), "2-block model output non-finite")
     rel = ((got - want).norm() / want.norm()).item()
-    res_d = dict(quant=cfg.quant, int8_pv=int8_pv, tails=tails, res=res,
-                 batch=batch, rel_l2=rel,
+    res_d = dict(quant=cfg.quant, dtype=cfg.dtype, int8_pv=int8_pv,
+                 tails=tails, res=res, batch=batch, rel_l2=rel,
                  max_abs_err=(got - want).abs().max().item(),
                  ref_max_abs=want.abs().max().item(), launches=launches,
                  cpu_fp32_s=cpu_s)
@@ -1126,16 +1352,16 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     # to 1280, K4 under int8), K7 / K8b above (1024px: 4250); int8: the
     # image-stream MLP K2, the text-stream MLP K3 in every block but the last
     streaming = res > 512
-    attn = ("fused_attention_stream_int8pv" if int8_pv else
-            "fused_attention_stream" if streaming else
-            "fused_attention_int8qk" if int8 else "fused_attention_bf16")
+    attn = attention_kernel(int8, int8_pv, streaming, fp32)
     want_launches = {k: 0 for k in ATTENTION_KERNELS}
     want_launches[attn] = nb
     want_launches.update(block_tail_launches(nb, 1, int8, tails))
     for name, n in want_launches.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
-                f"in a {nb}-block {cfg.quant} {res}px forward, expected {n}")
-    limit = INT8_MODEL_REL_L2 if int8 else MODEL_REL_L2
+                f"in a {nb}-block {cfg.quant} {cfg.dtype} {res}px forward, "
+                f"expected {n}")
+    limit = (INT8_MODEL_REL_L2 if int8 else FP32_MODEL_REL_L2 if fp32
+             else MODEL_REL_L2)
     require(rel <= limit, f"2-block {cfg.quant} {res}px model rel L2 {rel} > "
             f"{limit}")
     return res_d
@@ -1144,7 +1370,22 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
 ATTENTION_KERNELS = ("fused_attention_bf16", "fused_attention_int8qk",
                      "fused_attention_int8pv", "fused_attention_stream",
                      "fused_attention_stream_int8qk",
-                     "fused_attention_stream_int8pv")
+                     "fused_attention_stream_int8pv", "fused_attention_fp32",
+                     "fused_attention_stream_fp32")
+
+
+def attention_kernel(int8, int8_pv, streaming, fp32=False) -> str:
+    """The attention kernel a model forward launches once a block: K1 / K4
+    up to 2048 padded tokens (K4 under int8), K7 / K8b above (K8b with
+    int8_pv), as the JAX package's gates choose (int8 P.V only past 2048
+    tokens, so no model path takes K8a); the fp32 instances in fp32."""
+    if fp32:
+        return "fused_attention_stream_fp32" if streaming else \
+            "fused_attention_fp32"
+    if streaming:
+        return ("fused_attention_stream_int8pv" if int8_pv
+                else "fused_attention_stream")
+    return "fused_attention_int8qk" if int8 else "fused_attention_bf16"
 
 
 def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
@@ -1181,9 +1422,7 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
     # to 2048 padded tokens, K7 / K8b above), and the block-tail kernels of
     # block_tail_launches per step
     streaming = res > 512
-    attn = ("fused_attention_stream_int8pv" if int8_pv else
-            "fused_attention_stream" if streaming else
-            "fused_attention_int8qk" if int8 else "fused_attention_bf16")
+    attn = attention_kernel(int8, int8_pv, streaming)
     expect = {k: 0 for k in ATTENTION_KERNELS}
     expect[attn] = nb * steps
     expect.update(block_tail_launches(nb, steps, int8, tails))
@@ -1251,18 +1490,23 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
 
 # the int8 kernels' launches carry the number of their TPU kernel as their
 # last template argument (csrc/int8_common.cuh): xquant_kernel<2>,
-# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, dense_sm90_kernel<10>,
-# ...
+# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, ...; K10a / K10b's as
+# their first, dense_sm90_kernel<10, false> (the second: chunked or not)
 INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_sm90_kernel|"
-                         r"w3_sm90_kernel|dense_sm90_kernel)<(?:\d+, )*(\d+)>")
+                         r"w3_sm90_kernel)<(?:\d+, )*(\d+)>|"
+                         r"dense_sm90_kernel<(\d+)")
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
-# attn_stream_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
-STREAM_FAMILIES = {"true, false, false>": "K7q",
-                   "false, true, true>": "K8a", "true, true, true>": "K8a"}
+# attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
+INT8_ATTN_FAMILIES = {"true, false, true>": "K4", "true, false, false>": "K7q",
+                      "false, true, true>": "K8a", "true, true, true>": "K8a",
+                      "false, true, false>": "K8b", "true, true, false>": "K8b"}
 # the per-row int8 prep carries the number of its TPU kernel as its last
 # template argument (csrc/attention_common.cuh): prep_q8rows_kernel<64, 4>
 Q8ROWS_LAUNCH = re.compile(r"prep_q8rows_kernel<\d+, (\d+)>")
-Q8ROWS_FAMILIES = {"4": "K4", "7": "K7q", "8": "K8b"}
+Q8ROWS_FAMILIES = {"4": "K4", "7": "K7q", "8": "K8b", "81": "K8a"}
+# the fp32 attention kernels (csrc/attention_fp32.cu): K1 / K7 / K5 and
+# K6a / K6b on fp32 operands
+FP32_KERNELS = ("attn_fp32_kernel", "dq_fp32_kernel", "dkv_fp32_kernel")
 
 
 # the flash backward's kernels (csrc/flash_bwd_sm90.cu) by family
@@ -1273,47 +1517,47 @@ SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "flash_bwd_sm90.cu": "wgmma+TMA, warp-specialised",
                   "fused_mlp.cu": "wgmma+TMA, warp-specialised",
                   "attention_int8_sm90.cu": "wgmma+TMA, warp-specialised",
-                  "stream_attention.cu": "mma.sync, 2-stage cp.async",
+                  "attention_fp32.cu": "3xTF32 mma.sync, shared-memory tiles",
                   "fused_dense.cu": "wgmma+TMA, warp-specialised"}
 
 
-def kernel_family(name: str, bf16_prep: str = "K1") -> str:
+def kernel_family(name: str, bf16_prep: str = "K1",
+                  pv_prep: str = "K8b") -> str:
     """The family of one device row: the port's kernels by their CUDA
     function names (K2, K3, K9, K10a and K10b by the template tag of their
     launches, INT8_LAUNCH; K1, K7 and K5 are attn_sm90_kernel<D, Softmax::
-    Bounded>, <D, Softmax::Online> and <D, Softmax::Flash>; K4 and K8b
-    attn_int8_sm90_kernel<D, true, false> and <D, *, true>, K4 with
-    k_prep_kernel<D, true> and k_quant_kernel, K8b with the V prep of int8
-    P.V; the per-row int8 preps by their tag, Q8ROWS_LAUNCH; K7q and K8a
-    the instantiations of attn_stream_kernel; the bf16 K prep
-    k_prep_kernel<D, false>, which K1, K7 and K8b share, and their bf16
-    q_prep_kernel go to `bf16_prep`; K6a and K6b FLASH_BWD_FAMILIES), int8
-    and other GEMMs, and the rest."""
+    Bounded>, <D, Softmax::Online> and <D, Softmax::Flash>; K4, K7q, K8a and
+    K8b the instances of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>,
+    INT8_ATTN_FAMILIES, K4 with k_prep_kernel<D, true> and k_quant_kernel;
+    the V prep of int8 P.V to `pv_prep` (K8a or K8b); the per-row int8
+    preps by their tag, Q8ROWS_LAUNCH; the bf16 K prep k_prep_kernel<D,
+    false>, which K1, K7, K8a and K8b share, and their bf16 q_prep_kernel
+    go to `bf16_prep`; K6a and K6b FLASH_BWD_FAMILIES; the fp32 attention
+    kernels to "fp32 attention"), int8 and other GEMMs, and the rest."""
     low = name.lower()
     for fn, fam in FLASH_BWD_FAMILIES.items():
         if fn in name:
             return fam
+    if any(fn in name for fn in FP32_KERNELS):
+        return "fp32 attention"
     if "attn_sm90_kernel" in name:
         return ("K5" if "Flash" in name else "K7" if "Online" in name
                 else "K1")
-    if "attn_stream_kernel" in name:
-        return next((f for args, f in STREAM_FAMILIES.items() if args in name),
-                    "other")
     if "attn_int8_sm90_kernel" in name:
-        return "K4" if "true, false>" in name else "K8b"
+        return next((f for args, f in INT8_ATTN_FAMILIES.items()
+                     if args in name), "other")
     if "v_amax_kernel" in name or "v_quant_kernel" in name:
-        return "K8b"
+        return pv_prep
     m = Q8ROWS_LAUNCH.search(name)
     if m:
         return Q8ROWS_FAMILIES[m.group(1)]
-    if "k_quant_kernel" in name or (
-            "k_prep_kernel" in name and "true>" in name):
+    if "k_quant_kernel" in name or re.search(r"k_prep_kernel<\d+, true", name):
         return "K4"
     if "k_prep_kernel" in name or "q_prep_kernel" in name:
         return bf16_prep
     m = INT8_LAUNCH.search(name)
     if m:
-        return INT8_FAMILIES[m.group(1)]
+        return INT8_FAMILIES[m.group(1) or m.group(2)]
     if any(s in low for s in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
         if any(s in low for s in ("s8", "i8", "int8", "imma")):
             return "gemm_int8"
@@ -1326,7 +1570,8 @@ def device_breakdown(prof, wall_s, bf16_prep="K1"):
     kernels; and the idle share of the traced wall time."""
     fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7",
                           "K7q", "K8a", "K8b", "K9", "K10a", "K10b",
-                          "gemm_int8", "gemm", "other"), 0.0)
+                          "fp32 attention", "gemm_int8", "gemm", "other"),
+                         0.0)
     rows = []
     for e in prof.key_averages():
         # device-side rows (kernels, copies, fills) only: they take no host
@@ -1403,8 +1648,16 @@ def main() -> int:
         k10a = [phase_dense(s, gen, "K10a") for s in (K10_SLICE, K10_RAGGED)]
         k10b = [phase_dense(s, gen, "K10b") for s in (K10_SLICE, K10_RAGGED)]
         phase_dense(K10_SLICE, gen, "K10b", gated=False, residual=False)
+        for s in K10_WIDE:
+            phase_dense(s, gen, "K10a")
+            phase_dense(s, gen, "K10b")
         k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
         phase_flash(FLASH_SLICE_1024, gen, check=FLASH_CHECK_1024)
+        for s in FLASH_DIMS:
+            phase_flash(s, gen)
+        k56f = [phase_flash_fp32(s, gen) for s in FLASH_FP32]
+        k1f = phase_attention_fp32(SLICE, gen)
+        k7f = phase_attention_fp32(RAGGED_STREAM, gen)
         phase_k1_backward(gen)
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU: "
@@ -1415,9 +1668,18 @@ def main() -> int:
         phase_model(gen_seed=0, res=1024, batch=1)
         phase_model(gen_seed=0, int8=True, res=1024, batch=1)
         phase_model(gen_seed=0, int8=True, res=1024, batch=1, int8_pv=True)
+        model32 = phase_model(gen_seed=0, fp32=True)
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
+        # tiny_config (head dim 16: the flash instances at D = 16), in bf16
+        # and in fp32 (the fp32 instances)
+        from sd3_torch.config import tiny_config
+        phase_train_step(log_dir, tiny_config(attn_type="softmax_flash",
+                                              dtype="bfloat16"),
+                         "tiny_config", lat=8)
+        tiny32 = phase_train_step(log_dir, tiny_config(
+            attn_type="softmax_flash"), "tiny_config", lat=8, fp32=True)
 
         print("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -1429,6 +1691,11 @@ def main() -> int:
         print("phase 7: 19-block int8 sampling with the block tails "
               "(attn_tail all, mlp_tail_fusion 3d), the same", flush=True)
         sample8_tails = phase_sample(card, int8=True, tails=True)
+
+        print("phase 7b: 19-block int8 sampling with int8 P.V at 512px, one "
+              "timed call: the model's gate (the JAX package's) keeps int8 "
+              "P.V to the streaming shapes, so K4 and not K8a", flush=True)
+        phase_sample(card, int8=True, int8_pv=True, timed=1)
 
         print("phase 8: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -1472,10 +1739,10 @@ def main() -> int:
              "sd3_tpu/ops/fused_attention.py:312", sample_1024, per_call),
             # K7q and K8a: the model never takes them (as in JAX); their
             # launches are those of the attention API phase
-            (fused_attention.K7Q, k7q[0], "stream_attention.cu",
+            (fused_attention.K7Q, k7q[0], "attention_int8_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:352", api, lambda run: run),
-            (fused_attention.K8A, k8a[0], "stream_attention.cu",
-             "sd3_tpu/ops/fused_attention.py:190", api, lambda run: run),
+            (fused_attention.K8A, k8a[0], "attention_int8_sm90.cu",
+             "sd3_tpu/ops/fused_attention.py:181", api, lambda run: run),
             (fused_attention.K8B, k8b[0], "attention_int8_sm90.cu",
              "sd3_tpu/ops/fused_attention.py:406", sample8pv_1024, per_call),
             (fused_mlp.K9, k9[0], "fused_mlp.cu",
@@ -1484,6 +1751,23 @@ def main() -> int:
              "sd3_tpu/ops/fused_dense.py:92", sample8_tails, per_call),
             (fused_dense.K10B, k10b[0], "fused_dense.cu",
              "sd3_tpu/ops/fused_dense.py:166", sample8_tails, per_call),
+            # the fp32 instances: K1F on the fp32 model (phase 4), K7F
+            # through the attention API, K5F / K6AF / K6BF in the fp32
+            # tiny_config training step
+            (fused_attention.K1F, k1f, "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:135", model32,
+             lambda run: run["launches"]),
+            (fused_attention.K7F, k7f, "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:312", api, lambda run: run),
+            (flash_attention.K5F, k56f[0]["K5F"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:103", tiny32,
+             lambda run: run["launches"]),
+            (flash_attention.K6AF, k56f[0]["K6AF"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:191", tiny32,
+             lambda run: run["launches"]),
+            (flash_attention.K6BF, k56f[0]["K6BF"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:222", tiny32,
+             lambda run: run["launches"]),
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",

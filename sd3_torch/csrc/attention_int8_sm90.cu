@@ -1,92 +1,121 @@
-// K4, the int8-QK^T single-KV joint attention, and K8b, the int8-P.V
-// streaming joint attention, for NVIDIA Hopper (sm_90a): one kernel,
-// attn_int8_sm90_kernel<D, QK8, PV8>, on wgmma and TMA with a
-// warp-specialised ring of K / V tiles.
+// The int8 joint attentions for NVIDIA Hopper (sm_90a): K4 (int8 QK^T,
+// single KV), K8a (int8 P.V, single KV), K7q (int8 QK^T, streaming) and K8b
+// (int8 P.V, streaming), one kernel, attn_int8_sm90_kernel<D, QK8, PV8,
+// TWO_PASS>, on wgmma and TMA with a warp-specialised ring of K / V tiles.
+// QK8: int8 scores (else bf16); PV8: int8 P.V (else bf16); TWO_PASS: the
+// true row max in a first pass over K (the single-KV kernels), else an
+// online softmax over 128-key tiles (the streaming ones).
 //
-// Replaces, in sd3_tpu/ops/fused_attention.py (both reached through
+// Replaces, in sd3_tpu/ops/fused_attention.py (all reached through
 // _pallas_fused):
 //   K4   the `int8_qk` branch of `_fused_fwd_kernel` (:193, :246-281; the
-//        serving default at 1024 to 2048 padded tokens): <D, true, false>;
+//        serving default at 1024 to 2048 padded tokens):
+//        <D, true, false, true>;
+//   K8a  the `int8_pv` branch of `_fused_fwd_kernel` (:181-188, :228-245,
+//        :282-309; at most 2048 padded tokens), over K1's bf16 scores
+//        <D, false, true, true> or over K4's int8 scores <D, true, true,
+//        true>;
+//   K7q  the `int8_qk` branch of `_stream_fwd_kernel` (:352; `_prep_xla`,
+//        `_q8_rows_xla` :483-508; more than 2048 padded tokens):
+//        <D, true, false, false>;
 //   K8b  the `int8_pv` branch of `_stream_fwd_kernel` (:406-409, :425-426,
-//        V from `_q8_cols_xla` :511-518; more than 2048 padded tokens),
-//        over K7's bf16 scores <D, false, true> (the model's path) or over
-//        K7q's int8 scores <D, true, true> (the attention API's).
+//        V from `_q8_cols_xla` :511-518), over K7's bf16 scores <D, false,
+//        true, false> (the model's path) or over K7q's int8 scores <D, true,
+//        true, false> (the attention API's).
 // Why a kernel of its own rather than more Softmax policies of
 // attention_sm90.cu's attn_sm90_kernel (K1, K7, K5): every phase of that
 // loop would branch. The tiles differ in type and geometry (int8 q^ / k^
 // rows, zero-padded to one s8 k-step of 32 bytes; an int8 V^T tile, K-major
-// with its keys permuted; per-key scales beside each K tile), K4 makes two
-// passes over K, and K8b's P.V has an s32 accumulator of its own and a
-// dequantizing epilogue. The skeleton is the same: a producer warpgroup
-// issuing TMA loads into a ring with full / empty mbarriers, two consumer
-// warpgroups of 64 query rows taking turns on two named barriers, S of
-// tile t issued with P.V of tile t-1, on the same sm90.cuh helpers.
+// with its keys permuted; per-key scales beside each K tile), K4 and K8a
+// make two passes over K, and the int8 P.V has an s32 accumulator of its
+// own and a dequantizing epilogue. The skeleton is the same: a producer
+// warpgroup issuing TMA loads into a ring with full / empty mbarriers, two
+// consumer warpgroups of 64 query rows taking turns on two named barriers,
+// S of tile t issued with P.V of tile t-1, on the same sm90.cuh helpers.
 //
 // What they compute, per (batch b, head h), from raw projections q, k, v
 // of (B, N, H*D) bf16 and (N, D) fp32 tables with the norm weights folded
 // in (the q tables also carry scale*log2(e), so the softmax runs in exp2):
 // q^ = rms(q) (x) (cq, sq), k^ = rms(k) (x) (ck, sk) (attention_common.cuh).
-//   K4:  q^ quantized per row from fp32, scale s_q = max(|q^|, 1e-12) / 127;
-//        k^ rounded to bf16, quantized with ONE scale per (b, h), s_k =
-//        max(|bf16(k^)|, 1e-12) / 127; s = fp32(s32) * (s_q * s_k); p =
-//        exp2(s - max_row s) rounded to bf16, bf16 P.V with fp32 sums, l the
-//        sum of the unrounded p, o = acc / l. The TRUE row max comes from a
-//        first pass over the int8 K as an INTEGER max of s32: with s_q * s_k
-//        > 0 and fp32(s32) exact (|s32| <= 127^2 * 128 < 2^24), the rounded
-//        product is monotone in s32, so fp32(max s32) * (s_q * s_k) is the
-//        max of the dequantized scores bit for bit.
-//   K8b: the scores of K7 (bf16 q^, k^) or of K7q (q^, k^ quantized per
-//        row from fp32, s = s32 * s_q * s_k[key]); an online softmax over
-//        128-key tiles, m the running row max; pb = exp2(s - (m - log2
-//        127)) in [0, 127], l += the unrounded pb, pq = round-half-even of
-//        pb as int8; V quantized per (b, h, column) over all rows; pv = pq
-//        v_q in s32 per tile, acc = acc * alpha + fp32(pv), alpha = exp2(
-//        m_old - m); o = acc / l * v_scale[col]. p is quantized against the
-//        running max of the card's 128-key tile (JAX's block is ~2176 keys),
-//        which the plain version reproduces with block_k = K8B_KEY_TILE.
-// Padded keys get p = 0 in both.
+// The scores:
+//   bf16 (K8a, K8b over K1's / K7's): q^ and k^ rounded to bf16, fp32 sums;
+//   K4's (K4, K8a over K4): q^ quantized per row from fp32, scale s_q =
+//        max(|q^|, 1e-12) / 127; k^ rounded to bf16, quantized with ONE scale
+//        per (b, h), s_k = max(|bf16(k^)|, 1e-12) / 127; s = fp32(s32) *
+//        (s_q * s_k);
+//   K7q's (K7q, K8b over K7q): q^ and k^ quantized per row from fp32, s =
+//        s32 * s_q * s_k[key].
+// The softmax and P.V:
+//   K4:  p = exp2(s - max_row s) rounded to bf16, bf16 P.V with fp32 sums,
+//        l the sum of the unrounded p, o = acc / l. The TRUE row max comes
+//        from a first pass over the int8 K as an INTEGER max of s32: with
+//        s_q * s_k > 0 and fp32(s32) exact (|s32| <= 127^2 * 128 < 2^24),
+//        the rounded product is monotone in s32, so fp32(max s32) * (s_q *
+//        s_k) is the max of the dequantized scores bit for bit.
+//   K8a: the true row max m from the first pass (over bf16 scores the max of
+//        the fp32 scores, which the second pass's products repeat bit for
+//        bit); pb = exp2(s - (m - log2 127)) in [0, 127], l += the unrounded
+//        pb, pq = round-half-even of pb as int8; V quantized per (b, h,
+//        column) over all rows; P.V pq v_q summed in s32 over every key (|sum|
+//        <= 127^2 N < 2^31; no rescale, the max being the true one); o =
+//        fp32(acc) / l * v_scale[col], the plain version's arithmetic.
+//   K7q: an online softmax over 128-key tiles, m the running row max, p =
+//        exp2(s - m) rounded to bf16, bf16 P.V with fp32 sums, alpha =
+//        exp2(m_old - m) rescaling l and the accumulator, o = acc / l.
+//   K8b: the same online softmax with pb = exp2(s - (m - log2 127)) in [0,
+//        127], l += the unrounded pb, pq its int8 levels; pv = pq v_q in s32
+//        per tile, acc = acc * alpha + fp32(pv); o = acc / l * v_scale[col].
+// K7q and K8b round p against the running max of the card's 128-key tile,
+// where JAX's streaming block is ~2176 keys: the plain versions reproduce
+// the card with block_k = K7Q_KEY_TILE / K8B_KEY_TILE (128), and a p of a
+// tile whose running max later grows is rescaled by alpha after its
+// rounding. K8a's single-KV p is against the true row max, as the plain
+// version's. Padded keys get p = 0 in all.
 //
 // Launches:
-//   1. q prep: prep_q8rows_kernel<D, 4 or 8> (int8 q^ and its per-row
-//      scales; K4, K8b over K7q) or q_prep_kernel<D, false> (bf16 q^; K8b
-//      over K7).
+//   1. q prep: prep_q8rows_kernel<D, TAG> (int8 q^ and its per-row scales;
+//      int8 scores; TAG 4: K4, 81: K8a, 7: K7q, 8: K8b) or q_prep_kernel<D,
+//      false> (bf16 q^; bf16 scores).
 //   2. K prep: K4's k_prep_kernel<D, true> (bf16 k^, max |bf16(k^)| per
-//      (b, h)) and k_quant_kernel; K8b's k_prep_kernel<D, false> (bf16 k^)
-//      or prep_q8rows_kernel<D, 8> (int8 k^ and per-key scales).
-//   3. V prep (K8b): v_amax_kernel and v_quant_kernel: V^T in int8, (B*H, D,
-//      NP) with NP = N rounded up to KEY_TILE, keys in v_perm's order within
-//      each 32-key chunk, so that pq's A fragment packs straight from the
-//      score accumulators (the register A of an s8 wgmma is, per warp, the
-//      m16n8k32 fragment the permutation was made for), zero past N.
+//      (b, h)) and k_quant_kernel (K4, K8a over K4); prep_q8rows_kernel<D,
+//      TAG> (int8 k^ and per-key scales; K7q, K8b over K7q); or
+//      k_prep_kernel<D, false> (bf16 k^; bf16 scores).
+//   3. V prep (K8a, K8b): v_amax_kernel and v_quant_kernel: V^T in int8,
+//      (B*H, D, NP) with NP = N rounded up to KEY_TILE, keys in v_perm's
+//      order within each 32-key chunk, so that pq's A fragment packs straight
+//      from the score accumulators (the register A of an s8 wgmma is, per
+//      warp, the m16n8k32 fragment the permutation was made for), zero past
+//      N.
 //   4. attn_int8_sm90_kernel: three warpgroups per (128 query rows, h, b).
 //      - Warpgroup 0, the producer, gives its registers away; one thread
 //        issues the TMA loads: the block's two 64-row q^ tiles, then the K
 //        and V tiles into a ring of STAGES stages with full and empty
-//        barriers kept apart for K and V (K4: every K tile twice, once for
-//        each pass; K8b over K7q: each K tile's 128 per-key scales with it,
-//        from the (B*H, NP) scales its K prep writes, rows padded to whole
-//        tiles).
+//        barriers kept apart for K and V (TWO_PASS: every K tile twice, once
+//        for each pass; K7q's scores: each K tile's 128 per-key scales with
+//        it, from the (B*H, NP) scales its K prep writes, rows padded to
+//        whole tiles).
 //      - Warpgroups 1 and 2, the consumers, own 64 query rows each. Per
 //        128-key tile: S by wgmma m64n128k32 s8 (or m64n128k16 bf16), A (q^)
 //        and B (the K tile) from shared memory, K-major; int8 scores are
 //        dequantized in place (the float's bits kept in the s32 registers);
-//        the softmax on the score registers; then P.V: K4's by wgmma
-//        m64nDk16 bf16 with A = bf16(p) from registers and B the V tile
-//        MN-major, into the fp32 accumulator; K8b's by wgmma m64nDk32 s8
-//        with A = pq from registers and B the int8 V^T tile, K-major, into a
-//        fresh s32 accumulator (scale-d 0), added as acc = acc * alpha +
-//        fp32(pv) (one FFMA) once it has landed.
+//        the softmax on the score registers; then P.V: bf16 (K4, K7q) by
+//        wgmma m64nDk16 with A = bf16(p) from registers and B the V tile
+//        MN-major, into the fp32 accumulator; int8 (K8a, K8b) by wgmma
+//        m64nDk32 s8 with A = pq from registers and B the int8 V^T tile,
+//        K-major, into an s32 accumulator: K8b's fresh each tile (scale-d
+//        0), added as acc = acc * alpha + fp32(pv) (one FFMA) once it has
+//        landed; K8a's one sum over every tile.
 //      - As in K1 / K7, S of tile t is issued with P.V of tile t-1 and the
 //        exp2s of tile t run while the tensor cores do that P.V; the
 //        consumers take turns to issue; the wait for the P.V sits behind a
 //        branch on the softmax's sums (ptxas hoists a wait to the top of its
 //        basic block); the ragged tile's mask is one branch ahead of the
-//        softmax. K4's first pass (S and the row's integer max) takes turns
-//        the same way. K8b packs tile t's levels while P.V of tile t-1 still
+//        softmax. The first pass (S and the row's max) takes turns the same
+//        way. The int8 P.V packs tile t's levels while P.V of tile t-1 still
 //        reads the last ones, into a second buffer, the two alternating over
 //        a loop of two tiles: the byte permutes fill the exp2s' latency
 //        instead of following the wait (attention_sm90_diag.py on an H100:
-//        2.20 against 2.34 ms a call at 1024px).
+//        2.20 against 2.34 ms a K8b call at 1024px).
 //      - min(SMs, items) persistent CTAs (see launch_int8), each walking
 //        items i, i + grid, ... (q tiles fastest) with its rings and turns
 //        running on, so that the producer loads the next item's q^ and
@@ -94,25 +123,30 @@
 //      - Registers: ptxas reports 168 (the launch bound of 384 threads,
 //        one CTA an SM) for every instance. K8b at D = 64 holds S (64), two
 //        level buffers (2 x 16), pv (32) and O (32), and ptxas spills a few
-//        values in its loop (attention_sm90_diag.py counts them); the D =
-//        128 instances spill more and ptxas serializes their wgmmas
-//        (advisory C7512): off the model's path.
+//        values in its loop (attention_sm90_diag.py counts them); K8a needs
+//        no O beside pv until the end. The D = 128 instances spill more and
+//        ptxas serializes their wgmmas (advisory C7512): off the model's
+//        path.
 //      - Rounding and conversion on the FMA pipe, not the SFU-rate F2I /
 //        I2F: an s32 below 2^22 in magnitude (a score, |s32| <= 127^2 *
 //        128; a tile's pv, <= 127 * 127 * 128) is fp32(x) =
 //        bits(x + 0x4B400000) - 0x1.8p23 exactly; pb (in [0, 127.5)) rounds
 //        half to even as pb + 0x1.8p23 under round-to-nearest, whose low
-//        byte is the level; four levels pack with byte permutes.
+//        byte is the level; four levels pack with byte permutes. K8a's sum
+//        over every key may pass 2^22: it converts once, by I2F, after the
+//        loop.
 //
-// What bounds them on this card, at the slice shapes (K4: B 8, N 1178, H
-// 19, D 64; K8b: B 8, N 4250, H 19, D 64): the softmax's B*H*N^2 exp2s,
-// 0.211 / 2.75 G, 0.0546 / 0.7107 ms on the SFU (16 a clock an SM); K4's
-// two s8 QK^T passes at the int8 rate and its bf16 P.V cost what K1's two
-// bf16 products cost, 54.0 G, 0.0546 ms; K8b's bf16 QK^T and s8 P.V, 0.533
-// ms over K7's scores, 0.355 ms over K7q's; q, k, v and o 92 / 331 MB,
-// 0.027 / 0.099 ms at 3.35 TB/s. The exp2 term bounds both, as it bounds K1
-// and K7, so the overlap of the softmax with the products is what the
-// design is for, as in attention_sm90.cu.
+// What bounds them on this card, at the slice shapes (K4, K8a: B 8, N 1178,
+// H 19, D 64; K7q, K8b: B 8, N 4250, H 19, D 64): the softmax's B*H*N^2
+// exp2s, 0.211 / 2.75 G, 0.0546 / 0.7107 ms on the SFU (16 a clock an SM);
+// K4's two s8 QK^T passes at the int8 rate and its bf16 P.V cost what K1's
+// two bf16 products cost, 54.0 G, 0.0546 ms; K8a's two QK^T passes and s8
+// P.V 0.0683 ms over bf16 scores (the tensor cores bound it there), 0.0410
+// over K4's; K7q's s8 QK^T and bf16 P.V 0.533 ms; K8b's bf16 QK^T and s8
+// P.V, 0.533 ms over K7's scores, 0.355 ms over K7q's; q, k, v and o 92 /
+// 331 MB, 0.027 / 0.099 ms at 3.35 TB/s. Elsewhere the exp2 term bounds
+// them, as it bounds K1 and K7, so the overlap of the softmax with the
+// products is what the design is for, as in attention_sm90.cu.
 
 #include <limits.h>
 
@@ -179,12 +213,14 @@ struct Rows {
   static constexpr int KSTEPS = BYTES / 32;
 };
 
-// Shared memory of attn_int8_sm90_kernel<D, QK8, PV8>, from a 1024-byte
-// aligned base.
-template <int D, bool QK8, bool PV8>
+// Shared memory of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>, from a
+// 1024-byte aligned base.
+template <int D, bool QK8, bool PV8, bool TWO_PASS>
 struct SmemI8 {
   using R = Rows<D, QK8>;
-  static constexpr bool PER_KEY = QK8 && PV8;
+  // int8 scores of the streaming kernels: a k scale per key, beside each K
+  // tile
+  static constexpr bool PER_KEY = QK8 && !TWO_PASS;
   static constexpr int STAGES = D == 128 ? 3 : 4;
   static constexpr int Q_TILE = QROWS * R::BYTES;    // one consumer's q^
   static constexpr int K_TILE = KEY_TILE * R::BYTES;
@@ -215,13 +251,13 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
 
 // grid: min(SMs, items) persistent CTAs, each walking items (128 query
 // rows, head, sample) i, i + grid, ...; INT8_THREADS threads, SmemI8<D,
-// QK8, PV8>::BYTES of dynamic shared memory. tm_q, tm_k: tensor maps of q^ and
-// k^ (int8 with QK8, else bf16; encode_heads); tm_v: of bf16 v (K4) or of
-// int8 V^T (B*H*D, NP) (K8b); tm_ks: of the per-key k scales, (B*H, NP)
-// fp32 (K8b over K7q; else unused). q_scale (B*H, N): q^'s per-row scales
-// (QK8); k_amax (B*H): max |bf16(k^)| (K4); v_amax (B*H, D) (K8b); o (B,
-// N, H*D) bf16.
-template <int D, bool QK8, bool PV8>
+// QK8, PV8, TWO_PASS>::BYTES of dynamic shared memory. tm_q, tm_k: tensor
+// maps of q^ and k^ (int8 with QK8, else bf16; encode_heads); tm_v: of bf16
+// v (K4, K7q) or of int8 V^T (B*H*D, NP) (K8a, K8b); tm_ks: of the per-key
+// k scales, (B*H, NP) fp32 (K7q, K8b over K7q; else unused). q_scale (B*H,
+// N): q^'s per-row scales (QK8); k_amax (B*H): max |bf16(k^)| (K4, K8a
+// over K4); v_amax (B*H, D) (PV8); o (B, N, H*D) bf16.
+template <int D, bool QK8, bool PV8, bool TWO_PASS>
 __global__ void __launch_bounds__(INT8_THREADS, 1)
 attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -231,10 +267,9 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ k_amax,
                       const float* __restrict__ v_amax, bf16* __restrict__ o,
                       int N, int H, int B) {
-  using S = SmemI8<D, QK8, PV8>;
+  using S = SmemI8<D, QK8, PV8, TWO_PASS>;
   using R = Rows<D, QK8>;
   static_assert(QK8 || PV8, "the bf16 kernels are attention_sm90.cu's");
-  constexpr bool TWO_PASS = QK8 && !PV8;  // K4: the row max first
   constexpr bool PER_KEY = S::PER_KEY;
   constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -373,7 +408,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float* qsr = q_scale + (size_t)bh * N;
         if (n0 < N) qs0 = qsr[n0];
         if (n1 < N) qs1 = qsr[n1];
-        if constexpr (TWO_PASS) {
+        if constexpr (TWO_PASS) {  // one k scale per (b, h)
           const float ks = fmaxf(k_amax[bh], 1e-12f) / 127.f;
           qs0 *= ks;
           qs1 *= ks;
@@ -400,8 +435,9 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         wgmma_commit();
       };
-      // issue P.V of key tile t, its A fragments in pa: K4 acc += bf16(p) v;
-      // K8b pv = pq v_q
+      // issue P.V of key tile t, its A fragments in pa: K4, K7q acc +=
+      // bf16(p) v; K8b pv = pq v_q; K8a pv += pq v_q (one s32 sum over every
+      // key: its p is against the true row max, so there is no rescale)
       auto issue_pv = [&](int t, const uint32_t (&pa)[NP]) {
         const int vc = vbase + t, st = vc % STAGES;
         mbar_wait(full_v + 8 * st, (vc / STAGES) & 1);
@@ -412,7 +448,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int kk = 0; kk < KEY_TILE / 32; ++kk) {
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1],
                                    pa[4 * kk + 2], pa[4 * kk + 3]};
-            wgmma_s8_rs<D>(pv, a, desc_s8(vb, kk), kk > 0);
+            wgmma_s8_rs<D>(pv, a, desc_s8(vb, kk), kk > 0 || (TWO_PASS && t > 0));
           }
         } else {
 #pragma unroll
@@ -437,10 +473,17 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // b * (s_q s_k) + kx, kx = -(0x1.8p23 * (s_q s_k) + max) rounded once
       // per row, an error that is the same for every key of the row and
       // scales all its p alike (cancelling in acc / l but for p's bf16
-      // rounding). K8b over K7q: s32 * s_q * s_k[key] (the TPU kernel's
-      // order), the scales read before the stage is released.
+      // rounding). K8a over K4's scores: s32 * (s_q s_k), as its plain
+      // version rounds it, since its levels round p itself. K8b over K7q:
+      // s32 * s_q * s_k[key] (the TPU kernel's order). K7q: t = s32 *
+      // s_k[key] only; the softmax takes s_q in its max and in the FFMA of
+      // each exp2's argument, fma(t, s_q, -m), one multiply a score fewer
+      // (rounded once where the plain version rounds s = (s32 s_q) s_k and
+      // then s - m: p moves by ~1e-7 relative, far below its bf16
+      // rounding). The per-key scales are read before the stage is
+      // released.
       auto dequant = [&](int kc) {
-        if constexpr (TWO_PASS) {
+        if constexpr (TWO_PASS && !PV8) {
 #pragma unroll
           for (int i = 0; i < KEY_TILE / 2; ++i)
             set_f(s[i], fmaf(__int_as_float(s[i] + ROUND_MAGIC_BITS),
@@ -458,9 +501,13 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               k1 = kk.y;
             }
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
-              set_f(s[4 * j + e],
-                    i2f(s[4 * j + e]) * (e < 2 ? qs0 : qs1) * ((e & 1) ? k1 : k0));
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (PV8 || TWO_PASS)
+                set_f(s[4 * j + e],
+                      i2f(s[4 * j + e]) * (e < 2 ? qs0 : qs1) * ((e & 1) ? k1 : k0));
+              else
+                set_f(s[4 * j + e], i2f(s[4 * j + e]) * ((e & 1) ? k1 : k0));
+            }
           }
         }
       };
@@ -485,11 +532,20 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
       // s -> p in place: K4 p = exp2 of the argument dequant shifted by
-      // pass 1's row max; K8b the running max (alpha of rows g, g + 8 in a0,
-      // a1) and pb = exp2(s - (m - log2 127)); l the sums of the unrounded p
+      // pass 1's row max; K8a pb = exp2(s - (m - log2 127)) against pass 1's
+      // row max m; K7q, K8b the running max m (alpha of rows g, g + 8 in a0,
+      // a1), p = exp2(s - m) (K7q) or pb = exp2(s - (m - log2 127)) (K8b); l
+      // the sums of the unrounded p
       auto softmax = [&](float& a0, float& a1) {
         float sh0 = 0.f, sh1 = 0.f;  // K4: the argument is shifted (dequant)
-        if constexpr (PV8) {
+        // K7q's deferred s_q of rows g, g + 8 (see dequant); 1 elsewhere,
+        // where fma(x, 1, -sh) is x - sh
+        constexpr bool DEFER_Q = QK8 && !PV8 && !TWO_PASS;
+        const float f0 = DEFER_Q ? qs0 : 1.f, f1 = DEFER_Q ? qs1 : 1.f;
+        if constexpr (TWO_PASS && PV8) {
+          sh0 = m0 - LOG2_127;
+          sh1 = m1 - LOG2_127;
+        } else if constexpr (!TWO_PASS) {
           constexpr int PARTS = 4;  // shorter chains for the exp2s to wait on
           float x0[PARTS], x1[PARTS];
 #pragma unroll
@@ -512,25 +568,26 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
           // every row sees key 0 in tile 0, so the running max is finite
           // from there on and exp2(-inf - finite) = 0 clears the empty start
-          const float mn0 = fmaxf(m0, quad_max(mx0));
-          const float mn1 = fmaxf(m1, quad_max(mx1));
+          // (K7q: the max of t times s_q > 0, the max of the scores)
+          const float mn0 = fmaxf(m0, quad_max(mx0) * f0);
+          const float mn1 = fmaxf(m1, quad_max(mx1) * f1);
           a0 = fast_exp2(m0 - mn0);
           a1 = fast_exp2(m1 - mn1);
           m0 = mn0;
           m1 = mn1;
           l0 *= a0;
           l1 *= a1;
-          sh0 = m0 - LOG2_127;
-          sh1 = m1 - LOG2_127;
+          sh0 = PV8 ? m0 - LOG2_127 : m0;
+          sh1 = PV8 ? m1 - LOG2_127 : m1;
         }
 #pragma unroll
         for (int j = 0; j < KEY_TILE / 8; ++j) {
-          auto e2 = [&](Score x, float sh) {
-            if constexpr (PV8) return fast_exp2(f_of(x) - sh);
-            else return fast_exp2(f_of(x));
+          auto e2 = [&](Score x, float f, float sh) {
+            if constexpr (TWO_PASS && !PV8) return fast_exp2(f_of(x));
+            else return fast_exp2(fmaf(f_of(x), f, -sh));
           };
-          const float p0 = e2(s[4 * j], sh0), p1 = e2(s[4 * j + 1], sh0);
-          const float p2 = e2(s[4 * j + 2], sh1), p3 = e2(s[4 * j + 3], sh1);
+          const float p0 = e2(s[4 * j], f0, sh0), p1 = e2(s[4 * j + 1], f0, sh0);
+          const float p2 = e2(s[4 * j + 2], f1, sh1), p3 = e2(s[4 * j + 3], f1, sh1);
           set_f(s[4 * j], p0);
           set_f(s[4 * j + 1], p1);
           set_f(s[4 * j + 2], p2);
@@ -560,10 +617,10 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       };
       // K8b: acc = acc * alpha + fp32(pv), one FFMA, with the alpha of the
       // tile whose pv has just landed (a0p, a1p: the tile before the one
-      // whose softmax has run)
+      // whose softmax has run). K8a sums pv in s32 over every key instead.
       float a0p = 0.f, a1p = 0.f;
       auto add_pv = [&]() {
-        if constexpr (PV8) {
+        if constexpr (PV8 && !TWO_PASS) {
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             acc[4 * j] = fmaf(acc[4 * j], a0p, i2f(pv[4 * j]));
@@ -575,8 +632,11 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       };
 
       if constexpr (TWO_PASS) {
-        // pass 1: the true row max, as the integer max of the s32 scores
+        // pass 1: the true row max; of int8 scores as the integer max of the
+        // s32 scores, of bf16 ones (K8a) as the max of the fp32 scores,
+        // which pass 2's products repeat bit for bit
         int mx0 = INT_MIN, mx1 = INT_MIN;
+        float fx0 = -INFINITY, fx1 = -INFINITY;
         for (int t = 0; t < ntiles; ++t) {
           take_turn();
           issue_scores(kbase + t);
@@ -584,38 +644,52 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           wgmma_wait<0>();
           reg_fence(s);
           release(empty_k, kbase + t);
-          const int k0 = t * KEY_TILE;
-          if (k0 + KEY_TILE > N) {
+          if constexpr (!QK8) {
+            mask(t);
 #pragma unroll
             for (int j = 0; j < KEY_TILE / 8; ++j) {
-              const int col = k0 + j * 8 + t4 * 2;
-              if (col >= N) s[4 * j] = s[4 * j + 2] = INT_MIN;
-              if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = INT_MIN;
+              fx0 = fmaxf(fx0, fmaxf(f_of(s[4 * j]), f_of(s[4 * j + 1])));
+              fx1 = fmaxf(fx1, fmaxf(f_of(s[4 * j + 2]), f_of(s[4 * j + 3])));
             }
-          }
-          int x0[4], x1[4];
+          } else {
+            const int k0 = t * KEY_TILE;
+            if (k0 + KEY_TILE > N) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            x0[i] = max(s[4 * i], s[4 * i + 1]);
-            x1[i] = max(s[4 * i + 2], s[4 * i + 3]);
-          }
+              for (int j = 0; j < KEY_TILE / 8; ++j) {
+                const int col = k0 + j * 8 + t4 * 2;
+                if (col >= N) s[4 * j] = s[4 * j + 2] = INT_MIN;
+                if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = INT_MIN;
+              }
+            }
+            int x0[4], x1[4];
 #pragma unroll
-          for (int j = 4; j < KEY_TILE / 8; ++j) {
-            x0[j % 4] = max(x0[j % 4], max(s[4 * j], s[4 * j + 1]));
-            x1[j % 4] = max(x1[j % 4], max(s[4 * j + 2], s[4 * j + 3]));
+            for (int i = 0; i < 4; ++i) {
+              x0[i] = max(s[4 * i], s[4 * i + 1]);
+              x1[i] = max(s[4 * i + 2], s[4 * i + 3]);
+            }
+#pragma unroll
+            for (int j = 4; j < KEY_TILE / 8; ++j) {
+              x0[j % 4] = max(x0[j % 4], max(s[4 * j], s[4 * j + 1]));
+              x1[j % 4] = max(x1[j % 4], max(s[4 * j + 2], s[4 * j + 3]));
+            }
+            mx0 = max(mx0, max(max(x0[0], x0[1]), max(x0[2], x0[3])));
+            mx1 = max(mx1, max(max(x1[0], x1[1]), max(x1[2], x1[3])));
           }
-          mx0 = max(mx0, max(max(x0[0], x0[1]), max(x0[2], x0[3])));
-          mx1 = max(mx1, max(max(x1[0], x1[1]), max(x1[2], x1[3])));
         }
 #pragma unroll
         for (int o = 1; o <= 2; o <<= 1) {
           mx0 = max(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
           mx1 = max(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
         }
-        m0 = i2f(mx0) * qs0;  // = max over keys of fp32(s32) * (s_q * s_k)
-        m1 = i2f(mx1) * qs1;
-        kx0 = -__fadd_rn(__fmul_rn(ROUND_MAGIC, qs0), m0);
-        kx1 = -__fadd_rn(__fmul_rn(ROUND_MAGIC, qs1), m1);
+        if constexpr (!QK8) {
+          m0 = quad_max(fx0);
+          m1 = quad_max(fx1);
+        } else {
+          m0 = i2f(mx0) * qs0;  // = max over keys of fp32(s32) * (s_q * s_k)
+          m1 = i2f(mx1) * qs1;
+          kx0 = -__fadd_rn(__fmul_rn(ROUND_MAGIC, qs0), m0);
+          kx1 = -__fadd_rn(__fmul_rn(ROUND_MAGIC, qs1), m1);
+        }
       }
 
       float a0 = 1.f, a1 = 1.f;
@@ -670,6 +744,17 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         add_pv();
         a0p = a0;
         a1p = a1;
+        if constexpr (!PV8 && !TWO_PASS) {
+          // K7q: the sums so far, against the last tile's running max, to
+          // this tile's, before its P.V adds to them
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            acc[4 * j] *= a0;
+            acc[4 * j + 1] *= a0;
+            acc[4 * j + 2] *= a1;
+            acc[4 * j + 3] *= a1;
+          }
+        }
         if constexpr (!PV8) pack_p(pk);
       };
       // the last tile's P.V, its fragments in pl
@@ -696,13 +781,17 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         } else {
           last_pv(p);
         }
+        if constexpr (TWO_PASS) {  // K8a: the s32 sum over every key
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] = (float)pv[i];
+        }
       } else {
         for (int t = 1; t < ntiles; ++t) step(t, p, p);
         last_pv(p);
       }
 
-      // o = acc / l (K8b: times V's column scales), bf16, rows past N not
-      // stored
+      // o = acc / l (K8a, K8b: times V's column scales), bf16, rows past N
+      // not stored
       l0 = quad_sum(l0);
       l1 = quad_sum(l1);
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
@@ -729,64 +818,57 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ----------------------------------------------------------
 
-// The scratch of both entry points (unused ones may be null):
+// The scratch of the entry points (unused ones may be null):
 //   q_prep: (B, N, H*D) q^, int8 with int8 scores, else bf16;
 //   q_scale: (B*H, N) fp32, q^'s per-row scales (int8 scores);
-//   k_prep: (B, N, H*D) bf16 k^ (K4, K8b over K7);
+//   k_prep: (B, N, H*D) bf16 k^ (K4, K8a, K8b over K7);
 //   k_q: (B, N, H*D) int8 k^ (int8 scores);
-//   k_stat: (B*H) fp32, zero on entry (K4's max |bf16(k^)|; K8b over K7:
-//     the bf16 prep's ||k^||^2 maxima, unused), or (B*H, NP) fp32 per-key
-//     k scales (K8b over K7q);
+//   k_stat: (B*H) fp32, zero on entry (K4's and K8a's max |bf16(k^)|; over
+//     bf16 scores the bf16 prep's ||k^||^2 maxima, unused), or (B*H, NP)
+//     fp32 per-key k scales (K7q, K8b over K7q);
 //   v_amax: (B*H, D) fp32, zero on entry; v_q: (B*H, D, NP) int8, NP = N
-//     rounded up to KEY_TILE (K8b).
+//     rounded up to KEY_TILE (K8a, K8b).
 struct Args {
   const void *q, *k, *v, *cq, *sq, *ck, *sk;
   void *q_prep, *q_scale, *k_prep, *k_q, *k_stat, *v_amax, *v_q, *out;
-  int B, N, H;
+  int B, N, H, dn;
   float eps_q, eps_k;
   cudaStream_t st;
 };
 
 // The q, K (and V) preps, the tensor maps, the attention; the first error:
 // a cudaError_t of a launch or the CUresult of a tensor-map encode.
-template <int D, bool QK8, bool PV8>
+template <int D, bool QK8, bool PV8, bool TWO_PASS>
 int launch_int8(const Args& a) {
-  using S = SmemI8<D, QK8, PV8>;
+  using S = SmemI8<D, QK8, PV8, TWO_PASS>;
   using R = Rows<D, QK8>;
+  // the per-row preps' tag: the TPU kernel the launch serves
+  constexpr int TAG = TWO_PASS ? (PV8 ? 81 : 4) : PV8 ? 8 : 7;
   const int B = a.B, N = a.N, H = a.H;
-  const dim3 gp((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
   const int np = (N + KEY_TILE - 1) / KEY_TILE * KEY_TILE;
+  int e;
   if constexpr (QK8)
-    prep_q8rows_kernel<D, PV8 ? 8 : 4><<<gp, PREP_THREADS, 0, a.st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const float*>(a.cq),
-        static_cast<const float*>(a.sq), static_cast<int8_t*>(a.q_prep),
-        static_cast<float*>(a.q_scale), N, H, N, a.eps_q);
+    e = launch_q8rows<D, TAG>(a.q, a.cq, a.sq, a.q_prep, a.q_scale, B, N, H,
+                              N, a.eps_q, a.dn, a.st);
   else
-    q_prep_kernel<D, false><<<gp, PREP_THREADS, 0, a.st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const float*>(a.cq),
-        static_cast<const float*>(a.sq), static_cast<bf16*>(a.q_prep),
-        nullptr, N, H, a.eps_q);
-  int e = (int)cudaGetLastError();
+    e = launch_q_prep<D, false>(a.q, a.cq, a.sq, a.q_prep, nullptr, B, N, H,
+                                a.eps_q, a.dn, a.st);
   if (e != 0) return e;
-  if constexpr (QK8 && !PV8) {
+  if constexpr (QK8 && TWO_PASS)
     e = launch_k_prep_q8bh<D>(a.k, a.ck, a.sk, a.k_prep, a.k_q, a.k_stat, B,
-                              N, H, a.eps_k, a.st);
-  } else if constexpr (QK8) {
-    prep_q8rows_kernel<D, 8><<<gp, PREP_THREADS, 0, a.st>>>(
-        static_cast<const bf16*>(a.k), static_cast<const float*>(a.ck),
-        static_cast<const float*>(a.sk), static_cast<int8_t*>(a.k_q),
-        static_cast<float*>(a.k_stat), N, H, np, a.eps_k);
-    e = (int)cudaGetLastError();
-  } else {
+                              N, H, a.eps_k, a.dn, a.st);
+  else if constexpr (QK8)
+    e = launch_q8rows<D, TAG>(a.k, a.ck, a.sk, a.k_q, a.k_stat, B, N, H, np,
+                              a.eps_k, a.dn, a.st);
+  else
     e = launch_k_prep<D, false>(a.k, a.ck, a.sk, a.k_prep, a.k_stat, B, N, H,
-                                a.eps_k, a.st);
-  }
+                                a.eps_k, a.dn, a.st);
   if (e != 0) return e;
   if constexpr (PV8) {
     e = launch_v_prep<D>(a.v, a.v_amax, a.v_q, B, N, H, np, a.st);
     if (e != 0) return e;
   }
-  auto kernel = attn_int8_sm90_kernel<D, QK8, PV8>;
+  auto kernel = attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>;
   e = allow_smem(kernel, S::BYTES);
   if (e != 0) return e;
   CUtensorMap tm_q, tm_k, tm_v, tm_ks;
@@ -803,7 +885,7 @@ int launch_int8(const Args& a) {
                    : encode_heads(&tm_ks, a.q_prep, R::ELEM, R::W, B, N, H,
                                   D, QROWS);  // unused
   if (e != 0) return e;
-  // persistent CTAs: K4's 1520 items at 512px are 11.5 waves of short ones
+// persistent CTAs: K4's 1520 items at 512px are 11.5 waves of short ones
   // (10 key tiles, twice over), whose tail wave and per-CTA start and end
   // a CTA per item paid (attention_sm90_diag.py's int8 variants: ~5%; K8b's
   // 34-tile items ~1%)
@@ -822,47 +904,64 @@ int launch_int8(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <bool QK8, bool PV8>
+template <bool QK8, bool PV8, bool TWO_PASS>
 int dispatch(const Args& a, int D) {
   switch (D) {
-    case 16: return launch_int8<16, QK8, PV8>(a);
-    case 32: return launch_int8<32, QK8, PV8>(a);
-    case 64: return launch_int8<64, QK8, PV8>(a);
-    case 128: return launch_int8<128, QK8, PV8>(a);
+    case 16: return launch_int8<16, QK8, PV8, TWO_PASS>(a);
+    case 32: return launch_int8<32, QK8, PV8, TWO_PASS>(a);
+    case 64: return launch_int8<64, QK8, PV8, TWO_PASS>(a);
+    case 128: return launch_int8<128, QK8, PV8, TWO_PASS>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Both entry points: q, k, v, out (B, N, H*D) bf16, contiguous, 16-byte
+// Every entry point: q, k, v, out (B, N, H*D) bf16, contiguous, 16-byte
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
-// also carry scale*log2(e)); the scratch of `Args`; int8_qk (K8b) selects
-// K7q's int8 scores under the int8 P.V, else K7's. Each returns 0, or the
-// first error: a cudaError_t of a launch or the CUresult of a tensor-map
-// encode.
+// also carry scale*log2(e)); the scratch of `Args`; D the instance's head
+// dim (16, 32, 64, 128) and dn <= D the model's (attention_common.cuh);
+// int8_qk (K8a, K8b) selects int8 scores under the int8 P.V (K4's for K8a,
+// K7q's for K8b), else bf16 ones (K1's, K7's). Each returns 0, or the first
+// error: a cudaError_t of a launch or the CUresult of a tensor-map encode.
 #define SD3_INT8_SM90_PARAMS                                                  \
   const void *q, const void *k, const void *v, const void *cq,               \
       const void *sq, const void *ck, const void *sk, void *q_prep,          \
       void *q_scale, void *k_prep, void *k_q, void *k_stat, void *v_amax,    \
-      void *v_q, void *out, int B, int N, int H, int D, int int8_qk,         \
+      void *v_q, void *out, int B, int N, int H, int D, int dn, int int8_qk, \
       float eps_q, float eps_k, void *stream
 #define SD3_INT8_SM90_ARGS                                                    \
   Args{q,      k,      v,   cq,    sq,    ck, sk, q_prep, q_scale, k_prep,    \
-       k_q,    k_stat, v_amax, v_q, out, B, N, H, eps_q, eps_k,              \
+       k_q,    k_stat, v_amax, v_q, out, B, N, H, dn, eps_q, eps_k,          \
        static_cast<cudaStream_t>(stream)}
 
 // K4: int8 QK^T with one k scale per (b, h), the true row max, bf16 P.V.
 // q_prep (int8), q_scale, k_prep, k_q, k_stat (B*H).
 extern "C" int sd3_fused_attention_int8qk(SD3_INT8_SM90_PARAMS) {
   (void)int8_qk;
-  return dispatch<true, false>(SD3_INT8_SM90_ARGS, D);
+  return dispatch<true, false, true>(SD3_INT8_SM90_ARGS, D);
+}
+
+// K7q: online softmax over 128-key tiles of int8 scores (q^ and k^ per row,
+// s = s32 * s_q * s_k[key]), bf16 P.V. q_prep (int8), q_scale, k_q, k_stat
+// (B*H, NP).
+extern "C" int sd3_fused_attention_stream_int8qk(SD3_INT8_SM90_PARAMS) {
+  (void)int8_qk;
+  return dispatch<true, false, false>(SD3_INT8_SM90_ARGS, D);
+}
+
+// K8a: the true row max in a first pass, int8 P.V summed in s32 over every
+// key; K1's bf16 scores (q_prep bf16, k_prep, k_stat (B*H)) or with int8_qk
+// K4's (q_prep int8, q_scale, k_prep, k_q, k_stat (B*H)); v_amax, v_q.
+extern "C" int sd3_fused_attention_int8pv(SD3_INT8_SM90_PARAMS) {
+  return int8_qk ? dispatch<true, true, true>(SD3_INT8_SM90_ARGS, D)
+                 : dispatch<false, true, true>(SD3_INT8_SM90_ARGS, D);
 }
 
 // K8b: online softmax over 128-key tiles, int8 P.V; K7's scores (q_prep
 // bf16, k_prep, k_stat (B*H)) or with int8_qk K7q's (q_prep int8, q_scale,
 // k_q, k_stat (B*H, NP)); v_amax, v_q.
 extern "C" int sd3_fused_attention_stream_int8pv(SD3_INT8_SM90_PARAMS) {
-  return int8_qk ? dispatch<true, true>(SD3_INT8_SM90_ARGS, D)
-                 : dispatch<false, true>(SD3_INT8_SM90_ARGS, D);
+  return int8_qk ? dispatch<true, true, false>(SD3_INT8_SM90_ARGS, D)
+                 : dispatch<false, true, false>(SD3_INT8_SM90_ARGS, D);
 }

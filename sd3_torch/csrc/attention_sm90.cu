@@ -517,7 +517,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 struct Args {
   const void *q, *k, *v, *cq, *sq, *ck, *sk;
   void *q_prep, *q_norm, *k_prep, *k_max2, *out;
-  int B, N, H;
+  int B, N, H, dn;
   float eps_q, eps_k;
   cudaStream_t st;
 };
@@ -526,15 +526,11 @@ struct Args {
 template <int D, class SM>
 int launch_sm90(const Args& a) {
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
-  dim3 g((a.N + PREP_ROWS - 1) / PREP_ROWS, a.B * a.H);
-  q_prep_kernel<D, BOUNDED><<<g, PREP_THREADS, 0, a.st>>>(
-      static_cast<const bf16*>(a.q), static_cast<const float*>(a.cq),
-      static_cast<const float*>(a.sq), static_cast<bf16*>(a.q_prep),
-      static_cast<float*>(a.q_norm), a.N, a.H, a.eps_q);
-  int e = (int)cudaGetLastError();
+  int e = launch_q_prep<D, BOUNDED>(a.q, a.cq, a.sq, a.q_prep, a.q_norm, a.B,
+                                    a.N, a.H, a.eps_q, a.dn, a.st);
   if (e != 0) return e;
   e = launch_k_prep<D, false>(a.k, a.ck, a.sk, a.k_prep, a.k_max2, a.B, a.N,
-                              a.H, a.eps_k, a.st);
+                              a.H, a.eps_k, a.dn, a.st);
   if (e != 0) return e;
   CUtensorMap tm_q, tm_k, tm_v;
   e = encode_heads(&tm_q, a.q_prep, 2, Sm90<D>::W, a.B, a.N, a.H, D, QROWS);
@@ -601,16 +597,18 @@ int dispatch(const Args& a, int D) {
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); q_prep, k_prep (B, N, H*D) bf16 scratch;
 // q_norm (B*H, N) fp32 scratch (K1; K7 takes none); k_max2 (B*H) fp32, zero
-// on entry. Each returns 0, or the first error: a cudaError_t of a launch or
-// the CUresult of a tensor-map encode.
+// on entry. D is the instance's head dim (16, 32, 64, 128) and dn <= D the
+// model's: heads of dn < D values arrive zero-padded to D, tables too (see
+// attention_common.cuh). Each returns 0, or the first error: a cudaError_t
+// of a launch or the CUresult of a tensor-map encode.
 #define SD3_SM90_PARAMS                                                     \
   const void *q, const void *k, const void *v, const void *cq,              \
       const void *sq, const void *ck, const void *sk, void *q_prep,         \
       void *q_norm, void *k_prep, void *k_max2, void *out, int B, int N,    \
-      int H, int D, float eps_q, float eps_k, void *stream
+      int H, int D, int dn, float eps_q, float eps_k, void *stream
 #define SD3_SM90_ARGS                                                       \
   Args{q,      k,      v,      cq,  sq, ck, sk,    q_prep, q_norm, k_prep,  \
-       k_max2, out,    B,      N,   H,  eps_q, eps_k,                       \
+       k_max2, out,    B,      N,   H,  dn, eps_q, eps_k,                   \
        static_cast<cudaStream_t>(stream)}
 
 // K1: the bounded softmax.
@@ -623,12 +621,12 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
   return dispatch<Softmax::Online>(SD3_SM90_ARGS, D);
 }
 
-// K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v. Every
-// tensor argument but lse is a (B, H, N, D) bf16 view with the head dim
-// contiguous, 16-byte aligned start and (b, h, n) strides, the element
-// strides in `strides`, three per tensor (q, k, v, o). Returns 0, or the
-// first error: a cudaError_t of the launch or the CUresult of a tensor-map
-// encode.
+// K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v, D 16,
+// 32, 64 or 128. Every tensor argument but lse is a (B, H, N, D) bf16 view
+// with the head dim contiguous, 16-byte aligned start and (b, h, n)
+// strides, the element strides in `strides`, three per tensor (q, k, v,
+// o). Returns 0, or the first error: a cudaError_t of the launch or the
+// CUresult of a tensor-map encode.
 extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        const long long* strides, int B, int H,
@@ -636,8 +634,10 @@ extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_flash<16>(q, k, v, o, lse, strides, B, H, N, scale, st);
     case 32: return launch_flash<32>(q, k, v, o, lse, strides, B, H, N, scale, st);
     case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, scale, st);
+    case 128: return launch_flash<128>(q, k, v, o, lse, strides, B, H, N, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

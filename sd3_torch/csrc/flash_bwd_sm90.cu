@@ -37,8 +37,9 @@
 //   STAGES stages of streamed tiles. The tensor maps are 4-D views
 //   (D, N, H, B) built from the (b, h, n) element strides of each tensor,
 //   so the (B, N, H, D)-strided views of the training path are read in
-//   place, with boxes (W / 2, rows, 1, 1), swizzled 64 or 128 bytes for
-//   D = 32, 64 (SwizzledRows, sm90.cuh). TMA zero-fills rows past N.
+//   place, with boxes (W / 2, rows, 1, 1), swizzled 32, 64 or 128 bytes
+//   for D = 16, 32, 64 and as two 128-byte atom columns for D = 128
+//   (SwizzledRows, sm90.cuh). TMA zero-fills rows past N.
 // - Warpgroups 1 and 2, the consumers, own 64 rows each. Their products
 //   are wgmma m64n64k16 with B a shared-memory tile: the score products
 //   with A = q, dO (K6a, SS) or k, v (K6b, RS: the A fragments loaded once
@@ -60,16 +61,17 @@
 // K6a, flash_dq_sm90_kernel: a block is 128 query rows. Resident: each
 // consumer's 64 rows of q and dO (TMA), lse of its rows and the delta it
 // computes from o and dO (fp32 dot products of bf16 rows, four lanes a
-// row). Streamed: 64-key tiles of k and v, with full / empty barriers
-// kept apart for K and V (a V stage frees once dP is done, a K stage once
-// dQ is). Per key tile: S = q k^T and dP = dO v^T (N = 64),
+// row). Streamed: 64-key tiles of k and v (32-key at D = 128), with full
+// / empty barriers kept apart for K and V (a V stage frees once dP is
+// done, a K stage once dQ is). Per key tile: S = q k^T and dP = dO v^T,
 // ds = p (dp - delta), dQ += bf16(ds) k (N = D, k MN-major). Padded keys
 // of the ragged last tile go to -inf before the exp2 (a zero key scores 0,
 // not -inf), so their p is 0. The key tile is 64, not K7's 128: at 128, S,
 // dP, dQ and the packed ds of the tile before take 192 of a consumer's
 // registers, and ptxas spilled 724 bytes of them.
 // K6b, flash_dkv_sm90_kernel: an item is 128 key rows. Resident: each
-// consumer's 64 rows of k and v, in registers. Streamed: 64-row tiles of q
+// consumer's 64 rows of k and v, in registers (D <= 64). Streamed: 64-row
+// tiles of q
 // and dO with the matching slices of lse (over the scale) and delta, which
 // the producer warp's lanes load into the stage before they arrive on its
 // full barrier. Per query tile: S^T = k q^T and dP^T = v dO^T (N = 64),
@@ -79,6 +81,15 @@
 // would give them p = 1. Key rows past N are not written. The query tile
 // is 64 rows, not 128: S^T, dP^T, dK and dV take 128 of a consumer's
 // registers at 64, and would not fit beside the packed operands at 128.
+// At D = 128 dK and dV alone take 128 registers, and k and v as register
+// fragments 64 more: there the score products read k and v from the
+// resident tiles in shared memory (SS; the tiles are freed for the next
+// item once the item's last score products are done), and the query tile
+// is 32 rows (S^T, dP^T 32 registers, their packed operands 16), which
+// keeps a consumer within its 232 registers. K6a at D = 128 holds dQ (64),
+// S, dP (32) and the packed ds (8) with a key tile of 32 (at 64 keys ptxas
+// spilled 40 bytes); its rings (4 stages of 32-key k and v tiles, 8 KB
+// each, beside the 64 KB of q and dO) take 130 KB of shared memory.
 //
 // What bounds them on this card, at the 512px training shape (B 4, H 19,
 // N 1178, D 64): K6a's three products are 6*B*H*N^2*D = 40.5 G FLOP,
@@ -97,8 +108,6 @@ namespace {
 constexpr int ROWS = 64;                   // rows per consumer
 constexpr int CONSUMERS = 2;               // consumer warpgroups per block
 constexpr int BLOCK = ROWS * CONSUMERS;    // rows per block
-constexpr int KEY_TILE = 64;               // K6a: keys per k / v tile
-constexpr int Q_TILE = 64;                 // K6b: queries per q / dO tile
 constexpr int STAGES = 4;                  // ring stages of both kernels
 constexpr int WG = 128;                    // threads per warpgroup
 constexpr int THREADS = WG * (1 + CONSUMERS);
@@ -113,8 +122,11 @@ constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of flash_dq_sm90_kernel<D>, from a 1024-byte aligned base.
+// K6a's key tile: 64 keys; 32 at D = 128, where dQ's 64 accumulators beside
+// S, dP and the packed ds of 64 keys spilled (40 bytes)
 template <int D>
 struct DqSmem {
+  static constexpr int KEY_TILE = D == 128 ? 32 : 64;  // keys per k / v tile
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of q or dO
   static constexpr int KV_TILE = KEY_TILE * D * 2;  // one k or v tile
   static constexpr int Q = 0;                       // [CONSUMERS] q tiles
@@ -127,9 +139,18 @@ struct DqSmem {
   static constexpr int BYTES = BAR + (4 * STAGES + CONSUMERS) * 8 + 1024;
 };
 
+// K6b's query tile, and whether its score products read k and v from
+// shared memory (SS) rather than as register fragments (D <= 64)
+template <int D>
+struct DkvCfg {
+  static constexpr bool SS = D == 128;
+  static constexpr int Q_TILE = SS ? 32 : 64;  // queries per q / dO tile
+};
+
 // Shared memory of flash_dkv_sm90_kernel<D>, from a 1024-byte aligned base.
 template <int D>
 struct DkvSmem {
+  static constexpr int Q_TILE = DkvCfg<D>::Q_TILE;
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of k or v
   static constexpr int QT_TILE = Q_TILE * D * 2;    // one q or dO tile
   static constexpr int K = 0;                       // [CONSUMERS] k tiles
@@ -187,23 +208,38 @@ __device__ __forceinline__ void wait_all_after(float x) {
 }
 
 // sum over a quarter of a row (lane t4 of its quad) of a * b in fp32, from
-// bf16 rows a, b of D values
+// bf16 rows a, b of D values: 8 per 16-byte load, or at D = 16 the 4 of one
+// 8-byte load
 template <int D>
 __device__ __forceinline__ float quarter_dot(const bf16* a, const bf16* b,
                                              int t4) {
-  constexpr int E = D / 4;  // values per lane, 8 per 16-byte load
+  constexpr int E = D / 4;  // values per lane
   float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < E / 8; ++i) {
-    const uint4 x = *reinterpret_cast<const uint4*>(a + t4 * E + 8 * i);
-    const uint4 y = *reinterpret_cast<const uint4*>(b + t4 * E + 8 * i);
+  if constexpr (E < 8) {
+    static_assert(E == 4, "D = 16");
+    const uint2 x = *reinterpret_cast<const uint2*>(a + t4 * E);
+    const uint2 y = *reinterpret_cast<const uint2*>(b + t4 * E);
     const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
     const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 2; ++j) {
       const float2 fx = __bfloat1622float2(xs[j]);
       const float2 fy = __bfloat1622float2(ys[j]);
       sum += fx.x * fy.x + fx.y * fy.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 8; ++i) {
+      const uint4 x = *reinterpret_cast<const uint4*>(a + t4 * E + 8 * i);
+      const uint4 y = *reinterpret_cast<const uint4*>(b + t4 * E + 8 * i);
+      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 fx = __bfloat1622float2(xs[j]);
+        const float2 fy = __bfloat1622float2(ys[j]);
+        sum += fx.x * fy.x + fx.y * fy.y;
+      }
     }
   }
   return sum;
@@ -268,6 +304,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      bf16* __restrict__ dq, View vo, View vdo, View vdq,
                      int N, int H, float scale_log2, float scale) {
   using S = DqSmem<D>;
+  constexpr int KEY_TILE = S::KEY_TILE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -491,6 +528,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       bf16* __restrict__ dv, View vdk, View vdv, int B, int N,
                       int H, float scale_log2, float scale) {
   using S = DkvSmem<D>;
+  constexpr int Q_TILE = S::Q_TILE;
+  constexpr bool SS = DkvCfg<D>::SS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -516,9 +555,10 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / WG;
   if (wg == 0) {
     // ---- producer: its first warp loads each item's k and v once the
-    // consumers hold the last item's in registers, and keeps the ring full
-    // across items; lane 0 issues the TMA loads, every lane stores lse and
-    // delta of two query rows of each stage
+    // consumers are done with the last item's (in registers, or with SS
+    // once its last score products are done), and keeps the ring full
+    // across items; lane 0 issues the TMA loads, the first Q_TILE / 2 lanes
+    // store lse and delta of two query rows of each stage
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
@@ -553,8 +593,10 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           const float da = n < N ? delta[bhn + n] : 0.f;
           const float db = n + 1 < N ? delta[bhn + n + 1] : 0.f;
           mbar_wait(empty + 8 * s, ((u / STAGES) & 1) ^ 1);
-          stage_lse[s * Q_TILE / 2 + lane] = make_float2(la, lb);
-          stage_delta[s * Q_TILE / 2 + lane] = make_float2(da, db);
+          if (lane < Q_TILE / 2) {
+            stage_lse[s * Q_TILE / 2 + lane] = make_float2(la, lb);
+            stage_delta[s * Q_TILE / 2 + lane] = make_float2(da, db);
+          }
           if (lane == 0) {
             mbar_arrive_expect_tx(full + 8 * s, 2 * S::QT_TILE);
             load_rows<D, Q_TILE>(sb + S::Q + s * S::QT_TILE, &tm_q,
@@ -577,7 +619,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float dp[Q_TILE / 2];       // dP^T, then ds^T
     uint32_t pk[Q_TILE / 4];    // bf16 p^T: the A fragments of dV's steps
     uint32_t dsk[Q_TILE / 4];   // bf16 ds^T: the A fragments of dK's steps
-    uint32_t kf[D / 16][4], vf[D / 16][4];  // k and v: S^T's, dP^T's A
+    // k and v: S^T's, dP^T's A fragments (D <= 64; SS reads the tiles)
+    uint32_t kf[SS ? 1 : D / 16][4], vf[SS ? 1 : D / 16][4];
     float adk[D / 2], adv[D / 2];
     int u = 0;                  // query tiles consumed before this item
 
@@ -602,12 +645,25 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t qb = sb + S::Q + st * S::QT_TILE;
       const uint32_t db = sb + S::DO + st * S::QT_TILE;
       wgmma_fence();
+      if constexpr (SS) {
+        const uint32_t kb = sb + S::K + c * S::ROW_TILE;
+        const uint32_t vb = sb + S::V + c * S::ROW_TILE;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs_kmajor<Q_TILE>(s, kf[kk], desc_k_major<D>(qb, Q_TILE, kk), 1);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<Q_TILE>(s, desc_k_major<D>(kb, ROWS, kk),
+                           desc_k_major<D>(qb, Q_TILE, kk), 1);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_rs_kmajor<Q_TILE>(dp, vf[kk], desc_k_major<D>(db, Q_TILE, kk), 1);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<Q_TILE>(dp, desc_k_major<D>(vb, ROWS, kk),
+                           desc_k_major<D>(db, Q_TILE, kk), 1);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_rs_kmajor<Q_TILE>(s, kf[kk], desc_k_major<D>(qb, Q_TILE, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_rs_kmajor<Q_TILE>(dp, vf[kk], desc_k_major<D>(db, Q_TILE, kk), 1);
+      }
       wgmma_commit();
     };
     // issue adv += bf16(p^T) dO and adk += bf16(ds^T) q of query tile t
@@ -662,9 +718,11 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
          item += gridDim.x, ++it) {
       const Item w(item, nx, H);
       mbar_wait(full_kv + 8 * c, it & 1);  // this item's k and v
-      load_a_rows<D>(kf, smem + S::K + c * S::ROW_TILE, warp, lane);
-      load_a_rows<D>(vf, smem + S::V + c * S::ROW_TILE, warp, lane);
-      mbar_arrive(empty_kv);  // in registers: the next item's may land
+      if constexpr (!SS) {
+        load_a_rows<D>(kf, smem + S::K + c * S::ROW_TILE, warp, lane);
+        load_a_rows<D>(vf, smem + S::V + c * S::ROW_TILE, warp, lane);
+        mbar_arrive(empty_kv);  // in registers: the next item's may land
+      }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
 
@@ -674,6 +732,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       reg_fence(s);
       reg_fence(dp);
+      // SS: the item's last score products have read k and v
+      if (SS && ntiles == 1) mbar_arrive(empty_kv);
       grads();
       pack();
       for (int t = 1; t < ntiles; ++t) {
@@ -689,6 +749,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         reg_fence(pk);
         reg_fence(dsk);
         release(t - 1);
+        if (SS && t == ntiles - 1) mbar_arrive(empty_kv);
         grads();  // while the other consumer's products run
         pack();
       }
@@ -747,8 +808,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int e = opt_in_smem(kernel, DqSmem<D>::BYTES);
   if (e == 0) e = encode_view<D, ROWS>(&tm_q, q, view_at(st, 0), B, H, N);
-  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_k, k, view_at(st, 1), B, H, N);
-  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_v, v, view_at(st, 2), B, H, N);
+  constexpr int KT = DqSmem<D>::KEY_TILE;
+  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, N);
+  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, N);
   if (e == 0) e = encode_view<D, ROWS>(&tm_do, dout, view_at(st, 4), B, H, N);
   if (e != 0) return e;
   dim3 grid((N + BLOCK - 1) / BLOCK, H, B);
@@ -769,10 +831,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int blocks = 0;
   int e = opt_in_smem(kernel, DkvSmem<D>::BYTES);
-  if (e == 0) e = encode_view<D, Q_TILE>(&tm_q, q, view_at(st, 0), B, H, N);
+  constexpr int QT = DkvCfg<D>::Q_TILE;
+  if (e == 0) e = encode_view<D, QT>(&tm_q, q, view_at(st, 0), B, H, N);
   if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, N);
   if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, N);
-  if (e == 0) e = encode_view<D, Q_TILE>(&tm_do, dout, view_at(st, 3), B, H, N);
+  if (e == 0) e = encode_view<D, QT>(&tm_do, dout, view_at(st, 3), B, H, N);
   if (e == 0) e = persistent_blocks(&blocks, B, H, N);
   if (e != 0) return e;
   kernel<<<blocks, THREADS, DkvSmem<D>::BYTES, stream>>>(
@@ -801,8 +864,10 @@ extern "C" int sd3_flash_attention_dq(const void* q, const void* k,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_dq<16>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
     case 32: return launch_dq<32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
     case 64: return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
+    case 128: return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -817,8 +882,10 @@ extern "C" int sd3_flash_attention_dkv(const void* q, const void* k,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

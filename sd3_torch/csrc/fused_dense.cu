@@ -60,13 +60,24 @@
 //     by TMA under the products) and a TMA store of it, which clips rows
 //     past M and columns past N; the other consumer's products run
 //     meanwhile.
-// The A tile bounds K: K_MAX = 1536 (12 K tiles, 96 KB; the published width
-// is 1216); with two rings of 3 stages of 16 KB and the two output tiles a
-// CTA takes 225 KB of shared memory. At the 512px image stream the 128 row
-// blocks are one wave, each CTA walking all of its block's columns; where
-// M / 64 is well under the SM count (CFG batch 2: 32 blocks) the columns
-// split into spans so that the items fill the card, each span repeating its
-// rows' prologue (x then comes from the L2).
+// The A tile holds K_CHUNK = 1536 values of each row (12 K tiles, 96 KB);
+// with two rings of 3 stages of 16 KB and the two output tiles a CTA takes
+// 226 KB of shared memory. A row of at most K_CHUNK values (the published
+// width is 1216) is quantized once, from registers, and the item's column
+// tiles all run on it. A wider row (CHUNKED, any K a multiple of 16) runs in
+// chunks of K_CHUNK: a first pass over each row computes its statistics
+// (K10a's LayerNorm moments, then the modulated row's max; K10b's row max),
+// so the row scale is fixed before the first chunk and the levels are the
+// unchunked levels; then chunk by chunk both consumers rebuild the A tile
+// from the row (read again, from the L2), each quantized with that scale,
+// and run the chunk's K tiles into the same s32 accumulators. An item then
+// holds one column tile per consumer (its accumulators live across the
+// chunks), so each span repeats its rows' passes; the weight rings keep
+// their depth. At the 512px image stream the 128 row blocks are one wave,
+// each CTA walking all of its block's columns; where M / 64 is well under
+// the SM count (CFG batch 2: 32 blocks) the columns split into spans so that
+// the items fill the card, each span repeating its rows' prologue (x then
+// comes from the L2).
 // K10b reads `a`, the image-token slice out[:, :n] of the joint attention
 // output, in place: row r of it starts at a + (r / n_tok) * sample_stride +
 // (r % n_tok) * K, so the slice is never copied.
@@ -83,8 +94,8 @@ namespace {
 constexpr int BM = 64;              // rows of an item (one wgmma's M)
 constexpr int TN = 128;             // output columns of a tile
 constexpr int KT = 128;             // K bytes of a tile: one swizzled row
-constexpr int K_MAX = 1536;         // the widest K the A tile holds
-constexpr int NK_MAX = K_MAX / KT;
+constexpr int K_CHUNK = 1536;       // the K values of a row the A tile holds
+constexpr int NK_CHUNK = K_CHUNK / KT;
 constexpr int WG = 128;             // threads per warpgroup
 constexpr int CONSUMERS = 2;
 constexpr int THREADS = WG * (1 + CONSUMERS);
@@ -94,20 +105,21 @@ constexpr int PRODUCER_REGS = 24;
 constexpr int CONSUMER_REGS = 240;
 constexpr int STAGES = 3;           // per ring
 constexpr int ROWS_PER_WARP = BM / (CONSUMERS * 4);
-constexpr int CHUNKS = K_MAX / (8 * 32);  // 8-value chunks of a row per lane
-// shared memory from a 1024-byte aligned base: the A tile (NK_MAX K tiles
+constexpr int CHUNKS = K_CHUNK / (8 * 32);  // 8-value chunks of a row per lane
+// shared memory from a 1024-byte aligned base: the A tile (NK_CHUNK K tiles
 // of 64 rows x 128 bytes), the two rings, each consumer's output tile (two
 // boxes of 64 rows x 64 bf16 in the 128-byte swizzle), s_x of the item's
-// rows, the barriers (ring c: full then empty, STAGES each; then one a
+// rows, their LayerNorm mean and 1 / std (CHUNKED), the barriers (ring c: full then empty, STAGES each; then one a
 // consumer for its residual tile)
 constexpr int A_KTILE = BM * KT;
-constexpr int A_BYTES = NK_MAX * A_KTILE;
+constexpr int A_BYTES = NK_CHUNK * A_KTILE;
 constexpr int B_TILE = TN * KT;
 constexpr int OUT_BOX = BM * 64 * 2;
 constexpr int RING = STAGES * B_TILE;
 constexpr int STG = A_BYTES + CONSUMERS * RING;
 constexpr int SX = STG + CONSUMERS * 2 * OUT_BOX;
-constexpr int BAR = SX + BM * 4;
+constexpr int MR = SX + BM * 4;
+constexpr int BAR = MR + BM * 8;
 constexpr int SMEM_BYTES = BAR + CONSUMERS * (2 * STAGES + 1) * 8 + 1024;
 static_assert(SMEM_BYTES <= 232448, "a CTA's shared memory");
 // named barriers (0 is __syncthreads): the two consumers' 256 threads, and
@@ -136,7 +148,9 @@ struct Scales {
 // n_proj projections, boxes of TN rows; tm_o0..2: their (M, N) bf16
 // outputs, tm_res the (M, N) bf16 residual (read when residual), boxes of
 // 64 x 64; maps past n_proj (and tm_res when unused) repeat tm_w0 / tm_o0.
-template <int V>
+// CHUNKED: K > K_CHUNK, in chunks of K_CHUNK, and spans of at most one
+// column tile per consumer.
+template <int V, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS, 1)
 dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
                   const __grid_constant__ CUtensorMap tm_w1,
@@ -155,6 +169,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
   float* sx_s = reinterpret_cast<float*>(smem + SX);
+  float2* mr_s = reinterpret_cast<float2*>(smem + MR);
   auto full = [&](int c, int s) { return sb + BAR + (2 * c * STAGES + s) * 8; };
   auto empty = [&](int c, int s) {
     return sb + BAR + ((2 * c + 1) * STAGES + s) * 8;
@@ -163,6 +178,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
     return sb + BAR + (2 * CONSUMERS * STAGES + c) * 8;
   };
   const int nk = (K + KT - 1) / KT;
+  const int nch = CHUNKED ? (nk + NK_CHUNK - 1) / NK_CHUNK : 1;
   const int n_rb = (M + BM - 1) / BM;
   const int tpp = (N + TN - 1) / TN;  // column tiles of one projection
   const int n_tiles = n_proj * tpp;
@@ -224,15 +240,18 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
       if (lane == 0) mbar_arrive(empty(c, i % STAGES));
     };
 
-    // chunk i of this lane (values 8 (lane + 32 i) .. + 7) of row r, or
-    // zeros past K or M
-    auto load_row = [&](int r, uint4 (&v)[CHUNKS]) {
-      const bf16* xr = x + (r < M ? (size_t)(r / n_tok) * sample_stride +
-                                        (size_t)(r % n_tok) * K
-                                  : 0);
+    // row r's values from k0 on: chunk i of this lane (values k0 + 8 (lane
+    // + 32 i) .. + 7), or zeros past K or M
+    auto row_ptr = [&](int r) {
+      return x + (r < M ? (size_t)(r / n_tok) * sample_stride +
+                              (size_t)(r % n_tok) * K
+                        : 0);
+    };
+    auto load_row = [&](int r, int k0, uint4 (&v)[CHUNKS]) {
+      const bf16* xr = row_ptr(r);
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
-        const int e = (lane + 32 * i) * 8;
+        const int e = k0 + (lane + 32 * i) * 8;
         v[i] = r < M && e < K ? ld_once16(xr + e) : make_uint4(0u, 0u, 0u, 0u);
       }
     };
@@ -245,16 +264,89 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
         f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
       }
     };
-    // row r's (AdaLN and) quantization into local row lr of the A tile,
-    // in passes over its raw chunks v (so that no fp32 copy of the row
-    // takes registers from the loads in flight); sums and maxima in 8
-    // partial values a lane
-    auto quantize_row = [&](int r, int lr, const uint4 (&v)[CHUNKS]) {
+    // CHUNKED: row r's statistics into local row lr of s_x and of the
+    // LayerNorm's (mean, 1 / std), in passes over the whole row read from
+    // device memory: the LayerNorm moments (K10a), then the row max of the
+    // (modulated) values. Sums and maxima in 8 partial values a lane.
+    auto row_stats = [&](int r, int lr) {
+      const bool live = r < M;  // warp-uniform
+      const bf16* xr = row_ptr(r);
+      float mean = 0.f, rstd = 1.f, part[8], f[8];
+      if (ADALN && live) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part[e] = 0.f;
+#pragma unroll 4
+        for (int e0 = lane * 8; e0 < K; e0 += 256) {
+          unpack(ld_once16(xr + e0), f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part[e] += f[e];
+        }
+        mean = warp_sum(((part[0] + part[1]) + (part[2] + part[3])) +
+                        ((part[4] + part[5]) + (part[6] + part[7]))) / K;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part[e] = 0.f;
+#pragma unroll 4
+        for (int e0 = lane * 8; e0 < K; e0 += 256) {
+          unpack(ld_once16(xr + e0), f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float d = f[e] - mean;
+            part[e] += d * d;
+          }
+        }
+        rstd = rsqrtf(warp_sum(((part[0] + part[1]) + (part[2] + part[3])) +
+                               ((part[4] + part[5]) + (part[6] + part[7]))) / K +
+                      LN_EPS);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) part[e] = 0.f;
+      if (live) {
+        const size_t cb = ADALN ? (size_t)(r / n_tok) * K : 0;
+#pragma unroll 2
+        for (int e0 = lane * 8; e0 < K; e0 += 256) {
+          unpack(ld_once16(xr + e0), f);
+          if constexpr (ADALN) {
+            const float4* c4 = reinterpret_cast<const float4*>(scale + cb + e0);
+            const float4* h4 = reinterpret_cast<const float4*>(shift + cb + e0);
+            const float4 c0 = c4[0], c1 = c4[1], h0 = h4[0], h1 = h4[1];
+            const float scf[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+            const float shf[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              f[e] = (f[e] - mean) * rstd * (1.f + scf[e]) + shf[e];
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) part[e] = fmaxf(part[e], fabsf(f[e]));
+        }
+      }
+      const float amax = fmaxf(fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3])),
+                               fmaxf(fmaxf(part[4], part[5]), fmaxf(part[6], part[7])));
+      const float s = fmaxf(warp_max(amax), Q_EPS) / 127.f;
+      if (lane == 0) {
+        sx_s[lr] = s;
+        mr_s[lr] = make_float2(mean, rstd);
+      }
+    };
+    // row r's (AdaLN and) quantization of its values from k0 on (ktiles K
+    // tiles) into local row lr of the A tile, in passes over its raw chunks
+    // v (so that no fp32 copy of the row takes registers from the loads in
+    // flight); sums and maxima in 8 partial values a lane. CHUNKED takes the
+    // row's statistics from row_stats.
+    auto quantize_row = [&](int r, int lr, int k0, int ktiles,
+                            const uint4 (&v)[CHUNKS]) {
       const bool live = r < M;  // warp-uniform
       float mean = 0.f, rstd = 1.f, part[8];
       const float* sc_r = scale;
       const float* sh_r = shift;
-      if constexpr (ADALN) {
+      if constexpr (CHUNKED) {
+        const float2 mr = mr_s[lr];
+        mean = mr.x;
+        rstd = mr.y;
+        if (ADALN && live) {
+          sc_r += (size_t)(r / n_tok) * K;
+          sh_r += (size_t)(r / n_tok) * K;
+        }
+      } else if constexpr (ADALN) {
         if (live) {
 #pragma unroll
           for (int e = 0; e < 8; ++e) part[e] = 0.f;
@@ -291,7 +383,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
       auto values = [&](int i, float (&f)[8]) {
         unpack(v[i], f);
         if constexpr (ADALN) {
-          const int e0 = (lane + 32 * i) * 8;
+          const int e0 = k0 + (lane + 32 * i) * 8;
           if (live && e0 < K) {
             const float4 c0 = *reinterpret_cast<const float4*>(sc_r + e0);
             const float4 c1 = *reinterpret_cast<const float4*>(sc_r + e0 + 4);
@@ -308,18 +400,24 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
           }
         }
       };
+      float s;
+      if constexpr (CHUNKED) {
+        s = sx_s[lr];
+      } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) part[e] = 0.f;
+        for (int e = 0; e < 8; ++e) part[e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < CHUNKS; ++i) {
-        float f[8];
-        values(i, f);
+        for (int i = 0; i < CHUNKS; ++i) {
+          float f[8];
+          values(i, f);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) part[e] = fmaxf(part[e], fabsf(f[e]));
+          for (int e = 0; e < 8; ++e) part[e] = fmaxf(part[e], fabsf(f[e]));
+        }
+        const float amax = fmaxf(fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3])),
+                                 fmaxf(fmaxf(part[4], part[5]), fmaxf(part[6], part[7])));
+        s = fmaxf(warp_max(amax), Q_EPS) / 127.f;
       }
-      const float amax = fmaxf(fmaxf(fmaxf(part[0], part[1]), fmaxf(part[2], part[3])),
-                               fmaxf(fmaxf(part[4], part[5]), fmaxf(part[6], part[7])));
-      const float s = fmaxf(warp_max(amax), Q_EPS) / 127.f, inv = 1.f / s;
+      const float inv = 1.f / s;
       // round(f / s) as JAX rounds it: half to even, of the correctly
       // rounded quotient, which q1 is (inv = RN(1 / s), q0 within an ulp of
       // f / s and the residual exact: Markstein's correction). |f| <= 127 s,
@@ -337,26 +435,79 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
           q[e / 4] |= (__float_as_uint(rintf(q1) + 12582912.f) & 0xffu) << (8 * (e % 4));
         }
         const int e0 = (lane + 32 * i) * 8;  // rows past M, K tail: zeros
-        if (e0 < nk * KT) {
+        if (e0 < ktiles * KT) {
           const int w = e0 % KT;
           *reinterpret_cast<uint2*>(
               smem + e0 / KT * A_KTILE + lr * KT +
               (((w >> 4) ^ (lr & 7)) << 4) + (w & 8)) = make_uint2(q[0], q[1]);
         }
       }
-      if (lane == 0) sx_s[lr] = live ? s : 0.f;
+      if (!CHUNKED && lane == 0) sx_s[lr] = live ? s : 0.f;
+    };
+    // the item's rows' values from k0 on (ktiles K tiles) into the A tile:
+    // rows 8 cw .. 8 cw + 7 of the block, each row's loads issued before the
+    // last row's arithmetic; then handed over to both consumers' wgmmas
+    auto prologue = [&](int m0, int k0, int ktiles) {
+      const int lr0 = cw * ROWS_PER_WARP;
+      uint4 buf[2][CHUNKS];
+      load_row(m0 + lr0, k0, buf[0]);
+#pragma unroll 1
+      for (int i0 = 0; i0 < ROWS_PER_WARP; i0 += 2) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int i = i0 + k;
+          if (i + 1 < ROWS_PER_WARP) load_row(m0 + lr0 + i + 1, k0, buf[k ^ 1]);
+          quantize_row(m0 + lr0 + i, lr0 + i, k0, ktiles, buf[k]);
+        }
+      }
+      fence_proxy_async_shared();
+      named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);
     };
 
-    // one column tile of width W (128, or 64 for a narrow last tile): its
-    // residual tile into the output tile by TMA (K10b), the products over
-    // every K tile (the first overwrites the accumulators; no wgmma wait
-    // sits in a branch), then the epilogue into the output tile and its TMA
-    // store, which clips rows past M and columns past N
+    // the products of K tiles kt0 .. kt1 - 1 of a column tile of width W
+    // (128, or 64 for a narrow last tile), K tile kt at A tile kt - kt0, into
+    // d (the tile's first overwrites it; no wgmma wait sits in a branch)
+    auto products = [&](auto width, int (&d)[decltype(width)::value / 2],
+                        int kt0, int kt1) {
+      constexpr int W = decltype(width)::value;
+      {
+        const int i = it + kt0, s = i % STAGES;
+        mbar_wait(full(c, s), (i / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KT / 32; ++kk)
+          wgmma_s8<W>(d, desc_s8(sb, kk), desc_s8(ring + s * B_TILE, kk),
+                      kk > 0 || kt0 > 0);
+        wgmma_commit();
+      }
+      for (int kt = kt0 + 1; kt < kt1; ++kt) {
+        const int i = it + kt, s = i % STAGES;
+        mbar_wait(full(c, s), (i / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KT / 32; ++kk)
+          wgmma_s8<W>(d, desc_s8(sb + (kt - kt0) * A_KTILE, kk),
+                      desc_s8(ring + s * B_TILE, kk), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the products of K tile kt - 1 are done
+        release(i - 1);
+      }
+      wgmma_wait<0>();
+      reg_fence(d);
+      release(it + kt1 - 1);
+    };
+
+    // one column tile of width W: its residual tile into the output tile by
+    // TMA (K10b), the products over every K tile (CHUNKED: chunk by chunk,
+    // each chunk's A tile built by both consumers first; `has` false: a
+    // consumer with no tile in the item, which builds the chunks only), then
+    // the epilogue into the output tile and its TMA store, which clips rows
+    // past M and columns past N
     auto run_tile = [&](auto width, int (&d)[decltype(width)::value / 2],
-                        int m0, int p, int col0) {
+                        int m0, int p, int col0, bool has) {
       constexpr int W = decltype(width)::value;
       constexpr int BOXES = W / 64;
-      if (tid == 0) {
+      if (has && tid == 0) {
         bulk_wait_read<0>();  // the last tile's store has read the tile
         if (residual) {
           mbar_arrive_expect_tx(res_bar(c), BOXES * OUT_BOX);
@@ -372,31 +523,19 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
       for (int j = 0; j < W / 8; ++j)
         swc[j] = *reinterpret_cast<const float2*>(
             sw + min(col0 + j * 8 + t4 * 2, N - 2));
-      {
-        const int s = it % STAGES;
-        mbar_wait(full(c, s), (it / STAGES) & 1);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KT / 32; ++kk)
-          wgmma_s8<W>(d, desc_s8(sb, kk), desc_s8(ring + s * B_TILE, kk),
-                      kk > 0);
-        wgmma_commit();
+      if constexpr (CHUNKED) {
+        for (int ch = 0; ch < nch; ++ch) {
+          const int kt0 = ch * NK_CHUNK, kt1 = min(nk, kt0 + NK_CHUNK);
+          // both consumers' products of the last chunk are done with the
+          // A tile (the item's first: the barrier at the item's start)
+          if (ch > 0) named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);
+          prologue(m0, kt0 * KT, kt1 - kt0);
+          if (has) products(width, d, kt0, kt1);
+        }
+        if (!has) return;
+      } else {
+        products(width, d, 0, nk);
       }
-      for (int kt = 1; kt < nk; ++kt) {
-        const int i = it + kt, s = i % STAGES;
-        mbar_wait(full(c, s), (i / STAGES) & 1);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < KT / 32; ++kk)
-          wgmma_s8<W>(d, desc_s8(sb + kt * A_KTILE, kk),
-                      desc_s8(ring + s * B_TILE, kk), 1);
-        wgmma_commit();
-        wgmma_wait<1>();  // the products of K tile kt - 1 are done
-        release(i - 1);
-      }
-      wgmma_wait<0>();
-      reg_fence(d);
-      release(it + nk - 1);
       it += nk;
 
       // epilogue: (acc * s_x) * s_w [* gate] [+ res], each rounded on its
@@ -442,34 +581,35 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
 
     for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
       const int m0 = item % n_rb * BM;
-      // the last item's products and epilogues are done with the A tile
-      // and s_x
-      named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);
-      // prologue: rows 8 cw .. 8 cw + 7 of the block, each row's loads
-      // issued before the last row's arithmetic
-      {
-        const int lr0 = cw * ROWS_PER_WARP;
-        uint4 buf[2][CHUNKS];
-        load_row(m0 + lr0, buf[0]);
-#pragma unroll 1
-        for (int i0 = 0; i0 < ROWS_PER_WARP; i0 += 2) {
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const int i = i0 + k;
-            if (i + 1 < ROWS_PER_WARP) load_row(m0 + lr0 + i + 1, buf[k ^ 1]);
-            quantize_row(m0 + lr0 + i, lr0 + i, buf[k]);
-          }
-        }
-      }
-      fence_proxy_async_shared();
-      named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);
       const int span = item / n_rb, t1 = (span + 1) * n_tiles / spans;
-      for (int t = span * n_tiles / spans + c; t < t1; t += CONSUMERS) {
-        const int p = t / tpp, col0 = t % tpp * TN;
-        if (N - col0 > 64)
-          run_tile(std::integral_constant<int, TN>(), acc, m0, p, col0);
+      // the last item's products and epilogues are done with the A tile,
+      // s_x and the LayerNorm statistics
+      named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);
+      if constexpr (CHUNKED) {
+        // the statistics of rows 8 cw .. 8 cw + 7, which this warp alone
+        // quantizes; then this consumer's one column tile of the span (or
+        // none), chunk by chunk
+        for (int i = 0; i < ROWS_PER_WARP; ++i)
+          row_stats(m0 + cw * ROWS_PER_WARP + i, cw * ROWS_PER_WARP + i);
+        __syncwarp();
+        const int t = span * n_tiles / spans + c;
+        const bool has = t < t1;
+        const int p = has ? t / tpp : 0, col0 = has ? t % tpp * TN : 0;
+        if (!has || N - col0 > 64)
+          run_tile(std::integral_constant<int, TN>(), acc, m0, p, col0, has);
         else
-          run_tile(std::integral_constant<int, 64>(), acc_narrow, m0, p, col0);
+          run_tile(std::integral_constant<int, 64>(), acc_narrow, m0, p, col0,
+                   has);
+      } else {
+        prologue(m0, 0, nk);
+        for (int t = span * n_tiles / spans + c; t < t1; t += CONSUMERS) {
+          const int p = t / tpp, col0 = t % tpp * TN;
+          if (N - col0 > 64)
+            run_tile(std::integral_constant<int, TN>(), acc, m0, p, col0, true);
+          else
+            run_tile(std::integral_constant<int, 64>(), acc_narrow, m0, p, col0,
+                     true);
+        }
       }
     }
     if (tid == 0) bulk_wait_read<0>();  // the output tile outlives its stores
@@ -478,7 +618,8 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
 
 // The tensor maps, then the launch; 0, or the first error (a cudaError_t,
 // or the CUresult of a tensor-map encode). Spans: as many as fill the SMs
-// with items, at most one per pair of column tiles.
+// with items, at most one per pair of column tiles; for K past K_CHUNK, one
+// per pair of column tiles.
 template <int V>
 int launch_dense(const void* x, long long sample_stride, const void* shift,
                  const void* scale, const void* const (&w)[3],
@@ -486,9 +627,10 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
                  const void* gate, const void* res, int M, int K, int N,
                  int n_tok, int gated, int residual, cudaStream_t st) {
   if (M <= 0) return 0;
-  if (K % 16 != 0 || K > K_MAX || N % 8 != 0 || n_tok <= 0)
+  if (K % 16 != 0 || N % 8 != 0 || n_tok <= 0)
     return (int)cudaErrorInvalidValue;
-  auto kern = dense_sm90_kernel<V>;
+  const bool chunked = K > K_CHUNK;
+  auto kern = chunked ? dense_sm90_kernel<V, true> : dense_sm90_kernel<V, false>;
   CUtensorMap tw[3], to[3], tr;
   int dev = 0, sms = 0;
   int e = (int)cudaFuncSetAttribute(
@@ -512,6 +654,7 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
   const int most = n_tiles / CONSUMERS > 1 ? n_tiles / CONSUMERS : 1;
   int spans = sms / n_rb;
   spans = spans < 1 ? 1 : spans > most ? most : spans;
+  if (chunked) spans = (n_tiles + CONSUMERS - 1) / CONSUMERS;
   const int items = n_rb * spans;
   kern<<<items < sms ? items : sms, THREADS, SMEM_BYTES, st>>>(
       tw[0], tw[1], tw[2], to[0], to[1], to[2], tr,
@@ -526,7 +669,7 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
 
 // K10a. x: (M, K) bf16, M = B * n_tok rows of B samples; shift, scale:
 // (B, K) fp32; wq, wk, wv: (N, K) int8 with sq, sk, sv (N) fp32. q, k, v:
-// (M, N) bf16. K a multiple of 16 up to 1536 (K_MAX), N a multiple of 8;
+// (M, N) bf16. K a multiple of 16, N a multiple of 8;
 // all pointers 16-byte aligned. Returns 0, or the first error: a
 // cudaError_t of the launch or the CUresult of a tensor-map encode.
 extern "C" int sd3_qkv_adaln_int8(const void* x, const void* shift,
@@ -549,8 +692,7 @@ extern "C" int sd3_qkv_adaln_int8(const void* x, const void* shift,
 // sample_stride + (r % n_tok) * K (elements; a and sample_stride * 2 bytes
 // 16-byte aligned); gate: (B, N) fp32 (read when gated); res: (M, N) bf16
 // (read when residual); w: (N, K) int8 with s (N) fp32. out: (M, N) bf16. K
-// a multiple of 16 up to 1536 (K_MAX), N a multiple of 8; all pointers
-// 16-byte aligned. Returns 0, or the first error, as K10a.
+// a multiple of 16, N a multiple of 8; all pointers 16-byte aligned. Returns 0, or the first error, as K10a.
 extern "C" int sd3_out_gate_residual_int8(const void* a, long long sample_stride,
                                           const void* gate, const void* res,
                                           const void* w, const void* s,

@@ -15,7 +15,16 @@ saying what bounds them and how they are built:
   between the kernels and K6b reads;
 - K6b `flash_attention_dkv` replaces `_dkv_kernel`: dk, dv
   (K6a and K6b: `csrc/flash_bwd_sm90.cu`).
-All three are wgmma + TMA kernels with a warp-specialised ring.
+All three are wgmma + TMA kernels with a warp-specialised ring, on bf16
+tensors. fp32 tensors (JAX's fp32 kernels run their products at
+Precision.HIGHEST) take their fp32 instances K5F, K6AF and K6BF
+(`csrc/attention_fp32.cu`: 3xTF32 mma.sync, fp32-accurate products).
+
+The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128).
+Any other head dim up to 128 is zero-padded to the next instance, as the
+JAX wrapper pads D to 128 lanes: q, k, v (and out, dO) padded on D, the
+kernel run with the caller's scale, and out, dq, dk, dv sliced back. Zero
+columns add nothing to the scores, to lse or to delta.
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -36,8 +45,8 @@ contiguous copy. The port's attention hands over q, k, v (and autograd dO)
 that way, so the training path makes no copy. Outputs are
 (B, H, N, D) views of (B, N, H, D) buffers, so the caller's (B, N, H*D)
 reshape copies nothing.
-The TPU layout choices (the 128-lane head-dim pad, the 8-lane lse, the VMEM
-budget and the unroll knob) have no counterpart here.
+The TPU layout choices (the 8-lane lse, the VMEM budget and the unroll
+knob) have no counterpart here; head dims above 128 are not taken.
 """
 
 from __future__ import annotations
@@ -48,19 +57,25 @@ import torch
 
 from sd3_torch.kernels import Kernel, check
 
-HEAD_DIMS = (32, 64)   # head dims the kernels take
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_FWD_ARGS = [_P] * 5 + [_STRIDES] + [_I] * 4 + [_F, _P]
+_BWD_ARGS = [_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P]
 K5 = Kernel("flash_attention_fwd", "attention_sm90.cu",
-            "sd3_flash_attention_fwd",
-            argtypes=[_P] * 5 + [_STRIDES] + [_I] * 4 + [_F, _P])
+            "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
 K6A = Kernel("flash_attention_dq", "flash_bwd_sm90.cu",
-             "sd3_flash_attention_dq",
-             argtypes=[_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P])
+             "sd3_flash_attention_dq", argtypes=_BWD_ARGS)
 K6B = Kernel("flash_attention_dkv", "flash_bwd_sm90.cu",
-             "sd3_flash_attention_dkv",
-             argtypes=[_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P])
+             "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
+# the fp32 instances (one source, csrc/attention_fp32.cu)
+K5F = Kernel("flash_attention_fwd_fp32", "attention_fp32.cu",
+             "sd3_flash_attention_fwd_fp32", argtypes=_FWD_ARGS)
+K6AF = Kernel("flash_attention_dq_fp32", "attention_fp32.cu",
+              "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
+K6BF = Kernel("flash_attention_dkv_fp32", "attention_fp32.cu",
+              "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
 
 
 # ---- plain versions ------------------------------------------------------
@@ -103,9 +118,10 @@ def flash_dkv_plain(q, k, v, dout, lse, delta, scale: float):
 
 def _readable(x: torch.Tensor) -> torch.Tensor:
     """x if the kernels can read it in place (head dim contiguous, start and
-    (b, h, n) strides positive multiples of 16 bytes, as TMA requires), else
-    a contiguous copy."""
-    if (x.stride(-1) == 1 and all(s > 0 and s % 8 == 0
+    (b, h, n) strides positive multiples of 16 bytes, as TMA and the fp32
+    kernels' 16-byte loads require), else a contiguous copy."""
+    per16 = 16 // x.element_size()
+    if (x.stride(-1) == 1 and all(s > 0 and s % per16 == 0
                                   for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0):
         return x
@@ -135,23 +151,44 @@ def _launch(kern: Kernel, tensors, strided, b, h, n, d, scale):
     kern.launches += 1
 
 
-def _check_cuda(kern: Kernel, *ts):
+def instance_dim(d: int) -> int:
+    """The kernel instance that takes head dim d: the least of HEAD_DIMS at
+    least d; NotImplementedError past the largest."""
+    for e in HEAD_DIMS:
+        if d <= e:
+            return e
+    raise NotImplementedError(
+        f"the flash kernels take head dims up to {HEAD_DIMS[-1]}; got {d}")
+
+
+def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t zero-padded on its last (head) dim to dp values."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def _check_cuda(kerns, *ts) -> Kernel:
+    """The kernel of `kerns` (bf16, fp32) that takes tensors `ts`, checked:
+    one CUDA device, one dtype, one (B, H, N, D) shape, D up to 128."""
     q = ts[0]
+    kern = kerns[q.dtype == torch.float32]
     if q.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {q.device}")
     for t in ts:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{kern.name} takes bfloat16 tensors, got {t.dtype}")
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
+            raise TypeError(f"{kern.name} takes bfloat16 or float32 tensors "
+                            f"of one dtype, got {t.dtype} and {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{kern.name}: tensors on {t.device} and "
                              f"{q.device}")
         if t.shape != q.shape:
             raise ValueError(f"{kern.name}: shapes {tuple(t.shape)} and "
                              f"{tuple(q.shape)} differ")
-    if q.ndim != 4 or q.shape[-1] not in HEAD_DIMS:
+    if q.ndim != 4:
         raise NotImplementedError(
-            f"{kern.name} takes (B, H, N, D) with D in {HEAD_DIMS}; got "
-            f"{tuple(q.shape)}")
+            f"{kern.name} takes (B, H, N, D); got {tuple(q.shape)}")
+    instance_dim(q.shape[-1])
+    return kern
 
 
 def _stats(lse: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -162,48 +199,75 @@ def _stats(lse: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return lse.to(like.device, torch.float32).contiguous()
 
 
+def _padded_dim(q: torch.Tensor) -> int:
+    """The head dim the tensors of q's call are padded to: the instance of
+    q's head dim; a CPU call past the largest runs its plain version
+    unpadded."""
+    d = q.shape[-1]
+    if q.device.type == "cpu" and d > HEAD_DIMS[-1]:
+        return d
+    return instance_dim(d)
+
+
+def _operands(ts, dp):
+    """Each tensor padded to head dim dp and, on the card, readable in place
+    or copied."""
+    ts = [_pad(t, dp) for t in ts]
+    return ts if ts[0].device.type == "cpu" else [_readable(t) for t in ts]
+
+
 def flash_fwd(q, k, v, scale: float):
-    """K5: (out in q's dtype, lse fp32 (B, H, N)); its plain version on the
-    CPU."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale)
-    _check_cuda(K5, q, k, v)
-    q, k, v = (_readable(t) for t in (q, k, v))
+    """K5 (fp32 tensors: K5F): (out in q's dtype, lse fp32 (B, H, N)); its
+    plain version on the CPU."""
+    if q.device.type != "cpu":
+        kern = _check_cuda((K5, K5F), q, k, v)
     b, h, n, d = q.shape
-    out = _bnhd(q.shape, q)
-    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    _launch(K5, (q, k, v, out, lse), (q, k, v, out), b, h, n, d, scale)
-    return out, lse
+    dp = _padded_dim(q)
+    q, k, v = _operands((q, k, v), dp)
+    if q.device.type == "cpu":
+        out, lse = flash_fwd_plain(q, k, v, scale)
+    else:
+        out = _bnhd(q.shape, q)
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        _launch(kern, (q, k, v, out, lse), (q, k, v, out), b, h, n, dp, scale)
+    return out[..., :d], lse
 
 
 def flash_dq(q, k, v, out, dout, lse, scale: float):
-    """K6a: (dq, delta fp32 (B, H, N)); its plain version on the CPU."""
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, out, dout, lse, scale)
-    _check_cuda(K6A, q, k, v, out, dout)
-    q, k, v, out, dout = (_readable(t) for t in (q, k, v, out, dout))
-    lse = _stats(lse, q)
+    """K6a (fp32 tensors: K6AF): (dq, delta fp32 (B, H, N)); its plain
+    version on the CPU."""
+    if q.device.type != "cpu":
+        kern = _check_cuda((K6A, K6AF), q, k, v, out, dout)
     b, h, n, d = q.shape
-    delta = torch.empty_like(lse)
-    dq = _bnhd(q.shape, q)
-    _launch(K6A, (q, k, v, out, dout, lse, delta, dq),
-            (q, k, v, out, dout, dq), b, h, n, d, scale)
-    return dq, delta
+    dp = _padded_dim(q)
+    q, k, v, out, dout = _operands((q, k, v, out, dout), dp)
+    if q.device.type == "cpu":
+        dq, delta = flash_dq_plain(q, k, v, out, dout, lse, scale)
+    else:
+        lse = _stats(lse, q)
+        delta = torch.empty_like(lse)
+        dq = _bnhd(q.shape, q)
+        _launch(kern, (q, k, v, out, dout, lse, delta, dq),
+                (q, k, v, out, dout, dq), b, h, n, dp, scale)
+    return dq[..., :d], delta
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale: float):
-    """K6b: (dk, dv) from the delta K6a returned; its plain version on the
-    CPU."""
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, dout, lse, delta, scale)
-    _check_cuda(K6B, q, k, v, dout)
-    q, k, v, dout = (_readable(t) for t in (q, k, v, dout))
-    lse, delta = _stats(lse, q), _stats(delta, q)
+    """K6b (fp32 tensors: K6BF): (dk, dv) from the delta K6a returned; its
+    plain version on the CPU."""
+    if q.device.type != "cpu":
+        kern = _check_cuda((K6B, K6BF), q, k, v, dout)
     b, h, n, d = q.shape
-    dk, dv = _bnhd(q.shape, q), _bnhd(q.shape, q)
-    _launch(K6B, (q, k, v, dout, lse, delta, dk, dv),
-            (q, k, v, dout, dk, dv), b, h, n, d, scale)
-    return dk, dv
+    dp = _padded_dim(q)
+    q, k, v, dout = _operands((q, k, v, dout), dp)
+    if q.device.type == "cpu":
+        dk, dv = flash_dkv_plain(q, k, v, dout, lse, delta, scale)
+    else:
+        lse, delta = _stats(lse, q), _stats(delta, q)
+        dk, dv = _bnhd(q.shape, q), _bnhd(q.shape, q)
+        _launch(kern, (q, k, v, dout, lse, delta, dk, dv),
+                (q, k, v, dout, dk, dv), b, h, n, dp, scale)
+    return dk[..., :d], dv[..., :d]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -17,22 +17,32 @@ Single-KV, replacing the branches of `_fused_fwd_kernel`:
   quantized per row from fp32, k^ rounded to the input dtype with one
   scale per (batch, head), the true row max (an integer max of s32 in a
   first pass over K);
-- K8a, `int8_pv` (`csrc/stream_attention.cu`, over K1-style bf16 scores or
-  over K4's): the true row max, p = exp2(s - (max - log2 127)) in [0, 127]
-  rounded to int8, V quantized per (batch, head, column) over all rows,
-  s8 x s8 -> s32 P.V, o = acc / l * v_scale with l the sum of the
-  unrounded p.
+- K8a, `int8_pv` (`csrc/attention_int8_sm90.cu`, K4's kernel, over
+  K1-style bf16 scores or over K4's): the true row max from a first pass,
+  p = exp2(s - (max - log2 127)) in [0, 127] rounded to int8, V quantized
+  per (batch, head, column) over all rows, s8 x s8 -> s32 P.V summed over
+  every key, o = acc / l * v_scale with l the sum of the unrounded p.
 Streaming, replacing `_stream_fwd_kernel`:
 - K7, bf16 (`csrc/attention_sm90.cu`, K1's kernel): an online softmax
   (true running max) over `K7_KEY_TILE` keys at a time;
-- K7q, `int8_qk` (`csrc/stream_attention.cu`, over `INT8_KEY_TILE` keys at
-  a time): k^ prepped in fp32 and quantized per row (per head), q^ per
-  row, s = s32 * s_q * s_k[key];
+- K7q, `int8_qk` (`csrc/attention_int8_sm90.cu`, K4's kernel, over
+  `K7Q_KEY_TILE` keys at a time): k^ prepped in fp32 and quantized per row
+  (per head), q^ per row, s = s32 * s_q * s_k[key], bf16 P.V;
 - K8b, `int8_pv` over K7's or K7q's scores (`csrc/attention_int8_sm90.cu`,
   K4's kernel, over `K8B_KEY_TILE` keys at a time): P quantized against the
   running max with log2(127) folded into the shift, V as for K8a, s8 P.V
   per tile.
+fp32 q / k / v (the JAX package's `--dtype float32`) take K1F and K7F, the
+fp32 instances of K1 and K7 (`csrc/attention_fp32.cu`: the fp32 prep, then
+3xTF32 mma.sync products, fp32-accurate as JAX's Precision.HIGHEST); the
+int8 kernels take bf16 only.
 The CUDA sources' heads say what bounds each kernel on an H100.
+
+Head dims: the kernels have instances at `HEAD_DIMS` (16, 32, 64, 128).
+The JAX route sends any even head dim dividing 128 here; 2, 4 and 8 run
+at 16, q / k / v and the tables zero-padded on each head and the output
+sliced back, the true head dim passed to the prep so that its RMSNorm
+takes the mean over the head's own values.
 
 Beside them, the plain PyTorch versions (the JAX kernels' arithmetic):
 `composition` (K1; K8a with `int8_pv`), `composition_int8_qk` (K4; K8a),
@@ -71,40 +81,42 @@ LOG2_127 = 6.988684686772166  # int8 P.V: folds P's 1/127 scale into the shift
 SINGLE_KV_MAX = 2048        # padded tokens of the single-KV kernels (beyond:
                             # the streaming ones, K7 / K7q / K8b)
 STREAM_BLOCK = 2176         # JAX's streaming K block target (rows)
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances
+PADDED_HEAD_DIMS = (2, 4, 8)    # run at 16
 
 # the key tiles of the card's kernels, which the plain versions' `block_k`
 # must take to round p against the same running max: K1 and K7's
-# (csrc/attention_sm90.cu KEY_TILE), K4 and K8b's
-# (csrc/attention_int8_sm90.cu KEY_TILE; K8b's int8 V^T is padded to it),
-# and that of the mma.sync kernels K7q and K8a (csrc/attention_common.cuh
-# BK; K8a's V^T is padded to it)
+# (csrc/attention_sm90.cu KEY_TILE), and K4, K8a, K7q and K8b's
+# (csrc/attention_int8_sm90.cu KEY_TILE; the int8 V^T of K8a and K8b is
+# padded to it)
 K7_KEY_TILE = 128
 K8B_KEY_TILE = 128
-INT8_KEY_TILE = 64
+K7Q_KEY_TILE = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# K1 and K7 share one signature: q, k, v, the four tables, scratch q_prep,
-# q_norm, k_prep, k_max2, out; B, N, H, D; eps_q, eps_k; the stream
-_SM90_ARGS = [_P] * 12 + [_I] * 4 + [_F] * 2 + [_P]
+# K1 and K7 (and their fp32 instances) share one signature: q, k, v, the
+# four tables, scratch q_prep, q_norm, k_prep, k_max2, out; B, N, H, D (the
+# instance), dn (the model's head dim); eps_q, eps_k; the stream
+_SM90_ARGS = [_P] * 12 + [_I] * 5 + [_F] * 2 + [_P]
 K1 = Kernel("fused_attention_bf16", "attention_sm90.cu",
             "sd3_fused_attention_bf16", argtypes=_SM90_ARGS)
-# K4 and K8b share one signature: q, k, v, the four tables, scratch q_prep,
-# q_scale, k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D, int8_qk;
-# eps_q, eps_k; the stream
-_INT8_SM90_ARGS = [_P] * 15 + [_I] * 5 + [_F] * 2 + [_P]
-K4 = Kernel("fused_attention_int8qk", "attention_int8_sm90.cu",
-            "sd3_fused_attention_int8qk", argtypes=_INT8_SM90_ARGS)
 K7 = Kernel("fused_attention_stream", "attention_sm90.cu",
             "sd3_fused_attention_stream", argtypes=_SM90_ARGS)
-# the stream_attention.cu entry points share one signature: q, k, v, the
-# four tables, scratch k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D,
-# int8_qk; eps_q, eps_k; the stream
-_STREAM_ARGS = [_P] * 13 + [_I] * 5 + [_F] * 2 + [_P]
-K7Q = Kernel("fused_attention_stream_int8qk", "stream_attention.cu",
-             "sd3_fused_attention_stream_int8qk", argtypes=_STREAM_ARGS)
-K8A = Kernel("fused_attention_int8pv", "stream_attention.cu",
-             "sd3_fused_attention_int8pv", argtypes=_STREAM_ARGS)
+K1F = Kernel("fused_attention_fp32", "attention_fp32.cu",
+             "sd3_fused_attention_fp32", argtypes=_SM90_ARGS)
+K7F = Kernel("fused_attention_stream_fp32", "attention_fp32.cu",
+             "sd3_fused_attention_stream_fp32", argtypes=_SM90_ARGS)
+# K4, K8a, K7q and K8b share one signature: q, k, v, the four tables,
+# scratch q_prep, q_scale, k_prep, k_q, k_stat, v_amax, v_q, out; B, N, H, D
+# (the instance), dn (the model's head dim), int8_qk; eps_q, eps_k; the
+# stream
+_INT8_SM90_ARGS = [_P] * 15 + [_I] * 6 + [_F] * 2 + [_P]
+K4 = Kernel("fused_attention_int8qk", "attention_int8_sm90.cu",
+            "sd3_fused_attention_int8qk", argtypes=_INT8_SM90_ARGS)
+K7Q = Kernel("fused_attention_stream_int8qk", "attention_int8_sm90.cu",
+             "sd3_fused_attention_stream_int8qk", argtypes=_INT8_SM90_ARGS)
+K8A = Kernel("fused_attention_int8pv", "attention_int8_sm90.cu",
+             "sd3_fused_attention_int8pv", argtypes=_INT8_SM90_ARGS)
 K8B = Kernel("fused_attention_stream_int8pv", "attention_int8_sm90.cu",
              "sd3_fused_attention_stream_int8pv", argtypes=_INT8_SM90_ARGS)
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
@@ -230,10 +242,16 @@ def _unheads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, n, h * d)
 
 
-def _prep(x, cos, sin, eps) -> torch.Tensor:
-    """Per-head RMSNorm + table rotation, in fp32."""
+def _prep(x, cos, sin, eps, dn: int | None = None) -> torch.Tensor:
+    """Per-head RMSNorm + table rotation, in fp32. dn: the true head dim of
+    heads zero-padded past it (tables too), as the kernels' prep takes
+    them: the mean of squares over dn values, the padded lanes left zero."""
     xf = x.float()
-    xn = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    if dn is None or dn == x.shape[-1]:
+        ms = xf.square().mean(-1, keepdim=True)
+    else:
+        ms = xf.square().sum(-1, keepdim=True) / dn
+    xn = xf * torch.rsqrt(ms + eps)
     return xn * cos.float() + _rotate_half_interleaved(xn) * sin.float()
 
 
@@ -353,71 +371,88 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
+    """(B, N, H*d) -> (B, N, H*dp), each head zero-padded to dp values."""
+    b, n, f = x.shape
+    d = f // num_heads
+    return torch.nn.functional.pad(x.reshape(b, n, num_heads, d),
+                                   (0, dp - d)).reshape(b, n, num_heads * dp)
+
+
 def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
             num_heads, int8_qk=False):
-    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; for K8a / K8b `int8_qk`
-    picks the scores under the int8 P.V); tables already carry
-    scale*log2(e). Allocates the outputs and the kernels' scratch."""
+    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; K1 and K7 on fp32 q / k / v
+    launch K1F / K7F; for K8a / K8b `int8_qk` picks the scores under the
+    int8 P.V); tables already carry scale*log2(e). Head dims of
+    PADDED_HEAD_DIMS run at 16, zero-padded. Allocates the outputs and the
+    kernels' scratch."""
     b, n, f = q.shape
     d = f // num_heads
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"{kern.name} takes bfloat16 q/k/v, got {q.dtype}/"
-                        f"{k.dtype}/{v.dtype}")
+    float_kernel = kern in (K1, K7)
+    if float_kernel and q.dtype == torch.float32:
+        kern = K1F if kern is K1 else K7F
+    dtypes = ((torch.bfloat16, torch.float32) if float_kernel
+              else (torch.bfloat16,))
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in dtypes:
+        raise TypeError(f"{kern.name} takes bfloat16 q/k/v (K1, K7: or "
+                        f"float32), got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (k.shape == v.shape == q.shape):
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if not (k.device == v.device == q.device):
         raise ValueError("q/k/v must lie on one device")
-    if d not in HEAD_DIMS or d * num_heads != f:
+    if d * num_heads != f or d not in HEAD_DIMS + PADDED_HEAD_DIMS:
         raise NotImplementedError(
-            f"{kern.name} takes head dims {HEAD_DIMS}; got {f} features / "
-            f"{num_heads} heads")
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+            f"{kern.name} takes head dims {HEAD_DIMS + PADDED_HEAD_DIMS}; got "
+            f"{f} features / {num_heads} heads")
+    dp = max(d, HEAD_DIMS[0])
     cq, sq, ck, sk = (t.to(q.device, torch.float32).contiguous()
                       for t in (cq, sq, ck, sk))
     for t in (cq, sq, ck, sk):
         if t.shape != (n, d):
             raise ValueError(f"tables must be ({n}, {d}), got {tuple(t.shape)}")
+    if dp != d:
+        q, k, v = (_pad_heads(t, num_heads, dp) for t in (q, k, v))
+        cq, sq, ck, sk = (torch.nn.functional.pad(t, (0, dp - d))
+                          for t in (cq, sq, ck, sk))
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     bh, dev = b * num_heads, q.device
-    if kern in (K1, K7):
-        # q^ and k^ in bf16, K1's ||q^|| per row, max ||k^||^2 per (b, h)
+    if kern in (K1, K7, K1F, K7F):
+        # q^ and k^ in the input dtype, K1's ||q^|| per row, max ||k^||^2 per
+        # (b, h)
         q_norm = torch.empty(bh * n if kern is K1 else 0,
                              dtype=torch.float32, device=dev)
         args = [torch.empty_like(q), q_norm, torch.empty_like(k),
                 torch.zeros(bh, dtype=torch.float32, device=dev), out]
     else:
         # q^ (int8 under int8 scores, else bf16) and its per-row scales;
-        # k^ in bf16 (bf16 scores; K4's prep writes it before quantizing),
-        # int8 k^ (int8 scores), k_stat: per (b, h) statistics of the bf16
-        # prep or K4's amax, or per-row k scales; V's column amax and its
-        # int8 levels (int8 P.V), V^T's keys padded to whole tiles of the
-        # kernel (K8a: csrc/stream_attention.cu, K8b:
-        # csrc/attention_int8_sm90.cu)
+        # k^ in bf16 (bf16 scores, and K4's scores: its prep writes it before
+        # quantizing), int8 k^ (int8 scores), k_stat: per (b, h) statistics
+        # of the bf16 prep or K4's amax, or the streaming kernels' per-key k
+        # scales in rows padded to whole key tiles (their tensor map); V's
+        # column amax and its int8 levels (int8 P.V), V^T's keys padded to
+        # whole key tiles (csrc/attention_int8_sm90.cu)
         int8_qk = kern in (K4, K7Q) or (int8_qk and kern in (K8A, K8B))
         per_row = int8_qk and kern in (K7Q, K8B)
         pv8 = kern in (K8A, K8B)
+        tiles = _round_up(n, K8B_KEY_TILE)
         none = torch.empty(0, device=dev)
         k_prep = torch.empty_like(k) if not per_row else none
         k_q = (torch.empty(k.shape, dtype=torch.int8, device=dev)
                if int8_qk else none)
-        # K8b's per-key scales in rows padded to whole tiles (its tensor map)
-        k_stat = torch.zeros(
-            bh * (_round_up(n, K8B_KEY_TILE) if kern is K8B else n)
-            if per_row else bh, dtype=torch.float32, device=dev)
-        v_amax = torch.zeros(bh * d if pv8 else 0, dtype=torch.float32,
+        k_stat = torch.zeros(bh * tiles if per_row else bh,
+                             dtype=torch.float32, device=dev)
+        v_amax = torch.zeros(bh * dp if pv8 else 0, dtype=torch.float32,
                              device=dev)
-        tile = K8B_KEY_TILE if kern is K8B else INT8_KEY_TILE
-        v_q = torch.empty(bh * d * _round_up(n, tile) if pv8 else 0,
-                          dtype=torch.int8, device=dev)
-        args = [k_prep, k_q, k_stat, v_amax, v_q, out]
-        if kern in (K4, K8B):
-            q_prep = (torch.empty(q.shape, dtype=torch.int8, device=dev)
-                      if int8_qk else torch.empty_like(q))
-            q_scale = torch.empty(bh * n if int8_qk else 0,
-                                  dtype=torch.float32, device=dev)
-            args = [q_prep, q_scale] + args
-    ints = [b, n, num_heads, d] + ([] if kern in (K1, K7)
-                                   else [int(int8_qk)])
+        v_q = torch.empty(bh * dp * tiles if pv8 else 0, dtype=torch.int8,
+                          device=dev)
+        q_prep = (torch.empty(q.shape, dtype=torch.int8, device=dev)
+                  if int8_qk else torch.empty_like(q))
+        q_scale = torch.empty(bh * n if int8_qk else 0, dtype=torch.float32,
+                              device=dev)
+        args = [q_prep, q_scale, k_prep, k_q, k_stat, v_amax, v_q, out]
+    ints = [b, n, num_heads, dp, d] + ([] if kern in (K1, K7, K1F, K7F)
+                                       else [int(int8_qk)])
     with torch.cuda.device(dev):
         fn = kern.function()
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -425,6 +460,8 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
                  *ints, eps_q, eps_k, stream)
     check(kern, err)
     kern.launches += 1
+    if dp != d:
+        out = out.reshape(b, n, num_heads, dp)[..., :d].reshape(b, n, f)
     return out
 
 

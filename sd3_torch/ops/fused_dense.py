@@ -26,9 +26,11 @@ None (the caller's fallback) wherever it finds no tile. At the published
 (bm 512), and both decline the 154-token text stream. The tile itself is
 TPU blocking: the Hopper kernels take any row count.
 
-The kernels take k a multiple of 16 up to `K_MAX` (the widest row their
-shared-memory A tile holds; the published width is 1216) and d_out a
-multiple of 8 (the row stride of the outputs' tensor maps). Weights are
+The kernels take any k a multiple of 16 and d_out a multiple of 8 (the row
+stride of the outputs' tensor maps). A row of up to `K_CHUNK` values (the
+published width is 1216) is quantized once into the kernel's shared-memory
+A tile; a wider one runs in chunks of `K_CHUNK`, its int8 scale fixed by a
+first pass over the whole row, so the levels are the same. Weights are
 the port's (out, in) int8 with (out,) fp32 scales. Wrappers take the plain
 version for tensors on the CPU; on a CUDA tensor they launch the kernel or
 raise. Inference only, as in the JAX package: they raise when an
@@ -47,7 +49,7 @@ from sd3_torch.ops.quant import int_mm, quantize_rows
 
 VMEM_CAP = 13 * 2 ** 20   # JAX's default (sd3_tpu/ops/fused_dense.py:79)
 TILES = (1024, 512, 256, 128)
-K_MAX = 1536              # csrc/fused_dense.cu's K_MAX
+K_CHUNK = 1536            # csrc/fused_dense.cu's K_CHUNK
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K10A = Kernel("qkv_adaln_int8", "fused_dense.cu", "sd3_qkv_adaln_int8",
@@ -126,16 +128,16 @@ def _check_device(kern: Kernel, x: torch.Tensor, *operands) -> None:
 
 def _check_weights(kern: Kernel, k: int, ws) -> int:
     """The common (d_out, k) shape of int8 weights `ws`, which the kernel
-    takes for k a multiple of 16 up to K_MAX and d_out a multiple of 8."""
+    takes for k a multiple of 16 and d_out a multiple of 8."""
     d_out = ws[0].shape[0]
     for w in ws:
         if w.dtype != torch.int8 or tuple(w.shape) != (d_out, k):
             raise TypeError(f"{kern.name} takes ({d_out}, {k}) int8 weights, "
                             f"got {w.dtype} {tuple(w.shape)}")
-    if k % 16 or k > K_MAX or d_out % 8:
+    if k % 16 or d_out % 8:
         raise NotImplementedError(
-            f"{kern.name} takes k a multiple of 16 up to {K_MAX} and d_out a "
-            f"multiple of 8; got k {k}, d_out {d_out}")
+            f"{kern.name} takes k a multiple of 16 and d_out a multiple of 8; "
+            f"got k {k}, d_out {d_out}")
     return d_out
 
 

@@ -1,5 +1,6 @@
 """Where the time of the wgmma attention kernels goes (K1, K7:
-sd3_torch/csrc/attention_sm90.cu; K4, K8b: attention_int8_sm90.cu), on one
+sd3_torch/csrc/attention_sm90.cu; K4, K8a, K7q, K8b:
+attention_int8_sm90.cu), on one
 NVIDIA Hopper GPU. From the root
 of the repository (it takes its shapes, inputs and timing from
 chip_smoke.py there):
@@ -20,7 +21,7 @@ chip_smoke.py there):
 4. "overlap": a microbenchmark of one block per SM, one warpgroup issuing
    wgmma m64n128k16 back to back and the other a stream of ex2 or FFMA,
    alone and together: cycles per iteration of each.
-The same for the int8 attention kernels (K4, K8b:
+The same for the int8 attention kernels (K4, K8a, K7q, K8b:
 sd3_torch/csrc/attention_int8_sm90.cu):
 5. "int8_sass": registers and spills of each instance (ptxas, from a fresh
    build), and in the SASS of each D = 64 instance the count of exp2s
@@ -30,19 +31,28 @@ sd3_torch/csrc/attention_int8_sm90.cu):
    the main loop) and between the main loop's wait for S and its wait for
    P.V (the softmax), and per key tile of the main loop (its instructions
    counted too), with ptxas's advisories; K7's main loop beside them;
-6. "int8_launches": the device time of each launch of K4 at the 512px
-   slice shape and of K8b (over K7's and over K7q's scores) at the 1024px
-   one, with the call times of K1 and K7 in the same process;
+6. "int8_launches": the device time of each launch of K4 and K8a at the
+   512px slice shape and of K7q and K8b (over K7's and over K7q's scores)
+   at the 1024px one, with the call times of K1 and K7 in the same process;
 7. "int8_phases": cycles per key tile of each consumer warpgroup in each
    phase of the main loop (waiting for its turn, issuing S and P.V,
    waiting for S, dequant + mask + softmax (K8b: and packing its
    levels), waiting for P.V, adding P.V (K8b) or packing p (K4)), medians
    over the CTAs of one call, from an instrumented
    copy (its times are the copy's);
-8. "int8_variants": call times of K4 and K8b built from copies of the
+8. "int8_variants": call times of K4, K8a, K7q and K8b built from copies of the
    source with one change each (INT8_VARIANTS), beside the source's own,
    each in turn, in the same process.
-`python3 -m sd3_torch.utils.attention_sm90_diag int8` runs parts 5-8 only.
+`python3 -m sd3_torch.utils.attention_sm90_diag int8` runs parts 5-8 only,
+and `int8_calls` part 6 only, through the attention API alone, so that it
+also times another commit's kernels: from a directory outside both trees,
+with that commit's sd3_torch first on the path and this repository's root
+next (for chip_smoke.py),
+    PYTHONPATH=<its root>:<this root> python3 -c "import runpy, sys;
+        sys.argv[1:] = ['int8_calls']; runpy.run_path('<this file>',
+        run_name='__main__')"
+in turns with this tree's (run by path, the file's own directory would
+come first on the path, and its logging.py hide the standard library's).
 One JSON line per part on stdout.
 """
 
@@ -322,10 +332,12 @@ def part_overlap() -> dict:
 
 
 INT8_SOURCE = "attention_int8_sm90.cu"
-# the D = 64 instances of attn_int8_sm90_kernel<D, QK8, PV8> by their mangled
-# template arguments
-INT8_INSTANCES = (("K4", "ILi64ELb1ELb0E"), ("K8b", "ILi64ELb0ELb1E"),
-                  ("K8b over K7q", "ILi64ELb1ELb1E"))
+# the D = 64 instances of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS> by
+# their mangled template arguments
+INT8_INSTANCES = (("K4", "ILi64ELb1ELb0ELb1E"), ("K8b", "ILi64ELb0ELb1ELb0E"),
+                  ("K8b over K7q", "ILi64ELb1ELb1ELb0E"),
+                  ("K7q", "ILi64ELb1ELb0ELb0E"), ("K8a", "ILi64ELb0ELb1ELb1E"),
+                  ("K8a over K4", "ILi64ELb1ELb1ELb1E"))
 SASS_OPS = ("MUFU.EX2", "F2I", "I2F", "PRMT", "HGMMA", "IGMMA",
             "WARPGROUP.DEPBAR", "STL")
 
@@ -382,10 +394,10 @@ def part_int8_sass() -> dict:
             fn = ln.split("for", 1)[1].strip()
         elif fn and "attn_int8_sm90_kernel" in fn and (
                 "spill" in ln or "Used" in ln):
-            tag = fn[fn.index("attn_int8_sm90_kernel") + 21:][:16]
+            tag = fn[fn.index("attn_int8_sm90_kernel") + 21:][:22]
             regs.setdefault(tag, []).append(ln.strip())
         elif "warning" in ln or "C75" in ln:  # e.g. wgmma serialization
-            m = re.search(r"\((C\d+)\).*attn_int8_sm90_kernel(\w{16})", ln)
+            m = re.search(r"\((C\d+)\).*attn_int8_sm90_kernel(\w{22})", ln)
             regs.setdefault("advisories", []).append(
                 " ".join(m.groups()) if m else ln.strip()[:200])
     res = dict(ptxas=regs)
@@ -407,13 +419,15 @@ def part_int8_sass() -> dict:
 
 
 def _int8_runs(gen):
-    """(name, shape, the call) of K1, K4, K7 and both K8b at the slice
-    shapes."""
+    """(name, shape, the call) of K1, K4, K8a, K7, K7q and both K8b at the
+    slice shapes."""
     from sd3_torch.ops import fused_attention as fa
     runs = []
     for name, shape, kw in (
             ("K1", cs.SLICE, {}), ("K4", cs.SLICE, dict(int8_qk=True)),
+            ("K8a", cs.SLICE, dict(int8_pv=True)),
             ("K7", cs.SLICE_1024, {}),
+            ("K7q", cs.SLICE_1024, dict(int8_qk=True)),
             ("K8b", cs.SLICE_1024, dict(int8_pv=True)),
             ("K8b over K7q", cs.SLICE_1024, dict(int8_qk=True,
                                                  int8_pv=True))):
@@ -544,7 +558,7 @@ def part_int8_phases(gen) -> dict:
         src = src.replace(a, b)
     lib = ctypes.CDLL(nvcc_build(src, "attention_int8_sm90_phases"))
     res = {}
-    kept = {k: k.function() for k in (fa.K4, fa.K8B)}
+    kept = {k: k.function() for k in (fa.K4, fa.K7Q, fa.K8A, fa.K8B)}
     try:
         for kern in kept:
             f = getattr(lib, kern.symbol)
@@ -589,7 +603,7 @@ def part_int8_variants(gen) -> dict:
             lambda kv: nvcc_build(kv[1], "int8_" + re.sub(r"\W+", "_", kv[0])),
             copies.items())))
     runs = [(n, r) for n, r in _int8_runs(gen) if n != "K1" and n != "K7"]
-    kept = {k: k.function() for k in (fa.K4, fa.K8B)}
+    kept = {k: k.function() for k in (fa.K4, fa.K7Q, fa.K8A, fa.K8B)}
     res = {}
     try:
         for variant in ["source", *libs, "source"]:
@@ -622,7 +636,9 @@ def main() -> int:
              ("int8_launches", lambda: part_int8_launches(gen)),
              ("int8_phases", lambda: part_int8_phases(gen)),
              ("int8_variants", lambda: part_int8_variants(gen))]
-    if sys.argv[1:] != ["int8"]:
+    if sys.argv[1:] == ["int8_calls"]:
+        parts = parts[1:2]
+    elif sys.argv[1:] != ["int8"]:
         parts = [("sass", part_sass),
                  ("launches", lambda: part_launches(gen)),
                  ("phases", lambda: part_phases(gen)),

@@ -72,9 +72,9 @@ PHASE_EDITS = [
      "    const bool rec = threadIdx.x == WG;\n"
      "    unsigned long long w_full = 0, w_mma = 0, w_epi = 0, t_q;\n"
      "    if (rec) g_t[blockIdx.x][0] = gtime();\n"),
-    ("        const int s = it % STAGES;\n        mbar_wait(full(c, s), (it / STAGES) & 1);\n",
-     "        const int s = it % STAGES;\n        t_q = gtime();\n"
-     "        mbar_wait(full(c, s), (it / STAGES) & 1);\n"
+    ("        const int i = it + kt0, s = i % STAGES;\n        mbar_wait(full(c, s), (i / STAGES) & 1);\n",
+     "        const int i = it + kt0, s = i % STAGES;\n        t_q = gtime();\n"
+     "        mbar_wait(full(c, s), (i / STAGES) & 1);\n"
      "        w_full += gtime() - t_q;\n"),
     ("        const int i = it + kt, s = i % STAGES;\n        mbar_wait(full(c, s), (i / STAGES) & 1);\n",
      "        const int i = it + kt, s = i % STAGES;\n        t_q = gtime();\n"
@@ -87,8 +87,9 @@ PHASE_EDITS = [
     ("      wgmma_wait<0>();\n      reg_fence(d);\n",
      "      t_q = gtime();\n      wgmma_wait<0>();\n      reg_fence(d);\n"
      "      w_mma += gtime() - t_q;\n"
-     "      if (rec && tiles == 0) g_t[blockIdx.x][2] = gtime();\n"
-     "      const unsigned long long t_e = gtime();\n"),
+     "      if (rec && tiles == 0) g_t[blockIdx.x][2] = gtime();\n"),
+    ("      it += nk;\n",
+     "      it += nk;\n      const unsigned long long t_e = gtime();\n"),
     ("        bulk_commit();\n      }\n    };\n",
      "        bulk_commit();\n      }\n      w_epi += gtime() - t_e;\n    };\n"),
     ("      fence_proxy_async_shared();\n      named_bar_sync(CONSUMERS_BAR, CONSUMERS * WG);\n",
@@ -106,9 +107,9 @@ PHASES = ["prologue done", "first tile done", "end", "waits for full stages",
 # Copies with one change each: (text, replacement), each once.
 COPIES = {
     "no prologue": [
-        ("        load_row(m0 + lr0, buf[0]);\n", ""),
-        ("            if (i + 1 < ROWS_PER_WARP) load_row(m0 + lr0 + i + 1, buf[k ^ 1]);\n"
-         "            quantize_row(m0 + lr0 + i, lr0 + i, buf[k]);\n", "")],
+        ("      load_row(m0 + lr0, k0, buf[0]);\n", ""),
+        ("          if (i + 1 < ROWS_PER_WARP) load_row(m0 + lr0 + i + 1, k0, buf[k ^ 1]);\n"
+         "          quantize_row(m0 + lr0 + i, lr0 + i, k0, ktiles, buf[k]);\n", "")],
     "no weight loads": [
         ("            mbar_arrive_expect_tx(full(c, s), B_TILE);\n"
          "            tma_load_2d(ring + s * B_TILE, m, full(c, s), kt * KT, col0);\n",
@@ -124,8 +125,8 @@ COPIES = {
          "      named_bar_sync(OWN + c, WG);  // thread 0 saw the last store's reads end\n")],
     "no products": [
         ("          wgmma_s8<W>(d, desc_s8(sb, kk), desc_s8(ring + s * B_TILE, kk),\n"
-         "                      kk > 0);\n", "          d[kk] = kk;\n"),
-        ("          wgmma_s8<W>(d, desc_s8(sb + kt * A_KTILE, kk),\n"
+         "                      kk > 0 || kt0 > 0);\n", "          d[kk] = kk;\n"),
+        ("          wgmma_s8<W>(d, desc_s8(sb + (kt - kt0) * A_KTILE, kk),\n"
          "                      desc_s8(ring + s * B_TILE, kk), 1);\n",
          "          d[kk] += kt;\n")],
     "rings of 2 stages": [

@@ -179,3 +179,32 @@ def test_wrapper_reads_the_general_paths_tensors_in_place(monkeypatch):
         copy = tfl._readable(view)
         assert copy is not view and copy.is_contiguous()
         assert torch.equal(copy, view)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 47, 8), (1, 2, 65, 16),
+                                   (2, 3, 47, 48), (1, 2, 129, 128)])
+def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
+    # the kernels' instances take head dims 16, 32, 64 and 128; the wrappers
+    # zero-pad any other up to the next (8 -> 16, 48 -> 64), run with the
+    # caller's scale and slice out, dq, dk, dv back, on the CPU as on the
+    # card: forward and gradients of the autograd Function against JAX's
+    # flash_attention (which pads D to 128 lanes)
+    q, k, v, do, scale = _case(shape, seed=6)
+    want, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
+                        *map(jnp.asarray, (q, k, v)))
+    dims = []
+    fwd = tfl.flash_fwd_plain
+
+    def spy(q, k, v, scale):
+        dims.append(q.shape[-1])
+        return fwd(q, k, v, scale)
+    monkeypatch.setattr(tfl, "flash_fwd_plain", spy)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    out = tfl.flash_attention(tq, tk, tv, scale)
+    assert out.shape == shape
+    assert dims == [tfl.instance_dim(shape[-1])]
+    _close(out, want)
+    out.backward(_t(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do))):
+        assert got.shape == shape
+        _close(got, w)

@@ -203,3 +203,41 @@ def test_tail_fallbacks_round_as_jax_in_bf16():
             tb(o), None if gate is None else tb(gate),
             None if r_ is None else tb(r_)).float().numpy()
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [1600, 1728, 2944])
+def test_k10_plain_at_rows_wider_than_one_a_tile_match_jax(k):
+    # rows wider than the card kernels' A tile (fd.K_CHUNK = 1536 values),
+    # which they run in chunks with the row scale fixed first: the plain
+    # versions against the JAX kernels (interpret mode) at the widths those
+    # take (K10a up to ~1728, K10b up to ~2944 at the published shapes),
+    # small M and d_out. K10b as above; K10a's LayerNorm sums over k values
+    # move an int8 level of the odd element, one level being max|xn| / 127
+    # (max|xn| ~4.5 over a row of 1600-2944 normal values) times a weight
+    # (up to ~0.3 here): ~1e-2, hence atol 1.5e-2, with the rel-L2 error
+    # still under 1e-4 (a wrong scale or a dropped term is far above it)
+    assert k > tfd.K_CHUNK
+    b, n, d_out = 2, 128, 64
+    r = np.random.default_rng(k)
+    x = r.standard_normal((b, n, k)).astype(np.float32)
+    sh = (np.arange(b)[:, None] * 2.0
+          + r.standard_normal((b, k)) * 0.1).astype(np.float32)
+    sc = (r.standard_normal((b, k)) * 0.1).astype(np.float32)
+    g = ((np.arange(b)[:, None] - 1.0)
+         + r.standard_normal((b, d_out)) * 0.5).astype(np.float32)
+    res = r.standard_normal((b, n, d_out)).astype(np.float32)
+    jw, tw = _weights(r, 3, k=k, d_out=d_out)
+    want = jfd.fused_qkv_adaln_int8(jnp.asarray(x), jnp.asarray(sh),
+                                    jnp.asarray(sc), *jw)
+    got = tfd.fused_qkv_adaln_int8(torch.from_numpy(x), torch.from_numpy(sh),
+                                   torch.from_numpy(sc), *tw)
+    assert want is not None and got is not None
+    for gt, w in zip(got, want):
+        _close(gt, w, 1.5e-2, 1e-4)
+    want = jfd.fused_out_gate_residual_int8(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(res), *jw[:2])
+    got = tfd.fused_out_gate_residual_int8(
+        torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(res),
+        *tw[:2])
+    assert want is not None and got is not None
+    _close(got, want, 1e-5, 1e-5)

@@ -103,25 +103,31 @@ def test_fused_attention_rejects_unported_variants():
 
 
 @pytest.mark.parametrize("name,family", [
-    ("void (anonymous namespace)::attn_int8_sm90_kernel<64, true, false>"
-     "(CUtensorMap_st, CUtensorMap_st)", "K4"),
-    ("attn_int8_sm90_kernel<64, false, true>(CUtensorMap_st)", "K8b"),
-    ("attn_int8_sm90_kernel<32, true, true>(CUtensorMap_st)", "K8b"),
+    ("void (anonymous namespace)::attn_int8_sm90_kernel<64, true, false, "
+     "true>(CUtensorMap_st, CUtensorMap_st)", "K4"),
+    ("attn_int8_sm90_kernel<64, false, true, false>(CUtensorMap_st)", "K8b"),
+    ("attn_int8_sm90_kernel<32, true, true, false>(CUtensorMap_st)", "K8b"),
     ("void (anonymous namespace)::prep_q8rows_kernel<64, 4>(bf16 const*)",
      "K4"),
     ("prep_q8rows_kernel<64, 7>(bf16 const*)", "K7q"),
     ("prep_q8rows_kernel<64, 8>(bf16 const*)", "K8b"),
-    ("k_prep_kernel<64, true>(bf16 const*)", "K4"),
+    ("prep_q8rows_kernel<64, 81>(bf16 const*)", "K8a"),
+    ("k_prep_kernel<64, true, __nv_bfloat16>(bf16 const*)", "K4"),
     ("k_quant_kernel(bf16 const*)", "K4"),
     ("v_quant_kernel<64>(bf16 const*)", "K8b"),
     ("v_amax_kernel(bf16 const*)", "K8b"),
-    ("attn_stream_kernel<64, true, false, false>(bf16 const*)", "K7q"),
-    ("attn_stream_kernel<64, false, true, true>(bf16 const*)", "K8a"),
-    ("attn_stream_kernel<64, true, true, true>(bf16 const*)", "K8a"),
+    ("attn_int8_sm90_kernel<64, true, false, false>(CUtensorMap_st)", "K7q"),
+    ("attn_int8_sm90_kernel<64, false, true, true>(CUtensorMap_st)", "K8a"),
+    ("attn_int8_sm90_kernel<64, true, true, true>(CUtensorMap_st)", "K8a"),
     ("attn_sm90_kernel<64, (anonymous namespace)::Softmax::Online>", "K7"),
+    ("attn_fp32_kernel<64>(float const*)", "fp32 attention"),
+    ("dq_fp32_kernel<64>(float const*)", "fp32 attention"),
     ("void (anonymous namespace)::dense_sm90_kernel<10>(CUtensorMap_st, "
      "CUtensorMap_st)", "K10a"),
     ("dense_sm90_kernel<11>(CUtensorMap_st)", "K10b"),
+    ("void (anonymous namespace)::dense_sm90_kernel<10, false>(CUtensorMap_st)",
+     "K10a"),
+    ("dense_sm90_kernel<11, true>(CUtensorMap_st)", "K10b"),
     ("xquant_kernel<9>(bf16 const*)", "K9"),
 ])
 def test_chip_smoke_names_the_kernel_families(name, family):
@@ -160,7 +166,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch):
 def test_every_kernel_symbol_is_in_its_source():
     # no nvcc here: at least the C entry point each wrapper binds exists
     for k in (tfa.K1, tfa.K4, tfa.K7, tfa.K7Q, tfa.K8A, tfa.K8B, tfm.K2,
-              tfm.K3, tfl.K5, tfl.K6A, tfl.K6B, tfm.K9, tfd.K10A, tfd.K10B):
+              tfm.K3, tfl.K5, tfl.K6A, tfl.K6B, tfm.K9, tfd.K10A, tfd.K10B,
+              tfa.K1F, tfa.K7F, tfl.K5F, tfl.K6AF, tfl.K6BF):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -188,7 +195,8 @@ def test_flash_forward_is_the_hopper_attention_source():
     assert tfl.K5.source == tfa.K1.source == tfa.K7.source
     src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
-    assert "launch_flash<32>" in entry and "launch_flash<64>" in entry
+    for d in tfl.HEAD_DIMS:
+        assert f"launch_flash<{d}>" in entry, d
     launch = src[src.index("int launch_flash("):]
     launch = launch[:launch.index("\n}\n")]
     assert "attn_sm90_kernel<D, Softmax::Flash>" in launch
@@ -215,12 +223,23 @@ def test_int8_swiglu_is_the_wgmma_source():
 
 
 def test_int8_attention_is_the_wgmma_source():
-    # K4 and K8b run on s8 / bf16 wgmma fed by TMA in attention_int8_sm90.cu:
-    # no mma.sync or ldmatrix fragment is left in their source, and K4's
-    # mma.sync source is gone; K7q and K8a keep theirs
-    assert tfa.K4.source == tfa.K8B.source == "attention_int8_sm90.cu"
-    assert tfa.K7Q.source == tfa.K8A.source == "stream_attention.cu"
+    # K4, K8a, K7q and K8b run on s8 / bf16 wgmma fed by TMA in
+    # attention_int8_sm90.cu, one kernel with the pass structure its own
+    # template parameter: no mma.sync or ldmatrix fragment is left in their
+    # source or in the headers, and the mma.sync sources are gone
+    assert (tfa.K4.source == tfa.K8B.source == tfa.K7Q.source
+            == tfa.K8A.source == "attention_int8_sm90.cu")
     src = (kernels.CSRC_DIR / tfa.K4.source).read_text()
+    assert "template <int D, bool QK8, bool PV8, bool TWO_PASS>" in src
+    assert "constexpr bool TWO_PASS = " not in src
+    for inst in ("dispatch<true, false, true>", "dispatch<true, false, false>",
+                 "dispatch<false, true, true>", "dispatch<true, true, true>",
+                 "dispatch<false, true, false>", "dispatch<true, true, false>"):
+        assert inst in src, inst
+    for hdr in ("mma.cuh", "attention_common.cuh"):
+        text = (kernels.CSRC_DIR / hdr).read_text()
+        for gone in ("mma_s8(", "mma_bf16(", "ldsm_x4(", "constexpr int BK "):
+            assert gone not in text, (hdr, gone)
     hdr = (kernels.CSRC_DIR / "sm90.cuh").read_text()
     for n in (16, 32, 64, 128):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in hdr
@@ -232,8 +251,7 @@ def test_int8_attention_is_the_wgmma_source():
                  "mma.sync"):
         assert gone not in src, gone
     assert not (kernels.CSRC_DIR / "fused_attention.cu").exists()
-    stream = (kernels.CSRC_DIR / tfa.K7Q.source).read_text()
-    assert "sd3_fused_attention_stream_int8pv" not in stream
+    assert not (kernels.CSRC_DIR / "stream_attention.cu").exists()
 
 
 def test_int8_dense_is_the_wgmma_source():
@@ -260,23 +278,25 @@ def test_int8_dense_is_the_wgmma_source():
 
 
 def test_k10_k_max_matches_its_source():
-    # the wrappers refuse a row wider than the kernels' shared-memory A tile
-    # holds, which must take the published width 1216
+    # the kernels' shared-memory A tile holds K_CHUNK values of a row, which
+    # must take the published width 1216 in one chunk (no extra pass over x);
+    # wider rows run in chunks of it, and no other limit on k is left
     src = (kernels.CSRC_DIR / tfd.K10A.source).read_text()
-    m = re.search(r"constexpr int K_MAX = (\d+);", src)
+    m = re.search(r"constexpr int K_CHUNK = (\d+);", src)
     assert m is not None
-    assert tfd.K_MAX == int(m.group(1)) >= 1216
-    assert tfd.K_MAX % 128 == 0
+    assert tfd.K_CHUNK == int(m.group(1)) >= 1216
+    assert tfd.K_CHUNK % 128 == 0
+    assert "K_MAX" not in src and not hasattr(tfd, "K_MAX")
 
 
 @pytest.mark.parametrize("const,source,name", [
     ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
     ("K8B_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
-    ("INT8_KEY_TILE", "attention_common.cuh", "BK")])
+    ("K7Q_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE")])
 def test_key_tiles_match_their_sources(const, source, name):
     # the plain versions' block_k that the card comparisons take is the
-    # kernel's own key tile: K1 / K7's, K4 / K8b's (K8b's int8 V^T is padded
-    # to it), and that of the mma.sync kernels K7q and K8a
+    # kernel's own key tile: K1 / K7's, and K4 / K8a / K7q / K8b's (the int8
+    # V^T of K8a and K8b is padded to it)
     src = (kernels.CSRC_DIR / source).read_text()
     m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m is not None, (source, name)
@@ -410,7 +430,7 @@ def test_stream_and_int8_pv_kernels_match_plain_on_the_card(
     if streaming:  # the kernel's key tiles
         plain = (tfa.composition_stream_int8_qk if int8_qk
                  else tfa.composition_stream)
-        tile = (tfa.K8B_KEY_TILE if int8_pv else tfa.INT8_KEY_TILE
+        tile = (tfa.K8B_KEY_TILE if int8_pv else tfa.K7Q_KEY_TILE
                 if int8_qk else tfa.K7_KEY_TILE)
         want = plain(*ins, block_k=tile, int8_pv=int8_pv)
     else:
@@ -580,10 +600,16 @@ def dense_case(b, n, k, d_out, dev, seed=0):
 # tile), k a multiple of 16 but not of 64; the full image stream (B 8: one
 # wave of 128 row blocks), the published widths at ragged rows (900 rows,
 # 64-row blocks straddling samples; K and d_out not multiples of 128), K at
-# K_MAX with blocks spanning three samples and d_out a multiple of 8 only
+# one A tile (1536) with blocks spanning three samples and d_out a multiple
+# of 8 only; k past one A tile, in chunks: 1600 (two chunks, the second of
+# one K tile), 1728 and 2944 (the widths the JAX kernels take at most) and
+# 4096 (64 blocks' dim; three chunks), with ragged rows, and a narrow last
+# column tile at 1600
 DENSE_SHAPES = [(2, 1024, 1216, 1216), (3, 100, 64, 64), (2, 40, 80, 48),
                 (8, 1024, 1216, 1216), (3, 300, 1216, 1216),
-                (5, 30, 1536, 200)]
+                (5, 30, 1536, 200),
+                (2, 130, 1600, 1600), (2, 70, 1728, 1728), (3, 50, 2944, 2944),
+                (2, 40, 4096, 4096), (1, 64, 1600, 200)]
 # chip_smoke.py's K10 limits: against fp32, a bf16 output and the odd int8
 # level moved by the LayerNorm's sum order
 K10_MAX_REL, K10_REL_L2 = 1e-2, 5e-3
@@ -682,13 +708,14 @@ def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     w = torch.zeros(64, 40, device=cuda_device, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="multiple of 16"):
         tfd.out_gate_residual_int8(x, None, None, w, ws[1])
-    # wider than the A tile holds; an output width the outputs' tensor maps
-    # do not take
-    wide = tfd.K_MAX + 16
+    # no limit on k is left: wider than the A tile holds runs in chunks and
+    # launches; an output width the outputs' tensor maps do not take
+    wide = tfd.K_CHUNK + 16
     x = torch.zeros(2, 8, wide, device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros(64, wide, device=cuda_device, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match=f"up to {tfd.K_MAX}"):
-        tfd.out_gate_residual_int8(x, None, None, w, ws[1])
+    before = tfd.K10B.launches
+    assert tfd.out_gate_residual_int8(x, None, None, w, ws[1]).shape == (2, 8, 64)
+    assert tfd.K10B.launches == before + 1
     w = torch.zeros(36, 64, device=cuda_device, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="multiple of 8"):
         tfd.out_gate_residual_int8(t["x"], None, None, w, ws[1][:36])
@@ -838,10 +865,15 @@ def test_k4_k8b_rows_of_negative_scores_on_the_card(cuda_device, d, int8_qk,
 
 @pytest.mark.cuda
 def test_k1_refuses_what_it_does_not_take(cuda_device):
-    q = torch.zeros(1, 8, 32, device=cuda_device)
+    # fp16 (bf16 and fp32 have instances); a head dim of neither an
+    # instance nor a padded one; fp32 under the int8 kernels
+    q = torch.zeros(1, 8, 32, device=cuda_device, dtype=torch.float16)
     tab = torch.zeros(8, 16, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.fused_attention(q, q, q, 2, tab, tab, tab, tab, 0.25)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.fused_attention(q.float(), q.float(), q.float(), 2, tab, tab,
+                            tab, tab, 0.25, int8_qk=True)
     qb = torch.zeros(1, 8, 48, device=cuda_device, dtype=torch.bfloat16)
     tab = torch.zeros(8, 24, device=cuda_device)
     with pytest.raises(NotImplementedError, match="head dims"):
@@ -861,6 +893,12 @@ FLASH_SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 2, 129, 64),
 FLASH_TILE_SHAPES = [(1, 2, n, d) for d in (32, 64)
                      for n in (1, 63, 64, 65, 127, 128, 129, 255, 257, 4250)
                      if (1, 2, n, d) not in FLASH_SHAPES]
+# the instances at head dims 16 and 128 (K6b's 32-row query tiles at 128),
+# at ragged lengths and over many tiles, and head dims padded to the next
+# instance (48 -> 64, 8 -> 16, 100 -> 128)
+FLASH_DIM_SHAPES = [(2, 3, 47, 16), (1, 2, 1025, 16), (2, 3, 47, 128),
+                    (1, 2, 257, 128), (1, 3, 1178, 128), (2, 3, 129, 48),
+                    (1, 2, 65, 8), (1, 2, 100, 100)]
 # chip_smoke.py's limits: bf16 p, ds and outputs against the fp32 plain
 # versions run on the same bf16 values
 FLASH_OUT_ATOL, FLASH_LSE_ATOL = 1e-2, 1e-3
@@ -905,7 +943,8 @@ def _assert_grad_close(got, want, name, max_rel_limit=FLASH_GRAD_MAX_REL,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_TILE_SHAPES)
+@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_TILE_SHAPES
+                         + FLASH_DIM_SHAPES)
 def test_k5_k6_kernels_match_plain_on_the_card(cuda_device, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, do = _flash_case(shape, cuda_device)
@@ -1065,11 +1104,15 @@ def test_k1_backward_runs_k5_k6_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_refuses_what_it_does_not_take(cuda_device):
-    q = torch.zeros(1, 2, 8, 32, device=cuda_device)
+    # fp16 (bf16 and fp32 have instances), dtypes that differ, a head dim
+    # past the largest instance (any below it is padded)
+    q = torch.zeros(1, 2, 8, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         tfl.flash_attention(q, q, q, 0.2)
-    qb = torch.zeros(1, 2, 8, 48, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="D in"):
+    with pytest.raises(TypeError, match="one dtype"):
+        tfl.flash_fwd(q.float(), q.bfloat16(), q.float(), 0.2)
+    qb = torch.zeros(1, 2, 8, 160, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="up to 128"):
         tfl.flash_attention(qb, qb, qb, 0.2)
 
 
@@ -1111,3 +1154,170 @@ def test_k1_carries_gradients_and_inference_kernels_refuse_them():
         tfd.qkv_adaln_int8(xg, d["shift"], d["scale"], *ws)
     with pytest.raises(NotImplementedError, match="inference-only"):
         tfd.out_gate_residual_int8(xg, d["gate"], None, *ws[:2])
+
+
+# ---- fp32 instances, padded head dims, K7q / K8a ------------------------
+
+# the fp32 kernels against their plain versions run in fp32 with TF32 off
+# (cuBLAS's fp32 GEMM): 3xTF32 products keep ~21 bits, exp2f 2 ulp, sums in
+# another order; measured well under the limit, which a single TF32 pass
+# (~1e-3) or a dropped term exceeds by far
+FP32_REL_L2 = 1e-5
+# and the bf16 instance's error at the same shape (bf16 inputs, bf16 p and
+# output, against the same fp32 plain version) is at least this many times
+# larger
+FP32_OVER_BF16 = 50
+
+
+def _rel_l2(got, want):
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 47, 32), (1, 2, 300, 64),
+                                   (1, 2, 129, 128), (2, 3, 65, 16),
+                                   (1, 2, 100, 48), (1, 3, 1178, 64)])
+def test_fp32_flash_kernels_match_plain_on_the_card(cuda_device, no_tf32,
+                                                    shape):
+    # K5F, K6AF, K6BF (3xTF32) against the fp32 plain versions; the bf16
+    # kernels' error at the same shape is FP32_OVER_BF16 times larger
+    q, k, v, do = (t.float() for t in _flash_case(shape, cuda_device, seed=7))
+    q, k, v, do = (t + 1e-3 * torch.randn_like(t) for t in (q, k, v, do))
+    scale = shape[-1] ** -0.5
+    w_out, w_lse = tfl.flash_fwd_plain(q, k, v, scale)
+    w_dq, w_delta = tfl.flash_dq_plain(q, k, v, w_out, do, w_lse, scale)
+    w_dk, w_dv = tfl.flash_dkv_plain(q, k, v, do, w_lse, w_delta, scale)
+    counts = lambda: [kk.launches for kk in (tfl.K5, tfl.K6A, tfl.K6B,
+                                             tfl.K5F, tfl.K6AF, tfl.K6BF)]
+    before = counts()
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 0, 1, 1, 1]
+    assert all(t.dtype == torch.float32 for t in (out, dq, dk, dv))
+    errs = dict(out=_rel_l2(out, w_out), dq=_rel_l2(dq, w_dq),
+                dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
+    assert all(e <= FP32_REL_L2 for e in errs.values()), errs
+    assert (lse - w_lse).abs().max().item() <= 1e-5
+    assert (delta - w_delta).abs().max().item() <= 1e-5 * w_delta.abs().max().item() + 1e-6
+    qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    bo, bl = tfl.flash_fwd(qb, kb, vb, scale)
+    bdq, bdelta = tfl.flash_dq(qb, kb, vb, bo, dob, bl, scale)
+    bdk, bdv = tfl.flash_dkv(qb, kb, vb, dob, bl, bdelta, scale)
+    bf16 = dict(out=_rel_l2(bo, w_out), dq=_rel_l2(bdq, w_dq),
+                dk=_rel_l2(bdk, w_dk), dv=_rel_l2(bdv, w_dv))
+    for name in errs:
+        assert errs[name] * FP32_OVER_BF16 <= bf16[name], (name, errs, bf16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("nh,d,h,w,n_txt,rope2d",
+                         [ATTN_SHAPES[1], ATTN_SHAPES[3], ATTN_SHAPES[4],
+                          (3, 8, 4, 5, 7, True)])
+def test_fp32_k1_k7_match_plain_on_the_card(cuda_device, no_tf32, nh, d, h,
+                                            w, n_txt, rope2d, streaming):
+    # K1F / K7F: the fp32 prep and 3xTF32 attention against the fp32 plain
+    # composition on the card; the bf16 kernel's error is FP32_OVER_BF16
+    # times larger
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, rope2d,
+                                                   seed=11)
+    dev = cuda_device
+    qf, kf, vf = (_t(a).to(dev) for a in (q, k, v))
+    wt = [_t(a).to(dev) for a in ws]
+    n = qf.shape[1]
+    cos, sin = (torch.as_tensor(t, device=dev)
+                for t in tfa.rope_row_tables(angles, n, d))
+    cq, sq = tfa.fold_row_tables(cos, sin, wt[0], wt[1], n_img)
+    ck, sk = tfa.fold_row_tables(cos, sin, wt[2], wt[3], n_img)
+    kern = tfa.K7F if streaming else tfa.K1F
+    counts = lambda: {kk.name: kk.launches for kk in kernels.REGISTRY}
+    before = counts()
+    got = tfa.fused_attention(qf, kf, vf, nh, cq, sq, ck, sk, scale,
+                              single_kv_max=0 if streaming else 2048)
+    torch.cuda.synchronize()
+    after = counts()
+    assert {nm: after[nm] - before[nm] for nm in after
+            if after[nm] != before[nm]} == {kern.name: 1}
+    eps = float(torch.finfo(torch.float32).eps)
+    want = tfa.composition(qf, kf, vf, cq, sq, ck, sk, scale, eps, eps, nh)
+    err = _rel_l2(got, want)
+    assert err <= FP32_REL_L2, err
+    epsb = float(torch.finfo(torch.bfloat16).eps)
+    bf = tfa.fused_attention(qf.bfloat16(), kf.bfloat16(), vf.bfloat16(), nh,
+                             cq, sq, ck, sk, scale,
+                             single_kv_max=0 if streaming else 2048)
+    want_b = tfa.composition(qf, kf, vf, cq, sq, ck, sk, scale, epsb, epsb, nh)
+    assert err * FP32_OVER_BF16 <= _rel_l2(bf, want_b), (err, _rel_l2(bf, want_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 4, 8])
+@pytest.mark.parametrize("int8_qk,int8_pv", [(False, False), (True, False),
+                                             (False, True)])
+def test_head_dims_below_16_run_padded_on_the_card(cuda_device, d, int8_qk,
+                                                   int8_pv):
+    # the fused route takes every even head dim dividing 128: 2, 4 and 8 run
+    # the D = 16 instances zero-padded, the prep's RMSNorm over the true
+    # head dim; against the plain version on the same bf16 inputs
+    q, k, v, ws, angles, n_img, scale = _attn_case(5, d, 6, 7, 9, d >= 4,
+                                                   seed=d)
+    dev = cuda_device
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    wt = [_t(a).to(dev) for a in ws]
+    kern = tfa._INFERENCE.get((int8_qk, int8_pv, False), (tfa.K1,))[0]
+    before = kern.launches
+    got = tfa.fused_dual_flash_attention(qb, kb, vb, 5, *wt, angles, n_img,
+                                         scale, int8_qk=int8_qk,
+                                         int8_pv=int8_pv)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    assert got.shape == qb.shape
+    n = q.shape[1]
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    cq, sq = tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img)
+    ck, sk = tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img)
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    plain = tfa.composition_int8_qk if int8_qk else tfa.composition
+    kw = dict(int8_pv=True) if int8_pv else {}
+    want = plain(*(t.cpu() for t in (qb, kb, vb)), cq, sq, ck, sk, scale, eps,
+                 eps, 5, **kw)
+    # chip_smoke.py's INT8_SAME_ROUNDING_ATOL: the plain version on the same
+    # bf16 inputs; a mean over 16 values in place of d would be far off
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", [
+    (True, False, True), (False, True, False), (True, True, False)])
+def test_k7q_k8a_give_the_same_bits_twice_on_the_card(cuda_device, int8_qk,
+                                                      int8_pv, streaming):
+    # no atomics: every output element is summed by one thread in one order
+    q, k, v, ws, angles, n_img, scale = _attn_case(*ATTN_SHAPES[3], seed=5)
+    dev = cuda_device
+    qb, kb, vb = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    n = q.shape[1]
+    cos, sin = (torch.as_tensor(t, device=dev)
+                for t in tfa.rope_row_tables(angles, n, 32))
+    wt = [_t(a).to(dev) for a in ws]
+    tabs = (*tfa.fold_row_tables(cos, sin, wt[0], wt[1], n_img),
+            *tfa.fold_row_tables(cos, sin, wt[2], wt[3], n_img))
+    runs = [tfa.fused_attention(qb, kb, vb, 5, *tabs, scale, int8_qk=int8_qk,
+                                int8_pv=int8_pv,
+                                single_kv_max=0 if streaming else 2048)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)

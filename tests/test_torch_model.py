@@ -469,3 +469,25 @@ def test_int8_mmdit_past_2048_tokens_matches_jax(monkeypatch, int8_pv):
                                  int8_pv=int8_pv, count=_count_stream_routes)
     attn = dict(K7=0, K8b=2) if int8_pv else dict(K7=2, K8b=0)
     assert counts == dict(K1=0, K2=2, K3=1, K4=0, K7q=0, K8a=0, **attn)
+
+
+def test_fp32_two_block_tiny_forward_matches_jax():
+    # the fp32 configuration (JAX's --dtype float32, the bit-match gate; on
+    # the card the fp32 instances K1F / K7F take its attention): a 2-block
+    # tiny_config model, head dim 16, through the fused attention route,
+    # with null masks; fp32 on both sides, the tolerances above
+    jcfg = j_tiny_config(attn_type="softmax_flash", num_blocks=2,
+                         dtype="float32")
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(11), remat_blocks=False)
+    x, t, c, cp = _inputs(jcfg, seed=12)
+    nulls = [np.array(m) for m in ([False, True], [True, False],
+                                   [False, False])]
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)),
+                    *map(jnp.asarray, nulls))
+    model = _port_model(jcfg, params)
+    assert model.cfg.dtype == "float32"
+    assert model.cfg.dim // model.cfg.num_heads == 16
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)), *map(torch.from_numpy, nulls))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)

@@ -233,3 +233,58 @@ def test_fused_attention_gradients_match_jax_vjp(nh, d, h, w, n_txt, rope2d):
     got = torch.autograd.grad(out, ins, _t(g))
     for a, b in zip(got, want):
         _close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_fused_attention_at_head_dim_8_matches_jax_kernel(int8_qk):
+    # JAX's route takes any even head dim dividing 128 into the fused
+    # kernel; so does the port's, whose card kernels run 2, 4 and 8 at the
+    # D = 16 instance, zero-padded, with the prep's RMSNorm over the true 8
+    # values (the tolerances of the tests above)
+    q, k, v, ws, angles, n_img, scale = _attn_case(3, 8, 3, 4, 5, True,
+                                                   seed=8)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             3, *map(jnp.asarray, ws), angles, n_img, scale,
+                             int8_qk=int8_qk)
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), 3,
+                                         *map(_t, ws), angles, n_img, scale,
+                                         int8_qk=int8_qk)
+    _close(got, want, atol=2e-4 if int8_qk else ATOL,
+           rtol=0 if int8_qk else RTOL)
+
+
+def test_fused_attention_gradients_at_head_dim_8_match_jax_vjp():
+    # the backward's flash attention pads the head dim 8 to 16 (the
+    # kernels' instance) on the CPU too: the same gradients as JAX's
+    q, k, v, ws, angles, n_img, scale = _attn_case(2, 8, 3, 3, 4, True,
+                                                   seed=9)
+    g = _rng(5).standard_normal(q.shape).astype(np.float32)
+    fn = lambda *a: j_fused_attention(*a[:3], 2, *a[3:], angles, n_img, scale)
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v, *ws)))
+    want = vjp(jnp.asarray(g))
+    ins = [_t(a).requires_grad_() for a in (q, k, v, *ws)]
+    out = tfa.fused_dual_flash_attention(*ins[:3], 2, *ins[3:], angles,
+                                         n_img, scale)
+    got = torch.autograd.grad(out, ins, _t(g))
+    for a, b in zip(got, want):
+        _close(a, b, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("d", [2, 4, 8])
+def test_prep_of_a_padded_head_takes_the_true_head_dim(d):
+    # what the card's prep does with a head of d values zero-padded to 16,
+    # its tables zero-padded too: the RMSNorm's mean over the d values, the
+    # padded lanes zero after the rotation; a mean over all 16 is not it
+    # (RoPE2d splits a head into 4 axes' pairs: a head of 2 takes NoPE)
+    q, _, _, ws, angles, n_img, _ = _attn_case(2, d, 3, 3, 4, d >= 4, seed=d)
+    n = q.shape[1]
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    c, s = tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img)
+    x = tfa._heads(_t(q), 2)
+    want = tfa._prep(x, c, s, 1e-6)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 16 - d))
+    got = tfa._prep(pad(x), pad(c), pad(s), 1e-6, dn=d)
+    _close(got[..., :d], want, atol=1e-6, rtol=1e-6)
+    assert not got[..., d:].any()
+    wrong = tfa._prep(pad(x), pad(c), pad(s), 1e-6)
+    assert (wrong[..., :d] - want).abs().max().item() > 1e-2

@@ -518,3 +518,31 @@ def test_unported_training_options_raise(kw, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, TrainConfig(**kw), device="cpu", log_dir=str(tmp_path),
                 use_wandb=False)
+
+
+def test_one_fp32_fused_step_matches_jax(tmp_path):
+    # one step in fp32 (the configuration a Trainer(dtype="float32") runs,
+    # on the card through the fp32 flash instances K5F / K6AF / K6BF): the
+    # fused low-mem AdamW, fp32 gradients, remat, against JAX's fused step
+    # function in fp32. Loss, gradient norm and the update to 1e-4 relative
+    # (summation order only, as the fp32 optax test above)
+    jcfg = j_tiny_config(attn_type="softmax_flash", dtype="float32")
+    tkw = dict(batch_size=2, accumulation_steps=1, lr=1e-3, warmup_steps=0,
+               low_mem_optimizer=True, fused_optimizer=True,
+               remat_blocks=True, track_ema=False)
+    _, jtc, step, jp, js, trainer = _pair(jcfg, tkw, tmp_path, seed=2)
+    assert trainer.model.blocks[0].attn.query_proj_x.weight.dtype == \
+        torch.float32
+    p0 = {k: _np(v) for k, v in trainer.params.items()}
+    batch = _batch(jcfg, 1, seed=50)
+    key = jax.random.PRNGKey(51)
+    jp, js, jmet = step(jp, js, key, batch)
+    tmet = trainer.train_step({k: _t(v) for k, v in batch.items()},
+                              _step_noise(key, batch, jtc, 1))
+    assert tmet["loss"].item() == pytest.approx(float(jmet["loss"]), rel=1e-4)
+    assert tmet["grad_norm"].item() == pytest.approx(float(jmet["grad_norm"]),
+                                                     rel=1e-4)
+    want = state_dict_from_jax(jp)
+    dp_t = _flat({k: _np(v) - p0[k] for k, v in trainer.params.items()})
+    dp_j = _flat({k: _np(v) - p0[k] for k, v in want.items()})
+    assert _rel_l2(dp_t, dp_j) < 1e-4
