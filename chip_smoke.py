@@ -41,10 +41,13 @@ Phases (any failure exits non-zero without the final ok line):
      attention_sm90.cu, K6a and K6b flash_bwd_sm90.cu) at the 512px
      training shape, a ragged one, the 1024px training shape (checked on
      two heads) and at head dims 16, 128 and 48 (padded to 64); the fp32
-     instances (attention_fp32.cu, 3xTF32 mma.sync): K5F, K6AF, K6BF at
-     the 512px training shape and a ragged one, K1F at the 512px slice
-     shape, K7F past 2048 tokens, each against its fp32 plain version with
-     TF32 off (rel L2 <= 1e-5) and 50x below the bf16 instance's error.
+     instances (attention_fp32.cu, 3xTF32 mma.sync), each where phase 4 or
+     the attention API launches it: K5F, K6AF, K6BF at the fp32 training
+     step's shape (B 2, H 19, N 410, D 64), at tiny_config's head dim 16
+     and at a ragged shape; K1F at the fp32 model's (512px, batch 2), K7F
+     at the 1024px slice shape and at a ragged one past 2048 tokens; each
+     against its fp32 plain version with TF32 off (rel L2 <= 1e-5) and 50x
+     below the bf16 instance's error.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -64,9 +67,9 @@ Phases (any failure exits non-zero without the final ok line):
      and mlp_tail_fusion="3d" (K4, K9, K10a, K10b); 1024px, batch 1, bf16
      (K7), int8 (K7, K2, K3) and int8 with int8 P.V (K8b, K2, K3); the fp32
      model at 512px (K1F); then one training step at 256px, batch 2 (loss,
-     gradients and the update against fp32 on the CPU), and one of
-     tiny_config (head dim 16: K5, K6a, K6b at D = 16) in bf16 and in fp32
-     (K5F, K6AF, K6BF);
+     gradients and the update against fp32 on the CPU), in bf16 (K5, K6a,
+     K6b) and in fp32 (K5F, K6AF, K6BF), and one of tiny_config in bf16
+     (head dim 16: K5, K6a, K6b at D = 16);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then the median of 3 timed runs; each
@@ -79,9 +82,9 @@ Phases (any failure exits non-zero without the final ok line):
      mlp_tail_fusion="3d"): each sample call must launch K10a 380 (the
      image stream's q/k/v), K10b 380 (the image out-projection; the text
      stream's declines, and the last block has none), K9 740 (380 image +
-     360 text), K4 380 and K2, K3, K1 0 times; then the int8 model with
-     int8 P.V, one timed call: the model's gate (the JAX package's) keeps
-     int8 P.V to more than 2048 tokens, so K4 380 and K8a 0;
+     360 text), K4 380 and K2, K3, K1 0 times (with int8 P.V asked for,
+     the model's gate, the JAX package's, keeps it to more than 2048
+     tokens: 512px stays on K4, tests/test_torch_model.py);
   8.-10. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
      (K7 380, K2 380, K3 360, K4 0, K1 0), and int8 with int8 P.V (K8b 380,
      K7 0, K2 380, K3 360; one timed call);
@@ -294,9 +297,16 @@ K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
 # flash attention at the instances' other head dims: 16 (tiny_config's),
 # 128, and 48, which runs padded to the 64 instance; the 512px token count
 FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
-# the fp32 instances: flash at the 512px training shape and a ragged one;
-# K1F at the 512px slice shape and K7F past 2048 tokens (RAGGED_STREAM)
-FLASH_FP32 = [FLASH_SLICE, FLASH_RAGGED]
+# the fp32 training steps on the card: the published widths at 2 blocks,
+# 256px latents (32 x 32), where K5F, K6AF and K6BF launch on the main path;
+# tiny_config's (head dim 16) runs in bf16 (K5, K6a, K6b at D 16)
+TRAIN32_LAT = 256 // 8
+TINY_LAT = 8
+# the fp32 attention instances K1F and K7F are held to their plain versions
+# where the main path launches them: K1F in the fp32 2-block 512px model
+# (batch 2), K7F through the attention API at the 1024px slice shape; and
+# at a ragged stream shape (head dim 32, a ragged last tile)
+SLICE_FP32 = dict(SLICE, b=2)
 
 
 class SmokeFailure(Exception):
@@ -948,7 +958,7 @@ def phase_attention_fp32(shape, gen):
                             scale)
     torch.cuda.synchronize()
     want = run_plain()
-    want16 = fa.composition(q, k, v, *tables, scale, eps16, eps16, nh)
+    want16 = plain(q, k, v, *tables, scale, eps16, eps16, nh)
     err, bf_err = _rel_l2(got, want), _rel_l2(bf, want16)
     require(bool(torch.isfinite(got).all()), f"{name} non-finite at {shape}")
 
@@ -1037,14 +1047,27 @@ def _flat_rel_l2(got: dict, want: dict) -> float:
     return (num / den) ** 0.5
 
 
-def phase_train_step_2block(log_dir):
-    """One training step of the published widths at a depth of 2 blocks,
-    256px, batch 2: the slice's flags in bf16 on the card (K5, K6a, K6b)
-    against the same weights and noise in fp32 on the CPU (plain path)."""
+def train_step_config():
+    """The training steps' model: the published widths at a depth of 2
+    blocks, stage 256px."""
     from sd3_torch.config import published_config
-    return phase_train_step(
-        log_dir, published_config(stage_res=256).replace(num_blocks=2),
-        "2-block", lat=256 // 8)
+    return published_config(stage_res=256).replace(num_blocks=2)
+
+
+def step_flash_shape(cfg, lat, batch=2) -> tuple:
+    """(B, H, N, D) of the flash attention calls of a training step of `cfg`
+    on lat x lat latents: the image patches and the text tokens."""
+    return (batch, cfg.num_heads, (lat // cfg.patch_size) ** 2
+            + cfg.text_tokens, cfg.dim // cfg.num_heads)
+
+
+def phase_train_step_2block(log_dir, fp32=False):
+    """One training step of the published widths at a depth of 2 blocks,
+    256px, batch 2 on the card: the slice's flags in bf16 (K5, K6a, K6b),
+    or with `fp32` all in fp32 (K5F, K6AF, K6BF), against the same weights
+    and noise in fp32 on the CPU (plain path)."""
+    return phase_train_step(log_dir, train_step_config(), "2-block",
+                            lat=TRAIN32_LAT, fp32=fp32)
 
 
 def phase_train_step(log_dir, cfg, label, lat, fp32=False):
@@ -1655,9 +1678,17 @@ def main() -> int:
         phase_flash(FLASH_SLICE_1024, gen, check=FLASH_CHECK_1024)
         for s in FLASH_DIMS:
             phase_flash(s, gen)
-        k56f = [phase_flash_fp32(s, gen) for s in FLASH_FP32]
-        k1f = phase_attention_fp32(SLICE, gen)
-        k7f = phase_attention_fp32(RAGGED_STREAM, gen)
+        # the fp32 flash instances at the fp32 training step's shape, where
+        # the main path launches them (B 2, H 19, N 410, D 64), at
+        # tiny_config's head dim 16 and at a ragged shape
+        from sd3_torch.config import tiny_config
+        tiny = tiny_config(attn_type="softmax_flash", dtype="bfloat16")
+        k56f = [phase_flash_fp32(s, gen) for s in (
+            step_flash_shape(train_step_config(), TRAIN32_LAT),
+            step_flash_shape(tiny, TINY_LAT), FLASH_RAGGED)]
+        k1f = phase_attention_fp32(SLICE_FP32, gen)
+        k7f = phase_attention_fp32(SLICE_1024, gen)
+        phase_attention_fp32(RAGGED_STREAM, gen)
         phase_k1_backward(gen)
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU: "
@@ -1672,14 +1703,9 @@ def main() -> int:
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
-        # tiny_config (head dim 16: the flash instances at D = 16), in bf16
-        # and in fp32 (the fp32 instances)
-        from sd3_torch.config import tiny_config
-        phase_train_step(log_dir, tiny_config(attn_type="softmax_flash",
-                                              dtype="bfloat16"),
-                         "tiny_config", lat=8)
-        tiny32 = phase_train_step(log_dir, tiny_config(
-            attn_type="softmax_flash"), "tiny_config", lat=8, fp32=True)
+        step32 = phase_train_step_2block(log_dir, fp32=True)
+        # tiny_config (head dim 16: the flash instances at D = 16)
+        phase_train_step(log_dir, tiny, "tiny_config", lat=TINY_LAT)
 
         print("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -1691,11 +1717,6 @@ def main() -> int:
         print("phase 7: 19-block int8 sampling with the block tails "
               "(attn_tail all, mlp_tail_fusion 3d), the same", flush=True)
         sample8_tails = phase_sample(card, int8=True, tails=True)
-
-        print("phase 7b: 19-block int8 sampling with int8 P.V at 512px, one "
-              "timed call: the model's gate (the JAX package's) keeps int8 "
-              "P.V to the streaming shapes, so K4 and not K8a", flush=True)
-        phase_sample(card, int8=True, int8_pv=True, timed=1)
 
         print("phase 8: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -1753,20 +1774,20 @@ def main() -> int:
              "sd3_tpu/ops/fused_dense.py:166", sample8_tails, per_call),
             # the fp32 instances: K1F on the fp32 model (phase 4), K7F
             # through the attention API, K5F / K6AF / K6BF in the fp32
-            # tiny_config training step
+            # 2-block training step
             (fused_attention.K1F, k1f, "attention_fp32.cu",
              "sd3_tpu/ops/fused_attention.py:135", model32,
              lambda run: run["launches"]),
             (fused_attention.K7F, k7f, "attention_fp32.cu",
              "sd3_tpu/ops/fused_attention.py:312", api, lambda run: run),
             (flash_attention.K5F, k56f[0]["K5F"], "attention_fp32.cu",
-             "sd3_tpu/ops/flash_attention.py:103", tiny32,
+             "sd3_tpu/ops/flash_attention.py:103", step32,
              lambda run: run["launches"]),
             (flash_attention.K6AF, k56f[0]["K6AF"], "attention_fp32.cu",
-             "sd3_tpu/ops/flash_attention.py:191", tiny32,
+             "sd3_tpu/ops/flash_attention.py:191", step32,
              lambda run: run["launches"]),
             (flash_attention.K6BF, k56f[0]["K6BF"], "attention_fp32.cu",
-             "sd3_tpu/ops/flash_attention.py:222", tiny32,
+             "sd3_tpu/ops/flash_attention.py:222", step32,
              lambda run: run["launches"]),
         ]
         line = {"kernels": [{

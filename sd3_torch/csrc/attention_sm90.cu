@@ -85,8 +85,9 @@
 // alpha = exp2((m_old - m) * scale*log2(e)). lse is written in natural-log
 // units, (m * scale*log2(e) + log2(l)) * ln(2), fp32 (B, H, N), as the plain
 // version (ops/flash_attention.py) returns it; rows past N write neither o
-// nor lse. Numerics against the TPU kernel and the plain version: p is
-// rounded to bf16 against the running max of a 128-key tile, where the
+// nor lse. At D = 128 K5 runs 64-key tiles (key_tile: the registers).
+// Numerics against the TPU kernel and the plain version: p is rounded to
+// bf16 against the running max of its key tile, where the
 // plain version (and JAX below 2048 keys) takes the true row max; the p of
 // a tile whose running max later grows is rescaled by alpha in fp32 after
 // its rounding, which moves o by bf16's relative rounding (2^-9) at most,
@@ -142,13 +143,27 @@ struct Online {};   // K7: the running row max
 struct Flash {};    // K5: the running row max of raw scores, lse out
 }  // namespace Softmax
 
-// Shared memory of attn_sm90_kernel<D, *>, from a 1024-byte aligned base;
-// every tile in the swizzled layout of SwizzledRows<D> (sm90.cuh).
-template <int D>
+// Keys per K / V tile of attn_sm90_kernel<D, SM>: KEY_TILE, but 64 for K5 at
+// D = 128. There a consumer thread holds a tile's scores (KT / 2 registers),
+// their bf16 p (KT / 4) and the accumulator (D / 2): 160 at 128 keys, which
+// with the addresses, row statistics and the softmax's temporaries spilled
+// 208 bytes of the 240 registers (ptxas); 64 keys hold 112. K1 and K7 keep
+// 128 keys at every D: K7 rounds p against the running max of its tile, which
+// its plain version reproduces at K7_KEY_TILE.
+template <int D, class SM>
+__host__ __device__ constexpr int key_tile() {
+  return D == 128 && std::is_same<SM, Softmax::Flash>::value ? 64 : KEY_TILE;
+}
+
+// Shared memory of attn_sm90_kernel<D, *> with KT-key tiles, from a
+// 1024-byte aligned base; every tile in the swizzled layout of
+// SwizzledRows<D> (sm90.cuh). Four stages of tiles up to 16 KB, three of
+// larger ones (K1 / K7 at D = 128: 32 KB).
+template <int D, int KT = KEY_TILE>
 struct Sm90 : SwizzledRows<D> {
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int KV_TILE = KT * D * 2;        // one K or V tile
+  static constexpr int STAGES = KV_TILE > 16384 ? 3 : 4;
   static constexpr int Q_TILE = QROWS * D * 2;      // one consumer's q^
-  static constexpr int KV_TILE = KEY_TILE * D * 2;  // one K or V tile
   static constexpr int Q = 0;                       // [CONSUMERS] q^ tiles
   static constexpr int K = Q + CONSUMERS * Q_TILE;  // [STAGES] K tiles
   static constexpr int V = K + STAGES * KV_TILE;    // [STAGES] V tiles
@@ -164,7 +179,7 @@ struct Sm90 : SwizzledRows<D> {
 template <int D, int ROWS, bool FLASH>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
                                           uint32_t bar, int h, int n0, int b) {
-  using S = Sm90<D>;
+  using S = SwizzledRows<D>;
 #pragma unroll
   for (int c = 0; c < S::COLS; ++c) {
     if constexpr (FLASH)
@@ -179,9 +194,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
 // i + grid, ... (q tiles fastest), its ring, barriers and turns running on
 // across items, so that its producer loads the next item's q and first K /
 // V tiles under the last one's final P.V and epilogue. SM90_THREADS
-// threads, Sm90<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v:
-// tensor maps of bf16 q^, k^ and v (encode_heads), or for Flash of raw q, k,
-// v (encode_view); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
+// threads, Sm90<D, key_tile<D, SM>()>::BYTES of dynamic shared memory.
+// tm_q, tm_k, tm_v: tensor maps of bf16 q^, k^ and v (encode_heads), or for
+// Flash of raw q, k, v (encode_view); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
 // (Bounded only); o bf16 with element strides vo; lse (B*H, N) fp32 and
 // scale_log2 = scale * log2(e) (Flash only).
 template <int D, class SM>
@@ -193,7 +208,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const float* __restrict__ k_max2, bf16* __restrict__ o,
                  View vo, float* __restrict__ lse, float scale_log2, int N,
                  int H, int B) {
-  using S = Sm90<D>;
+  constexpr int KT = key_tile<D, SM>();
+  using S = Sm90<D, KT>;
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
   constexpr bool FLASH = std::is_same<SM, Softmax::Flash>::value;
   constexpr int STAGES = S::STAGES;
@@ -204,7 +220,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
   const uint32_t full_q = empty_v + 8 * STAGES;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
-  const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
+  const int ntiles = (N + KT - 1) / KT;
   const int nqt = (N + BLOCK_Q - 1) / BLOCK_Q;
   const int n_items = nqt * H * B;
   const int n_local =
@@ -264,12 +280,12 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           const uint32_t free_parity = ((tt / STAGES) & 1) ^ 1;
           mbar_wait(empty_k + 8 * s, free_parity);
           mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
-          load_tile<D, KEY_TILE, FLASH>(sb + S::K + s * S::KV_TILE, &tm_k,
-                                        full_k + 8 * s, h, t * KEY_TILE, b);
+          load_tile<D, KT, FLASH>(sb + S::K + s * S::KV_TILE, &tm_k,
+                                  full_k + 8 * s, h, t * KT, b);
           mbar_wait(empty_v + 8 * s, free_parity);
           mbar_arrive_expect_tx(full_v + 8 * s, S::KV_TILE);
-          load_tile<D, KEY_TILE, FLASH>(sb + S::V + s * S::KV_TILE, &tm_v,
-                                        full_v + 8 * s, h, t * KEY_TILE, b);
+          load_tile<D, KT, FLASH>(sb + S::V + s * S::KV_TILE, &tm_v,
+                                  full_v + 8 * s, h, t * KT, b);
         }
       }
     }
@@ -280,11 +296,11 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
     const uint32_t q_base = sb + S::Q + c * S::Q_TILE;
-    float s[KEY_TILE / 2];     // scores, then p, of one tile
-    uint32_t p[KEY_TILE / 4];  // bf16 p: the A fragments of the 8 P.V steps
+    float s[KT / 2];     // scores, then p, of one tile
+    uint32_t p[KT / 4];  // bf16 p: the A fragments of the KT / 16 P.V steps
     float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < KEY_TILE / 2; ++i) s[i] = 0.f;
+    for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
 
     // Ping-pong: the consumers take turns to issue their products (named
     // barriers TURN + c, each met by this consumer's sync and the other's
@@ -324,8 +340,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<KEY_TILE>(s, desc_k_major<D>(q_base, QROWS, kk),
-                             desc_k_major<D>(kb, KEY_TILE, kk), kk > 0);
+          wgmma_ss<KT>(s, desc_k_major<D>(q_base, QROWS, kk),
+                       desc_k_major<D>(kb, KT, kk), kk > 0);
         wgmma_commit();
       };
       // issue acc += bf16(p) v of key tile t
@@ -335,10 +351,10 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const uint32_t vb = sb + S::V + st * S::KV_TILE;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
+        for (int kk = 0; kk < KT / 16; ++kk) {
           const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                  p[4 * kk + 3]};
-          wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KEY_TILE, kk), 1);
+          wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KT, kk), 1);
         }
         wgmma_commit();
       };
@@ -358,10 +374,10 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // to -inf first, so exp2 gives them p = 0: one branch a tile, ahead of
       // the unrolled arithmetic, which it would otherwise cut into blocks.
       auto softmax = [&](int t, float& a0, float& a1) {
-        const int k0 = t * KEY_TILE;
-        if (k0 + KEY_TILE > N) {
+        const int k0 = t * KT;
+        if (k0 + KT > N) {
 #pragma unroll
-          for (int j = 0; j < KEY_TILE / 8; ++j) {
+          for (int j = 0; j < KT / 8; ++j) {
             const int col = k0 + j * 8 + t4 * 2;
             if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
             if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
@@ -370,8 +386,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         float sh0 = shift0, sh1 = shift1;
         if constexpr (!BOUNDED) {
           // the row max over PARTS partial maxima: shorter chains for the
-          // exp2s to wait on, where the registers allow
-          constexpr int PARTS = D <= 64 ? 4 : 1;
+          // exp2s to wait on, where the registers allow (scores and
+          // accumulator in at most 96 of them)
+          constexpr int PARTS = KT / 2 + D / 2 <= 96 ? 4 : 1;
           float x0[PARTS], x1[PARTS];
 #pragma unroll
           for (int i = 0; i < PARTS; ++i) {
@@ -379,7 +396,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
             x1[i] = fmaxf(s[4 * i + 2], s[4 * i + 3]);
           }
 #pragma unroll
-          for (int j = PARTS; j < KEY_TILE / 8; ++j) {
+          for (int j = PARTS; j < KT / 8; ++j) {
             x0[j % PARTS] = fmaxf(x0[j % PARTS], fmaxf(s[4 * j], s[4 * j + 1]));
             x1[j % PARTS] =
                 fmaxf(x1[j % PARTS], fmaxf(s[4 * j + 2], s[4 * j + 3]));
@@ -417,7 +434,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           else return fast_exp2(x - sh);
         };
 #pragma unroll
-        for (int j = 0; j < KEY_TILE / 8; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           s[4 * j] = p_of(s[4 * j], sh0);
           s[4 * j + 1] = p_of(s[4 * j + 1], sh0);
           s[4 * j + 2] = p_of(s[4 * j + 2], sh1);
@@ -428,7 +445,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       };
       auto pack_p = [&]() {
 #pragma unroll
-        for (int i = 0; i < KEY_TILE / 4; ++i)
+        for (int i = 0; i < KT / 4; ++i)
           p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
       };
 
@@ -562,19 +579,21 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
                  void* lse, const long long* st, int B, int H, int N,
                  float scale, cudaStream_t stream) {
   auto kernel = attn_sm90_kernel<D, Softmax::Flash>;
+  constexpr int KT = key_tile<D, Softmax::Flash>();
+  constexpr int BYTES = Sm90<D, KT>::BYTES;
   CUtensorMap tm_q, tm_k, tm_v;
   int e = (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm90<D>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (e == 0) e = encode_view<D, QROWS>(&tm_q, q, view_at(st, 0), B, H, N);
-  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_k, k, view_at(st, 1), B, H, N);
-  if (e == 0) e = encode_view<D, KEY_TILE>(&tm_v, v, view_at(st, 2), B, H, N);
+  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, N);
+  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, N);
   int dev = 0, sms = 0;
   if (e == 0) e = (int)cudaGetDevice(&dev);
   if (e == 0)
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != 0) return e;
   const int items = (N + BLOCK_Q - 1) / BLOCK_Q * H * B;
-  kernel<<<items < sms ? items : sms, SM90_THREADS, Sm90<D>::BYTES, stream>>>(
+  kernel<<<items < sms ? items : sms, SM90_THREADS, BYTES, stream>>>(
       tm_q, tm_k, tm_v, nullptr, nullptr, static_cast<bf16*>(o),
       view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, H, B);
   return (int)cudaGetLastError();

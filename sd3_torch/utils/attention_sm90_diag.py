@@ -53,6 +53,9 @@ next (for chip_smoke.py),
         run_name='__main__')"
 in turns with this tree's (run by path, the file's own directory would
 come first on the path, and its logging.py hide the standard library's).
+`flash_calls` is the same for the flash kernels: the call times of K5, K6a
+and K6b (ops/flash_attention.py alone) at head dim 128 and at the 512px
+training shape, with SDPA's forward beside K5 (a yardstick).
 One JSON line per part on stdout.
 """
 
@@ -444,6 +447,27 @@ def part_int8_launches(gen) -> dict:
             for name, run in _int8_runs(gen)}
 
 
+def part_flash_calls(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import flash_attention as fl
+    res = {}
+    for shape in (cs.FLASH_DIMS[1], cs.FLASH_SLICE):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = shape[-1] ** -0.5
+        out, lse = fl.flash_fwd(q, k, v, scale)
+        dq, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
+        res["B={} H={} N={} D={}".format(*shape)] = dict(
+            K5=cs.cuda_ms(lambda: fl.flash_fwd(q, k, v, scale)),
+            K6a=cs.cuda_ms(lambda: fl.flash_dq(q, k, v, out, do, lse, scale)),
+            K6b=cs.cuda_ms(lambda: fl.flash_dkv(q, k, v, do, lse, delta,
+                                                scale)),
+            sdpa_fwd=cs.cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale)))
+    return res
+
+
 # (name, [(text of the source, its replacement)]): one change each
 INT8_VARIANTS = [
     # a CTA per item in place of persistent CTAs
@@ -638,6 +662,8 @@ def main() -> int:
              ("int8_variants", lambda: part_int8_variants(gen))]
     if sys.argv[1:] == ["int8_calls"]:
         parts = parts[1:2]
+    elif sys.argv[1:] == ["flash_calls"]:
+        parts = [("flash_calls", lambda: part_flash_calls(gen))]
     elif sys.argv[1:] != ["int8"]:
         parts = [("sass", part_sass),
                  ("launches", lambda: part_launches(gen)),

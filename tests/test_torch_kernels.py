@@ -893,12 +893,12 @@ FLASH_SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 2, 129, 64),
 FLASH_TILE_SHAPES = [(1, 2, n, d) for d in (32, 64)
                      for n in (1, 63, 64, 65, 127, 128, 129, 255, 257, 4250)
                      if (1, 2, n, d) not in FLASH_SHAPES]
-# the instances at head dims 16 and 128 (K6b's 32-row query tiles at 128),
-# at ragged lengths and over many tiles, and head dims padded to the next
-# instance (48 -> 64, 8 -> 16, 100 -> 128)
+# the instances at head dims 16 and 128 (K6b's 32-row query tiles and K5's
+# 64-key tiles at 128), at ragged lengths and over many tiles, and head dims
+# padded to the next instance (48 -> 64, 8 -> 16, 100 -> 128)
 FLASH_DIM_SHAPES = [(2, 3, 47, 16), (1, 2, 1025, 16), (2, 3, 47, 128),
-                    (1, 2, 257, 128), (1, 3, 1178, 128), (2, 3, 129, 48),
-                    (1, 2, 65, 8), (1, 2, 100, 100)]
+                    (1, 2, 65, 128), (1, 2, 257, 128), (1, 3, 1178, 128),
+                    (2, 3, 129, 48), (1, 2, 65, 8), (1, 2, 100, 100)]
 # chip_smoke.py's limits: bf16 p, ds and outputs against the fp32 plain
 # versions run on the same bf16 values
 FLASH_OUT_ATOL, FLASH_LSE_ATOL = 1e-2, 1e-3
@@ -988,7 +988,7 @@ def test_k6_kernels_give_the_same_bits_twice_on_the_card(cuda_device,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 3, 47, 32), (1, 2, 257, 64),
-                                   (4, 19, 1178, 64)])
+                                   (4, 19, 1178, 64), (1, 2, 257, 128)])
 def test_k5_gives_the_same_bits_twice_and_reads_views_on_the_card(
         cuda_device, shape, monkeypatch):
     # no atomics: two runs give the same bits; (B, H, N, D) views of
