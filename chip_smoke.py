@@ -47,7 +47,14 @@ Phases (any failure exits non-zero without the final ok line):
      and at a ragged shape; K1F at the fp32 model's (512px, batch 2), K7F
      at the 1024px slice shape and at a ragged one past 2048 tokens; each
      against its fp32 plain version with TF32 off (rel L2 <= 1e-5) and 50x
-     below the bf16 instance's error.
+     below the bf16 instance's error; the int8 kernels' fp32 instances
+     (fp32 rows, fp32 out: K4F and K8aF at the fp32 int8 model's 512px
+     shape, batch 1 doubled by CFG, K7qF and K8bF at the 1024px slice
+     shape, K2F, K3F, K9F at that model's 512px streams, K10AF and K10BF
+     there and at k 1600, K10BF bit for bit); flash at head dims 256
+     and 160 (padded to 256), bf16 (K5W, K6AW, K6BW) and fp32 (K5WF,
+     K6AWF, K6BWF), then through the flash API, which counts their
+     launches.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -66,7 +73,13 @@ Phases (any failure exits non-zero without the final ok line):
      K4) and the int8 model with the opt-in block tails, attn_tail="all"
      and mlp_tail_fusion="3d" (K4, K9, K10a, K10b); 1024px, batch 1, bf16
      (K7), int8 (K7, K2, K3) and int8 with int8 P.V (K8b, K2, K3); the fp32
-     model at 512px (K1F); then one training step at 256px, batch 2 (loss,
+     model at 512px (K1F), the fp32 int8 model (K4F, K2F, K3F) and with the
+     tails (K4F, K9F, K10AF, K10BF), each also module by module: every
+     attention and MLP module on the inputs the CPU model handed it, its
+     increment within the kernels' limit, and the same check failed in
+     every module by the bf16 int8 model and the unquantized fp32 model
+     (controls); then one training step at 256px,
+     batch 2 (loss,
      gradients and the update against fp32 on the CPU), in bf16 (K5, K6a,
      K6b) and in fp32 (K5F, K6AF, K6BF), and one of tiny_config in bf16
      (head dim 16: K5, K6a, K6b at D = 16);
@@ -92,10 +105,21 @@ Phases (any failure exits non-zero without the final ok line):
      (bench.py --train defaults: the 19-block model, 512px, batch 4, fused
      low-mem AdamW, bf16 gradients, precast weights, remat): one warmup,
      then the median of 5 timed steps, each launching K5 38, K6a 19, K6b 19
-     and K1-K4 0 times; one more step under torch.profiler. Then two steps
+     and K1-K4 0 times; one more step under torch.profiler. The same
+     configuration with 8-bit moments, and with the host EMA combined every
+     step: one warmup, then the median of 3 timed steps each. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
-  12. one JSON line {"kernels": [...]} per ported kernel (with its design:
+  12. the slice's path through the CLIs (sd3_torch.training.train,
+     sd3_torch.inference.infer): train.main at the published config, 256px,
+     2 steps, --moments_8bit --ema_on_host, writing the six artifacts under
+     .chip_smoke_ckpt/ (free space checked in phase 1; removed at exit),
+     reloaded and hash-compared with the trainer's tensors, with save and
+     load seconds and GB/s; infer.main on the EMA at 512px in bf16 (K1),
+     int8 (K2, K3, K4) and fp32 int8 with and without the block tails (the
+     fp32 instances), each run's launches counted from 0; tiny_config:
+     a bf16-moment run, an 8-bit resume from its artifact, and --gif;
+  13. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or for the fp32 instances 3xTF32
      mma.sync over shared-memory tiles), then the card's name and power
      limit, then the last line
@@ -110,6 +134,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -238,6 +263,37 @@ FP32_OVER_BF16 = 50
 # sign(g), so an update differs by 2 lr only where fp32 noise flips the
 # sign of a gradient ~1e-6 of the largest: the update within 1e-2.
 FP32_MODEL_REL_L2 = 1e-4
+# The fp32 instances of the int8 kernels (K4F, K7qF, K8aF, K8bF; K2F, K3F,
+# K9F; K10AF, K10BF) on fp32 rows against their plain versions on the same
+# rows in fp32 (TF32 off): the same int8 levels but for the odd value an ulp
+# from a rounding boundary (exp2f, the sums of the preps, the LayerNorms and
+# the dequantization in another order), each moving an output by a level's
+# share, and the attentions' fp32 products in 3xTF32 (~1e-6). Attention:
+# max abs error 1e-2 x max |plain|, rel L2 2e-3 (the card tests measured
+# under 1e-4 at their shapes); the MLP and projections: MLP_MAX_REL and
+# MLP_REL_L2, and K10BF bit for bit (it repeats its plain version's
+# arithmetic in its order, as K10b does).
+INT8_FP32_MAX_REL, INT8_FP32_REL_L2 = 1e-2, 2e-3
+# The 2-block fp32 int8 model on the card against the same int8 weights in
+# fp32 on the CPU. Its output cannot tell a right model from a wrong one:
+# the plain ops around the kernels differ between the two devices by an ulp
+# or so, which moves the odd int8 level of the next quantizer; each moved
+# level moves the next layer's inputs by more, so the moves cascade through
+# the ~14 quantizers a block until the output differs by about the int8
+# effect itself (on an H100: 1.1e-2, where the bf16 int8 model gives 1.9e-2
+# and the unquantized fp32 model 1.75e-2; PERF.md section 6). So the output
+# is held only to INT8_MODEL_REL_L2, and the model is held module by
+# module: every attention and MLP module of the card model is run on the
+# inputs that the CPU model handed the same module, and its increment (its
+# output less the residual it adds to) is held to the CPU's within
+# INT8_FP32_MODULE_REL_L2. With the CPU's inputs only the module's own
+# quantizers (three in series at most) can move a level, on an ulp's
+# difference, so a module comes within the kernels' own limit against
+# their plain versions. Two controls run through the same check and must
+# fail it in every module: the bf16 int8 model (inputs rounded to bf16 move
+# a few per cent of the levels, a full level each, about half the int8
+# effect) and the unquantized fp32 model (the int8 effect).
+INT8_FP32_MODULE_REL_L2 = INT8_FP32_REL_L2
 FP32_TRAIN_LOSS_REL = 1e-5
 FP32_TRAIN_GRAD_REL_L2 = 1e-4
 FP32_TRAIN_UPDATE_REL_L2 = 1e-2
@@ -297,6 +353,10 @@ K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
 # flash attention at the instances' other head dims: 16 (tiny_config's),
 # 128, and 48, which runs padded to the 64 instance; the 512px token count
 FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
+# head dims past the wgmma instances' 128, at the 512px token count and a
+# width near the published one: 256 (K5W / K6AW / K6BW in bf16, K5WF /
+# K6AWF / K6BWF in fp32), and 160, which runs padded to 256
+FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160)]
 # the fp32 training steps on the card: the published widths at 2 blocks,
 # 256px latents (32 x 32), where K5F, K6AF and K6BF launch on the main path;
 # tiny_config's (head dim 16) runs in bf16 (K5, K6a, K6b at D 16)
@@ -307,6 +367,20 @@ TINY_LAT = 8
 # (batch 2), K7F through the attention API at the 1024px slice shape; and
 # at a ragged stream shape (head dim 32, a ragged last tile)
 SLICE_FP32 = dict(SLICE, b=2)
+# the fp32 int8 instances at the shapes of the run that launches them, the
+# fp32 int8 512px model at CFG batch 2 (infer --dtype float32 --quant int8
+# at batch 1): K4F and K8aF at SLICE_FP32, the MLP and projections here
+K3_FP32 = dict(K3_SLICE, m=2 * 154, n_tok=2 * 154)
+K2_FP32 = dict(K2_SLICE, m=2 * 1024)
+K9_FP32 = [dict(s, m=2 * s["n_tok"]) for s in (K9_SLICE, K9_TEXT)]
+K10_FP32 = dict(K10_SLICE, b=2)
+# The CLI phase's checkpoint of the published model: model and EMA trees
+# (1.2B fp32 values each, ~4.9 GB) and the canonical bf16 optimizer moments
+# (2 x 1.2B bf16, ~4.9 GB), the tiny run's beside them; the directory needs
+# this much free space, and is removed at exit
+CKPT_DIR = ".chip_smoke_ckpt"
+CKPT_DISK_BYTES = 16e9
+CLI_STEPS = 2   # sampling steps of each infer CLI call at the published size
 
 
 class SmokeFailure(Exception):
@@ -524,7 +598,8 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
 
 def phase_attention_api(gen):
     """The public entry point `fused_dual_flash_attention` once per kernel,
-    at the 512px and 1024px slice shapes, in bf16 (and in fp32, K1F / K7F):
+    at the 512px and 1024px slice shapes, in bf16 and in fp32 (K1F / K7F,
+    and the int8 kernels' fp32 instances):
     the int8 QK^T branch above 2048 tokens (K7q) and int8 P.V at or below it
     (K8a) are reached only this way (the model gates them off, as the JAX
     package does). Launch counts reset before, read after; returns them."""
@@ -538,8 +613,10 @@ def phase_attention_api(gen):
                                  (True, True)):
             calls.append((q, k, v, ws, angles, n_img, shape, int8_qk,
                           int8_pv))
-        calls.append((q.float(), k.float(), v.float(), ws, angles, n_img,
-                      shape, False, False))
+        for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
+                                 (True, True)):
+            calls.append((q.float(), k.float(), v.float(), ws, angles, n_img,
+                          shape, int8_qk, int8_pv))
     torch.cuda.synchronize()
     reset_launches()
     with torch.inference_mode():
@@ -557,34 +634,39 @@ def phase_attention_api(gen):
                 fused_attention_int8pv=2, fused_attention_stream=1,
                 fused_attention_stream_int8qk=1,
                 fused_attention_stream_int8pv=2, fused_attention_fp32=1,
-                fused_attention_stream_fp32=1)
+                fused_attention_stream_fp32=1,
+                fused_attention_int8qk_fp32=1, fused_attention_int8pv_fp32=2,
+                fused_attention_stream_int8qk_fp32=1,
+                fused_attention_stream_int8pv_fp32=2)
     for nm, c in want.items():
         require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
                 f"through the attention API, expected {c}")
     return launches
 
 
-def phase_mlp(shape, gen, kind):
-    """K2, K3 or K9 (`kind`) vs the plain version at one shape."""
+def phase_mlp(shape, gen, kind, fp32=False):
+    """K2, K3 or K9 (`kind`) vs the plain version at one shape; with `fp32`
+    their fp32 instances (K2F, K3F, K9F) on fp32 rows and conditioning."""
     import torch
     from sd3_torch.ops import fused_mlp as fm
     from sd3_torch.ops.quant import int_mm, quantize_weight
 
-    name, tail = kind, kind != "K3"
+    name, tail = kind + ("F" if fp32 else ""), kind != "K3"
+    act = torch.float32 if fp32 else torch.bfloat16
     m, n_tok, k, hidden = shape["m"], shape["n_tok"], shape["k"], shape["hidden"]
     h_group = (fm.pick_blocks(n_tok, hidden)[1] if kind == "K9"
                else shape["h_group"])
     b = m // n_tok
     dev = "cuda"
     rnd = lambda *sz, sd=1.0: torch.randn(sz, generator=gen, device=dev) * sd
-    x = rnd(m, k).to(torch.bfloat16)
+    x = rnd(m, k).to(act)
     w12_q, s12 = quantize_weight(rnd(2 * hidden, k, sd=k ** -0.5))
     w3_q, s3 = quantize_weight(rnd(k, hidden, sd=hidden ** -0.5))
-    # biases and conditioning in bf16, as the model's cast leaves them (so
-    # K9's rounding of the conditioning to x's dtype changes nothing here)
-    b12, b3 = (rnd(n, sd=0.1).to(torch.bfloat16) for n in (2 * hidden, k))
-    shift, scale = (rnd(b, k, sd=0.3).to(torch.bfloat16) for _ in range(2))
-    gate = rnd(b, k, sd=0.5).to(torch.bfloat16)
+    # biases and conditioning in x's dtype, as the model's cast leaves them
+    # (so K9's rounding of the conditioning to x's dtype changes nothing)
+    b12, b3 = (rnd(n, sd=0.1).to(act) for n in (2 * hidden, k))
+    shift, scale = (rnd(b, k, sd=0.3).to(act) for _ in range(2))
+    gate = rnd(b, k, sd=0.5).to(act)
     w = (w12_q, s12, b12, w3_q, s3, b3)
     cond = dict(shift=shift, scale=scale, gate=gate, n_tok=n_tok, adaln=tail,
                 residual=tail)
@@ -619,10 +701,11 @@ def phase_mlp(shape, gen, kind):
     library_ms = cuda_ms(run_lib)
     ops = 2.0 * m * k * 2 * hidden + 2.0 * m * hidden * k
     ins = (x, *w) + ((shift, scale, gate) if tail else ())
-    nbytes = sum(t.numel() * t.element_size() for t in ins) + m * k * 2
+    nbytes = (sum(t.numel() * t.element_size() for t in ins)
+              + m * k * x.element_size())
     t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
     res = dict(shape=f"M={m} n_tok={n_tok} K={k} hidden={hidden} "
-               f"h_group={h_group}", max_abs_err=err, max_rel_err=rel,
+               f"h_group={h_group}{' fp32' if fp32 else ''}", max_abs_err=err, max_rel_err=rel,
                rel_l2=rel_l2, kernel_vs_plain_bf16_rel_l2=same_l2, ms=ms,
                eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms,
                library_is="torch._int_mm x2 on pre-quantized operands: the "
@@ -638,10 +721,11 @@ def phase_mlp(shape, gen, kind):
     return res
 
 
-def phase_dense(shape, gen, name, gated=True, residual=True):
+def phase_dense(shape, gen, name, gated=True, residual=True, fp32=False):
     """K10a (AdaLN + int8 q/k/v) or K10b (int8 out-projection [* gate]
     [+ residual], `name`) vs its plain version at one shape; K10b reads the
     image half of a joint sequence in place, as the model hands it over.
+    With `fp32` their fp32 instances (K10AF, K10BF) on fp32 activations.
     The library yardstick is torch._int_mm of the activations quantized
     beforehand against the three weights (K10a) or the one (K10b): the
     GEMMs alone, which the port never calls in these kernels' place."""
@@ -650,7 +734,8 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
     from sd3_torch.ops.quant import int_mm, quantize_rows, quantize_weight
 
     b, n, k, d = shape["b"], shape["n"], shape["k"], shape["d_out"]
-    bf = torch.bfloat16
+    bf = torch.float32 if fp32 else torch.bfloat16
+    row = name + ("F" if fp32 else "")
     dev = "cuda"
     rnd = lambda *sz, sd=1.0: torch.randn(sz, generator=gen, device=dev) * sd
     n_w = 3 if name == "K10a" else 1
@@ -665,7 +750,8 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
         scale = rnd(b, k, sd=0.3).to(bf)
         run_k = lambda: fd.qkv_adaln_int8(x, shift, scale, *ws)
         plain = lambda t: fd.qkv_adaln_int8_plain(t, shift, scale, *ws)
-        act, ins, out_bytes = x, (x, shift, scale, *ws), 3 * b * n * d * 2
+        act, ins = x, (x, shift, scale, *ws)
+        out_bytes = 3 * b * n * d * x.element_size()
         label = f"B={b} N={n} K={k} N_out={d} x3"
     else:
         joint = rnd(b, n + shape["n_txt"], k).to(bf)
@@ -675,9 +761,11 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
         run_k = lambda: fd.out_gate_residual_int8(x, gate, res, *ws)
         plain = lambda t: fd.out_gate_residual_int8_plain(
             t, gate, None if res is None else res.to(t.dtype), *ws)
-        act, ins, out_bytes = x, (x, gate, res, *ws), b * n * d * 2
+        act, ins = x, (x, gate, res, *ws)
+        out_bytes = b * n * d * x.element_size()
         label = (f"B={b} N={n} (of {n + shape['n_txt']}) K={k} N_out={d}"
                  f"{' gate' if gated else ''}{' residual' if residual else ''}")
+    label += " fp32" if fp32 else ""
     cat = lambda outs: (torch.cat([o.float().reshape(-1) for o in outs])
                         if isinstance(outs, tuple) else outs.float())
     got = run_k()
@@ -702,7 +790,7 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
                  ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                  library_ms=library_ms, us_per_launch=per_launch_us(run_k),
                  **bound(t_ops, t_bytes))
-    print(f"  {name}", json.dumps(res_d), flush=True)
+    print(f"  {row}", json.dumps(res_d), flush=True)
     require(e["max_rel_err"] <= K10_MAX_REL and e["rel_l2"] <= K10_REL_L2,
             f"{name} max err {e['max_rel_err']} x max|plain| (limit "
             f"{K10_MAX_REL}), rel L2 {e['rel_l2']} (limit {K10_REL_L2}) at "
@@ -710,10 +798,10 @@ def phase_dense(shape, gen, name, gated=True, residual=True):
     require(same_l2 <= K10_SAME_ROUNDING_REL_L2,
             f"{name} rel L2 {same_l2} against the plain version's own "
             f"roundings (limit {K10_SAME_ROUNDING_REL_L2}) at {label}")
-    # K10b repeats its plain version's arithmetic on the same bf16 values:
-    # the same bits
+    # K10b repeats its plain version's arithmetic on the same values: the
+    # same bits
     require(name != "K10b" or torch.equal(got, same),
-            f"K10b differs from its plain version's bits at {label}")
+            f"{row} differs from its plain version's bits at {label}")
     return res_d
 
 
@@ -987,6 +1075,104 @@ def phase_attention_fp32(shape, gen):
     return res
 
 
+def phase_attention_int8_fp32(shape, gen, int8_qk=False, int8_pv=False):
+    """The fp32 instance of an int8 attention kernel (K4F, K8aF up to 2048
+    padded tokens; K7qF, K8bF above) on fp32 q, k, v against its plain
+    version in fp32 on the card (TF32 off; the streaming ones over the
+    kernel's 128-key blocks): INT8_FP32_MAX_REL and INT8_FP32_REL_L2;
+    kernel, plain-version and SDPA (fp32) times."""
+    import torch
+    import torch.nn.functional as F
+    from sd3_torch.ops import fused_attention as fa
+
+    b, nh, d = shape["b"], shape["heads"], shape["d"]
+    qb, kb, vb, _, _, n_img, tables = attn_inputs(shape, gen)
+    q, k, v = (t.float() + 1e-3 * torch.randn(t.shape, generator=gen,
+                                              device="cuda")
+               for t in (qb, kb, vb))
+    n = q.shape[1]
+    scale = d ** -0.5
+    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    name = ATTN_NAMES[(int8_qk, int8_pv, streaming)] + " fp32"
+    eps = float(torch.finfo(torch.float32).eps)
+    if streaming:
+        plain = (fa.composition_stream_int8_qk if int8_qk
+                 else fa.composition_stream)
+    else:
+        plain = fa.composition_int8_qk if int8_qk else fa.composition
+    kw = dict(int8_pv=True) if int8_pv else {}
+    cmp_kw = dict(kw, block_k=fa.K8B_KEY_TILE) if streaming else kw
+    run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
+                                       int8_qk=int8_qk, int8_pv=int8_pv)
+    run_plain = lambda: plain(q, k, v, *tables, scale, eps, eps, nh, **kw)
+    got = run_k()
+    torch.cuda.synchronize()
+    require(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+            f"{name}: output {got.dtype}, or non-finite, at {shape}")
+    want = plain(q, k, v, *tables, scale, eps, eps, nh, **cmp_kw)
+    e = _errs(got, want)
+
+    def heads(x):
+        return x.reshape(b, n, nh, d).transpose(1, 2).contiguous()
+
+    cq, sq, ck, sk = tables
+    qh, kh, vh = (prep_for_sdpa(heads(q), cq, sq, eps),
+                  prep_for_sdpa(heads(k), ck, sk, eps), heads(v))
+    run_lib = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    # QK^T and P.V, 2*B*H*N^2*D each: int8 where the kernel's product is,
+    # else fp32-accurate (3xTF32); one exp2 per score
+    prod = 2.0 * b * nh * n * n * d
+    rate = lambda int8: PEAK_INT8_OPS if int8 else PEAK_FP32_FLOPS
+    nbytes = 4.0 * b * n * nh * d * 4 + 4.0 * n * d * 4
+    res = dict(shape=f"B={b} N={n} H={nh} D={d} fp32", **e,
+               ms=cuda_ms(run_k), plain_ms=cuda_ms(run_plain, iters=3,
+                                                   groups=3),
+               library_ms=cuda_ms(run_lib), us_per_launch=per_launch_us(run_k),
+               **bound(prod / rate(int8_qk) + prod / rate(int8_pv),
+                       nbytes / PEAK_BYTES, 1.0 * b * nh * n * n / PEAK_EXP2))
+    print(f"  {name}", json.dumps(res), flush=True)
+    require(e["max_rel_err"] <= INT8_FP32_MAX_REL
+            and e["rel_l2"] <= INT8_FP32_REL_L2,
+            f"{name} max err {e['max_rel_err']} x max|plain| (limit "
+            f"{INT8_FP32_MAX_REL}), rel L2 {e['rel_l2']} (limit "
+            f"{INT8_FP32_REL_L2}) at {res['shape']}")
+    return res
+
+
+def phase_flash_api(gen):
+    """The flash-attention entry point (the autograd Function: forward and
+    backward) at head dims 160 and 256, in bf16 and fp32, the path of a
+    model of such heads (none of the repo's configs has one): launch counts
+    reset before, read after; each wide kernel must launch; returns them."""
+    import torch
+    from sd3_torch.ops import flash_attention as fl
+
+    cases = []
+    for shape in FLASH_WIDE:
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dt) for _ in range(4))
+            cases.append((q, k, v, do))
+    torch.cuda.synchronize()
+    reset_launches()
+    for q, k, v, do in cases:
+        qr, kr, vr = (t.requires_grad_() for t in (q, k, v))
+        out = fl.flash_attention(qr, kr, vr, q.shape[-1] ** -0.5)
+        grads = torch.autograd.grad(out, (qr, kr, vr), do)
+        require(all(bool(torch.isfinite(g).all()) and g.shape == q.shape
+                    for g in (out, *grads)),
+                f"flash_attention at {tuple(q.shape)} {q.dtype}: bad output")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print("  flash API", json.dumps(
+        {n: c for n, c in launches.items() if c}), flush=True)
+    for kern in (fl.K5W, fl.K6AW, fl.K6BW, fl.K5WF, fl.K6AWF, fl.K6BWF):
+        require(launches[kern.name] == len(FLASH_WIDE),
+                f"{kern.name} launched {launches[kern.name]} times through "
+                f"the flash API, expected {len(FLASH_WIDE)}")
+    return launches
+
+
 def phase_k1_backward(gen):
     """K1's autograd Function at the training shape: K1 forward, then the
     prep recomputed and K5, K6a, K6b; gradients of q, k, v and the four norm
@@ -1161,6 +1347,7 @@ def model_flops_per_forward(cfg, img_tokens: int) -> float:
 
 
 TRAIN_STEPS_TIMED = 5
+TRAIN_OPTION_STEPS = 3
 
 
 def phase_train(card, log_dir):
@@ -1171,19 +1358,11 @@ def phase_train(card, log_dir):
     launching K5 38, K6a 19, K6b 19 and K1-K4 0 times; then one more step
     under torch.profiler for the card time by kernel family."""
     import torch
-    from sd3_torch.config import published_config
     from sd3_torch.data.pipeline import synthetic_batch_iter
     from sd3_torch.training.optim import global_norm_f32
-    from sd3_torch.training.trainer import TrainConfig, Trainer
+    from sd3_torch.training.trainer import Trainer
 
-    cfg = published_config(stage_res=TRAIN_RES)
-    tc = TrainConfig(batch_size=TRAIN_BATCH, accumulation_steps=1,
-                     total_steps=10 ** 9, ema_update_freq=10 ** 9,
-                     num_save_steps=10 ** 9, log_steps=10 ** 9,
-                     low_mem_optimizer=True, track_ema=False,
-                     remat_policy="nothing", bf16_grads=True,
-                     bf16_grad_accum=True, precast_params=True,
-                     fused_optimizer=True, remat_blocks=True)
+    cfg, tc = train_slice_config()
     t0 = time.time()
     trainer = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
     n_params = sum(p.numel() for p in trainer.params.values())
@@ -1247,6 +1426,62 @@ def phase_train(card, log_dir):
     return res
 
 
+def train_slice_config():
+    """(model config, TrainConfig) of phase 11's training configuration."""
+    from sd3_torch.config import published_config
+    from sd3_torch.training.trainer import TrainConfig
+
+    return published_config(stage_res=TRAIN_RES), TrainConfig(
+        batch_size=TRAIN_BATCH, accumulation_steps=1, total_steps=10 ** 9,
+        ema_update_freq=10 ** 9, num_save_steps=10 ** 9, log_steps=10 ** 9,
+        low_mem_optimizer=True, track_ema=False, remat_policy="nothing",
+        bf16_grads=True, bf16_grad_accum=True, precast_params=True,
+        fused_optimizer=True, remat_blocks=True)
+
+
+def phase_train_options(card, log_dir):
+    """The two options that shape a checkpoint, each alone on phase 11's
+    training configuration: 8-bit moments (adamw_8bit in place of the fused
+    low-mem AdamW), and the host EMA combined every step (ema_on_host with
+    ema_update_freq 1, its dearest setting: a step joins the last step's
+    combine). One warmup step, then the median of TRAIN_OPTION_STEPS timed
+    steps of each."""
+    import dataclasses
+    import torch
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.training.trainer import Trainer
+
+    cfg, tc = train_slice_config()
+    out = {}
+    for label, opts in (
+            ("moments_8bit", dict(moments_8bit=True)),
+            ("ema_on_host_every_step", dict(track_ema=True, ema_on_host=True,
+                                            ema_update_freq=1))):
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        trainer = Trainer(cfg, dataclasses.replace(tc, **opts), device="cuda",
+                          log_dir=log_dir, use_wandb=False)
+        build_s = time.time() - t0
+        batch = trainer.shard_batch(next(synthetic_batch_iter(
+            cfg, TRAIN_BATCH, 1, TRAIN_RES, TRAIN_RES)))
+
+        def step():
+            t0 = time.time()
+            loss = trainer.train_step(batch)["loss"].item()  # synchronises
+            require(math.isfinite(loss), f"{label}: training loss {loss}")
+            return time.time() - t0
+
+        warm_s = step()
+        times = [step() for _ in range(TRAIN_OPTION_STEPS)]
+        trainer.ema_state()  # joins the last host combine
+        out[label] = dict(build_s=build_s, warmup_s=warm_s, step_s=times,
+                          median_s_per_step=statistics.median(times))
+        del trainer, batch
+    out["card"] = card
+    print("  train options", json.dumps(out), flush=True)
+    return out
+
+
 def phase_train_default_path(log_dir):
     """One step of TrainConfig's default path, the optax-shaped AdamW with
     an outer clip, fp32 gradients summed over 2 micro-batches and the
@@ -1291,6 +1526,203 @@ def phase_train_default_path(log_dir):
     return res
 
 
+def _tree_digest(tree) -> str:
+    """sha256 over a tree's leaves in key order: path, dtype, shape and the
+    bytes of each array (CPU tensors or numpy arrays), numbers by value."""
+    import hashlib
+    import numpy as np
+    import torch
+    h = hashlib.sha256()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], f"{path}/{key}")
+            return
+        h.update(path.encode())
+        if isinstance(node, np.ndarray):
+            node = torch.from_numpy(node.copy())  # keeps a 0-d shape
+        if isinstance(node, torch.Tensor):
+            t = node.detach().cpu().contiguous()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(node).encode())
+    walk(tree, "")
+    return h.hexdigest()
+
+
+def require_disk(root):
+    """Fail unless `root` (made here) has CKPT_DISK_BYTES free for the CLI
+    phase's checkpoint."""
+    os.makedirs(root, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    require(free >= CKPT_DISK_BYTES,
+            f"{free / 1e9:.1f} GB free under {root}: the published "
+            f"checkpoint (model, EMA and optimizer artifacts of ~4.9 GB "
+            f"each) needs {CKPT_DISK_BYTES / 1e9:.0f} GB")
+    return free
+
+
+def phase_cli(card, root):
+    """The slice's main path through the port's own CLIs: train.main at the
+    published config (19 blocks, 256px, 2 steps, 8-bit moments, the host
+    EMA) writes the six artifacts, which are reloaded and hash-compared with
+    the trainer's tensors; infer.main samples 512px from the EMA in bf16
+    (K1), int8 (K2, K3, K4), and fp32 int8 without and with the block tails
+    (the fp32 instances K4F, K2F, K3F; K4F, K9F, K10AF, K10BF), each run's
+    launches counted from 0; then tiny_config: a bf16 run, a resume with
+    8-bit moments (the optimizer restored from its canonical artifact), and
+    --gif. Save and load seconds and GB/s beside the card. Returns the
+    launches of each run and the timings."""
+    import shutil
+    import torch
+    from PIL import Image
+    from sd3_torch.inference import infer as infer_cli
+    from sd3_torch.training import checkpoint as tck
+    from sd3_torch.training import train as train_cli
+    from sd3_torch.training.optim import to_artifact
+    from sd3_torch.training.trainer import Trainer
+    from sd3_torch.weights import jax_tree_from_state_dict
+
+    require_disk(root)
+    pub = os.path.join(root, "published")
+    saves = []
+    save = Trainer.save
+
+    def timed_save(self):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        names = save(self)
+        saves.append(time.time() - t0)
+        return names
+
+    out = {}
+    Trainer.save = timed_save
+    try:
+        reset_launches()
+        t0 = time.time()
+        tr = train_cli.main([
+            "--device", "cuda", "--preset", "published", "--synthetic",
+            "--stage_res", "256", "--batchSize", "4",
+            "--accumulation_steps", "1", "--totalSteps", "2",
+            "--numSaveSteps", "2", "--moments_8bit", "--ema_on_host",
+            "--ema_update_freq", "1", "--warmup_steps", "1", "--log_steps",
+            "1", "--saveDir", pub])
+        torch.cuda.synchronize()
+        out["train"] = launch_counts()
+        out["train_s"] = time.time() - t0
+    finally:
+        Trainer.save = save
+    nb = tr.cfg.num_blocks
+    launched = out["train"]
+    for name, n in (("flash_attention_fwd", 2 * 2 * nb),
+                    ("flash_attention_dq", 2 * nb),
+                    ("flash_attention_dkv", 2 * nb)):
+        # per step: the forward and its remat recompute (K5), one backward
+        require(launched[name] == n, f"{name} launched {launched[name]} "
+                f"times in 2 published training steps, expected {n}")
+    require(tr.step == 2 and tr.saved_step == 2 and len(saves) == 1,
+            f"train CLI ended at step {tr.step}, saved {len(saves)} times")
+    names = tck._names(2)
+    paths = {k: os.path.join(pub, v) for k, v in names.items()}
+    for key, path in paths.items():
+        require(os.path.isfile(path), f"train CLI wrote no {names[key]}")
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    written = sum(sizes.values())
+    t0 = time.time()
+    arts = {k: tck.load_artifact(pub, names[k])
+            for k in ("model", "ema", "optim", "scheduler")}
+    load_s = time.time() - t0
+    want = {"model": jax_tree_from_state_dict(tr.params),
+            "ema": jax_tree_from_state_dict(tr.ema_state()),
+            "optim": tck.to_state_dict(to_artifact(tr.opt_state, tr.params)),
+            "scheduler": {"step": 2}}
+    digests = {k: (_tree_digest(arts[k]), _tree_digest(want[k]))
+               for k in arts}
+    for key, (got, exp) in digests.items():
+        require(got == exp, f"the reloaded {names[key]} differs from the "
+                f"trainer's tensors (sha256 {got[:12]} vs {exp[:12]})")
+    cfg = tck.load_config(pub, names["defs"])
+    require(cfg.num_blocks == 19 and cfg.start_step == 2,
+            f"model_params_2s.json: {cfg.num_blocks} blocks, start_step "
+            f"{cfg.start_step}")
+    out.update(save_s=saves[0], save_GBps=written / saves[0] / 1e9,
+               load_s=load_s, load_GBps=(written - sizes["defs"]) / load_s
+               / 1e9, bytes=sizes, card=card,
+               sha256={k: v[0] for k, v in digests.items()})
+    del tr, arts, want
+    torch.cuda.empty_cache()
+
+    def infer(label, extra, steps, batch, res=512, args=(), root_dir=pub,
+              step=2):
+        img = os.path.join(root_dir, label.replace(" ", "_"))
+        reset_launches()
+        t0 = time.time()
+        infer_cli.main(["--loadDir", root_dir, "--step", str(step), "--ema",
+                        "--text_input", "a red fox in the snow",
+                        "--num_steps", str(steps), "--guidance", "5",
+                        "--width", str(res), "--height", str(res),
+                        "--sampler", "euler", "--seed", "7", "--batch_size",
+                        str(batch), "--stub_encoders", "--out_imgname", img,
+                        *extra, *args])
+        torch.cuda.synchronize()
+        out[label] = launch_counts()
+        out[f"{label}_s"] = time.time() - t0
+        for i in range(batch):
+            with Image.open(f"{img}_{i}.png") as im:
+                require(im.size == (res, res), f"{label}: {img}_{i}.png is "
+                        f"{im.size}")
+        return img
+
+    # each infer call: one model forward a step (CFG doubles the batch)
+    for label, extra, int8, tails, fp32, batch in (
+            ("infer bf16", [], False, False, False, 2),
+            ("infer int8", ["--quant", "int8"], True, False, False, 2),
+            ("infer fp32 int8", ["--dtype", "float32", "--quant", "int8"],
+             True, False, True, 1),
+            ("infer fp32 int8 tails", ["--dtype", "float32", "--quant",
+                                       "int8", "--attn_tail", "all",
+                                       "--mlp_tail_fusion", "3d"],
+             True, True, True, 1)):
+        infer(label, extra, CLI_STEPS, batch)
+        expect = {k: 0 for k in ATTENTION_KERNELS}
+        expect[attention_kernel(int8, False, False, fp32)] = nb * CLI_STEPS
+        expect.update(block_tail_launches(nb, CLI_STEPS, int8, tails, fp32))
+        for name, n in expect.items():
+            require(out[label][name] == n, f"{name} launched "
+                    f"{out[label][name]} times in `{label}`, expected {n}")
+        print(f"  {label}: {out[f'{label}_s']:.1f} s", json.dumps(
+            {k: v for k, v in out[label].items() if v}), flush=True)
+
+    # tiny_config: a bf16-moment run, an 8-bit resume from its canonical
+    # optimizer artifact, and the GIF
+    tiny, tiny8 = os.path.join(root, "tiny"), os.path.join(root, "tiny8")
+    common = ["--device", "cuda", "--preset", "tiny", "--synthetic",
+              "--stage_res", "64", "--batchSize", "2",
+              "--accumulation_steps", "1", "--warmup_steps", "1",
+              "--ema_update_freq", "1"]
+    train_cli.main([*common, "--totalSteps", "2", "--numSaveSteps", "2",
+                    "--low_mem_optimizer", "--saveDir", tiny])
+    tr = train_cli.main([*common, "--totalSteps", "3", "--numSaveSteps", "3",
+                         "--moments_8bit", "--loadDir", tiny, "--loadStep",
+                         "2", "--saveDir", tiny8])
+    require(type(tr.opt_state).__name__ == "Adam8bitState"
+            and tr.opt_state.count == 3 and tr.step == 3,
+            f"tiny resume: {type(tr.opt_state).__name__} count "
+            f"{tr.opt_state.count} at step {tr.step}, expected an 8-bit "
+            "state restored at 2 and stepped once")
+    gif = infer("tiny gif", ["--gif"], 3, 2, res=64, root_dir=tiny8, step=3)
+    with Image.open(f"{gif}_diffusion.gif") as im:
+        require(im.n_frames == 3, f"the GIF has {im.n_frames} frames")
+    print("  checkpoint", json.dumps(dict(
+        card=card, save_s=out["save_s"], save_GBps=out["save_GBps"],
+        load_s=out["load_s"], load_GBps=out["load_GBps"],
+        bytes=out["bytes"], train_s=out["train_s"],
+        sha256=out["sha256"])), flush=True)
+    return out
+
+
 def launch_counts():
     """{kernel name: launches so far} of every registered kernel."""
     from sd3_torch import kernels
@@ -1303,19 +1735,25 @@ def reset_launches():
         k.launches = 0
 
 
-def block_tail_launches(nb: int, calls: int, int8: bool, tails: bool) -> dict:
+def block_tail_launches(nb: int, calls: int, int8: bool, tails: bool,
+                        fp32: bool = False) -> dict:
     """Launches of the int8 block-tail kernels in `calls` forwards of an
     nb-block model: under int8, K2 in every block and K3 in every block but
     the last (whose text stream has no MLP), or with the tails (attn_tail
     "all", mlp_tail_fusion "3d") K9 for both streams and K10a, K10b once a
     block (the image stream: the text stream's 154 tokens decline them, and
-    the last block has no text out-projection); none in bf16."""
+    the last block has no text out-projection); none in bf16. With `fp32`
+    (the fp32 int8 model) their fp32 instances, and none of the bf16 ones."""
     k2 = nb * calls if int8 and not tails else 0
     k3 = (nb - 1) * calls if int8 and not tails else 0
     k10 = nb * calls if tails else 0
-    return dict(swiglu_int8_tail=k2, swiglu_int8=k3,
-                swiglu_int8_tail3d=(2 * nb - 1) * calls if tails else 0,
-                qkv_adaln_int8=k10, out_gate_residual_int8=k10)
+    counts = dict(swiglu_int8_tail=k2, swiglu_int8=k3,
+                  swiglu_int8_tail3d=(2 * nb - 1) * calls if tails else 0,
+                  qkv_adaln_int8=k10, out_gate_residual_int8=k10)
+    fp32_counts = {f"{name}_fp32": n for name, n in counts.items()}
+    if fp32:
+        return {**fp32_counts, **dict.fromkeys(counts, 0)}
+    return {**counts, **dict.fromkeys(fp32_counts, 0)}
 
 
 TAILS = dict(attn_tail="all", mlp_tail_fusion="3d")
@@ -1326,7 +1764,8 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     """2-block published-width model at `res`, bf16 or int8 (w8a8, with
     int8_pv int8 P.V too, with `tails` the opt-in block tails), or with
     `fp32` the fp32 model (the fp32 attention instances), on the card vs the
-    same weights in fp32 on the CPU."""
+    same weights in fp32 on the CPU; the fp32 int8 model module by module
+    too (module_errors), beside its two controls."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.models.mmdit import MMDiT
@@ -1336,6 +1775,17 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
         num_blocks=2, int8_pv=int8_pv, **(TAILS if tails else {}))
     ref = MMDiT(cfg.replace(dtype="float32"), device="cpu").init_weights(
         torch.Generator().manual_seed(gen_seed)).eval()
+    g = torch.Generator().manual_seed(gen_seed + 1)
+    lat = res // 8
+    x = torch.randn((batch, cfg.inCh, lat, lat), generator=g)
+    t = torch.rand((batch,), generator=g)
+    c = torch.randn((batch, cfg.text_tokens, cfg.text_hidden_dim), generator=g)
+    cp = torch.randn((batch, cfg.class_dim), generator=g)
+    nulls = tuple(torch.tensor(m[:batch]) for m in (
+        [False, True], [True, False], [False, True]))
+    modules = int8 and fp32
+    float_sd = ({k: v.clone() for k, v in ref.state_dict().items()}
+                if modules else None)
     if int8:
         quantize_model(ref)
         cfg = ref.cfg.replace(dtype=cfg.dtype)
@@ -1346,18 +1796,13 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     if not fp32:
         dut.cast_params(torch.bfloat16)
     dut.eval()
-    g = torch.Generator().manual_seed(gen_seed + 1)
-    lat = res // 8
-    x = torch.randn((batch, cfg.inCh, lat, lat), generator=g)
-    t = torch.rand((batch,), generator=g)
-    c = torch.randn((batch, cfg.text_tokens, cfg.text_hidden_dim), generator=g)
-    cp = torch.randn((batch, cfg.class_dim), generator=g)
-    nulls = tuple(torch.tensor(m[:batch]) for m in (
-        [False, True], [True, False], [False, True]))
+    records, hooks = record_modules(ref) if modules else ([], [])
     with torch.inference_mode():
         t0 = time.time()
         want = ref(x, t, c, cp, *nulls)
         cpu_s = time.time() - t0
+        for h in hooks:
+            h.remove()
         reset_launches()
         got = dut(*(a.cuda() for a in (x, t, c, cp)),
                   *(m.cuda() for m in nulls)).cpu()
@@ -1369,6 +1814,20 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
                  max_abs_err=(got - want).abs().max().item(),
                  ref_max_abs=want.abs().max().item(), launches=launches,
                  cpu_fp32_s=cpu_s)
+    if modules:
+        # the check, then its controls: the bf16 int8 model and the
+        # unquantized fp32 model on the same recorded inputs
+        bf16 = MMDiT(cfg.replace(dtype="bfloat16"), device="cuda")
+        bf16.load_state_dict(ref.state_dict(), strict=True)
+        bf16.cast_params(torch.bfloat16)
+        unq = MMDiT(cfg.replace(quant="none"), device="cuda")
+        unq.load_state_dict(float_sd, strict=True)
+        res_d["module_rel_l2"] = {
+            run: module_errors(records, m.eval(), dt) for run, m, dt in (
+                ("fp32_int8", dut, torch.float32),
+                ("control_bf16_int8", bf16, torch.bfloat16),
+                ("control_fp32_unquantized", unq, torch.float32))}
+        del bf16, unq
     print("  model", json.dumps(res_d), flush=True)
     nb = cfg.num_blocks
     # attention: K1 / K4 up to 2048 padded tokens (512px: 1178 tokens pad
@@ -1378,7 +1837,7 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     attn = attention_kernel(int8, int8_pv, streaming, fp32)
     want_launches = {k: 0 for k in ATTENTION_KERNELS}
     want_launches[attn] = nb
-    want_launches.update(block_tail_launches(nb, 1, int8, tails))
+    want_launches.update(block_tail_launches(nb, 1, int8, tails, fp32))
     for name, n in want_launches.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
                 f"in a {nb}-block {cfg.quant} {cfg.dtype} {res}px forward, "
@@ -1387,14 +1846,107 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
              else MODEL_REL_L2)
     require(rel <= limit, f"2-block {cfg.quant} {res}px model rel L2 {rel} > "
             f"{limit}")
+    if modules:
+        errs = res_d["module_rel_l2"]
+        worst = max(errs["fp32_int8"].values())
+        require(worst <= INT8_FP32_MODULE_REL_L2,
+                f"2-block fp32 int8 {res}px model (tails {tails}): a module's "
+                f"rel L2 {worst} > {INT8_FP32_MODULE_REL_L2} on the CPU's "
+                f"inputs: {errs['fp32_int8']}")
+        for run in ("control_bf16_int8", "control_fp32_unquantized"):
+            best = min(errs[run].values())
+            require(best > INT8_FP32_MODULE_REL_L2,
+                    f"a module of the {run} passes the module check (rel L2 "
+                    f"{best} <= {INT8_FP32_MODULE_REL_L2}): it cannot tell "
+                    f"that model from the fp32 int8 one there")
     return res_d
+
+
+def record_modules(model):
+    """Forward hooks on every JointAttention and MLP module of the CPU
+    `model` that keep each call's (name, args, kwargs, output), cloned.
+    Returns (records, hook handles)."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from sd3_torch.ops.attention import JointAttention
+    from sd3_torch.ops.mlp import MLP
+
+    records = []
+    keep = lambda v: tree_map(
+        lambda a: a.clone() if isinstance(a, torch.Tensor) else a, v)
+
+    def hook(name):
+        return lambda mod, args, kwargs, out: records.append(
+            (name, keep(args), keep(kwargs), keep(out)))
+
+    hooks = [m.register_forward_hook(hook(n), with_kwargs=True)
+             for n, m in model.named_modules()
+             if isinstance(m, (JointAttention, MLP))]
+    return records, hooks
+
+
+def module_errors(records, dut, dtype):
+    """Each recorded module call run on the card model `dut`'s module of the
+    same name, on the recorded inputs cast to `dtype`: {module.output: rel
+    L2 of its increment (the output less the residual it adds to, where it
+    adds one) against the recorded one}. An unquantized MLP given the int8
+    MLP's block tail (AdaLN, gate, residual) computes it around itself, as
+    the attention's tail path does."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from sd3_torch.ops.attention import _adaln, _gate_res
+    from sd3_torch.ops.mlp import MLP
+
+    def to_card(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        a = a.cuda()
+        return a.to(dtype) if a.is_floating_point() else a
+
+    errs = {}
+    with torch.inference_mode():
+        for name, args, kwargs, want in records:
+            mod = dut.get_submodule(name)
+            d_args, d_kw = tree_map(to_card, (args, kwargs))
+            if isinstance(mod, MLP):
+                tail = kwargs.get("residual", False)
+                if tail and not mod.fused_ok:
+                    x = d_args[0]
+                    got = _gate_res(mod(_adaln(x, d_kw["shift"],
+                                                   d_kw["scale"])),
+                                    d_kw["gate"], x)
+                else:
+                    got = mod(*d_args, **d_kw)
+                outs = {"": (got, want, (d_args[0], args[0]) if tail
+                             else None)}
+            else:
+                got = mod(*d_args, **d_kw)
+                tail = kwargs.get("tail")
+                outs = {".x": (got[0], want[0], (d_kw["tail"]["res_x"],
+                                                  tail["res_x"]) if tail
+                               else None)}
+                if not (tail and mod.last):  # a last block returns res_c
+                    outs[".c"] = (got[1], want[1], (d_kw["tail"]["res_c"],
+                                                     tail["res_c"]) if tail
+                                  else None)
+            for key, (g, w, resid) in outs.items():
+                g = g.float().cpu()
+                if resid is not None:
+                    g = g - resid[0].float().cpu()
+                    w = w - resid[1]
+                errs[name + key] = ((g - w).norm() / w.norm()).item()
+    return errs
 
 
 ATTENTION_KERNELS = ("fused_attention_bf16", "fused_attention_int8qk",
                      "fused_attention_int8pv", "fused_attention_stream",
                      "fused_attention_stream_int8qk",
                      "fused_attention_stream_int8pv", "fused_attention_fp32",
-                     "fused_attention_stream_fp32")
+                     "fused_attention_stream_fp32",
+                     "fused_attention_int8qk_fp32",
+                     "fused_attention_int8pv_fp32",
+                     "fused_attention_stream_int8qk_fp32",
+                     "fused_attention_stream_int8pv_fp32")
 
 
 def attention_kernel(int8, int8_pv, streaming, fp32=False) -> str:
@@ -1402,13 +1954,15 @@ def attention_kernel(int8, int8_pv, streaming, fp32=False) -> str:
     up to 2048 padded tokens (K4 under int8), K7 / K8b above (K8b with
     int8_pv), as the JAX package's gates choose (int8 P.V only past 2048
     tokens, so no model path takes K8a); the fp32 instances in fp32."""
-    if fp32:
-        return "fused_attention_stream_fp32" if streaming else \
-            "fused_attention_fp32"
     if streaming:
-        return ("fused_attention_stream_int8pv" if int8_pv
+        name = ("fused_attention_stream_int8pv" if int8_pv
                 else "fused_attention_stream")
-    return "fused_attention_int8qk" if int8 else "fused_attention_bf16"
+    else:
+        name = "fused_attention_int8qk" if int8 else "fused_attention_bf16"
+    if fp32:
+        name = {"fused_attention_bf16": "fused_attention"}.get(name, name)
+        name += "_fp32"
+    return name
 
 
 def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
@@ -1512,24 +2066,28 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
 
 
 # the int8 kernels' launches carry the number of their TPU kernel as their
-# last template argument (csrc/int8_common.cuh): xquant_kernel<2>,
-# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9>, ...; K10a / K10b's as
-# their first, dense_sm90_kernel<10, false> (the second: chunked or not)
+# last integer template argument (csrc/int8_common.cuh), the element type
+# after it where there is one: xquant_kernel<2, __nv_bfloat16>,
+# swiglu_h_sm90_kernel<256, 9>, w3_sm90_kernel<256, 9, float>, ...; K10a /
+# K10b's as their first, dense_sm90_kernel<10, false, float> (the second:
+# chunked or not)
 INT8_LAUNCH = re.compile(r"(?:xquant_kernel|swiglu_h_sm90_kernel|"
-                         r"w3_sm90_kernel)<(?:\d+, )*(\d+)>|"
+                         r"w3_sm90_kernel)<(?:\d+, )*(\d+)(?:, [\w ]+)?>|"
                          r"dense_sm90_kernel<(\d+)")
 INT8_FAMILIES = {"2": "K2", "3": "K3", "9": "K9", "10": "K10a", "11": "K10b"}
 # attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS> instantiations by family
 INT8_ATTN_FAMILIES = {"true, false, true>": "K4", "true, false, false>": "K7q",
                       "false, true, true>": "K8a", "true, true, true>": "K8a",
                       "false, true, false>": "K8b", "true, true, false>": "K8b"}
-# the per-row int8 prep carries the number of its TPU kernel as its last
-# template argument (csrc/attention_common.cuh): prep_q8rows_kernel<64, 4>
-Q8ROWS_LAUNCH = re.compile(r"prep_q8rows_kernel<\d+, (\d+)>")
+# the per-row int8 prep carries the number of its TPU kernel as its second
+# template argument (csrc/attention_common.cuh), the element type after it:
+# prep_q8rows_kernel<64, 4, __nv_bfloat16>
+Q8ROWS_LAUNCH = re.compile(r"prep_q8rows_kernel<\d+, (\d+)(?:, [\w ]+)?>")
 Q8ROWS_FAMILIES = {"4": "K4", "7": "K7q", "8": "K8b", "81": "K8a"}
 # the fp32 attention kernels (csrc/attention_fp32.cu): K1 / K7 / K5 and
 # K6a / K6b on fp32 operands
-FP32_KERNELS = ("attn_fp32_kernel", "dq_fp32_kernel", "dkv_fp32_kernel")
+FP32_KERNELS = ("attn_fp32_kernel", "dq_fp32_kernel", "dkv_fp32_kernel",
+                "attn_q8_fp32_kernel")
 
 
 # the flash backward's kernels (csrc/flash_bwd_sm90.cu) by family
@@ -1540,7 +2098,9 @@ SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "flash_bwd_sm90.cu": "wgmma+TMA, warp-specialised",
                   "fused_mlp.cu": "wgmma+TMA, warp-specialised",
                   "attention_int8_sm90.cu": "wgmma+TMA, warp-specialised",
-                  "attention_fp32.cu": "3xTF32 mma.sync, shared-memory tiles",
+                  "attention_fp32.cu": "mma.sync over shared-memory tiles "
+                  "(fp32 products in 3xTF32, bf16 in one tf32 pass, int8 "
+                  "s8)",
                   "fused_dense.cu": "wgmma+TMA, warp-specialised"}
 
 
@@ -1628,6 +2188,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, here)
     logs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    ckpt_root = os.path.join(here, CKPT_DIR)
     try:
         print("phase 1: header", flush=True)
         card = nvidia_smi("name,power.limit")
@@ -1638,6 +2199,9 @@ def main() -> int:
               flush=True)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        free = require_disk(ckpt_root)
+        print(f"  {free / 1e9:.1f} GB free for the CLI phase's checkpoint "
+              f"under {CKPT_DIR}/", flush=True)
 
         print("phase 2: build", flush=True)
         from sd3_torch import kernels
@@ -1689,6 +2253,28 @@ def main() -> int:
         k1f = phase_attention_fp32(SLICE_FP32, gen)
         k7f = phase_attention_fp32(SLICE_1024, gen)
         phase_attention_fp32(RAGGED_STREAM, gen)
+        # the int8 kernels on fp32 rows: the attentions at the 512px shape
+        # of the fp32 int8 model (K4F, K8aF over fp32 and over K4F's
+        # scores) and the 1024px slice shape (K7qF, K8bF over fp32 and over
+        # K7qF's scores), the MLP and projections at the fp32 int8 model's
+        # 512px streams and past K_CHUNK
+        k4f = phase_attention_int8_fp32(SLICE_FP32, gen, int8_qk=True)
+        k8af = [phase_attention_int8_fp32(SLICE_FP32, gen, int8_qk=qk,
+                                          int8_pv=True) for qk in (False, True)]
+        k7qf = phase_attention_int8_fp32(SLICE_1024, gen, int8_qk=True)
+        k8bf = [phase_attention_int8_fp32(SLICE_1024, gen, int8_qk=qk,
+                                          int8_pv=True) for qk in (False, True)]
+        k3f = phase_mlp(K3_FP32, gen, "K3", fp32=True)
+        k2f = phase_mlp(K2_FP32, gen, "K2", fp32=True)
+        k9f = [phase_mlp(s, gen, "K9", fp32=True) for s in K9_FP32]
+        k10af = phase_dense(K10_FP32, gen, "K10a", fp32=True)
+        k10bf = phase_dense(K10_FP32, gen, "K10b", fp32=True)
+        phase_dense(K10_WIDE[0], gen, "K10a", fp32=True)
+        phase_dense(K10_WIDE[0], gen, "K10b", fp32=True)
+        # flash past head dim 128: bf16 and fp32 at 256 and at 160 (padded)
+        k56w = [phase_flash(s, gen) for s in FLASH_WIDE]
+        k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
+        flash_api = phase_flash_api(gen)
         phase_k1_backward(gen)
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU: "
@@ -1700,6 +2286,8 @@ def main() -> int:
         phase_model(gen_seed=0, int8=True, res=1024, batch=1)
         phase_model(gen_seed=0, int8=True, res=1024, batch=1, int8_pv=True)
         model32 = phase_model(gen_seed=0, fp32=True)
+        phase_model(gen_seed=0, int8=True, fp32=True)
+        phase_model(gen_seed=0, int8=True, tails=True, fp32=True)
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
@@ -1731,12 +2319,20 @@ def main() -> int:
                                       timed=1)
 
         print("phase 11: 19-block training, 512px, batch 4, fused low-mem "
-              "AdamW, bf16 grads, remat; then the default TrainConfig path "
-              "at 2 blocks", flush=True)
+              "AdamW, bf16 grads, remat; the same with 8-bit moments, and "
+              "with the host EMA; then the default TrainConfig path at 2 "
+              "blocks", flush=True)
         train = phase_train(card, log_dir)
+        phase_train_options(card, log_dir)
         phase_train_default_path(log_dir)
 
-        print("phase 12: kernels", flush=True)
+        print("phase 12: the CLIs at the published config: train (2 steps, "
+              "8-bit moments, host EMA) -> six artifacts -> infer (bf16, "
+              "int8, fp32 int8 with and without the tails); tiny_config "
+              "resume and GIF", flush=True)
+        cli = phase_cli(card, ckpt_root)
+
+        print("phase 13: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,
@@ -1789,6 +2385,47 @@ def main() -> int:
             (flash_attention.K6BF, k56f[0]["K6BF"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", step32,
              lambda run: run["launches"]),
+            # the int8 kernels' fp32 instances: K4F, K2F, K3F on the fp32
+            # int8 infer CLI run, K9F, K10AF, K10BF on its run with the
+            # tails, K7qF, K8aF, K8bF through the attention API
+            (fused_attention.K4F, k4f, "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:193", cli["infer fp32 int8"],
+             lambda run: run),
+            (fused_attention.K7QF, k7qf, "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:352", api, lambda run: run),
+            (fused_attention.K8AF, k8af[0], "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:181", api, lambda run: run),
+            (fused_attention.K8BF, k8bf[0], "attention_fp32.cu",
+             "sd3_tpu/ops/fused_attention.py:406", api, lambda run: run),
+            (fused_mlp.K2F, k2f, "fused_mlp.cu",
+             "sd3_tpu/ops/fused_mlp.py:212", cli["infer fp32 int8"],
+             lambda run: run),
+            (fused_mlp.K3F, k3f, "fused_mlp.cu",
+             "sd3_tpu/ops/fused_mlp.py:93", cli["infer fp32 int8"],
+             lambda run: run),
+            (fused_mlp.K9F, k9f[0], "fused_mlp.cu",
+             "sd3_tpu/ops/fused_mlp.py:365", cli["infer fp32 int8 tails"],
+             lambda run: run),
+            (fused_dense.K10AF, k10af, "fused_dense.cu",
+             "sd3_tpu/ops/fused_dense.py:92", cli["infer fp32 int8 tails"],
+             lambda run: run),
+            (fused_dense.K10BF, k10bf, "fused_dense.cu",
+             "sd3_tpu/ops/fused_dense.py:166", cli["infer fp32 int8 tails"],
+             lambda run: run),
+            # flash past head dim 128 (the shared-memory kernels at 256):
+            # their launches are those of the flash API phase
+            (flash_attention.K5W, k56w[0]["K5"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
+            (flash_attention.K6AW, k56w[0]["K6a"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
+            (flash_attention.K6BW, k56w[0]["K6b"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
+            (flash_attention.K5WF, k56wf[0]["K5F"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
+            (flash_attention.K6AWF, k56wf[0]["K6AF"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
+            (flash_attention.K6BWF, k56wf[0]["K6BF"], "attention_fp32.cu",
+             "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",
@@ -1807,6 +2444,7 @@ def main() -> int:
         return 1
     finally:
         logs.cleanup()
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@
 // interleaved-pair rotation, in fp32 from bf16 or fp32 rows), int8
 // rounding, the prep launches of q (bf16 or fp32, or int8 per row), of K
 // (bf16 or fp32 with its statistics, int8 per (b, h) or per row) and of V
-// (int8 per column, V^T in the key order of an s8 A fragment).
+// (int8 per column, V^T in the key order of an s8 A fragment). Every prep
+// is a template on the element type T of the rows it reads (bf16 by
+// default; fp32 for the fp32 instances of attention_fp32.cu).
 //
 // Every prep takes the head dim D of its instance and dn, the head dim of
 // the model: a head of dn < D values (2, 4 or 8, run at D = 16) arrives
@@ -51,6 +53,24 @@ __device__ __forceinline__ void store_pair(bf16* x, int i, float a, float b) {
 }
 __device__ __forceinline__ void store_pair(float* x, int i, float a, float b) {
   reinterpret_cast<float2*>(x)[i] = make_float2(a, b);
+}
+
+// 8 values of bf16 or fp32 from a 16-byte aligned address, in fp32
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(v2[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
 // RMSNorm (the mean over dn values: the sum of squares times inv_dn = 1 /
@@ -107,13 +127,12 @@ __device__ __forceinline__ int quant8(float v, float s) {
 
 // grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: k^ in k's type
 // (bf16 or fp32). k_max2 receives max ||k^||^2 per (b, h) (K1), or with
-// AMAX max |bf16(k^)| (K4).
+// AMAX max |k^| of k^ rounded to T (K4).
 template <int D, bool AMAX, typename T = bf16>
 __global__ void __launch_bounds__(PREP_THREADS)
 k_prep_kernel(const T* __restrict__ k, const float* __restrict__ ck,
               const float* __restrict__ sk, T* __restrict__ k_out,
               float* __restrict__ k_max2, int N, int H, float eps, int dn) {
-  static_assert(!AMAX || std::is_same<T, bf16>::value, "K4's prep is bf16");
   using G = Geom<D>;
   const float inv_dn = 1.f / dn;
   constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
@@ -161,10 +180,12 @@ k_prep_kernel(const T* __restrict__ k, const float* __restrict__ ck,
 
 constexpr int QUANT_THREADS = 256;
 
-// int8 k^ from the bf16 k^, 8 values per thread (D is a multiple of 8, so
-// they share a head). grid ceil(B*N*H*D / (8 * QUANT_THREADS)).
+// int8 k^ from the k^ of T (bf16 or fp32), 8 values per thread (D is a
+// multiple of 8, so they share a head). grid ceil(B*N*H*D / (8 *
+// QUANT_THREADS)).
+template <typename T = bf16>
 __global__ void __launch_bounds__(QUANT_THREADS)
-k_quant_kernel(const bf16* __restrict__ kp, const float* __restrict__ k_amax,
+k_quant_kernel(const T* __restrict__ kp, const float* __restrict__ k_amax,
                int8_t* __restrict__ kq, size_t total, int N, int H, int D) {
   const size_t e0 = ((size_t)blockIdx.x * QUANT_THREADS + threadIdx.x) * 8;
   if (e0 >= total) return;
@@ -172,20 +193,12 @@ k_quant_kernel(const bf16* __restrict__ kp, const float* __restrict__ k_amax,
   const size_t b = e0 / (hd * N);
   const int h = (int)((e0 % hd) / D);
   const float s = fmaxf(k_amax[b * H + h], 1e-12f) / 127.f;
-  const uint4 raw = *reinterpret_cast<const uint4*>(kp + e0);
-  const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  uint32_t packed[2];
+  float f[8];
+  load8(kp + e0, f);
+  uint32_t packed[2] = {0u, 0u};
 #pragma unroll
-  for (int w = 0; w < 2; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 f = __bfloat1622float2(v2[w * 2 + i]);
-      word |= (uint32_t)(quant8(f.x, s) & 0xff) << (16 * i);
-      word |= (uint32_t)(quant8(f.y, s) & 0xff) << (16 * i + 8);
-    }
-    packed[w] = word;
-  }
+  for (int e = 0; e < 8; ++e)
+    packed[e / 4] |= (uint32_t)(quant8(f[e], s) & 0xff) << (8 * (e % 4));
   *reinterpret_cast<uint2*>(kq + e0) = make_uint2(packed[0], packed[1]);
 }
 
@@ -235,9 +248,9 @@ q_prep_kernel(const T* __restrict__ q, const float* __restrict__ cq,
 // TAG is the number of the TPU kernel the launch serves (4: K4 and K8a
 // over its scores, 7: K7q, 8: K8b), so that a profile tells its launches
 // apart.
-template <int D, int TAG>
+template <int D, int TAG, typename T = bf16>
 __global__ void __launch_bounds__(PREP_THREADS)
-prep_q8rows_kernel(const bf16* __restrict__ x, const float* __restrict__ c,
+prep_q8rows_kernel(const T* __restrict__ x, const float* __restrict__ c,
                    const float* __restrict__ s, int8_t* __restrict__ x_q,
                    float* __restrict__ x_scale, int N, int H, int ss,
                    float eps, int dn) {
@@ -311,24 +324,21 @@ inline int v_amax_rows(int B, int N) {
   const int rows = (N + per_sample - 1) / per_sample;
   return rows > V_AMAX_ROWS ? rows : V_AMAX_ROWS;
 }
+template <typename T = bf16>
 __global__ void __launch_bounds__(1024)
-v_amax_kernel(const bf16* __restrict__ v, float* __restrict__ v_amax, int N,
+v_amax_kernel(const T* __restrict__ v, float* __restrict__ v_amax, int N,
               int HD, int rows) {
   const int b = blockIdx.y, n0 = blockIdx.x * rows;
   const int n1 = min(n0 + rows, N);
   for (int c = threadIdx.x; c < HD / 8; c += blockDim.x) {
     float m[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const bf16* col = v + (size_t)b * N * HD + c * 8;
+    const T* col = v + (size_t)b * N * HD + c * 8;
 #pragma unroll 4
     for (int n = n0; n < n1; ++n) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(col + (size_t)n * HD);
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float f[8];
+      load8(col + (size_t)n * HD, f);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p[i]);
-        m[2 * i] = fmaxf(m[2 * i], fabsf(f.x));
-        m[2 * i + 1] = fmaxf(m[2 * i + 1], fabsf(f.y));
-      }
+      for (int i = 0; i < 8; ++i) m[i] = fmaxf(m[i], fabsf(f[i]));
     }
     int* dst = reinterpret_cast<int*>(v_amax + (size_t)b * HD + c * 8);
 #pragma unroll
@@ -339,9 +349,9 @@ v_amax_kernel(const bf16* __restrict__ v, float* __restrict__ v_amax, int N,
 // V^T in int8: v_q[bh][d][np keys], kappa-ordered within each 32-key chunk,
 // keys past N zero; np (a multiple of V_ROWS) is the attention's padded
 // length. grid (np / V_ROWS, B*H), 256 threads; each writes 4 bytes.
-template <int D>
+template <int D, typename T = bf16>
 __global__ void __launch_bounds__(256)
-v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ v_amax,
+v_quant_kernel(const T* __restrict__ v, const float* __restrict__ v_amax,
                int8_t* __restrict__ v_q, int N, int H, int np) {
   __shared__ float sv[V_ROWS][D + 1];
   __shared__ float sc[D];
@@ -350,9 +360,7 @@ v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ v_amax,
   for (int i = threadIdx.x; i < V_ROWS * D / 2; i += blockDim.x) {
     const int r = i / (D / 2), p = i % (D / 2), n = t * V_ROWS + r;
     float2 f = make_float2(0.f, 0.f);
-    if (n < N)
-      f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(
-          v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D)[p]);
+    if (n < N) f = load_pair(v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D, p);
     sv[r][2 * p] = f.x;
     sv[r][2 * p + 1] = f.y;
   }
@@ -375,18 +383,18 @@ v_quant_kernel(const bf16* __restrict__ v, const float* __restrict__ v_amax,
 
 // The V prep of int8 P.V: v_amax (B*H, D) fp32, zero on entry; v_q (B*H,
 // D, np) int8. The CUDA error code.
-template <int D>
+template <int D, typename T = bf16>
 int launch_v_prep(const void* v, void* v_amax, void* v_q, int B, int N,
                   int H, int np, cudaStream_t st) {
   const int rows = v_amax_rows(B, N);
   dim3 g1((N + rows - 1) / rows, B);
-  v_amax_kernel<<<g1, v_amax_threads(H * D), 0, st>>>(
-      static_cast<const bf16*>(v), static_cast<float*>(v_amax), N, H * D,
+  v_amax_kernel<T><<<g1, v_amax_threads(H * D), 0, st>>>(
+      static_cast<const T*>(v), static_cast<float*>(v_amax), N, H * D,
       rows);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
   dim3 g2(np / V_ROWS, B * H);
-  v_quant_kernel<D><<<g2, 256, 0, st>>>(static_cast<const bf16*>(v),
+  v_quant_kernel<D, T><<<g2, 256, 0, st>>>(static_cast<const T*>(v),
                                         static_cast<const float*>(v_amax),
                                         static_cast<int8_t*>(v_q), N, H, np);
   return (int)cudaGetLastError();
@@ -423,31 +431,31 @@ int launch_q_prep(const void* q, const void* cq, const void* sq, void* q_out,
 
 // prep_q8rows_kernel<D, TAG> over every row of (B, N, H*D) x; the scales'
 // row stride ss; the CUDA error code.
-template <int D, int TAG>
+template <int D, int TAG, typename T = bf16>
 int launch_q8rows(const void* x, const void* c, const void* s, void* x_q,
                   void* x_scale, int B, int N, int H, int ss, float eps,
                   int dn, cudaStream_t st) {
   dim3 g((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
-  prep_q8rows_kernel<D, TAG><<<g, PREP_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(c),
+  prep_q8rows_kernel<D, TAG, T><<<g, PREP_THREADS, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(c),
       static_cast<const float*>(s), static_cast<int8_t*>(x_q),
       static_cast<float*>(x_scale), N, H, ss, eps, dn);
   return (int)cudaGetLastError();
 }
 
-// K4's int8 k^: the bf16 prep with max |bf16(k^)| per (b, h) into k_amax
-// (zero on entry), then the int8 values with one scale per (b, h).
-template <int D>
+// K4's int8 k^: the prep in T (bf16 or fp32) with max |k^| per (b, h) into
+// k_amax (zero on entry), then the int8 values with one scale per (b, h).
+template <int D, typename T = bf16>
 int launch_k_prep_q8bh(const void* k, const void* ck, const void* sk,
                        void* k_prep, void* k_q, void* k_amax, int B, int N,
                        int H, float eps, int dn, cudaStream_t st) {
-  const int e = launch_k_prep<D, true>(k, ck, sk, k_prep, k_amax, B, N, H,
-                                       eps, dn, st);
+  const int e = launch_k_prep<D, true, T>(k, ck, sk, k_prep, k_amax, B, N, H,
+                                          eps, dn, st);
   if (e != 0) return e;
   const size_t total = (size_t)B * N * H * D;
   const size_t blocks = (total / 8 + QUANT_THREADS - 1) / QUANT_THREADS;
-  k_quant_kernel<<<(unsigned)blocks, QUANT_THREADS, 0, st>>>(
-      static_cast<const bf16*>(k_prep), static_cast<const float*>(k_amax),
+  k_quant_kernel<T><<<(unsigned)blocks, QUANT_THREADS, 0, st>>>(
+      static_cast<const T*>(k_prep), static_cast<const float*>(k_amax),
       static_cast<int8_t*>(k_q), total, N, H, D);
   return (int)cudaGetLastError();
 }

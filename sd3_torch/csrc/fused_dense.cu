@@ -22,6 +22,15 @@
 // Weights are (out, in) int8, K-contiguous: the K-major B operand that s8
 // wgmma requires (8-bit types have no transpose). No copy of them is made.
 //
+// x (a), the residual and the outputs are bf16, or fp32 in the fp32
+// instances (the JAX package's `--dtype float32 --quant int8`, whose
+// kernels quantize the fp32 rows as they are): the kernel is a template on
+// the element type T. The prologue reads a row's values of T (16-byte loads
+// of 8 bf16 or 4 fp32); the s8 products do not change; the fp32 epilogue
+// writes its values (and reads the residual) in device memory from
+// registers, since an fp32 output tile would not fit beside the A tile and
+// the rings.
+//
 // What bounds them on this card, at the 512px image stream (M = 8 * 1024,
 // K = N = 1216): K10a does 2 * M * K * 3N = 72.7 G int8 operations (0.0367
 // ms at 1,979 TOP/s) on 84.1 MB (0.0251 ms at 3.35 TB/s), so operations
@@ -136,6 +145,55 @@ __device__ __forceinline__ uint4 ld_once16(const void* p) {
   return v;
 }
 
+// 8 values of a row of T as they were loaded: one 16-byte load of bf16,
+// two of fp32
+template <typename T>
+struct Raw8 {
+  uint4 u[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Raw8<T> load8_once(const T* p) {
+  Raw8<T> r;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) r.u[i] = ld_once16(p + i * (16 / sizeof(T)));
+  return r;
+}
+
+template <typename T>
+__device__ __forceinline__ Raw8<T> zero8() {
+  Raw8<T> r;
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 2); ++i) r.u[i] = make_uint4(0u, 0u, 0u, 0u);
+  return r;
+}
+
+// the 8 values in fp32: bf16's bits moved up, fp32's as they are
+template <typename T>
+__device__ __forceinline__ void unpack(const Raw8<T>& r, float (&f)[8]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const uint32_t w[8] = {r.u[0].x, r.u[0].y, r.u[0].z, r.u[0].w,
+                           r.u[1].x, r.u[1].y, r.u[1].z, r.u[1].w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = __uint_as_float(w[e]);
+  } else {
+    const uint32_t w[4] = {r.u[0].x, r.u[0].y, r.u[0].z, r.u[0].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      f[2 * e] = __uint_as_float(w[e] << 16);
+      f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+}
+
+// the outputs of the fp32 instances (its epilogue's stores) and its
+// residual
+template <typename T>
+struct Outs {
+  T* o[3];
+  const T* res;
+};
+
 // The weight scales, (N) fp32, of the projections: q, k, v for K10a; the
 // out-projection alone for K10b.
 struct Scales {
@@ -149,8 +207,9 @@ struct Scales {
 // outputs, tm_res the (M, N) bf16 residual (read when residual), boxes of
 // 64 x 64; maps past n_proj (and tm_res when unused) repeat tm_w0 / tm_o0.
 // CHUNKED: K > K_CHUNK, in chunks of K_CHUNK, and spans of at most one
-// column tile per consumer.
-template <int V, bool CHUNKED>
+// column tile per consumer. T = float: the maps tm_o*, tm_res are unused,
+// the outputs and the residual are outs.
+template <int V, bool CHUNKED, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
                   const __grid_constant__ CUtensorMap tm_w1,
@@ -159,12 +218,14 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
                   const __grid_constant__ CUtensorMap tm_o1,
                   const __grid_constant__ CUtensorMap tm_o2,
                   const __grid_constant__ CUtensorMap tm_res,
-                  const bf16* __restrict__ x, long long sample_stride,
+                  const T* __restrict__ x, long long sample_stride,
                   const float* __restrict__ shift,
                   const float* __restrict__ scale, Scales sc_w,
-                  const float* __restrict__ gate, int M, int K, int N,
-                  int n_tok, int n_proj, int spans, int gated, int residual) {
+                  const float* __restrict__ gate, Outs<T> outs, int M, int K,
+                  int N, int n_tok, int n_proj, int spans, int gated,
+                  int residual) {
   constexpr bool ADALN = V == V_K10A;
+  constexpr bool F32 = std::is_same<T, float>::value;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
@@ -247,21 +308,12 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
                               (size_t)(r % n_tok) * K
                         : 0);
     };
-    auto load_row = [&](int r, int k0, uint4 (&v)[CHUNKS]) {
-      const bf16* xr = row_ptr(r);
+    auto load_row = [&](int r, int k0, Raw8<T> (&v)[CHUNKS]) {
+      const T* xr = row_ptr(r);
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
         const int e = k0 + (lane + 32 * i) * 8;
-        v[i] = r < M && e < K ? ld_once16(xr + e) : make_uint4(0u, 0u, 0u, 0u);
-      }
-    };
-    // the 8 values of chunk u (8 bf16) in fp32: the bits moved up
-    auto unpack = [](const uint4& u, float (&f)[8]) {
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        f[2 * e] = __uint_as_float(w[e] << 16);
-        f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+        v[i] = r < M && e < K ? load8_once(xr + e) : zero8<T>();
       }
     };
     // CHUNKED: row r's statistics into local row lr of s_x and of the
@@ -270,14 +322,14 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
     // (modulated) values. Sums and maxima in 8 partial values a lane.
     auto row_stats = [&](int r, int lr) {
       const bool live = r < M;  // warp-uniform
-      const bf16* xr = row_ptr(r);
+      const T* xr = row_ptr(r);
       float mean = 0.f, rstd = 1.f, part[8], f[8];
       if (ADALN && live) {
 #pragma unroll
         for (int e = 0; e < 8; ++e) part[e] = 0.f;
 #pragma unroll 4
         for (int e0 = lane * 8; e0 < K; e0 += 256) {
-          unpack(ld_once16(xr + e0), f);
+          unpack(load8_once(xr + e0), f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) part[e] += f[e];
         }
@@ -287,7 +339,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
         for (int e = 0; e < 8; ++e) part[e] = 0.f;
 #pragma unroll 4
         for (int e0 = lane * 8; e0 < K; e0 += 256) {
-          unpack(ld_once16(xr + e0), f);
+          unpack(load8_once(xr + e0), f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) {
             const float d = f[e] - mean;
@@ -304,7 +356,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
         const size_t cb = ADALN ? (size_t)(r / n_tok) * K : 0;
 #pragma unroll 2
         for (int e0 = lane * 8; e0 < K; e0 += 256) {
-          unpack(ld_once16(xr + e0), f);
+          unpack(load8_once(xr + e0), f);
           if constexpr (ADALN) {
             const float4* c4 = reinterpret_cast<const float4*>(scale + cb + e0);
             const float4* h4 = reinterpret_cast<const float4*>(shift + cb + e0);
@@ -333,7 +385,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
     // flight); sums and maxima in 8 partial values a lane. CHUNKED takes the
     // row's statistics from row_stats.
     auto quantize_row = [&](int r, int lr, int k0, int ktiles,
-                            const uint4 (&v)[CHUNKS]) {
+                            const Raw8<T> (&v)[CHUNKS]) {
       const bool live = r < M;  // warp-uniform
       float mean = 0.f, rstd = 1.f, part[8];
       const float* sc_r = scale;
@@ -449,7 +501,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
     // last row's arithmetic; then handed over to both consumers' wgmmas
     auto prologue = [&](int m0, int k0, int ktiles) {
       const int lr0 = cw * ROWS_PER_WARP;
-      uint4 buf[2][CHUNKS];
+      Raw8<T> buf[2][CHUNKS];
       load_row(m0 + lr0, k0, buf[0]);
 #pragma unroll 1
       for (int i0 = 0; i0 < ROWS_PER_WARP; i0 += 2) {
@@ -507,7 +559,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
                         int m0, int p, int col0, bool has) {
       constexpr int W = decltype(width)::value;
       constexpr int BOXES = W / 64;
-      if (has && tid == 0) {
+      if (!F32 && has && tid == 0) {
         bulk_wait_read<0>();  // the last tile's store has read the tile
         if (residual) {
           mbar_arrive_expect_tx(res_bar(c), BOXES * OUT_BOX);
@@ -541,6 +593,37 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
       // epilogue: (acc * s_x) * s_w [* gate] [+ res], each rounded on its
       // own, bf16, into the output tile (row lr, 16-byte chunk j of box bx
       // at chunk j ^ (lr % 8); lr % 8 = g)
+      if constexpr (F32) {
+        // fp32: from registers into device memory, the residual read there
+        T* __restrict__ op = outs.o[p];
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int lr = warp * 16 + g + 8 * hr, row = m0 + lr;
+          if (row >= M) continue;
+          const float sxr = sx_s[lr];
+          const float* __restrict__ gr = gate + (size_t)(row / n_tok) * N;
+#pragma unroll
+          for (int j = 0; j < W / 8; ++j) {
+            const int col = col0 + j * 8 + t4 * 2;
+            if (col >= N) continue;  // N is even: col + 1 < N too
+            float y0 = __fmul_rn(__fmul_rn((float)d[4 * j + 2 * hr], sxr), swc[j].x);
+            float y1 = __fmul_rn(__fmul_rn((float)d[4 * j + 2 * hr + 1], sxr), swc[j].y);
+            if (gated) {
+              const float2 gv = *reinterpret_cast<const float2*>(gr + col);
+              y0 = __fmul_rn(y0, gv.x);
+              y1 = __fmul_rn(y1, gv.y);
+            }
+            if (residual) {
+              const float2 rv = *reinterpret_cast<const float2*>(
+                  outs.res + (size_t)row * N + col);
+              y0 = __fadd_rn(y0, rv.x);
+              y1 = __fadd_rn(y1, rv.y);
+            }
+            *reinterpret_cast<float2*>(op + (size_t)row * N + col) = make_float2(y0, y1);
+          }
+        }
+        return;
+      }
       named_bar_sync(OWN + c, WG);  // thread 0 saw the last store's reads end
       if (residual) mbar_wait(res_bar(c), tiles & 1);
       ++tiles;
@@ -620,7 +703,7 @@ dense_sm90_kernel(const __grid_constant__ CUtensorMap tm_w0,
 // or the CUresult of a tensor-map encode). Spans: as many as fill the SMs
 // with items, at most one per pair of column tiles; for K past K_CHUNK, one
 // per pair of column tiles.
-template <int V>
+template <int V, typename T>
 int launch_dense(const void* x, long long sample_stride, const void* shift,
                  const void* scale, const void* const (&w)[3],
                  const Scales& sc_w, void* const (&out)[3], int n_proj,
@@ -630,7 +713,8 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
   if (K % 16 != 0 || N % 8 != 0 || n_tok <= 0)
     return (int)cudaErrorInvalidValue;
   const bool chunked = K > K_CHUNK;
-  auto kern = chunked ? dense_sm90_kernel<V, true> : dense_sm90_kernel<V, false>;
+  auto kern = chunked ? dense_sm90_kernel<V, true, T> : dense_sm90_kernel<V, false, T>;
+  constexpr bool F32 = std::is_same<T, float>::value;
   CUtensorMap tw[3], to[3], tr;
   int dev = 0, sms = 0;
   int e = (int)cudaFuncSetAttribute(
@@ -640,15 +724,20 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   for (int p = 0; p < n_proj && e == 0; ++p) {
     e = encode_s8_2d(&tw[p], w[p], N, K, TN);
-    if (e == 0) e = encode_bf16_2d(&to[p], out[p], M, N, BM);
+    if (e == 0 && !F32) e = encode_bf16_2d(&to[p], out[p], M, N, BM);
   }
-  if (e == 0 && residual) e = encode_bf16_2d(&tr, res, M, N, BM);
+  if (e == 0 && residual && !F32) e = encode_bf16_2d(&tr, res, M, N, BM);
   if (e != 0) return e;
+  if (F32) to[0] = tw[0];  // unused
   for (int p = n_proj; p < 3; ++p) {
     tw[p] = tw[0];
     to[p] = to[0];
   }
-  if (!residual) tr = to[0];
+  if (F32) to[1] = to[2] = to[0];
+  if (!residual || F32) tr = to[0];
+  const Outs<T> outs = {{static_cast<T*>(out[0]), static_cast<T*>(out[1]),
+                         static_cast<T*>(out[2])},
+                        static_cast<const T*>(res)};
   const int n_rb = (M + BM - 1) / BM;
   const int n_tiles = n_proj * ((N + TN - 1) / TN);
   const int most = n_tiles / CONSUMERS > 1 ? n_tiles / CONSUMERS : 1;
@@ -658,10 +747,10 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
   const int items = n_rb * spans;
   kern<<<items < sms ? items : sms, THREADS, SMEM_BYTES, st>>>(
       tw[0], tw[1], tw[2], to[0], to[1], to[2], tr,
-      static_cast<const bf16*>(x), sample_stride,
+      static_cast<const T*>(x), sample_stride,
       static_cast<const float*>(shift), static_cast<const float*>(scale), sc_w,
-      static_cast<const float*>(gate), M, K, N, n_tok, n_proj, spans, gated,
-      residual);
+      static_cast<const float*>(gate), outs, M, K, N, n_tok, n_proj, spans,
+      gated, residual);
   return (int)cudaGetLastError();
 }
 
@@ -672,20 +761,32 @@ int launch_dense(const void* x, long long sample_stride, const void* shift,
 // (M, N) bf16. K a multiple of 16, N a multiple of 8;
 // all pointers 16-byte aligned. Returns 0, or the first error: a
 // cudaError_t of the launch or the CUresult of a tensor-map encode.
-extern "C" int sd3_qkv_adaln_int8(const void* x, const void* shift,
-                                  const void* scale, const void* wq,
-                                  const void* wk, const void* wv,
-                                  const void* sq, const void* sk,
-                                  const void* sv, void* q, void* k, void* v,
-                                  int M, int K, int N, int n_tok,
-                                  void* stream) {
+#define SD3_QKV_PARAMS                                                        \
+  const void *x, const void *shift, const void *scale, const void *wq,       \
+      const void *wk, const void *wv, const void *sq, const void *sk,        \
+      const void *sv, void *q, void *k, void *v, int M, int K, int N,        \
+      int n_tok, void *stream
+
+template <typename T>
+int qkv(SD3_QKV_PARAMS) {
   const void* const w[3] = {wq, wk, wv};
   void* const out[3] = {q, k, v};
   const Scales s = {{static_cast<const float*>(sq), static_cast<const float*>(sk),
                      static_cast<const float*>(sv)}};
-  return launch_dense<V_K10A>(x, (long long)n_tok * K, shift, scale, w, s,
-                              out, 3, nullptr, nullptr, M, K, N, n_tok, 0, 0,
-                              static_cast<cudaStream_t>(stream));
+  return launch_dense<V_K10A, T>(x, (long long)n_tok * K, shift, scale, w, s,
+                                 out, 3, nullptr, nullptr, M, K, N, n_tok, 0,
+                                 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sd3_qkv_adaln_int8(SD3_QKV_PARAMS) {
+  return qkv<bf16>(x, shift, scale, wq, wk, wv, sq, sk, sv, q, k, v, M, K, N,
+                   n_tok, stream);
+}
+
+// K10a on fp32: x, q, k, v fp32
+extern "C" int sd3_qkv_adaln_int8_fp32(SD3_QKV_PARAMS) {
+  return qkv<float>(x, shift, scale, wq, wk, wv, sq, sk, sv, q, k, v, M, K, N,
+                    n_tok, stream);
 }
 
 // K10b. a: M = B * n_tok rows of K bf16, row r at a + (r / n_tok) *
@@ -693,16 +794,29 @@ extern "C" int sd3_qkv_adaln_int8(const void* x, const void* shift,
 // 16-byte aligned); gate: (B, N) fp32 (read when gated); res: (M, N) bf16
 // (read when residual); w: (N, K) int8 with s (N) fp32. out: (M, N) bf16. K
 // a multiple of 16, N a multiple of 8; all pointers 16-byte aligned. Returns 0, or the first error, as K10a.
-extern "C" int sd3_out_gate_residual_int8(const void* a, long long sample_stride,
-                                          const void* gate, const void* res,
-                                          const void* w, const void* s,
-                                          void* out, int M, int K, int N,
-                                          int n_tok, int gated, int residual,
-                                          void* stream) {
+#define SD3_OUT_PARAMS                                                        \
+  const void *a, long long sample_stride, const void *gate, const void *res, \
+      const void *w, const void *s, void *out, int M, int K, int N,          \
+      int n_tok, int gated, int residual, void *stream
+
+template <typename T>
+int out_gate_residual(SD3_OUT_PARAMS) {
   const void* const ws[3] = {w, nullptr, nullptr};
   void* const outs[3] = {out, nullptr, nullptr};
   const Scales sc = {{static_cast<const float*>(s), nullptr, nullptr}};
-  return launch_dense<V_K10B>(a, sample_stride, nullptr, nullptr, ws, sc,
-                              outs, 1, gate, res, M, K, N, n_tok, gated,
-                              residual, static_cast<cudaStream_t>(stream));
+  return launch_dense<V_K10B, T>(a, sample_stride, nullptr, nullptr, ws, sc,
+                                 outs, 1, gate, res, M, K, N, n_tok, gated,
+                                 residual, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sd3_out_gate_residual_int8(SD3_OUT_PARAMS) {
+  return out_gate_residual<bf16>(a, sample_stride, gate, res, w, s, out, M, K,
+                                 N, n_tok, gated, residual, stream);
+}
+
+// K10b on fp32: a, res, out fp32 (a and sample_stride * 4 bytes 16-byte
+// aligned)
+extern "C" int sd3_out_gate_residual_int8_fp32(SD3_OUT_PARAMS) {
+  return out_gate_residual<float>(a, sample_stride, gate, res, w, s, out, M,
+                                  K, N, n_tok, gated, residual, stream);
 }

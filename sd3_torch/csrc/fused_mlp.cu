@@ -17,7 +17,12 @@
 //   h   = silu(x1) * x2
 //   hq  = round(h / s_h), s_h = max(|h|, 1e-8) / 127  per (row, h_group chunk)
 //   y   = sum over chunks g of (hq_g . w3q_g[c]) * s_h[g] * s3[c], + b3[c]
-//   out = x + gate[b] * y (K2, K9 with residual) or y, in bf16.
+//   out = x + gate[b] * y (K2, K9 with residual) or y, in x's dtype.
+// x is bf16, or fp32 in the fp32 instances (the JAX package's `--dtype
+// float32 --quant int8`: its kernels quantize the fp32 rows as they are):
+// the prologue reads and the epilogue reads and writes the element type T
+// (a template parameter of xquant_kernel and w3_sm90_kernel); the
+// quantization and every product are the same.
 // h_group is part of the numerics: it is the TPU kernel's hidden-chunk width
 // (ops/fused_mlp.py: pick_tail_blocks, pick_block_chunk and pick_blocks
 // choose it as the JAX package does), because every chunk of h gets its own
@@ -94,6 +99,8 @@
 // 311 KB, more than a CTA's 227 KB of shared memory and more than its
 // registers. hq's round trip is 40 MB written and read at the image stream,
 // ~0.024 ms at 3.35 TB/s.
+
+#include <type_traits>
 
 #include "int8_common.cuh"
 #include "sm90.cuh"
@@ -419,13 +426,13 @@ constexpr int W3_BYTES = W3_BAR + 2 * W3_STAGES * 8 + 1024;
 // (d_out, hidden), boxes of 128 rows. (Persistent CTAs, the producer
 // loading the next tile under an epilogue, ran no faster: the products
 // wait on the L2's bandwidth, not on a CTA's start.)
-template <int HG, int V>
+template <int HG, int V, typename T = bf16>
 __global__ void __launch_bounds__(MLP_THREADS, 1)
 w3_sm90_kernel(const __grid_constant__ CUtensorMap tm_h,
                const __grid_constant__ CUtensorMap tm_w3,
                const float* __restrict__ s_h, const float* __restrict__ s3,
-               const float* __restrict__ b3, const bf16* __restrict__ x,
-               const float* __restrict__ gate, bf16* __restrict__ out, int M,
+               const float* __restrict__ b3, const T* __restrict__ x,
+               const float* __restrict__ gate, T* __restrict__ out, int M,
                int hidden, int d_out, int n_tok, int residual_arg) {
   constexpr int TPG = HG / KT;  // tiles per h_group chunk
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -515,7 +522,7 @@ w3_sm90_kernel(const __grid_constant__ CUtensorMap tm_h,
                              s3c[2 * j + (e & 1)];
     }
 
-    // epilogue: + b3; with the residual x + gate * y; bf16 out
+    // epilogue: + b3; with the residual x + gate * y; out in T
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = hr ? r1 : r0;
@@ -527,14 +534,23 @@ w3_sm90_kernel(const __grid_constant__ CUtensorMap tm_h,
         if (col >= d_out) continue;  // d_out is even: col + 1 < d_out too
         float y0 = accf[4 * j + 2 * hr] + b3[col];
         float y1 = accf[4 * j + 2 * hr + 1] + b3[col + 1];
-        if (residual) {
-          const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              x + (size_t)row * d_out + col));
-          y0 = xr.x + gate[samp * d_out + col] * y0;
-          y1 = xr.y + gate[samp * d_out + col + 1] * y1;
+        if constexpr (std::is_same<T, float>::value) {
+          if (residual) {
+            const float2 xr = *reinterpret_cast<const float2*>(x + (size_t)row * d_out + col);
+            y0 = xr.x + gate[samp * d_out + col] * y0;
+            y1 = xr.y + gate[samp * d_out + col + 1] * y1;
+          }
+          *reinterpret_cast<float2*>(out + (size_t)row * d_out + col) = make_float2(y0, y1);
+        } else {
+          if (residual) {
+            const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                x + (size_t)row * d_out + col));
+            y0 = xr.x + gate[samp * d_out + col] * y0;
+            y1 = xr.y + gate[samp * d_out + col + 1] * y1;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * d_out + col) =
+              __floats2bfloat162_rn(y0, y1);
         }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * d_out + col) =
-            __floats2bfloat162_rn(y0, y1);
       }
     }
   }
@@ -543,7 +559,7 @@ w3_sm90_kernel(const __grid_constant__ CUtensorMap tm_h,
 // The four tensor maps, then the three launches; the first error. The
 // shared-memory opt-ins come first (a runtime call makes the device's
 // context current on this thread before the maps' encode, a driver call).
-template <int HG, int V>
+template <int HG, int V, typename T>
 int launch(const void* x, const void* shift, const void* scale,
            const void* gate, const void* w12, const void* s12, const void* b12,
            const void* w3, const void* s3, const void* b3, void* xq, void* sx,
@@ -551,7 +567,7 @@ int launch(const void* x, const void* shift, const void* scale,
            int d_out, int n_tok, int adaln, int residual, cudaStream_t st) {
   using C = HCfg<HG>;
   auto hk = swiglu_h_sm90_kernel<HG, V>;
-  auto wk = w3_sm90_kernel<HG, V>;
+  auto wk = w3_sm90_kernel<HG, V, T>;
   CUtensorMap tm_x, tm_w12, tm_h, tm_w3;
   int dev = 0, sms = 0;
   int e = (int)cudaFuncSetAttribute(
@@ -567,7 +583,7 @@ int launch(const void* x, const void* shift, const void* scale,
   if (e == 0) e = encode_s8_2d(&tm_h, hq, M, hidden, W3_BM);
   if (e == 0) e = encode_s8_2d(&tm_w3, w3, d_out, hidden, W3_BN);
   if (e == 0)
-    e = launch_xquant<V>(x, (long long)n_tok * K, shift, scale, xq, sx, M, K,
+    e = launch_xquant<V, T>(x, (long long)n_tok * K, shift, scale, xq, sx, M, K,
                          n_tok, adaln, st);
   if (e != 0) return e;
 
@@ -583,23 +599,23 @@ int launch(const void* x, const void* shift, const void* scale,
        MLP_THREADS, W3_BYTES, st>>>(
       tm_h, tm_w3, static_cast<const float*>(s_h),
       static_cast<const float*>(s3), static_cast<const float*>(b3),
-      static_cast<const bf16*>(x), static_cast<const float*>(gate),
-      static_cast<bf16*>(out), M, hidden, d_out, n_tok, residual);
+      static_cast<const T*>(x), static_cast<const float*>(gate),
+      static_cast<T*>(out), M, hidden, d_out, n_tok, residual);
   return (int)cudaGetLastError();
 }
 
-// x: (M, K) bf16; shift, scale: (M / n_tok, K) fp32 (read when adaln);
+// x: (M, K) of T (bf16, or fp32 in the `_fp32` entry points); shift, scale: (M / n_tok, K) fp32 (read when adaln);
 // gate: (M / n_tok, d_out) fp32 (read when residual, which needs
 // d_out == K); w12: (2 * hidden, K) int8 with s12, b12 (2 * hidden) fp32;
 // w3: (d_out, hidden) int8 with s3, b3 (d_out) fp32. Scratch: xq (M, K)
 // int8, sx (M) fp32, hq (M, hidden) int8, s_h (M, hidden / h_group) fp32.
-// out: (M, d_out) bf16. K and d_out multiples of 16, hidden a multiple of
+// out: (M, d_out) of T. K and d_out multiples of 16, hidden a multiple of
 // h_group, h_group one of 128, 256, 512; all pointers 16-byte aligned.
 // Returns 0, or the first error: a cudaError_t of a launch or the CUresult
 // of a tensor-map encode.
 // sd3_swiglu_int8_tail is K2 and sd3_swiglu_int8_tail3d K9 (AdaLN and
 // gate + residual as flagged); sd3_swiglu_int8 is K3 (both flags ignored).
-template <int V>
+template <int V, typename T>
 int dispatch(const void* x, const void* shift, const void* scale,
              const void* gate, const void* w12, const void* s12,
              const void* b12, const void* w3, const void* s3, const void* b3,
@@ -608,9 +624,9 @@ int dispatch(const void* x, const void* shift, const void* scale,
              int residual, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (h_group) {
-    case 128: return launch<128, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
-    case 256: return launch<256, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
-    case 512: return launch<512, V>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 128: return launch<128, V, T>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 256: return launch<256, V, T>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
+    case 512: return launch<512, V, T>(x, shift, scale, gate, w12, s12, b12, w3, s3, b3, xq, sx, hq, s_h, out, M, K, hidden, d_out, n_tok, adaln, residual, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -628,14 +644,28 @@ int dispatch(const void* x, const void* shift, const void* scale,
       K, hidden, d_out, n_tok, h_group, adaln, residual, stream
 
 extern "C" int sd3_swiglu_int8_tail(SD3_SWIGLU_ARGS) {
-  return dispatch<V_K2>(SD3_SWIGLU_PASS);
+  return dispatch<V_K2, bf16>(SD3_SWIGLU_PASS);
 }
 
 extern "C" int sd3_swiglu_int8_tail3d(SD3_SWIGLU_ARGS) {
-  return dispatch<V_K9>(SD3_SWIGLU_PASS);
+  return dispatch<V_K9, bf16>(SD3_SWIGLU_PASS);
 }
 
 extern "C" int sd3_swiglu_int8(SD3_SWIGLU_ARGS) {
   adaln = residual = 0;
-  return dispatch<V_K3>(SD3_SWIGLU_PASS);
+  return dispatch<V_K3, bf16>(SD3_SWIGLU_PASS);
+}
+
+// the fp32 instances: x and out fp32
+extern "C" int sd3_swiglu_int8_tail_fp32(SD3_SWIGLU_ARGS) {
+  return dispatch<V_K2, float>(SD3_SWIGLU_PASS);
+}
+
+extern "C" int sd3_swiglu_int8_tail3d_fp32(SD3_SWIGLU_ARGS) {
+  return dispatch<V_K9, float>(SD3_SWIGLU_PASS);
+}
+
+extern "C" int sd3_swiglu_int8_fp32(SD3_SWIGLU_ARGS) {
+  adaln = residual = 0;
+  return dispatch<V_K3, float>(SD3_SWIGLU_PASS);
 }

@@ -40,10 +40,14 @@ __device__ __forceinline__ int quant8(float v, float s) {
 // fp32; then xq = round(xf / s_x), s_x = max(|xf|, 1e-8) / 127 -> xq (M, K)
 // int8, sx (M) fp32. Row r of x starts at x + (r / n_tok) * sample_stride +
 // (r % n_tok) * K, so a per-sample slice of a longer sequence is read in
-// place. grid ceil(M / 8), ROW_THREADS threads.
-template <int V>
+// place. x is of T: bf16, or fp32 (the fp32 instances of K2, K3, K9).
+// grid ceil(M / 8), ROW_THREADS threads.
+__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+template <int V, typename T = bf16>
 __global__ void __launch_bounds__(ROW_THREADS)
-xquant_kernel(const bf16* __restrict__ x, long long sample_stride,
+xquant_kernel(const T* __restrict__ x, long long sample_stride,
               const float* __restrict__ shift, const float* __restrict__ scale,
               int8_t* __restrict__ xq, float* __restrict__ sx, int M, int K,
               int n_tok, int adaln) {
@@ -51,17 +55,17 @@ xquant_kernel(const bf16* __restrict__ x, long long sample_stride,
   const int row = blockIdx.x * (ROW_THREADS / 32) + (threadIdx.x >> 5);
   if (row >= M) return;  // the whole warp leaves together
   const size_t b = row / n_tok;
-  const bf16* xr = x + b * sample_stride + (size_t)(row % n_tok) * K;
+  const T* xr = x + b * sample_stride + (size_t)(row % n_tok) * K;
   float mean = 0.f, rstd = 1.f;
   const float* sh = shift;
   const float* sc = scale;
   if (adaln) {
     float s = 0.f;
-    for (int j = lane; j < K; j += 32) s += __bfloat162float(xr[j]);
+    for (int j = lane; j < K; j += 32) s += to_float(xr[j]);
     mean = warp_sum(s) / K;
     float v = 0.f;
     for (int j = lane; j < K; j += 32) {
-      const float d = __bfloat162float(xr[j]) - mean;
+      const float d = to_float(xr[j]) - mean;
       v += d * d;
     }
     rstd = rsqrtf(warp_sum(v) / K + LN_EPS);
@@ -69,7 +73,7 @@ xquant_kernel(const bf16* __restrict__ x, long long sample_stride,
     sc += b * K;
   }
   auto val = [&](int j) {
-    float f = __bfloat162float(xr[j]);
+    float f = to_float(xr[j]);
     if (adaln) f = (f - mean) * rstd * (1.f + sc[j]) + sh[j];
     return f;
   };
@@ -81,13 +85,13 @@ xquant_kernel(const bf16* __restrict__ x, long long sample_stride,
   if (lane == 0) sx[row] = s;
 }
 
-template <int V>
+template <int V, typename T = bf16>
 int launch_xquant(const void* x, long long sample_stride, const void* shift,
                   const void* scale, void* xq, void* sx, int M, int K,
                   int n_tok, int adaln, cudaStream_t st) {
-  xquant_kernel<V><<<(M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32),
-                     ROW_THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), sample_stride,
+  xquant_kernel<V, T><<<(M + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32),
+                        ROW_THREADS, 0, st>>>(
+      static_cast<const T*>(x), sample_stride,
       static_cast<const float*>(shift), static_cast<const float*>(scale),
       static_cast<int8_t*>(xq), static_cast<float*>(sx), M, K, n_tok, adaln);
   return (int)cudaGetLastError();

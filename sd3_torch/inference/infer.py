@@ -1,14 +1,17 @@
 """Text-to-image inference CLI (JAX counterpart: sd3_tpu/inference/infer.py).
 
 Example:
-  python -m sd3_torch.inference.infer --loadDir ckpts/run \
-      --torch_ckpt model_1000s.pkl --loadDefFile model_params_1000s.json \
+  python -m sd3_torch.inference.infer --loadDir ckpts/run --step 1000 \
       --text_input "a red fox" --num_steps 20 --guidance 5 --width 512 \
       --height 512 --sampler euler --seed 7 --stub_encoders --out_imgname fig
 
-Loads a reference torch checkpoint (`--torch_ckpt` state_dict with the
-`--loadDefFile` params JSON) and samples on `--device` (default cuda; it
-raises when no GPU is there rather than run on the CPU). `--stub_encoders`
+Loads a native checkpoint of either package (`--step N`: model_params_Ns.json
+and model_Ns.msgpack, or with `--ema` model_ema_Ns.msgpack;
+`training/checkpoint.py`) or a reference torch checkpoint (`--torch_ckpt`
+state_dict with the `--loadDefFile` params JSON), and samples on `--device`
+(default cuda; it raises when no GPU is there rather than run on the CPU).
+`--gif` also writes `<out_imgname>_diffusion.gif`, the first sample decoded
+after every step, at `--gif_fps`. `--stub_encoders`
 runs with the deterministic stub conditioning stack. `--quant int8` serves
 with w8a8 projections and the int8 kernels: the float checkpoint is loaded,
 quantized (`--quant_skip` names stay float), cast, then moved to the
@@ -18,9 +21,8 @@ SD3_INT8_PV=1. The int8 block tails follow the JAX package's other opt-in
 flags, as the config fields of the same names: `--attn_tail
 {none,all,qkv,out}` (SD3_ATTN_TAIL: K10a / K10b), `--mlp_tail_fusion
 {2d,3d}` (SD3_MLP_TAIL_FUSION: K9 under 3d), `--no_mlp_tail`
-(SD3_NO_MLP_TAIL=1) and `--no_fused_mlp` (SD3_NO_FUSED_MLP=1). Native
-msgpack checkpoints and `--gif` come with later slices of the port and raise
-NotImplementedError.
+(SD3_NO_MLP_TAIL=1) and `--no_fused_mlp` (SD3_NO_FUSED_MLP=1). Every
+option works on either kind of checkpoint.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def build_argparser():
     p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--out_imgname", default="fig")
     p.add_argument("--gif", action="store_true",
-                   help="also save the per-step diffusion gif (not ported)")
+                   help="also save the per-step diffusion gif")
     p.add_argument("--gif_fps", type=int, default=10)
     p.add_argument("--stub_encoders", action="store_true")
     p.add_argument("--ema", action="store_true",
@@ -95,30 +97,25 @@ def build_argparser():
     return p
 
 
-def load_model(args, device):
-    """(model, cfg) from a reference checkpoint, on `device`, parameters in
-    the compute dtype; quantized first under --quant int8."""
+def load_state(args):
+    """(cfg, state_dict) of the checkpoint the flags name: a native one
+    (`--step`, `--ema`) or a reference torch pickle (`--torch_ckpt`)."""
     import torch
-    from sd3_torch import torch_dtype
     from sd3_torch.config import MMDiTConfig
-    from sd3_torch.models.mmdit import MMDiT
-    from sd3_torch.ops.quant import quantize_model
-    from sd3_torch.weights import load_reference_state_dict
+    from sd3_torch.training import checkpoint as ckpt
+    from sd3_torch.weights import state_dict_from_jax
 
     if not args.torch_ckpt:
-        raise NotImplementedError(
-            "native msgpack checkpoints are not ported yet: ROADMAP.md, port "
-            "queue, 'checkpoints'; pass --torch_ckpt and --loadDefFile")
+        if args.step is None:
+            raise ValueError("--step is required for native checkpoints")
+        cfg = ckpt.load_config(args.loadDir, f"model_params_{args.step}s.json")
+        name = f"{'model_ema' if args.ema else 'model'}_{args.step}s.msgpack"
+        return cfg, state_dict_from_jax(ckpt.load_artifact(args.loadDir, name),
+                                        cfg.patch_size)
     if not args.loadDefFile:
         raise ValueError("--loadDefFile is required with --torch_ckpt")
     with open(os.path.join(args.loadDir, args.loadDefFile)) as f:
         cfg = MMDiTConfig.from_json_dict(json.load(f))
-    if args.dtype != "checkpoint":
-        cfg = cfg.replace(dtype=args.dtype)
-    cfg = cfg.replace(int8_pv=args.int8_pv, attn_tail=args.attn_tail,
-                      mlp_tail_fusion=args.mlp_tail_fusion,
-                      mlp_tail=not args.no_mlp_tail,
-                      fused_mlp=not args.no_fused_mlp)
     path = os.path.join(args.loadDir, args.torch_ckpt)
     try:
         sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -129,6 +126,25 @@ def load_model(args, device):
                 f"(weights_only load failed: {e}); re-run with "
                 "--allow_unsafe_pickle only if you trust its origin") from e
         sd = torch.load(path, map_location="cpu", weights_only=False)
+    return cfg, sd
+
+
+def load_model(args, device):
+    """(model, cfg) from the checkpoint the flags name (`load_state`), on
+    `device`, parameters in the compute dtype; quantized first under
+    --quant int8."""
+    from sd3_torch import torch_dtype
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.ops.quant import quantize_model
+    from sd3_torch.weights import load_reference_state_dict
+
+    cfg, sd = load_state(args)
+    if args.dtype != "checkpoint":
+        cfg = cfg.replace(dtype=args.dtype)
+    cfg = cfg.replace(int8_pv=args.int8_pv, attn_tail=args.attn_tail,
+                      mlp_tail_fusion=args.mlp_tail_fusion,
+                      mlp_tail=not args.no_mlp_tail,
+                      fused_mlp=not args.no_fused_mlp)
     model = MMDiT(cfg, device="cpu")  # load on the host, then move
     load_reference_state_dict(model, sd)
     if args.quant == "int8":
@@ -156,10 +172,8 @@ def main(argv=None):
     for flag, given in int8_only.items():
         if given and args.quant != "int8":
             parser.error(f"--{flag} needs --quant int8")
-    if args.gif:
-        raise NotImplementedError(
-            "--gif (per-step decodes) is not ported yet: ROADMAP.md, port "
-            "queue, 'GIF path'")
+    if args.gif and args.save_latents:
+        parser.error("--save_latents and --gif are exclusive")
     import torch
     from sd3_torch import resolve_device
     from sd3_torch.inference.sampler import sample_imgs
@@ -178,7 +192,9 @@ def main(argv=None):
 
     lat = sample_imgs(model, encoders, args.batch_size, args.num_steps,
                       args.text_input, args.guidance, args.width, args.height,
-                      args.sampler, generator=gen, decode=False)
+                      args.sampler, generator=gen, decode=False,
+                      save_intermediate=args.gif)
+    lat, frames = lat if args.gif else (lat, None)
     if args.save_latents:
         np.save(args.save_latents, lat.float().cpu().numpy())
         print(f"wrote {args.save_latents}")
@@ -186,6 +202,15 @@ def main(argv=None):
     for i, img in enumerate(out):
         save_png(img, f"{args.out_imgname}_{i}.png")
         print(f"wrote {args.out_imgname}_{i}.png")
+    if frames:
+        from PIL import Image
+        images = [Image.fromarray(np.clip(
+            (f[0].float().cpu().numpy().transpose(1, 2, 0) + 1) / 2 * 255,
+            0, 255).astype(np.uint8)) for f in frames]
+        images[0].save(f"{args.out_imgname}_diffusion.gif", save_all=True,
+                       append_images=images[1:],
+                       duration=1000 // args.gif_fps, loop=0)
+        print(f"wrote {args.out_imgname}_diffusion.gif")
 
 
 if __name__ == "__main__":

@@ -47,11 +47,13 @@ def make_velocity_fn(model, text_hidden: torch.Tensor,
 def sample_latents(velocity_fn: Callable, x_init: torch.Tensor, num_steps: int,
                    cfg_scale: float, sampler: str = "euler",
                    dynamic_cfg: bool = False, noise: torch.Tensor | None = None,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None,
+                   on_step: Callable | None = None) -> torch.Tensor:
     """Run the flow ODE/SDE from t=1 noise to t~0 latents (fp32).
 
     euler_stochastic draws its per-step noise from `noise` (num_steps, *x
-    shape) if given, else from `generator` (on any device)."""
+    shape) if given, else from `generator` (on any device). `on_step(x)`,
+    when given, sees the latents after every step."""
     if sampler not in SAMPLERS:
         raise ValueError(f"sampler must be one of {SAMPLERS}, got {sampler!r}")
     timesteps = torch.linspace(1.0, 1.0 / num_steps, num_steps,
@@ -75,6 +77,8 @@ def sample_latents(velocity_fn: Callable, x_init: torch.Tensor, num_steps: int,
         else:  # heun
             v2 = velocity_fn(x - v * dt, t - dt, w)
             x = x - (dt / 2.0) * (v + v2)
+        if on_step is not None:
+            on_step(x)
     return x
 
 
@@ -82,11 +86,14 @@ def sample_imgs(model, text_encoders, batch_size: int, num_steps: int,
                 text_input, cfg_scale: float = 0.0, width: int = 256,
                 height: int = 256, sampler: str = "euler",
                 generator: torch.Generator | None = None,
-                x_init: torch.Tensor | None = None, decode: bool = True):
-    """End-to-end text -> image sampling (reference sample_imgs API), without
-    the per-step GIF path. The initial latents are `x_init` or drawn from
-    `generator` (default: a CPU generator seeded 0) and moved to the
-    model's device."""
+                x_init: torch.Tensor | None = None, decode: bool = True,
+                save_intermediate: bool = False):
+    """End-to-end text -> image sampling (reference sample_imgs API). The
+    initial latents are `x_init` or drawn from `generator` (default: a CPU
+    generator seeded 0) and moved to the model's device. With
+    `save_intermediate` (the GIF path) it returns (images or latents, the
+    decode of the first sample after every step), as the JAX package's
+    stepwise loop does."""
     device = next(model.parameters()).device
     if x_init is None:
         if generator is None:
@@ -100,6 +107,10 @@ def sample_imgs(model, text_encoders, batch_size: int, num_steps: int,
         text_hidden = text_hidden.repeat(batch_size, 1, 1)
         text_pooled = text_pooled.repeat(batch_size, 1)
     vel = make_velocity_fn(model, text_hidden.to(device), text_pooled.to(device))
+    frames = []
+    on_step = ((lambda x: frames.append(text_encoders.vae_decode(x[:1])))
+               if save_intermediate else None)
     lat = sample_latents(vel, x_init, num_steps, cfg_scale, sampler,
-                         generator=generator)
-    return text_encoders.vae_decode(lat) if decode else lat
+                         generator=generator, on_step=on_step)
+    out = text_encoders.vae_decode(lat) if decode else lat
+    return (out, frames) if save_intermediate else out

@@ -20,11 +20,16 @@ tensors. fp32 tensors (JAX's fp32 kernels run their products at
 Precision.HIGHEST) take their fp32 instances K5F, K6AF and K6BF
 (`csrc/attention_fp32.cu`: 3xTF32 mma.sync, fp32-accurate products).
 
-The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128).
-Any other head dim up to 128 is zero-padded to the next instance, as the
-JAX wrapper pads D to 128 lanes: q, k, v (and out, dO) padded on D, the
-kernel run with the caller's scale, and out, dq, dk, dv sliced back. Zero
-columns add nothing to the scores, to lse or to delta.
+The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128,
+256). At 256 bf16 tensors take K5W, K6AW and K6BW, the bf16 instances of
+the fp32 kernels (the wgmma kernels stop at 128: one tf32 product of the
+exact bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF,
+K6AWF and K6BWF (the fp32 kernels at 256); both split a block's output
+columns into slices of 128. Any other head dim up to 256 is zero-padded
+to the next instance, as the JAX wrapper pads D to a multiple of 128
+lanes: q, k, v (and out, dO) padded on D, the kernel run with the caller's
+scale, and out, dq, dk, dv sliced back. Zero columns add nothing to the
+scores, to lse or to delta. Past 256 the wrappers raise on CUDA.
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -46,7 +51,7 @@ that way, so the training path makes no copy. Outputs are
 (B, H, N, D) views of (B, N, H, D) buffers, so the caller's (B, N, H*D)
 reshape copies nothing.
 The TPU layout choices (the 8-lane lse, the VMEM budget and the unroll
-knob) have no counterpart here; head dims above 128 are not taken.
+knob) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ import torch
 
 from sd3_torch.kernels import Kernel, check
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instances
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -76,6 +81,26 @@ K6AF = Kernel("flash_attention_dq_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BF = Kernel("flash_attention_dkv_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
+# head dim 256: bf16 (K5W, K6AW, K6BW) and fp32 (the fp32 entry points at
+# 256, counted apart)
+K5W = Kernel("flash_attention_fwd_d256", "attention_fp32.cu",
+             "sd3_flash_attention_fwd_d256", argtypes=_FWD_ARGS)
+K6AW = Kernel("flash_attention_dq_d256", "attention_fp32.cu",
+              "sd3_flash_attention_dq_d256", argtypes=_BWD_ARGS)
+K6BW = Kernel("flash_attention_dkv_d256", "attention_fp32.cu",
+              "sd3_flash_attention_dkv_d256", argtypes=_BWD_ARGS)
+K5WF = Kernel("flash_attention_fwd_fp32_d256", "attention_fp32.cu",
+              "sd3_flash_attention_fwd_fp32", argtypes=_FWD_ARGS)
+K6AWF = Kernel("flash_attention_dq_fp32_d256", "attention_fp32.cu",
+               "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
+K6BWF = Kernel("flash_attention_dkv_fp32_d256", "attention_fp32.cu",
+               "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
+# (bf16, fp32) kernels by instance head dim
+_KERNELS = {
+    "fwd": {"small": (K5, K5F), 256: (K5W, K5WF)},
+    "dq": {"small": (K6A, K6AF), 256: (K6AW, K6AWF)},
+    "dkv": {"small": (K6B, K6BF), 256: (K6BW, K6BWF)},
+}
 
 
 # ---- plain versions ------------------------------------------------------
@@ -167,11 +192,14 @@ def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
     return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
 
 
-def _check_cuda(kerns, *ts) -> Kernel:
-    """The kernel of `kerns` (bf16, fp32) that takes tensors `ts`, checked:
-    one CUDA device, one dtype, one (B, H, N, D) shape, D up to 128."""
+def _check_cuda(which: str, *ts) -> Kernel:
+    """The kernel of `_KERNELS[which]` that takes tensors `ts`, checked:
+    one CUDA device, one dtype (bf16 or fp32), one (B, H, N, D) shape, D up
+    to 256."""
     q = ts[0]
-    kern = kerns[q.dtype == torch.float32]
+    by_dim = _KERNELS[which]
+    dp = instance_dim(q.shape[-1])
+    kern = by_dim[dp if dp in by_dim else "small"][q.dtype == torch.float32]
     if q.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {q.device}")
     for t in ts:
@@ -187,7 +215,6 @@ def _check_cuda(kerns, *ts) -> Kernel:
     if q.ndim != 4:
         raise NotImplementedError(
             f"{kern.name} takes (B, H, N, D); got {tuple(q.shape)}")
-    instance_dim(q.shape[-1])
     return kern
 
 
@@ -217,10 +244,10 @@ def _operands(ts, dp):
 
 
 def flash_fwd(q, k, v, scale: float):
-    """K5 (fp32 tensors: K5F): (out in q's dtype, lse fp32 (B, H, N)); its
-    plain version on the CPU."""
+    """K5 (fp32 tensors: K5F; head dims past 128: K5W / K5WF): (out in q's
+    dtype, lse fp32 (B, H, N)); its plain version on the CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda((K5, K5F), q, k, v)
+        kern = _check_cuda("fwd", q, k, v)
     b, h, n, d = q.shape
     dp = _padded_dim(q)
     q, k, v = _operands((q, k, v), dp)
@@ -234,10 +261,10 @@ def flash_fwd(q, k, v, scale: float):
 
 
 def flash_dq(q, k, v, out, dout, lse, scale: float):
-    """K6a (fp32 tensors: K6AF): (dq, delta fp32 (B, H, N)); its plain
-    version on the CPU."""
+    """K6a (fp32 tensors: K6AF; head dims past 128: K6AW / K6AWF): (dq,
+    delta fp32 (B, H, N)); its plain version on the CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda((K6A, K6AF), q, k, v, out, dout)
+        kern = _check_cuda("dq", q, k, v, out, dout)
     b, h, n, d = q.shape
     dp = _padded_dim(q)
     q, k, v, out, dout = _operands((q, k, v, out, dout), dp)
@@ -253,10 +280,10 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale: float):
-    """K6b (fp32 tensors: K6BF): (dk, dv) from the delta K6a returned; its
-    plain version on the CPU."""
+    """K6b (fp32 tensors: K6BF; head dims past 128: K6BW / K6BWF): (dk, dv)
+    from the delta K6a returned; its plain version on the CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda((K6B, K6BF), q, k, v, dout)
+        kern = _check_cuda("dkv", q, k, v, dout)
     b, h, n, d = q.shape
     dp = _padded_dim(q)
     q, k, v, dout = _operands((q, k, v, dout), dp)

@@ -34,8 +34,12 @@ Streaming, replacing `_stream_fwd_kernel`:
   per tile.
 fp32 q / k / v (the JAX package's `--dtype float32`) take K1F and K7F, the
 fp32 instances of K1 and K7 (`csrc/attention_fp32.cu`: the fp32 prep, then
-3xTF32 mma.sync products, fp32-accurate as JAX's Precision.HIGHEST); the
-int8 kernels take bf16 only.
+3xTF32 mma.sync products, fp32-accurate as JAX's Precision.HIGHEST), and
+under int8 (`--dtype float32 --quant int8`, where the JAX kernels quantize
+the fp32 rows) K4F, K7QF, K8AF and K8BF, the fp32 instances of K4, K7q,
+K8a and K8b (the same source: the fp32 preps quantize the fp32 rows, the
+int8 product on s8 mma.sync, the floating-point one in 3xTF32; p and the
+output in fp32, as the plain versions keep them).
 The CUDA sources' heads say what bounds each kernel on an H100.
 
 Head dims: the kernels have instances at `HEAD_DIMS` (16, 32, 64, 128).
@@ -119,6 +123,18 @@ K8A = Kernel("fused_attention_int8pv", "attention_int8_sm90.cu",
              "sd3_fused_attention_int8pv", argtypes=_INT8_SM90_ARGS)
 K8B = Kernel("fused_attention_stream_int8pv", "attention_int8_sm90.cu",
              "sd3_fused_attention_stream_int8pv", argtypes=_INT8_SM90_ARGS)
+# their fp32 instances (csrc/attention_fp32.cu), the same signature
+K4F = Kernel("fused_attention_int8qk_fp32", "attention_fp32.cu",
+             "sd3_fused_attention_int8qk_fp32", argtypes=_INT8_SM90_ARGS)
+K7QF = Kernel("fused_attention_stream_int8qk_fp32", "attention_fp32.cu",
+              "sd3_fused_attention_stream_int8qk_fp32",
+              argtypes=_INT8_SM90_ARGS)
+K8AF = Kernel("fused_attention_int8pv_fp32", "attention_fp32.cu",
+              "sd3_fused_attention_int8pv_fp32", argtypes=_INT8_SM90_ARGS)
+K8BF = Kernel("fused_attention_stream_int8pv_fp32", "attention_fp32.cu",
+              "sd3_fused_attention_stream_int8pv_fp32",
+              argtypes=_INT8_SM90_ARGS)
+_FP32 = {K1: K1F, K7: K7F, K4: K4F, K7Q: K7QF, K8A: K8AF, K8B: K8BF}
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
 
@@ -381,21 +397,19 @@ def _pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
 
 def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
             num_heads, int8_qk=False):
-    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; K1 and K7 on fp32 q / k / v
-    launch K1F / K7F; for K8a / K8b `int8_qk` picks the scores under the
+    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; on fp32 q / k / v its fp32
+    instance, `_FP32`; for K8a / K8b `int8_qk` picks the scores under the
     int8 P.V); tables already carry scale*log2(e). Head dims of
     PADDED_HEAD_DIMS run at 16, zero-padded. Allocates the outputs and the
     kernels' scratch."""
     b, n, f = q.shape
     d = f // num_heads
-    float_kernel = kern in (K1, K7)
-    if float_kernel and q.dtype == torch.float32:
-        kern = K1F if kern is K1 else K7F
-    dtypes = ((torch.bfloat16, torch.float32) if float_kernel
-              else (torch.bfloat16,))
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in dtypes:
-        raise TypeError(f"{kern.name} takes bfloat16 q/k/v (K1, K7: or "
-                        f"float32), got {q.dtype}/{k.dtype}/{v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise TypeError(f"{kern.name} takes bfloat16 or float32 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype == torch.float32:
+        kern = _FP32[kern]
     if not (k.shape == v.shape == q.shape):
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if not (k.device == v.device == q.device):
@@ -425,16 +439,17 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
         args = [torch.empty_like(q), q_norm, torch.empty_like(k),
                 torch.zeros(bh, dtype=torch.float32, device=dev), out]
     else:
-        # q^ (int8 under int8 scores, else bf16) and its per-row scales;
-        # k^ in bf16 (bf16 scores, and K4's scores: its prep writes it before
-        # quantizing), int8 k^ (int8 scores), k_stat: per (b, h) statistics
-        # of the bf16 prep or K4's amax, or the streaming kernels' per-key k
-        # scales in rows padded to whole key tiles (their tensor map); V's
-        # column amax and its int8 levels (int8 P.V), V^T's keys padded to
-        # whole key tiles (csrc/attention_int8_sm90.cu)
-        int8_qk = kern in (K4, K7Q) or (int8_qk and kern in (K8A, K8B))
-        per_row = int8_qk and kern in (K7Q, K8B)
-        pv8 = kern in (K8A, K8B)
+        # q^ (int8 under int8 scores, else in q's dtype) and its per-row
+        # scales; k^ in k's dtype (float scores, and K4's scores: its prep
+        # writes it before quantizing), int8 k^ (int8 scores), k_stat: per
+        # (b, h) statistics of the float prep or K4's amax, or the streaming
+        # kernels' per-key k scales in rows padded to whole key tiles (their
+        # tensor map); V's column amax and its int8 levels (int8 P.V), V^T's
+        # keys padded to whole key tiles (csrc/attention_int8_sm90.cu)
+        int8_qk = kern in (K4, K7Q, K4F, K7QF) or (
+            int8_qk and kern in (K8A, K8B, K8AF, K8BF))
+        per_row = int8_qk and kern in (K7Q, K8B, K7QF, K8BF)
+        pv8 = kern in (K8A, K8B, K8AF, K8BF)
         tiles = _round_up(n, K8B_KEY_TILE)
         none = torch.empty(0, device=dev)
         k_prep = torch.empty_like(k) if not per_row else none

@@ -30,8 +30,12 @@ The kernels take any k a multiple of 16 and d_out a multiple of 8 (the row
 stride of the outputs' tensor maps). A row of up to `K_CHUNK` values (the
 published width is 1216) is quantized once into the kernel's shared-memory
 A tile; a wider one runs in chunks of `K_CHUNK`, its int8 scale fixed by a
-first pass over the whole row, so the levels are the same. Weights are
-the port's (out, in) int8 with (out,) fp32 scales. Wrappers take the plain
+first pass over the whole row, so the levels are the same. Activations
+are bf16, or fp32 (the JAX package's `--dtype float32 --quant int8`,
+whose kernels quantize the fp32 rows as they are): fp32 tensors take the
+fp32 instances K10AF and K10BF of the same kernel (its prologue reads fp32
+rows, its epilogue writes fp32), outputs in the activations' dtype.
+Weights are the port's (out, in) int8 with (out,) fp32 scales. Wrappers take the plain
 version for tensors on the CPU; on a CUDA tensor they launch the kernel or
 raise. Inference only, as in the JAX package: they raise when an
 input requires grad, on every device.
@@ -52,11 +56,17 @@ TILES = (1024, 512, 256, 128)
 K_CHUNK = 1536            # csrc/fused_dense.cu's K_CHUNK
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_QKV_ARGS = [_P] * 12 + [_I] * 4 + [_P]
+_OUT_ARGS = [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P]
 K10A = Kernel("qkv_adaln_int8", "fused_dense.cu", "sd3_qkv_adaln_int8",
-              [_P] * 12 + [_I] * 4 + [_P])
+              _QKV_ARGS)
 K10B = Kernel("out_gate_residual_int8", "fused_dense.cu",
-              "sd3_out_gate_residual_int8",
-              [_P, ctypes.c_longlong] + [_P] * 5 + [_I] * 6 + [_P])
+              "sd3_out_gate_residual_int8", _OUT_ARGS)
+# the fp32 instances (fp32 activations, outputs and residual)
+K10AF = Kernel("qkv_adaln_int8_fp32", "fused_dense.cu",
+               "sd3_qkv_adaln_int8_fp32", _QKV_ARGS)
+K10BF = Kernel("out_gate_residual_int8_fp32", "fused_dense.cu",
+               "sd3_out_gate_residual_int8_fp32", _OUT_ARGS)
 
 
 def pick_bm(m: int, n_tok: int, vmem_per_row: int, resident: int
@@ -114,16 +124,20 @@ def out_gate_residual_int8_plain(a, gate, res, w, s):
     return y.to(a.dtype).reshape(b, n, -1)
 
 
-def _check_device(kern: Kernel, x: torch.Tensor, *operands) -> None:
+def _check_device(kerns, x: torch.Tensor, *operands) -> Kernel:
+    """The kernel of `kerns` (bf16, fp32) that takes activations x, checked:
+    on CUDA, bf16 or fp32, every operand on x's device."""
+    kern = kerns[x.dtype == torch.float32]
     if x.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{kern.name} takes bfloat16 activations, got "
-                        f"{x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{kern.name} takes bfloat16 or float32 activations, "
+                        f"got {x.dtype}")
     for t in operands:
         if t is not None and t.device != x.device:
             raise ValueError(f"{kern.name}: operands on {t.device} and "
                              f"{x.device}")
+    return kern
 
 
 def _check_weights(kern: Kernel, k: int, ws) -> int:
@@ -146,9 +160,10 @@ def qkv_adaln_int8(x, shift, scale, wq, sq, wk, sk, wv, sv):
     refuse_grad(K10A, x, shift, scale)
     if x.device.type == "cpu":
         return qkv_adaln_int8_plain(x, shift, scale, wq, sq, wk, sk, wv, sv)
-    _check_device(K10A, x, shift, scale, wq, sq, wk, sk, wv, sv)
+    kern = _check_device((K10A, K10AF), x, shift, scale, wq, sq, wk, sk, wv,
+                         sv)
     b, n, k = x.shape
-    d_out = _check_weights(K10A, k, (wq, wk, wv))
+    d_out = _check_weights(kern, k, (wq, wk, wv))
     f32 = lambda t: t.to(torch.float32).contiguous()
     sh, sc = f32(shift), f32(scale)
     if sh.shape != (b, k) or sc.shape != (b, k):
@@ -157,17 +172,17 @@ def qkv_adaln_int8(x, shift, scale, wq, sq, wk, sk, wv, sv):
     ws = [w.contiguous() for w in (wq, wk, wv)]
     ss = [f32(s) for s in (sq, sk, sv)]
     m, dev = b * n, x.device
-    outs = [torch.empty((b, n, d_out), dtype=torch.bfloat16, device=dev)
+    outs = [torch.empty((b, n, d_out), dtype=x.dtype, device=dev)
             for _ in range(3)]
     with torch.cuda.device(dev):
-        fn = K10A.function()
+        fn = kern.function()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), sh.data_ptr(), sc.data_ptr(),
                  *(w.data_ptr() for w in ws), *(s.data_ptr() for s in ss),
                  *(o.data_ptr() for o in outs),
                  m, k, d_out, n, stream)
-    check(K10A, err)
-    K10A.launches += 1
+    check(kern, err)
+    kern.launches += 1
     return tuple(outs)
 
 
@@ -178,32 +193,32 @@ def out_gate_residual_int8(a, gate, res, w, s):
     refuse_grad(K10B, a, gate, res)
     if a.device.type == "cpu":
         return out_gate_residual_int8_plain(a, gate, res, w, s)
-    _check_device(K10B, a, gate, res, w, s)
+    kern = _check_device((K10B, K10BF), a, gate, res, w, s)
     b, n, k = a.shape
-    d_out = _check_weights(K10B, k, (w,))
-    if (a.stride(2) != 1 or (n > 1 and a.stride(1) != k) or a.stride(0) % 8
-            or a.data_ptr() % 16):
+    d_out = _check_weights(kern, k, (w,))
+    if (a.stride(2) != 1 or (n > 1 and a.stride(1) != k)
+            or a.stride(0) % (16 // a.element_size()) or a.data_ptr() % 16):
         a = a.contiguous()   # the kernel reads rows of k contiguous values
         #                      in 16-byte loads
     g = None if gate is None else gate.to(torch.float32).contiguous()
     if g is not None and g.shape != (b, d_out):
         raise ValueError(f"gate must be ({b}, {d_out})")
-    r = None if res is None else res.to(torch.bfloat16).contiguous()
+    r = None if res is None else res.to(a.dtype).contiguous()
     if r is not None and r.shape != (b, n, d_out):
         raise ValueError(f"res must be ({b}, {n}, {d_out})")
     w, s = w.contiguous(), s.to(torch.float32).contiguous()
     m, dev = b * n, a.device
-    out = torch.empty((b, n, d_out), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, n, d_out), dtype=a.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
-        fn = K10B.function()
+        fn = kern.function()
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a.data_ptr(), a.stride(0), ptr(g), ptr(r), w.data_ptr(),
                  s.data_ptr(), out.data_ptr(),
                  m, k, d_out, n, int(g is not None), int(r is not None),
                  stream)
-    check(K10B, err)
-    K10B.launches += 1
+    check(kern, err)
+    kern.launches += 1
     return out
 
 

@@ -24,6 +24,11 @@ K2, `pick_block_chunk` for K3, `pick_blocks` for K9, copies of the JAX
 package's pickers). The kernels and `swiglu_int8_plain`, the plain PyTorch
 version that repeats the arithmetic, take it as an argument.
 
+x is bf16, or fp32 (the JAX package's `--dtype float32 --quant int8`,
+whose kernels quantize the fp32 rows as they are): fp32 rows take the fp32
+instances K2F, K3F and K9F of the same device code, whose prologue reads
+and whose epilogue reads and writes fp32; the output is in x's dtype.
+
 Each launches three kernels: the per-row quantization prologue, the w12
 product with silu * mul and h's requantization, and the group-scaled w3
 product with its epilogue; both products on wgmma with TMA (the source's
@@ -66,6 +71,14 @@ K2 = Kernel("swiglu_int8_tail", "fused_mlp.cu", "sd3_swiglu_int8_tail",
 K3 = Kernel("swiglu_int8", "fused_mlp.cu", "sd3_swiglu_int8", _ARGS)
 K9 = Kernel("swiglu_int8_tail3d", "fused_mlp.cu", "sd3_swiglu_int8_tail3d",
             _ARGS)
+# the fp32 instances (fp32 x and output)
+K2F = Kernel("swiglu_int8_tail_fp32", "fused_mlp.cu",
+             "sd3_swiglu_int8_tail_fp32", _ARGS)
+K3F = Kernel("swiglu_int8_fp32", "fused_mlp.cu", "sd3_swiglu_int8_fp32",
+             _ARGS)
+K9F = Kernel("swiglu_int8_tail3d_fp32", "fused_mlp.cu",
+             "sd3_swiglu_int8_tail3d_fp32", _ARGS)
+_FP32 = {K2: K2F, K3: K3F, K9: K9F}
 
 
 def _round_up(a: int, b: int) -> int:
@@ -173,8 +186,11 @@ def _launch(kern: Kernel, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
     m, k = x.shape
     hidden = w12_q.shape[0] // 2
     d_out = w3_q.shape[0]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{kern.name} takes bfloat16 x, got {x.dtype}")
+    if x.dtype == torch.float32:
+        kern = _FP32[kern]
+    elif x.dtype != torch.bfloat16:
+        raise TypeError(f"{kern.name} takes bfloat16 or float32 x, got "
+                        f"{x.dtype}")
     if w12_q.dtype != torch.int8 or w3_q.dtype != torch.int8:
         raise TypeError(f"{kern.name} takes int8 weights")
     if tuple(w12_q.shape) != (2 * hidden, k) or w3_q.shape[1] != hidden:
@@ -212,7 +228,7 @@ def _launch(kern: Kernel, x, w12_q, w12_scale, b12, w3_q, w3_scale, b3,
     sx = torch.empty(m, dtype=torch.float32, device=dev)
     hq = torch.empty((m, hidden), dtype=torch.int8, device=dev)
     s_h = torch.empty((m, hidden // h_group), dtype=torch.float32, device=dev)
-    out = torch.empty((m, d_out), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((m, d_out), dtype=x.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         fn = kern.function()

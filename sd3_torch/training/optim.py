@@ -16,11 +16,25 @@ device to know them.
   in as min(1, clip / max(‖g‖, 1e-12)) and the learning rate taken at
   count + 1. Both run the same per-leaf arithmetic (`_low_mem_step`).
 
+- `adamw_8bit` (one in-place pass, as `fused_adamw_low_mem`): both moments
+  stored blockwise as fp8-e4m3 (`torch.float8_e4m3fn`), blocks of QBLOCK
+  values of the leaf flattened in the JAX layout (`weights.to_jax_layout`,
+  so that the blocks and their absmax scales are the JAX package's), leaves
+  under QMIN values in bf16; `dequantize_8bit` / `quantize_8bit` go to and
+  from the canonical bf16 `AdamWLowMemState`.
+
 These are XLA in the JAX package, not Pallas kernels, so plain PyTorch is
 their port: `torch._foreach_*` passes over groups of leaves, which bound the
-fp32 temporaries. They update the parameters in place, where JAX returns new
-arrays. `torch.optim.AdamW` is not used: its schedule and clip are not
-these. The 8-bit moments (`adamw_8bit`) wait: ROADMAP.md, port queue.
+fp32 temporaries (the 8-bit update goes a leaf at a time). They update the
+parameters in place, where JAX returns new arrays. `torch.optim.AdamW` is
+not used: its schedule and clip are not these.
+
+The optimizer artifact of a checkpoint (`to_artifact`, `from_artifact`) is
+the JAX trainer's state for the same TrainConfig: the optax chain's nested
+state for `AdamWState`, the `AdamWLowMemState` fields otherwise, an 8-bit
+state always in its canonical bf16 form (sd3_tpu/training/trainer.py
+save()), so the optax, bf16 and 8-bit trainers of either package resume
+from it.
 """
 
 from __future__ import annotations
@@ -29,6 +43,9 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from sd3_torch.weights import (from_jax_layout, jax_tree_from_state_dict,
+                               state_dict_from_jax, to_jax_layout)
 
 GROUP_ELEMS = 1 << 26   # leaves per foreach pass: ~256 MB of each fp32 temporary
 
@@ -244,3 +261,179 @@ def apply_updates(params: dict, updates: dict) -> dict:
     torch._foreach_add_([params[n] for n in names],
                         [updates[n].to(params[n].dtype) for n in names])
     return params
+
+
+# ---- 8-bit moments ---------------------------------------------------------
+
+QBLOCK = 256     # quantization block (one absmax scale per QBLOCK values)
+QMIN = 4096      # leaves below this many values keep bf16 moments
+F8MAX = 448.0    # the largest finite float8_e4m3fn
+
+
+class Adam8bitState(NamedTuple):
+    """Per leaf: `*_q` the fp8-e4m3 moments (n_blocks, QBLOCK) and `*_s`
+    their fp32 block scales (n_blocks, 1); a leaf under QMIN values keeps
+    bf16 moments shaped like it, with an empty (0,) scale."""
+    count: int
+    mu_q: dict
+    mu_s: dict
+    nu_q: dict
+    nu_s: dict
+
+
+def _small(p: torch.Tensor) -> bool:
+    return p.numel() < QMIN
+
+
+def _blockify(name: str, x32: torch.Tensor) -> torch.Tensor:
+    """Leaf `name` (the port's layout) flattened in the JAX layout, zero-
+    padded to whole blocks: (n_blocks, QBLOCK)."""
+    flat = to_jax_layout(name, x32).reshape(-1)
+    nb = -(-flat.numel() // QBLOCK)
+    return torch.nn.functional.pad(flat, (0, nb * QBLOCK - flat.numel())
+                                   ).reshape(nb, QBLOCK)
+
+
+def _unblockify(name: str, xb: torch.Tensor, like: torch.Tensor
+                ) -> torch.Tensor:
+    """The inverse of `_blockify`: leaf `name` in the port's layout."""
+    jshape = to_jax_layout(name, like).shape
+    flat = xb.reshape(-1)[:like.numel()]
+    return from_jax_layout(name, flat.reshape(jshape), like.shape)
+
+
+def _q8(xb: torch.Tensor):
+    s = torch.clamp(xb.abs().amax(1, keepdim=True), min=1e-20) / F8MAX
+    return (xb / s).to(torch.float8_e4m3fn), s
+
+
+def _dq8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    return q.float() * s
+
+
+def adamw_8bit(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+               clip_norm=None):
+    """AdamW with blockwise fp8-e4m3 moments (sd3_tpu/training/optim.py
+    adamw_8bit), fp32 math, applied in place. Returns (init, update):
+      init(params)                 -> Adam8bitState
+      update(grads, state, params) -> (params, new state, grad norm)"""
+
+    def init(params):
+        zq, zs = {}, {}
+        for n, p in params.items():
+            if _small(p):
+                zq[n] = torch.zeros(p.shape, dtype=torch.bfloat16,
+                                    device=p.device)
+                zs[n] = torch.zeros(0, device=p.device)
+            else:
+                nb = -(-p.numel() // QBLOCK)
+                zq[n] = torch.zeros((nb, QBLOCK), dtype=torch.float8_e4m3fn,
+                                    device=p.device)
+                zs[n] = torch.zeros((nb, 1), device=p.device)
+        clone = lambda d: {k: v.clone() for k, v in d.items()}
+        return Adam8bitState(0, zq, zs, clone(zq), clone(zs))
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        count = state.count + 1
+        lr = learning_rate(count) if callable(learning_rate) else learning_rate
+        gnorm = global_norm_f32(grads)
+        scale = _clip_scale(gnorm, clip_norm)
+        c1, c2 = _bias_corrections(b1, b2, count)
+        mu_q, mu_s, nu_q, nu_s = (dict(d) for d in state[1:])
+        for n, p in params.items():
+            gf = grads[n].float() * scale
+            pf = p.float()
+            if mu_s[n].numel() == 0:  # small leaf: bf16 moments, same math
+                mu = b1 * mu_q[n].float() + (1 - b1) * gf
+                nu = b2 * nu_q[n].float() + (1 - b2) * gf * gf
+                step = (mu / c1) / (torch.sqrt(nu / c2) + eps) \
+                    + weight_decay * pf
+                mu_q[n], nu_q[n] = mu.bfloat16(), nu.bfloat16()
+            else:
+                gb = _blockify(n, gf)
+                mu = b1 * _dq8(mu_q[n], mu_s[n]) + (1 - b1) * gb
+                nu = b2 * _dq8(nu_q[n], nu_s[n]) + (1 - b2) * gb * gb
+                step_b = (mu / c1) / (torch.sqrt(nu / c2) + eps)
+                step = _unblockify(n, step_b, p) + weight_decay * pf
+                mu_q[n], mu_s[n] = _q8(mu)
+                nu_q[n], nu_s[n] = _q8(nu)
+            p.copy_(pf - lr * step)
+        return params, Adam8bitState(count, mu_q, mu_s, nu_q, nu_s), gnorm
+
+    return init, update
+
+
+def dequantize_8bit(state: Adam8bitState, params: dict) -> AdamWLowMemState:
+    """Adam8bitState -> the canonical bf16 AdamWLowMemState, leaves shaped
+    like `params`."""
+    def dq(q, s, n):
+        if s.numel() == 0:
+            return q
+        return _unblockify(n, _dq8(q, s), params[n]).bfloat16()
+
+    return AdamWLowMemState(
+        state.count,
+        {n: dq(state.mu_q[n], state.mu_s[n], n) for n in params},
+        {n: dq(state.nu_q[n], state.nu_s[n], n) for n in params})
+
+
+def quantize_8bit(state: AdamWLowMemState, params: dict) -> Adam8bitState:
+    """The inverse of `dequantize_8bit` (an 8-bit trainer resuming from the
+    canonical artifact)."""
+    qs = {}
+    for key in ("mu", "nu"):
+        tree = getattr(state, key)
+        q, s = {}, {}
+        for n, p in params.items():
+            m = torch.as_tensor(tree[n]).to(p.device)
+            if _small(p):
+                q[n], s[n] = m.bfloat16(), torch.zeros(0, device=p.device)
+            else:
+                q[n], s[n] = _q8(_blockify(n, m.float()))
+        qs[key] = (q, s)
+    return Adam8bitState(int(state.count), *qs["mu"], *qs["nu"])
+
+
+# ---- the checkpoint artifact ----------------------------------------------
+
+def to_artifact(state, params: dict):
+    """The optimizer artifact tree of `state` (the JAX trainer's for the
+    same TrainConfig): the optax chain `clip_by_global_norm` -> `adamw`
+    state for AdamWState, ((), (ScaleByAdamState(count, mu, nu),
+    EmptyState(), ScaleByScheduleState(count)))); the AdamWLowMemState
+    fields otherwise, an Adam8bitState dequantized first. Moments as JAX
+    trees on the CPU; count an int32 scalar array, as JAX keeps it."""
+    if isinstance(state, Adam8bitState):
+        state = dequantize_8bit(state, params)
+    count = np.asarray(state.count, np.int32)
+    moments = {"count": count, "mu": jax_tree_from_state_dict(state.mu),
+               "nu": jax_tree_from_state_dict(state.nu)}
+    if isinstance(state, AdamWState):
+        return ((), (moments, (), {"count": count}))
+    return moments
+
+
+def from_artifact(art: dict, live, params: dict, patch_size: int = 2):
+    """The optimizer state of the artifact `art` (a state dict,
+    `checkpoint.load_artifact`) in the form of `live`, the trainer's own
+    state: AdamWState from the optax form; AdamWLowMemState or (quantized)
+    Adam8bitState from the canonical bf16 form. The moments go to `live`'s
+    devices and dtypes."""
+    optax_form = "count" not in art
+    if optax_form != isinstance(live, AdamWState):
+        raise ValueError(
+            "the optimizer artifact is the " + ("optax AdamW" if optax_form
+                                                else "low-memory AdamW")
+            + f" state; this trainer's optimizer keeps {type(live).__name__}"
+            " (set low_mem_optimizer as the run that wrote it did, or resume"
+            " with reset_optim)")
+    moments = art["1"]["0"] if optax_form else art
+    count = int(moments["count"])
+    mu, nu = (state_dict_from_jax(moments[k], patch_size)
+              for k in ("mu", "nu"))
+    if isinstance(live, Adam8bitState):
+        return quantize_8bit(AdamWLowMemState(count, mu, nu), params)
+    place = lambda d, like: {k: d[k].to(like[k].device, like[k].dtype)
+                             for k in like}
+    return type(live)(count, place(mu, live.mu), place(nu, live.nu))

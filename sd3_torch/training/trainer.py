@@ -26,16 +26,27 @@ As in the JAX package:
 - accumulation > 1: gradients summed in fp32, or bf16 with
   `bf16_grad_accum`. `split_accumulation` is the JAX package's way of
   keeping each compiled graph small; eager PyTorch has no graph to split,
-  and its math (no precast, a bf16 sum) is this loop's, which takes it.
+  and its math (no precast, a bf16 sum) is this loop's, which takes it;
+- `moments_8bit`: `adamw_8bit`, blockwise fp8-e4m3 moments, one in-place
+  pass as the fused optimizer;
+- `ema_on_host`: the fp32 EMA in pinned host RAM. Every `ema_update_freq`
+  steps the fp32 masters are copied to pinned staging buffers on the
+  step's stream (ordered before the next step's in-place update), and a
+  background thread waits for the copies and combines them, with the same
+  arithmetic as the device EMA. The combine is joined before the next one,
+  before every save and every read (`ema_state`).
+- `save()` writes the six-artifact checkpoint of `training/checkpoint.py`
+  (the JAX trees; the 8-bit state in its canonical bf16 form), and
+  `restore_optimizer` reads the optim artifact of either package.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-8-bit moments, the host EMA, scan over blocks, the text loss, meshes, and
-checkpoints (`save`, `restore_optimizer`).
+scan over blocks, the text loss and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, NamedTuple
 
@@ -45,12 +56,14 @@ import torch
 from sd3_torch import resolve_device, torch_dtype
 from sd3_torch.config import MMDiTConfig
 from sd3_torch.models.mmdit import MMDiT
-from sd3_torch.training import flow
+from sd3_torch.training import checkpoint, flow
 from sd3_torch.training.optim import (GradientTransformation, adamw,
-                                      adamw_low_mem, apply_updates,
+                                      adamw_8bit, adamw_low_mem,
+                                      apply_updates, from_artifact,
                                       fused_adamw_low_mem, global_norm_f32,
-                                      leaf_groups)
+                                      leaf_groups, to_artifact)
 from sd3_torch.utils.logging import MetricsLogger
+from sd3_torch.weights import jax_tree_from_state_dict
 
 _QUEUE = "is not ported yet: ROADMAP.md, port queue"
 
@@ -234,14 +247,9 @@ class Trainer:
                  device="cuda", log_dir: str | None = None,
                  wandb_name: str | None = None, use_wandb: bool = True,
                  opt_state=None, ema=None):
-        for on, what in ((tcfg.moments_8bit, "moments_8bit (8-bit Adam "
-                          "moments), 'training/optim.py'"),
-                         (tcfg.ema_on_host, "ema_on_host, 'training/"
-                          "trainer.py'"),
-                         (tcfg.mesh is not None, "a mesh, 'parallel/'")):
-            if on:
-                raise NotImplementedError(f"{what} {_QUEUE}")
-        fused = tcfg.fused_optimizer
+        if tcfg.mesh is not None:
+            raise NotImplementedError(f"a mesh, 'parallel/' {_QUEUE}")
+        fused = tcfg.fused_optimizer or tcfg.moments_8bit
         if fused and not tcfg.low_mem_optimizer:
             raise ValueError("fused_optimizer implies bf16-moment AdamW "
                              "(low_mem_optimizer)")
@@ -276,14 +284,25 @@ class Trainer:
         self._compute = dict(self.model.named_parameters())
 
         self.ema = None
+        self._ema_host = None
+        self._ema_thread = None
         if tcfg.track_ema:
             init = ema if ema is not None else self._params
-            self.ema = {k: torch.as_tensor(v).detach().to(
-                self.device, torch.float32, copy=True) for k, v in init.items()}
+            if tcfg.ema_on_host:
+                pin = self.device.type == "cuda"
+                self._ema_host = {k: _pinned_copy(v, pin)
+                                  for k, v in init.items()}
+                self._ema_stage = {k: torch.empty(v.shape, pin_memory=pin)
+                                   for k, v in self._ema_host.items()}
+            else:
+                self.ema = {k: torch.as_tensor(v).detach().to(
+                    self.device, torch.float32, copy=True)
+                    for k, v in init.items()}
 
         schedule = make_lr_schedule(tcfg)
         if fused:
-            init_fn, self._fused_update = fused_adamw_low_mem(
+            make = adamw_8bit if tcfg.moments_8bit else fused_adamw_low_mem
+            init_fn, self._fused_update = make(
                 schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
                 clip_norm=tcfg.grad_clip)
             self.optimizer = None
@@ -292,12 +311,16 @@ class Trainer:
             init_fn = self.optimizer.init
         self.opt_state = init_fn(self._params)
         if opt_state is not None:
+            if tcfg.moments_8bit:
+                raise ValueError("an 8-bit trainer resumes through "
+                                 "restore_optimizer (the canonical artifact)")
             on_dev = lambda d: {k: torch.as_tensor(v).to(
                 self.device, self.opt_state.mu[k].dtype) for k, v in d.items()}
             self.opt_state = type(self.opt_state)(
                 int(opt_state.count), on_dev(opt_state.mu), on_dev(opt_state.nu))
 
         self.step = cfg.start_step
+        self.saved_step = None   # the step of the last save()
         self.logger = MetricsLogger(log_dir or tcfg.save_dir,
                                     run_name=wandb_name, run_id=cfg.wandb_id,
                                     use_wandb=use_wandb)
@@ -389,9 +412,55 @@ class Trainer:
             p.grad = None
         metrics["grad_norm"] = gnorm
         self.step += 1
-        if self.ema is not None and self.step % self.tcfg.ema_update_freq == 0:
-            ema_update(self.ema, self._params, self.tcfg.ema_decay)
+        if self.step % self.tcfg.ema_update_freq == 0:
+            if self._ema_host is not None:
+                self._ema_host_update()
+            elif self.ema is not None:
+                ema_update(self.ema, self._params, self.tcfg.ema_decay)
         return metrics
+
+    def _ema_host_update(self):
+        """Copy the fp32 masters to the pinned staging buffers on this
+        step's stream (the next step's in-place update is ordered after the
+        copies), then combine them into the host EMA on a background thread
+        once the copies are done. Joins the last combine first."""
+        self._ema_join()
+        with torch.no_grad():
+            for k, p in self._params.items():
+                self._ema_stage[k].copy_(p, non_blocking=True)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        decay = self.tcfg.ema_decay
+        errors = []
+
+        def combine():
+            try:
+                if done is not None:
+                    done.synchronize()
+                ema_update(self._ema_host, self._ema_stage, decay)
+            except Exception as e:  # re-raised by _ema_join
+                errors.append(e)
+
+        self._ema_thread = threading.Thread(target=combine, daemon=True)
+        self._ema_thread.start()
+        self._ema_errors = errors
+
+    def _ema_join(self):
+        """Wait for the last host-EMA combine; raise what it raised."""
+        if self._ema_thread is not None:
+            self._ema_thread.join()
+            self._ema_thread = None
+            if self._ema_errors:
+                raise RuntimeError("the host EMA combine failed") \
+                    from self._ema_errors[0]
+
+    def ema_state(self) -> dict | None:
+        """The fp32 EMA, {state-dict name: tensor} (on the host under
+        ema_on_host, after joining its combine), or None."""
+        self._ema_join()
+        return self._ema_host if self._ema_host is not None else self.ema
 
     def train(self, batch_iter, total_steps: int | None = None) -> int:
         """Steps until `total_steps` (default tcfg.total_steps), logging
@@ -415,12 +484,31 @@ class Trainer:
                 self.save()
         return self.step
 
-    def save(self):
-        raise NotImplementedError(
-            f"checkpoints {_QUEUE}, 'checkpoints' (the JAX artifacts are flax "
-            "msgpack)")
+    def save(self) -> dict[str, str]:
+        """Write the six artifacts of this step into tcfg.save_dir (the JAX
+        package's checkpoint: the parameter and EMA trees, the optimizer
+        artifact, {"step": step}); returns the file names."""
+        ema = self.ema_state()
+        names = checkpoint.save_checkpoint(
+            self.tcfg.save_dir, self.cfg,
+            jax_tree_from_state_dict(self._params),
+            ema_params=None if ema is None else jax_tree_from_state_dict(ema),
+            opt_state=to_artifact(self.opt_state, self._params),
+            scheduler_state={"step": self.step}, step=self.step,
+            wandb_id=self.logger.run_id)
+        self.saved_step = self.step
+        print(f"Saving model (step {self.step})")
+        return names
 
     def restore_optimizer(self, load_dir: str, step: int):
-        raise NotImplementedError(
-            f"checkpoints {_QUEUE}, 'checkpoints' (the optim_<step>s.msgpack "
-            "artifact)")
+        """Load optim_{step}s.msgpack, written by either package for the
+        same optimizer (an 8-bit trainer takes the canonical bf16 state)."""
+        art = checkpoint.load_artifact(load_dir, f"optim_{step}s.msgpack")
+        self.opt_state = from_artifact(art, self.opt_state, self._params,
+                                       self.cfg.patch_size)
+
+
+def _pinned_copy(v, pin: bool) -> torch.Tensor:
+    """An fp32 host copy of v, in pinned memory when `pin`."""
+    t = torch.as_tensor(v).detach().to("cpu", torch.float32, copy=True)
+    return t.pin_memory() if pin else t

@@ -129,6 +129,16 @@ def test_fused_attention_rejects_unported_variants():
      "K10a"),
     ("dense_sm90_kernel<11, true>(CUtensorMap_st)", "K10b"),
     ("xquant_kernel<9>(bf16 const*)", "K9"),
+    ("xquant_kernel<2, __nv_bfloat16>(__nv_bfloat16 const*)", "K2"),
+    ("xquant_kernel<3, float>(float const*)", "K3"),
+    ("w3_sm90_kernel<256, 9, float>(CUtensorMap_st)", "K9"),
+    ("void (anonymous namespace)::w3_sm90_kernel<512, 2, __nv_bfloat16>("
+     "CUtensorMap_st)", "K2"),
+    ("dense_sm90_kernel<11, false, float>(CUtensorMap_st)", "K10b"),
+    ("prep_q8rows_kernel<64, 7, __nv_bfloat16>(__nv_bfloat16 const*)", "K7q"),
+    ("prep_q8rows_kernel<64, 4, float>(float const*)", "K4"),
+    ("k_prep_kernel<64, true, float>(float const*)", "K4"),
+    ("attn_q8_fp32_kernel<64, true, false>(void const*)", "fp32 attention"),
 ])
 def test_chip_smoke_names_the_kernel_families(name, family):
     # chip_smoke.py's profile breakdown by TPU kernel (it imports only the
@@ -167,7 +177,10 @@ def test_every_kernel_symbol_is_in_its_source():
     # no nvcc here: at least the C entry point each wrapper binds exists
     for k in (tfa.K1, tfa.K4, tfa.K7, tfa.K7Q, tfa.K8A, tfa.K8B, tfm.K2,
               tfm.K3, tfl.K5, tfl.K6A, tfl.K6B, tfm.K9, tfd.K10A, tfd.K10B,
-              tfa.K1F, tfa.K7F, tfl.K5F, tfl.K6AF, tfl.K6BF):
+              tfa.K1F, tfa.K7F, tfl.K5F, tfl.K6AF, tfl.K6BF, tfa.K4F,
+              tfa.K7QF, tfa.K8AF, tfa.K8BF, tfm.K2F, tfm.K3F, tfm.K9F,
+              tfd.K10AF, tfd.K10BF, tfl.K5W, tfl.K6AW, tfl.K6BW, tfl.K5WF,
+              tfl.K6AWF, tfl.K6BWF):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -191,12 +204,14 @@ def test_flash_backward_is_the_wgmma_source():
 def test_flash_forward_is_the_hopper_attention_source():
     # K5 is the Softmax::Flash instance of K1 / K7's wgmma + TMA kernel, one
     # launch on raw q, k, v through tensor maps of their strided views; the
-    # mma.sync source it had is gone
+    # mma.sync source it had is gone; head dim 256 is the shared-memory
+    # kernel of attention_fp32.cu (K5W)
     assert tfl.K5.source == tfa.K1.source == tfa.K7.source
     src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
     for d in tfl.HEAD_DIMS:
-        assert f"launch_flash<{d}>" in entry, d
+        assert (f"launch_flash<{d}>" in entry) == (d <= 128), d
+    assert tfl.K5W.source == "attention_fp32.cu"
     launch = src[src.index("int launch_flash("):]
     launch = launch[:launch.index("\n}\n")]
     assert "attn_sm90_kernel<D, Softmax::Flash>" in launch
@@ -215,7 +230,7 @@ def test_int8_swiglu_is_the_wgmma_source():
     assert "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8" in hdr
     assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in hdr
     for used in ("wgmma_s8<2 * PASS_COLS>", "wgmma_s8<W3_BN>", "tma_load_2d",
-                 "encode_s8_2d", "setmaxnreg_inc", "launch_xquant<V>"):
+                 "encode_s8_2d", "setmaxnreg_inc", "launch_xquant<V, T>"):
         assert used in src, used
     for gone in ("mma_s8(", "load_b2(", "ldsm_x4(", "swiglu_h_kernel<",
                  "w3_gemm_kernel<"):
@@ -539,8 +554,8 @@ def test_int8_swiglu_at_ragged_rows_and_chunks_on_the_card(cuda_device, kind,
 def test_k2_k3_refuse_what_they_do_not_take(cuda_device):
     t = mlp_case(32, 32, 64, 128, 64, cuda_device)
     w = [t[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale", "b3")]
-    with pytest.raises(TypeError, match="bfloat16"):
-        tfm.swiglu_int8(t["x"].float(), *w, h_group=128)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfm.swiglu_int8(t["x"].half(), *w, h_group=128)
     with pytest.raises(NotImplementedError, match="h_group"):
         tfm.swiglu_int8(t["x"], *w, h_group=64)
 
@@ -698,8 +713,8 @@ def test_k10_kernels_give_the_same_bits_twice_on_the_card(cuda_device, b, n,
 @pytest.mark.cuda
 def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     t, ws = dense_case(2, 8, 64, 64, cuda_device)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tfd.qkv_adaln_int8(t["x"].float(), t["shift"], t["scale"], *ws)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfd.qkv_adaln_int8(t["x"].half(), t["shift"], t["scale"], *ws)
     with pytest.raises(TypeError, match="int8"):
         tfd.out_gate_residual_int8(t["x"], None, None, ws[0].float(), ws[1])
     with pytest.raises(TypeError, match="int8"):   # k of another width
@@ -724,8 +739,8 @@ def test_k9_k10_refuse_what_they_do_not_take(cuda_device):
     m = mlp_case(32, 16, 64, 128, 64, cuda_device)
     mw = [m[n] for n in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale",
                          "b3")]
-    with pytest.raises(TypeError, match="bfloat16"):
-        tfm.swiglu_int8_tail3d(m["x"].float(), m["shift"], m["scale"],
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tfm.swiglu_int8_tail3d(m["x"].half(), m["shift"], m["scale"],
                                m["gate"], *mw, n_tok=16, h_group=128)
 
 
@@ -865,15 +880,25 @@ def test_k4_k8b_rows_of_negative_scores_on_the_card(cuda_device, d, int8_qk,
 
 @pytest.mark.cuda
 def test_k1_refuses_what_it_does_not_take(cuda_device):
-    # fp16 (bf16 and fp32 have instances); a head dim of neither an
-    # instance nor a padded one; fp32 under the int8 kernels
+    # fp16 (bf16 and fp32 have instances, the int8 kernels too); a head
+    # dim of neither an instance nor a padded one; dtypes that differ
     q = torch.zeros(1, 8, 32, device=cuda_device, dtype=torch.float16)
     tab = torch.zeros(8, 16, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         tfa.fused_attention(q, q, q, 2, tab, tab, tab, tab, 0.25)
     with pytest.raises(TypeError, match="bfloat16"):
-        tfa.fused_attention(q.float(), q.float(), q.float(), 2, tab, tab,
+        tfa.fused_attention(q, q, q, 2, tab, tab, tab, tab, 0.25,
+                            int8_qk=True)
+    with pytest.raises(TypeError, match="one dtype"):
+        tfa.fused_attention(q.float(), q.bfloat16(), q.float(), 2, tab, tab,
                             tab, tab, 0.25, int8_qk=True)
+    # head dim 256, which JAX's fused attention takes (the fused route's
+    # open fault, ROADMAP.md): no card instance past 128
+    q256 = torch.zeros(1, 8, 512, device=cuda_device, dtype=torch.bfloat16)
+    tab256 = torch.zeros(8, 256, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        tfa.fused_attention(q256, q256, q256, 2, tab256, tab256, tab256,
+                            tab256, 0.0625)
     qb = torch.zeros(1, 8, 48, device=cuda_device, dtype=torch.bfloat16)
     tab = torch.zeros(8, 24, device=cuda_device)
     with pytest.raises(NotImplementedError, match="head dims"):
@@ -1105,14 +1130,14 @@ def test_k1_backward_runs_k5_k6_on_the_card(cuda_device):
 @pytest.mark.cuda
 def test_flash_refuses_what_it_does_not_take(cuda_device):
     # fp16 (bf16 and fp32 have instances), dtypes that differ, a head dim
-    # past the largest instance (any below it is padded)
+    # past the largest instance (any below it is padded: 160 runs at 256)
     q = torch.zeros(1, 2, 8, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         tfl.flash_attention(q, q, q, 0.2)
     with pytest.raises(TypeError, match="one dtype"):
         tfl.flash_fwd(q.float(), q.bfloat16(), q.float(), 0.2)
-    qb = torch.zeros(1, 2, 8, 160, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="up to 128"):
+    qb = torch.zeros(1, 2, 8, 272, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="up to 256"):
         tfl.flash_attention(qb, qb, qb, 0.2)
 
 
@@ -1321,3 +1346,173 @@ def test_k7q_k8a_give_the_same_bits_twice_on_the_card(cuda_device, int8_qk,
             for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(*runs)
+
+
+# ---- the int8 kernels on fp32 rows; flash past head dim 128 --------------
+
+# the fp32 instances of the int8 attentions against their plain versions on
+# the same fp32 rows: the same int8 levels but for the odd value an ulp from
+# a rounding boundary (exp2f, the preps' sums in another order), each moving
+# an output by a level's share; chip_smoke.py's INT8_FP32 limits
+INT8_FP32_MAX_REL, INT8_FP32_REL_L2 = 1e-2, 2e-3
+
+
+def _launched(before):
+    after = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    return {nm: after[nm] - before[nm] for nm in after
+            if after[nm] != before[nm]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(tfa._INFERENCE))
+@pytest.mark.parametrize("shape", [ATTN_SHAPES[3], (3, 8, 4, 5, 7, True)])
+def test_fp32_int8_attention_matches_plain_on_the_card(cuda_device, no_tf32,
+                                                       variant, shape):
+    # K4F, K7QF, K8AF, K8BF (and K8a / K8b over int8 scores) on fp32 q / k /
+    # v, fp32 out; head dim 8 runs the 16 instance padded
+    int8_qk, int8_pv, streaming = variant
+    nh, d = shape[0], shape[1]
+    q, k, v, ws, angles, n_img, scale = _attn_case(*shape, seed=13)
+    dev = cuda_device
+    qf, kf, vf = (_t(a).to(dev) for a in (q, k, v))
+    wt = [_t(a).to(dev) for a in ws]
+    n = qf.shape[1]
+    cos, sin = (torch.as_tensor(t, device=dev)
+                for t in tfa.rope_row_tables(angles, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, wt[0], wt[1], n_img),
+            *tfa.fold_row_tables(cos, sin, wt[2], wt[3], n_img))
+    kern, plain = tfa._INFERENCE[variant]
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    got = tfa.fused_attention(qf, kf, vf, nh, *tabs, scale, int8_qk=int8_qk,
+                              int8_pv=int8_pv,
+                              single_kv_max=0 if streaming else 2048)
+    torch.cuda.synchronize()
+    assert _launched(before) == {tfa._FP32[kern].name: 1}
+    assert got.dtype == torch.float32 and got.shape == qf.shape
+    eps = float(torch.finfo(torch.float32).eps)
+    kw = dict(int8_pv=True) if int8_pv else {}
+    if streaming:
+        kw["block_k"] = tfa.K8B_KEY_TILE
+    want = getattr(tfa, plain)(qf.cpu(), kf.cpu(), vf.cpu(),
+                               *(t.cpu() for t in tabs), scale, eps, eps, nh,
+                               **kw)
+    dlt = got.cpu().double() - want.double()
+    max_rel = (dlt.abs().max() / want.abs().max()).item()
+    assert max_rel <= INT8_FP32_MAX_REL and _rel_l2(got.cpu(), want) <= \
+        INT8_FP32_REL_L2, (max_rel, _rel_l2(got.cpu(), want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["K2", "K3", "K9"])
+@pytest.mark.parametrize("m,n_tok,k,hidden,d_out", [
+    (2048, 1024, 1216, 4864, 1216), (308, 154, 1216, 4864, 1216),
+    (300, 100, 80, 1024, 80)])
+def test_fp32_int8_swiglu_matches_plain_on_the_card(cuda_device, kind, m,
+                                                    n_tok, k, hidden, d_out):
+    # K2F, K3F, K9F on fp32 rows, fp32 out, against the plain version on the
+    # same rows (chip_smoke.py's MLP limits)
+    t = mlp_case(m, n_tok, k, hidden, d_out, cuda_device)
+    x = t["x"].float() + 1e-3 * torch.randn_like(t["x"].float())
+    w = [t[nm] for nm in ("w12_q", "w12_scale", "b12", "w3_q", "w3_scale",
+                          "b3")]
+    tail = kind != "K3"
+    h_group = 256
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    if kind == "K3":
+        got = tfm.swiglu_int8(x, *w, h_group=h_group)
+    else:
+        fn = tfm.swiglu_int8_tail if kind == "K2" else tfm.swiglu_int8_tail3d
+        got = fn(x, t["shift"], t["scale"], t["gate"], *w, n_tok=n_tok,
+                 h_group=h_group)
+    torch.cuda.synchronize()
+    assert _launched(before) == {tfm._FP32[getattr(tfm, kind)].name: 1}
+    assert got.dtype == torch.float32
+    want = tfm.swiglu_int8_plain(x, *w, h_group=h_group, shift=t["shift"],
+                                 scale=t["scale"], gate=t["gate"],
+                                 n_tok=n_tok, adaln=tail, residual=tail)
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert err <= 1e-2 * want.abs().max().item() and rel <= 5e-3, (err, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,d_out", [
+    (2, 1024, 1216, 1216), (3, 300, 1216, 1216), (2, 40, 80, 48),
+    (2, 130, 1600, 1600), (2, 40, 4096, 4096), (1, 64, 1600, 200)])
+def test_fp32_k10_kernels_match_plain_on_the_card(cuda_device, b, n, k,
+                                                  d_out):
+    # K10AF (AdaLN + q / k / v) within the K10 limits of its plain version
+    # on the same fp32 rows; K10BF, which repeats its plain version's
+    # arithmetic in its order, bit for bit, gated or not, with or without
+    # the residual, reading a slice of a longer sequence in place
+    t, ws = dense_case(b, n, k, d_out, cuda_device)
+    x = t["x"].float() + 1e-3 * torch.randn_like(t["x"].float())
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    got = tfd.qkv_adaln_int8(x, t["shift"], t["scale"], *ws)
+    torch.cuda.synchronize()
+    assert _launched(before) == {tfd.K10AF.name: 1}
+    want = tfd.qkv_adaln_int8_plain(x, t["shift"], t["scale"], *ws)
+    for g, w in zip(got, want):
+        assert g.shape == (b, n, d_out) and g.dtype == torch.float32
+        err = (g - w).abs().max().item()
+        rel = ((g - w).norm() / w.norm()).item()
+        assert (err <= K10_MAX_REL * w.abs().max().item()
+                and rel <= K10_REL_L2), (err, rel)
+    a = torch.cat([x, x[:, :7]], dim=1)[:, :n]
+    res = t["res"].float()
+    for gate, r in ((t["gate"], res), (None, None), (t["gate"], None),
+                    (None, res)):
+        before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+        got = tfd.out_gate_residual_int8(a, gate, r, *ws[:2])
+        torch.cuda.synchronize()
+        assert _launched(before) == {tfd.K10BF.name: 1}
+        assert got.dtype == torch.float32
+        assert torch.equal(got, tfd.out_gate_residual_int8_plain(
+            a, gate, r, *ws[:2]))
+
+
+# head dims past the wgmma instances' 128: 256, and 160 padded to it, at
+# ragged lengths and over many key tiles
+FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
+                     (1, 2, 1178, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_WIDE_SHAPES)
+def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
+                                                           no_tf32, shape):
+    # K5W, K6AW, K6BW on bf16 (the limits of the bf16 flash kernels), K5WF,
+    # K6AWF, K6BWF on fp32 (FP32_REL_L2), each against its plain version
+    q, k, v, do = _flash_case(shape, cuda_device, seed=3)
+    scale = shape[-1] ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 1 for kk in (tfl.K5W, tfl.K6AW,
+                                                       tfl.K6BW)}
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert out.shape == dq.shape == dk.shape == dv.shape == shape
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    assert (lse - want[1]).abs().max().item() <= FLASH_LSE_ATOL
+    for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
+                       ("dv", dv, want[4])):
+        _assert_grad_close(g, w, name)
+    q, k, v, do = (t.float() + 1e-3 * torch.randn_like(t.float())
+                   for t in (q, k, v, do))
+    w_out, w_lse = tfl.flash_fwd_plain(q, k, v, scale)
+    w_dq, w_delta = tfl.flash_dq_plain(q, k, v, w_out, do, w_lse, scale)
+    w_dk, w_dv = tfl.flash_dkv_plain(q, k, v, do, w_lse, w_delta, scale)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 1 for kk in (tfl.K5WF, tfl.K6AWF,
+                                                       tfl.K6BWF)}
+    errs = dict(out=_rel_l2(out, w_out), dq=_rel_l2(dq, w_dq),
+                dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
+    assert all(e <= FP32_REL_L2 for e in errs.values()), errs
+    assert (lse - w_lse).abs().max().item() <= 1e-5

@@ -307,6 +307,43 @@ def test_int8_block_tails_match_jax(monkeypatch, attn_type, port, env,
     assert counts == {**dict.fromkeys(TAIL_ROUTES, 0), **routes}
 
 
+@pytest.mark.parametrize("port,env", [
+    ({}, {}), (dict(attn_tail="all", mlp_tail_fusion="3d"),
+               dict(SD3_ATTN_TAIL="all", SD3_MLP_TAIL_FUSION="3d"))],
+    ids=["no-tails", "all-3d"])
+def test_fp32_int8_two_block_model_hands_fp32_rows_to_the_kernels(
+        monkeypatch, port, env):
+    # `--dtype float32 --quant int8`: the JAX int8 kernels quantize fp32
+    # rows (their casts to the compute dtype are no-ops), and the port's
+    # kernel wrappers receive fp32 activations too (on the card: the fp32
+    # instances K4F, K2F, K3F, K9F, K10AF, K10BF), with and without the
+    # block tails; the 2-block model held to JAX's fp32 int8 model with
+    # `_int8_run_and_check`'s tolerance
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    seen = []
+
+    def spy(mp):
+        counts = _count_routes(mp, TAIL_ROUTES)
+        for key in TAIL_ROUTES:
+            mod, name = ROUTES[key]
+            fn = getattr(mod, name)
+
+            def typed(*a, _fn=fn, _key=key, **k):
+                seen.append((_key, a[0].dtype))
+                return _fn(*a, **k)
+            mp.setattr(mod, name, typed)
+        return counts
+
+    counts = _int8_run_and_check(monkeypatch, hw=64, seed=29, port=port,
+                                 count=spy)
+    assert sum(counts.values()) > 0 and len(seen) == sum(counts.values())
+    assert {dt for _, dt in seen} == {torch.float32}
+    routes = {key for key, _ in seen}
+    assert routes == ({"K4", "K9", "K10a", "K10b"} if port
+                      else {"K2", "K3", "K4"})
+
+
 def test_int8_attn_tail_quant_skip_turns_k10_off(monkeypatch):
     # a skipped image projection keeps its kernel out: "key_proj_x" K10a
     # (the three take one kernel), "out_proj_x" K10b; the text out-projection

@@ -253,6 +253,21 @@ def test_fused_attention_at_head_dim_8_matches_jax_kernel(int8_qk):
            rtol=0 if int8_qk else RTOL)
 
 
+def test_fused_attention_api_at_head_dim_256_matches_jax_kernel():
+    # JAX's fused_dual_flash_attention takes head dim 256 (one head per
+    # lane block; its model route sends only head dims dividing 128); the
+    # port's plain version matches it here, while its card kernels stop at
+    # 128 and raise (ROADMAP.md, faults: the fused route past head dim 128;
+    # tests/test_torch_kernels.py::test_k1_refuses_what_it_does_not_take)
+    q, k, v, ws, angles, n_img, scale = _attn_case(2, 256, 2, 3, 4, True,
+                                                   seed=9)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             2, *map(jnp.asarray, ws), angles, n_img, scale)
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), 2,
+                                         *map(_t, ws), angles, n_img, scale)
+    _close(got, want)
+
+
 def test_fused_attention_gradients_at_head_dim_8_match_jax_vjp():
     # the backward's flash attention pads the head dim 8 to 16 (the
     # kernels' instance) on the CPU too: the same gradients as JAX's

@@ -207,18 +207,20 @@ def test_infer_cli_int8_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra,err", [
     (["--device", "cuda"], RuntimeError),
-    (["--device", "cpu", "--quant", "int8", "--gif"], NotImplementedError),
-    (["--device", "cpu", "--gif"], NotImplementedError),
+    (["--device", "cpu", "--gif", "--save_latents", "x.npy"], SystemExit),
+    (["--device", "cpu", "--attn_tail", "all"], SystemExit),
 ])
 def test_infer_cli_refuses_what_it_cannot_do(tmp_path, monkeypatch, extra,
                                              err):
+    # no card; --gif with --save_latents (exclusive, as in the JAX CLI); an
+    # int8 option without --quant int8; a native checkpoint without --step
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _write_reference_checkpoint(tmp_path)
     with pytest.raises(err):
         tinfer.main(args + extra)
-    native = ["--loadDir", str(tmp_path), "--step", "3", "--text_input", "x",
-              "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    native = ["--loadDir", str(tmp_path), "--text_input", "x", "--device",
+              "cpu"]
+    with pytest.raises(ValueError, match="--step"):
         tinfer.main(native)
 
 
