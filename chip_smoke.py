@@ -52,9 +52,15 @@ Phases (any failure exits non-zero without the final ok line):
      shape, batch 1 doubled by CFG, K7qF and K8bF at the 1024px slice
      shape, K2F, K3F, K9F at that model's 512px streams, K10AF and K10BF
      there and at k 1600, K10BF bit for bit); flash at head dims 256
-     and 160 (padded to 256), bf16 (K5W, K6AW, K6BW) and fp32 (K5WF,
-     K6AWF, K6BWF), then through the flash API, which counts their
-     launches.
+     and 160 (padded to 256), 384 and 512 (the wide instances, every
+     multiple of 128), bf16 (K5W, K6AW, K6BW) and fp32 (K5WF, K6AWF,
+     K6BWF), then through the flash API, which counts their launches; the
+     fused route past the dividers of 128: every fused kernel, bf16 and
+     fp32, at head dims 48, 96, 192 (padded to 64, 128, 256), 256 and 384
+     (the wide instances K1W .. K8BW, K1WF .. K8BWF) at a small shape, each
+     in its family's limit, then the wide instances timed at the 512px
+     joint length with five heads of 256 (the streaming ones forced there),
+     their launches counted through the attention API.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -119,7 +125,19 @@ Phases (any failure exits non-zero without the final ok line):
      int8 (K2, K3, K4) and fp32 int8 with and without the block tails (the
      fp32 instances), each run's launches counted from 0; tiny_config:
      a bf16-moment run, an 8-bit resume from its artifact, and --gif;
-  13. one JSON line {"kernels": [...]} per ported kernel (with its design:
+  13. the frozen encoders and the FLUX VAE (sd3_torch/models/
+     encoder_suite.py) at the published widths, random weights seeded and
+     built on the card, token ids from a seed (no tokenizer): Gemma-2,
+     ModernBERT (bf16) and CLIP (fp16) at 2 layers and the whole VAE (bf16;
+     decoding 32 x 32 latents, encoding a 256px image) against the same
+     weights in fp32 on the CPU, each with a control that must fail its
+     limit (no causal mask, a swapped GeGLU, no mid attention); ms and peak
+     memory at full depth (text_to_embedding from ids at batch 4,
+     vae_decode at 64 x 64 and 128 x 128 latents and vae_encode at 512px,
+     batch 4, with the operations counted by hooks and their bound); then
+     phase 5's sampling through the suite in place of the stub (K1 380
+     launches a call), with each call's share spent encoding and decoding;
+  14. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or for the fp32 instances 3xTF32
      mma.sync over shared-memory tiles), then the card's name and power
      limit, then the last line
@@ -130,6 +148,7 @@ sd3_torch package beside this file.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -299,6 +318,19 @@ FP32_TRAIN_GRAD_REL_L2 = 1e-4
 FP32_TRAIN_UPDATE_REL_L2 = 1e-2
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor-core rates
 # and HBM3.
+# The frozen encoders and the VAE (phase 13) on the card in their serving
+# dtypes (Gemma-2, ModernBERT, VAE bf16; CLIP fp16) against the same weights
+# in fp32 on the CPU, rel L2. Text towers at 2 layers: one rounding to bf16
+# is 2^-9 = 2e-3 relative, and the CPU's bf16 towers sit at 4.5e-3 of fp32
+# (calibration with PyTorch's initialisation); 1e-2 leaves 2x. The VAE:
+# some 60 convs deep, each rounding to bf16, 1.4e-2 (decode) and 1.7e-2
+# (encode) on the CPU; 3e-2 leaves 2x. Each limit has a control that must
+# fail it: Gemma-2 and CLIP without the causal mask (2.1e-2 and 5.4e-2
+# from the intact fp32 tower on the CPU), ModernBERT with its GeGLU's input
+# and gate swapped (0.12), the VAE without its mid attention (encode 0.23).
+TEXT_REL_L2 = 1e-2
+VAE_REL_L2 = 3e-2
+
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
@@ -356,7 +388,18 @@ FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
 # head dims past the wgmma instances' 128, at the 512px token count and a
 # width near the published one: 256 (K5W / K6AW / K6BW in bf16, K5WF /
 # K6AWF / K6BWF in fp32), and 160, which runs padded to 256
-FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160)]
+FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
+              (4, 2, 1178, 512)]
+# the fused route at head dims JAX's fused attention takes with one head a
+# lane block: 48, 96 and 192 padded to the 64, 128 and 256 instances, 256
+# and 384 on the wide instances (every multiple of 128 past it); every
+# kernel, bf16 and fp32, checked at WIDE_CHECK's small shape, and the wide
+# instances timed at SLICE_WIDE (the 512px joint sequence, batch 2, five
+# heads of 256: about the published width) and, for the streaming ones,
+# forced past their single-KV length there
+WIDE_DIMS = (48, 96, 192, 256, 384)
+WIDE_CHECK = dict(b=2, h=8, w=9, n_txt=20, heads=2, rope=True)
+SLICE_WIDE = dict(b=2, h=32, w=32, n_txt=154, heads=5, d=256, rope=True)
 # the fp32 training steps on the card: the published widths at 2 blocks,
 # 256px latents (32 x 32), where K5F, K6AF and K6BF launch on the main path;
 # tiny_config's (head dim 16) runs in bf16 (K5, K6a, K6b at D 16)
@@ -437,6 +480,22 @@ def cuda_ms(fn, iters=10, groups=5, graph=True):
     return statistics.median(times)
 
 
+def device_ms(run, iters=3) -> float:
+    """The card's busy time of one run() call: the device time of every
+    launch in `iters` calls under torch.profiler, over iters (the rest of
+    an eager call's time is the host's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / (
+        1e3 * iters)
+
+
 def per_launch_us(run, iters=10) -> dict:
     """Device time (us) of each launch of one run() call, by kernel name
     (torch.profiler over `iters` calls after one more)."""
@@ -511,10 +570,11 @@ def attn_inputs(shape, gen):
     return q, k, v, ws, angles, n_img, tables
 
 
-def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
+def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
+                    streaming=None):
     """One fused-attention kernel (K1; K4 with int8_qk; K8a with int8_pv; K7,
-    K7q, K8b above 2048 padded tokens) vs its plain version at one shape;
-    returns the measurements."""
+    K7q, K8b above 2048 padded tokens, or at any length with `streaming`)
+    vs its plain version at one shape; returns the measurements."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
@@ -525,7 +585,9 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     cosq, sinq, cosk, sink = tables
     scale = d ** -0.5
     eps = float(torch.finfo(torch.bfloat16).eps)
-    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    if streaming is None:
+        streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    kv_max = 0 if streaming else 1 << 30
     name = ATTN_NAMES[(int8_qk, int8_pv, streaming)]
     if streaming:
         plain = (fa.composition_stream_int8_qk if int8_qk
@@ -540,7 +602,8 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
             else fa.K7_KEY_TILE)
     cmp_kw = dict(kw, block_k=tile) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
-                                       int8_qk=int8_qk, int8_pv=int8_pv)
+                                       int8_qk=int8_qk, int8_pv=int8_pv,
+                                       single_kv_max=kv_max)
     run_plain = lambda: plain(q, k, v, *tables, scale, eps, eps, nh, **kw)
     got = run_k()
     torch.cuda.synchronize()
@@ -575,7 +638,8 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False):
     nbytes = 4.0 * b * n * nh * d * 2 + 4.0 * n * d * 4  # q, k, v, out + tables
     t_bytes = nbytes / PEAK_BYTES
     res = dict(shape=f"B={b} N={n} n_img={n_img} H={nh} D={d} "
-               f"{'RoPE2d' if shape['rope'] else 'NoPE'}",
+               f"{'RoPE2d' if shape['rope'] else 'NoPE'}"
+               f"{' streaming' if streaming and n <= 2048 else ''}",
                max_abs_err=err, max_rel_err=rel, plain_bf16_max_abs_err=plain_err,
                kernel_vs_plain_bf16_max_abs_err=(
                    got.float() - same_rounding.float()).abs().max().item(),
@@ -607,7 +671,7 @@ def phase_attention_api(gen):
     from sd3_torch.ops import fused_attention as fa
 
     calls = []
-    for shape in (SLICE, SLICE_1024):
+    for shape in (SLICE, SLICE_1024, SLICE_WIDE, dict(SLICE_WIDE, h=64, w=64)):
         q, k, v, ws, angles, n_img, _ = attn_inputs(shape, gen)
         for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
                                  (True, True)):
@@ -638,10 +702,74 @@ def phase_attention_api(gen):
                 fused_attention_int8qk_fp32=1, fused_attention_int8pv_fp32=2,
                 fused_attention_stream_int8qk_fp32=1,
                 fused_attention_stream_int8pv_fp32=2)
+    # past head dim 128 (SLICE_WIDE, and at 64 x 64 past 2048 tokens) the
+    # same calls take the wide instances, bf16 and fp32
+    want.update({f"{nm}_wide{sfx}": c for nm, c in list(want.items())
+                 if not nm.endswith("_fp32") for sfx in ("", "_fp32")})
     for nm, c in want.items():
         require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
                 f"through the attention API, expected {c}")
     return launches
+
+
+def phase_attention_dims(gen):
+    """Every fused kernel (K1, K7, K4, K7q, K8a over both scores, K8b over
+    both) in bf16 and fp32 at each of WIDE_DIMS, at WIDE_CHECK's shape,
+    against its plain version on the same inputs, in its family's limits:
+    bf16 ATTN_ATOL (float scores and P.V), K4_ATOL / K8_ATOL (int8 scores
+    or P.V); fp32 FP32_REL_L2, INT8_FP32_MAX_REL / INT8_FP32_REL_L2. The
+    streaming kernels forced by single_kv_max=0 and compared over their
+    128-key tiles. Returns the worst error of each (kernel, head dim)."""
+    import torch
+    from sd3_torch.ops import fused_attention as fa
+
+    worst = {}
+    for d in WIDE_DIMS:
+        shape = dict(WIDE_CHECK, d=d)
+        qb, kb, vb, _, _, _, tables = attn_inputs(shape, gen)
+        nh = shape["heads"]
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dt) for t in (qb, kb, vb))
+            eps = float(torch.finfo(dt).eps)
+            for (int8_qk, int8_pv, streaming), nm in ATTN_NAMES.items():
+                got = fa.fused_attention(q, k, v, nh, *tables, d ** -0.5,
+                                         int8_qk=int8_qk, int8_pv=int8_pv,
+                                         single_kv_max=0 if streaming
+                                         else 1 << 30)
+                if streaming:
+                    plain = (fa.composition_stream_int8_qk if int8_qk
+                             else fa.composition_stream)
+                    kw = dict(block_k=fa.K8B_KEY_TILE)
+                else:
+                    plain = (fa.composition_int8_qk if int8_qk
+                             else fa.composition)
+                    kw = {}
+                if int8_pv:
+                    kw["int8_pv"] = True
+                want = plain(q.float(), k.float(), v.float(), *tables,
+                             d ** -0.5, eps, eps, nh, **kw)
+                require(got.dtype == dt and bool(torch.isfinite(got).all()),
+                        f"{nm} at head dim {d} {dt}: bad output")
+                label = f"{nm}{' fp32' if dt == torch.float32 else ''} D={d}"
+                if dt == torch.bfloat16:
+                    err = (got.float() - want).abs().max().item()
+                    lim = K8_ATOL if int8_pv else (
+                        K4_ATOL if int8_qk else ATTN_ATOL)
+                    require(err <= lim, f"{label}: max abs err {err} > {lim}")
+                elif int8_qk or int8_pv:
+                    e = _errs(got, want)
+                    err = e["rel_l2"]
+                    require(e["max_rel_err"] <= INT8_FP32_MAX_REL
+                            and err <= INT8_FP32_REL_L2,
+                            f"{label}: {e} past INT8_FP32 limits")
+                else:
+                    err = _rel_l2(got, want)
+                    require(err <= FP32_REL_L2,
+                            f"{label}: rel L2 {err} > {FP32_REL_L2}")
+                worst[label] = err
+    print("  fused attention by head dim (bf16: max abs err; fp32: rel L2)",
+          json.dumps(worst), flush=True)
+    return worst
 
 
 def phase_mlp(shape, gen, kind, fp32=False):
@@ -814,7 +942,8 @@ def _errs(got, want) -> dict:
                 rel_l2=(d.norm() / want.norm()).item())
 
 
-SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH")  # the last for head dims the others refuse
 
 
 def sdpa_backward_ms(q, k, v, do, scale) -> dict:
@@ -1018,7 +1147,7 @@ def phase_flash_fp32(shape, gen):
     return results
 
 
-def phase_attention_fp32(shape, gen):
+def phase_attention_fp32(shape, gen, streaming=None):
     """K1F (at most 2048 padded tokens) or K7F (above) on fp32 q, k, v
     against the fp32 plain composition on the card (TF32 off): rel L2
     within FP32_REL_L2, and FP32_OVER_BF16 times below the bf16 kernel's
@@ -1034,16 +1163,19 @@ def phase_attention_fp32(shape, gen):
                for t in (qb, kb, vb))
     n = q.shape[1]
     scale = d ** -0.5
-    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    if streaming is None:
+        streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    kv_max = 0 if streaming else 1 << 30
     name = "K7F" if streaming else "K1F"
     eps32 = float(torch.finfo(torch.float32).eps)
     eps16 = float(torch.finfo(torch.bfloat16).eps)
-    run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale)
+    run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
+                                       single_kv_max=kv_max)
     plain = fa.composition_stream if streaming else fa.composition
     run_plain = lambda: plain(q, k, v, *tables, scale, eps32, eps32, nh)
     got = run_k()
     bf = fa.fused_attention(*(t.bfloat16() for t in (q, k, v)), nh, *tables,
-                            scale)
+                            scale, single_kv_max=kv_max)
     torch.cuda.synchronize()
     want = run_plain()
     want16 = plain(q, k, v, *tables, scale, eps16, eps16, nh)
@@ -1075,7 +1207,8 @@ def phase_attention_fp32(shape, gen):
     return res
 
 
-def phase_attention_int8_fp32(shape, gen, int8_qk=False, int8_pv=False):
+def phase_attention_int8_fp32(shape, gen, int8_qk=False, int8_pv=False,
+                              streaming=None):
     """The fp32 instance of an int8 attention kernel (K4F, K8aF up to 2048
     padded tokens; K7qF, K8bF above) on fp32 q, k, v against its plain
     version in fp32 on the card (TF32 off; the streaming ones over the
@@ -1092,7 +1225,9 @@ def phase_attention_int8_fp32(shape, gen, int8_qk=False, int8_pv=False):
                for t in (qb, kb, vb))
     n = q.shape[1]
     scale = d ** -0.5
-    streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    if streaming is None:
+        streaming = -(-n // 128) * 128 > fa.SINGLE_KV_MAX
+    kv_max = 0 if streaming else 1 << 30
     name = ATTN_NAMES[(int8_qk, int8_pv, streaming)] + " fp32"
     eps = float(torch.finfo(torch.float32).eps)
     if streaming:
@@ -1103,7 +1238,8 @@ def phase_attention_int8_fp32(shape, gen, int8_qk=False, int8_pv=False):
     kw = dict(int8_pv=True) if int8_pv else {}
     cmp_kw = dict(kw, block_k=fa.K8B_KEY_TILE) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
-                                       int8_qk=int8_qk, int8_pv=int8_pv)
+                                       int8_qk=int8_qk, int8_pv=int8_pv,
+                                       single_kv_max=kv_max)
     run_plain = lambda: plain(q, k, v, *tables, scale, eps, eps, nh, **kw)
     got = run_k()
     torch.cuda.synchronize()
@@ -1965,13 +2101,239 @@ def attention_kernel(int8, int8_pv, streaming, fp32=False) -> str:
     return name
 
 
+class TimedSuite:
+    """The real-architecture suite (encoder_suite.RealTextEncoders, random
+    weights) behind the sampler's encoder interface: the token ids of every
+    prompt from a seed, as no tokenizer is there; `spent` holds the seconds
+    of its encodes and decodes (each synchronised on both sides)."""
+
+    def __init__(self, suite, seed=0):
+        self.suite = suite
+        self.latent_channels = suite.latent_channels
+        self.seed = seed
+        self.spent = dict(encode_s=0.0, decode_s=0.0)
+
+    def _timed(self, key, fn, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.spent[key] += time.time() - t0
+        return out
+
+    def text_to_embedding(self, text):
+        n = 1 if isinstance(text, str) else len(text)
+        return self._timed("encode_s", self.suite.embed_ids,
+                           *text_ids(self.suite, n, self.seed))
+
+    def vae_decode(self, latents):
+        return self._timed("decode_s", self.suite.vae_decode, latents)
+
+
+def text_ids(suite, batch, seed, valid=None):
+    """Seeded token ids and masks of the suite's three towers (77 tokens;
+    row i valid up to valid[i], else whole)."""
+    import torch
+    from sd3_torch.models.text_encoders import TEXT_TOKENS
+    gen = torch.Generator().manual_seed(seed)
+    mask = torch.ones((batch, TEXT_TOKENS), dtype=torch.long)
+    for i, n in enumerate(valid or []):
+        mask[i, n:] = 0
+    out = []
+    for net in (suite.gemma, suite.bert, suite.clip):
+        out += [torch.randint(0, net.cfg.vocab_size, (batch, TEXT_TOKENS),
+                              generator=gen), mask]
+    return out
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """obj.name = value inside the block (the controls of phase 13)."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def net_pair(cls, cfg, dtype, seed):
+    """(the network on the card in `dtype` with PyTorch's initialisation
+    seeded by `seed`, the same weights in fp32 on the CPU)."""
+    import torch
+    torch.manual_seed(seed)
+    card = cls(cfg, dtype=dtype, device="cuda")
+    cpu = cls(cfg, dtype=torch.float32, device="meta")
+    cpu.load_state_dict({k: v.float().cpu() for k, v in
+                         card.state_dict().items()}, assign=True)
+    return card, cpu
+
+
+def count_flops(run, root) -> float:
+    """The operations of run(): 2 * MACs of every conv and linear under
+    `root` (forward hooks on the modules), and of the VAE's mid attention
+    QK^T and P.V, 4 * B * N^2 * C."""
+    import torch
+    from sd3_torch.models.vae import AttnBlock
+    total = [0.0]
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            kh, kw = m.kernel_size
+            total[0] += 2.0 * out.numel() * m.in_channels // m.groups * kh * kw
+        elif isinstance(m, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * m.in_features
+        else:
+            b, c, h, w = out.shape
+            total[0] += 4.0 * b * (h * w) ** 2 * c
+    hooks = [m.register_forward_hook(hook) for m in root.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear, AttnBlock))]
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_encoders(card):
+    """The frozen encoders and the FLUX VAE (models/encoder_suite.py) at the
+    published widths with seeded random weights built on the card, no
+    tokenizer (seeded ids): each network in its serving dtype against the
+    same weights in fp32 on the CPU (Gemma-2, ModernBERT, CLIP at 2 layers;
+    the whole VAE decoding 32 x 32 latents and encoding a 256px image) in
+    TEXT_REL_L2 / VAE_REL_L2, each with a control that must fail its limit;
+    then ms, the card's busy ms (device_ms) and peak memory at full depth
+    (text_to_embedding from ids at batch 4; vae_decode at 64 x 64 and 128 x
+    128 latents and vae_encode at 512px, batch 4, beside the bound of their
+    counted operations); then
+    512px bf16 sampling of the published 19-block MMDiT through the suite
+    (batch 4, 20 Euler steps, CFG 5; K1 380 launches a call), with the
+    share of each call spent encoding and decoding."""
+    import dataclasses
+
+    import torch
+    from sd3_torch.models import clip_text, encoder_ops, gemma2, modernbert
+    from sd3_torch.models import vae as vae_mod
+    from sd3_torch.models.encoder_suite import RealTextEncoders
+
+    out = {}
+    # 1. each network against fp32 on the CPU, and its control
+    ids_gen = torch.Generator().manual_seed(11)
+    mask = torch.ones((2, 77), dtype=torch.long)
+    mask[1, 40:] = 0
+    non_causal = lambda m, t, causal, dev: encoder_ops.pad_bias(m, t, False,
+                                                                dev)
+
+    def swapped_geglu(self, x):
+        inp, gate = self.Wi(x).chunk(2, dim=-1)
+        return self.Wo(torch.nn.functional.gelu(gate) * inp)
+
+    towers = (  # name, class, 2-layer published config, dtype, control
+        ("Gemma-2", gemma2.Gemma2Encoder,
+         dataclasses.replace(gemma2.Gemma2Config(), num_hidden_layers=2),
+         torch.bfloat16, ("no causal mask", gemma2, "pad_bias", non_causal)),
+        ("ModernBERT", modernbert.ModernBertEncoder,
+         dataclasses.replace(modernbert.ModernBertConfig(),
+                             num_hidden_layers=2), torch.bfloat16,
+         ("GeGLU input and gate swapped", modernbert.ModernBertMLP,
+          "forward", swapped_geglu)),
+        ("CLIP", clip_text.ClipTextEncoder,
+         dataclasses.replace(clip_text.ClipTextConfig(), num_hidden_layers=2),
+         torch.float16, ("no causal mask", clip_text, "pad_bias", non_causal)))
+    for seed, (name, cls, cfg, dt, (what, obj, attr, value)) in enumerate(
+            towers):
+        dut, ref = net_pair(cls, cfg, dt, seed)
+        ids = torch.randint(0, cfg.vocab_size, (2, 77), generator=ids_gen)
+        flat = lambda o: (torch.cat([o[0].flatten().float().cpu(),
+                                     o[1].flatten().float().cpu()])
+                          if isinstance(o, tuple) else o.float().cpu())
+        want = flat(ref(ids, mask))
+        err = _rel_l2(flat(dut(ids, mask)), want)
+        with patched(obj, attr, value):
+            ctl = _rel_l2(flat(dut(ids, mask)), want)
+        out[name] = dict(dtype=str(dt), rel_l2=err, limit=TEXT_REL_L2,
+                         control=what, control_rel_l2=ctl)
+        print(f"  {name}", json.dumps(out[name]), flush=True)
+        require(err <= TEXT_REL_L2, f"{name} rel L2 {err} > {TEXT_REL_L2}")
+        require(ctl > TEXT_REL_L2, f"{name} with its control ({what}) at "
+                f"rel L2 {ctl}: the limit {TEXT_REL_L2} would pass it")
+        del dut, ref
+    dut, ref = net_pair(vae_mod.FluxVAE, vae_mod.VAEConfig.flux(),
+                        torch.bfloat16, 7)
+    gen = torch.Generator().manual_seed(12)
+    z = torch.randn((1, 16, 32, 32), generator=gen)
+    img = torch.rand((1, 3, 256, 256), generator=gen) * 2 - 1
+    flat = lambda m: torch.cat([m.decode(z).flatten().cpu(),
+                                *(t.flatten().cpu()
+                                  for t in m.encode_moments(img))])
+    want = flat(ref)
+    err = _rel_l2(flat(dut), want)
+    with patched(vae_mod.AttnBlock, "forward", lambda self, x: x):
+        ctl = _rel_l2(flat(dut), want)
+    out["VAE"] = dict(dtype="torch.bfloat16", rel_l2=err, limit=VAE_REL_L2,
+                      control="no mid attention", control_rel_l2=ctl)
+    print("  VAE (decode 32x32 latents, encode 256px)", json.dumps(out["VAE"]),
+          flush=True)
+    require(err <= VAE_REL_L2, f"VAE rel L2 {err} > {VAE_REL_L2}")
+    require(ctl > VAE_REL_L2, f"VAE without its mid attention at rel L2 "
+            f"{ctl}: the limit {VAE_REL_L2} would pass it")
+    del dut, ref
+
+    # 2. times and peak memory at full depth, batch 4
+    torch.manual_seed(0)
+    suite = RealTextEncoders.build("cuda")
+    ids = [t.cuda() for t in text_ids(suite, 4, 1, valid=[77, 60, 30, 10])]
+
+    def timed(label, fn, flops=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(fn, iters=1, groups=3, graph=False)
+        r = dict(ms=ms, device_ms=device_ms(fn),
+                 peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        if flops:
+            r.update(tflop=flops / 1e12,
+                     **bound(flops / PEAK_BF16_FLOPS, 0.0))
+        out[label] = r
+        print(f"  {label}", json.dumps(r), flush=True)
+    timed("text_to_embedding ids B=4", lambda: suite.embed_ids(*ids))
+    for hw in (64, 128):
+        zz = torch.randn((4, 16, hw, hw), device="cuda")
+        flops = count_flops(lambda: suite.vae_decode(zz[:1]),
+                            suite.vae.decoder) * 4
+        timed(f"vae_decode {hw}x{hw} latents B=4",
+              lambda: suite.vae_decode(zz), flops)
+    im = torch.rand((4, 3, 512, 512), device="cuda") * 2 - 1
+    flops = count_flops(lambda: suite.vae.encode_moments(im[:1]),
+                        suite.vae.encoder) * 4
+    g = torch.Generator(device="cuda").manual_seed(3)
+    timed("vae_encode 512px B=4", lambda: suite.vae_encode(im, g), flops)
+    z = suite.vae_encode(im, g)
+    require(tuple(z.shape) == (4, 16, 64, 64) and
+            bool(torch.isfinite(z).all()), f"vae_encode: {tuple(z.shape)}")
+
+    # 3. 512px sampling of the published model through the suite
+    run = phase_sample(card, enc=TimedSuite(suite))
+    med = run["median_s_per_batch"]
+    i = run["run_s"].index(med)
+    part = run["encode_decode_s"][i]
+    out["sample"] = dict(images_per_s=run["images_per_s"], median_s=med,
+                         encode_share=part["encode_s"] / med,
+                         decode_share=part["decode_s"] / med, **part)
+    print("  sample through the suite", json.dumps(out["sample"]), flush=True)
+    return out, run
+
+
 def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
-                 tails=False):
+                 tails=False, enc=None):
     """Full-width sampling through the port's entry points: the bf16 model,
     or (int8) the same seeded weights quantized by quantize_model, with
     int8_pv int8 P.V in the streaming attention, with `tails` the opt-in
-    block tails. One warmup call, `timed` timed calls, then one more under
-    torch.profiler."""
+    block tails; through the stub encoders, or `enc` (a TimedSuite: the
+    seconds of its encode and decode in each timed call are kept). One
+    warmup call, `timed` timed calls, then one more under torch.profiler."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.inference.sampler import sample_imgs
@@ -1988,7 +2350,7 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
     if int8:
         quantize_model(model).cast_params(torch.bfloat16)
     n_params = sum(t.numel() for t in model.state_dict().values())
-    enc = StubTextEncoders(device="cuda")
+    enc = enc or StubTextEncoders(device="cuda")
     torch.cuda.synchronize()
     label = (f"{model.cfg.quant}{' int8_pv' if int8_pv else ''}"
              f"{' tails' if tails else ''} {res}px")
@@ -2008,6 +2370,8 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
 
     def run(decode):
         gen = torch.Generator().manual_seed(1)
+        if isinstance(enc, TimedSuite):
+            enc.spent = dict(encode_s=0.0, decode_s=0.0)
         reset_launches()
         out = sample_imgs(model, enc, batch, steps, "a red fox in the snow",
                           cfg_scale=5.0, width=res, height=res,
@@ -2029,14 +2393,16 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
     imgs = enc.vae_decode(lat)
     require(tuple(imgs.shape) == (batch, 3, res, res),
             f"decode shape {tuple(imgs.shape)}")
-    times, launches = [], {}
+    times, launches, parts = [], {}, []
     for _ in range(timed):
         t0 = time.time()
         imgs, launches = run(decode=True)
         times.append(time.time() - t0)
+        parts.append(dict(getattr(enc, "spent", {})))
         require(bool(torch.isfinite(imgs).all()), "decoded images non-finite")
     med = statistics.median(times)
     res_d = dict(quant=model.cfg.quant, int8_pv=int8_pv, tails=tails,
+                 encoders=type(enc).__name__, encode_decode_s=parts,
                  batch=batch,
                  steps=steps, res=res, warmup_s=warm_s, run_s=times,
                  median_s_per_batch=med, images_per_s=batch / med,
@@ -2276,6 +2642,19 @@ def main() -> int:
         k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
         flash_api = phase_flash_api(gen)
         phase_k1_backward(gen)
+        # the fused route past head dim 128: every kernel at each of
+        # WIDE_DIMS in bf16 and fp32, then each wide instance timed at
+        # SLICE_WIDE
+        phase_attention_dims(gen)
+        wide = {}
+        for (int8_qk, int8_pv, streaming), nm in ATTN_NAMES.items():
+            wide[nm] = phase_attention(SLICE_WIDE, gen, int8_qk, int8_pv,
+                                       streaming=streaming)
+            wide[nm + " fp32"] = (
+                phase_attention_int8_fp32(SLICE_WIDE, gen, int8_qk, int8_pv,
+                                          streaming=streaming)
+                if int8_qk or int8_pv else
+                phase_attention_fp32(SLICE_WIDE, gen, streaming=streaming))
 
         print("phase 4: 2-block models on the card vs fp32 on the CPU: "
               "512px batch 2, 1024px batch 1", flush=True)
@@ -2332,7 +2711,13 @@ def main() -> int:
               "resume and GIF", flush=True)
         cli = phase_cli(card, ckpt_root)
 
-        print("phase 13: kernels", flush=True)
+        print("phase 13: the frozen encoders and the FLUX VAE at the "
+              "published widths (random weights): against fp32 on the CPU "
+              "with controls, times at full depth, 512px sampling through "
+              "them", flush=True)
+        phase_encoders(card)
+
+        print("phase 14: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,
@@ -2426,6 +2811,16 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
             (flash_attention.K6BWF, k56wf[0]["K6BF"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
+            # the fused kernels past head dim 128 (the wide instances, bf16
+            # and fp32, at SLICE_WIDE): their launches are those of the
+            # attention API phase
+            *[(fused_attention._WIDE[getattr(fused_attention, base)][fp32],
+               wide[nm + fp32 * " fp32"], "attention_fp32.cu",
+               f"sd3_tpu/ops/fused_attention.py:{line}", api, lambda run: run)
+              for base, nm, line in (("K1", "K1", 135), ("K4", "K4", 193),
+                                     ("K8A", "K8a", 181), ("K7", "K7", 312),
+                                     ("K7Q", "K7q", 352), ("K8B", "K8b", 406))
+              for fp32 in (0, 1)],
         ]
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",

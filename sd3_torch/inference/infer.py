@@ -11,8 +11,11 @@ and model_Ns.msgpack, or with `--ema` model_ema_Ns.msgpack;
 state_dict with the `--loadDefFile` params JSON), and samples on `--device`
 (default cuda; it raises when no GPU is there rather than run on the CPU).
 `--gif` also writes `<out_imgname>_diffusion.gif`, the first sample decoded
-after every step, at `--gif_fps`. `--stub_encoders`
-runs with the deterministic stub conditioning stack. `--quant int8` serves
+after every step, at `--gif_fps`. `--stub_encoders` runs with the
+deterministic stub conditioning stack, `--encoder_weights DIR` with the real
+one, Gemma-2, ModernBERT, CLIP and the FLUX VAE (`models/encoder_suite.py`)
+from the snapshots under DIR (gemma-2-2b/, modernbert-large/,
+metaclip-l14/, flux-vae/); with neither, the stub. `--quant int8` serves
 with w8a8 projections and the int8 kernels: the float checkpoint is loaded,
 quantized (`--quant_skip` names stay float), cast, then moved to the
 device; `--int8_pv` adds int8 P.V in the streaming attention above 2048
@@ -35,8 +38,10 @@ import pickle
 import numpy as np
 
 
-def build_argparser():
-    p = argparse.ArgumentParser(description=__doc__)
+def build_argparser(prompt: bool = True, description: str = __doc__):
+    """The flags of a sampling run; `prompt`: with --text_input (the loop
+    reads its prompts from stdin instead)."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("--loadDir", required=True)
     p.add_argument("--step", type=int, default=None,
                    help="checkpoint step suffix (native checkpoints)")
@@ -44,7 +49,8 @@ def build_argparser():
                    help="reference .pkl state_dict filename inside loadDir")
     p.add_argument("--loadDefFile", default=None,
                    help="model_params JSON filename inside loadDir")
-    p.add_argument("--text_input", required=True)
+    if prompt:
+        p.add_argument("--text_input", required=True)
     p.add_argument("--num_steps", type=int, default=10)
     p.add_argument("--guidance", type=float, default=4.0)
     p.add_argument("--width", type=int, default=256)
@@ -58,6 +64,8 @@ def build_argparser():
                    help="also save the per-step diffusion gif")
     p.add_argument("--gif_fps", type=int, default=10)
     p.add_argument("--stub_encoders", action="store_true")
+    p.add_argument("--encoder_weights", default=None, metavar="DIR",
+                   help="the real encoder suite from the snapshots under DIR")
     p.add_argument("--ema", action="store_true",
                    help="load the EMA weights (native checkpoints)")
     p.add_argument("--dtype", default="checkpoint",
@@ -181,11 +189,9 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     model, cfg = load_model(args, device)
-    encoders = load_text_encoders(
-        device=device, stub=args.stub_encoders,
-        weights_dir=None if args.stub_encoders
-        else os.environ.get("SD3_ENCODER_WEIGHTS"),
-        model_cfg=cfg)
+    encoders = load_text_encoders(device=device, stub=args.stub_encoders,
+                                  weights_dir=args.encoder_weights,
+                                  model_cfg=cfg)
     # seed -1 means "random" (reference infer.py default)
     seed = args.seed if args.seed != -1 else int.from_bytes(os.urandom(4), "little")
     gen = torch.Generator(device="cpu").manual_seed(seed)

@@ -6,9 +6,10 @@ sd3_tpu/models/text_encoders.py).
   vae latents: z = sample * scaling + shift (the reference's convention,
     VAE_T5_CLIP_inference.py:41), inverted by (z - shift) / scaling.
 
-The real encoders and the FLUX VAE are not ported yet; `StubTextEncoders`
-gives deterministic pseudo-embeddings and a fixed random projection in place
-of the VAE, so the sampler and the CLI run without weights.
+The real encoders and the FLUX VAE are `encoder_suite.RealTextEncoders`
+(`load_text_encoders(weights_dir=...)`); `StubTextEncoders` gives
+deterministic pseudo-embeddings and a fixed random projection in place of
+the VAE, so the sampler and the CLI run without weights.
 """
 
 from __future__ import annotations
@@ -118,13 +119,13 @@ class StubTextEncoders:
 
 def load_text_encoders(device="cuda", stub: bool = False,
                        weights_dir: str | None = None, model_cfg=None):
-    """The encoder suite: StubTextEncoders (sized to `model_cfg` if given,
-    as tiny test checkpoints have other conditioning widths). The real
-    encoders are not ported yet."""
+    """The encoder suite: `RealTextEncoders.from_pretrained(weights_dir)`
+    when a weights directory is given and `stub` is not set, else
+    StubTextEncoders (sized to `model_cfg` if given, as tiny test
+    checkpoints have other conditioning widths)."""
     if not stub and weights_dir is not None:
-        raise NotImplementedError(
-            "the real text encoders and the FLUX VAE are not ported yet: "
-            "ROADMAP.md, port queue, 'frozen encoders'")
+        from sd3_torch.models.encoder_suite import RealTextEncoders
+        return RealTextEncoders.from_pretrained(weights_dir, device=device)
     if model_cfg is None:
         return StubTextEncoders(device=device)
     return StubTextEncoders(

@@ -20,16 +20,18 @@ tensors. fp32 tensors (JAX's fp32 kernels run their products at
 Precision.HIGHEST) take their fp32 instances K5F, K6AF and K6BF
 (`csrc/attention_fp32.cu`: 3xTF32 mma.sync, fp32-accurate products).
 
-The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128,
-256). At 256 bf16 tensors take K5W, K6AW and K6BW, the bf16 instances of
-the fp32 kernels (the wgmma kernels stop at 128: one tf32 product of the
-exact bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF,
-K6AWF and K6BWF (the fp32 kernels at 256); both split a block's output
-columns into slices of 128. Any other head dim up to 256 is zero-padded
-to the next instance, as the JAX wrapper pads D to a multiple of 128
-lanes: q, k, v (and out, dO) padded on D, the kernel run with the caller's
-scale, and out, dq, dk, dv sliced back. Zero columns add nothing to the
-scores, to lse or to delta. Past 256 the wrappers raise on CUDA.
+The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128) and
+one set for every multiple of 128 past it: there bf16 tensors take K5W,
+K6AW and K6BW (`csrc/attention_fp32.cu`: one tf32 product of the exact
+bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF
+and K6BWF (3xTF32). They sum the scores over 128-wide chunks of the head,
+staged through shared memory a chunk at a time, and a block writes one
+128-wide column slice of the output, so their shared memory does not grow
+with the head dim. Any other head dim is zero-padded to the next instance
+(up to 128) or multiple of 128, as the JAX wrapper pads D to a multiple
+of 128 lanes: q, k, v (and out, dO) padded on D, the kernel run with the
+caller's scale, and out, dq, dk, dv sliced back. Zero columns add nothing
+to the scores, to lse or to delta.
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -62,7 +64,8 @@ import torch
 
 from sd3_torch.kernels import Kernel, check
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instances
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances; past 128 the
+WIDE = 128                      # wide ones, at every multiple of WIDE
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -81,25 +84,25 @@ K6AF = Kernel("flash_attention_dq_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BF = Kernel("flash_attention_dkv_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
-# head dim 256: bf16 (K5W, K6AW, K6BW) and fp32 (the fp32 entry points at
-# 256, counted apart)
-K5W = Kernel("flash_attention_fwd_d256", "attention_fp32.cu",
-             "sd3_flash_attention_fwd_d256", argtypes=_FWD_ARGS)
-K6AW = Kernel("flash_attention_dq_d256", "attention_fp32.cu",
-              "sd3_flash_attention_dq_d256", argtypes=_BWD_ARGS)
-K6BW = Kernel("flash_attention_dkv_d256", "attention_fp32.cu",
-              "sd3_flash_attention_dkv_d256", argtypes=_BWD_ARGS)
-K5WF = Kernel("flash_attention_fwd_fp32_d256", "attention_fp32.cu",
+# head dims past 128: bf16 (K5W, K6AW, K6BW) and fp32 (the fp32 entry
+# points there, counted apart)
+K5W = Kernel("flash_attention_fwd_wide", "attention_fp32.cu",
+             "sd3_flash_attention_fwd_wide", argtypes=_FWD_ARGS)
+K6AW = Kernel("flash_attention_dq_wide", "attention_fp32.cu",
+              "sd3_flash_attention_dq_wide", argtypes=_BWD_ARGS)
+K6BW = Kernel("flash_attention_dkv_wide", "attention_fp32.cu",
+              "sd3_flash_attention_dkv_wide", argtypes=_BWD_ARGS)
+K5WF = Kernel("flash_attention_fwd_fp32_wide", "attention_fp32.cu",
               "sd3_flash_attention_fwd_fp32", argtypes=_FWD_ARGS)
-K6AWF = Kernel("flash_attention_dq_fp32_d256", "attention_fp32.cu",
+K6AWF = Kernel("flash_attention_dq_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
-K6BWF = Kernel("flash_attention_dkv_fp32_d256", "attention_fp32.cu",
+K6BWF = Kernel("flash_attention_dkv_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
-# (bf16, fp32) kernels by instance head dim
+# (bf16, fp32) kernels up to 128 and past it
 _KERNELS = {
-    "fwd": {"small": (K5, K5F), 256: (K5W, K5WF)},
-    "dq": {"small": (K6A, K6AF), 256: (K6AW, K6AWF)},
-    "dkv": {"small": (K6B, K6BF), 256: (K6BW, K6BWF)},
+    "fwd": {"small": (K5, K5F), "wide": (K5W, K5WF)},
+    "dq": {"small": (K6A, K6AF), "wide": (K6AW, K6AWF)},
+    "dkv": {"small": (K6B, K6BF), "wide": (K6BW, K6BWF)},
 }
 
 
@@ -178,12 +181,11 @@ def _launch(kern: Kernel, tensors, strided, b, h, n, d, scale):
 
 def instance_dim(d: int) -> int:
     """The kernel instance that takes head dim d: the least of HEAD_DIMS at
-    least d; NotImplementedError past the largest."""
+    least d, past them d rounded up to a multiple of WIDE."""
     for e in HEAD_DIMS:
         if d <= e:
             return e
-    raise NotImplementedError(
-        f"the flash kernels take head dims up to {HEAD_DIMS[-1]}; got {d}")
+    return -(-d // WIDE) * WIDE
 
 
 def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -194,12 +196,10 @@ def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
 
 def _check_cuda(which: str, *ts) -> Kernel:
     """The kernel of `_KERNELS[which]` that takes tensors `ts`, checked:
-    one CUDA device, one dtype (bf16 or fp32), one (B, H, N, D) shape, D up
-    to 256."""
+    one CUDA device, one dtype (bf16 or fp32), one (B, H, N, D) shape."""
     q = ts[0]
-    by_dim = _KERNELS[which]
-    dp = instance_dim(q.shape[-1])
-    kern = by_dim[dp if dp in by_dim else "small"][q.dtype == torch.float32]
+    size = "wide" if instance_dim(q.shape[-1]) > HEAD_DIMS[-1] else "small"
+    kern = _KERNELS[which][size][q.dtype == torch.float32]
     if q.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {q.device}")
     for t in ts:
@@ -226,16 +226,6 @@ def _stats(lse: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return lse.to(like.device, torch.float32).contiguous()
 
 
-def _padded_dim(q: torch.Tensor) -> int:
-    """The head dim the tensors of q's call are padded to: the instance of
-    q's head dim; a CPU call past the largest runs its plain version
-    unpadded."""
-    d = q.shape[-1]
-    if q.device.type == "cpu" and d > HEAD_DIMS[-1]:
-        return d
-    return instance_dim(d)
-
-
 def _operands(ts, dp):
     """Each tensor padded to head dim dp and, on the card, readable in place
     or copied."""
@@ -249,7 +239,7 @@ def flash_fwd(q, k, v, scale: float):
     if q.device.type != "cpu":
         kern = _check_cuda("fwd", q, k, v)
     b, h, n, d = q.shape
-    dp = _padded_dim(q)
+    dp = instance_dim(d)
     q, k, v = _operands((q, k, v), dp)
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, scale)
@@ -266,7 +256,7 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
     if q.device.type != "cpu":
         kern = _check_cuda("dq", q, k, v, out, dout)
     b, h, n, d = q.shape
-    dp = _padded_dim(q)
+    dp = instance_dim(d)
     q, k, v, out, dout = _operands((q, k, v, out, dout), dp)
     if q.device.type == "cpu":
         dq, delta = flash_dq_plain(q, k, v, out, dout, lse, scale)
@@ -285,7 +275,7 @@ def flash_dkv(q, k, v, dout, lse, delta, scale: float):
     if q.device.type != "cpu":
         kern = _check_cuda("dkv", q, k, v, dout)
     b, h, n, d = q.shape
-    dp = _padded_dim(q)
+    dp = instance_dim(d)
     q, k, v, dout = _operands((q, k, v, dout), dp)
     if q.device.type == "cpu":
         dk, dv = flash_dkv_plain(q, k, v, dout, lse, delta, scale)

@@ -42,11 +42,21 @@ int8 product on s8 mma.sync, the floating-point one in 3xTF32; p and the
 output in fp32, as the plain versions keep them).
 The CUDA sources' heads say what bounds each kernel on an H100.
 
-Head dims: the kernels have instances at `HEAD_DIMS` (16, 32, 64, 128).
-The JAX route sends any even head dim dividing 128 here; 2, 4 and 8 run
-at 16, q / k / v and the tables zero-padded on each head and the output
-sliced back, the true head dim passed to the prep so that its RMSNorm
-takes the mean over the head's own values.
+Head dims: the kernels take every even head dim. They have instances at
+the flash kernels' `HEAD_DIMS` (16, 32, 64, 128); past 128 every kernel
+runs on one set of instances for every multiple of 128
+(`csrc/attention_fp32.cu`, bf16 and
+fp32: K1W, K7W, K4W, K7QW, K8AW, K8BW and their F instances): q and k
+prepped in their own launches (the RMSNorm over the true head dim, then the
+rotation, scale*log2(e) folded into the q tables; int8 rows with their
+scales over the whole head), then mma.sync attention that sums the scores
+over 128-wide chunks of the head, staged through shared memory a chunk at
+a time, each block writing one 128-wide column slice of the output, so that
+shared memory does not grow with the head dim. Any other head dim is
+zero-padded to the next instance (48 to 64, 192 to 256), q / k / v and the
+tables zero-padded on each head and the output sliced back, the true head
+dim passed to the prep so that its RMSNorm takes the mean over the head's
+own values.
 
 Beside them, the plain PyTorch versions (the JAX kernels' arithmetic):
 `composition` (K1; K8a with `int8_pv`), `composition_int8_qk` (K4; K8a),
@@ -76,7 +86,8 @@ import numpy as np
 import torch
 
 from sd3_torch.kernels import Kernel, check
-from sd3_torch.ops.flash_attention import flash_attention
+from sd3_torch.ops.flash_attention import (HEAD_DIMS, flash_attention,
+                                           instance_dim)
 from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
@@ -85,8 +96,6 @@ LOG2_127 = 6.988684686772166  # int8 P.V: folds P's 1/127 scale into the shift
 SINGLE_KV_MAX = 2048        # padded tokens of the single-KV kernels (beyond:
                             # the streaming ones, K7 / K7q / K8b)
 STREAM_BLOCK = 2176         # JAX's streaming K block target (rows)
-HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances
-PADDED_HEAD_DIMS = (2, 4, 8)    # run at 16
 
 # the key tiles of the card's kernels, which the plain versions' `block_k`
 # must take to round p against the same running max: K1 and K7's
@@ -135,6 +144,22 @@ K8BF = Kernel("fused_attention_stream_int8pv_fp32", "attention_fp32.cu",
               "sd3_fused_attention_stream_int8pv_fp32",
               argtypes=_INT8_SM90_ARGS)
 _FP32 = {K1: K1F, K7: K7F, K4: K4F, K7Q: K7QF, K8A: K8AF, K8B: K8BF}
+# past head dim 128 (csrc/attention_fp32.cu), bf16 and fp32: one entry
+# point each, told the kernel by its TPU number (71: K7q, 81: K8a, 82: K8b)
+_WIDE_ARGS = [_P] * 15 + [_I] * 7 + [_F] * 2 + [_P]
+_WIDE = {}
+for _k, _kind in ((K1, 1), (K7, 7), (K4, 4), (K7Q, 71), (K8A, 81),
+                  (K8B, 82)):
+    _WIDE[_k] = tuple(
+        Kernel(f"{_k.name}_wide{sfx}", "attention_fp32.cu",
+               f"sd3_fused_attention_wide{sfx}", argtypes=_WIDE_ARGS)
+        for sfx in ("", "_fp32")) + (_kind,)
+K1W, K1WF, _ = _WIDE[K1]
+K7W, K7WF, _ = _WIDE[K7]
+K4W, K4WF, _ = _WIDE[K4]
+K7QW, K7QWF, _ = _WIDE[K7Q]
+K8AW, K8AWF, _ = _WIDE[K8A]
+K8BW, K8BWF, _ = _WIDE[K8B]
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
 
@@ -398,27 +423,30 @@ def _pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
 def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
             num_heads, int8_qk=False):
     """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; on fp32 q / k / v its fp32
-    instance, `_FP32`; for K8a / K8b `int8_qk` picks the scores under the
-    int8 P.V); tables already carry scale*log2(e). Head dims of
-    PADDED_HEAD_DIMS run at 16, zero-padded. Allocates the outputs and the
-    kernels' scratch."""
+    instance, `_FP32`; past head dim 128 its wide instance, `_WIDE`; for
+    K8a / K8b `int8_qk` picks the scores under the int8 P.V); tables already
+    carry scale*log2(e). Head dims between the instances run zero-padded to
+    the next (`flash_attention.instance_dim`). Allocates the outputs and the kernels'
+    scratch."""
     b, n, f = q.shape
     d = f // num_heads
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
             torch.bfloat16, torch.float32):
         raise TypeError(f"{kern.name} takes bfloat16 or float32 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dtype == torch.float32:
-        kern = _FP32[kern]
     if not (k.shape == v.shape == q.shape):
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
     if not (k.device == v.device == q.device):
         raise ValueError("q/k/v must lie on one device")
-    if d * num_heads != f or d not in HEAD_DIMS + PADDED_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{kern.name} takes head dims {HEAD_DIMS + PADDED_HEAD_DIMS}; got "
-            f"{f} features / {num_heads} heads")
-    dp = max(d, HEAD_DIMS[0])
+    if d * num_heads != f or d % 2:
+        raise ValueError(f"{f} features / {num_heads} heads: the heads must "
+                         "be of one even head dim (the rotation takes pairs)")
+    base, dp = kern, instance_dim(d)
+    wide = dp > HEAD_DIMS[-1]
+    if wide:
+        kern = _WIDE[base][q.dtype == torch.float32]
+    elif q.dtype == torch.float32:
+        kern = _FP32[base]
     cq, sq, ck, sk = (t.to(q.device, torch.float32).contiguous()
                       for t in (cq, sq, ck, sk))
     for t in (cq, sq, ck, sk):
@@ -431,7 +459,7 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     bh, dev = b * num_heads, q.device
-    if kern in (K1, K7, K1F, K7F):
+    if not wide and base in (K1, K7):
         # q^ and k^ in the input dtype, K1's ||q^|| per row, max ||k^||^2 per
         # (b, h)
         q_norm = torch.empty(bh * n if kern is K1 else 0,
@@ -445,11 +473,12 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
         # (b, h) statistics of the float prep or K4's amax, or the streaming
         # kernels' per-key k scales in rows padded to whole key tiles (their
         # tensor map); V's column amax and its int8 levels (int8 P.V), V^T's
-        # keys padded to whole key tiles (csrc/attention_int8_sm90.cu)
-        int8_qk = kern in (K4, K7Q, K4F, K7QF) or (
-            int8_qk and kern in (K8A, K8B, K8AF, K8BF))
-        per_row = int8_qk and kern in (K7Q, K8B, K7QF, K8BF)
-        pv8 = kern in (K8A, K8B, K8AF, K8BF)
+        # keys padded to whole key tiles (csrc/attention_int8_sm90.cu). The
+        # wide kernels take the same; K1's ||q^|| per row goes in q_scale,
+        # its max ||k^||^2 per (b, h) in k_stat.
+        int8_qk = base in (K4, K7Q) or (int8_qk and base in (K8A, K8B))
+        per_row = int8_qk and base in (K7Q, K8B)
+        pv8 = base in (K8A, K8B)
         tiles = _round_up(n, K8B_KEY_TILE)
         none = torch.empty(0, device=dev)
         k_prep = torch.empty_like(k) if not per_row else none
@@ -463,11 +492,14 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
                           device=dev)
         q_prep = (torch.empty(q.shape, dtype=torch.int8, device=dev)
                   if int8_qk else torch.empty_like(q))
-        q_scale = torch.empty(bh * n if int8_qk else 0, dtype=torch.float32,
-                              device=dev)
+        q_scale = torch.empty(bh * n if int8_qk or base is K1 else 0,
+                              dtype=torch.float32, device=dev)
         args = [q_prep, q_scale, k_prep, k_q, k_stat, v_amax, v_q, out]
-    ints = [b, n, num_heads, dp, d] + ([] if kern in (K1, K7, K1F, K7F)
-                                       else [int(int8_qk)])
+    ints = [b, n, num_heads, dp, d]
+    if wide:
+        ints.append(_WIDE[base][2])
+    if wide or base not in (K1, K7):
+        ints.append(int(int8_qk))
     with torch.cuda.device(dev):
         fn = kern.function()
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -17,6 +17,15 @@
 - `load_reference_state_dict(model, sd)`: drops the recomputed buffers a
   reference checkpoint carries (rotary tables, the absolute sin-cos table)
   and loads the rest strictly.
+- The frozen encoders: `flux_vae_state_dict_from_jax`,
+  `clip_text_state_dict_from_jax`, `gemma2_state_dict_from_jax` and
+  `modernbert_state_dict_from_jax`, each the exact inverse of the JAX
+  package's importer (`import_flux_vae_state_dict`, ...): numpy arrays of
+  the JAX tree -> the transformers / diffusers names of the port's modules
+  (`models/vae.py`, `clip_text.py`, `gemma2.py`, `modernbert.py`), conv
+  kernels HWIO -> OIHW, Dense kernels (in, out) -> (out, in), ModernBERT's
+  packed Wqkv kept packed; fp32 tensors that `load_state_dict(strict=True)`
+  takes.
 """
 
 from __future__ import annotations
@@ -159,3 +168,132 @@ def load_reference_state_dict(model: torch.nn.Module, sd: Mapping):
     kept = {k: torch.as_tensor(v) for k, v in sd.items()
             if not any(p.search(k) for p in _SKIP_PATTERNS)}
     return model.load_state_dict(kept, strict=True)
+
+
+# ---- the frozen encoders -------------------------------------------------
+
+def _t32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(a) -> torch.Tensor:
+    """A Dense kernel (in, out) -> a Linear weight (out, in)."""
+    return _t32(np.asarray(a).T)
+
+
+def flux_vae_state_dict_from_jax(params: Mapping) -> dict:
+    """FluxVAE params (`import_flux_vae_state_dict`'s tree) -> the diffusers
+    AutoencoderKL names of `models.vae.FluxVAE`."""
+    sd = {}
+
+    def conv(name, p):
+        sd[f"{name}.weight"] = _t32(np.transpose(np.asarray(p["kernel"]),
+                                                 (3, 2, 0, 1)))
+        sd[f"{name}.bias"] = _t32(p["bias"])
+
+    def norm(name, p):
+        sd[f"{name}.weight"] = _t32(p["weight"])
+        sd[f"{name}.bias"] = _t32(p["bias"])
+
+    def resnet(name, p):
+        norm(f"{name}.norm1", p["norm1"])
+        conv(f"{name}.conv1", p["conv1"])
+        norm(f"{name}.norm2", p["norm2"])
+        conv(f"{name}.conv2", p["conv2"])
+        if "conv_shortcut" in p:
+            conv(f"{name}.conv_shortcut", p["conv_shortcut"])
+
+    def attn(name, p):
+        norm(f"{name}.group_norm", p["group_norm"])
+        for jn, tn in (("to_q", "to_q"), ("to_k", "to_k"), ("to_v", "to_v"),
+                       ("to_out", "to_out.0")):
+            sd[f"{name}.{tn}.weight"] = _dense(p[jn]["kernel"])
+            sd[f"{name}.{tn}.bias"] = _t32(p[jn]["bias"])
+
+    for side, blocks, res, resample in (
+            ("encoder", "down_blocks", "down", "downsamplers"),
+            ("decoder", "up_blocks", "up", "upsamplers")):
+        p = params[side]
+        conv(f"{side}.conv_in", p["conv_in"])
+        levels = sorted({int(k.split("_")[1]) for k in p
+                         if k.startswith(res + "_")})
+        for i in levels:
+            j = 0
+            while f"{res}_{i}_res_{j}" in p:
+                resnet(f"{side}.{blocks}.{i}.resnets.{j}", p[f"{res}_{i}_res_{j}"])
+                j += 1
+            key = f"{res}_{i}_{'downsample' if side == 'encoder' else 'upsample'}"
+            if key in p:
+                conv(f"{side}.{blocks}.{i}.{resample}.0.conv", p[key])
+        resnet(f"{side}.mid_block.resnets.0", p["mid_res_0"])
+        resnet(f"{side}.mid_block.resnets.1", p["mid_res_1"])
+        attn(f"{side}.mid_block.attentions.0", p["mid_attn"])
+        norm(f"{side}.conv_norm_out", p["conv_norm_out"])
+        conv(f"{side}.conv_out", p["conv_out"])
+    return sd
+
+
+def clip_text_state_dict_from_jax(params: Mapping) -> dict:
+    """ClipTextEncoder params (`import_clip_text_state_dict`'s tree) -> the
+    transformers names of `models.clip_text.ClipTextEncoder`."""
+    pre = "text_model."
+    sd = {f"{pre}embeddings.token_embedding.weight":
+          _t32(params["token_embedding"]),
+          f"{pre}embeddings.position_embedding.weight":
+          _t32(params["position_embedding"]),
+          f"{pre}final_layer_norm.weight": _t32(params["final_layer_norm_w"]),
+          f"{pre}final_layer_norm.bias": _t32(params["final_layer_norm_b"]),
+          "text_projection.weight": _dense(params["text_projection"])}
+    i = 0
+    while f"layers_{i}" in params:
+        p, lp = params[f"layers_{i}"], f"{pre}encoder.layers.{i}."
+        for ln in ("layer_norm1", "layer_norm2"):
+            sd[f"{lp}{ln}.weight"] = _t32(p[f"{ln}_w"])
+            sd[f"{lp}{ln}.bias"] = _t32(p[f"{ln}_b"])
+        for name, where in (("q_proj", "self_attn"), ("k_proj", "self_attn"),
+                            ("v_proj", "self_attn"), ("out_proj", "self_attn"),
+                            ("fc1", "mlp"), ("fc2", "mlp")):
+            sd[f"{lp}{where}.{name}.weight"] = _dense(p[name]["kernel"])
+            sd[f"{lp}{where}.{name}.bias"] = _t32(p[name]["bias"])
+        i += 1
+    return sd
+
+
+def gemma2_state_dict_from_jax(params: Mapping) -> dict:
+    """Gemma2Encoder params (`import_gemma2_state_dict`'s tree) -> the
+    transformers Gemma2Model names of `models.gemma2.Gemma2Encoder`."""
+    sd = {"embed_tokens.weight": _t32(params["embed_tokens"]),
+          "norm.weight": _t32(params["norm"])}
+    i = 0
+    while f"layers_{i}" in params:
+        p, lp = params[f"layers_{i}"], f"layers.{i}."
+        for ln in ("input_layernorm", "post_attention_layernorm",
+                   "pre_feedforward_layernorm", "post_feedforward_layernorm"):
+            sd[f"{lp}{ln}.weight"] = _t32(p[ln])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[f"{lp}self_attn.{name}.weight"] = _dense(p[name]["kernel"])
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            sd[f"{lp}mlp.{name}.weight"] = _dense(p[name]["kernel"])
+        i += 1
+    return sd
+
+
+def modernbert_state_dict_from_jax(params: Mapping) -> dict:
+    """ModernBertEncoder params (`import_modernbert_state_dict`'s tree) ->
+    the transformers ModernBertModel names of
+    `models.modernbert.ModernBertEncoder`; Wqkv stays packed."""
+    sd = {"embeddings.tok_embeddings.weight": _t32(params["tok_embeddings"]),
+          "embeddings.norm.weight": _t32(params["emb_norm"]),
+          "final_norm.weight": _t32(params["final_norm"])}
+    i = 0
+    while f"layers_{i}" in params:
+        p, lp = params[f"layers_{i}"], f"layers.{i}."
+        sd[f"{lp}attn.Wqkv.weight"] = _dense(p["Wqkv"]["kernel"])
+        sd[f"{lp}attn.Wo.weight"] = _dense(p["Wo"]["kernel"])
+        sd[f"{lp}mlp.Wi.weight"] = _dense(p["Wi"]["kernel"])
+        sd[f"{lp}mlp.Wo.weight"] = _dense(p["Wo_mlp"]["kernel"])
+        sd[f"{lp}mlp_norm.weight"] = _t32(p["mlp_norm"])
+        if "attn_norm" in p:
+            sd[f"{lp}attn_norm.weight"] = _t32(p["attn_norm"])
+        i += 1
+    return sd

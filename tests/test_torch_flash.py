@@ -183,11 +183,13 @@ def test_wrapper_reads_the_general_paths_tensors_in_place(monkeypatch):
 
 @pytest.mark.parametrize("shape", [(2, 3, 47, 8), (1, 2, 65, 16),
                                    (2, 3, 47, 48), (1, 2, 129, 128),
-                                   (2, 3, 47, 160), (1, 2, 130, 256)])
+                                   (2, 3, 47, 160), (1, 2, 130, 256),
+                                   (1, 2, 40, 384), (1, 2, 33, 512)])
 def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
-    # the kernels' instances take head dims 16, 32, 64, 128 and 256; the
-    # wrappers zero-pad any other up to the next (8 -> 16, 48 -> 64, 160 ->
-    # 256, where JAX pads to 256 lanes too), run with the
+    # the kernels' instances take head dims 16, 32, 64, 128 and every
+    # multiple of 128 past it; the wrappers zero-pad any other up to the
+    # next (8 -> 16, 48 -> 64, 160 -> 256, where JAX pads to 256 lanes
+    # too), run with the
     # caller's scale and slice out, dq, dk, dv back, on the CPU as on the
     # card: forward and gradients of the autograd Function against JAX's
     # flash_attention (which pads D to 128 lanes)

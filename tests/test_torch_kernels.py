@@ -180,10 +180,37 @@ def test_every_kernel_symbol_is_in_its_source():
               tfa.K1F, tfa.K7F, tfl.K5F, tfl.K6AF, tfl.K6BF, tfa.K4F,
               tfa.K7QF, tfa.K8AF, tfa.K8BF, tfm.K2F, tfm.K3F, tfm.K9F,
               tfd.K10AF, tfd.K10BF, tfl.K5W, tfl.K6AW, tfl.K6BW, tfl.K5WF,
-              tfl.K6AWF, tfl.K6BWF):
+              tfl.K6AWF, tfl.K6BWF, tfa.K1W, tfa.K1WF, tfa.K7W, tfa.K7WF,
+              tfa.K4W, tfa.K4WF, tfa.K7QW, tfa.K7QWF, tfa.K8AW, tfa.K8AWF,
+              tfa.K8BW, tfa.K8BWF):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
+
+
+def test_wide_kernels_shared_memory_does_not_grow_with_the_head_dim():
+    # past head dim 128 one set of instances serves every multiple of 128:
+    # no template argument is a head dim, and their shared memory is sized
+    # by the 128-wide chunk alone (csrc/attention_fp32.cu)
+    src = (kernels.CSRC_DIR / "attention_fp32.cu").read_text()
+    for fn, params in (("wide_attn_kernel", "typename T, bool QK8, bool PV8"),
+                       ("wide_dq_kernel", "typename T"),
+                       ("wide_dkv_kernel", "typename T"),
+                       ("wide_prep_kernel", "typename T, bool Q8"),
+                       ("wide_v_quant_kernel", "typename T")):
+        m = re.search(r"template <([^>]*)>\n__global__ void "
+                      rf"__launch_bounds__\([^)]*\)\s*{fn}\(", src)
+        assert m and m.group(1) == params, fn
+    smem = src[src.index("struct WideSmem"):]
+    smem = smem[:smem.index("};")]
+    assert "template <bool QK8, bool PV8>" in src[:src.index("struct WideSmem")][-40:]
+    assert " D" not in smem.replace("WLDA", "").replace("WLDB", "")
+    for name in ("WIDE_DQ_SMEM", "WIDE_DKV_SMEM"):
+        line = src[src.index(f"constexpr int {name}"):].splitlines()[0]
+        assert "D " not in line and "D)" not in line, line
+    for d, want in ((48, 64), (160, 256), (192, 256), (256, 256),
+                    (300, 384), (384, 384), (512, 512)):
+        assert tfl.instance_dim(d) == want
 
 
 def test_flash_backward_is_the_wgmma_source():
@@ -880,8 +907,9 @@ def test_k4_k8b_rows_of_negative_scores_on_the_card(cuda_device, d, int8_qk,
 
 @pytest.mark.cuda
 def test_k1_refuses_what_it_does_not_take(cuda_device):
-    # fp16 (bf16 and fp32 have instances, the int8 kernels too); a head
-    # dim of neither an instance nor a padded one; dtypes that differ
+    # fp16 (bf16 and fp32 have instances, the int8 kernels too); dtypes that
+    # differ; heads of an odd head dim (the rotation takes pairs). Every even
+    # head dim runs (test_fused_attention_past_head_dim_128_on_the_card)
     q = torch.zeros(1, 8, 32, device=cuda_device, dtype=torch.float16)
     tab = torch.zeros(8, 16, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
@@ -892,17 +920,79 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError, match="one dtype"):
         tfa.fused_attention(q.float(), q.bfloat16(), q.float(), 2, tab, tab,
                             tab, tab, 0.25, int8_qk=True)
-    # head dim 256, which JAX's fused attention takes (the fused route's
-    # open fault, ROADMAP.md): no card instance past 128
-    q256 = torch.zeros(1, 8, 512, device=cuda_device, dtype=torch.bfloat16)
-    tab256 = torch.zeros(8, 256, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tfa.fused_attention(q256, q256, q256, 2, tab256, tab256, tab256,
-                            tab256, 0.0625)
-    qb = torch.zeros(1, 8, 48, device=cuda_device, dtype=torch.bfloat16)
-    tab = torch.zeros(8, 24, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tfa.fused_attention(qb, qb, qb, 2, tab, tab, tab, tab, 0.25)
+    qo = torch.zeros(1, 8, 30, device=cuda_device, dtype=torch.bfloat16)
+    tab = torch.zeros(8, 15, device=cuda_device)
+    with pytest.raises(ValueError, match="even head dim"):
+        tfa.fused_attention(qo, qo, qo, 2, tab, tab, tab, tab, 0.25)
+
+
+# head dims the fused route pads (48 -> 64, 96 -> 128, 192 -> 256) or runs
+# on the wide instances past 128 (256, 384); (heads, head dim, image h, w,
+# text tokens): ragged lengths, a last key tile of few keys
+WIDE_ATTN_SHAPES = [(3, 48, 5, 7, 9), (2, 96, 6, 6, 5), (2, 192, 8, 8, 11),
+                    (2, 256, 10, 13, 20), (2, 384, 7, 9, 4)]
+# (int8_qk, int8_pv, streaming): K1, K7, K4, K7q, K8a over K1 / K4, K8b
+# over K7 / K7q
+WIDE_VARIANTS = [(False, False, False), (False, False, True),
+                 *sorted(tfa._INFERENCE)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", WIDE_VARIANTS)
+@pytest.mark.parametrize("nh,d,h,w,n_txt", WIDE_ATTN_SHAPES)
+def test_fused_attention_past_head_dim_128_on_the_card(
+        cuda_device, no_tf32, nh, d, h, w, n_txt, int8_qk, int8_pv,
+        streaming, dtype):
+    # every fused kernel at head dims JAX's fused attention takes past the
+    # dividers of 128, against its plain version on the same inputs, in
+    # its family's limits: bf16 ATTN_ATOL (float P.V over float scores),
+    # K4_ATOL / K8_ATOL (int8 scores or int8 P.V); fp32 FP32_REL_L2 (float)
+    # and INT8_FP32_* (int8)
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, True,
+                                                   seed=d)
+    dev = cuda_device
+    n = q.shape[1]
+    qd, kd, vd = (_t(a).to(dev, dtype) for a in (q, k, v))
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img))
+    base = tfa._INFERENCE.get((int8_qk, int8_pv, streaming),
+                              (tfa.K7 if streaming else tfa.K1,))[0]
+    fp32 = dtype == torch.float32
+    if d > 128:
+        kern = tfa._WIDE[base][fp32]
+    else:
+        kern = tfa._FP32[base] if fp32 else base
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    got = tfa.fused_attention(qd, kd, vd, nh, *(t.to(dev) for t in tabs),
+                              scale, int8_qk=int8_qk, int8_pv=int8_pv,
+                              single_kv_max=0 if streaming else 2048)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kern.name: 1}
+    assert got.dtype == dtype and got.shape == qd.shape
+    eps = float(torch.finfo(dtype).eps)
+    ins = [t.float().cpu() for t in (qd, kd, vd)] + [*tabs, scale, eps, eps,
+                                                    nh]
+    kw = dict(int8_pv=True) if int8_pv else {}
+    if streaming:  # the kernels' key tiles
+        kw["block_k"] = tfa.K8B_KEY_TILE
+        plain = (tfa.composition_stream_int8_qk if int8_qk
+                 else tfa.composition_stream)
+    else:
+        plain = tfa.composition_int8_qk if int8_qk else tfa.composition
+    want = plain(*ins, **kw)
+    got = got.float().cpu()
+    if not fp32:
+        atol = 3e-2 if (int8_qk or int8_pv) else 1e-2
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol,
+                                   rtol=0)
+    elif int8_qk or int8_pv:
+        max_rel = ((got - want).abs().max() / want.abs().max()).item()
+        assert max_rel <= INT8_FP32_MAX_REL and _rel_l2(got, want) <= \
+            INT8_FP32_REL_L2, (max_rel, _rel_l2(got, want))
+    else:
+        assert _rel_l2(got, want) <= FP32_REL_L2, _rel_l2(got, want)
 
 
 # ---- training: K5, K6a, K6b and the gradient rules ----------------------
@@ -1129,16 +1219,13 @@ def test_k1_backward_runs_k5_k6_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_refuses_what_it_does_not_take(cuda_device):
-    # fp16 (bf16 and fp32 have instances), dtypes that differ, a head dim
-    # past the largest instance (any below it is padded: 160 runs at 256)
+    # fp16 (bf16 and fp32 have instances), dtypes that differ; every head
+    # dim runs (test_flash_past_head_dim_128_matches_plain_on_the_card)
     q = torch.zeros(1, 2, 8, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16"):
         tfl.flash_attention(q, q, q, 0.2)
     with pytest.raises(TypeError, match="one dtype"):
         tfl.flash_fwd(q.float(), q.bfloat16(), q.float(), 0.2)
-    qb = torch.zeros(1, 2, 8, 272, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="up to 256"):
-        tfl.flash_attention(qb, qb, qb, 0.2)
 
 
 def test_k1_carries_gradients_and_inference_kernels_refuse_them():
@@ -1471,10 +1558,12 @@ def test_fp32_k10_kernels_match_plain_on_the_card(cuda_device, b, n, k,
             a, gate, r, *ws[:2]))
 
 
-# head dims past the wgmma instances' 128: 256, and 160 padded to it, at
-# ragged lengths and over many key tiles
+# head dims past the wgmma instances' 128, on the wide instances at every
+# multiple of 128: 256, and 160 padded to it, 384, 300 padded to it, and
+# 512, at ragged lengths and over many key tiles
 FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
-                     (1, 2, 1178, 256)]
+                     (1, 2, 1178, 256), (1, 2, 300, 384), (2, 2, 65, 300),
+                     (1, 2, 129, 512)]
 
 
 @pytest.mark.cuda

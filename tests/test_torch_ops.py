@@ -256,9 +256,9 @@ def test_fused_attention_at_head_dim_8_matches_jax_kernel(int8_qk):
 def test_fused_attention_api_at_head_dim_256_matches_jax_kernel():
     # JAX's fused_dual_flash_attention takes head dim 256 (one head per
     # lane block; its model route sends only head dims dividing 128); the
-    # port's plain version matches it here, while its card kernels stop at
-    # 128 and raise (ROADMAP.md, faults: the fused route past head dim 128;
-    # tests/test_torch_kernels.py::test_k1_refuses_what_it_does_not_take)
+    # port's plain version matches it here, and its card kernels run it on
+    # the wide instances (tests/test_torch_kernels.py::
+    # test_fused_attention_past_head_dim_128_on_the_card)
     q, k, v, ws, angles, n_img, scale = _attn_case(2, 256, 2, 3, 4, True,
                                                    seed=9)
     want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -266,6 +266,30 @@ def test_fused_attention_api_at_head_dim_256_matches_jax_kernel():
     got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), 2,
                                          *map(_t, ws), angles, n_img, scale)
     _close(got, want)
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+@pytest.mark.parametrize("d", [48, 96, 192, 384])
+def test_fused_attention_api_past_the_dividers_of_128_matches_jax_kernel(
+        d, int8_qk):
+    # head dims JAX's fused attention takes with one head per lane block
+    # (_pack_factor 1): the port's card kernels run them padded (48 -> 64,
+    # 96 -> 128, 192 -> 256) or on the wide instance (384), and their plain
+    # version matches JAX's kernel here. Float: the fp32 tolerance. int8
+    # QK^T: atol 2e-3, one int8 level of q^ or k^ crossing a rounding
+    # boundary on a last-bit difference of the prep (at d 192 a one-ulp
+    # change of q and k moves the port's own output by 1.26e-3, the size of
+    # its difference to JAX there; the other head dims stay under 2e-4)
+    q, k, v, ws, angles, n_img, scale = _attn_case(2, d, 3, 4, 5, True,
+                                                   seed=d)
+    want = j_fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             2, *map(jnp.asarray, ws), angles, n_img, scale,
+                             int8_qk=int8_qk)
+    got = tfa.fused_dual_flash_attention(_t(q), _t(k), _t(v), 2,
+                                         *map(_t, ws), angles, n_img, scale,
+                                         int8_qk=int8_qk)
+    _close(got, want, atol=2e-3 if int8_qk else ATOL,
+           rtol=0 if int8_qk else RTOL)
 
 
 def test_fused_attention_gradients_at_head_dim_8_match_jax_vjp():
