@@ -137,7 +137,25 @@ Phases (any failure exits non-zero without the final ok line):
      batch 4, with the operations counted by hooks and their bound); then
      phase 5's sampling through the suite in place of the stub (K1 380
      launches a call), with each call's share spent encoding and decoding;
-  14. one JSON line {"kernels": [...]} per ported kernel (with its design:
+  14. the data feed (sd3_torch/data/): a raw parquet folder written from a
+     seed (150 images in three aspect families, two captions each, a
+     low-resolution and an undecodable row a file) through filter_dataset
+     -> create_phase (max 256) -> create_indices; HostDataLoader (2
+     threads) and RingDataLoader (2 processes) alone, 30 batches of 8,
+     their streams equal; train.main at the published config from the
+     folder (stub encoders, batch 8, accumulation 2, 6 steps, 2 ring
+     workers, --remat_policy attn --scan_blocks): K5, K6a, K6b 38 times a
+     step and K1-K4 none, two bucket shapes at least, the model artifact
+     strict into an unrolled MMDiT; the ops each remat policy keeps in one
+     block; one encoded group through Trainer.train_step under the four
+     policies, unrolled and stacked (loss and grad norm within 1e-6 of each
+     other, a control with one sample's noise changed outside it; K5 38 or
+     19 a step), with step times, peaks and the card's busy ms; phase 11's
+     configuration at 256px, batch 8, accumulation 2 fed by synthetic
+     batches, by the encoded feed on threads and on ring workers (median s
+     a step, idle share); vae_encode of the real-architecture FLUX VAE at
+     each bucket, batch 8;
+  15. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or for the fp32 instances 3xTF32
      mma.sync over shared-memory tiles), then the card's name and power
      limit, then the last line
@@ -1552,8 +1570,7 @@ def phase_train(card, log_dir):
     print("  train", json.dumps(res), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_s = step()[0]
     tr = device_breakdown(prof, traced_s)
     tr["idle_share_untraced"] = 1 - tr["device_busy_ms"] / (med * 1e3)
@@ -2417,8 +2434,7 @@ def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
     # kernel family. The profiler slows the host, so its idle share is an
     # upper bound on the untraced run's.
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run(decode=True)
         traced_s = time.time() - t0
@@ -2470,6 +2486,502 @@ SOURCE_DESIGNS = {"attention_sm90.cu": "wgmma+TMA, warp-specialised",
                   "fused_dense.cu": "wgmma+TMA, warp-specialised"}
 
 
+# ---- phase 14: data-fed training ------------------------------------------
+# The dataset phase 14 builds from a seed: two raw parquet files of
+# FEED_ROWS images each in three aspect families (h x w about 300 x 300,
+# 250 x 400 and 400 x 250, each side jittered by up to FEED_JITTER px: one
+# bucket a family after the phase resize), two seeded captions a row, and in
+# each file a low-resolution row and an undecodable one that the filter
+# drops; phased to a larger side of FEED_MAX_RES, multiples of 16.
+FEED_FAMILIES = ((300, 300), (250, 400), (400, 250))
+FEED_BUCKETS = {"256x256", "160x256", "256x160"}
+FEED_ROWS, FEED_JITTER, FEED_MAX_RES = 75, 4, 256
+FEED_BATCH = 8
+FEED_LOADER_BATCHES = 30   # batches each loader delivers alone
+FEED_SLOT_MB = 8           # a ring slot: one 256px batch of 8 in fp32
+FEED_CLI_STEPS = 6         # the CLI run: 6 optimizer steps, accumulation 2
+POLICY_STEPS = 5           # timed steps of each policy run, after one
+FEED_STEPS = 4             # timed steps of each feed, after two
+# The eight policy x layout runs take one encoded group and one noise draw
+# from the same seeded weights; every recompute repeats the same kernels
+# and GEMMs on the same bits, so their first steps' loss and gradient norm
+# are expected bit for bit; the limit is 1e-6 relative, and a run whose
+# noise differs in one sample must exceed it (the control).
+POLICY_REL = 1e-6
+POLICIES = ("nothing", "dots", "attn", "dots_attn")
+
+
+def feed_dataset(root, card):
+    """Phase 14.1: the raw folder written from a seed, then
+    filter_dataset -> create_phase -> create_indices through their main().
+    Returns (phase folder, bucket index, an index of the 256x256 bucket
+    alone, the summary)."""
+    import io
+    import numpy as np
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from PIL import Image
+    from sd3_torch.data import create_indices, create_phase, filter_dataset
+
+    r = np.random.default_rng(14)
+    subjects = ("red fox", "blue house", "old oak tree", "small boat",
+                "white cat", "stone bridge")
+    places = ("on a hill", "by the sea", "in a forest", "under a cloudy sky",
+              "at dawn", "in the snow")
+
+    def png(h, w):
+        small = (r.random((h // 16 + 2, w // 16 + 2, 3)) * 255).astype(
+            np.uint8)
+        im = Image.fromarray(small).resize((w, h), Image.Resampling.BICUBIC)
+        buf = io.BytesIO()
+        im.save(buf, format="PNG", compress_level=1)
+        return buf.getvalue()
+
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    t0 = time.time()
+    for f in range(2):
+        rows = []
+        for i in range(FEED_ROWS):
+            h, w = FEED_FAMILIES[(i + f) % 3]
+            dh, dw = (int(v) for v in r.integers(-FEED_JITTER,
+                                                 FEED_JITTER + 1, 2))
+            subj = subjects[int(r.integers(len(subjects)))]
+            place = places[int(r.integers(len(places)))]
+            rows.append({"image": {"bytes": png(h + dh, w + dw),
+                                   "path": None},
+                         "recaption": f"The image shows a {subj} {place}, "
+                                      f"seen from afar.",
+                         "recaption_short": f"a {subj} {place}"})
+        rows.append({"image": {"bytes": png(100, 90), "path": None},
+                     "recaption": "a low-resolution image, dropped",
+                     "recaption_short": "low resolution"})
+        rows.append({"image": {"bytes": b"not an image", "path": None},
+                     "recaption": "an undecodable image, dropped",
+                     "recaption_short": "undecodable"})
+        pq.write_table(pa.Table.from_pylist(rows),
+                       os.path.join(raw, f"part{f}.parquet"))
+    make_s = time.time() - t0
+    filt, phase = os.path.join(root, "filtered"), os.path.join(root, "phase")
+    idx = os.path.join(root, "buckets.npy")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        filter_dataset.main(["--input_dir", raw, "--output_dir", filt])
+        create_phase.main(["--input_dir", filt, "--output_dir", phase,
+                           "--max_resolution", str(FEED_MAX_RES)])
+        buckets = create_indices.main(["--data_parquet_folder", phase,
+                                       "--bucket_indices_path", idx])
+    counts = {k: len(v) for k, v in sorted(buckets.items())}
+    res = dict(raw_rows=2 * (FEED_ROWS + 2),
+               rows_kept=sum(counts.values()), buckets=counts,
+               make_s=make_s, prep_s=time.time() - t0, card=card)
+    print("  dataset", json.dumps(res), flush=True)
+    require(res["rows_kept"] == 2 * FEED_ROWS, f"the filter kept "
+            f"{res['rows_kept']} rows, expected {2 * FEED_ROWS}")
+    require(set(counts) == FEED_BUCKETS, f"buckets {sorted(counts)}, "
+            f"expected {sorted(FEED_BUCKETS)}")
+    square = os.path.join(root, "buckets_256x256.npy")
+    np.save(square, {"256x256": buckets["256x256"]})
+    return phase, idx, square, res
+
+
+def phase_loaders(phase, card):
+    """Phase 14.2: HostDataLoader (2 threads) and RingDataLoader (2
+    worker processes) alone over FEED_LOADER_BATCHES batches of FEED_BATCH;
+    the ring's stream must equal the threads' (bucket, captions, images bit
+    for bit)."""
+    import numpy as np
+    from sd3_torch.data.pipeline import HostDataLoader, ParquetImageText
+    from sd3_torch.data.ringbuffer import RingDataLoader
+
+    out, streams = {}, {}
+    for name in ("threads", "ring"):
+        t0 = time.time()
+        loader = (HostDataLoader(ParquetImageText(phase), FEED_BATCH, seed=5,
+                                 num_threads=2) if name == "threads" else
+                  RingDataLoader(phase, FEED_BATCH, num_workers=2, seed=5,
+                                 slot_mb=FEED_SLOT_MB, num_slots=4))
+        try:
+            got = [next(loader)]
+            t1 = time.time()
+            got += [next(loader) for _ in range(FEED_LOADER_BATCHES - 1)]
+            t2 = time.time()
+        finally:
+            loader.close()
+        streams[name] = got
+        rate = (FEED_LOADER_BATCHES - 1) / (t2 - t1)
+        out[name] = dict(first_batch_s=t1 - t0, total_s=t2 - t0,
+                         batches_per_s=rate, images_per_s=rate * FEED_BATCH,
+                         card=card)
+        print(f"  loader {name}", json.dumps(out[name]), flush=True)
+    for i, (a, b) in enumerate(zip(streams["threads"], streams["ring"])):
+        require(a["bucket"] == b["bucket"] and a["caption"] == b["caption"]
+                and np.array_equal(a["image"], b["image"]),
+                f"batch {i}: the ring's stream differs from the threads'")
+    out["buckets_seen"] = sorted({b["bucket"] for b in streams["ring"]})
+    print(f"  the ring's {FEED_LOADER_BATCHES} batches equal the threads' "
+          f"(buckets {out['buckets_seen']})", flush=True)
+    return out
+
+
+def phase_feed_cli(phase, idx, root, card):
+    """Phase 14.3: train.main at the published config (19 blocks) from the
+    phase folder: stub encoders, batch 8, accumulation 2, FEED_CLI_STEPS
+    steps, 2 ring workers, 1 group prefetched, fused optimizer, remat
+    policy "attn", the scan layout. Each step must launch K5, K6a and K6b
+    2 * 19 times and K1-K4 none; at least two bucket shapes must occur; the
+    saved model artifact must load strict into an unrolled MMDiT and equal
+    the trainer's parameters."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.training import checkpoint as tck
+    from sd3_torch.training import train as train_cli
+    from sd3_torch.training.trainer import Trainer
+    from sd3_torch.weights import state_dict_from_jax
+
+    save = os.path.join(root, "feed_run")
+    require_disk(save)
+    steps = []
+    step_fn = Trainer.train_step
+
+    def counted(self, batch, noise=None):
+        reset_launches()
+        m = step_fn(self, batch, noise)
+        steps.append((tuple(batch["x0"].shape), launch_counts(), m["loss"]))
+        return m
+
+    t0 = time.time()
+    with patched(Trainer, "train_step", counted):
+        tr = train_cli.main([
+            "--preset", "published", "--stage_res", str(FEED_MAX_RES),
+            "--data_parquet_folder", phase, "--bucket_indices_path", idx,
+            "--stub_encoders", "--batchSize", str(FEED_BATCH),
+            "--accumulation_steps", "2", "--totalSteps",
+            str(FEED_CLI_STEPS), "--ring_workers", "2",
+            "--prefetch_batches", "1", "--fused_optimizer", "--remat_policy",
+            "attn", "--scan_blocks", "--saveDir", save])
+    run_s = time.time() - t0
+    nb = tr.cfg.num_blocks
+    expect = dict(flash_attention_fwd=2 * nb, flash_attention_dq=2 * nb,
+                  flash_attention_dkv=2 * nb, fused_attention_bf16=0,
+                  fused_attention_int8qk=0,
+                  **block_tail_launches(nb, 1, False, False))
+    require(len(steps) == FEED_CLI_STEPS and tr.step == FEED_CLI_STEPS,
+            f"the CLI ran {len(steps)} steps, expected {FEED_CLI_STEPS}")
+    for i, (shape, launches, _) in enumerate(steps):
+        for name, n in expect.items():
+            require(launches[name] == n, f"step {i + 1}: {name} launched "
+                    f"{launches[name]} times, expected {n}")
+    losses = [float(m) for _, _, m in steps]
+    shapes = [s for s, _, _ in steps]
+    require(all(map(math.isfinite, losses)), f"CLI losses {losses}")
+    require(len(set(shapes)) >= 2, f"one bucket shape only: {shapes}")
+    require(tr.model.num_scan == nb - 1, "the CLI's model is not stacked")
+    t1 = time.time()
+    sd = state_dict_from_jax(tck.load_artifact(
+        save, f"model_{FEED_CLI_STEPS}s.msgpack"),
+        published_config(FEED_MAX_RES).patch_size)
+    load_s = time.time() - t1
+    unrolled = MMDiT(published_config(FEED_MAX_RES), device="meta",
+                     fused_attn=False)
+    unrolled.load_state_dict(sd, strict=True, assign=True)
+    for name in ("blocks.0.attn.query_proj_x.weight",
+                 f"blocks.{nb - 2}.MLP_c.MLP.w3.weight",
+                 f"blocks.{nb - 1}.y_proj.0.weight", "out_proj.weight"):
+        require(torch.equal(sd[name], tr.params[name].cpu()),
+                f"the saved {name} is not the trainer's")
+    res = dict(steps=FEED_CLI_STEPS, shapes=[list(s) for s in shapes],
+               losses=losses, launches_per_step={
+                   k: steps[-1][1][k] for k in ("flash_attention_fwd",
+                                                "flash_attention_dq",
+                                                "flash_attention_dkv")},
+               run_s=run_s, artifact_load_s=load_s, card=card)
+    print("  train CLI", json.dumps(res), flush=True)
+    del tr, sd, unrolled
+    shutil.rmtree(save, ignore_errors=True)
+    return res
+
+
+def feed_train_config(**kw):
+    """Phase 11's training configuration (fused low-mem AdamW, bf16
+    gradients, precast weights, remat) at batch FEED_BATCH."""
+    import dataclasses
+    from sd3_torch.config import published_config
+    _, tc = train_slice_config()
+    return published_config(stage_res=FEED_MAX_RES), dataclasses.replace(
+        tc, batch_size=FEED_BATCH, **kw)
+
+
+def saved_ops_per_policy():
+    """The ops each policy keeps in one block of the published widths at
+    the 256x256 bucket's token counts, batch 8, bf16 (what a recording copy
+    of the policy marks MUST_SAVE in the forward)."""
+    import functools
+    import torch
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    from sd3_torch.config import published_config
+    from sd3_torch.models import mmdit
+
+    cfg = published_config(stage_res=FEED_MAX_RES)
+    blk = mmdit.DualStreamBlock(cfg, 0, fused_attn=False, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(device="cuda", generator=g, dtype=torch.bfloat16)
+    x = torch.randn(FEED_BATCH, 256, cfg.dim, **kw).requires_grad_()
+    c = torch.randn(FEED_BATCH, cfg.text_tokens, cfg.dim, **kw)
+    y = torch.randn(FEED_BATCH, cfg.dim, **kw)
+    out = {}
+    for pol in POLICIES:
+        keep, ops = mmdit.remat_saved_ops(pol), {}
+
+        def record(ctx, op, *a, **k):
+            if op in keep and not ctx.is_recompute:
+                ops[str(op)] = ops.get(str(op), 0) + 1
+            return mmdit._keep(keep, ctx, op, *a, **k)
+        xo, co = torch.utils.checkpoint.checkpoint(
+            blk, x, c, y, (16, 16), use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         record))
+        (xo.float().sum() + co.float().sum()).backward()
+        out[pol] = ops
+    torch.cuda.synchronize()
+    n_linear = sum(isinstance(m, torch.nn.Linear) for m in blk.modules())
+    require(sum(out["dots"].values()) == n_linear, f"'dots' kept "
+            f"{out['dots']}, expected the {n_linear} projections' products")
+    require(out["attn"] == {"sd3_torch.flash_fwd.default": 1},
+            f"'attn' kept {out['attn']}")
+    return out
+
+
+def phase_policies(phase, square, card, log_dir):
+    """Phase 14.4: one encoded group of the 256x256 bucket (batch 8,
+    accumulation 1) and one noise draw through Trainer.train_step under
+    each remat policy, unrolled and in the scan layout, from the same
+    seeded weights: the first step's loss and gradient norm (all within
+    POLICY_REL of "nothing" unrolled; a control with one sample's noise
+    changed must not be), then the median of POLICY_STEPS steps, the peak
+    memory over them (the optimizer's pass included) and over one forward
+    and backward alone (Trainer.gradients), the card's busy ms of one
+    more step (under torch.profiler) and each step's K5 / K6a / K6b
+    launches."""
+    import dataclasses
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sd3_torch.data.encoded import encoded_batch_iter, resolve_encoders
+    from sd3_torch.training.optim import global_norm_f32
+    from sd3_torch.training.trainer import Trainer, draw_noise
+
+    saved = saved_ops_per_policy()
+    print("  ops kept per block", json.dumps(saved), flush=True)
+    cfg, tc = feed_train_config(accumulation_steps=1)
+    enc = resolve_encoders(cfg, stub=True, device="cuda")
+    it = encoded_batch_iter(cfg, tc, phase, square, encoders=enc, seed=3,
+                            num_threads=1)
+    batch = next(it)
+    it.close()
+    require(tuple(batch["x0"].shape) == (1, FEED_BATCH, cfg.inCh, 32, 32),
+            f"the policy group's x0 is {tuple(batch['x0'].shape)}")
+    noise = [draw_noise(torch.Generator(device="cuda").manual_seed(4),
+                        batch["x0"][0], tc)]
+    eps = noise[0].eps.clone()
+    eps[0] = -eps[0]
+    control = [noise[0]._replace(eps=eps)]
+    nb = cfg.num_blocks
+    out, ref = {}, None
+    for scan in (False, True):
+        for pol in POLICIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            tr = Trainer(cfg, dataclasses.replace(tc, remat_policy=pol,
+                                                  scan_blocks=scan),
+                         device="cuda", log_dir=log_dir, use_wandb=False)
+            build_s = time.time() - t0
+            k5 = 2 * nb if pol in ("nothing", "dots") else nb
+            expect = dict(flash_attention_fwd=k5, flash_attention_dq=nb,
+                          flash_attention_dkv=nb, fused_attention_bf16=0)
+            row = dict(scan=scan, build_s=build_s, card=card)
+            if ref is None:
+                g, m = tr.gradients(batch, control)
+                row["control"] = (m["loss"].item(),
+                                  global_norm_f32(g).item())
+                del g
+
+            def step():
+                reset_launches()
+                t0 = time.time()
+                m = tr.train_step(batch, noise)
+                loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+                dt = time.time() - t0
+                launches = launch_counts()
+                for name, n in expect.items():
+                    require(launches[name] == n, f"{pol} (scan {scan}): "
+                            f"{name} launched {launches[name]} times in a "
+                            f"step, expected {n}")
+                return dt, loss, gnorm
+            _, row["loss"], row["grad_norm"] = step()
+            torch.cuda.reset_peak_memory_stats()
+            times = [step()[0] for _ in range(POLICY_STEPS)]
+            row.update(step_s=times, median_s=statistics.median(times),
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches_per_step={k: launch_counts()[k]
+                                          for k in list(expect)[:3]})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row["held_gb"] = torch.cuda.memory_allocated() / 1e9
+            tr.gradients(batch, noise)
+            torch.cuda.synchronize()
+            row["fwd_bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                tr.train_step(batch, noise)
+                torch.cuda.synchronize()
+            row["device_busy_ms"] = sum(
+                e.self_device_time_total for e in prof.key_averages()) / 1e3
+            if ref is None:
+                ref = row
+            row["loss_rel_diff"] = abs(row["loss"] / ref["loss"] - 1)
+            row["grad_norm_rel_diff"] = abs(row["grad_norm"]
+                                            / ref["grad_norm"] - 1)
+            label = f"{pol}{' scan' if scan else ''}"
+            out[label] = row
+            print(f"  policy {label}", json.dumps(row), flush=True)
+            del tr
+    worst = max(max(r["loss_rel_diff"], r["grad_norm_rel_diff"])
+                for r in out.values())
+    c_loss, c_gnorm = ref["control"]
+    ctl = max(abs(c_loss / ref["loss"] - 1), abs(c_gnorm / ref["grad_norm"]
+                                                  - 1))
+    print(f"  policies x layouts: largest relative difference {worst} "
+          f"(limit {POLICY_REL}); control (one sample's noise changed) "
+          f"{ctl}", flush=True)
+    require(worst <= POLICY_REL, f"the policy runs differ by {worst}")
+    require(ctl > POLICY_REL, f"the control differs by {ctl} only: the "
+            f"limit {POLICY_REL} would pass it")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=out, largest_rel_diff=worst, control_rel_diff=ctl,
+                saved_ops=saved)
+
+
+def phase_feed(phase, square, card, log_dir):
+    """Phase 14.5: phase 11's training configuration at 256px, batch 8,
+    accumulation 2, fed three ways behind prefetch_iterator(depth 1,
+    map_fn=shard_batch): synthetic_batch_iter, encoded_batch_iter on 2
+    threads, and on 2 ring workers (stub encoders, the 256x256 bucket
+    alone, so every step has the synthetic one's shape). Two warmup steps,
+    then the median of FEED_STEPS, then one step under torch.profiler for
+    the card's busy time and idle share. Then vae_encode of the
+    real-architecture FLUX VAE (seeded, bf16) at each bucket's shape at
+    batch 8: the card cost of real encoding between steps."""
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sd3_torch.data.encoded import (encoded_batch_iter, prefetch_iterator,
+                                        resolve_encoders)
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.training.trainer import Trainer
+
+    cfg, tc = feed_train_config(accumulation_steps=2)
+    tr = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
+    enc = resolve_encoders(cfg, stub=True, device="cuda")
+    sources = {
+        "synthetic": lambda: synthetic_batch_iter(
+            cfg, FEED_BATCH, 2, FEED_MAX_RES, FEED_MAX_RES, seed=1),
+        "threads": lambda: encoded_batch_iter(
+            cfg, tc, phase, square, encoders=enc, seed=1, num_threads=2),
+        "ring": lambda: encoded_batch_iter(
+            cfg, tc, phase, square, encoders=enc, seed=1, ring_workers=2)}
+    out = {}
+    for name, make in sources.items():
+        it = prefetch_iterator(make(), depth=1, map_fn=tr.shard_batch)
+
+        def step():
+            t0 = time.time()
+            loss = tr.train_step(tr.shard_batch(next(it)))["loss"].item()
+            require(math.isfinite(loss), f"{name}: loss {loss}")
+            return time.time() - t0
+        try:
+            warm = [step() for _ in range(2)]
+            times = [step() for _ in range(FEED_STEPS)]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced_s = step()
+        finally:
+            it.close()
+        med = statistics.median(times)
+        trace = device_breakdown(prof, traced_s)
+        out[name] = dict(warmup_s=warm, step_s=times, median_s_per_step=med,
+                         device_busy_ms=trace["device_busy_ms"],
+                         idle_share_traced=trace["idle_share"],
+                         idle_share=1 - trace["device_busy_ms"] / (med * 1e3),
+                         card=card)
+        print(f"  feed {name}", json.dumps(out[name]), flush=True)
+    for name in ("threads", "ring"):
+        out[f"{name}_minus_synthetic_s"] = (out[name]["median_s_per_step"]
+                                           - out["synthetic"]
+                                           ["median_s_per_step"])
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the real-architecture VAE's encode at each bucket's shape
+    from sd3_torch.models.clip_text import ClipTextConfig
+    from sd3_torch.models.encoder_suite import RealTextEncoders
+    from sd3_torch.models.gemma2 import Gemma2Config
+    from sd3_torch.models.modernbert import ModernBertConfig
+    torch.manual_seed(0)
+    suite = RealTextEncoders.build(  # the FLUX VAE at its size; towers tiny
+        "cuda", gemma_cfg=Gemma2Config.tiny(),
+        bert_cfg=ModernBertConfig.tiny(), clip_cfg=ClipTextConfig.tiny())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    vae = {}
+    for bucket in sorted(FEED_BUCKETS):
+        h, w = (int(v) for v in bucket.split("x"))
+        im = torch.rand((FEED_BATCH, 3, h, w), device="cuda") * 2 - 1
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_ms(lambda: suite.vae_encode(im, g), iters=1, groups=3,
+                     graph=False)
+        z = suite.vae_encode(im, g)
+        require(tuple(z.shape) == (FEED_BATCH, 16, h // 8, w // 8)
+                and bool(torch.isfinite(z).all()),
+                f"vae_encode at {bucket}: {tuple(z.shape)}")
+        vae[bucket] = dict(ms=ms, per_step_ms=2 * ms,
+                           peak_gb=(torch.cuda.max_memory_allocated()
+                                    - base) / 1e9, card=card)
+        print(f"  vae_encode {bucket} B={FEED_BATCH}", json.dumps(vae[bucket]),
+              flush=True)
+    out["vae_encode"] = vae
+    del suite
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_data_feed(card, root, log_dir):
+    """Phase 14: the dataset, the loaders alone, the train CLI from it, the
+    remat policies and layouts, the feed against synthetic batches."""
+    t0 = time.time()
+    spent = {}
+
+    def mark(part):
+        spent[part] = time.time() - t0 - sum(spent.values())
+    phase, idx, square, data = feed_dataset(os.path.join(root, "data"), card)
+    mark("dataset")
+    loaders = phase_loaders(phase, card)
+    mark("loaders")
+    cli = phase_feed_cli(phase, idx, root, card)
+    mark("train CLI")
+    policies = phase_policies(phase, square, card, log_dir)
+    mark("policies")
+    feed = phase_feed(phase, square, card, log_dir)
+    mark("feed")
+    print("  phase 14 seconds", json.dumps(dict(spent, card=card)),
+          flush=True)
+    return dict(data=data, loaders=loaders, cli=cli, policies=policies,
+                feed=feed, seconds=spent)
+
+
 def kernel_family(name: str, bf16_prep: str = "K1",
                   pv_prep: str = "K8b") -> str:
     """The family of one device row: the port's kernels by their CUDA
@@ -2516,7 +3028,9 @@ def kernel_family(name: str, bf16_prep: str = "K1",
 
 def device_breakdown(prof, wall_s, bf16_prep="K1"):
     """Self device time (ms) by kernel family (see kernel_family); the top
-    kernels; and the idle share of the traced wall time."""
+    kernels; and the idle share of the traced wall time. The traces record
+    the card's activity alone (ProfilerActivity.CUDA): no host operator
+    events to process."""
     fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7",
                           "K7q", "K8a", "K8b", "K9", "K10a", "K10b",
                           "fp32 attention", "gemm_int8", "gemm", "other"),
@@ -2548,6 +3062,10 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is False; this script runs "
               "only on a CUDA card", flush=True)
         return 1
+    start = time.time()
+
+    def say(*parts, flush=True):
+        print(f"[{time.time() - start:.1f} s]", *parts, flush=flush)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sd3_torch")):
         print(f"FAIL: no sd3_torch package beside {__file__}", flush=True)
@@ -2556,7 +3074,7 @@ def main() -> int:
     logs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     ckpt_root = os.path.join(here, CKPT_DIR)
     try:
-        print("phase 1: header", flush=True)
+        say("phase 1: header", flush=True)
         card = nvidia_smi("name,power.limit")
         print(card, flush=True)
         print(f"  torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2569,7 +3087,7 @@ def main() -> int:
         print(f"  {free / 1e9:.1f} GB free for the CLI phase's checkpoint "
               f"under {CKPT_DIR}/", flush=True)
 
-        print("phase 2: build", flush=True)
+        say("phase 2: build", flush=True)
         from sd3_torch import kernels
         from sd3_torch.ops import (  # register K1-K10b
             flash_attention, fused_attention, fused_dense, fused_mlp)
@@ -2583,7 +3101,7 @@ def main() -> int:
                                              or "Compiling" in line):
                     print(f"  {src}: {line.strip()}", flush=True)
 
-        print("phase 3: kernels against their plain versions", flush=True)
+        say("phase 3: kernels against their plain versions", flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         k1 = [phase_attention(s, gen) for s in (SLICE, RAGGED, NOPE)]
         k4 = [phase_attention(s, gen, int8_qk=True) for s in (SLICE, RAGGED)]
@@ -2656,7 +3174,7 @@ def main() -> int:
                 if int8_qk or int8_pv else
                 phase_attention_fp32(SLICE_WIDE, gen, streaming=streaming))
 
-        print("phase 4: 2-block models on the card vs fp32 on the CPU: "
+        say("phase 4: 2-block models on the card vs fp32 on the CPU: "
               "512px batch 2, 1024px batch 1", flush=True)
         phase_model(gen_seed=0)
         phase_model(gen_seed=0, int8=True)
@@ -2674,30 +3192,30 @@ def main() -> int:
         # tiny_config (head dim 16: the flash instances at D = 16)
         phase_train_step(log_dir, tiny, "tiny_config", lat=TINY_LAT)
 
-        print("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
+        say("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
         sample = phase_sample(card)
 
-        print("phase 6: 19-block int8 sampling, the same", flush=True)
+        say("phase 6: 19-block int8 sampling, the same", flush=True)
         sample8 = phase_sample(card, int8=True)
 
-        print("phase 7: 19-block int8 sampling with the block tails "
+        say("phase 7: 19-block int8 sampling with the block tails "
               "(attn_tail all, mlp_tail_fusion 3d), the same", flush=True)
         sample8_tails = phase_sample(card, int8=True, tails=True)
 
-        print("phase 8: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
+        say("phase 8: 19-block bf16 sampling, 1024px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
         sample_1024 = phase_sample(card, res=1024)
 
-        print("phase 9: 19-block int8 sampling, 1024px, the same", flush=True)
+        say("phase 9: 19-block int8 sampling, 1024px, the same", flush=True)
         phase_sample(card, int8=True, res=1024)
 
-        print("phase 10: 19-block int8 sampling with int8 P.V, 1024px, the "
+        say("phase 10: 19-block int8 sampling with int8 P.V, 1024px, the "
               "same, one timed call", flush=True)
         sample8pv_1024 = phase_sample(card, int8=True, res=1024, int8_pv=True,
                                       timed=1)
 
-        print("phase 11: 19-block training, 512px, batch 4, fused low-mem "
+        say("phase 11: 19-block training, 512px, batch 4, fused low-mem "
               "AdamW, bf16 grads, remat; the same with 8-bit moments, and "
               "with the host EMA; then the default TrainConfig path at 2 "
               "blocks", flush=True)
@@ -2705,19 +3223,26 @@ def main() -> int:
         phase_train_options(card, log_dir)
         phase_train_default_path(log_dir)
 
-        print("phase 12: the CLIs at the published config: train (2 steps, "
+        say("phase 12: the CLIs at the published config: train (2 steps, "
               "8-bit moments, host EMA) -> six artifacts -> infer (bf16, "
               "int8, fp32 int8 with and without the tails); tiny_config "
               "resume and GIF", flush=True)
         cli = phase_cli(card, ckpt_root)
 
-        print("phase 13: the frozen encoders and the FLUX VAE at the "
+        say("phase 13: the frozen encoders and the FLUX VAE at the "
               "published widths (random weights): against fp32 on the CPU "
               "with controls, times at full depth, 512px sampling through "
               "them", flush=True)
         phase_encoders(card)
 
-        print("phase 14: kernels", flush=True)
+        say("phase 14: data-fed training: a seeded parquet folder ->"
+              " filter -> phase -> index; the loaders alone (threads, ring); "
+              "the train CLI at the published config from it; the remat "
+              "policies and the scan layout; the feed against synthetic "
+              "batches, and the VAE's encode per bucket", flush=True)
+        phase_data_feed(card, os.path.join(ckpt_root, "feed"), log_dir)
+
+        say("phase 15: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,

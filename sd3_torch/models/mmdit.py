@@ -28,8 +28,26 @@ half unfused around K3, `fused_mlp=False` takes no SwiGLU kernel.
 For training, `MMDiT(..., fused_attn=False)` takes the general attention
 path (flash attention with its two-kernel backward) as the JAX trainer does,
 and `remat_blocks=True` recomputes each block's forward in the backward
-(`torch.utils.checkpoint`, the JAX `nn.remat` with policy "nothing"), so the
-attention forward runs twice per block and step.
+(`torch.utils.checkpoint`, the JAX `nn.remat`). `remat_policy` says what the
+recompute may keep, as the JAX policies do (sd3_tpu/models/mmdit.py:329-340),
+through selective checkpointing at the dispatcher:
+- "nothing": keep nothing; the attention forward (K5) runs twice per block;
+- "dots" (`dots_with_no_batch_dims_saveable`): keep the outputs of the 2-D
+  matmuls, `aten.mm` / `aten.addmm`, which `F.linear` reaches on the
+  projections' inputs (not `aten.bmm`, a product with a batch dim);
+- "attn" (`save_only_these_names("attn_out")`): keep the outputs of the
+  flash op `sd3_torch::flash_fwd`, out and lse, so K5 runs once per block;
+  q, k and v are recomputed, as in JAX;
+- "dots_attn": both.
+
+`scan_blocks=True` is the JAX scan layout (sd3_tpu/models/mmdit.py:142-227):
+the parameters of the first `num_scan_blocks(cfg)` blocks stacked on a
+leading axis under `blocks_stack.block.*` (one block module holding the
+stacks), the last block unrolled as `blocks.{n-1}.*`. The forward unbinds
+each stack once and runs the one block module over the slices
+(`torch.func.functional_call`), each block as layer 0, as JAX's scan body
+builds them. `to_scan_params` / `from_scan_params` convert state dicts;
+`canonical_parameters()` gives the unrolled names over views of the stacks.
 
 Parameter names are the reference state-dict names (`blocks.3.y_proj.0.weight`,
 `blocks.3.attn.query_proj_x.weight`, `pos_enc.proj.weight`, `time_scale`), so
@@ -40,12 +58,15 @@ be stored in fp32 or in the compute dtype; the forward computes in
 
 from __future__ import annotations
 
+import functools
 import math
+import re
 
 import torch
 from torch import nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from sd3_torch import resolve_device, torch_dtype
 from sd3_torch.config import MMDiTConfig
@@ -135,13 +156,105 @@ class DualStreamBlock(nn.Module):
 REMAT_POLICIES = ("nothing", "dots", "attn", "dots_attn")
 
 
+def remat_saved_ops(policy: str) -> frozenset:
+    """The ops whose outputs the remat `policy` keeps for the backward."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+    dots = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+    attn = {torch.ops.sd3_torch.flash_fwd.default}
+    return frozenset({"nothing": set(), "dots": dots, "attn": attn,
+                      "dots_attn": dots | attn}[policy])
+
+
+def _keep(saved, ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in saved
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_kwargs(policy: str) -> dict:
+    """`torch.utils.checkpoint.checkpoint` keyword arguments of `policy`."""
+    saved = remat_saved_ops(policy)
+    kw = dict(use_reentrant=False)
+    if saved:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, functools.partial(_keep,
+                                                                    saved))
+    return kw
+
+
+SCAN_PREFIX = "blocks_stack.block."
+_BLOCK_NAME = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def scan_pair(cfg: MMDiTConfig) -> bool:
+    """JAX scans two blocks per iteration under attn_type "both" (its
+    parity alternates softmax and cosine, _ScanBody.pair); the port has no
+    "both" attention yet, so this raises for it, else False."""
+    if cfg.attn_type == "both":
+        raise NotImplementedError(
+            "scan_blocks with attn_type 'both' (two blocks per scan step) is "
+            "not ported yet: ROADMAP.md, port queue, 'Model variants'")
+    return False
+
+
+def num_scan_blocks(cfg: MMDiTConfig) -> int:
+    """Blocks in the stacked layout: all but a trailing `last=True` block
+    (sd3_tpu/models/mmdit.py:212-220)."""
+    scan_pair(cfg)
+    return cfg.num_blocks if cfg.text_loss else cfg.num_blocks - 1
+
+
+def to_scan_params(params: dict, num_scan: int) -> dict:
+    """Canonical state dict (blocks.i.*) -> scan layout: blocks 0 ..
+    num_scan-1 stacked on a leading axis under SCAN_PREFIX, where the first
+    of them stood; the others as they were. The exact inverse of
+    `from_scan_params`."""
+    def stacked(k):
+        m = _BLOCK_NAME.fullmatch(k)
+        return m if m and int(m.group(1)) < num_scan else None
+    stacks = {}
+    for k, v in params.items():
+        if m := stacked(k):
+            stacks.setdefault(m.group(2), {})[int(m.group(1))] = v
+    out, placed = {}, False
+    for k, v in params.items():
+        if not stacked(k):
+            out[k] = v
+        elif not placed:
+            placed = True
+            for name, vs in stacks.items():
+                if len(vs) != num_scan:
+                    raise KeyError(f"{name}: missing in some of blocks 0-"
+                                   f"{num_scan - 1}")
+                out[SCAN_PREFIX + name] = torch.stack(
+                    [torch.as_tensor(vs[i]) for i in range(num_scan)])
+    return out
+
+
+def from_scan_params(params: dict, num_scan: int) -> dict:
+    """Scan layout -> canonical state dict, in the unrolled model's order
+    (the blocks where the stacks stood); the blocks' entries are views of
+    the stacks (no copy)."""
+    stacks = {k[len(SCAN_PREFIX):]: v for k, v in params.items()
+              if k.startswith(SCAN_PREFIX)}
+    out, placed = {}, False
+    for k, v in params.items():
+        if not k.startswith(SCAN_PREFIX):
+            out[k] = v
+        elif not placed:
+            placed = True
+            out.update((f"blocks.{i}.{name}", st[i]) for i in range(num_scan)
+                       for name, st in stacks.items())
+    return out
+
+
 class MMDiT(nn.Module):
     """The full diffusion transformer. Latents are NCHW like the reference;
     inside everything is (B, N, D) tokens. Built on `device`, "cuda" unless
     the caller asks for the CPU; raises when asked for a GPU that is not
-    there. `fused_attn`, `remat_blocks` and `remat_policy` as in
-    sd3_tpu/models/mmdit.py:229-253 (see the module docstring); only the
-    policy "nothing" and the unrolled blocks are ported."""
+    there. `fused_attn`, `remat_blocks`, `remat_policy` and `scan_blocks`
+    as in sd3_tpu/models/mmdit.py:229-253 (see the module docstring)."""
 
     def __init__(self, cfg: MMDiTConfig, device="cuda", dtype=None,
                  fused_attn: bool = True, remat_blocks: bool = False,
@@ -152,26 +265,31 @@ class MMDiT(nn.Module):
             raise NotImplementedError(
                 "text_loss=True (the text-reconstruction head) is not ported "
                 "yet: ROADMAP.md, port queue, 'text_loss'")
-        if remat_policy not in REMAT_POLICIES:
-            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
-                             f"{REMAT_POLICIES}")
-        if remat_blocks and remat_policy != "nothing":
-            raise NotImplementedError(
-                f"remat_policy={remat_policy!r} is not ported yet: ROADMAP.md,"
-                " port queue, 'trainer' (remat policies)")
-        if scan_blocks:
-            raise NotImplementedError(
-                "scan_blocks is not ported yet: ROADMAP.md, port queue, "
-                "'trainer' (scan over blocks)")
+        self.remat_kwargs = remat_kwargs(remat_policy)
+        self.num_scan = num_scan_blocks(cfg) if scan_blocks else 0
+        if self.num_scan and cfg.quant != "none":
+            raise ValueError("scan_blocks is a training layout: a quantized "
+                             "model is built unrolled")
         self.cfg = cfg
         self.remat_blocks = remat_blocks
         self.compute_dtype = torch_dtype(cfg.dtype)
         kw = dict(device=device, dtype=dtype)
         dim, thd = cfg.dim, cfg.text_hidden_dim
-        self.blocks = nn.ModuleList([
-            DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
-                            fused_attn=fused_attn, **kw)
-            for i in range(cfg.num_blocks)])
+        if self.num_scan:
+            # one block module whose parameters are the stacks
+            self.blocks_stack = nn.Module()
+            self.blocks_stack.block = _stacked(
+                DualStreamBlock(cfg, 0, fused_attn=fused_attn, **kw),
+                self.num_scan)
+            self.blocks = nn.ModuleDict({
+                str(i): DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
+                                        fused_attn=fused_attn, **kw)
+                for i in range(self.num_scan, cfg.num_blocks)})
+        else:
+            self.blocks = nn.ModuleList([
+                DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
+                                fused_attn=fused_attn, **kw)
+                for i in range(cfg.num_blocks)])
         self.time_scale = nn.Parameter(torch.full((1,), 1000.0, **kw))
         self.t_emb2 = nn.Linear(dim, dim, bias=False, **kw)
         self.cond_MLP = nn.Linear(cfg.class_dim, dim, bias=False, **kw)
@@ -199,7 +317,9 @@ class MMDiT(nn.Module):
         if any(isinstance(m, Int8Linear) for m in self.modules()):
             raise ValueError("init_weights draws float weights: call it "
                              "before quantize_model, on a float model")
-        for name, p in self.named_parameters():
+        # in the unrolled model's order and names, so that a scan model
+        # draws the weights an unrolled one does
+        for name, p in self.canonical_parameters().items():
             leaf = name.rsplit(".", 1)[-1]
             if name == "time_scale":
                 p.fill_(1000.0)
@@ -213,6 +333,14 @@ class MMDiT(nn.Module):
                 fan_in = math.prod(p.shape[1:])
                 p.normal_(0.0, fan_in ** -0.5, generator=generator)
         return self
+
+    def canonical_parameters(self) -> dict:
+        """{state-dict name of the unrolled model: parameter}, in its order;
+        under scan_blocks the stacked blocks' entries are views of the
+        stacks."""
+        params = dict(self.named_parameters())
+        return from_scan_params(params, self.num_scan) if self.num_scan \
+            else params
 
     def cast_params(self, dtype: torch.dtype) -> "MMDiT":
         """Store every parameter but `time_scale` (used in fp32) in `dtype`:
@@ -257,12 +385,40 @@ class MMDiT(nn.Module):
         x = linear(self.pos_enc(x_t.to(dt)), self.patch_emb)
         hw = (h // p, w // p)
         remat = self.remat_blocks and torch.is_grad_enabled()
-        for blk in self.blocks:
+        for blk in self._block_fns():
             if remat:
                 x, c_tok = checkpoint(blk, x, c_tok, y, hw,
-                                      use_reentrant=False)
+                                      **self.remat_kwargs)
             else:
                 x, c_tok = blk(x, c_tok, y, hw)
 
         x = linear(self.out_norm(x, y), self.out_proj)
         return unpatchify(x, (p, p), (h, w)).float()
+
+    def _block_fns(self) -> list:
+        """The blocks in order, each a callable (x, c, y, hw) -> (x, c).
+        Under scan_blocks the stacks are unbound once here, and the stacked
+        block module runs over each slice: indexing a stack per block
+        instead would make each index's backward a full-size zero gradient
+        of the stack."""
+        if not self.num_scan:
+            return list(self.blocks)
+        body = self.blocks_stack.block
+        names = [n for n, _ in body.named_parameters()]
+        slices = zip(*(p.unbind(0) for p in body.parameters()))
+        fns = [functools.partial(_call_with, body, dict(zip(names, sl)))
+               for sl in slices]
+        return fns + list(self.blocks.values())
+
+
+def _call_with(module: nn.Module, params: dict, *args):
+    return torch.func.functional_call(module, params, args)
+
+
+def _stacked(block: nn.Module, n: int) -> nn.Module:
+    """`block` with each parameter replaced by an uninitialised stack of n
+    of its shape (the scan layout's block module)."""
+    for mod in block.modules():
+        for leaf, p in list(mod.named_parameters(recurse=False)):
+            setattr(mod, leaf, nn.Parameter(p.new_empty((n, *p.shape))))
+    return block

@@ -21,7 +21,7 @@ import zlib
 import torch
 import torch.nn.functional as F
 
-from sd3_torch import resolve_device
+from sd3_torch import resolve_device, to_device
 
 # FLUX.1-schnell VAE constants (its config.json)
 FLUX_SCALING_FACTOR = 0.3611
@@ -99,14 +99,17 @@ class StubTextEncoders:
             bt = torch.randn((1, t, self.bert_dim), generator=gen)
             hiddens.append(combine_hidden(g, bt))
             pooleds.append(torch.randn((1, self.clip_dim), generator=gen))
-        return (torch.cat(hiddens).to(self.device),
-                torch.cat(pooleds).to(self.device))
+        return (to_device(torch.cat(hiddens), self.device),
+                to_device(torch.cat(pooleds), self.device))
 
     def _projection(self, channels: int) -> torch.Tensor:
         return torch.randn((self.latent_channels, channels * 64),
                            generator=_stub_generator(0))
 
-    def vae_encode(self, images: torch.Tensor) -> torch.Tensor:
+    def vae_encode(self, images: torch.Tensor,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+        """The stub's latents: a fixed projection of each 8x8 patch (the
+        real suite's signature; the stub draws nothing from `generator`)."""
         b, c, h, w = images.shape
         x = images.float().reshape(b, c, h // 8, 8, w // 8, 8)
         x = x.permute(0, 1, 3, 5, 2, 4).reshape(b, c * 64, h // 8, w // 8)

@@ -2,9 +2,12 @@
 sd3_tpu/ops/flash_attention.py).
 
 `flash_attention(q, k, v, scale)` is softmax(q k^T * scale) v on (B, H, N, D)
-tensors, non-causal, as a `torch.autograd.Function` whose forward saves q,
-k, v, the output and the fp32 logsumexp, and whose backward recomputes p
-from them, as the JAX custom VJP does. Three kernels, each source's head
+tensors, non-causal, through the registered op `sd3_torch::flash_fwd`
+(`flash_fwd_op`, returning the output and the fp32 logsumexp), whose
+autograd saves q, k, v, the output and the logsumexp, and whose backward
+recomputes p from them, as the JAX custom VJP does. Being an op of the
+dispatcher, it is what the remat policies "attn" and "dots_attn" save
+(models/mmdit.py), as JAX's save the kernel's outputs by name. Three kernels, each source's head
 saying what bounds them and how they are built:
 
 - K5 `flash_attention_fwd` replaces the TPU kernel `_fwd_kernel`: out, lse
@@ -287,31 +290,54 @@ def flash_dkv(q, k, v, dout, lse, delta, scale: float):
     return dk[..., :d], dv[..., :d]
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K5 forward, K6a + K6b backward (plain versions on the CPU). The
-    forward saves out and lse, so the backward recomputes only p."""
+@torch.library.custom_op("sd3_torch::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_fwd` (K5) as a registered op: (out, lse). Selective
+    checkpointing (models/mmdit.py's remat policies) sees ops at the
+    dispatcher, so it can save this op's outputs, as the JAX package names
+    `out` and `lse` "attn_out" (sd3_tpu/ops/flash_attention.py:331-332);
+    a launch inside an autograd Function would be hidden from it."""
+    return flash_fwd(q, k, v, scale)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, delta = flash_dq(q, k, v, out, dout, lse, ctx.scale)
-        # K6b reads the delta K6a wrote: both on one stream, in this order
-        dk, dv = flash_dkv(q, k, v, dout, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale):
+    b, h, n, d = q.shape
+    return (q.new_empty((b, n, h, d)).transpose(1, 2),
+            q.new_empty((b, h, n), dtype=torch.float32))
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale = scale
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    """K6a, then K6b on the delta K6a wrote (plain versions on the CPU);
+    the forward saved out and lse, so only p is recomputed."""
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, delta = flash_dq(q, k, v, out, dout, lse, ctx.scale)
+    # K6b reads the delta K6a wrote: both on one stream, in this order
+    dk, dv = flash_dkv(q, k, v, dout, lse, delta, ctx.scale)
+    return dq, dk, dv, None
+
+
+flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Non-causal softmax(q k^T * scale) v on (B, H, N, D) tensors of one
-    shape; differentiable in q, k and v."""
+    shape; differentiable in q, k and v (`flash_fwd_op`, K5; K6a and K6b
+    in its backward)."""
     if not (q.shape == k.shape == v.shape) or q.ndim != 4:
         raise ValueError(f"q/k/v must be (B, H, N, D) of one shape, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    return _FlashAttention.apply(q, k, v, float(scale))
+    if q.device.type not in ("cpu", "cuda"):
+        # the op's fake would answer a meta tensor; nothing computes there
+        raise ValueError(f"no flash attention path for device {q.device}")
+    return flash_fwd_op(q, k, v, float(scale))[0]

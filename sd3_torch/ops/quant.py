@@ -159,6 +159,9 @@ def quantize_model(model: nn.Module, quant_skip: tuple | None = None
     `quant` setting (attention, MLP, the model's `cfg`) is switched to
     "int8" with the same `quant_skip` (default: the model config's), so
     the kernels' dispatch follows. Returns the model."""
+    if getattr(model, "num_scan", 0):
+        raise ValueError("quantize_model takes an unrolled model, not the "
+                         "scan_blocks layout")
     cfg = getattr(model, "cfg", None)
     if quant_skip is None:
         quant_skip = cfg.quant_skip if cfg is not None else ()

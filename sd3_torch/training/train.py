@@ -4,16 +4,24 @@ src/train.py, with flags). The same flags and `main(argv)`, plus `--device`
 
 Modes:
   --synthetic           train on random pre-encoded batches (smoke/bench)
+  --data_parquet_folder a bucketed parquet folder (`data/create_phase.py`,
+                        `data/create_indices.py`): images decoded on the
+                        host (--data_threads threads, or --ring_workers
+                        processes through the shared-memory ring), encoded
+                        on the device between steps by the stub encoders
+                        (--stub_encoders) or the real suite
+                        (--encoder_weights DIR), --prefetch_batches groups
+                        ahead; each step's latent shape is printed
 Resume: --loadDir / --loadStep read the six-artifact checkpoint of either
 package (`training/checkpoint.py`): its config, model and EMA, and, unless
 --reset_optim, the optimizer state; --reset_wandb starts a new run id.
 Every --numSaveSteps steps and at the end the trainer writes a checkpoint
 into --saveDir.
 
-Still queued (ROADMAP.md, port queue), raising NotImplementedError: the
-parquet data feed (--data_parquet_folder), multi-host and meshes
-(--multihost, --dp / --fsdp / --tp past 1), --scan_blocks and remat
-policies other than "nothing".
+--remat_policy (nothing, dots, attn, dots_attn) and --scan_blocks as in
+the JAX package (models/mmdit.py). Still queued (ROADMAP.md, port queue),
+raising NotImplementedError: multi-host and meshes (--multihost, --dp /
+--fsdp / --tp past 1).
 
 Published stage hyperparameters (reference train.py:9-80 / README.md:209-291):
   stage1: 256px  batch 140/chip-equivalent  acc 2
@@ -64,7 +72,8 @@ def build_argparser():
                         "adamw_8bit); checkpoints stay bf16-canonical. "
                         "Implies --low_mem_optimizer")
     p.add_argument("--scan_blocks", action="store_true",
-                   help="scan-over-blocks parameter layout (not ported)")
+                   help="the non-last blocks' parameters stacked (the JAX "
+                        "scan layout); checkpoints stay per-block")
     p.add_argument("--split_accumulation", action="store_true",
                    help="the JAX package's per-micro-batch dispatch; eager "
                         "PyTorch runs it as the accumulation loop. Needs "
@@ -109,14 +118,9 @@ def build_argparser():
 def _refuse_queued(args) -> None:
     """Raise for the options whose modules are still queued."""
     queued = [
-        (args.data_parquet_folder and not args.synthetic,
-         "--data_parquet_folder (the parquet feed)", "'Data feed'"),
         (args.multihost, "--multihost", "'parallel/'"),
         (args.dp > 1 or args.fsdp > 1 or args.tp > 1,
          "--dp / --fsdp / --tp past 1 (a mesh)", "'parallel/'"),
-        (args.scan_blocks, "--scan_blocks", "'Training options'"),
-        (args.remat_policy != "nothing", f"--remat_policy "
-         f"{args.remat_policy}", "'Training options'"),
     ]
     for on, what, item in queued:
         if on:
@@ -183,13 +187,51 @@ def main(argv=None):
                 args.loadDir, f"optim_{args.loadStep}s.msgpack")):
             trainer.restore_optimizer(args.loadDir, args.loadStep)
 
-    it = synthetic_batch_iter(cfg, tcfg.batch_size, tcfg.accumulation_steps,
-                              args.stage_res, args.stage_res, seed=args.seed)
-    final_step = trainer.train(it)
+    if args.synthetic or not args.data_parquet_folder:
+        it = synthetic_batch_iter(cfg, tcfg.batch_size,
+                                  tcfg.accumulation_steps, args.stage_res,
+                                  args.stage_res, seed=args.seed)
+    else:
+        from sd3_torch.data.encoded import (encoded_batch_iter,
+                                            prefetch_iterator)
+        # one process: the multi-host arguments keep their one-process
+        # values (no shared bucket_seed, shard 0 of 1)
+        it = encoded_batch_iter(cfg, tcfg, args.data_parquet_folder,
+                                args.bucket_indices_path,
+                                stub=args.stub_encoders,
+                                weights_dir=args.encoder_weights,
+                                ring_workers=args.ring_workers,
+                                seed=args.seed, num_threads=args.data_threads,
+                                device=args.device)
+        if args.prefetch_batches > 0:
+            # decode, the encoders' launches and the placement of group N+1
+            # overlap step N
+            it = prefetch_iterator(it, depth=args.prefetch_batches,
+                                   map_fn=trainer.shard_batch)
+        it = _print_shapes(it, trainer)
+    try:
+        final_step = trainer.train(it)
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:  # stop the feed's threads and processes
+            close()
     if trainer.saved_step != final_step:  # train() saved this step already
         trainer.save()
     print(f"training done at step {final_step}")
     return trainer
+
+
+def _print_shapes(it, trainer):
+    """`it`, printing each step's batch shape (its bucket) as it passes;
+    closing this closes `it`."""
+    try:
+        for batch in it:
+            acc, b, ch, h, w = batch["x0"].shape
+            print(f"step {trainer.step + 1}: bucket {h * 8}x{w * 8}, x0 "
+                  f"{(acc, b, ch, h, w)}", flush=True)
+            yield batch
+    finally:
+        it.close()
 
 
 if __name__ == "__main__":

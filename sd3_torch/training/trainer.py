@@ -38,9 +38,18 @@ As in the JAX package:
 - `save()` writes the six-artifact checkpoint of `training/checkpoint.py`
   (the JAX trees; the 8-bit state in its canonical bf16 form), and
   `restore_optimizer` reads the optim artifact of either package.
+- `remat_policy` (with `remat_blocks`): what each block's recompute keeps,
+  "nothing", "dots", "attn" or "dots_attn" (models/mmdit.py);
+- `scan_blocks`: the model holds the non-last blocks' parameters stacked
+  (models/mmdit.py). Everything else stays canonical, as the JAX trainer
+  converts at its I/O boundary (sd3_tpu/training/trainer.py:437-452,
+  540-560): the optimizer, its state, the EMA, `params`, `save()` and
+  `restore_optimizer` see the unrolled model's names over views of the
+  stacks (the views share their storage), so a scan run's state and its
+  six artifacts are bit for bit an unrolled run's.
 
 Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-scan over blocks, the text loss and meshes.
+the text loss and meshes.
 """
 
 from __future__ import annotations
@@ -53,9 +62,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from sd3_torch import resolve_device, torch_dtype
+from sd3_torch import resolve_device, to_device, torch_dtype
 from sd3_torch.config import MMDiTConfig
-from sd3_torch.models.mmdit import MMDiT
+from sd3_torch.models.mmdit import MMDiT, from_scan_params, to_scan_params
 from sd3_torch.training import checkpoint, flow
 from sd3_torch.training.optim import (GradientTransformation, adamw,
                                       adamw_8bit, adamw_low_mem,
@@ -268,19 +277,28 @@ class Trainer:
         self._micro_loss = make_micro_loss(self.model, tcfg)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(tcfg.seed)
+        self._num_scan = self.model.num_scan
         if params is None:
             self.model.init_weights(self.generator)
         else:
-            self.model.load_state_dict(params, strict=True)
+            self.model.load_state_dict(
+                to_scan_params(params, self._num_scan) if self._num_scan
+                else params, strict=True)
 
         self._split = tcfg.split_accumulation and tcfg.accumulation_steps > 1
         self._precast = (tcfg.precast_params and tcfg.bf16_grads
                          and tcfg.low_mem_optimizer and not self._split
                          and torch_dtype(cfg.dtype) == torch.bfloat16)
+        # the fp32 masters in the model's layout, and (_params) by the
+        # unrolled model's names, which the optimizer, the EMA and the
+        # checkpoints take
         if self._precast:
-            self._params = _cast_parameters(self.model, torch.bfloat16)
+            self._masters = _cast_parameters(self.model, torch.bfloat16)
         else:
-            self._params = dict(self.model.named_parameters())
+            self._masters = dict(self.model.named_parameters())
+        self._params = self._canonical(
+            {k: v.detach() for k, v in self._masters.items()}
+            if self._num_scan else self._masters)
         self._compute = dict(self.model.named_parameters())
 
         self.ema = None
@@ -327,23 +345,19 @@ class Trainer:
 
     @property
     def params(self) -> dict:
-        """The fp32 master parameters, {state-dict name: tensor}."""
+        """The fp32 master parameters, {state-dict name of the unrolled
+        model: tensor} (under scan_blocks, views of the stacks)."""
         return self._params
+
+    def _canonical(self, d: dict) -> dict:
+        """A dict in the model's layout by the unrolled model's names."""
+        return from_scan_params(d, self._num_scan) if self._num_scan else d
 
     def shard_batch(self, batch: dict) -> dict:
         """Place a host batch (numpy arrays or tensors) on the trainer's
         device: through pinned memory, without waiting, onto a card.
         Tensors already there pass through."""
-        out = {}
-        for k, v in batch.items():
-            t = torch.as_tensor(v)
-            if t.device != self.device:
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                else:
-                    t = t.to(self.device)
-            out[k] = t
-        return out
+        return {k: to_device(v, self.device) for k, v in batch.items()}
 
     def _micro_grads(self, batch, noise, i):
         for p in self._compute.values():
@@ -356,14 +370,15 @@ class Trainer:
         return grads, metrics
 
     def gradients(self, batch: dict, noise: list[Noise]):
-        """(gradient dict, metrics) of one optimizer step on `batch` with
-        the given draws, averaged over the micro-batches as the JAX train
-        steps average them; no update is made."""
+        """(gradient dict by the unrolled model's names, metrics) of one
+        optimizer step on `batch` with the given draws, averaged over the
+        micro-batches as the JAX train steps average them; no update is
+        made."""
         tcfg = self.tcfg
         if self._precast:
             with torch.no_grad():
                 torch._foreach_copy_(list(self._compute.values()),
-                                     list(self._params.values()))
+                                     list(self._masters.values()))
         acc = len(noise)
         if acc == 1:
             g, metrics = self._micro_grads(batch, noise, 0)
@@ -372,7 +387,7 @@ class Trainer:
                     raise ValueError("bf16_grads requires low_mem_optimizer "
                                      "(per-leaf upcast)")
                 g = {k: v.to(torch.bfloat16) for k, v in g.items()}
-            return g, metrics
+            return self._canonical(g), metrics
         acc_dtype = (torch.bfloat16 if tcfg.bf16_grad_accum or self._split
                      else torch.float32)
         g_sum, m_sum = None, None
@@ -388,7 +403,7 @@ class Trainer:
         keep = (self.optimizer is None
                 or (tcfg.bf16_grad_accum and tcfg.low_mem_optimizer))
         g = {n: (x if keep else x.float()) / acc for n, x in zip(g, g_sum)}
-        return g, {k: v / acc for k, v in m_sum.items()}
+        return self._canonical(g), {k: v / acc for k, v in m_sum.items()}
 
     def train_step(self, batch: dict, noise: list[Noise] | None = None
                    ) -> dict:

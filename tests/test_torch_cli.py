@@ -116,13 +116,16 @@ def test_moments_8bit_resumes_from_a_bf16_run(tmp_path):
 
 
 def test_train_cli_refuses_the_queued_options(tmp_path):
-    for extra, what in ((["--scan_blocks"], "scan_blocks"),
-                        (["--remat_policy", "dots"], "remat_policy"),
-                        (["--dp", "2"], "mesh"), (["--multihost"], "multihost"),
-                        (["--data_parquet_folder", str(tmp_path)],
-                         "parquet")):
+    # --scan_blocks, --remat_policy and --data_parquet_folder are ported
+    # (tests/test_torch_remat_scan.py); a mesh and multi-host still raise,
+    # and the feed refuses real encoders without a weights directory
+    for extra, what in ((["--dp", "2"], "mesh"), (["--tp", "2"], "mesh"),
+                        (["--multihost"], "multihost")):
         with pytest.raises(NotImplementedError, match=what):
             train.main(["--device", "cpu", *extra])
+    with pytest.raises(RuntimeError, match="--encoder_weights"):
+        train.main(["--device", "cpu", "--data_parquet_folder",
+                    str(tmp_path), "--saveDir", str(tmp_path)])
 
 
 def _infer(ckpt_dir, step, out, *extra):

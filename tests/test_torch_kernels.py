@@ -1181,6 +1181,89 @@ def test_flash_autograd_function_on_the_card(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SHAPES[:2])
+def test_registered_flash_op_matches_plain_on_the_card(cuda_device, shape):
+    # the registered op `sd3_torch::flash_fwd` is K5: one launch, the bits
+    # of the wrapper, out and lse within the FLASH limits of the plain
+    # version in fp32; its autograd launches K6a and K6b once each
+    q, k, v, do = _flash_case(shape, cuda_device, seed=2)
+    scale = shape[-1] ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    before = tfl.K5.launches
+    out, lse = torch.ops.sd3_torch.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert tfl.K5.launches == before + 1
+    w_out, w_lse = tfl.flash_fwd(q, k, v, scale)
+    assert torch.equal(out, w_out) and torch.equal(lse, w_lse)
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    assert (lse - want[1]).abs().max().item() <= FLASH_LSE_ATOL
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (tfl.K6A.launches, tfl.K6B.launches)
+    torch.ops.sd3_torch.flash_fwd(qg, kg, vg, scale)[0].backward(do)
+    torch.cuda.synchronize()
+    assert (tfl.K6A.launches, tfl.K6B.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    for name, t, w in zip(("dq", "dk", "dv"), (qg, kg, vg), want[2:]):
+        _assert_grad_close(t.grad, w, name)
+
+
+@pytest.fixture(scope="module")
+def remat_runs():
+    """{(policy, scan): (K5, K6a, K6b launches, gradients)} of one bf16
+    forward and backward of a 2-block model of the published widths at
+    256px, batch 2, under each remat policy, unrolled and in the scan
+    layout, from one seeded init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from sd3_torch.config import published_config
+    cfg = published_config(stage_res=256).replace(num_blocks=2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(2, cfg.inCh, 32, 32, device="cuda", generator=g)
+    t = torch.rand(2, device="cuda", generator=g)
+    c = torch.randn(2, cfg.text_tokens, cfg.text_hidden_dim, device="cuda",
+                    generator=g)
+    cp = torch.randn(2, cfg.class_dim, device="cuda", generator=g)
+    out = {}
+    for scan in (False, True):
+        for policy in ("nothing", "dots", "attn", "dots_attn"):
+            model = MMDiT(cfg, device="cuda", fused_attn=False,
+                          remat_blocks=True, remat_policy=policy,
+                          scan_blocks=scan)
+            model.init_weights(torch.Generator(device="cuda").manual_seed(1))
+            before = (tfl.K5.launches, tfl.K6A.launches, tfl.K6B.launches)
+            model(x, t, c, cp).square().mean().backward()
+            torch.cuda.synchronize()
+            launches = tuple(a - b for a, b in zip(
+                (tfl.K5.launches, tfl.K6A.launches, tfl.K6B.launches),
+                before))
+            grads = {k: v.grad for k, v in model.named_parameters()}
+            if scan:
+                from sd3_torch.models.mmdit import from_scan_params
+                grads = from_scan_params(grads, model.num_scan)
+            out[(policy, scan)] = (launches, grads)
+            del model
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [False, True])
+@pytest.mark.parametrize("policy", ["nothing", "dots", "attn", "dots_attn"])
+def test_remat_policies_launch_and_agree_on_the_card(remat_runs, policy,
+                                                     scan):
+    # K5 twice a block under "nothing" / "dots", once under "attn" /
+    # "dots_attn" (the op's outputs kept); K6a and K6b once; every policy
+    # and layout the same gradient bits (the recompute repeats the same
+    # kernels and GEMMs)
+    launches, grads = remat_runs[(policy, scan)]
+    k5 = 2 if policy in ("nothing", "dots") else 1
+    assert launches == (2 * k5, 2, 2)
+    ref = remat_runs[("nothing", False)][1]
+    assert list(grads) == list(ref)
+    for k in ref:
+        assert torch.equal(grads[k], ref[k]), k
+
+
+@pytest.mark.cuda
 def test_k1_backward_runs_k5_k6_on_the_card(cuda_device):
     # K1's autograd Function: the forward launches K1, the backward
     # recomputes the prep and runs K5, K6a and K6b; its gradients match the

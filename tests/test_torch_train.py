@@ -517,11 +517,15 @@ def test_trainer_trains_logs_and_keeps_the_ema(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scan_blocks=True), dict(remat_policy="dots"),
+    dict(scan_blocks=True, attn_type="both"), dict(mesh=object()),
     dict(text_loss_weight=0.5)])
 def test_unported_training_options_raise(kw, tmp_path):
+    # the remat policies and scan_blocks are ported
+    # (tests/test_torch_remat_scan.py); scan over "both" (two blocks a scan
+    # step), a mesh and the text loss still raise
+    kw = dict(kw)
     cfg = MMDiTConfig.from_json(j_tiny_config(
-        attn_type="softmax_flash").to_json())
+        attn_type=kw.pop("attn_type", "softmax_flash")).to_json())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, TrainConfig(**kw), device="cpu", log_dir=str(tmp_path),
                 use_wandb=False)
