@@ -91,8 +91,7 @@ Phases (any failure exits non-zero without the final ok line):
      (head dim 16: K5, K6a, K6b at D = 16);
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
-     encoders and decode; one warmup, then the median of 3 timed runs; each
-     sample call must launch K1 exactly 19 * 20 times; then one more call
+     encoders and decode; one warmup, then one timed run; each sample call must launch K1 exactly 19 * 20 times; then one more call
      under torch.profiler for the card time by kernel family;
   6. the same with the model quantized to int8 (quantize_model): each sample
      call must launch K2 19 * 20, K3 18 * 20 (the last block has no text
@@ -106,19 +105,20 @@ Phases (any failure exits non-zero without the final ok line):
      tokens: 512px stays on K4, tests/test_torch_model.py);
   8.-10. the same at 1024px (4250 joint tokens): bf16 (K7 380, K1 0), int8
      (K7 380, K2 380, K3 360, K4 0, K1 0), and int8 with int8 P.V (K8b 380,
-     K7 0, K2 380, K3 360; one timed call);
+     K7 0, K2 380, K3 360);
   11. training through Trainer.train_step with the slice's configuration
      (bench.py --train defaults: the 19-block model, 512px, batch 4, fused
      low-mem AdamW, bf16 gradients, precast weights, remat): one warmup,
-     then the median of 5 timed steps, each launching K5 38, K6a 19, K6b 19
+     then the median of 3 timed steps, each launching K5 38, K6a 19, K6b 19
      and K1-K4 0 times; one more step under torch.profiler. The same
      configuration with 8-bit moments, and with the host EMA combined every
-     step: one warmup, then the median of 3 timed steps each. Then two steps
+     step: one warmup, then the median of 2 timed steps each. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
   12. the slice's path through the CLIs (sd3_torch.training.train,
-     sd3_torch.inference.infer): train.main at the published config, 256px,
-     2 steps, --moments_8bit --ema_on_host, writing the six artifacts under
+     sd3_torch.inference.infer): train.main at the published widths cut to
+     CLI_BLOCKS (3) blocks, 256px, 2 steps, --moments_8bit --ema_on_host,
+     writing the six artifacts under
      .chip_smoke_ckpt/ (free space checked in phase 1; removed at exit),
      reloaded and hash-compared with the trainer's tensors, with save and
      load seconds and GB/s; infer.main on the EMA at 512px in bf16 (K1),
@@ -142,10 +142,10 @@ Phases (any failure exits non-zero without the final ok line):
      low-resolution and an undecodable row a file) through filter_dataset
      -> create_phase (max 256) -> create_indices; HostDataLoader (2
      threads) and RingDataLoader (2 processes) alone, 30 batches of 8,
-     their streams equal; train.main at the published config from the
-     folder (stub encoders, batch 8, accumulation 2, 6 steps, 2 ring
-     workers, --remat_policy attn --scan_blocks): K5, K6a, K6b 38 times a
-     step and K1-K4 none, two bucket shapes at least, the model artifact
+     their streams equal; train.main at the published widths (CLI_BLOCKS
+     blocks) from the folder (stub encoders, batch 8, accumulation 2, 6
+     steps, 2 ring workers, --remat_policy attn --scan_blocks): K5, K6a,
+     K6b twice a block and step and K1-K4 none, two bucket shapes at least, the model artifact
      strict into an unrolled MMDiT; the ops each remat policy keeps in one
      block; one encoded group through Trainer.train_step under the four
      policies, unrolled and stacked (loss and grad norm within 1e-6 of each
@@ -155,7 +155,27 @@ Phases (any failure exits non-zero without the final ok line):
      batches, by the encoded feed on threads and on ring workers (median s
      a step, idle share); vae_encode of the real-architecture FLUX VAE at
      each bucket, batch 8;
-  15. one JSON line {"kernels": [...]} per ported kernel (with its design:
+  15. a reference checkpoint of the old layout at the published widths
+     (19 blocks, the absolute PE, swiglu_old; seeded weights) written as
+     the reference writes it (a torch.save'd state_dict with its
+     recomputed pos_enc.pos_embed, a params JSON without MLP_type), then
+     infer.main --torch_ckpt --loadDefFile at 512px, batch 2, OLD_STEPS
+     steps: bf16 (K1 19 a step) and --quant int8 (K2 19, K3 18, K4 19 a
+     step), each call's launches and images/s;
+  16. the model variants: RoPE1d (K1 with its tables), RoPE2dV2 and
+     kv_merge_attn (K5, at M = N / 2), the eight other attention types and
+     "both" (no kernel), and the old layout, each held at 2 blocks of the
+     published widths (512px, batch 1) on the card in bf16 against fp32 on
+     the CPU, with a control (a neighbouring variant of the same weights)
+     that must fail the limit, then sampled at full depth (512px, batch
+     2, VARIANT_STEPS Euler steps; s a call, the idle share); training:
+     text_loss (weight 0.1), kv_merge (K5 / K6a / K6b at M = N / 2) and
+     "both" under scan_blocks (the pair scan), each held at 2 blocks (3 for
+     the pair scan) against fp32 on the CPU with a control, then 19 blocks
+     at 256px, batch 4 with phase 11's flags (first loss, grad norm, s a
+     step, launches, idle share); phase 3 holds K5, K6a, K6b, their fp32
+     and wide instances at M != N (FLASH_KV, FLASH_KV_WIDE);
+  17. one JSON line {"kernels": [...]} per ported kernel (with its design:
      wgmma + TMA warp-specialised, or for the fp32 instances 3xTF32
      mma.sync over shared-memory tiles), then the card's name and power
      limit, then the last line
@@ -167,6 +187,7 @@ sd3_torch package beside this file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -408,6 +429,13 @@ FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
 # K6AWF / K6BWF in fp32), and 160, which runs padded to 256
 FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
               (4, 2, 1178, 512)]
+# k and v with a key length M of their own, as kv_merge_attn's pairwise
+# merge makes them: (B, H, N, M, D) at the 512px and 256px kv_merge training
+# shapes (M = N / 2), a ragged M against a whole N, and M > N; the wide
+# instances at head dim 256 with M = N / 2 and M > N
+FLASH_KV = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
+            (2, 3, 256, 77, 64), (2, 3, 129, 300, 64)]
+FLASH_KV_WIDE = [(2, 3, 410, 205, 256), (2, 3, 129, 300, 256)]
 # the fused route at head dims JAX's fused attention takes with one head a
 # lane block: 48, 96 and 192 padded to the 64, 128 and 256 instances, 256
 # and 384 on the wide instances (every multiple of 128 past it); every
@@ -435,12 +463,14 @@ K3_FP32 = dict(K3_SLICE, m=2 * 154, n_tok=2 * 154)
 K2_FP32 = dict(K2_SLICE, m=2 * 1024)
 K9_FP32 = [dict(s, m=2 * s["n_tok"]) for s in (K9_SLICE, K9_TEXT)]
 K10_FP32 = dict(K10_SLICE, b=2)
-# The CLI phase's checkpoint of the published model: model and EMA trees
-# (1.2B fp32 values each, ~4.9 GB) and the canonical bf16 optimizer moments
-# (2 x 1.2B bf16, ~4.9 GB), the tiny run's beside them; the directory needs
-# this much free space, and is removed at exit
+# The train CLI runs (phases 12 and 14) take the published widths at a
+# depth of CLI_BLOCKS blocks: the first and the last block's layouts and a
+# scan of two; their checkpoints hold 0.19B values a tree (~2.3 GB each).
+# Phase 15's reference checkpoint of 19 blocks takes 5.3 GB. The directory
+# needs this much free space, and is removed at exit
 CKPT_DIR = ".chip_smoke_ckpt"
-CKPT_DISK_BYTES = 16e9
+CKPT_DISK_BYTES = 8e9
+CLI_BLOCKS = 3
 CLI_STEPS = 2   # sampling steps of each infer CLI call at the published size
 
 
@@ -498,6 +528,21 @@ def cuda_ms(fn, iters=10, groups=5, graph=True):
     return statistics.median(times)
 
 
+def device_rows(prof) -> dict:
+    """{name: [device us, count]} of a finished trace's device-side events
+    (kernels, copies, fills), read from the profiler's raw results:
+    key_averages() first builds every event's tree in Python, about 0.1 ms
+    an event, seconds for a sampling call's 50-85k launches."""
+    from torch.autograd import DeviceType
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = rows.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    return rows
+
+
 def device_ms(run, iters=3) -> float:
     """The card's busy time of one run() call: the device time of every
     launch in `iters` calls under torch.profiler, over iters (the rest of
@@ -510,8 +555,7 @@ def device_ms(run, iters=3) -> float:
         for _ in range(iters):
             run()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / (
-        1e3 * iters)
+    return sum(us for us, _ in device_rows(prof).values()) / (1e3 * iters)
 
 
 def per_launch_us(run, iters=10) -> dict:
@@ -527,8 +571,8 @@ def per_launch_us(run, iters=10) -> dict:
         torch.cuda.synchronize()
     name_of = lambda key: key.replace("void ", "").replace(
         "(anonymous namespace)::", "").split("(")[0][:80]
-    return {name_of(e.key): round(e.self_device_time_total / e.count, 2)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    return {name_of(key): round(us / n, 2)
+            for key, (us, n) in device_rows(prof).items() if us > 0}
 
 
 # (int8_qk, int8_pv, streaming) -> the kernel's row name in the output
@@ -960,8 +1004,11 @@ def _errs(got, want) -> dict:
                 rel_l2=(d.norm() / want.norm()).item())
 
 
+# MATH is timed only for the head dims and dtypes that FLASH_ATTENTION and
+# CUDNN_ATTENTION refuse (where either ran, it beat MATH at every shape of
+# phase 3)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-                 "MATH")  # the last for head dims the others refuse
+                 "MATH")
 
 
 def sdpa_backward_ms(q, k, v, do, scale) -> dict:
@@ -988,6 +1035,10 @@ def sdpa_backward_ms(q, k, v, do, scale) -> dict:
         if backend is None:
             by[name] = "not in this PyTorch"
             continue
+        if name == "MATH" and any(isinstance(by.get(n), float) for n in (
+                "FLASH_ATTENTION", "CUDNN_ATTENTION")):
+            by[name] = "not timed: FLASH_ATTENTION or CUDNN_ATTENTION ran"
+            continue
         try:
             with sdpa_kernel(backend):
                 fwd_bwd()  # a backend that refuses the shape raises here,
@@ -1003,21 +1054,44 @@ def sdpa_backward_ms(q, k, v, do, scale) -> dict:
     return dict(ms=timed[best], backend=best, by_backend=by, eager_ms=eager)
 
 
+def flash_dims(shape) -> tuple:
+    """(B, H, N, M, D) of a flash shape (B, H, N, D) or (B, H, N, M, D): M
+    keys against N queries (kv_merge_attn's M = N / 2), M = N by default."""
+    if len(shape) == 4:
+        b, h, n, d = shape
+        return b, h, n, n, d
+    return tuple(shape)
+
+
+def flash_inputs(shape, gen, dtype):
+    """q, k, v, dO of a flash shape: q, dO (B, H, N, D), k, v (B, H, M,
+    D), drawn in that order."""
+    import torch
+    b, h, n, m, d = flash_dims(shape)
+    return [torch.randn((b, h, rows, d), generator=gen, device="cuda")
+            .to(dtype) for rows in (n, m, m, n)]
+
+
+def flash_label(shape, suffix="") -> str:
+    b, h, n, m, d = flash_dims(shape)
+    return f"B={b} H={h} N={n}{f' M={m}' if m != n else ''} D={d}{suffix}"
+
+
 def phase_flash(shape, gen, check=None):
     """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
-    shape, on the samples and heads [:check[0], :check[1]] where `check` is
-    given (the plain versions' fp32 score matrices at the 1024px training
-    shape take 5.5 GB each); the kernels, the plain versions and SDPA timed
-    at the full shape (SDPA's backward by sdpa_backward_ms); returns
-    {"K5" | "K6a" | "K6b": measurements}."""
+    shape, or (B, H, N, M, D) with k and v of M keys, on the samples and
+    heads [:check[0], :check[1]] where `check` is given (the plain versions'
+    fp32 score matrices at the 1024px training shape take 5.5 GB each); the
+    kernels, the plain versions and SDPA timed at the full shape (SDPA's
+    backward by sdpa_backward_ms); returns {"K5" | "K6a" | "K6b":
+    measurements}."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import flash_attention as fl
 
-    b, h, n, d = shape
+    b, h, n, m, d = flash_dims(shape)
     scale = d ** -0.5
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v, do = flash_inputs(shape, gen, torch.bfloat16)
     out, lse = fl.flash_fwd(q, k, v, scale)
     dq, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
     dk, dv = fl.flash_dkv(q, k, v, do, lse, delta, scale)
@@ -1033,7 +1107,7 @@ def phase_flash(shape, gen, check=None):
         K5=dict(out=_errs(cut(out), w_out), lse=_errs(cut(lse), w_lse)),
         K6a=dict(dq=_errs(cut(dq), w_dq), delta=_errs(cut(delta), w_delta)),
         K6b=dict(dk=_errs(cut(dk), w_dk), dv=_errs(cut(dv), w_dv)))
-    label = f"B={b} H={h} N={n} D={d}"
+    label = flash_label(shape)
 
     # library yardsticks, never called by the port: SDPA's forward, and its
     # backward (dq, dk, dv together) on the card alone
@@ -1044,24 +1118,26 @@ def phase_flash(shape, gen, check=None):
     bwd_lib = dict(library_ms=lib_bwd["ms"],
                    library_backend=lib_bwd["backend"],
                    library_eager_ms=lib_bwd["eager_ms"])
-    one, stat = b * h * n * d * 2, b * h * n * 4  # bytes: a bf16 tensor, lse
-    bh_nnd = b * h * n * n * d
+    # bytes: a bf16 tensor of N rows (q, out, dO, dq) and of M (k, v, dk,
+    # dv), lse / delta
+    one_n, one_m, stat = b * h * n * d * 2, b * h * m * d * 2, b * h * n * 4
+    bh_nmd = b * h * n * m * d
     # each kernel takes exp2 of every score once (K6a, K6b recompute p)
-    t_exp = 1.0 * b * h * n * n / PEAK_EXP2
-    runs = dict(  # kernel, plain version, products of 2*B*H*N^2*D, bytes,
+    t_exp = 1.0 * b * h * n * m / PEAK_EXP2
+    runs = dict(  # kernel, plain version, products of 2*B*H*N*M*D, bytes,
                   # library figures
         K5=(lambda: fl.flash_fwd(q, k, v, scale),
-            lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
-            dict(library_ms=cuda_ms(sdpa))),
+            lambda: fl.flash_fwd_plain(q, k, v, scale), 2,
+            2 * one_n + 2 * one_m + stat, dict(library_ms=cuda_ms(sdpa))),
         K6a=(lambda: fl.flash_dq(q, k, v, out, do, lse, scale),
              lambda: fl.flash_dq_plain(q, k, v, out, do, lse, scale), 3,
-             6 * one + 2 * stat, bwd_lib),
+             4 * one_n + 2 * one_m + 2 * stat, bwd_lib),
         K6b=(lambda: fl.flash_dkv(q, k, v, do, lse, delta, scale),
              lambda: fl.flash_dkv_plain(q, k, v, do, lse, delta, scale), 4,
-             6 * one + 2 * stat, bwd_lib))
+             2 * one_n + 4 * one_m + 2 * stat, bwd_lib))
     results = {}
     for name, (run, plain, products, nbytes, lib) in runs.items():
-        t_ops = products * 2 * bh_nnd / PEAK_BF16_FLOPS
+        t_ops = products * 2 * bh_nmd / PEAK_BF16_FLOPS
         t_bytes = nbytes / PEAK_BYTES
         res = dict(shape=label, checked=(f"[:{check[0]}, :{check[1]}]"
                                          if check else "all"),
@@ -1092,19 +1168,19 @@ def phase_flash(shape, gen, check=None):
 
 def phase_flash_fp32(shape, gen):
     """K5F, K6AF and K6BF (the fp32 instances) vs their plain versions in
-    fp32 on the card (TF32 off) at one (B, H, N, D) shape: rel L2 within
-    FP32_REL_L2, and FP32_OVER_BF16 times below the bf16 instances' error
-    at the same shape; kernel, plain-version and SDPA (fp32) times."""
+    fp32 on the card (TF32 off) at one (B, H, N, D) or (B, H, N, M, D)
+    shape: rel L2 within FP32_REL_L2, and FP32_OVER_BF16 times below the
+    bf16 instances' error at the same shape; kernel, plain-version and SDPA
+    (fp32) times."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import flash_attention as fl
 
-    b, h, n, d = shape
+    b, h, n, m, d = flash_dims(shape)
     scale = d ** -0.5
     # fp32 values that bf16 does not hold, so the bf16 instance's error
     # includes its inputs' rounding
-    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
-                   for _ in range(4))
+    q, k, v, do = flash_inputs(shape, gen, torch.float32)
     w_out, w_lse = fl.flash_fwd_plain(q, k, v, scale)
     w_dq, w_delta = fl.flash_dq_plain(q, k, v, w_out, do, w_lse, scale)
     w_dk, w_dv = fl.flash_dkv_plain(q, k, v, do, w_lse, w_delta, scale)
@@ -1122,24 +1198,24 @@ def phase_flash_fp32(shape, gen):
     bf16 = dict(K5F=dict(out=rel(bo, w_out)), K6AF=dict(dq=rel(bdq, w_dq)),
                 K6BF=dict(dk=rel(bdk, w_dk), dv=rel(bdv, w_dv)))
     lse_err = (lse - w_lse).abs().max().item()
-    label = f"B={b} H={h} N={n} D={d} fp32"
+    label = flash_label(shape, " fp32")
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
     lib_bwd = sdpa_backward_ms(q, k, v, do, scale)
     bwd_lib = dict(library_ms=lib_bwd["ms"], library_backend=lib_bwd["backend"],
                    library_eager_ms=lib_bwd["eager_ms"])
-    one, stat = b * h * n * d * 4, b * h * n * 4
-    bh_nnd = b * h * n * n * d
-    t_exp = 1.0 * b * h * n * n / PEAK_EXP2
+    one_n, one_m, stat = b * h * n * d * 4, b * h * m * d * 4, b * h * n * 4
+    bh_nmd = b * h * n * m * d
+    t_exp = 1.0 * b * h * n * m / PEAK_EXP2
     runs = dict(
         K5F=(lambda: fl.flash_fwd(q, k, v, scale),
-             lambda: fl.flash_fwd_plain(q, k, v, scale), 2, 4 * one + stat,
-             dict(library_ms=cuda_ms(sdpa))),
+             lambda: fl.flash_fwd_plain(q, k, v, scale), 2,
+             2 * one_n + 2 * one_m + stat, dict(library_ms=cuda_ms(sdpa))),
         K6AF=(lambda: fl.flash_dq(q, k, v, out, do, lse, scale),
               lambda: fl.flash_dq_plain(q, k, v, out, do, lse, scale), 3,
-              6 * one + 2 * stat, bwd_lib),
+              4 * one_n + 2 * one_m + 2 * stat, bwd_lib),
         K6BF=(lambda: fl.flash_dkv(q, k, v, do, lse, delta, scale),
               lambda: fl.flash_dkv_plain(q, k, v, do, lse, delta, scale), 4,
-              6 * one + 2 * stat, bwd_lib))
+              2 * one_n + 4 * one_m + 2 * stat, bwd_lib))
     results = {}
     for name, (run, plain, products, nbytes, lib) in runs.items():
         e = max(errs[name].values())
@@ -1148,7 +1224,7 @@ def phase_flash_fp32(shape, gen):
                        "K5F": [(out, w_out)], "K6AF": [(dq, w_dq)],
                        "K6BF": [(dk, w_dk), (dv, w_dv)]}[name]),
                    ms=cuda_ms(run), plain_ms=cuda_ms(plain, iters=3, groups=3),
-                   **lib, **bound(products * 2 * bh_nnd / PEAK_FP32_FLOPS,
+                   **lib, **bound(products * 2 * bh_nmd / PEAK_FP32_FLOPS,
                                   nbytes / PEAK_BYTES, t_exp))
         if name == "K5F":
             res["lse_max_abs_err"] = lse_err
@@ -1441,7 +1517,7 @@ def phase_train_step(log_dir, cfg, label, lat, fp32=False):
     noise = draw_noise(g, batch["x0"][0], ref.tcfg)
     noise = Noise(noise.t, noise.eps, torch.tensor([False, True]),
                   torch.tensor([True, False]), torch.tensor([False, False]))
-    on_card = lambda tree: type(tree)(*(t.cuda() for t in tree))
+    on_card = lambda noise: noise.to("cuda")
     card_batch = dut.shard_batch(batch)
     t0 = time.time()
     want_g, want_m = ref.gradients(batch, [noise])
@@ -1500,8 +1576,8 @@ def model_flops_per_forward(cfg, img_tokens: int) -> float:
     return cfg.num_blocks * per_block + embed
 
 
-TRAIN_STEPS_TIMED = 5
-TRAIN_OPTION_STEPS = 3
+TRAIN_STEPS_TIMED = 3
+TRAIN_OPTION_STEPS = 2
 
 
 def phase_train(card, log_dir):
@@ -1711,16 +1787,29 @@ def require_disk(root):
     os.makedirs(root, exist_ok=True)
     free = shutil.disk_usage(root).free
     require(free >= CKPT_DISK_BYTES,
-            f"{free / 1e9:.1f} GB free under {root}: the published "
-            f"checkpoint (model, EMA and optimizer artifacts of ~4.9 GB "
-            f"each) needs {CKPT_DISK_BYTES / 1e9:.0f} GB")
+            f"{free / 1e9:.1f} GB free under {root}: the CLI phases' "
+            f"checkpoints (phase 15's of 5.3 GB the largest) need "
+            f"{CKPT_DISK_BYTES / 1e9:.0f} GB")
     return free
+
+
+@contextlib.contextmanager
+def cli_depth(blocks=CLI_BLOCKS):
+    """Inside the block, the train CLI's --preset published builds the
+    published widths at a depth of `blocks` (sd3_torch.config's
+    published_config with num_blocks replaced): the CLI runs of phases 12
+    and 14 write checkpoints of that depth, which infer reloads as saved."""
+    from sd3_torch import config
+    full = config.published_config
+    with patched(config, "published_config", lambda *a, **k: full(
+            *a, **k).replace(num_blocks=blocks)):
+        yield
 
 
 def phase_cli(card, root):
     """The slice's main path through the port's own CLIs: train.main at the
-    published config (19 blocks, 256px, 2 steps, 8-bit moments, the host
-    EMA) writes the six artifacts, which are reloaded and hash-compared with
+    published widths (CLI_BLOCKS blocks, 256px, 2 steps, 8-bit moments, the
+    host EMA) writes the six artifacts, which are reloaded and hash-compared with
     the trainer's tensors; infer.main samples 512px from the EMA in bf16
     (K1), int8 (K2, K3, K4), and fp32 int8 without and with the block tails
     (the fp32 instances K4F, K2F, K3F; K4F, K9F, K10AF, K10BF), each run's
@@ -1755,13 +1844,14 @@ def phase_cli(card, root):
     try:
         reset_launches()
         t0 = time.time()
-        tr = train_cli.main([
-            "--device", "cuda", "--preset", "published", "--synthetic",
-            "--stage_res", "256", "--batchSize", "4",
-            "--accumulation_steps", "1", "--totalSteps", "2",
-            "--numSaveSteps", "2", "--moments_8bit", "--ema_on_host",
-            "--ema_update_freq", "1", "--warmup_steps", "1", "--log_steps",
-            "1", "--saveDir", pub])
+        with cli_depth():
+            tr = train_cli.main([
+                "--device", "cuda", "--preset", "published", "--synthetic",
+                "--stage_res", "256", "--batchSize", "4",
+                "--accumulation_steps", "1", "--totalSteps", "2",
+                "--numSaveSteps", "2", "--moments_8bit", "--ema_on_host",
+                "--ema_update_freq", "1", "--warmup_steps", "1",
+                "--log_steps", "1", "--saveDir", pub])
         torch.cuda.synchronize()
         out["train"] = launch_counts()
         out["train_s"] = time.time() - t0
@@ -1774,7 +1864,7 @@ def phase_cli(card, root):
                     ("flash_attention_dkv", 2 * nb)):
         # per step: the forward and its remat recompute (K5), one backward
         require(launched[name] == n, f"{name} launched {launched[name]} "
-                f"times in 2 published training steps, expected {n}")
+                f"times in 2 published-width training steps, expected {n}")
     require(tr.step == 2 and tr.saved_step == 2 and len(saves) == 1,
             f"train CLI ended at step {tr.step}, saved {len(saves)} times")
     names = tck._names(2)
@@ -1797,7 +1887,7 @@ def phase_cli(card, root):
         require(got == exp, f"the reloaded {names[key]} differs from the "
                 f"trainer's tensors (sha256 {got[:12]} vs {exp[:12]})")
     cfg = tck.load_config(pub, names["defs"])
-    require(cfg.num_blocks == 19 and cfg.start_step == 2,
+    require(cfg.num_blocks == CLI_BLOCKS and cfg.start_step == 2,
             f"model_params_2s.json: {cfg.num_blocks} blocks, start_step "
             f"{cfg.start_step}")
     out.update(save_s=saves[0], save_GBps=written / saves[0] / 1e9,
@@ -2343,7 +2433,7 @@ def phase_encoders(card):
     return out, run
 
 
-def phase_sample(card, int8=False, res=512, int8_pv=False, timed=3,
+def phase_sample(card, int8=False, res=512, int8_pv=False, timed=1,
                  tails=False, enc=None):
     """Full-width sampling through the port's entry points: the bf16 model,
     or (int8) the same seeded weights quantized by quantize_model, with
@@ -2500,8 +2590,8 @@ FEED_BATCH = 8
 FEED_LOADER_BATCHES = 30   # batches each loader delivers alone
 FEED_SLOT_MB = 8           # a ring slot: one 256px batch of 8 in fp32
 FEED_CLI_STEPS = 6         # the CLI run: 6 optimizer steps, accumulation 2
-POLICY_STEPS = 5           # timed steps of each policy run, after one
-FEED_STEPS = 4             # timed steps of each feed, after two
+POLICY_STEPS = 2           # timed steps of each policy run, after one
+FEED_STEPS = 2             # timed steps of each feed, after two
 # The eight policy x layout runs take one encoded group and one noise draw
 # from the same seeded weights; every recompute repeats the same kernels
 # and GEMMs on the same bits, so their first steps' loss and gradient norm
@@ -2625,11 +2715,11 @@ def phase_loaders(phase, card):
 
 
 def phase_feed_cli(phase, idx, root, card):
-    """Phase 14.3: train.main at the published config (19 blocks) from the
-    phase folder: stub encoders, batch 8, accumulation 2, FEED_CLI_STEPS
-    steps, 2 ring workers, 1 group prefetched, fused optimizer, remat
-    policy "attn", the scan layout. Each step must launch K5, K6a and K6b
-    2 * 19 times and K1-K4 none; at least two bucket shapes must occur; the
+    """Phase 14.3: train.main at the published widths (CLI_BLOCKS blocks)
+    from the phase folder: stub encoders, batch 8, accumulation 2,
+    FEED_CLI_STEPS steps, 2 ring workers, 1 group prefetched, fused
+    optimizer, remat policy "attn", the scan layout. Each step must launch
+    K5, K6a and K6b twice a block and K1-K4 none; at least two bucket shapes must occur; the
     saved model artifact must load strict into an unrolled MMDiT and equal
     the trainer's parameters."""
     import torch
@@ -2652,7 +2742,7 @@ def phase_feed_cli(phase, idx, root, card):
         return m
 
     t0 = time.time()
-    with patched(Trainer, "train_step", counted):
+    with patched(Trainer, "train_step", counted), cli_depth():
         tr = train_cli.main([
             "--preset", "published", "--stage_res", str(FEED_MAX_RES),
             "--data_parquet_folder", phase, "--bucket_indices_path", idx,
@@ -2680,11 +2770,14 @@ def phase_feed_cli(phase, idx, root, card):
     require(tr.model.num_scan == nb - 1, "the CLI's model is not stacked")
     t1 = time.time()
     sd = state_dict_from_jax(tck.load_artifact(
-        save, f"model_{FEED_CLI_STEPS}s.msgpack"),
-        published_config(FEED_MAX_RES).patch_size)
+        save, f"model_{FEED_CLI_STEPS}s.msgpack"), tr.cfg.patch_size)
     load_s = time.time() - t1
-    unrolled = MMDiT(published_config(FEED_MAX_RES), device="meta",
-                     fused_attn=False)
+    pub = published_config(FEED_MAX_RES)
+    require((tr.cfg.dim, tr.cfg.num_heads, nb) == (pub.dim, pub.num_heads,
+                                                   CLI_BLOCKS),
+            f"the CLI's model: dim {tr.cfg.dim}, {tr.cfg.num_heads} heads, "
+            f"{nb} blocks")
+    unrolled = MMDiT(tr.cfg, device="meta", fused_attn=False)
     unrolled.load_state_dict(sd, strict=True, assign=True)
     for name in ("blocks.0.attn.query_proj_x.weight",
                  f"blocks.{nb - 2}.MLP_c.MLP.w3.weight",
@@ -2837,7 +2930,7 @@ def phase_policies(phase, square, card, log_dir):
                 tr.train_step(batch, noise)
                 torch.cuda.synchronize()
             row["device_busy_ms"] = sum(
-                e.self_device_time_total for e in prof.key_averages()) / 1e3
+                us for us, _ in device_rows(prof).values()) / 1e3
             if ref is None:
                 ref = row
             row["loss_rel_diff"] = abs(row["loss"] / ref["loss"] - 1)
@@ -2982,6 +3075,394 @@ def phase_data_feed(card, root, log_dir):
                 feed=feed, seconds=spent)
 
 
+# ---- phases 15-16: the model variants off the published config ----------
+
+# the reference's old checkpoints: the absolute sin-cos PE and the flat
+# SwiGLU (`MLP_type` absent from their params JSON means swiglu_old)
+OLD_LAYOUT = dict(positional_encoding="absolute", MLP_type="swiglu_old")
+OLD_STEPS = 2        # Euler steps of each infer CLI call of phase 15
+VARIANT_STEPS = 3    # Euler steps of each variant's sampling call
+VARIANT_BATCH = 2
+# (label, config fields, the kernel the forward launches once a block or
+# None, the control's config fields: a configuration of the same parameter
+# tree, up to RMSNorm weights at their initial ones, whose CPU result the
+# card's must NOT match within the check's limit). The fused path takes
+# RoPE1d's tables (K1); RoPE2dV2 and kv_merge take the general path's flash
+# attention (K5; kv_merge at M = N / 2); the other attention types run no
+# kernel, as they run none in the JAX package. Each is held in bf16 (phase
+# 4's MODEL_REL_L2) but silu, held in fp32 (FP32_MODEL_REL_L2, TF32 off):
+# its linear attention divides by q . sum(k), a sum of terms of both signs
+# that nears zero on some rows, which then carry bf16's rounding of the
+# terms many times over and set the output's norm (CPU bf16 against fp32
+# at head dim 32: rel L2 6.5e-2); fp32 holds the port's arithmetic there
+FP32_CHECKED = ("silu",)
+SAMPLE_VARIANTS = [
+    ("RoPE1d", dict(positional_encoding="RoPE"), "fused_attention_bf16",
+     dict(positional_encoding="RoPE2d")),
+    ("RoPE2dV2", dict(positional_encoding="RoPE2dV2"), "flash_attention_fwd",
+     dict(positional_encoding="RoPE2d")),
+    ("kv_merge", dict(kv_merge_attn=True), "flash_attention_fwd",
+     dict(kv_merge_attn=False)),
+    ("cosine", dict(attn_type="cosine"), None, dict(attn_type="cosine2")),
+    ("cosine2", dict(attn_type="cosine2"), None, dict(attn_type="cosine3")),
+    ("cosine3", dict(attn_type="cosine3"), None, dict(attn_type="cosine4")),
+    ("cosine4", dict(attn_type="cosine4"), None,
+     dict(attn_type="cosine_norm")),
+    ("cosine_norm", dict(attn_type="cosine_norm"), None,
+     dict(attn_type="cosine2")),
+    ("relu", dict(attn_type="relu"), None, dict(attn_type="silu")),
+    ("silu", dict(attn_type="silu"), None, dict(attn_type="exp")),
+    ("exp", dict(attn_type="exp"), None, dict(attn_type="relu")),
+    ("both", dict(attn_type="both"), None, dict(attn_type="softmax")),
+    ("old layout", OLD_LAYOUT, "fused_attention_bf16",
+     dict(positional_encoding="NoPE")),
+]
+# (label, config fields, TrainConfig fields, the control's config fields,
+# the control's TrainConfig fields, flash launches a step, blocks of the
+# 2-block check: 3 for the pair scan, whose 2 blocks would scan none)
+TRAIN_VARIANTS = [
+    ("text_loss", dict(text_loss=True), dict(text_loss_weight=0.1), {},
+     dict(text_loss_weight=1.0), True, 2),
+    ("kv_merge", dict(kv_merge_attn=True), {}, dict(kv_merge_attn=False), {},
+     True, 2),
+    ("both scan", dict(attn_type="both"), dict(scan_blocks=True),
+     dict(attn_type="softmax"), {}, False, 3),
+]
+VARIANT_TRAIN_RES, VARIANT_TRAIN_BATCH, VARIANT_TRAIN_STEPS = 256, 4, 2
+
+
+def _load_loose(model, sd):
+    """Load `sd` into `model` (a control of another variant): the keys it
+    lacks must be RMSNorm weights, which stay at their initial ones."""
+    missing, _ = model.load_state_dict(sd, strict=False)
+    require(all(re.search(r"norm_[xc]?\.?weight$|norm\.weight$", k)
+                for k in missing), f"the control lacks weights {missing}")
+    return model
+
+
+def variant_model_check(label, fields, control, seed=0):
+    """A variant's published widths at 2 blocks, 512px, batch 1, on the card
+    in bf16 (FP32_CHECKED: fp32) against the same weights in fp32 on the
+    CPU (rel L2 within phase 4's MODEL_REL_L2, FP32_MODEL_REL_L2); the
+    control's CPU result on the same weights must miss that limit."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.models.mmdit import MMDiT
+
+    cfg = published_config(stage_res=512).replace(num_blocks=2, **fields)
+    ref = MMDiT(cfg.replace(dtype="float32"), device="cpu").init_weights(
+        torch.Generator().manual_seed(seed)).eval()
+    ctl = _load_loose(MMDiT(cfg.replace(dtype="float32", **control),
+                            device="cpu").eval(), ref.state_dict())
+    g = torch.Generator().manual_seed(seed + 1)
+    args = (torch.randn((1, cfg.inCh, 64, 64), generator=g),
+            torch.rand((1,), generator=g),
+            torch.randn((1, cfg.text_tokens, cfg.text_hidden_dim), generator=g),
+            torch.randn((1, cfg.class_dim), generator=g))
+    fp32 = label in FP32_CHECKED
+    limit = FP32_MODEL_REL_L2 if fp32 else MODEL_REL_L2
+    dut = MMDiT(cfg.replace(dtype="float32") if fp32 else cfg, device="cuda")
+    dut.load_state_dict(ref.state_dict(), strict=True)
+    if not fp32:
+        dut.cast_params(torch.bfloat16)
+    dut.eval()
+    with torch.inference_mode():
+        want, other = ref(*args), ctl(*args)
+        got = dut(*(a.cuda() for a in args)).cpu()
+    require(bool(torch.isfinite(got).all()), f"{label}: 2-block output "
+            "non-finite")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    res = dict(dtype="float32" if fp32 else "bfloat16", limit=limit,
+               rel_l2=rel(got, want), control_rel_l2=rel(got, other))
+    require(res["rel_l2"] <= limit, f"{label}: 2-block model rel L2 "
+            f"{res['rel_l2']} > {limit}")
+    require(res["control_rel_l2"] > limit, f"{label}: the control "
+            f"{control} passes the 2-block check (rel L2 "
+            f"{res['control_rel_l2']})")
+    return res
+
+
+def phase_sample_variants(card):
+    """Phase 16.1: each of SAMPLE_VARIANTS held at 2 blocks against the CPU
+    (variant_model_check), then the 19-block published-width model with
+    seeded bf16 weights sampled at 512px, batch 2, VARIANT_STEPS Euler
+    steps, CFG 5, stub encoders: one warmup call of one step, one timed
+    call, one traced call (the card's busy ms, the idle share); the
+    attention kernel launched once a block and step, no other kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sd3_torch.config import published_config
+    from sd3_torch.inference.sampler import sample_imgs
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.models.text_encoders import StubTextEncoders
+
+    enc = StubTextEncoders(device="cuda")
+    out = {}
+    for label, fields, kern, control in SAMPLE_VARIANTS:
+        check = variant_model_check(label, fields, control)
+        cfg = published_config(stage_res=512).replace(**fields)
+        model = MMDiT(cfg, device="cuda", dtype=torch.bfloat16).init_weights(
+            torch.Generator(device="cuda").manual_seed(0)).eval()
+        nb = cfg.num_blocks
+
+        def run(steps):
+            reset_launches()
+            t0 = time.time()
+            lat = sample_imgs(model, enc, VARIANT_BATCH, steps,
+                              "a red fox in the snow", cfg_scale=5.0,
+                              width=512, height=512, sampler="euler",
+                              generator=torch.Generator().manual_seed(1),
+                              decode=False)
+            torch.cuda.synchronize()
+            return lat, time.time() - t0, launch_counts()
+
+        run(1)
+        lat, call_s, launches = run(VARIANT_STEPS)
+        require(bool(torch.isfinite(lat).all()) and tuple(lat.shape) == (
+            VARIANT_BATCH, cfg.inCh, 64, 64), f"{label}: sampled latents "
+            f"{tuple(lat.shape)} or non-finite")
+        expect = {k: 0 for k in launches}
+        if kern:
+            expect[kern] = nb * VARIANT_STEPS
+        for name, n in expect.items():
+            require(launches[name] == n, f"{name} launched {launches[name]} "
+                    f"times in one {label} sample call, expected {n}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced_s = run(VARIANT_STEPS)[1]
+        tr = device_breakdown(prof, traced_s)
+        res = dict(variant=label, fields=fields, batch=VARIANT_BATCH,
+                   steps=VARIANT_STEPS, call_s=call_s,
+                   s_per_step=call_s / VARIANT_STEPS,
+                   launches={k: v for k, v in launches.items() if v},
+                   device_busy_ms=tr["device_busy_ms"],
+                   idle_share_untraced=1 - tr["device_busy_ms"]
+                   / (call_s * 1e3),
+                   by_family_ms={k: v for k, v in tr["by_family_ms"].items()
+                                 if v}, two_block=check, card=card)
+        print("  variant sample", json.dumps(res), flush=True)
+        out[label] = res
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def variant_step_check(label, fields, tfields, control, tcontrol, flash,
+                       blocks, log_dir):
+    """One training step's gradients of a variant at `blocks` blocks of the
+    published widths, 256px, batch 2, on the card in bf16 with phase 11's
+    flags against the same weights and noise in fp32 on the CPU (phase 4's
+    training limits); the control's CPU gradients (its config or its
+    TrainConfig on the same weights) must miss the gradient limit."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.training.trainer import TrainConfig, Trainer, draw_noise
+
+    cfg = published_config(stage_res=256).replace(num_blocks=blocks,
+                                                  **fields)
+    kw = dict(batch_size=2, accumulation_steps=1, lr=1e-4, warmup_steps=0,
+              low_mem_optimizer=True, fused_optimizer=True, track_ema=False,
+              remat_blocks=True, **tfields)
+    mk = lambda c, dev, **t: Trainer(c, TrainConfig(**{**kw, **t}),
+                                     device=dev, log_dir=log_dir,
+                                     use_wandb=False)
+    ref = mk(cfg.replace(dtype="float32"), "cpu", scan_blocks=False)
+    p0 = {k: v.detach().clone() for k, v in ref.params.items()}
+    ctl = mk(cfg.replace(dtype="float32", **control), "cpu", scan_blocks=False,
+             **tcontrol)
+    _load_loose(ctl.model, p0)
+    dut = Trainer(cfg, TrainConfig(**kw, bf16_grads=True,
+                                   precast_params=True),
+                  params=p0, device="cuda", log_dir=log_dir, use_wandb=False)
+    g = torch.Generator().manual_seed(2)
+    lat = 256 // 8
+    batch = {"x0": torch.randn((1, 2, cfg.inCh, lat, lat), generator=g),
+             "text": torch.randn((1, 2, cfg.text_tokens, cfg.text_hidden_dim),
+                                 generator=g),
+             "pooled": torch.randn((1, 2, cfg.class_dim), generator=g)}
+    noise = draw_noise(g, batch["x0"][0], ref.tcfg,
+                       text_shape=batch["text"].shape[1:3])
+    # one sample with each null flag set, so the text mask applies
+    noise = noise._replace(null_pooled=torch.tensor([False, True]),
+                           null_gemma=torch.tensor([True, False]),
+                           null_bert=torch.tensor([False, True]))
+    want_g, want_m = ref.gradients(batch, [noise])
+    ctl_g, _ = ctl.gradients(batch, [noise])
+    reset_launches()
+    got_g, got_m = dut.gradients(dut.shard_batch(batch),
+                                 [noise.to("cuda")])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    require(all(bool(torch.isfinite(t).all()) for t in got_g.values()),
+            f"{label}: training gradients non-finite on the card")
+    res = dict(variant=label, blocks=blocks,
+               loss_card=got_m["loss"].item(),
+               loss_cpu_fp32=want_m["loss"].item(),
+               grad_rel_l2=_flat_rel_l2(got_g, want_g),
+               control_grad_rel_l2=_flat_rel_l2(got_g, {
+                   k: ctl_g[k] for k in want_g if k in ctl_g}),
+               metrics={k: v.item() for k, v in got_m.items()},
+               launches={k: v for k, v in launches.items() if v})
+    res["loss_rel"] = abs(res["loss_card"] / res["loss_cpu_fp32"] - 1)
+    nflash = {"flash_attention_fwd": 2 * blocks, "flash_attention_dq": blocks,
+              "flash_attention_dkv": blocks}
+    for name, n in nflash.items():
+        require(launches[name] == (n if flash else 0), f"{label}: {name} "
+                f"launched {launches[name]} times in a {blocks}-block step")
+    require(res["loss_rel"] <= TRAIN_LOSS_REL, f"{label}: training loss "
+            f"{res['loss_card']} vs fp32 {res['loss_cpu_fp32']}")
+    require(res["grad_rel_l2"] <= TRAIN_GRAD_REL_L2, f"{label}: gradients "
+            f"rel L2 {res['grad_rel_l2']} > {TRAIN_GRAD_REL_L2}")
+    require(res["control_grad_rel_l2"] > TRAIN_GRAD_REL_L2, f"{label}: the "
+            f"control {control or tcontrol} passes the gradient check "
+            f"({res['control_grad_rel_l2']})")
+    return res
+
+
+def phase_train_variants(card, log_dir):
+    """Phase 16.2: each of TRAIN_VARIANTS held at 2 (3) blocks against the
+    CPU (variant_step_check), then Trainer.train_step of the 19-block model
+    with phase 11's flags at 256px, batch 4: a warmup step, then
+    VARIANT_TRAIN_STEPS timed steps (the first loss and grad norm, s a
+    step) and one traced (the card's busy ms); K5 38, K6a 19, K6b 19 a
+    step on the flash variants, none on "both"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.training.trainer import Trainer
+
+    out = {}
+    for label, fields, tfields, control, tcontrol, flash, blocks in \
+            TRAIN_VARIANTS:
+        check = variant_step_check(label, fields, tfields, control, tcontrol,
+                                   flash, blocks, log_dir)
+        cfg, tc = train_slice_config()
+        cfg = cfg.replace(max_res=VARIANT_TRAIN_RES, **fields)
+        tc = dataclasses.replace(tc, batch_size=VARIANT_TRAIN_BATCH,
+                                 **tfields)
+        trainer = Trainer(cfg, tc, device="cuda", log_dir=log_dir,
+                          use_wandb=False)
+        batch = trainer.shard_batch(next(synthetic_batch_iter(
+            cfg, VARIANT_TRAIN_BATCH, 1, VARIANT_TRAIN_RES,
+            VARIANT_TRAIN_RES)))
+        nb = cfg.num_blocks
+
+        def step():
+            reset_launches()
+            t0 = time.time()
+            m = trainer.train_step(batch)
+            m = {k: v.item() for k, v in m.items()}  # synchronises
+            return time.time() - t0, m, launch_counts()
+
+        warm_s, first, _ = step()
+        runs = [step() for _ in range(VARIANT_TRAIN_STEPS)]
+        for _, m, launches in runs:
+            require(all(map(math.isfinite, m.values())),
+                    f"{label}: metrics {m} non-finite")
+            for name, n in (("flash_attention_fwd", 2 * nb),
+                            ("flash_attention_dq", nb),
+                            ("flash_attention_dkv", nb)):
+                require(launches[name] == (n if flash else 0),
+                        f"{label}: {name} launched {launches[name]} times "
+                        "in a 19-block step")
+        if "text_loss" in fields:
+            require(set(first) == {"loss", "image_loss", "text_loss",
+                                   "grad_norm"}, f"{label}: metrics {first}")
+        med = statistics.median(r[0] for r in runs)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced_s = step()[0]
+        tr = device_breakdown(prof, traced_s)
+        res = dict(variant=label, fields=fields, train=tfields,
+                   res=VARIANT_TRAIN_RES, batch=VARIANT_TRAIN_BATCH,
+                   blocks=nb, scan=trainer.model.num_scan, warmup_s=warm_s,
+                   first_metrics=first, step_s=[r[0] for r in runs],
+                   median_s_per_step=med, launches_per_step={
+                       k: v for k, v in runs[-1][2].items() if v},
+                   device_busy_ms=tr["device_busy_ms"],
+                   idle_share_untraced=1 - tr["device_busy_ms"] / (med * 1e3),
+                   by_family_ms={k: v for k, v in tr["by_family_ms"].items()
+                                 if v}, check=check, card=card)
+        print("  variant train", json.dumps(res), flush=True)
+        out[label] = res
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_reference_layout(card, root):
+    """Phase 15: a reference checkpoint of the old layout at the published
+    widths (19 blocks, dim 1216, 19 heads; the absolute PE and swiglu_old,
+    seeded weights), written as the reference writes it: a torch.save'd
+    state_dict with its recomputed `pos_enc.pos_embed` buffer, and a
+    model_params JSON with the reference's keys but MLP_type, so swiglu_old
+    comes from the back-compat default. Then infer.main --torch_ckpt
+    --loadDefFile at 512px, batch 2, OLD_STEPS steps: in bf16 (K1 with
+    identity tables: the absolute PE rotates nothing) and with --quant int8
+    (K2, K3, K4); images/s and the launches of each call."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from sd3_torch.config import MMDiTConfig, published_config
+    from sd3_torch.inference import infer as infer_cli
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.ops.patch import cropped_pos_embed
+
+    require_disk(root)
+    d = os.path.join(root, "reference")
+    os.makedirs(d, exist_ok=True)
+    cfg = published_config(stage_res=512).replace(**OLD_LAYOUT)
+    t0 = time.time()
+    model = MMDiT(cfg.replace(dtype="float32"), device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(3))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model
+    torch.cuda.empty_cache()
+    m = cfg.pos_embed_max_size
+    sd["pos_enc.pos_embed"] = torch.from_numpy(np.array(
+        cropped_pos_embed(cfg.dim, m, m, m, cfg.pos_embed_base_size)))
+    torch.save(sd, os.path.join(d, "model_0s.pkl"))
+    params = {k: v for k, v in cfg.to_json_dict().items()
+              if k in MMDiTConfig._JSON_KEYS and k != "MLP_type"}
+    params["device"] = "cpu"
+    with open(os.path.join(d, "model_params_0s.json"), "w") as f:
+        json.dump(params, f)
+    write_s = time.time() - t0
+    nbytes = os.path.getsize(os.path.join(d, "model_0s.pkl"))
+    del sd
+    out = dict(write_s=write_s, checkpoint_bytes=nbytes, card=card)
+    nb = cfg.num_blocks
+    for label, extra, int8 in (("bf16", [], False),
+                               ("int8", ["--quant", "int8"], True)):
+        img = os.path.join(d, f"old_{label}")
+        reset_launches()
+        t0 = time.time()
+        infer_cli.main(["--loadDir", d, "--torch_ckpt", "model_0s.pkl",
+                        "--loadDefFile", "model_params_0s.json",
+                        "--text_input", "a red fox in the snow",
+                        "--num_steps", str(OLD_STEPS), "--guidance", "5",
+                        "--width", "512", "--height", "512", "--seed", "7",
+                        "--batch_size", "2", "--stub_encoders",
+                        "--out_imgname", img, *extra])
+        torch.cuda.synchronize()
+        call_s = time.time() - t0
+        launches = launch_counts()
+        for i in range(2):
+            with Image.open(f"{img}_{i}.png") as im:
+                require(im.size == (512, 512), f"old layout {label}: "
+                        f"{img}_{i}.png is {im.size}")
+        expect = {k: 0 for k in ATTENTION_KERNELS}
+        expect[attention_kernel(int8, False, False)] = nb * OLD_STEPS
+        expect.update(block_tail_launches(nb, OLD_STEPS, int8, False))
+        for name, n in expect.items():
+            require(launches[name] == n, f"{name} launched {launches[name]} "
+                    f"times in the old-layout {label} infer call, expected "
+                    f"{n}")
+        out[label] = dict(call_s=call_s, images_per_s=2 / call_s,
+                          launches={k: v for k, v in launches.items() if v})
+    print("  reference layout", json.dumps(out), flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def kernel_family(name: str, bf16_prep: str = "K1",
                   pv_prep: str = "K8b") -> str:
     """The family of one device row: the port's kernels by their CUDA
@@ -3029,21 +3510,18 @@ def kernel_family(name: str, bf16_prep: str = "K1",
 def device_breakdown(prof, wall_s, bf16_prep="K1"):
     """Self device time (ms) by kernel family (see kernel_family); the top
     kernels; and the idle share of the traced wall time. The traces record
-    the card's activity alone (ProfilerActivity.CUDA): no host operator
-    events to process."""
+    the card's activity alone (ProfilerActivity.CUDA), read by device_rows:
+    no host operator events to process."""
     fams = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7",
                           "K7q", "K8a", "K8b", "K9", "K10a", "K10b",
                           "fp32 attention", "gemm_int8", "gemm", "other"),
                          0.0)
     rows = []
-    for e in prof.key_averages():
-        # device-side rows (kernels, copies, fills) only: they take no host
-        # time. An operator's row repeats its kernels' device time.
-        us = e.self_device_time_total
-        if e.self_cpu_time_total > 0 or us <= 0:
+    for key, (us, n) in device_rows(prof).items():
+        if us <= 0:
             continue
-        fams[kernel_family(e.key, bf16_prep)] += us
-        rows.append((us, e.count, e.key[:100]))
+        fams[kernel_family(key, bf16_prep)] += us
+        rows.append((us, n, key[:100]))
     busy_ms = sum(fams.values()) / 1e3
     rows.sort(reverse=True)
     require(busy_ms > 0, "the profiler saw no device time")
@@ -3113,6 +3591,7 @@ def main() -> int:
         k8b = [phase_attention(s, gen, int8_qk=qk, int8_pv=True)
                for qk in (False, True) for s in (SLICE_1024, RAGGED_STREAM)]
         api = phase_attention_api(gen)
+        say("phase 3b: the int8 MLP and projections")
         k3 = [phase_mlp(s, gen, "K3") for s in (K3_SLICE, K3_RAGGED)]
         k2 = [phase_mlp(s, gen, "K2") for s in (K2_SLICE, K2_RAGGED)]
         k9 = [phase_mlp(s, gen, "K9") for s in (K9_SLICE, K9_TEXT)]
@@ -3122,6 +3601,7 @@ def main() -> int:
         for s in K10_WIDE:
             phase_dense(s, gen, "K10a")
             phase_dense(s, gen, "K10b")
+        say("phase 3c: flash attention")
         k56 = [phase_flash(s, gen) for s in (FLASH_SLICE, FLASH_RAGGED)]
         phase_flash(FLASH_SLICE_1024, gen, check=FLASH_CHECK_1024)
         for s in FLASH_DIMS:
@@ -3134,6 +3614,7 @@ def main() -> int:
         k56f = [phase_flash_fp32(s, gen) for s in (
             step_flash_shape(train_step_config(), TRAIN32_LAT),
             step_flash_shape(tiny, TINY_LAT), FLASH_RAGGED)]
+        say("phase 3d: the fp32 instances")
         k1f = phase_attention_fp32(SLICE_FP32, gen)
         k7f = phase_attention_fp32(SLICE_1024, gen)
         phase_attention_fp32(RAGGED_STREAM, gen)
@@ -3156,13 +3637,23 @@ def main() -> int:
         phase_dense(K10_WIDE[0], gen, "K10a", fp32=True)
         phase_dense(K10_WIDE[0], gen, "K10b", fp32=True)
         # flash past head dim 128: bf16 and fp32 at 256 and at 160 (padded)
+        say("phase 3e: the wide flash instances, M != N")
         k56w = [phase_flash(s, gen) for s in FLASH_WIDE]
         k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
+        # k and v of M keys (kv_merge_attn): K5, K6a, K6b, their fp32
+        # instances, and the wide ones at head dim 256
+        for shp in FLASH_KV:
+            phase_flash(shp, gen)
+            phase_flash_fp32(shp, gen)
+        for shp in FLASH_KV_WIDE:
+            phase_flash(shp, gen)
+            phase_flash_fp32(shp, gen)
         flash_api = phase_flash_api(gen)
         phase_k1_backward(gen)
         # the fused route past head dim 128: every kernel at each of
         # WIDE_DIMS in bf16 and fp32, then each wide instance timed at
         # SLICE_WIDE
+        say("phase 3f: the wide fused instances")
         phase_attention_dims(gen)
         wide = {}
         for (int8_qk, int8_pv, streaming), nm in ATTN_NAMES.items():
@@ -3211,9 +3702,8 @@ def main() -> int:
         phase_sample(card, int8=True, res=1024)
 
         say("phase 10: 19-block int8 sampling with int8 P.V, 1024px, the "
-              "same, one timed call", flush=True)
-        sample8pv_1024 = phase_sample(card, int8=True, res=1024, int8_pv=True,
-                                      timed=1)
+              "same", flush=True)
+        sample8pv_1024 = phase_sample(card, int8=True, res=1024, int8_pv=True)
 
         say("phase 11: 19-block training, 512px, batch 4, fused low-mem "
               "AdamW, bf16 grads, remat; the same with 8-bit moments, and "
@@ -3223,11 +3713,15 @@ def main() -> int:
         phase_train_options(card, log_dir)
         phase_train_default_path(log_dir)
 
-        say("phase 12: the CLIs at the published config: train (2 steps, "
-              "8-bit moments, host EMA) -> six artifacts -> infer (bf16, "
-              "int8, fp32 int8 with and without the tails); tiny_config "
-              "resume and GIF", flush=True)
+        say(f"phase 12: the CLIs at the published widths, {CLI_BLOCKS} "
+            "blocks: train (2 steps, 8-bit moments, host EMA) -> six "
+            "artifacts -> infer (bf16, int8, fp32 int8 with and without the "
+            "tails); tiny_config resume and GIF", flush=True)
         cli = phase_cli(card, ckpt_root)
+        # the published-width checkpoint is checked: it goes before the
+        # later phases write theirs
+        shutil.rmtree(os.path.join(ckpt_root, "published"),
+                      ignore_errors=True)
 
         say("phase 13: the frozen encoders and the FLUX VAE at the "
               "published widths (random weights): against fp32 on the CPU "
@@ -3237,12 +3731,27 @@ def main() -> int:
 
         say("phase 14: data-fed training: a seeded parquet folder ->"
               " filter -> phase -> index; the loaders alone (threads, ring); "
-              "the train CLI at the published config from it; the remat "
+              f"the train CLI at the published widths ({CLI_BLOCKS} blocks) "
+              "from it; the remat "
               "policies and the scan layout; the feed against synthetic "
               "batches, and the VAE's encode per bucket", flush=True)
         phase_data_feed(card, os.path.join(ckpt_root, "feed"), log_dir)
 
-        say("phase 15: kernels", flush=True)
+        say("phase 15: a reference checkpoint of the old layout (absolute "
+            "PE, swiglu_old from a params JSON without MLP_type) at the "
+            "published widths through infer --torch_ckpt --loadDefFile, "
+            "bf16 and int8", flush=True)
+        phase_reference_layout(card, ckpt_root)
+
+        say("phase 16: the model variants at the published widths: each "
+            "held at 2 blocks against fp32 on the CPU with a control; 512px "
+            "sampling (RoPE1d K1, RoPE2dV2 and kv_merge K5, the other "
+            "attention types, both); 256px training (text_loss, kv_merge, "
+            "both under scan_blocks)", flush=True)
+        phase_sample_variants(card)
+        phase_train_variants(card, log_dir)
+
+        say("phase 17: kernels", flush=True)
         per_call = lambda run: run["launches_per_call"]
         per_step = lambda run: run["launches_per_step"]
         rows = [  # (kernel, phase-3 result at the slice shape, source,

@@ -223,15 +223,15 @@ struct F32Smem {
 
 // grid (ceil(N / 64), H, B), FTHREADS threads, dynamic shared memory: q (64
 // x LDA), k (32 x LDA), v (32 x LDB), p (4 x 16 x LDP). o = softmax(q k^T
-// scale_log2 in exp2) v; scores are s * scale_log2 in exp2 units (K1 / K7:
-// q^ carries scale log2(e), scale_log2 = 1). lse (B*H, N) written when not
-// null.
+// scale_log2 in exp2) v over the M keys (K1 / K7: M = N); scores are s *
+// scale_log2 in exp2 units (K1 / K7: q^ carries scale log2(e), scale_log2 =
+// 1). lse (B*H, N) written when not null.
 template <typename T, int D>
 __global__ void __launch_bounds__(FTHREADS)
 attn_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, View vq,
                  View vk, View vv, View vo, float* __restrict__ lse,
-                 float scale_log2, int N, int H) {
+                 float scale_log2, int N, int M, int H) {
   using S = F32Smem<D>;
   extern __shared__ float4 smem_f4[];
   float* qs = reinterpret_cast<float*>(smem_f4);
@@ -253,10 +253,10 @@ attn_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   const float* qw = qs + warp * 16 * S::LDA;
 
-  for (int k0 = 0; k0 < N; k0 += FTILE) {
+  for (int k0 = 0; k0 < M; k0 += FTILE) {
     __syncthreads();  // the last tile's k and v are read
-    load_rows<T, D, FTILE>(ks, S::LDA, kh, vk.n, k0, N);
-    load_rows<T, D, FTILE>(vs, S::LDB, vh, vv.n, k0, N);
+    load_rows<T, D, FTILE>(ks, S::LDA, kh, vk.n, k0, M);
+    load_rows<T, D, FTILE>(vs, S::LDB, vh, vv.n, k0, M);
     __syncthreads();
     float sc[FTILE / 8][4];
 #pragma unroll
@@ -270,14 +270,14 @@ attn_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma3<T>(sc[j], a, split(ks[(j * 8 + g) * S::LDA + kk * 8 + t]),
                 split(ks[(j * 8 + g) * S::LDA + kk * 8 + t + 4]));
     }
-    // scores in exp2 units, keys past N to -inf; the running max
+    // scores in exp2 units, keys past M to -inf; the running max
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < FTILE / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        sc[j][e] = key < N ? sc[j][e] * scale_log2 : -INFINITY;
+        sc[j][e] = key < M ? sc[j][e] * scale_log2 : -INFINITY;
         if (e < 2) mx0 = fmaxf(mx0, sc[j][e]);
         else mx1 = fmaxf(mx1, sc[j][e]);
       }
@@ -355,8 +355,8 @@ dq_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ o,
                const T* __restrict__ dout, const float* __restrict__ lse,
                float* __restrict__ delta, T* __restrict__ dq, View vq,
-               View vk, View vv, View vo, View vdo, View vdq, int N, int H,
-               float scale_log2, float scale) {
+               View vk, View vv, View vo, View vdo, View vdq, int N, int M,
+               int H, float scale_log2, float scale) {
   using S = F32Smem<D>;
   extern __shared__ float4 smem_f4[];
   float* qs = reinterpret_cast<float*>(smem_f4);
@@ -405,10 +405,10 @@ dq_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += FTILE) {
+  for (int k0 = 0; k0 < M; k0 += FTILE) {
     __syncthreads();
-    load_rows<T, D, FTILE>(ks, S::LDA, kh, vk.n, k0, N);
-    load_rows<T, D, FTILE>(vs, S::LDA, vh, vv.n, k0, N);
+    load_rows<T, D, FTILE>(ks, S::LDA, kh, vk.n, k0, M);
+    load_rows<T, D, FTILE>(vs, S::LDA, vh, vv.n, k0, M);
     __syncthreads();
     float sc[FTILE / 8][4], dp[FTILE / 8][4];
 #pragma unroll
@@ -427,7 +427,7 @@ dq_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
         mma3<T>(dp[j], ad, split(vs[r]), split(vs[r + 4]));
       }
     }
-    // ds = p (dp - delta), rounded to T, keys past N with p = 0, into this
+    // ds = p (dp - delta), rounded to T, keys past M with p = 0, into this
     // warp's tile
 #pragma unroll
     for (int j = 0; j < FTILE / 8; ++j) {
@@ -435,7 +435,7 @@ dq_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float p = key < N ? exp2f(sc[j][e] * scale_log2 - (e < 2 ? L0 : L1))
+        const float p = key < M ? exp2f(sc[j][e] * scale_log2 - (e < 2 ? L0 : L1))
                                 : 0.f;
         ds[e] = rnd<T>(p * (dp[j][e] - (e < 2 ? d0 : d1)));
       }
@@ -474,7 +474,7 @@ constexpr int dq_smem_bytes() {
 
 // ---- K6b (fp32): dk, dv ---------------------------------------------------
 
-// grid (ceil(N / 64), H, B): 64 key rows a block, 16 a warp; FTHREADS
+// grid (ceil(M / 64), H, B): 64 of the M key rows a block, 16 a warp; FTHREADS
 // threads, dynamic shared memory: k, v (64 x LDA each), q, dO (32 x LDA
 // each), lse, delta of the query tile (32 each), p^T and ds^T (4 x 16 x LDP
 // each).
@@ -484,8 +484,8 @@ dkv_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dk, T* __restrict__ dv, View vq,
-                View vk, View vv, View vdo, View vdk, View vdv, int N, int H,
-                float scale_log2, float scale) {
+                View vk, View vv, View vdo, View vdk, View vdv, int N, int M,
+                int H, float scale_log2, float scale) {
   using S = F32Smem<D>;
   extern __shared__ float4 smem_f4[];
   float* kts = reinterpret_cast<float*>(smem_f4);
@@ -504,8 +504,8 @@ dkv_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* dh = dout + b * vdo.b + h * vdo.h;
   const size_t bhn = ((size_t)b * H + h) * N;
 
-  load_rows<T, D, FROWS>(kts, S::LDA, k + b * vk.b + h * vk.h, vk.n, r0, N);
-  load_rows<T, D, FROWS>(vts, S::LDA, v + b * vv.b + h * vv.h, vv.n, r0, N);
+  load_rows<T, D, FROWS>(kts, S::LDA, k + b * vk.b + h * vk.h, vk.n, r0, M);
+  load_rows<T, D, FROWS>(vts, S::LDA, v + b * vv.b + h * vv.h, vv.n, r0, M);
   const float* kw = kts + warp * 16 * S::LDA;
   const float* vw = vts + warp * 16 * S::LDA;
   float adk[D / 8][4], adv[D / 8][4];
@@ -581,11 +581,11 @@ dkv_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = j * 8 + 2 * t;
-    if (n0 < N) {
+    if (n0 < M) {
       store2(kh + (size_t)n0 * vdk.n + col, adk[j][0] * scale, adk[j][1] * scale);
       store2(vh + (size_t)n0 * vdv.n + col, adv[j][0], adv[j][1]);
     }
-    if (n1 < N) {
+    if (n1 < M) {
       store2(kh + (size_t)n1 * vdk.n + col, adk[j][2] * scale, adk[j][3] * scale);
       store2(vh + (size_t)n1 * vdv.n + col, adv[j][2], adv[j][3]);
     }
@@ -951,7 +951,7 @@ struct WideFwd {
                         // BOUNDED: max ||k^||^2 (B*H)
   float* lse;           // (B*H, N) or null
   float scale_log2;
-  int N, H, D, np, mode, sblock, per_key;
+  int N, M, H, D, np, mode, sblock, per_key;  // M: keys (N but for K5)
 };
 
 template <bool QK8, bool PV8>
@@ -976,7 +976,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
   unsigned char* qsm = reinterpret_cast<unsigned char*>(smem_f4);
   unsigned char* ksm = qsm + S::QB;
   unsigned char* vsm = ksm + S::KB;
-  const int N = a.N, NS = a.D / WC;
+  const int N = a.N, M = a.M, NS = a.D / WC;
   const int h = blockIdx.y, b = blockIdx.z, bh = b * a.H + h;
   const int q0 = blockIdx.x / NS * FROWS, c0 = blockIdx.x % NS * WC;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -995,7 +995,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
     if (!a.per_key) skh = fmaxf(a.k_stat[bh], 1e-12f) / 127.f;
   }
   // the scores of keys k0 .. k0 + 31 in exp2 units, summed over the head's
-  // chunks; keys past N at -inf
+  // chunks; keys past M at -inf
   auto scores = [&](int k0, float (&sc)[FTILE / 8][4]) {
     if constexpr (QK8) {
       int si[FTILE / 8][4];
@@ -1004,7 +1004,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
       for (int ch = 0; ch < NS; ++ch) {
         __syncthreads();  // the last chunk (and p) read
         load_rows_s8<WC, FROWS, WC, WLQ8>(qsm, qh + ch * WC, a.vq.n, q0, N);
-        load_rows_s8<WC, FTILE, WC, WLQ8>(ksm, kh + ch * WC, a.vk.n, k0, N);
+        load_rows_s8<WC, FTILE, WC, WLQ8>(ksm, kh + ch * WC, a.vk.n, k0, M);
         __syncthreads();
         const unsigned char* qw = qsm + warp * 16 * WLQ8;
 #pragma unroll
@@ -1027,7 +1027,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + 2 * t + (e & 1);
           const float f = (float)si[j][e], sq = e < 2 ? sq0 : sq1;
-          sc[j][e] = key >= N ? -INFINITY
+          sc[j][e] = key >= M ? -INFINITY
                      : a.per_key ? f * sq * a.k_stat[(size_t)bh * a.np + key]
                                  : f * (sq * skh);
         }
@@ -1039,7 +1039,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
       for (int ch = 0; ch < NS; ++ch) {
         __syncthreads();
         load_rows<T, WC, FROWS>(qf, WLDA, qh + ch * WC, a.vq.n, q0, N);
-        load_rows<T, WC, FTILE>(kf, WLDA, kh + ch * WC, a.vk.n, k0, N);
+        load_rows<T, WC, FTILE>(kf, WLDA, kh + ch * WC, a.vk.n, k0, M);
         __syncthreads();
         const float* qw = qf + warp * 16 * WLDA;
 #pragma unroll
@@ -1057,7 +1057,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + j * 8 + 2 * t + (e & 1);
-          sc[j][e] = key < N ? sc[j][e] * a.scale_log2 : -INFINITY;
+          sc[j][e] = key < M ? sc[j][e] * a.scale_log2 : -INFINITY;
         }
     }
   };
@@ -1095,9 +1095,9 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
     }
   };
 
-  const int blk = a.mode == W_BLOCKED ? a.sblock : N;
-  for (int b0 = 0; b0 < N; b0 += blk) {
-    const int b1 = min(b0 + blk, N);
+  const int blk = a.mode == W_BLOCKED ? a.sblock : M;
+  for (int b0 = 0; b0 < M; b0 += blk) {
+    const int b1 = min(b0 + blk, M);
     if (a.mode == W_BLOCKED) {  // the block's max: a first pass
       float mx0 = -INFINITY, mx1 = -INFINITY;
       for (int k0 = b0; k0 < b1; k0 += FTILE) {
@@ -1155,7 +1155,7 @@ __global__ void __launch_bounds__(FTHREADS) wide_attn_kernel(const WideFwd a) {
       } else {
         float* vs = reinterpret_cast<float*>(vsm);
         const T* vh = static_cast<const T*>(a.v) + b * a.vv.b + h * a.vv.h + c0;
-        load_rows<T, WC, FTILE>(vs, WLDB, vh, a.vv.n, k0, N);
+        load_rows<T, WC, FTILE>(vs, WLDB, vh, a.vv.n, k0, M);
         __syncthreads();
         // p (rounded to T) into this warp's tile; l sums the unrounded p
 #pragma unroll
@@ -1224,8 +1224,8 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ o,
                const T* __restrict__ dout, const float* __restrict__ lse,
                float* __restrict__ delta, T* __restrict__ dq, View vq,
-               View vk, View vv, View vo, View vdo, View vdq, int N, int H,
-               int D, float scale_log2, float scale) {
+               View vk, View vv, View vo, View vdo, View vdq, int N, int M,
+               int H, int D, float scale_log2, float scale) {
   constexpr int LDP = F32Smem<WC>::LDP;
   extern __shared__ float4 smem_f4[];
   float* qs = reinterpret_cast<float*>(smem_f4);
@@ -1272,7 +1272,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < WC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  for (int k0 = 0; k0 < N; k0 += FTILE) {
+  for (int k0 = 0; k0 < M; k0 += FTILE) {
     float sc[FTILE / 8][4], dp[FTILE / 8][4];
 #pragma unroll
     for (int j = 0; j < FTILE / 8; ++j)
@@ -1283,8 +1283,8 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
       load_rows<T, WC, FROWS>(qs, WLDA, qh + ch * WC, vq.n, q0, N);
       load_rows<T, WC, FROWS>(dos, WLDA, dh + ch * WC, vdo.n, q0, N);
-      load_rows<T, WC, FTILE>(ks, WLDA, kh + ch * WC, vk.n, k0, N);
-      load_rows<T, WC, FTILE>(vs, WLDA, vh + ch * WC, vv.n, k0, N);
+      load_rows<T, WC, FTILE>(ks, WLDA, kh + ch * WC, vk.n, k0, M);
+      load_rows<T, WC, FTILE>(vs, WLDA, vh + ch * WC, vv.n, k0, M);
       __syncthreads();
 #pragma unroll
       for (int kk = 0; kk < WC / 8; ++kk) {
@@ -1306,7 +1306,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float p = key < N ? exp2f(sc[j][e] * scale_log2 - (e < 2 ? L0 : L1))
+        const float p = key < M ? exp2f(sc[j][e] * scale_log2 - (e < 2 ? L0 : L1))
                                 : 0.f;
         ds[e] = rnd<T>(p * (dp[j][e] - (e < 2 ? d0 : d1)));
       }
@@ -1337,7 +1337,7 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// K6b past 128: grid (ceil(N / 64) * D / WC, H, B): 64 key rows a block and
+// K6b past 128: grid (ceil(M / 64) * D / WC, H, B): 64 key rows a block and
 // WC columns of dk and dv; FTHREADS threads, dynamic shared memory: k, v
 // chunks (64 x WLDA each), q, dO chunks (32 x WLDA each), lse, delta of the
 // query tile (32 each); p^T and ds^T in the warps' k rows.
@@ -1347,8 +1347,8 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 T* __restrict__ dk, T* __restrict__ dv, View vq, View vk,
-                View vv, View vdo, View vdk, View vdv, int N, int H, int D,
-                float scale_log2, float scale) {
+                View vv, View vdo, View vdk, View vdv, int N, int M, int H,
+                int D, float scale_log2, float scale) {
   constexpr int LDP = F32Smem<WC>::LDP;
   extern __shared__ float4 smem_f4[];
   float* kts = reinterpret_cast<float*>(smem_f4);
@@ -1387,8 +1387,8 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 1; i <= NS; ++i) {  // the slice's chunk last
       const int ch = (cs + i) % NS;
       __syncthreads();
-      load_rows<T, WC, FROWS>(kts, WLDA, kh + ch * WC, vk.n, r0, N);
-      load_rows<T, WC, FROWS>(vts, WLDA, vh + ch * WC, vv.n, r0, N);
+      load_rows<T, WC, FROWS>(kts, WLDA, kh + ch * WC, vk.n, r0, M);
+      load_rows<T, WC, FROWS>(vts, WLDA, vh + ch * WC, vv.n, r0, M);
       load_rows<T, WC, FTILE>(qs, WLDA, qh + ch * WC, vq.n, q0, N);
       load_rows<T, WC, FTILE>(dos, WLDA, dh + ch * WC, vdo.n, q0, N);
       if (i == 1 && threadIdx.x < FTILE) {
@@ -1449,11 +1449,11 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < WC / 8; ++j) {
     const int col = j * 8 + 2 * t;
-    if (n0 < N) {
+    if (n0 < M) {
       store2(ko + (size_t)n0 * vdk.n + col, adk[j][0] * scale, adk[j][1] * scale);
       store2(vo + (size_t)n0 * vdv.n + col, adv[j][0], adv[j][1]);
     }
-    if (n1 < N) {
+    if (n1 < M) {
       store2(ko + (size_t)n1 * vdk.n + col, adk[j][2] * scale, adk[j][3] * scale);
       store2(vo + (size_t)n1 * vdv.n + col, adv[j][2], adv[j][3]);
     }
@@ -1577,13 +1577,13 @@ inline bool wide_dim(int D) { return D > WC && D % WC == 0; }
 template <typename T, int D>
 int launch_fwd(const T* q, const T* k, const T* v, T* o, View vq, View vk,
                View vv, View vo, float* lse, float scale_log2, int B, int H,
-               int N, cudaStream_t st) {
+               int N, int M, cudaStream_t st) {
   auto kernel = attn_fp32_kernel<T, D>;
   const int e = opt_in(kernel, fwd_smem_bytes<D>());
   if (e != 0) return e;
   dim3 grid((N + FROWS - 1) / FROWS, H, B);
   kernel<<<grid, FTHREADS, fwd_smem_bytes<D>(), st>>>(
-      q, k, v, o, vq, vk, vv, vo, lse, scale_log2, N, H);
+      q, k, v, o, vq, vk, vv, vo, lse, scale_log2, N, M, H);
   return (int)cudaGetLastError();
 }
 
@@ -1618,7 +1618,7 @@ int launch_fused_fp32(const void* q, const void* k, const void* v,
                               static_cast<const float*>(k_prep),
                               static_cast<const float*>(v),
                               static_cast<float*>(out), vh, vh, vh, vh,
-                              nullptr, 1.f, B, H, N, st);
+                              nullptr, 1.f, B, H, N, N, st);
 }
 
 int fused_fp32(const void* q, const void* k, const void* v, const void* cq,
@@ -1643,7 +1643,7 @@ int fused_fp32(const void* q, const void* k, const void* v, const void* cq,
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq,
-              const long long* st, int B, int H, int N, float scale,
+              const long long* st, int B, int H, int N, int M, float scale,
               cudaStream_t stream) {
   auto kernel = dq_fp32_kernel<T, D>;
   const int e = opt_in(kernel, dq_smem_bytes<D>());
@@ -1655,26 +1655,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<T*>(dq), view_at(st, 0),
       view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-      view_at(st, 5), N, H, scale * FLOG2E, scale);
+      view_at(st, 5), N, M, H, scale * FLOG2E, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
-               const long long* st, int B, int H, int N, float scale,
+               const long long* st, int B, int H, int N, int M, float scale,
                cudaStream_t stream) {
   auto kernel = dkv_fp32_kernel<T, D>;
   const int e = opt_in(kernel, dkv_smem_bytes<D>());
   if (e != 0) return e;
-  dim3 grid((N + FROWS - 1) / FROWS, H, B);
+  dim3 grid((M + FROWS - 1) / FROWS, H, B);
   kernel<<<grid, FTHREADS, dkv_smem_bytes<D>(), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), view_at(st, 0),
       view_at(st, 1), view_at(st, 2), view_at(st, 3), view_at(st, 4),
-      view_at(st, 5), N, H, scale * FLOG2E, scale);
+      view_at(st, 5), N, M, H, scale * FLOG2E, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1682,7 +1682,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 template <typename T>
 int launch_wide_flash(const void* q, const void* k, const void* v, void* o,
                       void* lse, const long long* strides, int B, int H,
-                      int N, int D, float scale, cudaStream_t st) {
+                      int N, int M, int D, float scale, cudaStream_t st) {
   WideFwd a{};
   a.q = q;
   a.k = k;
@@ -1695,6 +1695,7 @@ int launch_wide_flash(const void* q, const void* k, const void* v, void* o,
   a.lse = static_cast<float*>(lse);
   a.scale_log2 = scale * FLOG2E;
   a.N = N;
+  a.M = M;
   a.H = H;
   a.D = D;
   a.mode = W_ONLINE;
@@ -1704,10 +1705,10 @@ int launch_wide_flash(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, const long long* strides, int B, int H, int N,
-              int D, float scale, void* stream) {
+              int M, int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide_dim(D))
-    return launch_wide_flash<T>(q, k, v, o, lse, strides, B, H, N, D, scale, st);
+    return launch_wide_flash<T>(q, k, v, o, lse, strides, B, H, N, M, D, scale, st);
   if constexpr (std::is_same<T, float>::value) {
     const T *fq = static_cast<const T*>(q), *fk = static_cast<const T*>(k),
             *fv = static_cast<const T*>(v);
@@ -1717,10 +1718,10 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
                c = view_at(strides, 2), d = view_at(strides, 3);
     const float sl = scale * FLOG2E;
     switch (D) {
-      case 16: return launch_fwd<T, 16>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, st);
-      case 32: return launch_fwd<T, 32>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, st);
-      case 64: return launch_fwd<T, 64>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, st);
-      case 128: return launch_fwd<T, 128>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, st);
+      case 16: return launch_fwd<T, 16>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, M, st);
+      case 32: return launch_fwd<T, 32>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, M, st);
+      case 64: return launch_fwd<T, 64>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, M, st);
+      case 128: return launch_fwd<T, 128>(fq, fk, fv, fo, a, bk, c, d, fl, sl, B, H, N, M, st);
       default: break;
     }
   }
@@ -1730,7 +1731,7 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int flash_dq(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const void* lse, void* delta, void* dq,
-             const long long* strides, int B, int H, int N, int D,
+             const long long* strides, int B, int H, int N, int M, int D,
              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide_dim(D)) {
@@ -1744,16 +1745,16 @@ int flash_dq(const void* q, const void* k, const void* v, const void* o,
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<float*>(delta), static_cast<T*>(dq), view_at(strides, 0),
         view_at(strides, 1), view_at(strides, 2), view_at(strides, 3),
-        view_at(strides, 4), view_at(strides, 5), N, H, D, scale * FLOG2E,
+        view_at(strides, 4), view_at(strides, 5), N, M, H, D, scale * FLOG2E,
         scale);
     return (int)cudaGetLastError();
   }
   if constexpr (std::is_same<T, float>::value) {
     switch (D) {
-      case 16: return launch_dq<T, 16>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-      case 32: return launch_dq<T, 32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-      case 64: return launch_dq<T, 64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-      case 128: return launch_dq<T, 128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
+      case 16: return launch_dq<T, 16>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+      case 32: return launch_dq<T, 32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+      case 64: return launch_dq<T, 64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+      case 128: return launch_dq<T, 128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
       default: break;
     }
   }
@@ -1763,30 +1764,30 @@ int flash_dq(const void* q, const void* k, const void* v, const void* o,
 template <typename T>
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv,
-              const long long* strides, int B, int H, int N, int D,
+              const long long* strides, int B, int H, int N, int M, int D,
               float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wide_dim(D)) {
     auto kernel = wide_dkv_kernel<T>;
     const int e = opt_in(kernel, WIDE_DKV_SMEM);
     if (e != 0) return e;
-    dim3 grid((N + FROWS - 1) / FROWS * (D / WC), H, B);
+    dim3 grid((M + FROWS - 1) / FROWS * (D / WC), H, B);
     kernel<<<grid, FTHREADS, WIDE_DKV_SMEM, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dk), static_cast<T*>(dv), view_at(strides, 0),
         view_at(strides, 1), view_at(strides, 2), view_at(strides, 3),
-        view_at(strides, 4), view_at(strides, 5), N, H, D, scale * FLOG2E,
+        view_at(strides, 4), view_at(strides, 5), N, M, H, D, scale * FLOG2E,
         scale);
     return (int)cudaGetLastError();
   }
   if constexpr (std::is_same<T, float>::value) {
     switch (D) {
-      case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-      case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-      case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-      case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
+      case 16: return launch_dkv<T, 16>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+      case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+      case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+      case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
       default: break;
     }
   }
@@ -1951,7 +1952,7 @@ int fused_wide(const Q8Args& a, int D, int kind, int int8_qk) {
   f.q_stat = static_cast<const float*>(a.q_scale);
   f.k_stat = static_cast<const float*>(a.k_stat);
   f.scale_log2 = 1.f;  // q^ carries scale log2(e)
-  f.N = N;
+  f.N = f.M = N;
   f.H = H;
   f.D = D;
   f.np = np;
@@ -2050,32 +2051,33 @@ extern "C" int sd3_fused_attention_wide_fp32(SD3_WIDE_PARAMS) {
 }
 
 // K5, K6a, K6b: the signatures of the bf16 entry points (attention_sm90.cu,
-// flash_bwd_sm90.cu); views with 16-byte aligned starts and (b, h, n)
+// flash_bwd_sm90.cu: q, o, dO, dq with N rows, k, v, dk, dv with M); views
+// with 16-byte aligned starts and (b, h, n)
 // strides. The fp32 entry points take head dims 16, 32, 64, 128 and every
 // multiple of 128 past it, every tensor fp32; the `_wide` ones bf16 tensors
 // (lse, delta fp32) at the multiples of 128 past it.
 extern "C" int sd3_flash_attention_fwd_fp32(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             const long long* strides, int B,
-                                            int H, int N, int D, float scale,
-                                            void* stream) {
-  return flash_fwd<float>(q, k, v, o, lse, strides, B, H, N, D, scale, stream);
+                                            int H, int N, int M, int D,
+                                            float scale, void* stream) {
+  return flash_fwd<float>(q, k, v, o, lse, strides, B, H, N, M, D, scale, stream);
 }
 
 extern "C" int sd3_flash_attention_fwd_wide(const void* q, const void* k,
                                             const void* v, void* o, void* lse,
                                             const long long* strides, int B,
-                                            int H, int N, int D, float scale,
-                                            void* stream) {
-  return flash_fwd<bf16>(q, k, v, o, lse, strides, B, H, N, D, scale, stream);
+                                            int H, int N, int M, int D,
+                                            float scale, void* stream) {
+  return flash_fwd<bf16>(q, k, v, o, lse, strides, B, H, N, M, D, scale, stream);
 }
 
 #define SD3_DQ_PARAMS                                                         \
   const void *q, const void *k, const void *v, const void *o,                \
       const void *dout, const void *lse, void *delta, void *dq,              \
-      const long long *strides, int B, int H, int N, int D, float scale,     \
-      void *stream
-#define SD3_DQ_PASS q, k, v, o, dout, lse, delta, dq, strides, B, H, N, D, scale, stream
+      const long long *strides, int B, int H, int N, int M, int D,           \
+      float scale, void *stream
+#define SD3_DQ_PASS q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, D, scale, stream
 
 extern "C" int sd3_flash_attention_dq_fp32(SD3_DQ_PARAMS) {
   return flash_dq<float>(SD3_DQ_PASS);
@@ -2088,9 +2090,9 @@ extern "C" int sd3_flash_attention_dq_wide(SD3_DQ_PARAMS) {
 #define SD3_DKV_PARAMS                                                        \
   const void *q, const void *k, const void *v, const void *dout,             \
       const void *lse, const void *delta, void *dk, void *dv,                \
-      const long long *strides, int B, int H, int N, int D, float scale,     \
-      void *stream
-#define SD3_DKV_PASS q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, D, scale, stream
+      const long long *strides, int B, int H, int N, int M, int D,           \
+      float scale, void *stream
+#define SD3_DKV_PASS q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, D, scale, stream
 
 extern "C" int sd3_flash_attention_dkv_fp32(SD3_DKV_PARAMS) {
   return flash_dkv<float>(SD3_DKV_PASS);

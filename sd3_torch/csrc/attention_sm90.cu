@@ -79,7 +79,9 @@
 // launch, no prep. q, k and v are read raw through 4-D tensor maps (D, N, H,
 // B) built from the (b, h, n) strides of the caller's (B, H, N, D) views
 // (encode_view, sm90.cuh), so the (B, N, H, D) buffers of the training path
-// are read in place; o is written through its view's strides. The scale is
+// are read in place; o is written through its view's strides. k and v have
+// a key length M of their own (kv_merge_attn halves it): their maps hold M
+// rows, the key tiles run to M and the ragged last one is masked at M. The scale is
 // not folded into q: the running max m is of the raw scores, and each p is
 // exp2(s * scale*log2(e) - m * scale*log2(e)), one FFMA ahead of the exp2;
 // alpha = exp2((m_old - m) * scale*log2(e)). lse is written in natural-log
@@ -207,7 +209,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const float* __restrict__ q_norm,
                  const float* __restrict__ k_max2, bf16* __restrict__ o,
                  View vo, float* __restrict__ lse, float scale_log2, int N,
-                 int H, int B) {
+                 int M, int H, int B) {
   constexpr int KT = key_tile<D, SM>();
   using S = Sm90<D, KT>;
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
@@ -220,7 +222,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
   const uint32_t full_q = empty_v + 8 * STAGES;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
-  const int ntiles = (N + KT - 1) / KT;
+  const int ntiles = (M + KT - 1) / KT;
   const int nqt = (N + BLOCK_Q - 1) / BLOCK_Q;
   const int n_items = nqt * H * B;
   const int n_local =
@@ -375,12 +377,12 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // the unrolled arithmetic, which it would otherwise cut into blocks.
       auto softmax = [&](int t, float& a0, float& a1) {
         const int k0 = t * KT;
-        if (k0 + KT > N) {
+        if (k0 + KT > M) {
 #pragma unroll
           for (int j = 0; j < KT / 8; ++j) {
             const int col = k0 + j * 8 + t4 * 2;
-            if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
-            if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+            if (col >= M) s[4 * j] = s[4 * j + 2] = -INFINITY;
+            if (col + 1 >= M) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
           }
         }
         float sh0 = shift0, sh1 = shift1;
@@ -565,7 +567,7 @@ int launch_sm90(const Args& a) {
   kernel<<<grid, SM90_THREADS, Sm90<D>::BYTES, a.st>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(a.q_norm),
       static_cast<const float*>(a.k_max2), static_cast<bf16*>(a.out), vo,
-      nullptr, 0.f, a.N, a.H, a.B);
+      nullptr, 0.f, a.N, a.N, a.H, a.B);
   return (int)cudaGetLastError();
 }
 
@@ -577,7 +579,7 @@ int launch_sm90(const Args& a) {
 template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* o,
                  void* lse, const long long* st, int B, int H, int N,
-                 float scale, cudaStream_t stream) {
+                 int M, float scale, cudaStream_t stream) {
   auto kernel = attn_sm90_kernel<D, Softmax::Flash>;
   constexpr int KT = key_tile<D, Softmax::Flash>();
   constexpr int BYTES = Sm90<D, KT>::BYTES;
@@ -585,8 +587,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   int e = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (e == 0) e = encode_view<D, QROWS>(&tm_q, q, view_at(st, 0), B, H, N);
-  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, N);
-  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, N);
+  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, M);
+  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, M);
   int dev = 0, sms = 0;
   if (e == 0) e = (int)cudaGetDevice(&dev);
   if (e == 0)
@@ -595,7 +597,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   const int items = (N + BLOCK_Q - 1) / BLOCK_Q * H * B;
   kernel<<<items < sms ? items : sms, SM90_THREADS, BYTES, stream>>>(
       tm_q, tm_k, tm_v, nullptr, nullptr, static_cast<bf16*>(o),
-      view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, H, B);
+      view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, M, H, B);
   return (int)cudaGetLastError();
 }
 
@@ -641,7 +643,7 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
 }
 
 // K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v, D 16,
-// 32, 64 or 128. Every tensor argument but lse is a (B, H, N, D) bf16 view
+// 32, 64 or 128. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
 // with the head dim contiguous, 16-byte aligned start and (b, h, n)
 // strides, the element strides in `strides`, three per tensor (q, k, v,
 // o). Returns 0, or the first error: a cudaError_t of the launch or the
@@ -649,14 +651,14 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
 extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        const long long* strides, int B, int H,
-                                       int N, int D, float scale,
+                                       int N, int M, int D, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_flash<16>(q, k, v, o, lse, strides, B, H, N, scale, st);
-    case 32: return launch_flash<32>(q, k, v, o, lse, strides, B, H, N, scale, st);
-    case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, scale, st);
-    case 128: return launch_flash<128>(q, k, v, o, lse, strides, B, H, N, scale, st);
+    case 16: return launch_flash<16>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 32: return launch_flash<32>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 128: return launch_flash<128>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

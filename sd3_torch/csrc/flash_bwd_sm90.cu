@@ -26,6 +26,10 @@
 // Both kernels: three warpgroups per block, one block per SM (the
 // consumers' registers), each block on items of 128 rows of one head of
 // one sample. K6a launches a block per item, grid (ceil(N / 128), H, B).
+// q, o, dO, dq, lse and delta have N query rows, k, v, dk and dv M key rows
+// of their own (kv_merge_attn halves them): K6a's key tiles run to M and its
+// ragged last one is masked at M; K6b's items are 128 of the M key rows,
+// its query tiles run to N.
 // K6b runs one persistent block per SM over the items, x fastest; its ring
 // and barriers run on across items, so its producer loads the next item's
 // first tiles while the consumers finish the last one, and a block's start
@@ -302,7 +306,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const bf16* __restrict__ o, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, float* __restrict__ delta,
                      bf16* __restrict__ dq, View vo, View vdo, View vdq,
-                     int N, int H, float scale_log2, float scale) {
+                     int N, int M, int H, float scale_log2, float scale) {
   using S = DqSmem<D>;
   constexpr int KEY_TILE = S::KEY_TILE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -312,7 +316,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
   const uint32_t full_q = empty_v + 8 * STAGES;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BLOCK;
-  const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
+  const int ntiles = (M + KEY_TILE - 1) / KEY_TILE;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -438,12 +442,12 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // arithmetic, which it would otherwise cut into blocks.
     auto grads = [&](int t) {
       const int k0 = t * KEY_TILE;
-      if (k0 + KEY_TILE > N) {
+      if (k0 + KEY_TILE > M) {
 #pragma unroll
         for (int j = 0; j < KEY_TILE / 8; ++j) {
           const int col = k0 + j * 8 + t4 * 2;
-          if (col >= N) s[4 * j] = s[4 * j + 2] = -INFINITY;
-          if (col + 1 >= N) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+          if (col >= M) s[4 * j] = s[4 * j + 2] = -INFINITY;
+          if (col + 1 >= M) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
         }
       }
 #pragma unroll
@@ -526,7 +530,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
                       bf16* __restrict__ dv, View vdk, View vdv, int B, int N,
-                      int H, float scale_log2, float scale) {
+                      int M, int H, float scale_log2, float scale) {
   using S = DkvSmem<D>;
   constexpr int Q_TILE = S::Q_TILE;
   constexpr bool SS = DkvCfg<D>::SS;
@@ -536,7 +540,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full = sb + S::BAR, empty = full + 8 * STAGES;
   const uint32_t full_kv = empty + 8 * STAGES;
   const uint32_t empty_kv = full_kv + 8 * CONSUMERS;
-  const int nx = (N + BLOCK - 1) / BLOCK, items = nx * H * B;
+  const int nx = (M + BLOCK - 1) / BLOCK, items = nx * H * B;
   const int ntiles = (N + Q_TILE - 1) / Q_TILE;
   float2* const stage_lse = reinterpret_cast<float2*>(smem + S::LSE);
   float2* const stage_delta = reinterpret_cast<float2*>(smem + S::DELTA);
@@ -765,9 +769,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       release(ntiles - 1);
 
       const int r0 = w.x * BLOCK + c * ROWS + warp * 16 + g;
-      store_rows<D>(dk + w.b * vdk.b + w.h * vdk.h, vdk.n, adk, scale, r0, N,
+      store_rows<D>(dk + w.b * vdk.b + w.h * vdk.h, vdk.n, adk, scale, r0, M,
                     t4);
-      store_rows<D>(dv + w.b * vdv.b + w.h * vdv.h, vdv.n, adv, 1.f, r0, N,
+      store_rows<D>(dv + w.b * vdv.b + w.h * vdv.h, vdv.n, adv, 1.f, r0, M,
                     t4);
       u += ntiles;
     }
@@ -788,13 +792,13 @@ int opt_in_smem(Kernel kernel, int bytes) {
 }
 
 // One persistent block per SM of the current device, or one per work item
-// where there are fewer; a cudaError_t.
-int persistent_blocks(int* blocks, int B, int H, int N) {
+// (128 of `rows` key rows of a head) where there are fewer; a cudaError_t.
+int persistent_blocks(int* blocks, int B, int H, int rows) {
   int dev = 0, sms = 0;
   int e = (int)cudaGetDevice(&dev);
   if (e == 0)
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long items = (long long)((N + BLOCK - 1) / BLOCK) * H * B;
+  const long long items = (long long)((rows + BLOCK - 1) / BLOCK) * H * B;
   *blocks = (int)(items < sms ? items : sms);
   return e;
 }
@@ -802,15 +806,15 @@ int persistent_blocks(int* blocks, int B, int H, int N) {
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq,
-              const long long* st, int B, int H, int N, float scale,
+              const long long* st, int B, int H, int N, int M, float scale,
               cudaStream_t stream) {
   auto kernel = flash_dq_sm90_kernel<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int e = opt_in_smem(kernel, DqSmem<D>::BYTES);
   if (e == 0) e = encode_view<D, ROWS>(&tm_q, q, view_at(st, 0), B, H, N);
   constexpr int KT = DqSmem<D>::KEY_TILE;
-  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, N);
-  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, N);
+  if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, M);
+  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_do, dout, view_at(st, 4), B, H, N);
   if (e != 0) return e;
   dim3 grid((N + BLOCK - 1) / BLOCK, H, B);
@@ -818,14 +822,14 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
       tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<bf16*>(dq), view_at(st, 3),
-      view_at(st, 4), view_at(st, 5), N, H, scale * LOG2E, scale);
+      view_at(st, 4), view_at(st, 5), N, M, H, scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
-               const long long* st, int B, int H, int N, float scale,
+               const long long* st, int B, int H, int N, int M, float scale,
                cudaStream_t stream) {
   auto kernel = flash_dkv_sm90_kernel<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
@@ -833,24 +837,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   int e = opt_in_smem(kernel, DkvSmem<D>::BYTES);
   constexpr int QT = DkvCfg<D>::Q_TILE;
   if (e == 0) e = encode_view<D, QT>(&tm_q, q, view_at(st, 0), B, H, N);
-  if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, N);
-  if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, N);
+  if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, M);
+  if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, QT>(&tm_do, dout, view_at(st, 3), B, H, N);
-  if (e == 0) e = persistent_blocks(&blocks, B, H, N);
+  if (e == 0) e = persistent_blocks(&blocks, B, H, M);
   if (e != 0) return e;
   kernel<<<blocks, THREADS, DkvSmem<D>::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), view_at(st, 4), view_at(st, 5), B, N, H,
+      static_cast<bf16*>(dv), view_at(st, 4), view_at(st, 5), B, N, M, H,
       scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Every tensor argument but lse and delta is a (B, H, N, D) bf16 view with
-// the head dim contiguous, 16-byte aligned start and (b, h, n) strides, the
-// element strides in `strides`, three per tensor in argument order. lse,
+// Every tensor argument but lse and delta is a (B, H, N, D) bf16 view (k, v,
+// dk, dv: (B, H, M, D)) with the head dim contiguous, 16-byte aligned start
+// and (b, h, n) strides, the element strides in `strides`, three per tensor
+// in argument order. lse,
 // delta: (B, H, N) fp32, contiguous. Each function returns 0, or the first
 // error: a cudaError_t of a launch or the CUresult of a tensor-map encode.
 
@@ -860,14 +865,14 @@ extern "C" int sd3_flash_attention_dq(const void* q, const void* k,
                                       const void* dout, const void* lse,
                                       void* delta, void* dq,
                                       const long long* strides, int B, int H,
-                                      int N, int D, float scale,
+                                      int N, int M, int D, float scale,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dq<16>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-    case 32: return launch_dq<32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-    case 64: return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
-    case 128: return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, scale, st);
+    case 16: return launch_dq<16>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 32: return launch_dq<32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 64: return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 128: return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -878,14 +883,14 @@ extern "C" int sd3_flash_attention_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv,
                                        const long long* strides, int B, int H,
-                                       int N, int D, float scale,
+                                       int N, int M, int D, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
-    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, scale, st);
+    case 16: return launch_dkv<16>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,8 +8,12 @@ Example:
 Loads a native checkpoint of either package (`--step N`: model_params_Ns.json
 and model_Ns.msgpack, or with `--ema` model_ema_Ns.msgpack;
 `training/checkpoint.py`) or a reference torch checkpoint (`--torch_ckpt`
-state_dict with the `--loadDefFile` params JSON), and samples on `--device`
-(default cuda; it raises when no GPU is there rather than run on the CPU).
+state_dict with the `--loadDefFile` params JSON: a JSON without `MLP_type`,
+the reference's older checkpoints, means swiglu_old, and their absolute PE's
+`pos_enc.pos_embed` buffer is recomputed, not loaded), and samples on
+`--device` (default cuda; it raises when no GPU is there rather than run on
+the CPU). Every model variant of the checkpoint's config runs; a
+`text_loss` model's text prediction is dropped.
 `--gif` also writes `<out_imgname>_diffusion.gif`, the first sample decoded
 after every step, at `--gif_fps`. `--stub_encoders` runs with the
 deterministic stub conditioning stack, `--encoder_weights DIR` with the real

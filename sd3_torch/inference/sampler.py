@@ -26,7 +26,9 @@ SAMPLERS = ("euler", "euler_stochastic", "heun")
 def make_velocity_fn(model, text_hidden: torch.Tensor,
                      text_pooled: torch.Tensor) -> Callable:
     """v(x, t, w) with CFG doubling baked in; text_hidden (B, S, D) and
-    text_pooled (B, P) belong to the B latents being sampled."""
+    text_pooled (B, P) belong to the B latents being sampled. A `text_loss`
+    model's text prediction is dropped (sd3_tpu/inference/sampler.py:
+    44-45)."""
     b = text_hidden.shape[0]
     dev = text_hidden.device
     null = torch.cat([torch.zeros(b, dtype=torch.bool, device=dev),
@@ -38,6 +40,8 @@ def make_velocity_fn(model, text_hidden: torch.Tensor,
         x2 = torch.cat([x, x])
         t2 = torch.full((2 * b,), t, dtype=torch.float32, device=x.device)
         out = model(x2, t2, th2, tp2, null, null, null)
+        if isinstance(out, tuple):
+            out = out[0]
         return (1.0 + w) * out[:b] - w * out[b:]
 
     return velocity

@@ -16,6 +16,14 @@ Kept from the reference: null conditioning zeroes the pooled / Gemma-half /
 BERT-half embeddings with independent per-sample masks; the final AdaLN takes
 the *unprojected* y; the last block has no text-stream output path.
 
+Every variant of the JAX MMDiT is built from the config: the attention
+types, `kv_merge_attn`, `qk_half_dim`, the positional encodings (RoPE1d,
+RoPE2d, RoPE2dV2 in the attention, the absolute sin-cos table in `pos_enc`),
+the MLP types (`swiglu`, `swiglu_old`, `gelu`). With `text_loss` no block is
+`last`, `out_text_proj` maps the text stream back to `text_hidden_dim`, and
+the forward returns (velocity, text prediction), both fp32
+(sd3_tpu/models/mmdit.py:223, 355, 365-368).
+
 Under quant="int8" the MLP and attention projections are `Int8Linear`s
 (ops/quant.py): build the model so to load a quantized state_dict, or
 quantize a float model in place with `ops.quant.quantize_model`. The
@@ -46,8 +54,17 @@ leading axis under `blocks_stack.block.*` (one block module holding the
 stacks), the last block unrolled as `blocks.{n-1}.*`. The forward unbinds
 each stack once and runs the one block module over the slices
 (`torch.func.functional_call`), each block as layer 0, as JAX's scan body
-builds them. `to_scan_params` / `from_scan_params` convert state dicts;
-`canonical_parameters()` gives the unrolled names over views of the stacks.
+builds them. Under attn_type "both" (softmax on even layers, cosine on odd
+ones, two parameter sets) the scan takes blocks in pairs (`scan_pair`):
+the even blocks stacked under `blocks_stack.block.*` (layer 0), the odd
+ones under `blocks_stack.block_odd.*` (layer 1), `num_scan_blocks` rounded
+down to even, a leftover block unrolled. `to_scan_params` /
+`from_scan_params` convert state dicts; `canonical_parameters()` gives the
+unrolled names over views of the stacks.
+
+The "attn" policies keep the flash op's outputs; the other attention types
+are plain PyTorch ops with no single op to keep, so there they recompute
+the attention (JAX names their output too): the gradients are the same.
 
 Parameter names are the reference state-dict names (`blocks.3.y_proj.0.weight`,
 `blocks.3.attn.query_proj_x.weight`, `pos_enc.proj.weight`, `time_scale`), so
@@ -184,31 +201,36 @@ def remat_kwargs(policy: str) -> dict:
 
 
 SCAN_PREFIX = "blocks_stack.block."
+SCAN_PREFIX_ODD = "blocks_stack.block_odd."
 _BLOCK_NAME = re.compile(r"blocks\.(\d+)\.(.+)")
 
 
 def scan_pair(cfg: MMDiTConfig) -> bool:
-    """JAX scans two blocks per iteration under attn_type "both" (its
-    parity alternates softmax and cosine, _ScanBody.pair); the port has no
-    "both" attention yet, so this raises for it, else False."""
-    if cfg.attn_type == "both":
-        raise NotImplementedError(
-            "scan_blocks with attn_type 'both' (two blocks per scan step) is "
-            "not ported yet: ROADMAP.md, port queue, 'Model variants'")
-    return False
+    """attn_type "both" alternates softmax and cosine by layer parity, so
+    the scan takes two blocks a step (sd3_tpu/models/mmdit.py:212-215)."""
+    return cfg.attn_type == "both"
 
 
 def num_scan_blocks(cfg: MMDiTConfig) -> int:
-    """Blocks in the stacked layout: all but a trailing `last=True` block
-    (sd3_tpu/models/mmdit.py:212-220)."""
-    scan_pair(cfg)
-    return cfg.num_blocks if cfg.text_loss else cfg.num_blocks - 1
+    """Blocks in the stacked layout: all but a trailing `last=True` block,
+    under the pair scan rounded down to even (sd3_tpu/models/mmdit.py:
+    218-226)."""
+    n = cfg.num_blocks if cfg.text_loss else cfg.num_blocks - 1
+    return n - n % 2 if scan_pair(cfg) else n
 
 
-def to_scan_params(params: dict, num_scan: int) -> dict:
+def _stack_of(i: int, pair: bool) -> tuple[str, int]:
+    """(prefix, slice) of scanned block i."""
+    if pair and i % 2:
+        return SCAN_PREFIX_ODD, i // 2
+    return SCAN_PREFIX, i // 2 if pair else i
+
+
+def to_scan_params(params: dict, num_scan: int, pair: bool = False) -> dict:
     """Canonical state dict (blocks.i.*) -> scan layout: blocks 0 ..
-    num_scan-1 stacked on a leading axis under SCAN_PREFIX, where the first
-    of them stood; the others as they were. The exact inverse of
+    num_scan-1 stacked on a leading axis under SCAN_PREFIX (with `pair`,
+    the even ones there and the odd ones under SCAN_PREFIX_ODD), where the
+    first of them stood; the others as they were. The exact inverse of
     `from_scan_params`."""
     def stacked(k):
         m = _BLOCK_NAME.fullmatch(k)
@@ -216,7 +238,9 @@ def to_scan_params(params: dict, num_scan: int) -> dict:
     stacks = {}
     for k, v in params.items():
         if m := stacked(k):
-            stacks.setdefault(m.group(2), {})[int(m.group(1))] = v
+            prefix, j = _stack_of(int(m.group(1)), pair)
+            stacks.setdefault(prefix + m.group(2), {})[j] = v
+    per_stack = num_scan // 2 if pair else num_scan
     out, placed = {}, False
     for k, v in params.items():
         if not stacked(k):
@@ -224,28 +248,34 @@ def to_scan_params(params: dict, num_scan: int) -> dict:
         elif not placed:
             placed = True
             for name, vs in stacks.items():
-                if len(vs) != num_scan:
+                if len(vs) != per_stack:
                     raise KeyError(f"{name}: missing in some of blocks 0-"
                                    f"{num_scan - 1}")
-                out[SCAN_PREFIX + name] = torch.stack(
-                    [torch.as_tensor(vs[i]) for i in range(num_scan)])
+                out[name] = torch.stack(
+                    [torch.as_tensor(vs[i]) for i in range(per_stack)])
     return out
 
 
-def from_scan_params(params: dict, num_scan: int) -> dict:
+def from_scan_params(params: dict, num_scan: int, pair: bool = False
+                     ) -> dict:
     """Scan layout -> canonical state dict, in the unrolled model's order
     (the blocks where the stacks stood); the blocks' entries are views of
     the stacks (no copy)."""
-    stacks = {k[len(SCAN_PREFIX):]: v for k, v in params.items()
-              if k.startswith(SCAN_PREFIX)}
+    stacks = {}
+    for k, v in params.items():
+        for prefix in (SCAN_PREFIX, SCAN_PREFIX_ODD):
+            if k.startswith(prefix):
+                stacks.setdefault(prefix, {})[k[len(prefix):]] = v
     out, placed = {}, False
     for k, v in params.items():
-        if not k.startswith(SCAN_PREFIX):
+        if not k.startswith("blocks_stack."):
             out[k] = v
         elif not placed:
             placed = True
-            out.update((f"blocks.{i}.{name}", st[i]) for i in range(num_scan)
-                       for name, st in stacks.items())
+            for i in range(num_scan):
+                prefix, j = _stack_of(i, pair)
+                out.update((f"blocks.{i}.{name}", st[j])
+                           for name, st in stacks[prefix].items())
     return out
 
 
@@ -261,12 +291,9 @@ class MMDiT(nn.Module):
                  remat_policy: str = "nothing", scan_blocks: bool = False):
         super().__init__()
         device = resolve_device(device)
-        if cfg.text_loss:
-            raise NotImplementedError(
-                "text_loss=True (the text-reconstruction head) is not ported "
-                "yet: ROADMAP.md, port queue, 'text_loss'")
         self.remat_kwargs = remat_kwargs(remat_policy)
         self.num_scan = num_scan_blocks(cfg) if scan_blocks else 0
+        self.scan_pair = bool(self.num_scan) and scan_pair(cfg)
         if self.num_scan and cfg.quant != "none":
             raise ValueError("scan_blocks is a training layout: a quantized "
                              "model is built unrolled")
@@ -275,20 +302,27 @@ class MMDiT(nn.Module):
         self.compute_dtype = torch_dtype(cfg.dtype)
         kw = dict(device=device, dtype=dtype)
         dim, thd = cfg.dim, cfg.text_hidden_dim
+        last = lambda i: i == cfg.num_blocks - 1 and not cfg.text_loss
         if self.num_scan:
-            # one block module whose parameters are the stacks
+            # one block module whose parameters are the stacks (two under
+            # the pair scan: layers 0 and 1)
             self.blocks_stack = nn.Module()
+            per_stack = self.num_scan // (2 if self.scan_pair else 1)
             self.blocks_stack.block = _stacked(
                 DualStreamBlock(cfg, 0, fused_attn=fused_attn, **kw),
-                self.num_scan)
+                per_stack)
+            if self.scan_pair:
+                self.blocks_stack.block_odd = _stacked(
+                    DualStreamBlock(cfg, 1, fused_attn=fused_attn, **kw),
+                    per_stack)
             self.blocks = nn.ModuleDict({
-                str(i): DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
+                str(i): DualStreamBlock(cfg, i, last=last(i),
                                         fused_attn=fused_attn, **kw)
                 for i in range(self.num_scan, cfg.num_blocks)})
         else:
             self.blocks = nn.ModuleList([
-                DualStreamBlock(cfg, i, last=(i == cfg.num_blocks - 1),
-                                fused_attn=fused_attn, **kw)
+                DualStreamBlock(cfg, i, last=last(i), fused_attn=fused_attn,
+                                **kw)
                 for i in range(cfg.num_blocks)])
         self.time_scale = nn.Parameter(torch.full((1,), 1000.0, **kw))
         self.t_emb2 = nn.Linear(dim, dim, bias=False, **kw)
@@ -299,12 +333,17 @@ class MMDiT(nn.Module):
         self.pre_c_norm2 = RMSNorm(thd, **kw)
         self.c_proj = nn.Linear(thd, dim, bias=False, **kw)
         self.c_proj2 = nn.Linear(thd, dim, bias=False, **kw)
-        self.pos_enc = PatchEmbed(cfg.patch_size, cfg.inCh, dim,
-                                  pos_embed_type=cfg.positional_encoding, **kw)
+        self.pos_enc = PatchEmbed(
+            cfg.patch_size, cfg.inCh, dim,
+            pos_embed_type=cfg.positional_encoding,
+            pos_embed_max_size=cfg.pos_embed_max_size,
+            base_size=cfg.pos_embed_base_size, **kw)
         self.patch_emb = nn.Linear(dim, dim, bias=True, **kw)
         self.out_norm = AdaLNorm(dim, dim, **kw)
         self.out_proj = nn.Linear(dim, cfg.inCh * cfg.patch_size ** 2,
                                   bias=True, **kw)
+        if cfg.text_loss:
+            self.out_text_proj = nn.Linear(dim, thd, bias=True, **kw)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None) -> "MMDiT":
@@ -325,6 +364,8 @@ class MMDiT(nn.Module):
                 p.fill_(1000.0)
             elif name.startswith("learnable_scalar"):
                 p.fill_(0.01)
+            elif leaf == "norm_const":
+                p.fill_(0.5)
             elif p.ndim == 1 and leaf == "bias":
                 p.zero_()
             elif p.ndim == 1:
@@ -339,8 +380,8 @@ class MMDiT(nn.Module):
         under scan_blocks the stacked blocks' entries are views of the
         stacks."""
         params = dict(self.named_parameters())
-        return from_scan_params(params, self.num_scan) if self.num_scan \
-            else params
+        return (from_scan_params(params, self.num_scan, self.scan_pair)
+                if self.num_scan else params)
 
     def cast_params(self, dtype: torch.dtype) -> "MMDiT":
         """Store every parameter but `time_scale` (used in fp32) in `dtype`:
@@ -357,7 +398,9 @@ class MMDiT(nn.Module):
         """x_t: (B, inCh, H, W) noised latents; t: (B,) flow time in [0, 1];
         c: (B, 2*T, text_hidden_dim) Gemma || BERT hiddens; c_pooled:
         (B, class_dim); null_*: optional (B,) bool masks, True zeroes that
-        conditioning. Returns the (B, inCh, H, W) fp32 velocity."""
+        conditioning. Returns the (B, inCh, H, W) fp32 velocity, and with
+        `text_loss` also the (B, 2*T, text_hidden_dim) fp32 text
+        prediction."""
         cfg = self.cfg
         dt = self.compute_dtype
         b, ch, h, w = x_t.shape
@@ -393,7 +436,10 @@ class MMDiT(nn.Module):
                 x, c_tok = blk(x, c_tok, y, hw)
 
         x = linear(self.out_norm(x, y), self.out_proj)
-        return unpatchify(x, (p, p), (h, w)).float()
+        out = unpatchify(x, (p, p), (h, w)).float()
+        if self.cfg.text_loss:
+            return out, linear(c_tok, self.out_text_proj).float()
+        return out
 
     def _block_fns(self) -> list:
         """The blocks in order, each a callable (x, c, y, hw) -> (x, c).
@@ -403,11 +449,16 @@ class MMDiT(nn.Module):
         of the stack."""
         if not self.num_scan:
             return list(self.blocks)
-        body = self.blocks_stack.block
-        names = [n for n, _ in body.named_parameters()]
-        slices = zip(*(p.unbind(0) for p in body.parameters()))
-        fns = [functools.partial(_call_with, body, dict(zip(names, sl)))
-               for sl in slices]
+
+        def calls(body):
+            names = [n for n, _ in body.named_parameters()]
+            slices = zip(*(p.unbind(0) for p in body.parameters()))
+            return [functools.partial(_call_with, body, dict(zip(names, sl)))
+                    for sl in slices]
+        fns = calls(self.blocks_stack.block)
+        if self.scan_pair:   # even and odd blocks in turn
+            fns = [f for pair in zip(fns, calls(self.blocks_stack.block_odd))
+                   for f in pair]
         return fns + list(self.blocks.values())
 
 

@@ -1,8 +1,9 @@
 """Flash attention for training (JAX counterpart:
 sd3_tpu/ops/flash_attention.py).
 
-`flash_attention(q, k, v, scale)` is softmax(q k^T * scale) v on (B, H, N, D)
-tensors, non-causal, through the registered op `sd3_torch::flash_fwd`
+`flash_attention(q, k, v, scale)` is softmax(q k^T * scale) v, non-causal,
+on q of shape (B, H, N, D) and k, v of shape (B, H, M, D), as the JAX
+wrapper takes them (`kv_merge_attn` halves the key length M), through the registered op `sd3_torch::flash_fwd`
 (`flash_fwd_op`, returning the output and the fp32 logsumexp), whose
 autograd saves q, k, v, the output and the logsumexp, and whose backward
 recomputes p from them, as the JAX custom VJP does. Being an op of the
@@ -72,8 +73,9 @@ WIDE = 128                      # wide ones, at every multiple of WIDE
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-_FWD_ARGS = [_P] * 5 + [_STRIDES] + [_I] * 4 + [_F, _P]
-_BWD_ARGS = [_P] * 8 + [_STRIDES] + [_I] * 4 + [_F, _P]
+# (pointers, strides, B, H, N, M, D, scale, stream)
+_FWD_ARGS = [_P] * 5 + [_STRIDES] + [_I] * 5 + [_F, _P]
+_BWD_ARGS = [_P] * 8 + [_STRIDES] + [_I] * 5 + [_F, _P]
 K5 = Kernel("flash_attention_fwd", "attention_sm90.cu",
             "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
 K6A = Kernel("flash_attention_dq", "flash_bwd_sm90.cu",
@@ -116,7 +118,8 @@ def _logits(q, k, scale: float) -> torch.Tensor:
 
 
 def flash_fwd_plain(q, k, v, scale: float):
-    """Plain version of K5: (out in q's dtype, lse fp32 (B, H, N))."""
+    """Plain version of K5: (out in q's dtype, lse fp32 (B, H, N)); q
+    (B, H, N, D), k and v (B, H, M, D)."""
     s = _logits(q, k, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -136,7 +139,8 @@ def flash_dq_plain(q, k, v, out, dout, lse, scale: float):
 
 
 def flash_dkv_plain(q, k, v, dout, lse, delta, scale: float):
-    """Plain version of K6b: (dk in k's dtype, dv in v's dtype)."""
+    """Plain version of K6b: (dk in k's dtype, dv in v's dtype), (B, H, M,
+    D) like k and v."""
     p = torch.exp(_logits(q, k, scale) - lse[..., None])
     dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dout.float())
     dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
@@ -171,13 +175,13 @@ def _strides(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch(kern: Kernel, tensors, strided, b, h, n, d, scale):
+def _launch(kern: Kernel, tensors, strided, b, h, n, m, d, scale):
     with torch.cuda.device(tensors[0].device):
         fn = kern.function()
         # the stream at launch time: autograd runs backward on its own thread
         stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), _strides(*strided), b, h,
-                 n, d, float(scale), stream)
+                 n, m, d, float(scale), stream)
     check(kern, err)
     kern.launches += 1
 
@@ -197,27 +201,42 @@ def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
     return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
 
 
-def _check_cuda(which: str, *ts) -> Kernel:
-    """The kernel of `_KERNELS[which]` that takes tensors `ts`, checked:
-    one CUDA device, one dtype (bf16 or fp32), one (B, H, N, D) shape."""
-    q = ts[0]
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """q (B, H, N, D), k and v (B, H, M, D): what the JAX wrapper asserts
+    (sd3_tpu/ops/flash_attention.py:378-380); a ValueError otherwise."""
+    if q.ndim != 4 or k.ndim != 4 or not (
+            k.shape == v.shape and k.shape[:2] == q.shape[:2]
+            and k.shape[3] == q.shape[3]):
+        raise ValueError(f"q must be (B, H, N, D) and k, v (B, H, M, D) of "
+                         f"its batch, heads and head dim, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+
+
+def _check_cuda(which: str, rows, keys) -> Kernel:
+    """The kernel of `_KERNELS[which]` that takes the query-row tensors
+    `rows` (B, H, N, D) and the key-row tensors `keys` (B, H, M, D),
+    checked: one CUDA device, one dtype (bf16 or fp32), those shapes."""
+    q = rows[0]
     size = "wide" if instance_dim(q.shape[-1]) > HEAD_DIMS[-1] else "small"
     kern = _KERNELS[which][size][q.dtype == torch.float32]
     if q.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {q.device}")
-    for t in ts:
+    if q.ndim != 4:
+        raise NotImplementedError(
+            f"{kern.name} takes (B, H, N, D); got {tuple(q.shape)}")
+    for t in (*rows, *keys):
         if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != q.dtype:
             raise TypeError(f"{kern.name} takes bfloat16 or float32 tensors "
                             f"of one dtype, got {t.dtype} and {q.dtype}")
         if t.device != q.device:
             raise ValueError(f"{kern.name}: tensors on {t.device} and "
                              f"{q.device}")
-        if t.shape != q.shape:
-            raise ValueError(f"{kern.name}: shapes {tuple(t.shape)} and "
-                             f"{tuple(q.shape)} differ")
-    if q.ndim != 4:
-        raise NotImplementedError(
-            f"{kern.name} takes (B, H, N, D); got {tuple(q.shape)}")
+    for group in (rows, keys):
+        for t in group:
+            if t.shape != group[0].shape:
+                raise ValueError(f"{kern.name}: shapes {tuple(t.shape)} and "
+                                 f"{tuple(group[0].shape)} differ")
+    check_shapes(q, keys[0], keys[0])
     return kern
 
 
@@ -238,10 +257,12 @@ def _operands(ts, dp):
 
 def flash_fwd(q, k, v, scale: float):
     """K5 (fp32 tensors: K5F; head dims past 128: K5W / K5WF): (out in q's
-    dtype, lse fp32 (B, H, N)); its plain version on the CPU."""
+    dtype, lse fp32 (B, H, N)) of q (B, H, N, D) and k, v (B, H, M, D);
+    its plain version on the CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda("fwd", q, k, v)
+        kern = _check_cuda("fwd", (q,), (k, v))
     b, h, n, d = q.shape
+    m = k.shape[2]
     dp = instance_dim(d)
     q, k, v = _operands((q, k, v), dp)
     if q.device.type == "cpu":
@@ -249,7 +270,8 @@ def flash_fwd(q, k, v, scale: float):
     else:
         out = _bnhd(q.shape, q)
         lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-        _launch(kern, (q, k, v, out, lse), (q, k, v, out), b, h, n, dp, scale)
+        _launch(kern, (q, k, v, out, lse), (q, k, v, out), b, h, n, m, dp,
+                scale)
     return out[..., :d], lse
 
 
@@ -257,8 +279,9 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
     """K6a (fp32 tensors: K6AF; head dims past 128: K6AW / K6AWF): (dq,
     delta fp32 (B, H, N)); its plain version on the CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda("dq", q, k, v, out, dout)
+        kern = _check_cuda("dq", (q, out, dout), (k, v))
     b, h, n, d = q.shape
+    m = k.shape[2]
     dp = instance_dim(d)
     q, k, v, out, dout = _operands((q, k, v, out, dout), dp)
     if q.device.type == "cpu":
@@ -268,25 +291,27 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
         delta = torch.empty_like(lse)
         dq = _bnhd(q.shape, q)
         _launch(kern, (q, k, v, out, dout, lse, delta, dq),
-                (q, k, v, out, dout, dq), b, h, n, dp, scale)
+                (q, k, v, out, dout, dq), b, h, n, m, dp, scale)
     return dq[..., :d], delta
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale: float):
     """K6b (fp32 tensors: K6BF; head dims past 128: K6BW / K6BWF): (dk, dv)
-    from the delta K6a returned; its plain version on the CPU."""
+    (B, H, M, D) from the delta K6a returned; its plain version on the
+    CPU."""
     if q.device.type != "cpu":
-        kern = _check_cuda("dkv", q, k, v, dout)
+        kern = _check_cuda("dkv", (q, dout), (k, v))
     b, h, n, d = q.shape
+    m = k.shape[2]
     dp = instance_dim(d)
     q, k, v, dout = _operands((q, k, v, dout), dp)
     if q.device.type == "cpu":
         dk, dv = flash_dkv_plain(q, k, v, dout, lse, delta, scale)
     else:
         lse, delta = _stats(lse, q), _stats(delta, q)
-        dk, dv = _bnhd(q.shape, q), _bnhd(q.shape, q)
+        dk, dv = _bnhd(k.shape, k), _bnhd(k.shape, k)
         _launch(kern, (q, k, v, dout, lse, delta, dk, dv),
-                (q, k, v, dout, dk, dv), b, h, n, dp, scale)
+                (q, k, v, dout, dk, dv), b, h, n, m, dp, scale)
     return dk[..., :d], dv[..., :d]
 
 
@@ -331,12 +356,10 @@ flash_fwd_op.register_autograd(_flash_backward, setup_context=_flash_setup)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """Non-causal softmax(q k^T * scale) v on (B, H, N, D) tensors of one
-    shape; differentiable in q, k and v (`flash_fwd_op`, K5; K6a and K6b
-    in its backward)."""
-    if not (q.shape == k.shape == v.shape) or q.ndim != 4:
-        raise ValueError(f"q/k/v must be (B, H, N, D) of one shape, got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    """Non-causal softmax(q k^T * scale) v of q (B, H, N, D) and k, v
+    (B, H, M, D), (B, H, N, D); differentiable in q, k and v
+    (`flash_fwd_op`, K5; K6a and K6b in its backward)."""
+    check_shapes(q, k, v)
     if q.device.type not in ("cpu", "cuda"):
         # the op's fake would answer a meta tensor; nothing computes there
         raise ValueError(f"no flash attention path for device {q.device}")

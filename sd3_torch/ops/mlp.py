@@ -14,7 +14,14 @@ block's AdaLN prologue and gate + residual epilogue, on the route that
 `tail_fusion` names (the JAX SD3_MLP_TAIL_FUSION); otherwise it is two int8
 projections with silu * mul between them.
 
-`swiglu_old` (flat scope) and `gelu` are not ported yet.
+`MLP(act=...)` is the JAX dispatcher (sd3_tpu/ops/mlp.py:77-126):
+- "swiglu": the SwiGLU above under the scope `MLP` (`MLP_x.MLP.w12`);
+- "swiglu_old": the same math with w12 / w3 flat in the block's scope
+  (`MLP_x.w12.weight`), the layout of the reference's old checkpoints
+  (Transformer_Block_Dual.py:31-34); under int8 it takes the same kernels;
+- "gelu": biased `lin_up` (dim -> hidden), exact erf GELU, biased
+  `lin_down` (reference MLP.py:20-23); int8 projections under quant, no
+  kernel (XLA in the JAX package), and no block tail.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = (),
             and not ({"w12", "w3"} & set(quant_skip)))
 
 
+MLP_TYPES = ("swiglu", "swiglu_old", "gelu")
+
+
 class SwiGLU(nn.Module):
     """y = w3(silu(w12(x)[..., :h]) * w12(x)[..., h:])."""
 
@@ -43,6 +53,11 @@ class SwiGLU(nn.Module):
                  quant_skip: tuple = (), fused_mlp: bool = True,
                  tail_fusion: str = "2d", device=None, dtype=None):
         super().__init__()
+        self._init_swiglu(dim, hidden, quant, quant_skip, fused_mlp,
+                          tail_fusion, device, dtype)
+
+    def _init_swiglu(self, dim, hidden, quant, quant_skip, fused_mlp,
+                     tail_fusion, device, dtype):
         self.hidden = hidden
         self.quant, self.quant_skip = quant, tuple(quant_skip)
         self.fused_mlp, self.tail_fusion = fused_mlp, tail_fusion
@@ -71,27 +86,48 @@ class SwiGLU(nn.Module):
         return linear(F.silu(x1) * x2, self.w3)
 
 
-class MLP(nn.Module):
-    """MLP dispatcher: act='swiglu' wraps SwiGLU under the scope `MLP`."""
+class MLP(SwiGLU):
+    """MLP dispatcher (see the module docstring): "swiglu" wraps SwiGLU under
+    the scope `MLP`, "swiglu_old" holds w12 / w3 itself, "gelu" lin_up /
+    lin_down. `fused_ok`: the int8 SwiGLU kernels serve it (never gelu)."""
 
     def __init__(self, dim: int, hidden_scale: float = 4.0,
                  act: str = "swiglu", quant: str = "none",
                  quant_skip: tuple = (), fused_mlp: bool = True,
                  tail_fusion: str = "2d", device=None, dtype=None):
-        super().__init__()
-        if act != "swiglu":
-            raise NotImplementedError(
-                f"MLP act={act!r} is not ported yet: ROADMAP.md, port queue, "
-                "'gelu / swiglu_old'")
-        self.MLP = SwiGLU(dim, int(dim * hidden_scale), quant=quant,
-                          quant_skip=quant_skip, fused_mlp=fused_mlp,
-                          tail_fusion=tail_fusion, device=device,
-                          dtype=dtype)
+        nn.Module.__init__(self)
+        if act not in MLP_TYPES:
+            raise ValueError(f"unknown MLP act: {act!r}")
+        self.act = act
+        hidden = int(dim * hidden_scale)
+        kw = dict(quant=quant, quant_skip=tuple(quant_skip), fused_mlp=fused_mlp,
+                  tail_fusion=tail_fusion, device=device, dtype=dtype)
+        if act == "swiglu":
+            self.MLP = SwiGLU(dim, hidden, **kw)
+        elif act == "swiglu_old":
+            self._init_swiglu(dim, hidden, **kw)
+        else:
+            self.quant, self.quant_skip = quant, tuple(quant_skip)
+            self.lin_up = make_linear(dim, hidden, True, "lin_up", quant,
+                                      self.quant_skip, device=device,
+                                      dtype=dtype)
+            self.lin_down = make_linear(hidden, dim, True, "lin_down", quant,
+                                        self.quant_skip, device=device,
+                                        dtype=dtype)
 
     @property
     def fused_ok(self) -> bool:
-        return self.MLP.fused_ok
+        if self.act == "swiglu":
+            return self.MLP.fused_ok
+        return self.act == "swiglu_old" and super().fused_ok
 
     def forward(self, x: torch.Tensor, shift=None, scale=None, gate=None,
                 residual: bool = False) -> torch.Tensor:
-        return self.MLP(x, shift, scale, gate, residual)
+        if self.act == "swiglu":
+            return self.MLP(x, shift, scale, gate, residual)
+        if self.act == "swiglu_old":
+            return super().forward(x, shift, scale, gate, residual)
+        if shift is not None or gate is not None or residual:
+            raise ValueError("the block-tail arguments need the swiglu int8 "
+                             "path")
+        return linear(F.gelu(linear(x, self.lin_up)), self.lin_down)

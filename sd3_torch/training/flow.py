@@ -7,16 +7,20 @@ sd3_tpu/training/flow.py; reference semantics):
 - loss: MSE(v_pred, v), optional SD3 lognorm weighting (model_trainer.py:429-446)
 - null-conditioning drops: independent Bernoulli masks for pooled/Gemma/BERT
   with probs 0.1/0.316/0.316 (train.py:50-55)
+- the optional text-reconstruction loss (model_trainer.py:399-414): a
+  quarter of the text tokens masked (zeroed in the model's input), only in
+  the encoder halves whose null flag is set, and the masked tokens' MSE
+  against the original embeddings.
 
 Random draws take an explicit `torch.Generator`, which lies on the device
 the draws are made on. It gives other numbers than `jax.random` from the
-same seed, so the tests feed the same draws to both packages. The
-text-reconstruction helpers wait for `text_loss` (ROADMAP.md, port queue).
+same seed, so the tests feed the same draws to both packages.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -78,3 +82,49 @@ def velocity_loss(v_pred: torch.Tensor, x0: torch.Tensor, eps: torch.Tensor,
         per = err.reshape(err.shape[0], -1).mean(1)
         return (per * lognorm_weight(t)).mean()
     return err.mean()
+
+
+class TextLossBatch(NamedTuple):
+    """The text loss's inputs and labels (sd3_tpu/training/flow.py:65-70)."""
+    text_in: torch.Tensor     # masked text embeddings fed to the model
+    labels: torch.Tensor      # the original embeddings
+    loss_mask: torch.Tensor   # (B, S) True where the loss applies
+
+
+def text_mask_draw(generator: torch.Generator, b: int, s: int,
+                   percent_to_mask: float = 0.25) -> torch.Tensor:
+    """(B, S) bool: uniform draws below `percent_to_mask`, before the null
+    flags gate them."""
+    return torch.rand(b, s, generator=generator,
+                      device=generator.device) < percent_to_mask
+
+
+def text_loss_batch(text: torch.Tensor, drawn: torch.Tensor,
+                    null_gemma: torch.Tensor, null_bert: torch.Tensor,
+                    tokens_per_encoder: int) -> TextLossBatch:
+    """The masked batch from the drawn mask: tokens of the Gemma half stay
+    masked only where null_gemma is set, of the BERT half where null_bert is
+    (sd3_tpu/training/flow.py:79-83)."""
+    tt = tokens_per_encoder
+    mask = torch.cat([drawn[:, :tt] & null_gemma[:, None],
+                      drawn[:, tt:] & null_bert[:, None]], dim=1)
+    return TextLossBatch(text * (~mask[:, :, None]), text, mask)
+
+
+def make_text_loss_batch(generator: torch.Generator, text: torch.Tensor,
+                         null_gemma: torch.Tensor, null_bert: torch.Tensor,
+                         tokens_per_encoder: int,
+                         percent_to_mask: float = 0.25) -> TextLossBatch:
+    """`text_loss_batch` of a fresh draw (sd3_tpu/training/flow.py:73-83)."""
+    drawn = text_mask_draw(generator, text.shape[0], text.shape[1],
+                           percent_to_mask)
+    return text_loss_batch(text, drawn, null_gemma, null_bert,
+                           tokens_per_encoder)
+
+
+def text_recon_loss(txt_pred: torch.Tensor, batch: TextLossBatch
+                    ) -> torch.Tensor:
+    """mean((pred - labels)^2 * mask) in fp32 over every element, masked
+    or not (sd3_tpu/training/flow.py:86-89)."""
+    err = (txt_pred.float() - batch.labels.float()).square()
+    return (err * batch.loss_mask[:, :, None]).mean()

@@ -19,7 +19,10 @@ Every --numSaveSteps steps and at the end the trainer writes a checkpoint
 into --saveDir.
 
 --remat_policy (nothing, dots, attn, dots_attn) and --scan_blocks as in
-the JAX package (models/mmdit.py). Still queued (ROADMAP.md, port queue),
+the JAX package (models/mmdit.py). A loaded checkpoint's config may be any
+model variant; --text_loss_weight W > 0 trains a `text_loss` model's text
+head beside the velocity (a model without it ignores the weight, as the
+JAX trainer does). Still queued (ROADMAP.md, port queue),
 raising NotImplementedError: multi-host and meshes (--multihost, --dp /
 --fsdp / --tp past 1).
 

@@ -48,8 +48,16 @@ As in the JAX package:
   stacks (the views share their storage), so a scan run's state and its
   six artifacts are bit for bit an unrolled run's.
 
+- the text loss (a model with `text_loss` and `text_loss_weight` > 0):
+  each micro-batch also draws a text mask, the model reads the masked text
+  and returns its text prediction, and the loss is the image loss plus the
+  weight times the text reconstruction loss; the metrics add `image_loss`
+  and `text_loss` (sd3_tpu/training/trainer.py:160-180). A `text_loss` model
+  with weight 0 is refused: the JAX step would take its (velocity, text)
+  pair for the velocity.
+
 Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-the text loss and meshes.
+meshes.
 """
 
 from __future__ import annotations
@@ -182,38 +190,69 @@ def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
 
 
 class Noise(NamedTuple):
-    """One micro-batch's flow draws: t (B,), ε like x0, three (B,) masks."""
+    """One micro-batch's flow draws: t (B,), ε like x0, three (B,) masks,
+    and under the text loss the drawn (B, S) text mask
+    (`flow.text_mask_draw`, before the null flags gate it)."""
     t: torch.Tensor
     eps: torch.Tensor
     null_pooled: torch.Tensor
     null_gemma: torch.Tensor
     null_bert: torch.Tensor
+    text_mask: torch.Tensor | None = None
+
+    def to(self, device) -> "Noise":
+        """The draws on `device` (no text mask stays None)."""
+        return Noise(*(None if t is None else t.to(device) for t in self))
 
 
 def draw_noise(generator: torch.Generator, x0: torch.Tensor,
-               tcfg: TrainConfig) -> Noise:
-    """t, ε and the null masks of one micro-batch, in the JAX draw order."""
+               tcfg: TrainConfig, text_shape=None) -> Noise:
+    """t, ε and the null masks of one micro-batch, in the JAX draw order;
+    with `text_shape` (B, S) the text mask too."""
     b = x0.shape[0]
     t = flow.sample_t(generator, b)
     _, eps = flow.noise_batch(generator, x0, t)
-    return Noise(t, eps, *flow.null_masks(generator, b, tcfg.null_prob_pooled,
-                                          tcfg.null_prob_gemma,
-                                          tcfg.null_prob_bert))
+    masks = flow.null_masks(generator, b, tcfg.null_prob_pooled,
+                            tcfg.null_prob_gemma, tcfg.null_prob_bert)
+    text_mask = (None if text_shape is None
+                 else flow.text_mask_draw(generator, *text_shape))
+    return Noise(t, eps, *masks, text_mask)
+
+
+def uses_text_loss(cfg: MMDiTConfig, tcfg: TrainConfig) -> bool:
+    """The step takes the text loss (sd3_tpu/training/trainer.py:160); a
+    text_loss model without a weight is refused (see the module note)."""
+    if cfg.text_loss and not tcfg.text_loss_weight > 0.0:
+        raise ValueError("a text_loss model trains with text_loss_weight > 0 "
+                         "(it returns (velocity, text prediction))")
+    return cfg.text_loss
 
 
 def make_micro_loss(model: MMDiT, tcfg: TrainConfig) -> Callable:
-    """micro_loss(x0, text, pooled, noise) -> (loss, {"loss": detached})."""
-    if tcfg.text_loss_weight > 0.0:
-        raise NotImplementedError(f"text_loss_weight > 0 {_QUEUE}, "
-                                  "'text_loss'")
+    """micro_loss(x0, text, pooled, noise) -> (loss, metrics detached:
+    "loss", and under the text loss "image_loss" and "text_loss")."""
+    cfg = model.cfg
+    text_loss = uses_text_loss(cfg, tcfg)
 
     def micro_loss(x0, text, pooled, noise: Noise):
         x_t = flow.noised(x0, noise.t, noise.eps)
-        v_pred = model(x_t, noise.t, text, pooled, noise.null_pooled,
-                       noise.null_gemma, noise.null_bert)
-        loss = flow.velocity_loss(v_pred, x0, noise.eps, noise.t,
-                                  tcfg.weigh_loss)
-        return loss, {"loss": loss.detach()}
+        nulls = (noise.null_pooled, noise.null_gemma, noise.null_bert)
+        if not text_loss:
+            v_pred = model(x_t, noise.t, text, pooled, *nulls)
+            loss = flow.velocity_loss(v_pred, x0, noise.eps, noise.t,
+                                      tcfg.weigh_loss)
+            return loss, {"loss": loss.detach()}
+        if noise.text_mask is None:
+            raise ValueError("the text loss needs the noise's text_mask")
+        tl = flow.text_loss_batch(text, noise.text_mask, noise.null_gemma,
+                                  noise.null_bert, cfg.text_tokens_per_encoder)
+        v_pred, txt_pred = model(x_t, noise.t, tl.text_in, pooled, *nulls)
+        img_loss = flow.velocity_loss(v_pred, x0, noise.eps, noise.t,
+                                      tcfg.weigh_loss)
+        txt_loss = flow.text_recon_loss(txt_pred, tl)
+        loss = img_loss + tcfg.text_loss_weight * txt_loss
+        return loss, {"loss": loss.detach(), "image_loss": img_loss.detach(),
+                      "text_loss": txt_loss.detach()}
 
     return micro_loss
 
@@ -282,8 +321,8 @@ class Trainer:
             self.model.init_weights(self.generator)
         else:
             self.model.load_state_dict(
-                to_scan_params(params, self._num_scan) if self._num_scan
-                else params, strict=True)
+                to_scan_params(params, self._num_scan, self.model.scan_pair)
+                if self._num_scan else params, strict=True)
 
         self._split = tcfg.split_accumulation and tcfg.accumulation_steps > 1
         self._precast = (tcfg.precast_params and tcfg.bf16_grads
@@ -351,7 +390,8 @@ class Trainer:
 
     def _canonical(self, d: dict) -> dict:
         """A dict in the model's layout by the unrolled model's names."""
-        return from_scan_params(d, self._num_scan) if self._num_scan else d
+        return (from_scan_params(d, self._num_scan, self.model.scan_pair)
+                if self._num_scan else d)
 
     def shard_batch(self, batch: dict) -> dict:
         """Place a host batch (numpy arrays or tensors) on the trainer's
@@ -412,8 +452,10 @@ class Trainer:
         Noise per micro-batch, drawn from the trainer's generator when None.
         Returns {"loss", "grad_norm"} as 0-d tensors on the device."""
         if noise is None:
-            noise = [draw_noise(self.generator, x0, self.tcfg)
-                     for x0 in batch["x0"]]
+            text = uses_text_loss(self.cfg, self.tcfg)
+            noise = [draw_noise(self.generator, x0, self.tcfg,
+                                text_shape=tx.shape[:2] if text else None)
+                     for x0, tx in zip(batch["x0"], batch["text"])]
         g, metrics = self.gradients(batch, noise)
         if self.optimizer is None:
             _, self.opt_state, gnorm = self._fused_update(g, self.opt_state,

@@ -8,7 +8,11 @@
   (O, C, p, p) instead of staying 2-D. A quantized tree (JAX
   `quantize_params`) crosses too: `kernel_q` (in, out) int8 becomes
   `weight_q` (out, in) int8 and `kernel_scale` becomes `weight_scale` fp32,
-  the buffers of `ops.quant.Int8Linear`.
+  the buffers of `ops.quant.Int8Linear`. Every variant's parameters cross
+  by their reference names: the cosine attention's `attn.norm_const`
+  (1, H, 1, 1), swiglu_old's flat `MLP_x.w12` / `w3`, gelu's `lin_up` /
+  `lin_down`, the single stream's `query_proj` ... `out_proj`, `q_norm`,
+  `k_norm`, and the text-loss head `out_text_proj`.
 - `jax_tree_from_state_dict(sd)`: the exact inverse, the port's state_dict
   (or any dict keyed like it: EMA, optimizer moments) -> the JAX package's
   parameter tree of CPU tensors in the JAX layout, each in its dtype; the

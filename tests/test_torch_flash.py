@@ -28,6 +28,12 @@ SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
 # lengths on either side of the backward kernels' 128-row blocks and 64-row
 # query tiles (csrc/flash_bwd_sm90.cu), at both head dims
 TILE_EDGE_SHAPES = [(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
+# (B, H, N, M, D): a key length of its own. kv_merge_attn's M = N / 2 (the
+# 256px training shape's 410 -> 205 at a narrow width, and a ragged one),
+# a ragged M against a whole N, M > N, and M past 2048 keys (JAX's
+# multi-block path) at a tiny width
+KV_SHAPES = [(2, 3, 48, 24, 32), (1, 2, 410, 205, 64), (1, 3, 256, 77, 16),
+             (1, 2, 40, 129, 32), (1, 1, 100, 2100, 8)]
 
 
 def _case(shape, seed=0):
@@ -35,6 +41,15 @@ def _case(shape, seed=0):
     q, k, v, do = (r.standard_normal(shape).astype(np.float32)
                    for _ in range(4))
     return q, k, v, do, shape[-1] ** -0.5
+
+
+def _kv_case(shape, seed=0):
+    """q, dO (B, H, N, D) and k, v (B, H, M, D) of a KV_SHAPES entry."""
+    b, h, n, m, d = shape
+    r = np.random.default_rng(seed)
+    q, k, v, do = (r.standard_normal((b, h, rows, d)).astype(np.float32)
+                   for rows in (n, m, m, n))
+    return q, k, v, do, d ** -0.5
 
 
 def _t(a, grad=False):
@@ -46,20 +61,23 @@ def _jax_lse(q, k, v, scale):
     and block choice of `flash_attention` (at these sizes its VMEM budget
     shrinks nothing, which the assert checks)."""
     b, h, n, d = q.shape
+    m = k.shape[2]
     n_pad = jfa._round_up(n, 128)
     bq = max(c for c in range(128, min(jfa.DEFAULT_BLOCK_Q, n_pad) + 1, 128)
              if n_pad % c == 0)
-    bk = n_pad if n_pad <= 2048 else jfa.DEFAULT_BLOCK_K
+    m128 = jfa._round_up(m, 128)
+    bk = m128 if m128 <= 2048 else jfa.DEFAULT_BLOCK_K
     d_pad = jfa._round_up(d, 128)
     assert jfa._dkv_vmem(bq, bk, n_pad, d_pad, 4) <= jfa._VMEM_BUDGET
-    m_pad = jfa._round_up(n, bk)
+    m_pad = jfa._round_up(m, bk)
 
     def pad(x, rows):
-        return jnp.pad(jnp.asarray(x).reshape(b * h, n, d),
-                       ((0, 0), (0, rows - n), (0, d_pad - d)))
+        x = jnp.asarray(x)
+        return jnp.pad(x.reshape(b * h, x.shape[2], d),
+                       ((0, 0), (0, rows - x.shape[2]), (0, d_pad - d)))
 
     _, lse = jfa._fwd(pad(q, n_pad), pad(k, m_pad), pad(v, m_pad), scale, bq,
-                      bk, n)
+                      bk, m)
     return np.asarray(lse)[:, :n, 0].reshape(b, h, n)
 
 
@@ -139,9 +157,21 @@ def test_plain_rounds_p_and_ds_to_the_input_dtype():
 
 
 def test_wrapper_refuses_other_devices_and_shapes():
+    # what JAX's wrapper asserts (sd3_tpu/ops/flash_attention.py:378-380):
+    # k and v of q's batch, heads and head dim and of one key length; a key
+    # length of its own is taken (test_plain_*_at_a_key_length_of_their_own)
     q = torch.zeros(1, 2, 8, 32)
-    with pytest.raises(ValueError, match="one shape"):
-        tfl.flash_attention(q, q[:, :, :4], q, 0.2)
+    for k, v in ((q[..., :16], q[..., :16]),          # another head dim
+                 (q[..., :16], q),                    # v's head dim
+                 (torch.zeros(2, 2, 8, 32),) * 2,     # another batch
+                 (q[:, :1], q[:, :1]),                # other heads
+                 (q, q[:, :, :4])):                   # k and v lengths
+        with pytest.raises(ValueError, match="B, H, M, D"):
+            tfl.flash_attention(q, k, v, 0.2)
+        with pytest.raises(ValueError, match="B, H, M, D"):
+            tfl.check_shapes(q, k, v)
+    assert tfl.flash_attention(q, q[:, :, :4], q[:, :, :4], 0.2).shape == \
+        q.shape
     m = q.to("meta")
     with pytest.raises(ValueError, match="device"):
         tfl.flash_attention(m, m, m, 0.2)
@@ -212,3 +242,39 @@ def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
     for got, w in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do))):
         assert got.shape == shape
         _close(got, w)
+
+
+@pytest.mark.parametrize("shape", KV_SHAPES)
+def test_plain_forward_and_lse_at_a_key_length_of_their_own(shape):
+    # q (B, H, N, D) against k, v (B, H, M, D): JAX's flash_attention takes
+    # M != N (kv_merge_attn halves M), and so do the plain versions
+    q, k, v, _, scale = _kv_case(shape)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), scale)
+    out, lse = tfl.flash_fwd_plain(_t(q), _t(k), _t(v), scale)
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    _close(out, want)
+    _close(lse, _jax_lse(q, k, v, scale))
+
+
+@pytest.mark.parametrize("shape", KV_SHAPES)
+def test_plain_backward_at_a_key_length_of_their_own(shape):
+    # dq (B, H, N, D) and delta (B, H, N) by query row, dk, dv (B, H, M, D)
+    # by key row, against JAX's custom VJP; and the autograd Function
+    q, k, v, do, scale = _kv_case(shape, seed=1)
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
+                       *map(jnp.asarray, (q, k, v)))
+    dq, dk, dv = vjp(jnp.asarray(do))
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    _, lse = tfl.flash_fwd_plain(tq, tk, tv, scale)
+    got_dq, delta = tfl.flash_dq_plain(tq, tk, tv, _t(out), _t(do), lse, scale)
+    got_dk, got_dv = tfl.flash_dkv_plain(tq, tk, tv, _t(do), lse, delta, scale)
+    assert got_dk.shape == got_dv.shape == k.shape
+    _close(delta, np.sum(np.asarray(out) * do, -1))
+    for got, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
+        _close(got, want)
+    tq, tk, tv = _t(q, True), _t(k, True), _t(v, True)
+    got = tfl.flash_attention(tq, tk, tv, scale)
+    _close(got, out)
+    got.backward(_t(do))
+    for got, want in ((tq.grad, dq), (tk.grad, dk), (tv.grad, dv)):
+        _close(got, want)

@@ -1688,3 +1688,65 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                 dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
     assert all(e <= FP32_REL_L2 for e in errs.values()), errs
     assert (lse - w_lse).abs().max().item() <= 1e-5
+
+
+# (B, H, N, M, D): k and v with a key length M of their own, as
+# kv_merge_attn gives them: the 512px and 256px kv_merge training shapes
+# (M = N / 2), a ragged M against a whole N, M > N, the other small
+# instances, and the wide ones
+FLASH_KV_SHAPES = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
+                   (1, 3, 256, 77, 64), (1, 2, 129, 300, 64),
+                   (2, 3, 47, 24, 16), (1, 2, 65, 33, 32),
+                   (1, 2, 300, 150, 128), (1, 2, 300, 150, 256),
+                   (1, 2, 129, 300, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_KV_SHAPES)
+def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
+        cuda_device, no_tf32, shape):
+    # K5, K6a, K6b (K5W, K6AW, K6BW past 128) on bf16 within the FLASH
+    # limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32 within
+    # FP32_REL_L2, each against its plain version at M != N: lse and delta
+    # by query row, dk and dv by key row
+    b, h, n, m, d = shape
+    r = np.random.default_rng(9)
+    q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
+        cuda_device, torch.bfloat16) for rows in (n, m, m, n))
+    scale = d ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    wide = d > 128
+    bf16 = (tfl.K5W, tfl.K6AW, tfl.K6BW) if wide else (tfl.K5, tfl.K6A,
+                                                        tfl.K6B)
+    fp32 = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF) if wide else (tfl.K5F, tfl.K6AF,
+                                                          tfl.K6BF)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 1 for kk in bf16}
+    assert out.shape == dq.shape == q.shape and lse.shape == (b, h, n)
+    assert dk.shape == dv.shape == k.shape
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    assert (lse - want[1]).abs().max().item() <= FLASH_LSE_ATOL
+    want_delta = (do.float() * out.float()).sum(-1)
+    assert (delta - want_delta).abs().max().item() <= 1e-3
+    for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
+                       ("dv", dv, want[4])):
+        _assert_grad_close(g, w, name)
+    q, k, v, do = (t.float() + 1e-3 * torch.randn_like(t.float())
+                   for t in (q, k, v, do))
+    w_out, w_lse = tfl.flash_fwd_plain(q, k, v, scale)
+    w_dq, w_delta = tfl.flash_dq_plain(q, k, v, w_out, do, w_lse, scale)
+    w_dk, w_dv = tfl.flash_dkv_plain(q, k, v, do, w_lse, w_delta, scale)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 1 for kk in fp32}
+    errs = dict(out=_rel_l2(out, w_out), dq=_rel_l2(dq, w_dq),
+                dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
+    assert all(e <= FP32_REL_L2 for e in errs.values()), errs
+    assert (lse - w_lse).abs().max().item() <= 1e-5

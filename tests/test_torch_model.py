@@ -369,15 +369,19 @@ def test_block_tail_fields_are_runtime_choices():
     assert cfg.to_json() == tiny_config().to_json()
 
 
-@pytest.mark.parametrize("kw", [dict(text_loss=True), dict(MLP_type="swiglu_old"),
-                                dict(attn_type="cosine"),
-                                dict(positional_encoding="RoPE2dV2"),
-                                dict(MLP_type="gelu"),
-                                dict(attn_type="softmax_flash",
-                                     positional_encoding="absolute")])
+@pytest.mark.parametrize("kw", [dict(qk_half_dim=True),
+                                dict(MLP_type="swiglu_2"),
+                                dict(attn_type="cosine5"),
+                                dict(positional_encoding="RoPE3d"),
+                                dict(qk_half_dim=True, dim=36, num_heads=4),
+                                dict(quant="int4")])
 def test_unported_configurations_raise(kw):
+    # every variant of the JAX package is ported (tests/test_torch_variants
+    # .py); what JAX refuses (an assert in its config or its flash
+    # wrapper's head-dim assert under qk_half_dim) the port refuses with a
+    # ValueError
     kw = {"attn_type": "softmax_flash", **kw}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         MMDiT(tiny_config(**kw), device="cpu")
 
 

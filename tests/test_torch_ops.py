@@ -119,8 +119,18 @@ def test_patch_embed_matches_jax_through_the_weight_carrier():
 
 
 def test_patch_embed_absolute_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tpatch.PatchEmbed(2, 4, 12, pos_embed_type="absolute")
+    # ported since: the absolute PatchEmbed adds the centre-cropped sin-cos
+    # table to the patch embedding (held to JAX in
+    # tests/test_torch_variants.py::test_cropped_pos_embed_matches_jax)
+    x = torch.randn(2, 4, 6, 10, generator=torch.Generator().manual_seed(0))
+    flat = tpatch.PatchEmbed(2, 4, 12)
+    torch.nn.init.normal_(flat.proj.weight, generator=torch.Generator(
+        ).manual_seed(1))
+    pe = tpatch.PatchEmbed(2, 4, 12, pos_embed_type="absolute",
+                           pos_embed_max_size=16, base_size=8)
+    pe.load_state_dict(flat.state_dict())
+    table = tpatch.cropped_pos_embed(12, 3, 5, 16, 8)
+    _close(pe(x) - flat(x), np.broadcast_to(table, (2, 15, 12)))
 
 
 @pytest.mark.parametrize("h,w,d,interp", [(4, 4, 64, 1.0), (3, 5, 16, 2.0)])

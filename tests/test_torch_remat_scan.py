@@ -263,8 +263,9 @@ def test_scan_params_round_trip_and_stack_the_blocks():
 
 
 def test_scan_refusals():
-    with pytest.raises(NotImplementedError, match="both"):
-        MMDiT(tiny_config(attn_type="both"), device="cpu", scan_blocks=True)
+    # attn_type "both" scans in pairs (tests/test_torch_variants.py)
+    assert MMDiT(tiny_config(attn_type="both", num_blocks=3), device="cpu",
+                 scan_blocks=True).scan_pair
     with pytest.raises(ValueError, match="unrolled"):
         MMDiT(tiny_config(attn_type="softmax_flash", quant="int8"),
               device="cpu", scan_blocks=True)

@@ -517,16 +517,22 @@ def test_trainer_trains_logs_and_keeps_the_ema(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scan_blocks=True, attn_type="both"), dict(mesh=object()),
-    dict(text_loss_weight=0.5)])
+    dict(scan_blocks=True, qk_half_dim=True), dict(mesh=object()),
+    dict(text_loss=True)])
 def test_unported_training_options_raise(kw, tmp_path):
-    # the remat policies and scan_blocks are ported
-    # (tests/test_torch_remat_scan.py); scan over "both" (two blocks a scan
-    # step), a mesh and the text loss still raise
+    # the remat policies, scan_blocks (over "both" too) and the text loss
+    # are ported (tests/test_torch_remat_scan.py, test_torch_variants.py); a
+    # mesh still raises, and what JAX refuses raises a ValueError: qk_half_dim
+    # under softmax_flash (its flash wrapper's head-dim assert) and a
+    # text_loss model with text_loss_weight 0 (its step takes the model's
+    # (velocity, text) pair for the velocity)
     kw = dict(kw)
+    model = {k: kw.pop(k) for k in ("qk_half_dim", "text_loss") if k in kw}
     cfg = MMDiTConfig.from_json(j_tiny_config(
-        attn_type=kw.pop("attn_type", "softmax_flash")).to_json())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        attn_type="softmax_flash", **model).to_json())
+    exc, match = ((NotImplementedError, "ROADMAP") if "mesh" in kw
+                  else (ValueError, "qk_half_dim|text_loss_weight"))
+    with pytest.raises(exc, match=match):
         Trainer(cfg, TrainConfig(**kw), device="cpu", log_dir=str(tmp_path),
                 use_wandb=False)
 
