@@ -21,7 +21,7 @@ import io
 import os
 
 from sd3_torch.data.filter_dataset import set_column
-from sd3_torch.data.pipeline import image_bytes
+from sd3_torch.data.pipeline import image_bytes, write_parquet
 
 
 def nearest_multiple(x: int, m: int) -> int:
@@ -87,7 +87,7 @@ def process_file(in_path: str, out_path: str, max_resolution: int,
     table = set_column(table, "aspect_ratio", pa.array(aspects, pa.float64()))
     table = set_column(table, "bucket_size", pa.array(buckets, pa.string()))
     if table.num_rows:
-        pq.write_table(table, out_path)
+        write_parquet(table, out_path)
     return table.num_rows
 
 

@@ -15,7 +15,7 @@ import argparse
 import io
 import os
 
-from sd3_torch.data.pipeline import image_bytes
+from sd3_torch.data.pipeline import image_bytes, write_parquet
 
 
 def set_column(table, name: str, values):
@@ -59,7 +59,7 @@ def process_file(in_path: str, out_path: str, min_resolution: int,
         [w / h if h else 0.0 for w, h in zip(widths, heights)], pa.float64()))
     table = table.filter(pa.array(keep, pa.bool_()))
     if table.num_rows:
-        pq.write_table(table, out_path)
+        write_parquet(table, out_path)
     return table.num_rows
 
 

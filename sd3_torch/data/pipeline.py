@@ -5,7 +5,9 @@ The host decodes and collates; the frozen encoders run on the card between
 steps (`data/encoded.py`). Kept semantics:
 - a parquet folder with `image` bytes (binary, or a {bytes, path} struct),
   `recaption` / `recaption_short` captions and `bucket_size` strings
-  (VAE_T5_CLIP.py:327, 347-351), read with pyarrow; rows are numbered as
+  (VAE_T5_CLIP.py:327, 347-351), memory-mapped with pyarrow and decoded a
+  row group at a time (the port's writers bound a row group at
+  ROW_GROUP_BYTES); rows are numbered as
   the JAX package's HF `datasets` numbers them (files in sorted order, rows
   in file order), so a bucket-index .npy serves either package;
 - a 50/50 long/short caption pick, stripped; optional caption cleaning
@@ -27,6 +29,7 @@ import io
 import os
 import random
 import threading
+import warnings
 from typing import Iterator
 
 import numpy as np
@@ -105,28 +108,123 @@ def parquet_files(folder: str) -> list[str]:
     return files
 
 
+ROW_GROUP_BYTES = 4 << 20  # a row group of the files the port writes
+LARGE_ROW_GROUP = 16  # x ROW_GROUP_BYTES: the reader warns past it
+
+
+def row_group_rows(table) -> int:
+    """Rows a row group of `table` holds in the files the port's writers
+    write: about ROW_GROUP_BYTES of its Arrow data, so that a random row
+    costs `ParquetImageText` that much to decode (10 PNG rows at 512px,
+    ~40 at 256px)."""
+    return max(1, int(ROW_GROUP_BYTES * max(table.num_rows, 1)
+                      // max(table.nbytes, 1)))
+
+
+def write_parquet(data, path: str, preserve_index: bool | None = False):
+    """pq.write_table of a pyarrow Table, or of a pandas DataFrame as its
+    `to_parquet(index=preserve_index)` converts it, in row groups of
+    `row_group_rows`."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    if not isinstance(data, pa.Table):
+        data = pa.Table.from_pandas(data, preserve_index=preserve_index)
+    pq.write_table(data, path, row_group_size=row_group_rows(data))
+
+
 class ParquetImageText:
     """Random access to the rows of a parquet folder with image, caption and
-    bucket_size columns. The folder's table is held in host memory (the JAX
-    package memory-maps the Arrow cache HF `datasets` writes; nothing here
-    writes beside the dataset)."""
+    bucket_size columns, without loading the folder into host memory.
+
+    Each file is opened memory-mapped (`pq.ParquetFile(memory_map=True)`);
+    opening reads the files' metadata and their `bucket_size` column alone.
+    A global row number maps to (file, row group, offset) through the row
+    groups' cumulative row counts. Parquet's unit of random access is the
+    row group: `rows` decodes each row group it needs whole, outside the
+    lock (each thread reads through its own file handles), and keeps the
+    most recent ones up to `cache_bytes` of Arrow data. A row therefore
+    costs the decode of its row group: ~ROW_GROUP_BYTES in the files the
+    port's writers write (`write_parquet`), the whole file in a file
+    written as one row group, which random draws over many such files
+    decode once a row. Host memory holds the cache and the groups being
+    decoded, not the folder (the JAX package memory-maps the Arrow cache
+    HF `datasets` writes; nothing here writes beside the dataset)."""
+
+    cache_bytes = 256 << 20  # decoded row groups kept, the most recent
 
     def __init__(self, parquet_folder: str,
                  bucket_indices_path: str | None = None):
-        import pyarrow as pa
         import pyarrow.parquet as pq
-        self.table = pa.concat_tables(
-            [pq.read_table(f) for f in parquet_files(parquet_folder)])
-        self.buckets = build_bucket_indices(
-            self.table.column("bucket_size").to_pylist(),
-            bucket_indices_path) \
-            if "bucket_size" in self.table.column_names else None
+        self.paths = parquet_files(parquet_folder)
+        files = [pq.ParquetFile(f, memory_map=True) for f in self.paths]
+        self._meta = [pf.metadata for pf in files]
+        groups = [(fi, gi, m.row_group(gi).num_rows)
+                  for fi, m in enumerate(self._meta)
+                  for gi in range(m.num_row_groups)]
+        self._groups = [(fi, gi) for fi, gi, _ in groups]
+        self._starts = np.cumsum([0] + [n for _, _, n in groups])
+        largest = max((m.row_group(gi).total_byte_size
+                       for m in self._meta
+                       for gi in range(m.num_row_groups)), default=0)
+        if largest > LARGE_ROW_GROUP * ROW_GROUP_BYTES:
+            warnings.warn(
+                f"{parquet_folder}: row groups of up to {largest / 2**20:.0f}"
+                f" MiB; each random row decodes its whole group. Rewrite "
+                f"the folder through create_phase (row groups of "
+                f"~{ROW_GROUP_BYTES >> 20} MiB).", stacklevel=2)
+        self._cache: dict[int, object] = {}  # group -> table, oldest first
+        self._lock = threading.Lock()
+        self._local = threading.local()  # the thread's file handles
+        self._local.files = files
+        self.buckets = None
+        if all("bucket_size" in pf.schema_arrow.names for pf in files):
+            sizes = [s for pf in files for s in pf.read(
+                columns=["bucket_size"]).column("bucket_size").to_pylist()]
+            self.buckets = build_bucket_indices(sizes, bucket_indices_path)
 
     def __len__(self):
-        return self.table.num_rows
+        return int(self._starts[-1])
+
+    def _file(self, fi: int):
+        files = getattr(self._local, "files", None)
+        if files is None:
+            import pyarrow.parquet as pq
+            files = self._local.files = [
+                pq.ParquetFile(p, memory_map=True, metadata=m)
+                for p, m in zip(self.paths, self._meta)]
+        return files[fi]
+
+    def _group(self, g: int):
+        with self._lock:
+            table = self._cache.pop(g, None)
+            if table is not None:
+                self._cache[g] = table  # the most recent last
+                return table
+        fi, gi = self._groups[g]
+        table = self._file(fi).read_row_group(gi)
+        with self._lock:
+            self._cache.pop(g, None)
+            if table.nbytes <= self.cache_bytes:
+                self._cache[g] = table
+                held = sum(t.nbytes for t in self._cache.values())
+                while held > self.cache_bytes:
+                    held -= self._cache.pop(next(iter(self._cache))).nbytes
+        return table
 
     def rows(self, indices: list[int]) -> list[dict]:
-        return self.table.take(indices).to_pylist()
+        idx = np.asarray(indices, dtype=np.int64)
+        if idx.size and (idx.min() < 0 or idx.max() >= len(self)):
+            raise IndexError(f"row index out of range 0..{len(self) - 1}")
+        groups = np.searchsorted(self._starts, idx, side="right") - 1
+        out: list[dict | None] = [None] * len(idx)
+        for g in dict.fromkeys(groups.tolist()):
+            table = self._group(g)
+            for i in np.flatnonzero(groups == g).tolist():
+                # a slice a row: `take` concatenates a column's chunks,
+                # which overflows binary offsets past 2 GiB of images
+                out[i] = table.slice(int(idx[i] - self._starts[g]),
+                                     1).to_pylist()[0]
+        return out
 
 
 class HostDataLoader:

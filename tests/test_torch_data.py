@@ -11,6 +11,7 @@ import io
 import itertools
 import os
 import random
+import warnings
 
 import numpy as np
 import pytest
@@ -214,6 +215,207 @@ def test_loader_refusals(tmp_path):
         pipeline.HostDataLoader(pipeline.ParquetImageText(str(d)), 1)
     with pytest.raises(FileNotFoundError):
         pipeline.ParquetImageText(str(tmp_path / "empty"))
+
+
+# ---- the memory-mapped reader ------------------------------------------------
+
+def _write_row_groups(d, n_per_file=(14, 13), row_group_size=4):
+    """_write_folder's rows, each file in row groups of `row_group_size`."""
+    src = _write_folder(d / "src", n_per_file)
+    os.makedirs(d / "rg")
+    for name in sorted(os.listdir(src)):
+        pq.write_table(pq.read_table(os.path.join(src, name)),
+                       str(d / "rg" / name), row_group_size=row_group_size)
+    return str(d / "rg")
+
+
+def _group_bytes(d):
+    """The Arrow bytes of each row group of the folder's files."""
+    return [pq.ParquetFile(f).read_row_group(g).nbytes
+            for f in pipeline.parquet_files(d)
+            for g in range(pq.ParquetFile(f).metadata.num_row_groups)]
+
+
+@pytest.mark.parametrize("row_group_size,groups_cached",
+                         [(4, 0), (5, 1), (5, 2), (64, 4)])
+def test_mmap_rows_equal_the_eager_readers_across_boundaries(
+        tmp_path, row_group_size, groups_cached):
+    d = _write_row_groups(tmp_path, row_group_size=row_group_size)
+    ds = pipeline.ParquetImageText(d)
+    ds.cache_bytes = sum(sorted(_group_bytes(d))[::-1][:groups_cached])
+    eager = pa.concat_tables([pq.read_table(f)
+                              for f in pipeline.parquet_files(d)])
+    assert len(ds) == eager.num_rows == 27
+    assert len(ds._groups) == sum(-(-n // row_group_size) for n in (14, 13))
+    # rows on either side of every row-group and file boundary, repeated,
+    # out of order, and the whole folder backwards
+    idx = [3, 4, 13, 14, 26, 0, 15, 12, 4, 9, 26]
+    assert ds.rows(idx) == eager.take(idx).to_pylist()
+    every = list(range(26, -1, -1))
+    assert ds.rows(every) == eager.take(every).to_pylist()
+    assert sum(t.nbytes for t in ds._cache.values()) <= ds.cache_bytes
+    assert len(ds._cache) <= groups_cached
+    assert ds.rows([]) == []
+    with pytest.raises(IndexError):
+        ds.rows([27])
+    want = jpipe.ParquetImageText(d)
+    assert ds.buckets == want.buckets
+    for a, b in zip(ds.rows(idx), want.rows(idx)):
+        assert a["recaption"] == b["recaption"]
+        assert a["image"] == b["image"]
+
+
+def test_mmap_reader_opens_with_the_bucket_column_alone(tmp_path,
+                                                        monkeypatch):
+    d = _write_row_groups(tmp_path)
+    reads = []
+    for name in ("read", "read_row_group", "read_row_groups", "iter_batches"):
+        real = getattr(pq.ParquetFile, name)
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            reads.append((_name, kw.get("columns")))
+            return _real(self, *a, **kw)
+        monkeypatch.setattr(pq.ParquetFile, name, spy)
+    monkeypatch.setattr(pq, "read_table", lambda *a, **k: pytest.fail(
+        "the reader read a whole table"))
+    ds = pipeline.ParquetImageText(d)
+    assert reads == [("read", ["bucket_size"])] * 2
+    assert sorted(ds.buckets) == ["16x16", "16x8", "8x16"]
+    reads.clear()
+    ds.rows([1, 2])  # one row group, decoded whole, then cached
+    ds.rows([0, 3])
+    assert reads == [("read_row_group", None)]
+
+
+def test_mmap_reader_serves_threads_and_the_loader(folder):
+    import concurrent.futures as cf
+    ds = pipeline.ParquetImageText(folder)
+    ds.cache_bytes = max(_group_bytes(folder))
+    eager = pa.concat_tables([pq.read_table(f)
+                              for f in pipeline.parquet_files(folder)])
+    picks = [list(np.random.default_rng(s).integers(0, 27, 6))
+             for s in range(24)]
+    with cf.ThreadPoolExecutor(4) as ex:
+        got = list(ex.map(ds.rows, picks))
+    assert got == [eager.take(p).to_pylist() for p in picks]
+    _assert_same_batches(_stream(pipeline, folder, 4, num_threads=3),
+                         _stream(jpipe, folder, 4, num_threads=1))
+
+
+def test_mmap_reader_decodes_outside_its_lock_on_per_thread_files(
+        tmp_path, monkeypatch):
+    """A thread decoding a row group holds up no other thread's rows, and
+    each thread reads through file handles of its own."""
+    import threading
+    d = _write_row_groups(tmp_path)
+    ds = pipeline.ParquetImageText(d)
+    release, entered = threading.Event(), threading.Event()
+    handles = {}
+    real = pq.ParquetFile.read_row_group
+
+    def slow(self, i, *a, **kw):
+        handles.setdefault(threading.get_ident(), set()).add(id(self))
+        if i == 1 and not release.is_set():
+            entered.set()
+            assert release.wait(10)
+        return real(self, i, *a, **kw)
+    monkeypatch.setattr(pq.ParquetFile, "read_row_group", slow)
+    got = {}
+    t = threading.Thread(target=lambda: got.setdefault("a", ds.rows([5])))
+    t.start()
+    assert entered.wait(10)
+    assert ds.rows([0, 9]) == ds.rows([0, 9])  # groups 0 and 2, unblocked
+    release.set()
+    t.join(10)
+    eager = pa.concat_tables([pq.read_table(f)
+                              for f in pipeline.parquet_files(d)])
+    assert got["a"] == eager.take([5]).to_pylist()
+    assert len(handles) == 2
+    a, b = handles.values()
+    assert not a & b
+
+
+@pytest.mark.parametrize("nbytes", [1 << 10, 1 << 12])
+def test_write_parquet_bounds_the_row_groups_it_writes(tmp_path, monkeypatch,
+                                                       nbytes):
+    """Row groups of about ROW_GROUP_BYTES whatever the writer (pyarrow's
+    own default is one group of up to 1Mi rows), a DataFrame as pandas'
+    to_parquet converts it, and the same rows for the reader."""
+    import pandas as pd
+    monkeypatch.setattr(pipeline, "ROW_GROUP_BYTES", nbytes)
+    src = _write_folder(tmp_path / "src")
+    table = pa.concat_tables([pq.read_table(f)
+                              for f in pipeline.parquet_files(src)])
+    rows = pipeline.row_group_rows(table)
+    assert rows == max(1, nbytes * 27 // table.nbytes)
+    os.makedirs(tmp_path / "out")
+    out = str(tmp_path / "out" / "t.parquet")
+    pipeline.write_parquet(table, out)
+    meta = pq.ParquetFile(out).metadata
+    assert meta.num_row_groups == -(-27 // rows) > 1
+    assert max(_group_bytes(str(tmp_path / "out"))) <= 2 * nbytes
+    assert pq.read_table(out).equals(table)
+    df = table.to_pandas()
+    for index in (False, None):
+        pipeline.write_parquet(df, out, preserve_index=index)
+        ref = str(tmp_path / "ref.parquet")
+        df.to_parquet(ref, index=index)
+        assert pq.read_table(out).equals(pq.read_table(ref))
+        assert pq.ParquetFile(out).metadata.num_row_groups > 1
+    ds = pipeline.ParquetImageText(str(tmp_path / "out"))
+    assert ds.rows(list(range(27))) == table.to_pylist()
+
+
+def test_mmap_reader_takes_no_column_whole(tmp_path, monkeypatch):
+    """Rows come from a slice of their row group, never from `take`, which
+    concatenates a column's chunks: past 2 GiB of image bytes that
+    overflows binary offsets (the in-memory reader it replaced refused
+    such a folder on its first batch)."""
+    d = _write_row_groups(tmp_path)
+    ds = pipeline.ParquetImageText(d)
+    eager = pa.concat_tables([pq.read_table(f)
+                              for f in pipeline.parquet_files(d)])
+    want = eager.take([26, 0, 13, 5]).to_pylist()
+    import pyarrow.compute as pc
+    monkeypatch.setattr(pc, "take", lambda *a, **k: pytest.fail(
+        "the reader called take"))
+    with pytest.raises(pytest.fail.Exception):  # the spy sees Table.take
+        eager.take([0])
+    assert ds.rows([26, 0, 13, 5]) == want
+
+
+def test_mmap_reader_warns_of_large_row_groups(tmp_path, monkeypatch):
+    d = _write_row_groups(tmp_path, row_group_size=64)  # a group a file
+    big = max(pq.ParquetFile(f).metadata.row_group(0).total_byte_size
+              for f in pipeline.parquet_files(d))
+    monkeypatch.setattr(pipeline, "ROW_GROUP_BYTES", 1 << 10)
+    monkeypatch.setattr(pipeline, "LARGE_ROW_GROUP", big // 1024 - 1)
+    with pytest.warns(UserWarning, match="decodes its whole group"):
+        pipeline.ParquetImageText(d)
+    monkeypatch.setattr(pipeline, "LARGE_ROW_GROUP", big // 1024 + 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        pipeline.ParquetImageText(d)
+
+
+def test_prep_clis_write_bounded_row_groups(tmp_path, monkeypatch):
+    """filter_dataset and create_phase write through write_parquet: their
+    files hold several row groups at a small ROW_GROUP_BYTES, and the same
+    tables as the JAX package's."""
+    monkeypatch.setattr(pipeline, "ROW_GROUP_BYTES", 1 << 12)
+    raw = _raw(tmp_path / "raw")
+    out = {}
+    for name, (filt, phase) in (("t", (filter_dataset, create_phase)),
+                                ("j", (jfilter, jphase))):
+        f, p = str(tmp_path / f"{name}_filt"), str(tmp_path / f"{name}_phase")
+        filt.main(["--input_dir", raw, "--output_dir", f])
+        phase.main(["--input_dir", f, "--output_dir", p,
+                    "--max_resolution", "256"])
+        out[name] = (f, p)
+    for (got, want) in zip(out["t"], out["j"]):
+        _assert_tables_equal(_tables(got), _tables(want))
+        for f in pipeline.parquet_files(got):
+            assert pq.ParquetFile(f).metadata.num_row_groups > 1, f
 
 
 # ---- the dataset-prep CLIs -----------------------------------------------------
