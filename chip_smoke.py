@@ -115,6 +115,15 @@ Phases (any failure exits non-zero without the final ok line):
      step: one warmup, then the median of 2 timed steps each. Then two steps
      of the default TrainConfig path (optax-shaped AdamW, fp32 gradients,
      accumulation 2, device EMA) at a depth of 2 blocks;
+  11b. phase 11's configuration over a ("dp", "fsdp", "tp") mesh of one
+     NCCL rank (sd3_torch.parallel: multihost.initialize, the trainer's
+     TrainMesh): the NCCL version, world and mesh; a warmup step and two
+     timed ones (s a step; K5 38, K6a 19, K6b 19 each, as phase 11) and one
+     traced (the idle share, the NCCL kernels' ms); each step's loss and
+     grad norm and the update after the first and the last step against
+     the trainer without a process group on the same seed, batch and
+     noise, within MESH_LOSS_REL / MESH_UPDATE_REL_L2, and a control (the
+     noise's rows rolled by one) that must fail them; the group destroyed;
   12. the slice's path through the CLIs (sd3_torch.training.train,
      sd3_torch.inference.infer): train.main at the published widths cut to
      CLI_BLOCKS (3) blocks, 256px, 2 steps, --moments_8bit --ema_on_host,
@@ -1773,6 +1782,155 @@ def phase_train_default_path(log_dir):
     res = dict(steps=out, launches_per_step=launches, leaves_moved=moved,
                ema_leaves_moved=ema_moved, leaves=len(p0))
     print("  default path", json.dumps(res), flush=True)
+    return res
+
+
+# ---- phase 11b: the mesh ---------------------------------------------------
+# Phase 11's configuration over a ("dp", "fsdp", "tp") mesh of one NCCL rank
+# (the card is one H100, and NCCL takes one rank per card): the sharding
+# code and the collectives of a multi-card run (the gradients averaged over
+# the data group, the metrics reduced over it, the clip's norm summed over
+# the world), held step by step to the trainer without a process group on
+# the same seed, batch and noise. Limits: each step's loss and grad norm to
+# MESH_LOSS_REL relative; the update (gathered masters minus the initial
+# ones) after the first and the last step to MESH_UPDATE_REL_L2 (a gradient
+# within bf16's reach of Adam's eps may flip its first update, as in
+# tests/test_torch_parallel.py). The control, the first step with each
+# micro-batch's draws rolled by one row (what a rank keeping another rank's
+# rows would train on), must fail both.
+MESH_STEPS = 3            # a warmup step and two timed ones
+MESH_LOSS_REL = 1e-4
+MESH_UPDATE_REL_L2 = 1e-2
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (the process group's rendezvous)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_train_mesh(card, log_dir):
+    """Phase 11b (see the note above): returns the run's numbers, errors
+    and control."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from sd3_torch.data.pipeline import synthetic_batch_iter
+    from sd3_torch.parallel import MeshConfig, multihost
+    from sd3_torch.training.trainer import Noise, Trainer, draw_noise
+
+    cfg, tc = train_slice_config()
+    batch = {k: torch.as_tensor(v).cuda() for k, v in next(
+        synthetic_batch_iter(cfg, TRAIN_BATCH, 1, TRAIN_RES, TRAIN_RES)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    noises = [[draw_noise(gen, batch["x0"][0], tc)]
+              for _ in range(MESH_STEPS + 1)]
+    nb = cfg.num_blocks
+    expect = dict(flash_attention_fwd=2 * nb, flash_attention_dq=nb,
+                  flash_attention_dkv=nb)
+    snap_at = (0, MESH_STEPS - 1)
+
+    t0 = time.time()
+    dev = multihost.initialize(f"localhost:{free_port()}", 1, 0,
+                               device="cuda", timeout_s=300)
+    trainer = None
+    try:
+        require(dist.get_backend() == "nccl", "the card's group is not NCCL")
+        trainer = Trainer(cfg, dataclasses.replace(
+            tc, mesh=MeshConfig(1, 1, 1)), device=dev, log_dir=log_dir,
+            use_wandb=False)
+        require(trainer.mesh is not None, "the trainer took no mesh")
+        v = torch.cuda.nccl.version()
+        group = dict(nccl=".".join(map(str, v)) if isinstance(v, tuple)
+                     else str(v), backend=dist.get_backend(),
+                     world=dist.get_world_size(),
+                     mesh=dict(zip(trainer.mesh.device_mesh.mesh_dim_names,
+                                   trainer.mesh.device_mesh.shape)),
+                     data_ranks=trainer.mesh.n_data,
+                     built_s=time.time() - t0, card=card)
+        print("  group", json.dumps(group), flush=True)
+        p0 = {k: v.detach().clone()
+              for k, v in trainer.gather(trainer.params).items()}
+        runs, snaps = [], {}
+        for i in range(MESH_STEPS):
+            reset_launches()
+            t1 = time.time()
+            m = trainer.train_step(batch, noises[i])
+            loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+            dt = time.time() - t1
+            launches = launch_counts()
+            for name, n in expect.items():
+                require(launches[name] == n, f"{name} launched "
+                        f"{launches[name]} times in a mesh step, expected {n}")
+            require(all(map(math.isfinite, (loss, gnorm))),
+                    f"mesh loss {loss} / grad norm {gnorm} non-finite")
+            runs.append(dict(s=dt, loss=loss, grad_norm=gnorm,
+                             launches={k: launches[k] for k in expect}))
+            if i in snap_at:
+                snaps[i] = {k: v.detach() - p0[k] for k, v in
+                            trainer.gather(trainer.params).items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.time()
+            trainer.train_step(batch, noises[-1])["loss"].item()
+            traced_s = time.time() - t1
+        tr = device_breakdown(prof, traced_s)
+        tr["nccl_ms"] = sum(us for key, (us, _) in device_rows(prof).items()
+                            if "nccl" in key.lower()) / 1e3
+    finally:
+        del trainer
+        dist.destroy_process_group()
+    require(not dist.is_initialized(), "the phase left its group")
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def update_err(snap, ref_params):
+        num = sum(float(torch.linalg.vector_norm(
+            snap[k] - (v.detach() - p0[k])) ** 2) for k, v in
+            ref_params.items())
+        den = sum(float(torch.linalg.vector_norm(v.detach() - p0[k]) ** 2)
+                  for k, v in ref_params.items())
+        return math.sqrt(num / den)
+
+    ref = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
+    require(ref.mesh is None, "the reference trainer took a mesh")
+    errs = []
+    for i in range(MESH_STEPS):
+        m = ref.train_step(batch, noises[i])
+        e = dict(loss=rel(runs[i]["loss"], m["loss"].item()),
+                 grad_norm=rel(runs[i]["grad_norm"], m["grad_norm"].item()))
+        if i in snap_at:
+            e["update"] = update_err(snaps[i], ref.params)
+        errs.append(e)
+    del ref
+    rolled = [Noise(*(None if x is None else torch.roll(x, 1, 0)
+                      for x in noises[0][0]))]
+    ctl = Trainer(cfg, tc, device="cuda", log_dir=log_dir, use_wandb=False)
+    m = ctl.train_step(batch, rolled)
+    control = dict(loss=rel(runs[0]["loss"], m["loss"].item()),
+                   grad_norm=rel(runs[0]["grad_norm"], m["grad_norm"].item()),
+                   update=update_err(snaps[0], ctl.params))
+    del ctl, snaps, p0
+    times = [r["s"] for r in runs[1:]]
+    res = dict(group=group, batch=TRAIN_BATCH, res=TRAIN_RES, blocks=nb,
+               steps=runs, median_s_per_step=statistics.median(times),
+               idle_share=tr["idle_share"], trace=tr,
+               launches_per_step=runs[-1]["launches"],
+               errors=errs, control=control,
+               limits=dict(loss=MESH_LOSS_REL, update=MESH_UPDATE_REL_L2),
+               card=card, clocks_power=nvidia_smi(
+                   "clocks.sm,power.draw,power.limit,temperature.gpu"))
+    print("  train mesh", json.dumps(res), flush=True)
+    for i, e in enumerate(errs):
+        require(e["loss"] < MESH_LOSS_REL and e["grad_norm"] < MESH_LOSS_REL
+                and e.get("update", 0.0) < MESH_UPDATE_REL_L2,
+                f"mesh step {i} off the trainer without a group: {e}")
+    require(control["loss"] > MESH_LOSS_REL
+            and control["update"] > MESH_UPDATE_REL_L2,
+            f"the control (rolled noise) passed the mesh limits: {control}")
     return res
 
 
@@ -4145,6 +4303,12 @@ def main() -> int:
         train = phase_train(card, log_dir)
         phase_train_options(card, log_dir)
         phase_train_default_path(log_dir)
+
+        say("phase 11b: phase 11's training over a dp x fsdp x tp mesh of "
+            "one NCCL rank (sd3_torch.parallel), held to the trainer without "
+            "a group on the same seed, batch and noise, with a control",
+            flush=True)
+        phase_train_mesh(card, log_dir)
 
         say(f"phase 12: the CLIs at the published widths, {CLI_BLOCKS} "
             "blocks: train (2 steps, 8-bit moments, host EMA) -> six "

@@ -69,6 +69,7 @@ from sd3_torch.ops.norms import RMSNorm, layer_norm, linear
 from sd3_torch.ops.quant import make_linear
 from sd3_torch.ops.rope import (rope1d_angles, rope2d_axial_angles,
                                 rope2dv2_trig, rotate, rotate_v2)
+from sd3_torch.parallel.sharding import from_tp, to_tp
 
 INT8_QK_TOKENS = (1024, 2048)  # padded joint lengths that take K4
 INT8_PV_TOKENS = 2048          # int8 P.V only above this padded length
@@ -227,7 +228,14 @@ class JointAttention(nn.Module):
     docstring). `use_fused=False` keeps the general path even where the
     fused one applies (sd3_tpu/ops/attention.py:177-181: trainers pass it,
     for the real two-kernel flash VJP). `int8_pv` opts in to int8 P.V where
-    `int8_pv_on` allows it."""
+    `int8_pv_on` allows it.
+
+    Under tensor parallelism (parallel/sharding.py `TrainMesh.apply_tp`)
+    the general path holds this tp rank's heads: `num_heads` is the local
+    count, `tp_group` the tp ranks, and the inputs enter and the out-
+    projections leave through `to_tp` / `from_tp`."""
+
+    tp_group = None
 
     def __init__(self, dim: int, num_heads: int = 8,
                  attn_type: str = "softmax_flash", causal: bool = False,
@@ -257,7 +265,8 @@ class JointAttention(nn.Module):
         self.attn_type, self.causal, self.dual = attn_type, causal, dual
         self.kv_merge_attn = kv_merge_attn
         self.dim = dim
-        self.num_heads = num_heads
+        self.num_heads = num_heads   # this tp rank's heads under a mesh
+        self.hd = hd
         self.positional_encoding = positional_encoding
         self.rope_scale = rope_scale
         self.rope2d_interpolate = rope2d_interpolate
@@ -422,7 +431,7 @@ class JointAttention(nn.Module):
         q = heads(linear(t, getattr(self, "query_proj" + sfx)), self.hd_qk)
         k = heads(linear(t, getattr(self, "key_proj" + sfx)), self.hd_qk)
         v = heads(linear(t, getattr(self, "value_proj" + sfx)),
-                  self.dim // self.num_heads)
+                  self.hd)
         if self.attn_type in SOFTMAX_TYPES:
             q = getattr(self, "q_norm" + sfx)(q)
             k = getattr(self, "k_norm" + sfx)(k)
@@ -442,6 +451,9 @@ class JointAttention(nn.Module):
             x = _adaln(x, tail["shift_x"], tail["scale_x"])
             if self.dual:
                 c = _adaln(c, tail["shift_c"], tail["scale_c"])
+        tp = self.tp_group
+        x = to_tp(x, tp)
+        c = None if c is None else to_tp(c, tp)
         b, n, _ = x.shape
         nh = self.num_heads
 
@@ -461,16 +473,17 @@ class JointAttention(nn.Module):
         attn = attention_core(q, k, v, self.attn_type, self.scale,
                               causal=self.causal,
                               norm_const=getattr(self, "norm_const", None))
+        out = lambda t, proj: from_tp(linear(t, proj), tp)
         if not self.dual:
-            return linear(unheads(attn), self.out_proj)
-        out_x = linear(unheads(attn[:, :, :n]), self.out_proj_x)
+            return out(unheads(attn), self.out_proj)
+        out_x = out(unheads(attn[:, :, :n]), self.out_proj_x)
         out_c = unheads(attn[:, :, n:])
         if tail is not None:
             out_x = _gate_res(out_x, tail["gate_x"], tail["res_x"])
             if self.last:
                 return out_x, tail["res_c"]
-            return out_x, _gate_res(linear(out_c, self.out_proj_c),
+            return out_x, _gate_res(out(out_c, self.out_proj_c),
                                     tail["gate_c"], tail["res_c"])
         if not self.last:
-            out_c = linear(out_c, self.out_proj_c)
+            out_c = out(out_c, self.out_proj_c)
         return out_x, out_c

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from sd3_torch.ops.fused_mlp import fused_swiglu_int8
 from sd3_torch.ops.norms import linear
 from sd3_torch.ops.quant import make_linear
+from sd3_torch.parallel.sharding import from_tp, to_tp
 
 
 def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = (),
@@ -46,8 +47,24 @@ def fused_mlp_ok(quant: str, hidden: int, quant_skip: tuple = (),
 MLP_TYPES = ("swiglu", "swiglu_old", "gelu")
 
 
+def _row_parallel(x: torch.Tensor, layer: nn.Module, group) -> torch.Tensor:
+    """`linear(x, layer)` of a layer whose input columns are split over the
+    tp `group`: the partial products summed over it, then the bias, once."""
+    if group is None:
+        return linear(x, layer)
+    y = from_tp(F.linear(x, layer.weight.to(x.dtype)), group)
+    return y if layer.bias is None else y + layer.bias.to(x.dtype)
+
+
 class SwiGLU(nn.Module):
-    """y = w3(silu(w12(x)[..., :h]) * w12(x)[..., h:])."""
+    """y = w3(silu(w12(x)[..., :h]) * w12(x)[..., h:]).
+
+    Under tensor parallelism (parallel/sharding.py `TrainMesh.apply_tp`)
+    w12 holds this tp rank's rows of both halves, so that the local
+    `chunk(2)` pairs them, and w3 the matching columns; `hidden` is the
+    local width and `tp_group` the tp ranks."""
+
+    tp_group = None
 
     def __init__(self, dim: int, hidden: int, quant: str = "none",
                  quant_skip: tuple = (), fused_mlp: bool = True,
@@ -82,8 +99,8 @@ class SwiGLU(nn.Module):
         if shift is not None or gate is not None or residual:
             raise ValueError("the block-tail arguments need the int8 SwiGLU "
                              "kernels (fused_ok)")
-        x1, x2 = linear(x, self.w12).chunk(2, dim=-1)
-        return linear(F.silu(x1) * x2, self.w3)
+        x1, x2 = linear(to_tp(x, self.tp_group), self.w12).chunk(2, dim=-1)
+        return _row_parallel(F.silu(x1) * x2, self.w3, self.tp_group)
 
 
 class MLP(SwiGLU):
@@ -130,4 +147,5 @@ class MLP(SwiGLU):
         if shift is not None or gate is not None or residual:
             raise ValueError("the block-tail arguments need the swiglu int8 "
                              "path")
-        return linear(F.gelu(linear(x, self.lin_up)), self.lin_down)
+        h = F.gelu(linear(to_tp(x, self.tp_group), self.lin_up))
+        return _row_parallel(h, self.lin_down, self.tp_group)

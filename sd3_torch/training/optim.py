@@ -23,6 +23,12 @@ device to know them.
   under QMIN values in bf16; `dequantize_8bit` / `quantize_8bit` go to and
   from the canonical bf16 `AdamWLowMemState`.
 
+Over a mesh (parallel/sharding.py) each rank runs the same arithmetic on
+its shards: the clip takes the whole gradient's norm (`norm`, the mesh's
+`global_norm`), and the 8-bit blocks stay the whole leaf's (`blocks`: each
+shard value keeps the id of its JAX-layout block, and a block's absmax is a
+max over the ranks), so every mesh gives the one-process moments.
+
 These are XLA in the JAX package, not Pallas kernels, so plain PyTorch is
 their port: `torch._foreach_*` passes over groups of leaves, which bound the
 fp32 temporaries (the 8-bit update goes a leaf at a time). They update the
@@ -134,12 +140,14 @@ def _low_mem_step(g, mu, nu, p, scale, b1, b2, eps, weight_decay, bc1, bc2):
 
 def fused_adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
                         weight_decay=0.01, state_dtype=torch.bfloat16,
-                        clip_norm=None):
+                        clip_norm=None, norm=global_norm_f32):
     """Single-pass AdamW over the parameter dict, bf16 moments, fp32 math,
     applied in place. Returns (init, update):
       init(params)                 -> AdamWLowMemState
       update(grads, state, params) -> (params, new state, grad norm)
-    `params` are updated in place and returned; the state's moments too."""
+    `params` are updated in place and returned; the state's moments too.
+    `norm`: the gradient's global norm (over a mesh, `TrainMesh.global_norm`
+    of the shards)."""
 
     def init(params):
         return AdamWLowMemState(0, _zeros_like(params, state_dtype),
@@ -149,7 +157,7 @@ def fused_adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
     def update(grads, state, params):
         count = state.count + 1
         lr = learning_rate(count) if callable(learning_rate) else learning_rate
-        gnorm = global_norm_f32(grads)
+        gnorm = norm(grads)
         scale = _clip_scale(gnorm, clip_norm)
         bc1, bc2 = _bias_corrections(b1, b2, count)
         for names in leaf_groups(list(params), params):
@@ -169,7 +177,8 @@ def fused_adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
 
 def adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
                   weight_decay=0.01, state_dtype=torch.bfloat16,
-                  clip_norm=None) -> GradientTransformation:
+                  clip_norm=None, norm=global_norm_f32
+                  ) -> GradientTransformation:
     """AdamW with bf16 moments as a transformation: update returns the
     updates (-lr * step, in each parameter's dtype) and the new state; the
     moments are replaced in place. `clip_norm` is folded in, as
@@ -184,7 +193,7 @@ def adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
     def update(grads, state, params):
         count = state.count + 1
         lr = learning_rate(count) if callable(learning_rate) else learning_rate
-        scale = (_clip_scale(global_norm_f32(grads), clip_norm)
+        scale = (_clip_scale(norm(grads), clip_norm)
                  if clip_norm is not None else 1.0)
         bc1, bc2 = _bias_corrections(b1, b2, count)
         updates = {}
@@ -202,17 +211,18 @@ def adamw_low_mem(learning_rate, b1=0.9, b2=0.999, eps=1e-8,
     return GradientTransformation(init, update)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        norm=global_norm_f32) -> dict:
     """optax.clip_by_global_norm: g where ‖g‖ < max_norm, else
     (g / ‖g‖) * max_norm."""
-    g_norm = global_norm_f32(grads)
+    g_norm = norm(grads)
     trigger = g_norm < max_norm
     return {k: torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm)
             for k, g in grads.items()}
 
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-          clip_norm=None) -> GradientTransformation:
+          clip_norm=None, norm=global_norm_f32) -> GradientTransformation:
     """`optax.chain(optax.clip_by_global_norm(clip_norm), optax.adamw(...))`
     (no clip when clip_norm is None): fp32 moments; mu, nu and the bias
     corrections at count + 1 as scale_by_adam; the learning rate at the count
@@ -225,7 +235,7 @@ def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
     @torch.no_grad()
     def update(grads, state, params):
         if clip_norm is not None:
-            grads = clip_by_global_norm(grads, clip_norm)
+            grads = clip_by_global_norm(grads, clip_norm, norm)
         lr = (learning_rate(state.count) if callable(learning_rate)
               else learning_rate)
         count = state.count + 1
@@ -273,7 +283,9 @@ F8MAX = 448.0    # the largest finite float8_e4m3fn
 class Adam8bitState(NamedTuple):
     """Per leaf: `*_q` the fp8-e4m3 moments (n_blocks, QBLOCK) and `*_s`
     their fp32 block scales (n_blocks, 1); a leaf under QMIN values keeps
-    bf16 moments shaped like it, with an empty (0,) scale."""
+    bf16 moments shaped like it, with an empty (0,) scale. Over a mesh
+    (`blocks`) the fp8 moments are shaped like the rank's shard and the
+    scales are those of all the leaf's blocks, (n_blocks,)."""
     count: int
     mu_q: dict
     mu_s: dict
@@ -281,8 +293,9 @@ class Adam8bitState(NamedTuple):
     nu_s: dict
 
 
-def _small(p: torch.Tensor) -> bool:
-    return p.numel() < QMIN
+def _numel(n: str, p: torch.Tensor, blocks) -> int:
+    """The whole leaf's number of values (p may be a shard)."""
+    return p.numel() if blocks is None else blocks.numel(n)
 
 
 def _blockify(name: str, x32: torch.Tensor) -> torch.Tensor:
@@ -311,25 +324,60 @@ def _dq8(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     return q.float() * s
 
 
+class _Blocks:
+    """A leaf's moments in its JAX-layout blocks: whole (n_blocks, QBLOCK)
+    rows without a mesh; over a mesh (`blocks`, a `TrainMesh`) each value
+    of the rank's shard with the id of its block, the block scales taken
+    over every rank, so that each block and its scale are the one-process
+    optimizer's."""
+
+    def __init__(self, name: str, like: torch.Tensor, blocks):
+        self.name, self.like, self.mesh = name, like, blocks
+        self.nb = -(-_numel(name, like, blocks) // QBLOCK)
+        self.bid = None if blocks is None else blocks.block_ids(name, QBLOCK)
+
+    def to_blocks(self, x32):
+        return _blockify(self.name, x32) if self.mesh is None else x32
+
+    def from_blocks(self, xb):
+        return (_unblockify(self.name, xb, self.like) if self.mesh is None
+                else xb)
+
+    def dq(self, q, s):
+        return _dq8(q, s) if self.mesh is None else q.float() * s[self.bid]
+
+    def q(self, xb):
+        if self.mesh is None:
+            return _q8(xb)
+        s = torch.clamp(self.mesh.block_absmax(self.bid, xb, self.nb),
+                        min=1e-20) / F8MAX
+        return (xb / s[self.bid]).to(torch.float8_e4m3fn), s
+
+
 def adamw_8bit(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-               clip_norm=None):
+               clip_norm=None, norm=global_norm_f32, blocks=None):
     """AdamW with blockwise fp8-e4m3 moments (sd3_tpu/training/optim.py
     adamw_8bit), fp32 math, applied in place. Returns (init, update):
       init(params)                 -> Adam8bitState
-      update(grads, state, params) -> (params, new state, grad norm)"""
+      update(grads, state, params) -> (params, new state, grad norm)
+    `norm` as `fused_adamw_low_mem`'s; `blocks`: the `TrainMesh` whose
+    shards `params` are (the blocks and their scales stay those of the
+    whole leaf), or None."""
 
     def init(params):
         zq, zs = {}, {}
         for n, p in params.items():
-            if _small(p):
+            if _numel(n, p, blocks) < QMIN:
                 zq[n] = torch.zeros(p.shape, dtype=torch.bfloat16,
                                     device=p.device)
                 zs[n] = torch.zeros(0, device=p.device)
             else:
-                nb = -(-p.numel() // QBLOCK)
-                zq[n] = torch.zeros((nb, QBLOCK), dtype=torch.float8_e4m3fn,
+                nb = -(-_numel(n, p, blocks) // QBLOCK)
+                qshape = (nb, QBLOCK) if blocks is None else p.shape
+                zq[n] = torch.zeros(qshape, dtype=torch.float8_e4m3fn,
                                     device=p.device)
-                zs[n] = torch.zeros((nb, 1), device=p.device)
+                zs[n] = torch.zeros((nb, 1) if blocks is None else nb,
+                                    device=p.device)
         clone = lambda d: {k: v.clone() for k, v in d.items()}
         return Adam8bitState(0, zq, zs, clone(zq), clone(zs))
 
@@ -337,7 +385,7 @@ def adamw_8bit(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
     def update(grads, state, params):
         count = state.count + 1
         lr = learning_rate(count) if callable(learning_rate) else learning_rate
-        gnorm = global_norm_f32(grads)
+        gnorm = norm(grads)
         scale = _clip_scale(gnorm, clip_norm)
         c1, c2 = _bias_corrections(b1, b2, count)
         mu_q, mu_s, nu_q, nu_s = (dict(d) for d in state[1:])
@@ -351,26 +399,29 @@ def adamw_8bit(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
                     + weight_decay * pf
                 mu_q[n], nu_q[n] = mu.bfloat16(), nu.bfloat16()
             else:
-                gb = _blockify(n, gf)
-                mu = b1 * _dq8(mu_q[n], mu_s[n]) + (1 - b1) * gb
-                nu = b2 * _dq8(nu_q[n], nu_s[n]) + (1 - b2) * gb * gb
+                bk = _Blocks(n, p, blocks)
+                gb = bk.to_blocks(gf)
+                mu = b1 * bk.dq(mu_q[n], mu_s[n]) + (1 - b1) * gb
+                nu = b2 * bk.dq(nu_q[n], nu_s[n]) + (1 - b2) * gb * gb
                 step_b = (mu / c1) / (torch.sqrt(nu / c2) + eps)
-                step = _unblockify(n, step_b, p) + weight_decay * pf
-                mu_q[n], mu_s[n] = _q8(mu)
-                nu_q[n], nu_s[n] = _q8(nu)
+                step = bk.from_blocks(step_b) + weight_decay * pf
+                mu_q[n], mu_s[n] = bk.q(mu)
+                nu_q[n], nu_s[n] = bk.q(nu)
             p.copy_(pf - lr * step)
         return params, Adam8bitState(count, mu_q, mu_s, nu_q, nu_s), gnorm
 
     return init, update
 
 
-def dequantize_8bit(state: Adam8bitState, params: dict) -> AdamWLowMemState:
+def dequantize_8bit(state: Adam8bitState, params: dict, blocks=None
+                    ) -> AdamWLowMemState:
     """Adam8bitState -> the canonical bf16 AdamWLowMemState, leaves shaped
-    like `params`."""
+    like `params` (over a mesh, `blocks`, the rank's shards)."""
     def dq(q, s, n):
         if s.numel() == 0:
             return q
-        return _unblockify(n, _dq8(q, s), params[n]).bfloat16()
+        bk = _Blocks(n, params[n], blocks)
+        return bk.from_blocks(bk.dq(q, s)).bfloat16()
 
     return AdamWLowMemState(
         state.count,
@@ -378,7 +429,8 @@ def dequantize_8bit(state: Adam8bitState, params: dict) -> AdamWLowMemState:
         {n: dq(state.nu_q[n], state.nu_s[n], n) for n in params})
 
 
-def quantize_8bit(state: AdamWLowMemState, params: dict) -> Adam8bitState:
+def quantize_8bit(state: AdamWLowMemState, params: dict, blocks=None
+                  ) -> Adam8bitState:
     """The inverse of `dequantize_8bit` (an 8-bit trainer resuming from the
     canonical artifact)."""
     qs = {}
@@ -387,10 +439,11 @@ def quantize_8bit(state: AdamWLowMemState, params: dict) -> Adam8bitState:
         q, s = {}, {}
         for n, p in params.items():
             m = torch.as_tensor(tree[n]).to(p.device)
-            if _small(p):
+            if _numel(n, p, blocks) < QMIN:
                 q[n], s[n] = m.bfloat16(), torch.zeros(0, device=p.device)
             else:
-                q[n], s[n] = _q8(_blockify(n, m.float()))
+                bk = _Blocks(n, p, blocks)
+                q[n], s[n] = bk.q(bk.to_blocks(m.float()))
         qs[key] = (q, s)
     return Adam8bitState(int(state.count), *qs["mu"], *qs["nu"])
 
@@ -414,12 +467,14 @@ def to_artifact(state, params: dict):
     return moments
 
 
-def from_artifact(art: dict, live, params: dict, patch_size: int = 2):
+def from_artifact(art: dict, live, params: dict, patch_size: int = 2,
+                  mesh=None):
     """The optimizer state of the artifact `art` (a state dict,
     `checkpoint.load_artifact`) in the form of `live`, the trainer's own
     state: AdamWState from the optax form; AdamWLowMemState or (quantized)
     Adam8bitState from the canonical bf16 form. The moments go to `live`'s
-    devices and dtypes."""
+    devices and dtypes; over a `mesh` (a `TrainMesh`), this rank's shards
+    of them."""
     optax_form = "count" not in art
     if optax_form != isinstance(live, AdamWState):
         raise ValueError(
@@ -432,8 +487,11 @@ def from_artifact(art: dict, live, params: dict, patch_size: int = 2):
     count = int(moments["count"])
     mu, nu = (state_dict_from_jax(moments[k], patch_size)
               for k in ("mu", "nu"))
+    if mesh is not None:
+        mu, nu = ({k: mesh.shard(k, v) for k, v in d.items()}
+                  for d in (mu, nu))
     if isinstance(live, Adam8bitState):
-        return quantize_8bit(AdamWLowMemState(count, mu, nu), params)
+        return quantize_8bit(AdamWLowMemState(count, mu, nu), params, mesh)
     place = lambda d, like: {k: d[k].to(like[k].device, like[k].dtype)
                              for k in like}
     return type(live)(count, place(mu, live.mu), place(nu, live.nu))

@@ -22,9 +22,21 @@ into --saveDir.
 the JAX package (models/mmdit.py). A loaded checkpoint's config may be any
 model variant; --text_loss_weight W > 0 trains a `text_loss` model's text
 head beside the velocity (a model without it ignores the weight, as the
-JAX trainer does). Still queued (ROADMAP.md, port queue),
-raising NotImplementedError: multi-host and meshes (--multihost, --dp /
---fsdp / --tp past 1).
+JAX trainer does).
+
+Multi-process (`--multihost`): one process per device, each running this
+same command; `parallel.multihost.initialize` makes the process group
+(NCCL on the card, gloo with --device cpu) from --coordinator_address /
+--num_processes / --process_id, or from torchrun's environment:
+  torchrun --nproc_per_node N -m sd3_torch.training.train --multihost
+      --dp D --fsdp F --tp T ...  (the flags continue one line)
+and each process trains on cuda:LOCAL_RANK over the dp x fsdp x tp mesh
+(parallel/, training/trainer.py). --batchSize is the global micro-batch:
+each data rank (dp x fsdp; the tp ranks of a data group load the same rows)
+loads batchSize / (dp * fsdp) rows with the data seed seed + data rank, and
+the parquet feed shares one bucket sequence (bucket_seed = seed) with each
+bucket's rows split by data rank. --dp / --fsdp / --tp that do not cover
+the world (a world of one without --multihost) are refused.
 
 Published stage hyperparameters (reference train.py:9-80 / README.md:209-291):
   stage1: 256px  batch 140/chip-equivalent  acc 2
@@ -35,10 +47,8 @@ Published stage hyperparameters (reference train.py:9-80 / README.md:209-291):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
-
-_QUEUE = "is not ported yet: ROADMAP.md, port queue"
-
 
 def build_argparser():
     p = argparse.ArgumentParser(description=__doc__)
@@ -118,21 +128,17 @@ def build_argparser():
     return p
 
 
-def _refuse_queued(args) -> None:
-    """Raise for the options whose modules are still queued."""
-    queued = [
-        (args.multihost, "--multihost", "'parallel/'"),
-        (args.dp > 1 or args.fsdp > 1 or args.tp > 1,
-         "--dp / --fsdp / --tp past 1 (a mesh)", "'parallel/'"),
-    ]
-    for on, what, item in queued:
-        if on:
-            raise NotImplementedError(f"{what} {_QUEUE}, {item}")
-
-
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    _refuse_queued(args)
+    from sd3_torch.parallel import MeshConfig, multihost
+    mesh = MeshConfig(args.dp, args.fsdp, args.tp)
+    device = args.device
+    if args.multihost:
+        device = multihost.initialize(args.coordinator_address,
+                                      args.num_processes, args.process_id,
+                                      device=args.device)
+    else:
+        mesh.resolve(1)   # a mesh past one device needs --multihost
     from sd3_torch.config import published_config, tiny_config
     from sd3_torch.data.pipeline import synthetic_batch_iter
     from sd3_torch.training import checkpoint as ckpt
@@ -181,31 +187,45 @@ def main(argv=None):
         remat_policy=args.remat_policy,
         remat_blocks=not args.no_remat,
         log_steps=args.log_steps, num_save_steps=args.numSaveSteps,
-        save_dir=args.saveDir, seed=args.seed,
+        save_dir=args.saveDir, seed=args.seed, mesh=mesh,
     )
-    trainer = Trainer(cfg, tcfg, params=params, ema=ema, device=args.device,
+    trainer = Trainer(cfg, tcfg, params=params, ema=ema, device=device,
                       wandb_name=args.wandb_name)
     if args.loadDir and args.loadStep and not args.reset_optim:
         if os.path.exists(os.path.join(
                 args.loadDir, f"optim_{args.loadStep}s.msgpack")):
             trainer.restore_optimizer(args.loadDir, args.loadStep)
 
+    # each data rank loads its rows of the global batch (the tp ranks of a
+    # data group the same ones)
+    rank, n_data = ((0, 1) if trainer.mesh is None else
+                    (trainer.mesh.data_rank, trainer.mesh.n_data))
+    if tcfg.batch_size % n_data:
+        raise ValueError(f"--batchSize {tcfg.batch_size} does not split over "
+                         f"{n_data} data ranks")
+    local_bs, local_seed = tcfg.batch_size // n_data, args.seed + rank
     if args.synthetic or not args.data_parquet_folder:
-        it = synthetic_batch_iter(cfg, tcfg.batch_size,
-                                  tcfg.accumulation_steps, args.stage_res,
-                                  args.stage_res, seed=args.seed)
+        it = synthetic_batch_iter(cfg, local_bs, tcfg.accumulation_steps,
+                                  args.stage_res, args.stage_res,
+                                  seed=local_seed)
     else:
         from sd3_torch.data.encoded import (encoded_batch_iter,
                                             prefetch_iterator)
-        # one process: the multi-host arguments keep their one-process
-        # values (no shared bucket_seed, shard 0 of 1)
-        it = encoded_batch_iter(cfg, tcfg, args.data_parquet_folder,
+        # over a mesh one bucket sequence (the same batch shapes on every
+        # rank), each bucket's rows split by data rank
+        it = encoded_batch_iter(cfg, dataclasses.replace(
+                                    tcfg, batch_size=local_bs),
+                                args.data_parquet_folder,
                                 args.bucket_indices_path,
                                 stub=args.stub_encoders,
                                 weights_dir=args.encoder_weights,
                                 ring_workers=args.ring_workers,
-                                seed=args.seed, num_threads=args.data_threads,
-                                device=args.device)
+                                seed=local_seed,
+                                num_threads=args.data_threads,
+                                bucket_seed=(None if trainer.mesh is None
+                                             else args.seed),
+                                shard_index=rank, shard_count=n_data,
+                                device=trainer.device)
         if args.prefetch_batches > 0:
             # decode, the encoders' launches and the placement of group N+1
             # overlap step N
@@ -221,6 +241,9 @@ def main(argv=None):
     if trainer.saved_step != final_step:  # train() saved this step already
         trainer.save()
     print(f"training done at step {final_step}")
+    if args.multihost:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return trainer
 
 

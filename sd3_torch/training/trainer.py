@@ -56,8 +56,28 @@ As in the JAX package:
   with weight 0 is refused: the JAX step would take its (velocity, text)
   pair for the velocity.
 
-Not ported yet, and raising NotImplementedError with the ROADMAP.md item:
-meshes.
+Over a mesh (`TrainConfig.mesh`, a `parallel.MeshConfig`, with a process
+group made by `parallel.multihost.initialize`), one process per device, as
+the JAX trainer's GSPMD step (sd3_tpu/training/trainer.py:424-468, 563-606,
+757-767) but with the layouts of parallel/sharding.py written out:
+- the model is built whole and initialized (or loaded) alike on every rank,
+  then cut to this rank's tp part (`TrainMesh.apply_tp`);
+- under fsdp the fp32 masters, the EMA and the optimizer moments are this
+  rank's shards, all-gathered into the model's parameters at the start of
+  each step (in bf16 under precast);
+- `shard_batch` keeps this data rank's rows of a global batch (a batch of
+  `batch_size` rows); every rank draws the whole global micro-batch's noise
+  from the shared `seed` generator and keeps its rows, so any mesh gives the
+  one-process step's numbers and the generators stay in step (a given
+  `noise` is the global draw);
+- the gradients are averaged over the data ranks (dp x fsdp) in fp32, the
+  clip takes the whole gradient's norm, and the metrics are reduced, so
+  every rank returns the global loss and grad norm;
+- `save()` gathers whole tensors on every rank and the main process alone
+  writes the six artifacts; `restore_optimizer` loads into the shards;
+  wandb and the metrics file are the main process's; `ema_on_host` takes a
+  world of one (the JAX trainer asserts one process).
+Without a process group the default MeshConfig() is the one-device path.
 """
 
 from __future__ import annotations
@@ -69,20 +89,23 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sd3_torch import resolve_device, to_device, torch_dtype
 from sd3_torch.config import MMDiTConfig
 from sd3_torch.models.mmdit import MMDiT, from_scan_params, to_scan_params
+from sd3_torch.parallel.mesh import MeshConfig, make_mesh
+from sd3_torch.parallel.multihost import is_main_process
+from sd3_torch.parallel.sharding import TrainMesh
 from sd3_torch.training import checkpoint, flow
-from sd3_torch.training.optim import (GradientTransformation, adamw,
-                                      adamw_8bit, adamw_low_mem,
-                                      apply_updates, from_artifact,
-                                      fused_adamw_low_mem, global_norm_f32,
-                                      leaf_groups, to_artifact)
+from sd3_torch.training.optim import (Adam8bitState, GradientTransformation,
+                                      adamw, adamw_8bit, adamw_low_mem,
+                                      apply_updates, dequantize_8bit,
+                                      from_artifact, fused_adamw_low_mem,
+                                      global_norm_f32, leaf_groups,
+                                      to_artifact)
 from sd3_torch.utils.logging import MetricsLogger
 from sd3_torch.weights import jax_tree_from_state_dict
-
-_QUEUE = "is not ported yet: ROADMAP.md, port queue"
 
 
 @dataclasses.dataclass
@@ -119,8 +142,8 @@ class TrainConfig:
     scan_blocks: bool = False
     save_dir: str = "checkpoints/run"
     seed: int = 0
-    # the JAX MeshConfig; one device only here (ROADMAP.md, 'parallel/')
-    mesh: object = None
+    # over the process group, when there is one (see the module note)
+    mesh: MeshConfig = MeshConfig()
 
 
 # ---- learning-rate schedules: optax's, in fp32 as optax computes them ----
@@ -179,14 +202,16 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return _join_schedules([warm, lambda count: lr], [cfg.warmup_steps])
 
 
-def make_optimizer(cfg: TrainConfig) -> GradientTransformation:
-    """adamw_low_mem with the clip folded in, or the optax chain."""
+def make_optimizer(cfg: TrainConfig, norm=global_norm_f32
+                   ) -> GradientTransformation:
+    """adamw_low_mem with the clip folded in, or the optax chain; `norm`
+    the gradient's global norm."""
     if cfg.low_mem_optimizer:
         return adamw_low_mem(make_lr_schedule(cfg), b1=0.9, b2=0.999,
                              eps=1e-8, weight_decay=0.01,
-                             clip_norm=cfg.grad_clip)
+                             clip_norm=cfg.grad_clip, norm=norm)
     return adamw(make_lr_schedule(cfg), b1=0.9, b2=0.999, eps=1e-8,
-                 weight_decay=0.01, clip_norm=cfg.grad_clip)
+                 weight_decay=0.01, clip_norm=cfg.grad_clip, norm=norm)
 
 
 class Noise(NamedTuple):
@@ -206,12 +231,15 @@ class Noise(NamedTuple):
 
 
 def draw_noise(generator: torch.Generator, x0: torch.Tensor,
-               tcfg: TrainConfig, text_shape=None) -> Noise:
-    """t, ε and the null masks of one micro-batch, in the JAX draw order;
-    with `text_shape` (B, S) the text mask too."""
-    b = x0.shape[0]
+               tcfg: TrainConfig, text_shape=None,
+               batch: int | None = None) -> Noise:
+    """t, ε and the null masks of one micro-batch, in the JAX draw order,
+    for `batch` rows (default x0's) shaped like x0's; with `text_shape`
+    (B, S) the text mask too."""
+    b = x0.shape[0] if batch is None else batch
     t = flow.sample_t(generator, b)
-    _, eps = flow.noise_batch(generator, x0, t)
+    eps = torch.randn((b, *x0.shape[1:]), generator=generator,
+                      device=x0.device, dtype=x0.dtype)
     masks = flow.null_masks(generator, b, tcfg.null_prob_pooled,
                             tcfg.null_prob_gemma, tcfg.null_prob_bert)
     text_mask = (None if text_shape is None
@@ -284,19 +312,27 @@ def _cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> dict:
 
 
 class Trainer:
-    """The step loop, the optimizer, the EMA and logging, on one device.
+    """The step loop, the optimizer, the EMA and logging, on one device, or
+    on this rank's device of a mesh (see the module note).
 
     `params`: a state_dict of the model (fp32 masters), or None for seeded
     random weights (`MMDiT.init_weights` from `tcfg.seed`); `opt_state` and
-    `ema`: states to start from (dicts keyed like `params`). The model
-    lives on `device`, "cuda" unless the caller asks for the CPU."""
+    `ema`: states to start from (dicts keyed like `params`, whole leaves).
+    The model lives on `device`, "cuda" unless the caller asks for the
+    CPU."""
 
     def __init__(self, cfg: MMDiTConfig, tcfg: TrainConfig, params=None,
                  device="cuda", log_dir: str | None = None,
                  wandb_name: str | None = None, use_wandb: bool = True,
                  opt_state=None, ema=None):
-        if tcfg.mesh is not None:
-            raise NotImplementedError(f"a mesh, 'parallel/' {_QUEUE}")
+        grouped = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if grouped else 1
+        mesh_cfg = tcfg.mesh if tcfg.mesh is not None else MeshConfig()
+        mesh_cfg.resolve(world)   # raises when it does not cover the world
+        if tcfg.ema_on_host and world > 1:
+            raise ValueError("ema_on_host takes one process: the EMA's "
+                             "shards are on the devices of a mesh (use the "
+                             "device EMA)")
         fused = tcfg.fused_optimizer or tcfg.moments_8bit
         if fused and not tcfg.low_mem_optimizer:
             raise ValueError("fused_optimizer implies bf16-moment AdamW "
@@ -323,6 +359,15 @@ class Trainer:
             self.model.load_state_dict(
                 to_scan_params(params, self._num_scan, self.model.scan_pair)
                 if self._num_scan else params, strict=True)
+        self.mesh = None
+        if grouped:
+            shapes = {k: v.shape for k, v in
+                      self.model.canonical_parameters().items()}
+            self.mesh = TrainMesh(make_mesh(mesh_cfg, self.device.type),
+                                  shapes, cfg.num_heads, self.device)
+            self.mesh.apply_tp(self.model)
+        # under fsdp the masters are shards, gathered into the model
+        self._gather = self.mesh is not None and self.mesh.sharded
 
         self._split = tcfg.split_accumulation and tcfg.accumulation_steps > 1
         self._precast = (tcfg.precast_params and tcfg.bf16_grads
@@ -339,12 +384,20 @@ class Trainer:
             {k: v.detach() for k, v in self._masters.items()}
             if self._num_scan else self._masters)
         self._compute = dict(self.model.named_parameters())
+        if self._gather:
+            self._params = {k: self.mesh.fsdp_shard(k, v.detach().float())
+                            for k, v in self._params.items()}
+            self._masters = None
+            with torch.no_grad():
+                self._compute_views = self._canonical(self._compute)
 
         self.ema = None
         self._ema_host = None
         self._ema_thread = None
         if tcfg.track_ema:
-            init = ema if ema is not None else self._params
+            init = self._params
+            if ema is not None:   # the host EMA takes whole leaves as given
+                init = ema if tcfg.ema_on_host else self._local(ema)
             if tcfg.ema_on_host:
                 pin = self.device.type == "cuda"
                 self._ema_host = {k: _pinned_copy(v, pin)
@@ -357,22 +410,28 @@ class Trainer:
                     for k, v in init.items()}
 
         schedule = make_lr_schedule(tcfg)
+        self._norm = (global_norm_f32 if self.mesh is None
+                      else self.mesh.global_norm)
         if fused:
-            make = adamw_8bit if tcfg.moments_8bit else fused_adamw_low_mem
-            init_fn, self._fused_update = make(
-                schedule, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
-                clip_norm=tcfg.grad_clip)
+            kw = dict(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
+                      clip_norm=tcfg.grad_clip, norm=self._norm)
+            if tcfg.moments_8bit:
+                init_fn, self._fused_update = adamw_8bit(
+                    schedule, blocks=self.mesh, **kw)
+            else:
+                init_fn, self._fused_update = fused_adamw_low_mem(schedule,
+                                                                  **kw)
             self.optimizer = None
         else:
-            self.optimizer = make_optimizer(tcfg)
+            self.optimizer = make_optimizer(tcfg, self._norm)
             init_fn = self.optimizer.init
         self.opt_state = init_fn(self._params)
         if opt_state is not None:
             if tcfg.moments_8bit:
                 raise ValueError("an 8-bit trainer resumes through "
                                  "restore_optimizer (the canonical artifact)")
-            on_dev = lambda d: {k: torch.as_tensor(v).to(
-                self.device, self.opt_state.mu[k].dtype) for k, v in d.items()}
+            on_dev = lambda d: {k: v.to(self.opt_state.mu[k].dtype)
+                                for k, v in self._local(d).items()}
             self.opt_state = type(self.opt_state)(
                 int(opt_state.count), on_dev(opt_state.mu), on_dev(opt_state.nu))
 
@@ -380,24 +439,62 @@ class Trainer:
         self.saved_step = None   # the step of the last save()
         self.logger = MetricsLogger(log_dir or tcfg.save_dir,
                                     run_name=wandb_name, run_id=cfg.wandb_id,
-                                    use_wandb=use_wandb)
+                                    use_wandb=use_wandb,
+                                    main=is_main_process())
 
     @property
     def params(self) -> dict:
         """The fp32 master parameters, {state-dict name of the unrolled
-        model: tensor} (under scan_blocks, views of the stacks)."""
+        model: tensor} (under scan_blocks, views of the stacks; over a mesh,
+        this rank's shards: `gather` gives whole leaves)."""
         return self._params
+
+    def _local(self, tree: dict) -> dict:
+        """This rank's fp32 shards of a dict of whole leaves, on the
+        device (the leaves themselves without a mesh)."""
+        on_dev = {k: torch.as_tensor(v).detach().to(self.device,
+                                                    torch.float32)
+                  for k, v in tree.items()}
+        if self.mesh is None:
+            return on_dev
+        return {k: self.mesh.shard(k, v) for k, v in on_dev.items()}
+
+    def gather(self, tree: dict) -> dict:
+        """Whole leaves of a dict of this rank's shards (`params`,
+        `ema_state()`, a state's moments): a collective over the mesh,
+        every rank calling it; the dict itself without a mesh."""
+        return tree if self.mesh is None else self.mesh.gather_all(tree)
 
     def _canonical(self, d: dict) -> dict:
         """A dict in the model's layout by the unrolled model's names."""
         return (from_scan_params(d, self._num_scan, self.model.scan_pair)
                 if self._num_scan else d)
 
+    def _global_rows(self, n: int) -> bool:
+        """A batch axis of n rows is the global micro-batch, which this data
+        rank cuts to its rows (over a mesh of more than one data rank)."""
+        return (self.mesh is not None and self.mesh.n_data > 1
+                and n == self.tcfg.batch_size)
+
     def shard_batch(self, batch: dict) -> dict:
-        """Place a host batch (numpy arrays or tensors) on the trainer's
-        device: through pinned memory, without waiting, onto a card.
-        Tensors already there pass through."""
-        return {k: to_device(v, self.device) for k, v in batch.items()}
+        """Place a host batch (numpy arrays or tensors, the batch on axis 1)
+        on the trainer's device: through pinned memory, without waiting,
+        onto a card. Over a mesh a global batch (`batch_size` rows) is cut
+        to this data rank's rows first; a batch of its rows passes, as do
+        tensors already on the device."""
+        out = {}
+        for k, v in batch.items():
+            if self._global_rows(v.shape[1]):
+                v = self.mesh.rows(torch.as_tensor(v), 1)
+            out[k] = to_device(v, self.device)
+        return out
+
+    def _noise_rows(self, noise: Noise) -> Noise:
+        """This data rank's rows of a global draw (a local one passes)."""
+        if not self._global_rows(noise.t.shape[0]):
+            return noise
+        return Noise(*(None if x is None else self.mesh.rows(x)
+                       for x in noise))
 
     def _micro_grads(self, batch, noise, i):
         for p in self._compute.values():
@@ -413,9 +510,23 @@ class Trainer:
         """(gradient dict by the unrolled model's names, metrics) of one
         optimizer step on `batch` with the given draws, averaged over the
         micro-batches as the JAX train steps average them; no update is
-        made."""
+        made. Over a mesh `batch` and `noise` may be global (`shard_batch`),
+        the gradient is this rank's shard of the average over the data
+        ranks, in fp32, and the metrics are global."""
+        batch = self.shard_batch(batch)
+        noise = [self._noise_rows(n) for n in noise]
+        g, metrics = self._local_gradients(batch, noise)
+        if self.mesh is not None:
+            g = self.mesh.reduce_grads(g)
+            metrics = self.mesh.reduce_metrics(metrics)
+        return g, metrics
+
+    def _local_gradients(self, batch: dict, noise: list[Noise]):
+        """`gradients` of this rank's rows and model part."""
         tcfg = self.tcfg
-        if self._precast:
+        if self._gather:
+            self.mesh.gather_into(self._compute_views, self._params)
+        elif self._precast:
             with torch.no_grad():
                 torch._foreach_copy_(list(self._compute.values()),
                                      list(self._masters.values()))
@@ -449,12 +560,17 @@ class Trainer:
                    ) -> dict:
         """One optimizer step on `batch` (x0 (acc, B, C, H, W), text
         (acc, B, S, D), pooled (acc, B, P), on the device); `noise`: one
-        Noise per micro-batch, drawn from the trainer's generator when None.
+        Noise per micro-batch, drawn from the trainer's generator when None
+        (over a mesh the global micro-batch's draw, see the module note).
         Returns {"loss", "grad_norm"} as 0-d tensors on the device."""
+        batch = self.shard_batch(batch)
         if noise is None:
             text = uses_text_loss(self.cfg, self.tcfg)
+            rows = batch["x0"].shape[1] * (1 if self.mesh is None
+                                           else self.mesh.n_data)
             noise = [draw_noise(self.generator, x0, self.tcfg,
-                                text_shape=tx.shape[:2] if text else None)
+                                text_shape=(rows, tx.shape[1]) if text
+                                else None, batch=rows)
                      for x0, tx in zip(batch["x0"], batch["text"])]
         g, metrics = self.gradients(batch, noise)
         if self.optimizer is None:
@@ -464,7 +580,7 @@ class Trainer:
             updates, self.opt_state = self.optimizer.update(
                 g, self.opt_state, self._params)
             apply_updates(self._params, updates)
-            gnorm = global_norm_f32(g)
+            gnorm = self._norm(g)
         for p in self._compute.values():
             p.grad = None
         metrics["grad_norm"] = gnorm
@@ -544,25 +660,37 @@ class Trainer:
     def save(self) -> dict[str, str]:
         """Write the six artifacts of this step into tcfg.save_dir (the JAX
         package's checkpoint: the parameter and EMA trees, the optimizer
-        artifact, {"step": step}); returns the file names."""
+        artifact, {"step": step}); returns the file names. Over a mesh every
+        rank gathers whole tensors and the main process alone writes (the
+        others return {})."""
         ema = self.ema_state()
+        params, opt = self._params, self.opt_state
+        if self.mesh is not None:
+            if isinstance(opt, Adam8bitState):
+                opt = dequantize_8bit(opt, params, self.mesh)
+            opt = type(opt)(opt.count, self.gather(opt.mu),
+                            self.gather(opt.nu))
+            params = self.gather(params)
+            ema = None if ema is None else self.gather(ema)
+        self.saved_step = self.step
+        if not is_main_process():
+            return {}
         names = checkpoint.save_checkpoint(
-            self.tcfg.save_dir, self.cfg,
-            jax_tree_from_state_dict(self._params),
+            self.tcfg.save_dir, self.cfg, jax_tree_from_state_dict(params),
             ema_params=None if ema is None else jax_tree_from_state_dict(ema),
-            opt_state=to_artifact(self.opt_state, self._params),
+            opt_state=to_artifact(opt, params),
             scheduler_state={"step": self.step}, step=self.step,
             wandb_id=self.logger.run_id)
-        self.saved_step = self.step
         print(f"Saving model (step {self.step})")
         return names
 
     def restore_optimizer(self, load_dir: str, step: int):
         """Load optim_{step}s.msgpack, written by either package for the
-        same optimizer (an 8-bit trainer takes the canonical bf16 state)."""
+        same optimizer (an 8-bit trainer takes the canonical bf16 state),
+        into this rank's shards over a mesh."""
         art = checkpoint.load_artifact(load_dir, f"optim_{step}s.msgpack")
         self.opt_state = from_artifact(art, self.opt_state, self._params,
-                                       self.cfg.patch_size)
+                                       self.cfg.patch_size, mesh=self.mesh)
 
 
 def _pinned_copy(v, pin: bool) -> torch.Tensor:

@@ -115,14 +115,20 @@ def test_moments_8bit_resumes_from_a_bf16_run(tmp_path):
                   "--loadStep", "2", "--moments_8bit").step == 3
 
 
-def test_train_cli_refuses_the_queued_options(tmp_path):
-    # --scan_blocks, --remat_policy and --data_parquet_folder are ported
-    # (tests/test_torch_remat_scan.py); a mesh and multi-host still raise,
-    # and the feed refuses real encoders without a weights directory
-    for extra, what in ((["--dp", "2"], "mesh"), (["--tp", "2"], "mesh"),
-                        (["--multihost"], "multihost")):
-        with pytest.raises(NotImplementedError, match=what):
+def test_train_cli_refuses_the_queued_options(tmp_path, monkeypatch):
+    # --scan_blocks, --remat_policy, --data_parquet_folder and the mesh are
+    # ported (tests/test_torch_remat_scan.py, test_torch_parallel.py,
+    # test_torch_multihost.py); a mesh that does not cover the world (one
+    # process without --multihost) is refused as the trainer refuses it,
+    # --multihost without an address or torchrun's environment raises, and
+    # the feed refuses real encoders without a weights directory
+    for extra in (["--dp", "2"], ["--tp", "2"]):
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
             train.main(["--device", "cpu", *extra])
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="--coordinator_address.*torchrun"):
+        train.main(["--device", "cpu", "--multihost"])
     with pytest.raises(RuntimeError, match="--encoder_weights"):
         train.main(["--device", "cpu", "--data_parquet_folder",
                     str(tmp_path), "--saveDir", str(tmp_path)])

@@ -30,6 +30,7 @@ from sd3_torch.config import MMDiTConfig
 from sd3_torch.data.pipeline import synthetic_batch_iter
 from sd3_torch.models.mmdit import MMDiT
 from sd3_torch.ops import flash_attention as tfl
+from sd3_torch.parallel import MeshConfig
 from sd3_torch.training import flow, optim
 from sd3_torch.training import trainer as ttr
 from sd3_torch.training.trainer import Noise, TrainConfig, Trainer
@@ -517,22 +518,23 @@ def test_trainer_trains_logs_and_keeps_the_ema(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scan_blocks=True, qk_half_dim=True), dict(mesh=object()),
+    dict(scan_blocks=True, qk_half_dim=True), dict(mesh=MeshConfig(dp=2)),
     dict(text_loss=True)])
 def test_unported_training_options_raise(kw, tmp_path):
-    # the remat policies, scan_blocks (over "both" too) and the text loss
-    # are ported (tests/test_torch_remat_scan.py, test_torch_variants.py); a
-    # mesh still raises, and what JAX refuses raises a ValueError: qk_half_dim
-    # under softmax_flash (its flash wrapper's head-dim assert) and a
-    # text_loss model with text_loss_weight 0 (its step takes the model's
-    # (velocity, text) pair for the velocity)
+    # the remat policies, scan_blocks (over "both" too), the text loss and
+    # meshes are ported (tests/test_torch_remat_scan.py,
+    # test_torch_variants.py, test_torch_parallel.py); what JAX refuses
+    # raises a ValueError: a mesh that does not cover the world (here no
+    # process group: a world of one), qk_half_dim under softmax_flash (its
+    # flash wrapper's head-dim assert) and a text_loss model with
+    # text_loss_weight 0 (its step takes the model's (velocity, text) pair
+    # for the velocity)
     kw = dict(kw)
     model = {k: kw.pop(k) for k in ("qk_half_dim", "text_loss") if k in kw}
     cfg = MMDiTConfig.from_json(j_tiny_config(
         attn_type="softmax_flash", **model).to_json())
-    exc, match = ((NotImplementedError, "ROADMAP") if "mesh" in kw
-                  else (ValueError, "qk_half_dim|text_loss_weight"))
-    with pytest.raises(exc, match=match):
+    match = "does not cover" if "mesh" in kw else "qk_half_dim|text_loss_weight"
+    with pytest.raises(ValueError, match=match):
         Trainer(cfg, TrainConfig(**kw), device="cpu", log_dir=str(tmp_path),
                 use_wandb=False)
 
