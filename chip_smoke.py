@@ -52,15 +52,21 @@ Phases (any failure exits non-zero without the final ok line):
      shape, batch 1 doubled by CFG, K7qF and K8bF at the 1024px slice
      shape, K2F, K3F, K9F at that model's 512px streams, K10AF and K10BF
      there and at k 1600, K10BF bit for bit); flash at head dims 256
-     and 160 (padded to 256), 384 and 512 (the wide instances, every
-     multiple of 128), bf16 (K5W, K6AW, K6BW) and fp32 (K5WF, K6AWF,
-     K6BWF), then through the flash API, which counts their launches; the
-     fused route past the dividers of 128: every fused kernel, bf16 and
-     fp32, at head dims 48, 96, 192 (padded to 64, 128, 256), 256 and 384
-     (the wide instances K1W .. K8BW, K1WF .. K8BWF) at a small shape, each
-     in its family's limit, then the wide instances timed at the 512px
-     joint length with five heads of 256 (the streaming ones forced there),
-     their launches counted through the attention API.
+     and 160 (padded to 256: in bf16 K5_256, K5's wgmma instance at 256,
+     with K6AW and K6BW), 384 and 512 (the wide instances, every multiple
+     of 128: K5W, K6AW, K6BW) and fp32 at all four (K5WF, K6AWF, K6BWF),
+     the bf16 forward up to 256 with a control (the plain version at twice
+     the scale) that must fail its limit, then through the flash API,
+     which counts their launches; the fused route past the dividers of
+     128: every fused kernel, bf16 and fp32, at head dims 48, 96, 192
+     (padded to 64, 128, 256), 256 and 384 at a small shape, each in its
+     family's limit (bf16 at 192 and 256: the wgmma kernels' D = 256
+     instances, K1_256 .. K8B_256, each with a failing control; bf16 at 384
+     and fp32 past 128 the wide instances K1W .. K8BW, K1WF .. K8BWF),
+     then those timed at the 512px joint length with five heads of 256
+     (K1_256 .. K8B_256 with controls, K1WF .. K8BWF; the streaming ones
+     forced there) and of 384 (K1W .. K8BW), their launches counted
+     through the attention API.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -84,7 +90,11 @@ Phases (any failure exits non-zero without the final ok line):
      attention and MLP module on the inputs the CPU model handed it, its
      increment within the kernels' limit, and the same check failed in
      every module by the bf16 int8 model and the unquantized fp32 model
-     (controls); then one training step at 256px,
+     (controls); a model of five heads of 256 (dim 1280, D256_MODEL) at
+     512px, batch 1, bf16 and int8 (K2, K3), its attention K5_256 (the
+     general path: heads that do not divide 128), each with a control
+     (RoPE1d's tables on the same weights) that must fail; then
+     one training step at 256px,
      batch 2 (loss,
      gradients and the update against fp32 on the CPU), in bf16 (K5, K6a,
      K6b) and in fp32 (K5F, K6AF, K6BF), and one of tiny_config in bf16
@@ -244,7 +254,8 @@ ATTN_ATOL = 1e-2
 K4_ATOL = 3e-2
 INT8_SAME_ROUNDING_ATOL = 1e-2
 # K7 and K7q against the fp32 plain version over the kernel's key tiles
-# (K7: fa.K7_KEY_TILE, K7q: fa.K7Q_KEY_TILE): K1's roundings (bf16 q^, k^
+# (fa.stream_key_tile: K7's fa.K7_KEY_TILE, at head dim 256
+# fa.K7_KEY_TILE_256; K7q's fa.K7Q_KEY_TILE): K1's roundings (bf16 q^, k^
 # and p, a bf16 output), ATTN_ATOL. K7q
 # quantizes q^ and k^ from fp32 in both, so only the odd element whose
 # fp32 prep sums land on the other side of an int8 rounding boundary moves
@@ -454,9 +465,9 @@ K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
 # flash attention at the instances' other head dims: 16 (tiny_config's),
 # 128, and 48, which runs padded to the 64 instance; the 512px token count
 FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
-# head dims past the wgmma instances' 128, at the 512px token count and a
-# width near the published one: 256 (K5W / K6AW / K6BW in bf16, K5WF /
-# K6AWF / K6BWF in fp32), and 160, which runs padded to 256
+# head dims past 128, at the 512px token count and a width near the
+# published one: 256 (K5_256 / K6AW / K6BW in bf16, K5WF / K6AWF / K6BWF in
+# fp32), 160, which runs padded to 256, 384 and 512 (K5W in bf16)
 FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
               (4, 2, 1178, 512)]
 # k and v with a key length M of their own, as kv_merge_attn's pairwise
@@ -476,6 +487,12 @@ FLASH_KV_WIDE = [(2, 3, 410, 205, 256), (2, 3, 129, 300, 256)]
 WIDE_DIMS = (48, 96, 192, 256, 384)
 WIDE_CHECK = dict(b=2, h=8, w=9, n_txt=20, heads=2, rope=True)
 SLICE_WIDE = dict(b=2, h=32, w=32, n_txt=154, heads=5, d=256, rope=True)
+# the bf16 mma.sync wide instances past 256, timed at the same length; its
+# inputs come from a generator of their own (wide_384_gen), so that the
+# checks that were there before it see the inputs they saw
+SLICE_WIDE_384 = dict(SLICE_WIDE, d=384)
+# the model of five heads of 256 (dim 1280) that phase 4 holds to the CPU
+D256_MODEL = dict(dim=1280, num_heads=5)
 # the fp32 training steps on the card: the published widths at 2 blocks,
 # 256px latents (32 x 32), where K5F, K6AF and K6BF launch on the main path;
 # tiny_config's (head dim 16) runs in bf16 (K5, K6a, K6b at D 16)
@@ -662,11 +679,26 @@ def attn_inputs(shape, gen):
     return q, k, v, ws, angles, n_img, tables
 
 
+def launched_once(run) -> str:
+    """The name of the one kernel a run() call launches (the route taken)."""
+    import torch
+    before = launch_counts()
+    run()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    moved = [nm for nm in after if after[nm] != before[nm]]
+    require(len(moved) == 1 and after[moved[0]] - before[moved[0]] == 1,
+            f"one call launched {moved}, expected one kernel once")
+    return moved[0]
+
+
 def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
-                    streaming=None):
+                    streaming=None, control=False):
     """One fused-attention kernel (K1; K4 with int8_qk; K8a with int8_pv; K7,
     K7q, K8b above 2048 padded tokens, or at any length with `streaming`)
-    vs its plain version at one shape; returns the measurements."""
+    vs its plain version at one shape; with `control` also against the
+    plain version at twice the softmax scale, which must miss the limit;
+    returns the measurements."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
@@ -687,11 +719,10 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
     else:
         plain = fa.composition_int8_qk if int8_qk else fa.composition
     # the plain versions take int8_pv where they have it; the streaming ones
-    # are compared over the kernel's key tiles (K7's and K8b's 128, K7q's
-    # 64), timed with JAX's blocks
+    # are compared over the kernel's key tiles (fa.stream_key_tile: 128, K7
+    # at head dim 256 64), timed with JAX's blocks
     kw = dict(int8_pv=True) if int8_pv else {}
-    tile = (fa.K8B_KEY_TILE if int8_pv else fa.K7Q_KEY_TILE if int8_qk
-            else fa.K7_KEY_TILE)
+    tile = fa.stream_key_tile(int8_qk, int8_pv, d)
     cmp_kw = dict(kw, block_k=tile) if streaming else kw
     run_k = lambda: fa.fused_attention(q, k, v, nh, *tables, scale,
                                        int8_qk=int8_qk, int8_pv=int8_pv,
@@ -732,6 +763,7 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
     res = dict(shape=f"B={b} N={n} n_img={n_img} H={nh} D={d} "
                f"{'RoPE2d' if shape['rope'] else 'NoPE'}"
                f"{' streaming' if streaming and n <= 2048 else ''}",
+               kernel=launched_once(run_k),
                max_abs_err=err, max_rel_err=rel, plain_bf16_max_abs_err=plain_err,
                kernel_vs_plain_bf16_max_abs_err=(
                    got.float() - same_rounding.float()).abs().max().item(),
@@ -741,15 +773,28 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
         # the device time of each launch: q prep, K prep / quantize, V amax
         # / quantize, attention
         res["us_per_launch"] = per_launch_us(run_k)
-    print(f"  {name}", json.dumps(res), flush=True)
     atol = (K8_ATOL if int8_pv else K4_ATOL if int8_qk and not streaming
             else ATTN_ATOL)
+    if control:
+        res["control_max_abs_err"] = (got.float() - plain(
+            q.float(), k.float(), v.float(), *tables, 2 * scale, eps, eps, nh,
+            **cmp_kw)).abs().max().item()
+    print(f"  {name}", json.dumps(res), flush=True)
     require(err <= atol, f"{name} max abs err {err} > {atol} at {res['shape']}")
+    require(not control or res["control_max_abs_err"] > atol,
+            f"{name}: the control (twice the scale) passes at {res['shape']}: "
+            f"{res.get('control_max_abs_err')} <= {atol}")
     same = res["kernel_vs_plain_bf16_max_abs_err"]
     require(not (int8_qk or int8_pv) or same <= INT8_SAME_ROUNDING_ATOL,
             f"{name} max abs err {same} against the plain version's own "
             f"roundings > {INT8_SAME_ROUNDING_ATOL} at {res['shape']}")
     return res
+
+
+def wide_384_gen():
+    """The generator of SLICE_WIDE_384's inputs, apart from phase 3's."""
+    import torch
+    return torch.Generator(device="cuda").manual_seed(384)
 
 
 def phase_attention_api(gen):
@@ -763,12 +808,16 @@ def phase_attention_api(gen):
     from sd3_torch.ops import fused_attention as fa
 
     calls = []
-    for shape in (SLICE, SLICE_1024, SLICE_WIDE, dict(SLICE_WIDE, h=64, w=64)):
-        q, k, v, ws, angles, n_img, _ = attn_inputs(shape, gen)
+    for shape in (SLICE, SLICE_1024, SLICE_WIDE, dict(SLICE_WIDE, h=64, w=64),
+                  SLICE_WIDE_384, dict(SLICE_WIDE_384, h=64, w=64)):
+        q, k, v, ws, angles, n_img, _ = attn_inputs(
+            shape, gen if shape["d"] <= 256 else wide_384_gen())
         for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
                                  (True, True)):
             calls.append((q, k, v, ws, angles, n_img, shape, int8_qk,
                           int8_pv))
+        if shape["d"] > 256:  # fp32 past 128: the same instances as at 256
+            continue
         for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
                                  (True, True)):
             calls.append((q.float(), k.float(), v.float(), ws, angles, n_img,
@@ -795,9 +844,11 @@ def phase_attention_api(gen):
                 fused_attention_stream_int8qk_fp32=1,
                 fused_attention_stream_int8pv_fp32=2)
     # past head dim 128 (SLICE_WIDE, and at 64 x 64 past 2048 tokens) the
-    # same calls take the wide instances, bf16 and fp32
-    want.update({f"{nm}_wide{sfx}": c for nm, c in list(want.items())
-                 if not nm.endswith("_fp32") for sfx in ("", "_fp32")})
+    # same calls take in bf16 the wgmma kernels' D = 256 instances, in fp32
+    # the wide instances; at 384 (SLICE_WIDE_384) the bf16 wide instances
+    want.update({f"{nm}{sfx}": c for nm, c in list(want.items())
+                 if not nm.endswith("_fp32")
+                 for sfx in ("_256", "_wide", "_wide_fp32")})
     for nm, c in want.items():
         require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
                 f"through the attention API, expected {c}")
@@ -811,7 +862,10 @@ def phase_attention_dims(gen):
     bf16 ATTN_ATOL (float scores and P.V), K4_ATOL / K8_ATOL (int8 scores
     or P.V); fp32 FP32_REL_L2, INT8_FP32_MAX_REL / INT8_FP32_REL_L2. The
     streaming kernels forced by single_kv_max=0 and compared over their
-    128-key tiles. Returns the worst error of each (kernel, head dim)."""
+    key tiles (fa.stream_key_tile; fp32: 128). bf16 at 192 and 256 (the
+    D = 256 instances) also against the plain version at twice the scale,
+    a control that must miss the limit. Returns the worst error of each
+    (kernel, head dim)."""
     import torch
     from sd3_torch.ops import fused_attention as fa
 
@@ -831,7 +885,8 @@ def phase_attention_dims(gen):
                 if streaming:
                     plain = (fa.composition_stream_int8_qk if int8_qk
                              else fa.composition_stream)
-                    kw = dict(block_k=fa.K8B_KEY_TILE)
+                    kw = dict(block_k=fa.K8B_KEY_TILE if dt == torch.float32
+                              else fa.stream_key_tile(int8_qk, int8_pv, d))
                 else:
                     plain = (fa.composition_int8_qk if int8_qk
                              else fa.composition)
@@ -848,6 +903,13 @@ def phase_attention_dims(gen):
                     lim = K8_ATOL if int8_pv else (
                         K4_ATOL if int8_qk else ATTN_ATOL)
                     require(err <= lim, f"{label}: max abs err {err} > {lim}")
+                    if fa.instance_dim(d) == 256:
+                        ctl = (got.float() - plain(
+                            q.float(), k.float(), v.float(), *tables,
+                            2 * d ** -0.5, eps, eps, nh, **kw)).abs().max()
+                        worst[label + " control"] = ctl.item()
+                        require(ctl.item() > lim, f"{label}: the control "
+                                f"(twice the scale) passes: {ctl.item()}")
                 elif int8_qk or int8_pv:
                     e = _errs(got, want)
                     err = e["rel_l2"]
@@ -1107,11 +1169,13 @@ def flash_label(shape, suffix="") -> str:
     return f"B={b} H={h} N={n}{f' M={m}' if m != n else ''} D={d}{suffix}"
 
 
-def phase_flash(shape, gen, check=None):
+def phase_flash(shape, gen, check=None, control=False):
     """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
     shape, or (B, H, N, M, D) with k and v of M keys, on the samples and
     heads [:check[0], :check[1]] where `check` is given (the plain versions'
-    fp32 score matrices at the 1024px training shape take 5.5 GB each); the
+    fp32 score matrices at the 1024px training shape take 5.5 GB each); with
+    `control` K5's output also against the plain forward at twice the
+    scale, which must miss FLASH_OUT_ATOL; the
     kernels, the plain versions and SDPA timed at the full shape (SDPA's
     backward by sdpa_backward_ms); returns {"K5" | "K6a" | "K6b":
     measurements}."""
@@ -1169,8 +1233,9 @@ def phase_flash(shape, gen, check=None):
     for name, (run, plain, products, nbytes, lib) in runs.items():
         t_ops = products * 2 * bh_nmd / PEAK_BF16_FLOPS
         t_bytes = nbytes / PEAK_BYTES
-        res = dict(shape=label, checked=(f"[:{check[0]}, :{check[1]}]"
-                                         if check else "all"),
+        res = dict(shape=label, kernel=launched_once(run),
+                   checked=(f"[:{check[0]}, :{check[1]}]"
+                            if check else "all"),
                    errors=errs[name],
                    max_abs_err=max(e["max_abs_err"] for k, e in
                                    errs[name].items() if k not in ("lse",
@@ -1183,6 +1248,14 @@ def phase_flash(shape, gen, check=None):
     out_err = errs["K5"]["out"]["max_abs_err"]
     require(out_err <= FLASH_OUT_ATOL,
             f"K5 out max abs err {out_err} > {FLASH_OUT_ATOL} at {shape}")
+    if control:
+        ctl = (cut(out).float() - fl.flash_fwd_plain(
+            qf, kf, vf, 2 * scale)[0]).abs().max().item()
+        results["K5"]["control_max_abs_err"] = ctl
+        print("  K5 control (twice the scale)", json.dumps(dict(
+            shape=label, max_abs_err=ctl)), flush=True)
+        require(ctl > FLASH_OUT_ATOL, f"K5's control passes at {shape}: "
+                f"{ctl} <= {FLASH_OUT_ATOL}")
     lse_err = errs["K5"]["lse"]["max_abs_err"]
     require(lse_err <= FLASH_LSE_ATOL,
             f"K5 lse max abs err {lse_err} > {FLASH_LSE_ATOL} at {shape}")
@@ -1426,10 +1499,16 @@ def phase_flash_api(gen):
     launches = launch_counts()
     print("  flash API", json.dumps(
         {n: c for n, c in launches.items() if c}), flush=True)
-    for kern in (fl.K5W, fl.K6AW, fl.K6BW, fl.K5WF, fl.K6AWF, fl.K6BWF):
-        require(launches[kern.name] == len(FLASH_WIDE),
+    # bf16 up to 256: K5_256; past it K5W; the backward and fp32 past 128:
+    # the wide instances
+    n256 = sum(fl.instance_dim(s[-1]) == fl.WGMMA_WIDE for s in FLASH_WIDE)
+    want = {fl.K5_256: n256, fl.K5W: len(FLASH_WIDE) - n256}
+    want.update(dict.fromkeys((fl.K6AW, fl.K6BW, fl.K5WF, fl.K6AWF,
+                               fl.K6BWF), len(FLASH_WIDE)))
+    for kern, n in want.items():
+        require(launches[kern.name] == n,
                 f"{kern.name} launched {launches[kern.name]} times through "
-                f"the flash API, expected {len(FLASH_WIDE)}")
+                f"the flash API, expected {n}")
     return launches
 
 
@@ -2403,6 +2482,71 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
     return res_d
 
 
+def phase_model_d256(int8=False, seed=0):
+    """The published widths but dim 1280 in five heads of 256 (D256_MODEL) at
+    2 blocks, 512px, batch 1, on the card in bf16 or int8 (w8a8, with K2
+    and K3) against the same weights in fp32 on the CPU, within phase 4's
+    MODEL_REL_L2 / INT8_MODEL_REL_L2. Its attention takes the general path,
+    as the JAX package's gate sends every head dim that does not divide 128
+    (sd3_tpu/ops/attention.py `_fused_path_ok`): flash attention, K5_256
+    (the wgmma kernel's D = 256 instance), once a block, in bf16 and int8
+    alike. The control, RoPE1d's tables on the same weights on the CPU,
+    must miss the limit."""
+    import torch
+    from sd3_torch.config import published_config
+    from sd3_torch.models.mmdit import MMDiT
+    from sd3_torch.ops.quant import quantize_model
+
+    cfg = published_config(stage_res=512).replace(num_blocks=2, **D256_MODEL)
+    ref = MMDiT(cfg.replace(dtype="float32"), device="cpu").init_weights(
+        torch.Generator().manual_seed(seed)).eval()
+    if int8:
+        quantize_model(ref)
+    ctl = _load_loose(MMDiT(ref.cfg.replace(positional_encoding="RoPE"),
+                            device="cpu").eval(), ref.state_dict())
+    g = torch.Generator().manual_seed(seed + 1)
+    args = (torch.randn((1, cfg.inCh, 64, 64), generator=g),
+            torch.rand((1,), generator=g),
+            torch.randn((1, cfg.text_tokens, cfg.text_hidden_dim), generator=g),
+            torch.randn((1, cfg.class_dim), generator=g))
+    dut = MMDiT(ref.cfg.replace(dtype="bfloat16"), device="cuda")
+    dut.load_state_dict(ref.state_dict(), strict=True)
+    dut.cast_params(torch.bfloat16)
+    dut.eval()
+    with torch.inference_mode():
+        want, other = ref(*args), ctl(*args)
+        reset_launches()
+        got = dut(*(a.cuda() for a in args)).cpu()
+    launches = launch_counts()
+    require(bool(torch.isfinite(got).all()), "the D = 256 model: 2-block "
+            "output non-finite")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    limit = INT8_MODEL_REL_L2 if int8 else MODEL_REL_L2
+    res = dict(quant=ref.cfg.quant, heads=cfg.num_heads, dim=cfg.dim,
+               limit=limit, rel_l2=rel(got, want),
+               control_rel_l2=rel(got, other), launches={
+                   k: n for k, n in launches.items() if n})
+    print("  model, 5 heads of 256", json.dumps(res), flush=True)
+    nb = cfg.num_blocks
+    want_launches = {k: 0 for k in ATTENTION_KERNELS}
+    want_launches.update({k + "_256": 0 for k in ATTENTION_KERNELS
+                          if not k.endswith("_fp32")})
+    want_launches.update({"flash_attention_fwd_256": nb,
+                          "flash_attention_fwd_wide": 0,
+                          "flash_attention_fwd": 0})
+    want_launches.update(block_tail_launches(nb, 1, int8, False))
+    for name, n in want_launches.items():
+        require(launches[name] == n, f"{name} launched {launches[name]} "
+                f"times in the 2-block D = 256 {res['quant']} forward, "
+                f"expected {n}")
+    require(res["rel_l2"] <= limit, f"the D = 256 {res['quant']} model: rel "
+            f"L2 {res['rel_l2']} > {limit}")
+    require(res["control_rel_l2"] > limit, f"the D = 256 model's control "
+            f"(RoPE1d) passes: rel L2 {res['control_rel_l2']} <= {limit}")
+    res["launches"] = launches
+    return res
+
+
 def record_modules(model):
     """Forward hooks on every JointAttention and MLP module of the CPU
     `model` that keep each call's (name, args, kwargs, output), cloned.
@@ -2861,6 +3005,10 @@ FP32_KERNELS = ("attn_fp32_kernel", "dq_fp32_kernel", "dkv_fp32_kernel",
 
 
 # the flash backward's kernels (csrc/flash_bwd_sm90.cu) by family
+# the fused kernels' rows past head dim 128: (name of the base kernel in
+# ops/fused_attention.py, its row in ATTN_NAMES, the TPU kernel's line)
+WIDE_ROWS = (("K1", "K1", 135), ("K4", "K4", 193), ("K8A", "K8a", 181),
+             ("K7", "K7", 312), ("K7Q", "K7q", 352), ("K8B", "K8b", 406))
 FLASH_BWD_FAMILIES = {"flash_dq_sm90_kernel": "K6a",
                       "flash_dkv_sm90_kernel": "K6b"}
 # the design of each kernel source, for the {"kernels"} line
@@ -4227,34 +4375,41 @@ def main() -> int:
         k10bf = phase_dense(K10_FP32, gen, "K10b", fp32=True)
         phase_dense(K10_WIDE[0], gen, "K10a", fp32=True)
         phase_dense(K10_WIDE[0], gen, "K10b", fp32=True)
-        # flash past head dim 128: bf16 and fp32 at 256 and at 160 (padded)
-        say("phase 3e: the wide flash instances, M != N")
-        k56w = [phase_flash(s, gen) for s in FLASH_WIDE]
+        # flash past head dim 128: bf16 and fp32 at 256, 160 (padded), 384
+        # and 512; the bf16 forward up to 256 (K5_256) with a control
+        say("phase 3e: the flash instances past 128, M != N")
+        k56w = [phase_flash(s, gen, control=flash_attention.instance_dim(
+                                s[-1]) == flash_attention.WGMMA_WIDE)
+                for s in FLASH_WIDE]
         k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
         # k and v of M keys (kv_merge_attn): K5, K6a, K6b, their fp32
-        # instances, and the wide ones at head dim 256
+        # instances, and at head dim 256 K5_256, the wide ones and their
+        # fp32 instances
         for shp in FLASH_KV:
             phase_flash(shp, gen)
             phase_flash_fp32(shp, gen)
         for shp in FLASH_KV_WIDE:
-            phase_flash(shp, gen)
+            phase_flash(shp, gen, control=True)
             phase_flash_fp32(shp, gen)
         flash_api = phase_flash_api(gen)
         phase_k1_backward(gen)
         # the fused route past head dim 128: every kernel at each of
-        # WIDE_DIMS in bf16 and fp32, then each wide instance timed at
-        # SLICE_WIDE
-        say("phase 3f: the wide fused instances")
+        # WIDE_DIMS in bf16 and fp32, then timed at SLICE_WIDE (bf16: the
+        # D = 256 instances, with controls; fp32: the wide instances) and
+        # the bf16 wide instances at SLICE_WIDE_384
+        say("phase 3f: the fused instances past 128")
         phase_attention_dims(gen)
-        wide = {}
+        wide, wide384, gen384 = {}, {}, wide_384_gen()
         for (int8_qk, int8_pv, streaming), nm in ATTN_NAMES.items():
             wide[nm] = phase_attention(SLICE_WIDE, gen, int8_qk, int8_pv,
-                                       streaming=streaming)
+                                       streaming=streaming, control=True)
             wide[nm + " fp32"] = (
                 phase_attention_int8_fp32(SLICE_WIDE, gen, int8_qk, int8_pv,
                                           streaming=streaming)
                 if int8_qk or int8_pv else
                 phase_attention_fp32(SLICE_WIDE, gen, streaming=streaming))
+            wide384[nm] = phase_attention(SLICE_WIDE_384, gen384, int8_qk,
+                                          int8_pv, streaming=streaming)
 
         say("phase 4: 2-block models on the card vs fp32 on the CPU: "
               "512px batch 2, 1024px batch 1", flush=True)
@@ -4267,6 +4422,8 @@ def main() -> int:
         model32 = phase_model(gen_seed=0, fp32=True)
         phase_model(gen_seed=0, int8=True, fp32=True)
         phase_model(gen_seed=0, int8=True, tails=True, fp32=True)
+        model256 = phase_model_d256()
+        phase_model_d256(int8=True)
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
@@ -4445,9 +4602,15 @@ def main() -> int:
             (fused_dense.K10BF, k10bf, "fused_dense.cu",
              "sd3_tpu/ops/fused_dense.py:166", cli["infer fp32 int8 tails"],
              lambda run: run),
-            # flash past head dim 128 (the shared-memory kernels at 256):
-            # their launches are those of the flash API phase
-            (flash_attention.K5W, k56w[0]["K5"], "attention_fp32.cu",
+            # flash past head dim 128 (bf16: K5's wgmma instance at 256,
+            # the shared-memory kernels past it and for the backward; fp32:
+            # the shared-memory kernels, at 256): their launches are those
+            # of the flash API phase
+            # K5_256: the D = 256 model's attention (phase 4)
+            (flash_attention.K5_256, k56w[0]["K5"], "attention_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:103", model256,
+             lambda run: run["launches"]),
+            (flash_attention.K5W, k56w[2]["K5"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
             (flash_attention.K6AW, k56w[0]["K6a"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
@@ -4459,17 +4622,26 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
             (flash_attention.K6BWF, k56wf[0]["K6BF"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
-            # the fused kernels past head dim 128 (the wide instances, bf16
-            # and fp32, at SLICE_WIDE): their launches are those of the
-            # attention API phase
+            # the fused kernels past head dim 128: in bf16 up to 256 the
+            # wgmma kernels' D = 256 instances (SLICE_WIDE), past it the
+            # wide instances (SLICE_WIDE_384), in fp32 the wide instances
+            # (SLICE_WIDE); no model takes the fused path at these head
+            # dims (phase 4's D = 256 model takes K5_256), so their
+            # launches are those of the attention API phase
+            *[(fused_attention._D256[getattr(fused_attention, base)],
+               wide[nm], getattr(fused_attention, base).source,
+               f"sd3_tpu/ops/fused_attention.py:{line}", api,
+               lambda run: run)
+              for base, nm, line in WIDE_ROWS],
             *[(fused_attention._WIDE[getattr(fused_attention, base)][fp32],
-               wide[nm + fp32 * " fp32"], "attention_fp32.cu",
-               f"sd3_tpu/ops/fused_attention.py:{line}", api, lambda run: run)
-              for base, nm, line in (("K1", "K1", 135), ("K4", "K4", 193),
-                                     ("K8A", "K8a", 181), ("K7", "K7", 312),
-                                     ("K7Q", "K7q", 352), ("K8B", "K8b", 406))
-              for fp32 in (0, 1)],
+               (wide[nm + " fp32"] if fp32 else wide384[nm]),
+               "attention_fp32.cu", f"sd3_tpu/ops/fused_attention.py:{line}",
+               api, lambda run: run)
+              for base, nm, line in WIDE_ROWS for fp32 in (0, 1)],
         ]
+        for kern, r, *_ in rows:
+            require(r.get("kernel", kern.name) == kern.name,
+                    f"the {kern.name} row was timed on {r.get('kernel')}")
         line = {"kernels": [{
             "name": kern.name, "route": "cuda",
             "source": f"sd3_torch/csrc/{src}", "replaces": tpu,

@@ -24,6 +24,16 @@ namespace {
 constexpr int PREP_THREADS = 256;
 constexpr int PREP_ROWS = 64;   // K rows per k_prep block
 
+// Rows a prep block takes at head dim D: PREP_ROWS, but at D = 256, where
+// a warp takes one row at a time, one row a warp. A model of heads of 256
+// has few of them (five at width 1280): 64-row blocks gave 190 blocks at B
+// 2, N 1178, each looping over 8 rows in turn, too few to hide the loads'
+// latency (q_prep 12 us, k_prep 21 us for 6 MB each way).
+template <int D>
+__host__ __device__ constexpr int prep_rows() {
+  return D == 256 ? PREP_THREADS / 32 : PREP_ROWS;
+}
+
 // Row geometry of the prep: TPR threads share one row of D values, each
 // owning PPT adjacent (even, odd) pairs; a warp covers RPW rows at a time.
 template <int D>
@@ -125,7 +135,7 @@ __device__ __forceinline__ int quant8(float v, float s) {
   return (int)fminf(fmaxf(rintf(v / s), -127.f), 127.f);
 }
 
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: k^ in k's type
+// grid (ceil(N / prep_rows<D>()), B*H), PREP_THREADS threads: k^ in k's type
 // (bf16 or fp32). k_max2 receives max ||k^||^2 per (b, h) (K1), or with
 // AMAX max |k^| of k^ rounded to T (K4).
 template <int D, bool AMAX, typename T = bf16>
@@ -136,7 +146,7 @@ k_prep_kernel(const T* __restrict__ k, const float* __restrict__ ck,
   using G = Geom<D>;
   const float inv_dn = 1.f / dn;
   constexpr int ROWS_PER_ITER = (PREP_THREADS / 32) * G::RPW;
-  static_assert(PREP_ROWS % ROWS_PER_ITER == 0, "prep rows");
+  static_assert(prep_rows<D>() % ROWS_PER_ITER == 0, "prep rows");
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane % G::TPR;
@@ -144,8 +154,8 @@ k_prep_kernel(const T* __restrict__ k, const float* __restrict__ ck,
   const size_t base = (size_t)b * N * rs + (size_t)h * D;
   float mx = 0.f;
 #pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
+  for (int r0 = 0; r0 < prep_rows<D>(); r0 += ROWS_PER_ITER) {
+    const int n = blockIdx.x * prep_rows<D>() + r0 + warp * G::RPW + lane / G::TPR;
     const bool valid = n < N;
     const size_t nn = valid ? (size_t)n : 0;
     float out[2 * G::PPT];
@@ -204,7 +214,7 @@ k_quant_kernel(const T* __restrict__ kp, const float* __restrict__ k_amax,
 
 // ---- the q prep of K1, K7, K8a and K8b over bf16 scores -----------------
 
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: q^ in q's type
+// grid (ceil(N / prep_rows<D>()), B*H), PREP_THREADS threads: q^ in q's type
 // (bf16 or fp32) in the input layout (k_prep_kernel's work on q) and, with
 // NORMS, ||q^|| of every row from the fp32 prep, (B*H, N).
 template <int D, bool NORMS, typename T = bf16>
@@ -221,8 +231,8 @@ q_prep_kernel(const T* __restrict__ q, const float* __restrict__ cq,
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * N * rs + (size_t)h * D;
 #pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
+  for (int r0 = 0; r0 < prep_rows<D>(); r0 += ROWS_PER_ITER) {
+    const int n = blockIdx.x * prep_rows<D>() + r0 + warp * G::RPW + lane / G::TPR;
     const bool valid = n < N;
     const size_t nn = valid ? (size_t)n : 0;
     float out[2 * G::PPT];
@@ -241,7 +251,7 @@ q_prep_kernel(const T* __restrict__ q, const float* __restrict__ cq,
 // ---- per-row int8 prep: K4's (and K8a's over it) q^, K7q's and K8b's q^
 // and k^ ------------------------------------------------------------------
 
-// grid (ceil(N / PREP_ROWS), B*H), PREP_THREADS threads: the fp32 prep of
+// grid (ceil(N / prep_rows<D>()), B*H), PREP_THREADS threads: the fp32 prep of
 // every row of x (q or k, with its tables), quantized per row (per head):
 // x_q (B, N, H*D) int8 and x_scale (B*H, ss) fp32 (ss >= N: a row stride
 // that a tensor map of the scales may need), max(|x^_row|, 1e-12) / 127.
@@ -263,8 +273,8 @@ prep_q8rows_kernel(const T* __restrict__ x, const float* __restrict__ c,
   const size_t rs = (size_t)H * D;
   const size_t base = (size_t)b * N * rs + (size_t)h * D;
 #pragma unroll
-  for (int r0 = 0; r0 < PREP_ROWS; r0 += ROWS_PER_ITER) {
-    const int n = blockIdx.x * PREP_ROWS + r0 + warp * G::RPW + lane / G::TPR;
+  for (int r0 = 0; r0 < prep_rows<D>(); r0 += ROWS_PER_ITER) {
+    const int n = blockIdx.x * prep_rows<D>() + r0 + warp * G::RPW + lane / G::TPR;
     const bool valid = n < N;
     const size_t nn = valid ? (size_t)n : 0;
     float out[2 * G::PPT];
@@ -346,28 +356,39 @@ v_amax_kernel(const T* __restrict__ v, float* __restrict__ v_amax, int N,
   }
 }
 
+// Columns of V a v_quant_kernel block takes: the head, or 128-column slices
+// of a wider one (its staged rows must fit the 48 KB of static shared
+// memory: 64 rows of 256 fp32 values would not).
+template <int D>
+__host__ __device__ constexpr int v_quant_cols() { return D < 128 ? D : 128; }
+
 // V^T in int8: v_q[bh][d][np keys], kappa-ordered within each 32-key chunk,
 // keys past N zero; np (a multiple of V_ROWS) is the attention's padded
-// length. grid (np / V_ROWS, B*H), 256 threads; each writes 4 bytes.
+// length. grid (np / V_ROWS, B*H, D / v_quant_cols<D>()), 256 threads; each
+// writes 4 bytes; block z takes columns z * v_quant_cols<D>() onwards.
 template <int D, typename T = bf16>
 __global__ void __launch_bounds__(256)
 v_quant_kernel(const T* __restrict__ v, const float* __restrict__ v_amax,
                int8_t* __restrict__ v_q, int N, int H, int np) {
-  __shared__ float sv[V_ROWS][D + 1];
-  __shared__ float sc[D];
+  constexpr int DC = v_quant_cols<D>();
+  __shared__ float sv[V_ROWS][DC + 1];
+  __shared__ float sc[DC];
   const int bh = blockIdx.y, b = bh / H, h = bh % H, t = blockIdx.x;
+  const int d0 = blockIdx.z * DC;
   const size_t rs = (size_t)H * D;
-  for (int i = threadIdx.x; i < V_ROWS * D / 2; i += blockDim.x) {
-    const int r = i / (D / 2), p = i % (D / 2), n = t * V_ROWS + r;
+  for (int i = threadIdx.x; i < V_ROWS * DC / 2; i += blockDim.x) {
+    const int r = i / (DC / 2), p = i % (DC / 2), n = t * V_ROWS + r;
     float2 f = make_float2(0.f, 0.f);
-    if (n < N) f = load_pair(v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D, p);
+    if (n < N)
+      f = load_pair(v + (size_t)b * N * rs + (size_t)n * rs + (size_t)h * D + d0, p);
     sv[r][2 * p] = f.x;
     sv[r][2 * p + 1] = f.y;
   }
-  if (threadIdx.x < D)
-    sc[threadIdx.x] = fmaxf(v_amax[(size_t)bh * D + threadIdx.x], 1e-12f) / 127.f;
+  if (threadIdx.x < DC)
+    sc[threadIdx.x] =
+        fmaxf(v_amax[(size_t)bh * D + d0 + threadIdx.x], 1e-12f) / 127.f;
   __syncthreads();
-  for (int w = threadIdx.x; w < D * V_ROWS / 4; w += blockDim.x) {
+  for (int w = threadIdx.x; w < DC * V_ROWS / 4; w += blockDim.x) {
     const int d = w / (V_ROWS / 4), kap = (w % (V_ROWS / 4)) * 4;  // 4 bytes
     const int chunk = kap & ~31;
     uint32_t word = 0;
@@ -376,7 +397,7 @@ v_quant_kernel(const T* __restrict__ v, const float* __restrict__ v_amax,
       const int r = chunk + v_perm((kap & 31) + i);
       word |= (uint32_t)(quant8(sv[r][d], sc[d]) & 0xff) << (8 * i);
     }
-    *reinterpret_cast<uint32_t*>(v_q + ((size_t)bh * D + d) * np +
+    *reinterpret_cast<uint32_t*>(v_q + ((size_t)bh * D + d0 + d) * np +
                                  t * V_ROWS + kap) = word;
   }
 }
@@ -393,7 +414,7 @@ int launch_v_prep(const void* v, void* v_amax, void* v_q, int B, int N,
       rows);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  dim3 g2(np / V_ROWS, B * H);
+  dim3 g2(np / V_ROWS, B * H, D / v_quant_cols<D>());
   v_quant_kernel<D, T><<<g2, 256, 0, st>>>(static_cast<const T*>(v),
                                         static_cast<const float*>(v_amax),
                                         static_cast<int8_t*>(v_q), N, H, np);
@@ -408,7 +429,7 @@ template <int D, bool AMAX, typename T = bf16>
 int launch_k_prep(const void* k, const void* ck, const void* sk, void* k_out,
                   void* k_stat, int B, int N, int H, float eps, int dn,
                   cudaStream_t st) {
-  dim3 g((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
+  dim3 g((N + prep_rows<D>() - 1) / prep_rows<D>(), B * H);
   k_prep_kernel<D, AMAX, T><<<g, PREP_THREADS, 0, st>>>(
       static_cast<const T*>(k), static_cast<const float*>(ck),
       static_cast<const float*>(sk), static_cast<T*>(k_out),
@@ -421,7 +442,7 @@ template <int D, bool NORMS, typename T = bf16>
 int launch_q_prep(const void* q, const void* cq, const void* sq, void* q_out,
                   void* q_norm, int B, int N, int H, float eps, int dn,
                   cudaStream_t st) {
-  dim3 g((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
+  dim3 g((N + prep_rows<D>() - 1) / prep_rows<D>(), B * H);
   q_prep_kernel<D, NORMS, T><<<g, PREP_THREADS, 0, st>>>(
       static_cast<const T*>(q), static_cast<const float*>(cq),
       static_cast<const float*>(sq), static_cast<T*>(q_out),
@@ -435,7 +456,7 @@ template <int D, int TAG, typename T = bf16>
 int launch_q8rows(const void* x, const void* c, const void* s, void* x_q,
                   void* x_scale, int B, int N, int H, int ss, float eps,
                   int dn, cudaStream_t st) {
-  dim3 g((N + PREP_ROWS - 1) / PREP_ROWS, B * H);
+  dim3 g((N + prep_rows<D>() - 1) / prep_rows<D>(), B * H);
   prep_q8rows_kernel<D, TAG, T><<<g, PREP_THREADS, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(c),
       static_cast<const float*>(s), static_cast<int8_t*>(x_q),

@@ -5,11 +5,13 @@
 //     K6a, K6b, on fp32 q, k, v, o, dO, at head dims 16-128;
 //   - the fp32 instances of the int8 joint attentions K4, K7q, K8a and K8b
 //     (fp32 rows under `--dtype float32 --quant int8`);
-//   - every one of these kernels past head dim 128, bf16 and fp32 (the
-//     wgmma kernels of attention_sm90.cu, attention_int8_sm90.cu and
-//     flash_bwd_sm90.cu stop at 128): the wide instances, one set for
-//     every multiple of 128 (wide_attn_kernel, wide_dq_kernel,
-//     wide_dkv_kernel, with the fused kernels' wide_prep_kernel).
+//   - past head dim 128 the wide instances, one set for every multiple of
+//     128 (wide_attn_kernel, wide_dq_kernel, wide_dkv_kernel, with the
+//     fused kernels' wide_prep_kernel): every one of these kernels in fp32;
+//     in bf16 the flash backward K6a, K6b (flash_bwd_sm90.cu stops at 128)
+//     and the forwards past 256 (the wgmma kernels of attention_sm90.cu and
+//     attention_int8_sm90.cu take bf16 heads up to 256: K1, K7, K5, K4,
+//     K7q, K8a, K8b at D = 256).
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py:
 //   K1  `_fused_fwd_kernel` (:135), the float branch (fp32 q^, k^, p):
@@ -22,7 +24,7 @@
 //   K5  `_fwd_kernel` (:103): attn_fp32_kernel with lse;
 //   K6a `_dq_kernel` (:191): dq_fp32_kernel;
 //   K6b `_dkv_kernel` (:222): dkv_fp32_kernel;
-// past head dim 128, all of them in bf16 and fp32: wide_attn_kernel (the
+// past head dim 128 (the bf16 forwards past 256): wide_attn_kernel (the
 // forwards, on wide_prep_kernel's q^ / k^ for K1 .. K8b), wide_dq_kernel,
 // wide_dkv_kernel.
 // The JAX kernels run their fp32 products at Precision.HIGHEST
@@ -66,8 +68,9 @@
 // bank conflicts; p and ds go through a warp's own 16 x 32 tile of shared
 // memory to become A fragments (the int8 p of K8a / K8b stays in registers:
 // its score accumulators are an A fragment in the key order of V^T's prep,
-// attention_common.cuh v_perm). Head dims past 128 take the wide
-// instances: the scores summed over 128-wide chunks of the head, staged
+// attention_common.cuh v_perm). Head dims past 128 (the bf16 forwards:
+// past 256) take the wide instances: the scores summed over 128-wide
+// chunks of the head, staged
 // through shared memory a chunk at a time, and the output's columns split
 // into slices of 128, one block each (section "head dims past 128" below),
 // so that neither a block's shared memory nor a thread's accumulators grow

@@ -1,7 +1,9 @@
 // The int8 joint attentions for NVIDIA Hopper (sm_90a): K4 (int8 QK^T,
 // single KV), K8a (int8 P.V, single KV), K7q (int8 QK^T, streaming) and K8b
 // (int8 P.V, streaming), one kernel, attn_int8_sm90_kernel<D, QK8, PV8,
-// TWO_PASS>, on wgmma and TMA with a warp-specialised ring of K / V tiles.
+// TWO_PASS>, on wgmma and TMA with a warp-specialised ring of K / V tiles,
+// at head dims D = 16, 32, 64, 128 and 256 on bf16 rows (129 to 256
+// zero-padded at 256; past 256, and fp32 rows, attention_fp32.cu).
 // QK8: int8 scores (else bf16); PV8: int8 P.V (else bf16); TWO_PASS: the
 // true row max in a first pass over K (the single-KV kernels), else an
 // online softmax over 128-key tiles (the streaming ones).
@@ -147,6 +149,30 @@
 // 331 MB, 0.027 / 0.099 ms at 3.35 TB/s. Elsewhere the exp2 term bounds
 // them, as it bounds K1 and K7, so the overlap of the softmax with the
 // products is what the design is for, as in attention_sm90.cu.
+//
+// D = 256 (K4W, K7QW, K8AW, K8BW: heads of 129 to 256 values). The
+// accumulator is 128 of a consumer's 240 registers, and the key tiles stay
+// at 128 keys, which fix what is quantized (K8b's p levels and K7q's p
+// against the running max of a 128-key block, K8B_KEY_TILE and
+// K7Q_KEY_TILE; the V^T of int8 P.V is padded to them): 64 score
+// registers. So each consumer lets its P.V of tile t-1 land before it
+// issues S of tile t (the scores, p and the products' operands are never in
+// flight together; the softmax overlaps the other consumer's products, the
+// ping-pong), as attention_sm90.cu does at D = 256. K8b's s32 P.V of a tile
+// would be another 128 registers beside the fp32 accumulator: it runs in
+// PV_PARTS = 4 parts of 64 columns (wgmma m64n64k32 s8), each landed into
+// 32 registers and added as acc = acc * alpha + fp32(pv) before the next
+// part is issued. K8a's s32 sum over every key is its only accumulator: one
+// m64n256k32 a k-step. The rings: KST stages of K tiles (32 KB int8, 64 KB
+// bf16) and VST of V tiles (32 KB int8 V^T, 64 KB bf16) beside the q^
+// tiles in 227 KB (SmemI8). The V prep's v_quant_kernel takes the head in
+// 128-column slices. ptxas spills at most 32 bytes in a D = 256 instance
+// (K8b over bf16 scores); K8b's P.V in two halves of 128 columns spilled
+// 376-444 bytes, and its kernel took 69 us against 38 us in four parts (B
+// 2, N 1178, H 5, H100; utils/wide_attention_diag.py, PERF.md).
+// What bounds them at B 2, N 1178, H 5: the bf16 products 0.0144 ms at 989
+// TFLOP/s (each s8 product half of its term), the exp2s 0.0036 ms, and
+// 100 items of 128 rows on 132 SMs.
 
 #include <limits.h>
 
@@ -214,14 +240,20 @@ struct Rows {
 };
 
 // Shared memory of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>, from a
-// 1024-byte aligned base.
+// 1024-byte aligned base. KST stages of K tiles and VST of V tiles: four
+// each up to D = 64, three at D = 128; at D = 256 what fits 227 KB beside
+// the q^ tiles (K tiles of 32 KB in int8, 64 KB in bf16; V tiles of 32 KB
+// in int8 V^T, 64 KB in bf16): 2 + 2 (K4, K7q), 3 + 3 (int8 P.V over int8
+// scores), 2 + 1 (int8 P.V over bf16 scores, whose q^ takes 64 KB).
 template <int D, bool QK8, bool PV8, bool TWO_PASS>
 struct SmemI8 {
   using R = Rows<D, QK8>;
   // int8 scores of the streaming kernels: a k scale per key, beside each K
   // tile
   static constexpr bool PER_KEY = QK8 && !TWO_PASS;
-  static constexpr int STAGES = D == 128 ? 3 : 4;
+  static constexpr int KST = D <= 64 ? 4 : D == 128 ? 3 : QK8 && PV8 ? 3 : 2;
+  static constexpr int VST = D <= 64 ? 4 : D == 128 ? 3 : QK8 ? (PV8 ? 3 : 2)
+                                                              : 1;
   static constexpr int Q_TILE = QROWS * R::BYTES;    // one consumer's q^
   static constexpr int K_TILE = KEY_TILE * R::BYTES;
   // int8 V^T: D rows of KEY_TILE bytes (128-byte swizzle); or bf16 V:
@@ -229,13 +261,15 @@ struct SmemI8 {
   static constexpr int V_TILE = PV8 ? D * KEY_TILE : KEY_TILE * D * 2;
   static constexpr int KS_TILE = PER_KEY ? KEY_TILE * 4 : 0;  // k scales
   static constexpr int Q = 0;                                // [CONSUMERS]
-  static constexpr int K = Q + CONSUMERS * Q_TILE;           // [STAGES]
-  static constexpr int V = K + STAGES * K_TILE;              // [STAGES]
-  static constexpr int KS = V + STAGES * V_TILE;             // [STAGES]
+  static constexpr int K = Q + CONSUMERS * Q_TILE;           // [KST]
+  static constexpr int V = K + KST * K_TILE;                 // [VST]
+  static constexpr int KS = V + VST * V_TILE;                // [KST]
   // mbarriers: full / empty of each K and V stage, full / empty of each q^
   // tile
-  static constexpr int BAR = KS + STAGES * KS_TILE;
-  static constexpr int BYTES = BAR + (4 * STAGES + 2 * CONSUMERS) * 8 + 1024;
+  static constexpr int BAR = KS + KST * KS_TILE;
+  static constexpr int BYTES =
+      BAR + (2 * KST + 2 * VST + 2 * CONSUMERS) * 8 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
 // TMA of ROWS rows (n0.., head h, sample b) of a q^ or K tensor into a tile
@@ -271,13 +305,18 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   using R = Rows<D, QK8>;
   static_assert(QK8 || PV8, "the bf16 kernels are attention_sm90.cu's");
   constexpr bool PER_KEY = S::PER_KEY;
-  constexpr int STAGES = S::STAGES;
+  constexpr int KST = S::KST, VST = S::VST;
+  // D = 256: the consumers' P.V lands before their next S is issued (the
+  // registers; see "D = 256" above), and K8b's in PV_PARTS column parts
+  constexpr bool WIDE = D == 256;
+  constexpr bool CHUNKED = WIDE && PV8 && !TWO_PASS;
+  constexpr int PV_PARTS = 4;  // K8b's column parts at D = 256
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
-  const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * STAGES;
-  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
-  const uint32_t full_q = empty_v + 8 * STAGES;
+  const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * KST;
+  const uint32_t empty_k = full_v + 8 * VST, empty_v = empty_k + 8 * KST;
+  const uint32_t full_q = empty_v + 8 * VST;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
   const int k_per_item = TWO_PASS ? 2 * ntiles : ntiles;  // K ring tiles
@@ -295,10 +334,12 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < KST; ++s) {
       mbar_init(full_k + 8 * s, 1);
-      mbar_init(full_v + 8 * s, 1);
       mbar_init(empty_k + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(full_v + 8 * s, 1);
       mbar_init(empty_v + 8 * s, CONSUMERS * 4);
     }
     for (int c = 0; c < CONSUMERS; ++c) {
@@ -311,7 +352,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int wg = threadIdx.x / WG;
   if (wg == 0) {
-    // ---- producer: one thread loads the q^ tiles, then keeps the ring full
+    // ---- producer: one thread loads the q^ tiles, then keeps the rings full
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       tma_prefetch(&tm_q);
@@ -331,8 +372,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         // K tile t into the ring's tile kc (and its per-key scales)
         auto load_k = [&](int kc, int t) {
-          const int s = kc % STAGES;
-          mbar_wait(empty_k + 8 * s, ((kc / STAGES) & 1) ^ 1);
+          const int s = kc % KST;
+          mbar_wait(empty_k + 8 * s, ((kc / KST) & 1) ^ 1);
           mbar_arrive_expect_tx(full_k + 8 * s, S::K_TILE + S::KS_TILE);
           load_rows<D, QK8, KEY_TILE>(sb + S::K + s * S::K_TILE, &tm_k,
                                       full_k + 8 * s, h, t * KEY_TILE, b);
@@ -346,8 +387,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int k2 = kbase + (TWO_PASS ? ntiles : 0);
         for (int t = 0; t < ntiles; ++t) {
           load_k(k2 + t, t);
-          const int vc = vbase + t, s = vc % STAGES;
-          mbar_wait(empty_v + 8 * s, ((vc / STAGES) & 1) ^ 1);
+          const int vc = vbase + t, s = vc % VST;
+          mbar_wait(empty_v + 8 * s, ((vc / VST) & 1) ^ 1);
           mbar_arrive_expect_tx(full_v + 8 * s, S::V_TILE);
           const uint32_t dst = sb + S::V + s * S::V_TILE;
           if constexpr (PV8) {
@@ -378,11 +419,14 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // K8b: the next tile's levels, packed under the P.V that reads p
     uint32_t pn[NP];
     float acc[D / 2];
-    int pv[PV8 ? D / 2 : 1];  // one tile's s32 P.V (K8b)
+    // the s32 P.V: K8a's sum over every key; one tile's (K8b), at D = 256
+    // one PV_PARTS-th of its columns
+    constexpr int PVN = !PV8 ? 1 : CHUNKED ? D / 2 / PV_PARTS : D / 2;
+    int pv[PVN];
 #pragma unroll
     for (int i = 0; i < KEY_TILE / 2; ++i) s[i] = 0;
 #pragma unroll
-    for (int i = 0; i < (PV8 ? D / 2 : 1); ++i) pv[i] = 0;
+    for (int i = 0; i < PVN; ++i) pv[i] = 0;
 
     // Ping-pong, as in attention_sm90.cu: named barriers TURN + c, each met
     // by this consumer's sync and the other's arrive; consumer 0 goes
@@ -422,8 +466,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // issue S = q^ k^T of the K ring's tile kc
       auto issue_scores = [&](int kc) {
-        const int st = kc % STAGES;
-        mbar_wait(full_k + 8 * st, (kc / STAGES) & 1);
+        const int st = kc % KST;
+        mbar_wait(full_k + 8 * st, (kc / KST) & 1);
         const uint32_t kb = sb + S::K + st * S::K_TILE;
         wgmma_fence();
 #pragma unroll
@@ -439,11 +483,13 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // bf16(p) v; K8b pv = pq v_q; K8a pv += pq v_q (one s32 sum over every
       // key: its p is against the true row max, so there is no rescale)
       auto issue_pv = [&](int t, const uint32_t (&pa)[NP]) {
-        const int vc = vbase + t, st = vc % STAGES;
-        mbar_wait(full_v + 8 * st, (vc / STAGES) & 1);
+        const int vc = vbase + t, st = vc % VST;
+        mbar_wait(full_v + 8 * st, (vc / VST) & 1);
         const uint32_t vb = sb + S::V + st * S::V_TILE;
         wgmma_fence();
-        if constexpr (PV8) {
+        if constexpr (CHUNKED) {
+          // run_pv issues K8b's parts itself
+        } else if constexpr (PV8) {
 #pragma unroll
           for (int kk = 0; kk < KEY_TILE / 32; ++kk) {
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1],
@@ -460,9 +506,13 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         wgmma_commit();
       };
-      // this warp is done with a stage of K or V, or with its q^ tile
-      auto release = [&](uint32_t empty, int ring_tile) {
-        if (lane == 0) mbar_arrive(empty + 8 * (ring_tile % STAGES));
+      // this warp is done with a stage of K (the K ring's tile kc) or V
+      // (the V ring's tile vc), or with its q^ tile
+      auto release_k = [&](int kc) {
+        if (lane == 0) mbar_arrive(empty_k + 8 * (kc % KST));
+      };
+      auto release_v = [&](int vc) {
+        if (lane == 0) mbar_arrive(empty_v + 8 * (vc % VST));
       };
       auto release_q = [&]() {
         if (lane == 0) mbar_arrive(empty_q + 8 * c);
@@ -490,7 +540,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                              (i & 2) ? qs1 : qs0, (i & 2) ? kx1 : kx0));
         } else if constexpr (QK8) {
           const float* ks = reinterpret_cast<const float*>(
-              smem + S::KS + (kc % STAGES) * S::KS_TILE);
+              smem + S::KS + (kc % KST) * S::KS_TILE);
 #pragma unroll
           for (int j = 0; j < KEY_TILE / 8; ++j) {
             float k0 = 1.f, k1 = 1.f;
@@ -620,7 +670,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // whose softmax has run). K8a sums pv in s32 over every key instead.
       float a0p = 0.f, a1p = 0.f;
       auto add_pv = [&]() {
-        if constexpr (PV8 && !TWO_PASS) {
+        if constexpr (PV8 && !TWO_PASS && !CHUNKED) {
 #pragma unroll
           for (int j = 0; j < D / 8; ++j) {
             acc[4 * j] = fmaf(acc[4 * j], a0p, i2f(pv[4 * j]));
@@ -643,7 +693,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           hand_over();
           wgmma_wait<0>();
           reg_fence(s);
-          release(empty_k, kbase + t);
+          release_k(kbase + t);
           if constexpr (!QK8) {
             mask(t);
 #pragma unroll
@@ -699,7 +749,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait<0>();
       reg_fence(s);
       dequant(k2);
-      release(empty_k, k2);
+      release_k(k2);
       if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
       mask(0);
       softmax(a0, a1);
@@ -722,7 +772,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait<1>();       // S of tile t done
         reg_fence(s);
         dequant(k2 + t);
-        release(empty_k, k2 + t);
+        release_k(k2 + t);
         if (t == ntiles - 1) release_q();
         mask(t);
         softmax(a0, a1);  // while P.V of tile t-1 and the other's run
@@ -740,7 +790,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         reg_fence(acc);
         reg_fence(pi);
         reg_fence(pv);
-        release(empty_v, vbase + t - 1);
+        release_v(vbase + t - 1);
         add_pv();
         a0p = a0;
         a1p = a1;
@@ -766,10 +816,89 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         reg_fence(acc);
         reg_fence(pl);
         reg_fence(pv);
-        release(empty_v, vbase + ntiles - 1);
+        release_v(vbase + ntiles - 1);
         add_pv();
       };
-      if constexpr (PV8) {
+      // D = 256: P.V of key tile t from the fragments in pa, waited for and
+      // added before the caller issues anything more; the turn handed over
+      // after the last issue where `hand`. K8b's PV_PARTS parts of D /
+      // PV_PARTS columns go one after the other through pv, each added as
+      // acc = acc * alpha + fp32(pv) once it has landed.
+      auto run_pv = [&](int t, uint32_t (&pa)[NP], bool hand) {
+        if constexpr (CHUNKED) {
+          constexpr int PART = D / PV_PARTS;  // columns of a part
+          const int vc = vbase + t, st = vc % VST;
+          mbar_wait(full_v + 8 * st, (vc / VST) & 1);
+          const uint32_t vb = sb + S::V + st * S::V_TILE;
+#pragma unroll
+          for (int part = 0; part < PV_PARTS; ++part) {
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KEY_TILE / 32; ++kk) {
+              const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1],
+                                     pa[4 * kk + 2], pa[4 * kk + 3]};
+              wgmma_s8_rs<PART>(
+                  pv, a, desc_s8(vb + part * PART * KEY_TILE, kk), kk > 0);
+            }
+            wgmma_commit();
+            if (part == PV_PARTS - 1 && hand) hand_over();
+            wgmma_wait<0>();
+            reg_fence(pv);
+            reg_fence(pa);
+#pragma unroll
+            for (int i = 0; i < PART / 2; ++i) {
+              const int o = part * (PART / 2) + i;  // column group o / 4
+              acc[o] = fmaf(acc[o], (i & 2) ? a1p : a0p, i2f(pv[i]));
+            }
+          }
+          release_v(vc);
+        } else {
+          issue_pv(t, pa);
+          if (hand) hand_over();
+          wgmma_wait<0>();
+          reg_fence(acc);
+          reg_fence(pa);
+          reg_fence(pv);
+          release_v(vbase + t);
+          add_pv();
+        }
+      };
+      if constexpr (WIDE) {
+        // D = 256, one consumer's products in turn: P.V of tile t-1 issued
+        // and landed, then S of tile t, then its softmax while the other
+        // consumer's products run (the ping-pong alone overlaps them)
+        for (int t = 1; t < ntiles; ++t) {
+          take_turn();
+          run_pv(t - 1, p, false);
+          issue_scores(k2 + t);
+          hand_over();
+          wgmma_wait<0>();
+          reg_fence(s);
+          dequant(k2 + t);
+          release_k(k2 + t);
+          if (t == ntiles - 1) release_q();
+          mask(t);
+          softmax(a0, a1);
+          if constexpr (!PV8 && !TWO_PASS) {  // K7q: acc to this tile's max
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+              acc[4 * j] *= a0;
+              acc[4 * j + 1] *= a0;
+              acc[4 * j + 2] *= a1;
+              acc[4 * j + 3] *= a1;
+            }
+          }
+          a0p = a0;
+          a1p = a1;
+          pack_p(p);
+        }
+        take_turn();
+        run_pv(ntiles - 1, p, c == 0 || ji + 1 < n_local);
+        if constexpr (PV8 && TWO_PASS) {  // K8a: the s32 sum over every key
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] = (float)pv[i];
+        }
+      } else if constexpr (PV8) {
         int t = 1;
         for (; t + 1 < ntiles; t += 2) {
           step(t, p, pn);
@@ -911,6 +1040,7 @@ int dispatch(const Args& a, int D) {
     case 32: return launch_int8<32, QK8, PV8, TWO_PASS>(a);
     case 64: return launch_int8<64, QK8, PV8, TWO_PASS>(a);
     case 128: return launch_int8<128, QK8, PV8, TWO_PASS>(a);
+    case 256: return launch_int8<256, QK8, PV8, TWO_PASS>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -920,7 +1050,7 @@ int dispatch(const Args& a, int D) {
 // Every entry point: q, k, v, out (B, N, H*D) bf16, contiguous, 16-byte
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); the scratch of `Args`; D the instance's head
-// dim (16, 32, 64, 128) and dn <= D the model's (attention_common.cuh);
+// dim (16, 32, 64, 128, 256) and dn <= D the model's (attention_common.cuh);
 // int8_qk (K8a, K8b) selects int8 scores under the int8 P.V (K4's for K8a,
 // K7q's for K8b), else bf16 ones (K1's, K7's). Each returns 0, or the first
 // error: a cudaError_t of a launch or the CUresult of a tensor-map encode.

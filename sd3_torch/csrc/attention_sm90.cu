@@ -1,7 +1,9 @@
 // K1 and K7, the bf16 joint-attention forwards, and K5, the flash-attention
 // forward of training, for NVIDIA Hopper (sm_90a): one kernel,
 // attn_sm90_kernel<D, Softmax>, on wgmma and TMA with a warp-specialised
-// ring of K / V tiles.
+// ring of K / V tiles, at head dims D = 16, 32, 64, 128 and 256 (bf16 heads
+// of 129 to 256 values run zero-padded at 256; past 256, and fp32 at every
+// head dim, attention_fp32.cu's mma.sync instances take them).
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py (both reached through
 // _pallas_fused, at :642 and :660):
@@ -54,10 +56,10 @@
 //        stage frees once its scores are computed, a V stage once its P.V
 //        has run. The tensor maps are 4-D views (D, H, N, B) of the
 //        (B, N, H*D) tensors with boxes (D, 1, rows, 1), swizzled 32, 64 or
-//        128 bytes for D = 16, 32, 64 and as two 128-byte atom columns for
-//        D = 128; TMA zero-fills the rows past N, and the softmax masks the
-//        padded keys of the ragged last tile (a zero key scores 0, not
-//        -inf).
+//        128 bytes for D = 16, 32, 64 and as two (four) 128-byte atom
+//        columns for D = 128 (256); TMA zero-fills the rows past N, and the
+//        softmax masks the padded keys of the ragged last tile (a zero key
+//        scores 0, not -inf).
 //      - Warpgroups 1 and 2, the consumers, own 64 query rows each. Per key
 //        tile: S = q^ k^T by wgmma m64n128k16 with A (q^) and B (the K
 //        tile) from shared memory, K-major; the softmax on the fp32 score
@@ -114,6 +116,27 @@
 // tensor-core rate, each operand tile read from shared memory once per
 // warpgroup rather than once per warp) and TMA (no thread spends an
 // instruction on a copy) are what it does about the products.
+//
+// D = 256 (K1W, K7W, K5W: heads of 129 to 256 values in bf16). A consumer's
+// accumulator, 64 rows x 256 fp32 over its 128 threads, is 128 of its 240
+// registers. Beside it the loop above holds a tile's scores, their bf16 p
+// and the p that the in-flight P.V reads: ptxas spilled 472-868 bytes and
+// serialized the wgmmas (advisory C7512) at 64-key tiles, and a K1 call
+// took 0.130 ms against 0.080 with this design and the same preps (B 2, N
+// 1178, H 5, H100; PERF.md). So at
+// D = 256 each consumer lets its P.V of tile t-1 land before it issues S
+// of tile t: scores and p are never in flight together, nothing spills,
+// and the softmax overlaps the other consumer's products alone (the
+// ping-pong). Tiles of 64 keys (WIDE_KEY_TILE) for all three softmaxes in
+// two stages of 32 KB K and V tiles beside the 64 KB of q^: 128-key tiles
+// would leave room for one stage, which the ring could not refill under the
+// products. K7 rounds p against the running max of these 64 keys
+// (K7_KEY_TILE_256 in ops/fused_attention.py, its plain version's
+// block_k). P.V is one wgmma m64n256k16 a k-step. What bounds it: at B 2,
+// N 1178, H 5 the products are 14.2 G FLOP, 0.0144 ms at 989 TFLOP/s, the
+// exp2s 0.0036 ms on the SFU (a quarter: one exp2 against a score's 4D =
+// 1024 FLOP); and 100 CTAs of 128 rows fill 100 of the 132 SMs, one
+// partial wave.
 
 #include <type_traits>
 
@@ -145,26 +168,35 @@ struct Online {};   // K7: the running row max
 struct Flash {};    // K5: the running row max of raw scores, lse out
 }  // namespace Softmax
 
+// keys per K / V tile of every instance at D = 256 (see key_tile)
+constexpr int WIDE_KEY_TILE = 64;
+
 // Keys per K / V tile of attn_sm90_kernel<D, SM>: KEY_TILE, but 64 for K5 at
-// D = 128. There a consumer thread holds a tile's scores (KT / 2 registers),
-// their bf16 p (KT / 4) and the accumulator (D / 2): 160 at 128 keys, which
-// with the addresses, row statistics and the softmax's temporaries spilled
-// 208 bytes of the 240 registers (ptxas); 64 keys hold 112. K1 and K7 keep
-// 128 keys at every D: K7 rounds p against the running max of its tile, which
-// its plain version reproduces at K7_KEY_TILE.
+// D = 128 and for all three at D = 256. A consumer thread holds a tile's
+// scores (KT / 2 registers), their bf16 p (KT / 4) and the accumulator
+// (D / 2): K5 at D = 128 with 128 keys held 160, which with the addresses,
+// row statistics and the softmax's temporaries spilled 208 bytes of the 240
+// registers (ptxas); 64 keys hold 112. At D = 256 see "D = 256" above. K1
+// and K7 keep 128 keys up to D = 128. K7 rounds p against the running max
+// of its tile, which its plain version reproduces with block_k =
+// K7_KEY_TILE (128) or, at D = 256, K7_KEY_TILE_256 (WIDE_KEY_TILE, 64);
+// K1's bounded shift and K5's true lse do not depend on the tile.
 template <int D, class SM>
 __host__ __device__ constexpr int key_tile() {
-  return D == 128 && std::is_same<SM, Softmax::Flash>::value ? 64 : KEY_TILE;
+  return D == 256 ? WIDE_KEY_TILE
+         : D == 128 && std::is_same<SM, Softmax::Flash>::value ? 64
+                                                               : KEY_TILE;
 }
 
 // Shared memory of attn_sm90_kernel<D, *> with KT-key tiles, from a
 // 1024-byte aligned base; every tile in the swizzled layout of
 // SwizzledRows<D> (sm90.cuh). Four stages of tiles up to 16 KB, three of
-// larger ones (K1 / K7 at D = 128: 32 KB).
+// larger ones (K1 / K7 at D = 128: 32 KB), two at D = 256 (32 KB tiles
+// beside 64 KB of q^: 192 KB of the 227 KB a block may take).
 template <int D, int KT = KEY_TILE>
 struct Sm90 : SwizzledRows<D> {
   static constexpr int KV_TILE = KT * D * 2;        // one K or V tile
-  static constexpr int STAGES = KV_TILE > 16384 ? 3 : 4;
+  static constexpr int STAGES = D == 256 ? 2 : KV_TILE > 16384 ? 3 : 4;
   static constexpr int Q_TILE = QROWS * D * 2;      // one consumer's q^
   static constexpr int Q = 0;                       // [CONSUMERS] q^ tiles
   static constexpr int K = Q + CONSUMERS * Q_TILE;  // [STAGES] K tiles
@@ -173,6 +205,7 @@ struct Sm90 : SwizzledRows<D> {
   // tile
   static constexpr int BAR = V + STAGES * KV_TILE;
   static constexpr int BYTES = BAR + (4 * STAGES + 2 * CONSUMERS) * 8 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
 // TMA of ROWS rows (n0.., head h, sample b) into a tile at `dst`, one box
@@ -215,6 +248,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
   constexpr bool FLASH = std::is_same<SM, Softmax::Flash>::value;
   constexpr int STAGES = S::STAGES;
+  // D = 256: each consumer's P.V lands before its next S is issued (see the
+  // key-tile loop)
+  constexpr bool SERIAL = D == 256;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
@@ -461,41 +497,71 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
       softmax(0, a0, a1);
       pack_p();
-      for (int t = 1; t < ntiles; ++t) {
-        take_turn();
-        issue_scores(t);   // S of tile t ...
-        issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
-        hand_over();
-        wgmma_wait<1>();   // S of tile t done
-        reg_fence(s);
-        release(empty_k, t);
-        if (t == ntiles - 1) release_q();
-        softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
-        // The wait for that P.V, behind a branch on the softmax's sums that
-        // always takes the first arm: ptxas hoists a wait to the top of its
-        // basic block, which put this one, and the whole softmax after it,
-        // behind the P.V it should overlap (seen in the SASS). The branch
-        // ends the block after the softmax.
-        if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
-            0xffffffffu) {
+      if constexpr (SERIAL) {
+        for (int t = 1; t < ntiles; ++t) {
+          // D = 256 (see the file's head): P.V of tile t-1 lands before S
+          // of tile t is issued
+          take_turn();
+          issue_pv(t - 1);
           wgmma_wait<0>();
-        } else {
+          reg_fence(acc);
+          reg_fence(p);
+          release(empty_v, t - 1);
+          issue_scores(t);
+          hand_over();
           wgmma_wait<0>();
-          __trap();
-        }
-        reg_fence(acc);
-        reg_fence(p);
-        release(empty_v, t - 1);
-        if constexpr (!BOUNDED) {
+          reg_fence(s);
+          release(empty_k, t);
+          if (t == ntiles - 1) release_q();
+          softmax(t, a0, a1);
+          if constexpr (!BOUNDED) {
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            acc[4 * j] *= a0;
-            acc[4 * j + 1] *= a0;
-            acc[4 * j + 2] *= a1;
-            acc[4 * j + 3] *= a1;
+            for (int j = 0; j < D / 8; ++j) {
+              acc[4 * j] *= a0;
+              acc[4 * j + 1] *= a0;
+              acc[4 * j + 2] *= a1;
+              acc[4 * j + 3] *= a1;
+            }
           }
+          pack_p();
         }
-        pack_p();
+      } else {
+        for (int t = 1; t < ntiles; ++t) {
+          take_turn();
+          issue_scores(t);   // S of tile t ...
+          issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
+          hand_over();
+          wgmma_wait<1>();   // S of tile t done
+          reg_fence(s);
+          release(empty_k, t);
+          if (t == ntiles - 1) release_q();
+          softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
+          // The wait for that P.V, behind a branch on the softmax's sums that
+          // always takes the first arm: ptxas hoists a wait to the top of its
+          // basic block, which put this one, and the whole softmax after it,
+          // behind the P.V it should overlap (seen in the SASS). The branch
+          // ends the block after the softmax.
+          if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
+              0xffffffffu) {
+            wgmma_wait<0>();
+          } else {
+            wgmma_wait<0>();
+            __trap();
+          }
+          reg_fence(acc);
+          reg_fence(p);
+          release(empty_v, t - 1);
+          if constexpr (!BOUNDED) {
+#pragma unroll
+            for (int j = 0; j < D / 8; ++j) {
+              acc[4 * j] *= a0;
+              acc[4 * j + 1] *= a0;
+              acc[4 * j + 2] *= a1;
+              acc[4 * j + 3] *= a1;
+            }
+          }
+          pack_p();
+        }
       }
       take_turn();
       issue_pv(ntiles - 1);
@@ -551,20 +617,21 @@ int launch_sm90(const Args& a) {
   e = launch_k_prep<D, false>(a.k, a.ck, a.sk, a.k_prep, a.k_max2, a.B, a.N,
                               a.H, a.eps_k, a.dn, a.st);
   if (e != 0) return e;
+  constexpr int KT = key_tile<D, SM>();
+  constexpr int BYTES = Sm90<D, KT>::BYTES;
   CUtensorMap tm_q, tm_k, tm_v;
-  e = encode_heads(&tm_q, a.q_prep, 2, Sm90<D>::W, a.B, a.N, a.H, D, QROWS);
+  e = encode_heads(&tm_q, a.q_prep, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, QROWS);
   if (e != 0) return e;
-  e = encode_heads(&tm_k, a.k_prep, 2, Sm90<D>::W, a.B, a.N, a.H, D,
-                   KEY_TILE);
+  e = encode_heads(&tm_k, a.k_prep, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, KT);
   if (e != 0) return e;
-  e = encode_heads(&tm_v, a.v, 2, Sm90<D>::W, a.B, a.N, a.H, D, KEY_TILE);
+  e = encode_heads(&tm_v, a.v, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, KT);
   if (e != 0) return e;
   auto kernel = attn_sm90_kernel<D, SM>;
-  e = allow_smem(kernel, Sm90<D>::BYTES);
+  e = allow_smem(kernel, BYTES);
   if (e != 0) return e;
   dim3 grid((a.N + BLOCK_Q - 1) / BLOCK_Q, a.H, a.B);
   const View vo{(long long)a.N * a.H * D, D, (long long)a.H * D};
-  kernel<<<grid, SM90_THREADS, Sm90<D>::BYTES, a.st>>>(
+  kernel<<<grid, SM90_THREADS, BYTES, a.st>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(a.q_norm),
       static_cast<const float*>(a.k_max2), static_cast<bf16*>(a.out), vo,
       nullptr, 0.f, a.N, a.N, a.H, a.B);
@@ -608,6 +675,7 @@ int dispatch(const Args& a, int D) {
     case 32: return launch_sm90<32, SM>(a);
     case 64: return launch_sm90<64, SM>(a);
     case 128: return launch_sm90<128, SM>(a);
+    case 256: return launch_sm90<256, SM>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -618,8 +686,8 @@ int dispatch(const Args& a, int D) {
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); q_prep, k_prep (B, N, H*D) bf16 scratch;
 // q_norm (B*H, N) fp32 scratch (K1; K7 takes none); k_max2 (B*H) fp32, zero
-// on entry. D is the instance's head dim (16, 32, 64, 128) and dn <= D the
-// model's: heads of dn < D values arrive zero-padded to D, tables too (see
+// on entry. D is the instance's head dim (16, 32, 64, 128, 256) and dn <= D
+// the model's: heads of dn < D values arrive zero-padded to D, tables too (see
 // attention_common.cuh). Each returns 0, or the first error: a cudaError_t
 // of a launch or the CUresult of a tensor-map encode.
 #define SD3_SM90_PARAMS                                                     \
@@ -643,7 +711,7 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
 }
 
 // K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v, D 16,
-// 32, 64 or 128. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
+// 32, 64, 128 or 256. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
 // with the head dim contiguous, 16-byte aligned start and (b, h, n)
 // strides, the element strides in `strides`, three per tensor (q, k, v,
 // o). Returns 0, or the first error: a cudaError_t of the launch or the
@@ -659,6 +727,7 @@ extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
     case 32: return launch_flash<32>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 128: return launch_flash<128>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 256: return launch_flash<256>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

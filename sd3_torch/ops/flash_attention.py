@@ -24,18 +24,23 @@ tensors. fp32 tensors (JAX's fp32 kernels run their products at
 Precision.HIGHEST) take their fp32 instances K5F, K6AF and K6BF
 (`csrc/attention_fp32.cu`: 3xTF32 mma.sync, fp32-accurate products).
 
-The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128) and
-one set for every multiple of 128 past it: there bf16 tensors take K5W,
-K6AW and K6BW (`csrc/attention_fp32.cu`: one tf32 product of the exact
-bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF
-and K6BWF (3xTF32). They sum the scores over 128-wide chunks of the head,
+The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128),
+and the forward on bf16 one more at `WGMMA_WIDE` (256), K5_256: K5's
+wgmma + TMA kernel there, its 64 x 256 fp32 accumulator 128 registers of
+a consumer thread (64-key tiles, each consumer's P.V landed before its
+next scores; `csrc/attention_sm90.cu` says why). Past those, one set for
+every multiple of 128: bf16 tensors take K5W (past 256), K6AW and K6BW
+(past 128; `csrc/attention_fp32.cu`: one tf32 product of the exact bf16
+values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF and
+K6BWF (3xTF32). Those sum the scores over 128-wide chunks of the head,
 staged through shared memory a chunk at a time, and a block writes one
 128-wide column slice of the output, so their shared memory does not grow
-with the head dim. Any other head dim is zero-padded to the next instance
-(up to 128) or multiple of 128, as the JAX wrapper pads D to a multiple
-of 128 lanes: q, k, v (and out, dO) padded on D, the kernel run with the
-caller's scale, and out, dq, dk, dv sliced back. Zero columns add nothing
-to the scores, to lse or to delta.
+with the head dim. `flash_kernel` names the kernel of each (entry point,
+dtype, head dim). Any other head dim is zero-padded to the next instance
+(up to 256 for the bf16 forward, 128 for the rest) or multiple of 128, as
+the JAX wrapper pads D to a multiple of 128 lanes: q, k, v (and out, dO)
+padded on D, the kernel run with the caller's scale, and out, dq, dk, dv
+sliced back. Zero columns add nothing to the scores, to lse or to delta.
 
 Their wrappers are `flash_fwd`, `flash_dq` and `flash_dkv`. Beside them,
 their plain PyTorch versions `flash_fwd_plain`, `flash_dq_plain` and
@@ -70,6 +75,8 @@ from sd3_torch.kernels import Kernel, check
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances; past 128 the
 WIDE = 128                      # wide ones, at every multiple of WIDE
+WGMMA_WIDE = 256                # and the wgmma forwards' bf16 instance past
+                                # 128 (K5 and the fused kernels, not K6a/K6b)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -103,12 +110,30 @@ K6AWF = Kernel("flash_attention_dq_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BWF = Kernel("flash_attention_dkv_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
+# K5 on bf16 at head dim 256 (129 to 256, padded): the wgmma kernel's
+# instance there, counted apart from K5's
+K5_256 = Kernel("flash_attention_fwd_256", "attention_sm90.cu",
+                "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
 # (bf16, fp32) kernels up to 128 and past it
 _KERNELS = {
     "fwd": {"small": (K5, K5F), "wide": (K5W, K5WF)},
     "dq": {"small": (K6A, K6AF), "wide": (K6AW, K6AWF)},
     "dkv": {"small": (K6B, K6BF), "wide": (K6BW, K6BWF)},
 }
+
+
+def flash_kernel(which: str, dtype: torch.dtype, d: int) -> Kernel:
+    """The kernel of `which` ("fwd", "dq" or "dkv") for tensors of `dtype`
+    at head dim d: up to 128 K5 / K6a / K6b (fp32: their F instances); the
+    forward on bf16 at 129 to 256 K5_256, K5's wgmma instance at 256; past
+    that, and the backward and fp32 at every head dim past 128, the wide
+    mma.sync instances (W, WF)."""
+    dp = instance_dim(d)
+    fp32 = dtype == torch.float32
+    if which == "fwd" and dp == WGMMA_WIDE and not fp32:
+        return K5_256
+    size = "wide" if dp > HEAD_DIMS[-1] else "small"
+    return _KERNELS[which][size][fp32]
 
 
 # ---- plain versions ------------------------------------------------------
@@ -217,8 +242,7 @@ def _check_cuda(which: str, rows, keys) -> Kernel:
     `rows` (B, H, N, D) and the key-row tensors `keys` (B, H, M, D),
     checked: one CUDA device, one dtype (bf16 or fp32), those shapes."""
     q = rows[0]
-    size = "wide" if instance_dim(q.shape[-1]) > HEAD_DIMS[-1] else "small"
-    kern = _KERNELS[which][size][q.dtype == torch.float32]
+    kern = flash_kernel(which, q.dtype, q.shape[-1])
     if q.device.type != "cuda":
         raise ValueError(f"no {kern.name} path for device {q.device}")
     if q.ndim != 4:

@@ -24,7 +24,8 @@ Single-KV, replacing the branches of `_fused_fwd_kernel`:
   every key, o = acc / l * v_scale with l the sum of the unrounded p.
 Streaming, replacing `_stream_fwd_kernel`:
 - K7, bf16 (`csrc/attention_sm90.cu`, K1's kernel): an online softmax
-  (true running max) over `K7_KEY_TILE` keys at a time;
+  (true running max) over `K7_KEY_TILE` keys at a time (`K7_KEY_TILE_256`
+  at head dim 256);
 - K7q, `int8_qk` (`csrc/attention_int8_sm90.cu`, K4's kernel, over
   `K7Q_KEY_TILE` keys at a time): k^ prepped in fp32 and quantized per row
   (per head), q^ per row, s = s32 * s_q * s_k[key], bf16 P.V;
@@ -43,20 +44,27 @@ output in fp32, as the plain versions keep them).
 The CUDA sources' heads say what bounds each kernel on an H100.
 
 Head dims: the kernels take every even head dim. They have instances at
-the flash kernels' `HEAD_DIMS` (16, 32, 64, 128); past 128 every kernel
-runs on one set of instances for every multiple of 128
-(`csrc/attention_fp32.cu`, bf16 and
-fp32: K1W, K7W, K4W, K7QW, K8AW, K8BW and their F instances): q and k
-prepped in their own launches (the RMSNorm over the true head dim, then the
-rotation, scale*log2(e) folded into the q tables; int8 rows with their
-scales over the whole head), then mma.sync attention that sums the scores
-over 128-wide chunks of the head, staged through shared memory a chunk at
-a time, each block writing one 128-wide column slice of the output, so that
-shared memory does not grow with the head dim. Any other head dim is
-zero-padded to the next instance (48 to 64, 192 to 256), q / k / v and the
-tables zero-padded on each head and the output sliced back, the true head
-dim passed to the prep so that its RMSNorm takes the mean over the head's
-own values.
+the flash kernels' `HEAD_DIMS` (16, 32, 64, 128) and, on bf16, at 256
+(`WGMMA_WIDE`): K1_256, K7_256, K4_256, K7Q_256, K8A_256 and K8B_256, the
+same wgmma + TMA kernels and entry points at D = 256, counted apart (a
+64 x 256 fp32 accumulator is 128 of a consumer's registers, so each
+consumer's P.V lands before its next scores, K1 / K7 take 64-key tiles
+(K7 rounds p over `K7_KEY_TILE_256` keys), the int8 kernels keep their
+128-key tiles and K8b's s8 P.V runs in four 64-column parts: the sources'
+heads say why). Past 256 on bf16, and past 128 on fp32, every kernel runs
+on one set of instances for every multiple of 128 (`csrc/attention_fp32.cu`:
+K1W, K7W, K4W, K7QW, K8AW, K8BW and their F instances): q and k prepped in
+their own launches (the RMSNorm over the true head dim, then the rotation,
+scale*log2(e) folded into the q tables; int8 rows with their scales over
+the whole head), then mma.sync attention that sums the scores over
+128-wide chunks of the head, staged through shared memory a chunk at a
+time, each block writing one 128-wide column slice of the output, so that
+shared memory does not grow with the head dim. `kernel_for` names the
+kernel of each (kernel, dtype, head dim). Any other head dim is
+zero-padded to the next instance (48 to 64, 160 and 192 to 256, 300 to
+384), q / k / v and the tables zero-padded on each head and the output
+sliced back, the true head dim passed to the prep so that its RMSNorm
+takes the mean over the head's own values.
 
 Beside them, the plain PyTorch versions (the JAX kernels' arithmetic):
 `composition` (K1; K8a with `int8_pv`), `composition_int8_qk` (K4; K8a),
@@ -86,8 +94,8 @@ import numpy as np
 import torch
 
 from sd3_torch.kernels import Kernel, check
-from sd3_torch.ops.flash_attention import (HEAD_DIMS, flash_attention,
-                                           instance_dim)
+from sd3_torch.ops.flash_attention import (HEAD_DIMS, WGMMA_WIDE,
+                                           flash_attention, instance_dim)
 from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
@@ -98,13 +106,16 @@ SINGLE_KV_MAX = 2048        # padded tokens of the single-KV kernels (beyond:
 STREAM_BLOCK = 2176         # JAX's streaming K block target (rows)
 
 # the key tiles of the card's kernels, which the plain versions' `block_k`
-# must take to round p against the same running max: K1 and K7's
-# (csrc/attention_sm90.cu KEY_TILE), and K4, K8a, K7q and K8b's
-# (csrc/attention_int8_sm90.cu KEY_TILE; the int8 V^T of K8a and K8b is
-# padded to it)
+# must take to round p against the same running max (`stream_key_tile`):
+# K1 and K7's (csrc/attention_sm90.cu KEY_TILE), and K4, K8a, K7q and K8b's
+# at every head dim (csrc/attention_int8_sm90.cu KEY_TILE; the int8 V^T of
+# K8a and K8b is padded to it)
 K7_KEY_TILE = 128
 K8B_KEY_TILE = 128
 K7Q_KEY_TILE = 128
+# K7's at head dim 256 (csrc/attention_sm90.cu WIDE_KEY_TILE: the registers
+# of a 64 x 256 accumulator leave room for 64-key tiles only)
+K7_KEY_TILE_256 = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1 and K7 (and their fp32 instances) share one signature: q, k, v, the
@@ -160,7 +171,41 @@ K4W, K4WF, _ = _WIDE[K4]
 K7QW, K7QWF, _ = _WIDE[K7Q]
 K8AW, K8AWF, _ = _WIDE[K8A]
 K8BW, K8BWF, _ = _WIDE[K8B]
+_MMA_WIDE = {kern for w in _WIDE.values() for kern in w[:2]}
+# bf16 at head dim 256 (129 to 256, padded): the wgmma kernels' instances
+# there (csrc/attention_sm90.cu, csrc/attention_int8_sm90.cu at D = 256),
+# the same entry points as K1 .. K8b, counted apart
+_D256 = {k: Kernel(f"{k.name}_256", k.source, k.symbol, argtypes=k.argtypes)
+         for k in (K1, K7, K4, K7Q, K8A, K8B)}
+K1_256, K7_256, K4_256, K7Q_256, K8A_256, K8B_256 = _D256.values()
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
+
+
+def kernel_for(base: Kernel, dtype: torch.dtype, d: int) -> Kernel:
+    """The kernel that runs `base` (K1, K7, K4, K7q, K8a or K8b) on q / k /
+    v of `dtype` at head dim d (padded to `instance_dim(d)`): up to 128
+    `base` (fp32: its F instance, `_FP32`); bf16 at 129 to 256 its wgmma
+    instance at 256 (`_D256`); past 256, and fp32 past 128, its wide
+    mma.sync instance (`_WIDE`)."""
+    dp = instance_dim(d)
+    fp32 = dtype == torch.float32
+    if dp <= HEAD_DIMS[-1]:
+        return _FP32[base] if fp32 else base
+    if dp == WGMMA_WIDE and not fp32:
+        return _D256[base]
+    return _WIDE[base][fp32]
+
+
+def stream_key_tile(int8_qk: bool, int8_pv: bool, d: int) -> int:
+    """The key tile over which the card's bf16 streaming kernel at head dim
+    d rounds p (the plain version's `block_k` for holding it to the card):
+    K8b's K8B_KEY_TILE, K7q's K7Q_KEY_TILE, K7's K7_KEY_TILE, at 129 to 256
+    K7_KEY_TILE_256."""
+    if int8_pv:
+        return K8B_KEY_TILE
+    if int8_qk:
+        return K7Q_KEY_TILE
+    return K7_KEY_TILE_256 if instance_dim(d) == WGMMA_WIDE else K7_KEY_TILE
 
 
 def rope_row_tables(angles_img, n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
@@ -228,8 +273,9 @@ def composition_stream(q, k, v, cosq, sinq, cosk, sink, scale: float,
     (sd3_tpu/ops/fused_attention.py:364-427). q^ from the q tables times
     scale*log2(e), q^ and k^ rounded to the input dtype, fp32 scores, an
     online softmax in exp2 over blocks of `block_k` keys (default: JAX's
-    rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`, K8b
-    `K8B_KEY_TILE`). Tables
+    rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`, at head
+    dim 256 `K7_KEY_TILE_256`, K8b `K8B_KEY_TILE`: `stream_key_tile`).
+    Tables
     un-scaled, as for `composition`."""
     n = q.shape[1]
     o = _online(_float_scores(q, k, cosq, sinq, cosk, sink, scale, eps_q,
@@ -421,13 +467,14 @@ def _pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
 
 
 def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
-            num_heads, int8_qk=False):
-    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b; on fp32 q / k / v its fp32
-    instance, `_FP32`; past head dim 128 its wide instance, `_WIDE`; for
-    K8a / K8b `int8_qk` picks the scores under the int8 P.V); tables already
-    carry scale*log2(e). Head dims between the instances run zero-padded to
-    the next (`flash_attention.instance_dim`). Allocates the outputs and the kernels'
-    scratch."""
+            num_heads, int8_qk=False, route: Kernel | None = None):
+    """Launch `kern` (K1, K4, K7, K7q, K8a or K8b) through the instance
+    `kernel_for` picks, or `route` (one of `kern`'s instances at this head
+    dim: the wide mma.sync one at 256, for timing it beside the wgmma one);
+    for K8a / K8b `int8_qk` picks the scores under the int8 P.V; tables
+    already carry scale*log2(e). Head dims between the instances run
+    zero-padded to the next (`flash_attention.instance_dim`). Allocates the
+    outputs and the kernels' scratch."""
     b, n, f = q.shape
     d = f // num_heads
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
@@ -442,11 +489,8 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
         raise ValueError(f"{f} features / {num_heads} heads: the heads must "
                          "be of one even head dim (the rotation takes pairs)")
     base, dp = kern, instance_dim(d)
-    wide = dp > HEAD_DIMS[-1]
-    if wide:
-        kern = _WIDE[base][q.dtype == torch.float32]
-    elif q.dtype == torch.float32:
-        kern = _FP32[base]
+    kern = route or kernel_for(base, q.dtype, d)
+    wide = kern in _MMA_WIDE
     cq, sq, ck, sk = (t.to(q.device, torch.float32).contiguous()
                       for t in (cq, sq, ck, sk))
     for t in (cq, sq, ck, sk):
@@ -462,7 +506,7 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
     if not wide and base in (K1, K7):
         # q^ and k^ in the input dtype, K1's ||q^|| per row, max ||k^||^2 per
         # (b, h)
-        q_norm = torch.empty(bh * n if kern is K1 else 0,
+        q_norm = torch.empty(bh * n if kern in (K1, K1_256) else 0,
                              dtype=torch.float32, device=dev)
         args = [torch.empty_like(q), q_norm, torch.empty_like(k),
                 torch.zeros(bh, dtype=torch.float32, device=dev), out]

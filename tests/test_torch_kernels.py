@@ -182,7 +182,8 @@ def test_every_kernel_symbol_is_in_its_source():
               tfd.K10AF, tfd.K10BF, tfl.K5W, tfl.K6AW, tfl.K6BW, tfl.K5WF,
               tfl.K6AWF, tfl.K6BWF, tfa.K1W, tfa.K1WF, tfa.K7W, tfa.K7WF,
               tfa.K4W, tfa.K4WF, tfa.K7QW, tfa.K7QWF, tfa.K8AW, tfa.K8AWF,
-              tfa.K8BW, tfa.K8BWF):
+              tfa.K8BW, tfa.K8BWF, tfa.K1_256, tfa.K7_256, tfa.K4_256,
+              tfa.K7Q_256, tfa.K8A_256, tfa.K8B_256, tfl.K5_256):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -213,6 +214,215 @@ def test_wide_kernels_shared_memory_does_not_grow_with_the_head_dim():
         assert tfl.instance_dim(d) == want
 
 
+# ---- the head-dim-256 instances' shared memory, from their sources -------
+
+_C_TOKEN = re.compile(r"\s*(\d+|[A-Za-z_]\w*|::|==|!=|<=|>=|&&|\|\||[-+*/%<>?:()!,])")
+
+
+class _CSource:
+    """The `constexpr int` globals and the `static constexpr int / bool`
+    members of the template structs of some csrc/ sources, evaluated as
+    their compiler would: a struct instance's members from its template
+    arguments, its base's and its `using` aliases'."""
+
+    def __init__(self, *names):
+        self.glob, self.structs = {}, {}
+        for name in names:
+            src = (kernels.CSRC_DIR / name).read_text()
+            for m in re.finditer(r"^constexpr int (\w+) = ([^;]+);", src,
+                                 re.M):
+                self.glob[m.group(1)] = m.group(2)  # evaluated when read
+            for m in re.finditer(r"^template <([^>]*)>\nstruct (\w+)"
+                                 r"(?: : (\w+)<([^>]*)>)? \{\n(.*?)^\};",
+                                 src, re.M | re.S):
+                params = [re.sub(r"\s*=.*", "", a).split()[-1]
+                          for a in m.group(1).split(",")]
+                self.structs[m.group(2)] = (params, m.group(3), m.group(4),
+                                            m.group(5))
+
+    def instance(self, name, *args):
+        params, base, base_args, body = self.structs[name]
+        assert len(args) == len(params), (name, args)
+        env = dict(zip(params, args))
+        members = {}
+        if base:
+            members.update(self.instance(base, *(
+                self.eval(a, env) for a in base_args.split(","))))
+        env.update(members)
+        for m in re.finditer(r"(?:using (\w+) = (\w+)<([^>]*)>;)|"
+                             r"(?:static constexpr (?:int|bool) (\w+) =\s*"
+                             r"([^;]+);)", body):
+            if m.group(1):
+                inst = self.instance(m.group(2), *(
+                    self.eval(a, env) for a in m.group(3).split(",")))
+                env.update({f"{m.group(1)}::{k}": v for k, v in inst.items()})
+            else:
+                env[m.group(4)] = members[m.group(4)] = self.eval(m.group(5),
+                                                                  env)
+        return members
+
+    def eval(self, text, env):
+        toks = _C_TOKEN.findall(text)
+        pos = [0]
+        peek = lambda: toks[pos[0]] if pos[0] < len(toks) else None
+
+        def take(t=None):
+            tok = toks[pos[0]]
+            assert t is None or tok == t, (tok, t, text)
+            pos[0] += 1
+            return tok
+
+        def primary(no_gt):
+            tok = take()
+            if tok == "(":
+                v = expr(False)
+                take(")")
+                return v
+            if tok.isdigit():
+                return int(tok)
+            if tok in ("true", "false"):
+                return tok == "true"
+            if tok in self.structs and peek() == "<":
+                take("<")
+                args = [binary(0, True)]
+                while peek() == ",":
+                    take(",")
+                    args.append(binary(0, True))
+                take(">")
+                take("::")
+                return self.instance(tok, *args)[take()]
+            if peek() == "::":
+                take("::")
+                tok = f"{tok}::{take()}"
+            return env[tok] if tok in env else self.eval(self.glob[tok], {})
+
+        def unary(no_gt):
+            if peek() == "!":
+                take()
+                return not unary(no_gt)
+            if peek() == "-":
+                take()
+                return -unary(no_gt)
+            return primary(no_gt)
+
+        levels = [("||",), ("&&",), ("==", "!="), ("<", ">", "<=", ">="),
+                  ("+", "-"), ("*", "/", "%")]
+        ops = {"||": lambda a, b: a or b, "&&": lambda a, b: a and b,
+               "==": lambda a, b: a == b, "!=": lambda a, b: a != b,
+               "<": lambda a, b: a < b, ">": lambda a, b: a > b,
+               "<=": lambda a, b: a <= b, ">=": lambda a, b: a >= b,
+               "+": lambda a, b: a + b, "-": lambda a, b: a - b,
+               "*": lambda a, b: a * b, "/": lambda a, b: a // b,
+               "%": lambda a, b: a % b}
+
+        def binary(level, no_gt):
+            if level == len(levels):
+                return unary(no_gt)
+            v = binary(level + 1, no_gt)
+            while peek() in levels[level] and not (no_gt and peek() == ">"):
+                op = take()
+                v = ops[op](v, binary(level + 1, no_gt))
+            return v
+
+        def expr(no_gt):
+            cond = binary(0, no_gt)
+            if peek() != "?":
+                return cond
+            take("?")
+            a = expr(no_gt)
+            take(":")
+            b = expr(no_gt)
+            return a if cond else b
+
+        v = expr(False)
+        assert pos[0] == len(toks), text
+        return int(v)
+
+
+SMEM_PER_BLOCK = 232448  # the H100's opt-in limit of one block (227 KB)
+D256_INSTANCES = [
+    *[("attention_sm90.cu", "Sm90", sm) for sm in ("Bounded", "Online",
+                                                   "Flash")],
+    *[("attention_int8_sm90.cu", "SmemI8", flags) for flags in (
+        (1, 0, 1), (1, 0, 0), (0, 1, 1), (1, 1, 1), (0, 1, 0), (1, 1, 0))]]
+
+
+@pytest.mark.parametrize("source,struct,variant", D256_INSTANCES)
+def test_head_dim_256_instances_fit_in_shared_memory(source, struct,
+                                                     variant):
+    # the wgmma kernels' D = 256 instances (K1, K7, K5; K4, K7q, K8a over
+    # both scores, K8b over both): the shared memory their launches ask for,
+    # from the source's own constants and struct members, within one
+    # block's limit, and an instance of each behind its dispatch
+    src = (kernels.CSRC_DIR / source).read_text()
+    c = _CSource("sm90.cuh", source)
+    if struct == "Sm90":
+        # every softmax takes WIDE_KEY_TILE-key tiles at D = 256
+        assert re.search(r"return D == 256 \? WIDE_KEY_TILE", src)
+        kt = c.eval("WIDE_KEY_TILE", {})
+        smem = c.instance("Sm90", 256, kt)
+        assert smem["STAGES"] >= 2
+        assert "case 256: return launch_sm90<256, SM>(a);" in src
+        assert "case 256: return launch_flash<256>(" in src
+    else:
+        smem = c.instance("SmemI8", 256, *map(bool, variant))
+        assert smem["KST"] >= 2 and smem["VST"] >= 1
+        assert ("case 256: return launch_int8<256, QK8, PV8, TWO_PASS>(a);"
+                in src)
+    assert smem["BYTES"] <= SMEM_PER_BLOCK, (variant, smem)
+    assert "static_assert(BYTES <= 232448" in src
+    # the same evaluation gives what the instances up to 128 have run with
+    if struct == "Sm90":
+        assert c.instance("Sm90", 64, 128)["STAGES"] == 4
+        assert c.instance("Sm90", 128, 128)["STAGES"] == 3
+    else:
+        small = c.instance("SmemI8", 128, *map(bool, variant))
+        assert small["KST"] == small["VST"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 384, 512])
+def test_attention_routes_by_dtype_and_head_dim(d, dtype):
+    # (dtype, head dim) -> the kernel each entry point launches: up to 128
+    # the wgmma kernels (fp32: their F instances); bf16 at 129-256 (padded
+    # to 256) the wgmma kernels' D = 256 instances, counted apart, from the
+    # same sources and entry points; past 256 in bf16, and past 128 in fp32,
+    # the wide mma.sync instances of attention_fp32.cu; the flash backward
+    # past 128 stays on them too
+    fp32 = dtype == torch.float32
+    dp = tfl.instance_dim(d)
+    bases = (tfa.K1, tfa.K7, tfa.K4, tfa.K7Q, tfa.K8A, tfa.K8B)
+    for base in bases:
+        kern = tfa.kernel_for(base, dtype, d)
+        if dp <= 128:
+            assert kern is (tfa._FP32[base] if fp32 else base)
+        elif dp == 256 and not fp32:
+            assert kern is tfa._D256[base]
+            assert (kern.source, kern.symbol) == (base.source, base.symbol)
+            assert kern.name == base.name + "_256"
+            assert kern.source in ("attention_sm90.cu",
+                                   "attention_int8_sm90.cu")
+        else:
+            assert kern is tfa._WIDE[base][fp32]
+            assert kern.source == "attention_fp32.cu"
+    fwd, dq, dkv = (tfl.flash_kernel(w, dtype, d) for w in ("fwd", "dq",
+                                                            "dkv"))
+    if dp <= 128:
+        want = (tfl.K5F, tfl.K6AF, tfl.K6BF) if fp32 else (tfl.K5, tfl.K6A,
+                                                           tfl.K6B)
+    elif fp32:
+        want = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF)
+    else:
+        want = (tfl.K5_256 if dp == 256 else tfl.K5W, tfl.K6AW, tfl.K6BW)
+    assert (fwd, dq, dkv) == want
+    assert tfl.K5_256.source == tfl.K5.source == "attention_sm90.cu"
+    # the key tile the plain version must take to meet the card's K7
+    tile = tfa.stream_key_tile(False, False, d)
+    assert tile == (tfa.K7_KEY_TILE_256 if dp == 256 else tfa.K7_KEY_TILE)
+    assert tfa.stream_key_tile(True, False, d) == tfa.K7Q_KEY_TILE
+    assert tfa.stream_key_tile(False, True, d) == tfa.K8B_KEY_TILE
+
+
 def test_flash_backward_is_the_wgmma_source():
     # K6a and K6b are the wgmma + TMA kernels of flash_bwd_sm90.cu; the
     # mma.sync dq / dk-dv kernels are gone, and K5's source holds none of
@@ -231,13 +441,17 @@ def test_flash_backward_is_the_wgmma_source():
 def test_flash_forward_is_the_hopper_attention_source():
     # K5 is the Softmax::Flash instance of K1 / K7's wgmma + TMA kernel, one
     # launch on raw q, k, v through tensor maps of their strided views; the
-    # mma.sync source it had is gone; head dim 256 is the shared-memory
-    # kernel of attention_fp32.cu (K5W)
+    # mma.sync source it had is gone; head dim 256 in bf16 is an instance of
+    # the same kernel (K5_256); past 256, and fp32 past 128, the
+    # shared-memory kernel of attention_fp32.cu (K5W, K5WF)
     assert tfl.K5.source == tfa.K1.source == tfa.K7.source
     src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
-    for d in tfl.HEAD_DIMS:
-        assert (f"launch_flash<{d}>" in entry) == (d <= 128), d
+    for d in (*tfl.HEAD_DIMS, tfl.WGMMA_WIDE):
+        assert f"launch_flash<{d}>" in entry, d
+    assert "launch_flash<384>" not in entry
+    assert tfl.K5_256.source == tfl.K5.source
+    assert tfl.K5_256.symbol == tfl.K5.symbol
     assert tfl.K5W.source == "attention_fp32.cu"
     launch = src[src.index("int launch_flash("):]
     launch = launch[:launch.index("\n}\n")]
@@ -334,11 +548,13 @@ def test_k10_k_max_matches_its_source():
 @pytest.mark.parametrize("const,source,name", [
     ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
     ("K8B_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
-    ("K7Q_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE")])
+    ("K7Q_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
+    ("K7_KEY_TILE_256", "attention_sm90.cu", "WIDE_KEY_TILE")])
 def test_key_tiles_match_their_sources(const, source, name):
     # the plain versions' block_k that the card comparisons take is the
-    # kernel's own key tile: K1 / K7's, and K4 / K8a / K7q / K8b's (the int8
-    # V^T of K8a and K8b is padded to it)
+    # kernel's own key tile: K1 / K7's (at head dim 256 WIDE_KEY_TILE), and
+    # K4 / K8a / K7q / K8b's at every head dim (the int8 V^T of K8a and K8b
+    # is padded to it)
     src = (kernels.CSRC_DIR / source).read_text()
     m = re.search(rf"constexpr int {name} = (\d+);", src)
     assert m is not None, (source, name)
@@ -960,10 +1176,11 @@ def test_fused_attention_past_head_dim_128_on_the_card(
     base = tfa._INFERENCE.get((int8_qk, int8_pv, streaming),
                               (tfa.K7 if streaming else tfa.K1,))[0]
     fp32 = dtype == torch.float32
-    if d > 128:
-        kern = tfa._WIDE[base][fp32]
-    else:
-        kern = tfa._FP32[base] if fp32 else base
+    # bf16 up to 256: the wgmma kernels (D 256: their instances there);
+    # past it, and fp32 past 128, the wide mma.sync instances
+    kern = tfa.kernel_for(base, dtype, d)
+    if not fp32 and d <= 256:
+        assert kern.source in ("attention_sm90.cu", "attention_int8_sm90.cu")
     before = {kk.name: kk.launches for kk in kernels.REGISTRY}
     got = tfa.fused_attention(qd, kd, vd, nh, *(t.to(dev) for t in tabs),
                               scale, int8_qk=int8_qk, int8_pv=int8_pv,
@@ -976,7 +1193,8 @@ def test_fused_attention_past_head_dim_128_on_the_card(
                                                     nh]
     kw = dict(int8_pv=True) if int8_pv else {}
     if streaming:  # the kernels' key tiles
-        kw["block_k"] = tfa.K8B_KEY_TILE
+        kw["block_k"] = (tfa.K8B_KEY_TILE if fp32
+                         else tfa.stream_key_tile(int8_qk, int8_pv, d))
         plain = (tfa.composition_stream_int8_qk if int8_qk
                  else tfa.composition_stream)
     else:
@@ -1641,9 +1859,10 @@ def test_fp32_k10_kernels_match_plain_on_the_card(cuda_device, b, n, k,
             a, gate, r, *ws[:2]))
 
 
-# head dims past the wgmma instances' 128, on the wide instances at every
-# multiple of 128: 256, and 160 padded to it, 384, 300 padded to it, and
-# 512, at ragged lengths and over many key tiles
+# head dims past 128: the forward's wgmma instance at 256 in bf16 (K5_256),
+# and 160 padded to it, the wide instances at every multiple of 128 (the
+# backward at every one, the forward past 256 and fp32 at all): 384, 300
+# padded to it, and 512, at ragged lengths and over many key tiles
 FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
                      (1, 2, 1178, 256), (1, 2, 300, 384), (2, 2, 65, 300),
                      (1, 2, 129, 512)]
@@ -1653,8 +1872,9 @@ FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
 @pytest.mark.parametrize("shape", FLASH_WIDE_SHAPES)
 def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                                                            no_tf32, shape):
-    # K5W, K6AW, K6BW on bf16 (the limits of the bf16 flash kernels), K5WF,
-    # K6AWF, K6BWF on fp32 (FP32_REL_L2), each against its plain version
+    # K5_256 (up to 256) or K5W, then K6AW, K6BW on bf16 (the limits of the
+    # bf16 flash kernels), K5WF, K6AWF, K6BWF on fp32 (FP32_REL_L2), each
+    # against its plain version
     q, k, v, do = _flash_case(shape, cuda_device, seed=3)
     scale = shape[-1] ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
@@ -1663,7 +1883,9 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
     dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    assert _launched(before) == {kk.name: 1 for kk in (tfl.K5W, tfl.K6AW,
+    fwd = tfl.K5_256 if shape[-1] <= 256 else tfl.K5W
+    assert fwd is tfl.flash_kernel("fwd", torch.bfloat16, shape[-1])
+    assert _launched(before) == {kk.name: 1 for kk in (fwd, tfl.K6AW,
                                                        tfl.K6BW)}
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert out.shape == dq.shape == dk.shape == dv.shape == shape
@@ -1705,7 +1927,7 @@ FLASH_KV_SHAPES = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
 @pytest.mark.parametrize("shape", FLASH_KV_SHAPES)
 def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
         cuda_device, no_tf32, shape):
-    # K5, K6a, K6b (K5W, K6AW, K6BW past 128) on bf16 within the FLASH
+    # K5, K6a, K6b (K5_256, K6AW, K6BW at 256) on bf16 within the FLASH
     # limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32 within
     # FP32_REL_L2, each against its plain version at M != N: lse and delta
     # by query row, dk and dv by key row
@@ -1716,8 +1938,8 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
     scale = d ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
     wide = d > 128
-    bf16 = (tfl.K5W, tfl.K6AW, tfl.K6BW) if wide else (tfl.K5, tfl.K6A,
-                                                        tfl.K6B)
+    bf16 = (tfl.K5_256, tfl.K6AW, tfl.K6BW) if wide else (tfl.K5, tfl.K6A,
+                                                           tfl.K6B)
     fp32 = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF) if wide else (tfl.K5F, tfl.K6AF,
                                                           tfl.K6BF)
     before = {kk.name: kk.launches for kk in kernels.REGISTRY}

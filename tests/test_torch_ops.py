@@ -266,8 +266,9 @@ def test_fused_attention_at_head_dim_8_matches_jax_kernel(int8_qk):
 def test_fused_attention_api_at_head_dim_256_matches_jax_kernel():
     # JAX's fused_dual_flash_attention takes head dim 256 (one head per
     # lane block; its model route sends only head dims dividing 128); the
-    # port's plain version matches it here, and its card kernels run it on
-    # the wide instances (tests/test_torch_kernels.py::
+    # port's plain version matches it here, and its card kernels run it in
+    # bf16 on the wgmma kernels' D = 256 instances, in fp32 on the wide ones
+    # (tests/test_torch_kernels.py::
     # test_fused_attention_past_head_dim_128_on_the_card)
     q, k, v, ws, angles, n_img, scale = _attn_case(2, 256, 2, 3, 4, True,
                                                    seed=9)
@@ -284,7 +285,8 @@ def test_fused_attention_api_past_the_dividers_of_128_matches_jax_kernel(
         d, int8_qk):
     # head dims JAX's fused attention takes with one head per lane block
     # (_pack_factor 1): the port's card kernels run them padded (48 -> 64,
-    # 96 -> 128, 192 -> 256) or on the wide instance (384), and their plain
+    # 96 -> 128, 192 -> 256: in bf16 the wgmma kernels' D = 256 instances)
+    # or on the wide instance (384), and their plain
     # version matches JAX's kernel here. Float: the fp32 tolerance. int8
     # QK^T: atol 2e-3, one int8 level of q^ or k^ crossing a rounding
     # boundary on a last-bit difference of the prep (at d 192 a one-ulp

@@ -130,6 +130,21 @@ def test_stream_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+def test_stream_plain_at_the_head_dim_256_tile_matches_jax_kernel(
+        monkeypatch):
+    # at head dim 256 the card's K7 rounds p against the running max of
+    # K7_KEY_TILE_256-key tiles (its accumulator leaves registers for no
+    # more): the plain version over those blocks, at 330 tokens (a ragged
+    # last tile; JAX's kernel takes keys padded to a multiple of 128),
+    # against JAX at the same blocks (SD3_FLASH_BK)
+    case = _case(2, 256, 12, 25, 30, True, seed=11, b=1)
+    got, want, _ = _both(case, 2, block_k=tfa.K7_KEY_TILE_256,
+                         monkeypatch=monkeypatch)
+    assert case[0].shape[1] % tfa.K7_KEY_TILE_256 != 0
+    assert tfa.stream_key_tile(False, False, 256) == tfa.K7_KEY_TILE_256
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("int8_qk", [False, True])
 @pytest.mark.parametrize("nh,d", [(1, 16), (3, 32)])
 def test_int8_pv_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
