@@ -24,14 +24,14 @@ namespace {
 constexpr int PREP_THREADS = 256;
 constexpr int PREP_ROWS = 64;   // K rows per k_prep block
 
-// Rows a prep block takes at head dim D: PREP_ROWS, but at D = 256, where
-// a warp takes one row at a time, one row a warp. A model of heads of 256
-// has few of them (five at width 1280): 64-row blocks gave 190 blocks at B
-// 2, N 1178, each looping over 8 rows in turn, too few to hide the loads'
-// latency (q_prep 12 us, k_prep 21 us for 6 MB each way).
+// Rows a prep block takes at head dim D: PREP_ROWS, but from D = 256 on,
+// where a warp takes one row at a time, one row a warp. A model of heads
+// of 256 has few of them (five at width 1280): 64-row blocks gave 190
+// blocks at B 2, N 1178, each looping over 8 rows in turn, too few to hide
+// the loads' latency (q_prep 12 us, k_prep 21 us for 6 MB each way).
 template <int D>
 __host__ __device__ constexpr int prep_rows() {
-  return D == 256 ? PREP_THREADS / 32 : PREP_ROWS;
+  return D >= 256 ? PREP_THREADS / 32 : PREP_ROWS;
 }
 
 // Row geometry of the prep: TPR threads share one row of D values, each

@@ -2,8 +2,9 @@
 // single KV), K8a (int8 P.V, single KV), K7q (int8 QK^T, streaming) and K8b
 // (int8 P.V, streaming), one kernel, attn_int8_sm90_kernel<D, QK8, PV8,
 // TWO_PASS>, on wgmma and TMA with a warp-specialised ring of K / V tiles,
-// at head dims D = 16, 32, 64, 128 and 256 on bf16 rows (129 to 256
-// zero-padded at 256; past 256, and fp32 rows, attention_fp32.cu).
+// at head dims D = 16, 32, 64, 128, 256, 384 and 512 on bf16 rows (129 to
+// 512 zero-padded at 256, 384 or 512; past 512, and fp32 rows,
+// attention_fp32.cu).
 // QK8: int8 scores (else bf16); PV8: int8 P.V (else bf16); TWO_PASS: the
 // true row max in a first pass over K (the single-KV kernels), else an
 // online softmax over 128-key tiles (the streaming ones).
@@ -173,6 +174,34 @@
 // What bounds them at B 2, N 1178, H 5: the bf16 products 0.0144 ms at 989
 // TFLOP/s (each s8 product half of its term), the exp2s 0.0036 ms, and
 // 100 items of 128 rows on 132 SMs.
+//
+// D = 384 and 512 (K4_384 .. K8B_512: heads of 257 to 512 values). Each item
+// writes one of two column slices of DV = D / 2 columns (a grid dimension;
+// attention_sm90.cu's CTAs past 256 take 64 rows whose two consumers each write
+// one slice, a layout not tried here), its consumers computing the scores over
+// the whole head (s8 k-steps of 32 bytes, or bf16 of 16 values) and P.V over
+// their DV columns (bf16 m64nDVk16; int8 V^T's DV rows of the slice, m64nDVk32;
+// K8b's s32 P.V in DV / 64 parts of 64 columns, K8a's one m64nDVk32 sum over
+// every key); the same S in the same order in both slices, so the levels, the
+// max and l agree bit for bit. The loop is the D = 256 one (P.V landed before
+// the next S; the accumulator is 96 / 128 registers). The key tiles stay 128
+// keys (K8B_KEY_TILE, K7Q_KEY_TILE: the quantization), but a 128-key K tile of
+// the whole head in bf16 (96 / 128 KB) does not fit twice beside q^ (96 / 128
+// KB): the K ring holds sub-tiles of KSUB keys (64 at D = 384, 32 at 512 over
+// bf16 scores; 64 for K4 / K7q at 512, whose bf16 V slice takes 64 KB), and the
+// S of a 128-key tile is issued a sub-tile a turn into its part of the score
+// registers, each sub-tile waited for, dequantized (its per-key scales with it)
+// and released before the next (SmemI8 has every ring). The q^ descriptors are
+// one descriptor plus constant offsets (k_step_offset, sm90.cuh): ptxas
+// otherwise kept every k-step's in registers. ptxas past 256: no spill at D =
+// 384; at 512 K8b over bf16 scores spills 416 bytes, K8a over them 164, K8b
+// over K7q's 52 (the accumulator and the scores take 192 of 240 registers, and
+// four sub-tiles' turns a tile); a rolled sub-tile loop (one copy of the S
+// issue) spilled less but ran 1.5-1.9x slower (utils/wide_attention_diag.py,
+// H100). What bounds them at B 2, N 1178, H 5, D 384 / 512: the products with
+// QK^T twice, 0.0243 / 0.0324 ms (an s8 product half of its bf16 term; K8a over
+// bf16 scores, QK^T four times, 0.0485 / 0.0647); the preps, 25-78 us of a call
+// (q, k and V passes over (B, N, H*D) at 10 heads).
 
 #include <limits.h>
 
@@ -240,26 +269,45 @@ struct Rows {
 };
 
 // Shared memory of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>, from a
-// 1024-byte aligned base. KST stages of K tiles and VST of V tiles: four
-// each up to D = 64, three at D = 128; at D = 256 what fits 227 KB beside
-// the q^ tiles (K tiles of 32 KB in int8, 64 KB in bf16; V tiles of 32 KB
-// in int8 V^T, 64 KB in bf16): 2 + 2 (K4, K7q), 3 + 3 (int8 P.V over int8
-// scores), 2 + 1 (int8 P.V over bf16 scores, whose q^ takes 64 KB).
+// 1024-byte aligned base. KST stages of K sub-tiles (KSUB keys: KEY_TILE,
+// or fewer where two tiles of a whole bf16 head would not fit) and VST of
+// V tiles (a slice of DV columns past D = 256): four each up to D = 64,
+// three at D = 128; from D = 256 on what fits 227 KB beside the q^ tiles.
+// At D = 256 (K tiles of 32 KB in int8, 64 KB in bf16; V tiles of 32 KB in
+// int8 V^T, 64 KB in bf16): 2 + 2 (K4, K7q), 3 + 3 (int8 P.V over int8
+// scores), 2 + 1 (int8 P.V over bf16 scores, whose q^ takes 64 KB). At D =
+// 384 (q^ 48 KB int8, 96 KB bf16): 2 + 1 (K4, K7q: 48 KB K, 48 KB bf16 V
+// slices), 2 + 2 (int8 P.V over int8 scores: 48 KB K, 24 KB V^T slices), 2
+// + 1 (over bf16 scores: 64-key K sub-tiles of 48 KB). At D = 512 (q^ 64
+// KB int8, 128 KB bf16): 3 + 1 (K4, K7q: 64-key K sub-tiles of 32 KB, 64
+// KB V slices), 2 + 1 (int8 P.V over int8 scores: 64 KB K, 32 KB V^T), 2 +
+// 1 (over bf16 scores: 32-key sub-tiles of 32 KB).
 template <int D, bool QK8, bool PV8, bool TWO_PASS>
 struct SmemI8 {
   using R = Rows<D, QK8>;
   // int8 scores of the streaming kernels: a k scale per key, beside each K
-  // tile
+  // sub-tile
   static constexpr bool PER_KEY = QK8 && !TWO_PASS;
-  static constexpr int KST = D <= 64 ? 4 : D == 128 ? 3 : QK8 && PV8 ? 3 : 2;
-  static constexpr int VST = D <= 64 ? 4 : D == 128 ? 3 : QK8 ? (PV8 ? 3 : 2)
-                                                              : 1;
+  // the output columns of a CTA: past D = 256 one of two slices
+  static constexpr int DV = D > 256 ? D / 2 : D;
+  // keys of a K sub-tile: the S of a KEY_TILE-key tile is issued a
+  // sub-tile a turn
+  static constexpr int KSUB = D <= 256 ? KEY_TILE
+                              : !QK8 ? (D == 384 ? 64 : 32)
+                              : !PV8 && D == 512 ? 64 : KEY_TILE;
+  static constexpr int KST = D <= 64 ? 4 : D == 128 ? 3
+                             : D == 256 ? (QK8 && PV8 ? 3 : 2)
+                             : !QK8 ? 2
+                             : !PV8 && D == 512 ? 3 : 2;
+  static constexpr int VST = D <= 64 ? 4 : D == 128 ? 3
+                             : D == 256 ? (QK8 ? (PV8 ? 3 : 2) : 1)
+                             : QK8 && PV8 && D == 384 ? 2 : 1;
   static constexpr int Q_TILE = QROWS * R::BYTES;    // one consumer's q^
-  static constexpr int K_TILE = KEY_TILE * R::BYTES;
-  // int8 V^T: D rows of KEY_TILE bytes (128-byte swizzle); or bf16 V:
-  // KEY_TILE rows of D values (SwizzledRows<D>)
-  static constexpr int V_TILE = PV8 ? D * KEY_TILE : KEY_TILE * D * 2;
-  static constexpr int KS_TILE = PER_KEY ? KEY_TILE * 4 : 0;  // k scales
+  static constexpr int K_TILE = KSUB * R::BYTES;     // one K sub-tile
+  // int8 V^T: DV rows of KEY_TILE bytes (128-byte swizzle); or bf16 V:
+  // KEY_TILE rows of DV values (SwizzledRows<DV>)
+  static constexpr int V_TILE = PV8 ? DV * KEY_TILE : KEY_TILE * DV * 2;
+  static constexpr int KS_TILE = PER_KEY ? KSUB * 4 : 0;  // k scales
   static constexpr int Q = 0;                                // [CONSUMERS]
   static constexpr int K = Q + CONSUMERS * Q_TILE;           // [KST]
   static constexpr int V = K + KST * K_TILE;                 // [VST]
@@ -284,7 +332,8 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
 }
 
 // grid: min(SMs, items) persistent CTAs, each walking items (128 query
-// rows, head, sample) i, i + grid, ...; INT8_THREADS threads, SmemI8<D,
+// rows and one slice of DV output columns, head, sample; slices, then q
+// tiles fastest) i, i + grid, ...; INT8_THREADS threads, SmemI8<D,
 // QK8, PV8, TWO_PASS>::BYTES of dynamic shared memory. tm_q, tm_k: tensor
 // maps of q^ and k^ (int8 with QK8, else bf16; encode_heads); tm_v: of bf16
 // v (K4, K7q) or of int8 V^T (B*H*D, NP) (K8a, K8b); tm_ks: of the per-key
@@ -306,11 +355,15 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   static_assert(QK8 || PV8, "the bf16 kernels are attention_sm90.cu's");
   constexpr bool PER_KEY = S::PER_KEY;
   constexpr int KST = S::KST, VST = S::VST;
-  // D = 256: the consumers' P.V lands before their next S is issued (the
-  // registers; see "D = 256" above), and K8b's in PV_PARTS column parts
-  constexpr bool WIDE = D == 256;
+  constexpr int DV = S::DV, SLICES = D / DV;
+  // K sub-tiles of KSUB keys, SUB of them a key tile
+  constexpr int KSUB = S::KSUB, SUB = KEY_TILE / KSUB;
+  // from D = 256 on: the consumers' P.V lands before their next S is
+  // issued (the registers; see "D = 256" above), and K8b's in PV_PARTS
+  // column parts of 64
+  constexpr bool WIDE = D >= 256;
   constexpr bool CHUNKED = WIDE && PV8 && !TWO_PASS;
-  constexpr int PV_PARTS = 4;  // K8b's column parts at D = 256
+  constexpr int PV_PARTS = DV / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
@@ -319,18 +372,21 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_q = empty_v + 8 * VST;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
-  const int k_per_item = TWO_PASS ? 2 * ntiles : ntiles;  // K ring tiles
-  const int nqt = (N + BLOCK_Q - 1) / BLOCK_Q;
-  const int n_items = nqt * H * B;
+  // K ring sub-tiles of an item
+  const int k_per_item = (TWO_PASS ? 2 : 1) * ntiles * SUB;
+  const int nqs = (N + BLOCK_Q - 1) / BLOCK_Q * SLICES;  // (q tile, slice)s
+  const int n_items = nqs * H * B;
   const int n_local = (int)blockIdx.x < n_items
                           ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                           : 0;
-  // (q tile, head, sample) of this CTA's local item j, q tiles fastest
-  auto item_of = [&](int j, int& qt, int& h, int& b) {
+  // (q tile, slice, head, sample) of this CTA's local item j, slices, then
+  // q tiles fastest
+  auto item_of = [&](int j, int& qt, int& sl, int& h, int& b) {
     const int it = blockIdx.x + j * gridDim.x;
-    qt = it % nqt;
-    h = it / nqt % H;
-    b = it / (nqt * H);
+    qt = it % nqs / SLICES;
+    sl = it % SLICES;
+    h = it / nqs % H;
+    b = it / (nqs * H);
   };
 
   if (threadIdx.x == 0) {
@@ -360,8 +416,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch(&tm_v);
       if constexpr (PER_KEY) tma_prefetch(&tm_ks);
       for (int ji = 0; ji < n_local; ++ji) {
-        int qt, h, b;
-        item_of(ji, qt, h, b);
+        int qt, sl, h, b;
+        item_of(ji, qt, sl, h, b);
         const int bh = b * H + h;
         for (int c = 0; c < CONSUMERS; ++c) {  // once the last item's is done
           mbar_wait(empty_q + 8 * c, (ji & 1) ^ 1);
@@ -370,35 +426,39 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                    full_q + 8 * c, h,
                                    qt * BLOCK_Q + c * QROWS, b);
         }
-        // K tile t into the ring's tile kc (and its per-key scales)
-        auto load_k = [&](int kc, int t) {
+        // the KSUB keys from key n0 on into the K ring's sub-tile kc (and
+        // their per-key scales)
+        auto load_k = [&](int kc, int n0) {
           const int s = kc % KST;
           mbar_wait(empty_k + 8 * s, ((kc / KST) & 1) ^ 1);
           mbar_arrive_expect_tx(full_k + 8 * s, S::K_TILE + S::KS_TILE);
-          load_rows<D, QK8, KEY_TILE>(sb + S::K + s * S::K_TILE, &tm_k,
-                                      full_k + 8 * s, h, t * KEY_TILE, b);
+          load_rows<D, QK8, KSUB>(sb + S::K + s * S::K_TILE, &tm_k,
+                                full_k + 8 * s, h, n0, b);
           if constexpr (PER_KEY)
             tma_load_2d(sb + S::KS + s * S::KS_TILE, &tm_ks, full_k + 8 * s,
-                        t * KEY_TILE, bh);
+                        n0, bh);
         };
         const int kbase = ji * k_per_item, vbase = ji * ntiles;
         if constexpr (TWO_PASS)
-          for (int t = 0; t < ntiles; ++t) load_k(kbase + t, t);
-        const int k2 = kbase + (TWO_PASS ? ntiles : 0);
+          for (int i = 0; i < ntiles * SUB; ++i)
+            load_k(kbase + i, i * KSUB);
+        const int k2 = kbase + (TWO_PASS ? ntiles * SUB : 0);
         for (int t = 0; t < ntiles; ++t) {
-          load_k(k2 + t, t);
+          for (int u = 0; u < SUB; ++u)
+            load_k(k2 + t * SUB + u, t * KEY_TILE + u * KSUB);
           const int vc = vbase + t, s = vc % VST;
           mbar_wait(empty_v + 8 * s, ((vc / VST) & 1) ^ 1);
           mbar_arrive_expect_tx(full_v + 8 * s, S::V_TILE);
           const uint32_t dst = sb + S::V + s * S::V_TILE;
-          if constexpr (PV8) {
-            tma_load_2d(dst, &tm_v, full_v + 8 * s, t * KEY_TILE, bh * D);
+          if constexpr (PV8) {  // this slice's DV rows of V^T
+            tma_load_2d(dst, &tm_v, full_v + 8 * s, t * KEY_TILE,
+                        bh * D + sl * DV);
           } else {
-            using SV = SwizzledRows<D>;
+            using SV = SwizzledRows<DV>;
 #pragma unroll
             for (int c = 0; c < SV::COLS; ++c)
               tma_load_4d(dst + c * KEY_TILE * SV::W, &tm_v, full_v + 8 * s,
-                          c * SV::W / 2, h, t * KEY_TILE, b);
+                          sl * DV + c * SV::W / 2, h, t * KEY_TILE, b);
           }
         }
       }
@@ -418,10 +478,10 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t p[NP];
     // K8b: the next tile's levels, packed under the P.V that reads p
     uint32_t pn[NP];
-    float acc[D / 2];
-    // the s32 P.V: K8a's sum over every key; one tile's (K8b), at D = 256
-    // one PV_PARTS-th of its columns
-    constexpr int PVN = !PV8 ? 1 : CHUNKED ? D / 2 / PV_PARTS : D / 2;
+    float acc[DV / 2];
+    // the s32 P.V: K8a's sum over every key; one tile's (K8b), from D = 256
+    // on one PV_PARTS-th of its columns
+    constexpr int PVN = !PV8 ? 1 : CHUNKED ? DV / 2 / PV_PARTS : DV / 2;
     int pv[PVN];
 #pragma unroll
     for (int i = 0; i < KEY_TILE / 2; ++i) s[i] = 0;
@@ -437,11 +497,12 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto hand_over = [&]() { named_bar_arrive(other_turn, 2 * WG); };
 
     for (int ji = 0; ji < n_local; ++ji) {
-      int qt, h, b;
-      item_of(ji, qt, h, b);
+      int qt, sl, h, b;
+      item_of(ji, qt, sl, h, b);
       const int bh = b * H + h;
       const int kbase = ji * k_per_item, vbase = ji * ntiles;
-      const int k2 = kbase + (TWO_PASS ? ntiles : 0);  // the scoring pass
+      // the scoring pass's first K sub-tile
+      const int k2 = kbase + (TWO_PASS ? ntiles * SUB : 0);
       const int n0 = qt * BLOCK_Q + c * QROWS + warp * 16 + g;
       const int n1 = n0 + 8;                   // this thread's two rows
 
@@ -459,29 +520,46 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
       float kx0 = 0.f, kx1 = 0.f;  // K4: the exponent's shift (dequant)
       mbar_wait(full_q + 8 * c, ji & 1);  // this consumer's q^ tile has landed
 
-      // issue S = q^ k^T of the K ring's tile kc
-      auto issue_scores = [&](int kc) {
+      // issue S = q^ k^T of the K ring's sub-tile kc, sub-tile u of its
+      // key tile, into that sub-tile's score registers
+      auto issue_scores = [&](int kc, int u) {
         const int st = kc % KST;
         mbar_wait(full_k + 8 * st, (kc / KST) & 1);
         const uint32_t kb = sb + S::K + st * S::K_TILE;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < R::KSTEPS; ++kk) {
-          const uint64_t da = desc_k_major<R::HALF>(q_base, QROWS, kk);
-          const uint64_t db = desc_k_major<R::HALF>(kb, KEY_TILE, kk);
-          if constexpr (QK8) wgmma_s8<KEY_TILE>(s, da, db, kk > 0);
-          else wgmma_ss<KEY_TILE>(s, da, db, kk > 0);
+        for (int uu = 0; uu < SUB; ++uu) {
+          if (uu != u) continue;
+          Score(&su)[KSUB / 2] =
+              *reinterpret_cast<Score(*)[KSUB / 2]>(s + uu * (KSUB / 2));
+          // past D = 256 k-step 0's descriptors plus each k-step's offset,
+          // q^'s made opaque to the loop (k_step_offset, sm90.cuh)
+          uint64_t dq = desc_k_major<R::HALF>(q_base, QROWS, 0);
+          const uint64_t dk = desc_k_major<R::HALF>(kb, KSUB, 0);
+          if constexpr (D > 256) asm volatile("" : "+l"(dq));
+#pragma unroll
+          for (int kk = 0; kk < R::KSTEPS; ++kk) {
+            const uint64_t da =
+                D > 256 ? dq + k_step_offset<R::HALF>(QROWS, kk)
+                        : desc_k_major<R::HALF>(q_base, QROWS, kk);
+            const uint64_t db =
+                D > 256 ? dk + k_step_offset<R::HALF>(KSUB, kk)
+                        : desc_k_major<R::HALF>(kb, KSUB, kk);
+            if constexpr (QK8) wgmma_s8<KSUB>(su, da, db, kk > 0);
+            else wgmma_ss<KSUB>(su, da, db, kk > 0);
+          }
         }
         wgmma_commit();
       };
-      // issue P.V of key tile t, its A fragments in pa: K4, K7q acc +=
-      // bf16(p) v; K8b pv = pq v_q; K8a pv += pq v_q (one s32 sum over every
-      // key: its p is against the true row max, so there is no rescale)
+      // issue P.V of key tile t (this slice's DV columns), its A fragments
+      // in pa: K4, K7q acc += bf16(p) v; K8b pv = pq v_q; K8a pv += pq v_q
+      // (one s32 sum over every key: its p is against the true row max, so
+      // there is no rescale)
       auto issue_pv = [&](int t, const uint32_t (&pa)[NP]) {
         const int vc = vbase + t, st = vc % VST;
         mbar_wait(full_v + 8 * st, (vc / VST) & 1);
@@ -494,19 +572,20 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int kk = 0; kk < KEY_TILE / 32; ++kk) {
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1],
                                    pa[4 * kk + 2], pa[4 * kk + 3]};
-            wgmma_s8_rs<D>(pv, a, desc_s8(vb, kk), kk > 0 || (TWO_PASS && t > 0));
+            wgmma_s8_rs<DV>(pv, a, desc_s8(vb, kk),
+                            kk > 0 || (TWO_PASS && t > 0));
           }
         } else {
 #pragma unroll
           for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
             const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1],
                                    pa[4 * kk + 2], pa[4 * kk + 3]};
-            wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KEY_TILE, kk), 1);
+            wgmma_rs<DV>(acc, a, desc_mn_major<DV>(vb, KEY_TILE, kk), 1);
           }
         }
         wgmma_commit();
       };
-      // this warp is done with a stage of K (the K ring's tile kc) or V
+      // this warp is done with a stage of K (the K ring's sub-tile kc) or V
       // (the V ring's tile vc), or with its q^ tile
       auto release_k = [&](int kc) {
         if (lane == 0) mbar_arrive(empty_k + 8 * (kc % KST));
@@ -517,7 +596,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       auto release_q = [&]() {
         if (lane == 0) mbar_arrive(empty_q + 8 * c);
       };
-      // int8 scores of the K ring's tile kc dequantized in place. K4: the
+      // int8 scores of the K ring's sub-tile kc, sub-tile u of its key tile,
+      // dequantized in place. K4: the
       // exponent's argument s - max = s32 * (s_q s_k) - max, as one FFMA on
       // the biased bits b = bits(s32 + 0x4B400000) = s32 + 0x1.8p23:
       // b * (s_q s_k) + kx, kx = -(0x1.8p23 * (s_q s_k) + max) rounded once
@@ -532,21 +612,24 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // then s - m: p moves by ~1e-7 relative, far below its bf16
       // rounding). The per-key scales are read before the stage is
       // released.
-      auto dequant = [&](int kc) {
+      auto dequant = [&](int kc, int u) {
         if constexpr (TWO_PASS && !PV8) {
 #pragma unroll
-          for (int i = 0; i < KEY_TILE / 2; ++i)
+          for (int i = 0; i < KEY_TILE / 2; ++i) {
+            if (i / (KSUB / 2) != u) continue;
             set_f(s[i], fmaf(__int_as_float(s[i] + ROUND_MAGIC_BITS),
                              (i & 2) ? qs1 : qs0, (i & 2) ? kx1 : kx0));
+          }
         } else if constexpr (QK8) {
           const float* ks = reinterpret_cast<const float*>(
               smem + S::KS + (kc % KST) * S::KS_TILE);
 #pragma unroll
           for (int j = 0; j < KEY_TILE / 8; ++j) {
+            if (j / (KSUB / 8) != u) continue;
             float k0 = 1.f, k1 = 1.f;
             if constexpr (PER_KEY) {
               const float2 kk = *reinterpret_cast<const float2*>(
-                  ks + j * 8 + t4 * 2);
+                  ks + (j % (KSUB / 8)) * 8 + t4 * 2);
               k0 = kk.x;
               k1 = kk.y;
             }
@@ -672,7 +755,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       auto add_pv = [&]() {
         if constexpr (PV8 && !TWO_PASS && !CHUNKED) {
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < DV / 8; ++j) {
             acc[4 * j] = fmaf(acc[4 * j], a0p, i2f(pv[4 * j]));
             acc[4 * j + 1] = fmaf(acc[4 * j + 1], a0p, i2f(pv[4 * j + 1]));
             acc[4 * j + 2] = fmaf(acc[4 * j + 2], a1p, i2f(pv[4 * j + 2]));
@@ -681,6 +764,24 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
 
+      // S of a key tile from the K ring's sub-tiles kc0 .. kc0 + SUB - 1,
+      // each issued in a turn of its own, waited for, dequantized (`deq`)
+      // and released; `pre` issues what goes before the first in its turn
+      auto score_tile = [&](int kc0, bool deq, auto&& pre) {
+#pragma unroll
+        for (int u = 0; u < SUB; ++u) {
+          take_turn();
+          if (u == 0) pre();
+          issue_scores(kc0 + u, u);
+          hand_over();
+          wgmma_wait<0>();
+          reg_fence(s);
+          if (deq) dequant(kc0 + u, u);
+          release_k(kc0 + u);
+        }
+      };
+      auto nothing = [] {};
+
       if constexpr (TWO_PASS) {
         // pass 1: the true row max; of int8 scores as the integer max of the
         // s32 scores, of bf16 ones (K8a) as the max of the fp32 scores,
@@ -688,12 +789,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         int mx0 = INT_MIN, mx1 = INT_MIN;
         float fx0 = -INFINITY, fx1 = -INFINITY;
         for (int t = 0; t < ntiles; ++t) {
-          take_turn();
-          issue_scores(kbase + t);
-          hand_over();
-          wgmma_wait<0>();
-          reg_fence(s);
-          release_k(kbase + t);
+          score_tile(kbase + t * SUB, false, nothing);
           if constexpr (!QK8) {
             mask(t);
 #pragma unroll
@@ -743,13 +839,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
 
       float a0 = 1.f, a1 = 1.f;
-      take_turn();
-      issue_scores(k2);
-      hand_over();
-      wgmma_wait<0>();
-      reg_fence(s);
-      dequant(k2);
-      release_k(k2);
+      score_tile(k2, true, nothing);
       if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
       mask(0);
       softmax(a0, a1);
@@ -766,12 +856,12 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // writes pi after the wait.
       auto step = [&](int t, uint32_t (&pi)[NP], uint32_t (&pk)[NP]) {
         take_turn();
-        issue_scores(k2 + t);  // S of tile t ...
-        issue_pv(t - 1, pi);   // ... and P.V of tile t-1 on the tensor cores
+        issue_scores(k2 + t, 0);  // S of tile t (one sub-tile below 256) ...
+        issue_pv(t - 1, pi);      // ... and P.V of tile t-1 on the tensor cores
         hand_over();
-        wgmma_wait<1>();       // S of tile t done
+        wgmma_wait<1>();          // S of tile t done
         reg_fence(s);
-        dequant(k2 + t);
+        dequant(k2 + t, 0);
         release_k(k2 + t);
         if (t == ntiles - 1) release_q();
         mask(t);
@@ -798,7 +888,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           // K7q: the sums so far, against the last tile's running max, to
           // this tile's, before its P.V adds to them
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
+          for (int j = 0; j < DV / 8; ++j) {
             acc[4 * j] *= a0;
             acc[4 * j + 1] *= a0;
             acc[4 * j + 2] *= a1;
@@ -819,14 +909,14 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         release_v(vbase + ntiles - 1);
         add_pv();
       };
-      // D = 256: P.V of key tile t from the fragments in pa, waited for and
-      // added before the caller issues anything more; the turn handed over
-      // after the last issue where `hand`. K8b's PV_PARTS parts of D /
-      // PV_PARTS columns go one after the other through pv, each added as
-      // acc = acc * alpha + fp32(pv) once it has landed.
+      // From D = 256 on: P.V of key tile t from the fragments in pa, waited
+      // for and added before the caller issues anything more; the turn
+      // handed over after the last issue where `hand`. K8b's PV_PARTS parts
+      // of 64 columns go one after the other through pv, each added as acc
+      // = acc * alpha + fp32(pv) once it has landed.
       auto run_pv = [&](int t, uint32_t (&pa)[NP], bool hand) {
         if constexpr (CHUNKED) {
-          constexpr int PART = D / PV_PARTS;  // columns of a part
+          constexpr int PART = DV / PV_PARTS;  // columns of a part
           const int vc = vbase + t, st = vc % VST;
           mbar_wait(full_v + 8 * st, (vc / VST) & 1);
           const uint32_t vb = sb + S::V + st * S::V_TILE;
@@ -864,24 +954,18 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
       if constexpr (WIDE) {
-        // D = 256, one consumer's products in turn: P.V of tile t-1 issued
-        // and landed, then S of tile t, then its softmax while the other
-        // consumer's products run (the ping-pong alone overlaps them)
+        // From D = 256 on, one consumer's products in turn: P.V of tile t-1
+        // issued and landed, then S of tile t (a sub-tile a turn), then its
+        // softmax while the other consumer's products run (the ping-pong
+        // alone overlaps them)
         for (int t = 1; t < ntiles; ++t) {
-          take_turn();
-          run_pv(t - 1, p, false);
-          issue_scores(k2 + t);
-          hand_over();
-          wgmma_wait<0>();
-          reg_fence(s);
-          dequant(k2 + t);
-          release_k(k2 + t);
+          score_tile(k2 + t * SUB, true, [&] { run_pv(t - 1, p, false); });
           if (t == ntiles - 1) release_q();
           mask(t);
           softmax(a0, a1);
           if constexpr (!PV8 && !TWO_PASS) {  // K7q: acc to this tile's max
 #pragma unroll
-            for (int j = 0; j < D / 8; ++j) {
+            for (int j = 0; j < DV / 8; ++j) {
               acc[4 * j] *= a0;
               acc[4 * j + 1] *= a0;
               acc[4 * j + 2] *= a1;
@@ -896,7 +980,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         run_pv(ntiles - 1, p, c == 0 || ji + 1 < n_local);
         if constexpr (PV8 && TWO_PASS) {  // K8a: the s32 sum over every key
 #pragma unroll
-          for (int i = 0; i < D / 2; ++i) acc[i] = (float)pv[i];
+          for (int i = 0; i < DV / 2; ++i) acc[i] = (float)pv[i];
         }
       } else if constexpr (PV8) {
         int t = 1;
@@ -912,23 +996,23 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         if constexpr (TWO_PASS) {  // K8a: the s32 sum over every key
 #pragma unroll
-          for (int i = 0; i < D / 2; ++i) acc[i] = (float)pv[i];
+          for (int i = 0; i < DV / 2; ++i) acc[i] = (float)pv[i];
         }
       } else {
         for (int t = 1; t < ntiles; ++t) step(t, p, p);
         last_pv(p);
       }
 
-      // o = acc / l (K8a, K8b: times V's column scales), bf16, rows past N
-      // not stored
+      // o = acc / l (K8a, K8b: times V's column scales) of this slice's
+      // columns, bf16, rows past N not stored
       l0 = quad_sum(l0);
       l1 = quad_sum(l1);
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
       const size_t rs = (size_t)H * D;
       bf16* oh = o + (size_t)b * N * rs + (size_t)h * D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + t4 * 2;
+      for (int j = 0; j < DV / 8; ++j) {
+        const int col = sl * DV + j * 8 + t4 * 2;
         float v0 = 1.f, v1 = 1.f;
         if constexpr (PV8) {
           v0 = fmaxf(v_amax[(size_t)bh * D + col], 1e-12f) / 127.f;
@@ -1004,13 +1088,14 @@ int launch_int8(const Args& a) {
   e = encode_heads(&tm_q, a.q_prep, R::ELEM, R::W, B, N, H, D, QROWS);
   if (e == 0)
     e = encode_heads(&tm_k, QK8 ? a.k_q : a.k_prep, R::ELEM, R::W, B, N, H,
-                     D, KEY_TILE);
+                     D, S::KSUB);
   if (e == 0)
-    e = PV8 ? encode_s8_2d(&tm_v, a.v_q, B * H * D, np, D)
-            : encode_heads(&tm_v, a.v, 2, SwizzledRows<D>::W, B, N, H, D,
+    e = PV8 ? encode_s8_2d(&tm_v, a.v_q, B * H * D, np, S::DV)
+            : encode_heads(&tm_v, a.v, 2, SwizzledRows<S::DV>::W, B, N, H, D,
                            KEY_TILE);
   if (e == 0)
-    e = S::PER_KEY ? encode_f32_2d(&tm_ks, a.k_stat, B * H, np, KEY_TILE)
+    e = S::PER_KEY ? encode_f32_2d(&tm_ks, a.k_stat, B * H, np,
+                                   S::KSUB)
                    : encode_heads(&tm_ks, a.q_prep, R::ELEM, R::W, B, N, H,
                                   D, QROWS);  // unused
   if (e != 0) return e;
@@ -1024,7 +1109,7 @@ int launch_int8(const Args& a) {
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev);
   if (e != 0) return e;
-  const int items = (N + BLOCK_Q - 1) / BLOCK_Q * H * B;
+  const int items = (N + BLOCK_Q - 1) / BLOCK_Q * (D / S::DV) * H * B;
   kernel<<<items < sms ? items : sms, INT8_THREADS, S::BYTES, a.st>>>(
       tm_q, tm_k, tm_v, tm_ks, static_cast<const float*>(a.q_scale),
       static_cast<const float*>(a.k_stat),
@@ -1041,6 +1126,8 @@ int dispatch(const Args& a, int D) {
     case 64: return launch_int8<64, QK8, PV8, TWO_PASS>(a);
     case 128: return launch_int8<128, QK8, PV8, TWO_PASS>(a);
     case 256: return launch_int8<256, QK8, PV8, TWO_PASS>(a);
+    case 384: return launch_int8<384, QK8, PV8, TWO_PASS>(a);
+    case 512: return launch_int8<512, QK8, PV8, TWO_PASS>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

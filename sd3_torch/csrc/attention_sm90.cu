@@ -1,9 +1,10 @@
 // K1 and K7, the bf16 joint-attention forwards, and K5, the flash-attention
 // forward of training, for NVIDIA Hopper (sm_90a): one kernel,
 // attn_sm90_kernel<D, Softmax>, on wgmma and TMA with a warp-specialised
-// ring of K / V tiles, at head dims D = 16, 32, 64, 128 and 256 (bf16 heads
-// of 129 to 256 values run zero-padded at 256; past 256, and fp32 at every
-// head dim, attention_fp32.cu's mma.sync instances take them).
+// ring of K / V tiles, at head dims D = 16, 32, 64, 128, 256, 384 and 512
+// (bf16 heads of 129 to 512 values run zero-padded at 256, 384 or 512;
+// past 512, and fp32 at every head dim, attention_fp32.cu's mma.sync
+// instances take them).
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py (both reached through
 // _pallas_fused, at :642 and :660):
@@ -137,6 +138,47 @@
 // exp2s 0.0036 ms on the SFU (a quarter: one exp2 against a score's 4D =
 // 1024 FLOP); and 100 CTAs of 128 rows fill 100 of the 132 SMs, one
 // partial wave.
+//
+// D = 384 and 512 (K1_384 .. K5_512: heads of 257 to 512 values in bf16).
+// A consumer's 64-row fp32 accumulator of the whole head would be D / 2 =
+// 192 / 256 of its 240 registers, and one wgmma takes at most 256 columns.
+// So the output is cut into two column slices of DV = D / 2 (192 / 256),
+// each consumer computes the scores over the whole head (D / 16 k-steps)
+// and P.V runs over its DV columns of V (wgmma m64n192k16 / m64n256k16).
+// The QK^T is computed once per slice, so the products are 1.5x the
+// minimal 4*B*H*N^2*D. Both slices run the same S in the same order, so
+// m, p and l are bit for bit the same in each, and each writes its own
+// columns with no reduction between them; K5's lse is written by slice 0.
+// A CTA takes 64 query rows; its two consumers work on the same rows,
+// consumer c on slice c, and share the q^ tile (48 / 64 KB) and the K and
+// V stages (V of the whole head). This layout was measured in turns
+// against another, the slice a grid dimension (items of 128 rows, 64 a
+// consumer, and one slice: q^ of 96 / 128 KB, V tiles of the slice), on
+// the same inputs with bit-for-bit the same outputs (B 2, N 1178, H 5; K5
+// at B 4 and 3 / 2 heads; H100 at 700 W, utils/wide_attention_diag.py,
+// PERF.md): K1 / K7 / K5 0.1060 / 0.1160 / 0.1037 ms at D = 384 and
+// 0.1488 / 0.1536 / 0.1246 at 512, against 0.1058 / 0.1185 / 0.1109 and
+// 0.1467 / 0.1551 / 0.1525 with the grid dimension. It ties on K1 / K7
+// and takes 18% off K5 at D = 512, so the grid layout was dropped. ptxas:
+// no spill in either.
+// Shared memory: K / V tiles take 32 keys (SLICE_KEY_TILE), a 64-key K
+// tile of the whole head (48 / 64 KB) not fitting twice beside q^ and V:
+// three stages of 24 + 24 KB at D = 384, two of 32 + 32 KB at 512 (192
+// KB). K7 rounds p against the running max of these 32 keys
+// (K7_KEY_TILE_512, its plain version's block_k, held to JAX at 32-key
+// blocks on the CPU). Registers: at D = 384 the D <= 128 loop (S of tile t
+// with P.V of t-1) holds 96 + 16 + 8 and spills nothing; at D = 512 it
+// spilled 128-136 bytes and serialized the wgmmas (C7512), 0.32-0.34 ms a
+// K1 / K7 / K5 call, so D = 512 runs the D = 256 loop (P.V landed before
+// the next S): no spill, 0.146-0.159 ms. The q^ descriptors of the D / 16
+// k-steps are one descriptor plus constant offsets (k_step_offset,
+// sm90.cuh), made opaque to the loop: ptxas otherwise kept all of them in
+// registers (48 / 64) and spilled 216-236 bytes in K5 at D = 384, 0.21
+// against 0.107 ms. The preps stay attention_common.cuh's (one row a
+// warp): q + k 24.9 us at K1's D = 384 call against 2 x 15.9 us of
+// attention_fp32.cu's wide_prep_kernel. What bounds them at B 2, N 1178, H
+// 5: the products with QK^T twice, 0.0324 / 0.0432 ms at 989 TFLOP/s (the
+// minimal 0.0216 / 0.0288); 190 CTAs of 64 rows on 132 SMs, two waves.
 
 #include <type_traits>
 
@@ -168,22 +210,27 @@ struct Online {};   // K7: the running row max
 struct Flash {};    // K5: the running row max of raw scores, lse out
 }  // namespace Softmax
 
-// keys per K / V tile of every instance at D = 256 (see key_tile)
+// keys per K / V tile of every instance at D = 256, and past it (see
+// key_tile)
 constexpr int WIDE_KEY_TILE = 64;
+constexpr int SLICE_KEY_TILE = 32;
 
 // Keys per K / V tile of attn_sm90_kernel<D, SM>: KEY_TILE, but 64 for K5 at
-// D = 128 and for all three at D = 256. A consumer thread holds a tile's
-// scores (KT / 2 registers), their bf16 p (KT / 4) and the accumulator
-// (D / 2): K5 at D = 128 with 128 keys held 160, which with the addresses,
-// row statistics and the softmax's temporaries spilled 208 bytes of the 240
-// registers (ptxas); 64 keys hold 112. At D = 256 see "D = 256" above. K1
-// and K7 keep 128 keys up to D = 128. K7 rounds p against the running max
-// of its tile, which its plain version reproduces with block_k =
-// K7_KEY_TILE (128) or, at D = 256, K7_KEY_TILE_256 (WIDE_KEY_TILE, 64);
-// K1's bounded shift and K5's true lse do not depend on the tile.
+// D = 128 and for all three at D = 256, 32 past it. A consumer thread holds
+// a tile's scores (KT / 2 registers), their bf16 p (KT / 4) and the
+// accumulator (DV / 2, DV its columns of the output): K5 at D = 128 with
+// 128 keys held 160, which with the addresses, row statistics and the
+// softmax's temporaries spilled 208 bytes of the 240 registers (ptxas); 64
+// keys hold 112. At D = 256 see "D = 256" above, past it "D = 384 and
+// 512". K1 and K7 keep 128 keys up to D = 128. K7 rounds p against the
+// running max of its tile, which its plain version reproduces with block_k
+// = K7_KEY_TILE (128), at D = 256 K7_KEY_TILE_256 (WIDE_KEY_TILE, 64),
+// past it K7_KEY_TILE_512 (SLICE_KEY_TILE, 32); K1's bounded shift and
+// K5's true lse do not depend on the tile.
 template <int D, class SM>
 __host__ __device__ constexpr int key_tile() {
   return D == 256 ? WIDE_KEY_TILE
+         : D > 256 ? SLICE_KEY_TILE
          : D == 128 && std::is_same<SM, Softmax::Flash>::value ? 64
                                                                : KEY_TILE;
 }
@@ -192,14 +239,24 @@ __host__ __device__ constexpr int key_tile() {
 // 1024-byte aligned base; every tile in the swizzled layout of
 // SwizzledRows<D> (sm90.cuh). Four stages of tiles up to 16 KB, three of
 // larger ones (K1 / K7 at D = 128: 32 KB), two at D = 256 (32 KB tiles
-// beside 64 KB of q^: 192 KB of the 227 KB a block may take).
+// beside 64 KB of q^: 192 KB of the 227 KB a block may take). Past 256
+// (SLICED) the two consumers share one q^ tile: three stages of 24 + 24 KB
+// beside 48 KB of q^ at D = 384, two of 32 + 32 KB beside 64 KB at D = 512
+// (192 KB).
 template <int D, int KT = KEY_TILE>
 struct Sm90 : SwizzledRows<D> {
+  // past D = 256 an item is 64 query rows, each consumer writing one of
+  // two column slices of them (see "D = 384 and 512" above)
+  static constexpr bool SLICED = D > 256;
+  static constexpr int ROWS = SLICED ? QROWS : BLOCK_Q;  // an item's rows
+  static constexpr int DV = SLICED ? D / 2 : D;     // a consumer's columns
   static constexpr int KV_TILE = KT * D * 2;        // one K or V tile
-  static constexpr int STAGES = D == 256 ? 2 : KV_TILE > 16384 ? 3 : 4;
+  static constexpr int STAGES = D == 256 || D == 512 ? 2
+                                : D == 384 ? 3 : KV_TILE > 16384 ? 3 : 4;
   static constexpr int Q_TILE = QROWS * D * 2;      // one consumer's q^
-  static constexpr int Q = 0;                       // [CONSUMERS] q^ tiles
-  static constexpr int K = Q + CONSUMERS * Q_TILE;  // [STAGES] K tiles
+  static constexpr int Q_TILES = SLICED ? 1 : CONSUMERS;
+  static constexpr int Q = 0;                       // [Q_TILES] q^ tiles
+  static constexpr int K = Q + Q_TILES * Q_TILE;    // [STAGES] K tiles
   static constexpr int V = K + STAGES * KV_TILE;    // [STAGES] V tiles
   // mbarriers: full / empty of each K and V stage, full / empty of each q^
   // tile
@@ -224,12 +281,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
   }
 }
 
-// grid (ceil(N / BLOCK_Q), H, B), a CTA per item (128 query rows, head,
-// sample); for Flash min(SMs, items) persistent CTAs, CTA i on items i,
-// i + grid, ... (q tiles fastest), its ring, barriers and turns running on
-// across items, so that its producer loads the next item's q and first K /
-// V tiles under the last one's final P.V and epilogue. SM90_THREADS
-// threads, Sm90<D, key_tile<D, SM>()>::BYTES of dynamic shared memory.
+// grid (ceil(N / ROWS), H, B), a CTA per item (ROWS = Sm90::ROWS query
+// rows, head, sample); for Flash min(SMs, items) persistent CTAs, CTA i on
+// items i, i + grid, ... (q tiles fastest), its ring, barriers and turns
+// running on across items, so that its producer loads the next item's q
+// and first K / V tiles under the last one's final P.V and epilogue.
+// SM90_THREADS threads, Sm90<D, key_tile<D, SM>()>::BYTES of dynamic shared
+// memory.
 // tm_q, tm_k, tm_v: tensor maps of bf16 q^, k^ and v (encode_heads), or for
 // Flash of raw q, k, v (encode_view); q_norm (B*H, N) ||q^|| and k_max2 (B*H) max ||k^||^2
 // (Bounded only); o bf16 with element strides vo; lse (B*H, N) fp32 and
@@ -248,9 +306,10 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
   constexpr bool FLASH = std::is_same<SM, Softmax::Flash>::value;
   constexpr int STAGES = S::STAGES;
-  // D = 256: each consumer's P.V lands before its next S is issued (see the
-  // key-tile loop)
-  constexpr bool SERIAL = D == 256;
+  constexpr int ROWS = S::ROWS, DV = S::DV;
+  // D = 256 and 512: each consumer's P.V lands before its next S is issued
+  // (see the key-tile loop)
+  constexpr bool SERIAL = D == 256 || D == 512;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
@@ -259,7 +318,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_q = empty_v + 8 * STAGES;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (M + KT - 1) / KT;
-  const int nqt = (N + BLOCK_Q - 1) / BLOCK_Q;
+  const int nqt = (N + ROWS - 1) / ROWS;  // q tiles
   const int n_items = nqt * H * B;
   const int n_local =
       !FLASH ? 1
@@ -289,7 +348,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     for (int c = 0; c < CONSUMERS; ++c) {
       mbar_init(full_q + 8 * c, 1);
-      mbar_init(empty_q + 8 * c, 4);  // lane 0 of each warp of consumer c
+      // lane 0 of each warp of consumer c (SLICED: of both, tile 0)
+      mbar_init(empty_q + 8 * c, S::SLICED ? 4 * CONSUMERS : 4);
     }
     fence_barrier_init();
   }
@@ -306,12 +366,13 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int ji = 0; ji < n_local; ++ji) {
         int qt, h, b;
         item_of(ji, qt, h, b);
-        for (int c = 0; c < CONSUMERS; ++c) {  // once the last item's is done
+        for (int c = 0; c < S::Q_TILES; ++c) {
+          // once the last item's is done
           mbar_wait(empty_q + 8 * c, (ji & 1) ^ 1);
           mbar_arrive_expect_tx(full_q + 8 * c, S::Q_TILE);
           load_tile<D, QROWS, FLASH>(sb + S::Q + c * S::Q_TILE, &tm_q,
                                      full_q + 8 * c, h,
-                                     qt * BLOCK_Q + c * QROWS, b);
+                                     qt * ROWS + c * QROWS, b);
         }
         for (int t = 0; t < ntiles; ++t) {
           const int tt = ji * ntiles + t, s = tt % STAGES;  // the ring's tile
@@ -328,15 +389,18 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   } else {
-    // ---- consumers: 64 query rows each
+    // ---- consumers: 64 query rows each (SLICED: the same rows, and DV
+    // columns each from col0 on)
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
+    const int qc = S::SLICED ? 0 : c;  // this consumer's q^ tile
+    const int col0 = S::SLICED ? c * DV : 0;
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
-    const uint32_t q_base = sb + S::Q + c * S::Q_TILE;
+    const uint32_t q_base = sb + S::Q + qc * S::Q_TILE;
     float s[KT / 2];     // scores, then p, of one tile
     uint32_t p[KT / 4];  // bf16 p: the A fragments of the KT / 16 P.V steps
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
     for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
 
@@ -355,7 +419,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       int qt, h, b;
       item_of(ji, qt, h, b);
       const int t0 = ji * ntiles;  // the ring's tile of this item's key tile 0
-      const int n0 = qt * BLOCK_Q + c * QROWS + warp * 16 + g;
+      const int n0 = qt * ROWS + qc * QROWS + warp * 16 + g;
       const int n1 = n0 + 8;                   // this thread's two rows
 
       // Bounded: the shift of rows n0, n1 (rows past N: q^ = 0, any shift)
@@ -367,32 +431,46 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (n1 < N) shift1 = qn[n1] * kmax;
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-      mbar_wait(full_q + 8 * c, ji & 1);  // this consumer's q^ tile has landed
+      mbar_wait(full_q + 8 * qc, ji & 1);  // this consumer's q^ has landed
       // issue S = q^ k^T of key tile t
       auto issue_scores = [&](int t) {
         const int st = (t0 + t) % STAGES;
         mbar_wait(full_k + 8 * st, ((t0 + t) / STAGES) & 1);
         const uint32_t kb = sb + S::K + st * S::KV_TILE;
         wgmma_fence();
+        if constexpr (D > 256) {
+          // k-step 0's descriptors plus each k-step's offset, q^'s made
+          // opaque to the loop (k_step_offset, sm90.cuh)
+          uint64_t dq = desc_k_major<D>(q_base, QROWS, 0);
+          const uint64_t dk = desc_k_major<D>(kb, KT, 0);
+          asm volatile("" : "+l"(dq));
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          wgmma_ss<KT>(s, desc_k_major<D>(q_base, QROWS, kk),
-                       desc_k_major<D>(kb, KT, kk), kk > 0);
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<KT>(s, dq + k_step_offset<D>(QROWS, kk),
+                         dk + k_step_offset<D>(KT, kk), kk > 0);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            wgmma_ss<KT>(s, desc_k_major<D>(q_base, QROWS, kk),
+                         desc_k_major<D>(kb, KT, kk), kk > 0);
+        }
         wgmma_commit();
       };
-      // issue acc += bf16(p) v of key tile t
+      // issue acc += bf16(p) v of key tile t (this consumer's DV columns:
+      // past D = 256 col0 / 64 atom columns into the V tile)
       auto issue_pv = [&](int t) {
         const int st = (t0 + t) % STAGES;
         mbar_wait(full_v + 8 * st, ((t0 + t) / STAGES) & 1);
-        const uint32_t vb = sb + S::V + st * S::KV_TILE;
+        const uint32_t vb =
+            sb + S::V + st * S::KV_TILE + col0 / 64 * KT * 128;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KT / 16; ++kk) {
           const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                                  p[4 * kk + 3]};
-          wgmma_rs<D>(acc, a, desc_mn_major<D>(vb, KT, kk), 1);
+          wgmma_rs<DV>(acc, a, desc_mn_major<DV>(vb, KT, kk), 1);
         }
         wgmma_commit();
       };
@@ -402,7 +480,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (lane == 0) mbar_arrive(empty + 8 * ((t0 + t) % STAGES));
       };
       auto release_q = [&]() {
-        if (lane == 0) mbar_arrive(empty_q + 8 * c);
+        if (lane == 0) mbar_arrive(empty_q + 8 * qc);
       };
       // s -> p = exp2(s - shift) in place, l updated; Online: the running
       // max too, and alpha of rows g, g + 8 returned in a0, a1; Flash: as
@@ -426,7 +504,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           // the row max over PARTS partial maxima: shorter chains for the
           // exp2s to wait on, where the registers allow (scores and
           // accumulator in at most 96 of them)
-          constexpr int PARTS = KT / 2 + D / 2 <= 96 ? 4 : 1;
+          constexpr int PARTS = KT / 2 + DV / 2 <= 96 ? 4 : 1;
           float x0[PARTS], x1[PARTS];
 #pragma unroll
           for (int i = 0; i < PARTS; ++i) {
@@ -499,8 +577,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       pack_p();
       if constexpr (SERIAL) {
         for (int t = 1; t < ntiles; ++t) {
-          // D = 256 (see the file's head): P.V of tile t-1 lands before S
-          // of tile t is issued
+          // D = 256 and 512 (see the file's head): P.V of tile t-1 lands
+          // before S of tile t is issued
           take_turn();
           issue_pv(t - 1);
           wgmma_wait<0>();
@@ -516,7 +594,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           softmax(t, a0, a1);
           if constexpr (!BOUNDED) {
 #pragma unroll
-            for (int j = 0; j < D / 8; ++j) {
+            for (int j = 0; j < DV / 8; ++j) {
               acc[4 * j] *= a0;
               acc[4 * j + 1] *= a0;
               acc[4 * j + 2] *= a1;
@@ -553,7 +631,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           release(empty_v, t - 1);
           if constexpr (!BOUNDED) {
 #pragma unroll
-            for (int j = 0; j < D / 8; ++j) {
+            for (int j = 0; j < DV / 8; ++j) {
               acc[4 * j] *= a0;
               acc[4 * j + 1] *= a0;
               acc[4 * j + 2] *= a1;
@@ -577,8 +655,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float inv0 = 1.f / l0, inv1 = 1.f / l1;
       bf16* oh = o + b * vo.b + h * vo.h;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int col = j * 8 + t4 * 2;
+      for (int j = 0; j < DV / 8; ++j) {
+        const int col = col0 + j * 8 + t4 * 2;
         if (n0 < N)
           *reinterpret_cast<uint32_t*>(oh + n0 * vo.n + col) =
               pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
@@ -587,7 +665,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
       }
       if constexpr (FLASH) {
-        if (t4 == 0) {
+        if (t4 == 0 && col0 == 0) {  // one slice writes the lse
           float* lh = lse + ((size_t)b * H + h) * N;
           if (n0 < N) lh[n0] = (m0 * scale_log2 + log2f(l0)) * LN2;
           if (n1 < N) lh[n1] = (m1 * scale_log2 + log2f(l1)) * LN2;
@@ -618,7 +696,8 @@ int launch_sm90(const Args& a) {
                               a.H, a.eps_k, a.dn, a.st);
   if (e != 0) return e;
   constexpr int KT = key_tile<D, SM>();
-  constexpr int BYTES = Sm90<D, KT>::BYTES;
+  using S = Sm90<D, KT>;
+  constexpr int BYTES = S::BYTES;
   CUtensorMap tm_q, tm_k, tm_v;
   e = encode_heads(&tm_q, a.q_prep, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, QROWS);
   if (e != 0) return e;
@@ -629,7 +708,7 @@ int launch_sm90(const Args& a) {
   auto kernel = attn_sm90_kernel<D, SM>;
   e = allow_smem(kernel, BYTES);
   if (e != 0) return e;
-  dim3 grid((a.N + BLOCK_Q - 1) / BLOCK_Q, a.H, a.B);
+  dim3 grid((a.N + S::ROWS - 1) / S::ROWS, a.H, a.B);
   const View vo{(long long)a.N * a.H * D, D, (long long)a.H * D};
   kernel<<<grid, SM90_THREADS, BYTES, a.st>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(a.q_norm),
@@ -649,7 +728,8 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
                  int M, float scale, cudaStream_t stream) {
   auto kernel = attn_sm90_kernel<D, Softmax::Flash>;
   constexpr int KT = key_tile<D, Softmax::Flash>();
-  constexpr int BYTES = Sm90<D, KT>::BYTES;
+  using S = Sm90<D, KT>;
+  constexpr int BYTES = S::BYTES;
   CUtensorMap tm_q, tm_k, tm_v;
   int e = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
@@ -661,7 +741,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   if (e == 0)
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != 0) return e;
-  const int items = (N + BLOCK_Q - 1) / BLOCK_Q * H * B;
+  const int items = (N + S::ROWS - 1) / S::ROWS * H * B;
   kernel<<<items < sms ? items : sms, SM90_THREADS, BYTES, stream>>>(
       tm_q, tm_k, tm_v, nullptr, nullptr, static_cast<bf16*>(o),
       view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, M, H, B);
@@ -676,6 +756,8 @@ int dispatch(const Args& a, int D) {
     case 64: return launch_sm90<64, SM>(a);
     case 128: return launch_sm90<128, SM>(a);
     case 256: return launch_sm90<256, SM>(a);
+    case 384: return launch_sm90<384, SM>(a);
+    case 512: return launch_sm90<512, SM>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -686,7 +768,7 @@ int dispatch(const Args& a, int D) {
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); q_prep, k_prep (B, N, H*D) bf16 scratch;
 // q_norm (B*H, N) fp32 scratch (K1; K7 takes none); k_max2 (B*H) fp32, zero
-// on entry. D is the instance's head dim (16, 32, 64, 128, 256) and dn <= D
+// on entry. D is the instance's head dim (16, 32, 64, 128, 256, 384, 512) and dn <= D
 // the model's: heads of dn < D values arrive zero-padded to D, tables too (see
 // attention_common.cuh). Each returns 0, or the first error: a cudaError_t
 // of a launch or the CUresult of a tensor-map encode.
@@ -711,7 +793,7 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
 }
 
 // K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v, D 16,
-// 32, 64, 128 or 256. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
+// 32, 64, 128, 256, 384 or 512. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
 // with the head dim contiguous, 16-byte aligned start and (b, h, n)
 // strides, the element strides in `strides`, three per tensor (q, k, v,
 // o). Returns 0, or the first error: a cudaError_t of the launch or the
@@ -728,6 +810,8 @@ extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
     case 64: return launch_flash<64>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 128: return launch_flash<128>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 256: return launch_flash<256>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 384: return launch_flash<384>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 512: return launch_flash<512>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

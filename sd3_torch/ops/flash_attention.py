@@ -25,11 +25,14 @@ Precision.HIGHEST) take their fp32 instances K5F, K6AF and K6BF
 (`csrc/attention_fp32.cu`: 3xTF32 mma.sync, fp32-accurate products).
 
 The kernels have instances at head dims `HEAD_DIMS` (16, 32, 64, 128),
-and the forward on bf16 one more at `WGMMA_WIDE` (256), K5_256: K5's
+and the forward on bf16 three more: at `WGMMA_WIDE` (256), K5_256, K5's
 wgmma + TMA kernel there, its 64 x 256 fp32 accumulator 128 registers of
 a consumer thread (64-key tiles, each consumer's P.V landed before its
-next scores; `csrc/attention_sm90.cu` says why). Past those, one set for
-every multiple of 128: bf16 tensors take K5W (past 256), K6AW and K6BW
+next scores), and at `WGMMA_SLICED` (384, 512), K5_384 and K5_512, the
+same kernel with the two consumers of a CTA on the same 64 query rows,
+each writing one of two column slices (32-key tiles;
+`csrc/attention_sm90.cu` says why). Past those, one set for
+every multiple of 128: bf16 tensors take K5W (past 512), K6AW and K6BW
 (past 128; `csrc/attention_fp32.cu`: one tf32 product of the exact bf16
 values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF and
 K6BWF (3xTF32). Those sum the scores over 128-wide chunks of the head,
@@ -37,7 +40,7 @@ staged through shared memory a chunk at a time, and a block writes one
 128-wide column slice of the output, so their shared memory does not grow
 with the head dim. `flash_kernel` names the kernel of each (entry point,
 dtype, head dim). Any other head dim is zero-padded to the next instance
-(up to 256 for the bf16 forward, 128 for the rest) or multiple of 128, as
+(up to 512 for the bf16 forward, 128 for the rest) or multiple of 128, as
 the JAX wrapper pads D to a multiple of 128 lanes: q, k, v (and out, dO)
 padded on D, the kernel run with the caller's scale, and out, dq, dk, dv
 sliced back. Zero columns add nothing to the scores, to lse or to delta.
@@ -75,8 +78,10 @@ from sd3_torch.kernels import Kernel, check
 
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances; past 128 the
 WIDE = 128                      # wide ones, at every multiple of WIDE
-WGMMA_WIDE = 256                # and the wgmma forwards' bf16 instance past
-                                # 128 (K5 and the fused kernels, not K6a/K6b)
+WGMMA_WIDE = 256                # and the wgmma forwards' bf16 instances past
+WGMMA_SLICED = (384, 512)       # 128 (K5 and the fused kernels, not K6a/K6b):
+                                # at 256, and in two column slices at 384, 512
+WGMMA_PAST_128 = (WGMMA_WIDE, *WGMMA_SLICED)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -110,10 +115,15 @@ K6AWF = Kernel("flash_attention_dq_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BWF = Kernel("flash_attention_dkv_fp32_wide", "attention_fp32.cu",
                "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
-# K5 on bf16 at head dim 256 (129 to 256, padded): the wgmma kernel's
-# instance there, counted apart from K5's
+# K5 on bf16 at head dims 256 (129 to 256, padded), 384 (257 to 384) and
+# 512 (385 to 512): the wgmma kernel's instances there, each counted apart
+# from K5's
 K5_256 = Kernel("flash_attention_fwd_256", "attention_sm90.cu",
                 "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
+K5_384, K5_512 = (Kernel(f"flash_attention_fwd_{d}", "attention_sm90.cu",
+                         "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
+                  for d in WGMMA_SLICED)
+_K5_WGMMA = {WGMMA_WIDE: K5_256, 384: K5_384, 512: K5_512}
 # (bf16, fp32) kernels up to 128 and past it
 _KERNELS = {
     "fwd": {"small": (K5, K5F), "wide": (K5W, K5WF)},
@@ -125,13 +135,13 @@ _KERNELS = {
 def flash_kernel(which: str, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel of `which` ("fwd", "dq" or "dkv") for tensors of `dtype`
     at head dim d: up to 128 K5 / K6a / K6b (fp32: their F instances); the
-    forward on bf16 at 129 to 256 K5_256, K5's wgmma instance at 256; past
-    that, and the backward and fp32 at every head dim past 128, the wide
-    mma.sync instances (W, WF)."""
+    forward on bf16 at 129 to 512 K5's wgmma instances at 256, 384 and 512
+    (K5_256, K5_384, K5_512); past that, and the backward and fp32 at
+    every head dim past 128, the wide mma.sync instances (W, WF)."""
     dp = instance_dim(d)
     fp32 = dtype == torch.float32
-    if which == "fwd" and dp == WGMMA_WIDE and not fp32:
-        return K5_256
+    if which == "fwd" and dp in _K5_WGMMA and not fp32:
+        return _K5_WGMMA[dp]
     size = "wide" if dp > HEAD_DIMS[-1] else "small"
     return _KERNELS[which][size][fp32]
 

@@ -25,7 +25,7 @@ Single-KV, replacing the branches of `_fused_fwd_kernel`:
 Streaming, replacing `_stream_fwd_kernel`:
 - K7, bf16 (`csrc/attention_sm90.cu`, K1's kernel): an online softmax
   (true running max) over `K7_KEY_TILE` keys at a time (`K7_KEY_TILE_256`
-  at head dim 256);
+  at head dim 256, `K7_KEY_TILE_512` at 384 and 512);
 - K7q, `int8_qk` (`csrc/attention_int8_sm90.cu`, K4's kernel, over
   `K7Q_KEY_TILE` keys at a time): k^ prepped in fp32 and quantized per row
   (per head), q^ per row, s = s32 * s_q * s_k[key], bf16 P.V;
@@ -51,7 +51,15 @@ same wgmma + TMA kernels and entry points at D = 256, counted apart (a
 consumer's P.V lands before its next scores, K1 / K7 take 64-key tiles
 (K7 rounds p over `K7_KEY_TILE_256` keys), the int8 kernels keep their
 128-key tiles and K8b's s8 P.V runs in four 64-column parts: the sources'
-heads say why). Past 256 on bf16, and past 128 on fp32, every kernel runs
+heads say why); and at 384 and 512 (`WGMMA_SLICED`): K1_384 .. K8B_384,
+K1_512 .. K8B_512, where each consumer warpgroup computes the scores over
+the whole head and writes one of two column slices of the output (192 /
+256 columns: the registers of one wgmma's accumulator; K1 / K7's two
+consumers share 64 query rows, the int8 kernels' slice is a grid
+dimension), K1 / K7 on 32-key tiles (K7's p
+over `K7_KEY_TILE_512` keys), the int8 kernels on their 128-key tiles
+with K in sub-tiles where a whole-head bf16 K tile does not fit twice.
+Past 512 on bf16, and past 128 on fp32, every kernel runs
 on one set of instances for every multiple of 128 (`csrc/attention_fp32.cu`:
 K1W, K7W, K4W, K7QW, K8AW, K8BW and their F instances): q and k prepped in
 their own launches (the RMSNorm over the true head dim, then the rotation,
@@ -62,7 +70,7 @@ time, each block writing one 128-wide column slice of the output, so that
 shared memory does not grow with the head dim. `kernel_for` names the
 kernel of each (kernel, dtype, head dim). Any other head dim is
 zero-padded to the next instance (48 to 64, 160 and 192 to 256, 300 to
-384), q / k / v and the tables zero-padded on each head and the output
+384, 400 to 512), q / k / v and the tables zero-padded on each head and the output
 sliced back, the true head dim passed to the prep so that its RMSNorm
 takes the mean over the head's own values.
 
@@ -94,7 +102,8 @@ import numpy as np
 import torch
 
 from sd3_torch.kernels import Kernel, check
-from sd3_torch.ops.flash_attention import (HEAD_DIMS, WGMMA_WIDE,
+from sd3_torch.ops.flash_attention import (HEAD_DIMS, WGMMA_PAST_128,
+                                           WGMMA_SLICED, WGMMA_WIDE,
                                            flash_attention, instance_dim)
 from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
@@ -114,8 +123,11 @@ K7_KEY_TILE = 128
 K8B_KEY_TILE = 128
 K7Q_KEY_TILE = 128
 # K7's at head dim 256 (csrc/attention_sm90.cu WIDE_KEY_TILE: the registers
-# of a 64 x 256 accumulator leave room for 64-key tiles only)
+# of a 64 x 256 accumulator leave room for 64-key tiles only), and at 384
+# and 512 (SLICE_KEY_TILE: two stages of K tiles of the whole head beside
+# q^ of 96 / 128 KB)
 K7_KEY_TILE_256 = 64
+K7_KEY_TILE_512 = 32
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1 and K7 (and their fp32 instances) share one signature: q, k, v, the
@@ -172,11 +184,15 @@ K7QW, K7QWF, _ = _WIDE[K7Q]
 K8AW, K8AWF, _ = _WIDE[K8A]
 K8BW, K8BWF, _ = _WIDE[K8B]
 _MMA_WIDE = {kern for w in _WIDE.values() for kern in w[:2]}
-# bf16 at head dim 256 (129 to 256, padded): the wgmma kernels' instances
-# there (csrc/attention_sm90.cu, csrc/attention_int8_sm90.cu at D = 256),
-# the same entry points as K1 .. K8b, counted apart
-_D256 = {k: Kernel(f"{k.name}_256", k.source, k.symbol, argtypes=k.argtypes)
+# bf16 at head dims 256 (129 to 256, padded), 384 (257 to 384) and 512
+# (385 to 512): the wgmma kernels' instances there (csrc/attention_sm90.cu,
+# csrc/attention_int8_sm90.cu at D = 256, 384, 512), the same entry points
+# as K1 .. K8b, counted apart
+_WGMMA_PAST_128 = {
+    dp: {k: Kernel(f"{k.name}_{dp}", k.source, k.symbol, argtypes=k.argtypes)
          for k in (K1, K7, K4, K7Q, K8A, K8B)}
+    for dp in WGMMA_PAST_128}
+_D256, _D384, _D512 = _WGMMA_PAST_128.values()
 K1_256, K7_256, K4_256, K7Q_256, K8A_256, K8B_256 = _D256.values()
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
@@ -184,15 +200,15 @@ Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 def kernel_for(base: Kernel, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel that runs `base` (K1, K7, K4, K7q, K8a or K8b) on q / k /
     v of `dtype` at head dim d (padded to `instance_dim(d)`): up to 128
-    `base` (fp32: its F instance, `_FP32`); bf16 at 129 to 256 its wgmma
-    instance at 256 (`_D256`); past 256, and fp32 past 128, its wide
-    mma.sync instance (`_WIDE`)."""
+    `base` (fp32: its F instance, `_FP32`); bf16 at 129 to 512 its wgmma
+    instance at 256, 384 or 512 (`_D256`, `_D384`, `_D512`); past 512 in
+    bf16, and fp32 past 128, its wide mma.sync instance (`_WIDE`)."""
     dp = instance_dim(d)
     fp32 = dtype == torch.float32
     if dp <= HEAD_DIMS[-1]:
         return _FP32[base] if fp32 else base
-    if dp == WGMMA_WIDE and not fp32:
-        return _D256[base]
+    if dp in _WGMMA_PAST_128 and not fp32:
+        return _WGMMA_PAST_128[dp][base]
     return _WIDE[base][fp32]
 
 
@@ -200,12 +216,16 @@ def stream_key_tile(int8_qk: bool, int8_pv: bool, d: int) -> int:
     """The key tile over which the card's bf16 streaming kernel at head dim
     d rounds p (the plain version's `block_k` for holding it to the card):
     K8b's K8B_KEY_TILE, K7q's K7Q_KEY_TILE, K7's K7_KEY_TILE, at 129 to 256
-    K7_KEY_TILE_256."""
+    K7_KEY_TILE_256, at 257 to 512 K7_KEY_TILE_512 (past 512 the mma.sync
+    instance's K7_KEY_TILE)."""
     if int8_pv:
         return K8B_KEY_TILE
     if int8_qk:
         return K7Q_KEY_TILE
-    return K7_KEY_TILE_256 if instance_dim(d) == WGMMA_WIDE else K7_KEY_TILE
+    dp = instance_dim(d)
+    if dp == WGMMA_WIDE:
+        return K7_KEY_TILE_256
+    return K7_KEY_TILE_512 if dp in WGMMA_SLICED else K7_KEY_TILE
 
 
 def rope_row_tables(angles_img, n: int, d: int) -> tuple[np.ndarray, np.ndarray]:
@@ -274,7 +294,8 @@ def composition_stream(q, k, v, cosq, sinq, cosk, sink, scale: float,
     scale*log2(e), q^ and k^ rounded to the input dtype, fp32 scores, an
     online softmax in exp2 over blocks of `block_k` keys (default: JAX's
     rule, `default_block_k`; K7 on the card takes `K7_KEY_TILE`, at head
-    dim 256 `K7_KEY_TILE_256`, K8b `K8B_KEY_TILE`: `stream_key_tile`).
+    dim 256 `K7_KEY_TILE_256`, at 384 and 512 `K7_KEY_TILE_512`, K8b
+    `K8B_KEY_TILE`: `stream_key_tile`).
     Tables
     un-scaled, as for `composition`."""
     n = q.shape[1]
@@ -504,9 +525,9 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
     out = torch.empty_like(q)
     bh, dev = b * num_heads, q.device
     if not wide and base in (K1, K7):
-        # q^ and k^ in the input dtype, K1's ||q^|| per row, max ||k^||^2 per
-        # (b, h)
-        q_norm = torch.empty(bh * n if kern in (K1, K1_256) else 0,
+        # q^ and k^ in the input dtype, K1's ||q^|| per row (the bf16
+        # instances'), max ||k^||^2 per (b, h)
+        q_norm = torch.empty(bh * n if base is K1 and kern is not K1F else 0,
                              dtype=torch.float32, device=dev)
         args = [torch.empty_like(q), q_norm, torch.empty_like(k),
                 torch.zeros(bh, dtype=torch.float32, device=dev), out]

@@ -256,6 +256,20 @@ def test_plain_forward_and_lse_at_a_key_length_of_their_own(shape):
     _close(lse, _jax_lse(q, k, v, scale))
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 150, 75, 384),
+                                   (1, 2, 40, 129, 384)])
+def test_plain_forward_at_head_dim_384_and_a_key_length_of_its_own(shape):
+    # the plain version the card's K5_384 is held to: JAX's flash_attention
+    # at head dim 384 (three 128-lane blocks), k and v of M = N / 2 and of M
+    # > N keys
+    q, k, v, _, scale = _kv_case(shape, seed=384)
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), scale)
+    out, lse = tfl.flash_fwd_plain(_t(q), _t(k), _t(v), scale)
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    _close(out, want)
+    _close(lse, _jax_lse(q, k, v, scale))
+
+
 @pytest.mark.parametrize("shape", KV_SHAPES)
 def test_plain_backward_at_a_key_length_of_their_own(shape):
     # dq (B, H, N, D) and delta (B, H, N) by query row, dk, dv (B, H, M, D)

@@ -183,7 +183,9 @@ def test_every_kernel_symbol_is_in_its_source():
               tfl.K6AWF, tfl.K6BWF, tfa.K1W, tfa.K1WF, tfa.K7W, tfa.K7WF,
               tfa.K4W, tfa.K4WF, tfa.K7QW, tfa.K7QWF, tfa.K8AW, tfa.K8AWF,
               tfa.K8BW, tfa.K8BWF, tfa.K1_256, tfa.K7_256, tfa.K4_256,
-              tfa.K7Q_256, tfa.K8A_256, tfa.K8B_256, tfl.K5_256):
+              tfa.K7Q_256, tfa.K8A_256, tfa.K8B_256, tfl.K5_256,
+              *tfa._D384.values(), *tfa._D512.values(), tfl.K5_384,
+              tfl.K5_512):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -380,26 +382,67 @@ def test_head_dim_256_instances_fit_in_shared_memory(source, struct,
         assert small["KST"] == small["VST"] == 3
 
 
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("source,struct,variant", D256_INSTANCES)
+def test_head_dim_384_512_instances_fit_in_shared_memory(source, struct,
+                                                         variant, d):
+    # the wgmma kernels' D = 384 and 512 instances (K1, K7, K5; K4, K7q, K8a
+    # over both scores, K8b over both): each consumer one slice of half the
+    # output's columns (the registers of one wgmma's accumulator, at most
+    # 256), the scores over the whole head; the shared memory their
+    # launches ask for, from the source's own constants and struct members,
+    # within one block's limit, with K / V rings of two stages or more
+    # (the int8 kernel's K ring in sub-tiles where a whole-head bf16 tile
+    # does not fit twice: at least a 128-key tile's worth), and an instance
+    # of each behind its dispatch
+    src = (kernels.CSRC_DIR / source).read_text()
+    c = _CSource("sm90.cuh", source)
+    if struct == "Sm90":
+        kt = c.eval("SLICE_KEY_TILE", {})
+        assert re.search(r": D > 256 \? SLICE_KEY_TILE", src)
+        # 64-row items whose two consumers share one q^ tile and V tiles of
+        # the whole head, each writing one slice of the columns
+        smem = c.instance("Sm90", d, kt)
+        assert smem["SLICED"] and smem["ROWS"] == 64 and smem["Q_TILES"] == 1
+        assert smem["STAGES"] >= 2 and smem["DV"] == d // 2
+        assert smem["KV_TILE"] == kt * d * 2
+        assert f"case {d}: return launch_sm90<{d}, SM>(a);" in src
+        assert f"case {d}: return launch_flash<{d}>(" in src
+    else:
+        smem = c.instance("SmemI8", d, *map(bool, variant))
+        assert smem["DV"] == d // 2
+        assert smem["KST"] * smem["KSUB"] >= 64 and smem["KST"] >= 2
+        assert smem["VST"] >= 1 and 128 % smem["KSUB"] == 0
+        assert (f"case {d}: return launch_int8<{d}, QK8, PV8, TWO_PASS>(a);"
+                in src)
+    assert smem["BYTES"] <= SMEM_PER_BLOCK, (variant, smem)
+    # the D = 256 instances keep their one slice of every column
+    assert c.instance(struct, 256, *((c.eval("WIDE_KEY_TILE", {}),)
+                                     if struct == "Sm90"
+                                     else map(bool, variant)))["DV"] == 256
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 384, 512])
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 300, 384, 512, 640])
 def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     # (dtype, head dim) -> the kernel each entry point launches: up to 128
     # the wgmma kernels (fp32: their F instances); bf16 at 129-256 (padded
-    # to 256) the wgmma kernels' D = 256 instances, counted apart, from the
-    # same sources and entry points; past 256 in bf16, and past 128 in fp32,
-    # the wide mma.sync instances of attention_fp32.cu; the flash backward
-    # past 128 stays on them too
+    # to 256), 257-384 and 385-512 the wgmma kernels' D = 256, 384 and 512
+    # instances, counted apart, from the same sources and entry points;
+    # past 512 in bf16, and past 128 in fp32, the wide mma.sync instances
+    # of attention_fp32.cu; the flash backward past 128 stays on them too
     fp32 = dtype == torch.float32
     dp = tfl.instance_dim(d)
     bases = (tfa.K1, tfa.K7, tfa.K4, tfa.K7Q, tfa.K8A, tfa.K8B)
+    sets = {256: tfa._D256, 384: tfa._D384, 512: tfa._D512}
     for base in bases:
         kern = tfa.kernel_for(base, dtype, d)
         if dp <= 128:
             assert kern is (tfa._FP32[base] if fp32 else base)
-        elif dp == 256 and not fp32:
-            assert kern is tfa._D256[base]
+        elif dp in sets and not fp32:
+            assert kern is sets[dp][base]
             assert (kern.source, kern.symbol) == (base.source, base.symbol)
-            assert kern.name == base.name + "_256"
+            assert kern.name == f"{base.name}_{dp}"
             assert kern.source in ("attention_sm90.cu",
                                    "attention_int8_sm90.cu")
         else:
@@ -413,12 +456,17 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     elif fp32:
         want = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF)
     else:
-        want = (tfl.K5_256 if dp == 256 else tfl.K5W, tfl.K6AW, tfl.K6BW)
+        k5 = {256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}
+        want = (k5.get(dp, tfl.K5W), tfl.K6AW, tfl.K6BW)
     assert (fwd, dq, dkv) == want
-    assert tfl.K5_256.source == tfl.K5.source == "attention_sm90.cu"
+    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
+        assert (k5.source, k5.symbol) == (tfl.K5.source, tfl.K5.symbol)
+    assert tfl.K5.source == "attention_sm90.cu"
     # the key tile the plain version must take to meet the card's K7
     tile = tfa.stream_key_tile(False, False, d)
-    assert tile == (tfa.K7_KEY_TILE_256 if dp == 256 else tfa.K7_KEY_TILE)
+    assert tile == (tfa.K7_KEY_TILE_256 if dp == 256
+                    else tfa.K7_KEY_TILE_512 if dp in (384, 512)
+                    else tfa.K7_KEY_TILE)
     assert tfa.stream_key_tile(True, False, d) == tfa.K7Q_KEY_TILE
     assert tfa.stream_key_tile(False, True, d) == tfa.K8B_KEY_TILE
 
@@ -441,17 +489,19 @@ def test_flash_backward_is_the_wgmma_source():
 def test_flash_forward_is_the_hopper_attention_source():
     # K5 is the Softmax::Flash instance of K1 / K7's wgmma + TMA kernel, one
     # launch on raw q, k, v through tensor maps of their strided views; the
-    # mma.sync source it had is gone; head dim 256 in bf16 is an instance of
-    # the same kernel (K5_256); past 256, and fp32 past 128, the
-    # shared-memory kernel of attention_fp32.cu (K5W, K5WF)
+    # mma.sync source it had is gone; head dims 256, 384 and 512 in bf16 are
+    # instances of the same kernel (K5_256, K5_384, K5_512); past 512, and
+    # fp32 past 128, the shared-memory kernel of attention_fp32.cu (K5W,
+    # K5WF)
     assert tfl.K5.source == tfa.K1.source == tfa.K7.source
     src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
-    for d in (*tfl.HEAD_DIMS, tfl.WGMMA_WIDE):
+    for d in (*tfl.HEAD_DIMS, *tfl.WGMMA_PAST_128):
         assert f"launch_flash<{d}>" in entry, d
-    assert "launch_flash<384>" not in entry
-    assert tfl.K5_256.source == tfl.K5.source
-    assert tfl.K5_256.symbol == tfl.K5.symbol
+    assert "launch_flash<640>" not in entry
+    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
+        assert k5.source == tfl.K5.source
+        assert k5.symbol == tfl.K5.symbol
     assert tfl.K5W.source == "attention_fp32.cu"
     launch = src[src.index("int launch_flash("):]
     launch = launch[:launch.index("\n}\n")]
@@ -499,8 +549,12 @@ def test_int8_attention_is_the_wgmma_source():
     hdr = (kernels.CSRC_DIR / "sm90.cuh").read_text()
     for n in (16, 32, 64, 128):
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8" in hdr
-    for used in ("wgmma_s8<KEY_TILE>", "wgmma_s8_rs<D>", "wgmma_rs<D>",
-                 "wgmma_ss<KEY_TILE>", "tma_load_4d", "tma_load_2d",
+    # P.V over one slice's DV columns (192 at D = 384) and S over K
+    # sub-tiles of KSUB keys
+    assert "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8" in hdr
+    assert "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16" in hdr
+    for used in ("wgmma_s8<KSUB>", "wgmma_s8_rs<DV>", "wgmma_rs<DV>",
+                 "wgmma_ss<KSUB>", "tma_load_4d", "tma_load_2d",
                  "encode_heads", "encode_s8_2d", "setmaxnreg_inc"):
         assert used in src, used
     for gone in ("mma_s8(", "mma_bf16(", "ldsm_x4(", "cp_async16(",
@@ -549,10 +603,12 @@ def test_k10_k_max_matches_its_source():
     ("K7_KEY_TILE", "attention_sm90.cu", "KEY_TILE"),
     ("K8B_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
     ("K7Q_KEY_TILE", "attention_int8_sm90.cu", "KEY_TILE"),
-    ("K7_KEY_TILE_256", "attention_sm90.cu", "WIDE_KEY_TILE")])
+    ("K7_KEY_TILE_256", "attention_sm90.cu", "WIDE_KEY_TILE"),
+    ("K7_KEY_TILE_512", "attention_sm90.cu", "SLICE_KEY_TILE")])
 def test_key_tiles_match_their_sources(const, source, name):
     # the plain versions' block_k that the card comparisons take is the
-    # kernel's own key tile: K1 / K7's (at head dim 256 WIDE_KEY_TILE), and
+    # kernel's own key tile: K1 / K7's (at head dim 256 WIDE_KEY_TILE, at
+    # 384 and 512 SLICE_KEY_TILE), and
     # K4 / K8a / K7q / K8b's at every head dim (the int8 V^T of K8a and K8b
     # is padded to it)
     src = (kernels.CSRC_DIR / source).read_text()
@@ -1143,10 +1199,13 @@ def test_k1_refuses_what_it_does_not_take(cuda_device):
 
 
 # head dims the fused route pads (48 -> 64, 96 -> 128, 192 -> 256) or runs
-# on the wide instances past 128 (256, 384); (heads, head dim, image h, w,
-# text tokens): ragged lengths, a last key tile of few keys
+# on the instances past 128 (256, 384, 512; 640 past the wgmma ones);
+# (heads, head dim, image h, w, text tokens): ragged lengths, a last key
+# tile of few keys, at 384 and 512 also two 128-key tiles (176 tokens)
 WIDE_ATTN_SHAPES = [(3, 48, 5, 7, 9), (2, 96, 6, 6, 5), (2, 192, 8, 8, 11),
-                    (2, 256, 10, 13, 20), (2, 384, 7, 9, 4)]
+                    (2, 256, 10, 13, 20), (2, 384, 7, 9, 4),
+                    (1, 384, 12, 13, 20), (2, 512, 6, 7, 3),
+                    (1, 512, 12, 13, 20), (1, 640, 5, 6, 7)]
 # (int8_qk, int8_pv, streaming): K1, K7, K4, K7q, K8a over K1 / K4, K8b
 # over K7 / K7q
 WIDE_VARIANTS = [(False, False, False), (False, False, True),
@@ -1176,11 +1235,13 @@ def test_fused_attention_past_head_dim_128_on_the_card(
     base = tfa._INFERENCE.get((int8_qk, int8_pv, streaming),
                               (tfa.K7 if streaming else tfa.K1,))[0]
     fp32 = dtype == torch.float32
-    # bf16 up to 256: the wgmma kernels (D 256: their instances there);
-    # past it, and fp32 past 128, the wide mma.sync instances
+    # bf16 up to 512: the wgmma kernels (D 256, 384, 512: their instances
+    # there); past it, and fp32 past 128, the wide mma.sync instances
     kern = tfa.kernel_for(base, dtype, d)
-    if not fp32 and d <= 256:
+    if not fp32 and d <= 512:
         assert kern.source in ("attention_sm90.cu", "attention_int8_sm90.cu")
+    else:
+        assert kern.source == "attention_fp32.cu"
     before = {kk.name: kk.launches for kk in kernels.REGISTRY}
     got = tfa.fused_attention(qd, kd, vd, nh, *(t.to(dev) for t in tabs),
                               scale, int8_qk=int8_qk, int8_pv=int8_pv,
@@ -1859,22 +1920,23 @@ def test_fp32_k10_kernels_match_plain_on_the_card(cuda_device, b, n, k,
             a, gate, r, *ws[:2]))
 
 
-# head dims past 128: the forward's wgmma instance at 256 in bf16 (K5_256),
-# and 160 padded to it, the wide instances at every multiple of 128 (the
-# backward at every one, the forward past 256 and fp32 at all): 384, 300
-# padded to it, and 512, at ragged lengths and over many key tiles
+# head dims past 128: the forward's wgmma instances in bf16 at 256
+# (K5_256), 384 and 512 (K5_384, K5_512), and 160, 300 padded to them, the
+# wide instances at every multiple of 128 (the backward at every one, the
+# forward past 512 and fp32 at all): at ragged lengths and over many key
+# tiles
 FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
                      (1, 2, 1178, 256), (1, 2, 300, 384), (2, 2, 65, 300),
-                     (1, 2, 129, 512)]
+                     (1, 2, 129, 512), (1, 2, 1178, 512), (1, 2, 65, 640)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_WIDE_SHAPES)
 def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                                                            no_tf32, shape):
-    # K5_256 (up to 256) or K5W, then K6AW, K6BW on bf16 (the limits of the
-    # bf16 flash kernels), K5WF, K6AWF, K6BWF on fp32 (FP32_REL_L2), each
-    # against its plain version
+    # K5_256, K5_384, K5_512 (up to 512) or K5W, then K6AW, K6BW on bf16
+    # (the limits of the bf16 flash kernels), K5WF, K6AWF, K6BWF on fp32
+    # (FP32_REL_L2), each against its plain version
     q, k, v, do = _flash_case(shape, cuda_device, seed=3)
     scale = shape[-1] ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
@@ -1883,8 +1945,10 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
     dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    fwd = tfl.K5_256 if shape[-1] <= 256 else tfl.K5W
-    assert fwd is tfl.flash_kernel("fwd", torch.bfloat16, shape[-1])
+    fwd = tfl.flash_kernel("fwd", torch.bfloat16, shape[-1])
+    assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 512)
+    assert fwd is ({256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}.get(
+        tfl.instance_dim(shape[-1]), tfl.K5W))
     assert _launched(before) == {kk.name: 1 for kk in (fwd, tfl.K6AW,
                                                        tfl.K6BW)}
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
@@ -1920,17 +1984,18 @@ FLASH_KV_SHAPES = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
                    (1, 3, 256, 77, 64), (1, 2, 129, 300, 64),
                    (2, 3, 47, 24, 16), (1, 2, 65, 33, 32),
                    (1, 2, 300, 150, 128), (1, 2, 300, 150, 256),
-                   (1, 2, 129, 300, 256)]
+                   (1, 2, 129, 300, 256), (1, 2, 300, 150, 384),
+                   (1, 2, 129, 300, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_KV_SHAPES)
 def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
         cuda_device, no_tf32, shape):
-    # K5, K6a, K6b (K5_256, K6AW, K6BW at 256) on bf16 within the FLASH
-    # limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32 within
-    # FP32_REL_L2, each against its plain version at M != N: lse and delta
-    # by query row, dk and dv by key row
+    # K5, K6a, K6b (K5_256 / K5_384 / K5_512, K6AW, K6BW past 128) on bf16
+    # within the FLASH limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32
+    # within FP32_REL_L2, each against its plain version at M != N: lse and
+    # delta by query row, dk and dv by key row
     b, h, n, m, d = shape
     r = np.random.default_rng(9)
     q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
@@ -1938,8 +2003,10 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
     scale = d ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
     wide = d > 128
-    bf16 = (tfl.K5_256, tfl.K6AW, tfl.K6BW) if wide else (tfl.K5, tfl.K6A,
-                                                           tfl.K6B)
+    bf16 = tuple(tfl.flash_kernel(w, torch.bfloat16, d)
+                 for w in ("fwd", "dq", "dkv"))
+    assert bf16 == ((tfl.flash_kernel("fwd", torch.bfloat16, d), tfl.K6AW,
+                     tfl.K6BW) if wide else (tfl.K5, tfl.K6A, tfl.K6B))
     fp32 = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF) if wide else (tfl.K5F, tfl.K6AF,
                                                           tfl.K6BF)
     before = {kk.name: kk.launches for kk in kernels.REGISTRY}

@@ -145,6 +145,23 @@ def test_stream_plain_at_the_head_dim_256_tile_matches_jax_kernel(
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+def test_stream_plain_at_the_head_dim_512_tile_matches_jax_kernel(
+        monkeypatch):
+    # at head dims 384 and 512 the card's K7 rounds p against the running
+    # max of K7_KEY_TILE_512-key tiles (two stages of K tiles of the whole
+    # head fit beside q^ only at that size): the plain version over those
+    # blocks, at 370 tokens (a ragged last tile; JAX's kernel takes keys
+    # padded to a multiple of 128), against JAX at the same blocks
+    # (SD3_FLASH_BK)
+    case = _case(1, 512, 12, 25, 70, True, seed=12, b=1)
+    got, want, _ = _both(case, 1, block_k=tfa.K7_KEY_TILE_512,
+                         monkeypatch=monkeypatch)
+    assert case[0].shape[1] % tfa.K7_KEY_TILE_512 != 0
+    assert (tfa.stream_key_tile(False, False, 384)
+            == tfa.stream_key_tile(False, False, 512) == tfa.K7_KEY_TILE_512)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("int8_qk", [False, True])
 @pytest.mark.parametrize("nh,d", [(1, 16), (3, 32)])
 def test_int8_pv_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
@@ -188,6 +205,32 @@ def test_int8_branches_plain_match_jax_kernel(monkeypatch, nh, d, h, w, n_txt,
     np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     # the int8 products are not the float ones
     assert np.abs(flt - got).max() > atol
+
+
+# every fused variant at head dim 384, which the card runs on the wgmma
+# kernels' D = 384 instances: (int8_qk, int8_pv, streaming) K1, K7, K4 and
+# the int8 branches above
+D384_VARIANTS = [(False, False, False), (False, False, True),
+                 (True, False, False), *INT8_VARIANTS]
+
+
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", D384_VARIANTS)
+def test_head_dim_384_plain_versions_match_jax_kernel(monkeypatch, int8_qk,
+                                                      int8_pv, streaming):
+    # the plain versions the card's D = 384 instances are held to, against
+    # JAX's kernels at 248 tokens (two 128-key blocks, the last ragged, and
+    # a ragged last 32-key tile), the streaming ones over the card's key
+    # tiles (stream_key_tile: K7's 32, K7q's and K8b's 128), in this file's
+    # tolerances
+    case = _case(2, 384, 12, 19, 20, True, seed=384, b=1)
+    block_k = tfa.stream_key_tile(int8_qk, int8_pv, 384)
+    got, want, flt = _both(case, 2, int8_qk, int8_pv, streaming,
+                           block_k=block_k, monkeypatch=monkeypatch)
+    atol = (INT8_PV_ATOL if int8_pv else INT8_QK_ATOL if int8_qk else ATOL)
+    np.testing.assert_allclose(got, want, atol=atol,
+                               rtol=0 if (int8_qk or int8_pv) else RTOL)
+    if int8_qk or int8_pv:  # the int8 products are not the float ones
+        assert np.abs(flt - got).max() > atol
 
 
 def _launches():
