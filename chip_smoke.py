@@ -55,11 +55,14 @@ Phases (any failure exits non-zero without the final ok line):
      on 32 draws of its own beside its plain version against itself an
      ulp away (k8af_study: the level noise its limit rests on) with a
      failing control; flash at head dims 256 and 160 (padded to 256: in
-     bf16 K5_256, K5's wgmma instance at 256, with K6AW and K6BW), 384 and
-     512 (bf16: K5_384, K5_512, the same kernel in two column slices, with
-     K6AW, K6BW; also at M != N), 640 (K5W past them) and fp32 at 256-512
-     (K5WF, K6AWF, K6BWF), the bf16 forwards up to 512 with a control (the
-     plain version at twice the scale) that must fail its limit, then
+     bf16 K5_256, K6A_256, K6B_256, the wgmma kernels' instances at 256,
+     with controls, dq and dk of the plain backward at twice the scale,
+     that must fail the gradient limits, and K6A_256, K6B_256 with that
+     control at phase 4b's shape, B 2, H 5, N 410), 384 and 512 (bf16: K5_384,
+     K5_512, the same kernel in two column slices, with K6AW, K6BW; also at
+     M != N), 640 (K5W past them) and fp32 at 256-512 (K5WF, K6AWF,
+     K6BWF), the bf16 forwards up to 512 with a control (the plain version
+     at twice the scale) that must fail its limit, then
      through the flash API, which counts their launches; the fused route
      past the dividers of 128: every fused kernel, bf16 and fp32, at head
      dims 48, 96, 192 (padded to 64, 128, 256), 256, 384, 512 and 640 at a
@@ -103,7 +106,10 @@ Phases (any failure exits non-zero without the final ok line):
      batch 2 (loss,
      gradients and the update against fp32 on the CPU), in bf16 (K5, K6a,
      K6b) and in fp32 (K5F, K6AF, K6BF), and one of tiny_config in bf16
-     (head dim 16: K5, K6a, K6b at D = 16);
+     (head dim 16: K5, K6a, K6b at D = 16); 4b. one of five heads of 256
+     (D256_MODEL, 2 blocks, 256px, batch 2) in bf16 through K5_256,
+     K6A_256 and K6B_256, with a control (RoPE1d's tables on the same
+     weights on the CPU) whose gradients must miss the limit;
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then one timed run; each sample call must launch K1 exactly 19 * 20 times; then one more call
@@ -491,9 +497,9 @@ K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
 # 128, and 48, which runs padded to the 64 instance; the 512px token count
 FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
 # head dims past 128, at the 512px token count and a width near the
-# published one: 256 (K5_256 / K6AW / K6BW in bf16, K5WF / K6AWF / K6BWF in
-# fp32), 160, which runs padded to 256, 384 and 512 (K5_384, K5_512 in
-# bf16)
+# published one: 256 (K5_256 / K6A_256 / K6B_256 in bf16, K5WF / K6AWF /
+# K6BWF in fp32), 160, which runs padded to 256, 384 and 512 (K5_384,
+# K5_512, K6AW, K6BW in bf16)
 FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
               (4, 2, 1178, 512)]
 # past the wgmma forwards: 640 (K5W in bf16), drawn from a generator of its
@@ -503,8 +509,9 @@ FLASH_PAST_512 = (2, 2, 1178, 640)
 FLASH_KV_SLICED = [(2, 3, 410, 205, 384), (2, 3, 129, 300, 512)]
 # k and v with a key length M of their own, as kv_merge_attn's pairwise
 # merge makes them: (B, H, N, M, D) at the 512px and 256px kv_merge training
-# shapes (M = N / 2), a ragged M against a whole N, and M > N; the wide
-# instances at head dim 256 with M = N / 2 and M > N
+# shapes (M = N / 2), a ragged M against a whole N, and M > N; the
+# instances at head dim 256 (bf16: K5_256, K6A_256, K6B_256; fp32: the wide
+# ones) with M = N / 2 and M > N
 FLASH_KV = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
             (2, 3, 256, 77, 64), (2, 3, 129, 300, 64)]
 FLASH_KV_WIDE = [(2, 3, 410, 205, 256), (2, 3, 129, 300, 256)]
@@ -1212,16 +1219,17 @@ def flash_label(shape, suffix="") -> str:
     return f"B={b} H={h} N={n}{f' M={m}' if m != n else ''} D={d}{suffix}"
 
 
-def phase_flash(shape, gen, check=None, control=False):
+def phase_flash(shape, gen, check=None, control=False, grad_control=False):
     """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
     shape, or (B, H, N, M, D) with k and v of M keys, on the samples and
     heads [:check[0], :check[1]] where `check` is given (the plain versions'
     fp32 score matrices at the 1024px training shape take 5.5 GB each); with
     `control` K5's output also against the plain forward at twice the
-    scale, which must miss FLASH_OUT_ATOL; the
-    kernels, the plain versions and SDPA timed at the full shape (SDPA's
-    backward by sdpa_backward_ms); returns {"K5" | "K6a" | "K6b":
-    measurements}."""
+    scale, which must miss FLASH_OUT_ATOL, and with `grad_control` dq and dk
+    against the plain backward at twice the scale, which must miss the
+    FLASH_GRAD limits; the kernels, the plain versions and SDPA timed at the
+    full shape (SDPA's backward by sdpa_backward_ms); returns {"K5" | "K6a"
+    | "K6b": measurements}."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import flash_attention as fl
@@ -1302,13 +1310,28 @@ def phase_flash(shape, gen, check=None, control=False):
     lse_err = errs["K5"]["lse"]["max_abs_err"]
     require(lse_err <= FLASH_LSE_ATOL,
             f"K5 lse max abs err {lse_err} > {FLASH_LSE_ATOL} at {shape}")
+    grad_ok = lambda e: (e["max_rel_err"] <= FLASH_GRAD_MAX_REL
+                         and e["rel_l2"] <= FLASH_GRAD_REL_L2)
     for name, key in (("K6a", "dq"), ("K6b", "dk"), ("K6b", "dv")):
         e = errs[name][key]
-        require(e["max_rel_err"] <= FLASH_GRAD_MAX_REL
-                and e["rel_l2"] <= FLASH_GRAD_REL_L2,
+        require(grad_ok(e),
                 f"{name} {key}: max err {e['max_rel_err']} of max|plain| "
                 f"(limit {FLASH_GRAD_MAX_REL}), rel L2 {e['rel_l2']} (limit "
                 f"{FLASH_GRAD_REL_L2}) at {shape}")
+    if grad_control:
+        # the plain backward at twice the scale on the kernels' inputs
+        c_dq, c_delta = fl.flash_dq_plain(qf, kf, vf, w_out, dof, w_lse,
+                                          2 * scale)
+        c_dk, _ = fl.flash_dkv_plain(qf, kf, vf, dof, w_lse, c_delta,
+                                     2 * scale)
+        for name, key, got, ctl in (("K6a", "dq", dq, c_dq),
+                                    ("K6b", "dk", dk, c_dk)):
+            e = _errs(cut(got), ctl)
+            results[name][f"control_{key}"] = e
+            print(f"  {name} control ({key}, twice the scale)", json.dumps(
+                dict(shape=label, **e)), flush=True)
+            require(not grad_ok(e), f"{name}'s control passes at {shape}: "
+                    f"{key} {e}")
     return results
 
 
@@ -1612,14 +1635,16 @@ def phase_flash_api(gen, gen_past):
     launches = launch_counts()
     print("  flash API", json.dumps(
         {n: c for n, c in launches.items() if c}), flush=True)
-    # bf16 up to 512: K5_256, K5_384, K5_512; past it K5W; the backward and
-    # fp32 past 128: the wide instances
+    # bf16 up to 512: K5_256, K5_384, K5_512; past it K5W; the backward in
+    # bf16 up to 256: K6A_256, K6B_256, past it K6AW, K6BW; fp32 past 128:
+    # the wide instances
     shapes = [*FLASH_WIDE, FLASH_PAST_512]
-    want = dict.fromkeys((fl.K5_256, fl.K5_384, fl.K5_512, fl.K5W), 0)
+    want = dict.fromkeys((fl.K5_256, fl.K5_384, fl.K5_512, fl.K5W,
+                          fl.K6A_256, fl.K6B_256, fl.K6AW, fl.K6BW), 0)
     for s in shapes:
-        want[fl.flash_kernel("fwd", torch.bfloat16, s[-1])] += 1
-    want.update(dict.fromkeys((fl.K6AW, fl.K6BW, fl.K5WF, fl.K6AWF,
-                               fl.K6BWF), len(shapes)))
+        for which in ("fwd", "dq", "dkv"):
+            want[fl.flash_kernel(which, torch.bfloat16, s[-1])] += 1
+    want.update(dict.fromkeys((fl.K5WF, fl.K6AWF, fl.K6BWF), len(shapes)))
     for kern, n in want.items():
         require(launches[kern.name] == n,
                 f"{kern.name} launched {launches[kern.name]} times through "
@@ -1710,12 +1735,16 @@ def phase_train_step_2block(log_dir, fp32=False):
                             lat=TRAIN32_LAT, fp32=fp32)
 
 
-def phase_train_step(log_dir, cfg, label, lat, fp32=False):
+def phase_train_step(log_dir, cfg, label, lat, fp32=False, control=None):
     """One training step of `cfg` (latents lat x lat, batch 2) on the card
     against the same weights and noise in fp32 on the CPU (plain path):
     in bf16 with the slice's flags (bf16 gradients against bf16 weight
-    copies; K5, K6a, K6b) or, with `fp32`, all in fp32 (K5F, K6AF, K6BF)."""
+    copies; K5, K6a, K6b, or their instances at the head dim) or, with
+    `fp32`, all in fp32 (K5F, K6AF, K6BF). With `control` (config fields),
+    the gradients of that config on the same weights in fp32 on the CPU
+    must miss the gradient limit."""
     import torch
+    from sd3_torch.ops import flash_attention as fl
     from sd3_torch.training.trainer import Noise, TrainConfig, Trainer, draw_noise
 
     kw = dict(batch_size=2, accumulation_steps=1, lr=1e-4, warmup_steps=0,
@@ -1746,6 +1775,12 @@ def phase_train_step(log_dir, cfg, label, lat, fp32=False):
     t0 = time.time()
     want_g, want_m = ref.gradients(batch, [noise])
     cpu_s = time.time() - t0
+    if control:
+        ctl = Trainer(cfg.replace(dtype="float32", **control),
+                      TrainConfig(**kw), device="cpu", log_dir=log_dir,
+                      use_wandb=False)
+        _load_loose(ctl.model, p0)
+        ctl_g, _ = ctl.gradients(batch, [noise])
     reset_launches()
     got_g, got_m = dut.gradients(card_batch, [on_card(noise)])
     torch.cuda.synchronize()
@@ -1765,15 +1800,21 @@ def phase_train_step(log_dir, cfg, label, lat, fp32=False):
                update_rel_l2=_flat_rel_l2(delta(dut), delta(ref)),
                launches=launches, cpu_fp32_gradient_s=cpu_s)
     res["loss_rel"] = abs(res["loss_card"] / res["loss_cpu_fp32"] - 1)
+    if control:
+        res["control"] = control
+        res["control_grad_rel_l2"] = _flat_rel_l2(got_g, {
+            k: ctl_g[k] for k in want_g if k in ctl_g})
     print("  train step", json.dumps(res), flush=True)
-    nb = cfg.num_blocks
-    sfx = "_fp32" if fp32 else ""
-    other = "" if fp32 else "_fp32"
-    for name, n in {f"flash_attention_fwd{sfx}": 2 * nb,
-                    f"flash_attention_dq{sfx}": nb,
-                    f"flash_attention_dkv{sfx}": nb,
-                    f"flash_attention_fwd{other}": 0,
-                    "fused_attention_bf16": 0}.items():
+    # the flash kernels of the head dim and dtype: the forward twice a block
+    # (remat), dq and dk / dv once; no other flash or fused attention kernel
+    nb, hd = cfg.num_blocks, cfg.dim // cfg.num_heads
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    want = {n: 0 for n in launches if n.startswith("flash_attention_")}
+    want.update({fl.flash_kernel("fwd", dtype, hd).name: 2 * nb,
+                 fl.flash_kernel("dq", dtype, hd).name: nb,
+                 fl.flash_kernel("dkv", dtype, hd).name: nb,
+                 "fused_attention_bf16": 0})
+    for name, n in want.items():
         require(launches[name] == n, f"{name} launched {launches[name]} times "
                 f"in a {label} training step with remat, expected {n}")
     limits = ((FP32_TRAIN_LOSS_REL, FP32_TRAIN_GRAD_REL_L2,
@@ -1786,6 +1827,10 @@ def phase_train_step(log_dir, cfg, label, lat, fp32=False):
             f"{label} gradients rel L2 {res['grad_rel_l2']} > {limits[1]}")
     require(res["update_rel_l2"] <= limits[2],
             f"{label} update rel L2 {res['update_rel_l2']} > {limits[2]}")
+    if control:
+        require(res["control_grad_rel_l2"] > limits[1], f"{label}: the "
+                f"control {control} passes the gradient check "
+                f"({res['control_grad_rel_l2']})")
     return res
 
 
@@ -4504,12 +4549,18 @@ def main() -> int:
         # with a control
         say("phase 3e: the flash instances past 128, M != N")
         k56w = [phase_flash(s, gen, control=flash_attention.instance_dim(
-                                s[-1]) in flash_attention.WGMMA_PAST_128)
+                                s[-1]) in flash_attention.WGMMA_PAST_128,
+                            grad_control=flash_attention.instance_dim(
+                                s[-1]) == flash_attention.WGMMA_WIDE)
                 for s in FLASH_WIDE]
+        # K6A_256 / K6B_256 at the shape phase 4b's training step gives them
+        # (B 2, H 5, N 410, D 256), on draws of their own, with the control
+        k56s256 = phase_flash(step_flash_shape(train_step_config().replace(
+            **D256_MODEL), TRAIN32_LAT), wide_gen(256), grad_control=True)
         k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
         # k and v of M keys (kv_merge_attn): K5, K6a, K6b, their fp32
-        # instances, and at head dim 256 K5_256, the wide ones and their
-        # fp32 instances
+        # instances, and at head dim 256 K5_256, K6A_256, K6B_256 and the
+        # wide fp32 instances
         for shp in FLASH_KV:
             phase_flash(shp, gen)
             phase_flash_fp32(shp, gen)
@@ -4573,6 +4624,13 @@ def main() -> int:
         step32 = phase_train_step_2block(log_dir, fp32=True)
         # tiny_config (head dim 16: the flash instances at D = 16)
         phase_train_step(log_dir, tiny, "tiny_config", lat=TINY_LAT)
+        say("phase 4b: a training step of five heads of 256 (dim 1280, 2 "
+            "blocks, 256px, batch 2) on K5_256, K6A_256, K6B_256 against "
+            "fp32 on the CPU, RoPE1d's tables the control")
+        step256 = phase_train_step(
+            log_dir, train_step_config().replace(**D256_MODEL),
+            "D-256 2-block", lat=TRAIN32_LAT,
+            control=dict(positional_encoding="RoPE"))
 
         say("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -4746,12 +4804,20 @@ def main() -> int:
              "sd3_tpu/ops/fused_dense.py:166", cli["infer fp32 int8 tails"],
              lambda run: run),
             # flash past head dim 128 (bf16: K5's wgmma instances at 256,
-            # 384 and 512, the shared-memory kernels past them and for the
-            # backward; fp32: the shared-memory kernels, at 256): their
+            # 384 and 512, K6a's and K6b's at 256, the shared-memory kernels
+            # past them; fp32: the shared-memory kernels, at 256): their
             # launches are those of the flash API phase, but K5_256's and
-            # K5_384's: the D = 256 and 384 models' attention (phase 4)
+            # K5_384's: the D = 256 and 384 models' attention (phase 4), and
+            # K6A_256's and K6B_256's: the D = 256 training step (phase 4b),
+            # timed at its shape
             (flash_attention.K5_256, k56w[0]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", model256,
+             lambda run: run["launches"]),
+            (flash_attention.K6A_256, k56s256["K6a"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:191", step256,
+             lambda run: run["launches"]),
+            (flash_attention.K6B_256, k56s256["K6b"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:222", step256,
              lambda run: run["launches"]),
             (flash_attention.K5_384, k56w[2]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", model384,
@@ -4760,9 +4826,9 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
             (flash_attention.K5W, k56w640["K5"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
-            (flash_attention.K6AW, k56w[0]["K6a"], "attention_fp32.cu",
+            (flash_attention.K6AW, k56w[2]["K6a"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
-            (flash_attention.K6BW, k56w[0]["K6b"], "attention_fp32.cu",
+            (flash_attention.K6BW, k56w[2]["K6b"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
             (flash_attention.K5WF, k56wf[0]["K5F"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),

@@ -24,9 +24,9 @@
 //   K5  `_fwd_kernel` (:103): attn_fp32_kernel with lse;
 //   K6a `_dq_kernel` (:191): dq_fp32_kernel;
 //   K6b `_dkv_kernel` (:222): dkv_fp32_kernel;
-// past head dim 128 (the bf16 forwards past 256): wide_attn_kernel (the
-// forwards, on wide_prep_kernel's q^ / k^ for K1 .. K8b), wide_dq_kernel,
-// wide_dkv_kernel.
+// past head dim 128 (bf16: the forwards past 512, the backward past 256):
+// wide_attn_kernel (the forwards, on wide_prep_kernel's q^ / k^ for K1 ..
+// K8b), wide_dq_kernel, wide_dkv_kernel.
 // The JAX kernels run their fp32 products at Precision.HIGHEST
 // (flash_attention.py:87-95, :242; fused_attention.py:95-110), so every
 // fp32 product here is fp32-accurate: 3xTF32 on the tensor cores. Each
@@ -68,10 +68,10 @@
 // bank conflicts; p and ds go through a warp's own 16 x 32 tile of shared
 // memory to become A fragments (the int8 p of K8a / K8b stays in registers:
 // its score accumulators are an A fragment in the key order of V^T's prep,
-// attention_common.cuh v_perm). Head dims past 128 (the bf16 forwards:
-// past 256) take the wide instances: the scores summed over 128-wide
-// chunks of the head, staged
-// through shared memory a chunk at a time, and the output's columns split
+// attention_common.cuh v_perm). Head dims past 128 (bf16: the forwards
+// past 512, the backward past 256) take the wide instances: the scores
+// summed over 128-wide chunks of the head, staged through shared memory a
+// chunk at a time, and the output's columns split
 // into slices of 128, one block each (section "head dims past 128" below),
 // so that neither a block's shared memory nor a thread's accumulators grow
 // with the head dim. No TMA, no wgmma, no overlap of loads

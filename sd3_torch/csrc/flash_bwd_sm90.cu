@@ -25,7 +25,8 @@
 //
 // Both kernels: three warpgroups per block, one block per SM (the
 // consumers' registers), each block on items of 128 rows of one head of
-// one sample. K6a launches a block per item, grid (ceil(N / 128), H, B).
+// one sample (K6b at D = 256: 64 rows, see "D = 256" below). K6a launches a
+// block per item, grid (ceil(N / 128), H, B).
 // q, o, dO, dq, lse and delta have N query rows, k, v, dk and dv M key rows
 // of their own (kv_merge_attn halves them): K6a's key tiles run to M and its
 // ragged last one is masked at M; K6b's items are 128 of the M key rows,
@@ -42,8 +43,8 @@
 //   (D, N, H, B) built from the (b, h, n) element strides of each tensor,
 //   so the (B, N, H, D)-strided views of the training path are read in
 //   place, with boxes (W / 2, rows, 1, 1), swizzled 32, 64 or 128 bytes
-//   for D = 16, 32, 64 and as two 128-byte atom columns for D = 128
-//   (SwizzledRows, sm90.cuh). TMA zero-fills rows past N.
+//   for D = 16, 32, 64 and as two or four 128-byte atom columns for D =
+//   128, 256 (SwizzledRows, sm90.cuh). TMA zero-fills rows past N.
 // - Warpgroups 1 and 2, the consumers, own 64 rows each. Their products
 //   are wgmma m64n64k16 with B a shared-memory tile: the score products
 //   with A = q, dO (K6a, SS) or k, v (K6b, RS: the A fragments loaded once
@@ -54,13 +55,13 @@
 //   packs p) and B read MN-major (the transpose bit).
 // - The exp2s overlap the products. Between the consumers, a ping-pong on
 //   two named barriers makes them take turns to issue, so that one's
-//   arithmetic runs while the other's products do. Within a K6a consumer,
-//   the score products of tile t are issued together with dQ of tile t-1,
-//   and the p / ds arithmetic of tile t runs while the tensor cores do dQ;
-//   the wait for dQ sits behind a branch on the arithmetic's results, since
-//   ptxas hoists a wait to the top of its basic block (as K7's SASS
-//   showed). K6b waits for all its products before its arithmetic (see its
-//   loop).
+//   arithmetic runs while the other's products do. Within a K6a consumer
+//   (up to D = 128), the score products of tile t are issued together with
+//   dQ of tile t-1, and the p / ds arithmetic of tile t runs while the
+//   tensor cores do dQ; the wait for dQ sits behind a branch on the
+//   arithmetic's results, since ptxas hoists a wait to the top of its
+//   basic block (as K7's SASS showed). K6b waits for all its products
+//   before its arithmetic (see its loop).
 //
 // K6a, flash_dq_sm90_kernel: a block is 128 query rows. Resident: each
 // consumer's 64 rows of q and dO (TMA), lse of its rows and the delta it
@@ -95,6 +96,48 @@
 // spilled 40 bytes); its rings (4 stages of 32-key k and v tiles, 8 KB
 // each, beside the 64 KB of q and dO) take 130 KB of shared memory.
 //
+// D = 256 (bf16 heads of 129-256, padded): a 64 x 256 fp32 accumulator is
+// 128 registers of a consumer thread, one wgmma m64n256k16 a k-step.
+// - K6a keeps its layout with 32-key tiles: q and dO of the block's 128
+//   rows take 128 KB, three stages of 16 KB k and v tiles 96 KB. dQ (128),
+//   S, dP (16 each) and the packed ds (8) fit, but not beside dQ of the
+//   tile before in flight: with K6a's overlap ptxas spilled 128 bytes,
+//   0.275 ms at (B 4, H 5, N 1178); so each tile's scores and the dQ of the
+//   tile before are issued together and waited for together, the
+//   arithmetic beside the other consumer's products alone: no spill, 0.130
+//   ms (times of copies of this source with one change each, on one H100
+//   80GB HBM3 at 700 W; PERF.md). The descriptors of q's and dO's 32
+//   k-steps are one each plus constant offsets made opaque to the loop
+//   (k_step_offset).
+// - K6b splits by gradient: dK and dV of 64 key rows take 256 registers, so
+//   both consumers take the same 64 key rows (an item; 4 x 5 x 19 = 380 at
+//   the shape above, 2.9 a persistent block). Consumer 0 holds k, takes
+//   S^T = k q^T and p^T, and sums dV += bf16(p^T) dO; consumer 1 holds v,
+//   takes dP^T = v dO^T, reads consumer 0's unrounded fp32 p^T from shared
+//   memory into ds^T = p^T (dP^T - delta), and sums dK += bf16(ds^T) q: the
+//   four products once each, the least there is. Each consumer holds 128 +
+//   32 + 16 registers at 64-query tiles. The hand-over is a 64 x 64 fp32
+//   tile (16 KB) in two buffers under full / empty mbarriers, laid out by
+//   thread (both warpgroups share the accumulator layout, so each thread
+//   reads what its counterpart wrote: float4s, a warp's 512 bytes
+//   contiguous); consumer 0 can run two tiles ahead. Shared memory: k and v
+//   64 KB, two stages of 64-row q and dO 128 KB, the hand-over 32 KB: 226
+//   KB of 227. Each consumer issues a tile's score product with the
+//   gradient product of the tile before and waits for both (the loop of D
+//   <= 128): with the arithmetic beside the gradient product, ptxas spilled
+//   468 bytes, 0.319 against 0.154 ms; 32-query tiles in four stages took
+//   0.176 ms, and 24 / 240 registers for the producer / each consumer
+//   0.159 ms with a 52-byte spill in K6b (the same copies; K6a 0.130 with
+//   them). Splitting by columns instead (each consumer 128 columns of dK
+//   and dV) would take S^T and dP^T in both, six products for four.
+// Bound at (B 4, H 5, N 1178, D 256): K6a 42.6 G FLOP, 0.0431 ms; K6b 56.8
+// G FLOP, 0.0575 ms. K6a's score products are SS m64n32k16, whose A and B
+// (3 KB a k-step) take 24 cycles of shared-memory bandwidth against 16 of
+// tensor work: 1.17x over the tensor bound before anything else; 200
+// blocks on 132 SMs run in two waves, the second 52% full, and take 2.1x
+// the time of 100 (one wave): equal items leave the second wave's idle
+// SMs to any schedule, persistent or not.
+//
 // What bounds them on this card, at the 512px training shape (B 4, H 19,
 // N 1178, D 64): K6a's three products are 6*B*H*N^2*D = 40.5 G FLOP,
 // 0.041 ms at 989 TFLOP/s; K6b's four 54.0 G FLOP, 0.055 ms; each takes
@@ -112,7 +155,6 @@ namespace {
 constexpr int ROWS = 64;                   // rows per consumer
 constexpr int CONSUMERS = 2;               // consumer warpgroups per block
 constexpr int BLOCK = ROWS * CONSUMERS;    // rows per block
-constexpr int STAGES = 4;                  // ring stages of both kernels
 constexpr int WG = 128;                    // threads per warpgroup
 constexpr int THREADS = WG * (1 + CONSUMERS);
 // named barriers (0 is __syncthreads): TURN + c, consumer c's turn to issue
@@ -127,10 +169,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of flash_dq_sm90_kernel<D>, from a 1024-byte aligned base.
 // K6a's key tile: 64 keys; 32 at D = 128, where dQ's 64 accumulators beside
-// S, dP and the packed ds of 64 keys spilled (40 bytes)
+// S, dP and the packed ds of 64 keys spilled (40 bytes), and at D = 256.
+// Four ring stages; three at D = 256, where q and dO take 128 KB.
 template <int D>
 struct DqSmem {
-  static constexpr int KEY_TILE = D == 128 ? 32 : 64;  // keys per k / v tile
+  static constexpr int KEY_TILE = D >= 128 ? 32 : 64;  // keys per k / v tile
+  static constexpr int STAGES = D == 256 ? 3 : 4;
+  // the arithmetic of key tile t beside dQ of tile t-1 (see the loop); not
+  // at D = 256, where dQ's 128 accumulators beside it spilled
+  static constexpr bool OVERLAP = D != 256;
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of q or dO
   static constexpr int KV_TILE = KEY_TILE * D * 2;  // one k or v tile
   static constexpr int Q = 0;                       // [CONSUMERS] q tiles
@@ -141,32 +188,49 @@ struct DqSmem {
   // q and dO
   static constexpr int BAR = V + STAGES * KV_TILE;
   static constexpr int BYTES = BAR + (4 * STAGES + CONSUMERS) * 8 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// K6b's query tile, and whether its score products read k and v from
-// shared memory (SS) rather than as register fragments (D <= 64)
+// K6b's layout. SPLIT (D = 256): an item is 64 key rows, which both
+// consumers take, split by gradient (see "D = 256" above); else 128,
+// 64 a consumer. Its query tile, its ring stages, and whether its score
+// products read k and v from shared memory (SS) rather than as register
+// fragments (D <= 64).
 template <int D>
 struct DkvCfg {
-  static constexpr bool SS = D == 128;
-  static constexpr int Q_TILE = SS ? 32 : 64;  // queries per q / dO tile
+  static constexpr bool SPLIT = D == 256;
+  static constexpr bool SS = D >= 128;
+  static constexpr int Q_TILE = D == 128 ? 32 : 64;  // queries per q / dO tile
+  static constexpr int STAGES = SPLIT ? 2 : 4;
+  static constexpr int ITEM = SPLIT ? ROWS : BLOCK;  // key rows per item
 };
 
 // Shared memory of flash_dkv_sm90_kernel<D>, from a 1024-byte aligned base.
 template <int D>
 struct DkvSmem {
+  static constexpr bool SPLIT = DkvCfg<D>::SPLIT;
   static constexpr int Q_TILE = DkvCfg<D>::Q_TILE;
+  static constexpr int STAGES = DkvCfg<D>::STAGES;
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of k or v
   static constexpr int QT_TILE = Q_TILE * D * 2;    // one q or dO tile
-  static constexpr int K = 0;                       // [CONSUMERS] k tiles
-  static constexpr int V = K + CONSUMERS * ROW_TILE;    // [CONSUMERS] v
-  static constexpr int Q = V + CONSUMERS * ROW_TILE;    // [STAGES] q tiles
+  static constexpr int KV_TILES = SPLIT ? 1 : CONSUMERS;  // k, v tiles held
+  static constexpr int K = 0;                       // [KV_TILES] k tiles
+  static constexpr int V = K + KV_TILES * ROW_TILE;     // [KV_TILES] v
+  static constexpr int Q = V + KV_TILES * ROW_TILE;     // [STAGES] q tiles
   static constexpr int DO = Q + STAGES * QT_TILE;       // [STAGES] dO tiles
-  static constexpr int LSE = DO + STAGES * QT_TILE;     // [STAGES][Q_TILE]
+  // SPLIT: consumer 0's fp32 p^T of a query tile, handed to consumer 1,
+  // in two buffers
+  static constexpr int P_TILE = SPLIT ? ROWS * Q_TILE * 4 : 0;
+  static constexpr int P = DO + STAGES * QT_TILE;       // [2] p^T tiles
+  static constexpr int LSE = P + 2 * P_TILE;            // [STAGES][Q_TILE]
   static constexpr int DELTA = LSE + STAGES * Q_TILE * 4;  // [STAGES][Q_TILE]
-  // mbarriers: full / empty of each stage, full of each consumer's k and v,
-  // empty of both
+  // mbarriers: full / empty of each stage, full of each consumer's k and v
+  // (SPLIT: of k, of v), empty of both; SPLIT: full / empty of each p^T
+  // buffer
   static constexpr int BAR = DELTA + STAGES * Q_TILE * 4;
-  static constexpr int BYTES = BAR + (2 * STAGES + CONSUMERS + 1) * 8 + 1024;
+  static constexpr int BYTES =
+      BAR + (2 * STAGES + CONSUMERS + 1 + (SPLIT ? 4 : 0)) * 8 + 1024;
+  static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
 // TMA of R rows (n0.., head h, sample b) of a (D, N, H, B) view into a tile
@@ -309,6 +373,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int N, int M, int H, float scale_log2, float scale) {
   using S = DqSmem<D>;
   constexpr int KEY_TILE = S::KEY_TILE;
+  constexpr int STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -410,14 +475,36 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t kb = sb + S::K + st * S::KV_TILE;
       const uint32_t vb = sb + S::V + st * S::KV_TILE;
       wgmma_fence();
+      if constexpr (D == 256) {
+        // k-step 0's descriptors plus each k-step's offset, q's and dO's
+        // made opaque to the loop (k_step_offset, sm90.cuh): their 32
+        // descriptors would otherwise stay in registers across it. D <= 128
+        // keeps a descriptor a k-step: there the opaque form spills
+        // nothing either, but it changes the SASS of all four instances,
+        // whose times PERF.md holds for this code
+        uint64_t dq0 = desc_k_major<D>(q_base, ROWS, 0);
+        uint64_t do0 = desc_k_major<D>(do_base, ROWS, 0);
+        asm volatile("" : "+l"(dq0), "+l"(do0));
+        const uint64_t dk0 = desc_k_major<D>(kb, KEY_TILE, 0);
+        const uint64_t dv0 = desc_k_major<D>(vb, KEY_TILE, 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<KEY_TILE>(s, desc_k_major<D>(q_base, ROWS, kk),
-                           desc_k_major<D>(kb, KEY_TILE, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<KEY_TILE>(s, dq0 + k_step_offset<D>(ROWS, kk),
+                             dk0 + k_step_offset<D>(KEY_TILE, kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<KEY_TILE>(dp, desc_k_major<D>(do_base, ROWS, kk),
-                           desc_k_major<D>(vb, KEY_TILE, kk), kk > 0);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<KEY_TILE>(dp, do0 + k_step_offset<D>(ROWS, kk),
+                             dv0 + k_step_offset<D>(KEY_TILE, kk), kk > 0);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<KEY_TILE>(s, desc_k_major<D>(q_base, ROWS, kk),
+                             desc_k_major<D>(kb, KEY_TILE, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<KEY_TILE>(dp, desc_k_major<D>(do_base, ROWS, kk),
+                             desc_k_major<D>(vb, KEY_TILE, kk), kk > 0);
+      }
       wgmma_commit();
     };
     // issue acc += bf16(ds) k of key tile t
@@ -483,15 +570,26 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       issue_scores(t);  // S, dP of tile t ...
       issue_dq(t - 1);  // ... and dQ of tile t-1 on the tensor cores
       turn.hand_over();
-      wgmma_wait<1>();  // S, dP of tile t done
-      reg_fence(s);
-      reg_fence(dp);
-      release(empty_v, t);
-      grads(t);  // while dQ of tile t-1 and the other's products run
-      wait_all_after(dp[KEY_TILE / 2 - 1]);
-      reg_fence(acc);
-      reg_fence(ds);
-      release(empty_k, t - 1);
+      if constexpr (S::OVERLAP) {
+        wgmma_wait<1>();  // S, dP of tile t done
+        reg_fence(s);
+        reg_fence(dp);
+        release(empty_v, t);
+        grads(t);  // while dQ of tile t-1 and the other's products run
+        wait_all_after(dp[KEY_TILE / 2 - 1]);
+        reg_fence(acc);
+        reg_fence(ds);
+        release(empty_k, t - 1);
+      } else {
+        wgmma_wait<0>();  // S, dP of tile t and dQ of tile t-1 done
+        reg_fence(s);
+        reg_fence(dp);
+        reg_fence(acc);
+        reg_fence(ds);
+        release(empty_v, t);
+        release(empty_k, t - 1);
+        grads(t);  // while the other's products run
+      }
       pack_ds();
     }
     turn.take();
@@ -517,10 +615,10 @@ struct Item {
       : x(item % nx), h(item / nx % H), b(item / nx / H) {}
 };
 
-// grid min(SMs, ceil(N / BLOCK) * H * B) persistent blocks, THREADS threads,
+// grid min(SMs, ceil(M / ITEM) * H * B) persistent blocks, THREADS threads,
 // DkvSmem<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v, tm_do:
 // tensor maps of q, k, v, dO (see encode_view); lse, delta (B*H, N) fp32;
-// dk, dv (B, H, N, D) bf16 views.
+// dk, dv (B, H, M, D) bf16 views.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -533,14 +631,18 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int M, int H, float scale_log2, float scale) {
   using S = DkvSmem<D>;
   constexpr int Q_TILE = S::Q_TILE;
+  constexpr int STAGES = S::STAGES;
+  constexpr int ITEM = DkvCfg<D>::ITEM;
   constexpr bool SS = DkvCfg<D>::SS;
+  constexpr bool SPLIT = DkvCfg<D>::SPLIT;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
   const uint32_t full = sb + S::BAR, empty = full + 8 * STAGES;
   const uint32_t full_kv = empty + 8 * STAGES;
   const uint32_t empty_kv = full_kv + 8 * CONSUMERS;
-  const int nx = (M + BLOCK - 1) / BLOCK, items = nx * H * B;
+  const uint32_t full_p = empty_kv + 8, empty_p = full_p + 16;  // SPLIT
+  const int nx = (M + ITEM - 1) / ITEM, items = nx * H * B;
   const int ntiles = (N + Q_TILE - 1) / Q_TILE;
   float2* const stage_lse = reinterpret_cast<float2*>(smem + S::LSE);
   float2* const stage_delta = reinterpret_cast<float2*>(smem + S::DELTA);
@@ -552,6 +654,12 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     for (int c = 0; c < CONSUMERS; ++c) mbar_init(full_kv + 8 * c, 1);
     mbar_init(empty_kv, CONSUMERS * WG);         // every consumer thread
+    if constexpr (SPLIT) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(full_p + 8 * i, WG);           // consumer 0's threads
+        mbar_init(empty_p + 8 * i, WG);          // consumer 1's threads
+      }
+    }
     fence_barrier_init();
   }
   __syncthreads();
@@ -579,13 +687,23 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         const size_t bhn = ((size_t)w.b * H + w.h) * N;
         if (lane == 0) {
           mbar_wait(empty_kv, (it & 1) ^ 1);
-          for (int c = 0; c < CONSUMERS; ++c) {
-            const int k0 = w.x * BLOCK + c * ROWS;
-            mbar_arrive_expect_tx(full_kv + 8 * c, 2 * S::ROW_TILE);
-            load_rows<D, ROWS>(sb + S::K + c * S::ROW_TILE, &tm_k,
-                               full_kv + 8 * c, k0, w.h, w.b);
-            load_rows<D, ROWS>(sb + S::V + c * S::ROW_TILE, &tm_v,
-                               full_kv + 8 * c, k0, w.h, w.b);
+          if constexpr (SPLIT) {
+            // the item's 64 rows: k for consumer 0, v for consumer 1
+            mbar_arrive_expect_tx(full_kv, S::ROW_TILE);
+            load_rows<D, ROWS>(sb + S::K, &tm_k, full_kv, w.x * ITEM, w.h,
+                               w.b);
+            mbar_arrive_expect_tx(full_kv + 8, S::ROW_TILE);
+            load_rows<D, ROWS>(sb + S::V, &tm_v, full_kv + 8, w.x * ITEM,
+                               w.h, w.b);
+          } else {
+            for (int c = 0; c < CONSUMERS; ++c) {
+              const int k0 = w.x * BLOCK + c * ROWS;
+              mbar_arrive_expect_tx(full_kv + 8 * c, 2 * S::ROW_TILE);
+              load_rows<D, ROWS>(sb + S::K + c * S::ROW_TILE, &tm_k,
+                                 full_kv + 8 * c, k0, w.h, w.b);
+              load_rows<D, ROWS>(sb + S::V + c * S::ROW_TILE, &tm_v,
+                                 full_kv + 8 * c, k0, w.h, w.b);
+            }
           }
         }
         for (int t = 0; t < ntiles; ++t, ++u) {
@@ -612,6 +730,152 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           }
         }
       }
+    }
+  } else if constexpr (SPLIT) {
+    // ---- consumers, split by gradient: both on the item's 64 key rows.
+    // Consumer 0 takes S^T = k q^T, p^T and dV += bf16(p^T) dO; consumer 1
+    // dP^T = v dO^T, ds^T = p^T dP^T from consumer 0's fp32 p^T, and dK +=
+    // bf16(ds^T) q. The same code, on k / q / dO / lse for consumer 0 and
+    // v / dO / q / delta for consumer 1.
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
+    const uint32_t held = sb + (c == 0 ? S::K : S::V);  // the A of S^T / dP^T
+    const int a_off = c == 0 ? S::Q : S::DO;   // B of S^T / dP^T, per stage
+    const int g_off = c == 0 ? S::DO : S::Q;   // B of dV / dK, per stage
+    const float2* const stats = c == 0 ? stage_lse : stage_delta;
+    float4* const hand = reinterpret_cast<float4*>(smem + S::P) + tid;
+    float sc[Q_TILE / 2];       // S^T then p^T (0); dP^T then ds^T (1)
+    uint32_t pk[Q_TILE / 4];    // bf16 p^T / ds^T: the A fragments of dV / dK
+    float acc[D / 2];           // dV (0) or dK (1)
+    int u = 0;                  // query tiles consumed before this item
+
+    // issue S^T = k q^T - lse / scale or dP^T = v dO^T - delta of query
+    // tile t (the stage's statistics read as in the issue_scores of D <=
+    // 128 below); k's / v's descriptor made opaque to the loop
+    // (k_step_offset)
+    auto issue_scores = [&](int t) {
+      const int st = (u + t) % STAGES;
+      mbar_wait(full + 8 * st, ((u + t) / STAGES) & 1);
+      const float2* sl = stats + st * Q_TILE / 2;
+#pragma unroll
+      for (int j = 0; j < Q_TILE / 8; ++j) {
+        const float2 l = sl[4 * j + t4];
+        sc[4 * j] = sc[4 * j + 2] = -l.x;
+        sc[4 * j + 1] = sc[4 * j + 3] = -l.y;
+      }
+      uint64_t da = desc_k_major<D>(held, ROWS, 0);
+      asm volatile("" : "+l"(da));
+      const uint64_t db =
+          desc_k_major<D>(sb + a_off + st * S::QT_TILE, Q_TILE, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<Q_TILE>(sc, da + k_step_offset<D>(ROWS, kk),
+                         db + k_step_offset<D>(Q_TILE, kk), 1);
+      wgmma_commit();
+    };
+    // issue acc += bf16(p^T) dO or bf16(ds^T) q of query tile t
+    auto issue_grad = [&](int t) {
+      const uint32_t bb = sb + g_off + ((u + t) % STAGES) * S::QT_TILE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Q_TILE / 16; ++kk) {
+        const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                               pk[4 * kk + 3]};
+        wgmma_rs<D>(acc, a, desc_mn_major<D>(bb, Q_TILE, kk), 1);
+      }
+      wgmma_commit();
+    };
+    // this warp is done with query tile t's stage
+    auto release = [&](int t) {
+      if (lane == 0) mbar_arrive(empty + 8 * ((u + t) % STAGES));
+    };
+    // query tile t's p^T, through buffer (u + t) % 2: consumer 0 takes p^T
+    // = exp2(s * scale * log2(e)) in place and writes it there, consumer 1
+    // reads it into ds^T = p^T dP^T. Both warpgroups hold their tiles in
+    // the same accumulator layout, so a thread reads what the same thread
+    // of the other wrote: its float4 i (accumulators 4i .. 4i + 3) at
+    // i * WG + tid, a warp's 32 float4s contiguous, no bank conflict.
+    auto hand_over = [&](int t) {
+      const int n = u + t, buf = n & 1;
+      const uint32_t parity = (n >> 1) & 1;
+      float4* hp = hand + buf * (S::P_TILE / 16);
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 2; ++i)
+          sc[i] = fast_exp2(sc[i] * scale_log2);
+        mbar_wait(empty_p + 8 * buf, parity ^ 1);  // read two tiles ago
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 8; ++i)
+          hp[i * WG] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                   sc[4 * i + 3]);
+        mbar_arrive(full_p + 8 * buf);
+      } else {
+        mbar_wait(full_p + 8 * buf, parity);
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 8; ++i) {
+          const float4 p = hp[i * WG];
+          sc[4 * i] *= p.x;
+          sc[4 * i + 1] *= p.y;
+          sc[4 * i + 2] *= p.z;
+          sc[4 * i + 3] *= p.w;
+        }
+        mbar_arrive(empty_p + 8 * buf);
+      }
+    };
+    auto pack = [&]() {
+#pragma unroll
+      for (int i = 0; i < Q_TILE / 4; ++i)
+        pk[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    };
+
+    // A tile's gradient product is issued with the next tile's scores and
+    // both are waited for together, as in the loop of D <= 128 below: with
+    // the arithmetic of one tile beside the gradient product of the tile
+    // before (K6a's loop up to D = 128), ptxas spilled 468 bytes, 0.319
+    // against 0.154 ms (see "D = 256" above). No ping-pong: the hand-over
+    // already sets one consumer's arithmetic beside the other's products.
+    for (int item = blockIdx.x, it = 0; item < items;
+         item += gridDim.x, ++it) {
+      const Item w(item, nx, H);
+      mbar_wait(full_kv + 8 * c, it & 1);  // this item's k (0) or v (1)
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+      issue_scores(0);
+      wgmma_wait<0>();
+      reg_fence(sc);
+      if (ntiles == 1) mbar_arrive(empty_kv);
+      hand_over(0);
+      pack();
+      for (int t = 1; t < ntiles; ++t) {
+        issue_scores(t);   // S^T / dP^T of tile t ...
+        issue_grad(t - 1); // ... and dV / dK of tile t-1
+        wgmma_wait<0>();
+        reg_fence(sc);
+        reg_fence(acc);
+        reg_fence(pk);
+        if (t == ntiles - 1) mbar_arrive(empty_kv);  // k / v read
+        release(t - 1);
+        hand_over(t);      // while the other consumer's products run
+        pack();
+      }
+      issue_grad(ntiles - 1);
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(pk);
+      release(ntiles - 1);
+
+      const int r0 = w.x * ITEM + warp * 16 + g;
+      if (c == 0)
+        store_rows<D>(dv + w.b * vdv.b + w.h * vdv.h, vdv.n, acc, 1.f, r0, M,
+                      t4);
+      else
+        store_rows<D>(dk + w.b * vdk.b + w.h * vdk.h, vdk.n, acc, scale, r0,
+                      M, t4);
+      u += ntiles;
     }
   } else {
     // ---- consumers: 64 key rows each of every item
@@ -792,13 +1056,14 @@ int opt_in_smem(Kernel kernel, int bytes) {
 }
 
 // One persistent block per SM of the current device, or one per work item
-// (128 of `rows` key rows of a head) where there are fewer; a cudaError_t.
-int persistent_blocks(int* blocks, int B, int H, int rows) {
+// (`item` of `rows` key rows of a head) where there are fewer; a
+// cudaError_t.
+int persistent_blocks(int* blocks, int B, int H, int rows, int item) {
   int dev = 0, sms = 0;
   int e = (int)cudaGetDevice(&dev);
   if (e == 0)
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long items = (long long)((rows + BLOCK - 1) / BLOCK) * H * B;
+  const long long items = (long long)((rows + item - 1) / item) * H * B;
   *blocks = (int)(items < sms ? items : sms);
   return e;
 }
@@ -840,7 +1105,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, QT>(&tm_do, dout, view_at(st, 3), B, H, N);
-  if (e == 0) e = persistent_blocks(&blocks, B, H, M);
+  if (e == 0) e = persistent_blocks(&blocks, B, H, M, DkvCfg<D>::ITEM);
   if (e != 0) return e;
   kernel<<<blocks, THREADS, DkvSmem<D>::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
@@ -873,6 +1138,7 @@ extern "C" int sd3_flash_attention_dq(const void* q, const void* k,
     case 32: return launch_dq<32>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 64: return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 128: return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 256: return launch_dq<256>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -891,6 +1157,7 @@ extern "C" int sd3_flash_attention_dkv(const void* q, const void* k,
     case 32: return launch_dkv<32>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,19 +3,31 @@ sd3_torch/csrc/flash_bwd_sm90.cu), on one NVIDIA Hopper GPU. From the root
 of the repository (it takes its timing and its yardstick from chip_smoke.py
 there):
 
-    python3 -m sd3_torch.utils.flash_bwd_diag
+    python3 -m sd3_torch.utils.flash_bwd_diag [ptxas] [sass] [launches] [d256]
 
+(all four parts by default):
 1. "ptxas": registers, shared memory and spills of each kernel of the
-   source, from the compiler's report of a fresh build beside the library;
+   source (every instance, D = 16 to 256), from the compiler's report of a
+   fresh build beside the library;
 2. "sass": in that build, for each kernel, the exp2s (MUFU.EX2) between the
    loop's wait for the score products (DEPBAR.LE gsb0, 0x1) and its wait
-   for every wgmma group (0x0), where they overlap the gradient products,
-   and in all;
+   for every wgmma group (0x0), where they overlap the gradient products
+   (null where the loop waits for all its groups at once: D = 256), and in
+   all;
 3. "launches": at the 512px and 1024px training shapes, the device time of
    each launch of K5, K6a and K6b (torch.profiler), their times in a CUDA
    graph with their bounds, and SDPA's backward on the card alone by
    backend (chip_smoke.sdpa_backward_ms; a yardstick the port never calls)
-   with the device time of each of its launches under the fastest backend.
+   with the device time of each of its launches under the fastest backend;
+4. "d256": the head-dim-256 instances K6A_256 and K6B_256 beside the
+   mma.sync K6AW and K6BW (csrc/attention_fp32.cu) that took bf16 head dims
+   of 129-256 before them, on the same inputs at chip_smoke.FLASH_WIDE[0]
+   (B 4, H 5, N 1178, D 256): the call time of each route in turns (wgmma,
+   mma.sync, mma.sync, wgmma; CUDA events around a graph of 10 calls,
+   chip_smoke.cuda_ms), the largest difference of the two routes' outputs,
+   the device time of each launch, and K6A_256 at B 2 (100 blocks, one
+   wave on 132 SMs) beside B 4 (200 blocks, two waves): the cost of the
+   second wave.
 One JSON line per part on stdout.
 """
 
@@ -23,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -45,11 +58,17 @@ def fresh_build() -> tuple[str, str]:
     return str(lib), r.stdout + r.stderr
 
 
+def kernel_name(mangled: str) -> str:
+    """`flash_dq_sm90_kernel<256>` of a mangled kernel name."""
+    m = re.search(r"(flash_[a-z]+_sm90_kernel)ILi(\d+)E", mangled)
+    return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+
 def part_ptxas(report: str) -> dict:
     res, fn = {}, None
     for ln in report.splitlines():
         if "Compiling entry function" in ln:
-            fn = ln.split("'")[1]
+            fn = kernel_name(ln.split("'")[1])
         elif fn and ("Used" in ln or "spill" in ln):
             res.setdefault(fn, []).append(ln.split("ptxas info    :")[-1]
                                           .strip())
@@ -64,7 +83,7 @@ def part_sass(lib: str) -> dict:
                          text=True, check=True).stdout
     res = {}
     for fn in txt.split("Function : ")[1:]:
-        head = fn.split("\n")[0].strip()
+        head = kernel_name(fn.split("\n")[0].strip())
         i = fn.find("DEPBAR.LE gsb0, 0x1")
         j = fn.find("DEPBAR.LE gsb0, 0x0", i)
         res[head] = dict(
@@ -125,17 +144,65 @@ def part_launches() -> dict:
     return res
 
 
-def main() -> int:
+def part_d256() -> dict:
+    import torch
+    from sd3_torch.ops import flash_attention as fl
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shape = cs.FLASH_WIDE[0]
+    b, h, n, m, d = cs.flash_dims(shape)
+    scale = d ** -0.5
+    q, k, v, do = cs.flash_inputs(shape, gen, torch.bfloat16)
+    out, lse = fl.flash_fwd(q, k, v, scale)
+    _, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
+
+    def dq(kern, bb=b):
+        sl = lambda t: t[:bb]
+        res = fl._bnhd((bb, h, n, d), q), torch.empty_like(lse[:bb])
+        fl._launch(kern, (sl(q), sl(k), sl(v), sl(out), sl(do),
+                          sl(lse).contiguous(), res[1], res[0]),
+                   (sl(q), sl(k), sl(v), sl(out), sl(do), res[0]), bb, h, n,
+                   m, d, scale)
+        return res
+
+    def dkv(kern):
+        res = fl._bnhd(k.shape, k), fl._bnhd(k.shape, k)
+        fl._launch(kern, (q, k, v, do, lse, delta, *res),
+                   (q, k, v, do, *res), b, h, n, m, d, scale)
+        return res
+    res = {}
+    for name, run, routes in (("K6a", dq, (fl.K6A_256, fl.K6AW)),
+                              ("K6b", dkv, (fl.K6B_256, fl.K6BW))):
+        outs = [run(kern) for kern in routes]
+        times = {kern.name: [] for kern in routes}
+        for kern in (*routes, *routes[::-1]):
+            times[kern.name].append(cs.cuda_ms(lambda kern=kern: run(kern)))
+        res[name] = dict(
+            shape=cs.flash_label(shape), ms=times,
+            max_abs_diff=max((x.float() - y.float()).abs().max().item()
+                             for x, y in zip(*outs)),
+            us_per_launch={kern.name: cs.per_launch_us(
+                lambda kern=kern: run(kern)) for kern in routes})
+    res["K6a waves"] = {f"B={bb} ({-(-n // 128) * h * bb} blocks)": cs.cuda_ms(
+        lambda bb=bb: dq(fl.K6A_256, bb)) for bb in (b // 2, b)}
+    return res
+
+
+def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", flush=True)
         return 1
+    parts = (sys.argv[1:] if argv is None else argv) or [
+        "ptxas", "sass", "launches", "d256"]
     print(cs.nvidia_smi("name,power.limit"), flush=True)
-    lib, report = fresh_build()
+    lib, report = fresh_build() if {"ptxas", "sass"} & set(parts) else (
+        None, None)
     for part, fn in (("ptxas", lambda: part_ptxas(report)),
                      ("sass", lambda: part_sass(lib)),
-                     ("launches", part_launches)):
-        print(json.dumps({part: fn()}), flush=True)
+                     ("launches", part_launches), ("d256", part_d256)):
+        if part in parts:
+            print(json.dumps({part: fn()}), flush=True)
     return 0
 
 

@@ -26,8 +26,13 @@ ATOL, RTOL = 2e-5, 2e-4
 # tiny width
 SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
 # lengths on either side of the backward kernels' 128-row blocks and 64-row
-# query tiles (csrc/flash_bwd_sm90.cu), at both head dims
-TILE_EDGE_SHAPES = [(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
+# query tiles (csrc/flash_bwd_sm90.cu), at both head dims; and at head dim
+# 256 (K6A_256, K6B_256: 32-key tiles, 64-row items) and 160 (padded to
+# 256 on the card), on either side of 64 and 128, with one key length of
+# its own, (B, H, N, M, D)
+TILE_EDGE_SHAPES = ([(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
+                    + [(1, 2, n, d) for n in (63, 65, 127, 129)
+                       for d in (160, 256)] + [(1, 2, 65, 127, 256)])
 # (B, H, N, M, D): a key length of its own. kv_merge_attn's M = N / 2 (the
 # 256px training shape's 410 -> 205 at a narrow width, and a ragged one),
 # a ragged M against a whole N, M > N, and M past 2048 keys (JAX's
@@ -97,7 +102,8 @@ def test_plain_forward_and_lse_match_jax(shape):
 
 @pytest.mark.parametrize("shape", SHAPES + TILE_EDGE_SHAPES)
 def test_plain_backward_matches_jax_vjp(shape):
-    q, k, v, do, scale = _case(shape, seed=1)
+    q, k, v, do, scale = (_kv_case if len(shape) == 5 else _case)(shape,
+                                                                  seed=1)
     out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
                        *map(jnp.asarray, (q, k, v)))
     dq, dk, dv = vjp(jnp.asarray(do))

@@ -185,7 +185,7 @@ def test_every_kernel_symbol_is_in_its_source():
               tfa.K8BW, tfa.K8BWF, tfa.K1_256, tfa.K7_256, tfa.K4_256,
               tfa.K7Q_256, tfa.K8A_256, tfa.K8B_256, tfl.K5_256,
               *tfa._D384.values(), *tfa._D512.values(), tfl.K5_384,
-              tfl.K5_512):
+              tfl.K5_512, tfl.K6A_256, tfl.K6B_256):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -430,7 +430,9 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     # to 256), 257-384 and 385-512 the wgmma kernels' D = 256, 384 and 512
     # instances, counted apart, from the same sources and entry points;
     # past 512 in bf16, and past 128 in fp32, the wide mma.sync instances
-    # of attention_fp32.cu; the flash backward past 128 stays on them too
+    # of attention_fp32.cu; the flash backward in bf16 at 129-256 the wgmma
+    # backward's D = 256 instances (K6A_256, K6B_256), past 256 the wide
+    # mma.sync ones
     fp32 = dtype == torch.float32
     dp = tfl.instance_dim(d)
     bases = (tfa.K1, tfa.K7, tfa.K4, tfa.K7Q, tfa.K8A, tfa.K8B)
@@ -455,12 +457,17 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
                                                            tfl.K6B)
     elif fp32:
         want = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF)
+    elif dp == 256:
+        want = (tfl.K5_256, tfl.K6A_256, tfl.K6B_256)
     else:
-        k5 = {256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}
+        k5 = {384: tfl.K5_384, 512: tfl.K5_512}
         want = (k5.get(dp, tfl.K5W), tfl.K6AW, tfl.K6BW)
     assert (fwd, dq, dkv) == want
     for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
         assert (k5.source, k5.symbol) == (tfl.K5.source, tfl.K5.symbol)
+    for k6, small in ((tfl.K6A_256, tfl.K6A), (tfl.K6B_256, tfl.K6B)):
+        assert (k6.source, k6.symbol) == (small.source, small.symbol)
+        assert k6.name == f"{small.name}_256"
     assert tfl.K5.source == "attention_sm90.cu"
     # the key tile the plain version must take to meet the card's K7
     tile = tfa.stream_key_tile(False, False, d)
@@ -469,6 +476,41 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
                     else tfa.K7_KEY_TILE)
     assert tfa.stream_key_tile(True, False, d) == tfa.K7Q_KEY_TILE
     assert tfa.stream_key_tile(False, True, d) == tfa.K8B_KEY_TILE
+
+
+@pytest.mark.parametrize("struct", ["DqSmem", "DkvSmem"])
+def test_head_dim_256_backward_fits_in_shared_memory(struct):
+    # K6A_256 and K6B_256, the wgmma backward's D = 256 instances: the
+    # shared memory their launches ask for, from the source's own constants
+    # and struct members, within one block's limit, each behind its
+    # dispatch; the layouts of the instances up to 128 as they have run
+    src = (kernels.CSRC_DIR / tfl.K6A.source).read_text()
+    c = _CSource("sm90.cuh", tfl.K6A.source)
+    smem = c.instance(struct, 256)
+    assert smem["BYTES"] <= SMEM_PER_BLOCK, smem
+    assert smem["STAGES"] >= 2
+    assert "static_assert(BYTES <= 232448" in src
+    if struct == "DqSmem":
+        # 32-key tiles; the arithmetic waits for dQ of the tile before
+        assert smem["KEY_TILE"] == 32 and not smem["OVERLAP"]
+        assert ("case 256: return launch_dq<256>(" in src)
+        for d, kt in ((16, 64), (32, 64), (64, 64), (128, 32)):
+            small = c.instance(struct, d)
+            assert (small["KEY_TILE"], small["STAGES"], small["OVERLAP"]) \
+                == (kt, 4, True)
+    else:
+        # 64-row items on both consumers, split by gradient, with two p^T
+        # buffers of a 64-query tile in fp32
+        cfg = c.instance("DkvCfg", 256)
+        assert smem["SPLIT"] and cfg["ITEM"] == 64 and smem["KV_TILES"] == 1
+        assert smem["P_TILE"] == 64 * smem["Q_TILE"] * 4
+        assert "case 256: return launch_dkv<256>(" in src
+        for d, qt in ((16, 64), (32, 64), (64, 64), (128, 32)):
+            small = c.instance(struct, d)
+            assert not small["SPLIT"] and small["P_TILE"] == 0
+            assert (small["Q_TILE"], small["STAGES"], small["KV_TILES"]) == (
+                qt, 4, 2)
+            assert c.instance("DkvCfg", d)["ITEM"] == 128
 
 
 def test_flash_backward_is_the_wgmma_source():
@@ -1934,9 +1976,10 @@ FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
 @pytest.mark.parametrize("shape", FLASH_WIDE_SHAPES)
 def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                                                            no_tf32, shape):
-    # K5_256, K5_384, K5_512 (up to 512) or K5W, then K6AW, K6BW on bf16
-    # (the limits of the bf16 flash kernels), K5WF, K6AWF, K6BWF on fp32
-    # (FP32_REL_L2), each against its plain version
+    # K5_256, K5_384, K5_512 (up to 512) or K5W, then K6A_256, K6B_256 (up
+    # to 256) or K6AW, K6BW on bf16 (the limits of the bf16 flash kernels),
+    # K5WF, K6AWF, K6BWF on fp32 (FP32_REL_L2), each against its plain
+    # version
     q, k, v, do = _flash_case(shape, cuda_device, seed=3)
     scale = shape[-1] ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
@@ -1945,12 +1988,14 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
     dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    fwd = tfl.flash_kernel("fwd", torch.bfloat16, shape[-1])
+    fwd, dq_k, dkv_k = (tfl.flash_kernel(w, torch.bfloat16, shape[-1])
+                        for w in ("fwd", "dq", "dkv"))
     assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 512)
     assert fwd is ({256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}.get(
         tfl.instance_dim(shape[-1]), tfl.K5W))
-    assert _launched(before) == {kk.name: 1 for kk in (fwd, tfl.K6AW,
-                                                       tfl.K6BW)}
+    assert (dq_k, dkv_k) == ((tfl.K6A_256, tfl.K6B_256) if shape[-1] <= 256
+                             else (tfl.K6AW, tfl.K6BW))
+    assert _launched(before) == {kk.name: 1 for kk in (fwd, dq_k, dkv_k)}
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert out.shape == dq.shape == dk.shape == dv.shape == shape
     assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
@@ -1992,10 +2037,11 @@ FLASH_KV_SHAPES = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
 @pytest.mark.parametrize("shape", FLASH_KV_SHAPES)
 def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
         cuda_device, no_tf32, shape):
-    # K5, K6a, K6b (K5_256 / K5_384 / K5_512, K6AW, K6BW past 128) on bf16
-    # within the FLASH limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32
-    # within FP32_REL_L2, each against its plain version at M != N: lse and
-    # delta by query row, dk and dv by key row
+    # K5, K6a, K6b (past 128: K5_256 / K5_384 / K5_512, K6A_256 / K6B_256
+    # at 256, K6AW, K6BW past it) on bf16 within the FLASH limits, K5F,
+    # K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32 within FP32_REL_L2, each
+    # against its plain version at M != N: lse and delta by query row, dk
+    # and dv by key row
     b, h, n, m, d = shape
     r = np.random.default_rng(9)
     q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
@@ -2005,7 +2051,8 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
     wide = d > 128
     bf16 = tuple(tfl.flash_kernel(w, torch.bfloat16, d)
                  for w in ("fwd", "dq", "dkv"))
-    assert bf16 == ((tfl.flash_kernel("fwd", torch.bfloat16, d), tfl.K6AW,
+    assert bf16 == ((tfl.K5_256, tfl.K6A_256, tfl.K6B_256) if d == 256 else
+                    (tfl.flash_kernel("fwd", torch.bfloat16, d), tfl.K6AW,
                      tfl.K6BW) if wide else (tfl.K5, tfl.K6A, tfl.K6B))
     fp32 = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF) if wide else (tfl.K5F, tfl.K6AF,
                                                           tfl.K6BF)
@@ -2039,3 +2086,83 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
                 dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
     assert all(e <= FP32_REL_L2 for e in errs.values()), errs
     assert (lse - w_lse).abs().max().item() <= 1e-5
+
+
+# K6A_256 and K6B_256 (bf16 heads of 129-256): lengths on either side of
+# their 32-key tiles, 64-row items and 128-row blocks, 160 padded to 256,
+# key lengths of their own (M < N, M > N, a ragged M), and the 512px
+# training shape
+FLASH_256_SHAPES = [(1, 2, 63, 256), (1, 2, 65, 256), (1, 2, 127, 256),
+                    (1, 2, 129, 256), (2, 3, 129, 160), (1, 2, 65, 33, 256),
+                    (1, 1, 63, 129, 256), (2, 3, 410, 205, 256),
+                    (4, 5, 1178, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_256_SHAPES)
+def test_k6_256_matches_plain_reads_views_and_repeats_on_the_card(
+        cuda_device, shape, monkeypatch):
+    # K6A_256 and K6B_256 against their plain versions in fp32 within the
+    # FLASH limits (delta to 1e-3); (B, H, N, D) views of (B, N, H, D)
+    # buffers, the training path's layout, go to the tensor maps as they
+    # are and give the bits of contiguous inputs; a second run gives the
+    # same bits (no atomics)
+    b, h, n, m, d = shape if len(shape) == 5 else (*shape[:3], *shape[2:])
+    r = np.random.default_rng(11)
+    q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
+        cuda_device, torch.bfloat16) for rows in (n, m, m, n))
+    scale = d ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {tfl.K6A_256.name: 1, tfl.K6B_256.name: 1}
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    want_delta = (do.float() * out.float()).sum(-1)
+    assert (delta - want_delta).abs().max().item() <= 1e-3
+    for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
+                       ("dv", dv, want[4])):
+        _assert_grad_close(g, w, name)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v, out, do)]
+    readable, in_place = tfl._readable, []
+
+    def spy(t):
+        got = readable(t)
+        in_place.append(got is t)
+        return got
+    monkeypatch.setattr(tfl, "_readable", spy)
+    vdq, vdelta = tfl.flash_dq(*views, lse, scale)
+    vdk, vdv = tfl.flash_dkv(*views[:3], views[4], lse, vdelta, scale)
+    dq2, delta2 = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk2, dv2 = tfl.flash_dkv(q, k, v, do, lse, delta2, scale)
+    torch.cuda.synchronize()
+    assert in_place[:9] == [True] * 9
+    for a, b_, c_ in ((dq, vdq, dq2), (delta, vdelta, delta2),
+                      (dk, vdk, dk2), (dv, vdv, dv2)):
+        assert torch.equal(a, b_) and torch.equal(a, c_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 129, 256), (1, 2, 65, 200)])
+def test_flash_autograd_function_at_head_dim_256_on_the_card(cuda_device,
+                                                             shape):
+    # the Function at a head dim of 129-256 launches K5_256 forward and
+    # K6A_256, K6B_256 backward, once each, on views of (B, N, H, D) buffers
+    q, k, v, do = _flash_case(shape, cuda_device, seed=12)
+    scale = shape[-1] ** -0.5
+    want = _flash_plain_fp32(q, k, v, do, scale)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
+             for t in (q, k, v)]
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out = tfl.flash_attention(*views, scale)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 1 for kk in (
+        tfl.K5_256, tfl.K6A_256, tfl.K6B_256)}
+    assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
+    for name, t, w in zip(("dq", "dk", "dv"), views, want[2:]):
+        _assert_grad_close(t.grad, w, name)

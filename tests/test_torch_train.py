@@ -391,6 +391,52 @@ def test_three_fused_bf16_steps_match_jax(tmp_path):
     assert trainer.opt_state.count == int(js.count) == 3
 
 
+def test_one_fused_bf16_step_at_head_dim_256_matches_jax(tmp_path):
+    # test_three_fused_bf16_steps_match_jax's flags and tolerances for one
+    # step of a model of two heads of 256 (dim 512), whose flash attention
+    # runs the D = 256 instances on the card (K5_256, K6A_256, K6B_256) and
+    # their plain versions here; JAX's Pallas kernels in interpret mode on
+    # two 128-lane blocks of the head. The JAX step at acc 1 is its
+    # gradient function on the precast weights and the fused AdamW tail
+    # (make_fused_train_step), taken here in those two parts so that the
+    # model compiles once. No warmup, so that the step moves the weights:
+    # the gradients to a relative L2 of 3e-2, loss and gradient norm to
+    # 1e-2 relative, the update to a relative L2 of 0.25
+    jcfg = j_tiny_config(attn_type="softmax_flash", dtype="bfloat16",
+                         dim=512, num_heads=2)
+    assert jcfg.dim // jcfg.num_heads == 256
+    assert [tfl.flash_kernel(w, torch.bfloat16, 256) for w in (
+        "fwd", "dq", "dkv")] == [tfl.K5_256, tfl.K6A_256, tfl.K6B_256]
+    tkw = dict(batch_size=2, accumulation_steps=1, lr=1e-3, warmup_steps=0,
+               low_mem_optimizer=True, fused_optimizer=True, bf16_grads=True,
+               precast_params=True, remat_blocks=True, track_ema=False)
+    jm, jtc, _, jp, js, trainer = _pair(jcfg, tkw, tmp_path, seed=3)
+    _, fused_update = joptim.fused_adamw_low_mem(
+        jtr.make_lr_schedule(jtc), b1=0.9, b2=0.999, eps=1e-8,
+        weight_decay=0.01, clip_norm=jtc.grad_clip)
+    p0 = {k: _np(v) for k, v in trainer.params.items()}
+    batch = _batch(jcfg, 1, seed=50)
+    key = jax.random.PRNGKey(60)
+    tb = {k: _t(v) for k, v in batch.items()}
+    noise = _step_noise(key, batch, jtc, 1)
+    cp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
+    jg, jmet = jax.jit(jax.grad(jtr.make_micro_loss(jm, jtc), has_aux=True))(
+        cp, key, *(jnp.asarray(batch[k][0]) for k in ("x0", "text", "pooled")))
+    jp, js, jnorm = jax.jit(fused_update)(jg, js, jp)
+    tg, _ = trainer.gradients(tb, noise)
+    want = state_dict_from_jax(jg)
+    assert _rel_l2(_flat({k: _np(v) for k, v in tg.items()}),
+                   _flat({k: _np(v) for k, v in want.items()})) < 3e-2
+    tmet = trainer.train_step(tb, noise)
+    assert tmet["loss"].item() == pytest.approx(float(jmet["loss"]), rel=1e-2)
+    assert tmet["grad_norm"].item() == pytest.approx(float(jnorm), rel=1e-2)
+    want = state_dict_from_jax(jp)
+    dp_t = _flat({k: _np(v) - p0[k] for k, v in trainer.params.items()})
+    dp_j = _flat({k: _np(v) - p0[k] for k, v in want.items()})
+    assert np.abs(dp_j).max() > 0
+    assert _rel_l2(dp_t, dp_j) < 0.25
+
+
 def test_three_optax_acc2_fp32_steps_match_jax(tmp_path):
     # the TrainConfig default path: the optax chain (outer clip, fp32
     # moments), fp32 gradients summed over 2 micro-batches, the device EMA
