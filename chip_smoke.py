@@ -58,11 +58,14 @@ Phases (any failure exits non-zero without the final ok line):
      bf16 K5_256, K6A_256, K6B_256, the wgmma kernels' instances at 256,
      with controls, dq and dk of the plain backward at twice the scale,
      that must fail the gradient limits, and K6A_256, K6B_256 with that
-     control at phase 4b's shape, B 2, H 5, N 410), 384 and 512 (bf16: K5_384,
-     K5_512, the same kernel in two column slices, with K6AW, K6BW; also at
-     M != N), 640 (K5W past them) and fp32 at 256-512 (K5WF, K6AWF,
-     K6BWF), the bf16 forwards up to 512 with a control (the plain version
-     at twice the scale) that must fail its limit, then
+     control at phase 4b's shape, B 2, H 5, N 410), 384 and 512 (bf16:
+     K5_384 / K6A_384 / K6B_384 and K5_512 / K6A_512 / K6B_512, the same
+     kernels in two column slices, with the same controls; also at M != N,
+     and K6A_384, K6B_384 at phase 4c's shape, B 2, H 3, N 410; the
+     K6a / K6b instances at 256-512 the same bits twice), 640 (K5W,
+     K6AW, K6BW past them) and fp32 at 256-512 (K5WF, K6AWF, K6BWF), the
+     bf16 forwards up to 512 with a control (the plain version at twice
+     the scale) that must fail its limit, then
      through the flash API, which counts their launches; the fused route
      past the dividers of 128: every fused kernel, bf16 and fp32, at head
      dims 48, 96, 192 (padded to 64, 128, 256), 256, 384, 512 and 640 at a
@@ -109,7 +112,9 @@ Phases (any failure exits non-zero without the final ok line):
      (head dim 16: K5, K6a, K6b at D = 16); 4b. one of five heads of 256
      (D256_MODEL, 2 blocks, 256px, batch 2) in bf16 through K5_256,
      K6A_256 and K6B_256, with a control (RoPE1d's tables on the same
-     weights on the CPU) whose gradients must miss the limit;
+     weights on the CPU) whose gradients must miss the limit; 4c. one of
+     three heads of 384 (D384_MODEL) through K5_384, K6A_384 and K6B_384,
+     the same way;
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then one timed run; each sample call must launch K1 exactly 19 * 20 times; then one more call
@@ -498,13 +503,14 @@ K10_WIDE = [dict(b=2, n=1024, k=k, d_out=k, n_txt=154)
 FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
 # head dims past 128, at the 512px token count and a width near the
 # published one: 256 (K5_256 / K6A_256 / K6B_256 in bf16, K5WF / K6AWF /
-# K6BWF in fp32), 160, which runs padded to 256, 384 and 512 (K5_384,
-# K5_512, K6AW, K6BW in bf16)
+# K6BWF in fp32), 160, which runs padded to 256, 384 and 512 (K5_384 /
+# K6A_384 / K6B_384, K5_512 / K6A_512 / K6B_512 in bf16)
 FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
               (4, 2, 1178, 512)]
-# past the wgmma forwards: 640 (K5W in bf16), drawn from a generator of its
-# own (wide_gen) with the D = 384 / 512 forwards at M != N (M = N / 2, M >
-# N), so that the shapes before them see the inputs they saw
+# past the wgmma kernels: 640 (K5W, K6AW, K6BW in bf16), drawn from a
+# generator of its own (wide_gen) with the D = 384 / 512 instances at M != N
+# (M = N / 2, M > N), so that the shapes before them see the inputs they
+# saw
 FLASH_PAST_512 = (2, 2, 1178, 640)
 FLASH_KV_SLICED = [(2, 3, 410, 205, 384), (2, 3, 129, 300, 512)]
 # k and v with a key length M of their own, as kv_merge_attn's pairwise
@@ -1332,6 +1338,19 @@ def phase_flash(shape, gen, check=None, control=False, grad_control=False):
                 dict(shape=label, **e)), flush=True)
             require(not grad_ok(e), f"{name}'s control passes at {shape}: "
                     f"{key} {e}")
+    if fl.flash_kernel("dq", q.dtype, d) in fl._WGMMA["dq"].values():
+        # the wgmma backward past 128 sums each output element in one
+        # order, with no atomics: the same inputs give the same bits twice
+        dq2, delta2 = fl.flash_dq(q, k, v, out, do, lse, scale)
+        dk2, dv2 = fl.flash_dkv(q, k, v, do, lse, delta2, scale)
+        same = all(torch.equal(x, y) for x, y in (
+            (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+        results["K6a"]["same_bits_twice"] = same
+        results["K6b"]["same_bits_twice"] = same
+        print("  K6a / K6b twice", json.dumps(dict(shape=label,
+                                                    same_bits=same)),
+              flush=True)
+        require(same, f"K6a / K6b: two runs differ at {shape}")
     return results
 
 
@@ -1635,12 +1654,12 @@ def phase_flash_api(gen, gen_past):
     launches = launch_counts()
     print("  flash API", json.dumps(
         {n: c for n, c in launches.items() if c}), flush=True)
-    # bf16 up to 512: K5_256, K5_384, K5_512; past it K5W; the backward in
-    # bf16 up to 256: K6A_256, K6B_256, past it K6AW, K6BW; fp32 past 128:
-    # the wide instances
+    # bf16 up to 512: K5_256 .. K5_512, K6A_256 .. K6B_512; past it K5W,
+    # K6AW, K6BW; fp32 past 128: the wide instances
     shapes = [*FLASH_WIDE, FLASH_PAST_512]
-    want = dict.fromkeys((fl.K5_256, fl.K5_384, fl.K5_512, fl.K5W,
-                          fl.K6A_256, fl.K6B_256, fl.K6AW, fl.K6BW), 0)
+    want = dict.fromkeys((*(k for ks in fl._WGMMA.values()
+                            for k in ks.values()),
+                          fl.K5W, fl.K6AW, fl.K6BW), 0)
     for s in shapes:
         for which in ("fwd", "dq", "dkv"):
             want[fl.flash_kernel(which, torch.bfloat16, s[-1])] += 1
@@ -4545,18 +4564,18 @@ def main() -> int:
         phase_dense(K10_WIDE[0], gen, "K10a", fp32=True)
         phase_dense(K10_WIDE[0], gen, "K10b", fp32=True)
         # flash past head dim 128: bf16 and fp32 at 256, 160 (padded), 384
-        # and 512; the bf16 forwards up to 512 (K5_256, K5_384, K5_512)
-        # with a control
+        # and 512; the bf16 wgmma instances up to 512 (K5_256 .. K5_512,
+        # K6A_256 .. K6B_512) with controls
         say("phase 3e: the flash instances past 128, M != N")
-        k56w = [phase_flash(s, gen, control=flash_attention.instance_dim(
-                                s[-1]) in flash_attention.WGMMA_PAST_128,
-                            grad_control=flash_attention.instance_dim(
-                                s[-1]) == flash_attention.WGMMA_WIDE)
+        k56w = [phase_flash(s, gen, control=True, grad_control=True)
                 for s in FLASH_WIDE]
-        # K6A_256 / K6B_256 at the shape phase 4b's training step gives them
-        # (B 2, H 5, N 410, D 256), on draws of their own, with the control
-        k56s256 = phase_flash(step_flash_shape(train_step_config().replace(
-            **D256_MODEL), TRAIN32_LAT), wide_gen(256), grad_control=True)
+        # K6A_256 / K6B_256 and K6A_384 / K6B_384 at the shapes the training
+        # steps of phases 4b and 4c give them (B 2, H 5, N 410, D 256; B 2,
+        # H 3, N 410, D 384), on draws of their own, with the control
+        k56s256, k56s384 = (
+            phase_flash(step_flash_shape(train_step_config().replace(
+                **model), TRAIN32_LAT), wide_gen(d), grad_control=True)
+            for model, d in ((D256_MODEL, 256), (D384_MODEL, 384)))
         k56wf = [phase_flash_fp32(s, gen) for s in FLASH_WIDE]
         # k and v of M keys (kv_merge_attn): K5, K6a, K6b, their fp32
         # instances, and at head dim 256 K5_256, K6A_256, K6B_256 and the
@@ -4567,12 +4586,12 @@ def main() -> int:
         for shp in FLASH_KV_WIDE:
             phase_flash(shp, gen, control=True)
             phase_flash_fp32(shp, gen)
-        # past the wgmma forwards (K5W at 640), and K5_384 / K5_512 at M !=
-        # N, on draws of their own
+        # past the wgmma kernels (K5W, K6AW, K6BW at 640), and the D = 384
+        # / 512 instances at M != N with controls, on draws of their own
         gen_past = wide_gen(640)
         k56w640 = phase_flash(FLASH_PAST_512, gen_past)
         for shp in FLASH_KV_SLICED:
-            phase_flash(shp, gen_past, control=True)
+            phase_flash(shp, gen_past, control=True, grad_control=True)
         flash_api = phase_flash_api(gen, gen_past)
         phase_k1_backward(gen)
         # the fused route past head dim 128: every kernel at each of
@@ -4630,6 +4649,13 @@ def main() -> int:
         step256 = phase_train_step(
             log_dir, train_step_config().replace(**D256_MODEL),
             "D-256 2-block", lat=TRAIN32_LAT,
+            control=dict(positional_encoding="RoPE"))
+        say("phase 4c: a training step of three heads of 384 (dim 1152, 2 "
+            "blocks, 256px, batch 2) on K5_384, K6A_384, K6B_384 against "
+            "fp32 on the CPU, RoPE1d's tables the control")
+        step384 = phase_train_step(
+            log_dir, train_step_config().replace(**D384_MODEL),
+            "D-384 2-block", lat=TRAIN32_LAT,
             control=dict(positional_encoding="RoPE"))
 
         say("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
@@ -4803,13 +4829,13 @@ def main() -> int:
             (fused_dense.K10BF, k10bf, "fused_dense.cu",
              "sd3_tpu/ops/fused_dense.py:166", cli["infer fp32 int8 tails"],
              lambda run: run),
-            # flash past head dim 128 (bf16: K5's wgmma instances at 256,
-            # 384 and 512, K6a's and K6b's at 256, the shared-memory kernels
-            # past them; fp32: the shared-memory kernels, at 256): their
-            # launches are those of the flash API phase, but K5_256's and
-            # K5_384's: the D = 256 and 384 models' attention (phase 4), and
-            # K6A_256's and K6B_256's: the D = 256 training step (phase 4b),
-            # timed at its shape
+            # flash past head dim 128 (bf16: the wgmma instances at 256, 384
+            # and 512, the shared-memory kernels past them, timed at 640;
+            # fp32: the shared-memory kernels, at 256): their launches are
+            # those of the flash API phase, but K5_256's and K5_384's: the D
+            # = 256 and 384 models' attention (phase 4), and K6A_256's /
+            # K6B_256's and K6A_384's / K6B_384's: the D = 256 and 384
+            # training steps (phases 4b, 4c), timed at their shapes
             (flash_attention.K5_256, k56w[0]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", model256,
              lambda run: run["launches"]),
@@ -4822,13 +4848,23 @@ def main() -> int:
             (flash_attention.K5_384, k56w[2]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", model384,
              lambda run: run["launches"]),
+            (flash_attention.K6A_384, k56s384["K6a"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:191", step384,
+             lambda run: run["launches"]),
+            (flash_attention.K6B_384, k56s384["K6b"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:222", step384,
+             lambda run: run["launches"]),
             (flash_attention.K5_512, k56w[3]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
+            (flash_attention.K6A_512, k56w[3]["K6a"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
+            (flash_attention.K6B_512, k56w[3]["K6b"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
             (flash_attention.K5W, k56w640["K5"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
-            (flash_attention.K6AW, k56w[2]["K6a"], "attention_fp32.cu",
+            (flash_attention.K6AW, k56w640["K6a"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
-            (flash_attention.K6BW, k56w[2]["K6b"], "attention_fp32.cu",
+            (flash_attention.K6BW, k56w640["K6b"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
             (flash_attention.K5WF, k56wf[0]["K5F"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),

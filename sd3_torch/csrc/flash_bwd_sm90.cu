@@ -25,8 +25,9 @@
 //
 // Both kernels: three warpgroups per block, one block per SM (the
 // consumers' registers), each block on items of 128 rows of one head of
-// one sample (K6b at D = 256: 64 rows, see "D = 256" below). K6a launches a
-// block per item, grid (ceil(N / 128), H, B).
+// one sample (K6b at D = 256: 64 rows, see "D = 256" below; past 256 both
+// 64 rows, see "D = 384 and 512"). K6a launches a block per item, grid
+// (ceil(N / 128), H, B).
 // q, o, dO, dq, lse and delta have N query rows, k, v, dk and dv M key rows
 // of their own (kv_merge_attn halves them): K6a's key tiles run to M and its
 // ragged last one is masked at M; K6b's items are 128 of the M key rows,
@@ -138,6 +139,67 @@
 // the time of 100 (one wave): equal items leave the second wave's idle
 // SMs to any schedule, persistent or not.
 //
+// D = 384 and 512 (bf16 heads of 257-512, padded; SLICED): a 64 x D fp32
+// accumulator would be 192 / 256 registers of a consumer thread, past its
+// 232, so neither dQ nor dK nor dV of 64 rows fits in one consumer. Each
+// is cut into two column slices of DV = D / 2 (96 / 128 registers, one
+// wgmma m64n192k16 / m64n256k16 a k-step), as the forwards past 256 cut
+// their output (attention_sm90.cu), and the score products, which need
+// the whole head, are shared as D = 256's K6b shares p^T:
+// - K6a: a block is 64 query rows, which both consumers take. Consumer 0
+//   takes S = q k^T and p, consumer 1 dP = dO v^T; each writes its fp32
+//   tile for the other (laid out by thread as K6b's hand-over), and both
+//   take ds = p (dP - delta) from the same bits in the same fp32
+//   operations, so their bf16 ds are the same; consumer c sums dQ[:, c DV
+//   ..) += bf16(ds) k[:, the same columns]. The three products once each,
+//   the least there is (S and dP in both would be five). delta is computed
+//   by both from o and dO (the same bits), written by consumer 0. The
+//   exchange is written into the key tile's v stage, free once both
+//   consumers' scores are done (a named barrier before the writes, one
+//   after), so it takes no buffer of its own, and the v stage is released
+//   after the reads; that leaves room for three k stages beside two of v,
+//   so the loop of D <= 128 runs: tile t's scores with dQ of tile t-1, the
+//   exchange beside that dQ, tile t-1's k stage released once it is done.
+//   Shared memory: q and dO of the 64 rows (96 / 128 KB), 32-key k and v
+//   tiles at 384 (24 KB; 16-key at 512, 16 KB: 32 would leave room for
+//   one v stage), 217 / 209 KB.
+// - K6b: D = 256's split by gradient, each work item also one of two
+//   column slices (a grid dimension: items (slice, 64 key rows, h, b),
+//   slice fastest, so the two slices of a row block run side by side on
+//   the same q / dO stream in L2). Each item recomputes S^T and dP^T over
+//   the whole head: six products for the least four, 1.5x the bound's
+//   FLOP. Shared memory: k and v (96 / 128 KB), two stages of 32-query
+//   (384) or 16-query (512) q and dO tiles, the p^T hand-over: 209 / 201
+//   KB. With two stages, a stage released after the next tile's scores
+//   (D = 256's loop) leaves that tile's TMA load in the open, so past 256
+//   the gradient product of tile t-1 is issued ahead of the scores of t
+//   and waited for first (EARLY), and its stage released while the scores
+//   run.
+// Bound at (B 4, H 3, N 1178, D 384): K6a 38.4 G FLOP, 0.0388 ms; K6b
+// 51.2 G FLOP, 0.0517 ms (the design's six products 0.0776). At (B 4, H 2,
+// N 1178, D 512): 34.1 / 45.5 G FLOP, 0.0345 / 0.0460 ms (0.0690). Waves:
+// K6a's 228 blocks of 64 rows at 384 fill 1.73 waves of 132 SMs, its 152
+// at 512 1.15 (the second 15% full); K6b's 456 / 304 items are 3.45 / 2.30
+// a persistent block. ptxas: 168 registers at launch (232 a consumer
+// after setmaxnreg), no spill in any of the four instances. On one H100
+// 80GB HBM3 at 700 W (utils/flash_bwd_diag.py, PERF.md): K6a 0.134 /
+// 0.228 ms and K6b 0.271 / 0.426 at the shapes above, 27x / 21x and 9x /
+// 7x the K6AW / K6BW of attention_fp32.cu they replace. Where a tile's
+// time goes (an instrumented copy of this source, clock64() around each
+// step of the loops; not kept): the score products' small SS wgmmas (each
+// reads its 2 KB A tile from shared memory a k-step: 16-key or 16-query
+// tiles took about as long a tile as 32, so 32 where it fits), in K6a the
+// exchange (~700 cycles of ~2300 a tile at 384, beside dQ of the tile
+// before), in K6b the wait for its q / dO stage (~1000 of ~3000: its
+// items stream q and dO of a head through L2 once a slice). Tried and
+// not kept (copies of this source with one change each, timed in turns
+// with it): K6a's exchange after dQ of the tile before, not beside it
+// (0.1451 against 0.1377 ms at 384); the score k-steps in two or four
+// independent accumulators (2-6% faster in K6a's first loop, no faster or
+// spilling in the kept one, slower in K6b); the two slice blocks of a K6b
+// item as a cluster of two loading each tile once, TMA multicast to both
+// (0.327 against 0.266 ms at 384, 24-byte spills).
+
 // What bounds them on this card, at the 512px training shape (B 4, H 19,
 // N 1178, D 64): K6a's three products are 6*B*H*N^2*D = 40.5 G FLOP,
 // 0.041 ms at 989 TFLOP/s; K6b's four 54.0 G FLOP, 0.055 ms; each takes
@@ -158,8 +220,9 @@ constexpr int BLOCK = ROWS * CONSUMERS;    // rows per block
 constexpr int WG = 128;                    // threads per warpgroup
 constexpr int THREADS = WG * (1 + CONSUMERS);
 // named barriers (0 is __syncthreads): TURN + c, consumer c's turn to issue
-// its products
+// its products; EXCH, K6a's exchange of p and dP past D = 256
 constexpr int TURN = 1;
+constexpr int EXCH = TURN + CONSUMERS;
 // 384 threads x 168 registers at launch; the producer keeps 40 (K6b's
 // producer warp loads lse and delta as well as issuing TMA), so each
 // consumer thread can have 232
@@ -169,40 +232,63 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of flash_dq_sm90_kernel<D>, from a 1024-byte aligned base.
 // K6a's key tile: 64 keys; 32 at D = 128, where dQ's 64 accumulators beside
-// S, dP and the packed ds of 64 keys spilled (40 bytes), and at D = 256.
-// Four ring stages; three at D = 256, where q and dO take 128 KB.
+// S, dP and the packed ds of 64 keys spilled (40 bytes), at D = 256 and at
+// 384; 16 at 512. Four ring stages; three at D = 256, where q and dO take
+// 128 KB. SLICED (D = 384, 512): an item is 64 query rows, which both
+// consumers take, each summing one of two column slices of dQ, with one q
+// and one dO tile; three k stages, two v stages, and the fp32 tiles the
+// consumers exchange written into the v stage of their key tile once its
+// dP is done (see "D = 384 and 512" above).
 template <int D>
 struct DqSmem {
-  static constexpr int KEY_TILE = D >= 128 ? 32 : 64;  // keys per k / v tile
-  static constexpr int STAGES = D == 256 ? 3 : 4;
+  static constexpr bool SLICED = D > 256;
+  static constexpr int KEY_TILE = D == 512 ? 16 : D >= 128 ? 32 : 64;
+  static constexpr int STAGES = SLICED ? 2 : D == 256 ? 3 : 4;  // of v
+  static constexpr int K_STAGES = SLICED ? 3 : STAGES;           // of k
   // the arithmetic of key tile t beside dQ of tile t-1 (see the loop); not
   // at D = 256, where dQ's 128 accumulators beside it spilled
   static constexpr bool OVERLAP = D != 256;
+  static constexpr int ITEM = SLICED ? ROWS : BLOCK;  // query rows per block
+  static constexpr int DV = SLICED ? D / 2 : D;     // dQ columns a consumer sums
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of q or dO
   static constexpr int KV_TILE = KEY_TILE * D * 2;  // one k or v tile
-  static constexpr int Q = 0;                       // [CONSUMERS] q tiles
-  static constexpr int DO = Q + CONSUMERS * ROW_TILE;   // [CONSUMERS] dO
-  static constexpr int K = DO + CONSUMERS * ROW_TILE;   // [STAGES] k tiles
-  static constexpr int V = K + STAGES * KV_TILE;        // [STAGES] v tiles
-  // mbarriers: full / empty of each K and V stage, full of each consumer's
-  // q and dO
+  static constexpr int Q_TILES = SLICED ? 1 : CONSUMERS;  // q, dO tiles held
+  static constexpr int Q = 0;                       // [Q_TILES] q tiles
+  static constexpr int DO = Q + Q_TILES * ROW_TILE;     // [Q_TILES] dO
+  static constexpr int K = DO + Q_TILES * ROW_TILE;     // [K_STAGES] k
+  static constexpr int V = K + K_STAGES * KV_TILE;      // [STAGES] v tiles
+  // SLICED: a consumer's fp32 p (0) or dP (1) of a key tile, for the
+  // other, at c X_TILE in the tile's v stage
+  static constexpr int X_TILE = SLICED ? ROWS * KEY_TILE * 4 : 0;
+  static_assert(CONSUMERS * X_TILE <= KV_TILE, "the exchange in a v stage");
+  // mbarriers: full of each K and V stage, empty of each, full of each
+  // consumer's q and dO (SLICED: of the one q and dO)
   static constexpr int BAR = V + STAGES * KV_TILE;
-  static constexpr int BYTES = BAR + (4 * STAGES + CONSUMERS) * 8 + 1024;
+  static constexpr int BYTES =
+      BAR + (2 * K_STAGES + 2 * STAGES + CONSUMERS) * 8 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
-// K6b's layout. SPLIT (D = 256): an item is 64 key rows, which both
+// K6b's layout. SPLIT (D >= 256): an item is 64 key rows, which both
 // consumers take, split by gradient (see "D = 256" above); else 128,
 // 64 a consumer. Its query tile, its ring stages, and whether its score
 // products read k and v from shared memory (SS) rather than as register
-// fragments (D <= 64).
+// fragments (D <= 64). Past D = 256 an item is also one of SLICES column
+// slices of DV columns of dK and dV (see "D = 384 and 512" above).
 template <int D>
 struct DkvCfg {
-  static constexpr bool SPLIT = D == 256;
+  static constexpr bool SPLIT = D >= 256;
   static constexpr bool SS = D >= 128;
-  static constexpr int Q_TILE = D == 128 ? 32 : 64;  // queries per q / dO tile
+  // queries per q / dO tile
+  static constexpr int Q_TILE = D == 512 ? 16 : D == 128 || D == 384 ? 32 : 64;
   static constexpr int STAGES = SPLIT ? 2 : 4;
   static constexpr int ITEM = SPLIT ? ROWS : BLOCK;  // key rows per item
+  static constexpr int DV = D > 256 ? D / 2 : D;     // columns per item
+  static constexpr int SLICES = D / DV;
+  // past D = 256: a tile's gradient products issued ahead of the next
+  // tile's scores and waited for first, so that its stage is released
+  // while the scores run (see the loop)
+  static constexpr bool EARLY = SLICES > 1;
 };
 
 // Shared memory of flash_dkv_sm90_kernel<D>, from a 1024-byte aligned base.
@@ -374,20 +460,23 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   using S = DqSmem<D>;
   constexpr int KEY_TILE = S::KEY_TILE;
   constexpr int STAGES = S::STAGES;
+  constexpr int KST = S::K_STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
-  const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * STAGES;
-  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
+  const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * KST;
+  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * KST;
   const uint32_t full_q = empty_v + 8 * STAGES;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BLOCK;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * S::ITEM;
   const int ntiles = (M + KEY_TILE - 1) / KEY_TILE;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < KST; ++s) {
       mbar_init(full_k + 8 * s, 1);
-      mbar_init(full_v + 8 * s, 1);
       mbar_init(empty_k + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_v + 8 * s, 1);
       mbar_init(empty_v + 8 * s, CONSUMERS * 4);
     }
     for (int c = 0; c < CONSUMERS; ++c) mbar_init(full_q + 8 * c, 1);
@@ -404,7 +493,7 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
       tma_prefetch(&tm_do);
-      for (int c = 0; c < CONSUMERS; ++c) {
+      for (int c = 0; c < S::Q_TILES; ++c) {
         mbar_arrive_expect_tx(full_q + 8 * c, 2 * S::ROW_TILE);
         load_rows<D, ROWS>(sb + S::Q + c * S::ROW_TILE, &tm_q, full_q + 8 * c,
                            q0 + c * ROWS, h, b);
@@ -412,18 +501,192 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                            full_q + 8 * c, q0 + c * ROWS, h, b);
       }
       for (int t = 0; t < ntiles; ++t) {
-        const int s = t % STAGES;
-        const uint32_t free_parity = ((t / STAGES) & 1) ^ 1;
-        mbar_wait(empty_k + 8 * s, free_parity);
-        mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
-        load_rows<D, KEY_TILE>(sb + S::K + s * S::KV_TILE, &tm_k,
-                               full_k + 8 * s, t * KEY_TILE, h, b);
-        mbar_wait(empty_v + 8 * s, free_parity);
+        const int sk = t % KST, s = t % STAGES;
+        mbar_wait(empty_k + 8 * sk, ((t / KST) & 1) ^ 1);
+        mbar_arrive_expect_tx(full_k + 8 * sk, S::KV_TILE);
+        load_rows<D, KEY_TILE>(sb + S::K + sk * S::KV_TILE, &tm_k,
+                               full_k + 8 * sk, t * KEY_TILE, h, b);
+        mbar_wait(empty_v + 8 * s, ((t / STAGES) & 1) ^ 1);
         mbar_arrive_expect_tx(full_v + 8 * s, S::KV_TILE);
         load_rows<D, KEY_TILE>(sb + S::V + s * S::KV_TILE, &tm_v,
                                full_v + 8 * s, t * KEY_TILE, h, b);
       }
     }
+  } else if constexpr (S::SLICED) {
+    // ---- consumers past D = 256: both on the block's 64 query rows.
+    // Consumer 0 takes S = q k^T and p, consumer 1 dP = dO v^T; each hands
+    // its fp32 tile to the other, both take ds = p (dP - delta) from the
+    // same bits, and consumer c sums dQ[:, c DV .. (c + 1) DV) += bf16(ds)
+    // k[:, the same columns]. The same code, on q / K for consumer 0 and
+    // dO / V for consumer 1.
+    constexpr int DV = S::DV;
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
+    const int n0 = q0 + warp * 16 + g;
+    const int n1 = n0 + 8;                   // this thread's two rows
+    const size_t bhn = ((size_t)b * H + h) * N;
+
+    // delta and lse of rows n0, n1, as below; both consumers take the same
+    // bits, consumer 0 writes them
+    const bf16* oh = o + b * vo.b + h * vo.h;
+    const bf16* dh = dout + b * vdo.b + h * vdo.h;
+    float d0 = 0.f, d1 = 0.f, L0 = 0.f, L1 = 0.f;
+    if (n0 < N) {
+      d0 = quarter_dot<D>(oh + n0 * vo.n, dh + n0 * vdo.n, t4);
+      L0 = lse[bhn + n0] * LOG2E;
+    }
+    if (n1 < N) {
+      d1 = quarter_dot<D>(oh + n1 * vo.n, dh + n1 * vdo.n, t4);
+      L1 = lse[bhn + n1] * LOG2E;
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+    if (t4 == 0 && c == 0) {
+      if (n0 < N) delta[bhn + n0] = d0;
+      if (n1 < N) delta[bhn + n1] = d1;
+    }
+
+    const uint32_t a_base = sb + (c == 0 ? S::Q : S::DO);  // A of S / dP
+    float sc[KEY_TILE / 2];     // S then p (0), dP (1); then ds
+    uint32_t ds[KEY_TILE / 4];  // bf16 ds: the A fragments of dQ's steps
+    float acc[DV / 2];          // this consumer's columns of dq
+#pragma unroll
+    for (int i = 0; i < KEY_TILE / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+    mbar_wait(full_q, 0);  // q and dO have landed
+
+    // issue S = q k^T (0) or dP = dO v^T (1) of key tile t; q's / dO's
+    // descriptor made opaque to the loop (k_step_offset)
+    auto issue_scores = [&](int t) {
+      const int sk = t % KST, sv = t % STAGES;
+      mbar_wait(full_k + 8 * sk, (t / KST) & 1);
+      mbar_wait(full_v + 8 * sv, (t / STAGES) & 1);
+      uint64_t da = desc_k_major<D>(a_base, ROWS, 0);
+      asm volatile("" : "+l"(da));
+      const uint64_t db = desc_k_major<D>(
+          c == 0 ? sb + S::K + sk * S::KV_TILE : sb + S::V + sv * S::KV_TILE,
+          KEY_TILE, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<KEY_TILE>(sc, da + k_step_offset<D>(ROWS, kk),
+                           db + k_step_offset<D>(KEY_TILE, kk), kk > 0);
+      wgmma_commit();
+    };
+    // issue acc += bf16(ds) k[:, this consumer's columns] of key tile t
+    // (c DV / 64 atom columns into the k tile)
+    auto issue_dq = [&](int t) {
+      const uint32_t kb = sb + S::K + (t % KST) * S::KV_TILE +
+                          c * (DV / 64) * KEY_TILE * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KEY_TILE / 16; ++kk) {
+        const uint32_t a[4] = {ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2],
+                               ds[4 * kk + 3]};
+        wgmma_rs<DV>(acc, a, desc_mn_major<DV>(kb, KEY_TILE, kk), 1);
+      }
+      wgmma_commit();
+    };
+    // this warp is done with tile t's k or v stage
+    auto release_k = [&](int t) {
+      if (lane == 0) mbar_arrive(empty_k + 8 * (t % KST));
+    };
+    auto release_v = [&](int t) {
+      if (lane == 0) mbar_arrive(empty_v + 8 * (t % STAGES));
+    };
+    // key tile t's ds in sc: consumer 0 takes p = exp2(s * scale * log2(e)
+    // - lse * log2(e)) (padded keys to -inf first, as below); once both
+    // consumers' scores are done (the first barrier) the tile's v stage is
+    // free, and each writes its fp32 tile there at c X_TILE (thread tid's
+    // float4 i, accumulators 4i .. 4i + 3, at i * WG + tid, as K6b's
+    // hand-over lays out p^T); after the second each reads the other's and
+    // takes ds = p (dp - delta), the same fp32 operations on the same
+    // values in both. The v stage is released after the reads.
+    auto exchange = [&](int t) {
+      if (c == 0) {
+        const int k0 = t * KEY_TILE;
+        if (k0 + KEY_TILE > M) {
+#pragma unroll
+          for (int j = 0; j < KEY_TILE / 8; ++j) {
+            const int col = k0 + j * 8 + t4 * 2;
+            if (col >= M) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+            if (col + 1 >= M) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KEY_TILE / 8; ++j) {
+          sc[4 * j] = fast_exp2(sc[4 * j] * scale_log2 - L0);
+          sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] * scale_log2 - L0);
+          sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] * scale_log2 - L1);
+          sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] * scale_log2 - L1);
+        }
+      }
+      unsigned char* const xb = smem + S::V + (t % STAGES) * S::KV_TILE;
+      float4* const mine = reinterpret_cast<float4*>(xb + c * S::X_TILE) + tid;
+      const float4* const theirs =
+          reinterpret_cast<const float4*>(xb + (1 - c) * S::X_TILE) + tid;
+      named_bar_sync(EXCH, 2 * WG);  // both consumers' scores of tile t done
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 8; ++i)
+        mine[i * WG] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                   sc[4 * i + 3]);
+      // the stage goes back to TMA (the async proxy) after the reads: order
+      // these generic-proxy writes before its next load into the same bytes
+      fence_proxy_async_shared();
+      named_bar_sync(EXCH, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 8; ++i) {
+        const float4 x = theirs[i * WG];
+        const float o4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = c == 0 ? sc[4 * i + e] : o4[e];
+          const float dp = c == 0 ? o4[e] : sc[4 * i + e];
+          sc[4 * i + e] = p * (dp - (e < 2 ? d0 : d1));
+        }
+      }
+      release_v(t);
+    };
+    auto pack_ds = [&]() {
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 4; ++i)
+        ds[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    };
+
+    // Both consumers arrive on K's and V's empty barriers (consumer 0 reads
+    // no V, but both write the exchange there).
+    issue_scores(0);
+    wgmma_wait<0>();
+    reg_fence(sc);
+    exchange(0);
+    pack_ds();
+    for (int t = 1; t < ntiles; ++t) {
+      // the loop of D <= 128: the exchange of tile t beside dQ of tile t-1
+      // on the tensor cores; the k stage of tile t-1 is free once that dQ
+      // is done, so with three k stages the producer loads tile t+2's k
+      // beside the next tile
+      issue_scores(t);  // S or dP of tile t ...
+      issue_dq(t - 1);  // ... and dQ of tile t-1
+      wgmma_wait<1>();  // S or dP of tile t done
+      reg_fence(sc);
+      exchange(t);      // while dQ of tile t-1 runs
+      wait_all_after(sc[KEY_TILE / 2 - 1]);
+      reg_fence(acc);
+      reg_fence(ds);
+      release_k(t - 1);
+      pack_ds();
+    }
+    issue_dq(ntiles - 1);
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(ds);
+    release_k(ntiles - 1);
+
+    store_rows<DV>(dq + b * vdq.b + h * vdq.h + c * DV, vdq.n, acc, scale,
+                   n0, N, t4);
   } else {
     // ---- consumers: 64 query rows each
     setmaxnreg_inc<CONSUMER_REGS>();
@@ -635,6 +898,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int ITEM = DkvCfg<D>::ITEM;
   constexpr bool SS = DkvCfg<D>::SS;
   constexpr bool SPLIT = DkvCfg<D>::SPLIT;
+  constexpr int SLICES = DkvCfg<D>::SLICES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -642,7 +906,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_kv = empty + 8 * STAGES;
   const uint32_t empty_kv = full_kv + 8 * CONSUMERS;
   const uint32_t full_p = empty_kv + 8, empty_p = full_p + 16;  // SPLIT
-  const int nx = (M + ITEM - 1) / ITEM, items = nx * H * B;
+  // items: (column slice, row block x, head h, sample b), slice fastest
+  const int nx = (M + ITEM - 1) / ITEM, items = nx * H * B * SLICES;
   const int ntiles = (N + Q_TILE - 1) / Q_TILE;
   float2* const stage_lse = reinterpret_cast<float2*>(smem + S::LSE);
   float2* const stage_delta = reinterpret_cast<float2*>(smem + S::DELTA);
@@ -683,7 +948,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       int u = 0;  // query tiles loaded so far: the ring's position
       for (int item = blockIdx.x, it = 0; item < items;
            item += gridDim.x, ++it) {
-        const Item w(item, nx, H);
+        const Item w(item / SLICES, nx, H);
         const size_t bhn = ((size_t)w.b * H + w.h) * N;
         if (lane == 0) {
           mbar_wait(empty_kv, (it & 1) ^ 1);
@@ -736,7 +1001,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Consumer 0 takes S^T = k q^T, p^T and dV += bf16(p^T) dO; consumer 1
     // dP^T = v dO^T, ds^T = p^T dP^T from consumer 0's fp32 p^T, and dK +=
     // bf16(ds^T) q. The same code, on k / q / dO / lse for consumer 0 and
-    // v / dO / q / delta for consumer 1.
+    // v / dO / q / delta for consumer 1. Past D = 256 the gradient
+    // products and the stores take the item's slice of DV columns.
+    constexpr int DV = DkvCfg<D>::DV;
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
@@ -748,8 +1015,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     float4* const hand = reinterpret_cast<float4*>(smem + S::P) + tid;
     float sc[Q_TILE / 2];       // S^T then p^T (0); dP^T then ds^T (1)
     uint32_t pk[Q_TILE / 4];    // bf16 p^T / ds^T: the A fragments of dV / dK
-    float acc[D / 2];           // dV (0) or dK (1)
+    float acc[DV / 2];          // dV (0) or dK (1)
     int u = 0;                  // query tiles consumed before this item
+    int slice = 0;              // the item's column slice
 
     // issue S^T = k q^T - lse / scale or dP^T = v dO^T - delta of query
     // tile t (the stage's statistics read as in the issue_scores of D <=
@@ -776,15 +1044,17 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          db + k_step_offset<D>(Q_TILE, kk), 1);
       wgmma_commit();
     };
-    // issue acc += bf16(p^T) dO or bf16(ds^T) q of query tile t
+    // issue acc += bf16(p^T) dO or bf16(ds^T) q of query tile t (past D =
+    // 256 the slice's DV / 64 atom columns of dO or q)
     auto issue_grad = [&](int t) {
-      const uint32_t bb = sb + g_off + ((u + t) % STAGES) * S::QT_TILE;
+      const uint32_t bb = sb + g_off + ((u + t) % STAGES) * S::QT_TILE +
+                          slice * (DV / 64) * Q_TILE * 128;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < Q_TILE / 16; ++kk) {
         const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
                                pk[4 * kk + 3]};
-        wgmma_rs<D>(acc, a, desc_mn_major<D>(bb, Q_TILE, kk), 1);
+        wgmma_rs<DV>(acc, a, desc_mn_major<DV>(bb, Q_TILE, kk), 1);
       }
       wgmma_commit();
     };
@@ -839,10 +1109,11 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // already sets one consumer's arithmetic beside the other's products.
     for (int item = blockIdx.x, it = 0; item < items;
          item += gridDim.x, ++it) {
-      const Item w(item, nx, H);
+      const Item w(item / SLICES, nx, H);
+      if constexpr (SLICES > 1) slice = item % SLICES;
       mbar_wait(full_kv + 8 * c, it & 1);  // this item's k (0) or v (1)
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
 
       issue_scores(0);
       wgmma_wait<0>();
@@ -851,14 +1122,26 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       hand_over(0);
       pack();
       for (int t = 1; t < ntiles; ++t) {
-        issue_scores(t);   // S^T / dP^T of tile t ...
-        issue_grad(t - 1); // ... and dV / dK of tile t-1
-        wgmma_wait<0>();
-        reg_fence(sc);
-        reg_fence(acc);
-        reg_fence(pk);
-        if (t == ntiles - 1) mbar_arrive(empty_kv);  // k / v read
-        release(t - 1);
+        if constexpr (DkvCfg<D>::EARLY) {
+          issue_grad(t - 1); // dV / dK of tile t-1 ...
+          issue_scores(t);   // ... and S^T / dP^T of tile t
+          wgmma_wait<1>();   // the gradient product done: its stage is free
+          reg_fence(acc);
+          reg_fence(pk);
+          release(t - 1);
+          wgmma_wait<0>();
+          reg_fence(sc);
+          if (t == ntiles - 1) mbar_arrive(empty_kv);  // k / v read
+        } else {
+          issue_scores(t);   // S^T / dP^T of tile t ...
+          issue_grad(t - 1); // ... and dV / dK of tile t-1
+          wgmma_wait<0>();
+          reg_fence(sc);
+          reg_fence(acc);
+          reg_fence(pk);
+          if (t == ntiles - 1) mbar_arrive(empty_kv);  // k / v read
+          release(t - 1);
+        }
         hand_over(t);      // while the other consumer's products run
         pack();
       }
@@ -870,11 +1153,11 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       const int r0 = w.x * ITEM + warp * 16 + g;
       if (c == 0)
-        store_rows<D>(dv + w.b * vdv.b + w.h * vdv.h, vdv.n, acc, 1.f, r0, M,
-                      t4);
+        store_rows<DV>(dv + w.b * vdv.b + w.h * vdv.h + slice * DV, vdv.n,
+                       acc, 1.f, r0, M, t4);
       else
-        store_rows<D>(dk + w.b * vdk.b + w.h * vdk.h, vdk.n, acc, scale, r0,
-                      M, t4);
+        store_rows<DV>(dk + w.b * vdk.b + w.h * vdk.h + slice * DV, vdk.n,
+                       acc, scale, r0, M, t4);
       u += ntiles;
     }
   } else {
@@ -1082,7 +1365,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_do, dout, view_at(st, 4), B, H, N);
   if (e != 0) return e;
-  dim3 grid((N + BLOCK - 1) / BLOCK, H, B);
+  dim3 grid((N + DqSmem<D>::ITEM - 1) / DqSmem<D>::ITEM, H, B);
   kernel<<<grid, THREADS, DqSmem<D>::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
@@ -1105,7 +1388,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, QT>(&tm_do, dout, view_at(st, 3), B, H, N);
-  if (e == 0) e = persistent_blocks(&blocks, B, H, M, DkvCfg<D>::ITEM);
+  if (e == 0)
+    e = persistent_blocks(&blocks, B, H * DkvCfg<D>::SLICES, M,
+                          DkvCfg<D>::ITEM);
   if (e != 0) return e;
   kernel<<<blocks, THREADS, DkvSmem<D>::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
@@ -1139,6 +1424,8 @@ extern "C" int sd3_flash_attention_dq(const void* q, const void* k,
     case 64: return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 128: return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 256: return launch_dq<256>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 384: return launch_dq<384>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 512: return launch_dq<512>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1158,6 +1445,8 @@ extern "C" int sd3_flash_attention_dkv(const void* q, const void* k,
     case 64: return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 128: return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 384: return launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 512: return launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -337,6 +337,19 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[8], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // wgmma_rs with B K-major (no transpose bit): the B of a product whose N
 // rows are stored with the contracted values contiguous, as in wgmma_ss.
 template <int N>

@@ -30,20 +30,26 @@ and K6B_256, whose 64 x 256 fp32 accumulators take 128 registers of a
 consumer thread (K5: 64-key tiles, each consumer's P.V landed before its
 next scores; K6a: 32-key tiles; K6b: both consumers on one 64-row item of
 keys, one summing dV, the other dK from the first's p, handed over in
-shared memory; `csrc/flash_bwd_sm90.cu` says why), and the forward at
-`WGMMA_SLICED` (384, 512), K5_384 and K5_512, the same kernel with the
-two consumers of a CTA on the same 64 query rows, each writing one of two
-column slices (32-key tiles; `csrc/attention_sm90.cu` says why). Past
-those, one set for every multiple of 128: bf16 tensors take K5W (past
-512), K6AW and K6BW (past 256; `csrc/attention_fp32.cu`: one tf32
-product of the exact bf16 values a step, p and ds rounded to bf16), fp32
-tensors K5WF, K6AWF and K6BWF (3xTF32). Those sum the scores over
+shared memory; `csrc/flash_bwd_sm90.cu` says why), and at `WGMMA_SLICED`
+(384, 512) K5_384, K5_512, K6A_384, K6A_512, K6B_384 and K6B_512, where
+the output is cut into two column slices of D / 2: K5 is the same kernel
+with the two consumers of a CTA on the same 64 query rows, each writing
+one slice (32-key tiles; `csrc/attention_sm90.cu` says why); K6a's two
+consumers also share 64 query rows, one taking p, the other dP, which
+they exchange in shared memory, each summing one slice of dq (32-key
+tiles at 384, 16 at 512); K6b is K6B_256's split by gradient on one
+slice of dk and dv a work item, the slice a grid dimension (32-query
+tiles at 384, 16 at 512; `csrc/flash_bwd_sm90.cu`). Past those, one set
+for every multiple of 128: bf16 tensors take K5W, K6AW and K6BW (past
+512; `csrc/attention_fp32.cu`: one tf32 product of the exact bf16 values
+a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF and K6BWF
+(3xTF32). Those sum the scores over
 128-wide chunks of the head, staged through shared memory a chunk at a
 time, and a block writes one 128-wide column slice of the output, so their
 shared memory does not grow with the head dim. `flash_kernel` names the
 kernel of each (entry point, dtype, head dim). Any other head dim is
-zero-padded to the next instance (up to 512 for the bf16 forward, 128 for
-the rest) or multiple of 128, as the JAX wrapper pads D to a multiple of
+zero-padded to the next instance (up to 512 in bf16, 128 in fp32) or
+multiple of 128, as the JAX wrapper pads D to a multiple of
 128 lanes: q, k, v (and out, dO) padded on D, the kernel run with the
 caller's scale, and out, dq, dk, dv sliced back. Zero columns add nothing
 to the scores, to lse or to delta.
@@ -82,9 +88,9 @@ from sd3_torch.kernels import Kernel, check
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' instances; past 128 the
 WIDE = 128                      # wide ones, at every multiple of WIDE
 WGMMA_WIDE = 256                # and the wgmma kernels' bf16 instances past
-WGMMA_SLICED = (384, 512)       # 128: at 256 (K5, K6a, K6b and the fused
-                                # kernels), in two column slices at 384, 512
-                                # (K5 and the fused kernels)
+WGMMA_SLICED = (384, 512)       # 128: at 256, and in two column slices at
+                                # 384, 512 (K5, K6a, K6b and the fused
+                                # kernels)
 WGMMA_PAST_128 = (WGMMA_WIDE, *WGMMA_SLICED)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -105,8 +111,8 @@ K6AF = Kernel("flash_attention_dq_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BF = Kernel("flash_attention_dkv_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
-# head dims past 128: bf16 (K5W past 512, K6AW, K6BW past 256) and fp32
-# (the fp32 entry points there, counted apart)
+# head dims past 128: bf16 (K5W, K6AW, K6BW past 512) and fp32 (the fp32
+# entry points there, counted apart)
 K5W = Kernel("flash_attention_fwd_wide", "attention_fp32.cu",
              "sd3_flash_attention_fwd_wide", argtypes=_FWD_ARGS)
 K6AW = Kernel("flash_attention_dq_wide", "attention_fp32.cu",
@@ -127,14 +133,20 @@ K5_256 = Kernel("flash_attention_fwd_256", "attention_sm90.cu",
 K5_384, K5_512 = (Kernel(f"flash_attention_fwd_{d}", "attention_sm90.cu",
                          "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
                   for d in WGMMA_SLICED)
-# K6a and K6b on bf16 at head dim 256 (129 to 256, padded): the wgmma
-# backward's instances there, counted apart from K6A's and K6B's
-K6A_256 = Kernel("flash_attention_dq_256", "flash_bwd_sm90.cu",
-                 "sd3_flash_attention_dq", argtypes=_BWD_ARGS)
-K6B_256 = Kernel("flash_attention_dkv_256", "flash_bwd_sm90.cu",
-                 "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
+# K6a and K6b on bf16 at head dims 256 (129 to 256, padded), 384 (257 to
+# 384) and 512 (385 to 512): the wgmma backward's instances there, each
+# counted apart from K6A's and K6B's
+K6A_256, K6A_384, K6A_512 = (
+    Kernel(f"flash_attention_dq_{d}", "flash_bwd_sm90.cu",
+           "sd3_flash_attention_dq", argtypes=_BWD_ARGS)
+    for d in WGMMA_PAST_128)
+K6B_256, K6B_384, K6B_512 = (
+    Kernel(f"flash_attention_dkv_{d}", "flash_bwd_sm90.cu",
+           "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
+    for d in WGMMA_PAST_128)
 _WGMMA = {"fwd": {WGMMA_WIDE: K5_256, 384: K5_384, 512: K5_512},
-          "dq": {WGMMA_WIDE: K6A_256}, "dkv": {WGMMA_WIDE: K6B_256}}
+          "dq": {WGMMA_WIDE: K6A_256, 384: K6A_384, 512: K6A_512},
+          "dkv": {WGMMA_WIDE: K6B_256, 384: K6B_384, 512: K6B_512}}
 # (bf16, fp32) kernels up to 128 and past it
 _KERNELS = {
     "fwd": {"small": (K5, K5F), "wide": (K5W, K5WF)},
@@ -146,9 +158,8 @@ _KERNELS = {
 def flash_kernel(which: str, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel of `which` ("fwd", "dq" or "dkv") for tensors of `dtype`
     at head dim d: up to 128 K5 / K6a / K6b (fp32: their F instances); on
-    bf16 the forward at 129 to 512 K5's wgmma instances at 256, 384 and 512
-    (K5_256, K5_384, K5_512), the backward at 129 to 256 K6a's and K6b's at
-    256 (K6A_256, K6B_256); past those, and fp32 at every head dim past
+    bf16 at 129 to 512 their wgmma instances at 256, 384 and 512 (K5_256,
+    K6A_256, K6B_256 .. K6B_512); past 512, and fp32 at every head dim past
     128, the wide mma.sync instances (W, WF)."""
     dp = instance_dim(d)
     fp32 = dtype == torch.float32
@@ -322,9 +333,9 @@ def flash_fwd(q, k, v, scale: float):
 
 
 def flash_dq(q, k, v, out, dout, lse, scale: float):
-    """K6a (fp32 tensors: K6AF; bf16 at 129-256: K6A_256; past that, and
-    fp32 past 128: K6AW / K6AWF): (dq, delta fp32 (B, H, N)); its plain
-    version on the CPU."""
+    """K6a (fp32 tensors: K6AF; bf16 at 129-256, 257-384 and 385-512:
+    K6A_256, K6A_384, K6A_512; past that, and fp32 past 128: K6AW /
+    K6AWF): (dq, delta fp32 (B, H, N)); its plain version on the CPU."""
     if q.device.type != "cpu":
         kern = _check_cuda("dq", (q, out, dout), (k, v))
     b, h, n, d = q.shape
@@ -343,9 +354,10 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale: float):
-    """K6b (fp32 tensors: K6BF; bf16 at 129-256: K6B_256; past that, and
-    fp32 past 128: K6BW / K6BWF): (dk, dv) (B, H, M, D) from the delta K6a
-    returned; its plain version on the CPU."""
+    """K6b (fp32 tensors: K6BF; bf16 at 129-256, 257-384 and 385-512:
+    K6B_256, K6B_384, K6B_512; past that, and fp32 past 128: K6BW /
+    K6BWF): (dk, dv) (B, H, M, D) from the delta K6a returned; its plain
+    version on the CPU."""
     if q.device.type != "cpu":
         kern = _check_cuda("dkv", (q, dout), (k, v))
     b, h, n, d = q.shape

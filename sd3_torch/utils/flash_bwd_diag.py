@@ -3,11 +3,12 @@ sd3_torch/csrc/flash_bwd_sm90.cu), on one NVIDIA Hopper GPU. From the root
 of the repository (it takes its timing and its yardstick from chip_smoke.py
 there):
 
-    python3 -m sd3_torch.utils.flash_bwd_diag [ptxas] [sass] [launches] [d256]
+    python3 -m sd3_torch.utils.flash_bwd_diag [ptxas] [sass] [launches]
+        [d256] [d384] [d512] [sassdiff=OTHER.cu]
 
-(all four parts by default):
+(the first four parts by default):
 1. "ptxas": registers, shared memory and spills of each kernel of the
-   source (every instance, D = 16 to 256), from the compiler's report of a
+   source (every instance, D = 16 to 512), from the compiler's report of a
    fresh build beside the library;
 2. "sass": in that build, for each kernel, the exp2s (MUFU.EX2) between the
    loop's wait for the score products (DEPBAR.LE gsb0, 0x1) and its wait
@@ -27,7 +28,14 @@ there):
    chip_smoke.cuda_ms), the largest difference of the two routes' outputs,
    the device time of each launch, and K6A_256 at B 2 (100 blocks, one
    wave on 132 SMs) beside B 4 (200 blocks, two waves): the cost of the
-   second wave.
+   second wave;
+5. "d384", "d512": the same for K6A_384 / K6B_384 at FLASH_WIDE[2] (B 4,
+   H 3, N 1178, D 384) and K6A_512 / K6B_512 at FLASH_WIDE[3] (B 4, H 2,
+   N 1178, D 512) beside K6AW / K6BW, and K6a at half the batch (one wave
+   of 64-row blocks) beside the whole;
+6. "sassdiff=OTHER.cu": OTHER.cu (another tree's copy of the source, with
+   its own headers beside it) built beside this one, and for every kernel
+   of both, whether its SASS (cuobjdump -sass) is the same;
 One JSON line per part on stdout.
 """
 
@@ -38,6 +46,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 
 import chip_smoke as cs  # shapes, timing, bounds, the SDPA yardstick
 
@@ -144,12 +153,20 @@ def part_launches() -> dict:
     return res
 
 
-def part_d256() -> dict:
+# the FLASH_WIDE shape of each wgmma instance past 128
+WIDE_SHAPES = {256: cs.FLASH_WIDE[0], 384: cs.FLASH_WIDE[2],
+               512: cs.FLASH_WIDE[3]}
+
+
+def _wide_case(d):
+    """FLASH_WIDE's inputs at instance d, with out, lse and delta, and the
+    runs of a K6a and a K6b kernel on them: (dims, dq(kern, bb),
+    dkv(kern))."""
     import torch
     from sd3_torch.ops import flash_attention as fl
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shape = cs.FLASH_WIDE[0]
+    shape = WIDE_SHAPES[d]
     b, h, n, m, d = cs.flash_dims(shape)
     scale = d ** -0.5
     q, k, v, do = cs.flash_inputs(shape, gen, torch.bfloat16)
@@ -170,9 +187,17 @@ def part_d256() -> dict:
         fl._launch(kern, (q, k, v, do, lse, delta, *res),
                    (q, k, v, do, *res), b, h, n, m, d, scale)
         return res
+    return (b, h, n, m, d), dq, dkv
+
+
+def part_wide(d) -> dict:
+    from sd3_torch.ops import flash_attention as fl
+
+    (b, h, n, m, d), dq, dkv = _wide_case(d)
+    shape = WIDE_SHAPES[d]
     res = {}
-    for name, run, routes in (("K6a", dq, (fl.K6A_256, fl.K6AW)),
-                              ("K6b", dkv, (fl.K6B_256, fl.K6BW))):
+    for name, run, routes in (("K6a", dq, (fl._WGMMA["dq"][d], fl.K6AW)),
+                              ("K6b", dkv, (fl._WGMMA["dkv"][d], fl.K6BW))):
         outs = [run(kern) for kern in routes]
         times = {kern.name: [] for kern in routes}
         for kern in (*routes, *routes[::-1]):
@@ -183,9 +208,31 @@ def part_d256() -> dict:
                              for x, y in zip(*outs)),
             us_per_launch={kern.name: cs.per_launch_us(
                 lambda kern=kern: run(kern)) for kern in routes})
-    res["K6a waves"] = {f"B={bb} ({-(-n // 128) * h * bb} blocks)": cs.cuda_ms(
-        lambda bb=bb: dq(fl.K6A_256, bb)) for bb in (b // 2, b)}
+    rows = 128 if d == 256 else 64  # K6a's rows per block
+    res["K6a waves"] = {f"B={bb} ({-(-n // rows) * h * bb} blocks)":
+                        cs.cuda_ms(lambda bb=bb: dq(fl._WGMMA["dq"][d], bb))
+                        for bb in (b // 2, b)}
     return res
+
+
+def part_sassdiff(lib: str, other: str) -> dict:
+    from sd3_torch import kernels
+    from sd3_torch.utils.flag_diag import _sass
+    cuobjdump = os.path.join(os.path.dirname(kernels.find_nvcc()),
+                             "cuobjdump")
+    sass = lambda path: {kernel_name(fn): code
+                         for fn, code in _sass(cuobjdump, path).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        olib = os.path.join(tmp, "other.so")
+        r = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o",
+                            olib, other], capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc {other}:\n{r.stdout}{r.stderr}")
+        mine, theirs = sass(lib), sass(olib)
+    return {fn: ("same" if mine.get(fn) == theirs.get(fn) else
+                 "only here" if fn not in theirs else
+                 "only there" if fn not in mine else "different")
+            for fn in sorted(set(mine) | set(theirs))}
 
 
 def main(argv=None) -> int:
@@ -195,13 +242,19 @@ def main(argv=None) -> int:
         return 1
     parts = (sys.argv[1:] if argv is None else argv) or [
         "ptxas", "sass", "launches", "d256"]
+    args = dict(p.split("=", 1) if "=" in p else (p, None) for p in parts)
     print(cs.nvidia_smi("name,power.limit"), flush=True)
-    lib, report = fresh_build() if {"ptxas", "sass"} & set(parts) else (
-        None, None)
+    lib, report = fresh_build() if {"ptxas", "sass", "sassdiff"} & set(
+        args) else (None, None)
     for part, fn in (("ptxas", lambda: part_ptxas(report)),
                      ("sass", lambda: part_sass(lib)),
-                     ("launches", part_launches), ("d256", part_d256)):
-        if part in parts:
+                     ("sassdiff", lambda: part_sassdiff(lib,
+                                                        args["sassdiff"])),
+                     ("launches", part_launches),
+                     ("d256", lambda: part_wide(256)),
+                     ("d384", lambda: part_wide(384)),
+                     ("d512", lambda: part_wide(512))):
+        if part in args:
             print(json.dumps({part: fn()}), flush=True)
     return 0
 

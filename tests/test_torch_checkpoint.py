@@ -41,6 +41,13 @@ from sd3_torch.training.trainer import Trainer, TrainConfig, make_lr_schedule
 from sd3_torch.weights import (jax_path, jax_tree_from_state_dict,
                                state_dict_from_jax)
 
+# torch's intra-op threads: one share of the cores a pytest-xdist worker
+# (each would otherwise run torch on every core beside the others and
+# XLA's pool). Every worker imports every test file, so this one setting
+# reaches all of them; a run without xdist keeps every core.
+torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 
 def _params(seed=0):
     jcfg = j_tiny_config(num_blocks=2)

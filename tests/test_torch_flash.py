@@ -29,10 +29,17 @@ SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
 # query tiles (csrc/flash_bwd_sm90.cu), at both head dims; and at head dim
 # 256 (K6A_256, K6B_256: 32-key tiles, 64-row items) and 160 (padded to
 # 256 on the card), on either side of 64 and 128, with one key length of
-# its own, (B, H, N, M, D)
+# its own, (B, H, N, M, D); at 384 and 320 (padded to 384: K6A_384,
+# K6B_384, 32-key / 32-query tiles, 64-row items) and 512 (K6A_512,
+# K6B_512, 16-key / 16-query tiles) on either side of 64 and of their tiles,
+# with one key length of its own
 TILE_EDGE_SHAPES = ([(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
                     + [(1, 2, n, d) for n in (63, 65, 127, 129)
-                       for d in (160, 256)] + [(1, 2, 65, 127, 256)])
+                       for d in (160, 256)] + [(1, 2, 65, 127, 256)]
+                    + [(1, 2, n, d) for n in (31, 33, 63, 65)
+                       for d in (320, 384)]
+                    + [(1, 2, n, 512) for n in (15, 17, 63, 65)]
+                    + [(1, 2, 65, 17, 512)])
 # (B, H, N, M, D): a key length of its own. kv_merge_attn's M = N / 2 (the
 # 256px training shape's 410 -> 205 at a narrow width, and a ragged one),
 # a ragged M against a whole N, M > N, and M past 2048 keys (JAX's

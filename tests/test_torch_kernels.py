@@ -430,9 +430,9 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     # to 256), 257-384 and 385-512 the wgmma kernels' D = 256, 384 and 512
     # instances, counted apart, from the same sources and entry points;
     # past 512 in bf16, and past 128 in fp32, the wide mma.sync instances
-    # of attention_fp32.cu; the flash backward in bf16 at 129-256 the wgmma
-    # backward's D = 256 instances (K6A_256, K6B_256), past 256 the wide
-    # mma.sync ones
+    # of attention_fp32.cu; the flash backward in bf16 at 129-256, 257-384
+    # and 385-512 the wgmma backward's D = 256, 384 and 512 instances
+    # (K6A_256 .. K6B_512), past 512 the wide mma.sync ones
     fp32 = dtype == torch.float32
     dp = tfl.instance_dim(d)
     bases = (tfa.K1, tfa.K7, tfa.K4, tfa.K7Q, tfa.K8A, tfa.K8B)
@@ -459,15 +459,22 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
         want = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF)
     elif dp == 256:
         want = (tfl.K5_256, tfl.K6A_256, tfl.K6B_256)
+    elif dp == 384:
+        want = (tfl.K5_384, tfl.K6A_384, tfl.K6B_384)
+    elif dp == 512:
+        want = (tfl.K5_512, tfl.K6A_512, tfl.K6B_512)
     else:
-        k5 = {384: tfl.K5_384, 512: tfl.K5_512}
-        want = (k5.get(dp, tfl.K5W), tfl.K6AW, tfl.K6BW)
+        want = (tfl.K5W, tfl.K6AW, tfl.K6BW)
     assert (fwd, dq, dkv) == want
     for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
         assert (k5.source, k5.symbol) == (tfl.K5.source, tfl.K5.symbol)
-    for k6, small in ((tfl.K6A_256, tfl.K6A), (tfl.K6B_256, tfl.K6B)):
-        assert (k6.source, k6.symbol) == (small.source, small.symbol)
-        assert k6.name == f"{small.name}_256"
+    for e in tfl.WGMMA_PAST_128:
+        for small in (tfl.K6A, tfl.K6B):
+            k6 = tfl._WGMMA["dq" if small is tfl.K6A else "dkv"][e]
+            assert (k6.source, k6.symbol) == (small.source, small.symbol)
+            assert k6.name == f"{small.name}_{e}"
+    # the mma.sync backward keeps bf16 past 512 and fp32 only
+    assert (dq.source == "attention_fp32.cu") == (fp32 or dp > 512)
     assert tfl.K5.source == "attention_sm90.cu"
     # the key tile the plain version must take to meet the card's K7
     tile = tfa.stream_key_tile(False, False, d)
@@ -478,39 +485,62 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     assert tfa.stream_key_tile(False, True, d) == tfa.K8B_KEY_TILE
 
 
+@pytest.mark.parametrize("d", tfl.WGMMA_PAST_128)
 @pytest.mark.parametrize("struct", ["DqSmem", "DkvSmem"])
-def test_head_dim_256_backward_fits_in_shared_memory(struct):
-    # K6A_256 and K6B_256, the wgmma backward's D = 256 instances: the
-    # shared memory their launches ask for, from the source's own constants
-    # and struct members, within one block's limit, each behind its
-    # dispatch; the layouts of the instances up to 128 as they have run
+def test_head_dim_256_backward_fits_in_shared_memory(struct, d):
+    # K6A_256 / K6B_256 and, past 256, K6A_384 .. K6B_512, the wgmma
+    # backward's bf16 instances past head dim 128: the shared memory their
+    # launches ask for, from the source's own constants and struct members,
+    # within one block's limit, each behind its dispatch; the layouts of the
+    # instances up to 128 as they have run
     src = (kernels.CSRC_DIR / tfl.K6A.source).read_text()
     c = _CSource("sm90.cuh", tfl.K6A.source)
-    smem = c.instance(struct, 256)
+    smem = c.instance(struct, d)
     assert smem["BYTES"] <= SMEM_PER_BLOCK, smem
     assert smem["STAGES"] >= 2
     assert "static_assert(BYTES <= 232448" in src
     if struct == "DqSmem":
-        # 32-key tiles; the arithmetic waits for dQ of the tile before
-        assert smem["KEY_TILE"] == 32 and not smem["OVERLAP"]
-        assert ("case 256: return launch_dq<256>(" in src)
-        for d, kt in ((16, 64), (32, 64), (64, 64), (128, 32)):
-            small = c.instance(struct, d)
+        assert f"case {d}: return launch_dq<{d}>(" in src
+        if d == 256:
+            # 32-key tiles; the arithmetic waits for dQ of the tile before
+            assert smem["KEY_TILE"] == 32 and not smem["OVERLAP"]
+            assert not smem["SLICED"] and smem["X_TILE"] == 0
+            assert smem["K_STAGES"] == smem["STAGES"] == 3
+        else:
+            # 64-row items on both consumers, each summing one of two
+            # column slices of dq, with one q and one dO tile, three k and
+            # two v stages, and the fp32 tiles they exchange in a v stage
+            assert smem["SLICED"] and smem["ITEM"] == 64 and smem["OVERLAP"]
+            assert smem["Q_TILES"] == 1 and smem["DV"] == d // 2
+            assert smem["KEY_TILE"] == {384: 32, 512: 16}[d]
+            assert (smem["K_STAGES"], smem["STAGES"]) == (3, 2)
+            assert smem["X_TILE"] == 64 * smem["KEY_TILE"] * 4
+            assert 2 * smem["X_TILE"] <= smem["KV_TILE"]
+            assert smem["BAR"] == smem["V"] + 2 * smem["KV_TILE"]
+        for e, kt in ((16, 64), (32, 64), (64, 64), (128, 32)):
+            small = c.instance(struct, e)
             assert (small["KEY_TILE"], small["STAGES"], small["OVERLAP"]) \
                 == (kt, 4, True)
+            assert small["K_STAGES"] == 4 and small["X_TILE"] == 0
+            assert not small["SLICED"] and small["ITEM"] == 128
     else:
         # 64-row items on both consumers, split by gradient, with two p^T
-        # buffers of a 64-query tile in fp32
-        cfg = c.instance("DkvCfg", 256)
+        # buffers of a query tile in fp32; past 256 each item one of two
+        # column slices of dk and dv
+        cfg = c.instance("DkvCfg", d)
         assert smem["SPLIT"] and cfg["ITEM"] == 64 and smem["KV_TILES"] == 1
         assert smem["P_TILE"] == 64 * smem["Q_TILE"] * 4
-        assert "case 256: return launch_dkv<256>(" in src
-        for d, qt in ((16, 64), (32, 64), (64, 64), (128, 32)):
-            small = c.instance(struct, d)
+        assert (cfg["DV"], cfg["SLICES"]) == ((d, 1) if d == 256
+                                              else (d // 2, 2))
+        assert smem["Q_TILE"] == {256: 64, 384: 32, 512: 16}[d]
+        assert f"case {d}: return launch_dkv<{d}>(" in src
+        for e, qt in ((16, 64), (32, 64), (64, 64), (128, 32)):
+            small = c.instance(struct, e)
             assert not small["SPLIT"] and small["P_TILE"] == 0
             assert (small["Q_TILE"], small["STAGES"], small["KV_TILES"]) == (
                 qt, 4, 2)
-            assert c.instance("DkvCfg", d)["ITEM"] == 128
+            assert c.instance("DkvCfg", e)["ITEM"] == 128
+            assert c.instance("DkvCfg", e)["SLICES"] == 1
 
 
 def test_flash_backward_is_the_wgmma_source():
@@ -1962,14 +1992,34 @@ def test_fp32_k10_kernels_match_plain_on_the_card(cuda_device, b, n, k,
             a, gate, r, *ws[:2]))
 
 
-# head dims past 128: the forward's wgmma instances in bf16 at 256
-# (K5_256), 384 and 512 (K5_384, K5_512), and 160, 300 padded to them, the
-# wide instances at every multiple of 128 (the backward at every one, the
-# forward past 512 and fp32 at all): at ragged lengths and over many key
-# tiles
+# head dims past 128: the wgmma instances in bf16 at 256 (K5_256, K6A_256,
+# K6B_256), 384 and 512 (K5_384 .. K6B_512), and 160, 300, 400 padded to
+# them, the wide instances at every multiple of 128 (bf16 past 512 and
+# fp32 at all): at ragged lengths and over many key tiles
 FLASH_WIDE_SHAPES = [(1, 2, 300, 256), (2, 3, 129, 160), (1, 2, 65, 256),
                      (1, 2, 1178, 256), (1, 2, 300, 384), (2, 2, 65, 300),
-                     (1, 2, 129, 512), (1, 2, 1178, 512), (1, 2, 65, 640)]
+                     (1, 2, 129, 512), (1, 2, 1178, 512), (1, 2, 65, 640),
+                     (2, 3, 410, 384), (1, 2, 17, 512), (1, 3, 97, 400)]
+
+
+def _wgmma_or_wide(d):
+    """(K5, K6a, K6b) of bf16 at head dim d past 128: the wgmma instances
+    up to 512, the wide mma.sync ones past it."""
+    return tuple(tfl.flash_kernel(w, torch.bfloat16, d)
+                 for w in ("fwd", "dq", "dkv"))
+
+
+def _assert_grad_control_misses(q, k, v, do, scale, dq, dk, cut=None):
+    """dq and dk against the plain backward in fp32 at twice the scale,
+    which must miss the FLASH_GRAD limits (the failing control of the
+    bf16 backward's checks)."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    out, lse = tfl.flash_fwd_plain(qf, kf, vf, scale)
+    c_dq, c_delta = tfl.flash_dq_plain(qf, kf, vf, out, dof, lse, 2 * scale)
+    c_dk, _ = tfl.flash_dkv_plain(qf, kf, vf, dof, lse, c_delta, 2 * scale)
+    for name, got, ctl in (("dq", dq, c_dq), ("dk", dk, c_dk)):
+        with pytest.raises(AssertionError):
+            _assert_grad_close(got, ctl, f"{name} control")
 
 
 @pytest.mark.cuda
@@ -1993,8 +2043,11 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 512)
     assert fwd is ({256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}.get(
         tfl.instance_dim(shape[-1]), tfl.K5W))
-    assert (dq_k, dkv_k) == ((tfl.K6A_256, tfl.K6B_256) if shape[-1] <= 256
-                             else (tfl.K6AW, tfl.K6BW))
+    dp = tfl.instance_dim(shape[-1])
+    assert (dq_k, dkv_k) == (
+        (tfl._WGMMA["dq"][dp], tfl._WGMMA["dkv"][dp]) if dp <= 512
+        else (tfl.K6AW, tfl.K6BW))
+    assert (dq_k.source == "flash_bwd_sm90.cu") == (dp <= 512)
     assert _launched(before) == {kk.name: 1 for kk in (fwd, dq_k, dkv_k)}
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert out.shape == dq.shape == dk.shape == dv.shape == shape
@@ -2003,6 +2056,8 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
                        ("dv", dv, want[4])):
         _assert_grad_close(g, w, name)
+    if dp in tfl.WGMMA_SLICED:
+        _assert_grad_control_misses(q, k, v, do, scale, dq, dk)
     q, k, v, do = (t.float() + 1e-3 * torch.randn_like(t.float())
                    for t in (q, k, v, do))
     w_out, w_lse = tfl.flash_fwd_plain(q, k, v, scale)
@@ -2030,18 +2085,19 @@ FLASH_KV_SHAPES = [(4, 19, 1178, 589, 64), (4, 19, 410, 205, 64),
                    (2, 3, 47, 24, 16), (1, 2, 65, 33, 32),
                    (1, 2, 300, 150, 128), (1, 2, 300, 150, 256),
                    (1, 2, 129, 300, 256), (1, 2, 300, 150, 384),
-                   (1, 2, 129, 300, 512)]
+                   (1, 2, 129, 300, 512), (2, 3, 410, 205, 384),
+                   (1, 2, 63, 17, 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", FLASH_KV_SHAPES)
 def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
         cuda_device, no_tf32, shape):
-    # K5, K6a, K6b (past 128: K5_256 / K5_384 / K5_512, K6A_256 / K6B_256
-    # at 256, K6AW, K6BW past it) on bf16 within the FLASH limits, K5F,
-    # K6AF, K6BF (K5WF, K6AWF, K6BWF) on fp32 within FP32_REL_L2, each
-    # against its plain version at M != N: lse and delta by query row, dk
-    # and dv by key row
+    # K5, K6a, K6b (past 128: their wgmma instances K5_256 .. K6B_512) on
+    # bf16 within the FLASH limits, K5F, K6AF, K6BF (K5WF, K6AWF, K6BWF) on
+    # fp32 within FP32_REL_L2, each against its plain version at M != N:
+    # lse and delta by query row, dk and dv by key row; past 256 the plain
+    # backward at twice the scale misses the limits
     b, h, n, m, d = shape
     r = np.random.default_rng(9)
     q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
@@ -2049,11 +2105,10 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
     scale = d ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
     wide = d > 128
-    bf16 = tuple(tfl.flash_kernel(w, torch.bfloat16, d)
-                 for w in ("fwd", "dq", "dkv"))
-    assert bf16 == ((tfl.K5_256, tfl.K6A_256, tfl.K6B_256) if d == 256 else
-                    (tfl.flash_kernel("fwd", torch.bfloat16, d), tfl.K6AW,
-                     tfl.K6BW) if wide else (tfl.K5, tfl.K6A, tfl.K6B))
+    bf16 = _wgmma_or_wide(d)
+    assert bf16 == ((tfl._WGMMA["fwd"][d], tfl._WGMMA["dq"][d],
+                     tfl._WGMMA["dkv"][d]) if wide else (tfl.K5, tfl.K6A,
+                                                         tfl.K6B))
     fp32 = (tfl.K5WF, tfl.K6AWF, tfl.K6BWF) if wide else (tfl.K5F, tfl.K6AF,
                                                           tfl.K6BF)
     before = {kk.name: kk.launches for kk in kernels.REGISTRY}
@@ -2071,6 +2126,8 @@ def test_flash_kernels_at_a_key_length_of_their_own_on_the_card(
     for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
                        ("dv", dv, want[4])):
         _assert_grad_close(g, w, name)
+    if d in tfl.WGMMA_SLICED:
+        _assert_grad_control_misses(q, k, v, do, scale, dq, dk)
     q, k, v, do = (t.float() + 1e-3 * torch.randn_like(t.float())
                    for t in (q, k, v, do))
     w_out, w_lse = tfl.flash_fwd_plain(q, k, v, scale)
@@ -2107,6 +2164,31 @@ def test_k6_256_matches_plain_reads_views_and_repeats_on_the_card(
     # buffers, the training path's layout, go to the tensor maps as they
     # are and give the bits of contiguous inputs; a second run gives the
     # same bits (no atomics)
+    _k6_views_and_repeats(cuda_device, shape, monkeypatch)
+
+
+# K6A_384 / K6B_384 and K6A_512 / K6B_512 (bf16 heads of 257-512): lengths
+# on either side of their 64-row items and of their key / query tiles (32
+# at 384, 16 at 512), 300 and 400 padded, key lengths of their own, the
+# D-384 training step's shape and FLASH_WIDE's
+FLASH_SLICED_SHAPES = [(1, 2, 15, 384), (1, 2, 63, 384), (1, 2, 65, 384),
+                       (2, 3, 129, 300), (1, 2, 17, 512), (1, 2, 63, 512),
+                       (1, 2, 65, 512), (2, 2, 97, 400), (1, 2, 65, 33, 384),
+                       (1, 1, 63, 129, 512), (2, 3, 410, 205, 384),
+                       (2, 3, 410, 384), (4, 3, 1178, 384),
+                       (4, 2, 1178, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_SLICED_SHAPES)
+def test_k6_sliced_matches_plain_reads_views_and_repeats_on_the_card(
+        cuda_device, shape, monkeypatch):
+    # the same for the D = 384 and 512 instances, and the plain backward at
+    # twice the scale misses the limits
+    _k6_views_and_repeats(cuda_device, shape, monkeypatch, control=True)
+
+
+def _k6_views_and_repeats(cuda_device, shape, monkeypatch, control=False):
     b, h, n, m, d = shape if len(shape) == 5 else (*shape[:3], *shape[2:])
     r = np.random.default_rng(11)
     q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
@@ -2118,7 +2200,9 @@ def test_k6_256_matches_plain_reads_views_and_repeats_on_the_card(
     dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
     dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
     torch.cuda.synchronize()
-    assert _launched(before) == {tfl.K6A_256.name: 1, tfl.K6B_256.name: 1}
+    dp = tfl.instance_dim(d)
+    assert _launched(before) == {tfl._WGMMA["dq"][dp].name: 1,
+                                 tfl._WGMMA["dkv"][dp].name: 1}
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     want_delta = (do.float() * out.float()).sum(-1)
@@ -2126,6 +2210,8 @@ def test_k6_256_matches_plain_reads_views_and_repeats_on_the_card(
     for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
                        ("dv", dv, want[4])):
         _assert_grad_close(g, w, name)
+    if control:
+        _assert_grad_control_misses(q, k, v, do, scale, dq, dk)
     views = [t.transpose(1, 2).contiguous().transpose(1, 2)
              for t in (q, k, v, out, do)]
     readable, in_place = tfl._readable, []
@@ -2147,11 +2233,14 @@ def test_k6_256_matches_plain_reads_views_and_repeats_on_the_card(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 129, 256), (1, 2, 65, 200)])
+@pytest.mark.parametrize("shape", [(2, 3, 129, 256), (1, 2, 65, 200),
+                                   (2, 3, 129, 384), (1, 2, 65, 400)])
 def test_flash_autograd_function_at_head_dim_256_on_the_card(cuda_device,
                                                              shape):
     # the Function at a head dim of 129-256 launches K5_256 forward and
-    # K6A_256, K6B_256 backward, once each, on views of (B, N, H, D) buffers
+    # K6A_256, K6B_256 backward, once each, on views of (B, N, H, D)
+    # buffers; at 257-512 K5_384 / K5_512 and K6A_384 .. K6B_512, and the
+    # plain backward at twice the scale misses the limits
     q, k, v, do = _flash_case(shape, cuda_device, seed=12)
     scale = shape[-1] ** -0.5
     want = _flash_plain_fp32(q, k, v, do, scale)
@@ -2161,8 +2250,13 @@ def test_flash_autograd_function_at_head_dim_256_on_the_card(cuda_device,
     out = tfl.flash_attention(*views, scale)
     out.backward(do)
     torch.cuda.synchronize()
-    assert _launched(before) == {kk.name: 1 for kk in (
-        tfl.K5_256, tfl.K6A_256, tfl.K6B_256)}
+    assert _launched(before) == {kk.name: 1 for kk in _wgmma_or_wide(
+        shape[-1])}
+    assert all(kk.source != "attention_fp32.cu"
+               for kk in _wgmma_or_wide(shape[-1]))
     assert (out.float() - want[0]).abs().max().item() <= FLASH_OUT_ATOL
     for name, t, w in zip(("dq", "dk", "dv"), views, want[2:]):
         _assert_grad_close(t.grad, w, name)
+    if shape[-1] > 256:
+        _assert_grad_control_misses(q, k, v, do, scale, views[0].grad,
+                                    views[1].grad)

@@ -391,22 +391,27 @@ def test_three_fused_bf16_steps_match_jax(tmp_path):
     assert trainer.opt_state.count == int(js.count) == 3
 
 
-def test_one_fused_bf16_step_at_head_dim_256_matches_jax(tmp_path):
+@pytest.mark.parametrize("dim", [512, 768])
+def test_one_fused_bf16_step_at_head_dim_256_matches_jax(tmp_path, dim):
     # test_three_fused_bf16_steps_match_jax's flags and tolerances for one
     # step of a model of two heads of 256 (dim 512), whose flash attention
     # runs the D = 256 instances on the card (K5_256, K6A_256, K6B_256) and
-    # their plain versions here; JAX's Pallas kernels in interpret mode on
-    # two 128-lane blocks of the head. The JAX step at acc 1 is its
+    # their plain versions here, and of two heads of 384 (dim 768: K5_384,
+    # K6A_384, K6B_384 on the card); JAX's Pallas kernels in interpret mode
+    # on two or three 128-lane blocks of the head. The JAX step at acc 1 is
+    # its
     # gradient function on the precast weights and the fused AdamW tail
     # (make_fused_train_step), taken here in those two parts so that the
     # model compiles once. No warmup, so that the step moves the weights:
     # the gradients to a relative L2 of 3e-2, loss and gradient norm to
     # 1e-2 relative, the update to a relative L2 of 0.25
     jcfg = j_tiny_config(attn_type="softmax_flash", dtype="bfloat16",
-                         dim=512, num_heads=2)
-    assert jcfg.dim // jcfg.num_heads == 256
-    assert [tfl.flash_kernel(w, torch.bfloat16, 256) for w in (
-        "fwd", "dq", "dkv")] == [tfl.K5_256, tfl.K6A_256, tfl.K6B_256]
+                         dim=dim, num_heads=2)
+    hd = jcfg.dim // jcfg.num_heads
+    assert hd in (256, 384)
+    assert [tfl.flash_kernel(w, torch.bfloat16, hd) for w in (
+        "fwd", "dq", "dkv")] == [tfl._WGMMA[w][hd] for w in (
+            "fwd", "dq", "dkv")]
     tkw = dict(batch_size=2, accumulation_steps=1, lr=1e-3, warmup_steps=0,
                low_mem_optimizer=True, fused_optimizer=True, bf16_grads=True,
                precast_params=True, remat_blocks=True, track_ema=False)
