@@ -62,21 +62,25 @@ Phases (any failure exits non-zero without the final ok line):
      K5_384 / K6A_384 / K6B_384 and K5_512 / K6A_512 / K6B_512, the same
      kernels in two column slices, with the same controls; also at M != N,
      and K6A_384, K6B_384 at phase 4c's shape, B 2, H 3, N 410; the
-     K6a / K6b instances at 256-512 the same bits twice), 640 (K5W,
-     K6AW, K6BW past them) and fp32 at 256-512 (K5WF, K6AWF, K6BWF), the
-     bf16 forwards up to 512 with a control (the plain version at twice
-     the scale) that must fail its limit, then
+     K6a / K6b instances at 256-512 the same bits twice), 640 (K5_768,
+     the forward's wgmma instance in four column slices, K6AW, K6BW past
+     the backward's), 1024 (K5_1024), 1152 (K5W past them) and fp32 at
+     256-512 (K5WF, K6AWF, K6BWF), the bf16 forwards with a control (the
+     plain version at twice the scale) that must fail its limit, then
      through the flash API, which counts their launches; the fused route
      past the dividers of 128: every fused kernel, bf16 and fp32, at head
-     dims 48, 96, 192 (padded to 64, 128, 256), 256, 384, 512 and 640 at a
-     small shape, each in its family's limit (bf16 at 192-512: the wgmma
-     kernels' D = 256, 384 and 512 instances, K1_256 .. K8B_512, each with
-     a failing control; bf16 at 640 and fp32 past 128 the wide instances
-     K1W .. K8BW, K1WF .. K8BWF), then those timed at the 512px joint
-     length with five heads of 256 (K1_256 .. K8B_256 with controls, K1WF
-     .. K8BWF; the streaming ones forced there), of 384 and 512 (K1_384 ..
-     K8B_512, with controls) and two of 640 (K1W .. K8BW), their launches
-     counted through the attention API.
+     dims 48, 96, 192 (padded to 64, 128, 256), 256, 384, 512, 640, 768,
+     1000, 1024 and 1152 at a small shape, each in its family's limit
+     (bf16 at 192-1024: the wgmma kernels' D = 256, 384, 512, 768 and 1024
+     instances, K1_256 .. K8B_1024; bf16 at 1152 and fp32 past 128 the
+     wide instances K1W .. K8BW, K1WF .. K8BWF; every bf16 one past 128
+     with a failing control), then those timed at the 512px joint length
+     with five heads of 256 (K1_256 .. K8B_256 with controls, K1WF ..
+     K8BWF; the streaming ones forced there), of 384 and 512 (K1_384 ..
+     K8B_512, with controls), two of 640 and two of 1024 (K1_768 ..
+     K8B_1024, with controls, the wide mma.sync instance timed beside
+     each) and two of 1152 (K1W .. K8BW), their launches counted through
+     the attention API.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -100,11 +104,12 @@ Phases (any failure exits non-zero without the final ok line):
      attention and MLP module on the inputs the CPU model handed it, its
      increment within the kernels' limit, and the same check failed in
      every module by the bf16 int8 model and the unquantized fp32 model
-     (controls); models of five heads of 256 (dim 1280, D256_MODEL) and
-     of three heads of 384 (dim 1152, D384_MODEL) at 512px, batch 1, bf16
-     and int8 (K2, K3), their attention K5_256 / K5_384 (the general path:
-     heads that do not divide 128), each with a control (RoPE1d's tables
-     on the same weights) that must fail; then
+     (controls); models of five heads of 256 (dim 1280, D256_MODEL), of
+     three heads of 384 (dim 1152, D384_MODEL) and of two heads of 640
+     (dim 1280, D640_MODEL) at 512px, batch 1, bf16 and int8 (K2, K3),
+     their attention K5_256 / K5_384 / K5_768 (the general path: heads
+     that do not divide 128; never K5W), each with a control (RoPE1d's
+     tables on the same weights) that must fail; then
      one training step at 256px,
      batch 2 (loss,
      gradients and the update against fp32 on the CPU), in bf16 (K5, K6a,
@@ -512,6 +517,11 @@ FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
 # (M = N / 2, M > N), so that the shapes before them see the inputs they
 # saw
 FLASH_PAST_512 = (2, 2, 1178, 640)
+# since the bf16 forward past 512 has wgmma instances at 768 and 1024, 640
+# runs K5_768 forward (and K6AW, K6BW backward); two heads of 1024 run
+# K5_1024, and of 1152, past them, K5W (their backward K6AW, K6BW)
+FLASH_1024 = (2, 2, 1178, 1024)
+FLASH_PAST_1024 = (2, 2, 1178, 1152)
 FLASH_KV_SLICED = [(2, 3, 410, 205, 384), (2, 3, 129, 300, 512)]
 # k and v with a key length M of their own, as kv_merge_attn's pairwise
 # merge makes them: (B, H, N, M, D) at the 512px and 256px kv_merge training
@@ -530,7 +540,9 @@ FLASH_KV_WIDE = [(2, 3, 410, 205, 256), (2, 3, 129, 300, 256)]
 # five heads of 256: about the published width) and, for the streaming
 # ones, forced past their single-KV length there
 WIDE_DIMS = (48, 96, 192, 256, 384)
-WIDE_DIMS_PAST_384 = (512, 640)
+# past 384: 512; 640 and 768 on the D = 768 instances, 1000 and 1024 on the
+# D = 1024 ones, and past them 1152 on the wide mma.sync ones
+WIDE_DIMS_PAST_384 = (512, 640, 768, 1000, 1024, 1152)
 WIDE_CHECK = dict(b=2, h=8, w=9, n_txt=20, heads=2, rope=True)
 SLICE_WIDE = dict(b=2, h=32, w=32, n_txt=154, heads=5, d=256, rope=True)
 # the bf16 wgmma instances past 256 (D = 384, 512: two column slices) and
@@ -541,10 +553,17 @@ SLICE_WIDE = dict(b=2, h=32, w=32, n_txt=154, heads=5, d=256, rope=True)
 SLICE_WIDE_384 = dict(SLICE_WIDE, d=384)
 SLICE_WIDE_512 = dict(SLICE_WIDE, d=512)
 SLICE_WIDE_640 = dict(SLICE_WIDE, d=640, heads=2)
+# the bf16 wgmma instances past 512 (D = 768, 1024: four column slices, a
+# pair a CTA): two heads of 640 (run at 768) and two of 1024; and past
+# 1024 the mma.sync wide instances, two heads of 1152
+SLICE_WIDE_1024 = dict(SLICE_WIDE, d=1024, heads=2)
+SLICE_WIDE_1152 = dict(SLICE_WIDE, d=1152, heads=2)
 # the models of five heads of 256 (dim 1280) and of three heads of 384 (dim
 # 1152) that phase 4 holds to the CPU
 D256_MODEL = dict(dim=1280, num_heads=5)
 D384_MODEL = dict(dim=1152, num_heads=3)
+# and of two heads of 640 (dim 1280), whose attention runs K5_768
+D640_MODEL = dict(dim=1280, num_heads=2)
 # the fp32 training steps on the card: the published widths at 2 blocks,
 # 256px latents (32 x 32), where K5F, K6AF and K6BF launch on the main path;
 # tiny_config's (head dim 16) runs in bf16 (K5, K6a, K6b at D 16)
@@ -745,12 +764,14 @@ def launched_once(run) -> str:
 
 
 def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
-                    streaming=None, control=False):
+                    streaming=None, control=False, beside=False):
     """One fused-attention kernel (K1; K4 with int8_qk; K8a with int8_pv; K7,
     K7q, K8b above 2048 padded tokens, or at any length with `streaming`)
     vs its plain version at one shape; with `control` also against the
     plain version at twice the softmax scale, which must miss the limit;
-    returns the measurements."""
+    with `beside` the wide mma.sync instance of the same kernel timed on the
+    same inputs (mma_sync_ms: what took bf16 past 512 before the wgmma
+    instances at 768 and 1024); returns the measurements."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
@@ -803,6 +824,14 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
     eager_ms = cuda_ms(run_k, graph=False)
     plain_ms = cuda_ms(run_plain, iters=3, groups=3)
     library_ms = cuda_ms(run_lib)
+    beside_ms = {}
+    if beside:
+        base = fa._INFERENCE.get((int8_qk, int8_pv, streaming),
+                                 (fa.K7 if streaming else fa.K1,))[0]
+        fold = scale * fa.LOG2E
+        beside_ms["mma_sync_ms"] = cuda_ms(lambda: fa._launch(
+            base, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps, eps,
+            nh, int8_qk, route=fa._WIDE[base][0]))
     # QK^T and P.V, 2*B*H*N^2*D operations each, at the int8 rate where the
     # kernel's product is int8 (K8a's second score pass is its own choice);
     # one exp2 per score
@@ -820,7 +849,8 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
                kernel_vs_plain_bf16_max_abs_err=(
                    got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-               library_ms=library_ms, **bound(t_ops, t_bytes, t_exp))
+               library_ms=library_ms, **beside_ms,
+               **bound(t_ops, t_bytes, t_exp))
     if name in ("K4", "K8a", "K8a over K4", "K7q", "K8b", "K8b over K7q"):
         # the device time of each launch: q prep, K prep / quantize, V amax
         # / quantize, attention
@@ -864,7 +894,9 @@ def phase_attention_api(gen):
     for shape in (SLICE, SLICE_1024, SLICE_WIDE, dict(SLICE_WIDE, h=64, w=64),
                   SLICE_WIDE_384, dict(SLICE_WIDE_384, h=64, w=64),
                   SLICE_WIDE_512, dict(SLICE_WIDE_512, h=64, w=64),
-                  SLICE_WIDE_640, dict(SLICE_WIDE_640, h=64, w=64)):
+                  SLICE_WIDE_640, dict(SLICE_WIDE_640, h=64, w=64),
+                  SLICE_WIDE_1024, dict(SLICE_WIDE_1024, h=64, w=64),
+                  SLICE_WIDE_1152, dict(SLICE_WIDE_1152, h=64, w=64)):
         q, k, v, ws, angles, n_img, _ = attn_inputs(
             shape, gen if shape["d"] <= 256 else wide_gen(shape["d"]))
         for int8_qk, int8_pv in ((False, False), (True, False), (False, True),
@@ -901,10 +933,12 @@ def phase_attention_api(gen):
     # past head dim 128 (SLICE_WIDE, and at 64 x 64 past 2048 tokens) the
     # same calls take in bf16 the wgmma kernels' D = 256 instances, in fp32
     # the wide instances; at 384 and 512 the bf16 wgmma instances there, at
-    # 640 the bf16 wide ones
+    # 640 the D = 768 ones, at 1024 the D = 1024 ones, at 1152 the bf16
+    # wide ones
     want.update({f"{nm}{sfx}": c for nm, c in list(want.items())
                  if not nm.endswith("_fp32")
-                 for sfx in ("_256", "_384", "_512", "_wide", "_wide_fp32")})
+                 for sfx in ("_256", "_384", "_512", "_768", "_1024", "_wide",
+                             "_wide_fp32")})
     for nm, c in want.items():
         require(launches[nm] == c, f"{nm} launched {launches[nm]} times "
                 f"through the attention API, expected {c}")
@@ -920,7 +954,8 @@ def phase_attention_dims(gen, dims=WIDE_DIMS):
     streaming kernels forced by single_kv_max=0 and compared over their
     key tiles (fa.stream_key_tile; fp32: 128). bf16 at 192, 256, 384 and
     512 (the wgmma instances past 128) also against the plain version at
-    twice the scale, a control that must miss the limit. Returns the worst
+    twice the scale, a control that must miss the limit, as at every bf16
+    head dim past 128 (768, 1024 and the wide 1152 too). Returns the worst
     error of each (kernel, head dim)."""
     import torch
     from sd3_torch.ops import fused_attention as fa
@@ -959,7 +994,7 @@ def phase_attention_dims(gen, dims=WIDE_DIMS):
                     lim = K8_ATOL if int8_pv else (
                         K4_ATOL if int8_qk else ATTN_ATOL)
                     require(err <= lim, f"{label}: max abs err {err} > {lim}")
-                    if fa.instance_dim(d) in fa.WGMMA_PAST_128:
+                    if fa.instance_dim(d) > fa.HEAD_DIMS[-1]:
                         ctl = (got.float() - plain(
                             q.float(), k.float(), v.float(), *tables,
                             2 * d ** -0.5, eps, eps, nh, **kw)).abs().max()
@@ -1627,16 +1662,17 @@ def k8af_study(seeds=K8AF_SEEDS, int8_qk=True):
 
 def phase_flash_api(gen, gen_past):
     """The flash-attention entry point (the autograd Function: forward and
-    backward) at FLASH_WIDE's head dims (gen's draws) and FLASH_PAST_512's
-    (gen_past's), in bf16 and fp32, the path of a model of such heads (the
+    backward) at FLASH_WIDE's head dims (gen's draws) and FLASH_PAST_512's,
+    FLASH_1024's and FLASH_PAST_1024's (gen_past's), in bf16 and fp32, the path of a model of such heads (the
     repo's configs have none but phase 4's): launch counts reset before,
     read after; each wide kernel must launch; returns them."""
     import torch
     from sd3_torch.ops import flash_attention as fl
 
     cases = []
-    for shape, g in [(s, gen) for s in FLASH_WIDE] + [(FLASH_PAST_512,
-                                                       gen_past)]:
+    for shape, g in [(s, gen) for s in FLASH_WIDE] + [
+            (s, gen_past) for s in (FLASH_PAST_512, FLASH_1024,
+                                    FLASH_PAST_1024)]:
         for dt in (torch.bfloat16, torch.float32):
             q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
                            .to(dt) for _ in range(4))
@@ -1654,9 +1690,9 @@ def phase_flash_api(gen, gen_past):
     launches = launch_counts()
     print("  flash API", json.dumps(
         {n: c for n, c in launches.items() if c}), flush=True)
-    # bf16 up to 512: K5_256 .. K5_512, K6A_256 .. K6B_512; past it K5W,
-    # K6AW, K6BW; fp32 past 128: the wide instances
-    shapes = [*FLASH_WIDE, FLASH_PAST_512]
+    # bf16 up to 512: K5_256 .. K5_512, K6A_256 .. K6B_512; past it K5_768,
+    # K5_1024 (K5W past 1024), K6AW, K6BW; fp32 past 128: the wide instances
+    shapes = [*FLASH_WIDE, FLASH_PAST_512, FLASH_1024, FLASH_PAST_1024]
     want = dict.fromkeys((*(k for ks in fl._WGMMA.values()
                             for k in ks.values()),
                           fl.K5W, fl.K6AW, fl.K6BW), 0)
@@ -2663,19 +2699,20 @@ def phase_model(gen_seed, int8=False, res=512, batch=2, int8_pv=False,
 
 def phase_model_wide(int8=False, seed=0, model=D256_MODEL):
     """The published widths but the dim and heads of `model` (D256_MODEL:
-    dim 1280 in five heads of 256; D384_MODEL: 1152 in three of 384) at 2
+    dim 1280 in five heads of 256; D384_MODEL: 1152 in three of 384;
+    D640_MODEL: 1280 in two of 640, run padded at 768) at 2
     blocks, 512px, batch 1, on the card in bf16 or int8 (w8a8, with K2 and
     K3) against the same weights in fp32 on the CPU, within phase 4's
     MODEL_REL_L2 / INT8_MODEL_REL_L2. Its attention takes the general path,
     as the JAX package's gate sends every head dim that does not divide 128
     (sd3_tpu/ops/attention.py `_fused_path_ok`): flash attention, the wgmma
-    kernel's instance at the head dim (K5_256, K5_384), once a block, in
-    bf16 and int8 alike. The control, RoPE1d's tables on the same weights
+    kernel's instance at the head dim (K5_256, K5_384, K5_768), once a
+    block, in bf16 and int8 alike, and the wide K5W never. The control, RoPE1d's tables on the same weights
     on the CPU, must miss the limit."""
     import torch
     from sd3_torch.config import published_config
     from sd3_torch.models.mmdit import MMDiT
-    from sd3_torch.ops.flash_attention import WGMMA_PAST_128
+    from sd3_torch.ops import flash_attention as fl
     from sd3_torch.ops.quant import quantize_model
 
     cfg = published_config(stage_res=512).replace(num_blocks=2, **model)
@@ -2712,11 +2749,11 @@ def phase_model_wide(int8=False, seed=0, model=D256_MODEL):
           flush=True)
     nb = cfg.num_blocks
     want_launches = {k: 0 for k in ATTENTION_KERNELS}
+    dims = (*fl.WGMMA_PAST_128, *fl.WGMMA_PAST_512)
     want_launches.update({f"{k}_{d}": 0 for k in ATTENTION_KERNELS
-                          if not k.endswith("_fp32") for d in WGMMA_PAST_128})
-    want_launches.update({f"flash_attention_fwd_{d}": 0
-                          for d in WGMMA_PAST_128})
-    want_launches.update({f"flash_attention_fwd_{hd}": nb,
+                          if not k.endswith("_fp32") for d in dims})
+    want_launches.update({f"flash_attention_fwd_{d}": 0 for d in dims})
+    want_launches.update({fl.flash_kernel("fwd", torch.bfloat16, hd).name: nb,
                           "flash_attention_fwd_wide": 0,
                           "flash_attention_fwd": 0})
     want_launches.update(block_tail_launches(nb, 1, int8, False))
@@ -4466,7 +4503,12 @@ def main() -> int:
         return 1
     start = time.time()
 
+    # (phase, seconds since the start) of each phase header, for the line
+    # of phase seconds before the last lines
+    marks = []
+
     def say(*parts, flush=True):
+        marks.append((str(parts[0]).split(":")[0], time.time() - start))
         print(f"[{time.time() - start:.1f} s]", *parts, flush=flush)
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "sd3_torch")):
@@ -4586,25 +4628,34 @@ def main() -> int:
         for shp in FLASH_KV_WIDE:
             phase_flash(shp, gen, control=True)
             phase_flash_fp32(shp, gen)
-        # past the wgmma kernels (K5W, K6AW, K6BW at 640), and the D = 384
-        # / 512 instances at M != N with controls, on draws of their own
+        # past the wgmma backward (K5_768 forward, K6AW, K6BW at 640), and
+        # the D = 384 / 512 instances at M != N with controls, on draws of
+        # their own; then K5_1024 at two heads of 1024 and K5W past it at
+        # 1152 (their backward K6AW, K6BW), K5_768 with a control each
         gen_past = wide_gen(640)
-        k56w640 = phase_flash(FLASH_PAST_512, gen_past)
+        k56w640 = phase_flash(FLASH_PAST_512, gen_past, control=True)
         for shp in FLASH_KV_SLICED:
             phase_flash(shp, gen_past, control=True, grad_control=True)
+        k56w1024 = phase_flash(FLASH_1024, wide_gen(1024), control=True)
+        k56w1152 = phase_flash(FLASH_PAST_1024, wide_gen(1152),
+                               control=True)
         flash_api = phase_flash_api(gen, gen_past)
         phase_k1_backward(gen)
         # the fused route past head dim 128: every kernel at each of
         # WIDE_DIMS and WIDE_DIMS_PAST_384 in bf16 and fp32, then timed at
         # SLICE_WIDE (bf16: the D = 256 instances, with controls; fp32: the
         # wide instances), the bf16 D = 384 and 512 instances at
-        # SLICE_WIDE_384 / 512, with controls, and the bf16 wide instances
-        # past 512 at SLICE_WIDE_640
+        # SLICE_WIDE_384 / 512, the D = 768 instances at SLICE_WIDE_640 and
+        # the D = 1024 ones at SLICE_WIDE_1024 (with controls, the wide
+        # mma.sync instance timed beside them), and the bf16 wide instances
+        # past 1024 at SLICE_WIDE_1152
         say("phase 3f: the fused instances past 128")
         phase_attention_dims(gen)
         phase_attention_dims(wide_gen(512), WIDE_DIMS_PAST_384)
         wide, wide384, wide512, wide640 = {}, {}, {}, {}
-        gen384, gen512, gen640 = (wide_gen(d) for d in (384, 512, 640))
+        wide1024, wide1152 = {}, {}
+        gen384, gen512, gen640, gen1024, gen1152 = (
+            wide_gen(d) for d in (384, 512, 640, 1024, 1152))
         for (int8_qk, int8_pv, streaming), nm in ATTN_NAMES.items():
             wide[nm] = phase_attention(SLICE_WIDE, gen, int8_qk, int8_pv,
                                        streaming=streaming, control=True)
@@ -4620,7 +4671,13 @@ def main() -> int:
                                           int8_pv, streaming=streaming,
                                           control=True)
             wide640[nm] = phase_attention(SLICE_WIDE_640, gen640, int8_qk,
-                                          int8_pv, streaming=streaming)
+                                          int8_pv, streaming=streaming,
+                                          control=True, beside=True)
+            wide1024[nm] = phase_attention(SLICE_WIDE_1024, gen1024, int8_qk,
+                                           int8_pv, streaming=streaming,
+                                           control=True, beside=True)
+            wide1152[nm] = phase_attention(SLICE_WIDE_1152, gen1152, int8_qk,
+                                           int8_pv, streaming=streaming)
 
         say("phase 4: 2-block models on the card vs fp32 on the CPU: "
               "512px batch 2, 1024px batch 1", flush=True)
@@ -4637,6 +4694,8 @@ def main() -> int:
         phase_model_wide(int8=True)
         model384 = phase_model_wide(model=D384_MODEL)
         phase_model_wide(int8=True, model=D384_MODEL)
+        model640 = phase_model_wide(model=D640_MODEL)
+        phase_model_wide(int8=True, model=D640_MODEL)
         # the trainers' metric logs, removed at exit
         log_dir = logs.name
         phase_train_step_2block(log_dir)
@@ -4856,11 +4915,18 @@ def main() -> int:
              lambda run: run["launches"]),
             (flash_attention.K5_512, k56w[3]["K5"], "attention_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
+            # past 512: K5_768, the D = 640 model's attention (phase 4),
+            # timed at two heads of 640; K5_1024 through the flash API
+            (flash_attention.K5_768, k56w640["K5"], "attention_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:103", model640,
+             lambda run: run["launches"]),
+            (flash_attention.K5_1024, k56w1024["K5"], "attention_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
             (flash_attention.K6A_512, k56w[3]["K6a"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
             (flash_attention.K6B_512, k56w[3]["K6b"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
-            (flash_attention.K5W, k56w640["K5"], "attention_fp32.cu",
+            (flash_attention.K5W, k56w1152["K5"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
             (flash_attention.K6AW, k56w640["K6a"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
@@ -4872,10 +4938,11 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
             (flash_attention.K6BWF, k56wf[0]["K6BF"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
-            # the fused kernels past head dim 128: in bf16 up to 512 the
-            # wgmma kernels' D = 256, 384 and 512 instances (SLICE_WIDE,
-            # SLICE_WIDE_384, SLICE_WIDE_512), past it the wide instances
-            # (SLICE_WIDE_640), in fp32 the wide instances (SLICE_WIDE); no
+            # the fused kernels past head dim 128: in bf16 up to 1024 the
+            # wgmma kernels' D = 256, 384, 512, 768 and 1024 instances
+            # (SLICE_WIDE, SLICE_WIDE_384, SLICE_WIDE_512, SLICE_WIDE_640,
+            # SLICE_WIDE_1024), past it the wide instances
+            # (SLICE_WIDE_1152), in fp32 the wide instances (SLICE_WIDE); no
             # model takes the fused path at these head dims (phase 4's
             # models take K5_256 / K5_384), so their launches are those of
             # the attention API phase
@@ -4885,10 +4952,12 @@ def main() -> int:
                lambda run: run)
               for insts, res in ((fused_attention._D256, wide),
                                  (fused_attention._D384, wide384),
-                                 (fused_attention._D512, wide512))
+                                 (fused_attention._D512, wide512),
+                                 (fused_attention._D768, wide640),
+                                 (fused_attention._D1024, wide1024))
               for base, nm, line in WIDE_ROWS],
             *[(fused_attention._WIDE[getattr(fused_attention, base)][fp32],
-               (wide[nm + " fp32"] if fp32 else wide640[nm]),
+               (wide[nm + " fp32"] if fp32 else wide1152[nm]),
                "attention_fp32.cu", f"sd3_tpu/ops/fused_attention.py:{line}",
                api, lambda run: run)
               for base, nm, line in WIDE_ROWS for fp32 in (0, 1)],
@@ -4914,6 +4983,10 @@ def main() -> int:
     finally:
         logs.cleanup()
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    ends = [t for _, t in marks[1:]] + [time.time() - start]
+    print(json.dumps({"total_s": round(ends[-1], 1), "phase_s": {
+        name: round(end - t, 1) for (name, t), end in zip(marks, ends)}}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

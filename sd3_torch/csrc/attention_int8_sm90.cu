@@ -2,9 +2,9 @@
 // single KV), K8a (int8 P.V, single KV), K7q (int8 QK^T, streaming) and K8b
 // (int8 P.V, streaming), one kernel, attn_int8_sm90_kernel<D, QK8, PV8,
 // TWO_PASS>, on wgmma and TMA with a warp-specialised ring of K / V tiles,
-// at head dims D = 16, 32, 64, 128, 256, 384 and 512 on bf16 rows (129 to
-// 512 zero-padded at 256, 384 or 512; past 512, and fp32 rows,
-// attention_fp32.cu).
+// at head dims D = 16, 32, 64, 128, 256, 384, 512, 768 and 1024 on bf16
+// rows (129 to 1024 zero-padded at 256, 384, 512, 768 or 1024; past 1024,
+// and fp32 rows, attention_fp32.cu).
 // QK8: int8 scores (else bf16); PV8: int8 P.V (else bf16); TWO_PASS: the
 // true row max in a first pass over K (the single-KV kernels), else an
 // online softmax over 128-key tiles (the streaming ones).
@@ -202,6 +202,36 @@
 // QK^T twice, 0.0243 / 0.0324 ms (an s8 product half of its bf16 term; K8a over
 // bf16 scores, QK^T four times, 0.0485 / 0.0647); the preps, 25-78 us of a call
 // (q, k and V passes over (B, N, H*D) at 10 heads).
+//
+// D = 768 and 1024 (K4_768 .. K8B_1024: heads of 513 to 1024 values). Two
+// slices of D / 2 columns would pass one wgmma's 256 and a consumer's
+// registers, so the output is cut into four slices of DV = D / 4 (192 /
+// 256 columns), and (PAIRED) an item is 64 query rows and one pair of
+// slices (a grid dimension): its two consumers share one q^ tile, consumer
+// c writes slice 2 * pair + c, and the V stages hold the pair's 2 * DV
+// columns (attention_sm90.cu's layout past 256). Two q^ tiles of 128 rows,
+// as below D = 768, would not fit beside any K tile: a bf16 q^ of 64 rows
+// is 96 / 128 KB. Each consumer computes the scores over the whole head,
+// so QK^T runs once per slice, four times, and every slice sees the same S
+// in the same order: the levels, the max and l agree bit for bit across
+// the four. The key tiles stay 128 keys (the quantization). A K tile of the
+// whole head would not fit twice beside q^, and K sub-tiles of few keys
+// make narrow score wgmmas that read their 2 KB of q^ from shared memory
+// for 16 or 32 keys (an earlier version of these instances: 16-key bf16 /
+// 32-key s8 sub-tiles, K8a over bf16 scores 462 us at B 2, N 1178, H 2, D
+// 768; PERF.md). So the K ring holds CHUNKS of a tile: its 128 keys by
+// KCOLS = 128 bytes of the head (64 bf16 or 128 int8 values, 16 KB), the S
+// of a tile issued a chunk a turn (four wgmma m64n128k16 bf16 / m64n128k32
+// s8 into the tile's 64 score registers, each chunk waited for and
+// released before the next turn; K7q's per-key scales come with a tile's
+// last chunk, dequantized before it is released). bf16 V (K4, K7q) comes
+// in sub-tiles of VSUB = 32 keys, the P.V of a 128-key tile issued over
+// its four sub-tiles, one in flight behind the next one's issue; the int8
+// V^T tile (DV rows a box, two boxes a pair) stays whole. SmemI8 has the
+// stages. What bounds them at B 2, N 1178, H 2, D 768 / 1024: the bf16
+// products with QK^T four times, 0.0431 / 0.0575 ms at 989 TFLOP/s (an s8
+// product half of its bf16 term; the minimal 0.0172 / 0.0230); 152 items
+// on 132 SMs.
 
 #include <limits.h>
 
@@ -270,8 +300,10 @@ struct Rows {
 
 // Shared memory of attn_int8_sm90_kernel<D, QK8, PV8, TWO_PASS>, from a
 // 1024-byte aligned base. KST stages of K sub-tiles (KSUB keys: KEY_TILE,
-// or fewer where two tiles of a whole bf16 head would not fit) and VST of
-// V tiles (a slice of DV columns past D = 256): four each up to D = 64,
+// or fewer where two tiles of a whole bf16 head would not fit; past 512
+// chunks of KCOLS bytes of the head) and VST of V tiles (a slice of DV
+// columns past D = 256, a pair of them past 512; bf16 V past 512 in
+// sub-tiles of VSUB keys): four each up to D = 64,
 // three at D = 128; from D = 256 on what fits 227 KB beside the q^ tiles.
 // At D = 256 (K tiles of 32 KB in int8, 64 KB in bf16; V tiles of 32 KB in
 // int8 V^T, 64 KB in bf16): 2 + 2 (K4, K7q), 3 + 3 (int8 P.V over int8
@@ -281,35 +313,60 @@ struct Rows {
 // + 1 (over bf16 scores: 64-key K sub-tiles of 48 KB). At D = 512 (q^ 64
 // KB int8, 128 KB bf16): 3 + 1 (K4, K7q: 64-key K sub-tiles of 32 KB, 64
 // KB V slices), 2 + 1 (int8 P.V over int8 scores: 64 KB K, 32 KB V^T), 2 +
-// 1 (over bf16 scores: 32-key sub-tiles of 32 KB).
+// 1 (over bf16 scores: 32-key sub-tiles of 32 KB). Past 512 (PAIRED: one
+// q^ tile of 64 rows, 48 / 64 KB int8, 96 / 128 KB bf16; K chunks of 16 KB)
+// at D = 768: 4 + 4 (K4, K7q: 32-key V sub-tiles of the pair's 384 columns,
+// 24 KB), 4 + 2 (int8 P.V over int8 scores: V^T 48 KB), 5 + 1 (over bf16
+// scores); at 1024: 2 + 4 (K4, K7q: 32 KB V sub-tiles, a tile's four in
+// the ring, as a consumer issues them in one turn), 6 + 1 (int8 P.V over
+// K4's scores; over K7q's 5 + 1: V^T 64 KB), 2 + 1 (over bf16 scores: 128
+// KB of q^ and 64 KB of V^T).
 template <int D, bool QK8, bool PV8, bool TWO_PASS>
 struct SmemI8 {
   using R = Rows<D, QK8>;
   // int8 scores of the streaming kernels: a k scale per key, beside each K
   // sub-tile
   static constexpr bool PER_KEY = QK8 && !TWO_PASS;
-  // the output columns of a CTA: past D = 256 one of two slices
-  static constexpr int DV = D > 256 ? D / 2 : D;
+  // past D = 512 an item is 64 query rows whose two consumers share one q^
+  // tile (see "D = 768 and 1024" above); below, 128 rows, 64 a consumer
+  static constexpr bool PAIRED = D > 512;
+  static constexpr int ROWS = PAIRED ? QROWS : BLOCK_Q;  // an item's rows
+  static constexpr int Q_TILES = PAIRED ? 1 : CONSUMERS;
+  // a consumer's output columns: past D = 256 one of two slices, past 512
+  // one of four; and an item's (its V tiles'): a pair of them past 512
+  static constexpr int DV = D > 512 ? D / 4 : D > 256 ? D / 2 : D;
+  static constexpr int VCOLS = PAIRED ? 2 * DV : DV;
   // keys of a K sub-tile: the S of a KEY_TILE-key tile is issued a
-  // sub-tile a turn
-  static constexpr int KSUB = D <= 256 ? KEY_TILE
+  // sub-tile a turn; past 512 a chunk of KCOLS bytes of each row a turn,
+  // KCH chunks a tile (up to 512: KCOLS the whole row, one chunk)
+  static constexpr int KSUB = D <= 256 || D > 512 ? KEY_TILE
                               : !QK8 ? (D == 384 ? 64 : 32)
                               : !PV8 && D == 512 ? 64 : KEY_TILE;
+  static constexpr int KCOLS = PAIRED ? 128 : R::BYTES;
+  static constexpr int KCH = R::BYTES / KCOLS;
+  // keys of a V sub-tile: bf16 V past 512 in sub-tiles, the P.V of a tile
+  // issued over them
+  static constexpr int VSUB = PAIRED && !PV8 ? 32 : KEY_TILE;
   static constexpr int KST = D <= 64 ? 4 : D == 128 ? 3
                              : D == 256 ? (QK8 && PV8 ? 3 : 2)
+                             : D > 512 ? (QK8 ? (D == 768 ? 4
+                                                 : !PV8 ? 2
+                                                 : PER_KEY ? 5 : 6)
+                                          : D == 768 ? 5 : 2)
                              : !QK8 ? 2
                              : !PV8 && D == 512 ? 3 : 2;
   static constexpr int VST = D <= 64 ? 4 : D == 128 ? 3
                              : D == 256 ? (QK8 ? (PV8 ? 3 : 2) : 1)
+                             : D > 512 ? (!PV8 ? 4 : QK8 && D == 768 ? 2 : 1)
                              : QK8 && PV8 && D == 384 ? 2 : 1;
   static constexpr int Q_TILE = QROWS * R::BYTES;    // one consumer's q^
-  static constexpr int K_TILE = KSUB * R::BYTES;     // one K sub-tile
-  // int8 V^T: DV rows of KEY_TILE bytes (128-byte swizzle); or bf16 V:
-  // KEY_TILE rows of DV values (SwizzledRows<DV>)
-  static constexpr int V_TILE = PV8 ? DV * KEY_TILE : KEY_TILE * DV * 2;
+  static constexpr int K_TILE = KSUB * KCOLS;        // one K sub-tile
+  // int8 V^T: VCOLS rows of KEY_TILE bytes (128-byte swizzle); or bf16 V:
+  // VSUB rows of VCOLS values (SwizzledRows<VCOLS>)
+  static constexpr int V_TILE = PV8 ? VCOLS * KEY_TILE : VSUB * VCOLS * 2;
   static constexpr int KS_TILE = PER_KEY ? KSUB * 4 : 0;  // k scales
-  static constexpr int Q = 0;                                // [CONSUMERS]
-  static constexpr int K = Q + CONSUMERS * Q_TILE;           // [KST]
+  static constexpr int Q = 0;                                // [Q_TILES]
+  static constexpr int K = Q + Q_TILES * Q_TILE;             // [KST]
   static constexpr int V = K + KST * K_TILE;                 // [VST]
   static constexpr int KS = V + VST * V_TILE;                // [KST]
   // mbarriers: full / empty of each K and V stage, full / empty of each q^
@@ -321,22 +378,26 @@ struct SmemI8 {
 };
 
 // TMA of ROWS rows (n0.., head h, sample b) of a q^ or K tensor into a tile
-// at `dst`, one box per atom column (Rows).
-template <int D, bool QK8, int ROWS>
+// at `dst`, one box per atom column (Rows), NC of them from atom column c0
+// on (every column of the row by default).
+template <int D, bool QK8, int ROWS, int NC = Rows<D, QK8>::COLS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
-                                          uint32_t bar, int h, int n0, int b) {
+                                          uint32_t bar, int h, int n0, int b,
+                                          int c0 = 0) {
   using R = Rows<D, QK8>;
 #pragma unroll
-  for (int c = 0; c < R::COLS; ++c)
-    tma_load_4d(dst + c * ROWS * R::W, m, bar, c * R::W / R::ELEM, h, n0, b);
+  for (int c = 0; c < NC; ++c)
+    tma_load_4d(dst + c * ROWS * R::W, m, bar, (c0 + c) * R::W / R::ELEM, h,
+                n0, b);
 }
 
-// grid: min(SMs, items) persistent CTAs, each walking items (128 query
-// rows and one slice of DV output columns, head, sample; slices, then q
-// tiles fastest) i, i + grid, ...; INT8_THREADS threads, SmemI8<D,
-// QK8, PV8, TWO_PASS>::BYTES of dynamic shared memory. tm_q, tm_k: tensor
-// maps of q^ and k^ (int8 with QK8, else bf16; encode_heads); tm_v: of bf16
-// v (K4, K7q) or of int8 V^T (B*H*D, NP) (K8a, K8b); tm_ks: of the per-key
+// grid: min(SMs, items) persistent CTAs, each walking items (ROWS query
+// rows and VCOLS output columns: one slice of DV, or past D = 512 a pair;
+// head, sample; column groups, then q tiles fastest) i, i + grid, ...;
+// INT8_THREADS threads, SmemI8<D, QK8, PV8, TWO_PASS>::BYTES of dynamic
+// shared memory. tm_q, tm_k: tensor maps of q^ and k^ (int8 with QK8, else
+// bf16; encode_heads); tm_v: of bf16 v (K4, K7q) or of int8 V^T (B*H*D,
+// NP) (K8a, K8b); tm_ks: of the per-key
 // k scales, (B*H, NP) fp32 (K7q, K8b over K7q; else unused). q_scale (B*H,
 // N): q^'s per-row scales (QK8); k_amax (B*H): max |bf16(k^)| (K4, K8a
 // over K4); v_amax (B*H, D) (PV8); o (B, N, H*D) bf16.
@@ -355,9 +416,16 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   static_assert(QK8 || PV8, "the bf16 kernels are attention_sm90.cu's");
   constexpr bool PER_KEY = S::PER_KEY;
   constexpr int KST = S::KST, VST = S::VST;
-  constexpr int DV = S::DV, SLICES = D / DV;
-  // K sub-tiles of KSUB keys, SUB of them a key tile
-  constexpr int KSUB = S::KSUB, SUB = KEY_TILE / KSUB;
+  // a consumer's and an item's columns, and an item's column groups
+  constexpr int DV = S::DV, VCOLS = S::VCOLS, GROUPS = D / VCOLS;
+  constexpr int ROWS = S::ROWS;
+  // K sub-tiles of KSUB keys, SUB of them a key tile, each in KCH chunks
+  // of the head; V sub-tiles of VSUB keys, VSUBS of them a key tile
+  constexpr int KSUB = S::KSUB, SUB = KEY_TILE / KSUB, KCH = S::KCH;
+  constexpr int VSUB = S::VSUB, VSUBS = KEY_TILE / VSUB;
+  // a consumer issues a tile's V sub-tiles in one turn: all of them must
+  // fit the ring, since the other consumer frees each only in its own turn
+  static_assert(VSUBS <= VST, "V sub-tiles of a tile");
   // from D = 256 on: the consumers' P.V lands before their next S is
   // issued (the registers; see "D = 256" above), and K8b's in PV_PARTS
   // column parts of 64
@@ -372,19 +440,20 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_q = empty_v + 8 * VST;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (N + KEY_TILE - 1) / KEY_TILE;
-  // K ring sub-tiles of an item
-  const int k_per_item = (TWO_PASS ? 2 : 1) * ntiles * SUB;
-  const int nqs = (N + BLOCK_Q - 1) / BLOCK_Q * SLICES;  // (q tile, slice)s
+  // K and V ring sub-tiles of an item
+  const int k_per_item = (TWO_PASS ? 2 : 1) * ntiles * SUB * KCH;
+  const int v_per_item = ntiles * VSUBS;
+  const int nqs = (N + ROWS - 1) / ROWS * GROUPS;  // (q tile, group)s
   const int n_items = nqs * H * B;
   const int n_local = (int)blockIdx.x < n_items
                           ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
                           : 0;
-  // (q tile, slice, head, sample) of this CTA's local item j, slices, then
-  // q tiles fastest
+  // (q tile, column group, head, sample) of this CTA's local item j,
+  // groups, then q tiles fastest
   auto item_of = [&](int j, int& qt, int& sl, int& h, int& b) {
     const int it = blockIdx.x + j * gridDim.x;
-    qt = it % nqs / SLICES;
-    sl = it % SLICES;
+    qt = it % nqs / GROUPS;
+    sl = it % GROUPS;
     h = it / nqs % H;
     b = it / (nqs * H);
   };
@@ -400,7 +469,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     for (int c = 0; c < CONSUMERS; ++c) {
       mbar_init(full_q + 8 * c, 1);
-      mbar_init(empty_q + 8 * c, 4);  // lane 0 of each warp of consumer c
+      // lane 0 of each warp of consumer c (PAIRED: of both, tile 0)
+      mbar_init(empty_q + 8 * c, S::PAIRED ? 4 * CONSUMERS : 4);
     }
     fence_barrier_init();
   }
@@ -419,57 +489,74 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         int qt, sl, h, b;
         item_of(ji, qt, sl, h, b);
         const int bh = b * H + h;
-        for (int c = 0; c < CONSUMERS; ++c) {  // once the last item's is done
+        for (int c = 0; c < S::Q_TILES; ++c) {  // once the last item's is done
           mbar_wait(empty_q + 8 * c, (ji & 1) ^ 1);
           mbar_arrive_expect_tx(full_q + 8 * c, S::Q_TILE);
           load_rows<D, QK8, QROWS>(sb + S::Q + c * S::Q_TILE, &tm_q,
                                    full_q + 8 * c, h,
-                                   qt * BLOCK_Q + c * QROWS, b);
+                                   qt * ROWS + c * QROWS, b);
         }
-        // the KSUB keys from key n0 on into the K ring's sub-tile kc (and
-        // their per-key scales)
-        auto load_k = [&](int kc, int n0) {
+        // chunk ch of the KSUB keys from key n0 on into the K ring's stage
+        // kc; with the last chunk their per-key scales
+        constexpr int KNC = S::KCOLS / R::W;  // atom columns of a chunk
+        auto load_k = [&](int kc, int n0, int ch) {
           const int s = kc % KST;
+          const bool scales = PER_KEY && ch == KCH - 1;
           mbar_wait(empty_k + 8 * s, ((kc / KST) & 1) ^ 1);
-          mbar_arrive_expect_tx(full_k + 8 * s, S::K_TILE + S::KS_TILE);
-          load_rows<D, QK8, KSUB>(sb + S::K + s * S::K_TILE, &tm_k,
-                                full_k + 8 * s, h, n0, b);
-          if constexpr (PER_KEY)
+          mbar_arrive_expect_tx(full_k + 8 * s,
+                                S::K_TILE + (scales ? S::KS_TILE : 0));
+          load_rows<D, QK8, KSUB, KNC>(sb + S::K + s * S::K_TILE, &tm_k,
+                                       full_k + 8 * s, h, n0, b, ch * KNC);
+          if (scales)
             tma_load_2d(sb + S::KS + s * S::KS_TILE, &tm_ks, full_k + 8 * s,
                         n0, bh);
         };
-        const int kbase = ji * k_per_item, vbase = ji * ntiles;
+        const int kbase = ji * k_per_item, vbase = ji * v_per_item;
         if constexpr (TWO_PASS)
           for (int i = 0; i < ntiles * SUB; ++i)
-            load_k(kbase + i, i * KSUB);
-        const int k2 = kbase + (TWO_PASS ? ntiles * SUB : 0);
+            for (int ch = 0; ch < KCH; ++ch)
+              load_k(kbase + i * KCH + ch, i * KSUB, ch);
+        const int k2 = kbase + (TWO_PASS ? ntiles * SUB * KCH : 0);
         for (int t = 0; t < ntiles; ++t) {
           for (int u = 0; u < SUB; ++u)
-            load_k(k2 + t * SUB + u, t * KEY_TILE + u * KSUB);
-          const int vc = vbase + t, s = vc % VST;
-          mbar_wait(empty_v + 8 * s, ((vc / VST) & 1) ^ 1);
-          mbar_arrive_expect_tx(full_v + 8 * s, S::V_TILE);
-          const uint32_t dst = sb + S::V + s * S::V_TILE;
-          if constexpr (PV8) {  // this slice's DV rows of V^T
-            tma_load_2d(dst, &tm_v, full_v + 8 * s, t * KEY_TILE,
-                        bh * D + sl * DV);
-          } else {
-            using SV = SwizzledRows<DV>;
+            for (int ch = 0; ch < KCH; ++ch)
+              load_k(k2 + (t * SUB + u) * KCH + ch,
+                     t * KEY_TILE + u * KSUB, ch);
+          for (int u = 0; u < VSUBS; ++u) {
+            const int vc = vbase + t * VSUBS + u, s = vc % VST;
+            mbar_wait(empty_v + 8 * s, ((vc / VST) & 1) ^ 1);
+            mbar_arrive_expect_tx(full_v + 8 * s, S::V_TILE);
+            const uint32_t dst = sb + S::V + s * S::V_TILE;
+            if constexpr (PV8) {  // this item's VCOLS rows of V^T, DV a box
 #pragma unroll
-            for (int c = 0; c < SV::COLS; ++c)
-              tma_load_4d(dst + c * KEY_TILE * SV::W, &tm_v, full_v + 8 * s,
-                          sl * DV + c * SV::W / 2, h, t * KEY_TILE, b);
+              for (int c = 0; c < VCOLS / DV; ++c)
+                tma_load_2d(dst + c * DV * KEY_TILE, &tm_v, full_v + 8 * s,
+                            t * KEY_TILE, bh * D + sl * VCOLS + c * DV);
+            } else {  // VSUB keys of this item's VCOLS columns of V
+              using SV = SwizzledRows<VCOLS>;
+#pragma unroll
+              for (int c = 0; c < SV::COLS; ++c)
+                tma_load_4d(dst + c * VSUB * SV::W, &tm_v, full_v + 8 * s,
+                            sl * VCOLS + c * SV::W / 2, h,
+                            t * KEY_TILE + u * VSUB, b);
+            }
           }
         }
       }
     }
   } else {
-    // ---- consumers: 64 query rows each
+    // ---- consumers: 64 query rows each (PAIRED: the same rows, and DV
+    // columns each, vcol on in the item's VCOLS)
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
+    const int qc = S::PAIRED ? 0 : c;  // this consumer's q^ tile
+    const int vcol = S::PAIRED ? c * DV : 0;
+    // this consumer's part of a V stage: vcol rows of V^T, or vcol / 64
+    // atom columns of bf16 V
+    const uint32_t voff = PV8 ? vcol * KEY_TILE : vcol / 64 * VSUB * 128;
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
-    const uint32_t q_base = sb + S::Q + c * S::Q_TILE;
+    const uint32_t q_base = sb + S::Q + qc * S::Q_TILE;
     using Score = typename std::conditional<QK8, int, float>::type;
     Score s[KEY_TILE / 2];  // scores, then p, of one tile
     // the A fragments of the P.V steps: bf16 p (8 steps of 16 keys) or
@@ -500,10 +587,10 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       int qt, sl, h, b;
       item_of(ji, qt, sl, h, b);
       const int bh = b * H + h;
-      const int kbase = ji * k_per_item, vbase = ji * ntiles;
-      // the scoring pass's first K sub-tile
-      const int k2 = kbase + (TWO_PASS ? ntiles * SUB : 0);
-      const int n0 = qt * BLOCK_Q + c * QROWS + warp * 16 + g;
+      const int kbase = ji * k_per_item, vbase = ji * v_per_item;
+      // the scoring pass's first K stage
+      const int k2 = kbase + (TWO_PASS ? ntiles * SUB * KCH : 0);
+      const int n0 = qt * ROWS + qc * QROWS + warp * 16 + g;
       const int n1 = n0 + 8;                   // this thread's two rows
 
       // the dequantization of rows n0, n1: s_q, times s_k for K4 (rows past
@@ -523,11 +610,12 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
       float kx0 = 0.f, kx1 = 0.f;  // K4: the exponent's shift (dequant)
-      mbar_wait(full_q + 8 * c, ji & 1);  // this consumer's q^ tile has landed
+      mbar_wait(full_q + 8 * qc, ji & 1);  // this consumer's q^ tile has landed
 
-      // issue S = q^ k^T of the K ring's sub-tile kc, sub-tile u of its
-      // key tile, into that sub-tile's score registers
-      auto issue_scores = [&](int kc, int u) {
+      // issue S = q^ k^T of the K ring's stage kc, chunk ch of sub-tile u
+      // of its key tile, into (adding to, past chunk 0) that sub-tile's
+      // score registers
+      auto issue_scores = [&](int kc, int u, int ch) {
         const int st = kc % KST;
         mbar_wait(full_k + 8 * st, (kc / KST) & 1);
         const uint32_t kb = sb + S::K + st * S::K_TILE;
@@ -538,32 +626,39 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           Score(&su)[KSUB / 2] =
               *reinterpret_cast<Score(*)[KSUB / 2]>(s + uu * (KSUB / 2));
           // past D = 256 k-step 0's descriptors plus each k-step's offset,
-          // q^'s made opaque to the loop (k_step_offset, sm90.cuh)
+          // q^'s made opaque to the loop (k_step_offset, sm90.cuh); the
+          // chunk's k-steps, KCH of a row's, from k-step ch * CK of q^
+          constexpr int CK = S::KCOLS / 32, KH = S::KCOLS / 2;
           uint64_t dq = desc_k_major<R::HALF>(q_base, QROWS, 0);
-          const uint64_t dk = desc_k_major<R::HALF>(kb, KSUB, 0);
+          const uint64_t dk = desc_k_major<KH>(kb, KSUB, 0);
           if constexpr (D > 256) asm volatile("" : "+l"(dq));
 #pragma unroll
-          for (int kk = 0; kk < R::KSTEPS; ++kk) {
+          for (int kk = 0; kk < CK; ++kk) {
             const uint64_t da =
-                D > 256 ? dq + k_step_offset<R::HALF>(QROWS, kk)
+                D > 256 ? dq + k_step_offset<R::HALF>(QROWS, ch * CK + kk)
                         : desc_k_major<R::HALF>(q_base, QROWS, kk);
             const uint64_t db =
-                D > 256 ? dk + k_step_offset<R::HALF>(KSUB, kk)
-                        : desc_k_major<R::HALF>(kb, KSUB, kk);
-            if constexpr (QK8) wgmma_s8<KSUB>(su, da, db, kk > 0);
-            else wgmma_ss<KSUB>(su, da, db, kk > 0);
+                D > 256 ? dk + k_step_offset<KH>(KSUB, kk)
+                        : desc_k_major<KH>(kb, KSUB, kk);
+            if constexpr (QK8) wgmma_s8<KSUB>(su, da, db, ch > 0 || kk > 0);
+            else wgmma_ss<KSUB>(su, da, db, ch > 0 || kk > 0);
           }
         }
         wgmma_commit();
       };
-      // issue P.V of key tile t (this slice's DV columns), its A fragments
-      // in pa: K4, K7q acc += bf16(p) v; K8b pv = pq v_q; K8a pv += pq v_q
-      // (one s32 sum over every key: its p is against the true row max, so
-      // there is no rescale)
-      auto issue_pv = [&](int t, const uint32_t (&pa)[NP]) {
-        const int vc = vbase + t, st = vc % VST;
+      // this consumer's part of the V stage of key tile t's sub-tile u,
+      // once it has landed
+      auto v_stage = [&](int t, int u) {
+        const int vc = vbase + t * VSUBS + u, st = vc % VST;
         mbar_wait(full_v + 8 * st, (vc / VST) & 1);
-        const uint32_t vb = sb + S::V + st * S::V_TILE;
+        return sb + S::V + st * S::V_TILE + voff;
+      };
+      // issue P.V of key tile t (this consumer's DV columns; one V stage a
+      // tile, VSUBS = 1), its A fragments in pa: K4, K7q acc += bf16(p) v;
+      // K8b pv = pq v_q; K8a pv += pq v_q (one s32 sum over every key: its p
+      // is against the true row max, so there is no rescale)
+      auto issue_pv = [&](int t, const uint32_t (&pa)[NP]) {
+        const uint32_t vb = v_stage(t, 0);
         wgmma_fence();
         if constexpr (CHUNKED) {
           // run_pv issues K8b's parts itself
@@ -585,16 +680,22 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         wgmma_commit();
       };
-      // this warp is done with a stage of K (the K ring's sub-tile kc) or V
-      // (the V ring's tile vc), or with its q^ tile
+      // this warp is done with a stage of K (the K ring's sub-tile kc) or
+      // of V (key tile t's sub-tile u, or all of its sub-tiles), or with its
+      // q^ tile
       auto release_k = [&](int kc) {
         if (lane == 0) mbar_arrive(empty_k + 8 * (kc % KST));
       };
-      auto release_v = [&](int vc) {
-        if (lane == 0) mbar_arrive(empty_v + 8 * (vc % VST));
+      auto release_vsub = [&](int t, int u) {
+        if (lane == 0)
+          mbar_arrive(empty_v + 8 * ((vbase + t * VSUBS + u) % VST));
+      };
+      auto release_v = [&](int t) {
+#pragma unroll
+        for (int u = 0; u < VSUBS; ++u) release_vsub(t, u);
       };
       auto release_q = [&]() {
-        if (lane == 0) mbar_arrive(empty_q + 8 * c);
+        if (lane == 0) mbar_arrive(empty_q + 8 * qc);
       };
       // int8 scores of the K ring's sub-tile kc, sub-tile u of its key tile,
       // dequantized in place. K4: the
@@ -764,20 +865,26 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       };
 
-      // S of a key tile from the K ring's sub-tiles kc0 .. kc0 + SUB - 1,
-      // each issued in a turn of its own, waited for, dequantized (`deq`)
-      // and released; `pre` issues what goes before the first in its turn
+      // S of a key tile from the K ring's stages kc0 .. kc0 + SUB * KCH -
+      // 1 (SUB sub-tiles of KCH chunks), each issued in a turn of its own,
+      // waited for and released, a sub-tile dequantized (`deq`) once its
+      // last chunk has landed; `pre` issues what goes before the first in
+      // its turn
       auto score_tile = [&](int kc0, bool deq, auto&& pre) {
 #pragma unroll
         for (int u = 0; u < SUB; ++u) {
-          take_turn();
-          if (u == 0) pre();
-          issue_scores(kc0 + u, u);
-          hand_over();
-          wgmma_wait<0>();
-          reg_fence(s);
-          if (deq) dequant(kc0 + u, u);
-          release_k(kc0 + u);
+#pragma unroll
+          for (int ch = 0; ch < KCH; ++ch) {
+            const int kc = kc0 + u * KCH + ch;
+            take_turn();
+            if (u == 0 && ch == 0) pre();
+            issue_scores(kc, u, ch);
+            hand_over();
+            wgmma_wait<0>();
+            reg_fence(s);
+            if (deq && ch == KCH - 1) dequant(kc, u);
+            release_k(kc);
+          }
         }
       };
       auto nothing = [] {};
@@ -789,7 +896,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         int mx0 = INT_MIN, mx1 = INT_MIN;
         float fx0 = -INFINITY, fx1 = -INFINITY;
         for (int t = 0; t < ntiles; ++t) {
-          score_tile(kbase + t * SUB, false, nothing);
+          score_tile(kbase + t * SUB * KCH, false, nothing);
           if constexpr (!QK8) {
             mask(t);
 #pragma unroll
@@ -856,7 +963,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       // writes pi after the wait.
       auto step = [&](int t, uint32_t (&pi)[NP], uint32_t (&pk)[NP]) {
         take_turn();
-        issue_scores(k2 + t, 0);  // S of tile t (one sub-tile below 256) ...
+        issue_scores(k2 + t, 0, 0);  // S of tile t (one stage below 256) ...
         issue_pv(t - 1, pi);      // ... and P.V of tile t-1 on the tensor cores
         hand_over();
         wgmma_wait<1>();          // S of tile t done
@@ -880,7 +987,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         reg_fence(acc);
         reg_fence(pi);
         reg_fence(pv);
-        release_v(vbase + t - 1);
+        release_v(t - 1);
         add_pv();
         a0p = a0;
         a1p = a1;
@@ -906,7 +1013,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         reg_fence(acc);
         reg_fence(pl);
         reg_fence(pv);
-        release_v(vbase + ntiles - 1);
+        release_v(ntiles - 1);
         add_pv();
       };
       // From D = 256 on: P.V of key tile t from the fragments in pa, waited
@@ -917,9 +1024,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       auto run_pv = [&](int t, uint32_t (&pa)[NP], bool hand) {
         if constexpr (CHUNKED) {
           constexpr int PART = DV / PV_PARTS;  // columns of a part
-          const int vc = vbase + t, st = vc % VST;
-          mbar_wait(full_v + 8 * st, (vc / VST) & 1);
-          const uint32_t vb = sb + S::V + st * S::V_TILE;
+          const uint32_t vb = v_stage(t, 0);
 #pragma unroll
           for (int part = 0; part < PV_PARTS; ++part) {
             wgmma_fence();
@@ -941,7 +1046,36 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               acc[o] = fmaf(acc[o], (i & 2) ? a1p : a0p, i2f(pv[i]));
             }
           }
-          release_v(vc);
+          release_v(t);
+        } else if constexpr (VSUBS > 1) {
+          // bf16 V past D = 512 in VSUBS sub-tiles of VSUB keys, each
+          // issued once it has landed and released once its P.V has run,
+          // one sub-tile's product in flight behind the next one's issue
+          // (the ring holds all of a tile's: the other consumer frees them
+          // only in its own turn)
+          constexpr int KV = VSUB / 16;  // k-steps of a sub-tile
+#pragma unroll
+          for (int u = 0; u < VSUBS; ++u) {
+            const uint32_t vb = v_stage(t, u);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KV; ++kk) {
+              const int k = u * KV + kk;
+              const uint32_t a[4] = {pa[4 * k], pa[4 * k + 1], pa[4 * k + 2],
+                                     pa[4 * k + 3]};
+              wgmma_rs<DV>(acc, a, desc_mn_major<DV>(vb, VSUB, kk), 1);
+            }
+            wgmma_commit();
+            if (u == VSUBS - 1 && hand) hand_over();
+            if (u > 0) {
+              wgmma_wait<1>();
+              release_vsub(t, u - 1);
+            }
+          }
+          wgmma_wait<0>();
+          reg_fence(acc);
+          reg_fence(pa);
+          release_vsub(t, VSUBS - 1);
         } else {
           issue_pv(t, pa);
           if (hand) hand_over();
@@ -949,7 +1083,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           reg_fence(acc);
           reg_fence(pa);
           reg_fence(pv);
-          release_v(vbase + t);
+          release_v(t);
           add_pv();
         }
       };
@@ -959,7 +1093,8 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         // softmax while the other consumer's products run (the ping-pong
         // alone overlaps them)
         for (int t = 1; t < ntiles; ++t) {
-          score_tile(k2 + t * SUB, true, [&] { run_pv(t - 1, p, false); });
+          score_tile(k2 + t * SUB * KCH, true,
+                     [&] { run_pv(t - 1, p, false); });
           if (t == ntiles - 1) release_q();
           mask(t);
           softmax(a0, a1);
@@ -1003,7 +1138,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         last_pv(p);
       }
 
-      // o = acc / l (K8a, K8b: times V's column scales) of this slice's
+      // o = acc / l (K8a, K8b: times V's column scales) of this consumer's
       // columns, bf16, rows past N not stored
       l0 = quad_sum(l0);
       l1 = quad_sum(l1);
@@ -1012,7 +1147,7 @@ attn_int8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       bf16* oh = o + (size_t)b * N * rs + (size_t)h * D;
 #pragma unroll
       for (int j = 0; j < DV / 8; ++j) {
-        const int col = sl * DV + j * 8 + t4 * 2;
+        const int col = sl * VCOLS + vcol + j * 8 + t4 * 2;
         float v0 = 1.f, v1 = 1.f;
         if constexpr (PV8) {
           v0 = fmaxf(v_amax[(size_t)bh * D + col], 1e-12f) / 127.f;
@@ -1091,8 +1226,8 @@ int launch_int8(const Args& a) {
                      D, S::KSUB);
   if (e == 0)
     e = PV8 ? encode_s8_2d(&tm_v, a.v_q, B * H * D, np, S::DV)
-            : encode_heads(&tm_v, a.v, 2, SwizzledRows<S::DV>::W, B, N, H, D,
-                           KEY_TILE);
+            : encode_heads(&tm_v, a.v, 2, SwizzledRows<S::VCOLS>::W, B, N, H,
+                           D, S::VSUB);
   if (e == 0)
     e = S::PER_KEY ? encode_f32_2d(&tm_ks, a.k_stat, B * H, np,
                                    S::KSUB)
@@ -1109,7 +1244,7 @@ int launch_int8(const Args& a) {
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev);
   if (e != 0) return e;
-  const int items = (N + BLOCK_Q - 1) / BLOCK_Q * (D / S::DV) * H * B;
+  const int items = (N + S::ROWS - 1) / S::ROWS * (D / S::VCOLS) * H * B;
   kernel<<<items < sms ? items : sms, INT8_THREADS, S::BYTES, a.st>>>(
       tm_q, tm_k, tm_v, tm_ks, static_cast<const float*>(a.q_scale),
       static_cast<const float*>(a.k_stat),
@@ -1128,6 +1263,8 @@ int dispatch(const Args& a, int D) {
     case 256: return launch_int8<256, QK8, PV8, TWO_PASS>(a);
     case 384: return launch_int8<384, QK8, PV8, TWO_PASS>(a);
     case 512: return launch_int8<512, QK8, PV8, TWO_PASS>(a);
+    case 768: return launch_int8<768, QK8, PV8, TWO_PASS>(a);
+    case 1024: return launch_int8<1024, QK8, PV8, TWO_PASS>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1137,7 +1274,8 @@ int dispatch(const Args& a, int D) {
 // Every entry point: q, k, v, out (B, N, H*D) bf16, contiguous, 16-byte
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); the scratch of `Args`; D the instance's head
-// dim (16, 32, 64, 128, 256) and dn <= D the model's (attention_common.cuh);
+// dim (16, 32, 64, 128, 256, 384, 512, 768, 1024) and dn <= D the model's
+// (attention_common.cuh);
 // int8_qk (K8a, K8b) selects int8 scores under the int8 P.V (K4's for K8a,
 // K7q's for K8b), else bf16 ones (K1's, K7's). Each returns 0, or the first
 // error: a cudaError_t of a launch or the CUresult of a tensor-map encode.

@@ -1,10 +1,10 @@
 // K1 and K7, the bf16 joint-attention forwards, and K5, the flash-attention
 // forward of training, for NVIDIA Hopper (sm_90a): one kernel,
 // attn_sm90_kernel<D, Softmax>, on wgmma and TMA with a warp-specialised
-// ring of K / V tiles, at head dims D = 16, 32, 64, 128, 256, 384 and 512
-// (bf16 heads of 129 to 512 values run zero-padded at 256, 384 or 512;
-// past 512, and fp32 at every head dim, attention_fp32.cu's mma.sync
-// instances take them).
+// ring of K / V tiles, at head dims D = 16, 32, 64, 128, 256, 384, 512, 768
+// and 1024 (bf16 heads of 129 to 1024 values run zero-padded at 256, 384,
+// 512, 768 or 1024; past 1024, and fp32 at every head dim,
+// attention_fp32.cu's mma.sync instances take them).
 //
 // Replaces, in sd3_tpu/ops/fused_attention.py (both reached through
 // _pallas_fused, at :642 and :660):
@@ -179,6 +179,46 @@
 // attention_fp32.cu's wide_prep_kernel. What bounds them at B 2, N 1178, H
 // 5: the products with QK^T twice, 0.0324 / 0.0432 ms at 989 TFLOP/s (the
 // minimal 0.0216 / 0.0288); 190 CTAs of 64 rows on 132 SMs, two waves.
+//
+// D = 768 and 1024 (K1_768 .. K5_1024: heads of 513 to 1024 values in
+// bf16). Two slices of D / 2 would be 384 / 512 columns, past one wgmma's
+// 256 and a consumer's registers, so the output is cut into four slices of
+// DV = D / 4 (192 / 256 columns) and an item is 64 query rows and one PAIR
+// of slices (a grid dimension, PAIRS = 2): its two consumers share the q^
+// tile (96 / 128 KB), consumer c writes slice 2 * pair + c, and the V
+// stages hold the pair's 2 * DV columns only. A K tile of the whole head
+// would take 1.5 / 2 KB a key, so beside q^ only tiles of 16 keys fit
+// twice; and a score wgmma m64n16k16 reads its 2 KB of q^ from shared
+// memory for 16 keys, which at 128 bytes a clock takes 2.5x its tensor
+// time (an earlier version of these instances, 16-key tiles of the whole
+// head: 199 us for K1_768's attention at B 2, N 1178, H 2, against 0.0431
+// ms of products; PERF.md). So the tiles are KT = 64 keys
+// (PAST_512_KEY_TILE) and the K ring holds CHUNKS of them: 64 keys by
+// K_CHUNK = 128 values of the head (16 KB), the S of a tile issued a chunk
+// at a time (8 wgmma m64n64k16 into the same 32 score registers, each chunk
+// waited for and released once the next one's products are in flight), and
+// the V ring 32-key sub-tiles of the pair's columns (24 / 32 KB, two
+// stages), P.V of a tile issued a sub-tile at a time, one in flight behind
+// the next one's issue. Two ways to compute the scores were measured in
+// turns on the same inputs, with bit-for-bit the same outputs (B 2, N
+// 1178, H 2, H100 at 700 W, PERF.md): (a) each consumer computes S over
+// the whole head, the consumers taking turns a chunk at a time and each
+// one's P.V of tile t-1 landing in its first chunk's turn (the D = 256
+// loop), so that QK^T runs once per slice, four times (the products 2.5x
+// the minimal 4*B*H*N^2*D); (b, SHARED_S) consumer 0 alone computes S and
+// its softmax and hands p, alpha and l to consumer 1 through a 10 KB
+// exchange (named barriers XFULL / XFREE), each then running its own P.V,
+// so QK^T runs twice (1.5x the minimal). At D = 768 (b) takes K1 / K7 /
+// K5's attention from 113 / 119 / 132 us to 81 / 84 / 90. At 1024 q^ of
+// 128 KB leaves (b) room for 16-key V sub-tiles only, one m64n256k16 each
+// behind a ring of two, and (a) is ahead: 161 / 166 / 190 us against 179 /
+// 186 / 194. So D = 768 runs (b) and 1024 (a). In both every slice sees
+// the same S in the same order: m, p and l agree bit for bit across the
+// four. K7 rounds p against the running max of these 64 keys
+// (K7_KEY_TILE_1024 in ops/fused_attention.py). What bounds them at B 2,
+// N 1178, H 2: the products of the design, 0.0259 ms at D = 768 and 0.0575
+// at 1024 at 989 TFLOP/s (the minimal 0.0172 / 0.0230); 152 CTAs of 64
+// rows and a pair on 132 SMs, two waves.
 
 #include <type_traits>
 
@@ -196,6 +236,10 @@ constexpr int SM90_THREADS = WG * (1 + CONSUMERS);
 // named barriers (0 is __syncthreads): TURN + c, consumer c's turn to issue
 // its products
 constexpr int TURN = 1;
+// at D = 768 (SHARED_S), XFULL: consumer 0 has written a tile's p into
+// the exchange; XFREE: consumer 1 has read it
+constexpr int XFULL = 3;
+constexpr int XFREE = 4;
 // 384 threads x 168 registers at launch; the producer keeps 24, so each
 // consumer thread can have 240
 constexpr int PRODUCER_REGS = 24;
@@ -214,6 +258,9 @@ struct Flash {};    // K5: the running row max of raw scores, lse out
 // key_tile)
 constexpr int WIDE_KEY_TILE = 64;
 constexpr int SLICE_KEY_TILE = 32;
+constexpr int PAST_512_KEY_TILE = 64;
+// past 512: values of the head in a K stage (a chunk of a tile)
+constexpr int K_CHUNK = 128;
 
 // Keys per K / V tile of attn_sm90_kernel<D, SM>: KEY_TILE, but 64 for K5 at
 // D = 128 and for all three at D = 256, 32 past it. A consumer thread holds
@@ -225,11 +272,13 @@ constexpr int SLICE_KEY_TILE = 32;
 // 512". K1 and K7 keep 128 keys up to D = 128. K7 rounds p against the
 // running max of its tile, which its plain version reproduces with block_k
 // = K7_KEY_TILE (128), at D = 256 K7_KEY_TILE_256 (WIDE_KEY_TILE, 64),
-// past it K7_KEY_TILE_512 (SLICE_KEY_TILE, 32); K1's bounded shift and
-// K5's true lse do not depend on the tile.
+// at 384 and 512 K7_KEY_TILE_512 (SLICE_KEY_TILE, 32), past 512
+// K7_KEY_TILE_1024 (PAST_512_KEY_TILE, 64); K1's bounded shift and K5's
+// true lse do not depend on the tile.
 template <int D, class SM>
 __host__ __device__ constexpr int key_tile() {
   return D == 256 ? WIDE_KEY_TILE
+         : D > 512 ? PAST_512_KEY_TILE
          : D > 256 ? SLICE_KEY_TILE
          : D == 128 && std::is_same<SM, Softmax::Flash>::value ? 64
                                                                : KEY_TILE;
@@ -242,48 +291,73 @@ __host__ __device__ constexpr int key_tile() {
 // beside 64 KB of q^: 192 KB of the 227 KB a block may take). Past 256
 // (SLICED) the two consumers share one q^ tile: three stages of 24 + 24 KB
 // beside 48 KB of q^ at D = 384, two of 32 + 32 KB beside 64 KB at D = 512
-// (192 KB).
+// (192 KB). Past 512 (CHUNKED) stages of 16 KB K chunks and two of
+// 32-key V sub-tiles of the pair's columns beside q^: at D = 768 four K
+// stages, 24 KB V stages and the 10 KB exchange beside 96 KB (219 KB); at
+// 1024 two K stages and 32 KB V stages beside 128 KB (225 KB).
 template <int D, int KT = KEY_TILE>
 struct Sm90 : SwizzledRows<D> {
   // past D = 256 an item is 64 query rows, each consumer writing one of
-  // two column slices of them (see "D = 384 and 512" above)
+  // two column slices of them (see "D = 384 and 512" above); past 512 one
+  // of PAIRS pairs of slices of D / 4 columns, K in chunks of K_CHUNK
+  // values and V in sub-tiles of VSUB keys (see "D = 768 and 1024")
   static constexpr bool SLICED = D > 256;
+  static constexpr bool CHUNKED = D > 512;
+  static constexpr int PAIRS = CHUNKED ? 2 : 1;
   static constexpr int ROWS = SLICED ? QROWS : BLOCK_Q;  // an item's rows
-  static constexpr int DV = SLICED ? D / 2 : D;     // a consumer's columns
-  static constexpr int KV_TILE = KT * D * 2;        // one K or V tile
-  static constexpr int STAGES = D == 256 || D == 512 ? 2
+  // a consumer's columns, and those of an item (of its V stages)
+  static constexpr int DV = SLICED ? D / (2 * PAIRS) : D;
+  static constexpr int VCOLS = SLICED ? 2 * DV : D;
+  // values of the head in a K stage, keys in a V stage
+  static constexpr int KCOLS = CHUNKED ? K_CHUNK : D;
+  static constexpr int VSUB = CHUNKED ? 32 : KT;
+  static constexpr int KV_TILE = KT * KCOLS * 2;    // one K stage
+  static constexpr int V_TILE = VSUB * VCOLS * 2;   // one V stage
+  // at D = 768 (SHARED_S) consumer 0 alone computes S and hands p, its
+  // alpha and l to consumer 1 through the exchange X, KT / 4 + 4 words a
+  // thread; at 1024 both compute S (see "D = 768 and 1024")
+  static constexpr bool SHARED_S = D == 768;
+  static constexpr int X_TILE = SHARED_S ? (KT / 4 + 4) * WG * 4 : 0;
+  static constexpr int STAGES = D == 256 || D == 512 || D == 1024 ? 2
                                 : D == 384 ? 3 : KV_TILE > 16384 ? 3 : 4;
+  static constexpr int V_STAGES = CHUNKED ? 2 : STAGES;
   static constexpr int Q_TILE = QROWS * D * 2;      // one consumer's q^
   static constexpr int Q_TILES = SLICED ? 1 : CONSUMERS;
   static constexpr int Q = 0;                       // [Q_TILES] q^ tiles
-  static constexpr int K = Q + Q_TILES * Q_TILE;    // [STAGES] K tiles
-  static constexpr int V = K + STAGES * KV_TILE;    // [STAGES] V tiles
+  static constexpr int K = Q + Q_TILES * Q_TILE;    // [STAGES] K stages
+  static constexpr int V = K + STAGES * KV_TILE;    // [V_STAGES] V stages
+  static constexpr int X = V + V_STAGES * V_TILE;   // the exchange
   // mbarriers: full / empty of each K and V stage, full / empty of each q^
   // tile
-  static constexpr int BAR = V + STAGES * KV_TILE;
-  static constexpr int BYTES = BAR + (4 * STAGES + 2 * CONSUMERS) * 8 + 1024;
+  static constexpr int BAR = X + X_TILE;
+  static constexpr int BYTES =
+      BAR + (2 * STAGES + 2 * V_STAGES + 2 * CONSUMERS) * 8 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
 };
 
 // TMA of ROWS rows (n0.., head h, sample b) into a tile at `dst`, one box
-// per atom column: of a (B, N, H*D) tensor mapped (D, H, N, B) (K1, K7), or
-// of a (B, H, N, D) view mapped (D, N, H, B) (FLASH: K5).
-template <int D, int ROWS, bool FLASH>
+// per atom column, NC of them from atom column c0 on (every column of the
+// head by default): of a (B, N, H*D) tensor mapped (D, H, N, B) (K1, K7),
+// or of a (B, H, N, D) view mapped (D, N, H, B) (FLASH: K5).
+template <int D, int ROWS, bool FLASH, int NC = SwizzledRows<D>::COLS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* m,
-                                          uint32_t bar, int h, int n0, int b) {
+                                          uint32_t bar, int h, int n0, int b,
+                                          int c0 = 0) {
   using S = SwizzledRows<D>;
 #pragma unroll
-  for (int c = 0; c < S::COLS; ++c) {
+  for (int c = 0; c < NC; ++c) {
+    const int x = (c0 + c) * S::W / 2;
     if constexpr (FLASH)
-      tma_load_4d(dst + c * ROWS * S::W, m, bar, c * S::W / 2, n0, h, b);
+      tma_load_4d(dst + c * ROWS * S::W, m, bar, x, n0, h, b);
     else
-      tma_load_4d(dst + c * ROWS * S::W, m, bar, c * S::W / 2, h, n0, b);
+      tma_load_4d(dst + c * ROWS * S::W, m, bar, x, h, n0, b);
   }
 }
 
-// grid (ceil(N / ROWS), H, B), a CTA per item (ROWS = Sm90::ROWS query
-// rows, head, sample); for Flash min(SMs, items) persistent CTAs, CTA i on
-// items i, i + grid, ... (q tiles fastest), its ring, barriers and turns
+// grid (ceil(N / ROWS) * PAIRS, H, B), a CTA per item (ROWS = Sm90::ROWS
+// query rows, pair of slices, head, sample); for Flash min(SMs, items)
+// persistent CTAs, CTA i on items i, i + grid, ... (pairs, then q tiles
+// fastest), its ring, barriers and turns
 // running on across items, so that its producer loads the next item's q
 // and first K / V tiles under the last one's final P.V and epilogue.
 // SM90_THREADS threads, Sm90<D, key_tile<D, SM>()>::BYTES of dynamic shared
@@ -305,35 +379,45 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   using S = Sm90<D, KT>;
   constexpr bool BOUNDED = std::is_same<SM, Softmax::Bounded>::value;
   constexpr bool FLASH = std::is_same<SM, Softmax::Flash>::value;
-  constexpr int STAGES = S::STAGES;
-  constexpr int ROWS = S::ROWS, DV = S::DV;
+  constexpr int STAGES = S::STAGES, V_STAGES = S::V_STAGES;
+  constexpr int ROWS = S::ROWS, DV = S::DV, PAIRS = S::PAIRS;
+  // K stages (chunks) and V stages (sub-tiles) of a key tile: one each up
+  // to D = 512
+  constexpr int KCH = D / S::KCOLS, VSUBS = KT / S::VSUB;
+  // a consumer issues a tile's V sub-tiles in one turn, so they must all
+  // fit the ring unless the other consumer takes no turns (SHARED_S)
+  static_assert(S::SHARED_S || VSUBS <= V_STAGES,
+                "V sub-tiles of a tile");
   // D = 256 and 512: each consumer's P.V lands before its next S is issued
-  // (see the key-tile loop)
+  // (see the key-tile loop; past 512 too, in the CHUNKED loop)
   constexpr bool SERIAL = D == 256 || D == 512;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_u32(smem);
   const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * STAGES;
-  const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * STAGES;
-  const uint32_t full_q = empty_v + 8 * STAGES;
+  const uint32_t empty_k = full_v + 8 * V_STAGES;
+  const uint32_t empty_v = empty_k + 8 * STAGES;
+  const uint32_t full_q = empty_v + 8 * V_STAGES;
   const uint32_t empty_q = full_q + 8 * CONSUMERS;
   const int ntiles = (M + KT - 1) / KT;
   const int nqt = (N + ROWS - 1) / ROWS;  // q tiles
-  const int n_items = nqt * H * B;
+  const int n_items = nqt * PAIRS * H * B;
   const int n_local =
       !FLASH ? 1
       : (int)blockIdx.x < n_items
           ? (n_items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
           : 0;
-  // (q tile, head, sample) of this CTA's local item j
-  auto item_of = [&](int j, int& qt, int& h, int& b) {
+  // (q tile, pair, head, sample) of this CTA's local item j
+  auto item_of = [&](int j, int& qt, int& pr, int& h, int& b) {
     if constexpr (FLASH) {
       const int it = blockIdx.x + j * gridDim.x;
-      qt = it % nqt;
-      h = it / nqt % H;
-      b = it / (nqt * H);
+      qt = it % (nqt * PAIRS) / PAIRS;
+      pr = it % PAIRS;
+      h = it / (nqt * PAIRS) % H;
+      b = it / (nqt * PAIRS * H);
     } else {
-      qt = blockIdx.x;
+      qt = blockIdx.x / PAIRS;
+      pr = blockIdx.x % PAIRS;
       h = blockIdx.y;
       b = blockIdx.z;
     }
@@ -342,14 +426,18 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_k + 8 * s, 1);
+      // lane 0 of each warp (SHARED_S: of consumer 0, which alone reads K)
+      mbar_init(empty_k + 8 * s, S::SHARED_S ? 4 : CONSUMERS * 4);
+    }
+    for (int s = 0; s < V_STAGES; ++s) {
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty_k + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
       mbar_init(empty_v + 8 * s, CONSUMERS * 4);
     }
     for (int c = 0; c < CONSUMERS; ++c) {
       mbar_init(full_q + 8 * c, 1);
       // lane 0 of each warp of consumer c (SLICED: of both, tile 0)
-      mbar_init(empty_q + 8 * c, S::SLICED ? 4 * CONSUMERS : 4);
+      mbar_init(empty_q + 8 * c,
+                S::SLICED && !S::SHARED_S ? 4 * CONSUMERS : 4);
     }
     fence_barrier_init();
   }
@@ -364,8 +452,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
       for (int ji = 0; ji < n_local; ++ji) {
-        int qt, h, b;
-        item_of(ji, qt, h, b);
+        int qt, pr, h, b;
+        item_of(ji, qt, pr, h, b);
         for (int c = 0; c < S::Q_TILES; ++c) {
           // once the last item's is done
           mbar_wait(empty_q + 8 * c, (ji & 1) ^ 1);
@@ -374,27 +462,37 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                      full_q + 8 * c, h,
                                      qt * ROWS + c * QROWS, b);
         }
+        // the ring's K and V stages of key tile t: its KCH chunks of KCOLS
+        // values, then its VSUBS sub-tiles of VSUB keys of the item's VCOLS
+        // columns of V (up to D = 512 one of each, the whole tile)
+        constexpr int KNC = S::KCOLS * 2 / S::W, VNC = S::VCOLS * 2 / S::W;
         for (int t = 0; t < ntiles; ++t) {
-          const int tt = ji * ntiles + t, s = tt % STAGES;  // the ring's tile
-          const uint32_t free_parity = ((tt / STAGES) & 1) ^ 1;
-          mbar_wait(empty_k + 8 * s, free_parity);
-          mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
-          load_tile<D, KT, FLASH>(sb + S::K + s * S::KV_TILE, &tm_k,
-                                  full_k + 8 * s, h, t * KT, b);
-          mbar_wait(empty_v + 8 * s, free_parity);
-          mbar_arrive_expect_tx(full_v + 8 * s, S::KV_TILE);
-          load_tile<D, KT, FLASH>(sb + S::V + s * S::KV_TILE, &tm_v,
-                                  full_v + 8 * s, h, t * KT, b);
+          for (int ch = 0; ch < KCH; ++ch) {
+            const int kc = (ji * ntiles + t) * KCH + ch, s = kc % STAGES;
+            mbar_wait(empty_k + 8 * s, ((kc / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(full_k + 8 * s, S::KV_TILE);
+            load_tile<D, KT, FLASH, KNC>(sb + S::K + s * S::KV_TILE, &tm_k,
+                                         full_k + 8 * s, h, t * KT, b,
+                                         ch * KNC);
+          }
+          for (int u = 0; u < VSUBS; ++u) {
+            const int vc = (ji * ntiles + t) * VSUBS + u, s = vc % V_STAGES;
+            mbar_wait(empty_v + 8 * s, ((vc / V_STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(full_v + 8 * s, S::V_TILE);
+            load_tile<D, S::VSUB, FLASH, VNC>(
+                sb + S::V + s * S::V_TILE, &tm_v, full_v + 8 * s, h,
+                t * KT + u * S::VSUB, b, pr * VNC);
+          }
         }
       }
     }
   } else {
     // ---- consumers: 64 query rows each (SLICED: the same rows, and DV
-    // columns each from col0 on)
+    // columns each, vcol on in the item's V tile)
     setmaxnreg_inc<CONSUMER_REGS>();
     const int c = wg - 1;
     const int qc = S::SLICED ? 0 : c;  // this consumer's q^ tile
-    const int col0 = S::SLICED ? c * DV : 0;
+    const int vcol = S::SLICED ? c * DV : 0;
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
     const uint32_t q_base = sb + S::Q + qc * S::Q_TILE;
@@ -411,13 +509,14 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // turn of its last item, which balances every barrier's arrivals
     // (ntiles + 1 turns an item each).
     const int my_turn = TURN + c, other_turn = TURN + 1 - c;
-    if (c == 1) named_bar_arrive(other_turn, 2 * WG);
+    if (c == 1) named_bar_arrive(S::SHARED_S ? XFREE : other_turn, 2 * WG);
     auto take_turn = [&]() { named_bar_sync(my_turn, 2 * WG); };
     auto hand_over = [&]() { named_bar_arrive(other_turn, 2 * WG); };
 
     for (int ji = 0; ji < n_local; ++ji) {
-      int qt, h, b;
-      item_of(ji, qt, h, b);
+      int qt, pr, h, b;
+      item_of(ji, qt, pr, h, b);
+      const int col0 = pr * S::VCOLS + vcol;  // this consumer's output columns
       const int t0 = ji * ntiles;  // the ring's tile of this item's key tile 0
       const int n0 = qt * ROWS + qc * QROWS + warp * 16 + g;
       const int n1 = n0 + 8;                   // this thread's two rows
@@ -433,7 +532,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-      mbar_wait(full_q + 8 * qc, ji & 1);  // this consumer's q^ has landed
+      // this consumer's q^ has landed (SHARED_S: consumer 1 reads none)
+      if (!S::SHARED_S || c == 0) mbar_wait(full_q + 8 * qc, ji & 1);
       // issue S = q^ k^T of key tile t
       auto issue_scores = [&](int t) {
         const int st = (t0 + t) % STAGES;
@@ -459,12 +559,12 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_commit();
       };
       // issue acc += bf16(p) v of key tile t (this consumer's DV columns:
-      // past D = 256 col0 / 64 atom columns into the V tile)
+      // past D = 256 vcol / 64 atom columns into the V tile)
       auto issue_pv = [&](int t) {
         const int st = (t0 + t) % STAGES;
         mbar_wait(full_v + 8 * st, ((t0 + t) / STAGES) & 1);
         const uint32_t vb =
-            sb + S::V + st * S::KV_TILE + col0 / 64 * KT * 128;
+            sb + S::V + st * S::V_TILE + vcol / 64 * KT * 128;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KT / 16; ++kk) {
@@ -474,8 +574,8 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         wgmma_commit();
       };
-      // this warp is done with key tile t's stage of K or V, or (empty_q)
-      // with its q^ tile
+      // this warp is done with key tile t's stage of K or V (up to D =
+      // 512, STAGES = V_STAGES), or (empty_q) with its q^ tile
       auto release = [&](uint32_t empty, int t) {
         if (lane == 0) mbar_arrive(empty + 8 * ((t0 + t) % STAGES));
       };
@@ -503,8 +603,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         if constexpr (!BOUNDED) {
           // the row max over PARTS partial maxima: shorter chains for the
           // exp2s to wait on, where the registers allow (scores and
-          // accumulator in at most 96 of them)
-          constexpr int PARTS = KT / 2 + DV / 2 <= 96 ? 4 : 1;
+          // accumulator in at most 96 of them) and a tile has four column
+          // groups of 8 keys
+          constexpr int PARTS = KT / 2 + DV / 2 <= 96 && KT >= 32 ? 4 : 1;
           float x0[PARTS], x1[PARTS];
 #pragma unroll
           for (int i = 0; i < PARTS; ++i) {
@@ -566,32 +667,50 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       };
 
       float a0 = 1.f, a1 = 1.f;
-      take_turn();
-      issue_scores(0);
-      hand_over();
-      wgmma_wait<0>();
-      reg_fence(s);
-      release(empty_k, 0);
-      if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
-      softmax(0, a0, a1);
-      pack_p();
-      if constexpr (SERIAL) {
-        for (int t = 1; t < ntiles; ++t) {
-          // D = 256 and 512 (see the file's head): P.V of tile t-1 lands
-          // before S of tile t is issued
-          take_turn();
-          issue_pv(t - 1);
+      if constexpr (S::CHUNKED) {
+        // Past D = 512 (see the file's head): the S of key tile t a K chunk
+        // a turn, each chunk waited for and released before the next turn,
+        // P.V of tile t-1 issued and landed in the first chunk's turn
+        // (run_pv); then the softmax of tile t while the other consumer's
+        // products run.
+        // P.V of key tile t over its VSUBS V sub-tiles, each issued once it
+        // has landed and released once its product has run, one in flight
+        // behind the next one's issue; the turn handed over after the last
+        // issue where `hand`.
+        auto run_pv = [&](int t, bool hand) {
+          constexpr int KV = S::VSUB / 16;  // k-steps of a sub-tile
+#pragma unroll
+          for (int u = 0; u < VSUBS; ++u) {
+            const int vc = (t0 + t) * VSUBS + u, st = vc % V_STAGES;
+            mbar_wait(full_v + 8 * st, (vc / V_STAGES) & 1);
+            const uint32_t vb =
+                sb + S::V + st * S::V_TILE + vcol / 64 * S::VSUB * 128;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KV; ++kk) {
+              const int k = u * KV + kk;
+              const uint32_t a[4] = {p[4 * k], p[4 * k + 1], p[4 * k + 2],
+                                     p[4 * k + 3]};
+              wgmma_rs<DV>(acc, a, desc_mn_major<DV>(vb, S::VSUB, kk), 1);
+            }
+            wgmma_commit();
+            if (u == VSUBS - 1 && hand) hand_over();
+            if (u > 0) {
+              wgmma_wait<1>();
+              if (lane == 0)
+                mbar_arrive(empty_v + 8 * ((vc - 1) % V_STAGES));
+            }
+          }
           wgmma_wait<0>();
           reg_fence(acc);
           reg_fence(p);
-          release(empty_v, t - 1);
-          issue_scores(t);
-          hand_over();
-          wgmma_wait<0>();
-          reg_fence(s);
-          release(empty_k, t);
-          if (t == ntiles - 1) release_q();
-          softmax(t, a0, a1);
+          if (lane == 0)
+            mbar_arrive(empty_v +
+                        8 * (((t0 + t) * VSUBS + VSUBS - 1) % V_STAGES));
+        };
+        // the acc of rows g, g + 8 to the running max of the tile whose
+        // softmax has just run (alpha in a0, a1)
+        auto rescale = [&]() {
           if constexpr (!BOUNDED) {
 #pragma unroll
             for (int j = 0; j < DV / 8; ++j) {
@@ -601,53 +720,197 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
               acc[4 * j + 3] *= a1;
             }
           }
-          pack_p();
+        };
+        // the exchange: word i of this thread at x[i * WG]
+        uint32_t* x = reinterpret_cast<uint32_t*>(smem + S::X) + tid;
+        if constexpr (S::SHARED_S) {
+          if (c == 0) {
+            // S of each tile, its chunks issued one after the other, a
+            // chunk released once the next one's products are in flight;
+            // the softmax; p, alpha and l handed to consumer 1 once it has
+            // read the last ones; then this consumer's P.V
+            for (int t = 0; t < ntiles; ++t) {
+#pragma unroll
+              for (int ch = 0; ch < KCH; ++ch) {
+                const int kc = (t0 + t) * KCH + ch, st = kc % STAGES;
+                mbar_wait(full_k + 8 * st, (kc / STAGES) & 1);
+                const uint32_t kb = sb + S::K + st * S::KV_TILE;
+                wgmma_fence();
+                uint64_t dq = desc_k_major<D>(q_base, QROWS, 0);
+                const uint64_t dk = desc_k_major<S::KCOLS>(kb, KT, 0);
+                asm volatile("" : "+l"(dq));
+#pragma unroll
+                for (int kk = 0; kk < S::KCOLS / 16; ++kk)
+                  wgmma_ss<KT>(
+                      s,
+                      dq + k_step_offset<D>(QROWS,
+                                            ch * (S::KCOLS / 16) + kk),
+                      dk + k_step_offset<S::KCOLS>(KT, kk),
+                      ch > 0 || kk > 0);
+                wgmma_commit();
+                if (ch > 0) {
+                  wgmma_wait<1>();
+                  if (lane == 0)
+                    mbar_arrive(empty_k + 8 * ((kc - 1) % STAGES));
+                }
+              }
+              wgmma_wait<0>();
+              reg_fence(s);
+              if (lane == 0)
+                mbar_arrive(empty_k +
+                            8 * (((t0 + t) * KCH + KCH - 1) % STAGES));
+              if (t == ntiles - 1) release_q();  // the item's last S
+              softmax(t, a0, a1);
+              pack_p();
+              named_bar_sync(XFREE, 2 * WG);
+#pragma unroll
+              for (int i = 0; i < KT / 4; ++i) x[i * WG] = p[i];
+              x[KT / 4 * WG] = __float_as_uint(a0);
+              x[(KT / 4 + 1) * WG] = __float_as_uint(a1);
+              x[(KT / 4 + 2) * WG] = __float_as_uint(l0);
+              x[(KT / 4 + 3) * WG] = __float_as_uint(l1);
+              __threadfence_block();  // the writes before the arrive
+              named_bar_arrive(XFULL, 2 * WG);
+              rescale();
+              run_pv(t, false);
+            }
+          } else {
+            // each tile's p, alpha and l from consumer 0 (freeing the
+            // exchange but after the CTA's last tile, which balances the
+            // barrier), then this consumer's P.V
+            for (int t = 0; t < ntiles; ++t) {
+              named_bar_sync(XFULL, 2 * WG);
+#pragma unroll
+              for (int i = 0; i < KT / 4; ++i) p[i] = x[i * WG];
+              a0 = __uint_as_float(x[KT / 4 * WG]);
+              a1 = __uint_as_float(x[(KT / 4 + 1) * WG]);
+              l0 = __uint_as_float(x[(KT / 4 + 2) * WG]);
+              l1 = __uint_as_float(x[(KT / 4 + 3) * WG]);
+              if (ji + 1 < n_local || t + 1 < ntiles) {
+                __threadfence_block();  // the reads before the arrive
+                named_bar_arrive(XFREE, 2 * WG);
+              }
+              rescale();
+              run_pv(t, false);
+            }
+          }
+        } else {
+          for (int t = 0; t < ntiles; ++t) {
+#pragma unroll
+            for (int ch = 0; ch < KCH; ++ch) {
+              take_turn();
+              if (ch == 0 && t > 0) run_pv(t - 1, false);
+              const int kc = (t0 + t) * KCH + ch, st = kc % STAGES;
+              mbar_wait(full_k + 8 * st, (kc / STAGES) & 1);
+              const uint32_t kb = sb + S::K + st * S::KV_TILE;
+              wgmma_fence();
+              // q^'s descriptor opaque to the loop (k_step_offset, sm90.cuh)
+              uint64_t dq = desc_k_major<D>(q_base, QROWS, 0);
+              const uint64_t dk = desc_k_major<S::KCOLS>(kb, KT, 0);
+              asm volatile("" : "+l"(dq));
+#pragma unroll
+              for (int kk = 0; kk < S::KCOLS / 16; ++kk)
+                wgmma_ss<KT>(
+                    s, dq + k_step_offset<D>(QROWS, ch * (S::KCOLS / 16) + kk),
+                    dk + k_step_offset<S::KCOLS>(KT, kk), ch > 0 || kk > 0);
+              wgmma_commit();
+              hand_over();
+              wgmma_wait<0>();
+              reg_fence(s);
+              if (lane == 0) mbar_arrive(empty_k + 8 * st);
+            }
+            if (t == ntiles - 1) release_q();  // the item's last S is done
+            softmax(t, a0, a1);
+            rescale();  // acc (tiles up to t-1) to this max
+            pack_p();
+          }
+          take_turn();
+          run_pv(ntiles - 1, c == 0 || ji + 1 < n_local);
         }
       } else {
-        for (int t = 1; t < ntiles; ++t) {
-          take_turn();
-          issue_scores(t);   // S of tile t ...
-          issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
-          hand_over();
-          wgmma_wait<1>();   // S of tile t done
-          reg_fence(s);
-          release(empty_k, t);
-          if (t == ntiles - 1) release_q();
-          softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
-          // The wait for that P.V, behind a branch on the softmax's sums that
-          // always takes the first arm: ptxas hoists a wait to the top of its
-          // basic block, which put this one, and the whole softmax after it,
-          // behind the P.V it should overlap (seen in the SASS). The branch
-          // ends the block after the softmax.
-          if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
-              0xffffffffu) {
+        take_turn();
+        issue_scores(0);
+        hand_over();
+        wgmma_wait<0>();
+        reg_fence(s);
+        release(empty_k, 0);
+        if (ntiles == 1) release_q();  // the item's last S = q^ k^T is done
+        softmax(0, a0, a1);
+        pack_p();
+        if constexpr (SERIAL) {
+          for (int t = 1; t < ntiles; ++t) {
+            // D = 256 and 512 (see the file's head): P.V of tile t-1 lands
+            // before S of tile t is issued
+            take_turn();
+            issue_pv(t - 1);
             wgmma_wait<0>();
-          } else {
+            reg_fence(acc);
+            reg_fence(p);
+            release(empty_v, t - 1);
+            issue_scores(t);
+            hand_over();
             wgmma_wait<0>();
-            __trap();
-          }
-          reg_fence(acc);
-          reg_fence(p);
-          release(empty_v, t - 1);
-          if constexpr (!BOUNDED) {
+            reg_fence(s);
+            release(empty_k, t);
+            if (t == ntiles - 1) release_q();
+            softmax(t, a0, a1);
+            if constexpr (!BOUNDED) {
 #pragma unroll
-            for (int j = 0; j < DV / 8; ++j) {
-              acc[4 * j] *= a0;
-              acc[4 * j + 1] *= a0;
-              acc[4 * j + 2] *= a1;
-              acc[4 * j + 3] *= a1;
+              for (int j = 0; j < DV / 8; ++j) {
+                acc[4 * j] *= a0;
+                acc[4 * j + 1] *= a0;
+                acc[4 * j + 2] *= a1;
+                acc[4 * j + 3] *= a1;
+              }
             }
+            pack_p();
           }
-          pack_p();
+        } else {
+          for (int t = 1; t < ntiles; ++t) {
+            take_turn();
+            issue_scores(t);   // S of tile t ...
+            issue_pv(t - 1);   // ... and P.V of tile t-1 on the tensor cores
+            hand_over();
+            wgmma_wait<1>();   // S of tile t done
+            reg_fence(s);
+            release(empty_k, t);
+            if (t == ntiles - 1) release_q();
+            softmax(t, a0, a1);  // while P.V of tile t-1 and the other's run
+            // The wait for that P.V, behind a branch on the softmax's sums that
+            // always takes the first arm: ptxas hoists a wait to the top of its
+            // basic block, which put this one, and the whole softmax after it,
+            // behind the P.V it should overlap (seen in the SASS). The branch
+            // ends the block after the softmax.
+            if (__shfl_sync(0xffffffffu, __float_as_uint(l0 + l1), 0) !=
+                0xffffffffu) {
+              wgmma_wait<0>();
+            } else {
+              wgmma_wait<0>();
+              __trap();
+            }
+            reg_fence(acc);
+            reg_fence(p);
+            release(empty_v, t - 1);
+            if constexpr (!BOUNDED) {
+#pragma unroll
+              for (int j = 0; j < DV / 8; ++j) {
+                acc[4 * j] *= a0;
+                acc[4 * j + 1] *= a0;
+                acc[4 * j + 2] *= a1;
+                acc[4 * j + 3] *= a1;
+              }
+            }
+            pack_p();
+          }
         }
+        take_turn();
+        issue_pv(ntiles - 1);
+        if (c == 0 || ji + 1 < n_local) hand_over();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        reg_fence(p);
+        release(empty_v, ntiles - 1);
       }
-      take_turn();
-      issue_pv(ntiles - 1);
-      if (c == 0 || ji + 1 < n_local) hand_over();
-      wgmma_wait<0>();
-      reg_fence(acc);
-      reg_fence(p);
-      release(empty_v, ntiles - 1);
 
       // o = acc / l, bf16, rows past N not stored; Flash: lse too
       l0 = quad_sum(l0);
@@ -703,12 +966,13 @@ int launch_sm90(const Args& a) {
   if (e != 0) return e;
   e = encode_heads(&tm_k, a.k_prep, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, KT);
   if (e != 0) return e;
-  e = encode_heads(&tm_v, a.v, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D, KT);
+  e = encode_heads(&tm_v, a.v, 2, SwizzledRows<D>::W, a.B, a.N, a.H, D,
+                   S::VSUB);
   if (e != 0) return e;
   auto kernel = attn_sm90_kernel<D, SM>;
   e = allow_smem(kernel, BYTES);
   if (e != 0) return e;
-  dim3 grid((a.N + S::ROWS - 1) / S::ROWS, a.H, a.B);
+  dim3 grid((a.N + S::ROWS - 1) / S::ROWS * S::PAIRS, a.H, a.B);
   const View vo{(long long)a.N * a.H * D, D, (long long)a.H * D};
   kernel<<<grid, SM90_THREADS, BYTES, a.st>>>(
       tm_q, tm_k, tm_v, static_cast<const float*>(a.q_norm),
@@ -735,13 +999,13 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (e == 0) e = encode_view<D, QROWS>(&tm_q, q, view_at(st, 0), B, H, N);
   if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, M);
-  if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, M);
+  if (e == 0) e = encode_view<D, S::VSUB>(&tm_v, v, view_at(st, 2), B, H, M);
   int dev = 0, sms = 0;
   if (e == 0) e = (int)cudaGetDevice(&dev);
   if (e == 0)
     e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != 0) return e;
-  const int items = (N + S::ROWS - 1) / S::ROWS * H * B;
+  const int items = (N + S::ROWS - 1) / S::ROWS * S::PAIRS * H * B;
   kernel<<<items < sms ? items : sms, SM90_THREADS, BYTES, stream>>>(
       tm_q, tm_k, tm_v, nullptr, nullptr, static_cast<bf16*>(o),
       view_at(st, 3), static_cast<float*>(lse), scale * LOG2E, N, M, H, B);
@@ -758,6 +1022,8 @@ int dispatch(const Args& a, int D) {
     case 256: return launch_sm90<256, SM>(a);
     case 384: return launch_sm90<384, SM>(a);
     case 512: return launch_sm90<512, SM>(a);
+    case 768: return launch_sm90<768, SM>(a);
+    case 1024: return launch_sm90<1024, SM>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -768,7 +1034,8 @@ int dispatch(const Args& a, int D) {
 // aligned; cq, sq, ck, sk (N, D) fp32 tables (norm weights folded in; cq, sq
 // also carry scale*log2(e)); q_prep, k_prep (B, N, H*D) bf16 scratch;
 // q_norm (B*H, N) fp32 scratch (K1; K7 takes none); k_max2 (B*H) fp32, zero
-// on entry. D is the instance's head dim (16, 32, 64, 128, 256, 384, 512) and dn <= D
+// on entry. D is the instance's head dim (16, 32, 64, 128, 256, 384, 512,
+// 768, 1024) and dn <= D
 // the model's: heads of dn < D values arrive zero-padded to D, tables too (see
 // attention_common.cuh). Each returns 0, or the first error: a cudaError_t
 // of a launch or the CUresult of a tensor-map encode.
@@ -793,7 +1060,7 @@ extern "C" int sd3_fused_attention_stream(SD3_SM90_PARAMS) {
 }
 
 // K5: o, lse = m + log(l) (B, H, N) fp32, contiguous, from q, k, v, D 16,
-// 32, 64, 128, 256, 384 or 512. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
+// 32, 64, 128, 256, 384, 512, 768 or 1024. q and o are (B, H, N, D), k and v (B, H, M, D) bf16 views
 // with the head dim contiguous, 16-byte aligned start and (b, h, n)
 // strides, the element strides in `strides`, three per tensor (q, k, v,
 // o). Returns 0, or the first error: a cudaError_t of the launch or the
@@ -812,6 +1079,8 @@ extern "C" int sd3_flash_attention_fwd(const void* q, const void* k,
     case 256: return launch_flash<256>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 384: return launch_flash<384>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     case 512: return launch_flash<512>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 768: return launch_flash<768>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
+    case 1024: return launch_flash<1024>(q, k, v, o, lse, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -175,9 +175,9 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 
 // A tile of R rows of D bf16 values in the swizzled layout of TMA and
 // wgmma: atom columns W = min(2D, 128) bytes wide (two at D = 128, three
-// at 192, four at 256, six at 384, eight at 512), each R rows of W
-// bytes, with the 16-byte chunks of a row permuted by the swizzle of W
-// bytes.
+// at 192, four at 256, six at 384, eight at 512, twelve at 768, sixteen
+// at 1024), each R rows of W bytes, with the 16-byte chunks of a row
+// permuted by the swizzle of W bytes.
 template <int D>
 struct SwizzledRows {
   static constexpr int W = D * 2 < 128 ? D * 2 : 128;

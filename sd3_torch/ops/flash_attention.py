@@ -39,11 +39,17 @@ consumers also share 64 query rows, one taking p, the other dP, which
 they exchange in shared memory, each summing one slice of dq (32-key
 tiles at 384, 16 at 512); K6b is K6B_256's split by gradient on one
 slice of dk and dv a work item, the slice a grid dimension (32-query
-tiles at 384, 16 at 512; `csrc/flash_bwd_sm90.cu`). Past those, one set
-for every multiple of 128: bf16 tensors take K5W, K6AW and K6BW (past
-512; `csrc/attention_fp32.cu`: one tf32 product of the exact bf16 values
-a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF and K6BWF
-(3xTF32). Those sum the scores over
+tiles at 384, 16 at 512; `csrc/flash_bwd_sm90.cu`). The forward has two more, at
+`WGMMA_PAST_512` (768, 1024): K5_768 and K5_1024, where the output is cut
+into four slices of D / 4 and a CTA's two consumers share 64 query rows
+and write one pair of slices, the pair a grid dimension (64-key tiles,
+K in chunks of 128 values of the head; `csrc/attention_sm90.cu`), so a bf16 forward of 513 to 1024 values runs
+padded to 768 or 1024 (`forward_dim`) where its backward keeps the
+multiple of 128. Past those, one set
+for every multiple of 128: bf16 tensors take K5W (past 1024), K6AW and
+K6BW (past 512; `csrc/attention_fp32.cu`: one tf32 product of the exact
+bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF
+and K6BWF (3xTF32). Those sum the scores over
 128-wide chunks of the head, staged through shared memory a chunk at a
 time, and a block writes one 128-wide column slice of the output, so their
 shared memory does not grow with the head dim. `flash_kernel` names the
@@ -92,6 +98,8 @@ WGMMA_SLICED = (384, 512)       # 128: at 256, and in two column slices at
                                 # 384, 512 (K5, K6a, K6b and the fused
                                 # kernels)
 WGMMA_PAST_128 = (WGMMA_WIDE, *WGMMA_SLICED)
+WGMMA_PAST_512 = (768, 1024)    # and the forwards' past 512, in four
+                                # column slices (K5, the fused kernels)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -133,6 +141,10 @@ K5_256 = Kernel("flash_attention_fwd_256", "attention_sm90.cu",
 K5_384, K5_512 = (Kernel(f"flash_attention_fwd_{d}", "attention_sm90.cu",
                          "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
                   for d in WGMMA_SLICED)
+# and at 768 (513 to 768) and 1024 (769 to 1024)
+K5_768, K5_1024 = (Kernel(f"flash_attention_fwd_{d}", "attention_sm90.cu",
+                          "sd3_flash_attention_fwd", argtypes=_FWD_ARGS)
+                   for d in WGMMA_PAST_512)
 # K6a and K6b on bf16 at head dims 256 (129 to 256, padded), 384 (257 to
 # 384) and 512 (385 to 512): the wgmma backward's instances there, each
 # counted apart from K6A's and K6B's
@@ -144,7 +156,8 @@ K6B_256, K6B_384, K6B_512 = (
     Kernel(f"flash_attention_dkv_{d}", "flash_bwd_sm90.cu",
            "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
     for d in WGMMA_PAST_128)
-_WGMMA = {"fwd": {WGMMA_WIDE: K5_256, 384: K5_384, 512: K5_512},
+_WGMMA = {"fwd": {WGMMA_WIDE: K5_256, 384: K5_384, 512: K5_512,
+                 768: K5_768, 1024: K5_1024},
           "dq": {WGMMA_WIDE: K6A_256, 384: K6A_384, 512: K6A_512},
           "dkv": {WGMMA_WIDE: K6B_256, 384: K6B_384, 512: K6B_512}}
 # (bf16, fp32) kernels up to 128 and past it
@@ -159,9 +172,10 @@ def flash_kernel(which: str, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel of `which` ("fwd", "dq" or "dkv") for tensors of `dtype`
     at head dim d: up to 128 K5 / K6a / K6b (fp32: their F instances); on
     bf16 at 129 to 512 their wgmma instances at 256, 384 and 512 (K5_256,
-    K6A_256, K6B_256 .. K6B_512); past 512, and fp32 at every head dim past
-    128, the wide mma.sync instances (W, WF)."""
-    dp = instance_dim(d)
+    K6A_256, K6B_256 .. K6B_512), and the forward's at 513 to 1024 too
+    (K5_768, K5_1024); past those, and fp32 at every head dim past 128,
+    the wide mma.sync instances (W, WF)."""
+    dp = forward_dim(d, dtype) if which == "fwd" else instance_dim(d)
     fp32 = dtype == torch.float32
     if dp in _WGMMA[which] and not fp32:
         return _WGMMA[which][dp]
@@ -253,6 +267,17 @@ def instance_dim(d: int) -> int:
     return -(-d // WIDE) * WIDE
 
 
+def forward_dim(d: int, dtype: torch.dtype) -> int:
+    """The head dim of the forward instance (K5, and the fused kernels K1
+    .. K8b) that takes head dim d on `dtype`: `instance_dim(d)`, but on bf16
+    513 to 768 values run at 768 and 769 to 1024 at 1024 (WGMMA_PAST_512),
+    past which the wide instances take every multiple of WIDE again."""
+    dp = instance_dim(d)
+    if dtype != torch.float32 and WGMMA_SLICED[-1] < dp <= WGMMA_PAST_512[-1]:
+        return next(e for e in WGMMA_PAST_512 if dp <= e)
+    return dp
+
+
 def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
     """t zero-padded on its last (head) dim to dp values."""
     d = t.shape[-1]
@@ -313,14 +338,15 @@ def _operands(ts, dp):
 
 
 def flash_fwd(q, k, v, scale: float):
-    """K5 (fp32 tensors: K5F; head dims past 128: K5W / K5WF): (out in q's
-    dtype, lse fp32 (B, H, N)) of q (B, H, N, D) and k, v (B, H, M, D);
-    its plain version on the CPU."""
+    """K5 (fp32 tensors: K5F; bf16 at 129 to 1024: K5_256 .. K5_1024;
+    past that, and fp32 past 128: K5W / K5WF): (out in q's dtype, lse fp32
+    (B, H, N)) of q (B, H, N, D) and k, v (B, H, M, D); its plain version
+    on the CPU."""
     if q.device.type != "cpu":
         kern = _check_cuda("fwd", (q,), (k, v))
     b, h, n, d = q.shape
     m = k.shape[2]
-    dp = instance_dim(d)
+    dp = forward_dim(d, q.dtype)
     q, k, v = _operands((q, k, v), dp)
     if q.device.type == "cpu":
         out, lse = flash_fwd_plain(q, k, v, scale)

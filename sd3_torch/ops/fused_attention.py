@@ -51,15 +51,23 @@ same wgmma + TMA kernels and entry points at D = 256, counted apart (a
 consumer's P.V lands before its next scores, K1 / K7 take 64-key tiles
 (K7 rounds p over `K7_KEY_TILE_256` keys), the int8 kernels keep their
 128-key tiles and K8b's s8 P.V runs in four 64-column parts: the sources'
-heads say why); and at 384 and 512 (`WGMMA_SLICED`): K1_384 .. K8B_384,
+heads say why); at 384 and 512 (`WGMMA_SLICED`): K1_384 .. K8B_384,
 K1_512 .. K8B_512, where each consumer warpgroup computes the scores over
 the whole head and writes one of two column slices of the output (192 /
 256 columns: the registers of one wgmma's accumulator; K1 / K7's two
 consumers share 64 query rows, the int8 kernels' slice is a grid
 dimension), K1 / K7 on 32-key tiles (K7's p
 over `K7_KEY_TILE_512` keys), the int8 kernels on their 128-key tiles
-with K in sub-tiles where a whole-head bf16 K tile does not fit twice.
-Past 512 on bf16, and past 128 on fp32, every kernel runs
+with K in sub-tiles where a whole-head bf16 K tile does not fit twice;
+and at 768 and 1024 (`WGMMA_PAST_512`: heads of 513 to 1024 values,
+`forward_dim`): K1_768 .. K8B_768, K1_1024 .. K8B_1024, where the output
+is cut into four slices of D / 4 (192 / 256 columns) and every kernel's
+CTA takes 64 query rows whose two consumers share q^ and write one pair
+of slices, the pair a grid dimension; K1 / K7 on 64-key tiles (K7's p
+over `K7_KEY_TILE_1024` keys) with K in chunks of 128 values of the head,
+the int8 kernels on their 128-key tiles with K in chunks of 128 bytes of
+the head and bf16 V in 32-key sub-tiles.
+Past 1024 on bf16, and past 128 on fp32, every kernel runs
 on one set of instances for every multiple of 128 (`csrc/attention_fp32.cu`:
 K1W, K7W, K4W, K7QW, K8AW, K8BW and their F instances): q and k prepped in
 their own launches (the RMSNorm over the true head dim, then the rotation,
@@ -70,7 +78,8 @@ time, each block writing one 128-wide column slice of the output, so that
 shared memory does not grow with the head dim. `kernel_for` names the
 kernel of each (kernel, dtype, head dim). Any other head dim is
 zero-padded to the next instance (48 to 64, 160 and 192 to 256, 300 to
-384, 400 to 512), q / k / v and the tables zero-padded on each head and the output
+384, 400 to 512, on bf16 640 to 768 and 1000 to 1024), q / k / v and
+the tables zero-padded on each head and the output
 sliced back, the true head dim passed to the prep so that its RMSNorm
 takes the mean over the head's own values.
 
@@ -103,8 +112,9 @@ import torch
 
 from sd3_torch.kernels import Kernel, check
 from sd3_torch.ops.flash_attention import (HEAD_DIMS, WGMMA_PAST_128,
-                                           WGMMA_SLICED, WGMMA_WIDE,
-                                           flash_attention, instance_dim)
+                                           WGMMA_PAST_512, WGMMA_SLICED,
+                                           WGMMA_WIDE, flash_attention,
+                                           forward_dim, instance_dim)
 from sd3_torch.ops.quant import scale_of
 from sd3_torch.ops.rope import _rotate_half_interleaved
 
@@ -128,6 +138,9 @@ K7Q_KEY_TILE = 128
 # q^ of 96 / 128 KB)
 K7_KEY_TILE_256 = 64
 K7_KEY_TILE_512 = 32
+# and at 768 and 1024 (PAST_512_KEY_TILE: 64-key tiles, their K in chunks
+# of 128 values of the head beside q^ of 96 / 128 KB)
+K7_KEY_TILE_1024 = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # K1 and K7 (and their fp32 instances) share one signature: q, k, v, the
@@ -184,26 +197,27 @@ K7QW, K7QWF, _ = _WIDE[K7Q]
 K8AW, K8AWF, _ = _WIDE[K8A]
 K8BW, K8BWF, _ = _WIDE[K8B]
 _MMA_WIDE = {kern for w in _WIDE.values() for kern in w[:2]}
-# bf16 at head dims 256 (129 to 256, padded), 384 (257 to 384) and 512
-# (385 to 512): the wgmma kernels' instances there (csrc/attention_sm90.cu,
-# csrc/attention_int8_sm90.cu at D = 256, 384, 512), the same entry points
-# as K1 .. K8b, counted apart
+# bf16 at head dims 256 (129 to 256, padded), 384 (257 to 384), 512 (385
+# to 512), 768 (513 to 768) and 1024 (769 to 1024): the wgmma kernels'
+# instances there (csrc/attention_sm90.cu, csrc/attention_int8_sm90.cu at
+# D = 256 .. 1024), the same entry points as K1 .. K8b, counted apart
 _WGMMA_PAST_128 = {
     dp: {k: Kernel(f"{k.name}_{dp}", k.source, k.symbol, argtypes=k.argtypes)
          for k in (K1, K7, K4, K7Q, K8A, K8B)}
-    for dp in WGMMA_PAST_128}
-_D256, _D384, _D512 = _WGMMA_PAST_128.values()
+    for dp in (*WGMMA_PAST_128, *WGMMA_PAST_512)}
+_D256, _D384, _D512, _D768, _D1024 = _WGMMA_PAST_128.values()
 K1_256, K7_256, K4_256, K7Q_256, K8A_256, K8B_256 = _D256.values()
 Q8_EPS = 1e-12  # q / k / v int8 scale floor (JAX fused_attention.py:122,256)
 
 
 def kernel_for(base: Kernel, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel that runs `base` (K1, K7, K4, K7q, K8a or K8b) on q / k /
-    v of `dtype` at head dim d (padded to `instance_dim(d)`): up to 128
-    `base` (fp32: its F instance, `_FP32`); bf16 at 129 to 512 its wgmma
-    instance at 256, 384 or 512 (`_D256`, `_D384`, `_D512`); past 512 in
-    bf16, and fp32 past 128, its wide mma.sync instance (`_WIDE`)."""
-    dp = instance_dim(d)
+    v of `dtype` at head dim d (padded to `forward_dim(d, dtype)`): up to
+    128 `base` (fp32: its F instance, `_FP32`); bf16 at 129 to 1024 its
+    wgmma instance at 256, 384, 512, 768 or 1024 (`_D256` .. `_D1024`);
+    past 1024 in bf16, and fp32 past 128, its wide mma.sync instance
+    (`_WIDE`)."""
+    dp = forward_dim(d, dtype)
     fp32 = dtype == torch.float32
     if dp <= HEAD_DIMS[-1]:
         return _FP32[base] if fp32 else base
@@ -216,15 +230,17 @@ def stream_key_tile(int8_qk: bool, int8_pv: bool, d: int) -> int:
     """The key tile over which the card's bf16 streaming kernel at head dim
     d rounds p (the plain version's `block_k` for holding it to the card):
     K8b's K8B_KEY_TILE, K7q's K7Q_KEY_TILE, K7's K7_KEY_TILE, at 129 to 256
-    K7_KEY_TILE_256, at 257 to 512 K7_KEY_TILE_512 (past 512 the mma.sync
-    instance's K7_KEY_TILE)."""
+    K7_KEY_TILE_256, at 257 to 512 K7_KEY_TILE_512, at 513 to 1024
+    K7_KEY_TILE_1024 (past 1024 the mma.sync instance's K7_KEY_TILE)."""
     if int8_pv:
         return K8B_KEY_TILE
     if int8_qk:
         return K7Q_KEY_TILE
-    dp = instance_dim(d)
+    dp = forward_dim(d, torch.bfloat16)
     if dp == WGMMA_WIDE:
         return K7_KEY_TILE_256
+    if dp in WGMMA_PAST_512:
+        return K7_KEY_TILE_1024
     return K7_KEY_TILE_512 if dp in WGMMA_SLICED else K7_KEY_TILE
 
 
@@ -509,9 +525,11 @@ def _launch(kern: Kernel, q, k, v, cq, sq, ck, sk, eps_q, eps_k,
     if d * num_heads != f or d % 2:
         raise ValueError(f"{f} features / {num_heads} heads: the heads must "
                          "be of one even head dim (the rotation takes pairs)")
-    base, dp = kern, instance_dim(d)
+    base = kern
     kern = route or kernel_for(base, q.dtype, d)
     wide = kern in _MMA_WIDE
+    # the wide instances take every multiple of 128, the others their own
+    dp = instance_dim(d) if wide else forward_dim(d, q.dtype)
     cq, sq, ck, sk = (t.to(q.device, torch.float32).contiguous()
                       for t in (cq, sq, ck, sk))
     for t in (cq, sq, ck, sk):

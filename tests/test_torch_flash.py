@@ -283,6 +283,21 @@ def test_plain_forward_at_head_dim_384_and_a_key_length_of_its_own(shape):
     _close(lse, _jax_lse(q, k, v, scale))
 
 
+@pytest.mark.parametrize("shape", [(1, 2, 70, 35, 640),
+                                   (1, 1, 40, 90, 640)])
+def test_plain_forward_at_head_dim_640_and_a_key_length_of_its_own(shape):
+    # the plain version the card's K5_768 is held to (bf16 heads of 640 run
+    # padded at 768): JAX's flash_attention at head dim 640 (five 128-lane
+    # blocks), k and v of M = N / 2 and of M > N keys; ATOL / RTOL
+    q, k, v, _, scale = _kv_case(shape, seed=640)
+    assert tfl.flash_kernel("fwd", torch.bfloat16, 640) is tfl.K5_768
+    want = jfa.flash_attention(*map(jnp.asarray, (q, k, v)), scale)
+    out, lse = tfl.flash_fwd_plain(_t(q), _t(k), _t(v), scale)
+    assert out.shape == q.shape and lse.shape == q.shape[:3]
+    _close(out, want)
+    _close(lse, _jax_lse(q, k, v, scale))
+
+
 @pytest.mark.parametrize("shape", KV_SHAPES)
 def test_plain_backward_at_a_key_length_of_their_own(shape):
     # dq (B, H, N, D) and delta (B, H, N) by query row, dk, dv (B, H, M, D)

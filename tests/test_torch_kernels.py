@@ -185,7 +185,8 @@ def test_every_kernel_symbol_is_in_its_source():
               tfa.K8BW, tfa.K8BWF, tfa.K1_256, tfa.K7_256, tfa.K4_256,
               tfa.K7Q_256, tfa.K8A_256, tfa.K8B_256, tfl.K5_256,
               *tfa._D384.values(), *tfa._D512.values(), tfl.K5_384,
-              tfl.K5_512, tfl.K6A_256, tfl.K6B_256):
+              tfl.K5_512, tfl.K6A_256, tfl.K6B_256, *tfa._D768.values(),
+              *tfa._D1024.values(), tfl.K5_768, tfl.K5_1024):
         assert k in kernels.REGISTRY
         src = (kernels.CSRC_DIR / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in src, k.name
@@ -422,29 +423,97 @@ def test_head_dim_384_512_instances_fit_in_shared_memory(source, struct,
                                      else map(bool, variant)))["DV"] == 256
 
 
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("source,struct,variant", D256_INSTANCES)
+def test_head_dim_768_1024_instances_fit_in_shared_memory(source, struct,
+                                                          variant, d):
+    # the wgmma kernels' D = 768 and 1024 instances (K1, K7, K5; K4, K7q,
+    # K8a over both scores, K8b over both): four column slices of D / 4
+    # (the registers of one wgmma's accumulator), a CTA's two consumers on
+    # the same 64 query rows writing one pair of them, the pair a grid
+    # dimension, and the V stages holding the pair's columns; K1 / K7 / K5
+    # on 64-key tiles whose K comes in chunks of 128 values of the head (at
+    # 768 the scores computed by one consumer and handed over), the
+    # int8 kernels on 128-key tiles whose K comes in chunks of 128 bytes of
+    # the head (bf16 V in 32-key sub-tiles); the
+    # shared memory their launches ask for, from the source's own constants
+    # and struct members, within one block's limit, and an instance of each
+    # behind its dispatch
+    src = (kernels.CSRC_DIR / source).read_text()
+    c = _CSource("sm90.cuh", source)
+    assert "static_assert(BYTES <= 232448" in src
+    if struct == "Sm90":
+        kt = c.eval("PAST_512_KEY_TILE", {})
+        assert kt == tfa.K7_KEY_TILE_1024 == 64
+        assert re.search(r": D > 512 \? PAST_512_KEY_TILE", src)
+        smem = c.instance("Sm90", d, kt)
+        assert smem["SLICED"] and smem["CHUNKED"] and smem["PAIRS"] == 2
+        assert smem["ROWS"] == 64 and smem["Q_TILES"] == 1
+        assert smem["DV"] == d // 4 and smem["VCOLS"] == d // 2
+        assert smem["KCOLS"] == c.eval("K_CHUNK", {}) == 128
+        assert smem["KV_TILE"] == kt * 128 * 2
+        assert smem["V_TILE"] == smem["VSUB"] * d // 2 * 2
+        assert smem["VSUB"] == 32 and kt // smem["VSUB"] <= smem["V_STAGES"]
+        assert smem["STAGES"] >= 2 and smem["V_STAGES"] >= 2
+        # at 768 consumer 0 alone computes S and hands p to consumer 1
+        # through an exchange in shared memory; at 1024 both compute S
+        assert smem["SHARED_S"] == (d == 768)
+        assert (smem["X_TILE"] > 0) == (d == 768)
+        assert f"case {d}: return launch_sm90<{d}, SM>(a);" in src
+        assert f"case {d}: return launch_flash<{d}>(" in src
+    else:
+        smem = c.instance("SmemI8", d, *map(bool, variant))
+        assert smem["PAIRED"] and smem["ROWS"] == 64 and smem["Q_TILES"] == 1
+        assert smem["DV"] == d // 4 and smem["VCOLS"] == d // 2
+        # whole 128-key tiles, K in chunks of 128 bytes of each row
+        assert smem["KSUB"] == 128 and smem["KCOLS"] == 128
+        assert smem["KCH"] == d * (1 if variant[0] else 2) // 128
+        assert smem["K_TILE"] == 128 * 128
+        assert smem["KST"] >= 2 and smem["VST"] >= 1
+        assert 128 % smem["VSUB"] == 0
+        if smem["VSUB"] < 128:  # V sub-tiles: one read, one landing
+            assert smem["VST"] >= 2
+        assert (f"case {d}: return launch_int8<{d}, QK8, PV8, TWO_PASS>(a);"
+                in src)
+    assert smem["BYTES"] <= SMEM_PER_BLOCK, (variant, smem)
+    # the instances up to 512 keep their layouts
+    if struct == "Sm90":
+        assert not c.instance("Sm90", 512, c.eval("SLICE_KEY_TILE", {}))[
+            "CHUNKED"]
+    else:
+        assert not c.instance("SmemI8", 512, *map(bool, variant))["PAIRED"]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 300, 384, 512, 640])
+@pytest.mark.parametrize("d", [64, 128, 160, 192, 256, 300, 384, 512, 640,
+                               700, 768, 896, 1000, 1024, 1152])
 def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     # (dtype, head dim) -> the kernel each entry point launches: up to 128
     # the wgmma kernels (fp32: their F instances); bf16 at 129-256 (padded
-    # to 256), 257-384 and 385-512 the wgmma kernels' D = 256, 384 and 512
-    # instances, counted apart, from the same sources and entry points;
-    # past 512 in bf16, and past 128 in fp32, the wide mma.sync instances
-    # of attention_fp32.cu; the flash backward in bf16 at 129-256, 257-384
-    # and 385-512 the wgmma backward's D = 256, 384 and 512 instances
-    # (K6A_256 .. K6B_512), past 512 the wide mma.sync ones
+    # to 256), 257-384, 385-512, 513-768 and 769-1024 the wgmma kernels' D
+    # = 256, 384, 512, 768 and 1024 instances, counted apart, from the same
+    # sources and entry points; past 1024 in bf16, and past 128 in fp32, the
+    # wide mma.sync instances of attention_fp32.cu; the flash backward in
+    # bf16 at 129-256, 257-384 and 385-512 the wgmma backward's D = 256, 384
+    # and 512 instances (K6A_256 .. K6B_512), past 512 the wide mma.sync
+    # ones
     fp32 = dtype == torch.float32
     dp = tfl.instance_dim(d)
+    fwd_dp = tfl.forward_dim(d, dtype)
+    assert fwd_dp == (dp if fp32 or not 512 < d <= 1024
+                      else 768 if d <= 768 else 1024)
     bases = (tfa.K1, tfa.K7, tfa.K4, tfa.K7Q, tfa.K8A, tfa.K8B)
-    sets = {256: tfa._D256, 384: tfa._D384, 512: tfa._D512}
+    sets = {256: tfa._D256, 384: tfa._D384, 512: tfa._D512, 768: tfa._D768,
+            1024: tfa._D1024}
     for base in bases:
         kern = tfa.kernel_for(base, dtype, d)
         if dp <= 128:
             assert kern is (tfa._FP32[base] if fp32 else base)
-        elif dp in sets and not fp32:
-            assert kern is sets[dp][base]
+        elif fwd_dp in sets and not fp32:
+            dp_k = fwd_dp
+            assert kern is sets[dp_k][base]
             assert (kern.source, kern.symbol) == (base.source, base.symbol)
-            assert kern.name == f"{base.name}_{dp}"
+            assert kern.name == f"{base.name}_{dp_k}"
             assert kern.source in ("attention_sm90.cu",
                                    "attention_int8_sm90.cu")
         else:
@@ -463,10 +532,15 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
         want = (tfl.K5_384, tfl.K6A_384, tfl.K6B_384)
     elif dp == 512:
         want = (tfl.K5_512, tfl.K6A_512, tfl.K6B_512)
+    elif fwd_dp == 768:
+        want = (tfl.K5_768, tfl.K6AW, tfl.K6BW)
+    elif fwd_dp == 1024:
+        want = (tfl.K5_1024, tfl.K6AW, tfl.K6BW)
     else:
         want = (tfl.K5W, tfl.K6AW, tfl.K6BW)
     assert (fwd, dq, dkv) == want
-    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
+    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512, tfl.K5_768,
+               tfl.K5_1024):
         assert (k5.source, k5.symbol) == (tfl.K5.source, tfl.K5.symbol)
     for e in tfl.WGMMA_PAST_128:
         for small in (tfl.K6A, tfl.K6B):
@@ -480,6 +554,7 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     tile = tfa.stream_key_tile(False, False, d)
     assert tile == (tfa.K7_KEY_TILE_256 if dp == 256
                     else tfa.K7_KEY_TILE_512 if dp in (384, 512)
+                    else tfa.K7_KEY_TILE_1024 if 512 < d <= 1024
                     else tfa.K7_KEY_TILE)
     assert tfa.stream_key_tile(True, False, d) == tfa.K7Q_KEY_TILE
     assert tfa.stream_key_tile(False, True, d) == tfa.K8B_KEY_TILE
@@ -568,10 +643,10 @@ def test_flash_forward_is_the_hopper_attention_source():
     assert tfl.K5.source == tfa.K1.source == tfa.K7.source
     src = (kernels.CSRC_DIR / tfl.K5.source).read_text()
     entry = src[src.index('extern "C" int sd3_flash_attention_fwd('):]
-    for d in (*tfl.HEAD_DIMS, *tfl.WGMMA_PAST_128):
+    for d in (*tfl.HEAD_DIMS, *tfl.WGMMA_PAST_128, *tfl.WGMMA_PAST_512):
         assert f"launch_flash<{d}>" in entry, d
     assert "launch_flash<640>" not in entry
-    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512):
+    for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512, tfl.K5_768, tfl.K5_1024):
         assert k5.source == tfl.K5.source
         assert k5.symbol == tfl.K5.symbol
     assert tfl.K5W.source == "attention_fp32.cu"
@@ -1307,10 +1382,11 @@ def test_fused_attention_past_head_dim_128_on_the_card(
     base = tfa._INFERENCE.get((int8_qk, int8_pv, streaming),
                               (tfa.K7 if streaming else tfa.K1,))[0]
     fp32 = dtype == torch.float32
-    # bf16 up to 512: the wgmma kernels (D 256, 384, 512: their instances
-    # there); past it, and fp32 past 128, the wide mma.sync instances
+    # bf16 up to 1024: the wgmma kernels (D 256, 384, 512, 768, 1024: their
+    # instances there); past it, and fp32 past 128, the wide mma.sync
+    # instances
     kern = tfa.kernel_for(base, dtype, d)
-    if not fp32 and d <= 512:
+    if not fp32 and d <= 1024:
         assert kern.source in ("attention_sm90.cu", "attention_int8_sm90.cu")
     else:
         assert kern.source == "attention_fp32.cu"
@@ -1344,6 +1420,68 @@ def test_fused_attention_past_head_dim_128_on_the_card(
             INT8_FP32_REL_L2, (max_rel, _rel_l2(got, want))
     else:
         assert _rel_l2(got, want) <= FP32_REL_L2, _rel_l2(got, want)
+
+
+# bf16 head dims past 512 on the wgmma kernels' D = 768 and 1024 instances
+# (K1_768 .. K8B_1024): 640 and 768 (768), 1000 and 1024 (1024), one head
+# each, at ragged lengths (a last key tile of few keys; two 128-key tiles
+# past 128 tokens), and past 1024 the wide mma.sync instances (1152)
+PAST_512_SHAPES = [(1, 640, 5, 6, 7), (1, 768, 6, 7, 3), (1, 1000, 7, 9, 4),
+                   (1, 1024, 12, 13, 20), (1, 1152, 5, 6, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", WIDE_VARIANTS)
+@pytest.mark.parametrize("nh,d,h,w,n_txt", PAST_512_SHAPES)
+def test_fused_attention_past_head_dim_512_on_the_card(
+        cuda_device, nh, d, h, w, n_txt, int8_qk, int8_pv, streaming):
+    # every fused kernel on bf16 at head dims past 512, padded to the wgmma
+    # kernels' D = 768 / 1024 instances (past 1024 the wide ones), against
+    # its plain version on the same inputs within its family's limit (bf16
+    # 1e-2, int8 3e-2), the same bits from two calls, and the plain version
+    # at twice the scale, a control that must miss the limit
+    q, k, v, ws, angles, n_img, scale = _attn_case(nh, d, h, w, n_txt, True,
+                                                   seed=d)
+    dev = cuda_device
+    n = q.shape[1]
+    qd, kd, vd = (_t(a).to(dev, torch.bfloat16) for a in (q, k, v))
+    cos, sin = (torch.as_tensor(t) for t in tfa.rope_row_tables(angles, n, d))
+    tabs = (*tfa.fold_row_tables(cos, sin, _t(ws[0]), _t(ws[1]), n_img),
+            *tfa.fold_row_tables(cos, sin, _t(ws[2]), _t(ws[3]), n_img))
+    base = tfa._INFERENCE.get((int8_qk, int8_pv, streaming),
+                              (tfa.K7 if streaming else tfa.K1,))[0]
+    kern = tfa.kernel_for(base, torch.bfloat16, d)
+    dp = tfl.forward_dim(d, torch.bfloat16)
+    if d <= 1024:
+        assert kern is tfa._WGMMA_PAST_128[dp][base]
+        assert kern.name == f"{base.name}_{dp}" and dp in (768, 1024)
+    else:
+        assert kern is tfa._WIDE[base][0]
+    run = lambda s: tfa.fused_attention(
+        qd, kd, vd, nh, *(t.to(dev) for t in tabs), s, int8_qk=int8_qk,
+        int8_pv=int8_pv, single_kv_max=0 if streaming else 2048)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    got = run(scale)
+    again = run(scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kern.name: 2}
+    assert torch.equal(got, again)
+    assert got.dtype == torch.bfloat16 and got.shape == qd.shape
+    eps = float(torch.finfo(torch.bfloat16).eps)
+    ins = [t.float().cpu() for t in (qd, kd, vd)] + [*tabs]
+    kw = dict(int8_pv=True) if int8_pv else {}
+    if streaming:  # the kernels' key tiles
+        kw["block_k"] = tfa.stream_key_tile(int8_qk, int8_pv, d)
+        plain = (tfa.composition_stream_int8_qk if int8_qk
+                 else tfa.composition_stream)
+    else:
+        plain = tfa.composition_int8_qk if int8_qk else tfa.composition
+    want = plain(*ins, scale, eps, eps, nh, **kw)
+    control = plain(*ins, 2 * scale, eps, eps, nh, **kw)
+    got = got.float().cpu()
+    atol = 3e-2 if (int8_qk or int8_pv) else 1e-2
+    assert (got - want).abs().max().item() <= atol
+    assert (got - control).abs().max().item() > atol
 
 
 # ---- training: K5, K6a, K6b and the gradient rules ----------------------
@@ -2040,9 +2178,9 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     torch.cuda.synchronize()
     fwd, dq_k, dkv_k = (tfl.flash_kernel(w, torch.bfloat16, shape[-1])
                         for w in ("fwd", "dq", "dkv"))
-    assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 512)
-    assert fwd is ({256: tfl.K5_256, 384: tfl.K5_384, 512: tfl.K5_512}.get(
-        tfl.instance_dim(shape[-1]), tfl.K5W))
+    assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 1024)
+    assert fwd is tfl._WGMMA["fwd"].get(
+        tfl.forward_dim(shape[-1], torch.bfloat16), tfl.K5W)
     dp = tfl.instance_dim(shape[-1])
     assert (dq_k, dkv_k) == (
         (tfl._WGMMA["dq"][dp], tfl._WGMMA["dkv"][dp]) if dp <= 512
@@ -2074,6 +2212,46 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                 dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
     assert all(e <= FP32_REL_L2 for e in errs.values()), errs
     assert (lse - w_lse).abs().max().item() <= 1e-5
+
+
+# K5 on bf16 past head dim 512 (K5_768, K5_1024; past 1024 K5W): 640 and
+# 768, 1000 and 1024 at ragged lengths, with keys of a length of their own
+# (M < N, M > N), and 1152 (B, H, N, M, D)
+FLASH_PAST_512_SHAPES = [(1, 2, 65, 65, 640), (2, 2, 129, 300, 768),
+                         (1, 2, 300, 150, 1000), (1, 1, 1178, 1178, 1024),
+                         (1, 2, 65, 33, 1152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_PAST_512_SHAPES)
+def test_flash_forward_past_head_dim_512_on_the_card(cuda_device, no_tf32,
+                                                     shape):
+    # K5_768 / K5_1024 (K5W past 1024) against the plain forward in fp32 on
+    # the same bf16 inputs within the FLASH limits, the same bits from two
+    # calls, and the plain version at twice the scale, a control that must
+    # miss the output's limit
+    b, h, n, m, d = shape
+    r = np.random.default_rng(11)
+    q, k, v = (_t(r.standard_normal((b, h, rows, d))).to(
+        cuda_device, torch.bfloat16) for rows in (n, m, m))
+    scale = d ** -0.5
+    kern = tfl.flash_kernel("fwd", torch.bfloat16, d)
+    assert kern is ({768: tfl.K5_768, 1024: tfl.K5_1024}.get(
+        tfl.forward_dim(d, torch.bfloat16), tfl.K5W))
+    assert (kern.source == "attention_sm90.cu") == (d <= 1024)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    out, lse = tfl.flash_fwd(q, k, v, scale)
+    out2, lse2 = tfl.flash_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kern.name: 2}
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert out.shape == q.shape and lse.shape == (b, h, n)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    w_out, w_lse = tfl.flash_fwd_plain(qf, kf, vf, scale)
+    c_out, _ = tfl.flash_fwd_plain(qf, kf, vf, 2 * scale)
+    assert (out.float() - w_out).abs().max().item() <= FLASH_OUT_ATOL
+    assert (lse - w_lse).abs().max().item() <= FLASH_LSE_ATOL
+    assert (out.float() - c_out).abs().max().item() > FLASH_OUT_ATOL
 
 
 # (B, H, N, M, D): k and v with a key length M of their own, as

@@ -124,6 +124,28 @@ def test_one_block_at_published_widths_matches_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
 
 
+def test_one_block_of_two_heads_of_640_matches_jax():
+    # dim 1280 in two heads of 640, whose attention takes the general path
+    # (640 does not divide 128) through flash attention: K5_768 on the card,
+    # its plain version here; one block, a 4x4 token grid, against JAX
+    # through state_dict_from_jax, ATOL / RTOL
+    from sd3_torch.ops import flash_attention as tfl
+    jcfg = j_tiny_config(attn_type="softmax_flash", dim=1280, num_heads=2,
+                         num_blocks=1, dtype="float32")
+    assert jcfg.dim // jcfg.num_heads == 640
+    assert tfl.flash_kernel("fwd", torch.bfloat16, 640) is tfl.K5_768
+    jm, params = init_mmdit(jcfg, jax.random.PRNGKey(9), height=8, width=8,
+                            remat_blocks=False)
+    x, t, c, cp = _inputs(jcfg, b=1, seed=10)
+    want = jm.apply({"params": params}, *map(jnp.asarray, (x, t, c, cp)))
+    model = _port_model(jcfg, params)
+    before = tfl.K5_768.launches
+    with torch.no_grad():
+        got = model(*map(_t, (x, t, c, cp)))
+    assert tfl.K5_768.launches == before
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
 def test_weight_carrier_round_trip_and_reference_buffers():
     jcfg = j_tiny_config(attn_type="softmax_flash")
     _, params = init_mmdit(jcfg, jax.random.PRNGKey(9), remat_blocks=False)

@@ -162,6 +162,23 @@ def test_stream_plain_at_the_head_dim_512_tile_matches_jax_kernel(
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+def test_stream_plain_at_the_head_dim_1024_tile_matches_jax_kernel(
+        monkeypatch):
+    # past head dim 512 the card's K7 (K7_768, K7_1024) rounds p against the
+    # running max of K7_KEY_TILE_1024-key tiles (64 keys, their K in chunks
+    # of 128 values of the head): the plain version over those blocks, at
+    # head dim 640 (run at 768 on the card) and 230 tokens (a ragged last
+    # tile; JAX's kernel takes keys padded to a multiple of 128), against
+    # JAX at the same blocks (SD3_FLASH_BK), tolerance ATOL / RTOL
+    case = _case(1, 640, 10, 20, 30, True, seed=13, b=1)
+    got, want, _ = _both(case, 1, block_k=tfa.K7_KEY_TILE_1024,
+                         monkeypatch=monkeypatch)
+    assert case[0].shape[1] % tfa.K7_KEY_TILE_1024 != 0
+    assert all(tfa.stream_key_tile(False, False, d) == tfa.K7_KEY_TILE_1024
+               for d in (513, 640, 768, 1000, 1024))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("int8_qk", [False, True])
 @pytest.mark.parametrize("nh,d", [(1, 16), (3, 32)])
 def test_int8_pv_plain_at_the_card_tile_matches_jax_kernel(monkeypatch, nh,
@@ -299,3 +316,25 @@ def test_int8_kernels_refuse_gradients(int8_qk, int8_pv, streaming):
     with torch.no_grad():
         out = tfa.fused_attention(qt, _t(k), _t(v), 2, *tabs, scale, **kw)
     assert out.shape == qt.shape and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("int8_qk,int8_pv,streaming", D384_VARIANTS)
+@pytest.mark.parametrize("d", [640, 1000])
+def test_head_dims_past_512_plain_versions_match_jax_kernel(
+        monkeypatch, d, int8_qk, int8_pv, streaming):
+    # the plain versions the card's D = 768 and 1024 instances are held to
+    # (640 and 1000 run there padded), K1, K7, K4, K7q, K8a and K8b over
+    # both scores, against JAX's kernels on one head at 230 tokens (past
+    # JAX's streaming length here, 128, and padded by its kernel to a
+    # multiple of 128 from the card's 64-key tiles; a ragged last key
+    # tile), the streaming ones over the card's key tiles (stream_key_tile:
+    # K7's 64, K7q's and K8b's 128), in this file's tolerances
+    case = _case(1, d, 10, 20, 30, True, seed=d, b=1)
+    block_k = tfa.stream_key_tile(int8_qk, int8_pv, d)
+    got, want, flt = _both(case, 1, int8_qk, int8_pv, streaming,
+                           block_k=block_k, monkeypatch=monkeypatch)
+    atol = (INT8_PV_ATOL if int8_pv else INT8_QK_ATOL if int8_qk else ATOL)
+    np.testing.assert_allclose(got, want, atol=atol,
+                               rtol=0 if (int8_qk or int8_pv) else RTOL)
+    if int8_qk or int8_pv:  # the int8 products are not the float ones
+        assert np.abs(flt - got).max() > atol
