@@ -63,8 +63,11 @@ Phases (any failure exits non-zero without the final ok line):
      kernels in two column slices, with the same controls; also at M != N,
      and K6A_384, K6B_384 at phase 4c's shape, B 2, H 3, N 410; the
      K6a / K6b instances at 256-512 the same bits twice), 640 (K5_768,
-     the forward's wgmma instance in four column slices, K6AW, K6BW past
-     the backward's), 1024 (K5_1024), 1152 (K5W past them) and fp32 at
+     K6A_768, K6B_768, the wgmma instances in four column slices, with the
+     same controls, K6AW and K6BW timed beside them once), 1024 (K5_1024,
+     K6A_1024, K6B_1024, the same way), the D = 768 / 1024 backward also
+     at M != N and at phase 4d's shape (B 2, H 2, N 410, D 640) with the
+     controls, 1152 (K5W, K6AW, K6BW past them) and fp32 at
      256-512 (K5WF, K6AWF, K6BWF), the bf16 forwards with a control (the
      plain version at twice the scale) that must fail its limit, then
      through the flash API, which counts their launches; the fused route
@@ -78,9 +81,8 @@ Phases (any failure exits non-zero without the final ok line):
      with five heads of 256 (K1_256 .. K8B_256 with controls, K1WF ..
      K8BWF; the streaming ones forced there), of 384 and 512 (K1_384 ..
      K8B_512, with controls), two of 640 and two of 1024 (K1_768 ..
-     K8B_1024, with controls, the wide mma.sync instance timed beside
-     each) and two of 1152 (K1W .. K8BW), their launches counted through
-     the attention API.
+     K8B_1024, with controls) and two of 1152 (K1W .. K8BW), their
+     launches counted through the attention API.
      Kernel (CUDA graph), eager, plain-version and library times
      (attention: scaled_dot_product_attention on bf16, forward, or backward
      on the card alone: each backend pinned, the CUDA graph of forward +
@@ -119,7 +121,9 @@ Phases (any failure exits non-zero without the final ok line):
      K6A_256 and K6B_256, with a control (RoPE1d's tables on the same
      weights on the CPU) whose gradients must miss the limit; 4c. one of
      three heads of 384 (D384_MODEL) through K5_384, K6A_384 and K6B_384,
-     the same way;
+     the same way; 4d. one of two heads of 640 (D640_MODEL) through
+     K5_768, K6A_768 and K6B_768 (K6AW and K6BW launched 0 times), the
+     same way;
   5. the published 19-block model with seeded random bf16 weights through
      sampler.sample_imgs: 512px, batch 4, 20 Euler steps, guidance 5, stub
      encoders and decode; one warmup, then one timed run; each sample call must launch K1 exactly 19 * 20 times; then one more call
@@ -512,17 +516,20 @@ FLASH_DIMS = [(4, 8, 1178, 16), (4, 10, 1178, 128), (4, 8, 1178, 48)]
 # K6A_384 / K6B_384, K5_512 / K6A_512 / K6B_512 in bf16)
 FLASH_WIDE = [(4, 5, 1178, 256), (4, 8, 1178, 160), (4, 3, 1178, 384),
               (4, 2, 1178, 512)]
-# past the wgmma kernels: 640 (K5W, K6AW, K6BW in bf16), drawn from a
-# generator of its own (wide_gen) with the D = 384 / 512 instances at M != N
-# (M = N / 2, M > N), so that the shapes before them see the inputs they
-# saw
+# past 512: 640, drawn from a generator of its own (wide_gen) with the D =
+# 384 / 512 instances at M != N (M = N / 2, M > N), so that the shapes
+# before them see the inputs they saw
 FLASH_PAST_512 = (2, 2, 1178, 640)
-# since the bf16 forward past 512 has wgmma instances at 768 and 1024, 640
-# runs K5_768 forward (and K6AW, K6BW backward); two heads of 1024 run
-# K5_1024, and of 1152, past them, K5W (their backward K6AW, K6BW)
+# since the bf16 flash kernels past 512 have wgmma instances at 768 and
+# 1024, 640 runs K5_768, K6A_768, K6B_768; two heads of 1024 run K5_1024,
+# K6A_1024, K6B_1024, and of 1152, past them, K5W, K6AW, K6BW
 FLASH_1024 = (2, 2, 1178, 1024)
 FLASH_PAST_1024 = (2, 2, 1178, 1152)
 FLASH_KV_SLICED = [(2, 3, 410, 205, 384), (2, 3, 129, 300, 512)]
+# the D = 768 / 1024 backward at M != N: the 256px kv_merge shape with two
+# heads of 640 (M = N / 2) and M > N at 1000 (run at 1024), on draws of
+# their own
+FLASH_KV_PAST_512 = [(2, 2, 410, 205, 640), (2, 2, 129, 300, 1000)]
 # k and v with a key length M of their own, as kv_merge_attn's pairwise
 # merge makes them: (B, H, N, M, D) at the 512px and 256px kv_merge training
 # shapes (M = N / 2), a ragged M against a whole N, and M > N; the
@@ -764,14 +771,12 @@ def launched_once(run) -> str:
 
 
 def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
-                    streaming=None, control=False, beside=False):
+                    streaming=None, control=False):
     """One fused-attention kernel (K1; K4 with int8_qk; K8a with int8_pv; K7,
     K7q, K8b above 2048 padded tokens, or at any length with `streaming`)
     vs its plain version at one shape; with `control` also against the
     plain version at twice the softmax scale, which must miss the limit;
-    with `beside` the wide mma.sync instance of the same kernel timed on the
-    same inputs (mma_sync_ms: what took bf16 past 512 before the wgmma
-    instances at 768 and 1024); returns the measurements."""
+    returns the measurements."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import fused_attention as fa
@@ -824,14 +829,6 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
     eager_ms = cuda_ms(run_k, graph=False)
     plain_ms = cuda_ms(run_plain, iters=3, groups=3)
     library_ms = cuda_ms(run_lib)
-    beside_ms = {}
-    if beside:
-        base = fa._INFERENCE.get((int8_qk, int8_pv, streaming),
-                                 (fa.K7 if streaming else fa.K1,))[0]
-        fold = scale * fa.LOG2E
-        beside_ms["mma_sync_ms"] = cuda_ms(lambda: fa._launch(
-            base, q, k, v, cosq * fold, sinq * fold, cosk, sink, eps, eps,
-            nh, int8_qk, route=fa._WIDE[base][0]))
     # QK^T and P.V, 2*B*H*N^2*D operations each, at the int8 rate where the
     # kernel's product is int8 (K8a's second score pass is its own choice);
     # one exp2 per score
@@ -849,7 +846,7 @@ def phase_attention(shape, gen, int8_qk=False, int8_pv=False,
                kernel_vs_plain_bf16_max_abs_err=(
                    got.float() - same_rounding.float()).abs().max().item(),
                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-               library_ms=library_ms, **beside_ms,
+               library_ms=library_ms,
                **bound(t_ops, t_bytes, t_exp))
     if name in ("K4", "K8a", "K8a over K4", "K7q", "K8b", "K8b over K7q"):
         # the device time of each launch: q prep, K prep / quantize, V amax
@@ -1260,7 +1257,28 @@ def flash_label(shape, suffix="") -> str:
     return f"B={b} H={h} N={n}{f' M={m}' if m != n else ''} D={d}{suffix}"
 
 
-def phase_flash(shape, gen, check=None, control=False, grad_control=False):
+def wide_backward(kern, q, k, v, out, do, lse, delta, scale):
+    """K6AW (dq, delta) or K6BW (dk, dv), the mma.sync backward of
+    attention_fp32.cu, launched at the inputs' own head dim, a multiple of
+    128, whichever instance the bf16 route takes there: a yardstick for
+    the wgmma instances past 512, timed beside them."""
+    import torch
+    from sd3_torch.ops import flash_attention as fl
+
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if kern is fl.K6AW:
+        dq = fl._bnhd(q.shape, q)
+        fl._launch(kern, (q, k, v, out, do, lse, torch.empty_like(lse), dq),
+                   (q, k, v, out, do, dq), b, h, n, m, d, scale)
+    else:
+        dk, dv = fl._bnhd(k.shape, k), fl._bnhd(k.shape, k)
+        fl._launch(kern, (q, k, v, do, lse, delta, dk, dv),
+                   (q, k, v, do, dk, dv), b, h, n, m, d, scale)
+
+
+def phase_flash(shape, gen, check=None, control=False, grad_control=False,
+                beside=False):
     """K5, K6a and K6b vs their fp32 plain versions at one (B, H, N, D)
     shape, or (B, H, N, M, D) with k and v of M keys, on the samples and
     heads [:check[0], :check[1]] where `check` is given (the plain versions'
@@ -1269,8 +1287,9 @@ def phase_flash(shape, gen, check=None, control=False, grad_control=False):
     scale, which must miss FLASH_OUT_ATOL, and with `grad_control` dq and dk
     against the plain backward at twice the scale, which must miss the
     FLASH_GRAD limits; the kernels, the plain versions and SDPA timed at the
-    full shape (SDPA's backward by sdpa_backward_ms); returns {"K5" | "K6a"
-    | "K6b": measurements}."""
+    full shape (SDPA's backward by sdpa_backward_ms), with `beside` (bf16
+    past 512) the mma.sync K6AW / K6BW too (wide_backward; mma_sync_ms);
+    returns {"K5" | "K6a" | "K6b": measurements}."""
     import torch
     import torch.nn.functional as F
     from sd3_torch.ops import flash_attention as fl
@@ -1335,6 +1354,10 @@ def phase_flash(shape, gen, check=None, control=False, grad_control=False):
                    ms=cuda_ms(run), eager_ms=cuda_ms(run, graph=False),
                    plain_ms=cuda_ms(plain, iters=3, groups=3), **lib,
                    **bound(t_ops, t_bytes, t_exp))
+        if beside and name != "K5":
+            wide = fl.K6AW if name == "K6a" else fl.K6BW
+            res["mma_sync_ms"] = cuda_ms(lambda: wide_backward(
+                wide, q, k, v, out, do, lse, delta, scale))
         print(f"  {name}", json.dumps(res), flush=True)
         results[name] = res
     out_err = errs["K5"]["out"]["max_abs_err"]
@@ -4628,17 +4651,28 @@ def main() -> int:
         for shp in FLASH_KV_WIDE:
             phase_flash(shp, gen, control=True)
             phase_flash_fp32(shp, gen)
-        # past the wgmma backward (K5_768 forward, K6AW, K6BW at 640), and
+        # past 512: K5_768, K6A_768, K6B_768 at two heads of 640 with the
+        # controls, the mma.sync K6AW / K6BW timed beside them once, and
         # the D = 384 / 512 instances at M != N with controls, on draws of
-        # their own; then K5_1024 at two heads of 1024 and K5W past it at
-        # 1152 (their backward K6AW, K6BW), K5_768 with a control each
+        # their own; then K5_1024, K6A_1024, K6B_1024 at two heads of 1024
+        # the same way, and K5W, K6AW, K6BW past them at 1152
         gen_past = wide_gen(640)
-        k56w640 = phase_flash(FLASH_PAST_512, gen_past, control=True)
+        k56w640 = phase_flash(FLASH_PAST_512, gen_past, control=True,
+                              grad_control=True, beside=True)
         for shp in FLASH_KV_SLICED:
             phase_flash(shp, gen_past, control=True, grad_control=True)
-        k56w1024 = phase_flash(FLASH_1024, wide_gen(1024), control=True)
+        k56w1024 = phase_flash(FLASH_1024, wide_gen(1024), control=True,
+                               grad_control=True, beside=True)
         k56w1152 = phase_flash(FLASH_PAST_1024, wide_gen(1152),
                                control=True)
+        # K6A_768 / K6B_768 and K6A_1024 / K6B_1024 at M != N, and at the
+        # shape phase 4d's training step gives K6A_768 / K6B_768 (B 2, H 2,
+        # N 410, D 640), with the controls, on draws of their own
+        for shp in FLASH_KV_PAST_512:
+            phase_flash(shp, wide_gen(shp[-1] + 1), control=True,
+                        grad_control=True)
+        phase_flash(step_flash_shape(train_step_config().replace(
+            **D640_MODEL), TRAIN32_LAT), wide_gen(641), grad_control=True)
         flash_api = phase_flash_api(gen, gen_past)
         phase_k1_backward(gen)
         # the fused route past head dim 128: every kernel at each of
@@ -4646,9 +4680,8 @@ def main() -> int:
         # SLICE_WIDE (bf16: the D = 256 instances, with controls; fp32: the
         # wide instances), the bf16 D = 384 and 512 instances at
         # SLICE_WIDE_384 / 512, the D = 768 instances at SLICE_WIDE_640 and
-        # the D = 1024 ones at SLICE_WIDE_1024 (with controls, the wide
-        # mma.sync instance timed beside them), and the bf16 wide instances
-        # past 1024 at SLICE_WIDE_1152
+        # the D = 1024 ones at SLICE_WIDE_1024 (with controls), and the bf16
+        # wide instances past 1024 at SLICE_WIDE_1152
         say("phase 3f: the fused instances past 128")
         phase_attention_dims(gen)
         phase_attention_dims(wide_gen(512), WIDE_DIMS_PAST_384)
@@ -4672,10 +4705,10 @@ def main() -> int:
                                           control=True)
             wide640[nm] = phase_attention(SLICE_WIDE_640, gen640, int8_qk,
                                           int8_pv, streaming=streaming,
-                                          control=True, beside=True)
+                                          control=True)
             wide1024[nm] = phase_attention(SLICE_WIDE_1024, gen1024, int8_qk,
                                            int8_pv, streaming=streaming,
-                                           control=True, beside=True)
+                                           control=True)
             wide1152[nm] = phase_attention(SLICE_WIDE_1152, gen1152, int8_qk,
                                            int8_pv, streaming=streaming)
 
@@ -4716,6 +4749,17 @@ def main() -> int:
             log_dir, train_step_config().replace(**D384_MODEL),
             "D-384 2-block", lat=TRAIN32_LAT,
             control=dict(positional_encoding="RoPE"))
+        say("phase 4d: a training step of two heads of 640 (dim 1280, 2 "
+            "blocks, 256px, batch 2) on K5_768, K6A_768, K6B_768 (K6AW, "
+            "K6BW 0 launches) against fp32 on the CPU, RoPE1d's tables the "
+            "control")
+        step640 = phase_train_step(
+            log_dir, train_step_config().replace(**D640_MODEL),
+            "D-640 2-block", lat=TRAIN32_LAT,
+            control=dict(positional_encoding="RoPE"))
+        for kern in (flash_attention.K6AW, flash_attention.K6BW):
+            require(step640["launches"][kern.name] == 0,
+                    f"{kern.name} launched in the D-640 training step")
 
         say("phase 5: 19-block bf16 sampling, 512px, batch 4, 20 Euler "
               "steps, CFG 5", flush=True)
@@ -4926,11 +4970,25 @@ def main() -> int:
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
             (flash_attention.K6B_512, k56w[3]["K6b"], "flash_bwd_sm90.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
+            # the backward past 512: K6A_768 / K6B_768, the D = 640
+            # training step's (phase 4d), timed at two heads of 640 of the
+            # 512px length; K6A_1024 / K6B_1024 through the flash API
+            (flash_attention.K6A_768, k56w640["K6a"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:191", step640,
+             lambda run: run["launches"]),
+            (flash_attention.K6B_768, k56w640["K6b"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:222", step640,
+             lambda run: run["launches"]),
+            (flash_attention.K6A_1024, k56w1024["K6a"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
+            (flash_attention.K6B_1024, k56w1024["K6b"], "flash_bwd_sm90.cu",
+             "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
+            # past 1024 in bf16: K5W, K6AW, K6BW at two heads of 1152
             (flash_attention.K5W, k56w1152["K5"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),
-            (flash_attention.K6AW, k56w640["K6a"], "attention_fp32.cu",
+            (flash_attention.K6AW, k56w1152["K6a"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:191", flash_api, lambda run: run),
-            (flash_attention.K6BW, k56w640["K6b"], "attention_fp32.cu",
+            (flash_attention.K6BW, k56w1152["K6b"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:222", flash_api, lambda run: run),
             (flash_attention.K5WF, k56wf[0]["K5F"], "attention_fp32.cu",
              "sd3_tpu/ops/flash_attention.py:103", flash_api, lambda run: run),

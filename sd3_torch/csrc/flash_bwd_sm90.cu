@@ -199,6 +199,66 @@
 // spilling in the kept one, slower in K6b); the two slice blocks of a K6b
 // item as a cluster of two loading each tile once, TMA multicast to both
 // (0.327 against 0.266 ms at 384, 24-byte spills).
+//
+// D = 768 and 1024 (bf16 heads of 513-1024, padded; CHUNKED). Two column
+// slices of D / 2 would be 384 / 512 columns, past one wgmma's 256 and a
+// consumer's registers, so every gradient is cut into four slices of DV =
+// D / 4 (96 / 128 accumulator registers), as the forwards past 512 cut
+// their output (attention_sm90.cu). Tiles of 64 rows of the whole head do
+// not fit either: the 64 resident rows of q and dO (K6a) or of k and v
+// (K6b) alone take 192 / 256 KB of the 227. So nothing is resident:
+// - Each consumer streams its score product's two operands through a ring
+//   of its own, four stages of 16 KB, each a chunk of K_CHUNK = 64 values
+//   of the head (one atom column) of both (64 rows each; q / dO and k / v
+//   in K6a, k / v and q / dO in K6b), the product m64n64k16 SS a chunk at a
+//   time into the same 32 score registers, a chunk's stage released once
+//   the next chunk's products are in flight (the forwards' K chunks).
+// - The gradient products read their B (MN-major) from one more stage of
+//   each consumer: the tile's 64 rows of its slice's DV columns (24 / 32
+//   KB; k's in K6a, dO's for dV and q's for dK in K6b), loaded while the
+//   tile's score products run.
+// - Every TMA box is 64 rows of one atom column (8 KB), and each consumer
+//   has a producer thread of its own (lane 0 of warps 0 and 1), which
+//   issues its chunks and, once the first STAGES are in, its slice.
+// - K6a: an item is 64 query rows and a PAIR of slices (PAIRS = 2, a grid
+//   dimension, pair fastest so that both pairs of the rows run side by
+//   side on the same tiles in L2). Consumer 0 takes S = q k^T and p,
+//   consumer 1 dP = dO v^T, exchanged as at 384 / 512 through a 32 KB
+//   buffer of their own (two named barriers a key tile), and consumer c
+//   sums dQ[:, (2 pair + c) DV ..) += bf16(ds) k[:, the same columns].
+//   Both pairs compute S and dP: the score products twice, 1.67x the
+//   least FLOP (two pairs x two score products + dQ once, against three).
+// - K6b: an item is 64 key rows and one of four slices (a grid dimension,
+//   slice fastest), split by gradient as at 256-512: consumer 0 S^T = k
+//   q^T, p^T and dV[:, slice] += bf16(p^T) dO[:, slice]; consumer 1 dP^T
+//   = v dO^T, ds^T from consumer 0's p^T (the hand-over buffers of 256-512)
+//   and dK[:, slice] += bf16(ds^T) q[:, slice]. Each of the four slices
+//   computes S^T and dP^T: 2.5x the least FLOP (ten products for four).
+// - One CTA an item, not persistent: every ring starts afresh. Each
+//   consumer's producer thread loads only that consumer's stages, in the
+//   order the consumer takes them, and the consumers wait on each other
+//   only in the exchange or the hand-over, so no consumer waits on a stage
+//   that only it could free.
+// - Why not q (K6a) or k (K6b) resident, as the forwards keep q: 96 / 128
+//   KB beside two consumers' rings, the gradient products' tiles and the
+//   exchange leave no two-stage ring for the other operands. Streamed,
+//   every key tile of a K6a CTA reads 64 rows of q, k, v and dO and the
+//   pair's half of k from L2: 432 / 576 KB for 15.7 / 21.0 M FLOP.
+// Bound at (B 2, H 2, N 1178, D 640, run at 768): K6a 21.3 G FLOP, 0.0216
+// ms; K6b 28.4 G FLOP, 0.0287 ms (at the true head dim; the design's
+// products at 768: 42.6 / 85.3 G FLOP, 0.043 / 0.086 ms). Waves: K6a's
+// 152 CTAs (19 row blocks x 2 pairs x 4) fill 1.15 waves of 132 SMs, K6b's
+// 304 2.30; at (B 2, H 2, N 410) K6a's 56 CTAs fill 42% of one. What holds
+// a CTA is its own pipeline, not L2: K6a at B 1 (76 CTAs, one wave) took
+// half the time of B 2 (two waves), ~6 us a 64-row tile against ~2 us of
+// tensor work, while the score products' SS operands and the TMA writes
+// move ~930 KB of shared memory a tile at 768 (~4 us at 128 bytes a
+// clock). Copies of this source with one change each, timed in turns at
+// the shape above on one H100 (PERF.md): 128-value chunks in two stages of
+// 32 KB ran as fast as 64 in four; 32-row boxes (the slices then in two
+// stages of 32-row sub-tiles) took K6a / K6b 0.260 / 0.400 ms against
+// 0.233 / 0.312 with 64-row ones; one producer thread for both consumers
+// 0.236 / 0.313 against 0.235 / 0.290 with one each.
 
 // What bounds them on this card, at the 512px training shape (B 4, H 19,
 // N 1178, D 64): K6a's three products are 6*B*H*N^2*D = 40.5 G FLOP,
@@ -229,6 +289,9 @@ constexpr int EXCH = TURN + CONSUMERS;
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
+// past D = 512 (CHUNKED): values of the head in a chunk of a score
+// product's operands (one 128-byte atom column)
+constexpr int K_CHUNK = 64;
 
 // Shared memory of flash_dq_sm90_kernel<D>, from a 1024-byte aligned base.
 // K6a's key tile: 64 keys; 32 at D = 128, where dQ's 64 accumulators beside
@@ -238,35 +301,59 @@ constexpr float LOG2E = 1.4426950408889634f;
 // consumers take, each summing one of two column slices of dQ, with one q
 // and one dO tile; three k stages, two v stages, and the fp32 tiles the
 // consumers exchange written into the v stage of their key tile once its
-// dP is done (see "D = 384 and 512" above).
+// dP is done (see "D = 384 and 512" above). CHUNKED (D = 768, 1024): 64
+// query rows and a pair of slices of D / 4; no resident tile, each
+// consumer's stages of chunks (K: consumer 0's q and k, V: consumer 1's dO
+// and v), its stage of the key tile's slice of k (G), and the exchange in
+// a buffer of its own (X; see "D = 768 and 1024" above).
 template <int D>
 struct DqSmem {
   static constexpr bool SLICED = D > 256;
-  static constexpr int KEY_TILE = D == 512 ? 16 : D >= 128 ? 32 : 64;
-  static constexpr int STAGES = SLICED ? 2 : D == 256 ? 3 : 4;  // of v
-  static constexpr int K_STAGES = SLICED ? 3 : STAGES;           // of k
+  static constexpr bool CHUNKED = D > 512;
+  static constexpr int KEY_TILE =
+      CHUNKED ? ROWS : D == 512 ? 16 : D >= 128 ? 32 : 64;
+  static constexpr int STAGES =
+      CHUNKED ? 4 : SLICED ? 2 : D == 256 ? 3 : 4;  // of v
+  static constexpr int K_STAGES = SLICED && !CHUNKED ? 3 : STAGES;  // of k
   // the arithmetic of key tile t beside dQ of tile t-1 (see the loop); not
   // at D = 256, where dQ's 128 accumulators beside it spilled
   static constexpr bool OVERLAP = D != 256;
   static constexpr int ITEM = SLICED ? ROWS : BLOCK;  // query rows per block
-  static constexpr int DV = SLICED ? D / 2 : D;     // dQ columns a consumer sums
+  static constexpr int PAIRS = CHUNKED ? 2 : 1;     // CTAs of an item's rows
+  static constexpr int DV = SLICED ? D / (2 * PAIRS) : D;  // dQ columns a consumer sums
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of q or dO
-  static constexpr int KV_TILE = KEY_TILE * D * 2;  // one k or v tile
-  static constexpr int Q_TILES = SLICED ? 1 : CONSUMERS;  // q, dO tiles held
+  // one k or v tile; CHUNKED: one stage, a chunk of each of two operands
+  static constexpr int KV_TILE =
+      CHUNKED ? 2 * ROWS * K_CHUNK * 2 : KEY_TILE * D * 2;
+  static constexpr int Q_TILES = CHUNKED ? 0 : SLICED ? 1 : CONSUMERS;  // q, dO tiles held
   static constexpr int Q = 0;                       // [Q_TILES] q tiles
   static constexpr int DO = Q + Q_TILES * ROW_TILE;     // [Q_TILES] dO
   static constexpr int K = DO + Q_TILES * ROW_TILE;     // [K_STAGES] k
   static constexpr int V = K + K_STAGES * KV_TILE;      // [STAGES] v tiles
   // SLICED: a consumer's fp32 p (0) or dP (1) of a key tile, for the
-  // other, at c X_TILE in the tile's v stage
+  // other, at c X_TILE in the tile's v stage (CHUNKED: in X)
   static constexpr int X_TILE = SLICED ? ROWS * KEY_TILE * 4 : 0;
-  static_assert(CONSUMERS * X_TILE <= KV_TILE, "the exchange in a v stage");
+  static_assert(CHUNKED || CONSUMERS * X_TILE <= KV_TILE,
+                "the exchange in a v stage");
+  // CHUNKED: [CONSUMERS][G_STAGES] tiles of a slice of k, KEY_TILE x DV
+  static constexpr int G_STAGES = CHUNKED ? 1 : 0;
+  static constexpr int G_TILE = CHUNKED ? KEY_TILE * DV * 2 : 0;
+  static constexpr int G = V + STAGES * KV_TILE;
+  static constexpr int X = G + CONSUMERS * G_STAGES * G_TILE;
   // mbarriers: full of each K and V stage, empty of each, full of each
-  // consumer's q and dO (SLICED: of the one q and dO)
-  static constexpr int BAR = V + STAGES * KV_TILE;
+  // consumer's q and dO (SLICED: of the one q and dO); CHUNKED: full and
+  // empty of each G stage
+  static constexpr int BAR = X + (CHUNKED ? CONSUMERS * X_TILE : 0);
   static constexpr int BYTES =
-      BAR + (2 * K_STAGES + 2 * STAGES + CONSUMERS) * 8 + 1024;
+      BAR + (2 * K_STAGES + 2 * STAGES + CONSUMERS +
+             2 * CONSUMERS * G_STAGES) * 8 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
+  static_assert(!CHUNKED || (K_STAGES >= 2 && G_STAGES >= 1 &&
+                             KEY_TILE == ROWS && D % K_CHUNK == 0 &&
+                             D / K_CHUNK >= STAGES &&
+                             G % 1024 == 0 && G_TILE % 1024 == 0),
+                "past D = 512: rings of two stages or more, whole chunks, "
+                "swizzle-aligned stages");
 };
 
 // K6b's layout. SPLIT (D >= 256): an item is 64 key rows, which both
@@ -274,16 +361,19 @@ struct DqSmem {
 // 64 a consumer. Its query tile, its ring stages, and whether its score
 // products read k and v from shared memory (SS) rather than as register
 // fragments (D <= 64). Past D = 256 an item is also one of SLICES column
-// slices of DV columns of dK and dV (see "D = 384 and 512" above).
+// slices of DV columns of dK and dV (see "D = 384 and 512" above): two,
+// past 512 (CHUNKED) four (see "D = 768 and 1024").
 template <int D>
 struct DkvCfg {
   static constexpr bool SPLIT = D >= 256;
+  static constexpr bool CHUNKED = D > 512;
   static constexpr bool SS = D >= 128;
   // queries per q / dO tile
-  static constexpr int Q_TILE = D == 512 ? 16 : D == 128 || D == 384 ? 32 : 64;
-  static constexpr int STAGES = SPLIT ? 2 : 4;
+  static constexpr int Q_TILE =
+      CHUNKED ? ROWS : D == 512 ? 16 : D == 128 || D == 384 ? 32 : 64;
+  static constexpr int STAGES = SPLIT && !CHUNKED ? 2 : 4;
   static constexpr int ITEM = SPLIT ? ROWS : BLOCK;  // key rows per item
-  static constexpr int DV = D > 256 ? D / 2 : D;     // columns per item
+  static constexpr int DV = CHUNKED ? D / 4 : D > 256 ? D / 2 : D;  // columns per item
   static constexpr int SLICES = D / DV;
   // past D = 256: a tile's gradient products issued ahead of the next
   // tile's scores and waited for first, so that its stage is released
@@ -292,14 +382,21 @@ struct DkvCfg {
 };
 
 // Shared memory of flash_dkv_sm90_kernel<D>, from a 1024-byte aligned base.
+// CHUNKED: no resident k or v; Q and DO are consumer 0's (k and q chunks)
+// and consumer 1's (v and dO chunks) stages, the statistics a ring of
+// STAT_STAGES query tiles, G each consumer's stage of the query tile's
+// slice of dO (consumer 0) or q (consumer 1).
 template <int D>
 struct DkvSmem {
   static constexpr bool SPLIT = DkvCfg<D>::SPLIT;
+  static constexpr bool CHUNKED = DkvCfg<D>::CHUNKED;
   static constexpr int Q_TILE = DkvCfg<D>::Q_TILE;
   static constexpr int STAGES = DkvCfg<D>::STAGES;
   static constexpr int ROW_TILE = ROWS * D * 2;     // 64 rows of k or v
-  static constexpr int QT_TILE = Q_TILE * D * 2;    // one q or dO tile
-  static constexpr int KV_TILES = SPLIT ? 1 : CONSUMERS;  // k, v tiles held
+  // one q or dO tile; CHUNKED: one stage, a chunk of each of two operands
+  static constexpr int QT_TILE =
+      CHUNKED ? 2 * ROWS * K_CHUNK * 2 : Q_TILE * D * 2;
+  static constexpr int KV_TILES = CHUNKED ? 0 : SPLIT ? 1 : CONSUMERS;  // k, v tiles held
   static constexpr int K = 0;                       // [KV_TILES] k tiles
   static constexpr int V = K + KV_TILES * ROW_TILE;     // [KV_TILES] v
   static constexpr int Q = V + KV_TILES * ROW_TILE;     // [STAGES] q tiles
@@ -308,15 +405,29 @@ struct DkvSmem {
   // in two buffers
   static constexpr int P_TILE = SPLIT ? ROWS * Q_TILE * 4 : 0;
   static constexpr int P = DO + STAGES * QT_TILE;       // [2] p^T tiles
-  static constexpr int LSE = P + 2 * P_TILE;            // [STAGES][Q_TILE]
-  static constexpr int DELTA = LSE + STAGES * Q_TILE * 4;  // [STAGES][Q_TILE]
+  // the statistics' stages: STAGES, but two past 512 (CHUNKED), where
+  // they are a ring of their own
+  static constexpr int STAT_STAGES = CHUNKED ? 2 : STAGES;
+  static constexpr int LSE = P + 2 * P_TILE;  // [STAT_STAGES][Q_TILE]
+  static constexpr int DELTA = LSE + STAT_STAGES * Q_TILE * 4;  // the same
+  // CHUNKED: [CONSUMERS][G_STAGES] tiles of a slice, Q_TILE x DV
+  static constexpr int G_STAGES = CHUNKED ? 1 : 0;
+  static constexpr int G_TILE = CHUNKED ? Q_TILE * DkvCfg<D>::DV * 2 : 0;
+  static constexpr int G = DELTA + STAT_STAGES * Q_TILE * 4;
   // mbarriers: full / empty of each stage, full of each consumer's k and v
   // (SPLIT: of k, of v), empty of both; SPLIT: full / empty of each p^T
-  // buffer
-  static constexpr int BAR = DELTA + STAGES * Q_TILE * 4;
+  // buffer; CHUNKED: full / empty of each consumer's stages and G stages
+  static constexpr int BAR = G + CONSUMERS * G_STAGES * G_TILE;
   static constexpr int BYTES =
-      BAR + (2 * STAGES + CONSUMERS + 1 + (SPLIT ? 4 : 0)) * 8 + 1024;
+      BAR + (2 * STAGES + CONSUMERS + 1 + (SPLIT ? 4 : 0) +
+             (CHUNKED ? 2 * CONSUMERS * (STAGES + G_STAGES) : 0)) * 8 + 1024;
   static_assert(BYTES <= 232448, "shared memory of one block");
+  static_assert(!CHUNKED || (STAGES >= 2 && G_STAGES >= 1 &&
+                             Q_TILE == ROWS && D % K_CHUNK == 0 &&
+                             D / K_CHUNK >= STAGES &&
+                             G % 1024 == 0 && G_TILE % 1024 == 0),
+                "past D = 512: rings of two stages or more, whole chunks, "
+                "swizzle-aligned stages");
 };
 
 // TMA of R rows (n0.., head h, sample b) of a (D, N, H, B) view into a tile
@@ -328,6 +439,80 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
 #pragma unroll
   for (int c = 0; c < S::COLS; ++c)
     tma_load_4d(dst + c * R * S::W, m, bar, c * S::W / 2, n0, h, b);
+}
+
+// Past D = 512: TMA of ROWS rows (n0..) of NC atom columns from atom
+// column c0 of a (D, N, H, B) view whose tensor map takes boxes of ROWS
+// rows, into a tile at `dst` laid out as load_rows lays out ROWS rows.
+template <int NC>
+__device__ __forceinline__ void load_cols(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int c0, int n0, int h,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    tma_load_4d(dst + c * ROWS * 128, m, bar, (c0 + c) * 64, n0, h, b);
+}
+
+// Past D = 512: the score products of one tile, S (+)= A B^T, over the KCH
+// chunks j = t KCH + ch of a consumer's ring at `ring` (STAGES stages of
+// `stage` bytes, A's ROWS x K_CHUNK values then B's, full / empty barriers
+// `full`, `empty`, whose stage slots are 8 bytes apart): each chunk issued
+// once it has landed, its stage released once the next one's products are
+// in flight, the last once all are done. `acc` 0 overwrites S at the first
+// k-step.
+template <int KCH, int STAGES>
+__device__ __forceinline__ void chunk_scores(float (&sc)[ROWS / 2],
+                                             uint32_t ring, int stage,
+                                             uint32_t full, uint32_t empty,
+                                             int t, int acc, int lane) {
+#pragma unroll
+  for (int ch = 0; ch < KCH; ++ch) {
+    const int j = t * KCH + ch, st = j % STAGES;
+    mbar_wait(full + 8 * st, (j / STAGES) & 1);
+    const uint32_t a = ring + st * stage;
+    uint64_t da = desc_k_major<K_CHUNK>(a, ROWS, 0);
+    const uint64_t db = desc_k_major<K_CHUNK>(a + ROWS * K_CHUNK * 2, ROWS, 0);
+    asm volatile("" : "+l"(da));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K_CHUNK / 16; ++kk)
+      wgmma_ss<ROWS>(sc, da + k_step_offset<K_CHUNK>(ROWS, kk),
+                     db + k_step_offset<K_CHUNK>(ROWS, kk),
+                     ch > 0 || kk > 0 || acc);
+    wgmma_commit();
+    if (ch > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(empty + 8 * ((j - 1) % STAGES));
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(sc);
+  if (lane == 0) mbar_arrive(empty + 8 * ((t * KCH + KCH - 1) % STAGES));
+}
+
+// Past D = 512: a gradient product's tile, acc += A G, A the bf16
+// fragments `pk` of ROWS columns (k-step kk in pk[4kk ..]), G a tile of
+// ROWS rows by DV columns (MN-major) at `g` (the one stage of a consumer's
+// G, full / empty barriers `full`, `empty`), released once the products
+// are done.
+template <int DV>
+__device__ __forceinline__ void slice_grads(float (&acc)[DV / 2],
+                                            uint32_t (&pk)[ROWS / 4],
+                                            uint32_t g, uint32_t full,
+                                            uint32_t empty, int t, int lane) {
+  mbar_wait(full, t & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < ROWS / 16; ++kk) {
+    const uint32_t a[4] = {pk[4 * kk], pk[4 * kk + 1], pk[4 * kk + 2],
+                           pk[4 * kk + 3]};
+    wgmma_rs<DV>(acc, a, desc_mn_major<DV>(g, ROWS, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pk);
+  if (lane == 0) mbar_arrive(empty);
 }
 
 // The dynamic shared memory, moved up to a 1024-byte boundary (the 128-byte
@@ -443,7 +628,7 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&f)[D / 16][4],
 
 // ---- K6a ----------------------------------------------------------------
 
-// grid (ceil(N / BLOCK), H, B), THREADS threads, DqSmem<D>::BYTES of dynamic
+// grid (ceil(N / ITEM) * PAIRS, H, B), THREADS threads, DqSmem<D>::BYTES of dynamic
 // shared memory. tm_q, tm_k, tm_v, tm_do: tensor maps of q, k, v, dO (see
 // encode_view, sm90.cuh); o and dout with their views for delta; lse (B*H, N) fp32;
 // delta (B*H, N) fp32, written; dq (B, H, N, D) bf16 view.
@@ -467,19 +652,31 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_k = sb + S::BAR, full_v = full_k + 8 * KST;
   const uint32_t empty_k = full_v + 8 * STAGES, empty_v = empty_k + 8 * KST;
   const uint32_t full_q = empty_v + 8 * STAGES;
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * S::ITEM;
+  // CHUNKED: full / empty of each consumer's G stages
+  const uint32_t full_g = full_q + 8 * CONSUMERS;
+  const uint32_t empty_g = full_g + 8 * CONSUMERS * S::G_STAGES;
+  // (CHUNKED: the pair of column slices fastest)
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x / S::PAIRS * S::ITEM;
   const int ntiles = (M + KEY_TILE - 1) / KEY_TILE;
 
   if (threadIdx.x == 0) {
+    // lane 0 of each warp of the consumers that read the stage: both, but
+    // past D = 512 each stage is one consumer's
+    constexpr int READERS = (S::CHUNKED ? 1 : CONSUMERS) * 4;
     for (int s = 0; s < KST; ++s) {
       mbar_init(full_k + 8 * s, 1);
-      mbar_init(empty_k + 8 * s, CONSUMERS * 4);  // lane 0 of each warp
+      mbar_init(empty_k + 8 * s, READERS);
     }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_v + 8 * s, 1);
-      mbar_init(empty_v + 8 * s, CONSUMERS * 4);
+      mbar_init(empty_v + 8 * s, READERS);
     }
     for (int c = 0; c < CONSUMERS; ++c) mbar_init(full_q + 8 * c, 1);
+    for (int s = 0; s < CONSUMERS * S::G_STAGES; ++s) {
+      mbar_init(full_g + 8 * s, 1);
+      mbar_init(empty_g + 8 * s, 4);
+    }
     fence_barrier_init();
   }
   __syncthreads();
@@ -488,7 +685,43 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == 0) {
     // ---- producer: one thread loads q and dO, then keeps the ring full
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
+    if constexpr (S::CHUNKED) {
+      // past D = 512 one thread a consumer (lane 0 of warps 0 and 1), a
+      // key tile at a time: its chunks (consumer 0: q and k; 1: dO and v)
+      // and, once the first STAGES are issued (those the ring holds while
+      // the consumer ends the tile before), the tile's slice 2 pair + c of
+      // k, in the order the consumer takes them
+      if (threadIdx.x % 32 == 0 && threadIdx.x / 32 < CONSUMERS) {
+        constexpr int KCH = D / K_CHUNK, NC = K_CHUNK / 64;
+        constexpr int GNC = S::DV / 64;  // atom columns of a slice
+        const int c = threadIdx.x / 32, pr = blockIdx.x % S::PAIRS;
+        const CUtensorMap* ma = c == 0 ? &tm_q : &tm_do;
+        const CUtensorMap* mb = c == 0 ? &tm_k : &tm_v;
+        const uint32_t ring = sb + (c == 0 ? S::K : S::V);
+        const uint32_t full = full_k + 8 * c * STAGES;
+        const uint32_t empty = empty_k + 8 * c * STAGES;
+        const uint32_t gt = sb + S::G + c * S::G_TILE;
+        tma_prefetch(ma);
+        tma_prefetch(mb);
+        for (int t = 0; t < ntiles; ++t) {
+          for (int ch = 0; ch < KCH; ++ch) {
+            const int j = t * KCH + ch, st = j % STAGES;
+            const uint32_t dst = ring + st * S::KV_TILE;
+            mbar_wait(empty + 8 * st, ((j / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(full + 8 * st, S::KV_TILE);
+            load_cols<NC>(dst, ma, full + 8 * st, ch * NC, q0, h, b);
+            load_cols<NC>(dst + ROWS * K_CHUNK * 2, mb, full + 8 * st,
+                          ch * NC, t * KEY_TILE, h, b);
+            if (ch == STAGES - 1) {
+              mbar_wait(empty_g + 8 * c, (t & 1) ^ 1);
+              mbar_arrive_expect_tx(full_g + 8 * c, S::G_TILE);
+              load_cols<GNC>(gt, &tm_k, full_g + 8 * c, (2 * pr + c) * GNC,
+                             t * KEY_TILE, h, b);
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x == 0) {
       tma_prefetch(&tm_q);
       tma_prefetch(&tm_k);
       tma_prefetch(&tm_v);
@@ -512,6 +745,112 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                full_v + 8 * s, t * KEY_TILE, h, b);
       }
     }
+  } else if constexpr (S::CHUNKED) {
+    // ---- consumers past D = 512: both on the block's 64 query rows and
+    // its pair of slices. Consumer 0 takes S = q k^T and p, consumer 1 dP
+    // = dO v^T, each over the head's chunks from its own ring; they
+    // exchange their fp32 tiles as past 256 (but in X), and consumer c
+    // sums dQ[:, (2 pair + c) DV ..) += bf16(ds) k[:, the same columns]
+    // from its stage of k's slice.
+    constexpr int DV = S::DV;
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1, pr = blockIdx.x % S::PAIRS;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
+    const int n0 = q0 + warp * 16 + g;
+    const int n1 = n0 + 8;                   // this thread's two rows
+    const size_t bhn = ((size_t)b * H + h) * N;
+
+    // delta and lse of rows n0, n1, as below; both consumers of both pairs
+    // take the same bits, consumer 0 of pair 0 writes them
+    const bf16* oh = o + b * vo.b + h * vo.h;
+    const bf16* dh = dout + b * vdo.b + h * vdo.h;
+    float d0 = 0.f, d1 = 0.f, L0 = 0.f, L1 = 0.f;
+    if (n0 < N) {
+      d0 = quarter_dot<D>(oh + n0 * vo.n, dh + n0 * vdo.n, t4);
+      L0 = lse[bhn + n0] * LOG2E;
+    }
+    if (n1 < N) {
+      d1 = quarter_dot<D>(oh + n1 * vo.n, dh + n1 * vdo.n, t4);
+      L1 = lse[bhn + n1] * LOG2E;
+    }
+    d0 = quad_sum(d0);
+    d1 = quad_sum(d1);
+    if (t4 == 0 && c == 0 && pr == 0) {
+      if (n0 < N) delta[bhn + n0] = d0;
+      if (n1 < N) delta[bhn + n1] = d1;
+    }
+
+    const uint32_t ring = sb + (c == 0 ? S::K : S::V);
+    const uint32_t full_c = full_k + 8 * c * STAGES;
+    const uint32_t empty_c = empty_k + 8 * c * STAGES;
+    const uint32_t gt = sb + S::G + c * S::G_TILE;  // its tile of G
+    float4* const mine =
+        reinterpret_cast<float4*>(smem + S::X + c * S::X_TILE) + tid;
+    const float4* const theirs =
+        reinterpret_cast<const float4*>(smem + S::X + (1 - c) * S::X_TILE) +
+        tid;
+    float sc[KEY_TILE / 2];     // S then p (0), dP (1); then ds
+    uint32_t ds[KEY_TILE / 4];  // bf16 ds: the A fragments of dQ's steps
+    float acc[DV / 2];          // this consumer's columns of dq
+#pragma unroll
+    for (int i = 0; i < KEY_TILE / 2; ++i) sc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+
+    for (int t = 0; t < ntiles; ++t) {
+      chunk_scores<D / K_CHUNK, STAGES>(sc, ring, S::KV_TILE, full_c,
+                                        empty_c, t, 0, lane);
+      // p = exp2(s * scale * log2(e) - lse * log2(e)) in consumer 0, keys
+      // past M to -inf first (as below); then the exchange of the loop
+      // past 256: the first barrier orders this tile's writes after the
+      // other's reads of the last tile's, the second the reads after the
+      // writes; ds = p (dp - delta), the same fp32 operations on the same
+      // values in both. X is no TMA destination: no proxy fence.
+      if (c == 0) {
+        const int k0 = t * KEY_TILE;
+        if (k0 + KEY_TILE > M) {
+#pragma unroll
+          for (int j = 0; j < KEY_TILE / 8; ++j) {
+            const int col = k0 + j * 8 + t4 * 2;
+            if (col >= M) sc[4 * j] = sc[4 * j + 2] = -INFINITY;
+            if (col + 1 >= M) sc[4 * j + 1] = sc[4 * j + 3] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < KEY_TILE / 8; ++j) {
+          sc[4 * j] = fast_exp2(sc[4 * j] * scale_log2 - L0);
+          sc[4 * j + 1] = fast_exp2(sc[4 * j + 1] * scale_log2 - L0);
+          sc[4 * j + 2] = fast_exp2(sc[4 * j + 2] * scale_log2 - L1);
+          sc[4 * j + 3] = fast_exp2(sc[4 * j + 3] * scale_log2 - L1);
+        }
+      }
+      named_bar_sync(EXCH, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 8; ++i)
+        mine[i * WG] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                   sc[4 * i + 3]);
+      named_bar_sync(EXCH, 2 * WG);
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 8; ++i) {
+        const float4 x = theirs[i * WG];
+        const float o4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = c == 0 ? sc[4 * i + e] : o4[e];
+          const float dp = c == 0 ? o4[e] : sc[4 * i + e];
+          sc[4 * i + e] = p * (dp - (e < 2 ? d0 : d1));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < KEY_TILE / 4; ++i)
+        ds[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      slice_grads<DV>(acc, ds, gt, full_g + 8 * c, empty_g + 8 * c, t,
+                      lane);
+    }
+
+    store_rows<DV>(dq + b * vdq.b + h * vdq.h + (2 * pr + c) * DV, vdq.n,
+                   acc, scale, n0, N, t4);
   } else if constexpr (S::SLICED) {
     // ---- consumers past D = 256: both on the block's 64 query rows.
     // Consumer 0 takes S = q k^T and p, consumer 1 dP = dO v^T; each hands
@@ -878,8 +1217,9 @@ struct Item {
       : x(item % nx), h(item / nx % H), b(item / nx / H) {}
 };
 
-// grid min(SMs, ceil(M / ITEM) * H * B) persistent blocks, THREADS threads,
-// DkvSmem<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v, tm_do:
+// grid min(SMs, ceil(M / ITEM) * SLICES * H * B) persistent blocks (past
+// D = 512 a CTA an item: grid (ceil(M / ITEM) * SLICES, H, B)), THREADS
+// threads, DkvSmem<D>::BYTES of dynamic shared memory. tm_q, tm_k, tm_v, tm_do:
 // tensor maps of q, k, v, dO (see encode_view); lse, delta (B*H, N) fp32;
 // dk, dv (B, H, M, D) bf16 views.
 template <int D>
@@ -906,6 +1246,11 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t full_kv = empty + 8 * STAGES;
   const uint32_t empty_kv = full_kv + 8 * CONSUMERS;
   const uint32_t full_p = empty_kv + 8, empty_p = full_p + 16;  // SPLIT
+  // CHUNKED: full / empty of each consumer's stages and G stages
+  const uint32_t full_c = empty_p + 16;
+  const uint32_t empty_c = full_c + 8 * CONSUMERS * STAGES;
+  const uint32_t full_g = empty_c + 8 * CONSUMERS * STAGES;
+  const uint32_t empty_g = full_g + 8 * CONSUMERS * S::G_STAGES;
   // items: (column slice, row block x, head h, sample b), slice fastest
   const int nx = (M + ITEM - 1) / ITEM, items = nx * H * B * SLICES;
   const int ntiles = (N + Q_TILE - 1) / Q_TILE;
@@ -925,6 +1270,16 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_init(empty_p + 8 * i, WG);          // consumer 1's threads
       }
     }
+    if constexpr (S::CHUNKED) {
+      for (int s = 0; s < CONSUMERS * STAGES; ++s) {
+        mbar_init(full_c + 8 * s, 1);
+        mbar_init(empty_c + 8 * s, 4);           // the one consumer's warps
+      }
+      for (int s = 0; s < CONSUMERS * S::G_STAGES; ++s) {
+        mbar_init(full_g + 8 * s, 1);
+        mbar_init(empty_g + 8 * s, 4);
+      }
+    }
     fence_barrier_init();
   }
   __syncthreads();
@@ -937,7 +1292,66 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // across items; lane 0 issues the TMA loads, the first Q_TILE / 2 lanes
     // store lse and delta of two query rows of each stage
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x < 32) {
+    if constexpr (S::CHUNKED) {
+      // past D = 512, one item a CTA, a query tile at a time: warp 0 puts
+      // lse and delta of its rows into the statistics' stage (the first
+      // Q_TILE / 2 lanes); lane 0 of warp c loads consumer c's chunks (0:
+      // k and q; 1: v and dO) and, once the first STAGES are issued, the
+      // tile's slice of dO (0) or q (1), in the order the consumer takes
+      // them
+      const int c = threadIdx.x / 32, lane = threadIdx.x % 32;
+      if (c < CONSUMERS && (c == 0 || lane == 0)) {
+        constexpr int KCH = D / K_CHUNK, NC = K_CHUNK / 64;
+        constexpr int GNC = DkvCfg<D>::DV / 64;  // atom columns of a slice
+        const int x = blockIdx.x / SLICES, slice = blockIdx.x % SLICES;
+        const int h = blockIdx.y, b = blockIdx.z;
+        const size_t bhn = ((size_t)b * H + h) * N;
+        const CUtensorMap* ma = c == 0 ? &tm_k : &tm_v;
+        const CUtensorMap* mb = c == 0 ? &tm_q : &tm_do;
+        const CUtensorMap* mg = c == 0 ? &tm_do : &tm_q;
+        const uint32_t ring = sb + (c == 0 ? S::Q : S::DO);
+        const uint32_t fc = full_c + 8 * c * STAGES;
+        const uint32_t ec = empty_c + 8 * c * STAGES;
+        const uint32_t gt = sb + S::G + c * S::G_TILE;
+        if (lane == 0) {
+          tma_prefetch(ma);
+          tma_prefetch(mb);
+        }
+        for (int t = 0; t < ntiles; ++t) {
+          if (c == 0) {
+            const int s = t % S::STAT_STAGES;
+            const int n = t * Q_TILE + 2 * lane;
+            // lse / scale, +inf past N so that p = 0 there
+            const float la = n < N ? lse[bhn + n] / scale : INFINITY;
+            const float lb = n + 1 < N ? lse[bhn + n + 1] / scale : INFINITY;
+            const float da = n < N ? delta[bhn + n] : 0.f;
+            const float db = n + 1 < N ? delta[bhn + n + 1] : 0.f;
+            mbar_wait(empty + 8 * s, ((t / S::STAT_STAGES) & 1) ^ 1);
+            if (lane < Q_TILE / 2) {
+              stage_lse[s * Q_TILE / 2 + lane] = make_float2(la, lb);
+              stage_delta[s * Q_TILE / 2 + lane] = make_float2(da, db);
+            }
+            mbar_arrive(full + 8 * s);
+          }
+          if (lane != 0) continue;
+          for (int ch = 0; ch < KCH; ++ch) {
+            const int j = t * KCH + ch, st = j % STAGES;
+            const uint32_t dst = ring + st * S::QT_TILE;
+            mbar_wait(ec + 8 * st, ((j / STAGES) & 1) ^ 1);
+            mbar_arrive_expect_tx(fc + 8 * st, S::QT_TILE);
+            load_cols<NC>(dst, ma, fc + 8 * st, ch * NC, x * ITEM, h, b);
+            load_cols<NC>(dst + ROWS * K_CHUNK * 2, mb, fc + 8 * st,
+                          ch * NC, t * Q_TILE, h, b);
+            if (ch == STAGES - 1) {
+              mbar_wait(empty_g + 8 * c, (t & 1) ^ 1);
+              mbar_arrive_expect_tx(full_g + 8 * c, S::G_TILE);
+              load_cols<GNC>(gt, mg, full_g + 8 * c, slice * GNC, t * Q_TILE,
+                             h, b);
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
         tma_prefetch(&tm_q);
@@ -996,6 +1410,89 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       }
     }
+  } else if constexpr (S::CHUNKED) {
+    // ---- consumers past D = 512, split by gradient on the CTA's item (64
+    // key rows, one slice of DV columns): consumer 0 takes S^T = k q^T,
+    // p^T and dV[:, slice] += bf16(p^T) dO[:, slice]; consumer 1 dP^T = v
+    // dO^T, ds^T = p^T dP^T from consumer 0's fp32 p^T, and dK[:, slice] +=
+    // bf16(ds^T) q[:, slice]. Each on its own ring of chunks and its own
+    // stage of the query tile's slice, the statistics read as below.
+    constexpr int DV = DkvCfg<D>::DV;
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3;  // accumulator coordinates
+    const int x = blockIdx.x / SLICES, slice = blockIdx.x % SLICES;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const uint32_t ring = sb + (c == 0 ? S::Q : S::DO);
+    const uint32_t full_cc = full_c + 8 * c * STAGES;
+    const uint32_t empty_cc = empty_c + 8 * c * STAGES;
+    const uint32_t gt = sb + S::G + c * S::G_TILE;  // its tile of G
+    const float2* const stats = c == 0 ? stage_lse : stage_delta;
+    float4* const hand = reinterpret_cast<float4*>(smem + S::P) + tid;
+    float sc[Q_TILE / 2];       // S^T then p^T (0); dP^T then ds^T (1)
+    uint32_t pk[Q_TILE / 4];    // bf16 p^T / ds^T: the A fragments of dV / dK
+    float acc[DV / 2];          // dV (0) or dK (1)
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+
+    for (int t = 0; t < ntiles; ++t) {
+      // the products accumulate onto -lse / scale (0) or -delta (1) of
+      // their columns, as in the issue_scores of D <= 128 below; the
+      // statistics' stage is free once both have read it
+      const int s = t % S::STAT_STAGES;
+      mbar_wait(full + 8 * s, (t / S::STAT_STAGES) & 1);
+      const float2* sl = stats + s * Q_TILE / 2;
+#pragma unroll
+      for (int j = 0; j < Q_TILE / 8; ++j) {
+        const float2 l = sl[4 * j + t4];
+        sc[4 * j] = sc[4 * j + 2] = -l.x;
+        sc[4 * j + 1] = sc[4 * j + 3] = -l.y;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      chunk_scores<D / K_CHUNK, STAGES>(sc, ring, S::QT_TILE, full_cc,
+                                        empty_cc, t, 1, lane);
+      // p^T to consumer 1 through buffer t % 2, as past 256 (hand_over)
+      const int buf = t & 1;
+      const uint32_t parity = (t >> 1) & 1;
+      float4* hp = hand + buf * (S::P_TILE / 16);
+      if (c == 0) {
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 2; ++i)
+          sc[i] = fast_exp2(sc[i] * scale_log2);
+        mbar_wait(empty_p + 8 * buf, parity ^ 1);  // read two tiles ago
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 8; ++i)
+          hp[i * WG] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2],
+                                   sc[4 * i + 3]);
+        mbar_arrive(full_p + 8 * buf);
+      } else {
+        mbar_wait(full_p + 8 * buf, parity);
+#pragma unroll
+        for (int i = 0; i < Q_TILE / 8; ++i) {
+          const float4 p = hp[i * WG];
+          sc[4 * i] *= p.x;
+          sc[4 * i + 1] *= p.y;
+          sc[4 * i + 2] *= p.z;
+          sc[4 * i + 3] *= p.w;
+        }
+        mbar_arrive(empty_p + 8 * buf);
+      }
+#pragma unroll
+      for (int i = 0; i < Q_TILE / 4; ++i)
+        pk[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      slice_grads<DV>(acc, pk, gt, full_g + 8 * c, empty_g + 8 * c, t,
+                      lane);
+    }
+
+    const int r0 = x * ITEM + warp * 16 + g;
+    if (c == 0)
+      store_rows<DV>(dv + b * vdv.b + h * vdv.h + slice * DV, vdv.n, acc,
+                     1.f, r0, M, t4);
+    else
+      store_rows<DV>(dk + b * vdk.b + h * vdk.h + slice * DV, vdk.n, acc,
+                     scale, r0, M, t4);
   } else if constexpr (SPLIT) {
     // ---- consumers, split by gradient: both on the item's 64 key rows.
     // Consumer 0 takes S^T = k q^T, p^T and dV += bf16(p^T) dO; consumer 1
@@ -1356,17 +1853,18 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq,
               const long long* st, int B, int H, int N, int M, float scale,
               cudaStream_t stream) {
+  using S = DqSmem<D>;
   auto kernel = flash_dq_sm90_kernel<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  int e = opt_in_smem(kernel, DqSmem<D>::BYTES);
+  int e = opt_in_smem(kernel, S::BYTES);
   if (e == 0) e = encode_view<D, ROWS>(&tm_q, q, view_at(st, 0), B, H, N);
-  constexpr int KT = DqSmem<D>::KEY_TILE;
+  constexpr int KT = S::KEY_TILE;
   if (e == 0) e = encode_view<D, KT>(&tm_k, k, view_at(st, 1), B, H, M);
   if (e == 0) e = encode_view<D, KT>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_do, dout, view_at(st, 4), B, H, N);
   if (e != 0) return e;
-  dim3 grid((N + DqSmem<D>::ITEM - 1) / DqSmem<D>::ITEM, H, B);
-  kernel<<<grid, THREADS, DqSmem<D>::BYTES, stream>>>(
+  dim3 grid((N + S::ITEM - 1) / S::ITEM * S::PAIRS, H, B);
+  kernel<<<grid, THREADS, S::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const bf16*>(o),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(delta), static_cast<bf16*>(dq), view_at(st, 3),
@@ -1379,20 +1877,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const long long* st, int B, int H, int N, int M, float scale,
                cudaStream_t stream) {
+  using C = DkvCfg<D>;
   auto kernel = flash_dkv_sm90_kernel<D>;
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
   int blocks = 0;
   int e = opt_in_smem(kernel, DkvSmem<D>::BYTES);
-  constexpr int QT = DkvCfg<D>::Q_TILE;
+  constexpr int QT = C::Q_TILE;
   if (e == 0) e = encode_view<D, QT>(&tm_q, q, view_at(st, 0), B, H, N);
   if (e == 0) e = encode_view<D, ROWS>(&tm_k, k, view_at(st, 1), B, H, M);
   if (e == 0) e = encode_view<D, ROWS>(&tm_v, v, view_at(st, 2), B, H, M);
   if (e == 0) e = encode_view<D, QT>(&tm_do, dout, view_at(st, 3), B, H, N);
-  if (e == 0)
-    e = persistent_blocks(&blocks, B, H * DkvCfg<D>::SLICES, M,
-                          DkvCfg<D>::ITEM);
+  if (e == 0 && !C::CHUNKED)
+    e = persistent_blocks(&blocks, B, H * C::SLICES, M, C::ITEM);
   if (e != 0) return e;
-  kernel<<<blocks, THREADS, DkvSmem<D>::BYTES, stream>>>(
+  // past D = 512 a CTA an item: (slice, row block) fastest, head, sample
+  const dim3 grid = C::CHUNKED
+      ? dim3((M + C::ITEM - 1) / C::ITEM * C::SLICES, H, B) : dim3(blocks);
+  kernel<<<grid, THREADS, DkvSmem<D>::BYTES, stream>>>(
       tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), view_at(st, 4), view_at(st, 5), B, N, M, H,
@@ -1426,6 +1927,8 @@ extern "C" int sd3_flash_attention_dq(const void* q, const void* k,
     case 256: return launch_dq<256>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 384: return launch_dq<384>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     case 512: return launch_dq<512>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 768: return launch_dq<768>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
+    case 1024: return launch_dq<1024>(q, k, v, o, dout, lse, delta, dq, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1447,6 +1950,8 @@ extern "C" int sd3_flash_attention_dkv(const void* q, const void* k,
     case 256: return launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 384: return launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     case 512: return launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 768: return launch_dkv<768>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
+    case 1024: return launch_dkv<1024>(q, k, v, dout, lse, delta, dk, dv, strides, B, H, N, M, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

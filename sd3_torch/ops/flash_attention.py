@@ -39,22 +39,26 @@ consumers also share 64 query rows, one taking p, the other dP, which
 they exchange in shared memory, each summing one slice of dq (32-key
 tiles at 384, 16 at 512); K6b is K6B_256's split by gradient on one
 slice of dk and dv a work item, the slice a grid dimension (32-query
-tiles at 384, 16 at 512; `csrc/flash_bwd_sm90.cu`). The forward has two more, at
-`WGMMA_PAST_512` (768, 1024): K5_768 and K5_1024, where the output is cut
-into four slices of D / 4 and a CTA's two consumers share 64 query rows
-and write one pair of slices, the pair a grid dimension (64-key tiles,
-K in chunks of 128 values of the head; `csrc/attention_sm90.cu`), so a bf16 forward of 513 to 1024 values runs
-padded to 768 or 1024 (`forward_dim`) where its backward keeps the
-multiple of 128. Past those, one set
-for every multiple of 128: bf16 tensors take K5W (past 1024), K6AW and
-K6BW (past 512; `csrc/attention_fp32.cu`: one tf32 product of the exact
-bf16 values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF
-and K6BWF (3xTF32). Those sum the scores over
+tiles at 384, 16 at 512; `csrc/flash_bwd_sm90.cu`). All three have two
+more, at `WGMMA_PAST_512` (768, 1024): K5_768, K5_1024, K6A_768,
+K6A_1024, K6B_768 and K6B_1024, where every output is cut into four
+slices of D / 4 and the score products run over the head in chunks of 128
+values: K5's two consumers share 64 query rows and write one pair of
+slices, the pair a grid dimension (64-key tiles; `csrc/attention_sm90.cu`);
+K6a's the same, one taking p and the other dP over the chunks, which they
+exchange; K6b is K6B_512's split by gradient on one of the four slices of
+dk and dv a CTA, each consumer's operands streamed in chunks
+(`csrc/flash_bwd_sm90.cu`). So a bf16 head of 513 to 1024 values runs
+padded to 768 or 1024 (`forward_dim`), forward and backward. Past those,
+one set for every multiple of 128: bf16 tensors take K5W, K6AW and K6BW
+(past 1024; `csrc/attention_fp32.cu`: one tf32 product of the exact bf16
+values a step, p and ds rounded to bf16), fp32 tensors K5WF, K6AWF and
+K6BWF (3xTF32, past 128). Those sum the scores over
 128-wide chunks of the head, staged through shared memory a chunk at a
 time, and a block writes one 128-wide column slice of the output, so their
 shared memory does not grow with the head dim. `flash_kernel` names the
 kernel of each (entry point, dtype, head dim). Any other head dim is
-zero-padded to the next instance (up to 512 in bf16, 128 in fp32) or
+zero-padded to the next instance (up to 1024 in bf16, 128 in fp32) or
 multiple of 128, as the JAX wrapper pads D to a multiple of
 128 lanes: q, k, v (and out, dO) padded on D, the kernel run with the
 caller's scale, and out, dq, dk, dv sliced back. Zero columns add nothing
@@ -98,8 +102,8 @@ WGMMA_SLICED = (384, 512)       # 128: at 256, and in two column slices at
                                 # 384, 512 (K5, K6a, K6b and the fused
                                 # kernels)
 WGMMA_PAST_128 = (WGMMA_WIDE, *WGMMA_SLICED)
-WGMMA_PAST_512 = (768, 1024)    # and the forwards' past 512, in four
-                                # column slices (K5, the fused kernels)
+WGMMA_PAST_512 = (768, 1024)    # and past 512, in four column slices
+                                # (K5, K6a, K6b and the fused kernels)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -119,7 +123,7 @@ K6AF = Kernel("flash_attention_dq_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dq_fp32", argtypes=_BWD_ARGS)
 K6BF = Kernel("flash_attention_dkv_fp32", "attention_fp32.cu",
               "sd3_flash_attention_dkv_fp32", argtypes=_BWD_ARGS)
-# head dims past 128: bf16 (K5W, K6AW, K6BW past 512) and fp32 (the fp32
+# head dims past 128: bf16 (K5W, K6AW, K6BW past 1024) and fp32 (the fp32
 # entry points there, counted apart)
 K5W = Kernel("flash_attention_fwd_wide", "attention_fp32.cu",
              "sd3_flash_attention_fwd_wide", argtypes=_FWD_ARGS)
@@ -156,10 +160,19 @@ K6B_256, K6B_384, K6B_512 = (
     Kernel(f"flash_attention_dkv_{d}", "flash_bwd_sm90.cu",
            "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
     for d in WGMMA_PAST_128)
+# and at 768 (513 to 768) and 1024 (769 to 1024)
+K6A_768, K6A_1024 = (Kernel(f"flash_attention_dq_{d}", "flash_bwd_sm90.cu",
+                            "sd3_flash_attention_dq", argtypes=_BWD_ARGS)
+                     for d in WGMMA_PAST_512)
+K6B_768, K6B_1024 = (Kernel(f"flash_attention_dkv_{d}", "flash_bwd_sm90.cu",
+                            "sd3_flash_attention_dkv", argtypes=_BWD_ARGS)
+                     for d in WGMMA_PAST_512)
 _WGMMA = {"fwd": {WGMMA_WIDE: K5_256, 384: K5_384, 512: K5_512,
                  768: K5_768, 1024: K5_1024},
-          "dq": {WGMMA_WIDE: K6A_256, 384: K6A_384, 512: K6A_512},
-          "dkv": {WGMMA_WIDE: K6B_256, 384: K6B_384, 512: K6B_512}}
+          "dq": {WGMMA_WIDE: K6A_256, 384: K6A_384, 512: K6A_512,
+                 768: K6A_768, 1024: K6A_1024},
+          "dkv": {WGMMA_WIDE: K6B_256, 384: K6B_384, 512: K6B_512,
+                  768: K6B_768, 1024: K6B_1024}}
 # (bf16, fp32) kernels up to 128 and past it
 _KERNELS = {
     "fwd": {"small": (K5, K5F), "wide": (K5W, K5WF)},
@@ -171,11 +184,11 @@ _KERNELS = {
 def flash_kernel(which: str, dtype: torch.dtype, d: int) -> Kernel:
     """The kernel of `which` ("fwd", "dq" or "dkv") for tensors of `dtype`
     at head dim d: up to 128 K5 / K6a / K6b (fp32: their F instances); on
-    bf16 at 129 to 512 their wgmma instances at 256, 384 and 512 (K5_256,
-    K6A_256, K6B_256 .. K6B_512), and the forward's at 513 to 1024 too
-    (K5_768, K5_1024); past those, and fp32 at every head dim past 128,
-    the wide mma.sync instances (W, WF)."""
-    dp = forward_dim(d, dtype) if which == "fwd" else instance_dim(d)
+    bf16 at 129 to 1024 their wgmma instances at 256, 384, 512, 768 and
+    1024 (K5_256, K6A_256, K6B_256 .. K6B_1024; `forward_dim`); past
+    those, and fp32 at every head dim past 128, the wide mma.sync instances
+    (W, WF)."""
+    dp = forward_dim(d, dtype)
     fp32 = dtype == torch.float32
     if dp in _WGMMA[which] and not fp32:
         return _WGMMA[which][dp]
@@ -268,10 +281,11 @@ def instance_dim(d: int) -> int:
 
 
 def forward_dim(d: int, dtype: torch.dtype) -> int:
-    """The head dim of the forward instance (K5, and the fused kernels K1
-    .. K8b) that takes head dim d on `dtype`: `instance_dim(d)`, but on bf16
-    513 to 768 values run at 768 and 769 to 1024 at 1024 (WGMMA_PAST_512),
-    past which the wide instances take every multiple of WIDE again."""
+    """The head dim of the instance of K5, K6a, K6b (and of the fused
+    kernels K1 .. K8b) that takes head dim d on `dtype`: `instance_dim(d)`,
+    but on bf16 513 to 768 values run at 768 and 769 to 1024 at 1024
+    (WGMMA_PAST_512), past which the wide instances take every multiple of
+    WIDE again."""
     dp = instance_dim(d)
     if dtype != torch.float32 and WGMMA_SLICED[-1] < dp <= WGMMA_PAST_512[-1]:
         return next(e for e in WGMMA_PAST_512 if dp <= e)
@@ -359,14 +373,14 @@ def flash_fwd(q, k, v, scale: float):
 
 
 def flash_dq(q, k, v, out, dout, lse, scale: float):
-    """K6a (fp32 tensors: K6AF; bf16 at 129-256, 257-384 and 385-512:
-    K6A_256, K6A_384, K6A_512; past that, and fp32 past 128: K6AW /
+    """K6a (fp32 tensors: K6AF; bf16 at 129-256, 257-384, 385-512, 513-768
+    and 769-1024: K6A_256 .. K6A_1024; past that, and fp32 past 128: K6AW /
     K6AWF): (dq, delta fp32 (B, H, N)); its plain version on the CPU."""
     if q.device.type != "cpu":
         kern = _check_cuda("dq", (q, out, dout), (k, v))
     b, h, n, d = q.shape
     m = k.shape[2]
-    dp = instance_dim(d)
+    dp = forward_dim(d, q.dtype)
     q, k, v, out, dout = _operands((q, k, v, out, dout), dp)
     if q.device.type == "cpu":
         dq, delta = flash_dq_plain(q, k, v, out, dout, lse, scale)
@@ -380,15 +394,15 @@ def flash_dq(q, k, v, out, dout, lse, scale: float):
 
 
 def flash_dkv(q, k, v, dout, lse, delta, scale: float):
-    """K6b (fp32 tensors: K6BF; bf16 at 129-256, 257-384 and 385-512:
-    K6B_256, K6B_384, K6B_512; past that, and fp32 past 128: K6BW /
+    """K6b (fp32 tensors: K6BF; bf16 at 129-256, 257-384, 385-512, 513-768
+    and 769-1024: K6B_256 .. K6B_1024; past that, and fp32 past 128: K6BW /
     K6BWF): (dk, dv) (B, H, M, D) from the delta K6a returned; its plain
     version on the CPU."""
     if q.device.type != "cpu":
         kern = _check_cuda("dkv", (q, dout), (k, v))
     b, h, n, d = q.shape
     m = k.shape[2]
-    dp = instance_dim(d)
+    dp = forward_dim(d, q.dtype)
     q, k, v, dout = _operands((q, k, v, dout), dp)
     if q.device.type == "cpu":
         dk, dv = flash_dkv_plain(q, k, v, dout, lse, delta, scale)

@@ -4,11 +4,12 @@ of the repository (it takes its timing and its yardstick from chip_smoke.py
 there):
 
     python3 -m sd3_torch.utils.flash_bwd_diag [ptxas] [sass] [launches]
-        [d256] [d384] [d512] [sassdiff=OTHER.cu]
+        [d256] [d384] [d512] [d640] [d1024] [past512_calls]
+        [sassdiff=OTHER.cu]
 
 (the first four parts by default):
 1. "ptxas": registers, shared memory and spills of each kernel of the
-   source (every instance, D = 16 to 512), from the compiler's report of a
+   source (every instance, D = 16 to 1024), from the compiler's report of a
    fresh build beside the library;
 2. "sass": in that build, for each kernel, the exp2s (MUFU.EX2) between the
    loop's wait for the score products (DEPBAR.LE gsb0, 0x1) and its wait
@@ -32,10 +33,25 @@ there):
 5. "d384", "d512": the same for K6A_384 / K6B_384 at FLASH_WIDE[2] (B 4,
    H 3, N 1178, D 384) and K6A_512 / K6B_512 at FLASH_WIDE[3] (B 4, H 2,
    N 1178, D 512) beside K6AW / K6BW, and K6a at half the batch (one wave
-   of 64-row blocks) beside the whole;
+   of 64-row blocks) beside the whole; "d640", "d1024": K6A_768 / K6B_768
+   at FLASH_PAST_512 (B 2, H 2, N 1178, D 640, its inputs padded to 768
+   once, outside the timing) and K6A_1024 / K6B_1024 at FLASH_1024 (D
+   1024) beside K6AW / K6BW at the head dim itself, and K6a at B 1 beside
+   B 2;
 6. "sassdiff=OTHER.cu": OTHER.cu (another tree's copy of the source, with
    its own headers beside it) built beside this one, and for every kernel
    of both, whether its SASS (cuobjdump -sass) is the same;
+7. "past512_calls": the call times of K6A_768 / K6B_768 at FLASH_PAST_512
+   and phase 4d's shape (B 2, H 2, N 410, D 640) and K6A_1024 / K6B_1024
+   at FLASH_1024 (inputs padded once, outside the timing), each output's
+   rel L2 against its plain version, through the sd3_torch first on the
+   path: so it also times a copy of the tree with one change, from a
+   directory outside both trees, with that copy's root first on the path
+   and this repository's root next (for chip_smoke.py),
+       PYTHONPATH=<its root>:<this root> python3 -c "import runpy, sys;
+           sys.argv[1:] = ['past512_calls']; runpy.run_path('<this file>',
+           run_name='__main__')"
+   in turns with this tree's;
 One JSON line per part on stdout.
 """
 
@@ -153,15 +169,19 @@ def part_launches() -> dict:
     return res
 
 
-# the FLASH_WIDE shape of each wgmma instance past 128
+# the FLASH_WIDE shape of each wgmma instance past 128, and past 512 the
+# shapes of FLASH_PAST_512 (two heads of 640, run at 768) and FLASH_1024
 WIDE_SHAPES = {256: cs.FLASH_WIDE[0], 384: cs.FLASH_WIDE[2],
-               512: cs.FLASH_WIDE[3]}
+               512: cs.FLASH_WIDE[3], 640: cs.FLASH_PAST_512,
+               1024: cs.FLASH_1024}
 
 
 def _wide_case(d):
-    """FLASH_WIDE's inputs at instance d, with out, lse and delta, and the
+    """WIDE_SHAPES' inputs at head dim d, with out, lse and delta, and the
     runs of a K6a and a K6b kernel on them: (dims, dq(kern, bb),
-    dkv(kern))."""
+    dkv(kern)). The wgmma instances read the inputs zero-padded to their
+    head dim (forward_dim; padded once, here), the mma.sync ones the
+    inputs themselves."""
     import torch
     from sd3_torch.ops import flash_attention as fl
 
@@ -172,32 +192,43 @@ def _wide_case(d):
     q, k, v, do = cs.flash_inputs(shape, gen, torch.bfloat16)
     out, lse = fl.flash_fwd(q, k, v, scale)
     _, delta = fl.flash_dq(q, k, v, out, do, lse, scale)
+    dp = fl.forward_dim(d, torch.bfloat16)
+    padded = dict(zip("qkvod", (fl._pad(t, dp).contiguous()
+                                for t in (q, k, v, out, do))))
+    plain = dict(zip("qkvod", (q, k, v, out, do)))
+    wide = (fl.K6AW, fl.K6BW)
+    ins = lambda kern: ((plain, d) if kern in wide else (padded, dp))
 
     def dq(kern, bb=b):
-        sl = lambda t: t[:bb]
-        res = fl._bnhd((bb, h, n, d), q), torch.empty_like(lse[:bb])
-        fl._launch(kern, (sl(q), sl(k), sl(v), sl(out), sl(do),
+        t, dd = ins(kern)
+        sl = lambda x: x[:bb]
+        res = fl._bnhd((bb, h, n, dd), q), torch.empty_like(lse[:bb])
+        fl._launch(kern, (*(sl(t[c]) for c in "qkvod"),
                           sl(lse).contiguous(), res[1], res[0]),
-                   (sl(q), sl(k), sl(v), sl(out), sl(do), res[0]), bb, h, n,
-                   m, d, scale)
-        return res
+                   (*(sl(t[c]) for c in "qkvod"), res[0]), bb, h, n, m, dd,
+                   scale)
+        return tuple(x[..., :d] for x in res[:1]) + res[1:]
 
     def dkv(kern):
-        res = fl._bnhd(k.shape, k), fl._bnhd(k.shape, k)
-        fl._launch(kern, (q, k, v, do, lse, delta, *res),
-                   (q, k, v, do, *res), b, h, n, m, d, scale)
-        return res
+        t, dd = ins(kern)
+        res = fl._bnhd(t["k"].shape, k), fl._bnhd(t["k"].shape, k)
+        fl._launch(kern, (t["q"], t["k"], t["v"], t["d"], lse, delta, *res),
+                   (t["q"], t["k"], t["v"], t["d"], *res), b, h, n, m, dd,
+                   scale)
+        return tuple(x[..., :d] for x in res)
     return (b, h, n, m, d), dq, dkv
 
 
 def part_wide(d) -> dict:
+    import torch
     from sd3_torch.ops import flash_attention as fl
 
     (b, h, n, m, d), dq, dkv = _wide_case(d)
     shape = WIDE_SHAPES[d]
+    dp = fl.forward_dim(d, torch.bfloat16)
     res = {}
-    for name, run, routes in (("K6a", dq, (fl._WGMMA["dq"][d], fl.K6AW)),
-                              ("K6b", dkv, (fl._WGMMA["dkv"][d], fl.K6BW))):
+    for name, run, routes in (("K6a", dq, (fl._WGMMA["dq"][dp], fl.K6AW)),
+                              ("K6b", dkv, (fl._WGMMA["dkv"][dp], fl.K6BW))):
         outs = [run(kern) for kern in routes]
         times = {kern.name: [] for kern in routes}
         for kern in (*routes, *routes[::-1]):
@@ -209,9 +240,52 @@ def part_wide(d) -> dict:
             us_per_launch={kern.name: cs.per_launch_us(
                 lambda kern=kern: run(kern)) for kern in routes})
     rows = 128 if d == 256 else 64  # K6a's rows per block
-    res["K6a waves"] = {f"B={bb} ({-(-n // rows) * h * bb} blocks)":
-                        cs.cuda_ms(lambda bb=bb: dq(fl._WGMMA["dq"][d], bb))
+    pairs = 2 if dp > 512 else 1    # and its blocks per row block
+    res["K6a waves"] = {f"B={bb} ({-(-n // rows) * h * bb * pairs} blocks)":
+                        cs.cuda_ms(lambda bb=bb: dq(fl._WGMMA["dq"][dp], bb))
                         for bb in (b // 2, b)}
+    return res
+
+
+def part_past512_calls() -> dict:
+    import torch
+    from sd3_torch.ops import flash_attention as fl
+
+    res = {}
+    for shape in (cs.FLASH_PAST_512, cs.FLASH_1024,
+                  cs.step_flash_shape(cs.train_step_config().replace(
+                      **cs.D640_MODEL), cs.TRAIN32_LAT)):
+        b, h, n, d = shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = d ** -0.5
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+        out32, lse = fl.flash_fwd_plain(qf, kf, vf, scale)
+        out = out32.to(torch.bfloat16)
+        dp = fl.forward_dim(d, torch.bfloat16)
+        pq, pk, pv, po, pd = (fl._pad(t, dp).contiguous()
+                              for t in (q, k, v, out, do))
+        delta = torch.empty_like(lse)
+        dq = fl._bnhd((b, h, n, dp), q)
+        dk, dv = fl._bnhd((b, h, n, dp), q), fl._bnhd((b, h, n, dp), q)
+        k6a, k6b = fl._WGMMA["dq"][dp], fl._WGMMA["dkv"][dp]
+        run_a = lambda: fl._launch(k6a, (pq, pk, pv, po, pd, lse, delta, dq),
+                                   (pq, pk, pv, po, pd, dq), b, h, n, n, dp,
+                                   scale)
+        run_b = lambda: fl._launch(k6b, (pq, pk, pv, pd, lse, delta, dk, dv),
+                                   (pq, pk, pv, pd, dk, dv), b, h, n, n, dp,
+                                   scale)
+        run_a()
+        run_b()
+        w_dq, w_delta = fl.flash_dq_plain(qf, kf, vf, out.float(), dof, lse,
+                                          scale)
+        w_dk, w_dv = fl.flash_dkv_plain(qf, kf, vf, dof, lse, w_delta, scale)
+        err = lambda g, w: ((g[..., :d].float() - w).norm() / w.norm()).item()
+        res[cs.flash_label(shape)] = {
+            k6a.name: cs.cuda_ms(run_a), k6b.name: cs.cuda_ms(run_b),
+            "rel_l2": dict(dq=err(dq, w_dq), dk=err(dk, w_dk),
+                           dv=err(dv, w_dv))}
     return res
 
 
@@ -253,7 +327,10 @@ def main(argv=None) -> int:
                      ("launches", part_launches),
                      ("d256", lambda: part_wide(256)),
                      ("d384", lambda: part_wide(384)),
-                     ("d512", lambda: part_wide(512))):
+                     ("d512", lambda: part_wide(512)),
+                     ("d640", lambda: part_wide(640)),
+                     ("d1024", lambda: part_wide(1024)),
+                     ("past512_calls", part_past512_calls)):
         if part in args:
             print(json.dumps({part: fn()}), flush=True)
     return 0

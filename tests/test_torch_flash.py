@@ -32,14 +32,19 @@ SHAPES = [(2, 3, 47, 32), (1, 5, 300, 64), (1, 1, 2100, 8)]
 # its own, (B, H, N, M, D); at 384 and 320 (padded to 384: K6A_384,
 # K6B_384, 32-key / 32-query tiles, 64-row items) and 512 (K6A_512,
 # K6B_512, 16-key / 16-query tiles) on either side of 64 and of their tiles,
-# with one key length of its own
+# with one key length of its own; and past 512 at 640 (run padded to 768 on
+# the card: K6A_768, K6B_768, 64-row items, the head in chunks of 128) and
+# 1024 (K6A_1024, K6B_1024), JAX on five and eight 128-lane blocks, on
+# either side of 64 rows, with one key length of its own
 TILE_EDGE_SHAPES = ([(1, 2, n, d) for n in (127, 129, 257) for d in (32, 64)]
                     + [(1, 2, n, d) for n in (63, 65, 127, 129)
                        for d in (160, 256)] + [(1, 2, 65, 127, 256)]
                     + [(1, 2, n, d) for n in (31, 33, 63, 65)
                        for d in (320, 384)]
                     + [(1, 2, n, 512) for n in (15, 17, 63, 65)]
-                    + [(1, 2, 65, 17, 512)])
+                    + [(1, 2, 65, 17, 512)]
+                    + [(1, 2, 65, 640), (1, 1, 63, 1024),
+                       (1, 2, 65, 33, 640)])
 # (B, H, N, M, D): a key length of its own. kv_merge_attn's M = N / 2 (the
 # 256px training shape's 410 -> 205 at a narrow width, and a ragged one),
 # a ragged M against a whole N, M > N, and M past 2048 keys (JAX's
@@ -227,7 +232,9 @@ def test_wrapper_reads_the_general_paths_tensors_in_place(monkeypatch):
 @pytest.mark.parametrize("shape", [(2, 3, 47, 8), (1, 2, 65, 16),
                                    (2, 3, 47, 48), (1, 2, 129, 128),
                                    (2, 3, 47, 160), (1, 2, 130, 256),
-                                   (1, 2, 40, 384), (1, 2, 33, 512)])
+                                   (1, 2, 40, 384), (1, 2, 33, 512),
+                                   (1, 2, 20, 640), (1, 1, 20, 1000),
+                                   (1, 1, 20, 1152)])
 def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
     # the kernels' instances take head dims 16, 32, 64, 128 and every
     # multiple of 128 past it; the wrappers zero-pad any other up to the
@@ -235,7 +242,10 @@ def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
     # too), run with the
     # caller's scale and slice out, dq, dk, dv back, on the CPU as on the
     # card: forward and gradients of the autograd Function against JAX's
-    # flash_attention (which pads D to 128 lanes)
+    # flash_attention (which pads D to 128 lanes). On bf16, forward and
+    # backward alike pad 513-768 to 768 and 769-1024 to 1024 (the
+    # instances K5_768 .. K6B_1024), and past 1024 keep the multiple of
+    # 128 (K5W, K6AW, K6BW)
     q, k, v, do, scale = _case(shape, seed=6)
     want, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, scale),
                         *map(jnp.asarray, (q, k, v)))
@@ -252,9 +262,37 @@ def test_wrappers_pad_head_dims_to_the_instances(shape, monkeypatch):
     assert dims == [tfl.instance_dim(shape[-1])]
     _close(out, want)
     out.backward(_t(do))
-    for got, w in zip((tq.grad, tk.grad, tv.grad), vjp(jnp.asarray(do))):
+    grads = vjp(jnp.asarray(do))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), grads):
         assert got.shape == shape
         _close(got, w)
+    d = shape[-1]
+    dp = tfl.forward_dim(d, torch.bfloat16)
+    assert dp == (768 if 512 < d <= 768 else 1024 if 768 < d <= 1024
+                  else tfl.instance_dim(d))
+    want_k = ((tfl.K6A, tfl.K6B) if dp <= tfl.HEAD_DIMS[-1] else
+              (tfl._WGMMA["dq"].get(dp, tfl.K6AW),
+               tfl._WGMMA["dkv"].get(dp, tfl.K6BW)))
+    assert want_k == tuple(tfl.flash_kernel(w, torch.bfloat16, d)
+                           for w in ("dq", "dkv"))
+    seen = dict(fwd=[], dq=[], dkv=[])
+    for name, key in (("flash_dq_plain", "dq"), ("flash_dkv_plain", "dkv")):
+        fn = getattr(tfl, name)
+
+        def spy_bwd(q, *a, _fn=fn, _key=key):
+            seen[_key].append(q.shape[-1])
+            return _fn(q, *a)
+        monkeypatch.setattr(tfl, name, spy_bwd)
+    dims.clear()
+    qb, kb, vb, dob = (_t(a).to(torch.bfloat16) for a in (q, k, v, do))
+    outb, lse = tfl.flash_fwd(qb, kb, vb, scale)
+    dq, delta = tfl.flash_dq(qb, kb, vb, outb, dob, lse, scale)
+    dk, dv = tfl.flash_dkv(qb, kb, vb, dob, lse, delta, scale)
+    assert dims == seen["dq"] == seen["dkv"] == [dp]
+    for got, w in zip((dq, dk, dv), grads):
+        assert got.shape == shape and got.dtype == torch.bfloat16
+        w = torch.from_numpy(np.array(w))
+        assert ((got.float() - w).norm() / w.norm()).item() < 2e-2
 
 
 @pytest.mark.parametrize("shape", KV_SHAPES)

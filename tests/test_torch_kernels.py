@@ -494,9 +494,9 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     # = 256, 384, 512, 768 and 1024 instances, counted apart, from the same
     # sources and entry points; past 1024 in bf16, and past 128 in fp32, the
     # wide mma.sync instances of attention_fp32.cu; the flash backward in
-    # bf16 at 129-256, 257-384 and 385-512 the wgmma backward's D = 256, 384
-    # and 512 instances (K6A_256 .. K6B_512), past 512 the wide mma.sync
-    # ones
+    # bf16 at 129-256, 257-384, 385-512, 513-768 and 769-1024 the wgmma
+    # backward's D = 256, 384, 512, 768 and 1024 instances (K6A_256 ..
+    # K6B_1024, padded as the forward is), past 1024 the wide mma.sync ones
     fp32 = dtype == torch.float32
     dp = tfl.instance_dim(d)
     fwd_dp = tfl.forward_dim(d, dtype)
@@ -533,22 +533,23 @@ def test_attention_routes_by_dtype_and_head_dim(d, dtype):
     elif dp == 512:
         want = (tfl.K5_512, tfl.K6A_512, tfl.K6B_512)
     elif fwd_dp == 768:
-        want = (tfl.K5_768, tfl.K6AW, tfl.K6BW)
+        want = (tfl.K5_768, tfl.K6A_768, tfl.K6B_768)
     elif fwd_dp == 1024:
-        want = (tfl.K5_1024, tfl.K6AW, tfl.K6BW)
+        want = (tfl.K5_1024, tfl.K6A_1024, tfl.K6B_1024)
     else:
         want = (tfl.K5W, tfl.K6AW, tfl.K6BW)
     assert (fwd, dq, dkv) == want
     for k5 in (tfl.K5_256, tfl.K5_384, tfl.K5_512, tfl.K5_768,
                tfl.K5_1024):
         assert (k5.source, k5.symbol) == (tfl.K5.source, tfl.K5.symbol)
-    for e in tfl.WGMMA_PAST_128:
+    for e in (*tfl.WGMMA_PAST_128, *tfl.WGMMA_PAST_512):
         for small in (tfl.K6A, tfl.K6B):
             k6 = tfl._WGMMA["dq" if small is tfl.K6A else "dkv"][e]
             assert (k6.source, k6.symbol) == (small.source, small.symbol)
             assert k6.name == f"{small.name}_{e}"
-    # the mma.sync backward keeps bf16 past 512 and fp32 only
-    assert (dq.source == "attention_fp32.cu") == (fp32 or dp > 512)
+    # the mma.sync backward keeps bf16 past 1024 and fp32 only
+    assert (dq.source == "attention_fp32.cu") == (fp32 or fwd_dp > 1024)
+    assert dkv.source == dq.source
     assert tfl.K5.source == "attention_sm90.cu"
     # the key tile the plain version must take to meet the card's K7
     tile = tfa.stream_key_tile(False, False, d)
@@ -616,6 +617,61 @@ def test_head_dim_256_backward_fits_in_shared_memory(struct, d):
                 qt, 4, 2)
             assert c.instance("DkvCfg", e)["ITEM"] == 128
             assert c.instance("DkvCfg", e)["SLICES"] == 1
+
+
+@pytest.mark.parametrize("d", tfl.WGMMA_PAST_512)
+@pytest.mark.parametrize("struct", ["DqSmem", "DkvSmem"])
+def test_head_dim_768_1024_backward_instances_fit(struct, d):
+    # K6A_768 / K6A_1024 and K6B_768 / K6B_1024, the wgmma backward's bf16
+    # instances past head dim 512: every gradient in column slices of D / 4
+    # (the registers of one wgmma's accumulator), K6a's two consumers on 64
+    # query rows and one pair of slices (the pair a grid dimension), K6b's
+    # split by gradient on 64 key rows and one of four slices; no resident
+    # tile, each consumer's score operands streamed in chunks of K_CHUNK
+    # values of the head (one or more 128-byte atom columns) through a ring
+    # of its own, two stages or more, the gradient product's B, a 64-row
+    # tile of its slice, through a stage of its own; the shared memory
+    # their launches ask for, from the source's own constants and struct
+    # members, within one block's limit, each behind its dispatch
+    src = (kernels.CSRC_DIR / tfl.K6A.source).read_text()
+    c = _CSource("sm90.cuh", tfl.K6A.source)
+    smem = c.instance(struct, d)
+    chunk = c.eval("K_CHUNK", {})
+    assert chunk % 64 == 0 and d % chunk == 0
+    assert smem["BYTES"] <= SMEM_PER_BLOCK, smem
+    assert smem["CHUNKED"] and smem["STAGES"] >= 2 and smem["G_STAGES"] >= 1
+    assert d // chunk >= smem["STAGES"]
+    assert "static_assert(BYTES <= 232448" in src
+    if struct == "DqSmem":
+        assert f"case {d}: return launch_dq<{d}>(" in src
+        assert smem["PAIRS"] == 2 and smem["DV"] == d // 4
+        assert smem["ITEM"] == 64 and smem["KEY_TILE"] == 64
+        assert smem["Q_TILES"] == 0 and smem["K_STAGES"] == smem["STAGES"]
+        # a stage: a chunk of each of the two operands' 64 rows
+        assert smem["KV_TILE"] == 2 * 64 * chunk * 2
+        assert smem["G_TILE"] == 64 * d // 4 * 2
+        # the exchange in a buffer of its own, past the rings
+        assert smem["X_TILE"] == 64 * 64 * 4
+        assert smem["X"] == smem["G"] + 2 * smem["G_STAGES"] * smem["G_TILE"]
+        assert smem["BAR"] == smem["X"] + 2 * smem["X_TILE"]
+        # the instances up to 512 keep their layouts
+        assert not c.instance(struct, 512)["CHUNKED"]
+        assert c.instance(struct, 512)["PAIRS"] == 1
+    else:
+        cfg = c.instance("DkvCfg", d)
+        assert f"case {d}: return launch_dkv<{d}>(" in src
+        assert cfg["CHUNKED"] and cfg["SPLIT"] and cfg["ITEM"] == 64
+        assert (cfg["DV"], cfg["SLICES"]) == (d // 4, 4)
+        assert smem["Q_TILE"] == 64 and smem["KV_TILES"] == 0
+        assert smem["QT_TILE"] == 2 * 64 * chunk * 2
+        assert smem["P_TILE"] == 64 * smem["Q_TILE"] * 4
+        assert smem["G_TILE"] == 64 * d // 4 * 2
+        assert c.instance("DkvCfg", 512)["SLICES"] == 2
+        assert not c.instance("DkvCfg", 512)["CHUNKED"]
+    # swizzle-aligned stages: every TMA box of 128-byte rows at a multiple
+    # of 1024 bytes
+    for key in ("G", "G_TILE"):
+        assert smem[key] % 1024 == 0, key
 
 
 def test_flash_backward_is_the_wgmma_source():
@@ -2181,11 +2237,11 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     assert (fwd.source == "attention_sm90.cu") == (shape[-1] <= 1024)
     assert fwd is tfl._WGMMA["fwd"].get(
         tfl.forward_dim(shape[-1], torch.bfloat16), tfl.K5W)
-    dp = tfl.instance_dim(shape[-1])
+    dp = tfl.forward_dim(shape[-1], torch.bfloat16)
     assert (dq_k, dkv_k) == (
-        (tfl._WGMMA["dq"][dp], tfl._WGMMA["dkv"][dp]) if dp <= 512
+        (tfl._WGMMA["dq"][dp], tfl._WGMMA["dkv"][dp]) if dp <= 1024
         else (tfl.K6AW, tfl.K6BW))
-    assert (dq_k.source == "flash_bwd_sm90.cu") == (dp <= 512)
+    assert (dq_k.source == "flash_bwd_sm90.cu") == (dp <= 1024)
     assert _launched(before) == {kk.name: 1 for kk in (fwd, dq_k, dkv_k)}
     assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     assert out.shape == dq.shape == dk.shape == dv.shape == shape
@@ -2194,7 +2250,7 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
     for name, g, w in (("dq", dq, want[2]), ("dk", dk, want[3]),
                        ("dv", dv, want[4])):
         _assert_grad_close(g, w, name)
-    if dp in tfl.WGMMA_SLICED:
+    if dp in (*tfl.WGMMA_SLICED, *tfl.WGMMA_PAST_512):
         _assert_grad_control_misses(q, k, v, do, scale, dq, dk)
     q, k, v, do = (t.float() + 1e-3 * torch.randn_like(t.float())
                    for t in (q, k, v, do))
@@ -2212,6 +2268,62 @@ def test_flash_past_head_dim_128_matches_plain_on_the_card(cuda_device,
                 dk=_rel_l2(dk, w_dk), dv=_rel_l2(dv, w_dv))
     assert all(e <= FP32_REL_L2 for e in errs.values()), errs
     assert (lse - w_lse).abs().max().item() <= 1e-5
+
+
+# K6a / K6b on bf16 past head dim 512 (K6A_768 .. K6B_1024; past 1024
+# K6AW, K6BW): 640 and 768, 1000 and 1024 on either side of 64 query and
+# key rows, with keys of a length of their own (M < N, M > N, a ragged M),
+# the shape of the training step of two heads of 640 (B 2, H 2, N 410),
+# and 1152 past them (B, H, N, M, D)
+FLASH_BWD_PAST_512_SHAPES = [(1, 2, 65, 65, 640), (1, 1, 63, 129, 768),
+                             (2, 2, 129, 300, 768), (1, 2, 300, 150, 1000),
+                             (1, 2, 65, 33, 1024), (2, 2, 410, 410, 640),
+                             (1, 1, 1178, 1178, 1024), (1, 2, 65, 33, 1152)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_BWD_PAST_512_SHAPES)
+def test_flash_backward_past_head_dim_512_on_the_card(cuda_device, no_tf32,
+                                                      shape):
+    # K6A_768 / K6A_1024 and K6B_768 / K6B_1024 (K6AW, K6BW past 1024)
+    # against the plain backward in fp32 on the same bf16 inputs within the
+    # FLASH limits, delta by query row, dk and dv by key row; the same bits
+    # from two calls (one order of sums, no atomics); and the plain
+    # backward at twice the scale, a control that must miss the limits
+    b, h, n, m, d = shape
+    r = np.random.default_rng(12)
+    q, k, v, do = (_t(r.standard_normal((b, h, rows, d))).to(
+        cuda_device, torch.bfloat16) for rows in (n, m, m, n))
+    scale = d ** -0.5
+    dp = tfl.forward_dim(d, torch.bfloat16)
+    kerns = tuple(tfl.flash_kernel(w, torch.bfloat16, d) for w in ("dq",
+                                                                   "dkv"))
+    assert kerns == ({768: (tfl.K6A_768, tfl.K6B_768),
+                      1024: (tfl.K6A_1024, tfl.K6B_1024)}.get(
+                          dp, (tfl.K6AW, tfl.K6BW)))
+    assert (kerns[0].source == "flash_bwd_sm90.cu") == (d <= 1024)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    w_out, lse = tfl.flash_fwd_plain(qf, kf, vf, scale)
+    out = w_out.to(torch.bfloat16)
+    before = {kk.name: kk.launches for kk in kernels.REGISTRY}
+    dq, delta = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk, dv = tfl.flash_dkv(q, k, v, do, lse, delta, scale)
+    dq2, delta2 = tfl.flash_dq(q, k, v, out, do, lse, scale)
+    dk2, dv2 = tfl.flash_dkv(q, k, v, do, lse, delta2, scale)
+    torch.cuda.synchronize()
+    assert _launched(before) == {kk.name: 2 for kk in kerns}
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    assert delta.shape == (b, h, n)
+    w_dq, w_delta = tfl.flash_dq_plain(qf, kf, vf, out.float(), dof, lse,
+                                       scale)
+    w_dk, w_dv = tfl.flash_dkv_plain(qf, kf, vf, dof, lse, w_delta, scale)
+    assert (delta - w_delta).abs().max().item() <= 1e-3
+    for name, g, w in (("dq", dq, w_dq), ("dk", dk, w_dk), ("dv", dv, w_dv)):
+        _assert_grad_close(g, w, name)
+    if d <= 1024:
+        assert all(torch.equal(x, y) for x, y in (
+            (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+    _assert_grad_control_misses(q, k, v, do, scale, dq, dk)
 
 
 # K5 on bf16 past head dim 512 (K5_768, K5_1024; past 1024 K5W): 640 and
